@@ -1,0 +1,222 @@
+// Cell-pair Buckingham forces over the sorted cell-slot layout (sm_90a).
+//
+// Replaces: lammps_buck_intel_tpu/models/pair/cellpair.py
+//   compute_cell_tiles_newton (:291) with styles.py pair_terms (:300),
+//   buck branch: F = A exp(-r/rho) / rho - 6 C / r^7, E = A exp(-r/rho)
+//   - C / r^6 - offset, strict cut test rsq < cut_ljsq.
+//
+// Design.  One thread block per cell, one thread per slot of the cell
+// (blockDim = cap rounded up to a warp).  The block walks the FULL
+// (3, 3, 2*reach_z+1) stencil of neighbour cells; for each it stages the
+// j-cell's x/y/z/aid/typ in shared memory with the periodic shift added
+// on load (shift = +-L exactly where the stencil wraps), then every
+// thread sums the forces of its slot over the staged slots.  No Newton:
+// each pair is evaluated from both sides, so forces need no atomics and
+// are deterministic; energy and virial are halved by the caller.  Empty
+// slots (aid >= n) and aid_i == aid_j are skipped.  Energy and virial
+// per block are reduced in a fixed shuffle tree into partial[cell][8] =
+// (evdwl, ecoul = 0, vxx, vyy, vzz, vxy, vxz, vyz); the caller sums the
+// partials over cells in a second, deterministic pass.
+//
+// What bounds it on the H100.  Candidate pairs, not bytes: at buck_big
+// (192k atoms, cut 5.0 + skin 0.3, reach_z 1, cap 192) each atom tests
+// 27 * 192 candidates of which ~1/10 fall inside the cutoff; every
+// candidate costs a shared load, a distance and a compare.  The tile
+// staging keeps device-memory traffic at one read of each neighbour cell
+// per block.  Faster forms (Newton with atomic reaction forces, compacted
+// candidate lists, cluster-pair layouts) are later work; this kernel is
+// the simple correct one.
+//
+// Precision: templated on (flt, acc) = (float, float), (float, double),
+// (double, double).  Launches on the caller's stream, allocates nothing,
+// returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kNcoef = 8;  // COEF_NAMES column layout of styles.py
+constexpr int kMaxThreads = 1024;
+
+__device__ __forceinline__ float dev_exp(float v) { return expf(v); }
+__device__ __forceinline__ double dev_exp(double v) { return exp(v); }
+__device__ __forceinline__ float dev_sqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double dev_sqrt(double v) { return sqrt(v); }
+
+template <typename A>
+__device__ __forceinline__ A warp_sum(A v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T, typename A, bool EV>
+__global__ void cellpair_kernel(
+    const T* __restrict__ x, const T* __restrict__ y,
+    const T* __restrict__ z, const int* __restrict__ typ,
+    const int* __restrict__ aid, const T* __restrict__ coef, int ntypes,
+    int n, int ncx, int ncy, int ncz, int cap, int reach_z, double Lx,
+    double Ly, double Lz, A* __restrict__ fx, A* __restrict__ fy,
+    A* __restrict__ fz, A* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ncoef = ntypes * ntypes * kNcoef;
+  T* s_coef = reinterpret_cast<T*>(smem_raw);
+  T* s_x = s_coef + ncoef;
+  T* s_y = s_x + cap;
+  T* s_z = s_y + cap;
+  int* s_aid = reinterpret_cast<int*>(s_z + cap);
+  int* s_typ = s_aid + cap;
+
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int k = tid; k < ncoef; k += blockDim.x) s_coef[k] = coef[k];
+
+  const int cz = c % ncz;
+  const int cy = (c / ncz) % ncy;
+  const int cx = c / (ncz * ncy);
+  const bool has_i = tid < cap;
+  const int si = c * cap + tid;
+  int ai = n, ti = 0;
+  T xi = 0, yi = 0, zi = 0;
+  if (has_i) {
+    ai = aid[si];
+    ti = typ[si];
+    xi = x[si];
+    yi = y[si];
+    zi = z[si];
+  }
+  const bool active = has_i && ai < n;
+  A fxi = 0, fyi = 0, fzi = 0;
+  A ev = 0, v0 = 0, v1 = 0, v2 = 0, v3 = 0, v4 = 0, v5 = 0;
+
+  const int nz = 2 * reach_z + 1;
+  const int S = 9 * nz;
+  for (int k = 0; k < S; ++k) {
+    int tx = cx + k / (3 * nz) - 1;
+    int ty = cy + (k / nz) % 3 - 1;
+    int tz = cz + k % nz - reach_z;
+    const int wx = (tx >= ncx) - (tx < 0);
+    const int wy = (ty >= ncy) - (ty < 0);
+    const int wz = (tz >= ncz) - (tz < 0);
+    tx -= wx * ncx;
+    ty -= wy * ncy;
+    tz -= wz * ncz;
+    // f64 product rounded once to T, as the JAX package's shift table
+    const T shx = static_cast<T>(wx * Lx);
+    const T shy = static_cast<T>(wy * Ly);
+    const T shz = static_cast<T>(wz * Lz);
+    const int cj = (tx * ncy + ty) * ncz + tz;
+    __syncthreads();  // the previous j tile is consumed
+    for (int j = tid; j < cap; j += blockDim.x) {
+      const int sj = cj * cap + j;
+      s_x[j] = x[sj] + shx;
+      s_y[j] = y[sj] + shy;
+      s_z[j] = z[sj] + shz;
+      s_aid[j] = aid[sj];
+      s_typ[j] = typ[sj];
+    }
+    __syncthreads();
+    if (!active) continue;
+    const T* crow = s_coef + ti * ntypes * kNcoef;
+    for (int j = 0; j < cap; ++j) {
+      const int aj = s_aid[j];
+      if (aj >= n || aj == ai) continue;
+      const T dx = xi - s_x[j];
+      const T dy = yi - s_y[j];
+      const T dz = zi - s_z[j];
+      T rsq = dx * dx + dy * dy + dz * dz;
+      rsq = rsq > T(1e-12) ? rsq : T(1e-12);
+      const T* cf = crow + s_typ[j] * kNcoef;
+      if (!(rsq < cf[5])) continue;  // cut_ljsq, strict
+      const T r2inv = T(1) / rsq;
+      const T r = dev_sqrt(rsq);
+      const T r6inv = r2inv * r2inv * r2inv;
+      const T rexp = dev_exp(-r * cf[4]);  // rhoinv
+      const T fs = (r * rexp * cf[0] - r6inv * cf[1]) * r2inv;  // buck1, buck2
+      fxi += static_cast<A>(fs * dx);
+      fyi += static_cast<A>(fs * dy);
+      fzi += static_cast<A>(fs * dz);
+      if (EV) {
+        ev += static_cast<A>(cf[2] * rexp - cf[3] * r6inv - cf[6]);
+        v0 += static_cast<A>(fs * dx * dx);
+        v1 += static_cast<A>(fs * dy * dy);
+        v2 += static_cast<A>(fs * dz * dz);
+        v3 += static_cast<A>(fs * dx * dy);
+        v4 += static_cast<A>(fs * dx * dz);
+        v5 += static_cast<A>(fs * dy * dz);
+      }
+    }
+  }
+  if (has_i) {
+    fx[si] = fxi;
+    fy[si] = fyi;
+    fz[si] = fzi;
+  }
+  if (EV) {
+    __shared__ A red[kMaxThreads / 32][7];
+    A vals[7] = {ev, v0, v1, v2, v3, v4, v5};
+    const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+    for (int q = 0; q < 7; ++q) {
+      const A s = warp_sum(vals[q]);
+      if (lane == 0) red[warp][q] = s;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int nwarps = blockDim.x >> 5;
+#pragma unroll
+      for (int q = 0; q < 7; ++q) {
+        const A s = warp_sum(lane < nwarps ? red[lane][q] : A(0));
+        if (lane == 0) partial[c * 8 + (q == 0 ? 0 : q + 1)] = s;
+      }
+      if (lane == 0) partial[c * 8 + 1] = A(0);
+    }
+  }
+}
+
+template <typename T, typename A, bool EV>
+int launch(const void* x, const void* y, const void* z, const void* typ,
+           const void* aid, const void* coef, int ntypes, int n, int ncx,
+           int ncy, int ncz, int cap, int reach_z, double Lx, double Ly,
+           double Lz, void* fx, void* fy, void* fz, void* partial,
+           cudaStream_t stream) {
+  const int threads = ((cap + 31) / 32) * 32;
+  if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(T) * (ntypes * ntypes * kNcoef + 3 * cap) +
+                      sizeof(int) * 2 * cap;
+  cellpair_kernel<T, A, EV><<<ncx * ncy * ncz, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(z), static_cast<const int*>(typ),
+      static_cast<const int*>(aid), static_cast<const T*>(coef), ntypes, n,
+      ncx, ncy, ncz, cap, reach_z, Lx, Ly, Lz, static_cast<A*>(fx),
+      static_cast<A*>(fy), static_cast<A*>(fz), static_cast<A*>(partial));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// prec: 0 = (float, float), 1 = (float, double), 2 = (double, double).
+// ev != 0 also writes partial[ncell][8]; fx/fy/fz are acc-typed (ncell*cap).
+extern "C" int cellpair_forces(int prec, int ev, const void* x,
+                               const void* y, const void* z,
+                               const void* typ, const void* aid,
+                               const void* coef, int ntypes, int n, int ncx,
+                               int ncy, int ncz, int cap, int reach_z,
+                               double Lx, double Ly, double Lz, void* fx,
+                               void* fy, void* fz, void* partial,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CELLPAIR_ARGS                                                     \
+  x, y, z, typ, aid, coef, ntypes, n, ncx, ncy, ncz, cap, reach_z, Lx, Ly, \
+      Lz, fx, fy, fz, partial, s
+  switch (prec * 2 + (ev ? 1 : 0)) {
+    case 0: return launch<float, float, false>(CELLPAIR_ARGS);
+    case 1: return launch<float, float, true>(CELLPAIR_ARGS);
+    case 2: return launch<float, double, false>(CELLPAIR_ARGS);
+    case 3: return launch<float, double, true>(CELLPAIR_ARGS);
+    case 4: return launch<double, double, false>(CELLPAIR_ARGS);
+    case 5: return launch<double, double, true>(CELLPAIR_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CELLPAIR_ARGS
+}

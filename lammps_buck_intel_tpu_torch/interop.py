@@ -1,0 +1,51 @@
+"""Carry parameters and state between the JAX package and the port.
+
+Numpy arrays only, so this module never imports jax: the caller fetches
+the JAX side with ``jax.device_get`` and passes plain numpy.  The tests
+use it to feed identical inputs to both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.pair.styles import PairConfig, PairStyle
+from .neighbor.cell_slots import MOVE_FIELDS, SlotState
+
+
+def pair_style_from_numpy(tables, special_lj, special_coul, qqrd2e: float,
+                          g_ewald: float, cutsq_max: float,
+                          cfg_fields: dict) -> PairStyle:
+    """The port's PairStyle from the JAX PairStyle's fields
+    (``cfg_fields`` = name, vdw, coul, disp of its PairConfig)."""
+    return PairStyle(
+        cfg=PairConfig(**cfg_fields),
+        tables=np.array(tables, np.float64),
+        special_lj=np.array(special_lj, np.float64),
+        special_coul=np.array(special_coul, np.float64),
+        qqrd2e=float(qqrd2e), g_ewald=float(g_ewald),
+        cutsq_max=float(cutsq_max))
+
+
+def slot_state_from_numpy(planes: dict, device="cpu") -> SlotState:
+    """A JAX SlotState (as a dict of numpy planes) -> the port's.
+
+    Float planes keep their dtype; therm must be empty (NVE) and comp
+    None (no compensated planes in the port)."""
+    if planes.get("comp") is not None:
+        raise NotImplementedError("compensated slot planes are not ported")
+    therm = planes.get("therm")
+    if therm is not None and np.size(therm):
+        raise NotImplementedError(
+            "Nose-Hoover chain state is not ported: ROADMAP queue 1 item 9")
+    out = {f: torch.from_numpy(np.array(planes[f])).to(device)
+           for f in MOVE_FIELDS}
+    for f in ("ix", "iy", "iz", "typ", "aid"):
+        out[f] = out[f].to(torch.int32)
+    out["overflow"] = torch.tensor(bool(planes["overflow"]), device=device)
+    return SlotState(**out)
+
+
+def slot_state_to_numpy(state: SlotState) -> dict:
+    """The port's SlotState -> a dict of numpy planes (JAX field names)."""
+    return {f: t.detach().cpu().numpy() for f, t in state._asdict().items()}

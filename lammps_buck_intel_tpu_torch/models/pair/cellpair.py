@@ -1,0 +1,203 @@
+"""Cell-pair force evaluation over the sorted slot layout.
+
+Counterpart of ``lammps_buck_intel_tpu.models.pair.cellpair``.  The JAX
+package evaluates a Newton half stencil (self + K positive cell offsets)
+as dense (tile, cap, K*cap) tiles and routes the reaction forces back;
+that form existed for XLA on a TPU.  The port evaluates the FULL stencil
+without Newton: each slot i sums over every slot j of the (3, 3,
+2*reach_z+1) neighbour cells, excluding only aid_i == aid_j.  No
+reaction forces means no atomics and deterministic forces, at about
+1.9x the pair physics; energy and virial count each pair twice and are
+halved.
+
+``compute_cellpair`` dispatches on the device of the planes: CUDA
+tensors launch the hand-written kernel (csrc/cellpair.cu through
+``ops.cellpair``), CPU tensors run ``compute_cellpair_plain``.  Special
+bonds, molecule exclusion and tilted boxes are ROADMAP queue 1 items 12
+and 14.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ...core.box import Box
+from ...neighbor.cell_slots import CellGrid, SlotState
+from .styles import COEF_NAMES, PairStyle, pair_terms
+
+# Largest type count the kernel's shared coefficient table holds.
+MAX_TYPES = 8
+
+
+class CellPairResult(NamedTuple):
+    fx: torch.Tensor
+    fy: torch.Tensor
+    fz: torch.Tensor
+    evdwl: torch.Tensor
+    ecoul: torch.Tensor
+    virial: torch.Tensor
+
+
+def half_offsets(reach_z: int = 1) -> np.ndarray:
+    """(K, 3) self + lexicographically-positive cell offsets of the
+    Newton half stencil (the JAX package's kernel): ox, oy in {-1, 0, 1},
+    oz in [-reach_z, reach_z], self first.  K = 9r + 5."""
+    offs = [(0, 0, 0)]
+    for ox in (-1, 0, 1):
+        for oy in (-1, 0, 1):
+            for oz in range(-reach_z, reach_z + 1):
+                if (ox, oy, oz) > (0, 0, 0):
+                    offs.append((ox, oy, oz))
+    return np.asarray(offs, np.int64)
+
+
+def full_offsets(reach_z: int = 1) -> np.ndarray:
+    """(S, 3) every offset of the full stencil, S = 9 * (2r + 1), in the
+    order the CUDA kernel walks them (x slowest, z fastest)."""
+    return np.asarray([(ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
+                       for oz in range(-reach_z, reach_z + 1)], np.int64)
+
+
+def half_stencil_tables(nc: tuple, offs: np.ndarray):
+    """Static per-(cell, offset) tables for any offset list.
+
+    Returns (half (ncell, K) cell ids of cell + off, inv (ncell, K) cell
+    ids of cell - off, shifts (ncell, K, 3) in {-1, 0, +1}: the true j
+    position is the stored position + shift * L).  The shift replaces
+    per-pair minimum-image rounding; it is exact for nc >= 2*|off|+1 on
+    every axis, which ``make_grid`` guarantees.
+    """
+    ncx, ncy, ncz = nc
+    ci, cj, ck = np.meshgrid(
+        np.arange(ncx), np.arange(ncy), np.arange(ncz), indexing="ij")
+    cells = np.stack([ci.reshape(-1), cj.reshape(-1), ck.reshape(-1)], -1)
+    ncv = np.asarray(nc)
+    K = offs.shape[0]
+    ncell = cells.shape[0]
+    half = np.zeros((ncell, K), np.int32)
+    inv = np.zeros((ncell, K), np.int32)
+    shifts = np.zeros((ncell, K, 3), np.float64)
+    for k in range(K):
+        tgt = cells + offs[k]
+        shifts[:, k, :] = (tgt >= ncv).astype(np.float64) - (tgt < 0)
+        w = np.mod(tgt, ncv)
+        half[:, k] = (w[:, 0] * ncy + w[:, 1]) * ncz + w[:, 2]
+        wi = np.mod(cells - offs[k], ncv)
+        inv[:, k] = (wi[:, 0] * ncy + wi[:, 1]) * ncz + wi[:, 2]
+    return half, inv, shifts
+
+
+def check_style(style: PairStyle):
+    """Raise for what neither the kernel nor the plain version covers."""
+    cfg = style.cfg
+    if cfg.vdw != "buck" or cfg.coul != "none" or cfg.disp != "cut":
+        raise NotImplementedError(
+            f"cell-pair forces for {cfg.name!r}: only plain buck is ported "
+            "(Coulomb is slice 2, ROADMAP queue 1 items 7-8)")
+    ntypes = style.tables.shape[0]
+    if ntypes > MAX_TYPES:
+        raise ValueError(
+            f"{ntypes} atom types: the cell-pair kernel holds at most "
+            f"{MAX_TYPES}")
+
+
+def _chunk_cells(cap: int, S: int, ncell: int,
+                 budget_elems: int = 1 << 24) -> int:
+    """Cells per plain-version chunk: bounds the (chunk, cap, S*cap) pair
+    temporaries (about a dozen live at once)."""
+    return max(1, min(ncell, budget_elems // max(cap * S * cap, 1)))
+
+
+def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
+                           state: SlotState, *, eflag: bool = False,
+                           vflag: bool = False,
+                           acc_dtype=torch.float32) -> CellPairResult:
+    """Plain torch full-stencil evaluation as dense cell tiles, chunked
+    over cells (any device)."""
+    check_style(style)
+    ncell, cap, n = grid.ncell, grid.cap, grid.n_atoms
+    flt = state.x.dtype
+    dev = state.x.device
+    offs = full_offsets(grid.reach_z)
+    S = offs.shape[0]
+    nbr, _, shifts = half_stencil_tables(grid.nc, offs)
+    L = np.asarray(box.lengths, np.float64)
+    nbr_t = torch.as_tensor(nbr, dtype=torch.long, device=dev)
+    # f64 product rounded once to flt, as the JAX package does
+    shift_t = torch.as_tensor(shifts * L, device=dev).to(flt)
+
+    ntypes = style.tables.shape[0]
+    flat = style.tables.reshape(ntypes * ntypes, -1)
+    if ntypes == 1:
+        coef1 = {name: float(flat[0, c]) for c, name in enumerate(COEF_NAMES)}
+    else:
+        coef_t = torch.as_tensor(flat, device=dev).to(flt)
+
+    pos = [state.x.view(ncell, cap), state.y.view(ncell, cap),
+           state.z.view(ncell, cap)]
+    aid = state.aid.view(ncell, cap)
+    typ = state.typ.view(ncell, cap)
+    f_out = [torch.zeros((ncell, cap), dtype=acc_dtype, device=dev)
+             for _ in range(3)]
+    ev = torch.zeros((), dtype=acc_dtype, device=dev)
+    vir = torch.zeros((6,), dtype=acc_dtype, device=dev)
+    chunk = _chunk_cells(cap, S, ncell)
+    for c0 in range(0, ncell, chunk):
+        c1 = min(ncell, c0 + chunk)
+        js = nbr_t[c0:c1]                                   # (C, S)
+        d = []
+        for ax in range(3):
+            pj = (pos[ax][js] + shift_t[c0:c1, :, ax, None]).reshape(
+                c1 - c0, 1, S * cap)
+            d.append(pos[ax][c0:c1, :, None] - pj)          # (C, cap, S*cap)
+        rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        ai = aid[c0:c1, :, None]
+        aj = aid[js].reshape(c1 - c0, 1, S * cap)
+        mask = (ai < n) & (aj < n) & (ai != aj)
+        rsq = torch.where(mask, rsq, torch.full_like(rsq, 1e30))
+        if ntypes == 1:
+            coef = coef1
+        else:
+            tt = (typ[c0:c1, :, None] * ntypes
+                  + typ[js].reshape(c1 - c0, 1, S * cap)).long()
+            coef = {name: coef_t[:, c][tt] for c, name in enumerate(COEF_NAMES)}
+        fs, e, _ = pair_terms(style, rsq, coef, 0.0, 0.0, 1.0, 1.0,
+                              eflag=eflag)
+        fs = torch.where(mask, fs, torch.zeros_like(fs))
+        for ax in range(3):
+            f_out[ax][c0:c1] = (fs * d[ax]).to(acc_dtype).sum(-1)
+        if eflag:
+            ev = ev + torch.where(mask, e, torch.zeros_like(e)).to(
+                acc_dtype).sum()
+        if vflag:
+            vir = vir + torch.stack([
+                (fs * d[a] * d[b]).to(acc_dtype).sum()
+                for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))])
+    # every pair was seen from both sides
+    return CellPairResult(
+        fx=f_out[0].reshape(-1), fy=f_out[1].reshape(-1),
+        fz=f_out[2].reshape(-1), evdwl=0.5 * ev,
+        ecoul=torch.zeros((), dtype=acc_dtype, device=dev), virial=0.5 * vir)
+
+
+def compute_cellpair(style: PairStyle, grid: CellGrid, box: Box,
+                     state: SlotState, *, eflag: bool = False,
+                     vflag: bool = False,
+                     acc_dtype=torch.float32) -> CellPairResult:
+    """Pair forces (acc dtype, slot order) + evdwl/ecoul/virial.
+
+    CUDA planes launch the kernel; CPU planes run the plain version.
+    Without eflag/vflag the energy/virial fields are zeros."""
+    if state.x.is_cuda:
+        from ...ops import cellpair as cellpair_ops
+
+        return cellpair_ops.cellpair_forces(
+            style, grid, box, state, eflag=eflag or vflag,
+            acc_dtype=acc_dtype)
+    if state.x.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {state.x.device}")
+    return compute_cellpair_plain(style, grid, box, state, eflag=eflag,
+                                  vflag=vflag, acc_dtype=acc_dtype)

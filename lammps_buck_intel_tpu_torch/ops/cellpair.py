@@ -1,0 +1,86 @@
+"""Launch wrapper of the cell-pair force kernel (csrc/cellpair.cu).
+
+The plain version of the same function is
+``models.pair.cellpair.compute_cellpair_plain``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import LAUNCHES
+from . import build
+from ..models.pair.cellpair import CellPairResult, check_style
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_PREC = {(torch.float32, torch.float32): 0, (torch.float32, torch.float64): 1,
+         (torch.float64, torch.float64): 2}
+# the kernel runs one thread per slot of a cell
+MAX_CAP = 1024
+
+
+def _lib():
+    lib = build.load("cellpair")
+    if lib.cellpair_forces.argtypes is None:
+        lib.cellpair_forces.argtypes = (
+            [_I, _I] + [_P] * 6 + [_I] * 7 + [_D] * 3 + [_P] * 5)
+        lib.cellpair_forces.restype = _I
+    return lib
+
+
+def check_plane(t: torch.Tensor, name: str, dtype, numel: int, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != 1 or t.numel() != numel:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected ({numel},)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def cellpair_forces(style, grid, box, state, *, eflag: bool,
+                    acc_dtype) -> CellPairResult:
+    """Full-stencil pair forces on the card.  eflag also computes evdwl
+    and the virial (the kernel's EV variant)."""
+    check_style(style)
+    dev = state.x.device
+    if dev.type != "cuda":
+        raise ValueError(f"cellpair kernel needs CUDA tensors, got {dev}")
+    flt = state.x.dtype
+    prec = _PREC.get((flt, acc_dtype))
+    if prec is None:
+        raise TypeError(f"unsupported (flt, acc) = ({flt}, {acc_dtype})")
+    if grid.cap > MAX_CAP:
+        raise ValueError(f"cell capacity {grid.cap} > {MAX_CAP}")
+    ns = grid.nslots
+    for name in ("x", "y", "z"):
+        check_plane(getattr(state, name), name, flt, ns, dev)
+    for name in ("typ", "aid"):
+        check_plane(getattr(state, name), name, torch.int32, ns, dev)
+    coef = style.tables_on(flt, dev)
+    ntypes = style.tables.shape[0]
+    fx, fy, fz = (torch.empty(ns, dtype=acc_dtype, device=dev)
+                  for _ in range(3))
+    partial = (torch.empty((grid.ncell, 8), dtype=acc_dtype, device=dev)
+               if eflag else None)
+    L = [float(v) for v in box.lengths]
+    rc = _lib().cellpair_forces(
+        prec, int(eflag), state.x.data_ptr(), state.y.data_ptr(),
+        state.z.data_ptr(), state.typ.data_ptr(), state.aid.data_ptr(),
+        coef.data_ptr(), ntypes, grid.n_atoms, *grid.nc, grid.cap,
+        grid.reach_z, *L, fx.data_ptr(), fy.data_ptr(), fz.data_ptr(),
+        partial.data_ptr() if eflag else None,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cellpair kernel launch failed: CUDA error {rc}")
+    LAUNCHES["cellpair"] += 1
+    zero = torch.zeros((), dtype=acc_dtype, device=dev)
+    if not eflag:
+        return CellPairResult(fx, fy, fz, zero, zero,
+                              torch.zeros(6, dtype=acc_dtype, device=dev))
+    # each pair was evaluated from both sides
+    tot = 0.5 * partial.sum(0)
+    return CellPairResult(fx, fy, fz, tot[0], tot[1], tot[2:8])

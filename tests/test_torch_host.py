@@ -1,0 +1,134 @@
+"""Host layer of the PyTorch port against the JAX package (CPU).
+
+Lattice, velocity seeding (numpy and RanPark streams), boxes, units and
+systems must give arrays identical to the JAX package's; the port must
+import without jax; unported deck features and a missing GPU must raise.
+"""
+import copy
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from lammps_buck_intel_tpu import core as jcore
+from lammps_buck_intel_tpu.io import lattice as jlattice
+from lammps_buck_intel_tpu.io import velocity as jvelocity
+from lammps_buck_intel_tpu_torch import core as tcore
+from lammps_buck_intel_tpu_torch.io import lattice as tlattice
+from lammps_buck_intel_tpu_torch.io import velocity as tvelocity
+from lammps_buck_intel_tpu_torch.run import build_simulation
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DECKS = os.path.join(ROOT, "examples", "decks")
+
+
+def _deck(name="buck.yaml"):
+    with open(os.path.join(DECKS, name)) as f:
+        cfg = yaml.safe_load(f)
+    cfg["lattice"].update(nx=6, ny=6, nz=6)
+    return cfg
+
+
+@pytest.mark.parametrize("style,dims", [("fcc", (3, 4, 5)), ("bcc", (4, 4, 4)),
+                                        ("sc", (2, 3, 4))])
+def test_create_atoms_identical(style, dims):
+    a = jlattice.create_atoms(style, 0.8442, *dims)
+    b = tlattice.create_atoms(style, 0.8442, *dims)
+    for u, v in zip(a, b):
+        assert np.array_equal(u, v)
+    assert (jlattice.lattice_constant(style, 0.8442)
+            == tlattice.lattice_constant(style, 0.8442))
+
+
+@pytest.mark.parametrize("rng,dist", [("numpy", "gaussian"),
+                                      ("numpy", "uniform"),
+                                      ("lammps", "gaussian"),
+                                      ("lammps", "uniform")])
+def test_velocity_create_identical(rng, dist):
+    n = 200
+    mass = np.where(np.arange(n) % 3 == 0, 2.0, 1.0)
+    kw = dict(dist=dist, rng=rng)
+    a = jvelocity.create(n, 1.44, 87287, mass, jcore.LJ, **kw)
+    b = tvelocity.create(n, 1.44, 87287, mass, tcore.LJ, **kw)
+    assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["lj", "real", "metal"])
+def test_units_identical(name):
+    a, b = jcore.get_units(name), tcore.get_units(name)
+    for field in ("boltz", "hplanck", "mvv2e", "ftm2v", "mv2d", "nktv2p",
+                  "qqr2e", "qe2f", "dt", "skin", "qqrd2e"):
+        assert getattr(a, field) == getattr(b, field)
+
+
+def test_make_box_identical():
+    lo, hi = np.array([-1.0, 0.5, 2.0]), np.array([10.0, 12.25, 9.5])
+    a, b = jcore.make_box(lo, hi), tcore.make_box(lo, hi)
+    assert np.array_equal(a.lengths, b.lengths)
+    assert a.volume == b.volume
+    assert np.array_equal(a.perp_widths, b.perp_widths)
+    with pytest.raises(NotImplementedError):
+        tcore.make_box(lo, hi, tilt=(0.5, 0.0, 0.0))
+
+
+def test_make_system_identical():
+    x, lo, hi = tlattice.create_atoms("fcc", 0.8442, 3, 3, 3)
+    n = len(x)
+    v = np.random.default_rng(0).normal(size=(n, 3))
+    typ = np.arange(n) % 2
+    a = jcore.make_system(x, jcore.make_box(lo, hi), type=typ, v=v,
+                          mass=[1.0, 2.0], dtype=np.float64)
+    b = tcore.make_system(x, tcore.make_box(lo, hi), type=typ, v=v,
+                          mass=[1.0, 2.0], dtype=torch.float64)
+    for f in ("x", "v", "q", "type", "image", "mass", "molecule"):
+        assert np.array_equal(np.asarray(getattr(a, f)),
+                              getattr(b, f).numpy()), f
+    assert a.n_types == b.n_types == 2
+
+
+def test_precision_modes():
+    assert tcore.get_precision("mixed").acc == torch.float64
+    assert tcore.get_precision("single").flt == torch.float32
+    with pytest.raises(NotImplementedError):
+        tcore.get_precision("single_comp")
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import lammps_buck_intel_tpu_torch, lammps_buck_intel_tpu_torch.run\n"
+        "import lammps_buck_intel_tpu_torch.interop\n"
+        "import lammps_buck_intel_tpu_torch.ops.cellpair\n"
+        "import lammps_buck_intel_tpu_torch.ops.rebin\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'lammps_buck_intel_tpu' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_cuda_requested_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        build_simulation(_deck(), device="cuda")
+
+
+@pytest.mark.parametrize("change", [
+    {"kspace_style": {"name": "pppm", "accuracy": 1e-4}},
+    {"read_data": "examples/data.rhodo_class"},
+    {"engine": "nlist"},
+    {"fixes": [{"name": "nvt", "t_start": 1.0, "t_damp": 0.1}]},
+    {"pair_style": {"name": "buck/coul/long", "cut": 2.5,
+                    "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
+    {"dump": {"file": "x.lammpstrj"}},
+])
+def test_unported_deck_raises(change):
+    cfg = copy.deepcopy(_deck())
+    cfg.update(change)
+    with pytest.raises(NotImplementedError):
+        build_simulation(cfg, device="cpu")
