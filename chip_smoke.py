@@ -5,20 +5,35 @@
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: nvcc builds csrc/cellpair.cu and csrc/rebin.cu from the
-     checkout into lammps_buck_intel_tpu_torch/_build/;
+  2. build: nvcc builds csrc/cellpair.cu, csrc/rebin.cu and csrc/pppm.cu
+     from the checkout into lammps_buck_intel_tpu_torch/_build/, one nvcc
+     per source, all started together;
   3. K1, the cell-pair kernel, against its plain torch version on the card
-     at buck.yaml's and buck_big.yaml's grids and on a 2-type table, f32
-     and f64, force-only and with energy/virial; both timed;
-  4. K2, the rebin kernels, against their plain versions: per-atom cell,
+     at buck.yaml's and buck_big.yaml's grids, on a 2-type table, and with
+     its coul/long branch on cristobalite_pppm.yaml's grid; f32 and f64,
+     force-only and with energy/virial; timed;
+  4. K2, the rebin kernels, against their plain versions on
+     buck_big.yaml's and cristobalite_pppm.yaml's grids: per-atom cell,
      wrapped positions and images identical, every atom once, vacated q
      zero, the forced full-sort fallback and the overflow flag; timed;
-  5. buck.yaml (32,000 atoms, 100 steps) and 6. buck_big.yaml (192,000
-     atoms, 1000 steps) through run_deck on the card in f32: step-0
-     thermo against the recorded goldens, energy drift within their
-     gates, both kernels launched, atom-steps/s.
-The last lines are the kernels' JSON summary, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+  5. the PPPM kernels (deposit, spectral, gather) against their plain
+     versions at cristobalite_pppm.yaml's mesh, atoms drifted up to skin/2
+     out of their cells, f32 and f64; timed;
+  6. cristobalite_pppm.yaml in f64 at 11,520 atoms on a jittered copy of
+     its crystal against the JAX package's f64 record: step-0 forces,
+     thermo at steps 0 and 10, positions at step 10;
+  7. the main paths through run_deck on the card in f32, launch counts
+     set to 0 just before each and read just after: buck.yaml (32,000
+     atoms, 100 steps), buck_big.yaml (192,000 atoms, 1000 steps) and
+     cristobalite_pppm.yaml (259,200 atoms, buck/coul/long + PPPM order 7,
+     100 steps): step-0 thermo against the recorded JAX rows (and the
+     reciprocal part of elong), energy drift within the gates, every
+     kernel of the path launched, atom-steps/s.
+The last lines are the kernels' JSON summary (ms: CUDA events around a
+run of calls, what a caller pays; device_ms: the card's own time from
+torch.profiler; the plain version's and a library call's time; the
+least time the card could take; launches on the main path), the card's
+name and power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -26,61 +41,158 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
 
 from lammps_buck_intel_tpu_torch import ops
+from lammps_buck_intel_tpu_torch.models.kspace import pppm_cells
 from lammps_buck_intel_tpu_torch.models.pair import build_buck
 from lammps_buck_intel_tpu_torch.models.pair.cellpair import (
-    compute_cellpair, compute_cellpair_plain)
+    _chunk_cells, compute_cellpair, compute_cellpair_plain, full_offsets,
+    half_stencil_tables)
 from lammps_buck_intel_tpu_torch.neighbor import cell_slots as cs
 from lammps_buck_intel_tpu_torch.ops import build
+from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
 from lammps_buck_intel_tpu_torch.run import build_simulation, run_deck
+from lammps_buck_intel_tpu_torch.utils import device_trace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DECKS = os.path.join(ROOT, "examples", "decks")
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
 PKG = "lammps_buck_intel_tpu_torch"
+SRC = f"{PKG}/csrc"
 SEED = 20260
 
 # Tolerances of kernel against plain version, same inputs on the card.
-# f32: the two sum in different orders (and the kernel contracts to FMA):
-#   max|df| <= 1e-4 max|f|; energy and virial rel 1e-5 of their magnitude.
+# f32: the two sum in different orders (the kernels contract to FMA, the
+#   deposit's atomics land in any order): max|d| <= 1e-4 max|ref| for
+#   forces and meshes; energy and virial rel 1e-5 of their magnitude.
 # f64: 1e-11 for both.
 TOL = {torch.float32: (1e-4, 1e-5), torch.float64: (1e-11, 1e-11)}
 # step-0 thermo against the goldens: the _STEP0_FIELDS rule of
 # tests/test_long_horizon.py (press 2e-2 above 5,000 atoms)
 STEP0 = {"temp": 1e-3, "evdwl": 2e-3, "ecoul": 2e-3, "elong": 2e-3,
          "emol": 2e-3, "press": 5e-3}
+# The ideal crystal's step-0 elong is the self energy (a host constant)
+# plus a reciprocal part 10^4 times smaller, which the elong rule above
+# cannot see.  That part is gated on its own, rel 1e-2 of the record's:
+# f32 rounding of elong (~1.8e6) is 0.125 = 8e-4 of it, and the record's
+# scaling from 11,520 atoms holds to 8.1e-5 across four meshes per cell;
+# a PPPM that returned zero would be off by all of it.
+RECIP_TOL = 1e-2
+# f64 on the card against the JAX package's f64 record of the jittered
+# deck: the CPU parity tolerances of tests/test_torch_slice.py and
+# tests/test_torch_pppm.py
+JITTER_TOL = {"rows": 1e-9, "f": 1e-8, "x": 1e-9}
+
+# Least time the card could take (bound_ms): the larger of the bytes the
+# function must move (each input read once, each output written once)
+# over the memory rate and its operations over the f32 peak outside the
+# tensor cores (H100 SXM data sheet, at 700 W).  Operations count one
+# per add, multiply, divide, sqrt or exp:
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# per pair inside the cutoff, evaluated once with Newton's third law:
+# distance 8, clamp 1, 1/r^2 and r 2, buck 8, coul/long 24 (prefactor 3,
+# grij and exp 3, A&S erfc 13, force 5), scalar 1, both atoms' forces 9
+OPS_PAIR = {"none": 29, "long": 53}
+# per atom of an order-p PPPM stencil: p weights per axis by Horner
+# (2 (p - 1) each), p^2 products w_x w_y, then p^3 points
+OPS_WEIGHTS = lambda p: 3 * p * 2 * (p - 1) + p * p  # noqa: E731
+OPS_DEPOSIT_PT = 3     # w_xy w_z, times q, add
+OPS_GATHER_PT = 7      # w_xy w_z, three multiply-adds
+OPS_SPECTRAL_PT = 8    # G rho_hat (2), three ik spectra (6)
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, nops / PEAK_F32_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def load_deck(name: str) -> dict:
     import yaml
 
     with open(os.path.join(DECKS, name)) as f:
-        return yaml.safe_load(f)
+        cfg = yaml.safe_load(f)
+    if "read_data" in cfg:
+        cfg["read_data"] = os.path.join(ROOT, cfg["read_data"])
+    return cfg
+
+
+def load_golden(name: str) -> dict:
+    with open(os.path.join(GOLDENS, name)) as f:
+        return json.load(f)
 
 
 def cuda_ms(fn, reps: int = 10, setup=None) -> float:
-    """Median ms of fn() over reps runs, CUDA events around each call."""
+    """ms per call of fn(): CUDA events around a run of reps calls after
+    a warm-up.  With ``setup`` (a fresh input per call, for functions
+    that update their input in place) the median of reps calls, each
+    between its own pair of events, so the setup stays outside."""
     fn() if setup is None else fn(setup())   # warm-up
-    times = []
-    for _ in range(reps):
-        arg = None if setup is None else setup()
+    torch.cuda.synchronize()
+    if setup is None:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn() if setup is None else fn(arg)
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+    times = []
+    for _ in range(reps):
+        arg = setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(arg)
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = 10, setup=None, tries: int = 5) -> float:
+    """Device time per call of fn(): every kernel, copy and fill it puts
+    on the card, from a torch.profiler trace of reps calls (the host
+    time of the wrapper around them left out).  A trace that lost its
+    lead (device_trace.TraceLost) is taken again on fresh inputs."""
+    for _ in range(tries):
+        args = [None if setup is None else setup() for _ in range(reps + 1)]
+        fn() if setup is None else fn(args[0])   # warm-up
+
+        def run():
+            for arg in args[1:]:
+                fn() if setup is None else fn(arg)
+
+        try:
+            events = device_trace.device_events(run)
+        except device_trace.TraceLost as e:
+            print(f"[trace] {e}; tracing again")
+            continue
+        ms = device_trace.device_ms(events) / reps
+        if ms <= 0:
+            raise AssertionError("torch.profiler recorded no device time")
+        return ms
+    raise AssertionError(f"torch.profiler lost the trace's lead {tries} "
+                         "times")
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     scale = float(b.abs().max())
     return float((a - b).abs().max()) / max(scale, 1e-300)
+
+
+def scalar_rel(a, b) -> float:
+    return abs(float(a - b)) / max(abs(float(b)), 1e-300)
+
+
+def plane_bytes(*planes) -> int:
+    return sum(p.element_size() for p in planes)
 
 
 def jittered_state(cfg: dict, precision: str, amp: float = 0.1):
@@ -96,6 +208,36 @@ def jittered_state(cfg: dict, precision: str, amp: float = 0.1):
     return sim, st
 
 
+def pairs_in_cutoff(style, grid, box, st) -> int:
+    """Unordered pairs of this state within the style's largest cutoff:
+    the pair work the function needs (the kernel tests every candidate
+    of the full stencil, from both sides)."""
+    ncell, cap, n = grid.ncell, grid.cap, grid.n_atoms
+    offs = full_offsets(grid.reach_z)
+    S = offs.shape[0]
+    nbr, _, shifts = half_stencil_tables(grid.nc, offs)
+    nbr_t = torch.as_tensor(nbr, dtype=torch.long, device=st.x.device)
+    shift_t = torch.as_tensor(shifts * np.asarray(box.lengths),
+                              device=st.x.device).to(st.x.dtype)
+    pos = [p.view(ncell, cap) for p in (st.x, st.y, st.z)]
+    aid = st.aid.view(ncell, cap)
+    total = 0
+    chunk = _chunk_cells(cap, S, ncell)
+    for c0 in range(0, ncell, chunk):
+        c1 = min(ncell, c0 + chunk)
+        js = nbr_t[c0:c1]
+        rsq = 0.0
+        for ax in range(3):
+            pj = (pos[ax][js] + shift_t[c0:c1, :, ax, None]).reshape(
+                c1 - c0, 1, S * cap)
+            rsq = rsq + (pos[ax][c0:c1, :, None] - pj) ** 2
+        ai = aid[c0:c1, :, None]
+        aj = aid[js].reshape(c1 - c0, 1, S * cap)
+        ok = (ai < n) & (aj < n) & (ai != aj) & (rsq < style.cutsq_max)
+        total += int(ok.sum())
+    return total // 2
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,8 +251,8 @@ def phase_device():
 
 
 def phase_build():
+    build.load_all()
     for name in build.LIBRARIES:
-        build.load(name)
         secs, log = build.build_info[name]
         print(f"[build] {name}: {secs:.2f} s ({os.path.relpath(log, ROOT)})")
         with open(log) as f:
@@ -119,42 +261,11 @@ def phase_build():
                     print(f"[build]   {line.strip()}")
 
 
-def phase_k1():
-    """K1 against its plain version; returns the timing/error summary."""
-    out = {}
-    buck, big = load_deck("buck.yaml"), load_deck("buck_big.yaml")
-    cases = [("buck", buck, "single"), ("buck", buck, "double"),
-             ("buck_big", big, "single"), ("buck_big", big, "double")]
-    for deck, cfg, prec in cases:
-        sim, st = jittered_state(cfg, prec)
-        _k1_compare(f"{deck}/{prec}", sim.pair, sim.grid, sim.box, st,
-                    sim.precision.acc, out)
-        if prec == "single":
-            ms = cuda_ms(lambda: compute_cellpair(
-                sim.pair, sim.grid, sim.box, st, acc_dtype=torch.float32))
-            plain = cuda_ms(lambda: compute_cellpair_plain(
-                sim.pair, sim.grid, sim.box, st, acc_dtype=torch.float32))
-            print(f"[K1] {deck} f32 force-only: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms (grid {sim.grid.nc} cap {sim.grid.cap} "
-                  f"reach_z {sim.grid.reach_z})")
-            out[deck] = (ms, plain)
-        del sim, st
-        torch.cuda.empty_cache()
-    # 2-type table on buck.yaml's grid, random types
-    sim, st = jittered_state(buck, "single")
-    rng = np.random.default_rng(SEED + 1)
-    st = st._replace(typ=torch.as_tensor(
-        rng.integers(0, 2, st.typ.shape[0]), dtype=torch.int32).cuda())
-    style = build_buck(2, {(0, 0): (1.0, 0.2, -0.8), (0, 1): (0.9, 0.22, -0.7),
-                           (1, 1): (1.1, 0.18, -0.9)}, cut_global=2.5,
-                       shift=True)
-    _k1_compare("buck/2-type/single", style, sim.grid, sim.box, st,
-                torch.float32, out)
-    return out
-
-
-def _k1_compare(label, style, grid, box, st, acc, out):
+def _k1_compare(label, style, grid, box, st, acc):
+    """Kernel vs plain, force-only and with e/v; returns the f32/f64
+    force-only max |df|."""
     ftol, etol = TOL[st.x.dtype]
+    abs_err = 0.0
     for ev in (False, True):
         k = compute_cellpair(style, grid, box, st, eflag=ev, vflag=ev,
                              acc_dtype=acc)
@@ -164,20 +275,73 @@ def _k1_compare(label, style, grid, box, st, acc, out):
         fk = torch.stack([k.fx, k.fy, k.fz])
         fp = torch.stack([p.fx, p.fy, p.fz])
         ferr = rel_err(fk, fp)
-        abs_err = float((fk - fp).abs().max())
+        if not ev:
+            abs_err = float((fk - fp).abs().max())
         msg = f"[K1] {label} ev={ev}: max|df|/max|f| {ferr:.3e}"
         ok = ferr <= ftol
         if ev:
-            e_err = abs(float(k.evdwl - p.evdwl)) / abs(float(p.evdwl))
-            v_err = rel_err(k.virial, p.virial)
-            msg += f", evdwl rel {e_err:.3e}, virial rel {v_err:.3e}"
-            ok = ok and e_err <= etol and v_err <= etol
+            errs = {"evdwl": scalar_rel(k.evdwl, p.evdwl),
+                    "virial": rel_err(k.virial, p.virial)}
+            if style.cfg.coul == "long":
+                errs["ecoul"] = scalar_rel(k.ecoul, p.ecoul)
+            msg += "".join(f", {n} rel {e:.3e}" for n, e in errs.items())
+            ok = ok and all(e <= etol for e in errs.values())
         print(msg)
         if not ok:
             raise AssertionError(f"K1 {label} disagrees with its plain "
                                  f"version (tol {ftol}, {etol})")
-        if label.endswith("single") and not ev and "2-type" not in label:
-            out["max_abs_err"] = max(out.get("max_abs_err", 0.0), abs_err)
+    return abs_err
+
+
+def _k1_time(label, sim, st, reps_plain=3):
+    """Force-only f32 kernel and plain times, and the kernel's bound."""
+    style, grid, box = sim.pair, sim.grid, sim.box
+    def kern():
+        return compute_cellpair(style, grid, box, st,
+                                acc_dtype=torch.float32)
+
+    ms, dev_ms = cuda_ms(kern), device_ms(kern)
+    plain = cuda_ms(lambda: compute_cellpair_plain(
+        style, grid, box, st, acc_dtype=torch.float32), reps=reps_plain)
+    pairs = pairs_in_cutoff(style, grid, box, st)
+    coul = style.cfg.coul
+    planes = (st.x, st.y, st.z, st.typ, st.aid) + (
+        (st.q,) if coul == "long" else ())
+    nbytes = grid.nslots * (plane_bytes(*planes) + 3 * 4)
+    b_ms, b_by = bound(nbytes, pairs * OPS_PAIR[coul])
+    print(f"[K1] {label} f32 force-only: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f}), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; {pairs:,} pairs in cutoff, {nbytes:,} bytes) (grid "
+          f"{grid.nc} cap {grid.cap} reach_z {grid.reach_z})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_k1():
+    """K1 against its plain version on the buck decks; timed at buck_big."""
+    out = {"max_abs_err": 0.0}
+    buck, big = load_deck("buck.yaml"), load_deck("buck_big.yaml")
+    for deck, cfg in (("buck", buck), ("buck_big", big)):
+        for prec in ("single", "double"):
+            sim, st = jittered_state(cfg, prec)
+            err = _k1_compare(f"{deck}/{prec}", sim.pair, sim.grid, sim.box,
+                              st, sim.precision.acc)
+            if prec == "single":
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out[deck] = _k1_time(deck, sim, st)
+            del sim, st
+            torch.cuda.empty_cache()
+    # 2-type table on buck.yaml's grid, random types
+    sim, st = jittered_state(buck, "single")
+    rng = np.random.default_rng(SEED + 1)
+    st = st._replace(typ=torch.as_tensor(
+        rng.integers(0, 2, st.typ.shape[0]), dtype=torch.int32).cuda())
+    style = build_buck(2, {(0, 0): (1.0, 0.2, -0.8), (0, 1): (0.9, 0.22, -0.7),
+                           (1, 1): (1.1, 0.18, -0.9)}, cut_global=2.5,
+                       shift=True)
+    _k1_compare("buck/2-type/single", style, sim.grid, sim.box, st,
+                torch.float32)
+    return out
 
 
 def _atom_view(grid, st):
@@ -213,9 +377,12 @@ def _k2_compare(label, grid, st_k, st_p):
     return float((ak["x"] - ap["x"]).abs().max())
 
 
-def phase_k2():
+def phase_k2(deck: str):
+    """K2 against its plain version on a deck's own grid and cap; an
+    uncharged deck gets random charges, so that q moves are checked."""
     out = {}
-    sim, st0 = jittered_state(load_deck("buck_big.yaml"), "single")
+    label = deck.split(".")[0]
+    sim, st0 = jittered_state(load_deck(deck), "single")
     grid, box = sim.grid, sim.box
     rng = np.random.default_rng(SEED + 2)
     # displacements of up to ~half a cell: a few % of atoms change cell;
@@ -225,17 +392,19 @@ def phase_k2():
     moved = st0.clone()
     for p, d in zip((moved.x, moved.y, moved.z), disp):
         p += d
-    q = torch.as_tensor(rng.uniform(-1, 1, grid.nslots)).to(moved.q)
-    moved = moved._replace(q=torch.where(moved.aid < grid.n_atoms, q,
-                                         torch.zeros_like(q)))
+    if not bool((moved.q != 0).any()):
+        q = torch.as_tensor(rng.uniform(-1, 1, grid.nslots)).to(moved.q)
+        moved = moved._replace(q=torch.where(moved.aid < grid.n_atoms, q,
+                                             torch.zeros_like(q)))
     B = cs.move_capacity(grid)
     err = 0.0
-    for label, bufcap in (("incremental", B), ("forced fallback", 1)):
+    for how, bufcap in (("incremental", B), ("forced fallback", 1)):
         k = cs.rebin_incremental(grid, box, moved.clone(), bufcap=bufcap)
         p = cs._rebin_incremental_plain(grid, box, moved.clone(), bufcap)
-        err = max(err, _k2_compare(label, grid, k, p))
-        print(f"[K2] {label} (B={bufcap}): kernel == plain per atom, "
+        err = max(err, _k2_compare(f"{label} {how}", grid, k, p))
+        print(f"[K2] {label} {how} (B={bufcap}): kernel == plain per atom, "
               f"overflow {bool(k.overflow)}")
+    movers = int((_atom_view(grid, k)[0] != _atom_view(grid, moved)[0]).sum())
     # full rebin from atom order (set-up path)
     at = cs.to_atoms(grid, moved)
     flat = cs.SlotState(
@@ -252,8 +421,8 @@ def phase_k2():
     p = cs._bin_to_slots_plain(cs.wrap_state(box, flat),
                                cs._slot_cid(grid, box, cs.wrap_state(box, flat)),
                                grid.ncell, grid.cap, grid.n_atoms)
-    err = max(err, _k2_compare("full rebin", grid, k, p))
-    print("[K2] full rebin: kernel == plain per atom")
+    err = max(err, _k2_compare(f"{label} full rebin", grid, k, p))
+    print(f"[K2] {label} full rebin: kernel == plain per atom")
     # overflow: pile 2 * cap atoms into cell 0
     crowd = moved.clone()
     idx = torch.nonzero(crowd.aid < grid.n_atoms)[: 2 * grid.cap, 0]
@@ -263,44 +432,242 @@ def phase_k2():
     k = cs.rebin_incremental(grid, box, crowd.clone(), bufcap=grid.nslots)
     p = cs._rebin_incremental_plain(grid, box, crowd.clone(), grid.nslots)
     if not (bool(k.overflow) and bool(p.overflow)):
-        raise AssertionError("K2 overflow: flag not set")
-    print("[K2] overflow: both set the sticky flag")
+        raise AssertionError(f"K2 {label} overflow: flag not set")
+    print(f"[K2] {label} overflow: both set the sticky flag")
 
     out["max_abs_err"] = err
+    slot_bytes = plane_bytes(*(getattr(moved, f) for f in cs.MOVE_FIELDS))
+    # incremental: read every slot's position and id once, move each
+    # mover's planes (read and write)
+    inc_bytes = (grid.nslots * plane_bytes(moved.x, moved.y, moved.z,
+                                           moved.aid)
+                 + 2 * movers * slot_bytes)
     ms = cuda_ms(lambda s: cs.rebin_incremental(grid, box, s),
                  setup=moved.clone)
+    dev = device_ms(lambda s: cs.rebin_incremental(grid, box, s),
+                    setup=moved.clone)
     plain = cuda_ms(lambda s: cs._rebin_incremental_plain(grid, box, s, B),
                     setup=moved.clone)
-    print(f"[K2] buck_big rebin_incremental: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms ({grid.nslots} slots, B={B})")
-    out["incremental"] = (ms, plain)
+    b_ms, b_by = bound(inc_bytes, 0)
+    print(f"[K2] {label} rebin_incremental: kernel {ms:.4f} ms (device "
+          f"{dev:.4f}), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{movers} movers) ({grid.nslots} slots, B={B})")
+    out["incremental"] = dict(ms=ms, device_ms=dev, plain_ms=plain,
+                              bound_ms=b_ms, bound_by=b_by)
     msf = cuda_ms(lambda: cs.rebin(grid, box, flat))
+    devf = device_ms(lambda: cs.rebin(grid, box, flat))
     wf = cs.wrap_state(box, flat)
     plainf = cuda_ms(lambda: cs._bin_to_slots_plain(
         cs.wrap_state(box, flat), cs._slot_cid(grid, box, wf), grid.ncell,
         grid.cap, grid.n_atoms))
-    print(f"[K2] buck_big full rebin: kernel {msf:.4f} ms, plain "
-          f"{plainf:.4f} ms")
-    out["full"] = (msf, plainf)
+    # full: read every atom's planes, write every slot's
+    b_ms, b_by = bound((grid.n_atoms + grid.nslots) * slot_bytes, 0)
+    print(f"[K2] {label} full rebin: kernel {msf:.4f} ms (device "
+          f"{devf:.4f}), plain {plainf:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    out["full"] = dict(ms=msf, device_ms=devf, plain_ms=plainf,
+                       bound_ms=b_ms, bound_by=b_by)
     return out
 
 
-def phase_deck(name: str, golden: str, thermo: int):
+def phase_cristobalite_k1():
+    """K1's coul/long branch on cristobalite_pppm.yaml's grid."""
+    cfg = load_deck("cristobalite_pppm.yaml")
+    out = {}
+    for prec in ("single", "double"):
+        sim, st = jittered_state(cfg, prec)
+        err = _k1_compare(f"cristobalite/{prec}", sim.pair, sim.grid,
+                          sim.box, st, sim.precision.acc)
+        if prec == "single":
+            out = dict(_k1_time("cristobalite", sim, st), max_abs_err=err)
+        del sim, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def _pppm_compare(label, name, k, p, tol, out):
+    err = rel_err(k, p)
+    print(f"[PPPM] {label} {name}: max|d|/max|ref| {err:.3e}")
+    if not err <= tol:
+        raise AssertionError(f"PPPM {name} {label} disagrees with its plain "
+                             f"version (tol {tol})")
+    out.setdefault(name, {})["max_abs_err"] = float((k - p).abs().max())
+
+
+def phase_pppm():
+    """The three PPPM kernels against their plain versions on the card,
+    at cristobalite_pppm.yaml's mesh, atoms drifted up to skin/2 out of
+    their cells (and out of the box) as between two rebins."""
+    cfg = load_deck("cristobalite_pppm.yaml")
+    out = {}
+    for prec in ("single", "double"):
+        sim, st = jittered_state(cfg, prec)
+        skin = sim.neighbor.skin
+        rng = np.random.default_rng(SEED + 3)
+        for p in (st.x, st.y, st.z):
+            p += torch.as_tensor(rng.uniform(-0.5 * skin, 0.5 * skin,
+                                             p.shape[0])).to(p)
+        solver, flt, acc = sim.kspace, st.x.dtype, sim.precision.acc
+        pm, n = solver.pm, sim.n_atoms
+        c = solver.consts(st.x.device, flt, acc)
+        ftol, etol = TOL[flt]
+        label = f"cristobalite/{prec}"
+        if prec == "single":
+            print(f"[PPPM] mesh {pm.grid} order {pm.order} g_ewald "
+                  f"{pm.g_ewald:.6f} h {tuple(round(h, 4) for h in pm.h)}; "
+                  f"cell grid {sim.grid.nc} (coarse {sim.grid.coarse().nc}) cap "
+                  f"{sim.grid.cap}")
+        res = {}
+        mesh_k = pppm_ops.deposit(pm, st, n, c["coef"])
+        mesh_p = pppm_cells.deposit_plain(pm, st)
+        _pppm_compare(label, "deposit", mesh_k, mesh_p, ftol, res)
+        rhat = torch.fft.rfftn(mesh_p.to(acc)).contiguous()
+        for ev in (False, True):
+            ek, esk, vsk = pppm_ops.spectral(c, rhat, ev)
+            ep, esp, vsp = pppm_cells.spectral_plain(c, rhat, ev, ev)
+            _pppm_compare(label, "spectral", torch.view_as_real(ek),
+                          torch.view_as_real(ep), ftol, res)
+            if ev:
+                e_err, v_err = scalar_rel(esk, esp), rel_err(vsk, vsp)
+                print(f"[PPPM] {label} spectral e/v: energy sum rel "
+                      f"{e_err:.3e}, virial rel {v_err:.3e}")
+                if not (e_err <= etol and v_err <= etol):
+                    raise AssertionError(f"PPPM spectral {label}: energy or "
+                                         f"virial off (tol {etol})")
+        e_mesh = torch.fft.irfftn(ep, s=pm.grid, dim=(1, 2, 3)).to(
+            flt).contiguous()
+        fk = torch.stack(pppm_ops.gather(pm, st, e_mesh, n, acc, c["coef"]))
+        fp = torch.stack(pppm_cells.gather_plain(pm, st, e_mesh, acc))
+        _pppm_compare(label, "gather", fk, fp, ftol, res)
+        if prec == "single":
+            out = res
+            _pppm_time(pm, st, n, c, rhat, e_mesh, acc, out)
+        del sim, st, solver
+        torch.cuda.empty_cache()
+    return out
+
+
+def _pppm_time(pm, st, n, c, rhat, e_mesh, acc, out):
+    ns, ngrid = st.x.shape[0], int(np.prod(pm.grid))
+    npts = int(np.prod(c["G"].shape))
+    p = pm.order
+    flt_size = st.x.element_size()
+    slot_in = ns * plane_bytes(st.x, st.y, st.z, st.q, st.aid)
+    acc_size = torch.empty((), dtype=acc).element_size()
+    # deposit: the library route is index_add_ of the per-point charges
+    # (indices and weights precomputed, outside the timing)
+    flat, w3 = pppm_cells._stencil(pm, st, 0, ns)
+    vals = (w3 * st.q[:, None, None, None]).reshape(-1)
+    flat = flat.reshape(-1)
+    mesh0 = torch.zeros(ngrid, dtype=st.x.dtype, device=st.x.device)
+    rows = {
+        "deposit": (
+            lambda: pppm_ops.deposit(pm, st, n, c["coef"]),
+            lambda: pppm_cells.deposit_plain(pm, st),
+            lambda: mesh0.clone().index_add_(0, flat, vals),
+            slot_in + ngrid * flt_size,
+            n * (OPS_WEIGHTS(p) + p**3 * OPS_DEPOSIT_PT)),
+        # spectral: force-only, as on every step but the thermo steps;
+        # the library route is the plain version's torch ops
+        "spectral": (
+            lambda: pppm_ops.spectral(c, rhat, False),
+            lambda: pppm_cells.spectral_plain(c, rhat, False, False),
+            lambda: pppm_cells.spectral_plain(c, rhat, False, False),
+            npts * acc_size * (2 + 1 + 6),
+            npts * OPS_SPECTRAL_PT),
+        "gather": (
+            lambda: pppm_ops.gather(pm, st, e_mesh, n, acc, c["coef"]),
+            lambda: pppm_cells.gather_plain(pm, st, e_mesh, acc),
+            None,
+            slot_in + 3 * ngrid * flt_size + 3 * ns * acc_size,
+            n * (OPS_WEIGHTS(p) + p**3 * OPS_GATHER_PT)),
+    }
+    for name, (kern, plain, lib, nbytes, nops) in rows.items():
+        ms, dev_ms = cuda_ms(kern), device_ms(kern)
+        plain_ms = cuda_ms(plain, reps=3)
+        lib_ms = cuda_ms(lib) if lib is not None else None
+        b_ms, b_by = bound(nbytes, nops)
+        out[name].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"[PPPM] {name} f32: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, library "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+
+
+def phase_jittered(golden: dict, device="cuda"):
+    """cristobalite_pppm.yaml in f64 on a jittered copy of its crystal,
+    where forces are not zero by symmetry, against the JAX package's
+    record: step-0 forces of every 360th atom and their rms, thermo rows
+    at steps 0 and 10, positions at step 10.  The k-space part of the
+    step-0 force is shown to be far above the force tolerance."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import gen_cristobalite
+
+    j = golden["jittered"]
+    cfg = load_deck("cristobalite_pppm.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "data.cristobalite_jitter")
+        gen_cristobalite.write(path, *j["dims"], jitter_amp=j["amp"])
+        cfg.update(read_data=path, replicate=j["replicate"],
+                   precision=j["precision"])
+        sim = build_simulation(cfg, device=device)
+    pm = sim.kspace.pm
+    if sim.n_atoms != j["n_atoms"] or list(pm.grid) != j["pppm_grid"] \
+            or pm.g_ewald != j["g_ewald"]:
+        raise AssertionError("jittered: atoms, mesh or g_ewald differ from "
+                             "the record")
+    pick = np.asarray(j["atoms"])
+    f0 = sim.get_atoms()["f"]
+    st = sim.state
+    kf = sim.kspace.compute_slots(st, False, False)[:3]
+    fk = cs.to_atoms(sim.grid, st._replace(fx=kf[0], fy=kf[1], fz=kf[2]))
+    fk = fk["f"].cpu().numpy()[pick]
+    rows = sim.run(j["steps"], thermo_every=j["steps"], log=False)
+    at = sim.get_atoms()
+    x_end = (at["x"] + at["image"] * np.asarray(sim.box.lengths))[pick]
+    ref_f = np.asarray(j["f0"])
+    f_tol = JITTER_TOL["f"] * np.abs(ref_f).max()
+    errs = {
+        "f0": float(np.abs(f0[pick] - ref_f).max()) / np.abs(ref_f).max(),
+        "f0_rms": abs(float(np.sqrt(np.mean(np.sum(f0 * f0, 1))))
+                      - j["f0_rms"]) / j["f0_rms"],
+        "x_end": float(np.abs(x_end - np.asarray(j["x_end"])).max()),
+    }
+    for r, ref in zip(rows, j["rows"], strict=True):
+        for k in ("temp", "evdwl", "ecoul", "elong", "etotal", "press"):
+            errs[f"{k}@{ref['step']:.0f}"] = scalar_rel(r[k], ref[k])
+    tol = {k: JITTER_TOL["f" if k.startswith("f0") else
+                         "x" if k == "x_end" else "rows"] for k in errs}
+    print(f"[jitter] {sim.n_atoms} atoms f64, mesh {pm.grid}: k-space part "
+          f"of the step-0 force max {np.abs(fk).max():.4g} (force tol "
+          f"{f_tol:.3g}); worst of " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()
+              if k in ("f0", "f0_rms", "x_end") or k.startswith("elong")))
+    bad = {k: errs[k] for k in errs if not errs[k] <= tol[k]}
+    if bad or not np.abs(fk).max() > 1e3 * f_tol:
+        raise AssertionError(f"jittered deck disagrees with the JAX record: "
+                             f"{bad}")
+
+
+def phase_deck(name: str, golden: dict, thermo: int, kernels: tuple,
+               drift_gate: float):
+    """One main path through run_deck: launch counts set to 0 just
+    before, read just after."""
     cfg = load_deck(name)
     cfg["thermo"] = thermo
-    with open(os.path.join(GOLDENS, golden)) as f:
-        g = json.load(f)
-    before = dict(ops.LAUNCHES)
+    ops.reset_launches()
     sim, rows = run_deck(cfg, device="cuda", log=False)
-    ran = {k: ops.LAUNCHES[k] - before[k] for k in before}
-    for k in ("cellpair", "rebin_incremental"):
+    ran = dict(ops.LAUNCHES)
+    for k in kernels:
         if ran[k] <= 0:
             raise AssertionError(f"{name}: kernel {k} was not launched")
     n, steps = sim.n_atoms, int(cfg["run"])
-    if rows[-1]["step"] != steps or n != g["n_atoms"]:
+    if rows[-1]["step"] != steps or n != golden["n_atoms"]:
         raise AssertionError(f"{name}: ran {rows[-1]['step']} steps on {n} "
                              "atoms")
-    ref, row = g["rows"][0], rows[0]
+    ref = golden["rows"][0] if "rows" in golden else golden["row"]
+    row = rows[0]
     scale = max(abs(ref["epair"]), 1.0)
     for key, rtol in STEP0.items():
         if key == "press" and n > 5000:
@@ -312,9 +679,9 @@ def phase_deck(name: str, golden: str, thermo: int):
                                  f"golden {ref[key]:.8g} (tol {tol:.3g})")
     e0 = rows[0]["etotal"]
     drift = max(abs(r["etotal"] - e0) for r in rows) / n
-    if not drift <= g["drift_gate"]:
+    if not drift <= drift_gate:
         raise AssertionError(f"{name}: drift {drift:.3e}/atom > gate "
-                             f"{g['drift_gate']}")
+                             f"{drift_gate}")
     for r in rows:
         for k in ("temp", "epair", "etotal", "press"):
             if not np.isfinite(r[k]):
@@ -323,11 +690,30 @@ def phase_deck(name: str, golden: str, thermo: int):
     print(f"[deck] {name}: {n} atoms x {steps} steps in {wall:.3f} s -> "
           f"{n * steps / wall:,.0f} atom-steps/s, {1e3 * wall / steps:.4f} "
           f"ms/step (thermo every {thermo}); step-0 etotal {e0:.8g} "
-          f"(golden {ref['etotal']:.8g}); drift {drift:.3e}/atom (gate "
-          f"{g['drift_gate']}); grid {sim.grid.nc} cap {sim.grid.cap} "
-          f"reach_z {sim.grid.reach_z}; launches {ran}; grows "
-          f"{sim.grows}")
-    return n * steps / wall
+          f"(record {ref['etotal']:.8g}), elong {row['elong']:.8g} (record "
+          f"{ref['elong']:.8g}); drift {drift:.3e}/atom (gate {drift_gate}); "
+          f"grid {sim.grid.nc} cap {sim.grid.cap} reach_z "
+          f"{sim.grid.reach_z}; launches {ran}; grows {sim.grows}")
+    if sim.kspace is not None:
+        pm = sim.kspace.pm
+        print(f"[deck] {name}: pppm mesh {pm.grid} order {pm.order} g_ewald "
+              f"{pm.g_ewald:.6f} (record {tuple(golden['pppm_grid'])}, "
+              f"{golden['g_ewald']:.6f})")
+        # same mesh and splitting as the JAX package: elong to rounding
+        if (pm.grid != tuple(golden["pppm_grid"])
+                or abs(pm.g_ewald - golden["g_ewald"])
+                > 1e-12 * golden["g_ewald"]):
+            raise AssertionError(f"{name}: PPPM mesh or g_ewald differs "
+                                 "from the record")
+        recip, ref_recip = row["elong"] - pm.elong_self, golden["elong_recip"]
+        print(f"[deck] {name}: step-0 elong - elong_self {recip:.6g} "
+              f"(record {ref_recip:.6g}, tol rel {RECIP_TOL}); elong_self "
+              f"{pm.elong_self:.10g} (record {golden['elong_self']:.10g})")
+        if (abs(pm.elong_self - golden["elong_self"])
+                > 1e-12 * abs(golden["elong_self"])
+                or not abs(recip - ref_recip) <= RECIP_TOL * abs(ref_recip)):
+            raise AssertionError(f"{name}: reciprocal part of elong off")
+    return ran
 
 
 def main():
@@ -338,35 +724,53 @@ def main():
     smi = phase_device()
     phase_build()
     k1 = phase_k1()
-    k2 = phase_k2()
+    k2_big = phase_k2("buck_big.yaml")
+    k2 = phase_k2("cristobalite_pppm.yaml")
+    k1c = phase_cristobalite_k1()
+    pp = phase_pppm()
+    golden = load_golden("torch_cristobalite_pppm_step0.json")
+    phase_jittered(golden)
     torch.cuda.empty_cache()
 
-    ops.reset_launches()
-    phase_deck("buck.yaml", "long_buck.json", thermo=10)
-    phase_deck("buck_big.yaml", "long_buck_big.json", thermo=100)
-    launches = dict(ops.LAUNCHES)
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the "
-                                 "main path")
-    print(f"[launches] {launches}")
+    pair = ("cellpair", "rebin_incremental", "rebin")
+    phase_deck("buck.yaml", load_golden("long_buck.json"), 10, pair,
+               load_golden("long_buck.json")["drift_gate"])
+    phase_deck("buck_big.yaml", load_golden("long_buck_big.json"), 100, pair,
+               load_golden("long_buck_big.json")["drift_gate"])
+    # the north-star path: gated like long_silica_pppm.json
+    launches = phase_deck(
+        "cristobalite_pppm.yaml",
+        golden, 50,
+        pair + ("pppm_deposit", "pppm_spectral", "pppm_gather"),
+        load_golden("long_silica_pppm.json")["drift_gate"])
 
-    src = f"{PKG}/csrc"
+    def row(name, source, replaces, launch_key, r):
+        return dict(name=name, route="cuda", source=f"{SRC}/{source}",
+                    replaces=f"lammps_buck_intel_tpu/{replaces}",
+                    launches=launches[launch_key],
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    device_ms=r["device_ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"],
+                    library_ms=r.get("library_ms"))
+
     kernels = [
-        dict(name="cellpair_forces", route="cuda", source=f"{src}/cellpair.cu",
-             replaces="lammps_buck_intel_tpu/models/pair/cellpair.py:291",
-             launches=launches["cellpair"], max_abs_err=k1["max_abs_err"],
-             ms=k1["buck_big"][0], plain_ms=k1["buck_big"][1]),
-        dict(name="rebin_incremental", route="cuda", source=f"{src}/rebin.cu",
-             replaces="lammps_buck_intel_tpu/neighbor/cell_slots.py:314",
-             launches=launches["rebin_incremental"],
-             max_abs_err=k2["max_abs_err"], ms=k2["incremental"][0],
-             plain_ms=k2["incremental"][1]),
-        dict(name="rebin_full", route="cuda", source=f"{src}/rebin.cu",
-             replaces="lammps_buck_intel_tpu/neighbor/cell_slots.py:289",
-             launches=launches["rebin"], max_abs_err=k2["max_abs_err"],
-             ms=k2["full"][0], plain_ms=k2["full"][1]),
+        row("cellpair_forces", "cellpair.cu",
+            "models/pair/cellpair.py:291", "cellpair", k1c),
+        row("rebin_incremental", "rebin.cu",
+            "neighbor/cell_slots.py:314", "rebin_incremental",
+            dict(k2["incremental"], max_abs_err=k2["max_abs_err"])),
+        row("rebin_full", "rebin.cu", "neighbor/cell_slots.py:289", "rebin",
+            dict(k2["full"], max_abs_err=k2["max_abs_err"])),
+        row("pppm_deposit", "pppm.cu", "models/kspace/pppm_cells.py:580",
+            "pppm_deposit", pp["deposit"]),
+        row("pppm_spectral", "pppm.cu", "models/kspace/pppm_cells.py:801",
+            "pppm_spectral", pp["spectral"]),
+        row("pppm_gather", "pppm.cu", "models/kspace/pppm_cells.py:633",
+            "pppm_gather", pp["gather"]),
     ]
+    print(f"[K1] buck_big buck branch: {json.dumps(k1['buck_big'])}")
+    print(f"[K2] buck_big: {json.dumps(k2_big)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

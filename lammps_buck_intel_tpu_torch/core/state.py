@@ -55,9 +55,10 @@ def make_system(
     mass=None,
     molecule=None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> System:
-    """Build a System from array-likes (numpy or tensors) on ``device``."""
+    """Build a System from array-likes (numpy or tensors) on ``device``:
+    the card unless the caller asks for the CPU."""
 
     def real(a):
         return torch.as_tensor(np.asarray(a, np.float64)).to(device, dtype)

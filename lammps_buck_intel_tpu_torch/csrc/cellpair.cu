@@ -1,31 +1,40 @@
-// Cell-pair Buckingham forces over the sorted cell-slot layout (sm_90a).
+// Cell-pair Buckingham (+ Ewald real-space Coulomb) forces over the sorted
+// cell-slot layout (sm_90a).
 //
 // Replaces: lammps_buck_intel_tpu/models/pair/cellpair.py
 //   compute_cell_tiles_newton (:291) with styles.py pair_terms (:300),
-//   buck branch: F = A exp(-r/rho) / rho - 6 C / r^7, E = A exp(-r/rho)
-//   - C / r^6 - offset, strict cut test rsq < cut_ljsq.
+//   buck: F = A exp(-r/rho) / rho - 6 C / r^7, E = A exp(-r/rho) - C / r^6
+//   - offset, strict cut test rsq < cut_ljsq; coul/long (the COUL
+//   variant): grij = g_ewald r, expm2 = exp(-grij^2), erfc by the
+//   Abramowitz & Stegun 5-term polynomial with the JAX constants (not
+//   erfcf), prefactor = qqrd2e qi qj / r, F = prefactor (erfc + 2/sqrt(pi)
+//   grij expm2), E = prefactor erfc, strict cut test rsq < cut_coulsq.
 //
 // Design.  One thread block per cell, one thread per slot of the cell
 // (blockDim = cap rounded up to a warp).  The block walks the FULL
 // (3, 3, 2*reach_z+1) stencil of neighbour cells; for each it stages the
-// j-cell's x/y/z/aid/typ in shared memory with the periodic shift added
-// on load (shift = +-L exactly where the stencil wraps), then every
-// thread sums the forces of its slot over the staged slots.  No Newton:
-// each pair is evaluated from both sides, so forces need no atomics and
-// are deterministic; energy and virial are halved by the caller.  Empty
-// slots (aid >= n) and aid_i == aid_j are skipped.  Energy and virial
-// per block are reduced in a fixed shuffle tree into partial[cell][8] =
-// (evdwl, ecoul = 0, vxx, vyy, vzz, vxy, vxz, vyz); the caller sums the
-// partials over cells in a second, deterministic pass.
+// j-cell's x/y/z/aid/typ (and q for COUL) in shared memory with the
+// periodic shift added on load (shift = +-L exactly where the stencil
+// wraps), then every thread sums the forces of its slot over the staged
+// slots.  No Newton: each pair is evaluated from both sides, so forces
+// need no atomics and are deterministic; energy and virial are halved by
+// the caller.  Empty slots (aid >= n) and aid_i == aid_j are skipped.
+// Energy and virial per block are reduced in a fixed shuffle tree into
+// partial[cell][8] = (evdwl, ecoul, vxx, vyy, vzz, vxy, vxz, vyz) in acc;
+// the caller sums the partials over cells in a second, deterministic pass.
+// ecoul is a sum of large terms of both signs, so it stays in acc like
+// evdwl.  The buck-only variant (COUL = false) compiles to the kernel of
+// the buck decks with no Coulomb work.
 //
 // What bounds it on the H100.  Candidate pairs, not bytes: at buck_big
 // (192k atoms, cut 5.0 + skin 0.3, reach_z 1, cap 192) each atom tests
 // 27 * 192 candidates of which ~1/10 fall inside the cutoff; every
-// candidate costs a shared load, a distance and a compare.  The tile
-// staging keeps device-memory traffic at one read of each neighbour cell
-// per block.  Faster forms (Newton with atomic reaction forces, compacted
-// candidate lists, cluster-pair layouts) are later work; this kernel is
-// the simple correct one.
+// candidate costs a shared load, a distance and a compare, and every pair
+// inside the cutoff two exponentials with Coulomb.  The tile staging keeps
+// device-memory traffic at one read of each neighbour cell per block.
+// Faster forms (Newton with atomic reaction forces, compacted candidate
+// lists, cluster-pair layouts) are later work; this kernel is the simple
+// correct one.
 //
 // Precision: templated on (flt, acc) = (float, float), (float, double),
 // (double, double).  Launches on the caller's stream, allocates nothing,
@@ -37,6 +46,11 @@ namespace {
 
 constexpr int kNcoef = 8;  // COEF_NAMES column layout of styles.py
 constexpr int kMaxThreads = 1024;
+// Abramowitz & Stegun 7.1.26 (styles.py EWALD_F, EWALD_P, ERFC_A)
+constexpr double kEwaldF = 1.12837917;
+constexpr double kEwaldP = 0.3275911;
+constexpr double kA1 = 0.254829592, kA2 = -0.284496736, kA3 = 1.421413741,
+                 kA4 = -1.453152027, kA5 = 1.061405429;
 
 __device__ __forceinline__ float dev_exp(float v) { return expf(v); }
 __device__ __forceinline__ double dev_exp(double v) { return exp(v); }
@@ -50,21 +64,23 @@ __device__ __forceinline__ A warp_sum(A v) {
   return v;
 }
 
-template <typename T, typename A, bool EV>
+template <typename T, typename A, bool EV, bool COUL>
 __global__ void cellpair_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
-    const T* __restrict__ z, const int* __restrict__ typ,
-    const int* __restrict__ aid, const T* __restrict__ coef, int ntypes,
-    int n, int ncx, int ncy, int ncz, int cap, int reach_z, double Lx,
-    double Ly, double Lz, A* __restrict__ fx, A* __restrict__ fy,
-    A* __restrict__ fz, A* __restrict__ partial) {
+    const T* __restrict__ z, const T* __restrict__ q,
+    const int* __restrict__ typ, const int* __restrict__ aid,
+    const T* __restrict__ coef, int ntypes, int n, int ncx, int ncy, int ncz,
+    int cap, int reach_z, double Lx, double Ly, double Lz, T g_ewald,
+    T qqrd2e, A* __restrict__ fx, A* __restrict__ fy, A* __restrict__ fz,
+    A* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ncoef = ntypes * ntypes * kNcoef;
   T* s_coef = reinterpret_cast<T*>(smem_raw);
   T* s_x = s_coef + ncoef;
   T* s_y = s_x + cap;
   T* s_z = s_y + cap;
-  int* s_aid = reinterpret_cast<int*>(s_z + cap);
+  T* s_q = s_z + cap;
+  int* s_aid = reinterpret_cast<int*>(s_q + (COUL ? cap : 0));
   int* s_typ = s_aid + cap;
 
   const int c = blockIdx.x;
@@ -77,17 +93,20 @@ __global__ void cellpair_kernel(
   const bool has_i = tid < cap;
   const int si = c * cap + tid;
   int ai = n, ti = 0;
-  T xi = 0, yi = 0, zi = 0;
+  T xi = 0, yi = 0, zi = 0, qi = 0;
   if (has_i) {
     ai = aid[si];
     ti = typ[si];
     xi = x[si];
     yi = y[si];
     zi = z[si];
+    if (COUL) qi = q[si];
   }
   const bool active = has_i && ai < n;
+  // qqrd2e * qi once per slot: the plain version's (qqrd2e * qi) * qj
+  const T qqi = qqrd2e * qi;
   A fxi = 0, fyi = 0, fzi = 0;
-  A ev = 0, v0 = 0, v1 = 0, v2 = 0, v3 = 0, v4 = 0, v5 = 0;
+  A ev = 0, ec = 0, v0 = 0, v1 = 0, v2 = 0, v3 = 0, v4 = 0, v5 = 0;
 
   const int nz = 2 * reach_z + 1;
   const int S = 9 * nz;
@@ -112,6 +131,7 @@ __global__ void cellpair_kernel(
       s_x[j] = x[sj] + shx;
       s_y[j] = y[sj] + shy;
       s_z[j] = z[sj] + shz;
+      if (COUL) s_q[j] = q[sj];
       s_aid[j] = aid[sj];
       s_typ[j] = typ[sj];
     }
@@ -127,17 +147,37 @@ __global__ void cellpair_kernel(
       T rsq = dx * dx + dy * dy + dz * dz;
       rsq = rsq > T(1e-12) ? rsq : T(1e-12);
       const T* cf = crow + s_typ[j] * kNcoef;
-      if (!(rsq < cf[5])) continue;  // cut_ljsq, strict
+      // strict cut tests (COUL is a template constant)
+      const bool in_lj = rsq < cf[5];              // cut_ljsq
+      const bool in_coul = COUL && rsq < cf[7];    // cut_coulsq
+      if (!in_lj && !in_coul) continue;
       const T r2inv = T(1) / rsq;
       const T r = dev_sqrt(rsq);
-      const T r6inv = r2inv * r2inv * r2inv;
-      const T rexp = dev_exp(-r * cf[4]);  // rhoinv
-      const T fs = (r * rexp * cf[0] - r6inv * cf[1]) * r2inv;  // buck1, buck2
+      T fpair = 0, evdwl = 0, ecoul = 0;
+      if (in_lj) {
+        const T r6inv = r2inv * r2inv * r2inv;
+        const T rexp = dev_exp(-r * cf[4]);
+        fpair = r * rexp * cf[0] - r6inv * cf[1];  // buck1, buck2; rhoinv
+        if (EV) evdwl = cf[2] * rexp - cf[3] * r6inv - cf[6];
+      }
+      if (in_coul) {
+        const T prefactor = qqi * s_q[j] * (r * r2inv);
+        const T grij = g_ewald * r;
+        const T expm2 = dev_exp(-grij * grij);
+        const T t = T(1) / (T(1) + static_cast<T>(kEwaldP) * grij);
+        const T erfc =
+            t * (T(kA1) + t * (T(kA2) + t * (T(kA3) + t * (T(kA4) +
+                 t * T(kA5))))) * expm2;
+        fpair += prefactor * (erfc + static_cast<T>(kEwaldF) * grij * expm2);
+        if (EV) ecoul = prefactor * erfc;
+      }
+      const T fs = fpair * r2inv;
       fxi += static_cast<A>(fs * dx);
       fyi += static_cast<A>(fs * dy);
       fzi += static_cast<A>(fs * dz);
       if (EV) {
-        ev += static_cast<A>(cf[2] * rexp - cf[3] * r6inv - cf[6]);
+        ev += static_cast<A>(evdwl);
+        ec += static_cast<A>(ecoul);
         v0 += static_cast<A>(fs * dx * dx);
         v1 += static_cast<A>(fs * dy * dy);
         v2 += static_cast<A>(fs * dz * dz);
@@ -153,70 +193,91 @@ __global__ void cellpair_kernel(
     fz[si] = fzi;
   }
   if (EV) {
-    __shared__ A red[kMaxThreads / 32][7];
-    A vals[7] = {ev, v0, v1, v2, v3, v4, v5};
+    __shared__ A red[kMaxThreads / 32][8];
+    A vals[8] = {ev, ec, v0, v1, v2, v3, v4, v5};
     const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
-    for (int q = 0; q < 7; ++q) {
-      const A s = warp_sum(vals[q]);
-      if (lane == 0) red[warp][q] = s;
+    for (int k = 0; k < 8; ++k) {
+      const A s = warp_sum(vals[k]);
+      if (lane == 0) red[warp][k] = s;
     }
     __syncthreads();
     if (warp == 0) {
       const int nwarps = blockDim.x >> 5;
 #pragma unroll
-      for (int q = 0; q < 7; ++q) {
-        const A s = warp_sum(lane < nwarps ? red[lane][q] : A(0));
-        if (lane == 0) partial[c * 8 + (q == 0 ? 0 : q + 1)] = s;
+      for (int k = 0; k < 8; ++k) {
+        const A s = warp_sum(lane < nwarps ? red[lane][k] : A(0));
+        if (lane == 0) partial[c * 8 + k] = s;
       }
-      if (lane == 0) partial[c * 8 + 1] = A(0);
     }
   }
 }
 
-template <typename T, typename A, bool EV>
-int launch(const void* x, const void* y, const void* z, const void* typ,
-           const void* aid, const void* coef, int ntypes, int n, int ncx,
-           int ncy, int ncz, int cap, int reach_z, double Lx, double Ly,
-           double Lz, void* fx, void* fy, void* fz, void* partial,
-           cudaStream_t stream) {
+template <typename T, typename A, bool EV, bool COUL>
+int launch(const void* x, const void* y, const void* z, const void* q,
+           const void* typ, const void* aid, const void* coef, int ntypes,
+           int n, int ncx, int ncy, int ncz, int cap, int reach_z, double Lx,
+           double Ly, double Lz, double g_ewald, double qqrd2e, void* fx,
+           void* fy, void* fz, void* partial, cudaStream_t stream) {
   const int threads = ((cap + 31) / 32) * 32;
   if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(T) * (ntypes * ntypes * kNcoef + 3 * cap) +
-                      sizeof(int) * 2 * cap;
-  cellpair_kernel<T, A, EV><<<ncx * ncy * ncz, threads, smem, stream>>>(
+  const size_t smem =
+      sizeof(T) * (ntypes * ntypes * kNcoef + (COUL ? 4 : 3) * cap) +
+      sizeof(int) * 2 * cap;
+  cellpair_kernel<T, A, EV, COUL><<<ncx * ncy * ncz, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const T*>(z), static_cast<const int*>(typ),
-      static_cast<const int*>(aid), static_cast<const T*>(coef), ntypes, n,
-      ncx, ncy, ncz, cap, reach_z, Lx, Ly, Lz, static_cast<A*>(fx),
-      static_cast<A*>(fy), static_cast<A*>(fz), static_cast<A*>(partial));
+      static_cast<const T*>(z), static_cast<const T*>(q),
+      static_cast<const int*>(typ), static_cast<const int*>(aid),
+      static_cast<const T*>(coef), ntypes, n, ncx, ncy, ncz, cap, reach_z, Lx,
+      Ly, Lz, static_cast<T>(g_ewald), static_cast<T>(qqrd2e),
+      static_cast<A*>(fx), static_cast<A*>(fy), static_cast<A*>(fz),
+      static_cast<A*>(partial));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename A>
+int dispatch(int ev, int coul, const void* x, const void* y, const void* z,
+             const void* q, const void* typ, const void* aid,
+             const void* coef, int ntypes, int n, int ncx, int ncy, int ncz,
+             int cap, int reach_z, double Lx, double Ly, double Lz,
+             double g_ewald, double qqrd2e, void* fx, void* fy, void* fz,
+             void* partial, cudaStream_t s) {
+#define CELLPAIR_ARGS                                                      \
+  x, y, z, q, typ, aid, coef, ntypes, n, ncx, ncy, ncz, cap, reach_z, Lx, \
+      Ly, Lz, g_ewald, qqrd2e, fx, fy, fz, partial, s
+  switch ((ev ? 2 : 0) + (coul ? 1 : 0)) {
+    case 0: return launch<T, A, false, false>(CELLPAIR_ARGS);
+    case 1: return launch<T, A, false, true>(CELLPAIR_ARGS);
+    case 2: return launch<T, A, true, false>(CELLPAIR_ARGS);
+    default: return launch<T, A, true, true>(CELLPAIR_ARGS);
+  }
+#undef CELLPAIR_ARGS
 }
 
 }  // namespace
 
 // prec: 0 = (float, float), 1 = (float, double), 2 = (double, double).
 // ev != 0 also writes partial[ncell][8]; fx/fy/fz are acc-typed (ncell*cap).
-extern "C" int cellpair_forces(int prec, int ev, const void* x,
-                               const void* y, const void* z,
+// coul != 0 adds the Ewald real-space Coulomb term (reads q, g_ewald,
+// qqrd2e); with coul == 0 q may be null.
+extern "C" int cellpair_forces(int prec, int ev, int coul, const void* x,
+                               const void* y, const void* z, const void* q,
                                const void* typ, const void* aid,
                                const void* coef, int ntypes, int n, int ncx,
                                int ncy, int ncz, int cap, int reach_z,
-                               double Lx, double Ly, double Lz, void* fx,
+                               double Lx, double Ly, double Lz,
+                               double g_ewald, double qqrd2e, void* fx,
                                void* fy, void* fz, void* partial,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CELLPAIR_ARGS                                                     \
-  x, y, z, typ, aid, coef, ntypes, n, ncx, ncy, ncz, cap, reach_z, Lx, Ly, \
-      Lz, fx, fy, fz, partial, s
-  switch (prec * 2 + (ev ? 1 : 0)) {
-    case 0: return launch<float, float, false>(CELLPAIR_ARGS);
-    case 1: return launch<float, float, true>(CELLPAIR_ARGS);
-    case 2: return launch<float, double, false>(CELLPAIR_ARGS);
-    case 3: return launch<float, double, true>(CELLPAIR_ARGS);
-    case 4: return launch<double, double, false>(CELLPAIR_ARGS);
-    case 5: return launch<double, double, true>(CELLPAIR_ARGS);
+#define DISPATCH_ARGS                                                         \
+  ev, coul, x, y, z, q, typ, aid, coef, ntypes, n, ncx, ncy, ncz, cap,        \
+      reach_z, Lx, Ly, Lz, g_ewald, qqrd2e, fx, fy, fz, partial, s
+  switch (prec) {
+    case 0: return dispatch<float, float>(DISPATCH_ARGS);
+    case 1: return dispatch<float, double>(DISPATCH_ARGS);
+    case 2: return dispatch<double, double>(DISPATCH_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef CELLPAIR_ARGS
+#undef DISPATCH_ARGS
 }

@@ -2,7 +2,8 @@
 
 Counterpart of ``lammps_buck_intel_tpu.integrate.cellpair_verlet``
 (``CellPairSimulation``, NVE subset).  Each block rebins once, then runs
-velocity-Verlet steps whose force is the cell-pair kernel.  PyTorch runs
+velocity-Verlet steps whose force is the cell-pair kernel plus, with a
+``kspace`` (``models.kspace.CellPPPM``), the PPPM force.  PyTorch runs
 eagerly: a block is a Python loop of launches on one stream, and the host
 waits for the device only at thermo rows, at a run's end and where the
 check cadence needs vmax.
@@ -31,7 +32,6 @@ from .verlet import NeighborPolicy
 
 # engine features of the JAX package not ported yet -> ROADMAP queue 1
 _UNPORTED = {
-    "kspace": "items 7-8 (slice 2: PPPM, waits for data.aC)",
     "topology": "item 12 (molecular decks)",
     "bonded": "item 12 (molecular decks)",
     "shake": "item 12 (molecular decks)",
@@ -49,7 +49,12 @@ class CellOverflowError(RuntimeError):
 
 
 class CellPairSimulation:
-    """NVE MD driver on the slot layout; the device is that of ``system``."""
+    """NVE MD driver on the slot layout; the device is that of ``system``.
+
+    kspace: None, or a function of this engine's cell grid that returns
+    the k-space solver (a ``CellPPPM``): the deck runner aligns the PPPM
+    mesh to the grid, which is chosen here.  The initial force includes
+    the solver's."""
 
     def __init__(
         self,
@@ -60,6 +65,7 @@ class CellPairSimulation:
         dt: Optional[float] = None,
         neighbor: Optional[NeighborPolicy] = None,
         cap: Optional[int] = None,
+        kspace=None,
         **unported,
     ):
         for key, value in unported.items():
@@ -73,6 +79,7 @@ class CellPairSimulation:
         self.precision = precision or single()
         self.dt = units.dt if dt is None else dt
         self.pair = pair
+        self.kspace = None
         self.neighbor = neighbor or NeighborPolicy(skin=units.skin)
         self.box = system.box
         self.device = system.x.device
@@ -121,6 +128,8 @@ class CellPairSimulation:
             st = self._bin(system)
             if bool(st.overflow):
                 raise RuntimeError("cell capacity sizing failed")
+        if kspace is not None:
+            self.kspace = kspace(self.grid)
         self.state = self._init_force(st)
         self.step_count = 0
         self.timings = {"run": 0.0}
@@ -146,8 +155,14 @@ class CellPairSimulation:
         r = compute_cellpair(self.pair, self.grid, self.box, state,
                              eflag=eflag, vflag=vflag,
                              acc_dtype=self.precision.acc)
+        fx, fy, fz, virial = r.fx, r.fy, r.fz, r.virial
         elong = torch.zeros((), dtype=self.precision.acc, device=self.device)
-        return (r.fx, r.fy, r.fz), r.evdwl, r.ecoul, elong, r.virial
+        if self.kspace is not None:
+            kfx, kfy, kfz, elong, kvir = self.kspace.compute_slots(
+                state, eflag, vflag)
+            fx, fy, fz = fx + kfx, fy + kfy, fz + kfz
+            virial = virial + kvir
+        return (fx, fy, fz), r.evdwl, r.ecoul, elong, virial
 
     def _minv(self, state: cs.SlotState) -> torch.Tensor:
         m = self._minv_t[state.typ.long()]

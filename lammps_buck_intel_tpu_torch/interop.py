@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.kspace.pppm import PPPM
 from .models.pair.styles import PairConfig, PairStyle
 from .neighbor.cell_slots import MOVE_FIELDS, SlotState
 
@@ -27,7 +28,21 @@ def pair_style_from_numpy(tables, special_lj, special_coul, qqrd2e: float,
         cutsq_max=float(cutsq_max))
 
 
-def slot_state_from_numpy(planes: dict, device="cpu") -> SlotState:
+def pppm_from_numpy(grid, g_ewald: float, order: int, greensfn, kx, ky, kz,
+                    qsum: float, qsqsum: float, qqrd2e: float, volume: float,
+                    box_lo, h, acc_dtype=torch.float64) -> PPPM:
+    """The port's PPPM from the JAX PPPM's fields (orthogonal, ik)."""
+    return PPPM(
+        g_ewald=float(g_ewald), grid=tuple(int(v) for v in grid),
+        order=int(order), greensfn=np.array(greensfn, np.float64),
+        kx=np.array(kx, np.float64), ky=np.array(ky, np.float64),
+        kz=np.array(kz, np.float64), qsum=float(qsum), qsqsum=float(qsqsum),
+        qqrd2e=float(qqrd2e), volume=float(volume),
+        box_lo=tuple(float(v) for v in box_lo),
+        h=tuple(float(v) for v in h), acc_dtype=acc_dtype)
+
+
+def slot_state_from_numpy(planes: dict, device="cuda") -> SlotState:
     """A JAX SlotState (as a dict of numpy planes) -> the port's.
 
     Float planes keep their dtype; therm must be empty (NVE) and comp

@@ -1,1 +1,2 @@
-from . import lattice, velocity
+from . import data_reader, lattice, velocity
+from .data_reader import DataFile, read_data

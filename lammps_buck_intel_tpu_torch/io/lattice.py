@@ -1,8 +1,8 @@
 """Lattice / create_atoms — deck geometry generation (host numpy).
 
-Counterpart of ``lammps_buck_intel_tpu.io.lattice`` (``lattice_constant``
-and ``create_atoms``); ``replicate`` serves read_data decks and is not
-ported yet.  Geometry generation never runs on the device.
+Counterpart of ``lammps_buck_intel_tpu.io.lattice`` (``lattice_constant``,
+``create_atoms`` and ``replicate`` for per-atom arrays).  Geometry
+generation never runs on the device.
 """
 from __future__ import annotations
 
@@ -47,3 +47,37 @@ def create_atoms(
     lo = np.zeros(3)
     hi = np.array([nx, ny, nz], dtype=float) * a
     return pos.astype(np.float64), lo, hi
+
+
+def replicate(x: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+              nrep: tuple[int, int, int], per_atom: dict | None = None,
+              **topology):
+    """LAMMPS ``replicate nx ny nz`` for per-atom arrays.
+
+    per_atom: dict of (N, ...) arrays tiled along atoms (type, q, v,
+    image).  Positions are unwrapped by their image flags before tiling
+    and the returned images are zero, as the JAX package does.  Returns
+    (x, lo, hi, per_atom).  Bonded topology, molecule ids and tilted
+    boxes raise (ROADMAP queue 1 items 12 and 14).
+    """
+    for name, value in topology.items():
+        if value is not None and np.size(value) and np.any(value):
+            item = "14 (triclinic)" if name == "tilt" else "12 (topology)"
+            raise NotImplementedError(
+                f"replicate with {name} is not ported: ROADMAP queue 1 "
+                f"item {item}")
+    nx, ny, nz = nrep
+    L = hi - lo
+    hmat = np.diag(np.asarray(L, np.float64))
+    per_atom = dict(per_atom) if per_atom else {}
+    img = per_atom.get("image")
+    if img is not None:
+        x = x + np.asarray(img, np.float64) @ hmat
+        per_atom["image"] = np.zeros_like(np.asarray(img))
+    shifts = np.asarray([[ix, iy, iz] for iz in range(nz) for iy in range(ny)
+                         for ix in range(nx)], np.float64) @ hmat
+    x_new = (x[None, :, :] + shifts[:, None, :]).reshape(-1, 3)
+    hi_new = lo + L * np.array([nx, ny, nz])
+    tiled = {k: np.concatenate([v] * len(shifts), axis=0)
+             for k, v in per_atom.items()}
+    return x_new, lo, hi_new, tiled

@@ -1,0 +1,2 @@
+from .pppm import PPPM, pppm_g_ewald, setup_pppm
+from .pppm_cells import CellPPPM

@@ -1,0 +1,75 @@
+"""K-space set-up math shared by the solvers (host numpy).
+
+Counterpart of ``lammps_buck_intel_tpu.models.kspace.base``: accuracy ->
+g_ewald and the Deserno-Holm P3M ik error estimate that sizes the PPPM
+mesh.  The formulas and the acons table are the JAX package's, copied so
+the port imports nothing of it.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+
+def two_charge_force(qqrd2e: float) -> float:
+    """Force between two unit charges one distance unit apart — converts
+    relative accuracy to absolute force accuracy (LAMMPS convention)."""
+    return qqrd2e
+
+
+def solve_g_ewald(accuracy_abs: float, cutoff: float, natoms: int,
+                  volume: float, q2: float) -> float:
+    """Ewald splitting parameter from the real-space RMS force error
+    dF = 2 q2 sqrt(1/(N rc V)) exp(-g^2 rc^2) == accuracy (q2 = qsqsum *
+    qqrd2e); the empirical (1.35 - 0.15 log(acc))/rc when the closed form
+    has no solution."""
+    arg = accuracy_abs * math.sqrt(natoms * cutoff * volume) / (2.0 * q2)
+    if arg >= 1.0:
+        return (1.35 - 0.15 * math.log(accuracy_abs)) / cutoff
+    return math.sqrt(-math.log(arg)) / cutoff
+
+
+def acons_table() -> np.ndarray:
+    """Deserno & Holm (1998) P3M ik error expansion coefficients,
+    acons[order][m] (the table LAMMPS' PPPM::compute_acons builds)."""
+    a = np.zeros((8, 7))
+    a[1][0] = 2.0 / 3.0
+    a[2][0] = 1.0 / 50.0
+    a[2][1] = 5.0 / 294.0
+    a[3][0] = 1.0 / 588.0
+    a[3][1] = 7.0 / 1440.0
+    a[3][2] = 21.0 / 3872.0
+    a[4][0] = 1.0 / 4320.0
+    a[4][1] = 3.0 / 1936.0
+    a[4][2] = 7601.0 / 2271360.0
+    a[4][3] = 143.0 / 28800.0
+    a[5][0] = 1.0 / 23232.0
+    a[5][1] = 7601.0 / 13628160.0
+    a[5][2] = 143.0 / 69120.0
+    a[5][3] = 517231.0 / 106536960.0
+    a[5][4] = 106640677.0 / 11737571328.0
+    a[6][0] = 691.0 / 68140800.0
+    a[6][1] = 13.0 / 57600.0
+    a[6][2] = 47021.0 / 35512320.0
+    a[6][3] = 9694607.0 / 2095994880.0
+    a[6][4] = 733191589.0 / 59609088000.0
+    a[6][5] = 326190917.0 / 11700633600.0
+    a[7][0] = 1.0 / 345600.0
+    a[7][1] = 3617.0 / 35512320.0
+    a[7][2] = 745739.0 / 838397952.0
+    a[7][3] = 56399353.0 / 12773376000.0
+    a[7][4] = 25091609.0 / 1560084480.0
+    a[7][5] = 1755948832039.0 / 36229939200000.0
+    a[7][6] = 4887769399.0 / 37838389248.0
+    return a
+
+
+def estimate_ik_error(h: float, prd: float, natoms: int, order: int,
+                      g_ewald: float, q2: float) -> float:
+    """P3M ik-differentiation k-space RMS force error (Deserno-Holm)."""
+    acons = acons_table()
+    s = sum(acons[order][m] * (h * g_ewald) ** (2 * m) for m in range(order))
+    return (q2 * (h * g_ewald) ** order
+            * math.sqrt(g_ewald * prd * math.sqrt(2.0 * math.pi) * s / natoms)
+            / (prd * prd))

@@ -1,0 +1,272 @@
+"""PPPM set-up: mesh sizing, B-spline pieces and the influence function.
+
+Counterpart of the set-up half of ``lammps_buck_intel_tpu.models.kspace.
+pppm`` (``setup_pppm``, ``PPPM``, ``_greens_function``, the piecewise
+B-spline coefficients) for what the port runs: an orthogonal box with ik
+differentiation.  ``diff="ad"``, ``slab`` and tilted boxes raise
+NotImplementedError (ROADMAP queue 1 items 10 and 14).  Everything here
+is host numpy run once per mesh, except ``mspline_horner``: the plain
+torch form of the piecewise-Horner weights that the CUDA deposit and
+gather kernels (csrc/pppm.cu) evaluate per slot.  The per-step pipeline
+is ``pppm_cells.CellPPPM``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ...core.box import Box
+from .base import estimate_ik_error, solve_g_ewald, two_charge_force
+
+_GOOD_SIZES = sorted(
+    {2**a * 3**b * 5**c
+     for a in range(1, 12) for b in range(6) for c in range(5)
+     if 2**a * 3**b * 5**c <= 4096}
+)
+# the acons table of base.py covers orders 1..7; the kernels hold 7
+MAX_ORDER = 7
+
+
+def _next_good(n: int) -> int:
+    for g in _GOOD_SIZES:
+        if g >= n:
+            return g
+    raise ValueError(f"grid size {n} too large")
+
+
+def _fold_idx(n: int) -> np.ndarray:
+    """FFT index -> signed harmonic number (m > n/2 wraps negative)."""
+    m = np.arange(n)
+    return np.where(m > n // 2, m - n, m)
+
+
+@functools.lru_cache(maxsize=None)
+def _mspline_piece_coeffs(p: int) -> tuple:
+    """(p, p) ascending coefficients of the cardinal B-spline M_p on each
+    unit interval [j, j+1) in t = x - j (the reference's rho_coeff form),
+    from the Cox-de Boor recursion; and the derivative pieces."""
+    pieces = [np.array([1.0])]                   # M_1 on [0, 1)
+    for q in range(2, p + 1):
+        prev = pieces
+        pieces = []
+        for j in range(q):
+            poly = np.zeros(q)
+            if j < q - 1:
+                a = prev[j]
+                poly[:len(a)] += j * a
+                poly[1:len(a) + 1] += a
+            if 0 <= j - 1 < q - 1:
+                b = prev[j - 1]
+                poly[:len(b)] += (q - j) * b
+                poly[1:len(b) + 1] -= b
+            pieces.append(poly / (q - 1))
+    C = np.stack(pieces)                          # (p intervals, p coeffs)
+    dC = C[:, 1:] * np.arange(1, p)[None, :]      # derivative pieces
+    return (tuple(map(tuple, C)), tuple(map(tuple, dC)))
+
+
+def spline_table(p: int) -> np.ndarray:
+    """(p, p) piece coefficients as an array: row j holds M_p on [j, j+1)
+    in ascending powers of t."""
+    return np.asarray(_mspline_piece_coeffs(p)[0], np.float64)
+
+
+def mspline_horner(p: int, x: torch.Tensor) -> torch.Tensor:
+    """M_p(x) by piecewise Horner in x's dtype: interval j = floor(x)
+    clipped to [0, p-1], t = x - j, 0 outside [0, p).  The coefficients
+    are rounded once to x's dtype, as the JAX package's constants are."""
+    if p == 1:
+        return ((x >= 0) & (x < 1)).to(x.dtype)
+    C = torch.as_tensor(spline_table(p)).to(x.device, x.dtype)
+    j = torch.clamp(torch.floor(x), 0.0, p - 1)
+    t = x - j
+    c = C[j.long()]                               # (..., p)
+    acc = c[..., p - 1]
+    for d in range(p - 2, -1, -1):
+        acc = acc * t + c[..., d]
+    return torch.where((x >= 0) & (x < p), acc, torch.zeros_like(acc))
+
+
+def stencil_offsets(order: int) -> np.ndarray:
+    if order % 2:
+        return np.arange(-(order - 1) // 2, (order - 1) // 2 + 1)
+    return np.arange(-(order // 2 - 1), order // 2 + 1)
+
+
+@dataclasses.dataclass
+class PPPM:
+    """Configured PPPM solver for a fixed box, charge set and accuracy
+    (orthogonal box, ik differentiation); host numpy."""
+
+    g_ewald: float
+    grid: tuple[int, int, int]
+    order: int
+    greensfn: np.ndarray      # (nx, ny, nz) optimal influence, energy units
+    kx: np.ndarray            # folded k components per axis
+    ky: np.ndarray
+    kz: np.ndarray
+    qsum: float
+    qsqsum: float
+    qqrd2e: float
+    volume: float
+    box_lo: tuple[float, float, float]
+    h: tuple[float, float, float]
+    acc_dtype: torch.dtype = torch.float32   # spectral and force dtype
+
+    def k3(self, nzh: Optional[int] = None):
+        """((nx,1,1), (1,ny,1), (1,1,nz')) wave-vector components; nzh
+        slices z (the fastest FFT axis) to the rfft half space."""
+        kzv = self.kz if nzh is None else self.kz[:nzh]
+        return (np.asarray(self.kx)[:, None, None],
+                np.asarray(self.ky)[None, :, None],
+                np.asarray(kzv)[None, None, :])
+
+    @property
+    def elong_self(self) -> float:
+        g = self.g_ewald
+        e = -g * self.qsqsum / math.sqrt(math.pi)
+        e -= math.pi / 2.0 * self.qsum**2 / (g * g * self.volume)
+        return e * self.qqrd2e
+
+
+def pppm_g_ewald(box: Box, q, cutoff: float, accuracy_rel: float,
+                 qqrd2e: float) -> float:
+    """The g_ewald ``setup_pppm`` chooses when none is given; it does not
+    depend on the mesh."""
+    q = np.asarray(q, np.float64)
+    accuracy = accuracy_rel * two_charge_force(qqrd2e)
+    volume = float(np.prod(np.asarray(box.lengths, np.float64)))
+    return solve_g_ewald(accuracy, cutoff, len(q), volume,
+                         float((q * q).sum()) * qqrd2e)
+
+
+def setup_pppm(
+    box: Box,
+    q,
+    cutoff: float,
+    accuracy_rel: float,
+    qqrd2e: float,
+    order: int = 5,
+    g_ewald: Optional[float] = None,
+    multiple_of: Optional[tuple[int, int, int]] = None,
+    grid_min: Optional[tuple[int, int, int]] = None,
+    acc_dtype: torch.dtype = torch.float32,
+    diff: str = "ik",
+    slab: Optional[float] = None,
+) -> PPPM:
+    """Mesh sizing and influence function, the JAX package's algorithm.
+
+    multiple_of: cell-aligned meshes (each axis a multiple of the cell
+    count, at least the accuracy-driven size and grid_min)."""
+    if diff != "ik":
+        raise NotImplementedError(
+            f"pppm diff {diff!r} is not ported (ik only): ROADMAP queue 1 "
+            "item 10")
+    if slab is not None:
+        raise NotImplementedError(
+            "kspace_modify slab is not ported: ROADMAP queue 1 item 10")
+    if box.is_triclinic:
+        raise NotImplementedError(
+            "triclinic PPPM is not ported: ROADMAP queue 1 item 14")
+    if not 2 <= order <= MAX_ORDER:
+        raise NotImplementedError(
+            f"pppm order {order}: the port covers orders 2..{MAX_ORDER}")
+    q = np.asarray(q, np.float64)
+    natoms = len(q)
+    qsum = float(q.sum())
+    qsqsum = float((q * q).sum())
+    L = np.asarray(box.lengths, np.float64)
+    volume = float(np.prod(L))
+    W = L
+    q2 = qsqsum * qqrd2e
+    accuracy = accuracy_rel * two_charge_force(qqrd2e)
+    if g_ewald is None:
+        g_ewald = pppm_g_ewald(box, q, cutoff, accuracy_rel, qqrd2e)
+
+    grid = []
+    for ax in range(3):
+        n = 2
+        while (estimate_ik_error(W[ax] / n, W[ax], natoms, order, g_ewald,
+                                 q2) > accuracy):
+            n += 1
+            if n > 4096:
+                raise RuntimeError("pppm grid blew up")
+        n = max(n, 2 * order)
+        if grid_min is not None:
+            n = max(n, grid_min[ax])
+        if multiple_of is not None:
+            m = multiple_of[ax]
+            grid.append(m * -(-n // m))
+        else:
+            grid.append(_next_good(n))
+    grid = tuple(grid)
+    nx, ny, nz = grid
+
+    def kvals(n, prd):
+        return 2.0 * np.pi * _fold_idx(n) / prd
+
+    greensfn = _greens_function(grid, L, g_ewald, order)
+    return PPPM(
+        g_ewald=float(g_ewald), grid=grid, order=order, greensfn=greensfn,
+        kx=kvals(nx, L[0]), ky=kvals(ny, L[1]), kz=kvals(nz, L[2]),
+        qsum=qsum, qsqsum=qsqsum, qqrd2e=qqrd2e, volume=volume,
+        box_lo=tuple(float(v) for v in np.asarray(box.lo)),
+        h=tuple(float(W[i] / grid[i]) for i in range(3)),
+        acc_dtype=acc_dtype,
+    )
+
+
+def _greens_function(grid, L, g_ewald, order, nalias: int = 2) -> np.ndarray:
+    """Hockney-Eastwood optimal influence function for ik differentiation:
+
+    G(k) = [ sum_m U^2(k_m) hat-g(k_m) (k . k_m) ] / ( |k|^2 [ sum_m U^2(k_m) ]^2 )
+
+    U the per-axis sinc^order deposit transform, the alias sum over
+    |m| <= nalias, hat-g(k) = 4 pi / k^2 exp(-k^2 / 4 g^2); G(0) = 0."""
+    nx, ny, nz = grid
+    recip = np.diag(2.0 * np.pi / np.asarray(L, np.float64))
+
+    def cart_k(ix, iy, iz):
+        return [recip[r, r] * np.asarray(idx, np.float64)
+                for r, idx in enumerate((ix, iy, iz))]
+
+    def kernel(kmsq):
+        safe = np.where(kmsq == 0.0, 1.0, kmsq)
+        g = 4.0 * np.pi / safe * np.exp(-kmsq / (4.0 * g_ewald**2))
+        return np.where(kmsq == 0.0, 0.0, g)
+
+    def sinc(t):
+        out = np.ones_like(t)
+        nzm = t != 0
+        out[nzm] = np.sin(t[nzm]) / t[nzm]
+        return out
+
+    ix = _fold_idx(nx)[:, None, None]
+    iy = _fold_idx(ny)[None, :, None]
+    iz = _fold_idx(nz)[None, None, :]
+    kx, ky, kz = cart_k(ix, iy, iz)
+    ksq = kx**2 + ky**2 + kz**2
+    num = np.zeros((nx, ny, nz))
+    den = np.zeros((nx, ny, nz))
+    shifts = range(-nalias, nalias + 1)
+    for sx in shifts:
+        ux = sinc(np.pi * (ix + sx * nx) / nx) ** order
+        for sy in shifts:
+            uy = sinc(np.pi * (iy + sy * ny) / ny) ** order
+            for sz in shifts:
+                uz = sinc(np.pi * (iz + sz * nz) / nz) ** order
+                kmx, kmy, kmz = cart_k(ix + sx * nx, iy + sy * ny,
+                                       iz + sz * nz)
+                u2 = (ux * uy * uz) ** 2
+                kmsq = kmx**2 + kmy**2 + kmz**2
+                num += u2 * kernel(kmsq) * (kx * kmx + ky * kmy + kz * kmz)
+                den += u2
+    ksq_safe = np.where(ksq == 0.0, 1.0, ksq)
+    G = num / (ksq_safe * den * den)
+    G[0, 0, 0] = 0.0
+    return G

@@ -12,9 +12,10 @@ halved.
 
 ``compute_cellpair`` dispatches on the device of the planes: CUDA
 tensors launch the hand-written kernel (csrc/cellpair.cu through
-``ops.cellpair``), CPU tensors run ``compute_cellpair_plain``.  Special
-bonds, molecule exclusion and tilted boxes are ROADMAP queue 1 items 12
-and 14.
+``ops.cellpair``), CPU tensors run ``compute_cellpair_plain``.  Styles:
+buck and buck/coul/long (the Ewald real-space term reads the slot ``q``
+plane).  Special bonds, molecule exclusion and tilted boxes are ROADMAP
+queue 1 items 12 and 14.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 
 from ...core.box import Box
 from ...neighbor.cell_slots import CellGrid, SlotState
-from .styles import COEF_NAMES, PairStyle, pair_terms
+from .styles import COEF_NAMES, PairStyle, check_ported, pair_terms
 
 # Largest type count the kernel's shared coefficient table holds.
 MAX_TYPES = 8
@@ -91,11 +92,7 @@ def half_stencil_tables(nc: tuple, offs: np.ndarray):
 
 def check_style(style: PairStyle):
     """Raise for what neither the kernel nor the plain version covers."""
-    cfg = style.cfg
-    if cfg.vdw != "buck" or cfg.coul != "none" or cfg.disp != "cut":
-        raise NotImplementedError(
-            f"cell-pair forces for {cfg.name!r}: only plain buck is ported "
-            "(Coulomb is slice 2, ROADMAP queue 1 items 7-8)")
+    check_ported(style)
     ntypes = style.tables.shape[0]
     if ntypes > MAX_TYPES:
         raise ValueError(
@@ -139,9 +136,12 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
            state.z.view(ncell, cap)]
     aid = state.aid.view(ncell, cap)
     typ = state.typ.view(ncell, cap)
+    coul = style.cfg.coul == "long"
+    q = state.q.view(ncell, cap)
     f_out = [torch.zeros((ncell, cap), dtype=acc_dtype, device=dev)
              for _ in range(3)]
     ev = torch.zeros((), dtype=acc_dtype, device=dev)
+    ec = torch.zeros((), dtype=acc_dtype, device=dev)
     vir = torch.zeros((6,), dtype=acc_dtype, device=dev)
     chunk = _chunk_cells(cap, S, ncell)
     for c0 in range(0, ncell, chunk):
@@ -163,13 +163,17 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
             tt = (typ[c0:c1, :, None] * ntypes
                   + typ[js].reshape(c1 - c0, 1, S * cap)).long()
             coef = {name: coef_t[:, c][tt] for c, name in enumerate(COEF_NAMES)}
-        fs, e, _ = pair_terms(style, rsq, coef, 0.0, 0.0, 1.0, 1.0,
-                              eflag=eflag)
+        qi = q[c0:c1, :, None] if coul else 0.0
+        qj = q[js].reshape(c1 - c0, 1, S * cap) if coul else 0.0
+        fs, e, e_c = pair_terms(style, rsq, coef, qi, qj, 1.0, 1.0,
+                                eflag=eflag)
         fs = torch.where(mask, fs, torch.zeros_like(fs))
         for ax in range(3):
             f_out[ax][c0:c1] = (fs * d[ax]).to(acc_dtype).sum(-1)
         if eflag:
             ev = ev + torch.where(mask, e, torch.zeros_like(e)).to(
+                acc_dtype).sum()
+            ec = ec + torch.where(mask, e_c, torch.zeros_like(e_c)).to(
                 acc_dtype).sum()
         if vflag:
             vir = vir + torch.stack([
@@ -178,8 +182,8 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
     # every pair was seen from both sides
     return CellPairResult(
         fx=f_out[0].reshape(-1), fy=f_out[1].reshape(-1),
-        fz=f_out[2].reshape(-1), evdwl=0.5 * ev,
-        ecoul=torch.zeros((), dtype=acc_dtype, device=dev), virial=0.5 * vir)
+        fz=f_out[2].reshape(-1), evdwl=0.5 * ev, ecoul=0.5 * ec,
+        virial=0.5 * vir)
 
 
 def compute_cellpair(style: PairStyle, grid: CellGrid, box: Box,

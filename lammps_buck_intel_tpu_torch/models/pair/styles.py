@@ -7,9 +7,11 @@ same numbers.  ``pair_terms`` is the plain torch form of the per-pair
 physics; the kernel's device function computes the same expressions in
 the same order.
 
-Slice 1 carries the ``buck`` style only: Coulomb (``coul != "none"``)
-and Ewald-split dispersion (``disp == "long"``) are slice 2 (ROADMAP
-queue 1 items 7-8 and 13).
+The port carries ``buck`` and ``buck/coul/long`` (Ewald real-space
+Coulomb through the A&S erfc; the k-space half is models/kspace).
+``buck/coul/cut`` (ROADMAP queue 1 item 10), Ewald-split dispersion
+(``disp == "long"``, item 13) and special-bond factors other than 1
+(item 12) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -24,8 +26,6 @@ EWALD_F = 1.12837917  # 2/sqrt(pi)
 EWALD_P = 0.3275911
 ERFC_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
 
-_SLICE2 = ("is slice 2 (buck/coul/long + PPPM), which waits for data.aC "
-           "in the repository: ROADMAP queue 1 items 7-8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,22 +95,26 @@ def build_buck(
     shift: bool = False,
     name: Optional[str] = None,
 ) -> PairStyle:
-    """Buckingham builder.
+    """Buckingham builder (``coul`` "none" or "long").
 
-    coeffs: {(i, j) 0-based: (A, rho, C[, cut_lj])} — every type pair
-    must be given (buck has no mixing rule).
+    coeffs: {(i, j) 0-based: (A, rho, C[, cut_lj[, cut_coul]])} — every
+    type pair must be given (buck has no mixing rule).  g_ewald is set
+    later by the k-space solver (``replace(g_ewald=...)``).
     """
-    if coul != "none":
-        raise NotImplementedError(f"buck/coul/{coul} {_SLICE2}")
+    if coul not in ("none", "long"):
+        raise NotImplementedError(
+            f"buck/coul/{coul} is not ported: ROADMAP queue 1 item 10")
     if disp != "cut":
         raise NotImplementedError(
             "buck/long (Ewald-split dispersion) is not ported: ROADMAP "
             "queue 1 item 13")
+    cut_coul = cut_global if cut_coul is None else cut_coul
     t = np.zeros((ntypes, ntypes, NCOEF), np.float64)
     seen = np.zeros((ntypes, ntypes), bool)
     for (i, j), c in coeffs.items():
         a, rho, cc = c[0], c[1], c[2]
         cut_lj = c[3] if len(c) > 3 else cut_global
+        ccoul = c[4] if len(c) > 4 else cut_coul
         if rho <= 0:
             raise ValueError("buck rho must be > 0")
         row = np.zeros(NCOEF)
@@ -120,8 +124,7 @@ def build_buck(
         row[_COL["e1"]] = cc
         row[_COL["rhoinv"]] = 1.0 / rho
         row[_COL["cut_ljsq"]] = cut_lj**2
-        row[_COL["cut_coulsq"]] = (cut_global if cut_coul is None
-                                   else cut_coul)**2
+        row[_COL["cut_coulsq"]] = ccoul**2
         if shift:
             r6 = cut_lj**-6
             row[_COL["offset"]] = a * np.exp(-cut_lj / rho) - cc * r6
@@ -131,14 +134,30 @@ def build_buck(
     if not seen.all():
         missing = np.argwhere(~seen)
         raise ValueError(f"buck coeffs missing for type pairs {missing[:4] + 1}")
+    cutsq_max = float(t[..., _COL["cut_ljsq"]].max())
+    if coul != "none":
+        cutsq_max = max(cutsq_max, float(t[..., _COL["cut_coulsq"]].max()))
+    default = f"buck/coul/{coul}" if coul != "none" else "buck"
     return PairStyle(
-        cfg=PairConfig(name=name or "buck", vdw="buck", coul=coul, disp=disp),
+        cfg=PairConfig(name=name or default, vdw="buck", coul=coul,
+                       disp=disp),
         tables=t,
         special_lj=np.asarray(special_lj, np.float64),
         special_coul=np.asarray(special_coul, np.float64),
         qqrd2e=float(qqrd2e),
-        cutsq_max=float(t[..., _COL["cut_ljsq"]].max()),
+        cutsq_max=cutsq_max,
     )
+
+
+def check_ported(style: PairStyle):
+    """Raise for what neither the kernel nor the plain version covers."""
+    cfg = style.cfg
+    if cfg.vdw != "buck" or cfg.coul not in ("none", "long") \
+            or cfg.disp != "cut":
+        raise NotImplementedError(
+            f"pair style {cfg.name!r} ({cfg.vdw}, coul {cfg.coul}, disp "
+            f"{cfg.disp}) is not ported: buck and buck/coul/long only "
+            "(ROADMAP queue 1 items 10, 13)")
 
 
 def erfc_approx(grij, expm2):
@@ -155,15 +174,19 @@ def pair_terms(style: PairStyle, rsq, coef, qi, qj, f_lj, f_coul, *,
     rsq: squared distances (garbage at masked pairs — the caller masks).
     coef: dict of per-pair coefficients (``COEF_NAMES``), each a python
       float or a tensor broadcastable against rsq.
-    f_lj: special-bond factor (1.0 for plain pairs).
+    f_lj, f_coul: special-bond factors; only 1.0 (plain pairs) is ported,
+      anything else raises (ROADMAP queue 1 item 12).
+    qi, qj: charges broadcastable against rsq (ignored without Coulomb).
     Returns (fscalar, evdwl, ecoul) with F_i += fscalar * (x_i - x_j);
     the energies are None without eflag.
     """
     cfg = style.cfg
-    if cfg.vdw != "buck" or cfg.coul != "none" or cfg.disp != "cut":
+    check_ported(style)
+    if not (isinstance(f_lj, float) and isinstance(f_coul, float)
+            and f_lj == f_coul == 1.0):
         raise NotImplementedError(
-            f"pair_terms for {cfg.name!r}: only plain buck is ported; "
-            f"Coulomb {_SLICE2}")
+            "special-bond factors other than 1 are not ported: ROADMAP "
+            "queue 1 item 12 (molecular decks)")
     rsq = torch.clamp(rsq, min=1e-12)
     r2inv = 1.0 / rsq
     r = torch.sqrt(rsq)
@@ -172,11 +195,24 @@ def pair_terms(style: PairStyle, rsq, coef, qi, qj, f_lj, f_coul, *,
     rep_f = r * rexp * coef["c0"]
     rep_e = coef["e0"] * rexp
     fvdw = rep_f - r6inv * coef["c1"]
-    evdwl = (rep_e - coef["e1"] * r6inv - coef["offset"]) * f_lj
-    fvdw = fvdw * f_lj
+    evdwl = rep_e - coef["e1"] * r6inv - coef["offset"]
     in_lj = rsq < coef["cut_ljsq"]
     zero = torch.zeros_like(rsq)
-    fscalar = torch.where(in_lj, fvdw, zero) * r2inv
+    fvdw = torch.where(in_lj, fvdw, zero)
+    ecoul = zero
+    if cfg.coul == "long":
+        # Ewald real space, the JAX package's expressions in its order
+        qq = float(style.qqrd2e) * qi * qj
+        prefactor = qq * (r * r2inv)
+        grij = float(style.g_ewald) * r
+        expm2 = torch.exp(-grij * grij)
+        erfc = erfc_approx(grij, expm2)
+        in_coul = rsq < coef["cut_coulsq"]
+        fcoul = torch.where(
+            in_coul, prefactor * (erfc + float(EWALD_F) * grij * expm2), zero)
+        ecoul = torch.where(in_coul, prefactor * erfc, zero)
+        fvdw = fvdw + fcoul
+    fscalar = fvdw * r2inv
     if not eflag:
         return fscalar, None, None
-    return fscalar, torch.where(in_lj, evdwl, zero), zero
+    return fscalar, torch.where(in_lj, evdwl, zero), ecoul

@@ -49,6 +49,17 @@ class CellGrid:
     def nslots(self) -> int:
         return self.ncell * self.cap
 
+    def coarse(self) -> "CellGrid":
+        """The reach-1 view of the same slot planes: reach_z z-adjacent
+        cells are contiguous rows and merge into one cell of reach_z * cap
+        slots.  Identity when reach_z == 1.  The PPPM mesh is aligned to
+        these cell counts."""
+        if self.reach_z == 1:
+            return self
+        return CellGrid(
+            nc=(self.nc[0], self.nc[1], self.nc[2] // self.reach_z),
+            cap=self.cap * self.reach_z, n_atoms=self.n_atoms)
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m

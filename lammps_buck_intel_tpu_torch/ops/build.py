@@ -24,10 +24,11 @@ _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-lineinfo", "-Xptxas", "-v"]
 # library -> extra nvcc flags.  The rebin is compiled without FMA
 # contraction so its wrap and cell arithmetic round exactly like the
-# plain torch version; neither library uses --use_fast_math.
+# plain torch version; no library uses --use_fast_math.
 LIBRARIES = {
     "cellpair": [],
     "rebin": ["--fmad=false"],
+    "pppm": [],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -82,3 +83,12 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     _loaded[name] = lib
     return lib
+
+
+def load_all() -> dict[str, ctypes.CDLL]:
+    """Build and load every library, one nvcc per source, all started
+    together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        return dict(zip(LIBRARIES, ex.map(load, LIBRARIES)))

@@ -24,7 +24,7 @@ def _lib():
     lib = build.load("cellpair")
     if lib.cellpair_forces.argtypes is None:
         lib.cellpair_forces.argtypes = (
-            [_I, _I] + [_P] * 6 + [_I] * 7 + [_D] * 3 + [_P] * 5)
+            [_I, _I, _I] + [_P] * 7 + [_I] * 7 + [_D] * 5 + [_P] * 5)
         lib.cellpair_forces.restype = _I
     return lib
 
@@ -43,8 +43,9 @@ def check_plane(t: torch.Tensor, name: str, dtype, numel: int, device):
 
 def cellpair_forces(style, grid, box, state, *, eflag: bool,
                     acc_dtype) -> CellPairResult:
-    """Full-stencil pair forces on the card.  eflag also computes evdwl
-    and the virial (the kernel's EV variant)."""
+    """Full-stencil pair forces on the card.  eflag also computes evdwl,
+    ecoul and the virial (the kernel's EV variant); buck/coul/long runs
+    the kernel's COUL variant, which reads the slot q plane."""
     check_style(style)
     dev = state.x.device
     if dev.type != "cuda":
@@ -58,6 +59,9 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool,
     ns = grid.nslots
     for name in ("x", "y", "z"):
         check_plane(getattr(state, name), name, flt, ns, dev)
+    coul = style.cfg.coul == "long"
+    if coul:
+        check_plane(state.q, "q", flt, ns, dev)
     for name in ("typ", "aid"):
         check_plane(getattr(state, name), name, torch.int32, ns, dev)
     coef = style.tables_on(flt, dev)
@@ -68,10 +72,12 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool,
                if eflag else None)
     L = [float(v) for v in box.lengths]
     rc = _lib().cellpair_forces(
-        prec, int(eflag), state.x.data_ptr(), state.y.data_ptr(),
-        state.z.data_ptr(), state.typ.data_ptr(), state.aid.data_ptr(),
-        coef.data_ptr(), ntypes, grid.n_atoms, *grid.nc, grid.cap,
-        grid.reach_z, *L, fx.data_ptr(), fy.data_ptr(), fz.data_ptr(),
+        prec, int(eflag), int(coul), state.x.data_ptr(), state.y.data_ptr(),
+        state.z.data_ptr(), state.q.data_ptr() if coul else None,
+        state.typ.data_ptr(), state.aid.data_ptr(), coef.data_ptr(), ntypes,
+        grid.n_atoms, *grid.nc, grid.cap, grid.reach_z, *L,
+        float(style.g_ewald), float(style.qqrd2e), fx.data_ptr(),
+        fy.data_ptr(), fz.data_ptr(),
         partial.data_ptr() if eflag else None,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

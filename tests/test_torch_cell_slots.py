@@ -46,7 +46,7 @@ def _setup(cap=None, seed=3):
             valid, rng.uniform(-1.2, 1.2, planes[k].shape), 0.0)
     jst = jst._replace(**{k: jnp.asarray(planes[k]) for k in ("x", "y", "z")})
     tgrid = tcs.CellGrid(nc=grid.nc, cap=grid.cap, n_atoms=n)
-    return box, grid, jst, tgrid, slot_state_from_numpy(planes)
+    return box, grid, jst, tgrid, slot_state_from_numpy(planes, device="cpu")
 
 
 def _per_atom(planes, n, cap):
@@ -128,7 +128,7 @@ def test_small_capacity_sets_overflow(incremental):
             planes[k][idx] = l + 0.01
         jst = jst._replace(**{k: jnp.asarray(planes[k])
                               for k in ("x", "y", "z")})
-        tst = slot_state_from_numpy(planes)
+        tst = slot_state_from_numpy(planes, device="cpu")
         jr = jcs.rebin_incremental(grid, box, jst, bufcap=grid.nslots)
         tr = tcs.rebin_incremental(tgrid, box, tst, bufcap=grid.nslots)
     else:

@@ -83,7 +83,7 @@ def test_make_system_identical():
     a = jcore.make_system(x, jcore.make_box(lo, hi), type=typ, v=v,
                           mass=[1.0, 2.0], dtype=np.float64)
     b = tcore.make_system(x, tcore.make_box(lo, hi), type=typ, v=v,
-                          mass=[1.0, 2.0], dtype=torch.float64)
+                          mass=[1.0, 2.0], dtype=torch.float64, device="cpu")
     for f in ("x", "v", "q", "type", "image", "mass", "molecule"):
         assert np.array_equal(np.asarray(getattr(a, f)),
                               getattr(b, f).numpy()), f
@@ -104,12 +104,34 @@ def test_port_imports_no_jax():
         "import lammps_buck_intel_tpu_torch.interop\n"
         "import lammps_buck_intel_tpu_torch.ops.cellpair\n"
         "import lammps_buck_intel_tpu_torch.ops.rebin\n"
+        "import lammps_buck_intel_tpu_torch.ops.pppm\n"
+        "import lammps_buck_intel_tpu_torch.models.kspace\n"
+        "import lammps_buck_intel_tpu_torch.io.data_reader\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'lammps_buck_intel_tpu' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_sources_name_no_jax():
+    """No source file of the port, and not chip_smoke.py, imports jax or
+    the JAX package (scanned as text: an import inside a function that
+    the CPU tests never reach counts too)."""
+    import re
+
+    bad = re.compile(r"^\s*(import|from)\s+(jax\b|lammps_buck_intel_tpu\b)",
+                     re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT,
+                                            "lammps_buck_intel_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            m = bad.search(f.read())
+        assert m is None, (path, m.group(0) if m else None)
 
 
 def test_cuda_requested_without_gpu_raises(monkeypatch):
@@ -120,6 +142,15 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("change", [
     {"kspace_style": {"name": "pppm", "accuracy": 1e-4}},
+    {"kspace_style": {"name": "ewald", "accuracy": 1e-4},
+     "pair_style": {"name": "buck/coul/long", "cut": 2.5,
+                    "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
+    {"kspace_style": {"name": "pppm", "accuracy": 1e-4, "slab": 3.0},
+     "pair_style": {"name": "buck/coul/long", "cut": 2.5,
+                    "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
+    {"pair_style": {"name": "buck/coul/cut", "cut": 2.5,
+                    "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
+    {"replicate": [2, 2, 2]},
     {"read_data": "examples/data.rhodo_class"},
     {"engine": "nlist"},
     {"fixes": [{"name": "nvt", "t_start": 1.0, "t_damp": 0.1}]},

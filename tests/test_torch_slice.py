@@ -6,6 +6,12 @@ thermo rows agree to rel 1e-9 and final atom-order unwrapped positions
 to 1e-9 abs.  Variants: buck_big's neighbor policy (every 1, delay 5,
 check yes — the vmax-driven rebin cadence) and a forced capacity that
 overflows mid-run (rollback, grow, rebin, replay).
+
+cristobalite_pppm.yaml (buck/coul/long + PPPM order 7, ik) shrunk to one
+copy of examples/data.cristobalite (1,440 atoms) with cutoff 5.0 and
+skin 0.5 (cells 5x6x3), 20 steps in double: thermo rows (temp, epair,
+elong, etotal, press) rel 1e-9 and final unwrapped positions 1e-9; both
+packages solve on the same mesh with the same g_ewald.
 """
 import os
 
@@ -15,10 +21,10 @@ import yaml
 
 from lammps_buck_intel_tpu.run import run_deck as jax_run_deck
 from lammps_buck_intel_tpu_torch.integrate import CellPairSimulation
-from lammps_buck_intel_tpu_torch.run import run_deck
+from lammps_buck_intel_tpu_torch.run import build_simulation, run_deck
 
-DECKS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "examples", "decks")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DECKS = os.path.join(ROOT, "examples", "decks")
 
 
 def _cfg(variant):
@@ -68,3 +74,82 @@ def test_buck_deck_matches_jax(variant, monkeypatch):
         assert 1 < len(blocks) < 40 and max(blocks) > 1
     else:
         assert sum(blocks) >= 40
+
+
+def _cristobalite_cfg():
+    with open(os.path.join(DECKS, "cristobalite_pppm.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(read_data=os.path.join(ROOT, "examples", "data.cristobalite"),
+               replicate=[1, 1, 1], run=20, thermo=10, precision="double")
+    cfg["pair_style"]["cut"] = 5.0
+    cfg["neighbor"] = dict(cfg["neighbor"], skin=0.5)
+    return cfg
+
+
+def test_cristobalite_pppm_deck_matches_jax():
+    jsim, jrows = jax_run_deck(_cristobalite_cfg(), log=False)
+    tsim, trows = run_deck(_cristobalite_cfg(), device="cpu", log=False)
+    assert tsim.n_atoms == 1440 and tsim.grid.nc == tuple(jsim.grid.nc) \
+        == (5, 6, 3)
+    pm, jpm = tsim.kspace.pm, jsim.kspace.pm
+    assert pm.grid == tuple(jpm.grid) and pm.order == 7
+    assert pm.g_ewald == jpm.g_ewald == tsim.pair.g_ewald
+    assert [r["step"] for r in trows] == [r["step"] for r in jrows] \
+        == [0, 10, 20]
+    for jr, tr in zip(jrows, trows):
+        assert abs(jr["elong"]) > 1.0 and abs(jr["ecoul"]) > 1.0
+        for key in ("temp", "epair", "elong", "etotal", "press"):
+            assert abs(tr[key] - jr[key]) <= 1e-9 * abs(jr[key]), \
+                (jr["step"], key, tr[key], jr[key])
+    assert np.abs(_unwrapped(tsim) - _unwrapped(jsim)).max() <= 1e-9
+
+
+def test_initial_force_includes_kspace():
+    """The engine calls its k-space factory once with its own grid and
+    starts from the pair force plus the solver's force, evaluated once,
+    on jittered silica."""
+    import torch
+
+    from lammps_buck_intel_tpu_torch.core import make_system
+    from lammps_buck_intel_tpu_torch.io import read_data
+    from lammps_buck_intel_tpu_torch.models.pair.cellpair import \
+        compute_cellpair
+    from lammps_buck_intel_tpu_torch.neighbor import cell_slots as cs
+
+    cfg = _cristobalite_cfg()
+    a = build_simulation(cfg, device="cpu")
+    at = a.get_atoms()
+    x = at["x"] + np.random.default_rng(4).uniform(-0.1, 0.1, at["x"].shape)
+    system = make_system(x, a.box, type=at["typ"], v=at["v"], q=at["q"],
+                         image=at["image"],
+                         mass=read_data(cfg["read_data"]).mass,
+                         dtype=torch.float64, device="cpu")
+    solver, grids, calls = a.kspace, [], []
+    compute = solver.compute_slots
+
+    def counted(*args):
+        calls.append(args[1:])
+        return compute(*args)
+
+    solver.compute_slots = counted
+
+    def make(grid):
+        grids.append(grid)
+        return solver
+
+    b = CellPairSimulation(system, a.pair, units=a.units,
+                           precision=a.precision, dt=a.dt,
+                           neighbor=a.neighbor, kspace=make)
+    assert grids == [b.grid] and b.kspace is solver
+    assert calls == [(False, False)]
+    st = b.state
+    r = compute_cellpair(b.pair, b.grid, b.box, st, acc_dtype=torch.float64)
+    kf = compute(st, False, False)[:3]
+    want = cs.to_atoms(b.grid, st._replace(
+        fx=r.fx + kf[0], fy=r.fy + kf[1], fz=r.fz + kf[2]))["f"].numpy()
+    k_only = cs.to_atoms(b.grid, st._replace(
+        fx=kf[0], fy=kf[1], fz=kf[2]))["f"].numpy()
+    f = b.get_atoms()["f"]
+    assert np.abs(k_only).max() > 1e-2
+    np.testing.assert_allclose(f, want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
