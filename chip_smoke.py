@@ -5,9 +5,10 @@
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: nvcc builds csrc/cellpair.cu, csrc/rebin.cu and csrc/pppm.cu
-     from the checkout into lammps_buck_intel_tpu_torch/_build/, one nvcc
-     per source, all started together;
+  2. build: nvcc builds csrc/cellpair.cu, csrc/rebin.cu, csrc/pppm.cu,
+     csrc/bonded.cu and csrc/verlet.cu from the checkout into
+     lammps_buck_intel_tpu_torch/_build/, one nvcc per source, all started
+     together;
   3. K1, the cell-pair kernel, against its plain torch version on the card
      at buck.yaml's and buck_big.yaml's grids, on a 2-type table, and with
      its coul/long branch on cristobalite_pppm.yaml's grid; f32 and f64,
@@ -28,7 +29,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      cristobalite_pppm.yaml (259,200 atoms, buck/coul/long + PPPM order 7,
      100 steps): step-0 thermo against the recorded JAX rows (and the
      reciprocal part of elong), energy drift within the gates, every
-     kernel of the path launched, atom-steps/s.
+     kernel of the path launched, atom-steps/s;
+  8. the molecular path (lj/charmm/coul/long with special bonds, PPPM
+     order 5, bonds, CHARMM angles, dihedrals, impropers) on
+     examples/data.rhodo_class: K1's lj/charmm + special-bond variant,
+     the three bonded kernels and the four integrator kernels (kick and
+     drift, kick with the force sum, kinetic sums, the Nose-Hoover chain
+     half step) against their plain versions at the decks' 31,104 atoms
+     and at 248,832 atoms, f32 and f64, timed at the larger size;
+     rhodo_flex_nve.yaml and
+     rhodo_flex_nvt.yaml in f64 at 1,728 atoms against the JAX package's
+     f64 record (step-0 forces, thermo rows, positions, the thermostat
+     chain); both decks in full (31,104 atoms, 100 steps, f32) against the
+     recorded step-0 row scaled to 18 copies, the NVE drift under its
+     recorded gate, NVT's temperature rows against the JAX package's own
+     f32 NVT run of one copy; the NVE deck at replicate [6, 6, 4] (248,832
+     atoms), with the launch counts that the kernels line reports for the
+     molecular path's kernels.
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -47,6 +64,9 @@ import numpy as np
 import torch
 
 from lammps_buck_intel_tpu_torch import ops
+from lammps_buck_intel_tpu_torch.models.bonded import (compute_bonded,
+                                                       compute_bonded_plain,
+                                                       make_bonded)
 from lammps_buck_intel_tpu_torch.models.kspace import pppm_cells
 from lammps_buck_intel_tpu_torch.models.pair import build_buck
 from lammps_buck_intel_tpu_torch.models.pair.cellpair import (
@@ -96,8 +116,20 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 # per pair inside the cutoff, evaluated once with Newton's third law:
 # distance 8, clamp 1, 1/r^2 and r 2, buck 8, coul/long 24 (prefactor 3,
-# grij and exp 3, A&S erfc 13, force 5), scalar 1, both atoms' forces 9
-OPS_PAIR = {"none": 29, "long": 53}
+# grij and exp 3, A&S erfc 13, force 5), scalar 1, both atoms' forces 9;
+# lj/charmm 10 (r^-6 2, forcelj 4, philj 4) in place of buck's 8, and 15
+# more for a pair in the switching region (tt 1, switch1 6, switch2 5,
+# combination 3)
+OPS_PAIR = {("buck", "none"): 29, ("buck", "long"): 53,
+            ("ljcharmm", "long"): 55}
+OPS_SWITCH = 15
+# per bonded term (adds, multiplies, divides, square roots, arccos, rint;
+# minimum image 4 per component): bond 12 image + 20; angle 24 image + 55,
+# its Urey-Bradley part 12 + 20; dihedral 36 image, three cross products
+# 27, angle and multiplicity ~40, gradient ~45, 1-4 pair ~35, forces and
+# mapping 20; improper the same without the 1-4 pair and the multiplicity
+OPS_BONDED = {"bond": 32, "angle": 79, "urey_bradley": 32, "dihedral": 205,
+              "improper": 160}
 # per atom of an order-p PPPM stencil: p weights per axis by Horner
 # (2 (p - 1) each), p^2 products w_x w_y, then p^3 points
 OPS_WEIGHTS = lambda p: 3 * p * 2 * (p - 1) + p * p  # noqa: E731
@@ -208,10 +240,10 @@ def jittered_state(cfg: dict, precision: str, amp: float = 0.1):
     return sim, st
 
 
-def pairs_in_cutoff(style, grid, box, st) -> int:
-    """Unordered pairs of this state within the style's largest cutoff:
-    the pair work the function needs (the kernel tests every candidate
-    of the full stencil, from both sides)."""
+def pairs_in_cutoff(style, grid, box, st, rsq_min: float = -1.0) -> int:
+    """Unordered pairs of this state within the style's largest cutoff
+    (and beyond rsq_min): the pair work the function needs (the kernel
+    tests every candidate of the full stencil, from both sides)."""
     ncell, cap, n = grid.ncell, grid.cap, grid.n_atoms
     offs = full_offsets(grid.reach_z)
     S = offs.shape[0]
@@ -233,7 +265,8 @@ def pairs_in_cutoff(style, grid, box, st) -> int:
             rsq = rsq + (pos[ax][c0:c1, :, None] - pj) ** 2
         ai = aid[c0:c1, :, None]
         aj = aid[js].reshape(c1 - c0, 1, S * cap)
-        ok = (ai < n) & (aj < n) & (ai != aj) & (rsq < style.cutsq_max)
+        ok = ((ai < n) & (aj < n) & (ai != aj) & (rsq < style.cutsq_max)
+              & (rsq > rsq_min))
         total += int(ok.sum())
     return total // 2
 
@@ -261,16 +294,16 @@ def phase_build():
                     print(f"[build]   {line.strip()}")
 
 
-def _k1_compare(label, style, grid, box, st, acc):
+def _k1_compare(label, style, grid, box, st, acc, special=None):
     """Kernel vs plain, force-only and with e/v; returns the f32/f64
     force-only max |df|."""
     ftol, etol = TOL[st.x.dtype]
     abs_err = 0.0
     for ev in (False, True):
         k = compute_cellpair(style, grid, box, st, eflag=ev, vflag=ev,
-                             acc_dtype=acc)
+                             acc_dtype=acc, special=special)
         p = compute_cellpair_plain(style, grid, box, st, eflag=ev, vflag=ev,
-                                   acc_dtype=acc)
+                                   acc_dtype=acc, special=special)
         torch.cuda.synchronize()
         fk = torch.stack([k.fx, k.fy, k.fz])
         fp = torch.stack([p.fx, p.fy, p.fz])
@@ -295,20 +328,30 @@ def _k1_compare(label, style, grid, box, st, acc):
 
 def _k1_time(label, sim, st, reps_plain=3):
     """Force-only f32 kernel and plain times, and the kernel's bound."""
-    style, grid, box = sim.pair, sim.grid, sim.box
+    style, grid, box, special = sim.pair, sim.grid, sim.box, sim.special
     def kern():
         return compute_cellpair(style, grid, box, st,
-                                acc_dtype=torch.float32)
+                                acc_dtype=torch.float32, special=special)
 
     ms, dev_ms = cuda_ms(kern), device_ms(kern)
     plain = cuda_ms(lambda: compute_cellpair_plain(
-        style, grid, box, st, acc_dtype=torch.float32), reps=reps_plain)
+        style, grid, box, st, acc_dtype=torch.float32, special=special),
+        reps=reps_plain)
     pairs = pairs_in_cutoff(style, grid, box, st)
     coul = style.cfg.coul
-    planes = (st.x, st.y, st.z, st.typ, st.aid) + (
+    # the aid plane says which slots hold an atom; of those, each atom's
+    # position, type (and charge) are read and its f32 force written once
+    planes = (st.x, st.y, st.z, st.typ) + (
         (st.q,) if coul == "long" else ())
-    nbytes = grid.nslots * (plane_bytes(*planes) + 3 * 4)
-    b_ms, b_by = bound(nbytes, pairs * OPS_PAIR[coul])
+    nbytes = (grid.nslots * plane_bytes(st.aid)
+              + grid.n_atoms * (plane_bytes(*planes) + 3 * 4))
+    nops = pairs * OPS_PAIR[style.cfg.vdw, coul]
+    if style.cfg.vdw == "ljcharmm":
+        nops += OPS_SWITCH * pairs_in_cutoff(style, grid, box, st,
+                                             rsq_min=style.inner_sq)
+    if special is not None:
+        nbytes += special.packed.numel() * 4
+    b_ms, b_by = bound(nbytes, nops)
     print(f"[K1] {label} f32 force-only: kernel {ms:.4f} ms (device "
           f"{dev_ms:.4f}), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}; {pairs:,} pairs in cutoff, {nbytes:,} bytes) (grid "
@@ -651,11 +694,17 @@ def phase_jittered(golden: dict, device="cuda"):
 
 
 def phase_deck(name: str, golden: dict, thermo: int, kernels: tuple,
-               drift_gate: float):
+               drift_gate, replicate=None, temp_ref=None):
     """One main path through run_deck: launch counts set to 0 just
-    before, read just after."""
+    before, read just after.  drift_gate None (a thermostatted deck)
+    leaves the energy drift ungated; temp_ref = ({step: temp}, rtol)
+    holds the temperature of every row to a recorded trajectory.
+    Returns the launch counts and the run's ms per step."""
     cfg = load_deck(name)
     cfg["thermo"] = thermo
+    if replicate is not None:
+        cfg["replicate"] = list(replicate)
+        name = f"{name} x{'x'.join(map(str, replicate))}"
     ops.reset_launches()
     sim, rows = run_deck(cfg, device="cuda", log=False)
     ran = dict(ops.LAUNCHES)
@@ -679,13 +728,19 @@ def phase_deck(name: str, golden: dict, thermo: int, kernels: tuple,
                                  f"golden {ref[key]:.8g} (tol {tol:.3g})")
     e0 = rows[0]["etotal"]
     drift = max(abs(r["etotal"] - e0) for r in rows) / n
-    if not drift <= drift_gate:
+    if drift_gate is not None and not drift <= drift_gate:
         raise AssertionError(f"{name}: drift {drift:.3e}/atom > gate "
                              f"{drift_gate}")
     for r in rows:
-        for k in ("temp", "epair", "etotal", "press"):
+        for k in ("temp", "epair", "emol", "etotal", "press"):
             if not np.isfinite(r[k]):
                 raise AssertionError(f"{name}: non-finite {k}")
+        if temp_ref is not None:
+            want, rtol = temp_ref[0][r["step"]], temp_ref[1]
+            if not abs(r["temp"] - want) <= rtol * want:
+                raise AssertionError(
+                    f"{name}: temp {r['temp']:.3f} K at step {r['step']}, "
+                    f"record {want:.3f} K (rtol {rtol})")
     wall = sim.timings["run"]
     print(f"[deck] {name}: {n} atoms x {steps} steps in {wall:.3f} s -> "
           f"{n * steps / wall:,.0f} atom-steps/s, {1e3 * wall / steps:.4f} "
@@ -705,6 +760,7 @@ def phase_deck(name: str, golden: dict, thermo: int, kernels: tuple,
                 > 1e-12 * golden["g_ewald"]):
             raise AssertionError(f"{name}: PPPM mesh or g_ewald differs "
                                  "from the record")
+    if sim.kspace is not None and "elong_recip" in golden:
         recip, ref_recip = row["elong"] - pm.elong_self, golden["elong_recip"]
         print(f"[deck] {name}: step-0 elong - elong_self {recip:.6g} "
               f"(record {ref_recip:.6g}, tol rel {RECIP_TOL}); elong_self "
@@ -713,7 +769,415 @@ def phase_deck(name: str, golden: dict, thermo: int, kernels: tuple,
                 > 1e-12 * abs(golden["elong_self"])
                 or not abs(recip - ref_recip) <= RECIP_TOL * abs(ref_recip)):
             raise AssertionError(f"{name}: reciprocal part of elong off")
-    return ran
+    if sim.bonded is not None:
+        print(f"[deck] {name}: temp " + ", ".join(
+            f"{r['temp']:.2f} K @ {r['step']}" for r in rows)
+            + f"; step-0 evdwl {row['evdwl']:.8g} ecoul {row['ecoul']:.8g} "
+            f"emol {row['emol']:.8g} (record {ref['evdwl']:.8g}, "
+            f"{ref['ecoul']:.8g}, {ref['emol']:.8g})")
+    return dict(launches=ran, ms_step=1e3 * wall / steps, row=row)
+
+
+# ---- the molecular path: examples/data.rhodo_class ----
+
+BIG_REPLICATE = (6, 6, 4)    # 248,832 atoms: the size the kernels are timed at
+BONDED_KERNELS = ("bonded_bond_angle", "dihedral_charmm", "improper_harmonic")
+
+
+def _bonded_by_kernel(b):
+    """The bonded style split into one style per kernel."""
+    return {
+        "bonded_bond_angle": make_bonded(
+            bonds=b.bonds, angles=b.angles, bond_coeffs=b.bond_coeffs,
+            angle_coeffs=b.angle_coeffs, angle_style=b.angle_style),
+        "dihedral_charmm": make_bonded(
+            dihedrals=b.dihedrals, dihedral_coeffs=b.dihedral_coeffs,
+            d14=b.d14),
+        "improper_harmonic": make_bonded(
+            impropers=b.impropers, improper_coeffs=b.improper_coeffs),
+    }
+
+
+def _bonded_work(name, b, flt_size, acc_size):
+    """(bytes, operations) one launch of a bonded kernel needs: its term
+    table (and the dihedrals' baked 1-4 rows) once, and once for each atom
+    that its terms name the slot map entry, the position and the force's
+    read and write (the atoms are shared by many terms and sit in L2)."""
+    if name == "bonded_bond_angle":
+        nb, na = len(b.bonds), len(b.angles)
+        nub = int((b.angle_coeffs[b.angles[:, 0], 2] != 0).sum()) \
+            if b.angle_coeffs.shape[1] >= 4 else 0
+        table = nb * 12 + na * 16
+        atoms = np.union1d(b.bonds[:, 1:], b.angles[:, 1:]).size
+        nops = (nb * OPS_BONDED["bond"] + na * OPS_BONDED["angle"]
+                + nub * OPS_BONDED["urey_bradley"])
+    elif name == "dihedral_charmm":
+        nd = len(b.dihedrals)
+        table = nd * (20 + 3 * flt_size)
+        atoms = np.unique(b.dihedrals[:, 1:]).size
+        nops = nd * OPS_BONDED["dihedral"]
+    else:
+        ni = len(b.impropers)
+        table = ni * 20
+        atoms = np.unique(b.impropers[:, 1:]).size
+        nops = ni * OPS_BONDED["improper"]
+    return table + atoms * (4 + 3 * flt_size + 2 * 3 * acc_size), nops
+
+
+def _bonded_compare(label, style, xs, box, inv, acc):
+    """A bonded kernel against its plain version, force-only and with
+    energies and virial; returns the force-only max |df|."""
+    ftol, etol = TOL[xs[0].dtype]
+    abs_err = 0.0
+    for ev in (False, True):
+        k = compute_bonded(style, xs, box, eflag=ev, acc_dtype=acc, inv=inv)
+        p = compute_bonded_plain(style, xs, box, eflag=ev, acc_dtype=acc,
+                                 inv=inv)
+        torch.cuda.synchronize()
+        fk = torch.stack([k.fx, k.fy, k.fz])
+        fp = torch.stack([p.fx, p.fy, p.fz])
+        ferr = rel_err(fk, fp)
+        if not ev:
+            abs_err = float((fk - fp).abs().max())
+        msg = f"[K14] {label} ev={ev}: max|df|/max|f| {ferr:.3e}"
+        ok = ferr <= ftol and float(fp.abs().max()) > 1.0
+        if ev:
+            errs = {"virial": rel_err(k.virial, p.virial)}
+            for name in ("ebond", "eangle", "edihed", "eimp", "e14_lj",
+                         "e14_coul"):
+                ref = float(getattr(p, name))
+                if ref != 0.0:
+                    errs[name] = scalar_rel(getattr(k, name), ref)
+                elif float(getattr(k, name)) != 0.0:
+                    errs[name] = float("inf")
+            msg += "".join(f", {n} rel {e:.3e}" for n, e in errs.items())
+            ok = ok and len(errs) > 1 and all(e <= etol
+                                              for e in errs.values())
+        print(msg)
+        if not ok:
+            raise AssertionError(f"K14 {label} disagrees with its plain "
+                                 f"version (tol {ftol}, {etol})")
+    return abs_err
+
+
+VERLET_KERNELS = ("verlet_kick_drift", "verlet_kick", "verlet_ke")
+# K3's kernels against their plain versions: kick_drift and kick round
+# like the plain version (no FMA contraction): 1e-6 of the largest value
+# in f32, 1e-14 in f64; the kinetic sum and the chain (expf against
+# torch.exp, another order of summation): rel 1e-5 in f32, 1e-11 in f64
+TOL_K3 = {torch.float32: (1e-6, 1e-5), torch.float64: (1e-14, 1e-11)}
+
+
+def _clone(planes):
+    return tuple(p.clone() for p in planes)
+
+
+def _verlet_compare(label, sim, st):
+    """The four integrator kernels against their plain versions on a
+    deck's state: one NVT step's worth of updates, each from the same
+    planes.  Returns max abs errors by kernel and the inputs."""
+    from lammps_buck_intel_tpu_torch.integrate import nve, nvt
+
+    acc, n = sim.precision.acc, sim.n_atoms
+    tol, stol = TOL_K3[st.x.dtype]
+    rng = np.random.default_rng(SEED + 4)
+    occ = st.aid < n
+
+    def forces(scale):   # acc-typed planes, zero on the empty slots
+        return tuple(torch.where(occ, torch.as_tensor(
+            rng.normal(size=st.x.shape[0]) * scale).to(st.x.device, acc), 0)
+            for _ in range(3))
+
+    fa, fb = forces(20.0), forces(3.0)
+    xs, vs, fs = (st.x, st.y, st.z), (st.vx, st.vy, st.vz), (st.fx, st.fy,
+                                                             st.fz)
+    tail = (st.typ, st.aid, sim._minv_t)
+    cfg = nvt.NVTConfig(t_start=300.0, t_stop=300.0, t_damp=50.0, tchain=3,
+                        dof=3 * n - 3, boltz=sim.units.boltz,
+                        mvv2e=sim.units.mvv2e, dt=sim.dt)
+    therm = torch.zeros((2, 3), dtype=st.x.dtype, device=st.x.device)
+    therm[0], therm[1] = 0.02, 1.5e-3
+    errs = {}
+
+    def close(name, k, p, t):
+        k, p = torch.stack(list(k)), torch.stack(list(p))
+        err = rel_err(k, p)
+        errs[name] = max(errs.get(name, 0.0), float((k - p).abs().max()))
+        if not err <= t:
+            raise AssertionError(f"K3 {name} {label} disagrees with its "
+                                 f"plain version: {err:.3e} (tol {t})")
+        return err
+
+    kx, kv, kf = _clone(xs), _clone(vs), _clone(fs)
+    px, pv, pf = _clone(xs), _clone(vs), _clone(fs)
+    nve.kick_drift(kx, kv, kf, *tail, n, sim.dtf, sim.dtv)
+    nve.kick_drift_plain(px, pv, pf, *tail, n, sim.dtf, sim.dtv)
+    e1 = max(close("verlet_kick_drift", kx, px, tol),
+             close("verlet_kick_drift", kv, pv, tol))
+    if torch.equal(torch.stack(kx), torch.stack(xs)):
+        raise AssertionError(f"K3 {label}: the drift moved nothing")
+    kp = nve.kick(kv, kf, fa, fb, *tail, sim._mass_t, n, sim.dtf, acc,
+                  ke=True)
+    pp = nve.kick_plain(pv, pf, fa, fb, *tail, sim._mass_t, n, sim.dtf, acc,
+                        True)
+    e2 = max(close("verlet_kick", kv, pv, tol),
+             close("verlet_kick", kf, pf, tol))
+    kk = nve.kinetic(kv, st.typ, st.aid, sim._mass_t, n, acc)
+    e3 = 0.0
+    for name, part in (("verlet_kick", kp), ("verlet_ke", kk)):
+        e3 = max(e3, close(name, [part[:, 0].sum()], [pp[:, 0].sum()], stol),
+                 close(name, [part[:, 1].max()], [pp[:, 1].max()], stol))
+    kt = nvt.nhc_scale(cfg, therm, kv, kk, 310.0)
+    pt = nvt.nhc_scale_plain(cfg, therm, pv, pp, 310.0)
+    e4 = max(close("nhc_scale", kt, pt, stol),
+             close("nhc_scale", kv, pv, stol))
+    if rel_err(pt, therm) < 1e-3:
+        raise AssertionError(f"K3 {label}: the chain did not move")
+    print(f"[K3] {label}: kick_drift {e1:.3e}, kick {e2:.3e}, kinetic sums "
+          f"{e3:.3e}, nhc_scale {e4:.3e} (tol {tol}, {stol})")
+    return errs, dict(xs=kx, vs=kv, fs=kf, fa=fa, fb=fb, tail=tail, cfg=cfg,
+                      therm=kt, part=kk)
+
+
+def _verlet_time(sim, st, errs, w):
+    """f32 times of the integrator kernels at the state's size, and their
+    bounds: the aid plane read once, and per atom the planes each kernel
+    reads and writes."""
+    from lammps_buck_intel_tpu_torch.integrate import nve, nvt
+
+    acc, n, ns = sim.precision.acc, sim.n_atoms, st.x.shape[0]
+    flt = st.x.element_size()
+    accs = torch.empty((), dtype=acc).element_size()
+    xs, vs, fs, fa, fb, tail = (w[k] for k in ("xs", "vs", "fs", "fa", "fb",
+                                               "tail"))
+    mass_t, cfg = sim._mass_t, w["cfg"]
+    rows = {
+        "verlet_kick_drift": (
+            lambda: nve.kick_drift(xs, vs, fs, *tail, n, sim.dtf, sim.dtv),
+            lambda: nve.kick_drift_plain(xs, vs, fs, *tail, n, sim.dtf,
+                                         sim.dtv),
+            ns * 4 + n * (15 * flt + 4)),
+        "verlet_kick": (
+            lambda: nve.kick(vs, fs, fa, fb, *tail, mass_t, n, sim.dtf, acc),
+            lambda: nve.kick_plain(vs, fs, fa, fb, *tail, mass_t, n, sim.dtf,
+                                   acc, False),
+            ns * 4 + n * (6 * accs + 9 * flt + 4)),
+        "verlet_ke": (
+            lambda: nve.kinetic(vs, tail[0], tail[1], mass_t, n, acc),
+            lambda: nve.kinetic_plain(vs, tail[0], tail[1], mass_t, n, acc),
+            ns * 4 + n * (3 * flt + 4)),
+        "nhc_scale": (
+            lambda: nvt.nhc_scale(cfg, w["therm"], vs, w["part"], 310.0),
+            lambda: nvt.nhc_scale_plain(cfg, w["therm"], vs, w["part"],
+                                        310.0),
+            n * 6 * flt + w["part"].numel() * accs),
+    }
+    out = {}
+    for name, (kern, plain, nbytes) in rows.items():
+        ms, dev_ms = cuda_ms(kern), device_ms(kern)
+        plain_ms = cuda_ms(plain, reps=5)
+        b_ms, b_by = bound(nbytes, 0)
+        print(f"[K3] {name} f32: kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; "
+              f"{nbytes:,} bytes)")
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=errs[name])
+    return out
+
+
+def _buck_special(style, coul: bool):
+    """A Buckingham style for the rhodo box folded to two types, with the
+    deck's special factors: the kernel's buck and buck/coul/long variants
+    with a partner table, which no deck runs yet."""
+    buck = build_buck(2, {(0, 0): (9.0e4, 0.28, 600.0),
+                          (0, 1): (2.5e4, 0.27, 150.0),
+                          (1, 1): (4.0e3, 0.26, 30.0)}, cut_global=10.0,
+                      shift=True, coul="long" if coul else "none",
+                      qqrd2e=style.qqrd2e)
+    buck = buck.replace(special_lj=style.special_lj,
+                        special_coul=style.special_coul)
+    return buck.replace(g_ewald=style.g_ewald) if coul else buck
+
+
+def phase_rhodo_kernels():
+    """K1's lj/charmm + special-bond variant, the three bonded kernels and
+    the integrator kernels against their plain versions on
+    rhodo_flex_nve.yaml's state, f32 and f64: at the decks' own replicate
+    [3, 3, 2] (grid 13x13x8; there also K1's buck variants with the partner
+    table), and at replicate [6, 6, 4], where the f32 kernels are timed."""
+    cfg = load_deck("rhodo_flex_nve.yaml")
+    out = {}
+    for replicate in (tuple(cfg["replicate"]), BIG_REPLICATE):
+        timed = replicate == BIG_REPLICATE
+        for prec in ("single", "double"):
+            sim = build_simulation(dict(cfg, precision=prec,
+                                        replicate=list(replicate)),
+                                   device="cuda")
+            _rhodo_kernels_at(sim, prec, replicate,
+                              out if timed and prec == "single" else None)
+            del sim
+            torch.cuda.empty_cache()
+    return out
+
+
+def _rhodo_kernels_at(sim, prec, replicate, out):
+    st, acc = sim.state, sim.precision.acc
+    if sim.special is None or sim.pair.cfg.vdw != "ljcharmm":
+        raise AssertionError("rhodo: no special table or not lj/charmm")
+    label = f"rhodo x{'x'.join(map(str, replicate))}/{prec}"
+    err = _k1_compare(label, sim.pair, sim.grid, sim.box, st, acc,
+                      special=sim.special)
+    # the specials matter: without the table the forces are far off
+    with_sp = compute_cellpair(sim.pair, sim.grid, sim.box, st,
+                               acc_dtype=acc, special=sim.special)
+    without = compute_cellpair(sim.pair, sim.grid, sim.box, st,
+                               acc_dtype=acc)
+    if not float((with_sp.fx - without.fx).abs().max()) > 1.0:
+        raise AssertionError("rhodo: the special table changes nothing")
+    if out is None and replicate != BIG_REPLICATE:
+        st2 = st._replace(typ=st.typ % 2)
+        for coul in (False, True):
+            _k1_compare(f"buck{'/coul/long' if coul else ''} + specials "
+                        f"{label}", _buck_special(sim.pair, coul), sim.grid,
+                        sim.box, st2, acc, special=sim.special)
+    if out is not None:
+        out["cellpair_ljcharmm"] = dict(
+            _k1_time("rhodo", sim, st), max_abs_err=err)
+        print(f"[K1] rhodo: {sim.n_atoms} atoms, special width "
+              f"{sim.special.width}")
+    xs, inv = (st.x, st.y, st.z), sim._inv_map(st)
+    b = sim.bonded
+    if prec == "single":
+        print(f"[K14] {sim.n_atoms} atoms: {len(b.bonds)} bonds, "
+              f"{len(b.angles)} angles, {len(b.dihedrals)} dihedrals, "
+              f"{len(b.impropers)} impropers")
+    for name, sub in _bonded_by_kernel(b).items():
+        err = _bonded_compare(f"{name} {label}", sub, xs, sim.box, inv, acc)
+        if out is None:
+            continue
+        planes = tuple(torch.zeros_like(st.x, dtype=acc) for _ in range(3))
+
+        def kern(sub=sub, planes=planes):
+            return compute_bonded(sub, xs, sim.box, eflag=False,
+                                  acc_dtype=acc, inv=inv, out=planes)
+
+        ms, dev_ms = cuda_ms(kern), device_ms(kern)
+        plain = cuda_ms(lambda sub=sub: compute_bonded_plain(
+            sub, xs, sim.box, eflag=False, acc_dtype=acc, inv=inv),
+            reps=3)
+        nbytes, nops = _bonded_work(
+            name, sub, st.x.element_size(),
+            torch.empty((), dtype=acc).element_size())
+        b_ms, b_by = bound(nbytes, nops)
+        print(f"[K14] {name} f32 force-only: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f}), plain {plain:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}; {nbytes:,} bytes, {nops:,} operations)")
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    errs, work = _verlet_compare(label, sim, st)
+    if out is not None:
+        out.update(_verlet_time(sim, st, errs, work))
+
+
+def phase_rhodo_record(golden: dict, which: str):
+    """A flexible rhodo deck in f64 on one copy of the data file (1,728
+    atoms, every term non-zero) against the JAX package's f64 record:
+    step-0 forces of every 4th atom and their rms, the thermo rows at
+    steps 0 and 10, positions at step 10, the thermostat chain."""
+    rec = golden["f64"][which]
+    cfg = load_deck(rec["deck"])
+    cfg.update(replicate=[1, 1, 1], precision=rec["precision"])
+    ops.reset_launches()
+    sim = build_simulation(cfg, device="cuda")
+    pm = sim.kspace.pm
+    if sim.n_atoms != rec["n_atoms"] or list(pm.grid) != rec["pppm_grid"] \
+            or pm.g_ewald != rec["g_ewald"]:
+        raise AssertionError(f"{rec['deck']} f64: atoms, mesh or g_ewald "
+                             "differ from the record")
+    pick = np.asarray(rec["atoms"])
+    f0 = sim.get_atoms()["f"]
+    rows = sim.run(rec["steps"], thermo_every=rec["steps"], log=False)
+    at = sim.get_atoms()
+    x_end = (at["x"] + at["image"] * np.asarray(sim.box.lengths))[pick]
+    ref_f = np.asarray(rec["f0"])
+    errs = {
+        "f0": float(np.abs(f0[pick] - ref_f).max()) / np.abs(ref_f).max(),
+        "f0_rms": abs(float(np.sqrt(np.mean(np.sum(f0 * f0, 1))))
+                      - rec["f0_rms"]) / rec["f0_rms"],
+        "x_end": float(np.abs(x_end - np.asarray(rec["x_end"])).max()),
+    }
+    tol = {"f0": JITTER_TOL["f"], "f0_rms": JITTER_TOL["f"],
+           "x_end": JITTER_TOL["x"]}
+    for r, ref in zip(rows, rec["rows"], strict=True):
+        for k in ("temp", "evdwl", "ecoul", "elong", "emol", "etotal",
+                  "press"):
+            errs[f"{k}@{ref['step']:.0f}"] = scalar_rel(r[k], ref[k])
+            tol[f"{k}@{ref['step']:.0f}"] = JITTER_TOL["rows"]
+    if "therm" in rec:
+        ref_t = np.asarray(rec["therm"])
+        errs["therm"] = float(np.abs(sim.state.therm.cpu().numpy()
+                                     - ref_t).max()) / np.abs(ref_t).max()
+        tol["therm"] = JITTER_TOL["rows"]
+    ran = dict(ops.LAUNCHES)
+    print(f"[record] {rec['deck']} f64, {sim.n_atoms} atoms, mesh {pm.grid}: "
+          f"worst thermo {max(v for k, v in errs.items() if '@' in k):.3e}, "
+          + ", ".join(f"{k} {errs[k]:.3e}" for k in errs if "@" not in k)
+          + f"; launches {ran}")
+    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+    path = ("cellpair",) + BONDED_KERNELS + VERLET_KERNELS + (
+        ("nhc_scale",) if "therm" in rec else ())
+    if bad or any(ran[k] <= 0 for k in path):
+        raise AssertionError(f"{rec['deck']} f64 disagrees with the JAX "
+                             f"record: {bad}")
+
+
+def phase_rhodo_decks(golden: dict):
+    """The two flexible rhodo decks in full, then the NVE deck at
+    replicate [6, 6, 4]; returns that run's launch counts and ms/step."""
+    path = ("cellpair", "rebin_incremental", "rebin", "pppm_deposit",
+            "pppm_spectral", "pppm_gather") + BONDED_KERNELS + VERLET_KERNELS
+    deck = dict(golden["full"]["3x3x2"], drift_gate=golden["drift_gate"])
+    print(f"[deck] rhodo: drift gate {golden['drift_gate']:.4e} kcal/mol "
+          f"per atom ({golden['drift_gate_rule']}; the JAX package's own "
+          f"f32 run of 1,728 atoms drifted "
+          f"{golden['single']['drift_per_atom']:.4e}); the scaled row is "
+          f"within {max(golden['single']['cross_check_2x1x1'].values()):.2e} "
+          "of a real two-copy run")
+    nve = phase_deck("rhodo_flex_nve.yaml", deck, 50, path,
+                     golden["drift_gate"])
+    # a record of the SHAKE deck (f32, another machine): the same atoms up
+    # to the SHAKE tolerance; shown, not gated
+    shake = load_golden("long_rhodo_nve.json")["rows"][0]
+    print("[deck] rhodo_flex_nve.yaml step 0 beside the SHAKE deck's "
+          "record: " + ", ".join(
+              f"{k} {nve['row'][k]:.8g} ({shake[k]:.8g})"
+              for k in ("evdwl", "ecoul", "elong")))
+    # NVT starts from the data file's 239 K (3N - 3 degrees of freedom
+    # without SHAKE) and is pulled towards 300 K with a 50 fs damping
+    # time.  The replicated box repeats the one-copy trajectory and the
+    # kinetic energy per atom is intensive, so every row is held to the
+    # JAX package's own f32 NVT run of one copy, its temperature moved
+    # from 3 n - 3 to 3 N - 3 degrees of freedom
+    rec = golden["single_nvt"]
+    n1, n_full = rec["n_atoms"], deck["n_atoms"]
+    dof = (3 * n1 - 3) / (3 * n1) * (3 * n_full) / (3 * n_full - 3)
+    print(f"[deck] rhodo NVT: temperature of each row against the JAX "
+          f"package's f32 run of {rec['n_atoms']} atoms, "
+          + ", ".join(f"{r['temp']:.3f} K @ {r['step']:.0f}"
+                      for r in rec["rows"])
+          + f" (rtol {golden['nvt_temp_rtol']}: "
+          f"{golden['nvt_temp_rtol_rule']})")
+    nvt = phase_deck(
+        "rhodo_flex_nvt.yaml", deck, 50, path + ("nhc_scale",), None,
+        temp_ref=({int(r["step"]): dof * r["temp"] for r in rec["rows"]},
+                  golden["nvt_temp_rtol"]))
+    big = dict(golden["full"]["x".join(map(str, BIG_REPLICATE))],
+               drift_gate=golden["drift_gate"])
+    big = phase_deck("rhodo_flex_nve.yaml", big, 50, path,
+                     golden["drift_gate"], replicate=BIG_REPLICATE)
+    big["launches"]["nhc_scale"] = nvt["launches"]["nhc_scale"]
+    return big
 
 
 def main():
@@ -732,7 +1196,8 @@ def main():
     phase_jittered(golden)
     torch.cuda.empty_cache()
 
-    pair = ("cellpair", "rebin_incremental", "rebin")
+    pair = ("cellpair", "rebin_incremental", "rebin", "verlet_kick_drift",
+            "verlet_kick", "verlet_ke")
     phase_deck("buck.yaml", load_golden("long_buck.json"), 10, pair,
                load_golden("long_buck.json")["drift_gate"])
     phase_deck("buck_big.yaml", load_golden("long_buck_big.json"), 100, pair,
@@ -742,9 +1207,20 @@ def main():
         "cristobalite_pppm.yaml",
         golden, 50,
         pair + ("pppm_deposit", "pppm_spectral", "pppm_gather"),
-        load_golden("long_silica_pppm.json")["drift_gate"])
+        load_golden("long_silica_pppm.json")["drift_gate"])["launches"]
+    torch.cuda.empty_cache()
 
-    def row(name, source, replaces, launch_key, r):
+    rk = phase_rhodo_kernels()
+    rhodo = load_golden("torch_rhodo_flex.json")
+    phase_rhodo_record(rhodo, "nve")
+    phase_rhodo_record(rhodo, "nvt")
+    big = phase_rhodo_decks(rhodo)
+    n_big = rhodo["full"]["x".join(map(str, BIG_REPLICATE))]["n_atoms"]
+    print(f"[deck] rhodo_flex_nve.yaml at {n_big} atoms: "
+          f"{big['ms_step']:.4f} ms/step, "
+          f"{n_big / big['ms_step'] * 1e3:,.0f} atom-steps/s")
+
+    def row(name, source, replaces, launch_key, r, launches=launches):
         return dict(name=name, route="cuda", source=f"{SRC}/{source}",
                     replaces=f"lammps_buck_intel_tpu/{replaces}",
                     launches=launches[launch_key],
@@ -768,6 +1244,29 @@ def main():
             "pppm_spectral", pp["spectral"]),
         row("pppm_gather", "pppm.cu", "models/kspace/pppm_cells.py:633",
             "pppm_gather", pp["gather"]),
+        # the molecular path: times at 248,832 atoms, launches of the NVE
+        # deck's run at that size
+        row("cellpair_forces_ljcharmm_special", "cellpair.cu",
+            "models/pair/cellpair.py:291", "cellpair",
+            rk["cellpair_ljcharmm"], big["launches"]),
+        row("bonded_bond_angle", "bonded.cu",
+            "models/bonded/harmonic.py:116", "bonded_bond_angle",
+            rk["bonded_bond_angle"], big["launches"]),
+        row("dihedral_charmm", "bonded.cu", "models/bonded/charmm.py:114",
+            "dihedral_charmm", rk["dihedral_charmm"], big["launches"]),
+        row("improper_harmonic", "bonded.cu", "models/bonded/charmm.py:185",
+            "improper_harmonic", rk["improper_harmonic"], big["launches"]),
+        # the integrator, on every path; nhc_scale's launches are the NVT
+        # deck's (31,104 atoms), the NVE run launches none
+        row("verlet_kick_drift", "verlet.cu",
+            "integrate/cellpair_verlet.py:475", "verlet_kick_drift",
+            rk["verlet_kick_drift"], big["launches"]),
+        row("verlet_kick", "verlet.cu", "integrate/cellpair_verlet.py:475",
+            "verlet_kick", rk["verlet_kick"], big["launches"]),
+        row("verlet_ke", "verlet.cu", "integrate/cellpair_verlet.py:661",
+            "verlet_ke", rk["verlet_ke"], big["launches"]),
+        row("nhc_scale", "verlet.cu", "integrate/nvt.py:51", "nhc_scale",
+            rk["nhc_scale"], big["launches"]),
     ]
     print(f"[K1] buck_big buck branch: {json.dumps(k1['buck_big'])}")
     print(f"[K2] buck_big: {json.dumps(k2_big)}")

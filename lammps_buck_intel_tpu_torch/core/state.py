@@ -1,7 +1,8 @@
 """Per-atom simulation state as torch tensors on one device.
 
 Counterpart of ``lammps_buck_intel_tpu.core.state`` (``System``,
-``make_system``).  Bonded topology is ROADMAP queue 1 item 12.
+``make_system``, ``Topology``, ``build_topology``).  The topology is host
+numpy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -81,3 +82,78 @@ def make_system(
                 if molecule is None else ints(molecule))
     return System(x=x, v=v, q=q, type=type, image=image, box=box, mass=mass,
                   molecule=molecule)
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Static bonded topology (host numpy).
+
+    bonds/angles/dihedrals/impropers: (M, 1+k) int arrays [type, atoms...],
+    all 0-based.  The special-bond partner table tags pairs for the pair
+    kernel:
+      special_idx:  (N, S) int32 partner indices, padded with -1.
+      special_code: (N, S) int8 in {1: 1-2, 2: 1-3, 3: 1-4}.
+    """
+
+    bonds: np.ndarray
+    angles: np.ndarray
+    dihedrals: np.ndarray
+    impropers: np.ndarray
+    special_idx: np.ndarray
+    special_code: np.ndarray
+
+    @property
+    def has_special(self) -> bool:
+        return self.special_idx.shape[1] > 0
+
+
+def _empty(k: int) -> np.ndarray:
+    return np.zeros((0, k), dtype=np.int32)
+
+
+def build_topology(n_atoms: int, bonds=None, angles=None, dihedrals=None,
+                   impropers=None) -> Topology:
+    """Derive the 1-2/1-3/1-4 special-bond partner lists from the bond
+    graph (LAMMPS ``Special`` semantics): 1-2 partners are bonded
+    neighbours, 1-3 neighbours of neighbours not already 1-2 or self, 1-4
+    three hops out and not already closer.  Partners of one atom are
+    listed 1-2 first, then 1-3, then 1-4, each sorted by index."""
+
+    def arr(a, k):
+        return _empty(k) if a is None else np.asarray(a, np.int32)
+
+    bonds, angles = arr(bonds, 3), arr(angles, 4)
+    dihedrals, impropers = arr(dihedrals, 5), arr(impropers, 5)
+
+    one2 = [set() for _ in range(n_atoms)]
+    for _, i, j in bonds:
+        one2[i].add(int(j))
+        one2[j].add(int(i))
+    groups = []
+    for i in range(n_atoms):
+        s2 = one2[i]
+        s3 = set().union(*(one2[j] for j in s2)) - s2 - {i}
+        s4 = set().union(*(one2[j] for j in s3)) - s2 - s3 - {i}
+        groups.append((s2, s3, s4))
+
+    smax = max([len(a) + len(b) + len(c) for a, b, c in groups] + [0])
+    special_idx = np.full((n_atoms, smax), -1, dtype=np.int32)
+    special_code = np.zeros((n_atoms, smax), dtype=np.int8)
+    for i, group in enumerate(groups):
+        col = 0
+        for code, members in enumerate(group, start=1):
+            for j in sorted(members):
+                special_idx[i, col] = j
+                special_code[i, col] = code
+                col += 1
+    return Topology(bonds=bonds, angles=angles, dihedrals=dihedrals,
+                    impropers=impropers, special_idx=special_idx,
+                    special_code=special_code)
+
+
+def empty_topology(n_atoms: int) -> Topology:
+    return Topology(
+        bonds=_empty(3), angles=_empty(4), dihedrals=_empty(5),
+        impropers=_empty(5),
+        special_idx=np.full((n_atoms, 0), -1, np.int32),
+        special_code=np.zeros((n_atoms, 0), np.int8))

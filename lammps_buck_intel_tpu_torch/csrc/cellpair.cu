@@ -1,5 +1,5 @@
-// Cell-pair Buckingham (+ Ewald real-space Coulomb) forces over the sorted
-// cell-slot layout (sm_90a).
+// Cell-pair Buckingham or lj/charmm (+ Ewald real-space Coulomb, + special
+// bonds) forces over the sorted cell-slot layout (sm_90a).
 //
 // Replaces: lammps_buck_intel_tpu/models/pair/cellpair.py
 //   compute_cell_tiles_newton (:291) with styles.py pair_terms (:300),
@@ -8,7 +8,16 @@
 //   variant): grij = g_ewald r, expm2 = exp(-grij^2), erfc by the
 //   Abramowitz & Stegun 5-term polynomial with the JAX constants (not
 //   erfcf), prefactor = qqrd2e qi qj / r, F = prefactor (erfc + 2/sqrt(pi)
-//   grij expm2), E = prefactor erfc, strict cut test rsq < cut_coulsq.
+//   grij expm2), E = prefactor erfc, strict cut test rsq < cut_coulsq;
+//   lj/charmm (VDW = 1, styles.py :343-360): forcelj = lj1 r^-12 - lj2
+//   r^-6, philj = lj3 r^-12 - lj4 r^-6, and for rsq > inner_sq the energy
+//   switch F = forcelj switch1 + philj switch2, E = philj switch1, which
+//   reaches zero at the cutoff (no offset);
+//   special bonds (SPECIAL, cellpair.py :448-461 and styles.py :412-419):
+//   a pair whose j atom is a 1-2/1-3/1-4 partner of atom i takes
+//   special_lj[code] on its LJ term and keeps prefactor (erfc + ... -
+//   (1 - special_coul[code])) of its Coulomb term, because k-space holds
+//   every pair.
 //
 // Design.  One thread block per cell, one thread per slot of the cell
 // (blockDim = cap rounded up to a warp).  The block walks the FULL
@@ -24,7 +33,21 @@
 // the caller sums the partials over cells in a second, deterministic pass.
 // ecoul is a sum of large terms of both signs, so it stays in acc like
 // evdwl.  The buck-only variant (COUL = false) compiles to the kernel of
-// the buck decks with no Coulomb work.
+// the buck decks with no Coulomb work; VDW and SPECIAL are template
+// constants too, so the buck and coul/long kernels carry none of the
+// lj/charmm or special-bond code.
+//
+// Special bonds.  The JAX package gathers each slot's partner ids per
+// rebin and compares them with every candidate's id.  Here the partner
+// table stays in atom order (packed idx * 4 + code, S per atom, -1 =
+// none): a thread copies the S entries of its own atom into shared memory
+// once, and compares them with the j atom's id only for candidates that
+// passed a cutoff test.  The LJ term of a special pair is scaled where it
+// is evaluated (skipped when the factor is 0), never computed whole and
+// subtracted: a 1-2 pair at 1.09 A has an LJ term near 5e5 kcal/mol, and
+// an f32 difference of such terms would leave errors of order 1e-2.  The
+// match is symmetric (the table lists both directions), as the full
+// stencil needs.
 //
 // What bounds it on the H100.  Candidate pairs, not bytes: at buck_big
 // (192k atoms, cut 5.0 + skin 0.3, reach_z 1, cap 192) each atom tests
@@ -64,28 +87,33 @@ __device__ __forceinline__ A warp_sum(A v) {
   return v;
 }
 
-template <typename T, typename A, bool EV, bool COUL>
+// VDW: 0 = buck, 1 = lj/charmm.
+template <typename T, typename A, bool EV, bool COUL, int VDW, bool SPECIAL>
 __global__ void cellpair_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const T* __restrict__ z, const T* __restrict__ q,
     const int* __restrict__ typ, const int* __restrict__ aid,
     const T* __restrict__ coef, int ntypes, int n, int ncx, int ncy, int ncz,
     int cap, int reach_z, double Lx, double Ly, double Lz, T g_ewald,
-    T qqrd2e, A* __restrict__ fx, A* __restrict__ fy, A* __restrict__ fz,
-    A* __restrict__ partial) {
+    T qqrd2e, T inner_sq, T denom_lj, const int* __restrict__ special,
+    int nspecial, const T* __restrict__ special_fac, A* __restrict__ fx,
+    A* __restrict__ fy, A* __restrict__ fz, A* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ncoef = ntypes * ntypes * kNcoef;
   T* s_coef = reinterpret_cast<T*>(smem_raw);
-  T* s_x = s_coef + ncoef;
+  T* s_fac = s_coef + ncoef;  // special_lj[4], special_coul[4]
+  T* s_x = s_fac + (SPECIAL ? 8 : 0);
   T* s_y = s_x + cap;
   T* s_z = s_y + cap;
   T* s_q = s_z + cap;
   int* s_aid = reinterpret_cast<int*>(s_q + (COUL ? cap : 0));
   int* s_typ = s_aid + cap;
+  int* s_sp = s_typ + cap;  // [nspecial][blockDim]: a thread's partners
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   for (int k = tid; k < ncoef; k += blockDim.x) s_coef[k] = coef[k];
+  if (SPECIAL && tid < 8) s_fac[tid] = special_fac[tid];
 
   const int cz = c % ncz;
   const int cy = (c / ncz) % ncy;
@@ -103,6 +131,10 @@ __global__ void cellpair_kernel(
     if (COUL) qi = q[si];
   }
   const bool active = has_i && ai < n;
+  if (SPECIAL) {
+    for (int k = 0; k < nspecial; ++k)
+      s_sp[k * blockDim.x + tid] = active ? special[ai * nspecial + k] : -1;
+  }
   // qqrd2e * qi once per slot: the plain version's (qqrd2e * qi) * qj
   const T qqi = qqrd2e * qi;
   A fxi = 0, fyi = 0, fzi = 0;
@@ -154,11 +186,40 @@ __global__ void cellpair_kernel(
       const T r2inv = T(1) / rsq;
       const T r = dev_sqrt(rsq);
       T fpair = 0, evdwl = 0, ecoul = 0;
-      if (in_lj) {
+      T f_lj = 1, f_coul = 1;
+      if (SPECIAL) {
+        int code = 0;
+        for (int k = 0; k < nspecial; ++k) {
+          const int p = s_sp[k * blockDim.x + tid];
+          if ((p >> 2) == aj) code = p & 3;  // p = -1 matches no atom
+        }
+        f_lj = s_fac[code];
+        f_coul = s_fac[4 + code];
+      }
+      if (in_lj && (!SPECIAL || f_lj != T(0))) {
         const T r6inv = r2inv * r2inv * r2inv;
-        const T rexp = dev_exp(-r * cf[4]);
-        fpair = r * rexp * cf[0] - r6inv * cf[1];  // buck1, buck2; rhoinv
-        if (EV) evdwl = cf[2] * rexp - cf[3] * r6inv - cf[6];
+        if (VDW == 0) {
+          const T rexp = dev_exp(-r * cf[4]);
+          fpair = r * rexp * cf[0] - r6inv * cf[1];  // buck1, buck2; rhoinv
+          if (EV) evdwl = cf[2] * rexp - cf[3] * r6inv - cf[6];
+        } else {
+          const T forcelj = r6inv * r6inv * cf[0] - r6inv * cf[1];
+          const T philj = r6inv * r6inv * cf[2] - cf[3] * r6inv;
+          fpair = forcelj;
+          evdwl = philj;
+          if (rsq > inner_sq) {
+            const T tt = cf[5] - rsq;
+            const T switch1 =
+                tt * tt * (cf[5] + T(2) * rsq - T(3) * inner_sq) / denom_lj;
+            const T switch2 = T(12) * rsq * tt * (rsq - inner_sq) / denom_lj;
+            fpair = forcelj * switch1 + philj * switch2;
+            evdwl = philj * switch1;
+          }
+        }
+        if (SPECIAL) {
+          fpair *= f_lj;
+          evdwl *= f_lj;
+        }
       }
       if (in_coul) {
         const T prefactor = qqi * s_q[j] * (r * r2inv);
@@ -168,8 +229,14 @@ __global__ void cellpair_kernel(
         const T erfc =
             t * (T(kA1) + t * (T(kA2) + t * (T(kA3) + t * (T(kA4) +
                  t * T(kA5))))) * expm2;
-        fpair += prefactor * (erfc + static_cast<T>(kEwaldF) * grij * expm2);
+        T fcoul = prefactor * (erfc + static_cast<T>(kEwaldF) * grij * expm2);
         if (EV) ecoul = prefactor * erfc;
+        if (SPECIAL) {
+          const T adjust = (T(1) - f_coul) * prefactor;
+          fcoul -= adjust;
+          ecoul -= adjust;
+        }
+        fpair += fcoul;
       }
       const T fs = fpair * r2inv;
       fxi += static_cast<A>(fs * dx);
@@ -213,45 +280,73 @@ __global__ void cellpair_kernel(
   }
 }
 
-template <typename T, typename A, bool EV, bool COUL>
+template <typename T, typename A, bool EV, bool COUL, int VDW, bool SPECIAL>
 int launch(const void* x, const void* y, const void* z, const void* q,
            const void* typ, const void* aid, const void* coef, int ntypes,
            int n, int ncx, int ncy, int ncz, int cap, int reach_z, double Lx,
-           double Ly, double Lz, double g_ewald, double qqrd2e, void* fx,
-           void* fy, void* fz, void* partial, cudaStream_t stream) {
+           double Ly, double Lz, double g_ewald, double qqrd2e,
+           double inner_sq, double denom_lj, const void* special,
+           int nspecial, const void* special_fac, void* fx, void* fy,
+           void* fz, void* partial, cudaStream_t stream) {
   const int threads = ((cap + 31) / 32) * 32;
   if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
-      sizeof(T) * (ntypes * ntypes * kNcoef + (COUL ? 4 : 3) * cap) +
-      sizeof(int) * 2 * cap;
-  cellpair_kernel<T, A, EV, COUL><<<ncx * ncy * ncz, threads, smem, stream>>>(
+      sizeof(T) * (ntypes * ntypes * kNcoef + (SPECIAL ? 8 : 0) +
+                   (COUL ? 4 : 3) * cap) +
+      sizeof(int) * (2 * cap + (SPECIAL ? nspecial * threads : 0));
+  auto kernel = cellpair_kernel<T, A, EV, COUL, VDW, SPECIAL>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<ncx * ncy * ncz, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(z), static_cast<const T*>(q),
       static_cast<const int*>(typ), static_cast<const int*>(aid),
       static_cast<const T*>(coef), ntypes, n, ncx, ncy, ncz, cap, reach_z, Lx,
       Ly, Lz, static_cast<T>(g_ewald), static_cast<T>(qqrd2e),
-      static_cast<A*>(fx), static_cast<A*>(fy), static_cast<A*>(fz),
-      static_cast<A*>(partial));
+      static_cast<T>(inner_sq), static_cast<T>(denom_lj),
+      static_cast<const int*>(special), nspecial,
+      static_cast<const T*>(special_fac), static_cast<A*>(fx),
+      static_cast<A*>(fy), static_cast<A*>(fz), static_cast<A*>(partial));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename A>
-int dispatch(int ev, int coul, const void* x, const void* y, const void* z,
-             const void* q, const void* typ, const void* aid,
-             const void* coef, int ntypes, int n, int ncx, int ncy, int ncz,
-             int cap, int reach_z, double Lx, double Ly, double Lz,
-             double g_ewald, double qqrd2e, void* fx, void* fy, void* fz,
-             void* partial, cudaStream_t s) {
-#define CELLPAIR_ARGS                                                      \
-  x, y, z, q, typ, aid, coef, ntypes, n, ncx, ncy, ncz, cap, reach_z, Lx, \
-      Ly, Lz, g_ewald, qqrd2e, fx, fy, fz, partial, s
-  switch ((ev ? 2 : 0) + (coul ? 1 : 0)) {
-    case 0: return launch<T, A, false, false>(CELLPAIR_ARGS);
-    case 1: return launch<T, A, false, true>(CELLPAIR_ARGS);
-    case 2: return launch<T, A, true, false>(CELLPAIR_ARGS);
-    default: return launch<T, A, true, true>(CELLPAIR_ARGS);
+#define CELLPAIR_PARAMS                                                      \
+  const void *x, const void *y, const void *z, const void *q,                \
+      const void *typ, const void *aid, const void *coef, int ntypes, int n, \
+      int ncx, int ncy, int ncz, int cap, int reach_z, double Lx, double Ly, \
+      double Lz, double g_ewald, double qqrd2e, double inner_sq,             \
+      double denom_lj, const void *special, int nspecial,                    \
+      const void *special_fac, void *fx, void *fy, void *fz, void *partial,  \
+      cudaStream_t s
+#define CELLPAIR_ARGS                                                       \
+  x, y, z, q, typ, aid, coef, ntypes, n, ncx, ncy, ncz, cap, reach_z, Lx,  \
+      Ly, Lz, g_ewald, qqrd2e, inner_sq, denom_lj, special, nspecial,      \
+      special_fac, fx, fy, fz, partial, s
+
+template <typename T, typename A, bool EV>
+int dispatch_variant(int coul, int vdw, int has_special, CELLPAIR_PARAMS) {
+  // lj/charmm exists only with coul/long (styles.py check_ported)
+  if (vdw != 0 && !coul) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((vdw ? 4 : 0) + (has_special ? 2 : 0) + (coul ? 1 : 0)) {
+    case 0: return launch<T, A, EV, false, 0, false>(CELLPAIR_ARGS);
+    case 1: return launch<T, A, EV, true, 0, false>(CELLPAIR_ARGS);
+    case 2: return launch<T, A, EV, false, 0, true>(CELLPAIR_ARGS);
+    case 3: return launch<T, A, EV, true, 0, true>(CELLPAIR_ARGS);
+    case 5: return launch<T, A, EV, true, 1, false>(CELLPAIR_ARGS);
+    default: return launch<T, A, EV, true, 1, true>(CELLPAIR_ARGS);
   }
-#undef CELLPAIR_ARGS
+}
+
+template <typename T, typename A>
+int dispatch(int ev, int coul, int vdw, int has_special, CELLPAIR_PARAMS) {
+  return ev ? dispatch_variant<T, A, true>(coul, vdw, has_special,
+                                           CELLPAIR_ARGS)
+            : dispatch_variant<T, A, false>(coul, vdw, has_special,
+                                            CELLPAIR_ARGS);
 }
 
 }  // namespace
@@ -259,25 +354,32 @@ int dispatch(int ev, int coul, const void* x, const void* y, const void* z,
 // prec: 0 = (float, float), 1 = (float, double), 2 = (double, double).
 // ev != 0 also writes partial[ncell][8]; fx/fy/fz are acc-typed (ncell*cap).
 // coul != 0 adds the Ewald real-space Coulomb term (reads q, g_ewald,
-// qqrd2e); with coul == 0 q may be null.
-extern "C" int cellpair_forces(int prec, int ev, int coul, const void* x,
-                               const void* y, const void* z, const void* q,
-                               const void* typ, const void* aid,
-                               const void* coef, int ntypes, int n, int ncx,
-                               int ncy, int ncz, int cap, int reach_z,
-                               double Lx, double Ly, double Lz,
-                               double g_ewald, double qqrd2e, void* fx,
-                               void* fy, void* fz, void* partial,
+// qqrd2e); with coul == 0 q may be null.  vdw: 0 buck, 1 lj/charmm (reads
+// inner_sq, denom_lj; needs coul).  special: null, or the (n * nspecial)
+// packed partner table with special_fac = special_lj[4], special_coul[4].
+extern "C" int cellpair_forces(int prec, int ev, int coul, int vdw,
+                               const void* x, const void* y, const void* z,
+                               const void* q, const void* typ,
+                               const void* aid, const void* coef, int ntypes,
+                               int n, int ncx, int ncy, int ncz, int cap,
+                               int reach_z, double Lx, double Ly, double Lz,
+                               double g_ewald, double qqrd2e, double inner_sq,
+                               double denom_lj, const void* special,
+                               int nspecial, const void* special_fac,
+                               void* fx, void* fy, void* fz, void* partial,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DISPATCH_ARGS                                                         \
-  ev, coul, x, y, z, q, typ, aid, coef, ntypes, n, ncx, ncy, ncz, cap,        \
-      reach_z, Lx, Ly, Lz, g_ewald, qqrd2e, fx, fy, fz, partial, s
+  const int has_special = special != nullptr && nspecial > 0;
   switch (prec) {
-    case 0: return dispatch<float, float>(DISPATCH_ARGS);
-    case 1: return dispatch<float, double>(DISPATCH_ARGS);
-    case 2: return dispatch<double, double>(DISPATCH_ARGS);
+    case 0:
+      return dispatch<float, float>(ev, coul, vdw, has_special,
+                                    CELLPAIR_ARGS);
+    case 1:
+      return dispatch<float, double>(ev, coul, vdw, has_special,
+                                     CELLPAIR_ARGS);
+    case 2:
+      return dispatch<double, double>(ev, coul, vdw, has_special,
+                                      CELLPAIR_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef DISPATCH_ARGS
 }

@@ -1,12 +1,23 @@
-"""Cell-pair engine runner: NVE over the sorted slot layout.
+"""Cell-pair engine runner: NVE and NVT over the sorted slot layout.
 
 Counterpart of ``lammps_buck_intel_tpu.integrate.cellpair_verlet``
-(``CellPairSimulation``, NVE subset).  Each block rebins once, then runs
-velocity-Verlet steps whose force is the cell-pair kernel plus, with a
-``kspace`` (``models.kspace.CellPPPM``), the PPPM force.  PyTorch runs
-eagerly: a block is a Python loop of launches on one stream, and the host
-waits for the device only at thermo rows, at a run's end and where the
-check cadence needs vmax.
+(``CellPairSimulation`` without SHAKE, rigid bodies and molecule
+exclusion).  Each block rebins once, then runs velocity-Verlet steps whose
+force is the cell-pair kernel plus, with a ``kspace``
+(``models.kspace.CellPPPM``), the PPPM force plus, with ``bonded``, the
+bonded kernels' forces; a ``thermostat`` brackets each step with two
+Nose-Hoover chain half steps.  The updates themselves are the integrator
+kernels (``nve.kick_drift``, ``nve.kick``, ``nve.kinetic``,
+``nvt.nhc_scale``): two launches a step under NVE, five under NVT.
+PyTorch runs eagerly: a block is a Python loop of launches on one stream,
+and the host waits for the device only at thermo rows, at a run's end and
+where the check cadence needs vmax.
+
+Molecular decks.  ``topology`` gives the 1-2/1-3/1-4 partner table, kept
+on the device in atom order: the pair kernel reads a slot's row through
+its atom id, so no rebin has to gather it.  The bonded term tables hold
+atom indices too; after each rebin one scatter rebuilds the slot-of-atom
+map (``_inv_map``) that the bonded kernels look their atoms up in.
 
 The state is updated in place (the CUDA rebin and the NVE updates write
 into the slot planes), so the overflow rollback keeps a CLONE of the
@@ -15,6 +26,7 @@ the run goes on to modify.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -22,20 +34,19 @@ import numpy as np
 import torch
 
 from ..core.precision import Precision, single
-from ..core.state import System
+from ..core.state import System, Topology
 from ..core.units import LJ, Units
-from ..models.pair.cellpair import compute_cellpair
+from ..models.bonded import BondedStyle, compute_bonded
+from ..models.pair.cellpair import compute_cellpair, make_special_table
 from ..models.pair.styles import PairStyle
 from ..neighbor import cell_slots as cs
-from .nve import drift, half_kick
+from . import nve
+from .nvt import NVTConfig, nhc_scale
 from .verlet import NeighborPolicy
 
 # engine features of the JAX package not ported yet -> ROADMAP queue 1
 _UNPORTED = {
-    "topology": "item 12 (molecular decks)",
-    "bonded": "item 12 (molecular decks)",
-    "shake": "item 12 (molecular decks)",
-    "thermostat": "item 9 (NVT)",
+    "shake": "item 12 (SHAKE/RATTLE, K13)",
     "rigid": "item 13 (rigid bodies)",
     "exclude_intra": "item 13 (rigid bodies)",
 }
@@ -49,12 +60,14 @@ class CellOverflowError(RuntimeError):
 
 
 class CellPairSimulation:
-    """NVE MD driver on the slot layout; the device is that of ``system``.
+    """MD runner on the slot layout; the device is that of ``system``.
 
     kspace: None, or a function of this engine's cell grid that returns
     the k-space solver (a ``CellPPPM``): the deck runner aligns the PPPM
     mesh to the grid, which is chosen here.  The initial force includes
-    the solver's."""
+    the solver's.  topology: the special-bond partner table for the pair
+    kernel; bonded: the bonded terms; thermostat: Nose-Hoover chain NVT
+    (dof 3N - 3, filled here with the units and the timestep)."""
 
     def __init__(
         self,
@@ -66,6 +79,9 @@ class CellPairSimulation:
         neighbor: Optional[NeighborPolicy] = None,
         cap: Optional[int] = None,
         kspace=None,
+        topology: Optional[Topology] = None,
+        bonded: Optional[BondedStyle] = None,
+        thermostat: Optional[NVTConfig] = None,
         **unported,
     ):
         for key, value in unported.items():
@@ -116,10 +132,26 @@ class CellPairSimulation:
         self.grid = grid
 
         # per-TYPE 1/mass, computed in f64 and rounded once to flt, as the
-        # JAX package bakes it
+        # JAX package bakes it, and the mass the kinetic sums use
         self._minv_t = (1.0 / system.mass.to(torch.float64)).to(flt)
+        self._mass_t = 1.0 / self._minv_t
         self.dtf = float(0.5 * self.dt * units.ftm2v)
         self.dtv = float(self.dt)
+
+        self.bonded = bonded if (bonded is not None
+                                 and bonded.has_terms) else None
+        self.special = None
+        if topology is not None and topology.has_special:
+            self.special = make_special_table(
+                topology.special_idx, topology.special_code, self.device)
+        self.thermostat = None
+        if thermostat is not None:
+            self.thermostat = dataclasses.replace(
+                thermostat, dof=max(3 * n - 3, 1), boltz=units.boltz,
+                mvv2e=units.mvv2e, dt=self.dt)
+        self._tchain = thermostat.tchain if thermostat is not None else 0
+        self._t_now = 0.0       # thermostat target of the current segment
+        self._run_total = self._run_done = 0
 
         st = self._bin(system)
         if bool(st.overflow):   # one host round trip at set-up
@@ -138,7 +170,7 @@ class CellPairSimulation:
     def _bin(self, system: System) -> cs.SlotState:
         return cs.from_atoms(self.grid, self.box, system.x, system.v,
                              system.image, system.type, system.q,
-                             dtype=self.precision.flt)
+                             dtype=self.precision.flt, tchain=self._tchain)
 
     def _occupancy(self, x: np.ndarray, grid: cs.CellGrid) -> int:
         lo = np.asarray(self.box.lo)
@@ -152,63 +184,105 @@ class CellPairSimulation:
     # ---------- force + integrate ----------
 
     def _forces(self, state: cs.SlotState, eflag: bool, vflag: bool):
+        """(pair force planes, k-space force planes or None, evdwl, ecoul,
+        elong, virial); the planes are acc-typed and stay apart: the second
+        kick sums them."""
         r = compute_cellpair(self.pair, self.grid, self.box, state,
                              eflag=eflag, vflag=vflag,
-                             acc_dtype=self.precision.acc)
-        fx, fy, fz, virial = r.fx, r.fy, r.fz, r.virial
+                             acc_dtype=self.precision.acc,
+                             special=self.special)
+        fk, virial = None, r.virial
         elong = torch.zeros((), dtype=self.precision.acc, device=self.device)
         if self.kspace is not None:
-            kfx, kfy, kfz, elong, kvir = self.kspace.compute_slots(
-                state, eflag, vflag)
-            fx, fy, fz = fx + kfx, fy + kfy, fz + kfz
-            virial = virial + kvir
-        return (fx, fy, fz), r.evdwl, r.ecoul, elong, virial
+            *fk, elong, kvir = self.kspace.compute_slots(state, eflag, vflag)
+            if vflag:
+                virial = virial + kvir
+        return (r.fx, r.fy, r.fz), fk, r.evdwl, r.ecoul, elong, virial
 
-    def _minv(self, state: cs.SlotState) -> torch.Tensor:
-        m = self._minv_t[state.typ.long()]
-        return torch.where(state.aid < self.n_atoms, m, torch.zeros_like(m))
+    def _inv_map(self, state: cs.SlotState) -> torch.Tensor:
+        """(N + 1,) int32 slot of each atom, rebuilt after a rebin; row N
+        collects the empty slots."""
+        ns = self.grid.nslots
+        inv = torch.zeros(self.n_atoms + 1, dtype=torch.int32,
+                          device=self.device)
+        inv[state.aid.long()] = torch.arange(ns, dtype=torch.int32,
+                                             device=self.device)
+        return inv
+
+    def _bonded_forces(self, state: cs.SlotState, inv, fs, eflag: bool):
+        """Bonded forces added to the acc planes ``fs`` in place."""
+        return compute_bonded(self.bonded, (state.x, state.y, state.z),
+                              self.box, eflag=eflag,
+                              acc_dtype=self.precision.acc, inv=inv, out=fs)
+
+    def _kick(self, state: cs.SlotState, fa, fb, dtf: float, ke: bool):
+        return nve.kick((state.vx, state.vy, state.vz),
+                        (state.fx, state.fy, state.fz), fa, fb, state.typ,
+                        state.aid, self._minv_t, self._mass_t, self.n_atoms,
+                        dtf, self.precision.acc, ke)
+
+    def _kinetic(self, state: cs.SlotState) -> torch.Tensor:
+        return nve.kinetic((state.vx, state.vy, state.vz), state.typ,
+                           state.aid, self._mass_t, self.n_atoms,
+                           self.precision.acc)
 
     def _init_force(self, state: cs.SlotState) -> cs.SlotState:
-        (fx, fy, fz), *_ = self._forces(state, False, False)
+        fa, fb, *_ = self._forces(state, False, False)
+        if self.bonded is not None:
+            self._bonded_forces(state, self._inv_map(state), fa, False)
         flt = state.x.dtype
-        return state._replace(fx=fx.to(flt), fy=fy.to(flt), fz=fz.to(flt))
+        state = state._replace(**{k: torch.empty_like(state.x, dtype=flt)
+                                  for k in ("fx", "fy", "fz")})
+        # dtf = 0: the force sum and cast alone, the velocities stay
+        self._kick(state, fa, fb, 0.0, False)
+        return state
 
     def _block(self, state: cs.SlotState, nsteps: int) -> cs.SlotState:
         state = cs.rebin_incremental(self.grid, self.box, state)
-        dtfm = self.dtf * self._minv(state)
         xs = (state.x, state.y, state.z)
         vs = (state.vx, state.vy, state.vz)
         fs = (state.fx, state.fy, state.fz)
+        inv = self._inv_map(state) if self.bonded is not None else None
+        cfg = self.thermostat
         for _ in range(nsteps):
-            half_kick(vs, fs, dtfm)
-            drift(xs, vs, self.dtv)
-            fnew, *_ = self._forces(state, False, False)
-            for f, fn in zip(fs, fnew):
-                f.copy_(fn)          # acc -> flt
-            half_kick(vs, fs, dtfm)
+            if cfg is not None:
+                state = state._replace(therm=nhc_scale(
+                    cfg, state.therm, vs, self._kinetic(state), self._t_now))
+            nve.kick_drift(xs, vs, fs, state.typ, state.aid, self._minv_t,
+                           self.n_atoms, self.dtf, self.dtv)
+            fa, fb, *_ = self._forces(state, False, False)
+            if self.bonded is not None:
+                self._bonded_forces(state, inv, fa, False)
+            partial = self._kick(state, fa, fb, self.dtf, cfg is not None)
+            if cfg is not None:
+                state = state._replace(therm=nhc_scale(
+                    cfg, state.therm, vs, partial, self._t_now))
         return state
 
     # ---------- thermo ----------
 
     def _thermo_device(self, state: cs.SlotState) -> dict:
         st = cs.rebin_incremental(self.grid, self.box, state.clone())
-        _, evdwl, ecoul, elong, virial = self._forces(st, True, True)
+        fs, _, evdwl, ecoul, elong, virial = self._forces(st, True, True)
+        emol = torch.zeros((), dtype=self.precision.acc, device=self.device)
+        if self.bonded is not None:
+            br = self._bonded_forces(st, self._inv_map(st), fs, True)
+            emol = br.emol
+            # the CHARMM 1-4 pair terms are tallied into the PAIR energies
+            # (the dihedral_charmm.cpp ev_tally convention)
+            evdwl = evdwl + br.e14_lj
+            ecoul = ecoul + br.e14_coul
+            virial = virial + br.virial
         u = self.units
-        acc = self.precision.acc
-        valid = st.aid < self.n_atoms
-        minv = self._minv_t[st.typ.long()]
-        mass = torch.where(valid, 1.0 / minv, torch.zeros_like(minv))
-        v2 = st.vx * st.vx + st.vy * st.vy + st.vz * st.vz
-        sum_mv2 = (mass * v2).to(acc).sum() * u.mvv2e
+        kin = self._kinetic(st)
+        sum_mv2 = kin[:, 0].sum() * u.mvv2e
         dof = max(3 * self.n_atoms - 3, 1)
         temp = sum_mv2 / (dof * u.boltz)
         ke = 0.5 * sum_mv2
         vir_trace = virial[0] + virial[1] + virial[2]
         press = (sum_mv2 + vir_trace) / (3.0 * self.box.volume) * u.nktv2p
         epair = evdwl + ecoul + elong
-        emol = torch.zeros((), dtype=acc, device=self.device)
-        vmax = torch.sqrt(torch.max(torch.where(valid, v2,
-                                                torch.zeros_like(v2))))
+        vmax = torch.sqrt(kin[:, 1].max())
         return dict(
             temp=temp, evdwl=evdwl, ecoul=ecoul, elong=elong, emol=emol,
             epair=epair, ke=ke, etotal=epair + emol + ke, press=press,
@@ -259,11 +333,21 @@ class CellPairSimulation:
     def _vmax_now(self) -> float:
         """Device max |v| (empty slots carry v = 0), sampled at run()
         entry when check=true and no thermo row will supply vmax."""
-        st = self.state
-        return float(torch.sqrt(torch.max(st.vx * st.vx + st.vy * st.vy
-                                          + st.vz * st.vz)))
+        return float(torch.sqrt(self._kinetic(self.state)[:, 1].max()))
+
+    def _t_target(self, ahead: int = 0) -> float:
+        """Thermostat target: the ramp t_start -> t_stop over the run,
+        evaluated at the end of the segment about to be advanced."""
+        cfg = self.thermostat
+        if cfg is None:
+            return 0.0
+        if self._run_total <= 0 or cfg.t_start == cfg.t_stop:
+            return cfg.t_start
+        frac = min(max((self._run_done + ahead) / self._run_total, 0.0), 1.0)
+        return cfg.t_start + (cfg.t_stop - cfg.t_start) * frac
 
     def _advance(self, total: int, cadence: int):
+        self._t_now = self._t_target(ahead=total)
         n_full, rem = divmod(total, cadence)
         for _ in range(n_full):
             self.state = self._block(self.state, cadence)
@@ -289,6 +373,7 @@ class CellPairSimulation:
                       f"{row['etotal']:>14.8g} {row['press']:>14.6g}")
 
         t0 = time.perf_counter()
+        self._run_total, self._run_done = nsteps, 0
         if thermo_every:
             emit()
         elif self.neighbor.check:
@@ -303,8 +388,9 @@ class CellPairSimulation:
                     ((self.step_count // thermo_every) + 1) * thermo_every)
             # segment snapshot for overflow rollback: a clone, because
             # the blocks update the planes in place
-            snap = (self.state.clone(), self.step_count)
+            snap = (self.state.clone(), self.step_count, self._run_done)
             self._advance(target - self.step_count, self._cadence(vmax))
+            self._run_done += target - self.step_count
             self.step_count = target
             try:
                 if thermo_every and self.step_count % thermo_every == 0:
@@ -319,7 +405,7 @@ class CellPairSimulation:
                 grows += 1
                 if grows > 4:
                     raise
-                self.state, self.step_count = snap
+                self.state, self.step_count, self._run_done = snap
                 self._grow_capacity()
         if thermo_every and (not rows or rows[-1]["step"] != self.step_count):
             emit()

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.state import Topology
+from .models.bonded.harmonic import BondedStyle, make_bonded
 from .models.kspace.pppm import PPPM
 from .models.pair.styles import PairConfig, PairStyle
 from .neighbor.cell_slots import MOVE_FIELDS, SlotState
@@ -16,16 +18,39 @@ from .neighbor.cell_slots import MOVE_FIELDS, SlotState
 
 def pair_style_from_numpy(tables, special_lj, special_coul, qqrd2e: float,
                           g_ewald: float, cutsq_max: float,
-                          cfg_fields: dict) -> PairStyle:
+                          cfg_fields: dict, inner_sq: float = 0.0,
+                          denom_lj: float = 1.0, eps14=None,
+                          sig14=None) -> PairStyle:
     """The port's PairStyle from the JAX PairStyle's fields
-    (``cfg_fields`` = name, vdw, coul, disp of its PairConfig)."""
+    (``cfg_fields`` = name, vdw, coul, disp of its PairConfig; the last
+    four are lj/charmm's switching region and 1-4 parameters)."""
     return PairStyle(
         cfg=PairConfig(**cfg_fields),
         tables=np.array(tables, np.float64),
         special_lj=np.array(special_lj, np.float64),
         special_coul=np.array(special_coul, np.float64),
         qqrd2e=float(qqrd2e), g_ewald=float(g_ewald),
-        cutsq_max=float(cutsq_max))
+        cutsq_max=float(cutsq_max), inner_sq=float(inner_sq),
+        denom_lj=float(denom_lj),
+        eps14=None if eps14 is None else np.array(eps14, np.float64),
+        sig14=None if sig14 is None else np.array(sig14, np.float64))
+
+
+def topology_from_numpy(bonds, angles, dihedrals, impropers, special_idx,
+                        special_code) -> Topology:
+    """The port's Topology from the JAX Topology's fields."""
+    return Topology(
+        bonds=np.array(bonds, np.int32), angles=np.array(angles, np.int32),
+        dihedrals=np.array(dihedrals, np.int32),
+        impropers=np.array(impropers, np.int32),
+        special_idx=np.array(special_idx, np.int32),
+        special_code=np.array(special_code, np.int8))
+
+
+def bonded_from_numpy(fields: dict) -> BondedStyle:
+    """The port's BondedStyle from the JAX BondedStyle's fields
+    (``dataclasses.asdict`` of it)."""
+    return make_bonded(**fields)
 
 
 def pppm_from_numpy(grid, g_ewald: float, order: int, greensfn, kx, ky, kz,
@@ -45,16 +70,15 @@ def pppm_from_numpy(grid, g_ewald: float, order: int, greensfn, kx, ky, kz,
 def slot_state_from_numpy(planes: dict, device="cuda") -> SlotState:
     """A JAX SlotState (as a dict of numpy planes) -> the port's.
 
-    Float planes keep their dtype; therm must be empty (NVE) and comp
-    None (no compensated planes in the port)."""
+    Float planes keep their dtype; an empty therm (NVE) becomes None;
+    comp must be None (no compensated planes in the port)."""
     if planes.get("comp") is not None:
         raise NotImplementedError("compensated slot planes are not ported")
-    therm = planes.get("therm")
-    if therm is not None and np.size(therm):
-        raise NotImplementedError(
-            "Nose-Hoover chain state is not ported: ROADMAP queue 1 item 9")
     out = {f: torch.from_numpy(np.array(planes[f])).to(device)
            for f in MOVE_FIELDS}
+    therm = planes.get("therm")
+    if therm is not None and np.size(therm):
+        out["therm"] = torch.from_numpy(np.array(therm)).to(device)
     for f in ("ix", "iy", "iz", "typ", "aid"):
         out[f] = out[f].to(torch.int32)
     out["overflow"] = torch.tensor(bool(planes["overflow"]), device=device)
@@ -63,4 +87,5 @@ def slot_state_from_numpy(planes: dict, device="cuda") -> SlotState:
 
 def slot_state_to_numpy(state: SlotState) -> dict:
     """The port's SlotState -> a dict of numpy planes (JAX field names)."""
-    return {f: t.detach().cpu().numpy() for f, t in state._asdict().items()}
+    return {f: t.detach().cpu().numpy() for f, t in state._asdict().items()
+            if t is not None}

@@ -1,13 +1,14 @@
-"""LAMMPS data-file reader for ``atom_style charge`` (host numpy).
+"""LAMMPS data-file reader for atom styles charge and full (host numpy).
 
 Counterpart of ``lammps_buck_intel_tpu.io.data_reader.read_data`` for the
 files the port's decks read: the header (counts, orthogonal box bounds,
-tilt factors), ``Masses``, ``Atoms # charge`` with optional image flags,
-and an optional ``Velocities`` section.  Atom rows come back sorted by
-atom id, ids and types 0-based, exactly as the JAX package returns them.
-Topology sections, coefficient sections and the atomic/full atom styles
-raise NotImplementedError (ROADMAP queue 1 item 12).  Pure Python: the
-JAX package's native fast path exists for files far larger than these.
+tilt factors), ``Masses``, ``Atoms # charge`` / ``Atoms # full`` with
+optional image flags, ``Velocities``, the ``Bonds`` / ``Angles`` /
+``Dihedrals`` / ``Impropers`` tables and the ``* Coeffs`` sections.  Atom
+rows come back sorted by atom id, ids and types 0-based, exactly as the
+JAX package returns them.  The atomic atom style and ``PairIJ Coeffs``
+raise NotImplementedError.  Pure Python: the JAX package's native fast
+path exists for files far larger than these.
 """
 from __future__ import annotations
 
@@ -20,14 +21,18 @@ _SECTION_NAMES = (
     "Impropers", "Pair Coeffs", "PairIJ Coeffs", "Bond Coeffs",
     "Angle Coeffs", "Dihedral Coeffs", "Improper Coeffs",
 )
-_PORTED_SECTIONS = ("Masses", "Atoms", "Velocities")
-_TOPOLOGY_COUNTS = ("bonds", "angles", "dihedrals", "impropers")
-_UNPORTED = "ROADMAP queue 1 item 12 (molecular decks)"
+# header count -> (DataFile table, columns [type, atoms...])
+_TOPOLOGY = {"bonds": 3, "angles": 4, "dihedrals": 5, "impropers": 5}
+_COEFFS = {"Pair Coeffs": "pair_coeffs", "Bond Coeffs": "bond_coeffs",
+           "Angle Coeffs": "angle_coeffs",
+           "Dihedral Coeffs": "dihedral_coeffs",
+           "Improper Coeffs": "improper_coeffs"}
 
 
 @dataclasses.dataclass
 class DataFile:
-    """Parsed LAMMPS data file (charge style); atom rows sorted by id."""
+    """Parsed LAMMPS data file; atom rows sorted by id, all ids and types
+    0-based."""
 
     n_atoms: int = 0
     n_atom_types: int = 0
@@ -38,8 +43,18 @@ class DataFile:
     v: np.ndarray = None          # (N, 3) f64 (zeros without Velocities)
     type: np.ndarray = None       # (N,) int32, 0-based
     q: np.ndarray = None          # (N,) f64
+    molecule: np.ndarray = None   # (N,) int32, 0-based
     image: np.ndarray = None      # (N, 3) int32
     mass: np.ndarray = None       # (ntypes,) f64
+    bonds: np.ndarray = None      # (Nb, 3) int32 [type, i, j]
+    angles: np.ndarray = None     # (Na, 4) int32 [type, i, j, k]
+    dihedrals: np.ndarray = None  # (Nd, 5)
+    impropers: np.ndarray = None  # (Ni, 5)
+    bond_coeffs: dict = dataclasses.field(default_factory=dict)
+    angle_coeffs: dict = dataclasses.field(default_factory=dict)
+    dihedral_coeffs: dict = dataclasses.field(default_factory=dict)
+    improper_coeffs: dict = dataclasses.field(default_factory=dict)
+    pair_coeffs: dict = dataclasses.field(default_factory=dict)
 
 
 def _strip(line: str) -> str:
@@ -65,11 +80,12 @@ def _atom_style(tag: str, rows) -> str:
 
 
 def read_data(path: str) -> DataFile:
-    """Parse a LAMMPS data file of atom style charge."""
+    """Parse a LAMMPS data file of atom style charge or full."""
     with open(path) as f:
         raw = f.readlines()
     d = DataFile()
     lo, hi = np.zeros(3), np.ones(3)
+    counts = dict.fromkeys(_TOPOLOGY, 0)
 
     i = 1  # the first line is a comment by format definition
     while i < len(raw):
@@ -81,11 +97,8 @@ def read_data(path: str) -> DataFile:
             d.n_atom_types = int(toks[0])
         elif toks[-1:] == ["atoms"]:
             d.n_atoms = int(toks[0])
-        elif len(toks) == 2 and toks[1] in _TOPOLOGY_COUNTS:
-            if int(toks[0]) > 0:
-                raise NotImplementedError(
-                    f"{path}: {toks[0]} {toks[1]}: topology is not ported: "
-                    f"{_UNPORTED}")
+        elif len(toks) == 2 and toks[1] in _TOPOLOGY:
+            counts[toks[1]] = int(toks[0])
         elif toks[-2:] in (["xlo", "xhi"], ["ylo", "yhi"], ["zlo", "zhi"]):
             ax = "xyz".index(toks[-2][0])
             lo[ax], hi[ax] = float(toks[0]), float(toks[1])
@@ -101,8 +114,11 @@ def read_data(path: str) -> DataFile:
     d.v = np.zeros((n, 3))
     d.type = np.zeros(n, np.int32)
     d.q = np.zeros(n)
+    d.molecule = np.zeros(n, np.int32)
     d.image = np.zeros((n, 3), np.int32)
     d.mass = np.ones(max(d.n_atom_types, 1))
+    for name, cols in _TOPOLOGY.items():
+        setattr(d, name, np.zeros((counts[name], cols), np.int32))
 
     while i < len(raw):
         name = _section_name(_strip(raw[i]))
@@ -110,9 +126,6 @@ def read_data(path: str) -> DataFile:
         i += 1
         if name is None:
             continue
-        if name not in _PORTED_SECTIONS:
-            raise NotImplementedError(
-                f"{path}: section {name!r} is not ported: {_UNPORTED}")
         rows = []
         while i < len(raw):
             line = _strip(raw[i])
@@ -127,17 +140,37 @@ def read_data(path: str) -> DataFile:
         elif name == "Velocities":
             for r in rows:
                 d.v[int(r[0]) - 1] = [float(r[1]), float(r[2]), float(r[3])]
-        else:
-            style = _atom_style(tag, rows)
-            if style != "charge":
-                raise NotImplementedError(
-                    f"{path}: atom style {style!r} is not ported (charge "
-                    f"only): {_UNPORTED}")
+        elif name == "Atoms":
+            _parse_atoms(path, d, rows, _atom_style(tag, rows))
+        elif name.lower() in _TOPOLOGY:
+            table = getattr(d, name.lower())
             for r in rows:
-                a = int(r[0]) - 1
-                d.type[a] = int(r[1]) - 1
-                d.q[a] = float(r[2])
-                d.x[a] = [float(r[3]), float(r[4]), float(r[5])]
-                if len(r) >= 9:
-                    d.image[a] = [int(r[6]), int(r[7]), int(r[8])]
+                table[int(r[0]) - 1] = [int(t) - 1
+                                        for t in r[1:1 + table.shape[1]]]
+        elif name in _COEFFS:
+            coeffs = getattr(d, _COEFFS[name])
+            for r in rows:
+                coeffs[int(r[0]) - 1] = [float(t) for t in r[1:]]
+        else:
+            raise NotImplementedError(
+                f"{path}: section {name!r} is not ported (the JAX package "
+                "does not read it either)")
     return d
+
+
+def _parse_atoms(path: str, d: DataFile, rows, style: str):
+    if style not in ("charge", "full"):
+        raise NotImplementedError(
+            f"{path}: atom style {style!r} is not ported (charge and full "
+            "only): ROADMAP queue 1 item 15")
+    first = 1 if style == "full" else 0   # full rows carry a molecule id
+    for r in rows:
+        a = int(r[0]) - 1
+        if first:
+            d.molecule[a] = int(r[1]) - 1
+        d.type[a] = int(r[first + 1]) - 1
+        d.q[a] = float(r[first + 2])
+        vals = r[first + 3:]
+        d.x[a] = [float(vals[0]), float(vals[1]), float(vals[2])]
+        if len(vals) >= 6:
+            d.image[a] = [int(vals[3]), int(vals[4]), int(vals[5])]

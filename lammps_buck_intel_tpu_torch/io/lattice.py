@@ -51,22 +51,25 @@ def create_atoms(
 
 def replicate(x: np.ndarray, lo: np.ndarray, hi: np.ndarray,
               nrep: tuple[int, int, int], per_atom: dict | None = None,
-              **topology):
-    """LAMMPS ``replicate nx ny nz`` for per-atom arrays.
+              bonds=None, angles=None, dihedrals=None, impropers=None,
+              molecule=None, tilt=None):
+    """LAMMPS ``replicate nx ny nz``: tile the box, remapping topology.
 
     per_atom: dict of (N, ...) arrays tiled along atoms (type, q, v,
     image).  Positions are unwrapped by their image flags before tiling
-    and the returned images are zero, as the JAX package does.  Returns
-    (x, lo, hi, per_atom).  Bonded topology, molecule ids and tilted
-    boxes raise (ROADMAP queue 1 items 12 and 14).
+    and the returned images are zero, as the JAX package does: a molecule
+    that straddles a boundary of the original box is bonded only through
+    it.  Bonded index lists are offset per replica, and molecule ids so
+    that replicas stay distinct molecules.  Returns (x, lo, hi, per_atom,
+    bonds, angles, dihedrals, impropers, molecule).  Tilted boxes raise
+    (ROADMAP queue 1 item 14).
     """
-    for name, value in topology.items():
-        if value is not None and np.size(value) and np.any(value):
-            item = "14 (triclinic)" if name == "tilt" else "12 (topology)"
-            raise NotImplementedError(
-                f"replicate with {name} is not ported: ROADMAP queue 1 "
-                f"item {item}")
+    if tilt is not None and np.any(tilt):
+        raise NotImplementedError(
+            "replicate with tilt is not ported: ROADMAP queue 1 item 14 "
+            "(triclinic)")
     nx, ny, nz = nrep
+    n = x.shape[0]
     L = hi - lo
     hmat = np.diag(np.asarray(L, np.float64))
     per_atom = dict(per_atom) if per_atom else {}
@@ -76,8 +79,23 @@ def replicate(x: np.ndarray, lo: np.ndarray, hi: np.ndarray,
         per_atom["image"] = np.zeros_like(np.asarray(img))
     shifts = np.asarray([[ix, iy, iz] for iz in range(nz) for iy in range(ny)
                          for ix in range(nx)], np.float64) @ hmat
+    nrep_total = len(shifts)
     x_new = (x[None, :, :] + shifts[:, None, :]).reshape(-1, 3)
     hi_new = lo + L * np.array([nx, ny, nz])
-    tiled = {k: np.concatenate([v] * len(shifts), axis=0)
+    tiled = {k: np.concatenate([v] * nrep_total, axis=0)
              for k, v in per_atom.items()}
-    return x_new, lo, hi_new, tiled
+
+    def rep_topo(t):
+        if t is None or len(t) == 0:
+            return t
+        t = np.asarray(t)
+        offset = np.zeros_like(t[0])
+        offset[1:] = n
+        return np.concatenate([t + r * offset for r in range(nrep_total)])
+
+    if molecule is not None and len(molecule):
+        nmol = int(molecule.max()) + 1
+        molecule = np.concatenate(
+            [molecule + r * nmol for r in range(nrep_total)])
+    return (x_new, lo, hi_new, tiled, rep_topo(bonds), rep_topo(angles),
+            rep_topo(dihedrals), rep_topo(impropers), molecule)

@@ -1,0 +1,4 @@
+from .harmonic import (BondedResult, BondedStyle, compute_bonded,
+                       compute_bonded_plain, make_bonded)
+from .charmm import (bake_charmm_14, dihedral_charmm_forces,
+                     improper_harmonic_forces)

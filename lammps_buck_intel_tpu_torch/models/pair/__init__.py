@@ -1,3 +1,4 @@
 from .styles import (PairConfig, PairStyle, COEF_NAMES, build_buck,
-                     erfc_approx, pair_terms)
-from .cellpair import compute_cellpair, compute_cellpair_plain
+                     build_lj_charmm, erfc_approx, pair_terms)
+from .cellpair import (SpecialTable, compute_cellpair, compute_cellpair_plain,
+                       make_special_table)

@@ -13,13 +13,17 @@ halved.
 ``compute_cellpair`` dispatches on the device of the planes: CUDA
 tensors launch the hand-written kernel (csrc/cellpair.cu through
 ``ops.cellpair``), CPU tensors run ``compute_cellpair_plain``.  Styles:
-buck and buck/coul/long (the Ewald real-space term reads the slot ``q``
-plane).  Special bonds, molecule exclusion and tilted boxes are ROADMAP
-queue 1 items 12 and 14.
+buck, buck/coul/long and lj/charmm/coul/long (the Ewald real-space term
+reads the slot ``q`` plane).  Special bonds: the JAX package gathers each
+slot's partner ids per rebin and matches them against every candidate;
+the port keeps the partner table in atom order on the device
+(``SpecialTable``), and a slot reads its row through its atom id.  The
+uniform-special shortcut, molecule exclusion and tilted boxes are ROADMAP
+queue 1 items 13 and 14.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -30,6 +34,43 @@ from .styles import COEF_NAMES, PairStyle, check_ported, pair_terms
 
 # Largest type count the kernel's shared coefficient table holds.
 MAX_TYPES = 8
+
+
+class SpecialTable(NamedTuple):
+    """1-2/1-3/1-4 partner table in atom order on one device.
+
+    idx, code: (N + 1, S) int32; row N is the sentinel of empty slots
+    (idx -1, code 0), as in the JAX package's padded tables.  packed:
+    (N * S,) int32, ``idx * 4 + code`` (-1 where there is no partner), the
+    form the kernel reads."""
+
+    idx: torch.Tensor
+    code: torch.Tensor
+    packed: torch.Tensor
+
+    @property
+    def width(self) -> int:
+        return self.idx.shape[1]
+
+
+def make_special_table(special_idx: np.ndarray, special_code: np.ndarray,
+                       device) -> Optional[SpecialTable]:
+    """The device table from ``Topology.special_idx`` / ``special_code``
+    ((N, S) host numpy); None when no atom has a partner."""
+    idx = np.asarray(special_idx, np.int32)
+    code = np.asarray(special_code, np.int32)
+    n, width = idx.shape
+    if width == 0:
+        return None
+    if n >= 2**29:
+        raise ValueError("special table packs atom ids into 29 bits")
+    packed = np.where(idx >= 0, idx * 4 + code, -1).astype(np.int32)
+    idx = np.concatenate([idx, np.full((1, width), -1, np.int32)])
+    code = np.concatenate([code, np.zeros((1, width), np.int32)])
+    return SpecialTable(
+        idx=torch.as_tensor(idx).to(device),
+        code=torch.as_tensor(code).to(device),
+        packed=torch.as_tensor(packed.reshape(-1)).to(device))
 
 
 class CellPairResult(NamedTuple):
@@ -109,10 +150,12 @@ def _chunk_cells(cap: int, S: int, ncell: int,
 
 def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
                            state: SlotState, *, eflag: bool = False,
-                           vflag: bool = False,
-                           acc_dtype=torch.float32) -> CellPairResult:
+                           vflag: bool = False, acc_dtype=torch.float32,
+                           special: Optional[SpecialTable] = None
+                           ) -> CellPairResult:
     """Plain torch full-stencil evaluation as dense cell tiles, chunked
-    over cells (any device)."""
+    over cells (any device).  With ``special``, a pair whose j atom is
+    among slot i's partners takes the style's factors of its code."""
     check_style(style)
     ncell, cap, n = grid.ncell, grid.cap, grid.n_atoms
     flt = state.x.dtype
@@ -143,6 +186,12 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
     ev = torch.zeros((), dtype=acc_dtype, device=dev)
     ec = torch.zeros((), dtype=acc_dtype, device=dev)
     vir = torch.zeros((6,), dtype=acc_dtype, device=dev)
+    if special is not None:
+        rows = torch.clamp(state.aid, max=n).long()
+        sp_idx = special.idx[rows].view(ncell, cap, special.width)
+        sp_code = special.code[rows].view(ncell, cap, special.width)
+        sp_lj = torch.as_tensor(style.special_lj, device=dev).to(flt)
+        sp_coul = torch.as_tensor(style.special_coul, device=dev).to(flt)
     chunk = _chunk_cells(cap, S, ncell)
     for c0 in range(0, ncell, chunk):
         c1 = min(ncell, c0 + chunk)
@@ -165,7 +214,14 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
             coef = {name: coef_t[:, c][tt] for c, name in enumerate(COEF_NAMES)}
         qi = q[c0:c1, :, None] if coul else 0.0
         qj = q[js].reshape(c1 - c0, 1, S * cap) if coul else 0.0
-        fs, e, e_c = pair_terms(style, rsq, coef, qi, qj, 1.0, 1.0,
+        f_lj = f_coul = 1.0
+        if special is not None:
+            sb = torch.zeros(rsq.shape, dtype=torch.long, device=dev)
+            for k in range(special.width):
+                sb += torch.where(sp_idx[c0:c1, :, k, None] == aj,
+                                  sp_code[c0:c1, :, k, None], 0)
+            f_lj, f_coul = sp_lj[sb], sp_coul[sb]
+        fs, e, e_c = pair_terms(style, rsq, coef, qi, qj, f_lj, f_coul,
                                 eflag=eflag)
         fs = torch.where(mask, fs, torch.zeros_like(fs))
         for ax in range(3):
@@ -188,20 +244,23 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
 
 def compute_cellpair(style: PairStyle, grid: CellGrid, box: Box,
                      state: SlotState, *, eflag: bool = False,
-                     vflag: bool = False,
-                     acc_dtype=torch.float32) -> CellPairResult:
+                     vflag: bool = False, acc_dtype=torch.float32,
+                     special: Optional[SpecialTable] = None
+                     ) -> CellPairResult:
     """Pair forces (acc dtype, slot order) + evdwl/ecoul/virial.
 
     CUDA planes launch the kernel; CPU planes run the plain version.
-    Without eflag/vflag the energy/virial fields are zeros."""
+    Without eflag/vflag the energy/virial fields are zeros.  special:
+    the partner table of a molecular deck (``make_special_table``)."""
     if state.x.is_cuda:
         from ...ops import cellpair as cellpair_ops
 
         return cellpair_ops.cellpair_forces(
             style, grid, box, state, eflag=eflag or vflag,
-            acc_dtype=acc_dtype)
+            acc_dtype=acc_dtype, special=special)
     if state.x.device.type != "cpu":
         raise RuntimeError(
             f"no kernel and no plain version for device {state.x.device}")
     return compute_cellpair_plain(style, grid, box, state, eflag=eflag,
-                                  vflag=vflag, acc_dtype=acc_dtype)
+                                  vflag=vflag, acc_dtype=acc_dtype,
+                                  special=special)

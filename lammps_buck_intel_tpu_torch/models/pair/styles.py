@@ -1,4 +1,5 @@
-"""Buckingham pair style: coefficient tables and the per-pair physics.
+"""Buckingham and lj/charmm pair styles: coefficient tables and the
+per-pair physics.
 
 Counterpart of ``lammps_buck_intel_tpu.models.pair.styles``.  The tables
 use the same (T, T, 8) column layout (``COEF_NAMES``), so the CUDA
@@ -7,11 +8,14 @@ same numbers.  ``pair_terms`` is the plain torch form of the per-pair
 physics; the kernel's device function computes the same expressions in
 the same order.
 
-The port carries ``buck`` and ``buck/coul/long`` (Ewald real-space
-Coulomb through the A&S erfc; the k-space half is models/kspace).
-``buck/coul/cut`` (ROADMAP queue 1 item 10), Ewald-split dispersion
-(``disp == "long"``, item 13) and special-bond factors other than 1
-(item 12) raise NotImplementedError.
+The port carries ``buck``, ``buck/coul/long`` and
+``lj/charmm/coul/long`` (Ewald real-space Coulomb through the A&S erfc;
+the k-space half is models/kspace), with special-bond factors: the LJ
+term of a 1-2/1-3/1-4 pair is scaled where it is evaluated, the Coulomb
+term corrected subtractively, because k-space holds every pair.
+``*/coul/cut`` (ROADMAP queue 1 item 10), Ewald-split dispersion
+(``disp == "long"``, item 13) and the lj/cut family (``build_lj``, SPC/E
+and hexane decks) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ class PairConfig:
     """Static pair-style configuration."""
 
     name: str
-    vdw: str   # "buck" | "lj" | "none"
+    vdw: str   # "buck" | "ljcharmm" (the JAX package also has "lj", "none")
     coul: str  # "none" | "cut" | "long"
     disp: str  # "cut" | "long"
 
@@ -46,9 +50,13 @@ class PairConfig:
 class PairStyle:
     """Coefficient tables + scalars for one pair style (host numpy).
 
-    tables: (T, T, 8) per-type-pair coefficients, buck columns
-      [buck1, buck2, a, c, rhoinv, cut_ljsq, offset, cut_coulsq].
+    tables: (T, T, 8) per-type-pair coefficients, columns per cfg.vdw
+      buck:     [buck1, buck2, a, c, rhoinv, cut_ljsq, offset, cut_coulsq]
+      ljcharmm: [lj1, lj2, lj3, lj4, 0, cut_ljsq, 0, cut_coulsq].
     special_lj / special_coul: (4,) factors, slot 0 == 1.0.
+    inner_sq, denom_lj: the lj/charmm switching region, cut_lj_inner^2 and
+      (cut_ljsq - inner_sq)^3.  eps14 / sig14: (T,) 1-4 LJ parameters that
+      dihedral charmm's baked 1-4 terms consume (``bake_charmm_14``).
     """
 
     cfg: PairConfig
@@ -59,6 +67,10 @@ class PairStyle:
     g_ewald: float = 0.0
     g_ewald_6: float = 0.0
     cutsq_max: float = 0.0  # max over tables of all cutoffs (neighbor cut)
+    inner_sq: float = 0.0
+    denom_lj: float = 1.0
+    eps14: Optional[np.ndarray] = None
+    sig14: Optional[np.ndarray] = None
     # (dtype, device) -> flattened tables, copied to a device once
     _on_device: dict = dataclasses.field(default_factory=dict, repr=False,
                                          compare=False)
@@ -66,14 +78,24 @@ class PairStyle:
     def replace(self, **kw) -> "PairStyle":
         return dataclasses.replace(self, _on_device={}, **kw)
 
-    def tables_on(self, dtype, device) -> torch.Tensor:
-        """The (T*T*8,) tables as a ``dtype`` tensor on ``device``."""
-        key = (dtype, torch.device(device))
+    def _cached(self, what: str, array, dtype, device) -> torch.Tensor:
+        key = (what, dtype, torch.device(device))
         t = self._on_device.get(key)
         if t is None:
-            t = torch.as_tensor(self.tables.reshape(-1)).to(device, dtype)
+            t = torch.as_tensor(np.asarray(array, np.float64)).to(device,
+                                                                  dtype)
             self._on_device[key] = t
         return t
+
+    def tables_on(self, dtype, device) -> torch.Tensor:
+        """The (T*T*8,) tables as a ``dtype`` tensor on ``device``."""
+        return self._cached("tables", self.tables.reshape(-1), dtype, device)
+
+    def special_on(self, dtype, device) -> torch.Tensor:
+        """(8,) special_lj[0:4] then special_coul[0:4] on ``device``."""
+        return self._cached(
+            "special", np.concatenate([self.special_lj, self.special_coul]),
+            dtype, device)
 
 
 NCOEF = 8
@@ -149,15 +171,72 @@ def build_buck(
     )
 
 
+def build_lj_charmm(
+    ntypes: int,
+    coeffs: dict[int, tuple],
+    inner: float,
+    cut_lj: float,
+    coul: str = "long",
+    cut_coul: Optional[float] = None,
+    special_lj=(1.0, 0.0, 0.0, 0.0),
+    special_coul=(1.0, 0.0, 0.0, 0.0),
+    qqrd2e: float = 1.0,
+    name: Optional[str] = None,
+) -> PairStyle:
+    """Build lj/charmm/coul/long (LAMMPS pair_lj_charmm_coul_long).
+
+    coeffs: {type: (eps, sigma[, eps14, sigma14])}.  CHARMM mixes
+    arithmetically; the energy switches smoothly to zero between ``inner``
+    and ``cut_lj``.  eps14/sig14 default to eps/sigma and are consumed by
+    dihedral charmm's baked 1-4 terms, not here: special_bonds charmm
+    zeroes 1-2/1-3/1-4 in the pair pass.
+    """
+    if coul != "long":
+        raise NotImplementedError(
+            f"lj/charmm/coul/{coul} is not ported: ROADMAP queue 1 item 10")
+    cut_coul = cut_lj if cut_coul is None else cut_coul
+    eps, sig = np.zeros(ntypes), np.zeros(ntypes)
+    e14, s14 = np.zeros(ntypes), np.zeros(ntypes)
+    for t, c in coeffs.items():
+        eps[t], sig[t] = c[0], c[1]
+        e14[t] = c[2] if len(c) > 2 else c[0]
+        s14[t] = c[3] if len(c) > 3 else c[1]
+    e_ij = np.sqrt(eps[:, None] * eps[None, :])
+    s_ij = 0.5 * (sig[:, None] + sig[None, :])
+    t = np.zeros((ntypes, ntypes, NCOEF), np.float64)
+    s6 = s_ij**6
+    t[..., _COL["c0"]] = 48.0 * e_ij * s6 * s6
+    t[..., _COL["c1"]] = 24.0 * e_ij * s6
+    t[..., _COL["e0"]] = 4.0 * e_ij * s6 * s6
+    t[..., _COL["e1"]] = 4.0 * e_ij * s6
+    t[..., _COL["cut_ljsq"]] = cut_lj**2
+    t[..., _COL["cut_coulsq"]] = cut_coul**2
+    inner_sq = float(inner**2)
+    return PairStyle(
+        cfg=PairConfig(name=name or f"lj/charmm/coul/{coul}", vdw="ljcharmm",
+                       coul=coul, disp="cut"),
+        tables=t,
+        special_lj=np.asarray(special_lj, np.float64),
+        special_coul=np.asarray(special_coul, np.float64),
+        qqrd2e=float(qqrd2e),
+        cutsq_max=float(max(cut_lj, cut_coul) ** 2),
+        inner_sq=inner_sq,
+        denom_lj=float((cut_lj**2 - inner_sq) ** 3),
+        eps14=e14,
+        sig14=s14,
+    )
+
+
 def check_ported(style: PairStyle):
     """Raise for what neither the kernel nor the plain version covers."""
     cfg = style.cfg
-    if cfg.vdw != "buck" or cfg.coul not in ("none", "long") \
-            or cfg.disp != "cut":
+    if cfg.vdw not in ("buck", "ljcharmm") or cfg.disp != "cut" \
+            or cfg.coul not in ("none", "long") \
+            or (cfg.vdw == "ljcharmm" and cfg.coul != "long"):
         raise NotImplementedError(
             f"pair style {cfg.name!r} ({cfg.vdw}, coul {cfg.coul}, disp "
-            f"{cfg.disp}) is not ported: buck and buck/coul/long only "
-            "(ROADMAP queue 1 items 10, 13)")
+            f"{cfg.disp}) is not ported: buck, buck/coul/long and "
+            "lj/charmm/coul/long only (ROADMAP queue 1 items 10, 13)")
 
 
 def erfc_approx(grij, expm2):
@@ -174,30 +253,38 @@ def pair_terms(style: PairStyle, rsq, coef, qi, qj, f_lj, f_coul, *,
     rsq: squared distances (garbage at masked pairs — the caller masks).
     coef: dict of per-pair coefficients (``COEF_NAMES``), each a python
       float or a tensor broadcastable against rsq.
-    f_lj, f_coul: special-bond factors; only 1.0 (plain pairs) is ported,
-      anything else raises (ROADMAP queue 1 item 12).
+    f_lj, f_coul: special-bond factors, the python float 1.0 for decks
+      without special bonds or tensors broadcastable against rsq.
     qi, qj: charges broadcastable against rsq (ignored without Coulomb).
     Returns (fscalar, evdwl, ecoul) with F_i += fscalar * (x_i - x_j);
     the energies are None without eflag.
     """
     cfg = style.cfg
     check_ported(style)
-    if not (isinstance(f_lj, float) and isinstance(f_coul, float)
-            and f_lj == f_coul == 1.0):
-        raise NotImplementedError(
-            "special-bond factors other than 1 are not ported: ROADMAP "
-            "queue 1 item 12 (molecular decks)")
     rsq = torch.clamp(rsq, min=1e-12)
     r2inv = 1.0 / rsq
     r = torch.sqrt(rsq)
     r6inv = r2inv * r2inv * r2inv
-    rexp = torch.exp(-r * coef["rhoinv"])
-    rep_f = r * rexp * coef["c0"]
-    rep_e = coef["e0"] * rexp
-    fvdw = rep_f - r6inv * coef["c1"]
-    evdwl = rep_e - coef["e1"] * r6inv - coef["offset"]
-    in_lj = rsq < coef["cut_ljsq"]
     zero = torch.zeros_like(rsq)
+    in_lj = rsq < coef["cut_ljsq"]
+    if cfg.vdw == "buck":
+        rexp = torch.exp(-r * coef["rhoinv"])
+        fvdw = (r * rexp * coef["c0"] - r6inv * coef["c1"]) * f_lj
+        evdwl = (coef["e0"] * rexp - coef["e1"] * r6inv
+                 - coef["offset"]) * f_lj
+    else:
+        # lj/charmm: the energy switch between the inner and outer cutoff
+        forcelj = r6inv * r6inv * coef["c0"] - r6inv * coef["c1"]
+        philj = r6inv * r6inv * coef["e0"] - coef["e1"] * r6inv
+        innersq, denom = float(style.inner_sq), float(style.denom_lj)
+        tt = coef["cut_ljsq"] - rsq
+        switch1 = tt * tt * (coef["cut_ljsq"] + 2.0 * rsq
+                             - 3.0 * innersq) / denom
+        switch2 = 12.0 * rsq * tt * (rsq - innersq) / denom
+        sw = rsq > innersq
+        fvdw = torch.where(sw, forcelj * switch1 + philj * switch2,
+                           forcelj) * f_lj
+        evdwl = torch.where(sw, philj * switch1, philj) * f_lj
     fvdw = torch.where(in_lj, fvdw, zero)
     ecoul = zero
     if cfg.coul == "long":
@@ -207,10 +294,17 @@ def pair_terms(style: PairStyle, rsq, coef, qi, qj, f_lj, f_coul, *,
         grij = float(style.g_ewald) * r
         expm2 = torch.exp(-grij * grij)
         erfc = erfc_approx(grij, expm2)
+        fcoul = prefactor * (erfc + float(EWALD_F) * grij * expm2)
+        ecoul = prefactor * erfc
+        # k-space holds every pair, so a special pair is corrected
+        # subtractively: it keeps prefactor * (erfc - (1 - f_coul))
+        if not (isinstance(f_coul, float) and f_coul == 1.0):
+            adjust = (1.0 - f_coul) * prefactor
+            fcoul = fcoul - adjust
+            ecoul = ecoul - adjust
         in_coul = rsq < coef["cut_coulsq"]
-        fcoul = torch.where(
-            in_coul, prefactor * (erfc + float(EWALD_F) * grij * expm2), zero)
-        ecoul = torch.where(in_coul, prefactor * erfc, zero)
+        fcoul = torch.where(in_coul, fcoul, zero)
+        ecoul = torch.where(in_coul, ecoul, zero)
         fvdw = fvdw + fcoul
     fscalar = fvdw * r2inv
     if not eflag:

@@ -98,7 +98,9 @@ def grow(grid: CellGrid, observed_max: Optional[int] = None) -> CellGrid:
 class SlotState(NamedTuple):
     """All-(NS,) planes on one device.  aid == n_atoms marks an empty
     slot.  Float planes have the precision's ``flt`` dtype; ix/iy/iz,
-    typ and aid are int32; ``overflow`` is a sticky 0-d bool tensor."""
+    typ and aid are int32; ``overflow`` is a sticky 0-d bool tensor;
+    ``therm`` is the (2, M) Nose-Hoover chain (eta, eta_dot) of an NVT
+    run, None under NVE: no rebin touches it, every rebin carries it."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -116,9 +118,10 @@ class SlotState(NamedTuple):
     q: torch.Tensor
     aid: torch.Tensor  # original atom index; n_atoms = empty
     overflow: torch.Tensor
+    therm: Optional[torch.Tensor] = None
 
     def clone(self) -> "SlotState":
-        return SlotState(*(t.clone() for t in self))
+        return SlotState(*(None if t is None else t.clone() for t in self))
 
 
 # The planes a rebin moves, in the order the rebin kernel takes them.
@@ -187,7 +190,7 @@ def _bin_to_slots_plain(state: SlotState, cid, ncell: int, cap: int,
     planes = {f: _scatter(getattr(state, f)[order], target, ns,
                           n if f == "aid" else 0)
               for f in MOVE_FIELDS}
-    return SlotState(overflow=overflow, **planes)
+    return SlotState(overflow=overflow, therm=state.therm, **planes)
 
 
 def rebin(grid: CellGrid, box: Box, state: SlotState) -> SlotState:
@@ -311,13 +314,14 @@ def _rebin_incremental_plain(grid: CellGrid, box: Box, state: SlotState,
         plane = torch.cat([getattr(st, f), getattr(st, f)[:1]])
         plane[target] = mover_vals[f][order]
         upd[f] = plane[:ns]
-    return SlotState(overflow=overflow, **upd)
+    return SlotState(overflow=overflow, therm=state.therm, **upd)
 
 
 def from_atoms(grid: CellGrid, box: Box, x, v, image, typ, q,
-               dtype=torch.float32) -> SlotState:
+               dtype=torch.float32, tchain: int = 0) -> SlotState:
     """Initial binning from (N, 3)/(N,) atom-ordered tensors; the slot
-    state lives on the device of ``x``."""
+    state lives on the device of ``x``.  tchain > 0 starts a Nose-Hoover
+    chain of that length at rest."""
     n = grid.n_atoms
     dev = x.device
     x = x.to(dtype)
@@ -336,6 +340,8 @@ def from_atoms(grid: CellGrid, box: Box, x, v, image, typ, q,
         q=q.to(dtype).contiguous(),
         aid=torch.arange(n, dtype=torch.int32, device=dev),
         overflow=torch.zeros((), dtype=torch.bool, device=dev),
+        therm=(torch.zeros((2, tchain), dtype=dtype, device=dev)
+               if tchain else None),
     )
     return rebin(grid, box, st)
 

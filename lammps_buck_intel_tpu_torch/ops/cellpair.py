@@ -24,7 +24,8 @@ def _lib():
     lib = build.load("cellpair")
     if lib.cellpair_forces.argtypes is None:
         lib.cellpair_forces.argtypes = (
-            [_I, _I, _I] + [_P] * 7 + [_I] * 7 + [_D] * 5 + [_P] * 5)
+            [_I] * 4 + [_P] * 7 + [_I] * 7 + [_D] * 7 + [_P, _I, _P]
+            + [_P] * 5)
         lib.cellpair_forces.restype = _I
     return lib
 
@@ -41,11 +42,13 @@ def check_plane(t: torch.Tensor, name: str, dtype, numel: int, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def cellpair_forces(style, grid, box, state, *, eflag: bool,
-                    acc_dtype) -> CellPairResult:
+def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
+                    special=None) -> CellPairResult:
     """Full-stencil pair forces on the card.  eflag also computes evdwl,
-    ecoul and the virial (the kernel's EV variant); buck/coul/long runs
-    the kernel's COUL variant, which reads the slot q plane."""
+    ecoul and the virial (the kernel's EV variant); coul/long styles run
+    the kernel's COUL variant, which reads the slot q plane; lj/charmm its
+    VDW = 1 variant; a ``special`` partner table
+    (``models.pair.cellpair.SpecialTable``) its SPECIAL variant."""
     check_style(style)
     dev = state.x.device
     if dev.type != "cuda":
@@ -66,17 +69,28 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool,
         check_plane(getattr(state, name), name, torch.int32, ns, dev)
     coef = style.tables_on(flt, dev)
     ntypes = style.tables.shape[0]
+    sp_ptr, sp_width, fac_ptr = None, 0, None
+    if special is not None:
+        sp_width = special.width
+        if sp_width * grid.n_atoms >= 2**31:
+            raise ValueError("special table too large for int32 offsets")
+        check_plane(special.packed, "special.packed", torch.int32,
+                    grid.n_atoms * sp_width, dev)
+        fac = style.special_on(flt, dev)
+        sp_ptr, fac_ptr = special.packed.data_ptr(), fac.data_ptr()
     fx, fy, fz = (torch.empty(ns, dtype=acc_dtype, device=dev)
                   for _ in range(3))
     partial = (torch.empty((grid.ncell, 8), dtype=acc_dtype, device=dev)
                if eflag else None)
     L = [float(v) for v in box.lengths]
     rc = _lib().cellpair_forces(
-        prec, int(eflag), int(coul), state.x.data_ptr(), state.y.data_ptr(),
+        prec, int(eflag), int(coul), int(style.cfg.vdw == "ljcharmm"),
+        state.x.data_ptr(), state.y.data_ptr(),
         state.z.data_ptr(), state.q.data_ptr() if coul else None,
         state.typ.data_ptr(), state.aid.data_ptr(), coef.data_ptr(), ntypes,
         grid.n_atoms, *grid.nc, grid.cap, grid.reach_z, *L,
-        float(style.g_ewald), float(style.qqrd2e), fx.data_ptr(),
+        float(style.g_ewald), float(style.qqrd2e), float(style.inner_sq),
+        float(style.denom_lj), sp_ptr, sp_width, fac_ptr, fx.data_ptr(),
         fy.data_ptr(), fz.data_ptr(),
         partial.data_ptr() if eflag else None,
         torch.cuda.current_stream(dev).cuda_stream)

@@ -109,5 +109,5 @@ def rebin(grid, box, state: SlotState) -> SlotState:
     if rc != 0:
         raise RuntimeError(f"rebin kernel launch failed: CUDA error {rc}")
     LAUNCHES["rebin"] += 1
-    return SlotState(overflow=overflow,
+    return SlotState(overflow=overflow, therm=state.therm,
                      **dict(zip(FLOAT_FIELDS + INT_FIELDS, out_f + out_i)))

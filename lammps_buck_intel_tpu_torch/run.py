@@ -1,13 +1,15 @@
 """Deck runner for the PyTorch port.
 
 Counterpart of ``lammps_buck_intel_tpu.run`` for the decks this port
-runs with ``engine: cellpair`` and ``fixes: [nve]``: a lattice built with
-``create_atoms`` or atoms read with ``read_data`` (atom style charge,
-optionally ``replicate``d); ``pair_style buck``, or ``buck/coul/long``
-with ``kspace_style pppm`` (ik) on a mesh aligned to the engine's cells
-(examples/decks/buck.yaml, buck_big.yaml, cristobalite_pppm.yaml).
-Every other deck key or value raises NotImplementedError naming its
-ROADMAP item; nothing is ignored.  A relative ``read_data`` path
+runs with ``engine: cellpair`` under ``fix nve`` or ``fix nvt``: a lattice
+built with ``create_atoms`` or atoms read with ``read_data`` (atom style
+charge or full, optionally ``replicate``d); ``pair_style buck``, or
+``buck/coul/long`` / ``lj/charmm/coul/long`` with ``kspace_style pppm``
+(ik) on a mesh aligned to the engine's cells; ``special_bonds``, harmonic
+bonds, harmonic or CHARMM angles, CHARMM dihedrals and harmonic impropers
+(examples/decks/buck.yaml, buck_big.yaml, cristobalite_pppm.yaml,
+rhodo_flex_nve.yaml, rhodo_flex_nvt.yaml).  Every other deck key or value
+raises NotImplementedError naming its ROADMAP item; nothing is ignored.  A relative ``read_data`` path
 resolves against the working directory, as in the JAX package.
 
 CLI:  python -m lammps_buck_intel_tpu_torch.run examples/decks/buck.yaml \
@@ -25,12 +27,6 @@ import torch
 _UNPORTED_KEYS = {
     "delete_atoms": "item 15",
     "regions": "item 15",
-    "special_bonds": "item 12",
-    "special_bonds_coul": "item 12",
-    "bond_style": "item 12",
-    "angle_style": "item 12",
-    "dihedral_style": "item 12",
-    "improper_style": "item 12",
     "exclude_intra": "item 13",
     "dump": "item 15",
     "write_data": "item 15",
@@ -42,7 +38,23 @@ _UNPORTED_KEYS = {
 }
 _KEYS = {"units", "precision", "timestep", "engine", "lattice", "mass",
          "read_data", "replicate", "velocity", "pair_style", "kspace_style",
-         "neighbor", "fixes", "thermo", "run", "cap"}
+         "neighbor", "fixes", "thermo", "run", "cap", "special_bonds",
+         "special_bonds_coul", "bond_style", "angle_style", "dihedral_style",
+         "improper_style"}
+# fix name -> (keys the port reads, ROADMAP item of an unported fix)
+_FIX_KEYS = {"nve": {"name"},
+             "nvt": {"name", "t_start", "t_stop", "t_damp", "tchain"}}
+_UNPORTED_FIXES = {
+    "shake": "item 12 (SHAKE/RATTLE, kernels K13)",
+    "rigid/small": "item 13 (rigid bodies, K15)",
+    "rigid/npt/small": "item 13 (rigid bodies, K15)",
+    "npt": "item 14 (NPT, K16)",
+}
+# bonded styles whose formula the kernels hard-code
+_BONDED_STYLES = {"bond": {"harmonic"}, "angle": {"harmonic", "charmm"},
+                  "dihedral": {"charmm"}, "improper": {"harmonic"}}
+_SPECIAL_SETS = {"charmm": ([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
+                 "amber": ([0.0, 0.0, 0.5], [0.0, 0.0, 1.0 / 1.2])}
 # kspace_style keys the port reads; "grid" (kspace_modify mesh) is left
 # out because the cell-pair engine aligns the mesh to its cells
 _KSPACE_KEYS = {"name", "accuracy", "order", "diff", "gewald"}
@@ -65,21 +77,33 @@ def _check_deck(cfg: dict):
             f"engine {engine!r} is not ported: ROADMAP queue 1 item 11 "
             "(nlist) / item 16 (slab); set engine: cellpair")
     for fx in cfg.get("fixes", [{"name": "nve"}]):
-        if fx.get("name") != "nve" or len(fx) > 1:
+        fn = fx.get("name")
+        if fn in _UNPORTED_FIXES:
             raise NotImplementedError(
-                f"fix {fx!r} is not ported: ROADMAP queue 1 items 9, 12-14")
+                f"fix {fn} is not ported: ROADMAP queue 1 "
+                f"{_UNPORTED_FIXES[fn]}")
+        if fn not in _FIX_KEYS or set(fx) - _FIX_KEYS[fn]:
+            raise NotImplementedError(
+                f"fix {fx!r} is not ported: nve and nvt (t_start, t_stop, "
+                "t_damp, tchain) only (ROADMAP queue 1)")
     if "lattice" not in cfg and "read_data" not in cfg:
         raise ValueError("deck needs read_data or lattice")
     name = cfg["pair_style"]["name"]
-    if name not in ("buck", "buck/coul/long"):
+    if name not in ("buck", "buck/coul/long", "lj/charmm/coul/long"):
         raise NotImplementedError(
-            f"pair_style {name!r} is not ported: buck and buck/coul/long "
-            "only (ROADMAP queue 1 item 10 coul/cut, items 12-13 lj/*)")
+            f"pair_style {name!r} is not ported: buck, buck/coul/long and "
+            "lj/charmm/coul/long only (ROADMAP queue 1 item 10 coul/cut, "
+            "item 13 lj/cut and */long dispersion)")
     ks = cfg.get("kspace_style")
     if (ks is None) != (name == "buck"):
         raise NotImplementedError(
             f"pair_style {name!r} with kspace_style {ks!r} is not ported: "
-            "buck runs without k-space, buck/coul/long with pppm")
+            "buck runs without k-space, the coul/long styles with pppm")
+    for kind, ok in _BONDED_STYLES.items():
+        style = cfg.get(f"{kind}_style", {}).get("name")
+        if style is not None and style not in ok:
+            raise NotImplementedError(
+                f"{kind}_style {style!r}: only {sorted(ok)} implemented")
     if ks is not None:
         extra = set(ks) - _KSPACE_KEYS
         if ks["name"] != "pppm" or extra:
@@ -101,28 +125,40 @@ def _device(device) -> torch.device:
 
 
 def _geometry(cfg: dict):
-    """Atoms of the deck: (x, lo, hi, typ, q, image, v0, mass) host numpy;
-    v0 None where the deck gives no velocities."""
+    """Atoms of the deck as a dict of host numpy arrays: x, lo, hi, typ,
+    q, image, v0 (None where the deck gives no velocities), mass, mol,
+    the four term tables (None without topology) and data_coeffs, the
+    data file's coefficient sections by kind."""
     from .io import lattice, read_data
 
     if "read_data" in cfg:
         d = read_data(cfg["read_data"])
-        x, lo, hi = d.x, d.box_lo, d.box_hi
         if d.tilt is not None and np.any(d.tilt != 0.0):
             raise NotImplementedError(
                 "triclinic data files are not ported: ROADMAP queue 1 "
                 "item 14")
-        typ, q, image, mass = d.type, d.q, d.image, d.mass
-        v0 = d.v if np.abs(d.v).any() else None
+        g = dict(x=d.x, lo=d.box_lo, hi=d.box_hi, typ=d.type, q=d.q,
+                 image=d.image, v0=d.v if np.abs(d.v).any() else None,
+                 mass=d.mass, mol=d.molecule, bonds=d.bonds, angles=d.angles,
+                 dihedrals=d.dihedrals, impropers=d.impropers,
+                 data_coeffs=dict(bond=d.bond_coeffs, angle=d.angle_coeffs,
+                                  dihedral=d.dihedral_coeffs,
+                                  improper=d.improper_coeffs,
+                                  pair=d.pair_coeffs))
         rep = cfg.get("replicate")
         if rep:
-            per_atom = {"type": typ, "q": q, "image": image}
-            if v0 is not None:
-                per_atom["v"] = v0
-            x, lo, hi, pa = lattice.replicate(x, lo, hi, tuple(rep),
-                                              per_atom=per_atom)
-            typ, q, image, v0 = pa["type"], pa["q"], pa["image"], pa.get("v")
-        return x, lo, hi, typ, q, image, v0, mass
+            per_atom = {"type": g["typ"], "q": g["q"], "image": g["image"]}
+            if g["v0"] is not None:
+                per_atom["v"] = g["v0"]
+            (g["x"], g["lo"], g["hi"], pa, g["bonds"], g["angles"],
+             g["dihedrals"], g["impropers"], g["mol"]) = lattice.replicate(
+                g["x"], g["lo"], g["hi"], tuple(rep), per_atom=per_atom,
+                bonds=g["bonds"], angles=g["angles"],
+                dihedrals=g["dihedrals"], impropers=g["impropers"],
+                molecule=g["mol"])
+            g.update(typ=pa["type"], q=pa["q"], image=pa["image"],
+                     v0=pa.get("v"))
+        return g
     if "replicate" in cfg:
         raise NotImplementedError(
             "replicate without read_data is not ported (the JAX package "
@@ -131,9 +167,93 @@ def _geometry(cfg: dict):
     x, lo, hi = lattice.create_atoms(
         lc.get("style", "fcc"), lc["density"], lc["nx"], lc["ny"], lc["nz"])
     n = len(x)
-    return (x, lo, hi, np.zeros(n, np.int32), np.zeros(n),
-            np.zeros((n, 3), np.int32), None,
-            np.asarray(cfg.get("mass", [1.0]), np.float64))
+    return dict(x=x, lo=lo, hi=hi, typ=np.zeros(n, np.int32), q=np.zeros(n),
+                image=np.zeros((n, 3), np.int32), v0=None,
+                mass=np.asarray(cfg.get("mass", [1.0]), np.float64),
+                mol=None, bonds=None, angles=None, dihedrals=None,
+                impropers=None, data_coeffs={})
+
+
+def _special_factors(cfg: dict):
+    """(special_lj, special_coul) 4-tuples from ``special_bonds``: a named
+    set (charmm, amber), a list of three weights (with an optional
+    ``special_bonds_coul`` list), or the keyword form {lj/coul | lj, coul}
+    where an unnamed channel keeps the LAMMPS default 0 0 0."""
+    sb = cfg.get("special_bonds", [1.0, 1.0, 1.0])
+    if isinstance(sb, str):
+        if sb not in _SPECIAL_SETS:
+            raise ValueError(f"unknown special_bonds set {sb!r}")
+        sb, sbc = _SPECIAL_SETS[sb]
+    elif isinstance(sb, dict):
+        both = sb.get("lj/coul")
+        sbc = both if both is not None else sb.get("coul", [0.0, 0.0, 0.0])
+        sb = both if both is not None else sb.get("lj", [0.0, 0.0, 0.0])
+    else:
+        sbc = cfg.get("special_bonds_coul", sb)
+    return ((1.0,) + tuple(float(v) for v in sb[:3]),
+            (1.0,) + tuple(float(v) for v in sbc[:3]))
+
+
+def _pair_style(cfg: dict, ntypes: int, data_pair: dict, qqrd2e: float):
+    from .models.pair import build_buck, build_lj_charmm
+
+    ps = cfg["pair_style"]
+    name = ps["name"]
+    special_lj, special_coul = _special_factors(cfg)
+    coeffs = {_parse_pair_key(k): tuple(v)
+              for k, v in ps.get("coeffs", {}).items()}
+    if name.startswith("lj/charmm"):
+        # per-type (eps, sigma[, eps14, sigma14]); the deck's over the data
+        # file's Pair Coeffs
+        lj = {i: c for (i, j), c in coeffs.items() if i == j}
+        if not lj and data_pair:
+            lj = {t: tuple(c) for t, c in data_pair.items()}
+        return build_lj_charmm(
+            ntypes, lj, inner=ps["inner"], cut_lj=ps["cut"], coul="long",
+            cut_coul=ps.get("cut_coul"), name=name, special_lj=special_lj,
+            special_coul=special_coul, qqrd2e=qqrd2e)
+    return build_buck(
+        ntypes, coeffs, cut_global=ps["cut"],
+        coul="long" if name == "buck/coul/long" else "none",
+        cut_coul=ps.get("cut_coul"), name=name, special_lj=special_lj,
+        special_coul=special_coul, qqrd2e=qqrd2e,
+        shift=ps.get("shift", False))
+
+
+def _bonded(cfg: dict, g: dict, style, qqrd2e: float):
+    """The deck's bonded tables (None without a ``*_style`` key): deck
+    coefficients over the data file's, the 1-4 terms of dihedral charmm
+    baked from the pair style's eps14/sig14."""
+    from .models.bonded import bake_charmm_14, make_bonded
+
+    kinds = ("bond", "angle", "dihedral", "improper")
+    if not any(cfg.get(f"{k}_style") for k in kinds):
+        return None
+    angle_style = cfg.get("angle_style", {}).get("name", "harmonic")
+
+    def table(kind: str, ncols: int):
+        deck = cfg.get(f"{kind}_style", {}).get("coeffs")
+        if deck:
+            return np.asarray(deck, np.float64)
+        rows = g["data_coeffs"].get(kind)
+        out = np.zeros((max(rows) + 1 if rows else 0, ncols))
+        for t, row in (rows or {}).items():
+            out[t, :min(ncols, len(row))] = row[:ncols]
+        return out
+
+    dc = table("dihedral", 4)
+    d14 = None
+    dihedrals = g["dihedrals"]
+    if (dihedrals is not None and len(dihedrals) and len(dc)
+            and style.eps14 is not None):
+        d14 = bake_charmm_14(dihedrals, dc, g["typ"], g["q"], style.eps14,
+                             style.sig14, qqrd2e)
+    return make_bonded(
+        bonds=g["bonds"], angles=g["angles"], bond_coeffs=table("bond", 2),
+        angle_coeffs=table("angle", 4 if angle_style == "charmm" else 2),
+        angle_style=angle_style, dihedrals=dihedrals,
+        impropers=g["impropers"], dihedral_coeffs=dc,
+        improper_coeffs=table("improper", 2), d14=d14)
 
 
 def _patch_aligned_smin(nc, L, skin, order):
@@ -182,11 +302,11 @@ def _pppm_for_grid(cfg: dict, box, q, style, prec, skin: float):
 
 def build_simulation(cfg: dict, device="cuda"):
     """Construct a CellPairSimulation from a deck config on ``device``."""
-    from .core import get_precision, get_units, make_box, make_system
-    from .integrate import CellPairSimulation, NeighborPolicy
+    from .core import (build_topology, get_precision, get_units, make_box,
+                       make_system)
+    from .integrate import CellPairSimulation, NeighborPolicy, NVTConfig
     from .io import velocity
     from .models.kspace import pppm_g_ewald
-    from .models.pair import build_buck
 
     dev = _device(device)
     _check_deck(cfg)
@@ -194,7 +314,8 @@ def build_simulation(cfg: dict, device="cuda"):
     prec = get_precision(cfg.get("precision", "single"))
     dt = cfg.get("timestep", u.dt)
 
-    x, lo, hi, typ, q, image, v0, mass = _geometry(cfg)
+    g = _geometry(cfg)
+    x, typ, q, mass, v0 = g["x"], g["typ"], g["q"], g["mass"], g["v0"]
     n = len(x)
     vel = cfg.get("velocity")
     if vel:
@@ -203,36 +324,45 @@ def build_simulation(cfg: dict, device="cuda"):
             dist=vel.get("dist", "gaussian"), rng=vel.get("rng", "numpy"),
             loop=vel.get("loop", "all"), coords=x)
 
-    box = make_box(lo, hi)
+    box = make_box(g["lo"], g["hi"])
+    bonds = g["bonds"]
+    topo = (build_topology(n, bonds=bonds, angles=g["angles"],
+                           dihedrals=g["dihedrals"],
+                           impropers=g["impropers"])
+            if bonds is not None and len(bonds) else None)
     ps = cfg["pair_style"]
-    coeffs = {_parse_pair_key(k): tuple(v)
-              for k, v in ps.get("coeffs", {}).items()}
-    coul = "long" if ps["name"] == "buck/coul/long" else "none"
-    style = build_buck(
-        len(mass), coeffs, cut_global=ps["cut"], coul=coul,
-        cut_coul=ps.get("cut_coul"), name=ps["name"],
-        special_lj=(1.0, 1.0, 1.0, 1.0), special_coul=(1.0, 1.0, 1.0, 1.0),
-        qqrd2e=u.qqrd2e, shift=ps.get("shift", False))
+    style = _pair_style(cfg, len(mass), g["data_coeffs"].get("pair"),
+                        u.qqrd2e)
     ks = cfg.get("kspace_style")
     if ks is not None:
-        g = ks.get("gewald")
-        if g is None:
-            g = pppm_g_ewald(box, q, ps.get("cut_coul", ps["cut"]),
-                             ks.get("accuracy", 1e-4), u.qqrd2e)
-        style = style.replace(g_ewald=float(g))
+        gew = ks.get("gewald")
+        if gew is None:
+            gew = pppm_g_ewald(box, q, ps.get("cut_coul", ps["cut"]),
+                               ks.get("accuracy", 1e-4), u.qqrd2e)
+        style = style.replace(g_ewald=float(gew))
+    bonded = _bonded(cfg, g, style, u.qqrd2e)
+
+    thermostat = None
+    for fx in cfg.get("fixes", [{"name": "nve"}]):
+        if fx["name"] == "nvt":
+            thermostat = NVTConfig(
+                t_start=fx["t_start"], t_stop=fx.get("t_stop", fx["t_start"]),
+                t_damp=fx["t_damp"], tchain=fx.get("tchain", 3))
 
     nb = cfg.get("neighbor", {})
     policy = NeighborPolicy(
         skin=nb.get("skin", u.skin), every=nb.get("every", 1),
         delay=nb.get("delay", 0), check=nb.get("check", True))
-    system = make_system(x, box, type=typ, v=v0, q=q, image=image, mass=mass,
-                         dtype=prec.flt, device=dev)
+    system = make_system(x, box, type=typ, v=v0, q=q, image=g["image"],
+                         mass=mass, molecule=g["mol"], dtype=prec.flt,
+                         device=dev)
     kspace = (None if ks is None
               else _pppm_for_grid(cfg, box, q, style, prec, policy.skin))
     try:
         return CellPairSimulation(
             system, style, units=u, precision=prec, dt=dt, neighbor=policy,
-            cap=int(cfg["cap"]) if cfg.get("cap") else None, kspace=kspace)
+            cap=int(cfg["cap"]) if cfg.get("cap") else None, kspace=kspace,
+            topology=topo, bonded=bonded, thermostat=thermostat)
     except ValueError as e:
         if "box too small" not in str(e):
             raise

@@ -105,6 +105,9 @@ def test_port_imports_no_jax():
         "import lammps_buck_intel_tpu_torch.ops.cellpair\n"
         "import lammps_buck_intel_tpu_torch.ops.rebin\n"
         "import lammps_buck_intel_tpu_torch.ops.pppm\n"
+        "import lammps_buck_intel_tpu_torch.ops.bonded\n"
+        "import lammps_buck_intel_tpu_torch.models.bonded\n"
+        "import lammps_buck_intel_tpu_torch.integrate.nvt\n"
         "import lammps_buck_intel_tpu_torch.models.kspace\n"
         "import lammps_buck_intel_tpu_torch.io.data_reader\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -128,6 +131,11 @@ def test_port_sources_name_no_jax():
                                             "lammps_buck_intel_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    names = {os.path.relpath(p, ROOT) for p in files}
+    pkg = "lammps_buck_intel_tpu_torch"
+    for new in ("models/bonded/harmonic.py", "models/bonded/charmm.py",
+                "ops/bonded.py", "integrate/nvt.py"):
+        assert os.path.join(pkg, new) in names, new
     for path in files:
         with open(path) as f:
             m = bad.search(f.read())
@@ -151,9 +159,10 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
     {"pair_style": {"name": "buck/coul/cut", "cut": 2.5,
                     "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
     {"replicate": [2, 2, 2]},
-    {"read_data": "examples/data.rhodo_class"},
+    {"fixes": [{"name": "npt", "t_start": 1.0, "t_damp": 0.1,
+                "iso": [0.0, 0.0, 1.0]}]},
     {"engine": "nlist"},
-    {"fixes": [{"name": "nvt", "t_start": 1.0, "t_damp": 0.1}]},
+    {"fixes": [{"name": "nvt", "t_start": 1.0, "t_damp": 0.1, "drag": 0.2}]},
     {"pair_style": {"name": "buck/coul/long", "cut": 2.5,
                     "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
     {"dump": {"file": "x.lammpstrj"}},
@@ -163,3 +172,104 @@ def test_unported_deck_raises(change):
     cfg.update(change)
     with pytest.raises(NotImplementedError):
         build_simulation(cfg, device="cpu")
+
+
+def _rhodo(name="rhodo_flex_nve.yaml"):
+    with open(os.path.join(DECKS, name)) as f:
+        cfg = yaml.safe_load(f)
+    cfg["read_data"] = os.path.join(ROOT, cfg["read_data"])
+    cfg["replicate"] = [1, 1, 1]
+    return cfg
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"fixes": [{"name": "shake", "m": 1.0, "tol": 1e-4}]}, "item 12.*K13"),
+    ({"fixes": [{"name": "rigid/small"}]}, "item 13"),
+    ({"fixes": [{"name": "npt", "t_start": 300.0, "t_damp": 50.0,
+                 "iso": [0.0, 0.0, 1000.0]}]}, "item 14"),
+    ({"kspace_style": {"name": "ewald", "accuracy": 1e-4}}, "item"),
+    ({"kspace_style": {"name": "pppm/disp", "accuracy": 1e-4}}, "item"),
+    ({"exclude_intra": True}, "item 13"),
+    ({"angle_style": {"name": "cosine/squared", "coeffs": [[1.0, 100.0]]}},
+     "angle_style"),
+    ({"dihedral_style": {"name": "opls", "coeffs": [[1.0, 1.0, 1.0, 1.0]]}},
+     "dihedral_style"),
+])
+def test_unported_molecular_deck_raises(change, match):
+    """The literal rhodo decks (fix shake) and their neighbours still
+    raise, naming the ROADMAP item."""
+    cfg = _rhodo()
+    cfg.update(change)
+    with pytest.raises(NotImplementedError, match=match):
+        build_simulation(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["rhodo_nve.yaml", "rhodo_32k.yaml",
+                                  "rhodo_class.yaml"])
+def test_literal_rhodo_decks_raise_for_shake(name):
+    with pytest.raises(NotImplementedError, match="shake.*K13"):
+        build_simulation(_rhodo(name), device="cpu")
+
+
+def test_flex_decks_differ_from_theirs_by_the_shake_fix_only():
+    for flex, orig in (("rhodo_flex_nve.yaml", "rhodo_nve.yaml"),
+                       ("rhodo_flex_nvt.yaml", "rhodo_32k.yaml")):
+        a, b = _rhodo(flex), _rhodo(orig)
+        fixes = [f for f in b.pop("fixes") if f["name"] != "shake"]
+        assert a.pop("fixes") == (fixes or [{"name": "nve"}])
+        assert a == b
+
+
+def test_special_bonds_forms():
+    from lammps_buck_intel_tpu_torch.run import _special_factors
+
+    assert _special_factors({"special_bonds": "charmm"}) == (
+        (1.0, 0.0, 0.0, 0.0), (1.0, 0.0, 0.0, 0.0))
+    assert _special_factors({"special_bonds": "amber"}) == (
+        (1.0, 0.0, 0.0, 0.5), (1.0, 0.0, 0.0, 1.0 / 1.2))
+    assert _special_factors({"special_bonds": [0.0, 0.5, 1.0]}) == (
+        (1.0, 0.0, 0.5, 1.0), (1.0, 0.0, 0.5, 1.0))
+    assert _special_factors({"special_bonds": [0.0, 0.0, 0.0],
+                             "special_bonds_coul": [0.0, 0.0, 0.5]})[1] \
+        == (1.0, 0.0, 0.0, 0.5)
+    assert _special_factors({"special_bonds": {"lj/coul": [0.0, 0.0, 0.5]}}) \
+        == ((1.0, 0.0, 0.0, 0.5), (1.0, 0.0, 0.0, 0.5))
+    assert _special_factors({"special_bonds": {"coul": [0.0, 0.0, 1.0]}}) == (
+        (1.0, 0.0, 0.0, 0.0), (1.0, 0.0, 0.0, 1.0))
+    assert _special_factors({}) == ((1.0,) * 4, (1.0,) * 4)
+    with pytest.raises(ValueError, match="special_bonds"):
+        _special_factors({"special_bonds": "opls"})
+
+
+def test_new_entry_points_default_to_the_card():
+    """Every entry point that places tensors defaults to the card; the
+    tests pass device="cpu"."""
+    import inspect
+
+    from lammps_buck_intel_tpu_torch import interop, run
+
+    for fn in (run.build_simulation, run.run_deck, tcore.make_system,
+               interop.slot_state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__name__
+    # make_special_table takes the device without a default: the engine
+    # passes its own
+    from lammps_buck_intel_tpu_torch.models.pair import make_special_table
+
+    assert inspect.signature(make_special_table).parameters[
+        "device"].default is inspect.Parameter.empty
+
+
+def test_thermostat_target_ramps_over_the_run():
+    cfg = _rhodo("rhodo_flex_nvt.yaml")
+    cfg["fixes"] = [{"name": "nvt", "t_start": 300.0, "t_stop": 400.0,
+                     "t_damp": 50.0}]
+    sim = build_simulation(cfg, device="cpu")
+    assert sim.thermostat.tchain == 3 and sim.state.therm.shape == (2, 3)
+    assert sim.thermostat.dt == 1.0 and sim.thermostat.boltz == sim.units.boltz
+    sim._run_total, sim._run_done = 100, 0
+    assert sim._t_target(ahead=50) == 350.0
+    sim._run_done = 50
+    assert sim._t_target(ahead=50) == 400.0 == sim._t_target(ahead=500)
+    sim._run_total = 0
+    assert sim._t_target() == 300.0

@@ -4,8 +4,9 @@
 package's on examples/data.cristobalite and on a small charge file with
 image flags and a Velocities section; the generator must reproduce the
 committed data file byte for byte, and its jittered copy (the card's
-force check) the same file every time; unported sections and styles
-raise.
+force check) the same file every time; the atomic atom style, PairIJ
+Coeffs and a tilted replicate raise (atom style full and the topology
+sections are in tests/test_torch_topology.py).
 """
 import os
 import subprocess
@@ -102,10 +103,15 @@ def test_replicate_identical(nrep, tmp_path):
 
 
 def test_replicate_topology_raises():
+    """A tilted box raises; a bond table is tiled with per-copy offsets."""
     d = tdata.read_data(CRISTOBALITE)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         tlattice.replicate(d.x, d.box_lo, d.box_hi, (2, 1, 1),
-                           bonds=np.array([[0, 0, 1]]))
+                           tilt=np.array([0.5, 0.0, 0.0]))
+    out = tlattice.replicate(d.x, d.box_lo, d.box_hi, (2, 1, 1),
+                             bonds=np.array([[0, 0, 1]]))
+    assert out[4].tolist() == [[0, 0, 1], [0, 1440, 1441]]
+    assert out[5] is None and out[8] is None
 
 
 def test_generator_reproduces_data_file(tmp_path):
@@ -143,12 +149,12 @@ def test_jittered_data_file(tmp_path):
 
 
 @pytest.mark.parametrize("body,match", [
-    ("\n2 atoms\n1 atom types\n1 bonds\n\n0 1 xlo xhi\n0 1 ylo yhi\n"
-     "0 1 zlo zhi\n", "topology"),
     ("\n1 atoms\n1 atom types\n\n0 1 xlo xhi\n0 1 ylo yhi\n0 1 zlo zhi\n"
-     "\nAtoms # full\n\n1 1 1 0.0 0.1 0.1 0.1\n", "atom style"),
+     "\nAtoms # atomic\n\n1 1 0.1 0.1 0.1\n", "atom style"),
     ("\n1 atoms\n1 atom types\n\n0 1 xlo xhi\n0 1 ylo yhi\n0 1 zlo zhi\n"
-     "\nPair Coeffs\n\n1 1.0 1.0\n", "section"),
+     "\nAtoms\n\n1 1 0.1 0.1 0.1 0 0 0\n", "atom style"),
+    ("\n1 atoms\n1 atom types\n\n0 1 xlo xhi\n0 1 ylo yhi\n0 1 zlo zhi\n"
+     "\nPairIJ Coeffs\n\n1 1 1.0 1.0\n", "section"),
 ])
 def test_unported_data_raises(body, match, tmp_path):
     path = tmp_path / "data.bad"

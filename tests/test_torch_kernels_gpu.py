@@ -197,3 +197,282 @@ def test_pppm_wrappers_reject_bad_input(cuda):
     rhat = torch.zeros((2, 2, 2), dtype=torch.complex64, device=cuda)
     with pytest.raises(ValueError):
         pppm_ops.spectral(c, rhat, False)
+
+
+# ---- the molecular path: examples/data.rhodo_class (1,728 atoms) ----
+
+PRECISIONS = [(torch.float32, torch.float32), (torch.float32, torch.float64),
+              (torch.float64, torch.float64)]
+
+
+def _rhodo(dev, flt):
+    """The rhodo-class box binned on the card with lj/charmm/coul/long,
+    its special table (non-trivial factors, so every code is seen), its
+    bonded style and the slot-of-atom map."""
+    import os
+
+    from lammps_buck_intel_tpu_torch.core import build_topology
+    from lammps_buck_intel_tpu_torch.io import read_data
+    from lammps_buck_intel_tpu_torch.models.bonded import (bake_charmm_14,
+                                                           make_bonded)
+    from lammps_buck_intel_tpu_torch.models.pair import (build_lj_charmm,
+                                                         make_special_table)
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = read_data(os.path.join(root, "examples", "data.rhodo_class"))
+    n = d.n_atoms
+    box = make_box(d.box_lo, d.box_hi)
+    grid = cs.make_grid(n, box.lengths, 12.0, cap=56)
+    t = lambda a, dt=flt: torch.as_tensor(a).to(dev, dt)  # noqa: E731
+    st = cs.from_atoms(grid, box, t(d.x), t(d.v), t(d.image, torch.int32),
+                       t(d.type, torch.int32), t(d.q), dtype=flt)
+    style = build_lj_charmm(
+        2, {0: (0.08, 3.6, 0.04, 3.4), 1: (0.025, 2.4, 0.02, 2.3)}, 8.0, 10.0,
+        special_lj=(1.0, 0.0, 0.5, 0.25), special_coul=(1.0, 0.0, 0.3, 0.8),
+        qqrd2e=332.06371).replace(g_ewald=0.25)
+    topo = build_topology(n, bonds=d.bonds, angles=d.angles,
+                          dihedrals=d.dihedrals, impropers=d.impropers)
+    table = make_special_table(topo.special_idx, topo.special_code, dev)
+    dc = np.array([[1.2, 3, 0.0, 0.5], [0.16, 1, 180.0, 1.0]])
+    bonded = make_bonded(
+        bonds=d.bonds, angles=d.angles, dihedrals=d.dihedrals,
+        impropers=d.impropers, bond_coeffs=[[300.0, 1.53], [340.0, 1.09]],
+        angle_coeffs=[[40.0, 117.0, 5.0, 2.64], [20.0, 105.0, 0.0, 0.0]],
+        angle_style="charmm", dihedral_coeffs=dc,
+        improper_coeffs=[[5.0, 158.0]],
+        d14=bake_charmm_14(d.dihedrals, dc, d.type, d.q, style.eps14,
+                           style.sig14, 332.06371))
+    inv = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    inv[st.aid.long()] = torch.arange(grid.nslots, dtype=torch.int32,
+                                      device=dev)
+    return grid, box, st, style, table, bonded, inv
+
+
+def _buck_special(style, coul):
+    """A 2-type Buckingham style in real units with the lj/charmm style's
+    special factors: the kernel's buck and buck/coul/long variants with a
+    partner table."""
+    buck = build_buck(2, {(0, 0): (9.0e4, 0.28, 600.0),
+                          (0, 1): (2.5e4, 0.27, 150.0),
+                          (1, 1): (4.0e3, 0.26, 30.0)}, cut_global=10.0,
+                      shift=True, coul="long" if coul else "none",
+                      qqrd2e=332.06371)
+    buck = buck.replace(special_lj=style.special_lj,
+                        special_coul=style.special_coul)
+    return buck.replace(g_ewald=0.25) if coul else buck
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+@pytest.mark.parametrize("vdw,special", [
+    ("ljcharmm", False), ("ljcharmm", True), ("buck", True),
+    ("buck/coul/long", True)])
+def test_cellpair_ljcharmm_special_kernel_matches_plain(cuda, flt, acc, vdw,
+                                                        special):
+    grid, box, st, style, table, _, _ = _rhodo(cuda, flt)
+    table = table if special else None
+    if vdw != "ljcharmm":
+        style = _buck_special(style, vdw == "buck/coul/long")
+    ftol, etol = (1e-11, 1e-11) if flt == torch.float64 else (1e-4, 1e-5)
+    before = ops.LAUNCHES["cellpair"]
+    k = compute_cellpair(style, grid, box, st, eflag=True, vflag=True,
+                         acc_dtype=acc, special=table)
+    p = compute_cellpair_plain(style, grid, box, st, eflag=True, vflag=True,
+                               acc_dtype=acc, special=table)
+    assert ops.LAUNCHES["cellpair"] == before + 1
+    fk, fp = (torch.stack([r.fx, r.fy, r.fz]) for r in (k, p))
+    assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+    for name in ("evdwl", "ecoul") if vdw != "buck" else ("evdwl",):
+        a, b = float(getattr(k, name)), float(getattr(p, name))
+        assert abs(b) > 1.0 and abs(a - b) <= etol * abs(b), name
+    assert float((k.virial - p.virial).abs().max()) <= \
+        etol * float(p.virial.abs().max())
+    if special:
+        bare = compute_cellpair(style, grid, box, st, acc_dtype=acc)
+        assert float((bare.fx - k.fx).abs().max()) > 1.0
+    f_only = compute_cellpair(style, grid, box, st, acc_dtype=acc,
+                              special=table)
+    assert float((f_only.fx - k.fx).abs().max()) <= ftol * float(
+        fp.abs().max())
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+@pytest.mark.parametrize("kernel", ["bonded_bond_angle", "dihedral_charmm",
+                                    "improper_harmonic", "all"])
+def test_bonded_kernels_match_plain(cuda, flt, acc, kernel):
+    """f64 to 1e-11; f32 forces 1e-4 of max|f| (the atomics' order of
+    arrival decides the last bit), energies and virial 1e-5.  The f32
+    improper is compared where the data sits: chi0 = 158 degrees keeps
+    every term away from the arccos clip."""
+    from lammps_buck_intel_tpu_torch.models.bonded import (
+        compute_bonded, compute_bonded_plain, make_bonded)
+
+    grid, box, st, _, _, b, inv = _rhodo(cuda, flt)
+    style = {
+        "bonded_bond_angle": make_bonded(
+            bonds=b.bonds, angles=b.angles, bond_coeffs=b.bond_coeffs,
+            angle_coeffs=b.angle_coeffs, angle_style="charmm"),
+        "dihedral_charmm": make_bonded(
+            dihedrals=b.dihedrals, dihedral_coeffs=b.dihedral_coeffs,
+            d14=b.d14),
+        "improper_harmonic": make_bonded(
+            impropers=b.impropers, improper_coeffs=b.improper_coeffs),
+        "all": b}[kernel]
+    ftol, etol = (1e-11, 1e-11) if flt == torch.float64 else (1e-4, 1e-5)
+    xs = (st.x, st.y, st.z)
+    names = (("bonded_bond_angle", "dihedral_charmm", "improper_harmonic")
+             if kernel == "all" else (kernel,))
+    before = {n: ops.LAUNCHES[n] for n in names}
+    k = compute_bonded(style, xs, box, eflag=True, acc_dtype=acc, inv=inv)
+    p = compute_bonded_plain(style, xs, box, eflag=True, acc_dtype=acc,
+                             inv=inv)
+    assert all(ops.LAUNCHES[n] == before[n] + 1 for n in names)
+    fk, fp = (torch.stack([r.fx, r.fy, r.fz]) for r in (k, p))
+    assert float(fp.abs().max()) > 1.0
+    assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+    for name in ("ebond", "eangle", "edihed", "eimp", "e14_lj", "e14_coul"):
+        a, ref = float(getattr(k, name)), float(getattr(p, name))
+        assert abs(a - ref) <= etol * abs(ref), name
+    assert float(p.emol) > 1.0
+    assert float((k.virial - p.virial).abs().max()) <= \
+        etol * float(p.virial.abs().max())
+    # force-only into the caller's planes: added, not overwritten
+    out = tuple(torch.ones_like(st.x, dtype=acc) for _ in range(3))
+    fo = compute_bonded(style, xs, box, eflag=False, acc_dtype=acc, inv=inv,
+                        out=out)
+    assert fo.fx is out[0] and float(fo.emol) == 0.0
+    assert float((torch.stack(out) - 1.0 - fp).abs().max()) <= \
+        max(ftol, 1e-6) * float(fp.abs().max())
+
+
+def test_bonded_wrapper_rejects_bad_input(cuda):
+    from lammps_buck_intel_tpu_torch.models.bonded import compute_bonded
+
+    grid, box, st, _, _, b, inv = _rhodo(cuda, torch.float32)
+    xs = (st.x, st.y, st.z)
+    with pytest.raises(TypeError):
+        compute_bonded(b, xs, box, acc_dtype=torch.float32, inv=inv.long())
+    with pytest.raises(TypeError):
+        compute_bonded(b, (st.x, st.y.double(), st.z), box,
+                       acc_dtype=torch.float32, inv=inv)
+    with pytest.raises(TypeError):
+        compute_bonded(b, xs, box, acc_dtype=torch.float32, inv=inv,
+                       out=tuple(torch.zeros_like(st.x, dtype=torch.float64)
+                                 for _ in range(3)))
+
+
+# ---- the integrator: csrc/verlet.cu ----
+
+
+def _slot_planes(dev, flt, acc, ns=5000, n=3100, seed=5):
+    """Random slot planes with empty slots (zero v, as the engine keeps
+    them), three masses, two acc-typed force sets."""
+    rng = np.random.default_rng(seed)
+    slot = rng.permutation(ns)[:n]
+    aid = np.full(ns, n, np.int32)
+    aid[slot] = np.arange(n)
+    typ = np.where(aid < n, rng.integers(0, 3, ns), 0).astype(np.int32)
+    occ = (aid < n)[None]
+
+    def planes(scale, dt, masked=True):
+        a = rng.normal(size=(3, ns)) * scale
+        a = a * occ if masked else a
+        return tuple(torch.as_tensor(a).to(dev, dt).contiguous())
+
+    xs, vs, fs = planes(5.0, flt, False), planes(5e-3, flt), planes(20., flt)
+    fa, fb = planes(20.0, acc), planes(3.0, acc)
+    mass_t = torch.as_tensor([12.011, 1.008, 15.9994]).to(dev, flt)
+    return dict(xs=xs, vs=vs, fs=fs, fa=fa, fb=fb, mass_t=mass_t,
+                minv_t=1.0 / mass_t, n=n,
+                typ=torch.as_tensor(typ).to(dev),
+                aid=torch.as_tensor(aid).to(dev))
+
+
+def _clone(planes):
+    return tuple(p.clone() for p in planes)
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+@pytest.mark.parametrize("with_fb", [False, True])
+def test_verlet_kernels_match_plain(cuda, flt, acc, with_fb):
+    """kick_drift and kick are built without FMA contraction and round
+    like the plain version: positions, velocities and forces to 1e-6 of
+    their magnitude in f32 (1e-14 in f64); the kinetic partials sum in
+    another order: rel 1e-5 in f32 acc, 1e-12 in f64."""
+    from lammps_buck_intel_tpu_torch.integrate import nve
+
+    d = _slot_planes(cuda, flt, acc)
+    tol = 1e-14 if flt == torch.float64 else 1e-6
+    stol = 1e-12 if acc == torch.float64 else 1e-5
+    dtf, dtv = 0.5 * 4.184e-4, 1.0
+    kx, kv, kf = _clone(d["xs"]), _clone(d["vs"]), _clone(d["fs"])
+    px, pv, pf = _clone(d["xs"]), _clone(d["vs"]), _clone(d["fs"])
+    tail = (d["typ"], d["aid"], d["minv_t"])
+    before = dict(ops.LAUNCHES)
+    nve.kick_drift(kx, kv, kf, *tail, d["n"], dtf, dtv)
+    nve.kick_drift_plain(px, pv, pf, *tail, d["n"], dtf, dtv)
+    fb = d["fb"] if with_fb else None
+    kp = nve.kick(kv, kf, d["fa"], fb, *tail, d["mass_t"], d["n"], dtf, acc,
+                  ke=True)
+    pp = nve.kick_plain(pv, pf, d["fa"], fb, *tail, d["mass_t"], d["n"], dtf,
+                        acc, True)
+    kk = nve.kinetic(kv, d["typ"], d["aid"], d["mass_t"], d["n"], acc)
+    for name in ("verlet_kick_drift", "verlet_kick", "verlet_ke"):
+        assert ops.LAUNCHES[name] == before[name] + 1
+    for a, b in ((kx, px), (kv, pv), (kf, pf)):
+        assert _close(torch.stack(a), torch.stack(b), tol)
+    assert not bool(torch.equal(torch.stack(kv), torch.stack(d["vs"])))
+    for part in (kp, kk):
+        assert part.shape[1] == 2 and part.dtype == acc
+        assert abs(float(part[:, 0].sum() - pp[:, 0].sum())) <= \
+            stol * float(pp[:, 0].sum())
+        assert abs(float(part[:, 1].max() - pp[:, 1].max())) <= \
+            tol * float(pp[:, 1].max())
+    assert nve.kick(kv, kf, d["fa"], fb, *tail, d["mass_t"], d["n"], 0.0,
+                    acc) is None
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+@pytest.mark.parametrize("tchain", [1, 3])
+def test_nhc_scale_kernel_matches_plain(cuda, flt, acc, tchain):
+    """The chain half step and the velocity scale against nhc_half's torch
+    ops on the card: chain and velocities rel 1e-5 in f32 (expf against
+    torch.exp, the kinetic sum in another order), 1e-11 in f64."""
+    from lammps_buck_intel_tpu_torch.integrate import nve, nvt
+
+    d = _slot_planes(cuda, flt, acc)
+    tol = 1e-11 if flt == torch.float64 else 1e-5
+    cfg = nvt.NVTConfig(t_start=300.0, t_stop=300.0, t_damp=50.0,
+                        tchain=tchain, dof=3 * d["n"] - 3,
+                        boltz=0.0019872067, mvv2e=2390.0573615334906, dt=1.0)
+    therm = torch.zeros((2, tchain), dtype=flt, device=cuda)
+    therm[0], therm[1] = 0.02, 1.5e-3
+    kv, pv = _clone(d["vs"]), _clone(d["vs"])
+    kt, pt = therm.clone(), therm.clone()
+    before = ops.LAUNCHES["nhc_scale"]
+    for _ in range(3):     # a chain in motion
+        args = (d["typ"], d["aid"], d["mass_t"], d["n"], acc)
+        kt = nvt.nhc_scale(cfg, kt, kv, nve.kinetic(kv, *args), 310.0)
+        pt = nvt.nhc_scale_plain(cfg, pt, pv, nve.kinetic_plain(pv, *args),
+                                 310.0)
+    assert ops.LAUNCHES["nhc_scale"] == before + 3
+    assert torch.equal(therm, torch.stack([torch.full_like(therm[0], 0.02),
+                                           torch.full_like(therm[1], 1.5e-3)]))
+    assert _close(kt, pt, tol) and not _close(pt, therm, 1e-3)
+    assert _close(torch.stack(kv), torch.stack(pv), tol)
+    assert not _close(torch.stack(pv), torch.stack(d["vs"]), 1e-4)
+
+
+def test_verlet_wrappers_reject_bad_input(cuda):
+    from lammps_buck_intel_tpu_torch.integrate import nve
+
+    d = _slot_planes(cuda, torch.float32, torch.float32)
+    tail = (d["typ"], d["aid"], d["minv_t"])
+    with pytest.raises(TypeError):
+        nve.kick_drift(d["xs"], d["vs"], d["fs"][:2] + (d["fs"][2].double(),),
+                       *tail, d["n"], 1e-4, 1.0)
+    with pytest.raises(ValueError):
+        nve.kick_drift(d["xs"], d["vs"], d["fs"], d["typ"][:-1], d["aid"],
+                       d["minv_t"], d["n"], 1e-4, 1.0)
+    with pytest.raises(TypeError):
+        nve.kick(d["vs"], d["fs"], d["fa"], None, *tail, d["mass_t"], d["n"],
+                 1e-4, torch.float64)

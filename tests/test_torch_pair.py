@@ -5,8 +5,11 @@ f64 on the CPU, where the port runs the plain versions of its kernels:
 Newton) against the JAX half-stencil Newton kernel to 1e-10 — forces as
 max|df| <= 1e-10 max|f| in atom order, evdwl, ecoul and virial relative.
 The two differ only in summation order.  Both for buck and for
-buck/coul/long on a charged system (Ewald real space, A&S erfc);
-buck/coul/cut and special-bond factors other than 1 raise.
+buck/coul/long on a charged system (Ewald real space, A&S erfc), and for
+lj/charmm/coul/long with special bonds (the energy switch on both sides of
+the inner cutoff, the subtractive Coulomb special) on the 1,728-atom
+rhodo-class box; buck/coul/cut, Ewald dispersion and the lj/cut family
+raise.
 """
 import numpy as np
 import pytest
@@ -231,11 +234,198 @@ def test_unported_coulomb_raises():
         tstyles.build_buck(1, COEFFS_1, cut_global=2.5, coul="cut")
     with pytest.raises(NotImplementedError, match="item 13"):
         tstyles.build_buck(1, COEFFS_1, cut_global=2.5, disp="long")
+    # styles the JAX package has and the port does not
     _, t = _coul_styles(1)
     rsq = torch.full((4,), 2.0, dtype=torch.float64)
     coef = {n: float(t.tables[0, 0, c])
             for c, n in enumerate(tstyles.COEF_NAMES)}
-    for f_lj, f_coul in ((0.5, 1.0), (1.0, 0.0)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tstyles.pair_terms(t, rsq, coef, 1.0, -1.0, f_lj, f_coul,
+    for vdw, coul, disp in (("lj", "long", "cut"), ("buck", "cut", "cut"),
+                            ("buck", "long", "long"),
+                            ("ljcharmm", "none", "cut")):
+        bad = t.replace(cfg=tstyles.PairConfig("x", vdw, coul, disp))
+        with pytest.raises(NotImplementedError):
+            tstyles.pair_terms(bad, rsq, coef, 1.0, -1.0, 1.0, 1.0,
                                eflag=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tstyles.build_lj_charmm(1, {0: (0.1, 3.0)}, 8.0, 10.0, coul="cut")
+    assert not hasattr(tstyles, "build_lj")
+
+
+# lj/charmm/coul/long as the rhodo-class decks set it
+CHARMM = dict(coeffs={0: (0.08, 3.6, 0.04, 3.4), 1: (0.025, 2.4, 0.02, 2.3)},
+              inner=8.0, cut_lj=10.0, cut_coul=10.0,
+              special_lj=(1.0, 0.0, 0.5, 0.25),
+              special_coul=(1.0, 0.0, 0.3, 0.8), qqrd2e=332.06371)
+
+
+def _charmm_styles(**kw):
+    args = dict(CHARMM, **kw)
+    coeffs = args.pop("coeffs")
+    inner, cut = args.pop("inner"), args.pop("cut_lj")
+    j = jstyles.build_lj_charmm(2, coeffs, inner, cut, **args)
+    t = tstyles.build_lj_charmm(2, coeffs, inner, cut, **args)
+    return j.replace(g_ewald=0.25), t.replace(g_ewald=0.25)
+
+
+def _charmm_to_port(j):
+    cfg = j.cfg
+    return pair_style_from_numpy(
+        j.tables, j.special_lj, j.special_coul, j.qqrd2e, j.g_ewald,
+        j.cutsq_max, dict(name=cfg.name, vdw=cfg.vdw, coul=cfg.coul,
+                          disp=cfg.disp),
+        inner_sq=j.inner_sq, denom_lj=j.denom_lj, eps14=j.eps14,
+        sig14=j.sig14)
+
+
+def test_build_lj_charmm_identical():
+    j, t = _charmm_styles()
+    p = _charmm_to_port(j)
+    for s in (t, p):
+        assert np.array_equal(j.tables, s.tables) and s.cfg.vdw == "ljcharmm"
+        for f in ("cutsq_max", "inner_sq", "denom_lj", "qqrd2e", "g_ewald"):
+            assert getattr(j, f) == getattr(s, f), f
+        for f in ("eps14", "sig14", "special_lj", "special_coul"):
+            assert np.array_equal(getattr(j, f), getattr(s, f)), f
+    # eps14 / sig14 default to eps / sigma
+    j2, t2 = _charmm_styles(coeffs={0: (0.08, 3.6), 1: (0.025, 2.4)})
+    assert np.array_equal(j2.eps14, t2.eps14) and t2.sig14[1] == 2.4
+
+
+@pytest.mark.parametrize("special", [False, True])
+def test_pair_terms_ljcharmm_matches_jax(special):
+    j, t = _charmm_styles()
+    rng = np.random.default_rng(17)
+    # both sides of inner_sq = 64 and of the cutoff 100; short 1-2 distances
+    rsq = np.concatenate([rng.uniform(1.0, 120.0, 4000),
+                          [63.999, 64.0, 64.001, 99.999, 100.0, 100.001]])
+    qi, qj = rng.uniform(-0.5, 0.5, (2, rsq.size))
+    tt = rng.integers(0, 4, size=rsq.shape)
+    flat = j.tables.reshape(4, -1)
+    jcoef = {n: jnp.asarray(flat[tt, c])
+             for c, n in enumerate(jstyles.COEF_NAMES)}
+    tcoef = {n: torch.as_tensor(flat[tt, c])
+             for c, n in enumerate(tstyles.COEF_NAMES)}
+    if special:
+        code = rng.integers(0, 4, size=rsq.shape)
+        jfac = (jnp.asarray(j.special_lj[code]),
+                jnp.asarray(j.special_coul[code]))
+        tfac = (torch.as_tensor(t.special_lj[code]),
+                torch.as_tensor(t.special_coul[code]))
+    else:
+        jfac = tfac = (1.0, 1.0)
+    jout = jstyles.pair_terms(j, jnp.asarray(rsq), jcoef, jnp.asarray(qi),
+                              jnp.asarray(qj), *jfac, eflag=True)
+    tout = tstyles.pair_terms(t, torch.as_tensor(rsq), tcoef,
+                              torch.as_tensor(qi), torch.as_tensor(qj),
+                              *tfac, eflag=True)
+    assert float(np.abs(np.asarray(jout[1])[-2:]).max()) == 0.0   # cut, strict
+    for a, b in zip(jout, tout):
+        a = np.asarray(a)
+        assert np.abs(a).max() > 1e-3
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-12,
+                                   atol=1e-12 * np.abs(a).max())
+    # force-only: no energies
+    assert tstyles.pair_terms(t, torch.as_tensor(rsq), tcoef,
+                              torch.as_tensor(qi), torch.as_tensor(qj),
+                              *tfac, eflag=False)[1:] == (None, None)
+
+
+def _rhodo_slots():
+    """The 1,728-atom rhodo-class box binned by the JAX package."""
+    import os
+
+    from lammps_buck_intel_tpu.io import read_data as jread
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = jread(os.path.join(root, "examples", "data.rhodo_class"))
+    n = d.n_atoms
+    box = jmake_box(d.box_lo, d.box_hi)
+    grid = jcs.make_grid(n, box.lengths, 12.0, cap=56)
+    jst = jcs.from_atoms(grid, box, d.x, np.zeros_like(d.x), d.image, d.type,
+                         d.q, dtype=jnp.float64)
+    assert not bool(jst.overflow) and grid.nc == (4, 4, 4)
+    aid = np.minimum(np.asarray(jst.aid), n)
+    planes = {k: np.asarray(v) for k, v in
+              jax.device_get(jst._asdict()).items() if v is not None}
+    tst = slot_state_from_numpy(planes, device="cpu")
+    tgrid = tcs.CellGrid(nc=grid.nc, cap=grid.cap, n_atoms=n)
+    return d, n, box, grid, jst, aid, tst, tgrid
+
+
+def test_uniform_special_topology_takes_the_partner_table():
+    """Molecules whose every intramolecular pair is special with one factor
+    pair (SPC/E-class): the JAX package swaps the partner match for a
+    molecule-id compare, a faster way to the same numbers; the port keeps
+    the partner table."""
+    from lammps_buck_intel_tpu.core import build_topology as jbuild
+
+    d, n, box, grid, jst, aid, tst, tgrid = _rhodo_slots()
+    mol = np.asarray(d.molecule)
+    members = [np.nonzero(mol == m)[0] for m in np.unique(mol)]
+    bonds = np.array([[0, i, j] for a in members for k, i in enumerate(a)
+                      for j in a[k + 1:]], np.int32)
+    topo = jbuild(n, bonds=bonds)
+    assert topo.special_idx.shape == (n, 7)
+    assert set(np.unique(topo.special_code)) == {1}
+    jstyle, _ = _charmm_styles()
+    f_lj, f_coul = (float(np.asarray(t)[1])
+                    for t in (jstyle.special_lj, jstyle.special_coul))
+    jr = jcellpair.compute_cellpair(
+        jstyle, grid, box, jst, eflag=True, vflag=True,
+        acc_dtype=jnp.float64, uniform_special=(f_lj, f_coul),
+        slot_umol=jnp.asarray(np.concatenate([mol, [-1]])[aid], jnp.int32))
+    table = tcellpair.make_special_table(topo.special_idx, topo.special_code,
+                                         "cpu")
+    tr = tcellpair.compute_cellpair(
+        _charmm_to_port(jstyle), tgrid, box, tst, eflag=True, vflag=True,
+        acc_dtype=torch.float64, special=table)
+    fj = _atom_order(aid, n, jr.fx, jr.fy, jr.fz)
+    ft = _atom_order(aid, n, tr.fx, tr.fy, tr.fz)
+    assert np.abs(ft - fj).max() <= 1e-10 * np.abs(fj).max()
+    for name in ("evdwl", "ecoul"):
+        ej = float(getattr(jr, name))
+        assert abs(float(getattr(tr, name)) - ej) <= 1e-10 * abs(ej), name
+
+
+def test_compute_cellpair_special_matches_jax():
+    """lj/charmm/coul/long with the 1-2/1-3/1-4 partner table on the
+    1,728-atom rhodo-class box: the JAX package matches per-slot partner
+    ids, the port reads the atom-order table through the slot's atom."""
+    from lammps_buck_intel_tpu.core import build_topology as jbuild
+
+    d, n, box, grid, jst, aid, tst, tgrid = _rhodo_slots()
+    topo = jbuild(n, bonds=d.bonds, angles=d.angles, dihedrals=d.dihedrals,
+                  impropers=d.impropers)
+    S = topo.special_idx.shape[1]
+    assert S == 7
+    sp_idx = np.concatenate([topo.special_idx, np.full((1, S), -1)])[aid]
+    sp_code = np.concatenate([topo.special_code, np.zeros((1, S))])[aid]
+    jstyle, _ = _charmm_styles()
+    jr = jcellpair.compute_cellpair(
+        jstyle, grid, box, jst, eflag=True, vflag=True,
+        acc_dtype=jnp.float64,
+        slot_special_idx=jnp.asarray(sp_idx, jnp.int32),
+        slot_special_code=jnp.asarray(sp_code, jnp.int8))
+    plain = jcellpair.compute_cellpair(jstyle, grid, box, jst, eflag=True,
+                                       acc_dtype=jnp.float64)
+    table = tcellpair.make_special_table(topo.special_idx, topo.special_code,
+                                         "cpu")
+    assert table.width == S and table.idx.shape == (n + 1, S)
+    tr = tcellpair.compute_cellpair(
+        _charmm_to_port(jstyle), tgrid, box, tst, eflag=True, vflag=True,
+        acc_dtype=torch.float64, special=table)
+    fj = _atom_order(aid, n, jr.fx, jr.fy, jr.fz)
+    ft = _atom_order(aid, n, tr.fx, tr.fy, tr.fz)
+    assert np.abs(ft - fj).max() <= 1e-10 * np.abs(fj).max()
+    for name in ("evdwl", "ecoul"):
+        ej = float(getattr(jr, name))
+        # the specials matter: without them the energies are far off
+        assert abs(ej - float(getattr(plain, name))) > 1e-2 * abs(ej), name
+        assert abs(float(getattr(tr, name)) - ej) <= 1e-10 * abs(ej), name
+    vj = np.asarray(jr.virial)
+    np.testing.assert_allclose(tr.virial.numpy(), vj, rtol=1e-10,
+                               atol=1e-10 * np.abs(vj).max())
+    # an empty partner table is no table
+    assert tcellpair.make_special_table(np.zeros((n, 0), np.int32),
+                                        np.zeros((n, 0), np.int8),
+                                        "cpu") is None

@@ -12,6 +12,15 @@ copy of examples/data.cristobalite (1,440 atoms) with cutoff 5.0 and
 skin 0.5 (cells 5x6x3), 20 steps in double: thermo rows (temp, epair,
 elong, etotal, press) rel 1e-9 and final unwrapped positions 1e-9; both
 packages solve on the same mesh with the same g_ewald.
+
+rhodo_flex_nve.yaml and rhodo_flex_nvt.yaml (lj/charmm/coul/long with
+special bonds, PPPM order 5, bonds, CHARMM angles, dihedrals with 1-4
+terms, impropers) on one copy of examples/data.rhodo_class (1,728 atoms,
+4 cells per axis, so both packages run the cell engine), 10 steps in
+double: every thermo field (temp, evdwl, ecoul, elong, emol, press,
+etotal) rel 1e-9 and unwrapped positions 1e-9 A.  The NVE run crosses a
+rebin (every 5); the NVT run is cut in two by a forced capacity grow, so
+the slot-of-atom map and the thermostat chain are seen to survive both.
 """
 import os
 
@@ -153,3 +162,76 @@ def test_initial_force_includes_kspace():
     assert np.abs(k_only).max() > 1e-2
     np.testing.assert_allclose(f, want, rtol=0,
                                atol=1e-12 * np.abs(want).max())
+
+
+RHODO_FIELDS = ("temp", "evdwl", "ecoul", "elong", "emol", "press", "etotal")
+
+
+def _rhodo_cfg(name):
+    with open(os.path.join(DECKS, name)) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(read_data=os.path.join(ROOT, cfg["read_data"]),
+               replicate=[1, 1, 1], run=10, thermo=5, precision="double")
+    return cfg
+
+
+def _assert_rows(jrows, trows, steps):
+    assert [r["step"] for r in trows] == [r["step"] for r in jrows] == steps
+    for jr, tr in zip(jrows, trows):
+        for key in RHODO_FIELDS:
+            assert abs(jr[key]) > 1e-3, key
+            assert abs(tr[key] - jr[key]) <= 1e-9 * abs(jr[key]), \
+                (jr["step"], key, tr[key], jr[key])
+
+
+def test_rhodo_flex_nve_deck_matches_jax(monkeypatch):
+    blocks = []
+    block = CellPairSimulation._block
+
+    def counted(self, state, nsteps):
+        blocks.append(nsteps)
+        return block(self, state, nsteps)
+
+    monkeypatch.setattr(CellPairSimulation, "_block", counted)
+    cfg = _rhodo_cfg("rhodo_flex_nve.yaml")
+    jsim, jrows = jax_run_deck(dict(cfg), log=False)
+    tsim, trows = run_deck(dict(cfg), device="cpu", log=False)
+    assert tsim.n_atoms == 1728 and tsim.grid.nc == tuple(jsim.grid.nc) \
+        == (4, 4, 4)
+    assert blocks == [5, 5]          # a rebin at step 5
+    assert tsim.special.width == 7 and tsim.thermostat is None
+    assert tsim.state.therm is None
+    pm, jpm = tsim.kspace.pm, jsim.kspace.pm
+    assert pm.grid == tuple(jpm.grid) and pm.order == 5
+    assert pm.g_ewald == jpm.g_ewald == tsim.pair.g_ewald
+    _assert_rows(jrows, trows, [0, 5, 10])
+    assert np.abs(_unwrapped(tsim) - _unwrapped(jsim)).max() <= 1e-9
+    # NVE: the flexible deck conserves energy
+    assert abs(trows[-1]["etotal"] - trows[0]["etotal"]) < 1.0
+
+
+def test_rhodo_flex_nvt_deck_matches_jax_across_a_capacity_grow():
+    from lammps_buck_intel_tpu.run import build_simulation as jax_build
+
+    cfg = _rhodo_cfg("rhodo_flex_nvt.yaml")
+    jsim = jax_build(dict(cfg))
+    tsim = build_simulation(dict(cfg), device="cpu")
+    assert tsim.thermostat.dof == jsim.thermostat.dof == 3 * 1728 - 3
+    assert tsim.thermostat.tchain == 1
+    jrows, trows = [], []
+    for sim, rows, kw in ((jsim, jrows, {}), (tsim, trows, {})):
+        rows += sim.run(5, thermo_every=5, log=False, **kw)
+        cap = sim.grid.cap
+        sim._grow_capacity()
+        assert sim.grid.cap > cap
+        rows += sim.run(5, thermo_every=5, log=False)[1:]
+    assert tsim.grows == 1 and tsim.grid.cap == jsim.grid.cap
+    assert tsim.state.x.shape[0] == tsim.grid.nslots
+    _assert_rows(jrows, trows, [0, 5, 10])
+    assert np.abs(_unwrapped(tsim) - _unwrapped(jsim)).max() <= 1e-9
+    jtherm = np.asarray(jsim.state.therm)
+    ttherm = tsim.state.therm.numpy()
+    assert ttherm.shape == jtherm.shape == (2, 1) and abs(jtherm[0, 0]) > 1e-4
+    assert np.abs(ttherm - jtherm).max() <= 1e-9 * np.abs(jtherm).max()
+    # the thermostat does work: NVT's etotal moves where NVE's holds
+    assert abs(trows[-1]["etotal"] - trows[0]["etotal"]) > 1.0

@@ -1,13 +1,14 @@
-"""Time the port's buck path in one source tree, for A/B runs on one card.
+"""Time the port's atomic paths in one source tree, for A/B runs on one card.
 
     python tools/torch_ab.py [--root DIR] [--reps 50]
 
 Imports ``lammps_buck_intel_tpu_torch`` from DIR (default: this
 checkout) and prints one JSON line: the cell-pair kernel's force-only
-f32 time at buck_big.yaml's grid (median of --reps CUDA-event timed
-calls) and the ms/step of buck.yaml (100 steps) and buck_big.yaml (200
-steps) through run_deck (the second of two runs), with the card's name
-and power limit.  Run two trees in turns on one card, one after the
+f32 time at buck_big.yaml's grid (the buck variant) and at
+cristobalite_pppm.yaml's (the coul/long variant), each the median of
+--reps CUDA-event timed calls, and the ms/step of buck.yaml (100 steps),
+buck_big.yaml (200 steps) and cristobalite_pppm.yaml (100 steps) through
+run_deck (the second of two runs), with the card's name and power limit.  Run two trees in turns on one card, one after the
 other in the same job (A, B, B, A), to compare them.
 """
 import argparse
@@ -39,29 +40,37 @@ def main(argv=None):
 
     def deck(name, **kw):
         with open(os.path.join(root, "examples", "decks", name)) as f:
-            return dict(yaml.safe_load(f), **kw)
+            cfg = dict(yaml.safe_load(f), **kw)
+        if "read_data" in cfg:
+            cfg["read_data"] = os.path.join(root, cfg["read_data"])
+        return cfg
 
-    sim = build_simulation(deck("buck_big.yaml"), device="cuda")
-    st = sim.state
+    def k1_ms(name):
+        sim = build_simulation(deck(name), device="cuda")
+        st = sim.state
 
-    def call():
-        return compute_cellpair(sim.pair, sim.grid, sim.box, st,
-                                acc_dtype=torch.float32)
+        def call():
+            return compute_cellpair(sim.pair, sim.grid, sim.box, st,
+                                    acc_dtype=torch.float32)
 
-    call()
-    times = []
-    for _ in range(args.reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         call()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    del sim, st
-    out = {"root": os.path.relpath(root), "k1_buck_big_ms":
-           float(np.median(times))}
-    for name, steps in (("buck.yaml", 100), ("buck_big.yaml", 200)):
+        times = []
+        for _ in range(args.reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            call()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    out = {"root": os.path.relpath(root),
+           "k1_buck_big_ms": k1_ms("buck_big.yaml"),
+           "k1_cristobalite_ms": k1_ms("cristobalite_pppm.yaml")}
+    torch.cuda.empty_cache()
+    for name, steps in (("buck.yaml", 100), ("buck_big.yaml", 200),
+                        ("cristobalite_pppm.yaml", 100)):
         # the first run of a process pays torch's first launches
         for _ in range(2):
             s, _ = run_deck(deck(name, run=steps, thermo=steps),
