@@ -6,7 +6,7 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: nvcc builds csrc/cellpair.cu, csrc/rebin.cu, csrc/pppm.cu,
-     csrc/bonded.cu and csrc/verlet.cu from the checkout into
+     csrc/bonded.cu, csrc/verlet.cu and csrc/shake.cu from the checkout into
      lammps_buck_intel_tpu_torch/_build/, one nvcc per source, all started
      together;
   3. K1, the cell-pair kernel, against its plain torch version on the card
@@ -23,9 +23,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   6. cristobalite_pppm.yaml in f64 at 11,520 atoms on a jittered copy of
      its crystal against the JAX package's f64 record: step-0 forces,
      thermo at steps 0 and 10, positions at step 10;
-  7. the main paths through run_deck on the card in f32, launch counts
-     set to 0 just before each and read just after: buck.yaml (32,000
-     atoms, 100 steps), buck_big.yaml (192,000 atoms, 1000 steps) and
+  7. the main paths through build_simulation and run on the card in
+     f32, launch counts set to 0 just before each and read just after:
+     buck.yaml (32,000 atoms, 100 steps), buck_big.yaml (192,000 atoms,
+     1000 steps) and
      cristobalite_pppm.yaml (259,200 atoms, buck/coul/long + PPPM order 7,
      100 steps): step-0 thermo against the recorded JAX rows (and the
      reciprocal part of elong), energy drift within the gates, every
@@ -45,7 +46,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      recorded gate, NVT's temperature rows against the JAX package's own
      f32 NVT run of one copy; the NVE deck at replicate [6, 6, 4] (248,832
      atoms), with the launch counts that the kernels line reports for the
-     molecular path's kernels.
+     molecular path's kernels;
+  9. the literal rhodo decks, SHAKE/RATTLE (K13): the four constraint
+     kernels (reference bond vectors, positions, RATTLE, virial) against
+     their plain versions on synthetic clusters of C = 1, 3 and 12 and on
+     rhodo_nve.yaml's C-H clusters at 31,104 and 248,832 atoms, f32 and
+     f64, timed at the larger size; rhodo_nve.yaml and rhodo_class.yaml in
+     f64 at 1,728 atoms against the JAX package's f64 record
+     (tests/goldens/torch_rhodo_shake.json: forces, rows, positions, the
+     chain, the constraint violation); rhodo_nve.yaml in full (31,104
+     atoms, 100 steps) against long_rhodo_nve.json's step-0 row and drift
+     gate, rhodo_32k.yaml's temperature rows against the JAX package's own
+     f32 NVT + SHAKE run of one copy, rhodo_nve.yaml at replicate [6, 6,
+     4]; the constraints within the decks' tol at every thermo row, and
+     the K13 launch counts of that last run in the kernels line.
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -59,11 +73,14 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
 
 from lammps_buck_intel_tpu_torch import ops
+from lammps_buck_intel_tpu_torch.integrate import shake
+from lammps_buck_intel_tpu_torch.integrate.shake import max_violation
 from lammps_buck_intel_tpu_torch.models.bonded import (compute_bonded,
                                                        compute_bonded_plain,
                                                        make_bonded)
@@ -75,7 +92,7 @@ from lammps_buck_intel_tpu_torch.models.pair.cellpair import (
 from lammps_buck_intel_tpu_torch.neighbor import cell_slots as cs
 from lammps_buck_intel_tpu_torch.ops import build
 from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
-from lammps_buck_intel_tpu_torch.run import build_simulation, run_deck
+from lammps_buck_intel_tpu_torch.run import build_simulation
 from lammps_buck_intel_tpu_torch.utils import device_trace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -693,20 +710,45 @@ def phase_jittered(golden: dict, device="cuda"):
                              f"{bad}")
 
 
+def shake_violation(sim) -> float:
+    """max |r^2/d^2 - 1| over the constraints of the engine's state, in
+    f64 on the card (atom-order positions through the slot-of-atom map)."""
+    st = sim.state
+    inv = sim._inv_map(st).long()[:sim.n_atoms]
+    x = torch.stack([p.double()[inv] for p in (st.x, st.y, st.z)], -1)
+    return float(max_violation(sim.shake, x, sim.box.lengths))
+
+
 def phase_deck(name: str, golden: dict, thermo: int, kernels: tuple,
                drift_gate, replicate=None, temp_ref=None):
-    """One main path through run_deck: launch counts set to 0 just
-    before, read just after.  drift_gate None (a thermostatted deck)
-    leaves the energy drift ungated; temp_ref = ({step: temp}, rtol)
-    holds the temperature of every row to a recorded trajectory.
-    Returns the launch counts and the run's ms per step."""
+    """One main path, build_simulation and sim.run as run_deck calls them:
+    launch counts set to 0 just before, read just after.  drift_gate None
+    (a thermostatted deck) leaves the energy drift ungated; temp_ref =
+    ({step: temp}, rtol) holds the temperature of every row to a recorded
+    trajectory.  With fix shake every thermo row also measures the
+    constraint violation max |r^2/d^2 - 1| (``shake_violation``), gated at
+    the deck's tol.  Returns the launch counts, the run's ms per step and
+    the step-0 row."""
     cfg = load_deck(name)
     cfg["thermo"] = thermo
     if replicate is not None:
         cfg["replicate"] = list(replicate)
         name = f"{name} x{'x'.join(map(str, replicate))}"
     ops.reset_launches()
-    sim, rows = run_deck(cfg, device="cuda", log=False)
+    sim = build_simulation(cfg, device="cuda")
+    viol, probe_s = [], [0.0]
+    if sim.shake is not None:
+        thermo_row = sim.thermo
+
+        def thermo_with_violation():
+            row = thermo_row()
+            t0 = time.perf_counter()
+            viol.append(shake_violation(sim))
+            probe_s[0] += time.perf_counter() - t0
+            return row
+
+        sim.thermo = thermo_with_violation
+    rows = sim.run(int(cfg["run"]), thermo_every=thermo, log=False)
     ran = dict(ops.LAUNCHES)
     for k in kernels:
         if ran[k] <= 0:
@@ -731,6 +773,16 @@ def phase_deck(name: str, golden: dict, thermo: int, kernels: tuple,
     if drift_gate is not None and not drift <= drift_gate:
         raise AssertionError(f"{name}: drift {drift:.3e}/atom > gate "
                              f"{drift_gate}")
+    if sim.shake is not None:
+        tol = next(f["tol"] for f in cfg["fixes"] if f["name"] == "shake")
+        print(f"[deck] {name}: {sim.shake.n_constraints} constraints, dof "
+              f"{sim.dof}; violation max|r^2/d^2 - 1| " + ", ".join(
+                  f"{v:.3e} @ {r['step']}" for v, r in zip(viol, rows))
+              + f" (gate {tol}); the probes took {1e3 * probe_s[0]:.1f} ms "
+              "of the run")
+        if len(viol) != len(rows) or not max(viol) <= tol:
+            raise AssertionError(f"{name}: constraint violation {viol} over "
+                                 f"the deck's tol {tol}")
     for r in rows:
         for k in ("temp", "epair", "emol", "etotal", "press"):
             if not np.isfinite(r[k]):
@@ -1080,11 +1132,14 @@ def _rhodo_kernels_at(sim, prec, replicate, out):
         out.update(_verlet_time(sim, st, errs, work))
 
 
-def phase_rhodo_record(golden: dict, which: str):
-    """A flexible rhodo deck in f64 on one copy of the data file (1,728
-    atoms, every term non-zero) against the JAX package's f64 record:
-    step-0 forces of every 4th atom and their rms, the thermo rows at
-    steps 0 and 10, positions at step 10, the thermostat chain."""
+def phase_rhodo_record(golden: dict, which: str, tols=None):
+    """A rhodo deck in f64 on one copy of the data file (1,728 atoms,
+    every term non-zero) against the JAX package's f64 record: step-0
+    forces of every 4th atom and their rms, the thermo rows at steps 0 and
+    10, positions at step 10, the thermostat chain and, with fix shake,
+    the constraint count, the degrees of freedom and the violation at step
+    10.  tols: {"rows", "f", "x"[, "violation"]}, JITTER_TOL by default."""
+    tols = tols or JITTER_TOL
     rec = golden["f64"][which]
     cfg = load_deck(rec["deck"])
     cfg.update(replicate=[1, 1, 1], precision=rec["precision"])
@@ -1107,26 +1162,33 @@ def phase_rhodo_record(golden: dict, which: str):
                       - rec["f0_rms"]) / rec["f0_rms"],
         "x_end": float(np.abs(x_end - np.asarray(rec["x_end"])).max()),
     }
-    tol = {"f0": JITTER_TOL["f"], "f0_rms": JITTER_TOL["f"],
-           "x_end": JITTER_TOL["x"]}
+    tol = {"f0": tols["f"], "f0_rms": tols["f"], "x_end": tols["x"]}
     for r, ref in zip(rows, rec["rows"], strict=True):
         for k in ("temp", "evdwl", "ecoul", "elong", "emol", "etotal",
                   "press"):
             errs[f"{k}@{ref['step']:.0f}"] = scalar_rel(r[k], ref[k])
-            tol[f"{k}@{ref['step']:.0f}"] = JITTER_TOL["rows"]
+            tol[f"{k}@{ref['step']:.0f}"] = tols["rows"]
     if "therm" in rec:
         ref_t = np.asarray(rec["therm"])
         errs["therm"] = float(np.abs(sim.state.therm.cpu().numpy()
                                      - ref_t).max()) / np.abs(ref_t).max()
-        tol["therm"] = JITTER_TOL["rows"]
+        tol["therm"] = tols["rows"]
+    path = ("cellpair",) + BONDED_KERNELS + VERLET_KERNELS + (
+        ("nhc_scale",) if "therm" in rec else ())
+    if "n_constraints" in rec:
+        if (sim.shake.n_constraints, sim.dof) != (rec["n_constraints"],
+                                                  rec["dof"]):
+            raise AssertionError(f"{rec['deck']} f64: constraints or degrees "
+                                 "of freedom differ from the record")
+        errs["violation"] = shake_violation(sim)
+        tol["violation"] = tols["violation"]
+        path += SHAKE_KERNELS
     ran = dict(ops.LAUNCHES)
     print(f"[record] {rec['deck']} f64, {sim.n_atoms} atoms, mesh {pm.grid}: "
           f"worst thermo {max(v for k, v in errs.items() if '@' in k):.3e}, "
           + ", ".join(f"{k} {errs[k]:.3e}" for k in errs if "@" not in k)
           + f"; launches {ran}")
     bad = {k: v for k, v in errs.items() if not v <= tol[k]}
-    path = ("cellpair",) + BONDED_KERNELS + VERLET_KERNELS + (
-        ("nhc_scale",) if "therm" in rec else ())
     if bad or any(ran[k] <= 0 for k in path):
         raise AssertionError(f"{rec['deck']} f64 disagrees with the JAX "
                              f"record: {bad}")
@@ -1144,15 +1206,7 @@ def phase_rhodo_decks(golden: dict):
           f"{golden['single']['drift_per_atom']:.4e}); the scaled row is "
           f"within {max(golden['single']['cross_check_2x1x1'].values()):.2e} "
           "of a real two-copy run")
-    nve = phase_deck("rhodo_flex_nve.yaml", deck, 50, path,
-                     golden["drift_gate"])
-    # a record of the SHAKE deck (f32, another machine): the same atoms up
-    # to the SHAKE tolerance; shown, not gated
-    shake = load_golden("long_rhodo_nve.json")["rows"][0]
-    print("[deck] rhodo_flex_nve.yaml step 0 beside the SHAKE deck's "
-          "record: " + ", ".join(
-              f"{k} {nve['row'][k]:.8g} ({shake[k]:.8g})"
-              for k in ("evdwl", "ecoul", "elong")))
+    phase_deck("rhodo_flex_nve.yaml", deck, 50, path, golden["drift_gate"])
     # NVT starts from the data file's 239 K (3N - 3 degrees of freedom
     # without SHAKE) and is pulled towards 300 K with a 50 fs damping
     # time.  The replicated box repeats the one-copy trajectory and the
@@ -1176,6 +1230,278 @@ def phase_rhodo_decks(golden: dict):
                drift_gate=golden["drift_gate"])
     big = phase_deck("rhodo_flex_nve.yaml", big, 50, path,
                      golden["drift_gate"], replicate=BIG_REPLICATE)
+    big["launches"]["nhc_scale"] = nvt["launches"]["nhc_scale"]
+    return big
+
+
+# ---- SHAKE/RATTLE (K13): the literal rhodo decks ----
+
+SHAKE_KERNELS = ("shake_ref", "shake_positions", "rattle_velocities",
+                 "shake_virial")
+# K13 against its plain version, same inputs on the card.  csrc/shake.cu is
+# built without FMA contraction, so the two round alike and differ only
+# where a sum runs in another order.  f64: rel 1e-12 of each output's
+# magnitude.  f32: bond vectors and virial rel 1e-5; positions within 4 ulp
+# of the box length (the largest coordinate); velocities within 4 ulp of
+# the box length over dt, plus rel 1e-5 (v += (x_fix - x_new) / dt turns one
+# ulp of a position into that much velocity).
+TOL_K13 = {torch.float64: 1e-12, torch.float32: 1e-5}
+SHAKE_RECORD_TOL = {"rows": 1e-10, "f": 1e-10, "x": 1e-10, "violation": 1e-10}
+
+
+def _shake_molecule(kind):
+    """(local positions, constraints, masses): a C-H bond (C = 1), a rigid
+    water (C = 3), an octahedron held by its 12 edges (C = 12, A = 6)."""
+    if kind == "ch":
+        return (np.array([[0.0, 0, 0], [1.09, 0, 0]]), [(0, 1)],
+                [12.011, 1.008])
+    if kind == "water":
+        return (np.array([[0.0, 0, 0], [0.96, 0.3, 0], [-0.3, 0.96, 0]]),
+                [(0, 1), (0, 2), (1, 2)], [15.999, 1.008, 1.008])
+    oct6 = np.array([[1.0, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                     [0, 0, 1], [0, 0, -1]])
+    edges = [(i, j) for i in range(6) for j in range(i + 1, 6)
+             if abs((oct6[i] * oct6[j]).sum()) < 0.5]
+    return oct6, edges, [12.0] * 6
+
+
+def _shake_synthetic(kind, flt, acc, copies=2000, L=60.0):
+    """Rotated copies of one cluster kind in a periodic box, in slot
+    layout with empty slots: (tables, slot map, L, planes)."""
+    rng = np.random.default_rng(SEED + 5)
+    xl0, cons, m = _shake_molecule(kind)
+    k = len(xl0)
+    pairs, d2, x = [], [], []
+    for c in range(copies):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        xl = xl0 @ q.T + rng.uniform(0, L, 3)
+        pairs += [(c * k + i, c * k + j) for i, j in cons]
+        d2 += [float(((xl[i] - xl[j]) ** 2).sum()) for i, j in cons]
+        x.append(xl)
+    x = np.concatenate(x)
+    n = len(x)
+    sc = shake.ShakeConstraints(pairs=np.asarray(pairs, np.int32),
+                                d2=np.asarray(d2),
+                                invm=1.0 / np.tile(m, copies), iters=30)
+    ns = n + n // 3
+    slot = rng.permutation(ns)[:n]
+    empty = np.setdiff1d(np.arange(ns), slot)
+    inv = torch.as_tensor(np.append(slot, empty[-1]).astype(np.int32),
+                          device="cuda")
+
+    def planes(a, dt, fill=0.0):
+        p = np.full((ns, 3), fill)
+        p[slot] = a
+        return tuple(torch.as_tensor(p[:, c].copy()).to("cuda", dt)
+                     for c in range(3))
+
+    xn = x + 0.05 * rng.normal(size=x.shape)
+    return (shake.make_clusters(sc).tables_on("cuda", flt), inv,
+            np.full(3, L), planes(x % L, flt, 7.0), planes(xn % L, flt, 7.0),
+            planes(0.1 * rng.normal(size=x.shape), flt),
+            planes(30.0 * rng.normal(size=x.shape), acc),
+            planes(3.0 * rng.normal(size=x.shape), acc))
+
+
+def _k13_compare(label, t, inv, L, xo, xn, vs, fa, fb, dt, iters, ftm2v,
+                 acc):
+    """The four constraint kernels against their plain versions on the
+    same planes; returns max abs errors by kernel and the work tensors."""
+    flt = xo[0].dtype
+    tol = TOL_K13[flt]
+    ulp = float(torch.finfo(flt).eps) * float(max(L))
+    xtol, vtol = (0.0, 0.0) if flt == torch.float64 else (4 * ulp,
+                                                          4 * ulp / dt)
+    errs = {}
+
+    def close(name, k, p, abs_tol=0.0):
+        k, p = torch.stack(list(k)), torch.stack(list(p))
+        d = float((k - p).abs().max())
+        errs[name] = max(errs.get(name, 0.0), d)
+        scale = float(p.abs().max())
+        if not d <= tol * scale + abs_tol or scale == 0.0:
+            raise AssertionError(f"K13 {name} {label} disagrees with its "
+                                 f"plain version: {d:.3e} (tol {tol} of "
+                                 f"{scale:.3e} + {abs_tol:.3e})")
+        return d / scale
+
+    ro_k = shake.shake_ref(t, xo, inv, L)
+    ro_p = shake.shake_ref_plain(t, xo, inv, L)
+    e = {"ref": close("shake_ref", ro_k, ro_p)}
+    kx, kv, px, pv = _clone(xn), _clone(vs), _clone(xn), _clone(vs)
+    rn_k = shake.shake_positions(t, ro_k, kx, kv, inv, L, dt, iters)
+    rn_p = shake.shake_positions_plain(t, ro_p, px, pv, inv, L, dt, iters)
+    e["rn"] = close("shake_positions", rn_k, rn_p)
+    e["x"] = close("shake_positions", kx, px, xtol)
+    e["v"] = close("shake_positions", kv, pv, vtol)
+    shake.rattle_velocities(t, kv, inv, L, r=rn_k)
+    shake.rattle_velocities_plain(t, pv, inv, L, r=rn_p)
+    e["rattle"] = close("rattle_velocities", kv, pv, vtol)
+    for part in ((fa, None), (fa, fb)):
+        wk = shake.shake_virial(t, kx, kv, *part, inv, L, ftm2v, acc)
+        wp = shake.shake_virial_plain(t, px, pv, *part, inv, L, ftm2v, acc)
+        e["virial"] = close("shake_virial", [wk], [wp])
+    print(f"[K13] {label}: " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+          + f" (rel; tol {tol}, x +{xtol:.2e}, v +{vtol:.2e})")
+    return errs, dict(ro=ro_k, rn=rn_k, xs=kx, vs=kv)
+
+
+def _k13_work(t, inv, flt, acc, iters):
+    """(bytes, operations) by kernel for one launch on these tables: the
+    tables once; per real atom its slot-map entry and the planes the
+    kernel reads and writes; per real constraint its bond vectors.
+    Operations counted per constraint (minimum image 4 per component, the
+    Newton iteration's residual, Jacobian, solve and update) for the
+    clusters' width C."""
+    fs = torch.empty((), dtype=flt).element_size()
+    accs = torch.empty((), dtype=acc).element_size()
+    C, M = t["pi"].shape
+    A = t["atoms"].shape[0]
+    na = int((t["atoms"] >= 0).sum())
+    nc = int((t["pi"] >= 0).sum())
+    idx = 4 * (A * M + 2 * C * M) + 4 * na
+    coup = (C * nc + na) * fs                # K rows, 1/m
+    solve = M * (7 * C * C + 12 * C + (2 * C ** 3) // 3 + 2)
+    nbytes = {
+        "shake_ref": idx + 3 * na * fs + 3 * C * M * fs,
+        "shake_positions": idx + coup + nc * fs + 12 * na * fs
+        + 3 * nc * fs + 3 * C * M * fs,
+        "rattle_velocities": idx + coup + 6 * na * fs + 3 * nc * fs,
+        "shake_virial": idx + coup + 6 * na * fs + 6 * na * accs,
+    }
+    nops = {"shake_ref": 15 * nc,
+            "shake_positions": 15 * nc + min(iters, 4) * (solve + 9 * nc)
+            + 12 * nc + 9 * na,
+            "rattle_velocities": solve + 21 * nc + 3 * na,
+            "shake_virial": solve + 49 * nc + 9 * na}
+    return nbytes, nops
+
+
+def _k13_time(label, t, inv, L, xo, xn, vs, fa, fb, dt, iters, ftm2v, acc,
+              errs):
+    """Times of the four kernels (CUDA events, profiler) and of their plain
+    versions at these shapes, with their bounds."""
+    work = _k13_work(t, inv, xo[0].dtype, acc, iters)
+    ro = shake.shake_ref(t, xo, inv, L)
+    kx, kv = _clone(xn), _clone(vs)
+    rn = shake.shake_positions(t, ro, kx, kv, inv, L, dt, iters)
+    rows = {
+        "shake_ref": (lambda: shake.shake_ref(t, xo, inv, L),
+                      lambda: shake.shake_ref_plain(t, xo, inv, L)),
+        # in place: the constraints already hold, the work is the same
+        "shake_positions": (
+            lambda: shake.shake_positions(t, ro, kx, kv, inv, L, dt, iters),
+            lambda: shake.shake_positions_plain(t, ro, kx, kv, inv, L, dt,
+                                                iters)),
+        "rattle_velocities": (
+            lambda: shake.rattle_velocities(t, kv, inv, L, r=rn),
+            lambda: shake.rattle_velocities_plain(t, kv, inv, L, r=rn)),
+        "shake_virial": (
+            lambda: shake.shake_virial(t, kx, kv, fa, fb, inv, L, ftm2v, acc),
+            lambda: shake.shake_virial_plain(t, kx, kv, fa, fb, inv, L,
+                                             ftm2v, acc)),
+    }
+    out = {}
+    for name, (kern, plain) in rows.items():
+        ms, dev_ms = cuda_ms(kern), device_ms(kern)
+        plain_ms = cuda_ms(plain, reps=5)
+        b_ms, b_by = bound(work[0][name], work[1][name])
+        print(f"[K13] {name} {label}: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}; {work[0][name]:,} bytes, {work[1][name]:,} "
+              "operations)")
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[name],
+                         library_ms=None)
+    return out
+
+
+def phase_shake_kernels():
+    """K13a-d against their plain versions on the card: synthetic clusters
+    with C = 1, 3 and 12 in f32 and f64, then the rhodo clusters of
+    rhodo_nve.yaml's state (one C-H bond each) at the deck's 31,104 atoms
+    and at 248,832, where the f32 kernels are timed."""
+    for kind in ("ch", "water", "octahedron"):
+        for flt, acc in ((torch.float32, torch.float64),
+                         (torch.float64, torch.float64)):
+            t, inv, L, xo, xn, vs, fa, fb = _shake_synthetic(kind, flt, acc)
+            _k13_compare(f"{kind} C={t['pi'].shape[0]} {flt}", t, inv, L, xo,
+                         xn, vs, fa, fb, 0.7, 30, 4.184e-4, acc)
+    cfg = load_deck("rhodo_nve.yaml")
+    out = {}
+    for replicate in (tuple(cfg["replicate"]), BIG_REPLICATE):
+        for prec in ("single", "double"):
+            sim = build_simulation(dict(cfg, precision=prec,
+                                        replicate=list(replicate)),
+                                   device="cuda")
+            st, acc, t = sim.state, sim.precision.acc, sim._shake_t
+            inv, L = sim._inv_map(st), sim.box.lengths
+            xo = (st.x, st.y, st.z)
+            # one step's drift, and the step's forces for the virial
+            xn = tuple(x + sim.dtv * v for x, v in zip(xo, (st.vx, st.vy,
+                                                            st.vz)))
+            fa, fb, *_ = sim._forces(st, False, False)
+            sim._bonded_forces(st, inv, fa, False)
+            label = f"rhodo x{'x'.join(map(str, replicate))}/{prec}"
+            errs, _ = _k13_compare(label, t, inv, L, xo, xn, _clone(
+                (st.vx, st.vy, st.vz)), fa, fb, sim.dtv, sim.shake.iters,
+                sim.units.ftm2v, acc)
+            if replicate == BIG_REPLICATE and prec == "single":
+                print(f"[K13] {label}: {sim.shake.n_constraints} constraints "
+                      f"in {t['pi'].shape[1]} clusters of "
+                      f"{t['pi'].shape[0]}")
+                out = _k13_time(label, t, inv, L, xo, xn, _clone(
+                    (st.vx, st.vy, st.vz)), fa, fb, sim.dtv, sim.shake.iters,
+                    sim.units.ftm2v, acc, errs)
+            del sim, st, xn, fa, fb
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_shake_decks(rec: dict):
+    """The literal rhodo decks in full: rhodo_nve.yaml (31,104 atoms, NVE +
+    shake) against the JAX package's record long_rhodo_nve.json (step 0 at
+    the _STEP0_FIELDS tolerances, its drift gate), rhodo_32k.yaml (NVT +
+    shake) against the JAX package's own f32 run of one copy, every row's
+    temperature; then rhodo_nve.yaml at replicate [6, 6, 4] (248,832
+    atoms) against the one-copy row scaled to 144 copies.  Every thermo
+    row holds the constraints to the decks' tol.  Returns the big run's
+    launch counts and ms/step."""
+    path = ("cellpair", "rebin_incremental", "rebin", "pppm_deposit",
+            "pppm_spectral", "pppm_gather") + BONDED_KERNELS \
+        + VERLET_KERNELS + SHAKE_KERNELS
+    full = rec["full"]["3x3x2"]
+    nve_rec = load_golden("long_rhodo_nve.json")
+    gate = nve_rec["drift_gate"]
+    # the record holds rows only: the mesh and splitting of the same box
+    # come from the JAX host set-up recorded beside the scaled row
+    deck = dict(nve_rec, pppm_grid=full["pppm_grid"],
+                g_ewald=full["g_ewald"])
+    print(f"[deck] rhodo shake: long_rhodo_nve.json step 0 temp "
+          f"{nve_rec['rows'][0]['temp']:.6g} (the one-copy f32 row scaled: "
+          f"{full['row']['temp']:.6g}); drift gate {gate} kcal/mol per atom "
+          f"(the record drifted {nve_rec['drift_per_atom']:.4e}; the JAX "
+          f"f32 run of 1,728 atoms {rec['single']['drift_per_atom']:.4e})")
+    phase_deck("rhodo_nve.yaml", deck, 50, path, gate)
+    nvt_rec = load_golden("long_rhodo_32k.json")
+    one = rec["single_nvt"]
+    ts = full["temp_scale"]
+    print(f"[deck] rhodo_32k NVT: temperature of each row against the JAX "
+          f"package's f32 run of {one['n_atoms']} atoms moved to "
+          f"{full['dof']} degrees of freedom (x {ts:.6f}): " + ", ".join(
+              f"{ts * r['temp']:.3f} K @ {r['step']:.0f}" for r in one["rows"])
+          + f" (rtol {rec['nvt_temp_rtol']}); long_rhodo_32k.json: "
+          + ", ".join(f"{r['temp']:.3f} K @ {r['step']:.0f}"
+                      for r in nvt_rec["rows"]))
+    nvt = phase_deck(
+        "rhodo_32k.yaml", dict(nvt_rec, pppm_grid=full["pppm_grid"],
+                               g_ewald=full["g_ewald"]), 50,
+        path + ("nhc_scale",), None,
+        temp_ref=({int(r["step"]): ts * r["temp"] for r in one["rows"]},
+                  rec["nvt_temp_rtol"]))
+    big_rec = dict(rec["full"]["x".join(map(str, BIG_REPLICATE))])
+    big = phase_deck("rhodo_nve.yaml", big_rec, 50, path, gate,
+                     replicate=BIG_REPLICATE)
     big["launches"]["nhc_scale"] = nvt["launches"]["nhc_scale"]
     return big
 
@@ -1219,6 +1545,17 @@ def main():
     print(f"[deck] rhodo_flex_nve.yaml at {n_big} atoms: "
           f"{big['ms_step']:.4f} ms/step, "
           f"{n_big / big['ms_step'] * 1e3:,.0f} atom-steps/s")
+    torch.cuda.empty_cache()
+
+    # the literal rhodo decks: SHAKE/RATTLE (K13)
+    k13 = phase_shake_kernels()
+    shake_rec = load_golden("torch_rhodo_shake.json")
+    phase_rhodo_record(shake_rec, "nve", SHAKE_RECORD_TOL)
+    phase_rhodo_record(shake_rec, "nvt", SHAKE_RECORD_TOL)
+    sbig = phase_shake_decks(shake_rec)
+    print(f"[deck] rhodo_nve.yaml at {n_big} atoms: "
+          f"{sbig['ms_step']:.4f} ms/step, "
+          f"{n_big / sbig['ms_step'] * 1e3:,.0f} atom-steps/s")
 
     def row(name, source, replaces, launch_key, r, launches=launches):
         return dict(name=name, route="cuda", source=f"{SRC}/{source}",
@@ -1267,6 +1604,16 @@ def main():
             "verlet_ke", rk["verlet_ke"], big["launches"]),
         row("nhc_scale", "verlet.cu", "integrate/nvt.py:51", "nhc_scale",
             rk["nhc_scale"], big["launches"]),
+        # the constraints: times at 248,832 atoms (124,416 C-H clusters),
+        # launches of rhodo_nve.yaml's run at that size
+        row("shake_ref", "shake.cu", "integrate/cellpair_verlet.py:503",
+            "shake_ref", k13["shake_ref"], sbig["launches"]),
+        row("shake_positions", "shake.cu", "integrate/shake.py:459",
+            "shake_positions", k13["shake_positions"], sbig["launches"]),
+        row("rattle_velocities", "shake.cu", "integrate/shake.py:540",
+            "rattle_velocities", k13["rattle_velocities"], sbig["launches"]),
+        row("shake_virial", "shake.cu", "integrate/shake.py:578",
+            "shake_virial", k13["shake_virial"], sbig["launches"]),
     ]
     print(f"[K1] buck_big buck branch: {json.dumps(k1['buck_big'])}")
     print(f"[K2] buck_big: {json.dumps(k2_big)}")

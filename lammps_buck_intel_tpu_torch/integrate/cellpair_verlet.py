@@ -1,23 +1,37 @@
 """Cell-pair engine runner: NVE and NVT over the sorted slot layout.
 
 Counterpart of ``lammps_buck_intel_tpu.integrate.cellpair_verlet``
-(``CellPairSimulation`` without SHAKE, rigid bodies and molecule
-exclusion).  Each block rebins once, then runs velocity-Verlet steps whose
-force is the cell-pair kernel plus, with a ``kspace``
-(``models.kspace.CellPPPM``), the PPPM force plus, with ``bonded``, the
-bonded kernels' forces; a ``thermostat`` brackets each step with two
-Nose-Hoover chain half steps.  The updates themselves are the integrator
-kernels (``nve.kick_drift``, ``nve.kick``, ``nve.kinetic``,
-``nvt.nhc_scale``): two launches a step under NVE, five under NVT.
+(``CellPairSimulation`` without rigid bodies and molecule exclusion).
+Each block rebins once, then runs velocity-Verlet steps whose force is
+the cell-pair kernel plus, with a ``kspace`` (``models.kspace.CellPPPM``),
+the PPPM force plus, with ``bonded``, the bonded kernels' forces; a
+``thermostat`` brackets each step with two Nose-Hoover chain half steps.
+The updates themselves are the integrator kernels (``nve.kick_drift``,
+``nve.kick``, ``nve.kinetic``, ``nvt.nhc_scale``): two launches a step
+under NVE, five under NVT.
+
+SHAKE/RATTLE (``shake``, ``integrate.shake``).  The drift updates the
+positions in place, so each step first stores the reference bond vectors
+(``shake_ref``); after the drift ``shake_positions`` puts the positions
+back on the constraints and corrects v, and after the second kick
+``rattle_velocities`` projects v with SHAKE's corrected bond vectors.
+Under NVT the second chain half step must see the projected velocities:
+the kick then returns no kinetic partials, and a ``kinetic`` pass after
+RATTLE feeds the chain (five integrator and constraint launches a step
+under NVE, nine under NVT).  At set-up the positions are settled onto the
+constraints and the velocities projected before the first force.  Thermo
+counts 3N - 3 - Nc degrees of freedom and adds the constraint virial on
+the total force.
 PyTorch runs eagerly: a block is a Python loop of launches on one stream,
 and the host waits for the device only at thermo rows, at a run's end and
 where the check cadence needs vmax.
 
 Molecular decks.  ``topology`` gives the 1-2/1-3/1-4 partner table, kept
 on the device in atom order: the pair kernel reads a slot's row through
-its atom id, so no rebin has to gather it.  The bonded term tables hold
-atom indices too; after each rebin one scatter rebuilds the slot-of-atom
-map (``_inv_map``) that the bonded kernels look their atoms up in.
+its atom id, so no rebin has to gather it.  The bonded term tables and
+the constraint clusters hold atom indices too; after each rebin one
+scatter rebuilds the slot-of-atom map (``_inv_map``) that the bonded and
+constraint kernels look their atoms up in.
 
 The state is updated in place (the CUDA rebin and the NVE updates write
 into the slot planes), so the overflow rollback keeps a CLONE of the
@@ -41,12 +55,12 @@ from ..models.pair.cellpair import compute_cellpair, make_special_table
 from ..models.pair.styles import PairStyle
 from ..neighbor import cell_slots as cs
 from . import nve
+from . import shake as shk
 from .nvt import NVTConfig, nhc_scale
 from .verlet import NeighborPolicy
 
 # engine features of the JAX package not ported yet -> ROADMAP queue 1
 _UNPORTED = {
-    "shake": "item 12 (SHAKE/RATTLE, K13)",
     "rigid": "item 13 (rigid bodies)",
     "exclude_intra": "item 13 (rigid bodies)",
 }
@@ -66,8 +80,9 @@ class CellPairSimulation:
     the k-space solver (a ``CellPPPM``): the deck runner aligns the PPPM
     mesh to the grid, which is chosen here.  The initial force includes
     the solver's.  topology: the special-bond partner table for the pair
-    kernel; bonded: the bonded terms; thermostat: Nose-Hoover chain NVT
-    (dof 3N - 3, filled here with the units and the timestep)."""
+    kernel; bonded: the bonded terms; shake: the SHAKE/RATTLE constraints
+    (``integrate.shake.ShakeConstraints``); thermostat: Nose-Hoover chain
+    NVT (dof 3N - 3 - Nc, filled here with the units and the timestep)."""
 
     def __init__(
         self,
@@ -82,6 +97,7 @@ class CellPairSimulation:
         topology: Optional[Topology] = None,
         bonded: Optional[BondedStyle] = None,
         thermostat: Optional[NVTConfig] = None,
+        shake: Optional[shk.ShakeConstraints] = None,
         **unported,
     ):
         for key, value in unported.items():
@@ -144,10 +160,21 @@ class CellPairSimulation:
         if topology is not None and topology.has_special:
             self.special = make_special_table(
                 topology.special_idx, topology.special_code, self.device)
+        self.shake = shake
+        self._shake_t = None
+        if shake is not None:
+            cl = shk.make_clusters(shake)
+            if cl.width > shk.MAX_C:
+                raise NotImplementedError(
+                    f"fix shake: a cluster of {cl.width} constraints; the "
+                    f"ROADMAP queue 1 item 12 constraint kernels (K13) take "
+                    f"clusters of at most {shk.MAX_C}")
+            self._shake_t = cl.tables_on(self.device, flt)
+        self.dof = max(3 * n - 3 - (shake.n_constraints if shake else 0), 1)
         self.thermostat = None
         if thermostat is not None:
             self.thermostat = dataclasses.replace(
-                thermostat, dof=max(3 * n - 3, 1), boltz=units.boltz,
+                thermostat, dof=self.dof, boltz=units.boltz,
                 mvv2e=units.mvv2e, dt=self.dt)
         self._tchain = thermostat.tchain if thermostat is not None else 0
         self._t_now = 0.0       # thermostat target of the current segment
@@ -162,6 +189,8 @@ class CellPairSimulation:
                 raise RuntimeError("cell capacity sizing failed")
         if kspace is not None:
             self.kspace = kspace(self.grid)
+        if shake is not None:
+            self._settle(st)
         self.state = self._init_force(st)
         self.step_count = 0
         self.timings = {"run": 0.0}
@@ -226,6 +255,18 @@ class CellPairSimulation:
                            state.aid, self._mass_t, self.n_atoms,
                            self.precision.acc)
 
+    def _settle(self, state: cs.SlotState):
+        """Put the positions on the constraints (x_old = x_new, dt = 1,
+        velocities untouched), then project the velocities along the
+        settled bond vectors, in place, as the JAX package does before the
+        first force."""
+        t, L, inv = self._shake_t, self.box.lengths, self._inv_map(state)
+        xs = (state.x, state.y, state.z)
+        ro = shk.shake_ref(t, xs, inv, L)
+        shk.shake_positions(t, ro, xs, None, inv, L, 1.0, self.shake.iters)
+        shk.rattle_velocities(t, (state.vx, state.vy, state.vz), inv, L,
+                              xs=xs)
+
     def _init_force(self, state: cs.SlotState) -> cs.SlotState:
         fa, fb, *_ = self._forces(state, False, False)
         if self.bonded is not None:
@@ -242,18 +283,31 @@ class CellPairSimulation:
         xs = (state.x, state.y, state.z)
         vs = (state.vx, state.vy, state.vz)
         fs = (state.fx, state.fy, state.fz)
-        inv = self._inv_map(state) if self.bonded is not None else None
+        sc, t, L = self.shake, self._shake_t, self.box.lengths
+        inv = (self._inv_map(state)
+               if self.bonded is not None or sc is not None else None)
         cfg = self.thermostat
         for _ in range(nsteps):
             if cfg is not None:
                 state = state._replace(therm=nhc_scale(
                     cfg, state.therm, vs, self._kinetic(state), self._t_now))
+            if sc is not None:
+                ro = shk.shake_ref(t, xs, inv, L)
             nve.kick_drift(xs, vs, fs, state.typ, state.aid, self._minv_t,
                            self.n_atoms, self.dtf, self.dtv)
+            if sc is not None:
+                rn = shk.shake_positions(t, ro, xs, vs, inv, L, self.dtv,
+                                         sc.iters)
             fa, fb, *_ = self._forces(state, False, False)
             if self.bonded is not None:
                 self._bonded_forces(state, inv, fa, False)
-            partial = self._kick(state, fa, fb, self.dtf, cfg is not None)
+            partial = self._kick(state, fa, fb, self.dtf,
+                                 cfg is not None and sc is None)
+            if sc is not None:
+                shk.rattle_velocities(t, vs, inv, L, r=rn)
+                if cfg is not None:
+                    # the chain sees the projected velocities
+                    partial = self._kinetic(state)
             if cfg is not None:
                 state = state._replace(therm=nhc_scale(
                     cfg, state.therm, vs, partial, self._t_now))
@@ -263,10 +317,12 @@ class CellPairSimulation:
 
     def _thermo_device(self, state: cs.SlotState) -> dict:
         st = cs.rebin_incremental(self.grid, self.box, state.clone())
-        fs, _, evdwl, ecoul, elong, virial = self._forces(st, True, True)
+        fs, fk, evdwl, ecoul, elong, virial = self._forces(st, True, True)
         emol = torch.zeros((), dtype=self.precision.acc, device=self.device)
+        inv = (self._inv_map(st)
+               if self.bonded is not None or self.shake is not None else None)
         if self.bonded is not None:
-            br = self._bonded_forces(st, self._inv_map(st), fs, True)
+            br = self._bonded_forces(st, inv, fs, True)
             emol = br.emol
             # the CHARMM 1-4 pair terms are tallied into the PAIR energies
             # (the dihedral_charmm.cpp ev_tally convention)
@@ -274,10 +330,15 @@ class CellPairSimulation:
             ecoul = ecoul + br.e14_coul
             virial = virial + br.virial
         u = self.units
+        if self.shake is not None:
+            # the constraint virial on the TOTAL force: pair + bonded in
+            # fs, k-space in fk (the fix_shake.cpp pressure tally)
+            virial = virial + shk.shake_virial(
+                self._shake_t, (st.x, st.y, st.z), (st.vx, st.vy, st.vz), fs,
+                fk, inv, self.box.lengths, u.ftm2v, self.precision.acc)
         kin = self._kinetic(st)
         sum_mv2 = kin[:, 0].sum() * u.mvv2e
-        dof = max(3 * self.n_atoms - 3, 1)
-        temp = sum_mv2 / (dof * u.boltz)
+        temp = sum_mv2 / (self.dof * u.boltz)
         ke = 0.5 * sum_mv2
         vir_trace = virial[0] + virial[1] + virial[2]
         press = (sum_mv2 + vir_trace) / (3.0 * self.box.volume) * u.nktv2p

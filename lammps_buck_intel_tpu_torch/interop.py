@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .core.state import Topology
+from .integrate.shake import ShakeConstraints
 from .models.bonded.harmonic import BondedStyle, make_bonded
 from .models.kspace.pppm import PPPM
 from .models.pair.styles import PairConfig, PairStyle
@@ -51,6 +52,17 @@ def bonded_from_numpy(fields: dict) -> BondedStyle:
     """The port's BondedStyle from the JAX BondedStyle's fields
     (``dataclasses.asdict`` of it)."""
     return make_bonded(**fields)
+
+
+def shake_from_numpy(pairs, d2, invm, iters: int,
+                     n_independent: int = -1) -> ShakeConstraints:
+    """The port's ShakeConstraints from the JAX ShakeConstraints' fields
+    (its Jacobi under-relaxation ``omega`` is read by the scatter forms
+    only, which the port does not run)."""
+    return ShakeConstraints(
+        pairs=np.array(pairs, np.int32), d2=np.array(d2, np.float64),
+        invm=np.array(invm, np.float64), iters=int(iters),
+        n_independent=int(n_independent))
 
 
 def pppm_from_numpy(grid, g_ewald: float, order: int, greensfn, kx, ky, kz,

@@ -2,9 +2,11 @@
 
 ``cellpair`` (csrc/cellpair.cu), ``rebin`` (csrc/rebin.cu), ``pppm``
 (csrc/pppm.cu: deposit, spectral, gather), ``bonded`` (csrc/bonded.cu:
-bonds and angles, dihedrals, impropers) and ``verlet`` (csrc/verlet.cu:
+bonds and angles, dihedrals, impropers), ``verlet`` (csrc/verlet.cu:
 kick and drift, kick with the force sum, kinetic sums, the thermostat
-chain) wrap one kernel library each.
+chain) and ``shake`` (csrc/shake.cu: reference bond vectors, SHAKE
+positions, RATTLE velocities, the constraint virial) wrap one kernel
+library each.
 A wrapper checks device, dtype, shape and contiguity, launches on the
 current CUDA stream and raises if the launch reports an error; it never
 falls back to the plain version.  Each wrapper adds one to its entry of
@@ -18,7 +20,8 @@ LAUNCHES = {"cellpair": 0, "rebin_incremental": 0, "rebin": 0,
             "pppm_deposit": 0, "pppm_spectral": 0, "pppm_gather": 0,
             "bonded_bond_angle": 0, "dihedral_charmm": 0,
             "improper_harmonic": 0, "verlet_kick_drift": 0, "verlet_kick": 0,
-            "verlet_ke": 0, "nhc_scale": 0}
+            "verlet_ke": 0, "nhc_scale": 0, "shake_ref": 0,
+            "shake_positions": 0, "rattle_velocities": 0, "shake_virial": 0}
 
 
 def reset_launches():

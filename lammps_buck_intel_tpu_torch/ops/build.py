@@ -22,15 +22,17 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-lineinfo", "-Xptxas", "-v"]
-# library -> extra nvcc flags.  The rebin and the integrator are compiled
-# without FMA contraction so their wrap, cell and update arithmetic rounds
-# exactly like the plain torch version; no library uses --use_fast_math.
+# library -> extra nvcc flags.  The rebin, the integrator and the
+# constraint solves are compiled without FMA contraction so their wrap,
+# cell, update and solve arithmetic rounds like the plain torch version; no
+# library uses --use_fast_math.
 LIBRARIES = {
     "cellpair": [],
     "rebin": ["--fmad=false"],
     "pppm": [],
     "bonded": [],
     "verlet": ["--fmad=false"],
+    "shake": ["--fmad=false"],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,13 +1,15 @@
 """Deck runner for the PyTorch port.
 
 Counterpart of ``lammps_buck_intel_tpu.run`` for the decks this port
-runs with ``engine: cellpair`` under ``fix nve`` or ``fix nvt``: a lattice
-built with ``create_atoms`` or atoms read with ``read_data`` (atom style
-charge or full, optionally ``replicate``d); ``pair_style buck``, or
-``buck/coul/long`` / ``lj/charmm/coul/long`` with ``kspace_style pppm``
-(ik) on a mesh aligned to the engine's cells; ``special_bonds``, harmonic
-bonds, harmonic or CHARMM angles, CHARMM dihedrals and harmonic impropers
-(examples/decks/buck.yaml, buck_big.yaml, cristobalite_pppm.yaml,
+runs with ``engine: cellpair`` under ``fix nve`` or ``fix nvt``, with or
+without ``fix shake`` (a fix list without nve or nvt integrates as NVE): a
+lattice built with ``create_atoms`` or atoms read with ``read_data``
+(atom style charge or full, optionally ``replicate``d); ``pair_style
+buck``, or ``buck/coul/long`` / ``lj/charmm/coul/long`` with
+``kspace_style pppm`` (ik) on a mesh aligned to the engine's cells;
+``special_bonds``, harmonic bonds, harmonic or CHARMM angles, CHARMM
+dihedrals and harmonic impropers (examples/decks/buck.yaml, buck_big.yaml,
+cristobalite_pppm.yaml, rhodo_nve.yaml, rhodo_32k.yaml, rhodo_class.yaml,
 rhodo_flex_nve.yaml, rhodo_flex_nvt.yaml).  Every other deck key or value
 raises NotImplementedError naming its ROADMAP item; nothing is ignored.  A relative ``read_data`` path
 resolves against the working directory, as in the JAX package.
@@ -43,9 +45,9 @@ _KEYS = {"units", "precision", "timestep", "engine", "lattice", "mass",
          "improper_style"}
 # fix name -> (keys the port reads, ROADMAP item of an unported fix)
 _FIX_KEYS = {"nve": {"name"},
-             "nvt": {"name", "t_start", "t_stop", "t_damp", "tchain"}}
+             "nvt": {"name", "t_start", "t_stop", "t_damp", "tchain"},
+             "shake": {"name", "m", "b", "a", "iters", "tol"}}
 _UNPORTED_FIXES = {
-    "shake": "item 12 (SHAKE/RATTLE, kernels K13)",
     "rigid/small": "item 13 (rigid bodies, K15)",
     "rigid/npt/small": "item 13 (rigid bodies, K15)",
     "npt": "item 14 (NPT, K16)",
@@ -82,10 +84,16 @@ def _check_deck(cfg: dict):
             raise NotImplementedError(
                 f"fix {fn} is not ported: ROADMAP queue 1 "
                 f"{_UNPORTED_FIXES[fn]}")
+        if fn == "shake" and set(fx) - _FIX_KEYS[fn]:
+            raise NotImplementedError(
+                f"fix shake keys {sorted(set(fx) - _FIX_KEYS[fn])} are not "
+                "ported: ROADMAP queue 1 item 12's constraint port (K13) "
+                "reads m, b, a, iters and tol")
         if fn not in _FIX_KEYS or set(fx) - _FIX_KEYS[fn]:
             raise NotImplementedError(
-                f"fix {fx!r} is not ported: nve and nvt (t_start, t_stop, "
-                "t_damp, tchain) only (ROADMAP queue 1)")
+                f"fix {fx!r} is not ported: nve, nvt (t_start, t_stop, "
+                "t_damp, tchain) and shake (m, b, a, iters, tol) only "
+                "(ROADMAP queue 1)")
     if "lattice" not in cfg and "read_data" not in cfg:
         raise ValueError("deck needs read_data or lattice")
     name = cfg["pair_style"]["name"]
@@ -220,10 +228,64 @@ def _pair_style(cfg: dict, ntypes: int, data_pair: dict, qqrd2e: float):
         shift=ps.get("shift", False))
 
 
-def _bonded(cfg: dict, g: dict, style, qqrd2e: float):
-    """The deck's bonded tables (None without a ``*_style`` key): deck
-    coefficients over the data file's, the 1-4 terms of dihedral charmm
-    baked from the pair style's eps14/sig14."""
+def _coeff_table(cfg: dict, g: dict, kind: str, ncols: int):
+    """A bonded kind's coefficient table: the deck's over the data
+    file's."""
+    deck = cfg.get(f"{kind}_style", {}).get("coeffs")
+    if deck:
+        return np.asarray(deck, np.float64)
+    rows = g["data_coeffs"].get(kind)
+    out = np.zeros((max(rows) + 1 if rows else 0, ncols))
+    for t, row in (rows or {}).items():
+        out[t, :min(ncols, len(row))] = row[:ncols]
+    return out
+
+
+def _angle_ncols(cfg: dict) -> int:
+    return 4 if cfg.get("angle_style", {}).get("name") == "charmm" else 2
+
+
+def _shake(cfg: dict, fx: dict, g: dict):
+    """``fix shake``: the constraints and the bond and angle types they
+    take out of the bonded terms.  ``m`` constrains every bond type that
+    touches an atom whose mass is within 0.1 of a listed value (the
+    fix_shake.cpp mass list); ``b`` and ``a`` name types (1-based);
+    ``iters`` defaults to 30.  ``tol`` is accepted and, as in the JAX
+    package, not read: the solve runs a fixed min(iters, 4) Newton
+    iterations."""
+    from .integrate.shake import make_shake
+
+    bonds, angles = g["bonds"], g["angles"]
+    mass_per_atom = np.asarray(g["mass"], np.float64)[g["typ"]]
+    b_types = tuple(t - 1 for t in fx.get("b", []))
+    if "m" in fx and bonds is not None and len(bonds):
+        mvals = np.atleast_1d(np.asarray(fx["m"], np.float64))
+        light = np.any(np.abs(mass_per_atom[:, None] - mvals[None, :]) <= 0.1,
+                       axis=1)
+        sel = light[bonds[:, 1]] | light[bonds[:, 2]]
+        b_types = tuple(sorted(set(int(t) for t in np.unique(bonds[sel, 0]))
+                               | set(b_types)))
+    if not b_types and "m" not in fx:
+        b_types = (0,)
+    a_types = tuple(t - 1 for t in fx.get("a", []))
+    ac = _coeff_table(cfg, g, "angle", _angle_ncols(cfg))
+    if not len(ac):
+        ac = np.asarray([[0.0, 109.47]])
+    sc = make_shake(
+        bonds if bonds is not None else np.zeros((0, 3), np.int32),
+        _coeff_table(cfg, g, "bond", 2),
+        angles if angles is not None else np.zeros((0, 4), np.int32), ac,
+        mass_per_atom, bond_types=b_types, angle_types=a_types,
+        iters=fx.get("iters", 30))
+    return sc, b_types, a_types
+
+
+def _bonded(cfg: dict, g: dict, style, qqrd2e: float, shaken=((), ())):
+    """The deck's bonded tables (None without a ``*_style`` key, or when
+    nothing is left): deck coefficients over the data file's, the 1-4
+    terms of dihedral charmm baked from the pair style's eps14/sig14, less
+    the bond and angle types ``shaken`` = (bond types, angle types) that
+    fix shake constrains."""
     from .models.bonded import bake_charmm_14, make_bonded
 
     kinds = ("bond", "angle", "dihedral", "improper")
@@ -231,29 +293,27 @@ def _bonded(cfg: dict, g: dict, style, qqrd2e: float):
         return None
     angle_style = cfg.get("angle_style", {}).get("name", "harmonic")
 
-    def table(kind: str, ncols: int):
-        deck = cfg.get(f"{kind}_style", {}).get("coeffs")
-        if deck:
-            return np.asarray(deck, np.float64)
-        rows = g["data_coeffs"].get(kind)
-        out = np.zeros((max(rows) + 1 if rows else 0, ncols))
-        for t, row in (rows or {}).items():
-            out[t, :min(ncols, len(row))] = row[:ncols]
-        return out
+    def unshaken(terms, types):
+        if terms is None or not len(terms):
+            return terms
+        return terms[~np.isin(terms[:, 0], types)]
 
-    dc = table("dihedral", 4)
+    dc = _coeff_table(cfg, g, "dihedral", 4)
     d14 = None
     dihedrals = g["dihedrals"]
     if (dihedrals is not None and len(dihedrals) and len(dc)
             and style.eps14 is not None):
         d14 = bake_charmm_14(dihedrals, dc, g["typ"], g["q"], style.eps14,
                              style.sig14, qqrd2e)
-    return make_bonded(
-        bonds=g["bonds"], angles=g["angles"], bond_coeffs=table("bond", 2),
-        angle_coeffs=table("angle", 4 if angle_style == "charmm" else 2),
+    bonded = make_bonded(
+        bonds=unshaken(g["bonds"], shaken[0]),
+        angles=unshaken(g["angles"], shaken[1]),
+        bond_coeffs=_coeff_table(cfg, g, "bond", 2),
+        angle_coeffs=_coeff_table(cfg, g, "angle", _angle_ncols(cfg)),
         angle_style=angle_style, dihedrals=dihedrals,
         impropers=g["impropers"], dihedral_coeffs=dc,
-        improper_coeffs=table("improper", 2), d14=d14)
+        improper_coeffs=_coeff_table(cfg, g, "improper", 2), d14=d14)
+    return bonded if bonded.has_terms else None
 
 
 def _patch_aligned_smin(nc, L, skin, order):
@@ -340,14 +400,18 @@ def build_simulation(cfg: dict, device="cuda"):
             gew = pppm_g_ewald(box, q, ps.get("cut_coul", ps["cut"]),
                                ks.get("accuracy", 1e-4), u.qqrd2e)
         style = style.replace(g_ewald=float(gew))
-    bonded = _bonded(cfg, g, style, u.qqrd2e)
-
-    thermostat = None
+    thermostat = shake = None
+    shaken = ((), ())
     for fx in cfg.get("fixes", [{"name": "nve"}]):
         if fx["name"] == "nvt":
             thermostat = NVTConfig(
                 t_start=fx["t_start"], t_stop=fx.get("t_stop", fx["t_start"]),
                 t_damp=fx["t_damp"], tchain=fx.get("tchain", 3))
+        elif fx["name"] == "shake":
+            shake, *shaken = _shake(cfg, fx, g)
+    # the special-bond table above keeps the full topology; the bonded
+    # terms lose the constrained types
+    bonded = _bonded(cfg, g, style, u.qqrd2e, shaken)
 
     nb = cfg.get("neighbor", {})
     policy = NeighborPolicy(
@@ -362,7 +426,8 @@ def build_simulation(cfg: dict, device="cuda"):
         return CellPairSimulation(
             system, style, units=u, precision=prec, dt=dt, neighbor=policy,
             cap=int(cfg["cap"]) if cfg.get("cap") else None, kspace=kspace,
-            topology=topo, bonded=bonded, thermostat=thermostat)
+            topology=topo, bonded=bonded, thermostat=thermostat,
+            shake=shake)
     except ValueError as e:
         if "box too small" not in str(e):
             raise

@@ -476,3 +476,162 @@ def test_verlet_wrappers_reject_bad_input(cuda):
     with pytest.raises(TypeError):
         nve.kick(d["vs"], d["fs"], d["fa"], None, *tail, d["mass_t"], d["n"],
                  1e-4, torch.float64)
+
+
+# ---- the constraints: csrc/shake.cu ----
+
+
+def _molecule(kind):
+    """(local positions, constraints, masses) of one synthetic cluster:
+    a C-H bond (C = 1), a rigid water (C = 3) or an octahedron held by its
+    12 edges (C = 12, A = 6)."""
+    if kind == "ch":
+        return (np.array([[0.0, 0, 0], [1.09, 0, 0]]), [(0, 1)],
+                [12.011, 1.008])
+    if kind == "water":
+        return (np.array([[0.0, 0, 0], [0.96, 0.3, 0], [-0.3, 0.96, 0]]),
+                [(0, 1), (0, 2), (1, 2)], [15.999, 1.008, 1.008])
+    oct6 = np.array([[1.0, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                     [0, 0, 1], [0, 0, -1]])
+    edges = [(i, j) for i in range(6) for j in range(i + 1, 6)
+             if abs((oct6[i] * oct6[j]).sum()) < 0.5]
+    return oct6, edges, [12.0] * 6
+
+
+SHAKE_KINDS = {"ch": ["ch"], "water": ["water"], "octahedron": ["octahedron"],
+               "mixed": ["ch", "water", "octahedron"]}
+
+
+def _shake_case(dev, flt, acc, kind, copies=40, L=20.0, seed=11):
+    """Synthetic clusters, randomly rotated and placed in a periodic box
+    (some straddle its faces), in slot layout with empty slots: the port's
+    tables, the slot-of-atom map (row N an empty slot) and slot planes of
+    the step's start and end positions, velocities and two acc force
+    sets."""
+    from lammps_buck_intel_tpu_torch.integrate import shake
+
+    rng = np.random.default_rng(seed)
+    pairs, d2, masses, xs = [], [], [], []
+    for _ in range(copies):
+        for k in SHAKE_KINDS[kind]:
+            xl, cons, m = _molecule(k)
+            q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            xl = xl @ q.T + rng.uniform(0, L, 3)
+            base = sum(len(x) for x in xs)
+            for i, j in cons:
+                pairs.append((base + i, base + j))
+                d2.append(float(((xl[i] - xl[j]) ** 2).sum()))
+            xs.append(xl)
+            masses += m
+    x_old = np.concatenate(xs)
+    n = len(x_old)
+    sc = shake.ShakeConstraints(pairs=np.asarray(pairs, np.int32),
+                                d2=np.asarray(d2), invm=1.0 / np.asarray(
+                                    masses), iters=30)
+    cl = shake.make_clusters(sc)
+    ns = n + 57
+    slot = rng.permutation(ns)[:n]
+    empty = np.setdiff1d(np.arange(ns), slot)
+    inv = np.append(slot, empty[-1]).astype(np.int32)
+
+    def planes(a, dt, fill=0.0):
+        p = np.full((ns, 3), fill)
+        p[slot] = a
+        return tuple(torch.as_tensor(p[:, c].copy()).to(dev, dt)
+                     for c in range(3))
+
+    x_new = x_old + 0.05 * rng.normal(size=x_old.shape)
+    return dict(
+        sc=sc, cl=cl, t=cl.tables_on(dev, flt), L=np.full(3, L),
+        inv=torch.as_tensor(inv).to(dev), slot=slot,
+        xo=planes(x_old % L, flt, 7.0), xn=planes(x_new % L, flt, 7.0),
+        v=planes(0.1 * rng.normal(size=x_old.shape), flt),
+        fa=planes(30.0 * rng.normal(size=x_old.shape), acc),
+        fb=planes(3.0 * rng.normal(size=x_old.shape), acc))
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+@pytest.mark.parametrize("kind", list(SHAKE_KINDS))
+def test_shake_kernels_match_plain(cuda, flt, acc, kind):
+    """K13a-d against their plain versions on the card.  The library is
+    built without FMA contraction, so the two round alike and differ only
+    where a sum runs in another order.  f64: rel 1e-12 of each output's
+    magnitude.  f32: the bond vectors and the virial rel 1e-5; positions
+    within 4 ulp of the largest coordinate; velocities within 4 ulp of the
+    largest coordinate over dt (v += (x_fix - x_new) / dt turns one ulp of
+    a position into that much velocity) plus rel 1e-5."""
+    from lammps_buck_intel_tpu_torch.integrate import shake
+
+    d = _shake_case(cuda, flt, acc, kind)
+    t, inv, L, dt = d["t"], d["inv"], d["L"], 0.7
+    f64 = flt == torch.float64
+    rtol = 1e-12 if f64 else 1e-5
+    ulp = float(torch.finfo(flt).eps) * float(L[0])
+    xtol, vtol = (0.0, 0.0) if f64 else (4 * ulp, 4 * ulp / dt)
+    before = dict(ops.LAUNCHES)
+
+    def close(a, b, tol, abs_tol=0.0):
+        a, b = torch.stack(list(a)), torch.stack(list(b))
+        return float((a - b).abs().max()) <= tol * float(b.abs().max()) + \
+            abs_tol
+
+    ro_k = shake.shake_ref(t, d["xo"], inv, L)
+    ro_p = shake.shake_ref_plain(t, d["xo"], inv, L)
+    assert close(ro_k, ro_p, rtol)
+    kx, kv = _clone(d["xn"]), _clone(d["v"])
+    px, pv = _clone(d["xn"]), _clone(d["v"])
+    rn_k = shake.shake_positions(t, ro_k, kx, kv, inv, L, dt, 30)
+    rn_p = shake.shake_positions_plain(t, ro_p, px, pv, inv, L, dt, 30)
+    assert close(rn_k, rn_p, rtol)
+    assert close(kx, px, rtol, xtol) and close(kv, pv, rtol, vtol)
+    assert not close(kx, d["xn"], 1e-6)
+    # empty slots keep their planes
+    occ = torch.zeros(d["xn"][0].shape[0], dtype=torch.bool, device=cuda)
+    occ[torch.as_tensor(d["slot"], device=cuda)] = True
+    for a, b in ((kx, d["xn"]), (kv, d["v"])):
+        assert torch.equal(torch.stack(a)[:, ~occ], torch.stack(b)[:, ~occ])
+    # positions only (the set-up settle), then RATTLE along rn and along
+    # the positions
+    sx = _clone(d["xn"])
+    shake.shake_positions(t, ro_k, sx, None, inv, L, dt, 30)
+    assert torch.equal(torch.stack(sx), torch.stack(kx))
+    shake.rattle_velocities(t, kv, inv, L, r=rn_k)
+    shake.rattle_velocities_plain(t, pv, inv, L, r=rn_p)
+    assert close(kv, pv, rtol, vtol)
+    kv2, pv2 = _clone(d["v"]), _clone(d["v"])
+    shake.rattle_velocities(t, kv2, inv, L, xs=kx)
+    shake.rattle_velocities_plain(t, pv2, inv, L, xs=px)
+    assert close(kv2, pv2, rtol, vtol)
+    for fb in (None, d["fb"]):
+        wk = shake.shake_virial(t, kx, kv, d["fa"], fb, inv, L, 0.3, acc)
+        wp = shake.shake_virial_plain(t, px, pv, d["fa"], fb, inv, L, 0.3,
+                                      acc)
+        assert wk.dtype == acc and close([wk], [wp], rtol)
+        assert float(wp.abs().max()) > 1.0
+    for name, k in (("shake_ref", 1), ("shake_positions", 2),
+                    ("rattle_velocities", 2), ("shake_virial", 2)):
+        assert ops.LAUNCHES[name] == before[name] + k
+
+
+def test_shake_wrappers_reject_bad_input(cuda):
+    from lammps_buck_intel_tpu_torch.integrate import shake
+    from lammps_buck_intel_tpu_torch.ops import shake as shake_ops
+
+    d = _shake_case(cuda, torch.float32, torch.float32, "water", copies=4)
+    t, inv, L = d["t"], d["inv"], d["L"]
+    with pytest.raises(TypeError):
+        shake_ops.shake_ref(t, d["xo"], inv.long(), L)
+    with pytest.raises(TypeError):
+        shake_ops.shake_ref(t, d["xo"][:2] + (d["xo"][2].double(),), inv, L)
+    with pytest.raises(ValueError):
+        shake_ops.shake_ref(t, tuple(p.cpu() for p in d["xo"]), inv, L)
+    wide = dict(t, pi=torch.zeros((13, t["pi"].shape[1]), dtype=torch.int32,
+                                  device=cuda))
+    with pytest.raises(ValueError, match="at most 12"):
+        shake_ops.shake_ref(wide, d["xo"], inv, L)
+    with pytest.raises(ValueError):
+        shake_ops.shake_positions(t, torch.zeros(3, 1, 1, device=cuda),
+                                  d["xn"], d["v"], inv, L, 1.0, 4)
+    with pytest.raises(TypeError):
+        shake.shake_virial(t, d["xn"], d["v"], d["fa"], None, inv, L, 0.3,
+                           torch.float16)

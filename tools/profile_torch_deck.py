@@ -10,7 +10,8 @@ untraced for the step time, then the same number of steps under
 into the port's layers: pair (csrc/cellpair.cu), pppm kernels
 (csrc/pppm.cu), pppm FFTs (cuFFT under torch.fft), bonded
 (csrc/bonded.cu), rebin (csrc/rebin.cu), verlet (csrc/verlet.cu: kicks,
-drift, force sum and cast, kinetic sums, the thermostat chain) and torch
+drift, force sum and cast, kinetic sums, the thermostat chain), shake
+(csrc/shake.cu: reference bond vectors, SHAKE, RATTLE) and torch
 ops (everything else: fills, the slot-of-atom map, partial sums).  The
 device idle share is 1 - (kernel time / traced wall time); launches per
 step are the device events of each layer over the steps.  With them the
@@ -42,6 +43,8 @@ LAYERS = (
     ("pppm fft", ("fft",)),
     ("bonded", ("bond_angle_kernel", "dihedral_charmm_kernel",
                 "improper_harmonic_kernel")),
+    ("shake", ("shake_ref_kernel", "shake_positions_kernel", "rattle_kernel",
+               "shake_virial_kernel")),
     ("verlet", ("kick_drift_kernel", "kick_ke_kernel", "nhc_scale_kernel")),
     ("rebin", ("mark_kernel", "gather_kernel", "free_kernel", "place_kernel",
                "stash_kernel", "fill_kernel", "scatter_kernel")),
