@@ -6,7 +6,8 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: nvcc builds csrc/cellpair.cu, csrc/rebin.cu, csrc/pppm.cu,
-     csrc/bonded.cu, csrc/verlet.cu and csrc/shake.cu from the checkout into
+     csrc/bonded.cu, csrc/verlet.cu, csrc/shake.cu, csrc/nlist.cu and
+     csrc/npt.cu from the checkout into
      lammps_buck_intel_tpu_torch/_build/, one nvcc per source, all started
      together;
   3. K1, the cell-pair kernel, against its plain torch version on the card
@@ -59,7 +60,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      gate, rhodo_32k.yaml's temperature rows against the JAX package's own
      f32 NVT + SHAKE run of one copy, rhodo_nve.yaml at replicate [6, 6,
      4]; the constraints within the decks' tol at every thermo row, and
-     the K13 launch counts of that last run in the kernels line.
+     the K13 launch counts of that last run in the kernels line;
+ 10. fix npt on the neighbor-list engine (rhodo_npt.yaml, the literal
+     in.rhodo fix stack): the list build and list pair pass (K9a, K9b),
+     the traced influence function and the barostat's per-atom passes
+     (K16a, K16c) and the PPPM, constraint and bonded kernels with the box
+     read on the card, each against its plain version on one copy in f64
+     and f32 and at 248,832 atoms in f32, where the new kernels are timed;
+     the deck in f64 on one copy against the JAX package's f64 record
+     (tests/goldens/torch_rhodo_npt.json: forces, rows every 5 steps,
+     box, strain rate, chain, positions); the deck unedited at 31,104
+     atoms (step 0 against long_rhodo_npt.json, the rows at 50 and 100
+     against the record's scaled rows at its row_tol) and at replicate
+     [6, 6, 4] (step 0 against the record scaled to 144 copies), ms/step,
+     and the NPT launch counts of that last run in the kernels line.
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -205,12 +219,14 @@ def cuda_ms(fn, reps: int = 10, setup=None) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 10, setup=None, tries: int = 5) -> float:
+def device_ms(fn, reps: int = 10, setup=None, tries: int = 12) -> float:
     """Device time per call of fn(): every kernel, copy and fill it puts
     on the card, from a torch.profiler trace of reps calls (the host
     time of the wrapper around them left out).  A trace that lost its
-    lead (device_trace.TraceLost) is taken again on fresh inputs."""
-    for _ in range(tries):
+    lead (device_trace.TraceLost) is taken again on fresh inputs, with a
+    lead up to 4 times as long each time (at most 256 times the first:
+    the losses come in runs, and a longer lead ends them)."""
+    for attempt in range(tries):
         args = [None if setup is None else setup() for _ in range(reps + 1)]
         fn() if setup is None else fn(args[0])   # warm-up
 
@@ -219,7 +235,8 @@ def device_ms(fn, reps: int = 10, setup=None, tries: int = 5) -> float:
                 fn() if setup is None else fn(arg)
 
         try:
-            events = device_trace.device_events(run)
+            events = device_trace.device_events(
+                run, device_trace.SPIN_CYCLES * 4 ** min(attempt, 4))
         except device_trace.TraceLost as e:
             print(f"[trace] {e}; tracing again")
             continue
@@ -616,7 +633,8 @@ def _pppm_time(pm, st, n, c, rhat, e_mesh, acc, out):
     acc_size = torch.empty((), dtype=acc).element_size()
     # deposit: the library route is index_add_ of the per-point charges
     # (indices and weights precomputed, outside the timing)
-    flat, w3 = pppm_cells._stencil(pm, st, 0, ns)
+    flat, w3 = pppm_cells._stencil(pm, st, 0, ns,
+                                   pppm_cells.mesh_geometry(pm))
     vals = (w3 * st.q[:, None, None, None]).reshape(-1)
     flat = flat.reshape(-1)
     mesh0 = torch.zeros(ngrid, dtype=st.x.dtype, device=st.x.device)
@@ -1506,6 +1524,422 @@ def phase_shake_decks(rec: dict):
     return big
 
 
+# ---- fix npt on the neighbor-list engine (K9, K16): rhodo_npt.yaml ----
+
+NPT_KERNELS = ("nlist_build", "nlist_pair", "traced_greens", "npt_ke3",
+               "npt_vscale_kick", "npt_drift_dilate")
+NPT_PATH = NPT_KERNELS + ("pppm_deposit", "pppm_spectral", "pppm_gather") \
+    + BONDED_KERNELS + ("verlet_kick", "verlet_ke", "nhc_scale")
+NPT_SHAKE = ("shake_ref", "shake_positions", "rattle_velocities")
+# f64 on one copy against the JAX package's f64 record: the CPU parity
+# tolerance of tests/test_torch_npt.py for rows, boxL, omega_dot, the
+# chain and forces; positions in A (their magnitude ~50 A)
+NPT_RECORD_TOL = {"rows": 1e-10, "f": 1e-10, "x": 1e-8}
+# per list entry of the pair pass: the difference and its minimum image
+# 17 (3 subtractions, per axis multiply, rint, multiply, subtract), rsq
+# and the cut tests; inside the cutoff the lj/charmm + coul/long terms
+# (OPS_PAIR less the other atom's force) and the force and virial sums 15
+OPS_LIST_ENTRY = 22
+OPS_LIST_PAIR = OPS_PAIR[("ljcharmm", "long")] - 9 + 15
+# per candidate of the build: difference, minimum image by division (4
+# per axis), rsq 5, the compare
+OPS_BUILD_CAND = 21
+# per mesh point of the influence function: per alias term kmx..kmz 3,
+# kmsq 5, the Green's function 4 and an exp, k . k_m 5, the product 4
+OPS_GREENS_TERM = 22
+
+
+def _npt_state(cfg, prec, replicate, stretch=(1.0, 1.0, 1.01)):
+    """A rhodo_npt.yaml engine on the card and a box stretched about its
+    centre (positions with it), so the kernels read lengths that no host
+    constant holds."""
+    sim = build_simulation(dict(cfg, precision=prec,
+                                replicate=list(replicate)), device="cuda")
+    st = sim.state
+    s = torch.as_tensor(stretch).to(st.boxL)
+    c = torch.as_tensor(sim._center).to(st.boxL)
+    x = (c[:, None] + (st.x - c[:, None]) * s[:, None]).contiguous()
+    return sim, x, st.boxL * s
+
+
+def _build_candidates(sim, nl_spec, x, boxL):
+    """Candidates the build tests: sum over cells of count(c) times the
+    atoms of its 27-cell stencil."""
+    from lammps_buck_intel_tpu_torch.core.box import traced_lo
+
+    nc = nl_spec.nc
+    lo = traced_lo(sim._center, boxL)
+    s = (x - lo[:, None]) / boxL[:, None]
+    s = s - torch.floor(s)
+    ncs = torch.tensor(nc, device=x.device)
+    ci = torch.minimum((s * ncs[:, None].to(s.dtype)).long(),
+                       ncs[:, None] - 1)
+    cid = (ci[0] * nc[1] + ci[1]) * nc[2] + ci[2]
+    count = torch.bincount(cid, minlength=int(np.prod(nc))).view(nc)
+    total = torch.zeros_like(count)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                total += torch.roll(count, (dx, dy, dz), (0, 1, 2))
+    return int((count * total).sum()) - x.shape[1]
+
+
+def _npt_compare(label, name, k, p, tol, errs):
+    k = k if isinstance(k, torch.Tensor) else torch.stack(list(k))
+    p = p if isinstance(p, torch.Tensor) else torch.stack(list(p))
+    d = float((k.double() - p.double()).abs().max())
+    scale = float(p.double().abs().max())
+    errs[name] = max(errs.get(name, 0.0), d)
+    ok = d <= tol * scale and scale > 0.0
+    print(f"[NPT] {label} {name}: max|d| {d:.3e} of {scale:.3e} "
+          f"(tol {tol:g} rel)")
+    if not ok:
+        raise AssertionError(f"{name} {label} disagrees with its plain "
+                             "version")
+
+
+def _npt_kernels_at(sim, x, boxL, label, time_it):
+    """Every kernel of the NPT path against its plain version on the card,
+    on this state; with time_it the f32 times and bounds."""
+    from lammps_buck_intel_tpu_torch.core.box import traced_lo
+    from lammps_buck_intel_tpu_torch.integrate import npt as npt_mod
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_npt
+    from lammps_buck_intel_tpu_torch.models.pair import driver
+    from lammps_buck_intel_tpu_torch.neighbor import neighbor_list as nlm
+
+    flt, acc, dev = x.dtype, sim.precision.acc, x.device
+    ftol, etol = TOL[flt]
+    n = sim.n_atoms
+    errs, work, fns = {}, {}, {}
+    lo = traced_lo(sim._center, boxL)
+    # K9a: the same lists (exact: both keep the candidates in scan order)
+    nk = nlm.build_cell(x, lo, boxL, sim.spec, sim._special)
+    npl = nlm.build_cell_plain(x, lo, boxL, sim.spec, sim._special)
+    torch.cuda.synchronize()
+    same = (torch.equal(nk.idx, npl.idx) and torch.equal(nk.sb, npl.sb)
+            and torch.equal(nk.nnei, npl.nnei))
+    errs["nlist_build"] = 0.0 if same else float("inf")
+    entries = int(nk.nnei.sum())
+    print(f"[NPT] {label} nlist_build: lists identical {same}; K "
+          f"{sim.spec.kmax}, cells {sim.spec.nc} cap {sim.spec.cell_cap}, "
+          f"{entries / n:.1f} neighbors per atom (max "
+          f"{int(nk.nnei.max())}), overflow {bool(nk.overflow)}")
+    if not same or bool(nk.overflow):
+        raise AssertionError(f"nlist_build {label} disagrees with its plain "
+                             "version or overflowed")
+    # K9b: force-only (every step) and with energies (thermo rows)
+    args = (sim.pair, x, sim.typ, sim.q, boxL, nk)
+    kw = dict(acc_dtype=acc, use_special=sim._special is not None)
+    for ev in (False, True):
+        rk = driver.compute_pair(*args, eflag=ev, **kw)
+        rp = driver.compute_pair_plain(*args, eflag=ev, **kw)
+        _npt_compare(label, "nlist_pair", rk[:3], rp[:3], ftol, errs)
+        _npt_compare(label, "nlist_pair virial", rk.virial, rp.virial, etol,
+                     {})
+        if ev:
+            for e in ("evdwl", "ecoul"):
+                _npt_compare(label, f"nlist_pair {e}", getattr(rk, e),
+                             getattr(rp, e), etol, {})
+    rsq_in = 0
+    j = nk.idx.long()
+    for a0 in range(0, n, 1 << 15):
+        jj = j[a0:a0 + (1 << 15)]
+        ok = jj < n
+        jj = torch.where(ok, jj, torch.zeros_like(jj))
+        r2 = 0.0
+        for ax in range(3):
+            d = x[ax, a0:a0 + (1 << 15), None] - x[ax][jj]
+            d = d - torch.round(d / boxL[ax]) * boxL[ax]
+            r2 = r2 + d * d
+        rsq_in += int(((r2 < sim.pair.cutsq_max) & ok).sum())
+    fs = x.element_size()
+    accs = torch.empty((), dtype=acc).element_size()
+    work["nlist_pair"] = (entries * 5 + n * (3 * fs + fs + 4 + 4)
+                          + 3 * n * accs,
+                          entries * OPS_LIST_ENTRY + rsq_in * OPS_LIST_PAIR)
+    fns["nlist_pair"] = (lambda: driver.compute_pair(*args, eflag=False,
+                                                     **kw),
+                         lambda: driver.compute_pair_plain(*args,
+                                                           eflag=False, **kw))
+    cand = _build_candidates(sim, sim.spec, x, boxL)
+    K = sim.spec.kmax
+    work["nlist_build"] = (3 * n * fs + K * n * 5 + 4 * n
+                           + 2 * 4 * int(np.prod(sim.spec.nc))
+                           * sim.spec.cell_cap, cand * OPS_BUILD_CAND)
+    fns["nlist_build"] = (
+        lambda: nlm.build_cell(x, lo, boxL, sim.spec, sim._special),
+        lambda: nlm.build_cell_plain(x, lo, boxL, sim.spec, sim._special))
+    # K16a
+    tp = sim.kspace
+    st_ = tp.consts(dev, flt)
+    Gk = tp.tables(boxL)["G"]
+    Gp = pppm_npt.traced_greens_plain(st_, boxL, tp.g_ewald)
+    _npt_compare(label, "traced_greens", Gk, Gp, etol, errs)
+    npts = int(np.prod(tp.grid))
+    S = st_["ms"][0].shape[0]
+    work["traced_greens"] = (npts * 2 * accs + 6 * S * max(tp.grid) * accs,
+                             npts * (S ** 3 * OPS_GREENS_TERM + 12))
+    fns["traced_greens"] = (lambda: tp.tables(boxL),
+                            lambda: pppm_npt.traced_greens_plain(
+                                st_, boxL, tp.g_ewald))
+    # K16c
+    v = sim.state.v
+    vs = tuple(v.unbind(0))
+    kk = npt_mod.ke3(vs, sim.typ, sim._mass_t, acc).sum(0)
+    kp = npt_mod.ke3_plain(vs, sim.typ, sim._mass_t, acc).sum(0)
+    _npt_compare(label, "npt_ke3", kk, kp, etol, errs)
+    work["npt_ke3"] = (n * (3 * fs + 4), 9 * n)
+    fns["npt_ke3"] = (lambda: npt_mod.ke3(vs, sim.typ, sim._mass_t, acc),
+                      lambda: npt_mod.ke3_plain(vs, sim.typ, sim._mass_t,
+                                                acc))
+    vfac = torch.tensor([1.0, 1.0, 0.9999993], dtype=flt, device=dev)
+    fl = tuple(sim.state.f.unbind(0))
+    vk, vp = v.clone(), v.clone()
+    npt_mod.vscale_kick(tuple(vk.unbind(0)), fl, sim.typ, sim._minv_t, vfac,
+                        sim.dtf)
+    npt_mod.vscale_kick_plain(tuple(vp.unbind(0)), fl, sim.typ, sim._minv_t,
+                              vfac, sim.dtf)
+    _npt_compare(label, "npt_vscale_kick", vk, vp, 0.0, errs)
+    work["npt_vscale_kick"] = (n * (9 * fs + 4), 12 * n)
+    vk_s = tuple(vk.unbind(0))
+    fns["npt_vscale_kick"] = (
+        lambda: npt_mod.vscale_kick(vk_s, fl, sim.typ, sim._minv_t, vfac,
+                                    0.0),
+        lambda: npt_mod.vscale_kick_plain(vk_s, fl, sim.typ, sim._minv_t,
+                                          vfac, 0.0))
+    s3 = torch.tensor([1.0, 1.0, 1.0000004], dtype=flt, device=dev)
+    xk, xp = x.clone(), x.clone()
+    npt_mod.drift_dilate(tuple(xk.unbind(0)), vs, s3, sim._center, sim.dtv)
+    npt_mod.drift_dilate_plain(tuple(xp.unbind(0)), vs, s3, sim._center,
+                               sim.dtv)
+    _npt_compare(label, "npt_drift_dilate", xk, xp, 0.0, errs)
+    work["npt_drift_dilate"] = (n * 9 * fs, 15 * n)
+    xk_s = tuple(xk.unbind(0))
+    fns["npt_drift_dilate"] = (
+        lambda: npt_mod.drift_dilate(xk_s, vs, s3, sim._center, 0.0),
+        lambda: npt_mod.drift_dilate_plain(xk_s, vs, s3, sim._center, 0.0))
+    # K5-K8 with the box on the card, atom order
+    kc = tp.tables(boxL)
+    rk = tp.compute_traced(x, sim.q, boxL, eflag=True, kc=kc)
+    xc, qc, Lc = x.cpu(), sim.q.cpu(), boxL.cpu()
+    rp = tp.compute_traced(xc, qc, Lc, eflag=True, kc=tp.tables(Lc))
+    _npt_compare(label, "traced pppm forces", torch.stack(rk.f).cpu(),
+                 torch.stack(rp.f), ftol, errs)
+    _npt_compare(label, "traced pppm elong", rk.elong.cpu(), rp.elong, etol,
+                 {})
+    _npt_compare(label, "traced pppm virial", rk.virial.cpu(), rp.virial,
+                 etol, {})
+    # K13 with the box on the card and the step's constraint virial
+    if sim.shake is not None:
+        t, inv = sim._shake_t, sim._inv
+        xs0 = tuple(x.unbind(0))
+        xn = (x + sim.dtv * v).contiguous()
+        ro_k = shake.shake_ref(t, xs0, inv, boxL)
+        ro_p = shake.shake_ref_plain(t, xs0, inv, boxL)
+        _npt_compare(label, "shake_ref", ro_k, ro_p, etol, errs)
+        pk, pv_ = xn.clone(), v.clone()
+        pp, pvp = xn.clone(), v.clone()
+        vf = 1.0 / (sim.dtv * sim.dtf)
+        rn_k, wk = shake.shake_positions(t, ro_k, tuple(pk.unbind(0)),
+                                         tuple(pv_.unbind(0)), inv, boxL,
+                                         sim.dtv, sim.shake.iters, vf)
+        rn_p, wp = shake.shake_positions_plain(
+            t, ro_p, tuple(pp.unbind(0)), tuple(pvp.unbind(0)), inv, boxL,
+            sim.dtv, sim.shake.iters, vf)
+        ulp = float(torch.finfo(flt).eps) * float(boxL.max())
+        xt = 0.0 if flt == torch.float64 else 4 * ulp / float(pp.abs().max())
+        _npt_compare(label, "shake_positions x", pk, pp, xt + etol, errs)
+        _npt_compare(label, "shake_positions virial", wk, wp, etol, {})
+        rk_v, rp_v = pv_.clone(), pvp.clone()
+        shake.rattle_velocities(t, tuple(rk_v.unbind(0)), inv, boxL,
+                                xs=tuple(pk.unbind(0)))
+        shake.rattle_velocities_plain(t, tuple(rp_v.unbind(0)), inv, boxL,
+                                      xs=tuple(pp.unbind(0)))
+        vt = 0.0 if flt == torch.float64 else \
+            4 * ulp / sim.dtv / float(rp_v.abs().max())
+        _npt_compare(label, "rattle_velocities", rk_v, rp_v, vt + etol, errs)
+    # K14 with the box on the card, atom order
+    if sim.bonded is not None:
+        for name, style in _bonded_by_kernel(sim.bonded).items():
+            errs[name] = _bonded_compare(f"{label} {name} (box on the card)",
+                                         style, tuple(x.unbind(0)), boxL,
+                                         None, acc)
+    out = {}
+    if time_it:
+        for name, (kern, plain) in fns.items():
+            ms, dev_ms = cuda_ms(kern), device_ms(kern)
+            plain_ms = cuda_ms(plain, reps=3)
+            b_ms, b_by = bound(*work[name])
+            print(f"[NPT] {name} {label}: kernel {ms:.4f} ms (device "
+                  f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}; {work[name][0]:,} bytes, "
+                  f"{work[name][1]:,} operations)")
+            out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=errs[name], library_ms=None)
+    return out
+
+
+def phase_npt_kernels():
+    """K9a, K9b, K16a, K16c and the extended K5-K8 / K13 / K14 entry points
+    against their plain versions on the card: rhodo_npt.yaml's stack on
+    one copy in f64 and f32, and at 248,832 atoms in f32, where the new
+    kernels are timed."""
+    cfg = load_deck("rhodo_npt.yaml")
+    out = {}
+    for replicate, precs in (((1, 1, 1), ("double", "single")),
+                             (BIG_REPLICATE, ("single",))):
+        for prec in precs:
+            sim, x, boxL = _npt_state(cfg, prec, replicate)
+            label = f"rhodo_npt x{'x'.join(map(str, replicate))}/{prec}"
+            big = replicate == BIG_REPLICATE
+            res = _npt_kernels_at(sim, x, boxL, label, time_it=big)
+            if big:
+                out = res
+            del sim, x, boxL
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_npt_record(rec: dict):
+    """rhodo_npt.yaml in f64 on one copy (1,728 atoms, the box on the card
+    from the first step) against the JAX package's f64 record: step-0
+    forces, the rows every 5 steps to 20 with boxL and omega_dot, the final
+    positions, images, box, strain rate and chain."""
+    f64 = rec["f64"]
+    cfg = load_deck("rhodo_npt.yaml")
+    cfg.update(replicate=[1, 1, 1], precision="double")
+    ops.reset_launches()
+    sim = build_simulation(cfg, device="cuda")
+    if (sim.n_atoms != f64["n_atoms"] or list(sim.kspace.grid)
+            != f64["pppm_grid"] or sim.kspace.g_ewald != f64["g_ewald"]
+            or sim.spec.kmax != f64["spec"]["kmax"]):
+        raise AssertionError("rhodo_npt f64: atoms, mesh, g_ewald or list "
+                             "capacity differ from the record")
+    pick = np.asarray(f64["atoms"])
+    f0 = sim.get_atoms()["f"]
+    rows = sim.run(f64["steps"], thermo_every=f64["every"], log=False)
+    at = sim.get_atoms()
+    ref_f = np.asarray(f64["f0"])
+    errs = {"f0": float(np.abs(f0[pick] - ref_f).max()) / np.abs(ref_f).max(),
+            "x_end": float(np.abs(at["x"][pick] - np.asarray(f64["x_end"]))
+                           .max()),
+            "boxL_end": float(np.abs(at["boxL"] - f64["boxL_end"]).max()
+                              / max(f64["boxL_end"])),
+            "omega_dot_end": float(np.abs(sim.state.omega_dot.cpu().numpy()
+                                          - f64["omega_dot_end"]).max()
+                                   / np.abs(f64["omega_dot_end"]).max()),
+            "therm": float(np.abs(sim.state.therm.cpu().numpy()
+                                  - np.asarray(f64["therm"])).max()
+                           / np.abs(np.asarray(f64["therm"])).max())}
+    tol = {"f0": NPT_RECORD_TOL["f"], "x_end": NPT_RECORD_TOL["x"],
+           "boxL_end": NPT_RECORD_TOL["rows"],
+           "omega_dot_end": NPT_RECORD_TOL["rows"],
+           "therm": NPT_RECORD_TOL["rows"]}
+    for r, ref in zip(rows, f64["rows"], strict=True):
+        for k in ("temp", "press", "vol", "evdwl", "ecoul", "elong", "emol",
+                  "etotal"):
+            errs[f"{k}@{ref['step']}"] = scalar_rel(r[k], ref[k])
+            tol[f"{k}@{ref['step']}"] = NPT_RECORD_TOL["rows"]
+        for k in ("boxL", "omega_dot"):
+            want = np.asarray(ref[k])
+            errs[f"{k}@{ref['step']}"] = float(
+                np.abs(r[k] - want).max() / max(np.abs(want).max(), 1e-300))
+            tol[f"{k}@{ref['step']}"] = NPT_RECORD_TOL["rows"]
+    images_ok = bool(np.array_equal(at["image"][pick],
+                                    np.asarray(f64["image_end"])))
+    ran = dict(ops.LAUNCHES)
+    print(f"[NPT record] rhodo_npt.yaml f64, {sim.n_atoms} atoms, mesh "
+          f"{sim.kspace.grid}, K {sim.spec.kmax}: worst row "
+          f"{max(v for k, v in errs.items() if '@' in k):.3e}, "
+          + ", ".join(f"{k} {errs[k]:.3e}" for k in errs if "@" not in k)
+          + f", images equal {images_ok}; launches {ran}")
+    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+    if bad or not images_ok or any(ran[k] <= 0
+                                   for k in NPT_PATH + NPT_SHAKE):
+        raise AssertionError(f"rhodo_npt f64 disagrees with the JAX record: "
+                             f"{bad}")
+
+
+def phase_npt_deck(rec: dict, replicate=None):
+    """rhodo_npt.yaml through build_simulation and run as run_deck calls
+    them, launch counts set to 0 just before and read just after: at
+    31,104 atoms unedited (step 0 against long_rhodo_npt.json under the
+    _STEP0_FIELDS rule, the rows at 50 and 100 against the scaled one-copy
+    record at its row_tol); at replicate [6, 6, 4] step 0 against the
+    record scaled to 144 copies.  Every kernel of the path launched, no
+    guard fired; returns launches and ms/step."""
+    cfg = load_deck("rhodo_npt.yaml")
+    key = "3x3x2"
+    if replicate is not None:
+        cfg["replicate"] = list(replicate)
+        key = "x".join(map(str, replicate))
+    full = rec["full"][key]
+    name = f"rhodo_npt.yaml x{key}"
+    ops.reset_launches()
+    sim = build_simulation(cfg, device="cuda")
+    rows = sim.run(int(cfg["run"]), thermo_every=int(cfg["thermo"]),
+                   log=False)
+    ran = dict(ops.LAUNCHES)
+    n, steps = sim.n_atoms, int(cfg["run"])
+    missing = [k for k in NPT_PATH + NPT_SHAKE if ran[k] <= 0]
+    if missing or n != full["n_atoms"] or rows[-1]["step"] != steps:
+        raise AssertionError(f"{name}: {n} atoms, {rows[-1]['step']} steps, "
+                             f"kernels not launched {missing}")
+    if (list(sim.kspace.grid) != full["pppm_grid"]
+            or abs(sim.kspace.g_ewald - full["g_ewald"])
+            > 1e-12 * full["g_ewald"] or sim.dof != full["dof"]):
+        raise AssertionError(f"{name}: mesh, g_ewald or degrees of freedom "
+                             "differ from the record")
+    step0 = (load_golden("long_rhodo_npt.json")["rows"][0]
+             if replicate is None else full["rows"][0])
+    row = rows[0]
+    scale = max(abs(step0["epair"]), 1.0)
+    for k, rtol in STEP0.items():
+        if k == "press" and n > 5000:
+            rtol = 2e-2
+        t = rtol * (scale if k not in ("temp", "press")
+                    else max(abs(step0[k]), 1.0))
+        if not abs(row[k] - step0[k]) <= t:
+            raise AssertionError(f"{name} step-0 {k}: {row[k]:.8g} vs "
+                                 f"record {step0[k]:.8g} (tol {t:.3g})")
+    report = []
+    for r in rows:
+        for k in ("temp", "press", "etotal", "vol"):
+            if not np.isfinite(r[k]):
+                raise AssertionError(f"{name}: non-finite {k}")
+    if replicate is None:
+        rt = rec["row_tol"]
+        want = {int(r["step"]): r for r in full["rows"]}
+        for r in rows[1:]:
+            w = want[r["step"]]
+            d = {"temp": abs(r["temp"] - w["temp"]),
+                 "press": abs(r["press"] - w["press"]),
+                 "vol": abs(r["vol"] - w["vol"]) / w["vol"],
+                 "etotal": abs(r["etotal"] - w["etotal"]) / n}
+            report.append(f"step {r['step']}: " + ", ".join(
+                f"{k} {r[k]:.6g} (record {w[k]:.6g}, |d| {d[k]:.3e}, tol "
+                f"{rt[k]:.3e})" for k in d))
+            bad = [k for k in d if not d[k] <= rt[k]]
+            if bad:
+                raise AssertionError(f"{name} step {r['step']}: {bad} off "
+                                     "the record: " + report[-1])
+    wall = sim.timings["run"]
+    print(f"[NPT deck] {name}: {n} atoms x {steps} steps in {wall:.3f} s -> "
+          f"{n * steps / wall:,.0f} atom-steps/s, {1e3 * wall / steps:.4f} "
+          f"ms/step (thermo every {cfg['thermo']}); mesh {sim.kspace.grid}, "
+          f"K {sim.spec.kmax}, cells {sim.spec.nc} cap {sim.spec.cell_cap}; "
+          f"step 0 temp {row['temp']:.6g} etotal {row['etotal']:.8g} press "
+          f"{row['press']:.6g} (record {step0['temp']:.6g}, "
+          f"{step0['etotal']:.8g}, {step0['press']:.6g}); rows " + "; ".join(
+              f"{r['step']}: T {r['temp']:.4f} P {r['press']:.4f} E "
+              f"{r['etotal']:.6f} L {np.round(r['boxL'], 5).tolist()}"
+              for r in rows) + f"; launches {ran}")
+    for line in report:
+        print(f"[NPT deck] {name} {line}")
+    return dict(launches=ran, ms_step=1e3 * wall / steps, row=row)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1556,6 +1990,17 @@ def main():
     print(f"[deck] rhodo_nve.yaml at {n_big} atoms: "
           f"{sbig['ms_step']:.4f} ms/step, "
           f"{n_big / sbig['ms_step'] * 1e3:,.0f} atom-steps/s")
+    torch.cuda.empty_cache()
+
+    # fix npt on the neighbor-list engine (K9, K16): rhodo_npt.yaml
+    knpt = phase_npt_kernels()
+    npt_rec = load_golden("torch_rhodo_npt.json")
+    phase_npt_record(npt_rec)
+    npt = phase_npt_deck(npt_rec)
+    nbig = phase_npt_deck(npt_rec, BIG_REPLICATE)
+    for r, size in ((npt, 31104), (nbig, n_big)):
+        print(f"[deck] rhodo_npt.yaml at {size} atoms: {r['ms_step']:.4f} "
+              f"ms/step, {size / r['ms_step'] * 1e3:,.0f} atom-steps/s")
 
     def row(name, source, replaces, launch_key, r, launches=launches):
         return dict(name=name, route="cuda", source=f"{SRC}/{source}",
@@ -1614,6 +2059,20 @@ def main():
             "rattle_velocities", k13["rattle_velocities"], sbig["launches"]),
         row("shake_virial", "shake.cu", "integrate/shake.py:578",
             "shake_virial", k13["shake_virial"], sbig["launches"]),
+        # fix npt: times at 248,832 atoms, launches of rhodo_npt.yaml's run
+        # at that size
+        row("nlist_build", "nlist.cu", "neighbor/neighbor_list.py:210",
+            "nlist_build", knpt["nlist_build"], nbig["launches"]),
+        row("nlist_pair", "nlist.cu", "models/pair/driver.py:78",
+            "nlist_pair", knpt["nlist_pair"], nbig["launches"]),
+        row("traced_greens", "npt.cu", "models/kspace/pppm_npt.py:202",
+            "traced_greens", knpt["traced_greens"], nbig["launches"]),
+        row("npt_ke3", "npt.cu", "integrate/npt.py:442", "npt_ke3",
+            knpt["npt_ke3"], nbig["launches"]),
+        row("npt_vscale_kick", "npt.cu", "integrate/npt.py:553",
+            "npt_vscale_kick", knpt["npt_vscale_kick"], nbig["launches"]),
+        row("npt_drift_dilate", "npt.cu", "integrate/npt.py:579",
+            "npt_drift_dilate", knpt["npt_drift_dilate"], nbig["launches"]),
     ]
     print(f"[K1] buck_big buck branch: {json.dumps(k1['buck_big'])}")
     print(f"[K2] buck_big: {json.dumps(k2_big)}")

@@ -1,14 +1,19 @@
-"""Orthogonal periodic simulation box (host numpy).
+"""Orthogonal periodic simulation box.
 
 Counterpart of ``lammps_buck_intel_tpu.core.box`` for orthogonal boxes.
-The box stays on the host: its constants are passed to the kernels as
-scalars.  Triclinic (tilted) boxes are ROADMAP queue 1 item 14.
+A fixed box stays on the host (``Box``): its constants are passed to the
+kernels as scalars.  The variable cell of ``fix npt`` lives on the card
+instead, as a (3,) tensor of lengths about a fixed centre, so that no
+step reads it back: ``traced_lo``, ``wrap`` and ``minimum_image_planes``
+take it as a tensor (the JAX package's traced ``axis_lengths`` path).
+Triclinic (tilted) boxes are ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class Box(NamedTuple):
@@ -63,3 +68,40 @@ def make_box(lo, hi, periodic=(True, True, True), dtype=None,
         hi=np.asarray(hi, dtype=dt),
         periodic=np.asarray(periodic, dtype=bool),
     )
+
+
+# ---------- the variable cell: box lengths as a tensor on the card ----------
+
+def traced_lo(center, boxL: torch.Tensor) -> torch.Tensor:
+    """(3,) lower corner centre - L / 2 of a cell about a fixed centre, in
+    boxL's dtype (the centre rounded to it first, as the JAX package's
+    NPT runner rounds it).  center: host floats, or a (3,) tensor already
+    on boxL's device (no host-to-device copy, which would wait for the
+    stream)."""
+    if not isinstance(center, torch.Tensor):
+        center = torch.as_tensor(np.asarray(center, np.float64))
+    return center.to(boxL) - 0.5 * boxL
+
+
+def wrap(x: torch.Tensor, image: torch.Tensor, lo: torch.Tensor,
+         boxL: torch.Tensor):
+    """Wrap (3, N) position planes into the cell and count the crossings in
+    the (3, N) int32 image flags: n = floor((x - lo) / L), x - n L, image +
+    n (LAMMPS Domain::pbc; the JAX package's ``wrap``).  Returns new
+    tensors."""
+    L = boxL.to(x.dtype)[:, None]
+    n = torch.floor((x - lo.to(x.dtype)[:, None]) / L)
+    return x - n * L, image + n.to(image.dtype)
+
+
+def minimum_image_planes(dx, dy, dz, L):
+    """Component-plane minimum image d - round(d * (1 / L)) L per axis
+    (round half to even).  L: host floats, or a (3,) tensor on the planes'
+    device (the variable cell), whose reciprocal is taken in its dtype."""
+    if isinstance(L, torch.Tensor):
+        Lt = L.to(dx.dtype)
+        inv = 1.0 / Lt
+        return tuple(d - torch.round(d * inv[a]) * Lt[a]
+                     for a, d in enumerate((dx, dy, dz)))
+    return tuple(d - torch.round(d * (1.0 / float(La))) * float(La)
+                 for d, La in zip((dx, dy, dz), L))

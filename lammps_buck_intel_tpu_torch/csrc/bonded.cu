@@ -89,6 +89,17 @@ struct Frame {
   const T* z;
   const int* inv;  // slot of atom, or null when the planes are in atom order
   T L[3], Linv[3];
+  const T* dev;  // box lengths on the card (variable-cell path), or null
+
+  // take the box from the card where it lives there; the reciprocal is
+  // then taken in T, as the plain version takes it
+  __device__ __forceinline__ void resolve() {
+    if (!dev) return;
+    for (int a = 0; a < 3; ++a) {
+      L[a] = dev[a];
+      Linv[a] = T(1) / dev[a];
+    }
+  }
 
   __device__ __forceinline__ int slot(int atom) const {
     return inv ? inv[atom] : atom;
@@ -163,6 +174,7 @@ __global__ void bond_angle_kernel(Frame<T> fr, const int* __restrict__ bonds,
                                   const int* __restrict__ angles, int na,
                                   const T* __restrict__ acoef,
                                   Forces<T, A> out, A* __restrict__ partial) {
+  fr.resolve();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   A vals[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   if (t < nb) {
@@ -287,6 +299,7 @@ __global__ void dihedral_charmm_kernel(Frame<T> fr,
                                        const T* __restrict__ d14,
                                        Forces<T, A> out,
                                        A* __restrict__ partial) {
+  fr.resolve();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   A vals[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
   if (t < nd) {
@@ -358,6 +371,7 @@ __global__ void improper_harmonic_kernel(Frame<T> fr,
                                          int ni, const T* __restrict__ icoef,
                                          Forces<T, A> out,
                                          A* __restrict__ partial) {
+  fr.resolve();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   A vals[7] = {0, 0, 0, 0, 0, 0, 0};
   if (t < ni) {
@@ -396,7 +410,8 @@ __global__ void improper_harmonic_kernel(Frame<T> fr,
 
 template <typename T>
 Frame<T> make_frame(const void* x, const void* y, const void* z,
-                    const void* inv, double Lx, double Ly, double Lz) {
+                    const void* inv, double Lx, double Ly, double Lz,
+                    const void* Ldev) {
   Frame<T> fr;
   fr.x = static_cast<const T*>(x);
   fr.y = static_cast<const T*>(y);
@@ -407,6 +422,7 @@ Frame<T> make_frame(const void* x, const void* y, const void* z,
     fr.L[a] = static_cast<T>(L[a]);
     fr.Linv[a] = static_cast<T>(1.0 / L[a]);  // f64 reciprocal, rounded once
   }
+  fr.dev = static_cast<const T*>(Ldev);
   return fr;
 }
 
@@ -417,9 +433,9 @@ int launch_bond_angle(int ev, const void* x, const void* y, const void* z,
                       const void* inv, const void* bonds, int nb,
                       const void* bcoef, const void* angles, int na,
                       const void* acoef, double Lx, double Ly, double Lz,
-                      void* fx, void* fy, void* fz, void* partial,
-                      cudaStream_t s) {
-  const Frame<T> fr = make_frame<T>(x, y, z, inv, Lx, Ly, Lz);
+                      const void* Ldev, void* fx, void* fy, void* fz,
+                      void* partial, cudaStream_t s) {
+  const Frame<T> fr = make_frame<T>(x, y, z, inv, Lx, Ly, Lz, Ldev);
   const Forces<T, A> out = {static_cast<A*>(fx), static_cast<A*>(fy),
                             static_cast<A*>(fz)};
   const int blocks = blocks_for(nb + na);
@@ -440,9 +456,10 @@ template <typename T, typename A>
 int launch_dihedral(int ev, const void* x, const void* y, const void* z,
                     const void* inv, const void* dihedrals, int nd,
                     const void* dcoef, const void* dmult, const void* d14,
-                    double Lx, double Ly, double Lz, void* fx, void* fy,
-                    void* fz, void* partial, cudaStream_t s) {
-  const Frame<T> fr = make_frame<T>(x, y, z, inv, Lx, Ly, Lz);
+                    double Lx, double Ly, double Lz, const void* Ldev,
+                    void* fx, void* fy, void* fz, void* partial,
+                    cudaStream_t s) {
+  const Frame<T> fr = make_frame<T>(x, y, z, inv, Lx, Ly, Lz, Ldev);
   const Forces<T, A> out = {static_cast<A*>(fx), static_cast<A*>(fy),
                             static_cast<A*>(fz)};
   const int blocks = blocks_for(nd);
@@ -464,9 +481,9 @@ template <typename T, typename A>
 int launch_improper(int ev, const void* x, const void* y, const void* z,
                     const void* inv, const void* impropers, int ni,
                     const void* icoef, double Lx, double Ly, double Lz,
-                    void* fx, void* fy, void* fz, void* partial,
-                    cudaStream_t s) {
-  const Frame<T> fr = make_frame<T>(x, y, z, inv, Lx, Ly, Lz);
+                    const void* Ldev, void* fx, void* fy, void* fz,
+                    void* partial, cudaStream_t s) {
+  const Frame<T> fr = make_frame<T>(x, y, z, inv, Lx, Ly, Lz, Ldev);
   const Forces<T, A> out = {static_cast<A*>(fx), static_cast<A*>(fy),
                             static_cast<A*>(fz)};
   const int blocks = blocks_for(ni);
@@ -487,7 +504,9 @@ int launch_improper(int ev, const void* x, const void* y, const void* z,
 
 // In all three: prec 0 = (float, float), 1 = (float, double), 2 = (double,
 // double); x/y/z are flt slot planes, inv the int32 slot-of-atom map (null:
-// the planes are in atom order), fx/fy/fz acc planes that the forces are
+// the planes are in atom order), Lx/Ly/Lz the host box or, with Ldev not
+// null, the 3 flt box lengths read on the card (the variable-cell path),
+// fx/fy/fz acc planes that the forces are
 // ADDED to.  ev != 0 also writes partial[blocks][NV] (acc), blocks =
 // ceil(terms / 128); the term count must be positive.
 #define BY_PRECISION(fn, ...)                                   \
@@ -504,11 +523,12 @@ extern "C" int bonded_bond_angle(int prec, int ev, const void* x,
                                  const void* inv, const void* bonds, int nb,
                                  const void* bcoef, const void* angles,
                                  int na, const void* acoef, double Lx,
-                                 double Ly, double Lz, void* fx, void* fy,
-                                 void* fz, void* partial, void* stream) {
+                                 double Ly, double Lz, const void* Ldev,
+                                 void* fx, void* fy, void* fz, void* partial,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BY_PRECISION(launch_bond_angle, ev, x, y, z, inv, bonds, nb, bcoef, angles,
-               na, acoef, Lx, Ly, Lz, fx, fy, fz, partial, s)
+               na, acoef, Lx, Ly, Lz, Ldev, fx, fy, fz, partial, s)
 }
 
 // NV = 9: edihed, e14_lj, e14_coul, virial[6].  dihedrals (nd, 5) int32.
@@ -517,11 +537,12 @@ extern "C" int dihedral_charmm(int prec, int ev, const void* x,
                                const void* dihedrals, int nd,
                                const void* dcoef, const void* dmult,
                                const void* d14, double Lx, double Ly,
-                               double Lz, void* fx, void* fy, void* fz,
-                               void* partial, void* stream) {
+                               double Lz, const void* Ldev, void* fx,
+                               void* fy, void* fz, void* partial,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BY_PRECISION(launch_dihedral, ev, x, y, z, inv, dihedrals, nd, dcoef, dmult,
-               d14, Lx, Ly, Lz, fx, fy, fz, partial, s)
+               d14, Lx, Ly, Lz, Ldev, fx, fy, fz, partial, s)
 }
 
 // NV = 7: eimp, virial[6].  impropers (ni, 5) int32.
@@ -529,9 +550,10 @@ extern "C" int improper_harmonic(int prec, int ev, const void* x,
                                  const void* y, const void* z,
                                  const void* inv, const void* impropers,
                                  int ni, const void* icoef, double Lx,
-                                 double Ly, double Lz, void* fx, void* fy,
-                                 void* fz, void* partial, void* stream) {
+                                 double Ly, double Lz, const void* Ldev,
+                                 void* fx, void* fy, void* fz, void* partial,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BY_PRECISION(launch_improper, ev, x, y, z, inv, impropers, ni, icoef, Lx,
-               Ly, Lz, fx, fy, fz, partial, s)
+               Ly, Lz, Ldev, fx, fy, fz, partial, s)
 }

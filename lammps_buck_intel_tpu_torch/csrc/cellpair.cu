@@ -19,6 +19,9 @@
 //   (1 - special_coul[code])) of its Coulomb term, because k-space holds
 //   every pair.
 //
+// The per-pair expressions live in pair_terms.cuh, shared with the
+// neighbor-list kernel (csrc/nlist.cu).
+//
 // Design.  One thread block per cell, one thread per slot of the cell
 // (blockDim = cap rounded up to a warp).  The block walks the FULL
 // (3, 3, 2*reach_z+1) stencil of neighbour cells; for each it stages the
@@ -65,20 +68,12 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_terms.cuh"
+
 namespace {
 
-constexpr int kNcoef = 8;  // COEF_NAMES column layout of styles.py
+using pairterms::kNcoef;
 constexpr int kMaxThreads = 1024;
-// Abramowitz & Stegun 7.1.26 (styles.py EWALD_F, EWALD_P, ERFC_A)
-constexpr double kEwaldF = 1.12837917;
-constexpr double kEwaldP = 0.3275911;
-constexpr double kA1 = 0.254829592, kA2 = -0.284496736, kA3 = 1.421413741,
-                 kA4 = -1.453152027, kA5 = 1.061405429;
-
-__device__ __forceinline__ float dev_exp(float v) { return expf(v); }
-__device__ __forceinline__ double dev_exp(double v) { return exp(v); }
-__device__ __forceinline__ float dev_sqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double dev_sqrt(double v) { return sqrt(v); }
 
 template <typename A>
 __device__ __forceinline__ A warp_sum(A v) {
@@ -176,16 +171,11 @@ __global__ void cellpair_kernel(
       const T dx = xi - s_x[j];
       const T dy = yi - s_y[j];
       const T dz = zi - s_z[j];
-      T rsq = dx * dx + dy * dy + dz * dz;
-      rsq = rsq > T(1e-12) ? rsq : T(1e-12);
+      const T rsq = pairterms::clamp_rsq(dx * dx + dy * dy + dz * dz);
       const T* cf = crow + s_typ[j] * kNcoef;
       // strict cut tests (COUL is a template constant)
-      const bool in_lj = rsq < cf[5];              // cut_ljsq
-      const bool in_coul = COUL && rsq < cf[7];    // cut_coulsq
-      if (!in_lj && !in_coul) continue;
-      const T r2inv = T(1) / rsq;
-      const T r = dev_sqrt(rsq);
-      T fpair = 0, evdwl = 0, ecoul = 0;
+      bool in_lj, in_coul;
+      if (!pairterms::cut_tests<T, COUL>(rsq, cf, in_lj, in_coul)) continue;
       T f_lj = 1, f_coul = 1;
       if (SPECIAL) {
         int code = 0;
@@ -196,49 +186,10 @@ __global__ void cellpair_kernel(
         f_lj = s_fac[code];
         f_coul = s_fac[4 + code];
       }
-      if (in_lj && (!SPECIAL || f_lj != T(0))) {
-        const T r6inv = r2inv * r2inv * r2inv;
-        if (VDW == 0) {
-          const T rexp = dev_exp(-r * cf[4]);
-          fpair = r * rexp * cf[0] - r6inv * cf[1];  // buck1, buck2; rhoinv
-          if (EV) evdwl = cf[2] * rexp - cf[3] * r6inv - cf[6];
-        } else {
-          const T forcelj = r6inv * r6inv * cf[0] - r6inv * cf[1];
-          const T philj = r6inv * r6inv * cf[2] - cf[3] * r6inv;
-          fpair = forcelj;
-          evdwl = philj;
-          if (rsq > inner_sq) {
-            const T tt = cf[5] - rsq;
-            const T switch1 =
-                tt * tt * (cf[5] + T(2) * rsq - T(3) * inner_sq) / denom_lj;
-            const T switch2 = T(12) * rsq * tt * (rsq - inner_sq) / denom_lj;
-            fpair = forcelj * switch1 + philj * switch2;
-            evdwl = philj * switch1;
-          }
-        }
-        if (SPECIAL) {
-          fpair *= f_lj;
-          evdwl *= f_lj;
-        }
-      }
-      if (in_coul) {
-        const T prefactor = qqi * s_q[j] * (r * r2inv);
-        const T grij = g_ewald * r;
-        const T expm2 = dev_exp(-grij * grij);
-        const T t = T(1) / (T(1) + static_cast<T>(kEwaldP) * grij);
-        const T erfc =
-            t * (T(kA1) + t * (T(kA2) + t * (T(kA3) + t * (T(kA4) +
-                 t * T(kA5))))) * expm2;
-        T fcoul = prefactor * (erfc + static_cast<T>(kEwaldF) * grij * expm2);
-        if (EV) ecoul = prefactor * erfc;
-        if (SPECIAL) {
-          const T adjust = (T(1) - f_coul) * prefactor;
-          fcoul -= adjust;
-          ecoul -= adjust;
-        }
-        fpair += fcoul;
-      }
-      const T fs = fpair * r2inv;
+      T evdwl, ecoul;
+      const T fs = pairterms::pair_force<T, EV, COUL, VDW, SPECIAL>(
+          rsq, in_lj, in_coul, cf, qqi, s_q + j, f_lj, f_coul, g_ewald,
+          inner_sq, denom_lj, evdwl, ecoul);
       fxi += static_cast<A>(fs * dx);
       fyi += static_cast<A>(fs * dy);
       fzi += static_cast<A>(fs * dz);

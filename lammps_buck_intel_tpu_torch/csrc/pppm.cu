@@ -8,6 +8,11 @@
 //                    and the ik spectra of CellPPPM._ik_forces (:1139);
 //   pppm_gather   <- gather_zblock (:633) in mode "ik" and the q * qqrd2e
 //                    scaling of CellPPPM._ik_forces (:1155).
+// and, on the variable-cell (fix npt) path, the ik branch of
+// models/kspace/pppm_npt.py TracedPPPM.compute_traced (:277; deposit
+// :294-306, spectra :317-343, gather :372-387): there the planes are in
+// atom order (aid = identity), the box is read from the card (boxL) and
+// the caller rebuilds G and k from it.
 // The JAX package moves charge through per-cell spline patches and one-hot
 // matrix products, TPU matrix-unit forms without scatters.  A GPU has
 // atomics in L2, so the port takes the generic global-mesh form: each slot
@@ -91,14 +96,31 @@ __device__ __forceinline__ void stage_coef(const T* coef, int p, T* s_coef) {
   __syncthreads();
 }
 
+// The mesh geometry of a box read from the card (the variable-cell path):
+// on entry lo* hold the box centre; lo = centre - L / 2, 1/h = n / L per
+// axis, in the JAX package's TracedPPPM._weights order.
+template <typename T>
+__device__ __forceinline__ void traced_geometry(const T* boxL, MeshGeom g,
+                                                T& lox, T& loy, T& loz,
+                                                T& ihx, T& ihy, T& ihz) {
+  lox = lox - T(0.5) * boxL[0];
+  loy = loy - T(0.5) * boxL[1];
+  loz = loz - T(0.5) * boxL[2];
+  ihx = static_cast<T>(g.nx) / boxL[0];
+  ihy = static_cast<T>(g.ny) / boxL[1];
+  ihz = static_cast<T>(g.nz) / boxL[2];
+}
+
 template <typename T>
 __global__ void pppm_deposit_kernel(const T* __restrict__ x,
     const T* __restrict__ y, const T* __restrict__ z, const T* __restrict__ q,
     const int* __restrict__ aid, int ns, int n, T lox, T loy, T loz, T ihx,
     T ihy, T ihz, MeshGeom g, const T* __restrict__ coef,
+    const T* __restrict__ boxL,
     T* __restrict__ mesh) {
   __shared__ T s_coef[kMaxOrder * kMaxOrder];
   stage_coef(coef, g.p, s_coef);
+  if (boxL) traced_geometry(boxL, g, lox, loy, loz, ihx, ihy, ihz);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= ns || aid[s] >= n) return;
   int ix[kMaxOrder], iy[kMaxOrder], iz[kMaxOrder];
@@ -128,10 +150,12 @@ __global__ void pppm_gather_kernel(const T* __restrict__ x,
     const T* __restrict__ y, const T* __restrict__ z, const T* __restrict__ q,
     const int* __restrict__ aid, int ns, int n, T lox, T loy, T loz, T ihx,
     T ihy, T ihz, MeshGeom g, const T* __restrict__ coef,
+    const T* __restrict__ boxL,
     const T* __restrict__ e, T qqrd2e, A* __restrict__ fx, A* __restrict__ fy,
     A* __restrict__ fz) {
   __shared__ T s_coef[kMaxOrder * kMaxOrder];
   stage_coef(coef, g.p, s_coef);
+  if (boxL) traced_geometry(boxL, g, lox, loy, loz, ihx, ihy, ihz);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= ns) return;
   if (aid[s] >= n) {
@@ -182,12 +206,21 @@ __device__ __forceinline__ A warp_sum(A v) {
 // rhat, ehat: interleaved complex (re, im); ehat holds the three spectra
 // -i k_a G rhat back to back.  EV also writes partial[block][7] = (sum ek,
 // the six sums ek * (delta_ab - pref k_a k_b)), ek = G |rhat|^2 wz.
+// nyq: the full-spectrum conventions of the JAX package's TracedPPPM at
+// the Nyquist planes of even nx, ny.  (1) The x and y spectra take k = 0
+// on their own axis's Nyquist plane, where -i k G rhat is anti-Hermitian:
+// the real part of a full inverse FFT drops it, the c2r of a half spectrum
+// would not.  (2) An off-diagonal virial sum over an interior kz plane
+// (weight 2: the point and its mirror -k) takes weight 0 where exactly one
+// of its two axes sits on its Nyquist index: that index is its own
+// mirror, so k_a k_b changes sign between the point and its mirror and
+// the full sum cancels the pair.
 template <typename A, bool EV>
 __global__ void pppm_spectral_kernel(const A* __restrict__ rhat,
     const A* __restrict__ G, const A* __restrict__ kx,
     const A* __restrict__ ky, const A* __restrict__ kz,
     const A* __restrict__ wz, int nx, int ny, int nzh, A quarter_g2inv,
-    A* __restrict__ ehat, A* __restrict__ partial) {
+    int nyq, A* __restrict__ ehat, A* __restrict__ partial) {
   const int npts = nx * ny * nzh;
   A s0 = 0, s1 = 0, s2 = 0, s3 = 0, s4 = 0, s5 = 0, s6 = 0;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < npts;
@@ -199,10 +232,13 @@ __global__ void pppm_spectral_kernel(const A* __restrict__ rhat,
     const A gv = G[i];
     const A pr = gv * re, pi = gv * im;
     const A kxv = kx[l], kyv = ky[j], kzv = kz[k];
-    ehat[2 * i] = kxv * pi;
-    ehat[2 * i + 1] = -(kxv * pr);
-    ehat[2 * (npts + i)] = kyv * pi;
-    ehat[2 * (npts + i) + 1] = -(kyv * pr);
+    const bool qx = nyq && 2 * l == nx, qy = nyq && 2 * j == ny;
+    const A kxe = qx ? A(0) : kxv;
+    const A kye = qy ? A(0) : kyv;
+    ehat[2 * i] = kxe * pi;
+    ehat[2 * i + 1] = -(kxe * pr);
+    ehat[2 * (npts + i)] = kye * pi;
+    ehat[2 * (npts + i) + 1] = -(kye * pr);
     ehat[2 * (2 * npts + i)] = kzv * pi;
     ehat[2 * (2 * npts + i) + 1] = -(kzv * pr);
     if (EV) {
@@ -210,13 +246,14 @@ __global__ void pppm_spectral_kernel(const A* __restrict__ rhat,
       const A ksq = kxv * kxv + kyv * kyv + kzv * kzv;
       const A ksafe = ksq == A(0) ? A(1) : ksq;
       const A pref = A(2) * (A(1) / ksafe + quarter_g2inv);
+      const bool inner = wz[k] != A(1);  // an interior kz plane
       s0 += ek;
       s1 += ek * (A(1) - pref * kxv * kxv);
       s2 += ek * (A(1) - pref * kyv * kyv);
       s3 += ek * (A(1) - pref * kzv * kzv);
-      s4 += ek * (-pref * kxv * kyv);
-      s5 += ek * (-pref * kxv * kzv);
-      s6 += ek * (-pref * kyv * kzv);
+      if (!(inner && qx != qy)) s4 += ek * (-pref * kxv * kyv);
+      if (!(inner && qx)) s5 += ek * (-pref * kxv * kzv);
+      if (!(inner && qy)) s6 += ek * (-pref * kyv * kzv);
     }
   }
   if (EV) {
@@ -246,7 +283,8 @@ template <typename T>
 int launch_deposit(const void* x, const void* y, const void* z,
                    const void* q, const void* aid, int ns, int n,
                    const double* lo, const double* ih, MeshGeom g,
-                   const void* coef, void* mesh, cudaStream_t st) {
+                   const void* coef, const void* boxL, void* mesh,
+                   cudaStream_t st) {
   if (ns <= 0) return 0;
   pppm_deposit_kernel<T><<<slot_blocks(ns), kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
@@ -254,7 +292,8 @@ int launch_deposit(const void* x, const void* y, const void* z,
       static_cast<const int*>(aid), ns, n, static_cast<T>(lo[0]),
       static_cast<T>(lo[1]), static_cast<T>(lo[2]), static_cast<T>(ih[0]),
       static_cast<T>(ih[1]), static_cast<T>(ih[2]), g,
-      static_cast<const T*>(coef), static_cast<T*>(mesh));
+      static_cast<const T*>(coef), static_cast<const T*>(boxL),
+      static_cast<T*>(mesh));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -262,8 +301,8 @@ template <typename T, typename A>
 int launch_gather(const void* x, const void* y, const void* z, const void* q,
                   const void* aid, int ns, int n, const double* lo,
                   const double* ih, MeshGeom g, const void* coef,
-                  const void* e, double qqrd2e, void* fx, void* fy, void* fz,
-                  cudaStream_t st) {
+                  const void* boxL, const void* e, double qqrd2e, void* fx,
+                  void* fy, void* fz, cudaStream_t st) {
   if (ns <= 0) return 0;
   pppm_gather_kernel<T, A><<<slot_blocks(ns), kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
@@ -271,8 +310,8 @@ int launch_gather(const void* x, const void* y, const void* z, const void* q,
       static_cast<const int*>(aid), ns, n, static_cast<T>(lo[0]),
       static_cast<T>(lo[1]), static_cast<T>(lo[2]), static_cast<T>(ih[0]),
       static_cast<T>(ih[1]), static_cast<T>(ih[2]), g,
-      static_cast<const T*>(coef), static_cast<const T*>(e),
-      static_cast<T>(qqrd2e), static_cast<A*>(fx), static_cast<A*>(fy),
+      static_cast<const T*>(coef), static_cast<const T*>(boxL),
+      static_cast<const T*>(e), static_cast<T>(qqrd2e), static_cast<A*>(fx), static_cast<A*>(fy),
       static_cast<A*>(fz));
   return static_cast<int>(cudaGetLastError());
 }
@@ -280,13 +319,13 @@ int launch_gather(const void* x, const void* y, const void* z, const void* q,
 template <typename A, bool EV>
 int launch_spectral(const void* rhat, const void* G, const void* kx,
                     const void* ky, const void* kz, const void* wz, int nx,
-                    int ny, int nzh, double quarter_g2inv, void* ehat,
-                    void* partial, int nblocks, cudaStream_t st) {
+                    int ny, int nzh, double quarter_g2inv, int nyq,
+                    void* ehat, void* partial, int nblocks, cudaStream_t st) {
   pppm_spectral_kernel<A, EV><<<nblocks, kThreads, 0, st>>>(
       static_cast<const A*>(rhat), static_cast<const A*>(G),
       static_cast<const A*>(kx), static_cast<const A*>(ky),
       static_cast<const A*>(kz), static_cast<const A*>(wz), nx, ny, nzh,
-      static_cast<A>(quarter_g2inv), static_cast<A*>(ehat),
+      static_cast<A>(quarter_g2inv), nyq, static_cast<A*>(ehat),
       static_cast<A*>(partial));
   return static_cast<int>(cudaGetLastError());
 }
@@ -302,13 +341,16 @@ bool geom_ok(MeshGeom g) {
 extern "C" int pppm_threads() { return kThreads; }
 
 // prec: 0 = float, 1 = double (the slot-plane / mesh type).  mesh must be
-// zeroed by the caller; lo and invh are the box origin and 1/h per axis.
+// zeroed by the caller; lo and invh are the box origin and 1/h per axis,
+// or, with boxL (3 lengths of the slot type on the card) not null, lo is
+// the box centre and invh is not read.
 extern "C" int pppm_deposit(int prec, const void* x, const void* y,
                             const void* z, const void* q, const void* aid,
                             int ns, int n, double lox, double loy,
                             double loz, double ihx, double ihy, double ihz,
                             int nx, int ny, int nz, int order,
-                            const void* coef, void* mesh, void* stream) {
+                            const void* coef, const void* boxL, void* mesh,
+                            void* stream) {
   const MeshGeom g{nx, ny, nz, order};
   if (!geom_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
   const double lo[3] = {lox, loy, loz}, ih[3] = {ihx, ihy, ihz};
@@ -316,27 +358,28 @@ extern "C" int pppm_deposit(int prec, const void* x, const void* y,
   switch (prec) {
     case 0:
       return launch_deposit<float>(x, y, z, q, aid, ns, n, lo, ih, g, coef,
-                                   mesh, s);
+                                   boxL, mesh, s);
     case 1:
       return launch_deposit<double>(x, y, z, q, aid, ns, n, lo, ih, g, coef,
-                                    mesh, s);
+                                    boxL, mesh, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // prec: 0 = float, 1 = double (the acc type).  ev != 0 writes
-// partial[nblocks][7].
+// partial[nblocks][7]; nyq as in pppm_spectral_kernel.
 extern "C" int pppm_spectral(int prec, int ev, const void* rhat,
                              const void* G, const void* kx, const void* ky,
                              const void* kz, const void* wz, int nx, int ny,
-                             int nzh, double quarter_g2inv, void* ehat,
-                             void* partial, int nblocks, void* stream) {
+                             int nzh, double quarter_g2inv, int nyq,
+                             void* ehat, void* partial, int nblocks,
+                             void* stream) {
   if (nblocks <= 0 || nx <= 0 || ny <= 0 || nzh <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SPECTRAL_ARGS \
-  rhat, G, kx, ky, kz, wz, nx, ny, nzh, quarter_g2inv, ehat, partial, \
-      nblocks, s
+  rhat, G, kx, ky, kz, wz, nx, ny, nzh, quarter_g2inv, nyq, ehat, \
+      partial, nblocks, s
   switch (prec * 2 + (ev ? 1 : 0)) {
     case 0: return launch_spectral<float, false>(SPECTRAL_ARGS);
     case 1: return launch_spectral<float, true>(SPECTRAL_ARGS);
@@ -349,20 +392,21 @@ extern "C" int pppm_spectral(int prec, int ev, const void* rhat,
 
 // prec: 0 = (float, float), 1 = (float, double), 2 = (double, double) for
 // (flt, acc).  e holds the three flt E meshes back to back; fx/fy/fz are
-// acc-typed (ns,), zero on empty slots.
+// acc-typed (ns,), zero on empty slots.  lo, invh and boxL as in
+// pppm_deposit.
 extern "C" int pppm_gather(int prec, const void* x, const void* y,
                            const void* z, const void* q, const void* aid,
                            int ns, int n, double lox, double loy, double loz,
                            double ihx, double ihy, double ihz, int nx, int ny,
                            int nz, int order, const void* coef,
-                           const void* e, double qqrd2e, void* fx, void* fy,
-                           void* fz, void* stream) {
+                           const void* boxL, const void* e, double qqrd2e,
+                           void* fx, void* fy, void* fz, void* stream) {
   const MeshGeom g{nx, ny, nz, order};
   if (!geom_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
   const double lo[3] = {lox, loy, loz}, ih[3] = {ihx, ihy, ihz};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GATHER_ARGS \
-  x, y, z, q, aid, ns, n, lo, ih, g, coef, e, qqrd2e, fx, fy, fz, s
+  x, y, z, q, aid, ns, n, lo, ih, g, coef, boxL, e, qqrd2e, fx, fy, fz, s
   switch (prec) {
     case 0: return launch_gather<float, float>(GATHER_ARGS);
     case 1: return launch_gather<float, double>(GATHER_ARGS);

@@ -33,6 +33,10 @@
 //                      at i, +1/m_j at j) and, unless v is null (the
 //                      set-up settle), v += (x_fix - x_new) / dt.  rn, the
 //                      corrected bond vectors, is stored for RATTLE.
+//                      With vir (the fix npt step) it also reduces the
+//                      constraint virial sum_c ro_c (x) (-lam_c vfac ro_c),
+//                      vfac = 1 / (dt dtf) (JAX shake.py :525-529), which
+//                      drives the barostat every step.
 //   rattle_velocities  (r_c . r_d) K_cd mu_d = -r_c . dv_c solved once;
 //                      v_a += sum_c W_ca mu_c r_c.  r is SHAKE's rn, or is
 //                      computed from the positions when rn is null.
@@ -55,6 +59,10 @@
 // at the decks' 15,552 clusters a kernel is a few microseconds and launch
 // latency decides.
 //
+// The box.  The cell engine passes host lengths; the variable-cell (fix
+// npt) engine passes Ldev, the lengths on the card, which a kernel reads
+// itself (the box changes every step and never comes to the host).
+//
 // Templates: T (flt) float or double, A (acc) for the virial, MAXC the
 // widest cluster a thread holds (1: C-H bonds; 3: water, CH3; 12: up to
 // twelve constraints on thirteen atoms).  Launches on the caller's
@@ -71,22 +79,34 @@ __device__ __forceinline__ double dev_rint(double v) { return rint(v); }
 __device__ __forceinline__ float dev_abs(float v) { return fabsf(v); }
 __device__ __forceinline__ double dev_abs(double v) { return fabs(v); }
 
+// The box of a launch: host lengths, or (dev not null) lengths read from
+// the card by resolve(), the variable-cell path's box, whose reciprocal is
+// then taken in T as the plain version takes it.
 template <typename T>
 struct Image {
   T L[3], Linv[3];
+  const T* dev;
+  __device__ __forceinline__ void resolve() {
+    if (!dev) return;
+    for (int a = 0; a < 3; ++a) {
+      L[a] = dev[a];
+      Linv[a] = T(1) / dev[a];
+    }
+  }
   __device__ __forceinline__ T operator()(T d, int ax) const {
     return d - dev_rint(d * Linv[ax]) * L[ax];
   }
 };
 
 template <typename T>
-Image<T> make_image(double Lx, double Ly, double Lz) {
+Image<T> make_image(double Lx, double Ly, double Lz, const void* Ldev) {
   Image<T> im;
   const double L[3] = {Lx, Ly, Lz};
   for (int a = 0; a < 3; ++a) {
     im.L[a] = static_cast<T>(L[a]);
     im.Linv[a] = static_cast<T>(1.0 / L[a]);  // f64 reciprocal, rounded once
   }
+  im.dev = static_cast<const T*>(Ldev);
   return im;
 }
 
@@ -269,6 +289,34 @@ __device__ __forceinline__ T dot3(const T (&a)[3][MAXC], int c,
   return a[0][c] * b[0][d] + a[1][c] * b[1][d] + a[2][c] * b[2][d];
 }
 
+template <typename A>
+__device__ __forceinline__ A warp_sum(A v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// vals[6] of every thread of the block -> out[blockIdx.x][6], in a fixed
+// shuffle tree (all threads of the block call it)
+template <typename A>
+__device__ __forceinline__ void block_sum6(const A (&vals)[6], A* out) {
+  __shared__ A red[kThreads / 32][6];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const A s = warp_sum(vals[k]);
+    if (lane == 0) red[warp][k] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const A s = warp_sum(lane < kThreads / 32 ? red[lane][k] : A(0));
+      if (lane == 0) out[blockIdx.x * 6 + k] = s;
+    }
+  }
+}
+
 // ---- K13d: reference bond vectors ----
 template <typename T>
 __global__ void shake_ref_kernel(Tables<T> t, Image<T> im,
@@ -277,6 +325,7 @@ __global__ void shake_ref_kernel(Tables<T> t, Image<T> im,
                                  const T* __restrict__ z, T* __restrict__ ro) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= t.M) return;
+  im.resolve();
   const T* p[3] = {x, y, z};
   for (int c = 0; c < t.C; ++c) {
     const int li = t.pi[c * t.M + m];
@@ -292,77 +341,100 @@ __global__ void shake_ref_kernel(Tables<T> t, Image<T> im,
 }
 
 // ---- K13a: positions ----
+// With vir not null also the constraint virial of the step (fix npt):
+// sum_c ro_c (x) (-lam_c vfac ro_c), 6 components per block in a fixed
+// shuffle tree into vir[block][6] (T), summed by the caller.
 template <typename T, int MAXC>
 __global__ void shake_positions_kernel(Tables<T> t, Image<T> im, T* x, T* y,
                                        T* z, T* vx, T* vy, T* vz,
                                        const T* __restrict__ ro_in,
                                        T* __restrict__ rn_out, T dt,
-                                       int niter) {
+                                       int niter, T vfac,
+                                       T* __restrict__ vir) {
   using Cl = Cluster<T, MAXC>;
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= t.M) return;
-  Cl cl;
-  cl.load(t, m);
-  T xa[3][Cl::MAXA];
-  cl.gather(x, y, z, xa);
-  T rn[3][MAXC], ro[3][MAXC], K[MAXC][MAXC], d2[MAXC], lam[MAXC];
-  cl.diff(xa, &im, rn);
-  cl.coupling(t, m, K);
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    const bool ok = c < cl.nc;
-    d2[c] = ok ? t.d2[c * t.M + m] : T(1);
-    lam[c] = T(0);
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax)
-      ro[ax][c] = ok ? ro_in[(ax * t.C + c) * t.M + m] : T(0);
-  }
-  for (int it = 0; it < niter; ++it) {
-    T J[MAXC][MAXC], b[MAXC], dlam[MAXC];
+  im.resolve();
+  T vals[6] = {0, 0, 0, 0, 0, 0};
+  if (m < t.M) {
+    Cl cl;
+    cl.load(t, m);
+    T xa[3][Cl::MAXA];
+    cl.gather(x, y, z, xa);
+    T rn[3][MAXC], ro[3][MAXC], K[MAXC][MAXC], d2[MAXC], lam[MAXC];
+    cl.diff(xa, &im, rn);
+    cl.coupling(t, m, K);
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
-      b[c] = -(dot3(rn, c, rn, c) - d2[c]);
+      const bool ok = c < cl.nc;
+      d2[c] = ok ? t.d2[c * t.M + m] : T(1);
+      lam[c] = T(0);
 #pragma unroll
-      for (int d = 0; d < MAXC; ++d)
-        J[c][d] = (T(2) * dot3(rn, c, ro, d)) * K[c][d];
+      for (int ax = 0; ax < 3; ++ax)
+        ro[ax][c] = ok ? ro_in[(ax * t.C + c) * t.M + m] : T(0);
     }
-    solve_small(J, b, cl.nc, dlam);
+    for (int it = 0; it < niter; ++it) {
+      T J[MAXC][MAXC], b[MAXC], dlam[MAXC];
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      lam[c] += dlam[c];
+      for (int c = 0; c < MAXC; ++c) {
+        b[c] = -(dot3(rn, c, rn, c) - d2[c]);
 #pragma unroll
+        for (int d = 0; d < MAXC; ++d)
+          J[c][d] = (T(2) * dot3(rn, c, ro, d)) * K[c][d];
+      }
+      solve_small(J, b, cl.nc, dlam);
+#pragma unroll
+      for (int c = 0; c < MAXC; ++c) {
+        lam[c] += dlam[c];
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) {
+          T s = T(0);
+#pragma unroll
+          for (int d = 0; d < MAXC; ++d) s += K[c][d] * (dlam[d] * ro[ax][d]);
+          rn[ax][c] += s;
+        }
+      }
+    }
+    T dx[3][Cl::MAXA];
+    cl.update(t, m, lam, ro, dx);
+    T* px[3] = {x, y, z};
+    T* pv[3] = {vx, vy, vz};
+#pragma unroll
+    for (int a = 0; a < Cl::MAXA; ++a) {
+      if (a < cl.na) {
+        const int s = cl.slot[a];
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) {
+          const T xf = xa[ax][a] + dx[ax][a];
+          px[ax][s] = xf;
+          if (vx) pv[ax][s] = pv[ax][s] + (xf - xa[ax][a]) / dt;
+        }
+      }
+    }
+    for (int c = 0; c < t.C; ++c)
       for (int ax = 0; ax < 3; ++ax) {
-        T s = T(0);
+        T v = T(0);
 #pragma unroll
-        for (int d = 0; d < MAXC; ++d) s += K[c][d] * (dlam[d] * ro[ax][d]);
-        rn[ax][c] += s;
+        for (int k = 0; k < MAXC; ++k)
+          if (k == c) v = rn[ax][k];
+        rn_out[(ax * t.C + c) * t.M + m] = v;
+      }
+    if (vir) {
+#pragma unroll
+      for (int c = 0; c < MAXC; ++c) {
+        if (c < cl.nc) {
+          const T wc = -lam[c] * vfac;
+          const T w0 = wc * ro[0][c], w1 = wc * ro[1][c], w2 = wc * ro[2][c];
+          vals[0] += ro[0][c] * w0;
+          vals[1] += ro[1][c] * w1;
+          vals[2] += ro[2][c] * w2;
+          vals[3] += ro[0][c] * w1;
+          vals[4] += ro[0][c] * w2;
+          vals[5] += ro[1][c] * w2;
+        }
       }
     }
   }
-  T dx[3][Cl::MAXA];
-  cl.update(t, m, lam, ro, dx);
-  T* px[3] = {x, y, z};
-  T* pv[3] = {vx, vy, vz};
-#pragma unroll
-  for (int a = 0; a < Cl::MAXA; ++a) {
-    if (a < cl.na) {
-      const int s = cl.slot[a];
-#pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-        const T xf = xa[ax][a] + dx[ax][a];
-        px[ax][s] = xf;
-        if (vx) pv[ax][s] = pv[ax][s] + (xf - xa[ax][a]) / dt;
-      }
-    }
-  }
-  for (int c = 0; c < t.C; ++c)
-    for (int ax = 0; ax < 3; ++ax) {
-      T v = T(0);
-#pragma unroll
-      for (int k = 0; k < MAXC; ++k)
-        if (k == c) v = rn[ax][k];
-      rn_out[(ax * t.C + c) * t.M + m] = v;
-    }
+  if (vir) block_sum6(vals, vir);
 }
 
 // ---- K13b: RATTLE ----
@@ -375,6 +447,7 @@ __global__ void rattle_kernel(Tables<T> t, Image<T> im,
   using Cl = Cluster<T, MAXC>;
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= t.M) return;
+  im.resolve();
   Cl cl;
   cl.load(t, m);
   T r[3][MAXC], dv[3][MAXC], K[MAXC][MAXC];
@@ -412,13 +485,6 @@ __global__ void rattle_kernel(Tables<T> t, Image<T> im,
         pv[ax][cl.slot[a]] = va[ax][a] + upd[ax][a];
 }
 
-template <typename A>
-__device__ __forceinline__ A warp_sum(A v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // ---- K13c: constraint virial ----
 template <typename T, typename A, int MAXC>
 __global__ void shake_virial_kernel(Tables<T> t, Image<T> im,
@@ -438,6 +504,7 @@ __global__ void shake_virial_kernel(Tables<T> t, Image<T> im,
   using Cl = Cluster<T, MAXC>;
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   A vals[6] = {0, 0, 0, 0, 0, 0};
+  im.resolve();
   if (m < t.M) {
     Cl cl;
     cl.load(t, m);
@@ -492,21 +559,7 @@ __global__ void shake_virial_kernel(Tables<T> t, Image<T> im,
       }
     }
   }
-  __shared__ A red[kThreads / 32][6];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const A s = warp_sum(vals[k]);
-    if (lane == 0) red[warp][k] = s;
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const A s = warp_sum(lane < kThreads / 32 ? red[lane][k] : A(0));
-      if (lane == 0) partial[blockIdx.x * 6 + k] = s;
-    }
-  }
+  block_sum6(vals, partial);
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -535,12 +588,12 @@ inline int maxc_for(int C) {
 template <typename T>
 int launch_ref(int M, int C, int A, const void* atoms, const void* pi,
                const void* pj, const void* inv, const void* x, const void* y,
-               const void* z, double Lx, double Ly, double Lz, void* ro,
-               cudaStream_t s) {
+               const void* z, double Lx, double Ly, double Lz,
+               const void* Ldev, void* ro, cudaStream_t s) {
   const Tables<T> t = make_tables<T>(M, C, A, atoms, pi, pj, nullptr,
                                      nullptr, nullptr, inv);
   shake_ref_kernel<T><<<blocks_for(M), kThreads, 0, s>>>(
-      t, make_image<T>(Lx, Ly, Lz), static_cast<const T*>(x),
+      t, make_image<T>(Lx, Ly, Lz, Ldev), static_cast<const T*>(x),
       static_cast<const T*>(y), static_cast<const T*>(z), static_cast<T*>(ro));
   return static_cast<int>(cudaGetLastError());
 }
@@ -550,14 +603,16 @@ int launch_positions(int M, int C, int A, const void* atoms, const void* pi,
                      const void* pj, const void* d2, const void* K,
                      const void* invm, const void* inv, void* x, void* y,
                      void* z, void* vx, void* vy, void* vz, const void* ro,
-                     void* rn, double Lx, double Ly, double Lz, double dt,
-                     int niter, cudaStream_t s) {
+                     void* rn, double Lx, double Ly, double Lz,
+                     const void* Ldev, double dt, int niter, double vfac,
+                     void* vir, cudaStream_t s) {
   const Tables<T> t = make_tables<T>(M, C, A, atoms, pi, pj, d2, K, invm, inv);
-  const Image<T> im = make_image<T>(Lx, Ly, Lz);
+  const Image<T> im = make_image<T>(Lx, Ly, Lz, Ldev);
 #define POSITIONS_ARGS                                                      \
   t, im, static_cast<T*>(x), static_cast<T*>(y), static_cast<T*>(z),        \
       static_cast<T*>(vx), static_cast<T*>(vy), static_cast<T*>(vz),        \
-      static_cast<const T*>(ro), static_cast<T*>(rn), static_cast<T>(dt), niter
+      static_cast<const T*>(ro), static_cast<T*>(rn), static_cast<T>(dt), niter, \
+      static_cast<T>(vfac), static_cast<T*>(vir)
   switch (maxc_for(C)) {
     case 1:
       shake_positions_kernel<T, 1><<<blocks_for(M), kThreads, 0, s>>>(
@@ -583,10 +638,10 @@ int launch_rattle(int M, int C, int A, const void* atoms, const void* pi,
                   const void* pj, const void* K, const void* invm,
                   const void* inv, const void* x, const void* y, const void* z,
                   void* vx, void* vy, void* vz, const void* r, double Lx,
-                  double Ly, double Lz, cudaStream_t s) {
+                  double Ly, double Lz, const void* Ldev, cudaStream_t s) {
   const Tables<T> t = make_tables<T>(M, C, A, atoms, pi, pj, nullptr, K, invm,
                                      inv);
-  const Image<T> im = make_image<T>(Lx, Ly, Lz);
+  const Image<T> im = make_image<T>(Lx, Ly, Lz, Ldev);
 #define RATTLE_ARGS                                                    \
   t, im, static_cast<const T*>(x), static_cast<const T*>(y),           \
       static_cast<const T*>(z), static_cast<T*>(vx), static_cast<T*>(vy), \
@@ -619,7 +674,7 @@ int launch_virial(int M, int C, int A, const void* atoms, const void* pi,
                   cudaStream_t s) {
   const Tables<T> t = make_tables<T>(M, C, A, atoms, pi, pj, nullptr, K, invm,
                                      inv);
-  const Image<T> im = make_image<T>(Lx, Ly, Lz);
+  const Image<T> im = make_image<T>(Lx, Ly, Lz, nullptr);
 #define VIRIAL_ARGS                                                           \
   t, im, static_cast<const T*>(x), static_cast<const T*>(y),                  \
       static_cast<const T*>(z), static_cast<const T*>(vx),                    \
@@ -654,7 +709,9 @@ int launch_virial(int M, int C, int A, const void* atoms, const void* pi,
 // (the tables' leading dimensions; C <= 12, A <= C + 1), the lanes-last
 // int32 tables atoms (A, M), pi and pj (C, M), flt tables d2 (C, M),
 // K (C, C, M), invm (A, M), inv the int32 slot-of-atom map, flt slot
-// planes, bond vectors ro / rn / r as (3, C, M) flt.  dbl selects double
+// planes, bond vectors ro / rn / r as (3, C, M) flt.  The box: the host
+// lengths Lx, Ly, Lz, or, where an entry takes Ldev and it is not null,
+// the 3 flt lengths on the card (the variable-cell path).  dbl selects double
 // for flt; prec 0 = (float, float), 1 = (float, double), 2 = (double,
 // double) for (flt, acc).
 
@@ -663,30 +720,34 @@ extern "C" int shake_partial_rows(int M) { return blocks_for(M); }
 extern "C" int shake_ref(int dbl, int M, int C, int A, const void* atoms,
                          const void* pi, const void* pj, const void* inv,
                          const void* x, const void* y, const void* z,
-                         double Lx, double Ly, double Lz, void* ro,
-                         void* stream) {
+                         double Lx, double Ly, double Lz, const void* Ldev,
+                         void* ro, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dbl ? launch_ref<double>(M, C, A, atoms, pi, pj, inv, x, y, z, Lx,
-                                  Ly, Lz, ro, s)
+                                  Ly, Lz, Ldev, ro, s)
              : launch_ref<float>(M, C, A, atoms, pi, pj, inv, x, y, z, Lx, Ly,
-                                 Lz, ro, s);
+                                 Lz, Ldev, ro, s);
 }
 
-// vx, vy, vz may all be null: positions only (the set-up settle).
+// vx, vy, vz may all be null: positions only (the set-up settle).  vir
+// null: no virial; else vir[shake_partial_rows(M)][6] (flt) of the
+// constraint virial with the factor vfac.
 extern "C" int shake_positions(int dbl, int M, int C, int A,
                                const void* atoms, const void* pi,
                                const void* pj, const void* d2, const void* K,
                                const void* invm, const void* inv, void* x,
                                void* y, void* z, void* vx, void* vy, void* vz,
                                const void* ro, void* rn, double Lx, double Ly,
-                               double Lz, double dt, int niter, void* stream) {
+                               double Lz, const void* Ldev, double dt,
+                               int niter, double vfac, void* vir,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dbl ? launch_positions<double>(M, C, A, atoms, pi, pj, d2, K, invm,
                                         inv, x, y, z, vx, vy, vz, ro, rn, Lx,
-                                        Ly, Lz, dt, niter, s)
+                                        Ly, Lz, Ldev, dt, niter, vfac, vir, s)
              : launch_positions<float>(M, C, A, atoms, pi, pj, d2, K, invm,
                                        inv, x, y, z, vx, vy, vz, ro, rn, Lx,
-                                       Ly, Lz, dt, niter, s);
+                                       Ly, Lz, Ldev, dt, niter, vfac, vir, s);
 }
 
 // r null: the bond vectors are computed from x, y, z.
@@ -697,12 +758,12 @@ extern "C" int rattle_velocities(int dbl, int M, int C, int A,
                                  const void* x, const void* y, const void* z,
                                  void* vx, void* vy, void* vz, const void* r,
                                  double Lx, double Ly, double Lz,
-                                 void* stream) {
+                                 const void* Ldev, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dbl ? launch_rattle<double>(M, C, A, atoms, pi, pj, K, invm, inv, x,
-                                     y, z, vx, vy, vz, r, Lx, Ly, Lz, s)
+                                     y, z, vx, vy, vz, r, Lx, Ly, Lz, Ldev, s)
              : launch_rattle<float>(M, C, A, atoms, pi, pj, K, invm, inv, x, y,
-                                    z, vx, vy, vz, r, Lx, Ly, Lz, s);
+                                    z, vx, vy, vz, r, Lx, Ly, Lz, Ldev, s);
 }
 
 // fa*: acc force planes; fb* may be null.  partial[shake_partial_rows(M)][6].

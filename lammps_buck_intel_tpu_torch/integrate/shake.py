@@ -18,6 +18,11 @@ Gaussian elimination (``_solve_small``):
   instantaneous multipliers on the TOTAL force (the fix_shake.cpp
   pressure tally), in the exact per-cluster form.
 
+The box ``L``: host lengths (the cell engine), or a (3,) tensor of
+lengths on the card (the NPT engine, whose box changes every step and is
+read by the kernels where it lives); in atom order ``inv`` is the
+identity.
+
 Layout.  The engine's positions are slot planes; the cluster tables hold
 ATOM ids, and every function reads a cluster's atoms through the
 slot-of-atom map ``inv`` (rebuilt after each rebin), so no rebin has to
@@ -267,10 +272,13 @@ def make_clusters(sc: ShakeConstraints) -> ShakeClusters:
 
 
 def _minimg_planes(dx, dy, dz, L):
-    """Per-axis minimum image d - round(d * (1 / L)) L, the reciprocal
-    taken in f64 (round half to even)."""
-    return tuple(d - torch.round(d * (1.0 / float(La))) * float(La)
-                 for d, La in zip((dx, dy, dz), L))
+    """Per-axis minimum image d - round(d * (1 / L)) L (round half to
+    even): host lengths with the reciprocal taken in f64, or a (3,) tensor
+    of lengths on the planes' device (the variable cell), its reciprocal
+    taken in its dtype."""
+    from ..core.box import minimum_image_planes
+
+    return minimum_image_planes(dx, dy, dz, L)
 
 
 def max_violation(sc: ShakeConstraints, x: torch.Tensor, L) -> torch.Tensor:
@@ -354,7 +362,8 @@ def shake_ref_plain(t, xs, inv, L):
     return _bond_vectors(t, xs, inv, L)
 
 
-def shake_positions_plain(t, ro, xs, vs, inv, L, dt, iters):
+def shake_positions_plain(t, ro, xs, vs, inv, L, dt, iters,
+                          virial_factor=None):
     rn = _bond_vectors(t, xs, inv, L)
     cmask, K = t["cmask"], t["K"]
     lam = torch.zeros_like(t["d2"])
@@ -370,7 +379,12 @@ def shake_positions_plain(t, ro, xs, vs, inv, L, dt, iters):
     if vs is not None:
         for v, x, xn in zip(vs, xs, x_new):
             v.index_add_(0, slots, (x[slots] - xn) / dt)
-    return rn
+    if virial_factor is None:
+        return rn
+    w = (-lam * virial_factor)[None] * ro
+    return rn, torch.stack([(ro[i] * w[j]).sum()
+                            for i, j in ((0, 0), (1, 1), (2, 2), (0, 1),
+                                         (0, 2), (1, 2))])
 
 
 def rattle_velocities_plain(t, vs, inv, L, r=None, xs=None):
@@ -426,13 +440,16 @@ def shake_ref(t: dict, xs, inv, L) -> torch.Tensor:
     return _route(xs[0], "shake_ref")(t, xs, inv, L)
 
 
-def shake_positions(t: dict, ro, xs, vs, inv, L, dt: float,
-                    iters: int) -> torch.Tensor:
+def shake_positions(t: dict, ro, xs, vs, inv, L, dt: float, iters: int,
+                    virial_factor=None):
     """Move the positions onto the constraints along ``ro``; with ``vs``
     (None: positions only) v += (x_fix - x_new) / dt.  In place; returns
-    the corrected (3, C, M) bond vectors rn."""
+    the corrected (3, C, M) bond vectors rn, and with ``virial_factor``
+    (1 / (dt dtf) under fix npt) the pair (rn, virial): the (6,) flt
+    constraint virial sum_c ro_c (x) (-lam_c virial_factor ro_c) of the
+    step (the JAX package's shake_positions_clustered :525-529)."""
     return _route(xs[0], "shake_positions")(t, ro, xs, vs, inv, L, dt,
-                                            iters)
+                                            iters, virial_factor)
 
 
 def rattle_velocities(t: dict, vs, inv, L, r=None, xs=None):

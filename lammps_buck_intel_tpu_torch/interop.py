@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .core.state import Topology
+from .integrate.npt import NPTConfig
 from .integrate.shake import ShakeConstraints
 from .models.bonded.harmonic import BondedStyle, make_bonded
 from .models.kspace.pppm import PPPM
@@ -63,6 +64,34 @@ def shake_from_numpy(pairs, d2, invm, iters: int,
         pairs=np.array(pairs, np.int32), d2=np.array(d2, np.float64),
         invm=np.array(invm, np.float64), iters=int(iters),
         n_independent=int(n_independent))
+
+
+def npt_config_from_numpy(p_start, p_stop, p_damp: float, flags,
+                          couple: str, mtk: bool, pchain: int) -> NPTConfig:
+    """The port's NPTConfig from the JAX NPTConfig's fields."""
+    return NPTConfig(p_start=tuple(float(v) for v in p_start),
+                     p_stop=tuple(float(v) for v in p_stop),
+                     p_damp=float(p_damp),
+                     flags=tuple(bool(v) for v in flags), couple=str(couple),
+                     mtk=bool(mtk), pchain=int(pchain))
+
+
+def npt_barostat_from_numpy(sim, omega_dot, ptherm, boxL):
+    """Carry the barostat of a JAX NPTState (omega_dot (3,), the barostat
+    chain ptherm (2, pchain), the box lengths boxL (3,), as numpy) into the
+    state of the port's NPTSimulation ``sim``, in its dtype and on its
+    device."""
+    st = sim.state
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float64)).to(st.boxL)
+
+    ptherm = t(ptherm).reshape(2, -1)
+    if ptherm.shape[1] != sim.npt.pchain:
+        raise ValueError(f"ptherm has {ptherm.shape[1]} links, the "
+                         f"simulation's barostat chain {sim.npt.pchain}")
+    sim.state = st._replace(omega_dot=t(omega_dot).reshape(3),
+                            ptherm=ptherm, boxL=t(boxL).reshape(3))
 
 
 def pppm_from_numpy(grid, g_ewald: float, order: int, greensfn, kx, ky, kz,

@@ -146,10 +146,12 @@ class BondedResult(NamedTuple):
 
 def minimg(d: torch.Tensor, L) -> torch.Tensor:
     """Per-axis minimum image of (M, 3) differences: d - round(d / L) L
-    with the reciprocal taken in f64 (half to even)."""
-    return torch.stack(
-        [d[:, ax] - torch.round(d[:, ax] * (1.0 / float(L[ax])))
-         * float(L[ax]) for ax in range(3)], -1)
+    (half to even), the reciprocal taken in f64 for host lengths, in the
+    dtype of a (3,) tensor of lengths (the variable cell)."""
+    from ...core.box import minimum_image_planes
+
+    return torch.stack(minimum_image_planes(d[:, 0], d[:, 1], d[:, 2], L),
+                       -1)
 
 
 def slots_of(table: torch.Tensor, inv: Optional[torch.Tensor]):
@@ -180,7 +182,8 @@ def compute_bonded_plain(style: BondedStyle, xs, box: Box, *, eflag=True,
 
     flt, dev = xs[0].dtype, xs[0].device
     x = torch.stack(tuple(xs), -1)
-    L = [float(v) for v in np.asarray(box.lengths)]
+    L = (box if isinstance(box, torch.Tensor)
+         else [float(v) for v in np.asarray(box.lengths)])
     t = style.tables_on(dev, flt)
     if out is None:
         out = tuple(torch.zeros(x.shape[0], dtype=acc_dtype, device=dev)
@@ -268,6 +271,8 @@ def compute_bonded(style: BondedStyle, xs, box: Box, *, eflag=True,
     """Bonded forces, energies and virial.
 
     xs: the (x, y, z) position planes, (M,) each, slot or atom order.
+    box: a host ``Box``, or a (3,) tensor of box lengths on the planes'
+      device (the NPT engine's variable cell, read by the kernels there).
     inv: (N + 1,) int32 slot of each atom, or None when the planes are in
       atom order.
     out: three acc-typed (M,) planes the forces are added to (in place);

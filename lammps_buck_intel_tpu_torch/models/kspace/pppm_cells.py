@@ -51,19 +51,34 @@ def half_weights(nz: int) -> np.ndarray:
     return wz
 
 
-def axis_weights(pm: PPPM, plane: torch.Tensor, ax: int):
+def mesh_geometry(pm: PPPM, box=None):
+    """(lo, 1/h) per axis of the mesh: ``pm``'s (host floats, 1/h by an
+    f64 reciprocal), or for box = (centre, boxL) a box on the card (the
+    variable cell) lo = centre - L / 2 and 1/h = n / L in boxL's dtype,
+    the JAX package's TracedPPPM._weights order, as the kernels take it."""
+    if box is None:
+        return pm.box_lo, [1.0 / h for h in pm.h]
+    center, boxL = box
+    lo = torch.as_tensor(np.asarray(center, np.float64)).to(boxL) \
+        - 0.5 * boxL
+    ih = torch.as_tensor(np.asarray(pm.grid, np.float64)).to(boxL) / boxL
+    return lo, ih
+
+
+def axis_weights(pm: PPPM, plane: torch.Tensor, ax: int, geo):
     """(base (M,) int64, w (M, order)) of positions ``plane`` on mesh
-    axis ``ax``, in the plane's dtype (the JAX ``bspline_weights`` with
-    ``mspline_horner``)."""
+    axis ``ax`` of the geometry ``geo`` (``mesh_geometry``), in the plane's
+    dtype (the JAX ``bspline_weights`` with ``mspline_horner``)."""
     p = pm.order
-    u = (plane - pm.box_lo[ax]) * (1.0 / pm.h[ax])
+    lo, ih = geo
+    u = (plane - lo[ax]) * ih[ax]
     base = torch.round(u) if p % 2 else torch.floor(u)
     offs = torch.as_tensor(stencil_offsets(p)).to(u.device, u.dtype)
     arg = (u[:, None] - (base[:, None] + offs)) + p / 2.0
     return base.long(), mspline_horner(p, arg)
 
 
-def _stencil(pm: PPPM, state: SlotState, s0: int, s1: int):
+def _stencil(pm: PPPM, state: SlotState, s0: int, s1: int, geo):
     """Flat wrapped mesh indices (M, p, p, p) and weights w3 (M, p, p, p)
     of slots [s0, s1)."""
     nx, ny, nz = pm.grid
@@ -71,7 +86,7 @@ def _stencil(pm: PPPM, state: SlotState, s0: int, s1: int):
     idx, ws = [], []
     planes = (state.x, state.y, state.z)
     for ax, (plane, n) in enumerate(zip(planes, pm.grid)):
-        base, w = axis_weights(pm, plane[s0:s1], ax)
+        base, w = axis_weights(pm, plane[s0:s1], ax, geo)
         idx.append(torch.remainder(base[:, None] + offs, n))
         ws.append(w)
     flat = ((idx[0][:, :, None, None] * ny + idx[1][:, None, :, None]) * nz
@@ -81,16 +96,17 @@ def _stencil(pm: PPPM, state: SlotState, s0: int, s1: int):
     return flat, w3
 
 
-def deposit_plain(pm: PPPM, state: SlotState) -> torch.Tensor:
+def deposit_plain(pm: PPPM, state: SlotState, box=None) -> torch.Tensor:
     """(nx, ny, nz) flt charge mesh: sum over slots of q w3 (empty slots
-    carry q = 0)."""
+    carry q = 0); ``box`` as in ``mesh_geometry``."""
     nx, ny, nz = pm.grid
     mesh = torch.zeros(nx * ny * nz, dtype=state.x.dtype,
                        device=state.x.device)
     ns = state.x.shape[0]
+    geo = mesh_geometry(pm, box)
     for s0 in range(0, ns, _CHUNK):
         s1 = min(ns, s0 + _CHUNK)
-        flat, w3 = _stencil(pm, state, s0, s1)
+        flat, w3 = _stencil(pm, state, s0, s1, geo)
         vals = w3 * state.q[s0:s1, None, None, None]
         mesh.index_add_(0, flat.reshape(-1), vals.reshape(-1))
     return mesh.view(nx, ny, nz)
@@ -100,12 +116,33 @@ def spectral_plain(consts: dict, rhat: torch.Tensor, eflag: bool,
                    vflag: bool):
     """Half-spectrum solve: (ehat (3, nx, ny, nzh) complex, esum, vsum)
     with esum = sum(ek) and vsum the six sums of ek (delta_ab - pref k_a
-    k_b), ek = G |rho_hat|^2 wz (zeros without eflag / vflag)."""
+    k_b), ek = G |rho_hat|^2 wz (zeros without eflag / vflag).
+
+    consts["nyquist"] (the variable-cell solver): the full-spectrum
+    conventions of the JAX package's TracedPPPM at the Nyquist planes of
+    even nx, ny.  (1) The x and y spectra take k = 0 on their own axis's
+    Nyquist plane: there -i k G rho_hat is anti-Hermitian, so the real part
+    of a full inverse FFT drops it, while the c2r of a half spectrum would
+    keep it (the z Nyquist plane needs nothing: c2r drops its imaginary
+    part).  (2) An off-diagonal virial sum over an interior kz plane
+    (weight 2, the point and its mirror) takes weight 0 where exactly one
+    of its two axes sits on its Nyquist index, its own mirror: k_a k_b
+    changes sign between the point and its mirror, and the full sum
+    cancels the pair."""
     G = consts["G"]
     kx, ky, kz = consts["k3"]
     phi = G * rhat
+    ke = [kx, ky, kz]
+    nyq = [torch.zeros(k.shape, dtype=torch.bool, device=k.device)
+           for k in (kx, ky)]
+    if consts.get("nyquist"):
+        for a in (0, 1):
+            n = ke[a].shape[a]
+            if n % 2 == 0:
+                nyq[a].select(a, n // 2).fill_(True)
+                ke[a] = torch.where(nyq[a], torch.zeros_like(ke[a]), ke[a])
     ehat = torch.stack([torch.complex(k * phi.imag, -(k * phi.real))
-                        for k in (kx, ky, kz)])
+                        for k in ke])
     acc = G.dtype
     esum = torch.zeros((), dtype=acc, device=G.device)
     vsum = torch.zeros(6, dtype=acc, device=G.device)
@@ -114,28 +151,36 @@ def spectral_plain(consts: dict, rhat: torch.Tensor, eflag: bool,
             * consts["wz"]
         esum = ek.sum()
         pref = consts["pref"]
+        inner = consts["wz"] != 1.0
+
+        def off(a, b, term):
+            drop = inner & (nyq[a] != nyq[b] if b < 2 else nyq[a])
+            return torch.where(drop, torch.zeros_like(term), term).sum()
+
         vsum = torch.stack([
             (ek * (1.0 - pref * kx * kx)).sum(),
             (ek * (1.0 - pref * ky * ky)).sum(),
             (ek * (1.0 - pref * kz * kz)).sum(),
-            (ek * (-pref * kx * ky)).sum(),
-            (ek * (-pref * kx * kz)).sum(),
-            (ek * (-pref * ky * kz)).sum(),
+            off(0, 1, ek * (-pref * kx * ky)),
+            off(0, 2, ek * (-pref * kx * kz)),
+            off(1, 2, ek * (-pref * ky * kz)),
         ])
     return ehat, esum, vsum
 
 
 def gather_plain(pm: PPPM, state: SlotState, e_mesh: torch.Tensor,
-                 acc_dtype):
+                 acc_dtype, box=None):
     """Per-slot ik forces (fx, fy, fz) in acc: the three flt E meshes
-    (3, nx, ny, nz) interpolated at every slot, times q * qqrd2e."""
+    (3, nx, ny, nz) interpolated at every slot, times q * qqrd2e; ``box``
+    as in ``mesh_geometry``."""
     ns = state.x.shape[0]
     flat_e = e_mesh.reshape(3, -1)
     out = [torch.empty(ns, dtype=acc_dtype, device=state.x.device)
            for _ in range(3)]
+    geo = mesh_geometry(pm, box)
     for s0 in range(0, ns, _CHUNK):
         s1 = min(ns, s0 + _CHUNK)
-        flat, w3 = _stencil(pm, state, s0, s1)
+        flat, w3 = _stencil(pm, state, s0, s1, geo)
         for c in range(3):
             out[c][s0:s1] = (w3 * flat_e[c][flat]).to(acc_dtype).sum(
                 (1, 2, 3))
@@ -152,15 +197,16 @@ def _device_kind(t: torch.Tensor) -> str:
     return "cpu"
 
 
-def deposit(pm: PPPM, state: SlotState, n_atoms: int,
-            consts: dict) -> torch.Tensor:
+def deposit(pm: PPPM, state: SlotState, n_atoms: int, consts: dict,
+            box=None) -> torch.Tensor:
     """Charge mesh: the CUDA deposit kernel on CUDA planes, the plain
-    version on CPU planes."""
+    version on CPU planes.  box: None (``pm``'s mesh) or (centre, boxL), a
+    box on the card."""
     if _device_kind(state.x) == "cuda":
         from ...ops import pppm as pppm_ops
 
-        return pppm_ops.deposit(pm, state, n_atoms, consts["coef"])
-    return deposit_plain(pm, state)
+        return pppm_ops.deposit(pm, state, n_atoms, consts["coef"], box)
+    return deposit_plain(pm, state, box)
 
 
 def spectral(consts: dict, rhat: torch.Tensor, eflag: bool, vflag: bool):
@@ -173,14 +219,15 @@ def spectral(consts: dict, rhat: torch.Tensor, eflag: bool, vflag: bool):
 
 
 def gather(pm: PPPM, state: SlotState, e_mesh: torch.Tensor, n_atoms: int,
-           acc_dtype, consts: dict):
-    """Per-slot ik forces (see ``gather_plain``)."""
+           acc_dtype, consts: dict, box=None):
+    """Per-slot ik forces (see ``gather_plain``; ``box`` as in
+    ``deposit``)."""
     if _device_kind(state.x) == "cuda":
         from ...ops import pppm as pppm_ops
 
         return pppm_ops.gather(pm, state, e_mesh, n_atoms, acc_dtype,
-                               consts["coef"])
-    return gather_plain(pm, state, e_mesh, acc_dtype)
+                               consts["coef"], box)
+    return gather_plain(pm, state, e_mesh, acc_dtype, box)
 
 
 class CellPPPM:

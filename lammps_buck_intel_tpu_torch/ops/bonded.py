@@ -24,7 +24,7 @@ THREADS = 128
 def _lib():
     lib = build.load("bonded")
     if lib.bonded_bond_angle.argtypes is None:
-        head, tail = [_I, _I] + [_P] * 4, [_D] * 3 + [_P] * 5
+        head, tail = [_I, _I] + [_P] * 4, [_D] * 3 + [_P] * 6
         lib.bonded_bond_angle.argtypes = (
             head + [_P, _I, _P, _P, _I, _P] + tail)
         lib.dihedral_charmm.argtypes = head + [_P, _I, _P, _P, _P] + tail
@@ -79,7 +79,12 @@ def compute_bonded(style, xs, box, *, eflag: bool, acc_dtype, inv=None,
     nd, ni = len(style.dihedrals), len(style.impropers)
     head = [xs[0].data_ptr(), xs[1].data_ptr(), xs[2].data_ptr(),
             None if inv is None else inv.data_ptr()]
-    L = [float(v) for v in box.lengths]
+    if isinstance(box, torch.Tensor):
+        # the variable-cell path: the kernels read the lengths on the card
+        check_plane(box, "box lengths", flt, 3, dev)
+        L = [1.0, 1.0, 1.0, box.data_ptr()]
+    else:
+        L = [float(v) for v in box.lengths] + [None]
     forces = [p.data_ptr() for p in out]
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()

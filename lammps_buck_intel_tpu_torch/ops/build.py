@@ -1,6 +1,7 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
-Each library is one ``.cu`` file with a plain C interface, compiled for
+Each library is one ``.cu`` file with a plain C interface (it may include
+the shared headers ``csrc/*.cuh``), compiled for
 ``sm_90a`` into ``lammps_buck_intel_tpu_torch/_build/`` at first use.
 The file name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the existing library.  No
@@ -22,10 +23,11 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-lineinfo", "-Xptxas", "-v"]
-# library -> extra nvcc flags.  The rebin, the integrator and the
-# constraint solves are compiled without FMA contraction so their wrap,
-# cell, update and solve arithmetic rounds like the plain torch version; no
-# library uses --use_fast_math.
+# library -> extra nvcc flags.  The rebin, the integrator, the constraint
+# solves, the neighbor list and the barostat passes are compiled without
+# FMA contraction so their wrap, cell, distance, update and solve
+# arithmetic rounds like the plain torch version; no library uses
+# --use_fast_math.
 LIBRARIES = {
     "cellpair": [],
     "rebin": ["--fmad=false"],
@@ -33,6 +35,8 @@ LIBRARIES = {
     "bonded": [],
     "verlet": ["--fmad=false"],
     "shake": ["--fmad=false"],
+    "nlist": ["--fmad=false"],
+    "npt": ["--fmad=false"],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -52,11 +56,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha256()
     h.update(" ".join(_ARCH + _FLAGS + LIBRARIES[name]).encode())
-    with open(src, "rb") as f:
-        h.update(f.read())
+    # the source and every shared header (csrc/*.cuh) it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 

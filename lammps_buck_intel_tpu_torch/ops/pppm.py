@@ -28,14 +28,14 @@ _SPECTRAL_BLOCKS_PER_SM = 8
 def _lib():
     lib = build.load("pppm")
     if lib.pppm_deposit.argtypes is None:
-        slot_args = [_P] * 5 + [_I] * 2 + [_D] * 6 + [_I] * 4 + [_P]
+        slot_args = [_P] * 5 + [_I] * 2 + [_D] * 6 + [_I] * 4 + [_P, _P]
         lib.pppm_deposit.argtypes = [_I] + slot_args + [_P, _P]
         lib.pppm_deposit.restype = _I
         lib.pppm_gather.argtypes = ([_I] + slot_args
                                     + [_P, _D, _P, _P, _P, _P])
         lib.pppm_gather.restype = _I
         lib.pppm_spectral.argtypes = ([_I, _I] + [_P] * 6 + [_I] * 3
-                                      + [_D, _P, _P, _I, _P])
+                                      + [_D, _I, _P, _P, _I, _P])
         lib.pppm_spectral.restype = _I
         lib.pppm_threads.argtypes = []
         lib.pppm_threads.restype = _I
@@ -46,9 +46,12 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _slot_args(pm, state, n_atoms: int, coef: torch.Tensor):
+def _slot_args(pm, state, n_atoms: int, coef: torch.Tensor, box=None):
     """The slot-plane and mesh-geometry arguments shared by the deposit
-    and the gather, after checking the planes."""
+    and the gather, after checking the planes.  box: None (the mesh of
+    ``pm``: its box_lo and h), or (centre, boxL) for a box that lives on
+    the card (boxL a (3,) tensor of the planes' dtype; the kernels derive
+    lo and 1/h from it)."""
     dev = state.x.device
     if dev.type != "cuda":
         raise ValueError(f"pppm kernel needs CUDA tensors, got {dev}")
@@ -61,15 +64,25 @@ def _slot_args(pm, state, n_atoms: int, coef: torch.Tensor):
     check_plane(state.aid, "aid", torch.int32, ns, dev)
     p = pm.order
     check_plane(coef, "coef", flt, p * p, dev)
+    if box is None:
+        geo = [*(float(v) for v in pm.box_lo),
+               *(1.0 / float(h) for h in pm.h)]
+        box_ptr = None
+    else:
+        center, boxL = box
+        check_plane(boxL, "boxL", flt, 3, dev)
+        geo = [*(float(v) for v in center), 1.0, 1.0, 1.0]
+        box_ptr = boxL.data_ptr()
     return [state.x.data_ptr(), state.y.data_ptr(), state.z.data_ptr(),
-            state.q.data_ptr(), state.aid.data_ptr(), ns, n_atoms,
-            *(float(v) for v in pm.box_lo),
-            *(1.0 / float(h) for h in pm.h), *pm.grid, p, coef.data_ptr()]
+            state.q.data_ptr(), state.aid.data_ptr(), ns, n_atoms, *geo,
+            *pm.grid, p, coef.data_ptr(), box_ptr]
 
 
-def deposit(pm, state, n_atoms: int, coef: torch.Tensor) -> torch.Tensor:
-    """(nx, ny, nz) charge mesh in the slot dtype, on the card."""
-    args = _slot_args(pm, state, n_atoms, coef)
+def deposit(pm, state, n_atoms: int, coef: torch.Tensor,
+            box=None) -> torch.Tensor:
+    """(nx, ny, nz) charge mesh in the slot dtype, on the card (``box`` as
+    in ``_slot_args``)."""
+    args = _slot_args(pm, state, n_atoms, coef, box)
     dev = state.x.device
     nx, ny, nz = pm.grid
     mesh = torch.zeros(nx * ny * nz, dtype=state.x.dtype, device=dev)
@@ -83,7 +96,9 @@ def deposit(pm, state, n_atoms: int, coef: torch.Tensor) -> torch.Tensor:
 
 def spectral(consts: dict, rhat: torch.Tensor, ev: bool):
     """(ehat (3, nx, ny, nzh) complex, esum, vsum (6,)) on the card; the
-    sums are zeros without ``ev``."""
+    sums are zeros without ``ev``.  consts["nyquist"] (default False):
+    the full-spectrum conventions at the Nyquist planes (see
+    ``pppm_cells.spectral_plain``)."""
     G = consts["G"]
     acc = G.dtype
     dev = rhat.device
@@ -111,7 +126,7 @@ def spectral(consts: dict, rhat: torch.Tensor, ev: bool):
     rc = lib.pppm_spectral(
         _FLT[acc], int(ev), rhat.data_ptr(), G.data_ptr(), kx.data_ptr(),
         ky.data_ptr(), kz.data_ptr(), wz.data_ptr(), nx, ny, nzh,
-        0.25 / g**2, ehat.data_ptr(),
+        0.25 / g**2, int(consts.get("nyquist", False)), ehat.data_ptr(),
         partial.data_ptr() if ev else None, nblocks, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"pppm spectral launch failed: CUDA error {rc}")
@@ -124,9 +139,10 @@ def spectral(consts: dict, rhat: torch.Tensor, ev: bool):
 
 
 def gather(pm, state, e_mesh: torch.Tensor, n_atoms: int, acc_dtype,
-           coef: torch.Tensor):
-    """Per-slot ik forces (fx, fy, fz) in acc on the card."""
-    args = _slot_args(pm, state, n_atoms, coef)
+           coef: torch.Tensor, box=None):
+    """Per-slot ik forces (fx, fy, fz) in acc on the card (``box`` as in
+    ``_slot_args``)."""
+    args = _slot_args(pm, state, n_atoms, coef, box)
     dev = state.x.device
     flt = state.x.dtype
     prec = _PAIR.get((flt, acc_dtype))

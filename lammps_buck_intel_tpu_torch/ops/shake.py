@@ -27,11 +27,12 @@ def _lib():
     if lib.shake_ref.argtypes is None:
         head = [_I] * 4 + [_P] * 3
         lib.shake_partial_rows.argtypes = [_I]
-        lib.shake_ref.argtypes = head + [_P] * 4 + [_D] * 3 + [_P, _P]
+        lib.shake_ref.argtypes = head + [_P] * 4 + [_D] * 3 + [_P] * 3
         lib.shake_positions.argtypes = (head + [_P] * 4 + [_P] * 6
-                                        + [_P, _P] + [_D] * 4 + [_I, _P])
+                                        + [_P, _P] + [_D] * 3
+                                        + [_P, _D, _I, _D, _P, _P])
         lib.rattle_velocities.argtypes = (head + [_P] * 3 + [_P] * 6
-                                          + [_P] + [_D] * 3 + [_P])
+                                          + [_P] + [_D] * 3 + [_P, _P])
         lib.shake_virial.argtypes = (head + [_P] * 3 + [_P] * 12 + [_D] * 4
                                      + [_P, _P])
         for fn in (lib.shake_partial_rows, lib.shake_ref,
@@ -88,8 +89,13 @@ def _rvec(r, flt, dims, dev, name):
     return r.data_ptr()
 
 
-def _box(L):
-    return [float(v) for v in L]
+def _box(L, flt, dev):
+    """(Lx, Ly, Lz, Ldev): host lengths, or for a (3,) tensor of lengths
+    on the card (the variable-cell path) placeholders and its pointer."""
+    if isinstance(L, torch.Tensor):
+        check_plane(L, "box lengths", flt, 3, dev)
+        return [1.0, 1.0, 1.0, L.data_ptr()]
+    return [float(v) for v in L] + [None]
 
 
 def _stream(dev):
@@ -107,15 +113,16 @@ def shake_ref(t, xs, inv, L) -> torch.Tensor:
     ro = torch.empty((3, C, M), dtype=flt, device=dev)
     _check(_lib().shake_ref(
         int(flt == torch.float64), *dims, *_ptrs(t, ("atoms", "pi", "pj")),
-        inv.data_ptr(), *(p.data_ptr() for p in xs), *_box(L), ro.data_ptr(),
-        _stream(dev)), "shake_ref")
+        inv.data_ptr(), *(p.data_ptr() for p in xs), *_box(L, flt, dev),
+        ro.data_ptr(), _stream(dev)), "shake_ref")
     return ro
 
 
-def shake_positions(t, ro, xs, vs, inv, L, dt: float,
-                    iters: int) -> torch.Tensor:
+def shake_positions(t, ro, xs, vs, inv, L, dt: float, iters: int,
+                    virial_factor=None):
     """The Newton solve along ``ro``; x (and v unless ``vs`` is None)
-    updated in place; returns rn (3, C, M)."""
+    updated in place; returns rn (3, C, M), and with ``virial_factor`` also
+    the (6,) flt constraint virial (per-block partials, summed here)."""
     dev, flt, dims = _setup(t, xs, inv)
     M, C, _ = dims
     if vs is not None:
@@ -123,12 +130,16 @@ def shake_positions(t, ro, xs, vs, inv, L, dt: float,
             check_plane(p, name, flt, xs[0].shape[0], dev)
     rn = torch.empty((3, C, M), dtype=flt, device=dev)
     vp = [None] * 3 if vs is None else [p.data_ptr() for p in vs]
-    _check(_lib().shake_positions(
+    lib = _lib()
+    vir = (None if virial_factor is None else
+           torch.empty((lib.shake_partial_rows(M), 6), dtype=flt, device=dev))
+    _check(lib.shake_positions(
         int(flt == torch.float64), *dims, *_ptrs(t, _TABLES), inv.data_ptr(),
         *(p.data_ptr() for p in xs), *vp, _rvec(ro, flt, dims, dev, "ro"),
-        rn.data_ptr(), *_box(L), float(dt), min(int(iters), 4),
+        rn.data_ptr(), *_box(L, flt, dev), float(dt), min(int(iters), 4),
+        float(virial_factor or 0.0), None if vir is None else vir.data_ptr(),
         _stream(dev)), "shake_positions")
-    return rn
+    return rn if vir is None else (rn, vir.sum(0))
 
 
 def rattle_velocities(t, vs, inv, L, r=None, xs=None):
@@ -146,7 +157,7 @@ def rattle_velocities(t, vs, inv, L, r=None, xs=None):
     _check(_lib().rattle_velocities(
         int(flt == torch.float64), *dims,
         *_ptrs(t, ("atoms", "pi", "pj", "K", "invm")), inv.data_ptr(), *xp,
-        *(p.data_ptr() for p in vs), rp, *_box(L), _stream(dev)),
+        *(p.data_ptr() for p in vs), rp, *_box(L, flt, dev), _stream(dev)),
         "rattle_velocities")
 
 
@@ -175,6 +186,7 @@ def shake_virial(t, xs, vs, fa, fb, inv, L, ftm2v: float,
         prec, *dims, *_ptrs(t, ("atoms", "pi", "pj", "K", "invm")),
         inv.data_ptr(), *(p.data_ptr() for p in xs),
         *(p.data_ptr() for p in vs), *(p.data_ptr() for p in fa), *fbp,
-        *_box(L), float(ftm2v), part.data_ptr(), _stream(dev)),
+        *(float(v) for v in L), float(ftm2v), part.data_ptr(),
+        _stream(dev)),
         "shake_virial")
     return part.sum(0)

@@ -1,18 +1,24 @@
 """Deck runner for the PyTorch port.
 
 Counterpart of ``lammps_buck_intel_tpu.run`` for the decks this port
-runs with ``engine: cellpair`` under ``fix nve`` or ``fix nvt``, with or
-without ``fix shake`` (a fix list without nve or nvt integrates as NVE): a
-lattice built with ``create_atoms`` or atoms read with ``read_data``
-(atom style charge or full, optionally ``replicate``d); ``pair_style
-buck``, or ``buck/coul/long`` / ``lj/charmm/coul/long`` with
-``kspace_style pppm`` (ik) on a mesh aligned to the engine's cells;
-``special_bonds``, harmonic bonds, harmonic or CHARMM angles, CHARMM
-dihedrals and harmonic impropers (examples/decks/buck.yaml, buck_big.yaml,
-cristobalite_pppm.yaml, rhodo_nve.yaml, rhodo_32k.yaml, rhodo_class.yaml,
-rhodo_flex_nve.yaml, rhodo_flex_nvt.yaml).  Every other deck key or value
-raises NotImplementedError naming its ROADMAP item; nothing is ignored.  A relative ``read_data`` path
-resolves against the working directory, as in the JAX package.
+runs: with ``engine: cellpair`` under ``fix nve`` or ``fix nvt``, with or
+without ``fix shake`` (a fix list without nve or nvt integrates as NVE);
+and, whatever ``engine`` says (the JAX package's NPT branch comes before
+the engine choice), ``fix npt`` (iso, aniso or per-axis x/y/z, mtk,
+pchain, tchain; with or without ``fix shake``) on the neighbor-list NPT
+engine (``integrate.npt.NPTSimulation``) with the variable-cell PPPM
+(``pppm_npt.TracedPPPM``) on the generic mesh of the deck's box.  Atoms: a
+lattice built with ``create_atoms`` or atoms read with ``read_data`` (atom
+style charge or full, optionally ``replicate``d); ``pair_style buck``, or
+``buck/coul/long`` / ``lj/charmm/coul/long`` with ``kspace_style pppm``
+(ik); ``special_bonds``, harmonic bonds, harmonic or CHARMM angles, CHARMM
+dihedrals and harmonic impropers (examples/decks/buck.yaml,
+buck_big.yaml, cristobalite_pppm.yaml, rhodo_nve.yaml, rhodo_32k.yaml,
+rhodo_class.yaml, rhodo_flex_nve.yaml, rhodo_flex_nvt.yaml,
+rhodo_npt.yaml).  Every other deck key or value raises
+NotImplementedError naming its ROADMAP item; nothing is ignored.  A
+relative ``read_data`` path resolves against the working directory, as
+in the JAX package.
 
 CLI:  python -m lammps_buck_intel_tpu_torch.run examples/decks/buck.yaml \
           --device cuda [--steps N]
@@ -46,11 +52,22 @@ _KEYS = {"units", "precision", "timestep", "engine", "lattice", "mass",
 # fix name -> (keys the port reads, ROADMAP item of an unported fix)
 _FIX_KEYS = {"nve": {"name"},
              "nvt": {"name", "t_start", "t_stop", "t_damp", "tchain"},
-             "shake": {"name", "m", "b", "a", "iters", "tol"}}
+             "shake": {"name", "m", "b", "a", "iters", "tol"},
+             "npt": {"name", "t_start", "t_stop", "t_damp", "tchain", "iso",
+                     "aniso", "x", "y", "z", "mtk", "pchain"}}
 _UNPORTED_FIXES = {
     "rigid/small": "item 13 (rigid bodies, K15)",
-    "rigid/npt/small": "item 13 (rigid bodies, K15)",
-    "npt": "item 14 (NPT, K16)",
+    "rigid/npt/small": "item 13 (rigid bodies under the barostat, K15)",
+}
+# fix npt keywords of a tilted (triclinic) barostat
+_NPT_TILT_KEYS = {"tri", "xy", "xz", "yz"}
+# kspace_style pieces the port refuses, by ROADMAP queue 1 item
+_KSPACE_UNPORTED = {
+    "ewald": "item 10 (Ewald, K11)",
+    "pppm/disp": "item 13 (dispersion PPPM, K12 / K16d)",
+    "diff": "item 10 (pppm diff ad, K10)",
+    "slab": "item 10 (kspace_modify slab, K10)",
+    "grid": "item 10 (kspace_modify mesh)",
 }
 # bonded styles whose formula the kernels hard-code
 _BONDED_STYLES = {"bond": {"harmonic"}, "angle": {"harmonic", "charmm"},
@@ -67,23 +84,48 @@ def _parse_pair_key(k: str):
     return (int(i) - 1, int(j) - 1)
 
 
+def _check_npt(cfg: dict, fx: dict):
+    """fix npt: one pressure form, no other integrator, no unported
+    variable-cell piece (the JAX package's NPT branch)."""
+    others = [f["name"] for f in cfg["fixes"] if f["name"] in ("nve", "nvt")]
+    if others:
+        raise ValueError(f"fix npt integrates the atoms; drop fix {others}")
+    forms = [k for k in ("iso", "aniso") if k in fx]
+    axes = [k for k in ("x", "y", "z") if k in fx]
+    if len(forms) + bool(axes) != 1:
+        raise ValueError(
+            "fix npt needs exactly one pressure form: iso, aniso, or per-axis "
+            f"x/y/z (got {forms + axes})")
+    engine = cfg.get("engine", "nlist")
+    if engine not in ("nlist", "cellpair"):
+        raise NotImplementedError(
+            f"fix npt on engine {engine!r} (the slab barostat) is not "
+            "ported: ROADMAP queue 1 item 16")
+
+
 def _check_deck(cfg: dict):
     for key in cfg:
         if key not in _KEYS:
             where = _UNPORTED_KEYS.get(key, "queue 1")
             raise NotImplementedError(
                 f"deck key {key!r} is not ported: ROADMAP {where}")
+    npt = [fx for fx in cfg.get("fixes", []) if fx.get("name") == "npt"]
     engine = cfg.get("engine", "nlist")
-    if engine != "cellpair":
+    if not npt and engine != "cellpair":
         raise NotImplementedError(
-            f"engine {engine!r} is not ported: ROADMAP queue 1 item 11 "
-            "(nlist) / item 16 (slab); set engine: cellpair")
+            f"engine {engine!r} is not ported without fix npt: ROADMAP queue "
+            "1 item 11 (the nlist Simulation) / item 16 (slab); set engine: "
+            "cellpair")
     for fx in cfg.get("fixes", [{"name": "nve"}]):
         fn = fx.get("name")
         if fn in _UNPORTED_FIXES:
             raise NotImplementedError(
                 f"fix {fn} is not ported: ROADMAP queue 1 "
                 f"{_UNPORTED_FIXES[fn]}")
+        if fn == "npt" and set(fx) & _NPT_TILT_KEYS:
+            raise NotImplementedError(
+                f"fix npt {sorted(set(fx) & _NPT_TILT_KEYS)} (a triclinic "
+                "barostat) is not ported: ROADMAP queue 1 item 14")
         if fn == "shake" and set(fx) - _FIX_KEYS[fn]:
             raise NotImplementedError(
                 f"fix shake keys {sorted(set(fx) - _FIX_KEYS[fn])} are not "
@@ -92,8 +134,11 @@ def _check_deck(cfg: dict):
         if fn not in _FIX_KEYS or set(fx) - _FIX_KEYS[fn]:
             raise NotImplementedError(
                 f"fix {fx!r} is not ported: nve, nvt (t_start, t_stop, "
-                "t_damp, tchain) and shake (m, b, a, iters, tol) only "
-                "(ROADMAP queue 1)")
+                "t_damp, tchain), shake (m, b, a, iters, tol) and npt "
+                "(t_start, t_stop, t_damp, tchain, iso / aniso / x, y, z, "
+                "mtk, pchain) only (ROADMAP queue 1)")
+        if fn == "npt":
+            _check_npt(cfg, fx)
     if "lattice" not in cfg and "read_data" not in cfg:
         raise ValueError("deck needs read_data or lattice")
     name = cfg["pair_style"]["name"]
@@ -114,11 +159,21 @@ def _check_deck(cfg: dict):
                 f"{kind}_style {style!r}: only {sorted(ok)} implemented")
     if ks is not None:
         extra = set(ks) - _KSPACE_KEYS
-        if ks["name"] != "pppm" or extra:
+        if ks["name"] != "pppm":
+            where = _KSPACE_UNPORTED.get(ks["name"], "queue 1")
             raise NotImplementedError(
-                f"kspace_style {ks!r} is not ported: pppm (accuracy, order, "
-                "diff ik, gewald) only; ewald and pppm/disp are ROADMAP "
-                "queue 1 items 10 and 13, slab and mesh overrides item 10")
+                f"kspace_style {ks['name']!r} is not ported: ROADMAP queue 1 "
+                f"{where}")
+        if ks.get("diff", "ik") != "ik":
+            raise NotImplementedError(
+                f"pppm diff {ks['diff']!r} is not ported: ROADMAP queue 1 "
+                f"{_KSPACE_UNPORTED['diff']}")
+        if extra:
+            where = "; ".join(f"{k}: ROADMAP queue 1 "
+                              f"{_KSPACE_UNPORTED.get(k, 'item 10')}"
+                              for k in sorted(extra))
+            raise NotImplementedError(
+                f"kspace_style keys {sorted(extra)} are not ported ({where})")
 
 
 def _device(device) -> torch.device:
@@ -360,8 +415,51 @@ def _pppm_for_grid(cfg: dict, box, q, style, prec, skin: float):
     return make
 
 
+def _npt_config(fx: dict):
+    """fix npt -> (NPTConfig, NVTConfig), the JAX package's parse: iso
+    and aniso couple all three axes (iso to their mean pressure), the
+    per-axis form barostats the axes it names with one damping."""
+    from .integrate import NPTConfig, NVTConfig
+
+    thermostat = NVTConfig(t_start=fx["t_start"],
+                           t_stop=fx.get("t_stop", fx["t_start"]),
+                           t_damp=fx["t_damp"], tchain=fx.get("tchain", 3))
+    common = dict(mtk=fx.get("mtk", True), pchain=fx.get("pchain", 0))
+    for form, couple in (("iso", "xyz"), ("aniso", "none")):
+        if form in fx:
+            pv = fx[form]
+            return NPTConfig(p_start=(pv[0],) * 3, p_stop=(pv[1],) * 3,
+                             p_damp=pv[2], flags=(True, True, True),
+                             couple=couple, **common), thermostat
+    flags, p0, p1, damp = [False] * 3, [0.0] * 3, [0.0] * 3, None
+    for a, ax in enumerate("xyz"):
+        if ax in fx:
+            flags[a] = True
+            p0[a], p1[a], damp = fx[ax]
+    return NPTConfig(p_start=tuple(p0), p_stop=tuple(p1), p_damp=damp,
+                     flags=tuple(flags), couple="none", **common), thermostat
+
+
+def _npt_traced_kspace(cfg: dict, box, q, style, prec):
+    """The deck's PPPM in its variable-cell form: ``setup_pppm`` at the
+    deck's box (the generic mesh, not a cell-aligned one, as the JAX
+    package's NPT branch builds it) wrapped in ``TracedPPPM``."""
+    from .models.kspace import setup_pppm
+    from .models.kspace.pppm_npt import make_traced_kspace
+
+    ks, ps = cfg["kspace_style"], cfg["pair_style"]
+    pm = setup_pppm(box, q, cutoff=ps.get("cut_coul", ps["cut"]),
+                    accuracy_rel=ks.get("accuracy", 1e-4),
+                    qqrd2e=style.qqrd2e, order=ks.get("order", 5),
+                    g_ewald=style.g_ewald, diff=ks.get("diff", "ik"),
+                    acc_dtype=prec.acc)
+    center = np.asarray(box.lo, np.float64) + 0.5 * np.asarray(box.lengths)
+    return make_traced_kspace(pm, center)
+
+
 def build_simulation(cfg: dict, device="cuda"):
-    """Construct a CellPairSimulation from a deck config on ``device``."""
+    """Construct the deck's engine on ``device``: an NPTSimulation for fix
+    npt, else a CellPairSimulation."""
     from .core import (build_topology, get_precision, get_units, make_box,
                        make_system)
     from .integrate import CellPairSimulation, NeighborPolicy, NVTConfig
@@ -400,13 +498,15 @@ def build_simulation(cfg: dict, device="cuda"):
             gew = pppm_g_ewald(box, q, ps.get("cut_coul", ps["cut"]),
                                ks.get("accuracy", 1e-4), u.qqrd2e)
         style = style.replace(g_ewald=float(gew))
-    thermostat = shake = None
+    thermostat = shake = npt_fix = None
     shaken = ((), ())
     for fx in cfg.get("fixes", [{"name": "nve"}]):
         if fx["name"] == "nvt":
             thermostat = NVTConfig(
                 t_start=fx["t_start"], t_stop=fx.get("t_stop", fx["t_start"]),
                 t_damp=fx["t_damp"], tchain=fx.get("tchain", 3))
+        elif fx["name"] == "npt":
+            npt_fix, thermostat = _npt_config(fx)
         elif fx["name"] == "shake":
             shake, *shaken = _shake(cfg, fx, g)
     # the special-bond table above keeps the full topology; the bonded
@@ -420,6 +520,17 @@ def build_simulation(cfg: dict, device="cuda"):
     system = make_system(x, box, type=typ, v=v0, q=q, image=g["image"],
                          mass=mass, molecule=g["mol"], dtype=prec.flt,
                          device=dev)
+    if npt_fix is not None:
+        # the NPT branch comes before the engine choice, as in the JAX
+        # package: the neighbor-list engine with the variable-cell PPPM
+        from .integrate import NPTSimulation
+
+        kspace = (None if ks is None
+                  else _npt_traced_kspace(cfg, box, q, style, prec))
+        return NPTSimulation(
+            system, style, npt_fix, thermostat, kspace=kspace, bonded=bonded,
+            units=u, precision=prec, dt=dt, neighbor=policy, shake=shake,
+            topology=topo)
     kspace = (None if ks is None
               else _pppm_for_grid(cfg, box, q, style, prec, policy.skin))
     try:

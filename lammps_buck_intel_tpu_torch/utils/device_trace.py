@@ -3,8 +3,9 @@
 Used by chip_smoke.py and tools/profile_torch_deck.py to read the card's
 own time of kernels (what CUDA events around a call cannot separate from
 the host time of the Python wrapper that launches them).  The tracer can
-miss the first kernels after it starts, so every trace opens with eight
-spin kernels, and only events that start after the last of them count;
+miss the first kernels after it starts, so it starts on an idle card and
+every trace opens with eight spin kernels, and only events that start
+after the last of them count;
 a trace that lost them all raises ``TraceLost`` (the caller may trace
 the work again).
 """
@@ -13,21 +14,27 @@ from __future__ import annotations
 import torch
 
 _LEAD = 8
-_SPIN_CYCLES = 100000
+SPIN_CYCLES = 1000000
 
 
 class TraceLost(RuntimeError):
     """The trace holds none of its leading spin kernels."""
 
 
-def device_events(run) -> list:
+def device_events(run, spin_cycles: int = SPIN_CYCLES) -> list:
     """The device events (kernels, copies, fills) of ``run()`` on the
-    current CUDA device, as ``torch.profiler`` FunctionEvents."""
+    current CUDA device, as ``torch.profiler`` FunctionEvents.
+    spin_cycles: the length of each leading spin kernel (a caller whose
+    trace lost its lead may trace again with a longer one)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    # start on an idle card (a caller's warm-up may still be running) and
+    # with the allocator's cached blocks returned to the device
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(_LEAD):
-            torch.cuda._sleep(_SPIN_CYCLES)
+            torch.cuda._sleep(spin_cycles)
         torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()

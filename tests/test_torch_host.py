@@ -160,7 +160,7 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
                     "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
     {"replicate": [2, 2, 2]},
     {"fixes": [{"name": "npt", "t_start": 1.0, "t_damp": 0.1,
-                "iso": [0.0, 0.0, 1.0]}]},
+                "iso": [0.0, 0.0, 1.0], "xy": [0.0, 0.0, 1.0]}]},
     {"engine": "nlist"},
     {"fixes": [{"name": "nvt", "t_start": 1.0, "t_damp": 0.1, "drag": 0.2}]},
     {"pair_style": {"name": "buck/coul/long", "cut": 2.5,
@@ -186,7 +186,7 @@ def _rhodo(name="rhodo_flex_nve.yaml"):
     ({"fixes": [{"name": "shake", "m": 1.0, "t": [2]}]}, "item 12.*K13"),
     ({"fixes": [{"name": "rigid/small"}]}, "item 13"),
     ({"fixes": [{"name": "npt", "t_start": 300.0, "t_damp": 50.0,
-                 "iso": [0.0, 0.0, 1000.0]}]}, "item 14"),
+                 "tri": [0.0, 0.0, 1000.0]}]}, "item 14"),
     ({"kspace_style": {"name": "ewald", "accuracy": 1e-4}}, "item"),
     ({"kspace_style": {"name": "pppm/disp", "accuracy": 1e-4}}, "item"),
     ({"exclude_intra": True}, "item 13"),

@@ -635,3 +635,139 @@ def test_shake_wrappers_reject_bad_input(cuda):
     with pytest.raises(TypeError):
         shake.shake_virial(t, d["xn"], d["v"], d["fa"], None, inv, L, 0.3,
                            torch.float16)
+
+
+# ---- fix npt: the neighbor list (K9), the variable cell (K16) and the
+# ported kernels with the box on the card ----
+
+def _npt_sim(cuda, prec):
+    """rhodo_npt.yaml on one copy of the data file, on the card."""
+    import os
+
+    import yaml
+
+    from lammps_buck_intel_tpu_torch.run import build_simulation
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "examples", "decks", "rhodo_npt.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(read_data=os.path.join(root, cfg["read_data"]),
+               replicate=[1, 1, 1], precision=prec)
+    return build_simulation(cfg, device=cuda)
+
+
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_nlist_kernels_match_plain(cuda, prec):
+    from lammps_buck_intel_tpu_torch.core.box import traced_lo
+    from lammps_buck_intel_tpu_torch.models.pair import driver
+    from lammps_buck_intel_tpu_torch.neighbor import neighbor_list as nlm
+
+    sim = _npt_sim(cuda, prec)
+    x, boxL = sim.state.x, sim.state.boxL * torch.tensor(
+        [1.0, 1.0, 1.01], device=cuda, dtype=sim.state.boxL.dtype)
+    lo = traced_lo(sim._center, boxL)
+    before = dict(ops.LAUNCHES)
+    nk = nlm.build_cell(x, lo, boxL, sim.spec, sim._special)
+    npl = nlm.build_cell_plain(x, lo, boxL, sim.spec, sim._special)
+    assert torch.equal(nk.idx, npl.idx) and torch.equal(nk.sb, npl.sb)
+    assert torch.equal(nk.nnei, npl.nnei) and not bool(nk.overflow)
+    import dataclasses
+
+    small = dataclasses.replace(sim.spec, kmax=16)
+    assert bool(nlm.build_cell(x, lo, boxL, small, sim._special).overflow)
+    ftol, etol = (1e-4, 1e-5) if prec == "single" else (1e-11, 1e-11)
+    for ev in (False, True):
+        args = (sim.pair, x, sim.typ, sim.q, boxL, nk)
+        kw = dict(eflag=ev, acc_dtype=sim.precision.acc, use_special=True)
+        rk = driver.compute_pair(*args, **kw)
+        rp = driver.compute_pair_plain(*args, **kw)
+        fk, fp = torch.stack(rk[:3]), torch.stack(rp[:3])
+        assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+        assert float((rk.virial - rp.virial).abs().max()) <= \
+            etol * float(rp.virial.abs().max())
+        if ev:
+            for e in ("evdwl", "ecoul"):
+                assert abs(float(getattr(rk, e) - getattr(rp, e))) <= \
+                    etol * abs(float(getattr(rp, e)))
+    assert ops.LAUNCHES["nlist_build"] == before["nlist_build"] + 2
+    assert ops.LAUNCHES["nlist_pair"] == before["nlist_pair"] + 2
+
+
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_npt_kernels_match_plain(cuda, prec):
+    from lammps_buck_intel_tpu_torch.integrate import npt
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_npt
+
+    sim = _npt_sim(cuda, prec)
+    st, acc = sim.state, sim.precision.acc
+    rtol = 1e-5 if prec == "single" else 1e-11
+    boxL = st.boxL * torch.tensor([1.0, 1.0, 1.02], device=cuda,
+                                  dtype=st.boxL.dtype)
+    tp = sim.kspace
+    Gk = tp.tables(boxL)["G"]
+    Gp = pppm_npt.traced_greens_plain(tp.consts(cuda, st.x.dtype), boxL,
+                                      tp.g_ewald)
+    assert float((Gk - Gp).abs().max()) <= rtol * float(Gp.abs().max())
+    vs = tuple(st.v.unbind(0))
+    kk = npt.ke3(vs, sim.typ, sim._mass_t, acc).sum(0)
+    kp = npt.ke3_plain(vs, sim.typ, sim._mass_t, acc).sum(0)
+    assert float((kk - kp).abs().max()) <= rtol * float(kp.abs().max())
+    vfac = torch.tensor([0.99, 1.0, 1.01], device=cuda, dtype=st.v.dtype)
+    vk, vp = st.v.clone(), st.v.clone()
+    npt.vscale_kick(tuple(vk.unbind(0)), tuple(st.f.unbind(0)), sim.typ,
+                    sim._minv_t, vfac, sim.dtf)
+    npt.vscale_kick_plain(tuple(vp.unbind(0)), tuple(st.f.unbind(0)),
+                          sim.typ, sim._minv_t, vfac, sim.dtf)
+    assert torch.equal(vk, vp) and not torch.equal(vk, st.v)
+    xk, xp = st.x.clone(), st.x.clone()
+    npt.drift_dilate(tuple(xk.unbind(0)), vs, vfac, sim._center, 1.0)
+    npt.drift_dilate_plain(tuple(xp.unbind(0)), vs, vfac, sim._center, 1.0)
+    assert torch.equal(xk, xp)
+    # the traced PPPM on the card against the plain version on the CPU
+    rk = tp.compute_traced(st.x, sim.q, boxL, kc=tp.tables(boxL))
+    Lc = boxL.cpu()
+    rp = tp.compute_traced(st.x.cpu(), sim.q.cpu(), Lc, kc=tp.tables(Lc))
+    fk, fp = torch.stack(rk.f).cpu(), torch.stack(rp.f)
+    ftol = 1e-4 if prec == "single" else 1e-10
+    assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+    assert abs(float(rk.elong.cpu() - rp.elong)) <= \
+        ftol * abs(float(rp.elong))
+
+
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_shake_and_bonded_with_box_on_the_card(cuda, prec):
+    from lammps_buck_intel_tpu_torch.integrate import shake
+    from lammps_buck_intel_tpu_torch.models.bonded import (compute_bonded,
+                                                           compute_bonded_plain)
+
+    sim = _npt_sim(cuda, prec)
+    st, t, inv = sim.state, sim._shake_t, sim._inv
+    rtol = 1e-5 if prec == "single" else 1e-12
+    boxL = st.boxL * torch.tensor([1.0, 1.0, 1.01], device=cuda,
+                                  dtype=st.boxL.dtype)
+    xs = tuple(st.x.unbind(0))
+    ro_k = shake.shake_ref(t, xs, inv, boxL)
+    ro_p = shake.shake_ref_plain(t, xs, inv, boxL)
+    assert float((ro_k - ro_p).abs().max()) <= rtol * float(ro_p.abs().max())
+    xn = st.x + sim.dtv * st.v
+    pk, pp = xn.clone(), xn.clone()
+    vk, vp = st.v.clone(), st.v.clone()
+    vf = 1.0 / (sim.dtv * sim.dtf)
+    _, wk = shake.shake_positions(t, ro_k, tuple(pk.unbind(0)),
+                                  tuple(vk.unbind(0)), inv, boxL, sim.dtv, 4,
+                                  virial_factor=vf)
+    _, wp = shake.shake_positions_plain(t, ro_p, tuple(pp.unbind(0)),
+                                        tuple(vp.unbind(0)), inv, boxL,
+                                        sim.dtv, 4, virial_factor=vf)
+    assert float((wk - wp).abs().max()) <= 1e-4 * float(wp.abs().max())
+    assert float(wp.abs().max()) > 0.0
+    acc = sim.precision.acc
+    out_k = compute_bonded(sim.bonded, xs, boxL, eflag=True, acc_dtype=acc)
+    out_p = compute_bonded_plain(sim.bonded, xs, boxL, eflag=True,
+                                 acc_dtype=acc)
+    fk = torch.stack([out_k.fx, out_k.fy, out_k.fz])
+    fp = torch.stack([out_p.fx, out_p.fy, out_p.fz])
+    tol = 1e-4 if prec == "single" else 1e-11
+    assert float((fk - fp).abs().max()) <= tol * float(fp.abs().max())
+    assert float((out_k.virial - out_p.virial).abs().max()) <= \
+        tol * float(out_p.virial.abs().max())

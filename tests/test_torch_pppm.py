@@ -182,3 +182,70 @@ def test_plain_deposit_conserves_charge():
     assert tuple(mesh.shape) == pm.grid
     assert abs(float(mesh.sum()) - float(tst.q.sum())) <= 1e-12
     assert abs(float(mesh.abs().sum())) > 1.0
+
+
+# ---- the variable-cell solver (fix npt): TracedPPPM ----
+
+@pytest.mark.parametrize("order", [5, 7])
+@pytest.mark.parametrize("dilate", [(1.0, 1.0, 1.0), (1.0, 1.0, 1.02),
+                                    (0.97, 1.01, 1.0)])
+def test_traced_pppm_matches_jax(order, dilate):
+    """TracedPPPM.tables and compute_traced against the JAX package's on
+    the generic mesh of a non-cubic box, at the set-up box and dilated
+    about its centre: G rel 1e-10 of its largest entry, forces max|df| <=
+    1e-10 max|f|, elong and the virial rel 1e-10.  The port solves on the
+    rfft half spectrum with half weights, the JAX package on the full
+    spectrum: equal elong and virial show the half-spectrum sums equal the
+    full ones (with the Nyquist weights of the off-diagonal terms), equal
+    forces the Nyquist handling of the ik fields (the meshes are even)."""
+    from lammps_buck_intel_tpu.models.kspace.pppm_npt import (
+        TracedPPPM as JTraced)
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm_npt import (
+        TracedPPPM as TTraced)
+
+    x, q = _charges(4)
+    lo, hi = np.array([0.0, -1.0, 0.5]), np.array([L, L + 0.5, L - 1.5])
+    jbox, tbox = jmake_box(lo, hi), tmake_box(lo, hi)
+    kw = dict(cutoff=CUT, accuracy_rel=1e-5, qqrd2e=QQRD2E, order=order)
+    j = jsetup(jbox, q, acc_dtype=jnp.float64, **kw)
+    t = tsetup(tbox, q, acc_dtype=torch.float64, **kw)
+    assert tuple(j.grid) == t.grid and all(n % 2 == 0 for n in t.grid)
+    center = lo + 0.5 * (hi - lo)
+    jt, tt = JTraced(j, center), TTraced(t, center)
+    boxL = (hi - lo) * np.asarray(dilate)
+    x = center + (x - lo - 0.5 * (hi - lo)) * np.asarray(dilate)
+    jk = jt.tables(jnp.asarray(boxL))
+    tk = tt.tables(torch.as_tensor(boxL))
+    Gj = np.asarray(jk["G"])
+    assert np.abs(tk["G"].numpy() - Gj).max() <= 1e-10 * np.abs(Gj).max()
+    nzh = t.grid[2] // 2 + 1
+    assert torch.equal(tk["G_half"], tk["G"][..., :nzh])
+    for eflag in (True, False):
+        jr = jt.compute_traced(jnp.asarray(x), jnp.asarray(q),
+                               jnp.asarray(boxL), eflag=eflag, kc=jk)
+        tr = tt.compute_traced(torch.as_tensor(x.T.copy()),
+                               torch.as_tensor(q), torch.as_tensor(boxL),
+                               eflag=eflag, kc=tk)
+        fj = np.asarray(jr.f)
+        ft = torch.stack(tr.f, -1).numpy()
+        assert np.abs(ft - fj).max() <= 1e-10 * np.abs(fj).max()
+        vj = np.asarray(jr.virial)
+        np.testing.assert_allclose(tr.virial.numpy(), vj, rtol=1e-10,
+                                   atol=1e-10 * np.abs(vj).max())
+        if eflag:
+            ej = float(jr.elong)
+            assert abs(float(tr.elong) - ej) <= 1e-10 * abs(ej)
+        else:
+            assert float(tr.elong) == 0.0
+
+
+def test_traced_pppm_unported_raise():
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm_npt import (
+        make_traced_kspace)
+
+    x, q = _charges(0)
+    box = tmake_box([0, 0, 0], [L] * 3)
+    pm = tsetup(box, q, cutoff=CUT, accuracy_rel=1e-5, qqrd2e=QQRD2E)
+    assert make_traced_kspace(pm, [6.0] * 3).grid == pm.grid
+    with pytest.raises(NotImplementedError, match="item 13"):
+        make_traced_kspace(object(), [6.0] * 3)

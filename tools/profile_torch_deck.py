@@ -7,7 +7,10 @@ Runs the deck's main path on the CUDA card (no thermo inside the window,
 so every step is a force-only step as most steps of a run are), first
 untraced for the step time, then the same number of steps under
 ``torch.profiler`` (``utils/device_trace.py``).  Device kernel time is summed by kernel and grouped
-into the port's layers: pair (csrc/cellpair.cu), pppm kernels
+into the port's layers: pair (csrc/cellpair.cu, or csrc/nlist.cu's pair
+pass on the NPT engine), nlist build (csrc/nlist.cu), npt (csrc/npt.cu:
+the traced influence function, the barostat's per-atom passes), pppm
+kernels
 (csrc/pppm.cu), pppm FFTs (cuFFT under torch.fft), bonded
 (csrc/bonded.cu), rebin (csrc/rebin.cu), verlet (csrc/verlet.cu: kicks,
 drift, force sum and cast, kinetic sums, the thermostat chain), shake
@@ -16,7 +19,8 @@ ops (everything else: fills, the slot-of-atom map, partial sums).  The
 device idle share is 1 - (kernel time / traced wall time); launches per
 step are the device events of each layer over the steps.  With them the
 least time the card could take for the NVE update of one step: it reads
-x, v, f and writes x, v, 9 planes of nslots floats, at 3.35 TB/s.  Prints
+x, v, f and writes x, v, 9 planes of nslots floats (atoms on the NPT
+engine), at 3.35 TB/s.  Prints
 one JSON object with the card's name and power limit.
 """
 import argparse
@@ -37,7 +41,11 @@ from lammps_buck_intel_tpu_torch.utils import device_trace  # noqa: E402
 
 # kernel name fragments -> layer (first match wins)
 LAYERS = (
-    ("pair", ("cellpair_kernel",)),
+    ("pair", ("cellpair_kernel", "nlist_pair_kernel")),
+    ("nlist build", ("nlist_bin_kernel", "nlist_sort_kernel",
+                     "nlist_build_kernel")),
+    ("npt", ("traced_greens_kernel", "npt_ke3_kernel",
+             "npt_vscale_kick_kernel", "npt_drift_dilate_kernel")),
     ("pppm kernels", ("pppm_deposit_kernel", "pppm_spectral_kernel",
                       "pppm_gather_kernel")),
     ("pppm fft", ("fft",)),
@@ -108,7 +116,9 @@ def main(argv=None):
         by_layer[layer_of(k)] = by_layer.get(layer_of(k), 0.0) + v
     busy = sum(kernels.values())
     traced_step = traced_ms / args.steps
-    nve_bytes = 9 * sim.grid.nslots * sim.state.x.element_size()
+    # the cell engine's slot planes, or the NPT engine's atom planes
+    nslots = sim.grid.nslots if hasattr(sim, "grid") else sim.n_atoms
+    nve_bytes = 9 * nslots * sim.state.x.element_size()
     out = {
         "deck": os.path.basename(args.deck), "card": smi,
         "n_atoms": sim.n_atoms, "steps": args.steps,
@@ -119,7 +129,7 @@ def main(argv=None):
                                           key=lambda kv: -kv[1])),
         "launches_per_step": {k: v / args.steps
                               for k, v in sorted(launches.items())},
-        "nslots": sim.grid.nslots,
+        "nslots": nslots,
         "nve_update_bound_ms": 1e3 * nve_bytes / 3.35e12,
         "top_kernels_ms_per_step": dict(sorted(
             kernels.items(), key=lambda kv: -kv[1])[:12]),
