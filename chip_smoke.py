@@ -73,7 +73,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      atoms (step 0 against long_rhodo_npt.json, the rows at 50 and 100
      against the record's scaled rows at its row_tol) and at replicate
      [6, 6, 4] (step 0 against the record scaled to 144 copies), ms/step,
-     and the NPT launch counts of that last run in the kernels line.
+     and the NPT launch counts of that last run in the kernels line;
+ 11. the neighbor-list Simulation (engine: nlist, the JAX package's
+     default): the dense list build (K9c) against its plain version at
+     500 and 1,440 atoms, f32 and f64, K forced to overflow too, timed at
+     both (the kernels line takes 500, buck_small.yaml's shape); the
+     generic-mesh PPPM (K10: PPPM.compute through the deposit,
+     spectral and gather kernels in atom order) against the plain
+     full-spectrum version (forces, elong, its reciprocal part alone,
+     virial) on one cristobalite copy in f64;
+     cristobalite_pppm_nlist.yaml (259,200 atoms, 100 steps, f32: step 0
+     against the cell engine's record, which the other mesh's accuracy
+     does not leave, elong's reciprocal part within RECIP_TOL of the
+     record's, the silica drift gate, ms/step beside the cell
+     engine's; K10 against its plain version on the run's last state and
+     timed there); rhodo_nve_nlist.yaml at 31,104 atoms and at replicate
+     [6, 6, 4] (step 0 against long_rhodo_nve.json and its scaled row,
+     drift gate 1.3e-3, the constraints within tol at every row, ms/step
+     beside rhodo_nve.yaml on the cell engine, the list pair pass's
+     device time beside K1's); the 2x2x2 jittered cristobalite and one
+     rhodo copy (NVT + SHAKE) in f64 against the JAX package's record
+     (tests/goldens/torch_nlist.json); buck_small.yaml unedited through
+     run_deck: the cell engine's box-too-small fallback into Simulation
+     and K9c, the drift under buck's gate, whose launches the kernels
+     line reports for K9c.
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -131,7 +154,9 @@ STEP0 = {"temp": 1e-3, "evdwl": 2e-3, "ecoul": 2e-3, "elong": 2e-3,
 # cannot see.  That part is gated on its own, rel 1e-2 of the record's:
 # f32 rounding of elong (~1.8e6) is 0.125 = 8e-4 of it, and the record's
 # scaling from 11,520 atoms holds to 8.1e-5 across four meshes per cell;
-# a PPPM that returned zero would be off by all of it.
+# a PPPM that returned zero would be off by all of it.  The neighbor-list
+# engine's generic mesh is not the record's: its solver's own accuracy
+# enters too, and is printed beside the gate.
 RECIP_TOL = 1e-2
 # f64 on the card against the JAX package's f64 record of the jittered
 # deck: the CPU parity tolerances of tests/test_torch_slice.py and
@@ -225,7 +250,11 @@ def device_ms(fn, reps: int = 10, setup=None, tries: int = 12) -> float:
     time of the wrapper around them left out).  A trace that lost its
     lead (device_trace.TraceLost) is taken again on fresh inputs, with a
     lead up to 4 times as long each time (at most 256 times the first:
-    the losses come in runs, and a longer lead ends them)."""
+    the losses come in runs, and a longer lead ends them).  A trace that
+    kept its lead but recorded no device time after it is lost the same
+    way, and taken again.  After ``tries`` lost traces the device time is
+    not measured: NaN, printed as such and null in the kernels line (the
+    caller's time, ``cuda_ms``, is measured all the same)."""
     for attempt in range(tries):
         args = [None if setup is None else setup() for _ in range(reps + 1)]
         fn() if setup is None else fn(args[0])   # warm-up
@@ -241,11 +270,13 @@ def device_ms(fn, reps: int = 10, setup=None, tries: int = 12) -> float:
             print(f"[trace] {e}; tracing again")
             continue
         ms = device_trace.device_ms(events) / reps
-        if ms <= 0:
-            raise AssertionError("torch.profiler recorded no device time")
-        return ms
-    raise AssertionError(f"torch.profiler lost the trace's lead {tries} "
-                         "times")
+        if ms > 0:
+            return ms
+        print("[trace] the device trace recorded nothing after its lead; "
+              "tracing again")
+    print(f"[trace] device time not measured: torch.profiler lost the "
+          f"trace {tries} times (its lead, or every device event after it)")
+    return float("nan")
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -303,6 +334,34 @@ def pairs_in_cutoff(style, grid, box, st, rsq_min: float = -1.0) -> int:
               & (rsq > rsq_min))
         total += int(ok.sum())
     return total // 2
+
+
+def step0_check(name: str, row: dict, ref: dict, n: int):
+    """The _STEP0_FIELDS rule (press 2e-2 above 5,000 atoms): energies
+    within 2e-3 of |epair|, temp 1e-3 and press of their magnitude."""
+    scale = max(abs(ref["epair"]), 1.0)
+    for key, rtol in STEP0.items():
+        if key == "press" and n > 5000:
+            rtol = 2e-2
+        tol = rtol * (scale if key not in ("temp", "press")
+                      else max(abs(ref[key]), 1.0))
+        if not abs(row[key] - ref[key]) <= tol:
+            raise AssertionError(f"{name} step-0 {key}: {row[key]:.8g} vs "
+                                 f"record {ref[key]:.8g} (tol {tol:.3g})")
+
+
+def recip_check(name: str, row: dict, elong_self: float, golden: dict):
+    """The step-0 reciprocal part of elong (elong - elong_self) within
+    RECIP_TOL of the record's, and the solver's self and background terms
+    those of the record (rel 1e-12)."""
+    recip, ref_recip = row["elong"] - elong_self, golden["elong_recip"]
+    print(f"[deck] {name}: step-0 elong - elong_self {recip:.6g} (record "
+          f"{ref_recip:.6g}, tol rel {RECIP_TOL}); elong_self "
+          f"{elong_self:.10g} (record {golden['elong_self']:.10g})")
+    if (abs(elong_self - golden["elong_self"])
+            > 1e-12 * abs(golden["elong_self"])
+            or not abs(recip - ref_recip) <= RECIP_TOL * abs(ref_recip)):
+        raise AssertionError(f"{name}: reciprocal part of elong off")
 
 
 def phase_device():
@@ -777,15 +836,7 @@ def phase_deck(name: str, golden: dict, thermo: int, kernels: tuple,
                              "atoms")
     ref = golden["rows"][0] if "rows" in golden else golden["row"]
     row = rows[0]
-    scale = max(abs(ref["epair"]), 1.0)
-    for key, rtol in STEP0.items():
-        if key == "press" and n > 5000:
-            rtol = 2e-2
-        tol = rtol * (scale if key not in ("temp", "press")
-                      else max(abs(ref[key]), 1.0))
-        if not abs(row[key] - ref[key]) <= tol:
-            raise AssertionError(f"{name} step-0 {key}: {row[key]:.8g} vs "
-                                 f"golden {ref[key]:.8g} (tol {tol:.3g})")
+    step0_check(name, row, ref, n)
     e0 = rows[0]["etotal"]
     drift = max(abs(r["etotal"] - e0) for r in rows) / n
     if drift_gate is not None and not drift <= drift_gate:
@@ -831,14 +882,7 @@ def phase_deck(name: str, golden: dict, thermo: int, kernels: tuple,
             raise AssertionError(f"{name}: PPPM mesh or g_ewald differs "
                                  "from the record")
     if sim.kspace is not None and "elong_recip" in golden:
-        recip, ref_recip = row["elong"] - pm.elong_self, golden["elong_recip"]
-        print(f"[deck] {name}: step-0 elong - elong_self {recip:.6g} "
-              f"(record {ref_recip:.6g}, tol rel {RECIP_TOL}); elong_self "
-              f"{pm.elong_self:.10g} (record {golden['elong_self']:.10g})")
-        if (abs(pm.elong_self - golden["elong_self"])
-                > 1e-12 * abs(golden["elong_self"])
-                or not abs(recip - ref_recip) <= RECIP_TOL * abs(ref_recip)):
-            raise AssertionError(f"{name}: reciprocal part of elong off")
+        recip_check(name, row, pm.elong_self, golden)
     if sim.bonded is not None:
         print(f"[deck] {name}: temp " + ", ".join(
             f"{r['temp']:.2f} K @ {r['step']}" for r in rows)
@@ -1484,7 +1528,7 @@ def phase_shake_decks(rec: dict):
     temperature; then rhodo_nve.yaml at replicate [6, 6, 4] (248,832
     atoms) against the one-copy row scaled to 144 copies.  Every thermo
     row holds the constraints to the decks' tol.  Returns the big run's
-    launch counts and ms/step."""
+    launch counts and ms/step, and the 31,104-atom run's ms/step."""
     path = ("cellpair", "rebin_incremental", "rebin", "pppm_deposit",
             "pppm_spectral", "pppm_gather") + BONDED_KERNELS \
         + VERLET_KERNELS + SHAKE_KERNELS
@@ -1500,7 +1544,7 @@ def phase_shake_decks(rec: dict):
           f"{full['row']['temp']:.6g}); drift gate {gate} kcal/mol per atom "
           f"(the record drifted {nve_rec['drift_per_atom']:.4e}; the JAX "
           f"f32 run of 1,728 atoms {rec['single']['drift_per_atom']:.4e})")
-    phase_deck("rhodo_nve.yaml", deck, 50, path, gate)
+    small = phase_deck("rhodo_nve.yaml", deck, 50, path, gate)
     nvt_rec = load_golden("long_rhodo_32k.json")
     one = rec["single_nvt"]
     ts = full["temp_scale"]
@@ -1521,6 +1565,7 @@ def phase_shake_decks(rec: dict):
     big = phase_deck("rhodo_nve.yaml", big_rec, 50, path, gate,
                      replicate=BIG_REPLICATE)
     big["launches"]["nhc_scale"] = nvt["launches"]["nhc_scale"]
+    big["small_ms_step"] = small["ms_step"]
     return big
 
 
@@ -1894,15 +1939,7 @@ def phase_npt_deck(rec: dict, replicate=None):
     step0 = (load_golden("long_rhodo_npt.json")["rows"][0]
              if replicate is None else full["rows"][0])
     row = rows[0]
-    scale = max(abs(step0["epair"]), 1.0)
-    for k, rtol in STEP0.items():
-        if k == "press" and n > 5000:
-            rtol = 2e-2
-        t = rtol * (scale if k not in ("temp", "press")
-                    else max(abs(step0[k]), 1.0))
-        if not abs(row[k] - step0[k]) <= t:
-            raise AssertionError(f"{name} step-0 {k}: {row[k]:.8g} vs "
-                                 f"record {step0[k]:.8g} (tol {t:.3g})")
+    step0_check(name, row, step0, n)
     report = []
     for r in rows:
         for k in ("temp", "press", "etotal", "vol"):
@@ -1940,6 +1977,457 @@ def phase_npt_deck(rec: dict, replicate=None):
     return dict(launches=ran, ms_step=1e3 * wall / steps, row=row)
 
 
+# ---- the neighbor-list Simulation (K9c, K10): engine: nlist ----
+
+NLIST_PATH = ("nlist_pair", "verlet_kick_drift", "verlet_kick", "verlet_ke")
+NLIST_PPPM = ("pppm_deposit", "pppm_spectral", "pppm_gather")
+NLIST_SHAKE = ("shake_ref", "shake_positions", "rattle_velocities",
+               "shake_virial")
+# f64 on the card against the JAX package's f64 record of the
+# neighbor-list engine (tests/goldens/torch_nlist.json): the CPU parity
+# tolerance of tests/test_torch_simulation.py; rows and forces relative,
+# positions of the box length
+NLIST_RECORD_TOL = 1e-10
+# per mesh point of a real-to-complex FFT or its inverse: half of a
+# complex FFT's 5 log2(M) operations
+OPS_RFFT_PT = lambda m: 2.5 * np.log2(m)  # noqa: E731
+
+
+def _nlist_sim(name: str, precision: str = "single", replicate=None,
+               jitter=None):
+    """A neighbor-list deck built on the card; jitter = amplitude: read a
+    copy of examples/data.cristobalite that gen_cristobalite.jitter
+    displaced (written to a temporary directory)."""
+    cfg = load_deck(name)
+    cfg["precision"] = precision
+    if replicate is not None:
+        cfg["replicate"] = list(replicate)
+    if jitter is None:
+        return build_simulation(cfg, device="cuda")
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import gen_cristobalite
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["read_data"] = os.path.join(tmp, "data.cristobalite_jitter")
+        gen_cristobalite.write(cfg["read_data"], jitter_amp=jitter)
+        return build_simulation(cfg, device="cuda")
+
+
+def phase_nlist_dense():
+    """K9c against build_dense's plain version on the card: buck_small's
+    500-atom lattice (the fallback of buck_small.yaml) and one jittered
+    copy of the cristobalite crystal (1,440 atoms, one cell along z), f32
+    and f64, at the decks' K and with K forced to 16 (overflow): the same
+    lists, codes, counts and flags.  Timed in f32 at both sizes, with
+    torch.cdist + topk (no periodic image) beside it as the nearest
+    library pair; the kernels line takes the 500-atom numbers, the shape
+    of buck_small.yaml's run that gives its launches, and the 1,440-atom
+    time is printed beside them."""
+    import dataclasses
+
+    from lammps_buck_intel_tpu_torch.neighbor import neighbor_list as nlm
+
+    out = {}
+    for n, prec in ((500, "single"), (500, "double"), (1440, "double"),
+                    (1440, "single")):
+        sim = (_nlist_sim("buck_small.yaml", prec) if n == 500 else
+               _nlist_sim("cristobalite_pppm_nlist.yaml", prec, (1, 1, 1),
+                          jitter=0.1))
+        if sim.n_atoms != n or not sim.spec.dense:
+            raise AssertionError(f"dense build: {sim.n_atoms} atoms, spec "
+                                 f"{sim.spec}")
+        x, lo, L = sim.state.x, sim._lo, sim._boxL
+        for spec in (sim.spec, dataclasses.replace(sim.spec, kmax=16)):
+            nk = nlm.build_dense(x, lo, L, spec, sim._special)
+            npl = nlm.build_dense_plain(x, lo, L, spec, sim._special)
+            same = (torch.equal(nk.idx, npl.idx)
+                    and torch.equal(nk.sb, npl.sb)
+                    and torch.equal(nk.nnei, npl.nnei)
+                    and bool(nk.overflow) == bool(npl.overflow)
+                    == (spec is not sim.spec))
+            print(f"[K9c] {n} atoms {prec} K {spec.kmax}: lists identical "
+                  f"{same}, {float(nk.nnei.double().mean()):.1f} neighbors "
+                  f"per atom (max {int(nk.nnei.max())}), overflow "
+                  f"{bool(nk.overflow)}")
+            if not same:
+                raise AssertionError(f"nlist_dense {n}/{prec} disagrees "
+                                     "with its plain version")
+        if prec == "single":
+            spec, k = sim.spec, min(sim.spec.kmax, n)
+            xt = x.t().contiguous()
+
+            def kern():
+                return nlm.build_dense(x, lo, L, spec, sim._special)
+
+            ms, dev_ms = cuda_ms(kern), device_ms(kern)
+            plain_ms = cuda_ms(
+                lambda: nlm.build_dense_plain(x, lo, L, spec, sim._special),
+                reps=3)
+            pair_ms = cuda_ms(lambda: torch.topk(torch.cdist(xt, xt), k,
+                                                 largest=False))
+            fs = x.element_size()
+            b_ms, b_by = bound(3 * n * fs + k * n * 5 + 4 * n,
+                               n * n * OPS_BUILD_CAND)
+            print(f"[K9c] nlist_dense f32 at {n} atoms, K {k}: kernel "
+                  f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
+                  f"ms, torch.cdist + topk {pair_ms:.4f} ms (not the same "
+                  f"function: no periodic image), bound {b_ms:.5f} ms "
+                  f"({b_by})")
+            if n == 500:
+                out = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+                           library_ms=None, cdist_topk_ms=pair_ms)
+        del sim
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k10_compare(label, pm, x, q, flt):
+    """PPPM.compute on the card (K10 through K5 / K7 / K8) against
+    pppm_compute_plain (the JAX _pppm_compute's full spectrum) on the
+    same card: forces, elong and the virial at the TOL of the PPPM
+    kernels.  elong adds the host's self and background terms (on
+    cristobalite 10^4 times the rest) to the kernels' energy sum, so that
+    sum is held on its own too: the same solver with no self term (qsum
+    and qsqsum 0; neither enters the kernels) returns it alone as elong.
+    Returns the largest force difference."""
+    import dataclasses
+
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm import \
+        pppm_compute_plain
+
+    ftol, etol = TOL[flt]
+    rk = pm.compute(x, q, eflag=True, vflag=True)
+    rp = pppm_compute_plain(pm, x, q, True, True)
+    recip = dataclasses.replace(pm, qsum=0.0, qsqsum=0.0)
+    ek_k = recip.compute(x, q, eflag=True, vflag=False).elong
+    ek_p = pppm_compute_plain(recip, x, q, True, False).elong
+    fk, fp = torch.stack(rk.f), torch.stack(rp.f)
+    errs = {"f": rel_err(fk, fp), "elong": scalar_rel(rk.elong, rp.elong),
+            "ek": scalar_rel(ek_k, ek_p),
+            "virial": rel_err(rk.virial, rp.virial)}
+    print(f"[K10] {label}: mesh {pm.grid} order {pm.order}; forces "
+          f"{errs['f']:.3e} of max|f| {float(fp.abs().max()):.4g}, elong "
+          f"{errs['elong']:.3e} ({float(rk.elong):.10g} vs "
+          f"{float(rp.elong):.10g}), its reciprocal part {errs['ek']:.3e} "
+          f"({float(ek_k):.10g} vs {float(ek_p):.10g}), virial "
+          f"{errs['virial']:.3e}")
+    if not (errs["f"] <= ftol and errs["elong"] <= etol
+            and errs["ek"] <= etol and errs["virial"] <= etol):
+        raise AssertionError(f"PPPM.compute {label} disagrees with its "
+                             "plain version")
+    return float((fk - fp).abs().max())
+
+
+def _k10_time(pm, x, q):
+    """K10 in f32 at the deck's generic mesh: the staged route as a caller
+    pays for it (force-only, as on every step but the thermo rows), its
+    device time, the plain version; the bound counts x, y, z, q in and
+    the three force planes out, and the deposit's, spectral kernel's,
+    gather's and the four real FFTs' operations."""
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm import \
+        pppm_compute_plain
+
+    n, p = x.shape[1], pm.order
+    m = int(np.prod(pm.grid))
+    npts = pm.grid[0] * pm.grid[1] * (pm.grid[2] // 2 + 1)
+
+    def kern():
+        return pm.compute(x, q, eflag=False, vflag=False)
+
+    ms, dev_ms = cuda_ms(kern), device_ms(kern)
+    plain_ms = cuda_ms(lambda: pppm_compute_plain(pm, x, q, False, False),
+                       reps=3)
+    acc = torch.empty((), dtype=pm.acc_dtype).element_size()
+    b_ms, b_by = bound(
+        n * 4 * x.element_size() + 3 * n * acc,
+        n * (2 * OPS_WEIGHTS(p) + p ** 3 * (OPS_DEPOSIT_PT + OPS_GATHER_PT))
+        + npts * OPS_SPECTRAL_PT + 4 * m * OPS_RFFT_PT(m))
+    print(f"[K10] pppm_compute f32 at {n} atoms, mesh {pm.grid}: staged "
+          f"route {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} "
+          f"ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def nlist_violation(sim) -> float:
+    """max |r^2/d^2 - 1| over the constraints, in f64 on the card (the
+    neighbor-list engine keeps atom order)."""
+    x = sim.state.x.double().t()
+    return float(max_violation(sim.shake, x, sim.box.lengths))
+
+
+def phase_nlist_deck(name: str, step0_ref: dict, full: dict, drift_gate,
+                     kernels: tuple, thermo: int = 50, replicate=None,
+                     recip_ref: dict | None = None):
+    """A neighbor-list deck through build_simulation and run as run_deck
+    calls them, launch counts set to 0 just before and read just after:
+    the Simulation engine, the record's generic mesh, g_ewald and cells,
+    step 0 under the _STEP0_FIELDS rule, the NVE drift under its gate,
+    every kernel of the path launched, and with fix shake the constraint
+    violation within the deck's tol at every thermo row.  With
+    ``recip_ref`` (a record with elong_recip) the step-0 reciprocal part
+    of elong is held to it too (``recip_check``): the generic mesh is not
+    the record's, but the solvers agree far inside RECIP_TOL.  Returns the
+    launches, ms/step, the step-0 row and the engine."""
+    from lammps_buck_intel_tpu_torch.integrate import Simulation
+
+    cfg = load_deck(name)
+    cfg["thermo"] = thermo
+    if replicate is not None:
+        cfg["replicate"] = list(replicate)
+        name = f"{name} x{'x'.join(map(str, replicate))}"
+    ops.reset_launches()
+    sim = build_simulation(cfg, device="cuda")
+    viol = []
+    if sim.shake is not None:
+        thermo_row = sim.thermo
+
+        def thermo_with_violation():
+            row = thermo_row()
+            viol.append(nlist_violation(sim))
+            return row
+
+        sim.thermo = thermo_with_violation
+    steps = int(cfg["run"])
+    rows = sim.run(steps, thermo_every=thermo, log=False)
+    ran = dict(ops.LAUNCHES)
+    n = sim.n_atoms
+    missing = [k for k in kernels if ran[k] <= 0]
+    if (not isinstance(sim, Simulation) or missing or n != full["n_atoms"]
+            or rows[-1]["step"] != steps):
+        raise AssertionError(f"{name}: {type(sim).__name__}, {n} atoms, "
+                             f"{rows[-1]['step']} steps, kernels not "
+                             f"launched {missing}")
+    pm = sim.kspace
+    if (list(pm.grid) != full["pppm_grid"]
+            or abs(pm.g_ewald - full["g_ewald"]) > 1e-12 * full["g_ewald"]
+            or list(sim.spec.nc) != full["spec"]["nc"]
+            or sim.spec.cutneigh != full["spec"]["cutneigh"]):
+        raise AssertionError(f"{name}: mesh, g_ewald or cells differ from "
+                             "the JAX host set-up (torch_nlist.json)")
+    row = rows[0]
+    step0_check(name, row, step0_ref, n)
+    if recip_ref is not None:
+        recip_check(name, row, pm.elong_self, recip_ref)
+    e0 = row["etotal"]
+    drift = max(abs(r["etotal"] - e0) for r in rows) / n
+    for r in rows:
+        for k in ("temp", "epair", "emol", "etotal", "press"):
+            if not np.isfinite(r[k]):
+                raise AssertionError(f"{name}: non-finite {k}")
+    if not drift <= drift_gate:
+        raise AssertionError(f"{name}: drift {drift:.3e}/atom > gate "
+                             f"{drift_gate}")
+    if sim.shake is not None:
+        tol = next(f["tol"] for f in cfg["fixes"] if f["name"] == "shake")
+        print(f"[nlist deck] {name}: violation max|r^2/d^2 - 1| " + ", ".join(
+            f"{v:.3e} @ {r['step']}" for v, r in zip(viol, rows))
+            + f" (gate {tol})")
+        if len(viol) != len(rows) or not max(viol) <= tol:
+            raise AssertionError(f"{name}: constraint violation {viol} over "
+                                 f"the deck's tol {tol}")
+    wall = sim.timings["run"]
+    print(f"[nlist deck] {name}: {n} atoms x {steps} steps in {wall:.3f} s "
+          f"-> {n * steps / wall:,.0f} atom-steps/s, "
+          f"{1e3 * wall / steps:.4f} ms/step (thermo every {thermo}); mesh "
+          f"{pm.grid} (the generic mesh of the box; the cell engine's is "
+          f"cell-aligned, so elong differs by the solver's accuracy, which "
+          f"the step-0 rule admits), K {sim.spec.kmax}, cells "
+          f"{sim.spec.nc} cap {sim.spec.cell_cap}; step 0 temp "
+          f"{row['temp']:.6g} etotal {e0:.8g} elong {row['elong']:.8g} press "
+          f"{row['press']:.6g} (record {step0_ref['temp']:.6g}, "
+          f"{step0_ref['etotal']:.8g}, {step0_ref['elong']:.8g}, "
+          f"{step0_ref['press']:.6g}); drift {drift:.3e}/atom (gate "
+          f"{drift_gate}); launches {ran}")
+    return dict(launches=ran, ms_step=1e3 * wall / steps, row=row, sim=sim)
+
+
+def phase_nlist_cristobalite(golden: dict, nlist_rec: dict, cell_ms: float):
+    """cristobalite_pppm_nlist.yaml at 259,200 atoms, f32, 100 steps (the
+    binned build K9a, the list pair pass K9b, K10 on the generic mesh),
+    held to the cell engine's record (step 0, the silica drift gate),
+    beside the cell engine's ms/step of this run; then K10 against its
+    plain version on the run's last state and timed there."""
+    r = phase_nlist_deck(
+        "cristobalite_pppm_nlist.yaml", golden["row"],
+        nlist_rec["full"]["cristobalite_pppm_nlist"],
+        load_golden("long_silica_pppm.json")["drift_gate"],
+        NLIST_PATH + NLIST_PPPM + ("nlist_build",), recip_ref=golden)
+    n = r["sim"].n_atoms
+    print(f"[nlist deck] cristobalite at {n} atoms: list engine "
+          f"{r['ms_step']:.4f} ms/step ({n / r['ms_step'] * 1e3:,.0f} "
+          f"atom-steps/s), cell engine {cell_ms:.4f} ms/step "
+          f"({n / cell_ms * 1e3:,.0f}) in this run")
+    sim = r.pop("sim")
+    x, q, pm = sim.state.x, sim.q, sim.kspace
+    err = _k10_compare(f"cristobalite {n} atoms/single", pm, x, q, x.dtype)
+    r["k10"] = dict(_k10_time(pm, x, q), max_abs_err=err)
+    del sim, x, q, pm
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_nlist_k10_f64():
+    """K10 in f64 on one jittered copy of the cristobalite crystal (its
+    generic mesh) against its plain version."""
+    sim = _nlist_sim("cristobalite_pppm_nlist.yaml", "double", (1, 1, 1),
+                     jitter=0.1)
+    _k10_compare(f"cristobalite {sim.n_atoms} atoms/double", sim.kspace,
+                 sim.state.x, sim.q, sim.state.x.dtype)
+    del sim
+    torch.cuda.empty_cache()
+
+
+def phase_nlist_rhodo(shake_rec: dict, nlist_rec: dict, cell: dict,
+                      k1_device_ms: float):
+    """rhodo_nve_nlist.yaml (NVE + SHAKE + the CHARMM stack) at 31,104
+    atoms and at replicate [6, 6, 4]: step 0 against long_rhodo_nve.json
+    (the record scaled to 144 copies at 6x6x4), the drift gate 1.3e-3, the
+    constraints within tol at every row; ms/step beside rhodo_nve.yaml on
+    the cell engine in this run, and at 248,832 atoms the list pair
+    pass's device time (K9b, on the run's own list) beside K1's on the
+    same atoms."""
+    from lammps_buck_intel_tpu_torch.models.pair import driver
+
+    nve_rec = load_golden("long_rhodo_nve.json")
+    gate = nve_rec["drift_gate"]
+    path = (NLIST_PATH + NLIST_PPPM + ("nlist_build",) + BONDED_KERNELS
+            + NLIST_SHAKE)
+    small = phase_nlist_deck("rhodo_nve_nlist.yaml", nve_rec["rows"][0],
+                             nlist_rec["full"]["rhodo_nve_nlist"], gate,
+                             path)
+    del small["sim"]
+    key = "x".join(map(str, BIG_REPLICATE))
+    big = phase_nlist_deck("rhodo_nve_nlist.yaml",
+                           shake_rec["full"][key]["row"],
+                           nlist_rec["full"][f"rhodo_nve_nlist_{key}"],
+                           gate, path, replicate=BIG_REPLICATE)
+    sim = big.pop("sim")
+    from lammps_buck_intel_tpu_torch.core.box import wrap
+
+    x, _ = wrap(sim.state.x, sim.state.image, sim._lo, sim._boxL)
+    nl = sim._build(x)
+    k9b = device_ms(lambda: driver.compute_pair(
+        sim.pair, x, sim.typ, sim.q, sim._boxL, nl, eflag=False,
+        acc_dtype=sim.precision.acc, use_special=True))
+    entries = float(nl.nnei.double().mean())
+    for size, r, c in ((31104, small, cell["small_ms_step"]),
+                       (sim.n_atoms, big, cell["ms_step"])):
+        print(f"[nlist deck] rhodo_nve at {size} atoms: list engine "
+              f"{r['ms_step']:.4f} ms/step ({size / r['ms_step'] * 1e3:,.0f}"
+              f" atom-steps/s), cell engine {c:.4f} ms/step "
+              f"({size / c * 1e3:,.0f}) in this run")
+    print(f"[nlist deck] rhodo_nve at {sim.n_atoms} atoms: pair pass device "
+          f"time K9b {k9b:.4f} ms (K {sim.spec.kmax}, {entries:.1f} entries "
+          f"an atom) against K1 lj/charmm + specials {k1_device_ms:.4f} ms "
+          f"on the same atoms (rhodo_flex x6x6x4, the same pair terms)")
+    big.update(small_ms_step=small["ms_step"], k9b_device_ms=k9b)
+    del sim, x, nl
+    torch.cuda.empty_cache()
+    return big
+
+
+def phase_nlist_record(rec: dict):
+    """The neighbor-list engine in f64 against the JAX package's record
+    (tests/goldens/torch_nlist.json): the jittered cristobalite at 2x2x2
+    (11,520 atoms, binned build, PPPM order 7) and one rhodo copy on
+    engine nlist (NVT + SHAKE, PPPM order 5): the spec, mesh and g_ewald,
+    step-0 forces, every row, the final positions (of the box length),
+    images and chain within NLIST_RECORD_TOL."""
+    for key, deck in (("cristobalite", "cristobalite_pppm_nlist.yaml"),
+                      ("rhodo", "rhodo_class.yaml")):
+        r = rec[key]
+        ops.reset_launches()
+        if key == "cristobalite":
+            sim = _nlist_sim(deck, "double", r["replicate"], jitter=r["amp"])
+        else:
+            cfg = load_deck(deck)
+            cfg.update(engine="nlist", precision="double",
+                       replicate=r["replicate"])
+            sim = build_simulation(cfg, device="cuda")
+        spec = dict(cutneigh=sim.spec.cutneigh, kmax=sim.spec.kmax,
+                    nc=None if sim.spec.nc is None else list(sim.spec.nc))
+        if (sim.n_atoms != r["n_atoms"] or spec != r["spec"]
+                or list(sim.kspace.grid) != r["pppm_grid"]
+                or sim.kspace.g_ewald != r["g_ewald"]):
+            raise AssertionError(f"nlist record {key}: atoms, list, mesh or "
+                                 "g_ewald differ from the record")
+        pick = np.asarray(r["atoms"])
+        f0 = sim.get_atoms()["f"][pick]
+        rows = sim.run(r["steps"], thermo_every=r["thermo_every"],
+                       log=False)
+        at = sim.get_atoms()
+        ref_f = np.asarray(r["f0"])
+        L = float(np.max(sim.box.lengths))
+        errs = {"f0": float(np.abs(f0 - ref_f).max() / np.abs(ref_f).max()),
+                "x_end": float(np.abs(at["x"][pick] - np.asarray(r["x_end"]))
+                               .max()) / L}
+        therm = np.asarray(r["therm_end"])
+        if therm.size:
+            errs["therm"] = float(np.abs(sim.state.therm.cpu().numpy()
+                                         - therm).max()
+                                  / np.abs(therm).max())
+        for row, ref in zip(rows, r["rows"], strict=True):
+            for k in ("temp", "evdwl", "ecoul", "elong", "emol", "etotal",
+                      "press"):
+                if ref[k] != 0.0 or row[k] != 0.0:
+                    errs[f"{k}@{ref['step']}"] = scalar_rel(row[k], ref[k])
+        images = bool(np.array_equal(at["image"][pick],
+                                     np.asarray(r["image_end"])))
+        ran = dict(ops.LAUNCHES)
+        need = NLIST_PATH + NLIST_PPPM + ("nlist_build",)
+        if key == "rhodo":
+            need += BONDED_KERNELS + NLIST_SHAKE + ("nhc_scale",)
+        print(f"[nlist record] {key} f64, {sim.n_atoms} atoms, K "
+              f"{sim.spec.kmax}, cells {sim.spec.nc}, mesh "
+              f"{sim.kspace.grid}: worst row "
+              f"{max(v for k, v in errs.items() if '@' in k):.3e}, "
+              + ", ".join(f"{k} {errs[k]:.3e}" for k in errs if "@" not in k)
+              + f", images equal {images} (tol {NLIST_RECORD_TOL})")
+        bad = {k: v for k, v in errs.items() if not v <= NLIST_RECORD_TOL}
+        if bad or not images or any(ran[k] <= 0 for k in need):
+            raise AssertionError(f"nlist record {key} disagrees with the JAX "
+                                 f"record or skipped a kernel: {bad}")
+        del sim
+        torch.cuda.empty_cache()
+
+
+def phase_buck_small():
+    """buck_small.yaml unedited through run_deck (what the CLI calls): the
+    cell engine's box-too-small fallback into the neighbor-list engine with
+    the dense build (K9c), launch counts set to 0 just before and read
+    just after; rows finite, the NVE drift under buck's gate."""
+    from lammps_buck_intel_tpu_torch.integrate import Simulation
+    from lammps_buck_intel_tpu_torch.run import run_deck
+
+    cfg = load_deck("buck_small.yaml")
+    gate = load_golden("long_buck.json")["drift_gate"]
+    ops.reset_launches()
+    sim, rows = run_deck(cfg, device="cuda", log=False)
+    ran = dict(ops.LAUNCHES)
+    n, steps = sim.n_atoms, int(cfg["run"])
+    missing = [k for k in NLIST_PATH + ("nlist_dense",) if ran[k] <= 0]
+    if not isinstance(sim, Simulation) or not sim.spec.dense or missing:
+        raise AssertionError(f"buck_small.yaml: {type(sim).__name__}, spec "
+                             f"{sim.spec}, kernels not launched {missing}")
+    for r in rows:
+        for k in ("temp", "epair", "etotal", "press"):
+            if not np.isfinite(r[k]):
+                raise AssertionError(f"buck_small.yaml: non-finite {k}")
+    drift = max(abs(r["etotal"] - rows[0]["etotal"]) for r in rows) / n
+    wall = sim.timings["run"]
+    print(f"[nlist deck] buck_small.yaml: {n} atoms on {type(sim).__name__} "
+          f"(dense K {sim.spec.kmax}) x {steps} steps in {wall:.3f} s, "
+          f"{1e3 * wall / steps:.4f} ms/step; rows " + ", ".join(
+              f"{r['etotal']:.8g} @ {r['step']}" for r in rows)
+          + f"; drift {drift:.3e}/atom (gate {gate}); launches {ran}")
+    if not drift <= gate:
+        raise AssertionError(f"buck_small.yaml: drift {drift:.3e}/atom > "
+                             f"gate {gate}")
+    return dict(launches=ran, ms_step=1e3 * wall / steps)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1963,11 +2451,12 @@ def main():
     phase_deck("buck_big.yaml", load_golden("long_buck_big.json"), 100, pair,
                load_golden("long_buck_big.json")["drift_gate"])
     # the north-star path: gated like long_silica_pppm.json
-    launches = phase_deck(
+    cris = phase_deck(
         "cristobalite_pppm.yaml",
         golden, 50,
         pair + ("pppm_deposit", "pppm_spectral", "pppm_gather"),
-        load_golden("long_silica_pppm.json")["drift_gate"])["launches"]
+        load_golden("long_silica_pppm.json")["drift_gate"])
+    launches = cris["launches"]
     torch.cuda.empty_cache()
 
     rk = phase_rhodo_kernels()
@@ -2001,13 +2490,25 @@ def main():
     for r, size in ((npt, 31104), (nbig, n_big)):
         print(f"[deck] rhodo_npt.yaml at {size} atoms: {r['ms_step']:.4f} "
               f"ms/step, {size / r['ms_step'] * 1e3:,.0f} atom-steps/s")
+    torch.cuda.empty_cache()
+
+    # the neighbor-list Simulation (K9c, K10): engine nlist
+    k9c = phase_nlist_dense()
+    phase_nlist_k10_f64()
+    nlist_rec = load_golden("torch_nlist.json")
+    ncris = phase_nlist_cristobalite(golden, nlist_rec, cris["ms_step"])
+    nrho = phase_nlist_rhodo(shake_rec, nlist_rec, sbig,
+                             rk["cellpair_ljcharmm"]["device_ms"])
+    phase_nlist_record(nlist_rec)
+    small = phase_buck_small()
 
     def row(name, source, replaces, launch_key, r, launches=launches):
         return dict(name=name, route="cuda", source=f"{SRC}/{source}",
                     replaces=f"lammps_buck_intel_tpu/{replaces}",
                     launches=launches[launch_key],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    device_ms=r["device_ms"],
+                    device_ms=(None if np.isnan(r["device_ms"])
+                               else r["device_ms"]),
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"],
                     library_ms=r.get("library_ms"))
@@ -2073,7 +2574,18 @@ def main():
             "npt_vscale_kick", knpt["npt_vscale_kick"], nbig["launches"]),
         row("npt_drift_dilate", "npt.cu", "integrate/npt.py:579",
             "npt_drift_dilate", knpt["npt_drift_dilate"], nbig["launches"]),
+        # the neighbor-list Simulation: K9c timed at 500 atoms and launched
+        # on buck_small.yaml's run of that size; K10 (the staged route through K5 / K7 /
+        # K8 on the generic mesh) timed and launched on
+        # cristobalite_pppm_nlist.yaml's run at 259,200 atoms
+        row("nlist_dense", "nlist.cu", "neighbor/neighbor_list.py:184",
+            "nlist_dense", k9c, small["launches"]),
+        row("pppm_compute_generic", "pppm.cu", "models/kspace/pppm.py:570",
+            "pppm_deposit", ncris["k10"], ncris["launches"]),
     ]
+    print(f"[K9c] torch.cdist + topk at 500 atoms: "
+          f"{k9c['cdist_topk_ms']:.4f} ms; [K9b] rhodo_nve_nlist x6x6x4 "
+          f"device {nrho['k9b_device_ms']:.4f} ms")
     print(f"[K1] buck_big buck branch: {json.dumps(k1['buck_big'])}")
     print(f"[K2] buck_big: {json.dumps(k2_big)}")
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,14 @@
 // Neighbor lists in atom order (sm_90a): the binned list build
-// (nlist_bin, nlist_sort, nlist_build) and the pair pass over the list
-// (nlist_pair), for the variable-cell NPT engine.
+// (nlist_bin, nlist_sort, nlist_build), the dense O(N^2) build
+// (nlist_dense) and the pair pass over the list (nlist_pair), for the
+// neighbor-list engines (the static-box Simulation and the variable-cell
+// NPT engine).
 //
 // Replaces: lammps_buck_intel_tpu/neighbor/neighbor_list.py build_cell
-//   (:210) with _special_codes (:171), and models/pair/driver.py
-//   compute_pair (:78) with styles.py pair_terms (:300), which XLA lowered
-//   for the TPU as (tile, 27 * cap) candidate gathers with a top_k prune and
+//   (:210) and build_dense (:184) with _special_codes (:171), and
+//   models/pair/driver.py compute_pair (:78) with styles.py pair_terms
+//   (:300), which XLA lowered for the TPU as (tile, 27 * cap) candidate
+//   gathers or an (N, N) masked distance matrix with a top_k prune, and
 //   (N, K) gather + row-sum passes.
 //
 // Build.  The box is read from the card: geo = (lo[3], L[3]) in flt, so a
@@ -33,8 +36,23 @@
 //                kept pair is the sum of the codes of i's partner entries
 //                (special_idx / special_code, (N, S) in atom order) equal to
 //                j, as _special_codes sums them.
-// The JAX package keeps the K NEAREST candidates (top_k on rsq); this
-// build keeps them in scan order.  Without overflow both keep every
+// Dense build (N <= 512 or fewer than 3 cells on an axis, where the
+// 27-cell stencil would visit a cell twice).
+//   nlist_dense  one warp per atom i; the CTA stages kDenseTile positions
+//                j in shared memory and each warp walks them 32 at a time,
+//                lane l testing j = tile + 32 c + l: the minimum image with
+//                the box lengths read on the card (d - rint(d / L) L, the
+//                division of build_cell), rsq <= cutsq and j != i.  A
+//                __ballot_sync of the hits and __popc(mask & lanemask_lt)
+//                give each hit its column, so the columns hold the hits in
+//                ascending j; columns past K are counted, not written.  The
+//                codes, the sentinel fill, nnei and the overflow flag are
+//                nlist_build's.  No per-atom array is sized by N, indices
+//                stay 32-bit below 2^31 atoms and the (K, N) offsets are
+//                64-bit, so a thin slab of 10^5 atoms that takes this path
+//                stays correct (at N^2 cost).
+// The JAX package keeps the K NEAREST candidates (top_k on rsq); both
+// builds keep them in scan order (the dense build: ascending j).  Without overflow both keep every
 // candidate inside cutsq, so the set is the same and only the order of
 // the columns differs; with overflow both raise.
 //
@@ -52,7 +70,9 @@
 //
 // What bounds it on the H100.  The build: distance tests, 27 cells of
 // ~cap/2 atoms per atom (~700 at the rhodo density), each a gathered
-// position (L1/L2 resident) and ~10 operations.  The pair pass: per pair
+// position (L1/L2 resident) and ~10 operations.  The dense build: N^2
+// distance tests from shared memory (three divisions each) and the (K, N)
+// list written once.  The pair pass: per pair
 // one gathered position, type and charge and the pair physics (~55
 // operations inside the cutoff); ~110 list entries per atom of which
 // ~40% lie inside the 10 A cutoff, so both bytes (the index and code
@@ -187,6 +207,82 @@ __global__ void nlist_build_kernel(const T* __restrict__ x,
   }
 }
 
+constexpr int kDenseWarps = 8;                 // atoms per CTA
+constexpr int kDenseTile = kDenseWarps * 32;   // staged positions
+
+template <typename T>
+__global__ void nlist_dense_kernel(const T* __restrict__ x,
+                                   const T* __restrict__ y,
+                                   const T* __restrict__ z,
+                                   const T* __restrict__ boxL, int n,
+                                   T cutsq, int kmax,
+                                   const int* __restrict__ sp_idx,
+                                   const int* __restrict__ sp_code, int nsp,
+                                   int* __restrict__ idx,
+                                   signed char* __restrict__ sb,
+                                   int* __restrict__ nnei,
+                                   int* __restrict__ overflow) {
+  __shared__ T s_x[kDenseTile], s_y[kDenseTile], s_z[kDenseTile];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * kDenseWarps + warp;
+  const bool live = i < n;  // a warp past N still helps stage the tiles
+  const T Lx = boxL[0], Ly = boxL[1], Lz = boxL[2];
+  T xi = 0, yi = 0, zi = 0;
+  if (live) {
+    xi = x[i];
+    yi = y[i];
+    zi = z[i];
+  }
+  const unsigned lt = (1u << lane) - 1u;
+  int k = 0;  // hits so far, the same in every lane of the warp
+  for (int t0 = 0; t0 < n; t0 += kDenseTile) {
+    const int jl = t0 + threadIdx.x;
+    if (jl < n) {
+      s_x[threadIdx.x] = x[jl];
+      s_y[threadIdx.x] = y[jl];
+      s_z[threadIdx.x] = z[jl];
+    }
+    __syncthreads();
+    const int m = n - t0 < kDenseTile ? n - t0 : kDenseTile;
+    if (live) {
+      for (int c = 0; c < m; c += 32) {
+        const int a = c + lane;
+        const int j = t0 + a;
+        bool hit = false;
+        if (a < m && j != i) {
+          T dx = xi - s_x[a], dy = yi - s_y[a], dz = zi - s_z[a];
+          dx = dx - dev_rint(dx / Lx) * Lx;
+          dy = dy - dev_rint(dy / Ly) * Ly;
+          dz = dz - dev_rint(dz / Lz) * Lz;
+          const T rsq = dx * dx + dy * dy + dz * dz;
+          hit = rsq <= cutsq;
+        }
+        const unsigned mask = __ballot_sync(0xffffffffu, hit);
+        const int col = k + __popc(mask & lt);
+        if (hit && col < kmax) {
+          int code = 0;
+          for (int s = 0; s < nsp; ++s)
+            if (sp_idx[static_cast<size_t>(i) * nsp + s] == j)
+              code += sp_code[static_cast<size_t>(i) * nsp + s];
+          idx[static_cast<size_t>(col) * n + i] = j;
+          sb[static_cast<size_t>(col) * n + i] = static_cast<signed char>(code);
+        }
+        k += __popc(mask);
+      }
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+  if (lane == 0) {
+    nnei[i] = k;
+    if (k > kmax) *overflow = 1;
+  }
+  for (int c = k + lane; c < kmax; c += 32) {
+    idx[static_cast<size_t>(c) * n + i] = n;
+    sb[static_cast<size_t>(c) * n + i] = 0;
+  }
+}
+
 template <typename A>
 __device__ __forceinline__ A warp_sum(A v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -310,6 +406,22 @@ int launch_build(const void* x, const void* y, const void* z,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_dense(const void* x, const void* y, const void* z,
+                 const void* boxL, int n, double cutsq, int kmax,
+                 const void* sp_idx, const void* sp_code, int nsp, void* idx,
+                 void* sb, void* nnei, void* overflow, cudaStream_t s) {
+  const int blocks = (n + kDenseWarps - 1) / kDenseWarps;
+  nlist_dense_kernel<T><<<blocks, kDenseTile, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(z), static_cast<const T*>(boxL), n,
+      static_cast<T>(cutsq), kmax, static_cast<const int*>(sp_idx),
+      static_cast<const int*>(sp_code), nsp, static_cast<int*>(idx),
+      static_cast<signed char*>(sb), static_cast<int*>(nnei),
+      static_cast<int*>(overflow));
+  return static_cast<int>(cudaGetLastError());
+}
+
 #define PAIR_PARAMS                                                          \
   const void *x, const void *y, const void *z, const void *q,                \
       const void *typ, const void *boxL, const void *coef, int ntypes, int n, \
@@ -388,6 +500,21 @@ extern "C" int nlist_build(int dbl, const void* x, const void* y,
              : launch_build<float>(x, y, z, geo, n, g, count, cells, cutsq,
                                    kmax, sp_idx, sp_code, nsp, idx, sb, nnei,
                                    overflow, s);
+}
+
+// The dense build: dbl and the outputs as in nlist_build; boxL the three
+// box lengths in the positions' type, on the card.
+extern "C" int nlist_dense(int dbl, const void* x, const void* y,
+                           const void* z, const void* boxL, int n,
+                           double cutsq, int kmax, const void* sp_idx,
+                           const void* sp_code, int nsp, void* idx, void* sb,
+                           void* nnei, void* overflow, void* stream) {
+  if (n <= 0 || kmax <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dbl ? launch_dense<double>(x, y, z, boxL, n, cutsq, kmax, sp_idx,
+                                    sp_code, nsp, idx, sb, nnei, overflow, s)
+             : launch_dense<float>(x, y, z, boxL, n, cutsq, kmax, sp_idx,
+                                   sp_code, nsp, idx, sb, nnei, overflow, s);
 }
 
 // prec: 0 = (float, float), 1 = (float, double), 2 = (double, double).

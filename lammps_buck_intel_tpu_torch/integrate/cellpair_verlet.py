@@ -126,8 +126,8 @@ class CellPairSimulation:
         if grid is None:
             raise ValueError(
                 "box too small for the cell-pair engine (needs >=3 cells "
-                "per axis); the neighbor-list engine is ROADMAP queue 1 "
-                "item 11")
+                "per axis); the deck runner falls back to the neighbor-list "
+                "engine (Simulation)")
         if cap is None:
             # capacity from the OBSERVED max occupancy (+8%), and reach_z
             # by the padded-work model ncell * cap * (S * cap) of the

@@ -11,6 +11,7 @@ import torch
 
 from .core.state import Topology
 from .integrate.npt import NPTConfig
+from .integrate.verlet import MDState
 from .integrate.shake import ShakeConstraints
 from .models.bonded.harmonic import BondedStyle, make_bonded
 from .models.kspace.pppm import PPPM
@@ -92,6 +93,27 @@ def npt_barostat_from_numpy(sim, omega_dot, ptherm, boxL):
                          f"simulation's barostat chain {sim.npt.pchain}")
     sim.state = st._replace(omega_dot=t(omega_dot).reshape(3),
                             ptherm=ptherm, boxL=t(boxL).reshape(3))
+
+
+def md_state_from_numpy(x, v, image, therm, device="cuda",
+                        f=None) -> MDState:
+    """A JAX ``MDState`` (its (N, 3) x, v, image and (2, M) therm as numpy)
+    -> the port's ``Simulation.state``: (3, N) planes on ``device`` in x's
+    dtype, no overflow.  f: the JAX state's force, carried the same way
+    (zeros when None); assign the result to ``sim.state``."""
+    dt = torch.as_tensor(np.array(x)).dtype
+
+    def planes(a, dtype):
+        return torch.as_tensor(np.array(a)).to(device, dtype).t().contiguous()
+
+    return MDState(
+        x=planes(x, dt), v=planes(v, dt),
+        image=planes(image, torch.int32),
+        f=(torch.zeros((3, len(x)), dtype=dt, device=device)
+           if f is None else planes(f, dt)),
+        overflow=torch.zeros((), dtype=torch.bool, device=device),
+        therm=torch.as_tensor(np.array(therm, np.float64)).reshape(2, -1).to(
+            device, dt))
 
 
 def pppm_from_numpy(grid, g_ewald: float, order: int, greensfn, kx, ky, kz,

@@ -1,21 +1,32 @@
-"""PPPM set-up: mesh sizing, B-spline pieces and the influence function.
+"""PPPM on a static box: set-up, and the generic-mesh solve of the
+neighbor-list engine.
 
-Counterpart of the set-up half of ``lammps_buck_intel_tpu.models.kspace.
-pppm`` (``setup_pppm``, ``PPPM``, ``_greens_function``, the piecewise
-B-spline coefficients) for what the port runs: an orthogonal box with ik
-differentiation.  ``diff="ad"``, ``slab`` and tilted boxes raise
-NotImplementedError (ROADMAP queue 1 items 10 and 14).  Everything here
-is host numpy run once per mesh, except ``mspline_horner``: the plain
-torch form of the piecewise-Horner weights that the CUDA deposit and
-gather kernels (csrc/pppm.cu) evaluate per slot.  The per-step pipeline
-is ``pppm_cells.CellPPPM``.
+Counterpart of ``lammps_buck_intel_tpu.models.kspace.pppm``
+(``setup_pppm``, ``PPPM`` with ``compute``, ``_greens_function``,
+``deposit_rho``, ``_pppm_compute``, the piecewise B-spline coefficients)
+for what the port runs: an orthogonal box with ik differentiation.
+``diff="ad"``, ``slab`` and tilted boxes raise NotImplementedError (ROADMAP
+queue 1 items 10 and 14).  The set-up is host numpy run once per mesh;
+``mspline_horner`` is the plain torch form of the piecewise-Horner weights
+that the CUDA deposit and gather kernels (csrc/pppm.cu) evaluate per atom.
+
+``PPPM.compute(x, q, eflag, vflag)`` (the neighbor-list ``Simulation``'s
+k-space term, every step) solves on the mesh ``setup_pppm`` gives for the
+box.  On CUDA planes it is the staged route ``compute_staged``: the K5
+deposit, ``torch.fft.rfftn``, the K7 spectral kernel with the
+full-spectrum conventions at the Nyquist planes, ``irfftn`` and the K8
+gather, in atom order (``pppm_cells.ik_atoms``, the pipeline the
+variable-cell ``TracedPPPM`` runs too), with the static influence function
+``greensfn``.  On CPU planes it is ``pppm_compute_plain``, the JAX
+``_pppm_compute`` line for line (a full-spectrum ``fftn``, one ``ifftn``
+per field axis).  The cell engine's solver is ``pppm_cells.CellPPPM``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -98,10 +109,17 @@ def stencil_offsets(order: int) -> np.ndarray:
     return np.arange(-(order // 2 - 1), order // 2 + 1)
 
 
+class KSpaceResult(NamedTuple):
+    f: tuple              # (fx, fy, fz) acc planes
+    elong: torch.Tensor   # ()
+    virial: torch.Tensor  # (6,)
+
+
 @dataclasses.dataclass
 class PPPM:
     """Configured PPPM solver for a fixed box, charge set and accuracy
-    (orthogonal box, ik differentiation); host numpy."""
+    (orthogonal box, ik differentiation); host numpy, with the device
+    constants of ``compute_staged`` cached per (device, dtype)."""
 
     g_ewald: float
     grid: tuple[int, int, int]
@@ -117,6 +135,8 @@ class PPPM:
     box_lo: tuple[float, float, float]
     h: tuple[float, float, float]
     acc_dtype: torch.dtype = torch.float32   # spectral and force dtype
+    _consts: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
     def k3(self, nzh: Optional[int] = None):
         """((nx,1,1), (1,ny,1), (1,1,nz')) wave-vector components; nzh
@@ -132,6 +152,130 @@ class PPPM:
         e = -g * self.qsqsum / math.sqrt(math.pi)
         e -= math.pi / 2.0 * self.qsum**2 / (g * g * self.volume)
         return e * self.qqrd2e
+
+    def compute(self, x: torch.Tensor, q: torch.Tensor, eflag: bool = True,
+                vflag: bool = True) -> KSpaceResult:
+        """Forces (acc planes), elong (with the self and background terms)
+        and the 6-virial of the charges q (N,) at the (3, N) positions x:
+        the staged kernels on CUDA planes, ``pppm_compute_plain`` on CPU
+        planes.  Without eflag elong is 0, without vflag the virial."""
+        if x.is_cuda:
+            return self.compute_staged(x, q, eflag, vflag)
+        if x.device.type != "cpu":
+            raise RuntimeError(
+                f"no kernel and no plain version for device {x.device}")
+        return pppm_compute_plain(self, x, q, eflag, vflag)
+
+    def consts(self, device, flt) -> dict:
+        """Device constants of ``compute_staged``, uploaded once per
+        (device, flt): the rfft half of G and of the wave vectors, the half
+        weights wz (acc) and the spline piece table (flt)."""
+        key = (torch.device(device), flt)
+        c = self._consts.get(key)
+        if c is not None:
+            return c
+        from .pppm_cells import half_weights
+
+        acc = self.acc_dtype
+        nzh = self.grid[2] // 2 + 1
+
+        def up(a, dt):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(device, dt)
+
+        c = dict(G_half=up(self.greensfn[..., :nzh], acc),
+                 k3=tuple(up(k, acc) for k in self.k3(nzh)),
+                 wz=up(half_weights(self.grid[2]), acc)[None, None, :],
+                 coef=up(spline_table(self.order), flt).view(-1))
+        self._consts[key] = c
+        return c
+
+    def compute_staged(self, x: torch.Tensor, q: torch.Tensor,
+                       eflag: bool = True,
+                       vflag: bool = True) -> KSpaceResult:
+        """``compute`` through the atom-order pipeline
+        ``pppm_cells.ik_atoms`` on this mesh (its box_lo and h): the PPPM
+        kernels on CUDA planes, each stage's plain version on CPU ones."""
+        from .pppm_cells import ik_atoms
+
+        c = self.consts(x.device, x.dtype)
+        V = float(self.volume)
+        f, ek, virial = ik_atoms(self, x, q, c, c["G_half"], c["k3"], V,
+                                 None, eflag, vflag)
+        zero = torch.zeros((), dtype=self.acc_dtype, device=x.device)
+        elong = ek + self.elong_self if eflag else zero
+        if not vflag:
+            virial = torch.zeros(6, dtype=self.acc_dtype, device=x.device)
+        return KSpaceResult(f=f, elong=elong, virial=virial)
+
+
+def bspline_weights(u: torch.Tensor, order: int):
+    """(base (M,) int64, w (M, order)) of grid coordinates u: base =
+    round(u) for odd order (floor for even), w the B-spline weights of the
+    points base + stencil_offsets(order) (the JAX ``bspline_weights``)."""
+    offs = torch.as_tensor(stencil_offsets(order)).to(u.device, u.dtype)
+    base = torch.round(u) if order % 2 else torch.floor(u)
+    arg = (u[:, None] - (base[:, None] + offs)) + order / 2.0
+    return base.long(), mspline_horner(order, arg)
+
+
+def _atom_planes(x: torch.Tensor, q: torch.Tensor):
+    from .pppm_cells import AtomPlanes
+
+    return AtomPlanes(x[0], x[1], x[2], q, None)
+
+
+def deposit_rho_plain(pm: PPPM, x: torch.Tensor,
+                      q: torch.Tensor) -> torch.Tensor:
+    """Charge assignment (the JAX ``deposit_rho``): the (nx, ny, nz) mesh in
+    x's dtype, mesh[j] = sum_a q_a w3_a(j); x (3, N) planes, q (N,)."""
+    from .pppm_cells import deposit_plain
+
+    return deposit_plain(pm, _atom_planes(x, q))
+
+
+def pppm_compute_plain(pm: PPPM, x: torch.Tensor, q: torch.Tensor,
+                       eflag: bool, vflag: bool) -> KSpaceResult:
+    """The JAX ``_pppm_compute`` (ik) in torch ops, any device: deposit,
+    full-spectrum fftn, E = 1/(2V) sum_k G |rho_hat|^2, the 6-virial, three
+    ik fields by ifftn, the gather times q qqrd2e."""
+    acc, dev = pm.acc_dtype, x.device
+    nx, ny, nz = pm.grid
+    ngrid = nx * ny * nz
+    qqrd2e = float(pm.qqrd2e)
+    V = float(pm.volume)
+
+    mesh = deposit_rho_plain(pm, x, q)
+    rhat = torch.fft.fftn(mesh.to(acc))
+    G = torch.as_tensor(pm.greensfn).to(dev, acc)
+    phi_hat = G * rhat
+    zero = torch.zeros((), dtype=acc, device=dev)
+    if eflag or vflag:
+        ek = G * (rhat * rhat.conj()).real
+    elong = ((0.5 / V) * ek.to(acc).sum() * qqrd2e + pm.elong_self
+             if eflag else zero)
+    kx, ky, kz = (torch.as_tensor(k).to(dev, acc) for k in pm.k3())
+    if vflag:
+        ksq = kx * kx + ky * ky + kz * kz
+        ksq_safe = torch.where(ksq == 0.0, torch.ones_like(ksq), ksq)
+        pref = 2.0 * (1.0 / ksq_safe + 0.25 / pm.g_ewald ** 2)
+        virial = torch.stack([
+            (ek * (1.0 - pref * kx * kx)).sum(),
+            (ek * (1.0 - pref * ky * ky)).sum(),
+            (ek * (1.0 - pref * kz * kz)).sum(),
+            (ek * (-pref * kx * ky)).sum(),
+            (ek * (-pref * kx * kz)).sum(),
+            (ek * (-pref * ky * kz)).sum(),
+        ]) * ((0.5 / V) * qqrd2e)
+    else:
+        virial = torch.zeros(6, dtype=acc, device=dev)
+
+    # ik E-field: E_a(r) = (1/V) sum_k (-i k_a) G rho_hat e^{ikr}
+    e_mesh = torch.stack([torch.fft.ifftn((-1j) * k * phi_hat).real
+                          * ((1.0 / V) * ngrid) for k in (kx, ky, kz)])
+    from .pppm_cells import gather_plain
+
+    f = gather_plain(pm, _atom_planes(x, q), e_mesh, acc)
+    return KSpaceResult(f=f, elong=elong, virial=virial)
 
 
 def pppm_g_ewald(box: Box, q, cutoff: float, accuracy_rel: float,

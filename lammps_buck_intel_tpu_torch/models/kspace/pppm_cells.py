@@ -19,6 +19,11 @@ base + o, o in ``stencil_offsets(order)``, gets M_p(u - (base + o) +
 p/2).  The patch form of ``_axis_weights`` evaluates the same M_p at the
 same argument on the same mesh point (its patch index plus patch_lo).
 
+The same stages serve the neighbor-list engines in atom order
+(``ik_atoms``: aid the identity, the generic mesh, the full-spectrum
+conventions at the Nyquist planes), for the static ``PPPM.compute`` and
+the variable-cell ``TracedPPPM.compute_traced``.
+
 Three stages, each a CUDA kernel on CUDA tensors (``ops.pppm``) and the
 plain torch version below on CPU tensors:
   * ``deposit``: slot planes -> (nx, ny, nz) charge mesh in flt;
@@ -30,11 +35,13 @@ plain torch version below on CPU tensors:
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ...neighbor.cell_slots import SlotState
-from .pppm import PPPM, mspline_horner, spline_table, stencil_offsets
+from .pppm import PPPM, bspline_weights, spline_table, stencil_offsets
 
 # slots per chunk of the plain deposit and gather: bounds the
 # (chunk, order^3) index and value temporaries
@@ -69,13 +76,8 @@ def axis_weights(pm: PPPM, plane: torch.Tensor, ax: int, geo):
     """(base (M,) int64, w (M, order)) of positions ``plane`` on mesh
     axis ``ax`` of the geometry ``geo`` (``mesh_geometry``), in the plane's
     dtype (the JAX ``bspline_weights`` with ``mspline_horner``)."""
-    p = pm.order
     lo, ih = geo
-    u = (plane - lo[ax]) * ih[ax]
-    base = torch.round(u) if p % 2 else torch.floor(u)
-    offs = torch.as_tensor(stencil_offsets(p)).to(u.device, u.dtype)
-    arg = (u[:, None] - (base[:, None] + offs)) + p / 2.0
-    return base.long(), mspline_horner(p, arg)
+    return bspline_weights((plane - lo[ax]) * ih[ax], pm.order)
 
 
 def _stencil(pm: PPPM, state: SlotState, s0: int, s1: int, geo):
@@ -228,6 +230,58 @@ def gather(pm: PPPM, state: SlotState, e_mesh: torch.Tensor, n_atoms: int,
         return pppm_ops.gather(pm, state, e_mesh, n_atoms, acc_dtype,
                                consts["coef"], box)
     return gather_plain(pm, state, e_mesh, acc_dtype, box)
+
+
+class AtomPlanes(NamedTuple):
+    """Atom-order planes in the shape the PPPM stages read (aid is the
+    identity, so every atom counts; the plain versions do not read it)."""
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    q: torch.Tensor
+    aid: torch.Tensor
+
+
+def ik_atoms(pm: PPPM, x: torch.Tensor, q: torch.Tensor, consts: dict,
+             G_half: torch.Tensor, k3, V, box, eflag: bool, vflag: bool):
+    """The atom-order ik pipeline of the neighbor-list engines: deposit,
+    rfftn, the half-spectrum solve with the full-spectrum conventions at
+    the Nyquist planes (``nyquist``), irfftn, gather.  Returns ((fx, fy,
+    fz) acc, ek, virial): ek = (0.5 / V) sum G |rho_hat|^2 qqrd2e (None
+    without eflag; elong less the self and background terms), the
+    6-virial (zeros without eflag or vflag), equal to the JAX package's
+    full-spectrum sums.
+
+    x: (3, N) positions, q (N,) charges; consts: ``coef`` (the flt spline
+    table) and ``wz`` (acc half weights), and an ``aid`` identity plane
+    kept there; G_half: the (nx, ny, nz // 2 + 1) acc influence function;
+    k3: the wave vectors on the half spectrum; V: the volume (a float or a
+    0-d acc tensor); box: None (the mesh of ``pm``: box_lo, h) or
+    (centre, boxL) for a box on the card."""
+    acc, flt, dev = pm.acc_dtype, x.dtype, x.device
+    n = x.shape[1]
+    aid = consts.get("aid")
+    if aid is None or aid.shape[0] != n:
+        aid = consts["aid"] = torch.arange(n, dtype=torch.int32, device=dev)
+    planes = AtomPlanes(x[0], x[1], x[2], q, aid)
+    nx, ny, nz = pm.grid
+    g = float(pm.g_ewald)
+
+    mesh = deposit(pm, planes, n, consts, box)
+    rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
+    sc = dict(G=G_half, k3=k3, wz=consts["wz"], g_ewald=g, nyquist=True)
+    if not x.is_cuda:
+        ksq = k3[0] * k3[0] + k3[1] * k3[1] + k3[2] * k3[2]
+        ksq_safe = torch.where(ksq == 0.0, torch.ones_like(ksq), ksq)
+        sc["pref"] = 2.0 * (1.0 / ksq_safe + 0.25 / g ** 2)
+    ehat, esum, vsum = spectral(sc, rhat, eflag, vflag)
+    qqrd2e = float(pm.qqrd2e)
+    ek = (0.5 / V) * esum * qqrd2e if eflag else None
+    virial = vsum * ((0.5 / V) * qqrd2e)
+    e_mesh = (torch.fft.irfftn(ehat, s=pm.grid, dim=(1, 2, 3))
+              * ((1.0 / V) * (nx * ny * nz))).to(flt).contiguous()
+    f = gather(pm, planes, e_mesh, n, acc, consts, box)
+    return f, ek, virial
 
 
 class CellPPPM:

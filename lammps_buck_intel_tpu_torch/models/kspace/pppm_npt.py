@@ -14,13 +14,13 @@ round trip:
   uploaded once) and box-dependent wave vectors k = 2 pi m / L.  On the
   card the ``traced_greens`` kernel of csrc/npt.cu, on the CPU
   ``traced_greens_plain``.
-* ``compute_traced(x, q, boxL, ...)`` (every step): the deposit and the ik
-  gather of csrc/pppm.cu with the box read on the card (lo = centre - L /
-  2, h = L / n), an rfftn / irfftn pair around the spectral kernel, k
-  rebuilt from boxL per call, and the half-spectrum slice of G with the
-  rfft half weights: elong and the virial equal the JAX package's
-  full-spectrum sums, and the ik fields its real(ifftn) (the spectral
-  kernel's ``nyquist`` option).
+* ``compute_traced(x, q, boxL, ...)`` (every step): the atom-order
+  pipeline ``pppm_cells.ik_atoms`` that the static ``PPPM.compute`` runs
+  too, here with the box read on the card (lo = centre - L / 2, h = L /
+  n), k rebuilt from boxL per call and the half-spectrum slice of the
+  block's G: elong and the virial equal the JAX package's full-spectrum
+  sums, and the ik fields its real(ifftn) (the spectral kernel's
+  ``nyquist`` option).
 
 The solver wrapped is the generic ``setup_pppm`` mesh at the deck's box,
 as the JAX package's deck runner builds it for fix npt.  ``diff ad`` and
@@ -31,29 +31,12 @@ item 14, and the dispersion solvers (``TracedPPPMDisp``,
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import pppm_cells
-from .pppm import PPPM, _fold_idx, spline_table
-
-
-class KSpaceResult(NamedTuple):
-    f: tuple              # (fx, fy, fz) acc planes
-    elong: torch.Tensor   # ()
-    virial: torch.Tensor  # (6,)
-
-
-class _Planes(NamedTuple):
-    """Atom-order planes in the shape the PPPM kernels read (aid is the
-    identity, so every atom counts)."""
-    x: torch.Tensor
-    y: torch.Tensor
-    z: torch.Tensor
-    q: torch.Tensor
-    aid: torch.Tensor
+from .pppm import PPPM, KSpaceResult, _fold_idx, spline_table
 
 
 def _alias_statics(grid, order: int, nalias: int):
@@ -203,45 +186,25 @@ class TracedPPPM:
         """Forces (acc planes), elong and the 6-virial of the charges q at
         the (3, N) positions x in the box boxL; kc: ``tables(boxL)`` of the
         block (rebuilt here when None)."""
-        acc, flt, dev = self.acc_dtype, x.dtype, x.device
-        c = self.consts(dev, flt)
+        acc, dev = self.acc_dtype, x.device
+        c = self.consts(dev, x.dtype)
         if kc is None:
             kc = self.tables(boxL)
-        n = x.shape[1]
-        aid = c.get("aid")
-        if aid is None or aid.shape[0] != n:
-            aid = c["aid"] = torch.arange(n, dtype=torch.int32, device=dev)
-        planes = _Planes(x[0], x[1], x[2], q, aid)
-        box = (self._center, boxL)
-        nx, ny, nz = self.grid
-        nzh = nz // 2 + 1
+        nzh = self.grid[2] // 2 + 1
         L = boxL.to(acc)
         V = L[0] * L[1] * L[2]
-
-        mesh = pppm_cells.deposit(self.pm, planes, n, c, box)
-        rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
         kv = (2.0 * math.pi) / L
         k3 = ((c["m"][0] * kv[0]).view(-1, 1, 1),
               (c["m"][1] * kv[1]).view(1, -1, 1),
               (c["m"][2][:nzh] * kv[2]).view(1, 1, -1))
-        sc = dict(G=kc["G_half"], k3=k3, wz=c["wz"], g_ewald=self.g_ewald,
-                  nyquist=True)
-        if not x.is_cuda:
-            ksq = k3[0] * k3[0] + k3[1] * k3[1] + k3[2] * k3[2]
-            ksq_safe = torch.where(ksq == 0.0, torch.ones_like(ksq), ksq)
-            sc["pref"] = 2.0 * (1.0 / ksq_safe + 0.25 / self.g_ewald ** 2)
-        ehat, esum, vsum = pppm_cells.spectral(sc, rhat, eflag, True)
-        qqrd2e = self.qqrd2e
-        zero = torch.zeros((), dtype=acc, device=dev)
-        elong = zero
+        f, ek, virial = pppm_cells.ik_atoms(
+            self.pm, x, q, c, kc["G_half"], k3, V, (self._center, boxL),
+            eflag, True)
+        elong = torch.zeros((), dtype=acc, device=dev)
         if eflag:
             g = self.g_ewald
-            bg = -(math.pi / 2.0 * self.qsum ** 2 / (g * g)) * qqrd2e / V
-            elong = (0.5 / V) * esum * qqrd2e + self.elong_self + bg
-        virial = vsum * ((0.5 / V) * qqrd2e)
-        e_mesh = (torch.fft.irfftn(ehat, s=self.grid, dim=(1, 2, 3))
-                  * ((1.0 / V) * (nx * ny * nz))).to(flt).contiguous()
-        f = pppm_cells.gather(self.pm, planes, e_mesh, n, acc, c, box)
+            bg = -(math.pi / 2.0 * self.qsum ** 2 / (g * g)) * self.qqrd2e / V
+            elong = ek + self.elong_self + bg
         return KSpaceResult(f=f, elong=elong, virial=virial)
 
 

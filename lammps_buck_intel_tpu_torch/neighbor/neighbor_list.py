@@ -1,4 +1,4 @@
-"""Fixed-shape neighbor lists in atom order, for the variable-cell engine.
+"""Fixed-shape neighbor lists in atom order, for the neighbor-list engines.
 
 Counterpart of ``lammps_buck_intel_tpu.neighbor.neighbor_list``: full
 lists (every pair stored from both sides), a static per-atom capacity K
@@ -10,19 +10,22 @@ grows at set-up until the build fits.
 
 Positions are (3, N) planes and the box comes as its lower corner ``lo``
 and lengths ``L``, (3,) tensors on the planes' device, so the NPT engine
-builds lists under a box that never leaves the card.
+builds lists under a box that never leaves the card (the static-box
+``Simulation`` holds its box there as constant tensors).
 
-``build_cell`` launches the CUDA build of csrc/nlist.cu on CUDA planes and
-runs ``build_cell_plain`` on CPU planes.  Both keep the candidates within
-cutneigh in scan order: the 27 cells around the atom's own in the JAX
-stencil order, each cell's atoms in ascending id.  The JAX package keeps
-the K nearest instead (top_k on rsq): without overflow the two keep the
-same set, in another column order.  The list is K-major on both: ``idx``
-and ``sb`` are (N, K) views of contiguous (K, N) tensors, so the kernels'
-neighbouring threads read neighbouring words.  ``build_dense`` (the O(N^2)
-build of N <= 512 or fewer than 3 cells per axis) is plain torch only; its
-CUDA port waits in ROADMAP queue 2 (K9c).  ``needs_rebuild`` is not ported:
-the NPT engine rebuilds on a schedule, every block.
+``build_cell`` (the binned build) and ``build_dense`` (the O(N^2) build of
+N <= 512 or fewer than 3 cells per axis) launch the CUDA builds of
+csrc/nlist.cu on CUDA planes and run ``build_cell_plain`` /
+``build_dense_plain`` on CPU planes.  They keep the candidates within
+cutneigh in scan order: the binned build the 27 cells around the atom's
+own in the JAX stencil order, each cell's atoms in ascending id; the dense
+build ascending j.  The JAX package keeps the K nearest instead (top_k on
+rsq): without overflow both keep the same set, in another column order,
+and overflow raises.  The list is K-major on both: ``idx`` and ``sb`` are
+(N, K) views of contiguous (K, N) tensors, so the kernels' neighbouring
+threads read neighbouring words.  ``needs_rebuild`` (the displacement
+test of LAMMPS' ``check yes``) is a plain function: neither engine calls
+it, as the JAX engines do not; ``check yes`` runs as the vmax cadence.
 """
 from __future__ import annotations
 
@@ -43,9 +46,9 @@ class NeighborList(NamedTuple):
     sb: (N, K) int8 special-bond code (0 = plain pair).
     nnei: (N,) int32 neighbors found (may exceed K on overflow).
     overflow: () bool tensor, any capacity exceeded.
-    (The JAX list's x0, the positions at build time, serves its
-    displacement trigger, which the NPT engine's scheduled rebuild does
-    not run.)"""
+    (The JAX list's x0, the positions at build time, feeds
+    ``needs_rebuild``; the engines update positions in place, so a caller
+    of ``needs_rebuild`` keeps its own copy.)"""
 
     idx: torch.Tensor
     sb: torch.Tensor
@@ -149,31 +152,46 @@ def _kmajor(idx, sb):
     return idx.t().contiguous().t(), sb.t().contiguous().t()
 
 
-def build_dense(x: torch.Tensor, lo: torch.Tensor, L: torch.Tensor,
-                spec: NeighborSpec, special=None) -> NeighborList:
-    """O(N^2) masked build (plain torch only): the K nearest within
-    cutneigh of every atom, as the JAX package's build_dense keeps them."""
-    if x.is_cuda:
-        raise NotImplementedError(
-            "the dense neighbor build (N <= 512 or fewer than 3 cells per "
-            "axis) has no CUDA kernel yet: ROADMAP queue 2 (K9c)")
+def build_dense_plain(x: torch.Tensor, lo: torch.Tensor, L: torch.Tensor,
+                      spec: NeighborSpec, special=None) -> NeighborList:
+    """O(N^2) masked build in torch ops (any device): the minimum-imaged
+    rsq of every pair, then per atom the first K j != i within cutneigh
+    in ascending j (K9c's columns; the JAX package's top_k keeps the same
+    set without overflow)."""
     n = x.shape[1]
     k = min(spec.kmax, n)
     Lt = L.to(x.dtype)
     d = [_image_div(x[a][:, None] - x[a][None, :], Lt[a]) for a in range(3)]
     rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    cutsq = torch.tensor(spec.cutneigh ** 2, dtype=x.dtype)
-    valid = (rsq <= cutsq) & ~torch.eye(n, dtype=torch.bool)
-    key = torch.where(valid, rsq, torch.full_like(rsq, math.inf))
-    neg, pos = torch.topk(-key, k, dim=1)
-    ok = neg > -math.inf
-    idx = torch.where(ok, pos, n).to(torch.int32)
+    cutsq = torch.tensor(spec.cutneigh ** 2, dtype=x.dtype, device=x.device)
+    valid = (rsq <= cutsq) & ~torch.eye(n, dtype=torch.bool, device=x.device)
+    pick = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)[:, :k]
+    keep = torch.gather(valid, 1, pick)
+    idx = torch.where(keep, pick, n).to(torch.int32)
     nnei = valid.sum(1).to(torch.int32)
     sp_i, sp_c = special if special is not None else (None, None)
     sb = _special_codes(idx, sp_i, sp_c)
     idx, sb = _kmajor(idx, sb)
     return NeighborList(idx=idx, sb=sb, nnei=nnei,
                         overflow=(nnei > k).any())
+
+
+def build_dense(x: torch.Tensor, lo: torch.Tensor, L: torch.Tensor,
+                spec: NeighborSpec, special=None) -> NeighborList:
+    """The dense build: the CUDA kernel (K9c) on CUDA planes, the plain
+    version on CPU planes; arguments as ``build_cell`` (``lo`` is not
+    read: the minimum image needs only the lengths)."""
+    if x.is_cuda:
+        from ..ops import nlist as nlist_ops
+
+        idx_t, sb_t, nnei, flag = nlist_ops.build_dense(
+            tuple(x.unbind(0)), L.to(x.dtype), spec, special)
+        return NeighborList(idx=idx_t.t(), sb=sb_t.t(), nnei=nnei,
+                            overflow=flag[0] > 0)
+    if x.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {x.device}")
+    return build_dense_plain(x, lo, L, spec, special)
 
 
 def build_cell_plain(x: torch.Tensor, lo: torch.Tensor, L: torch.Tensor,
@@ -262,6 +280,19 @@ def build(x: torch.Tensor, lo: torch.Tensor, L: torch.Tensor,
     if spec.dense:
         return build_dense(x, lo, L, spec, special)
     return build_cell(x, lo, L, spec, special)
+
+
+def needs_rebuild(x: torch.Tensor, L: torch.Tensor, x0: torch.Tensor,
+                  half_skin_sq: float) -> torch.Tensor:
+    """``neigh_modify check yes``'s displacement test (the JAX package's
+    ``needs_rebuild``): () bool, any atom moved more than skin / 2 since
+    the build, the displacement x - x0 ((3, N) planes) minimum-imaged in
+    the box lengths L.  Torch ops on any device; no engine calls it (the
+    engines' ``check yes`` is the vmax cadence)."""
+    Lt = L.to(x.dtype)
+    d = [_image_div(x[a] - x0[a], Lt[a]) for a in range(3)]
+    dsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    return dsq.max() > half_skin_sq
 
 
 def build_with_retry(x, lo, L, spec: NeighborSpec, special=None,

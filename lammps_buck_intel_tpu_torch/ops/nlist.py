@@ -1,7 +1,8 @@
 """Launch wrappers of the neighbor-list kernels (csrc/nlist.cu).
 
 The plain versions of the same functions are
-``neighbor.neighbor_list.build_cell_plain`` and
+``neighbor.neighbor_list.build_cell_plain``,
+``neighbor.neighbor_list.build_dense_plain`` and
 ``models.pair.driver.compute_pair_plain``.  Lists are K-major on the card:
 ``NeighborList.idx`` and ``.sb`` are (N, K) views of contiguous (K, N)
 tensors.
@@ -27,9 +28,12 @@ def _lib():
         lib.nlist_partial_rows.argtypes = [_I]
         lib.nlist_build.argtypes = ([_I] + [_P] * 4 + [_I] * 5 + [_P, _P, _D, _I]
                                     + [_P, _P, _I] + [_P] * 5)
+        lib.nlist_dense.argtypes = ([_I] + [_P] * 4 + [_I, _D, _I, _P, _P, _I]
+                                    + [_P] * 5)
         lib.nlist_pair.argtypes = ([_I] * 5 + [_P] * 7 + [_I, _I] + [_P] * 3
                                    + [_I] + [_D] * 4 + [_P] * 6)
-        for fn in (lib.nlist_partial_rows, lib.nlist_build, lib.nlist_pair):
+        for fn in (lib.nlist_partial_rows, lib.nlist_build, lib.nlist_dense,
+                   lib.nlist_pair):
             fn.restype = _I
     return lib
 
@@ -55,6 +59,41 @@ def _positions(xs):
     return dev, flt, n
 
 
+def _special_args(special, n: int, dev):
+    if special is None:
+        return None, None, 0
+    sp_i, sp_c = special
+    nsp = sp_i.shape[1]
+    for t, name in ((sp_i, "special_idx"), (sp_c, "special_code")):
+        check_plane(t.view(-1), name, torch.int32, n * nsp, dev)
+    return sp_i.data_ptr(), sp_c.data_ptr(), nsp
+
+
+def _list_outputs(kmax: int, n: int, dev):
+    return (torch.empty((kmax, n), dtype=torch.int32, device=dev),
+            torch.empty((kmax, n), dtype=torch.int8, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def build_dense(xs, boxL: torch.Tensor, spec, special):
+    """The dense O(N^2) build on the card (K9c): returns (idx_t (K, N)
+    int32, sb_t (K, N) int8, nnei (N,) int32, overflow (1,) int32) as
+    ``build_cell``, the columns in ascending j.  boxL: (3,) box lengths in
+    the planes' dtype; special as in ``build_cell``."""
+    dev, flt, n = _positions(xs)
+    check_plane(boxL, "boxL", flt, 3, dev)
+    kmax = min(spec.kmax, n)
+    idx_t, sb_t, nnei, overflow = _list_outputs(kmax, n, dev)
+    sp_i, sp_c, nsp = _special_args(special, n, dev)
+    _check(_lib().nlist_dense(
+        int(flt == torch.float64), *(p.data_ptr() for p in xs),
+        boxL.data_ptr(), n, float(spec.cutneigh) ** 2, kmax, sp_i, sp_c, nsp,
+        idx_t.data_ptr(), sb_t.data_ptr(), nnei.data_ptr(),
+        overflow.data_ptr(), _stream(dev)), "nlist_dense")
+    return idx_t, sb_t, nnei, overflow
+
+
 def build_cell(xs, geo: torch.Tensor, spec, special):
     """The binned build on the card: returns (idx_t (K, N) int32, sb_t (K,
     N) int8, nnei (N,) int32, overflow (1,) int32, 1 where a cell or a row
@@ -67,25 +106,14 @@ def build_cell(xs, geo: torch.Tensor, spec, special):
     ncell, cap, kmax = ncx * ncy * ncz, spec.cell_cap, spec.kmax
     count = torch.zeros(ncell, dtype=torch.int32, device=dev)
     cells = torch.empty(ncell * cap, dtype=torch.int32, device=dev)
-    idx_t = torch.empty((kmax, n), dtype=torch.int32, device=dev)
-    sb_t = torch.empty((kmax, n), dtype=torch.int8, device=dev)
-    nnei = torch.empty(n, dtype=torch.int32, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    sp_i = sp_c = None
-    nsp = 0
-    if special is not None:
-        sp_i, sp_c = special
-        nsp = sp_i.shape[1]
-        for t, name in ((sp_i, "special_idx"), (sp_c, "special_code")):
-            check_plane(t.view(-1), name, torch.int32, n * nsp, dev)
+    idx_t, sb_t, nnei, overflow = _list_outputs(kmax, n, dev)
+    sp_i, sp_c, nsp = _special_args(special, n, dev)
     _check(_lib().nlist_build(
         int(flt == torch.float64), *(p.data_ptr() for p in xs),
         geo.data_ptr(), n, ncx, ncy, ncz, cap, count.data_ptr(),
-        cells.data_ptr(), float(spec.cutneigh) ** 2, kmax,
-        None if sp_i is None else sp_i.data_ptr(),
-        None if sp_c is None else sp_c.data_ptr(), nsp, idx_t.data_ptr(),
-        sb_t.data_ptr(), nnei.data_ptr(), overflow.data_ptr(),
-        _stream(dev)), "nlist_build")
+        cells.data_ptr(), float(spec.cutneigh) ** 2, kmax, sp_i, sp_c, nsp,
+        idx_t.data_ptr(), sb_t.data_ptr(), nnei.data_ptr(),
+        overflow.data_ptr(), _stream(dev)), "nlist_build")
     return idx_t, sb_t, nnei, overflow
 
 

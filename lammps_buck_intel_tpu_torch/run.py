@@ -1,21 +1,28 @@
 """Deck runner for the PyTorch port.
 
 Counterpart of ``lammps_buck_intel_tpu.run`` for the decks this port
-runs: with ``engine: cellpair`` under ``fix nve`` or ``fix nvt``, with or
-without ``fix shake`` (a fix list without nve or nvt integrates as NVE);
-and, whatever ``engine`` says (the JAX package's NPT branch comes before
-the engine choice), ``fix npt`` (iso, aniso or per-axis x/y/z, mtk,
-pchain, tchain; with or without ``fix shake``) on the neighbor-list NPT
-engine (``integrate.npt.NPTSimulation``) with the variable-cell PPPM
+runs, under ``fix nve`` or ``fix nvt``, with or without ``fix shake`` (a
+fix list without nve or nvt integrates as NVE), on the JAX package's
+engines: ``engine: cellpair`` builds the cell engine
+(``integrate.CellPairSimulation``) with PPPM on a mesh aligned to its
+cells; ``engine: nlist``, the default when the deck names no engine,
+builds the neighbor-list engine (``integrate.Simulation``) with PPPM on
+the generic mesh ``setup_pppm`` gives for the deck's box, and so does a
+cell-engine deck whose box holds fewer than 3 cells on an axis.  Whatever
+``engine`` says (the JAX package's NPT branch comes before the engine
+choice), ``fix npt`` (iso, aniso or per-axis x/y/z, mtk, pchain, tchain;
+with or without ``fix shake``) runs on the neighbor-list NPT engine
+(``integrate.npt.NPTSimulation``) with the variable-cell PPPM
 (``pppm_npt.TracedPPPM``) on the generic mesh of the deck's box.  Atoms: a
 lattice built with ``create_atoms`` or atoms read with ``read_data`` (atom
 style charge or full, optionally ``replicate``d); ``pair_style buck``, or
 ``buck/coul/long`` / ``lj/charmm/coul/long`` with ``kspace_style pppm``
 (ik); ``special_bonds``, harmonic bonds, harmonic or CHARMM angles, CHARMM
 dihedrals and harmonic impropers (examples/decks/buck.yaml,
-buck_big.yaml, cristobalite_pppm.yaml, rhodo_nve.yaml, rhodo_32k.yaml,
-rhodo_class.yaml, rhodo_flex_nve.yaml, rhodo_flex_nvt.yaml,
-rhodo_npt.yaml).  Every other deck key or value raises
+buck_small.yaml, buck_big.yaml, cristobalite_pppm.yaml,
+cristobalite_pppm_nlist.yaml, rhodo_nve.yaml, rhodo_nve_nlist.yaml,
+rhodo_32k.yaml, rhodo_class.yaml, rhodo_flex_nve.yaml,
+rhodo_flex_nvt.yaml, rhodo_npt.yaml).  Every other deck key or value raises
 NotImplementedError naming its ROADMAP item; nothing is ignored.  A
 relative ``read_data`` path resolves against the working directory, as
 in the JAX package.
@@ -59,6 +66,9 @@ _UNPORTED_FIXES = {
     "rigid/small": "item 13 (rigid bodies, K15)",
     "rigid/npt/small": "item 13 (rigid bodies under the barostat, K15)",
 }
+# engine -> where its port stands in ROADMAP queue 1 (nlist and cellpair
+# run)
+_UNPORTED_ENGINES = {"slab": "item 16 (the multi-device slab engine)"}
 # fix npt keywords of a tilted (triclinic) barostat
 _NPT_TILT_KEYS = {"tri", "xy", "xz", "yz"}
 # kspace_style pieces the port refuses, by ROADMAP queue 1 item
@@ -96,11 +106,6 @@ def _check_npt(cfg: dict, fx: dict):
         raise ValueError(
             "fix npt needs exactly one pressure form: iso, aniso, or per-axis "
             f"x/y/z (got {forms + axes})")
-    engine = cfg.get("engine", "nlist")
-    if engine not in ("nlist", "cellpair"):
-        raise NotImplementedError(
-            f"fix npt on engine {engine!r} (the slab barostat) is not "
-            "ported: ROADMAP queue 1 item 16")
 
 
 def _check_deck(cfg: dict):
@@ -109,13 +114,19 @@ def _check_deck(cfg: dict):
             where = _UNPORTED_KEYS.get(key, "queue 1")
             raise NotImplementedError(
                 f"deck key {key!r} is not ported: ROADMAP {where}")
-    npt = [fx for fx in cfg.get("fixes", []) if fx.get("name") == "npt"]
     engine = cfg.get("engine", "nlist")
-    if not npt and engine != "cellpair":
+    if engine in _UNPORTED_ENGINES:
         raise NotImplementedError(
-            f"engine {engine!r} is not ported without fix npt: ROADMAP queue "
-            "1 item 11 (the nlist Simulation) / item 16 (slab); set engine: "
-            "cellpair")
+            f"engine {engine!r} is not ported: ROADMAP queue 1 "
+            f"{_UNPORTED_ENGINES[engine]}")
+    if engine not in ("nlist", "cellpair"):
+        raise ValueError(f"unknown engine {engine!r} (nlist, cellpair)")
+    npt = any(fx.get("name") == "npt" for fx in cfg.get("fixes", []))
+    if cfg.get("cap") and (engine != "cellpair" or npt):
+        raise NotImplementedError(
+            "deck key 'cap' sizes the cell engine's slots, which this deck "
+            "does not run (the neighbor-list engines size their own "
+            "capacities): drop cap")
     for fx in cfg.get("fixes", [{"name": "nve"}]):
         fn = fx.get("name")
         if fn in _UNPORTED_FIXES:
@@ -440,29 +451,38 @@ def _npt_config(fx: dict):
                      flags=tuple(flags), couple="none", **common), thermostat
 
 
-def _npt_traced_kspace(cfg: dict, box, q, style, prec):
-    """The deck's PPPM in its variable-cell form: ``setup_pppm`` at the
-    deck's box (the generic mesh, not a cell-aligned one, as the JAX
-    package's NPT branch builds it) wrapped in ``TracedPPPM``."""
+def _generic_pppm(cfg: dict, box, q, style, prec):
+    """The deck's PPPM on the generic mesh of its box (``setup_pppm`` with
+    no cell alignment), as the JAX package's deck runner builds it for the
+    neighbor-list engines (its ``run.py:326-352``)."""
     from .models.kspace import setup_pppm
-    from .models.kspace.pppm_npt import make_traced_kspace
 
     ks, ps = cfg["kspace_style"], cfg["pair_style"]
-    pm = setup_pppm(box, q, cutoff=ps.get("cut_coul", ps["cut"]),
-                    accuracy_rel=ks.get("accuracy", 1e-4),
-                    qqrd2e=style.qqrd2e, order=ks.get("order", 5),
-                    g_ewald=style.g_ewald, diff=ks.get("diff", "ik"),
-                    acc_dtype=prec.acc)
+    return setup_pppm(box, q, cutoff=ps.get("cut_coul", ps["cut"]),
+                      accuracy_rel=ks.get("accuracy", 1e-4),
+                      qqrd2e=style.qqrd2e, order=ks.get("order", 5),
+                      g_ewald=style.g_ewald, diff=ks.get("diff", "ik"),
+                      acc_dtype=prec.acc)
+
+
+def _npt_traced_kspace(cfg: dict, box, q, style, prec):
+    """The deck's PPPM in its variable-cell form: the generic mesh
+    (``_generic_pppm``) wrapped in ``TracedPPPM``."""
+    from .models.kspace.pppm_npt import make_traced_kspace
+
+    pm = _generic_pppm(cfg, box, q, style, prec)
     center = np.asarray(box.lo, np.float64) + 0.5 * np.asarray(box.lengths)
     return make_traced_kspace(pm, center)
 
 
 def build_simulation(cfg: dict, device="cuda"):
     """Construct the deck's engine on ``device``: an NPTSimulation for fix
-    npt, else a CellPairSimulation."""
+    npt; else a CellPairSimulation for ``engine: cellpair`` unless its box
+    is too small for the cells; else a Simulation."""
     from .core import (build_topology, get_precision, get_units, make_box,
                        make_system)
-    from .integrate import CellPairSimulation, NeighborPolicy, NVTConfig
+    from .integrate import (CellPairSimulation, NeighborPolicy, NVTConfig,
+                            Simulation)
     from .io import velocity
     from .models.kspace import pppm_g_ewald
 
@@ -531,18 +551,32 @@ def build_simulation(cfg: dict, device="cuda"):
             system, style, npt_fix, thermostat, kspace=kspace, bonded=bonded,
             units=u, precision=prec, dt=dt, neighbor=policy, shake=shake,
             topology=topo)
-    kspace = (None if ks is None
-              else _pppm_for_grid(cfg, box, q, style, prec, policy.skin))
-    try:
-        return CellPairSimulation(
-            system, style, units=u, precision=prec, dt=dt, neighbor=policy,
-            cap=int(cfg["cap"]) if cfg.get("cap") else None, kspace=kspace,
-            topology=topo, bonded=bonded, thermostat=thermostat,
-            shake=shake)
-    except ValueError as e:
-        if "box too small" not in str(e):
-            raise
-        raise NotImplementedError(str(e)) from e
+    if cfg.get("engine", "nlist") == "cellpair":
+        kspace = (None if ks is None
+                  else _pppm_for_grid(cfg, box, q, style, prec, policy.skin))
+        try:
+            return CellPairSimulation(
+                system, style, units=u, precision=prec, dt=dt,
+                neighbor=policy,
+                cap=int(cfg["cap"]) if cfg.get("cap") else None,
+                kspace=kspace, topology=topo, bonded=bonded,
+                thermostat=thermostat, shake=shake)
+        except ValueError as e:
+            # ONLY the box-too-small geometry falls through to the
+            # neighbor-list engine, as in the JAX package; every other
+            # error stays loud
+            if "box too small" not in str(e):
+                raise
+        if cfg.get("cap"):
+            raise NotImplementedError(
+                "deck key 'cap' sizes the cell engine's slots; this deck's "
+                "box is too small for the cell engine, and the neighbor-list "
+                "engine sizes its own capacities: drop cap")
+    kspace = None if ks is None else _generic_pppm(cfg, box, q, style, prec)
+    return Simulation(
+        system, style, topology=topo, kspace=kspace, bonded=bonded, units=u,
+        precision=prec, dt=dt, neighbor=policy, thermostat=thermostat,
+        shake=shake)
 
 
 def run_deck(cfg: dict, device="cuda", log: bool = True):

@@ -3,6 +3,12 @@
 Lattice, velocity seeding (numpy and RanPark streams), boxes, units and
 systems must give arrays identical to the JAX package's; the port must
 import without jax; unported deck features and a missing GPU must raise.
+Deck routing follows the JAX package's: ``engine: nlist`` and a deck
+without ``engine:`` build the neighbor-list ``Simulation``, as does a
+cell-engine deck whose box is too small (buck_small.yaml); the
+neighbor-list deck front end builds the JAX run.py's generic PPPM mesh
+and g_ewald (cristobalite_pppm_nlist.yaml at full size, host set-up
+only).
 """
 import copy
 import os
@@ -161,7 +167,7 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
     {"replicate": [2, 2, 2]},
     {"fixes": [{"name": "npt", "t_start": 1.0, "t_damp": 0.1,
                 "iso": [0.0, 0.0, 1.0], "xy": [0.0, 0.0, 1.0]}]},
-    {"engine": "nlist"},
+    {"engine": "slab"},
     {"fixes": [{"name": "nvt", "t_start": 1.0, "t_damp": 0.1, "drag": 0.2}]},
     {"pair_style": {"name": "buck/coul/long", "cut": 2.5,
                     "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
@@ -259,7 +265,7 @@ def test_new_entry_points_default_to_the_card():
     from lammps_buck_intel_tpu_torch import interop, run
 
     for fn in (run.build_simulation, run.run_deck, tcore.make_system,
-               interop.slot_state_from_numpy):
+               interop.slot_state_from_numpy, interop.md_state_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__name__
     # make_special_table takes the device without a default: the engine
@@ -283,3 +289,93 @@ def test_thermostat_target_ramps_over_the_run():
     assert sim._t_target(ahead=50) == 400.0 == sim._t_target(ahead=500)
     sim._run_total = 0
     assert sim._t_target() == 300.0
+
+
+@pytest.mark.parametrize("engine", ["nlist", None])
+def test_nlist_decks_build_simulation(engine):
+    from lammps_buck_intel_tpu_torch.integrate import Simulation
+
+    cfg = _deck()
+    if engine is None:
+        del cfg["engine"]
+    else:
+        cfg["engine"] = engine
+    sim = build_simulation(cfg, device="cpu")
+    assert isinstance(sim, Simulation) and sim.n_atoms == 864
+    assert not sim.spec.dense and min(sim.spec.nc) >= 3
+
+
+def test_small_box_falls_back_to_simulation():
+    """buck_small.yaml asks for the cell engine; its 2 cells per axis are
+    too few, so the deck runner builds the neighbor-list engine with the
+    dense build, as the JAX package does.  cap (the cell engine's) is then
+    refused, not ignored."""
+    from lammps_buck_intel_tpu_torch.integrate import Simulation
+
+    with open(os.path.join(DECKS, "buck_small.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    assert cfg["engine"] == "cellpair"
+    sim = build_simulation(copy.deepcopy(cfg), device="cpu")
+    assert isinstance(sim, Simulation) and sim.n_atoms == 500
+    assert sim.spec.dense
+    cfg["cap"] = 40
+    with pytest.raises(NotImplementedError, match="cap"):
+        build_simulation(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"engine": "slab"}, "item 16"),
+    ({"devices": 2}, "item 16"),
+    ({"devices_2d": [2, 2]}, "item 16"),
+    ({"exclude_intra": True}, "item 13"),
+    ({"engine": "nlist", "cap": 40}, "cap"),
+])
+def test_nlist_unported_forms_raise(change, match):
+    cfg = _deck()
+    cfg.update(change)
+    with pytest.raises(NotImplementedError, match=match):
+        build_simulation(cfg, device="cpu")
+
+
+def test_unknown_engine_raises():
+    cfg = _deck()
+    cfg["engine"] = "verlet"
+    with pytest.raises(ValueError, match="unknown engine"):
+        build_simulation(cfg, device="cpu")
+
+
+def test_nlist_front_end_matches_jax_mesh(monkeypatch):
+    """cristobalite_pppm_nlist.yaml at its full 259,200 atoms: the port's
+    deck runner and the JAX run.py build the same generic PPPM mesh and
+    g_ewald.  Host set-up only: both engines are stubbed out and the
+    influence function (which no mesh size depends on) is skipped."""
+    import lammps_buck_intel_tpu.integrate as jint
+    import lammps_buck_intel_tpu_torch.integrate as tint
+    from lammps_buck_intel_tpu import run as jrun
+    from lammps_buck_intel_tpu.models.kspace import pppm as jpppm
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm as tpppm
+
+    class Stub:
+        def __init__(self, system, style, **kw):
+            self.n_atoms = system.x.shape[0]
+            self.style, self.kspace = style, kw["kspace"]
+
+    def no_g(grid, *a, **k):
+        return np.zeros(grid)
+
+    for mod, stub in ((jint, "Simulation"), (tint, "Simulation")):
+        monkeypatch.setattr(mod, stub, Stub)
+    monkeypatch.setattr(jpppm, "_greens_function", no_g)
+    monkeypatch.setattr(tpppm, "_greens_function", no_g)
+    monkeypatch.chdir(ROOT)
+    with open(os.path.join(DECKS, "cristobalite_pppm_nlist.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    j = jrun.build_simulation(copy.deepcopy(cfg))
+    t = build_simulation(copy.deepcopy(cfg), device="cpu")
+    assert t.n_atoms == j.n_atoms == 259200
+    assert t.kspace.grid == tuple(j.kspace.grid)
+    assert t.kspace.order == j.kspace.order == 7
+    assert abs(t.kspace.g_ewald - j.kspace.g_ewald) <= 1e-14
+    assert t.style.g_ewald == t.kspace.g_ewald
+    np.testing.assert_allclose(t.kspace.h, np.asarray(j.kspace.h),
+                               rtol=1e-14)

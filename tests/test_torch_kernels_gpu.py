@@ -771,3 +771,142 @@ def test_shake_and_bonded_with_box_on_the_card(cuda, prec):
     assert float((fk - fp).abs().max()) <= tol * float(fp.abs().max())
     assert float((out_k.virial - out_p.virial).abs().max()) <= \
         tol * float(out_p.virial.abs().max())
+
+
+# ---- the neighbor-list Simulation: the dense build (K9c) and the static
+# generic-mesh PPPM (K10 through K5 / K7 / K8) ----
+
+def _dense_system(which, dtype, dev):
+    """(x (3, N), boxL (3,)) of buck_small.yaml's 5^3 lattice (500 atoms)
+    or one jittered copy of the cristobalite crystal (1,440 atoms)."""
+    import os
+    import sys
+
+    if which == 500:
+        x, lo, hi = lattice.create_atoms("fcc", 0.8442, 5, 5, 5)
+        x = x + np.random.default_rng(1).uniform(-0.1, 0.1, x.shape)
+        cut = 2.8
+    else:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        sys.path.insert(0, os.path.join(root, "examples"))
+        import gen_cristobalite
+
+        x, _, _, hi = gen_cristobalite.build()
+        x = np.mod(x + gen_cristobalite.jitter(len(x), 0.1), hi)
+        lo, cut = np.zeros(3), 11.0
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64)).to(dev, dtype)
+
+    return t(x.T.copy()), t(lo), t(np.asarray(hi) - lo), cut
+
+
+@pytest.mark.parametrize("n", [500, 1440])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nlist_dense_kernel_matches_plain(cuda, n, dtype):
+    """K9c against build_dense_plain on the card: identical lists (ascending
+    j, the same codes, counts and flags), also with K forced too small."""
+    import dataclasses
+
+    from lammps_buck_intel_tpu_torch.neighbor import neighbor_list as nlm
+
+    x, lo, L, cut = _dense_system(n, dtype, cuda)
+    spec = nlm.make_spec(n, L.cpu().numpy(), cut)
+    assert spec.dense
+    before = ops.LAUNCHES["nlist_dense"]
+    for sp in (spec, dataclasses.replace(spec, kmax=16)):
+        nk = nlm.build_dense(x, lo, L, sp)
+        npl = nlm.build_dense_plain(x, lo, L, sp)
+        assert nk.idx.t().is_contiguous()
+        assert torch.equal(nk.idx, npl.idx) and torch.equal(nk.sb, npl.sb)
+        assert torch.equal(nk.nnei, npl.nnei)
+        assert bool(nk.overflow) == bool(npl.overflow) == (sp is not spec)
+    assert ops.LAUNCHES["nlist_dense"] == before + 2
+
+
+def test_nlist_dense_kernel_special_codes(cuda):
+    """K9c writes the partner table's codes as the plain version does."""
+    from lammps_buck_intel_tpu_torch.neighbor import neighbor_list as nlm
+
+    x, lo, L, cut = _dense_system(500, torch.float64, cuda)
+    n = x.shape[1]
+    rng = np.random.default_rng(2)
+    sp_i = torch.as_tensor(rng.integers(-1, n, (n, 6)), dtype=torch.int32,
+                           device=cuda)
+    sp_c = torch.as_tensor(rng.integers(1, 4, (n, 6)), dtype=torch.int32,
+                           device=cuda)
+    spec = nlm.make_spec(n, L.cpu().numpy(), cut)
+    nk = nlm.build_dense(x, lo, L, spec, (sp_i, sp_c))
+    npl = nlm.build_dense_plain(x, lo, L, spec, (sp_i, sp_c))
+    assert torch.equal(nk.idx, npl.idx) and torch.equal(nk.sb, npl.sb)
+    assert int(nk.sb.to(torch.int32).sum()) > 0
+
+
+@pytest.mark.parametrize("grid", [None, (15, 21, 9)])
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_pppm_compute_matches_plain(cuda, grid, flt, acc):
+    """PPPM.compute on the card (K5 -> rfftn -> K7 with the Nyquist
+    conventions -> irfftn -> K8, in atom order) against the plain
+    pppm_compute_plain (full spectrum) on the same card, on the even
+    generic mesh and an odd one."""
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm as tpppm
+
+    rng = np.random.RandomState(4)
+    Lb = np.array([12.0, 12.5, 10.5])
+    x = rng.uniform(0, 1, (400, 3)) * Lb - 0.3
+    q = rng.uniform(-1, 1, 400)
+    q -= q.mean()
+    box = make_box([0.0, 0.0, 0.0], Lb)
+    pm = setup_pppm(box, q, cutoff=4.0, accuracy_rel=1e-5,
+                    qqrd2e=332.06371, order=7, acc_dtype=acc)
+    if grid is not None:
+        import dataclasses
+
+        pm = dataclasses.replace(
+            pm, grid=grid,
+            greensfn=tpppm._greens_function(grid, Lb, pm.g_ewald, 7),
+            kx=2 * np.pi * tpppm._fold_idx(grid[0]) / Lb[0],
+            ky=2 * np.pi * tpppm._fold_idx(grid[1]) / Lb[1],
+            kz=2 * np.pi * tpppm._fold_idx(grid[2]) / Lb[2],
+            h=tuple(Lb / np.asarray(grid)), _consts={})
+    xt = torch.as_tensor(x.T.copy()).to(cuda, flt)
+    qt = torch.as_tensor(q).to(cuda, flt)
+    before = {k: ops.LAUNCHES[k] for k in ("pppm_deposit", "pppm_spectral",
+                                           "pppm_gather")}
+    rk = pm.compute(xt, qt, eflag=True, vflag=True)
+    rp = tpppm.pppm_compute_plain(pm, xt, qt, True, True)
+    for k, v in before.items():
+        assert ops.LAUNCHES[k] == v + 1, k
+    ftol, etol = (1e-4, 1e-5) if flt == torch.float32 else (1e-11, 1e-11)
+    fk, fp = torch.stack(rk.f), torch.stack(rp.f)
+    assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+    assert abs(float(rk.elong - rp.elong)) <= etol * abs(float(rp.elong))
+    assert float((rk.virial - rp.virial).abs().max()) <= \
+        etol * float(rp.virial.abs().max())
+
+
+def test_simulation_on_card_matches_cpu(cuda):
+    """buck_small.yaml (the fallback into Simulation and K9c) in f64 for 10
+    steps on the card against the same run on the CPU's plain versions:
+    rows within 1e-11 relative, positions within 1e-11 of the box."""
+    import os
+
+    import yaml
+
+    from lammps_buck_intel_tpu_torch.run import build_simulation
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "examples", "decks",
+                           "buck_small.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["precision"] = "double"
+    rows = []
+    sims = []
+    for dev in (cuda, "cpu"):
+        sim = build_simulation(dict(cfg), device=dev)
+        rows.append(sim.run(10, thermo_every=5, log=False))
+        sims.append(sim)
+    for rk, rp in zip(*rows):
+        for key in ("temp", "epair", "etotal", "press"):
+            assert abs(rk[key] - rp[key]) <= 1e-11 * abs(rp[key]), key
+    xk, xp = (s.get_atoms()["x"] for s in sims)
+    assert np.abs(xk - xp).max() <= 1e-11 * float(sims[1].box.lengths.max())

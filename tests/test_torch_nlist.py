@@ -11,7 +11,10 @@ package (CPU, f64).
     compared.
 (b) A K or cell capacity forced too small raises the overflow flag, and
     ``build_with_retry`` grows past it to the JAX spec.
-(c) ``build_dense`` (plain only) keeps the JAX dense build's sets.
+(c) ``build_dense`` (the plain version K9c is held to) keeps the JAX
+    dense build's sets, on a random box and on one copy of the cristobalite
+    crystal at the deck's cutneigh (N 1,440, K 536, one cell along z);
+    ``needs_rebuild`` answers the JAX package's cases.
 (d) ``compute_pair`` (plain) on the JAX list: forces, evdwl, ecoul and
     the virial within 1e-12 relative of the JAX ``driver.compute_pair`` for
     lj/charmm/coul/long with specials (rhodo) and buck/coul/long (the ionic
@@ -147,6 +150,61 @@ def test_build_dense_matches_jax():
     tl = _port_list(x, lo, L, spec, sp_idx, sp_code)
     np.testing.assert_array_equal(tl.nnei.numpy(), np.asarray(jl.nnei))
     assert _sets(tl.idx, tl.sb, 300) == _sets(jl.idx, jl.sb, 300)
+
+
+def test_build_dense_cristobalite_matches_jax():
+    """cristobalite_pppm_nlist.yaml's list on one copy of the crystal
+    (jittered): cut 10 + skin 1 on a 28.6 x 35.8 x 21.5 A box, 1 cell along
+    z, so make_spec picks the dense build with K 536; the columns hold
+    ascending j."""
+    import sys
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import gen_cristobalite
+
+    x, typ, q, hi = gen_cristobalite.build()
+    n = len(x)
+    x = np.mod(x + gen_cristobalite.jitter(n, 0.1), hi)
+    lo, L = np.zeros(3), hi
+    spec, jspec = tnl.make_spec(n, L, 11.0), jnl.make_spec(n, L, 11.0)
+    assert n == 1440 and spec.dense and jspec.dense
+    assert spec.kmax == jspec.kmax == 536
+    none_i, none_c = np.zeros((n, 0), np.int32), np.zeros((n, 0), np.int8)
+    jl = _jax_list(x, lo, L, jspec, none_i, none_c)
+    tl = _port_list(x, lo, L, spec, none_i, none_c)
+    assert not bool(jl.overflow) and not bool(tl.overflow)
+    assert tl.idx.t().is_contiguous() and tl.sb.t().is_contiguous()
+    np.testing.assert_array_equal(tl.nnei.numpy(), np.asarray(jl.nnei))
+    assert _sets(tl.idx, tl.sb, n) == _sets(jl.idx, jl.sb, n)
+    idx = tl.idx.numpy()
+    for i in range(0, n, 97):
+        row = idx[i][idx[i] < n]
+        assert (np.diff(row) > 0).all()
+
+
+def test_needs_rebuild_matches_jax():
+    """tests/test_neighbor.py's cases: no move, then one atom moved 0.4
+    past the skin / 2 bound of 0.3; and a move across the periodic
+    boundary that the minimum image keeps small."""
+    rng = np.random.RandomState(3)
+    x = rng.uniform(0, 10.0, size=(50, 3))
+    jbox = jmake_box([0, 0, 0], [10.0] * 3)
+    jspec = jnl.make_spec(50, [10.0] * 3, 3.0, dense=True)
+    jl = jnl.build(jnp.asarray(x), jbox, jspec)
+    half = (0.6 / 2) ** 2
+    L = torch.full((3,), 10.0, dtype=torch.float64)
+    x0 = torch.as_tensor(x.T.copy())
+    moved = x.copy()
+    moved[7, 0] += 0.4
+    wrapped = x.copy()
+    wrapped[11, 1] += 10.0 - 0.1
+    for xn in (x, moved, wrapped):
+        want = bool(jnl.needs_rebuild(jnp.asarray(xn), jbox, jl, half))
+        got = tnl.needs_rebuild(torch.as_tensor(xn.T.copy()), L, x0, half)
+        assert bool(got) == want
+    assert [bool(tnl.needs_rebuild(torch.as_tensor(xn.T.copy()), L, x0,
+                                   half)) for xn in (x, moved, wrapped)] \
+        == [False, True, False]
 
 
 def _styles(system):

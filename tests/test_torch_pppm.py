@@ -11,6 +11,16 @@ forces max|df| <= 1e-8 max|f| (the tolerances of
 tests/test_pppm_cells.py).  Cases: atoms inside their cells, atoms
 drifted up to skin/2 out of the box, and a z-refined grid (reach_z 2)
 that the JAX solver sees through its coarse view.
+
+The static solver of the neighbor-list engine (``PPPM.compute``, K10 ik)
+against the JAX ``PPPM.compute`` on the same solver (carried over by
+``interop.pppm_from_numpy``): orders 5 and 7, on the generic mesh of
+``setup_pppm`` (even: ``_next_good`` returns only even sizes) and on odd
+meshes given explicitly; forces max|df| <= 1e-10 max|f|, elong and the
+virial rel 1e-10; both routes: the plain version the CPU runs
+(``pppm_compute_plain``, full spectrum) and the staged route the card runs
+(``compute_staged``: half spectrum with the Nyquist conventions, here with
+each stage's plain version).
 """
 import numpy as np
 import pytest
@@ -249,3 +259,75 @@ def test_traced_pppm_unported_raise():
     assert make_traced_kspace(pm, [6.0] * 3).grid == pm.grid
     with pytest.raises(NotImplementedError, match="item 13"):
         make_traced_kspace(object(), [6.0] * 3)
+
+
+# ---- the static solver of the neighbor-list engine: PPPM.compute ----
+
+def _ionic_charges():
+    """tests/test_coul_long_system.py's rock-salt system at n_cell 4 (128
+    atoms, L 12.8), shifted off the box origin."""
+    from test_coul_long_system import _ionic_system
+
+    x, q, _, Lb = _ionic_system(n_cell=4)
+    lo = np.array([-1.0, 0.5, 2.0])
+    return x + lo, q, lo, lo + Lb
+
+
+@pytest.mark.parametrize("system,order,grid", [
+    ("random", 5, None), ("random", 7, None),
+    ("ionic", 5, (15, 21, 9)), ("ionic", 7, (25, 15, 27)),
+    ("random", 7, (14, 15, 21))])
+def test_pppm_compute_matches_jax(system, order, grid):
+    if system == "random":
+        x, q = _charges(5)
+        lo, hi = np.array([0.0, -1.0, 0.5]), np.array([L, L + 0.5, L - 1.5])
+    else:
+        x, q, lo, hi = _ionic_charges()
+    jbox = jmake_box(lo, hi)
+    j = jsetup(jbox, q, cutoff=CUT, accuracy_rel=1e-5, qqrd2e=QQRD2E,
+               order=order, acc_dtype=jnp.float64, grid=grid)
+    if grid is None:
+        t = tsetup(tmake_box(lo, hi), q, cutoff=CUT, accuracy_rel=1e-5,
+                   qqrd2e=QQRD2E, order=order, acc_dtype=torch.float64)
+        assert t.grid == tuple(j.grid) and all(n % 2 == 0 for n in t.grid)
+    else:
+        t = pppm_from_numpy(j.grid, j.g_ewald, j.order, j.greensfn, j.kx,
+                            j.ky, j.kz, j.qsum, j.qsqsum, j.qqrd2e, j.volume,
+                            j.box_lo, j.h, acc_dtype=torch.float64)
+    # a few atoms outside the box, as between two wraps of the list engine
+    x = x.copy()
+    x[::17] += 0.4
+    xt, qt = torch.as_tensor(x.T.copy()), torch.as_tensor(q)
+    for eflag, vflag in ((True, True), (False, False)):
+        jr = j.compute(jnp.asarray(x), jnp.asarray(q), eflag=eflag,
+                       vflag=vflag)
+        fj = np.asarray(jr.f)
+        for route in (t.compute, t.compute_staged):
+            tr = route(xt, qt, eflag=eflag, vflag=vflag)
+            ft = torch.stack(tr.f, -1).numpy()
+            assert np.abs(ft - fj).max() <= 1e-10 * np.abs(fj).max()
+            vj = np.asarray(jr.virial)
+            if vflag:
+                np.testing.assert_allclose(tr.virial.numpy(), vj, rtol=1e-10,
+                                           atol=1e-10 * np.abs(vj).max())
+            else:
+                assert not tr.virial.any()
+            if eflag:
+                ej = float(jr.elong)
+                assert abs(float(tr.elong) - ej) <= 1e-10 * abs(ej)
+            else:
+                assert float(tr.elong) == 0.0
+
+
+def test_plain_deposit_rho_matches_jax():
+    x, q = _charges(6)
+    box = jmake_box([0, 0, 0], [L] * 3)
+    j = jsetup(box, q, cutoff=CUT, accuracy_rel=1e-5, qqrd2e=QQRD2E,
+               order=7, acc_dtype=jnp.float64)
+    t = pppm_from_numpy(j.grid, j.g_ewald, j.order, j.greensfn, j.kx, j.ky,
+                        j.kz, j.qsum, j.qsqsum, j.qqrd2e, j.volume, j.box_lo,
+                        j.h, acc_dtype=torch.float64)
+    mj = np.asarray(jpppm.deposit_rho(j, jnp.asarray(x), jnp.asarray(q)))
+    mt = tpppm.deposit_rho_plain(t, torch.as_tensor(x.T.copy()),
+                                 torch.as_tensor(q)).numpy()
+    assert np.abs(mt - mj).max() <= 1e-12 * np.abs(mj).max()

@@ -8,7 +8,8 @@ so every step is a force-only step as most steps of a run are), first
 untraced for the step time, then the same number of steps under
 ``torch.profiler`` (``utils/device_trace.py``).  Device kernel time is summed by kernel and grouped
 into the port's layers: pair (csrc/cellpair.cu, or csrc/nlist.cu's pair
-pass on the NPT engine), nlist build (csrc/nlist.cu), npt (csrc/npt.cu:
+pass on the neighbor-list engines), nlist build (csrc/nlist.cu: the
+binned and the dense builds), npt (csrc/npt.cu:
 the traced influence function, the barostat's per-atom passes), pppm
 kernels
 (csrc/pppm.cu), pppm FFTs (cuFFT under torch.fft), bonded
@@ -19,8 +20,8 @@ ops (everything else: fills, the slot-of-atom map, partial sums).  The
 device idle share is 1 - (kernel time / traced wall time); launches per
 step are the device events of each layer over the steps.  With them the
 least time the card could take for the NVE update of one step: it reads
-x, v, f and writes x, v, 9 planes of nslots floats (atoms on the NPT
-engine), at 3.35 TB/s.  Prints
+x, v, f and writes x, v, 9 planes of nslots floats (atoms on the
+neighbor-list engines), at 3.35 TB/s.  Prints
 one JSON object with the card's name and power limit.
 """
 import argparse
@@ -43,7 +44,7 @@ from lammps_buck_intel_tpu_torch.utils import device_trace  # noqa: E402
 LAYERS = (
     ("pair", ("cellpair_kernel", "nlist_pair_kernel")),
     ("nlist build", ("nlist_bin_kernel", "nlist_sort_kernel",
-                     "nlist_build_kernel")),
+                     "nlist_build_kernel", "nlist_dense_kernel")),
     ("npt", ("traced_greens_kernel", "npt_ke3_kernel",
              "npt_vscale_kick_kernel", "npt_drift_dilate_kernel")),
     ("pppm kernels", ("pppm_deposit_kernel", "pppm_spectral_kernel",
@@ -116,7 +117,7 @@ def main(argv=None):
         by_layer[layer_of(k)] = by_layer.get(layer_of(k), 0.0) + v
     busy = sum(kernels.values())
     traced_step = traced_ms / args.steps
-    # the cell engine's slot planes, or the NPT engine's atom planes
+    # the cell engine's slot planes, or the list engines' atom planes
     nslots = sim.grid.nslots if hasattr(sim, "grid") else sim.n_atoms
     nve_bytes = 9 * nslots * sim.state.x.element_size()
     out = {
