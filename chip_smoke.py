@@ -6,8 +6,8 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: nvcc builds csrc/cellpair.cu, csrc/rebin.cu, csrc/pppm.cu,
-     csrc/bonded.cu, csrc/verlet.cu, csrc/shake.cu, csrc/nlist.cu and
-     csrc/npt.cu from the checkout into
+     csrc/bonded.cu, csrc/verlet.cu, csrc/shake.cu, csrc/nlist.cu,
+     csrc/npt.cu and csrc/ewald.cu from the checkout into
      lammps_buck_intel_tpu_torch/_build/, one nvcc per source, all started
      together;
   3. K1, the cell-pair kernel, against its plain torch version on the card
@@ -96,7 +96,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (tests/goldens/torch_nlist.json); buck_small.yaml unedited through
      run_deck: the cell engine's box-too-small fallback into Simulation
      and K9c, the drift under buck's gate, whose launches the kernels
-     line reports for K9c.
+     line reports for K9c;
+ 12. Ewald (K11a ewald_sk, K11b ewald_force, csrc/ewald.cu) and coul/cut
+     on the neighbor-list Simulation: K11a and K11b against
+     ewald_compute_plain at cristobalite_ewald.yaml's 11,520 atoms of the
+     jittered crystal (K 31,248), f64 and f32, each timed in f32 beside
+     the plain (matmul) route and its bound; cristobalite_ewald.yaml at
+     1x1x2 and cristobalite_coul_cut.yaml at one copy, f64, 20 steps,
+     against the JAX package's record (tests/goldens/torch_ewald.json,
+     re-recorded on the CPU with `python tools/record_ewald.py`);
+     cristobalite_ewald.yaml unedited (11,520 atoms, 500 steps, f32: step
+     0 and the reciprocal part of elong against the record, the silica
+     drift gate 5e-3, ms/step); the coul/cut branch of K1 and K9b against
+     their plain versions at 92,160 atoms, K9b timed beside its coul/long
+     branch on the same list; cristobalite_coul_cut.yaml unedited (92,160
+     atoms, 100 steps, f32: step 0 against the record scaled from 11,520
+     atoms, elong 0; the deck conserves no energy (the truncated Coulomb
+     sum), so its drift is held to the deck's f64 run on the card, whose
+     rows and drift at the record's 11,520 atoms equal the JAX record's).
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -172,12 +189,14 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 # per pair inside the cutoff, evaluated once with Newton's third law:
 # distance 8, clamp 1, 1/r^2 and r 2, buck 8, coul/long 24 (prefactor 3,
-# grij and exp 3, A&S erfc 13, force 5), scalar 1, both atoms' forces 9;
+# grij and exp 3, A&S erfc 13, force 5) or coul/cut 3 (qq q_j / r), scalar
+# 1, both atoms' forces 9;
 # lj/charmm 10 (r^-6 2, forcelj 4, philj 4) in place of buck's 8, and 15
 # more for a pair in the switching region (tt 1, switch1 6, switch2 5,
 # combination 3)
 OPS_PAIR = {("buck", "none"): 29, ("buck", "long"): 53,
-            ("ljcharmm", "long"): 55}
+            ("ljcharmm", "long"): 55, ("buck", "cut"): 32,
+            ("ljcharmm", "cut"): 34}
 OPS_SWITCH = 15
 # per bonded term (adds, multiplies, divides, square roots, arccos, rint;
 # minimum image 4 per component): bond 12 image + 20; angle 24 image + 55,
@@ -408,7 +427,7 @@ def _k1_compare(label, style, grid, box, st, acc, special=None):
         if ev:
             errs = {"evdwl": scalar_rel(k.evdwl, p.evdwl),
                     "virial": rel_err(k.virial, p.virial)}
-            if style.cfg.coul == "long":
+            if style.cfg.has_coul:
                 errs["ecoul"] = scalar_rel(k.ecoul, p.ecoul)
             msg += "".join(f", {n} rel {e:.3e}" for n, e in errs.items())
             ok = ok and all(e <= etol for e in errs.values())
@@ -435,7 +454,7 @@ def _k1_time(label, sim, st, reps_plain=3):
     # the aid plane says which slots hold an atom; of those, each atom's
     # position, type (and charge) are read and its f32 force written once
     planes = (st.x, st.y, st.z, st.typ) + (
-        (st.q,) if coul == "long" else ())
+        (st.q,) if coul != "none" else ())
     nbytes = (grid.nslots * plane_bytes(st.aid)
               + grid.n_atoms * (plane_bytes(*planes) + 3 * 4))
     nops = pairs * OPS_PAIR[style.cfg.vdw, coul]
@@ -1594,6 +1613,25 @@ OPS_BUILD_CAND = 21
 OPS_GREENS_TERM = 22
 
 
+def list_pairs_in_cutoff(x, boxL, nl, cutsq: float) -> int:
+    """List entries (i, j) of nl within cutsq of each other (minimum image
+    under boxL): the pairs whose physics the list pair pass evaluates."""
+    n = x.shape[1]
+    rsq_in = 0
+    j = nl.idx.long()
+    for a0 in range(0, n, 1 << 15):
+        jj = j[a0:a0 + (1 << 15)]
+        ok = jj < n
+        jj = torch.where(ok, jj, torch.zeros_like(jj))
+        r2 = 0.0
+        for ax in range(3):
+            d = x[ax, a0:a0 + (1 << 15), None] - x[ax][jj]
+            d = d - torch.round(d / boxL[ax]) * boxL[ax]
+            r2 = r2 + d * d
+        rsq_in += int(((r2 < cutsq) & ok).sum())
+    return rsq_in
+
+
 def _npt_state(cfg, prec, replicate, stretch=(1.0, 1.0, 1.01)):
     """A rhodo_npt.yaml engine on the card and a box stretched about its
     centre (positions with it), so the kernels read lengths that no host
@@ -1685,18 +1723,7 @@ def _npt_kernels_at(sim, x, boxL, label, time_it):
             for e in ("evdwl", "ecoul"):
                 _npt_compare(label, f"nlist_pair {e}", getattr(rk, e),
                              getattr(rp, e), etol, {})
-    rsq_in = 0
-    j = nk.idx.long()
-    for a0 in range(0, n, 1 << 15):
-        jj = j[a0:a0 + (1 << 15)]
-        ok = jj < n
-        jj = torch.where(ok, jj, torch.zeros_like(jj))
-        r2 = 0.0
-        for ax in range(3):
-            d = x[ax, a0:a0 + (1 << 15), None] - x[ax][jj]
-            d = d - torch.round(d / boxL[ax]) * boxL[ax]
-            r2 = r2 + d * d
-        rsq_in += int(((r2 < sim.pair.cutsq_max) & ok).sum())
+    rsq_in = list_pairs_in_cutoff(x, boxL, nk, sim.pair.cutsq_max)
     fs = x.element_size()
     accs = torch.empty((), dtype=acc).element_size()
     work["nlist_pair"] = (entries * 5 + n * (3 * fs + fs + 4 + 4)
@@ -2328,6 +2355,49 @@ def phase_nlist_rhodo(shake_rec: dict, nlist_rec: dict, cell: dict,
     return big
 
 
+def record_run(label, sim, r, need):
+    """A deck built on the card in f64, held to the JAX package's record r
+    (tests/goldens/torch_nlist.json, torch_ewald.json): the atoms and the
+    list sizing, the step-0 forces, every row, the final positions (of the
+    box length), images and chain (where the record has one) within
+    NLIST_RECORD_TOL, every kernel of ``need`` launched since the counts
+    were last set to 0."""
+    spec = dict(cutneigh=sim.spec.cutneigh, kmax=sim.spec.kmax,
+                nc=None if sim.spec.nc is None else list(sim.spec.nc))
+    if sim.n_atoms != r["n_atoms"] or spec != r["spec"]:
+        raise AssertionError(f"{label}: atoms or list differ from the record")
+    pick = np.asarray(r["atoms"])
+    f0 = sim.get_atoms()["f"][pick]
+    rows = sim.run(r["steps"], thermo_every=r["thermo_every"], log=False)
+    at = sim.get_atoms()
+    ref_f = np.asarray(r["f0"])
+    L = float(np.max(sim.box.lengths))
+    errs = {"f0": float(np.abs(f0 - ref_f).max() / np.abs(ref_f).max()),
+            "x_end": float(np.abs(at["x"][pick] - np.asarray(r["x_end"]))
+                           .max()) / L}
+    therm = np.asarray(r.get("therm_end", []))
+    if therm.size:
+        errs["therm"] = float(np.abs(sim.state.therm.cpu().numpy()
+                                     - therm).max() / np.abs(therm).max())
+    for row, ref in zip(rows, r["rows"], strict=True):
+        for k in ("temp", "evdwl", "ecoul", "elong", "emol", "etotal",
+                  "press"):
+            if ref[k] != 0.0 or row[k] != 0.0:
+                errs[f"{k}@{ref['step']}"] = scalar_rel(row[k], ref[k])
+    images = bool(np.array_equal(at["image"][pick],
+                                 np.asarray(r["image_end"])))
+    ran = dict(ops.LAUNCHES)
+    print(f"{label} f64, {sim.n_atoms} atoms, K {sim.spec.kmax}, cells "
+          f"{sim.spec.nc}: worst row "
+          f"{max(v for k, v in errs.items() if '@' in k):.3e}, "
+          + ", ".join(f"{k} {errs[k]:.3e}" for k in errs if "@" not in k)
+          + f", images equal {images} (tol {NLIST_RECORD_TOL})")
+    bad = {k: v for k, v in errs.items() if not v <= NLIST_RECORD_TOL}
+    if bad or not images or any(ran[k] <= 0 for k in need):
+        raise AssertionError(f"{label} disagrees with the JAX record or "
+                             f"skipped a kernel: {bad}")
+
+
 def phase_nlist_record(rec: dict):
     """The neighbor-list engine in f64 against the JAX package's record
     (tests/goldens/torch_nlist.json): the jittered cristobalite at 2x2x2
@@ -2346,49 +2416,14 @@ def phase_nlist_record(rec: dict):
             cfg.update(engine="nlist", precision="double",
                        replicate=r["replicate"])
             sim = build_simulation(cfg, device="cuda")
-        spec = dict(cutneigh=sim.spec.cutneigh, kmax=sim.spec.kmax,
-                    nc=None if sim.spec.nc is None else list(sim.spec.nc))
-        if (sim.n_atoms != r["n_atoms"] or spec != r["spec"]
-                or list(sim.kspace.grid) != r["pppm_grid"]
+        if (list(sim.kspace.grid) != r["pppm_grid"]
                 or sim.kspace.g_ewald != r["g_ewald"]):
-            raise AssertionError(f"nlist record {key}: atoms, list, mesh or "
-                                 "g_ewald differ from the record")
-        pick = np.asarray(r["atoms"])
-        f0 = sim.get_atoms()["f"][pick]
-        rows = sim.run(r["steps"], thermo_every=r["thermo_every"],
-                       log=False)
-        at = sim.get_atoms()
-        ref_f = np.asarray(r["f0"])
-        L = float(np.max(sim.box.lengths))
-        errs = {"f0": float(np.abs(f0 - ref_f).max() / np.abs(ref_f).max()),
-                "x_end": float(np.abs(at["x"][pick] - np.asarray(r["x_end"]))
-                               .max()) / L}
-        therm = np.asarray(r["therm_end"])
-        if therm.size:
-            errs["therm"] = float(np.abs(sim.state.therm.cpu().numpy()
-                                         - therm).max()
-                                  / np.abs(therm).max())
-        for row, ref in zip(rows, r["rows"], strict=True):
-            for k in ("temp", "evdwl", "ecoul", "elong", "emol", "etotal",
-                      "press"):
-                if ref[k] != 0.0 or row[k] != 0.0:
-                    errs[f"{k}@{ref['step']}"] = scalar_rel(row[k], ref[k])
-        images = bool(np.array_equal(at["image"][pick],
-                                     np.asarray(r["image_end"])))
-        ran = dict(ops.LAUNCHES)
+            raise AssertionError(f"nlist record {key}: mesh or g_ewald "
+                                 "differ from the record")
         need = NLIST_PATH + NLIST_PPPM + ("nlist_build",)
         if key == "rhodo":
             need += BONDED_KERNELS + NLIST_SHAKE + ("nhc_scale",)
-        print(f"[nlist record] {key} f64, {sim.n_atoms} atoms, K "
-              f"{sim.spec.kmax}, cells {sim.spec.nc}, mesh "
-              f"{sim.kspace.grid}: worst row "
-              f"{max(v for k, v in errs.items() if '@' in k):.3e}, "
-              + ", ".join(f"{k} {errs[k]:.3e}" for k in errs if "@" not in k)
-              + f", images equal {images} (tol {NLIST_RECORD_TOL})")
-        bad = {k: v for k, v in errs.items() if not v <= NLIST_RECORD_TOL}
-        if bad or not images or any(ran[k] <= 0 for k in need):
-            raise AssertionError(f"nlist record {key} disagrees with the JAX "
-                                 f"record or skipped a kernel: {bad}")
+        record_run(f"[nlist record] {key}", sim, r, need)
         del sim
         torch.cuda.empty_cache()
 
@@ -2421,11 +2456,391 @@ def phase_buck_small():
           f"(dense K {sim.spec.kmax}) x {steps} steps in {wall:.3f} s, "
           f"{1e3 * wall / steps:.4f} ms/step; rows " + ", ".join(
               f"{r['etotal']:.8g} @ {r['step']}" for r in rows)
-          + f"; drift {drift:.3e}/atom (gate {gate}); launches {ran}")
+          + f"; drift {drift:.6g}/atom (gate {gate}); launches {ran}")
     if not drift <= gate:
         raise AssertionError(f"buck_small.yaml: drift {drift:.3e}/atom > "
                              f"gate {gate}")
     return dict(launches=ran, ms_step=1e3 * wall / steps)
+
+
+# ---- Ewald (K11a, K11b) and coul/cut on the neighbor-list Simulation ----
+
+EWALD_PATH = NLIST_PATH + ("ewald_sk", "ewald_force")
+# kernel against plain version on the card.  f64: 1e-12 relative.  f32:
+# energy and virial the PPPM kernels' 1e-5; forces 3e-4 of the largest
+# force, not TOL's 1e-4: each force is a sum over K = 31,248 k vectors
+# whose terms are ~10^2 times the sum (the jittered crystal's forces are
+# small), summed in f32 in another order by each (the kernel per thread in
+# K ranges, the plain version through cuBLAS), so each sits ~4e-5 of
+# max|f| from the f64 result on the same positions (printed) and the two
+# differ by up to twice that.
+EWALD_TOL = {torch.float32: (3e-4, 1e-5), torch.float64: (1e-12, 1e-12)}
+# per (atom, k) pair: the phase 5 (3 multiplies, 2 adds), sine and cosine
+# 2 (counted as one operation each, as exp is), then K11a's accumulation
+# 4 (q cos, q sin, two adds) or K11b's 9 (s wre - c wim 3, three
+# multiply-adds 6); per k vector K11a's epilogue 20 (the two partial sums,
+# |S|^2 3, ug, qqrd2e, six virial products and seven sums)
+# the f32 run of cristobalite_coul_cut.yaml against its f64 run on the
+# card (_coul_cut_drift_f64): a deck that conserves no energy loses it at
+# a rate that depends on the trajectory, and the f32 and f64 trajectories
+# part as rounding grows: 2% of the f64 run's loss per atom over the 100
+# steps bounds how far the two may part (both are printed)
+COUL_CUT_DRIFT_REL = 0.02
+OPS_EWALD_SK_PAIR = 11
+OPS_EWALD_FORCE_PAIR = 16
+OPS_EWALD_SK_K = 20
+
+
+def _ewald_work(ew, n, flt, acc):
+    """(bytes, operations) of K11a and K11b at n atoms (each input read
+    once, each output written once)."""
+    K = ew.kvecs.shape[0]
+    fs = torch.empty((), dtype=flt).element_size()
+    accs = torch.empty((), dtype=acc).element_size()
+    sk = (n * 4 * fs + K * (4 * fs + 7 * accs) + K * (2 * accs + 2 * fs)
+          + 7 * accs, n * K * OPS_EWALD_SK_PAIR + K * OPS_EWALD_SK_K)
+    force = (n * 4 * fs + K * 5 * fs + 3 * n * accs,
+             n * K * OPS_EWALD_FORCE_PAIR + 4 * n)
+    return {"ewald_sk": sk, "ewald_force": force}
+
+
+def _ewald_compare(label, ew, x, q):
+    """Ewald.compute on the card (K11a, K11b) against ewald_compute_plain
+    on the same card: forces, elong, its reciprocal part alone (the same
+    solver with no self term, as _k10_compare holds K10's) and the
+    virial; in f32 each one's forces against the f64 plain version on the
+    same positions too (printed).  Returns the largest force
+    difference."""
+    import dataclasses
+
+    from lammps_buck_intel_tpu_torch.models.kspace.ewald import \
+        ewald_compute_plain
+
+    ftol, etol = EWALD_TOL[x.dtype]
+    rk = ew.compute(x, q, eflag=True, vflag=True)
+    rp = ewald_compute_plain(ew, x, q, True, True)
+    if x.dtype == torch.float32:
+        e64 = dataclasses.replace(ew, acc_dtype=torch.float64, _consts={})
+        f64 = torch.stack(ewald_compute_plain(e64, x.double(), q.double(),
+                                              False, False).f)
+        print(f"[K11] {label}: against the f64 plain version on the same "
+              f"positions, forces of the kernels "
+              f"{rel_err(torch.stack(rk.f).double(), f64):.3e}, of the f32 "
+              f"plain version {rel_err(torch.stack(rp.f).double(), f64):.3e}")
+        del f64
+    recip = dataclasses.replace(ew, qsum=0.0, qsqsum=0.0, _consts={})
+    ek_k = recip.compute(x, q, eflag=True, vflag=False).elong
+    ek_p = ewald_compute_plain(recip, x, q, True, False).elong
+    fk, fp = torch.stack(rk.f), torch.stack(rp.f)
+    errs = {"f": rel_err(fk, fp), "elong": scalar_rel(rk.elong, rp.elong),
+            "ek": scalar_rel(ek_k, ek_p),
+            "virial": rel_err(rk.virial, rp.virial)}
+    print(f"[K11] {label}: K {ew.kvecs.shape[0]} kmax {ew.kmax} g_ewald "
+          f"{ew.g_ewald:.6f}; forces {errs['f']:.3e} of max|f| "
+          f"{float(fp.abs().max()):.4g}, elong {errs['elong']:.3e} "
+          f"({float(rk.elong):.10g} vs {float(rp.elong):.10g}), its "
+          f"reciprocal part {errs['ek']:.3e} ({float(ek_k):.10g} vs "
+          f"{float(ek_p):.10g}), virial {errs['virial']:.3e} (tol {ftol}, "
+          f"{etol})")
+    if not (errs["f"] <= ftol and errs["elong"] <= etol
+            and errs["ek"] <= etol and errs["virial"] <= etol):
+        raise AssertionError(f"Ewald {label} disagrees with its plain "
+                             "version")
+    return float((fk - fp).abs().max())
+
+
+def phase_ewald_kernels():
+    """K11a and K11b against ewald_compute_plain on the card, f32 and f64,
+    on cristobalite_ewald.yaml's 11,520 atoms of the jittered crystal (K
+    31,248); in f32 each kernel timed alone (CUDA events and the device
+    trace), the plain version (which is also the matmul route: the phase
+    and force products through cuBLAS, torch's cos and sin; it computes
+    both kernels' work in one pass) and the bound of each kernel."""
+    from lammps_buck_intel_tpu_torch.models.kspace.ewald import \
+        ewald_compute_plain
+    from lammps_buck_intel_tpu_torch.ops import ewald as ewald_ops
+
+    out = {}
+    for prec in ("double", "single"):
+        sim = _nlist_sim("cristobalite_ewald.yaml", prec, jitter=0.1)
+        ew, x, q = sim.kspace, sim.state.x, sim.q
+        err = _ewald_compare(f"cristobalite_ewald {sim.n_atoms} atoms/"
+                             f"{prec}", ew, x, q)
+        if prec == "single":
+            acc = ew.acc_dtype
+            c = ew.consts(x.device, x.dtype)
+            xs = tuple(x.unbind(0))
+            sk = ewald_ops.ewald_sk(xs, q, c, ew.qqrd2e, acc)
+            fns = {"ewald_sk": lambda: ewald_ops.ewald_sk(
+                       xs, q, c, ew.qqrd2e, acc),
+                   "ewald_force": lambda: ewald_ops.ewald_force(
+                       xs, q, c, sk.wre, sk.wim, ew.qqrd2e, acc)}
+            plain_ms = cuda_ms(lambda: ewald_compute_plain(ew, x, q, False,
+                                                           False), reps=3)
+            work = _ewald_work(ew, sim.n_atoms, x.dtype, acc)
+            for name, fn in fns.items():
+                ms, dev_ms = cuda_ms(fn), device_ms(fn)
+                b_ms, b_by = bound(*work[name])
+                print(f"[K11] {name} f32 at {sim.n_atoms} atoms, K "
+                      f"{ew.kvecs.shape[0]}: kernel {ms:.4f} ms (device "
+                      f"{dev_ms:.4f}), bound {b_ms:.5f} ms ({b_by}; "
+                      f"{work[name][1]:.4g} operations, {work[name][0]:,} "
+                      "bytes)")
+                out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 max_abs_err=err, library_ms=None)
+            print(f"[K11] matmul route (ewald_compute_plain, force-only: "
+                  f"cuBLAS phase and force products, torch cos / sin, both "
+                  f"kernels' work): {plain_ms:.4f} ms; the two kernels "
+                  f"{out['ewald_sk']['ms'] + out['ewald_force']['ms']:.4f} "
+                  "ms")
+        del sim, ew, x, q
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ewald_record(rec: dict):
+    """cristobalite_ewald.yaml at 1x1x2 (2,880 atoms, K 8,820) and
+    cristobalite_coul_cut.yaml at one copy (1,440 atoms) of the jittered
+    crystal, f64, 20 steps on the card, against the JAX package's record:
+    the k set's size, g_ewald and self energy too."""
+    for key in ("ewald_traj", "coul_cut_traj"):
+        r = rec[key]
+        ops.reset_launches()
+        sim = _nlist_sim(r["deck"], "double", r["replicate"], jitter=r["amp"])
+        need = NLIST_PATH
+        if key == "ewald_traj":
+            ew = sim.kspace
+            if ((ew.g_ewald, list(ew.kmax), ew.kvecs.shape[0])
+                    != (r["g_ewald"], r["kmax"], r["n_k"])
+                    or ew.elong_self != r["elong_self"]):
+                raise AssertionError("ewald record: the k set differs")
+            need = EWALD_PATH
+        record_run(f"[ewald record] {key}", sim, r, need)
+        del sim
+        torch.cuda.empty_cache()
+
+
+def _deck_run(name, step0, gate, need, rec_spec):
+    """A deck unedited through build_simulation and run on the card in
+    f32, launch counts set to 0 just before and read just after: the
+    Simulation engine, the JAX list sizing, step 0 under the _STEP0_FIELDS
+    rule, finite rows, the NVE drift max |etotal - e0| / N under ``gate``
+    (the caller's, where None), every kernel of ``need`` launched.
+    Returns the launches, ms/step, the step-0 row, the drift and the
+    engine."""
+    from lammps_buck_intel_tpu_torch.integrate import Simulation
+
+    cfg = load_deck(name)
+    ops.reset_launches()
+    sim = build_simulation(cfg, device="cuda")
+    steps = int(cfg["run"])
+    rows = sim.run(steps, thermo_every=int(cfg["thermo"]), log=False)
+    ran = dict(ops.LAUNCHES)
+    n = sim.n_atoms
+    missing = [k for k in need if ran[k] <= 0]
+    spec = dict(cutneigh=sim.spec.cutneigh, kmax=sim.spec.kmax,
+                nc=list(sim.spec.nc))
+    if (not isinstance(sim, Simulation) or missing
+            or rows[-1]["step"] != steps
+            or spec != {k: rec_spec[k] for k in spec}):
+        raise AssertionError(f"{name}: {type(sim).__name__}, {n} atoms, spec "
+                             f"{spec} (record {rec_spec}), kernels not "
+                             f"launched {missing}")
+    row = rows[0]
+    step0_check(name, row, step0, n)
+    for r in rows:
+        for k in ("temp", "epair", "etotal", "press"):
+            if not np.isfinite(r[k]):
+                raise AssertionError(f"{name}: non-finite {k}")
+    drift = max(abs(r["etotal"] - row["etotal"]) for r in rows) / n
+    wall = sim.timings["run"]
+    print(f"[ewald deck] {name}: {n} atoms x {steps} steps in {wall:.3f} s "
+          f"-> {n * steps / wall:,.0f} atom-steps/s, "
+          f"{1e3 * wall / steps:.4f} ms/step (thermo every {cfg['thermo']}); "
+          f"K {sim.spec.kmax}, cells {sim.spec.nc}; step 0 temp "
+          f"{row['temp']:.6g} ecoul {row['ecoul']:.8g} elong "
+          f"{row['elong']:.8g} press {row['press']:.6g} (record "
+          f"{step0['temp']:.6g}, {step0['ecoul']:.8g}, {step0['elong']:.8g},"
+          f" {step0['press']:.6g}); rows " + ", ".join(
+              f"{r['etotal']:.8g} @ {r['step']}" for r in rows)
+          + f"; drift {drift:.6g}/atom (gate {gate}); launches {ran}")
+    if gate is not None and not drift <= gate:
+        raise AssertionError(f"{name}: drift {drift:.3e}/atom > gate {gate}")
+    return dict(launches=ran, ms_step=1e3 * wall / steps, row=row, sim=sim,
+                drift=drift)
+
+
+def phase_ewald_deck(rec: dict):
+    """cristobalite_ewald.yaml unedited at 11,520 atoms, 500 steps, f32
+    (the binned build K9a, K9b's coul/long branch, K11a and K11b): the
+    record's step-0 row, the reciprocal part of elong (elong - elong_self
+    within RECIP_TOL of the record's, the self term to 1e-12), the k set
+    of the record, and the NVE drift under long_silica_pppm.json's gate
+    (the same chemistry and units: the JAX package has no buck_coul_long
+    golden)."""
+    r0 = rec["ewald_step0"]
+    gate = load_golden("long_silica_pppm.json")["drift_gate"]
+    r = _deck_run("cristobalite_ewald.yaml", r0["row"], gate,
+                  EWALD_PATH + ("nlist_build",), r0["spec"])
+    sim = r.pop("sim")
+    ew = sim.kspace
+    if ((ew.g_ewald, list(ew.kmax), ew.kvecs.shape[0])
+            != (r0["g_ewald"], r0["kmax"], r0["n_k"])):
+        raise AssertionError("cristobalite_ewald.yaml: the k set differs "
+                             "from the record's")
+    recip_check("cristobalite_ewald.yaml", r["row"], ew.elong_self, r0)
+    del sim, ew
+    torch.cuda.empty_cache()
+    return r
+
+
+def _coul_cut_drift_f64(name: str, r0: dict) -> float:
+    """The drift gate of cristobalite_coul_cut.yaml.  The truncated,
+    unshifted Coulomb sum conserves no energy on the ideal crystal: the
+    JAX package's own f64 run at 11,520 atoms loses 7.93 eV an atom in
+    100 steps (torch_ewald.json), far over the silica gate of 5e-3, and
+    the loss grows with the system, so that record is no gate for the
+    92,160-atom deck.  Here the port runs the deck in f64 on the card (1)
+    at the record's 11,520 atoms, every row and the drift held to the
+    record within NLIST_RECORD_TOL, then (2) at the deck's full size: that
+    run's drift is the gate of the deck's f32 run (returned)."""
+    drifts = []
+    for rep in (r0["recorded_at"]["replicate"], None):
+        cfg = load_deck(name)
+        cfg["precision"] = "double"
+        if rep is not None:
+            cfg["replicate"] = list(rep)
+        sim = build_simulation(cfg, device="cuda")
+        rows = sim.run(int(cfg["run"]), thermo_every=int(cfg["thermo"]),
+                       log=False)
+        n = sim.n_atoms
+        drifts.append(max(abs(r["etotal"] - rows[0]["etotal"])
+                          for r in rows) / n)
+        if rep is not None:
+            errs = {f"{k}@{ref['step']}": scalar_rel(row[k], ref[k])
+                    for row, ref in zip(rows, r0["recorded_at"]["rows"],
+                                        strict=True)
+                    for k in ("temp", "evdwl", "ecoul", "etotal", "press")}
+            errs["drift"] = scalar_rel(drifts[-1], r0["drift"])
+            print(f"[ewald deck] {name} f64 at {n} atoms on the card: drift "
+                  f"{drifts[-1]:.10g} eV/atom (record {r0['drift']:.10g}); "
+                  f"worst row {max(errs.values()):.3e} (tol "
+                  f"{NLIST_RECORD_TOL})")
+            if not max(errs.values()) <= NLIST_RECORD_TOL:
+                raise AssertionError(f"{name} f64 at {n} atoms disagrees "
+                                     "with the JAX record")
+        else:
+            print(f"[ewald deck] {name} f64 at {n} atoms on the card: drift "
+                  f"{drifts[-1]:.10g} eV/atom, etotal/N "
+                  + ", ".join(f"{r['etotal'] / n:.6f} @ {r['step']}"
+                              for r in rows))
+        del sim
+        torch.cuda.empty_cache()
+    return drifts[-1]
+
+
+def phase_coul_cut(rec: dict):
+    """The coul/cut branch of K1 and K9b against their plain versions at
+    cristobalite_coul_cut.yaml's 92,160 atoms of the jittered crystal (K1
+    on the cell engine's grid of the same deck, f32, and timed there; K9b
+    on the list engine's list, f32 and f64); K9b timed there beside its
+    coul/long
+    branch on the same list (the same coefficients with g_ewald 0.3);
+    then the deck unedited at 92,160 atoms, 100 steps, f32: the record's
+    step-0 row scaled from 11,520 atoms, elong 0 with the Coulomb energy
+    in ecoul, and the drift within COUL_CUT_DRIFT_REL of the deck's f64
+    run on the card (``_coul_cut_drift_f64``)."""
+    from lammps_buck_intel_tpu_torch.models.pair import driver
+    from lammps_buck_intel_tpu_torch.models.pair.styles import PairConfig
+
+    name = "cristobalite_coul_cut.yaml"
+    cfg = load_deck(name)
+    sim, st = jittered_state(dict(cfg, engine="cellpair"), "single")
+    err = _k1_compare(f"coul_cut {sim.grid.n_atoms} atoms/single", sim.pair,
+                      sim.grid, sim.box, st, sim.precision.acc)
+    k1 = dict(_k1_time("coul_cut", sim, st), max_abs_err=err)
+    del sim, st
+    torch.cuda.empty_cache()
+    out = {"k1": k1}
+    for prec in ("double", "single"):
+        sim = _nlist_sim(name, prec, jitter=0.1)
+        x, boxL = sim.state.x, sim._boxL
+        nl = sim._build(x)
+        ftol, etol = TOL[x.dtype]
+        acc = sim.precision.acc
+        args = (sim.pair, x, sim.typ, sim.q, boxL, nl)
+        for ev in (False, True):
+            kw = dict(eflag=ev, acc_dtype=acc, use_special=False)
+            rk = driver.compute_pair(*args, **kw)
+            rp = driver.compute_pair_plain(*args, **kw)
+            errs = {"f": rel_err(torch.stack(rk[:3]), torch.stack(rp[:3])),
+                    "virial": rel_err(rk.virial, rp.virial)}
+            if ev:
+                errs.update(evdwl=scalar_rel(rk.evdwl, rp.evdwl),
+                            ecoul=scalar_rel(rk.ecoul, rp.ecoul))
+            print(f"[K9b] coul_cut {sim.n_atoms} atoms/{prec} ev={ev}: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (tol {ftol}, {etol})")
+            if not (errs["f"] <= ftol
+                    and all(v <= etol for k, v in errs.items() if k != "f")):
+                raise AssertionError(f"K9b coul/cut {prec} disagrees with "
+                                     "its plain version")
+            if not ev:
+                err = float((torch.stack(rk[:3])
+                             - torch.stack(rp[:3])).abs().max())
+        if prec == "single":
+            n = sim.n_atoms
+            kw = dict(eflag=False, acc_dtype=acc, use_special=False)
+            long = sim.pair.replace(
+                cfg=PairConfig("buck/coul/long", "buck", "long", "cut"),
+                g_ewald=0.3)
+
+            def kern():
+                return driver.compute_pair(*args, **kw)
+
+            ms, dev_ms = cuda_ms(kern), device_ms(kern)
+            plain_ms = cuda_ms(lambda: driver.compute_pair_plain(*args, **kw),
+                               reps=3)
+            long_dev = device_ms(lambda: driver.compute_pair(
+                long, *args[1:], **kw))
+            entries = int(torch.minimum(nl.nnei, torch.tensor(
+                nl.idx.shape[1], device=nl.nnei.device)).sum())
+            pairs = list_pairs_in_cutoff(x, boxL, nl, sim.pair.cutsq_max)
+            fs = x.element_size()
+            b_ms, b_by = bound(entries * 5 + n * (3 * fs + fs + 4 + 4)
+                               + 3 * n * 4,
+                               entries * OPS_LIST_ENTRY + pairs * (
+                                   OPS_PAIR[("buck", "cut")] - 9 + 15))
+            print(f"[K9b] nlist_pair coul/cut f32 at {n} atoms, K "
+                  f"{sim.spec.kmax} ({entries / n:.1f} entries, "
+                  f"{pairs / n:.1f} in the cutoff an atom): kernel {ms:.4f} "
+                  f"ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}); the coul/long branch on the "
+                  f"same list: device {long_dev:.4f} ms")
+            out.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                       library_ms=None, long_device_ms=long_dev)
+        del sim, x, nl, args
+        torch.cuda.empty_cache()
+    r0 = rec["coul_cut_step0"]
+    d64 = _coul_cut_drift_f64(name, r0)
+    r = _deck_run(name, r0["row"], None, NLIST_PATH + ("nlist_build",),
+                  r0["spec"])
+    d32 = r["drift"]
+    print(f"[ewald deck] {name}: f32 drift {d32:.6g} eV/atom against the "
+          f"f64 run's {d64:.6g} at the same size (|d| {abs(d32 - d64):.3g}, "
+          f"gate {COUL_CUT_DRIFT_REL} of it)")
+    if not abs(d32 - d64) <= COUL_CUT_DRIFT_REL * d64:
+        raise AssertionError(f"{name}: f32 drift {d32:.6g} is not the f64 "
+                             f"run's {d64:.6g}")
+    sim = r.pop("sim")
+    if r["row"]["elong"] != 0.0 or sim.kspace is not None:
+        raise AssertionError(f"{name}: a k-space term on a coul/cut deck")
+    del sim
+    torch.cuda.empty_cache()
+    out.update(launches=r["launches"], ms_step=r["ms_step"])
+    return out
 
 
 def main():
@@ -2501,6 +2916,14 @@ def main():
                              rk["cellpair_ljcharmm"]["device_ms"])
     phase_nlist_record(nlist_rec)
     small = phase_buck_small()
+    torch.cuda.empty_cache()
+
+    # Ewald (K11a, K11b) and coul/cut on the neighbor-list Simulation
+    k11 = phase_ewald_kernels()
+    ewald_rec = load_golden("torch_ewald.json")
+    phase_ewald_record(ewald_rec)
+    ewd = phase_ewald_deck(ewald_rec)
+    cut = phase_coul_cut(ewald_rec)
 
     def row(name, source, replaces, launch_key, r, launches=launches):
         return dict(name=name, route="cuda", source=f"{SRC}/{source}",
@@ -2582,10 +3005,24 @@ def main():
             "nlist_dense", k9c, small["launches"]),
         row("pppm_compute_generic", "pppm.cu", "models/kspace/pppm.py:570",
             "pppm_deposit", ncris["k10"], ncris["launches"]),
+        # Ewald: timed on the jittered 11,520-atom crystal, launched on
+        # cristobalite_ewald.yaml's run; K9b's coul/cut branch timed and
+        # launched on cristobalite_coul_cut.yaml's 92,160 atoms
+        row("ewald_sk", "ewald.cu", "models/kspace/ewald.py:185", "ewald_sk",
+            k11["ewald_sk"], ewd["launches"]),
+        row("ewald_force", "ewald.cu", "models/kspace/ewald.py:185",
+            "ewald_force", k11["ewald_force"], ewd["launches"]),
+        row("nlist_pair_coul_cut", "nlist.cu", "models/pair/driver.py:78",
+            "nlist_pair", cut, cut["launches"]),
     ]
     print(f"[K9c] torch.cdist + topk at 500 atoms: "
           f"{k9c['cdist_topk_ms']:.4f} ms; [K9b] rhodo_nve_nlist x6x6x4 "
           f"device {nrho['k9b_device_ms']:.4f} ms")
+    print(f"[K9b] coul/cut at 92,160 atoms: device {cut['device_ms']:.4f} "
+          f"ms, the coul/long branch on the same list "
+          f"{cut['long_device_ms']:.4f} ms; cristobalite_ewald.yaml "
+          f"{ewd['ms_step']:.4f} ms/step, cristobalite_coul_cut.yaml "
+          f"{cut['ms_step']:.4f} ms/step")
     print(f"[K1] buck_big buck branch: {json.dumps(k1['buck_big'])}")
     print(f"[K2] buck_big: {json.dumps(k2_big)}")
     print(json.dumps({"kernels": kernels}))

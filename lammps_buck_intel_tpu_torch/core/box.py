@@ -44,6 +44,18 @@ class Box(NamedTuple):
         return np.array([[lx, 0.0, 0.0], [0.0, ly, 0.0], [0.0, 0.0, lz]])
 
     @property
+    def h_inv(self) -> np.ndarray:
+        """(3,3) inverse cell matrix, the JAX package's closed form with
+        zero tilts (so the Ewald k set is the same to the bit)."""
+        lx, ly, lz = (float(v) for v in self.lengths)
+        xy = xz = yz = 0.0
+        return np.array([
+            [1.0 / lx, -xy / (lx * ly), (xy * yz - ly * xz) / (lx * ly * lz)],
+            [0.0, 1.0 / ly, -yz / (ly * lz)],
+            [0.0, 0.0, 1.0 / lz],
+        ])
+
+    @property
     def perp_widths(self) -> np.ndarray:
         """(3,) distances between opposite faces, by the same formula as
         the JAX package so both size their cell grids identically."""

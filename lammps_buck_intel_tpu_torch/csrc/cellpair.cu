@@ -4,11 +4,13 @@
 // Replaces: lammps_buck_intel_tpu/models/pair/cellpair.py
 //   compute_cell_tiles_newton (:291) with styles.py pair_terms (:300),
 //   buck: F = A exp(-r/rho) / rho - 6 C / r^7, E = A exp(-r/rho) - C / r^6
-//   - offset, strict cut test rsq < cut_ljsq; coul/long (the COUL
+//   - offset, strict cut test rsq < cut_ljsq; coul/long (COUL == kCoulLong
 //   variant): grij = g_ewald r, expm2 = exp(-grij^2), erfc by the
 //   Abramowitz & Stegun 5-term polynomial with the JAX constants (not
 //   erfcf), prefactor = qqrd2e qi qj / r, F = prefactor (erfc + 2/sqrt(pi)
 //   grij expm2), E = prefactor erfc, strict cut test rsq < cut_coulsq;
+//   coul/cut (COUL == kCoulCut, styles.py :402-404): F = E = qqrd2e qi qj
+//   / r, strict cut test rsq < cut_coulsq, no erfc;
 //   lj/charmm (VDW = 1, styles.py :343-360): forcelj = lj1 r^-12 - lj2
 //   r^-6, philj = lj3 r^-12 - lj4 r^-6, and for rsq > inner_sq the energy
 //   switch F = forcelj switch1 + philj switch2, E = philj switch1, which
@@ -16,8 +18,8 @@
 //   special bonds (SPECIAL, cellpair.py :448-461 and styles.py :412-419):
 //   a pair whose j atom is a 1-2/1-3/1-4 partner of atom i takes
 //   special_lj[code] on its LJ term and keeps prefactor (erfc + ... -
-//   (1 - special_coul[code])) of its Coulomb term, because k-space holds
-//   every pair.
+//   (1 - special_coul[code])) of its coul/long term, because k-space holds
+//   every pair, or special_coul[code] of its coul/cut term.
 //
 // The per-pair expressions live in pair_terms.cuh, shared with the
 // neighbor-list kernel (csrc/nlist.cu).
@@ -35,10 +37,10 @@
 // partial[cell][8] = (evdwl, ecoul, vxx, vyy, vzz, vxy, vxz, vyz) in acc;
 // the caller sums the partials over cells in a second, deterministic pass.
 // ecoul is a sum of large terms of both signs, so it stays in acc like
-// evdwl.  The buck-only variant (COUL = false) compiles to the kernel of
-// the buck decks with no Coulomb work; VDW and SPECIAL are template
-// constants too, so the buck and coul/long kernels carry none of the
-// lj/charmm or special-bond code.
+// evdwl.  The buck-only variant (COUL = kCoulNone) compiles to the kernel
+// of the buck decks with no Coulomb work; VDW and SPECIAL are template
+// constants too, so the buck and Coulomb kernels carry none of the
+// lj/charmm or special-bond code, and coul/cut none of the erfc.
 //
 // Special bonds.  The JAX package gathers each slot's partner ids per
 // rebin and compares them with every candidate's id.  Here the partner
@@ -72,6 +74,7 @@
 
 namespace {
 
+using pairterms::kCoulNone;
 using pairterms::kNcoef;
 constexpr int kMaxThreads = 1024;
 
@@ -82,8 +85,9 @@ __device__ __forceinline__ A warp_sum(A v) {
   return v;
 }
 
-// VDW: 0 = buck, 1 = lj/charmm.
-template <typename T, typename A, bool EV, bool COUL, int VDW, bool SPECIAL>
+// COUL: pairterms::kCoulNone / kCoulLong / kCoulCut; VDW: 0 = buck, 1 =
+// lj/charmm.
+template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL>
 __global__ void cellpair_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const T* __restrict__ z, const T* __restrict__ q,
@@ -231,7 +235,7 @@ __global__ void cellpair_kernel(
   }
 }
 
-template <typename T, typename A, bool EV, bool COUL, int VDW, bool SPECIAL>
+template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL>
 int launch(const void* x, const void* y, const void* z, const void* q,
            const void* typ, const void* aid, const void* coef, int ntypes,
            int n, int ncx, int ncy, int ncz, int cap, int reach_z, double Lx,
@@ -278,17 +282,27 @@ int launch(const void* x, const void* y, const void* z, const void* q,
       Ly, Lz, g_ewald, qqrd2e, inner_sq, denom_lj, special, nspecial,      \
       special_fac, fx, fy, fz, partial, s
 
+template <typename T, typename A, bool EV, int COUL>
+int dispatch_vdw(int vdw, int has_special, CELLPAIR_PARAMS) {
+  if (vdw == 0)
+    return has_special ? launch<T, A, EV, COUL, 0, true>(CELLPAIR_ARGS)
+                       : launch<T, A, EV, COUL, 0, false>(CELLPAIR_ARGS);
+  // lj/charmm exists only with a Coulomb term (styles.py check_ported)
+  if constexpr (COUL == kCoulNone) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return has_special ? launch<T, A, EV, COUL, 1, true>(CELLPAIR_ARGS)
+                       : launch<T, A, EV, COUL, 1, false>(CELLPAIR_ARGS);
+  }
+}
+
 template <typename T, typename A, bool EV>
 int dispatch_variant(int coul, int vdw, int has_special, CELLPAIR_PARAMS) {
-  // lj/charmm exists only with coul/long (styles.py check_ported)
-  if (vdw != 0 && !coul) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((vdw ? 4 : 0) + (has_special ? 2 : 0) + (coul ? 1 : 0)) {
-    case 0: return launch<T, A, EV, false, 0, false>(CELLPAIR_ARGS);
-    case 1: return launch<T, A, EV, true, 0, false>(CELLPAIR_ARGS);
-    case 2: return launch<T, A, EV, false, 0, true>(CELLPAIR_ARGS);
-    case 3: return launch<T, A, EV, true, 0, true>(CELLPAIR_ARGS);
-    case 5: return launch<T, A, EV, true, 1, false>(CELLPAIR_ARGS);
-    default: return launch<T, A, EV, true, 1, true>(CELLPAIR_ARGS);
+  switch (coul) {
+    case 0: return dispatch_vdw<T, A, EV, 0>(vdw, has_special, CELLPAIR_ARGS);
+    case 1: return dispatch_vdw<T, A, EV, 1>(vdw, has_special, CELLPAIR_ARGS);
+    case 2: return dispatch_vdw<T, A, EV, 2>(vdw, has_special, CELLPAIR_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -304,9 +318,9 @@ int dispatch(int ev, int coul, int vdw, int has_special, CELLPAIR_PARAMS) {
 
 // prec: 0 = (float, float), 1 = (float, double), 2 = (double, double).
 // ev != 0 also writes partial[ncell][8]; fx/fy/fz are acc-typed (ncell*cap).
-// coul != 0 adds the Ewald real-space Coulomb term (reads q, g_ewald,
-// qqrd2e); with coul == 0 q may be null.  vdw: 0 buck, 1 lj/charmm (reads
-// inner_sq, denom_lj; needs coul).  special: null, or the (n * nspecial)
+// coul: 0 none (q may be null), 1 the Ewald real-space Coulomb term (reads
+// q, g_ewald, qqrd2e), 2 the cut Coulomb term (reads q, qqrd2e).  vdw: 0
+// buck, 1 lj/charmm (reads inner_sq, denom_lj; needs coul).  special: null, or the (n * nspecial)
 // packed partner table with special_fac = special_lj[4], special_coul[4].
 extern "C" int cellpair_forces(int prec, int ev, int coul, int vdw,
                                const void* x, const void* y, const void* z,

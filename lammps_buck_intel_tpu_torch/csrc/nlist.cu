@@ -61,8 +61,9 @@
 // both sides (a full list) and no atomics: F_i += fs (x_i - x_j) with the
 // difference minimum-imaged as d - rint(d * (1/L)) L under the CURRENT box
 // (the JAX package's minimum_image_planes), the physics of pair_terms.cuh
-// shared with csrc/cellpair.cu, the special factors special_lj[sb],
-// special_coul[sb].  The 6-virial sum fs d_a d_b is always reduced (the
+// shared with csrc/cellpair.cu (buck or lj/charmm, with no Coulomb term,
+// coul/long or coul/cut: the COUL template mode), the special factors
+// special_lj[sb], special_coul[sb].  The 6-virial sum fs d_a d_b is always reduced (the
 // barostat reads it every step); EV adds evdwl and ecoul.  Per block a
 // fixed shuffle tree writes partial[block][8] = (evdwl, ecoul, vxx, vyy,
 // vzz, vxy, vxz, vyz); the caller sums the partials and halves them (each
@@ -89,6 +90,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+using pairterms::kCoulNone;
 using pairterms::kNcoef;
 
 __device__ __forceinline__ float dev_floor(float v) { return floorf(v); }
@@ -290,7 +292,7 @@ __device__ __forceinline__ A warp_sum(A v) {
   return v;
 }
 
-template <typename T, typename A, bool EV, bool COUL, int VDW, bool SPECIAL>
+template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL>
 __global__ void nlist_pair_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const T* __restrict__ z, const T* __restrict__ q,
@@ -433,7 +435,7 @@ int launch_dense(const void* x, const void* y, const void* z,
   x, y, z, q, typ, boxL, coef, ntypes, n, idx, sb, nnei, kmax, g_ewald,    \
       qqrd2e, inner_sq, denom_lj, special_fac, fx, fy, fz, partial, s
 
-template <typename T, typename A, bool EV, bool COUL, int VDW, bool SPECIAL>
+template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL>
 int launch_pair(PAIR_PARAMS) {
   const size_t smem = sizeof(T) * (ntypes * ntypes * kNcoef + 8);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -453,17 +455,27 @@ int launch_pair(PAIR_PARAMS) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename A, bool EV, int COUL>
+int pair_vdw(int vdw, int special, PAIR_PARAMS) {
+  if (vdw == 0)
+    return special ? launch_pair<T, A, EV, COUL, 0, true>(PAIR_ARGS)
+                   : launch_pair<T, A, EV, COUL, 0, false>(PAIR_ARGS);
+  // lj/charmm exists only with a Coulomb term (styles.py check_ported)
+  if constexpr (COUL == kCoulNone) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return special ? launch_pair<T, A, EV, COUL, 1, true>(PAIR_ARGS)
+                   : launch_pair<T, A, EV, COUL, 1, false>(PAIR_ARGS);
+  }
+}
+
 template <typename T, typename A, bool EV>
 int pair_variant(int coul, int vdw, int special, PAIR_PARAMS) {
-  // lj/charmm exists only with coul/long (styles.py check_ported)
-  if (vdw != 0 && !coul) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((vdw ? 4 : 0) + (special ? 2 : 0) + (coul ? 1 : 0)) {
-    case 0: return launch_pair<T, A, EV, false, 0, false>(PAIR_ARGS);
-    case 1: return launch_pair<T, A, EV, true, 0, false>(PAIR_ARGS);
-    case 2: return launch_pair<T, A, EV, false, 0, true>(PAIR_ARGS);
-    case 3: return launch_pair<T, A, EV, true, 0, true>(PAIR_ARGS);
-    case 5: return launch_pair<T, A, EV, true, 1, false>(PAIR_ARGS);
-    default: return launch_pair<T, A, EV, true, 1, true>(PAIR_ARGS);
+  switch (coul) {
+    case 0: return pair_vdw<T, A, EV, 0>(vdw, special, PAIR_ARGS);
+    case 1: return pair_vdw<T, A, EV, 1>(vdw, special, PAIR_ARGS);
+    case 2: return pair_vdw<T, A, EV, 2>(vdw, special, PAIR_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -519,8 +531,8 @@ extern "C" int nlist_dense(int dbl, const void* x, const void* y,
 
 // prec: 0 = (float, float), 1 = (float, double), 2 = (double, double).
 // fx/fy/fz acc (n); partial[nlist_partial_rows(n)][8] acc, always written.
-// coul / vdw / special select the variant as in csrc/cellpair.cu; with
-// coul == 0 q may be null; special_fac = special_lj[4], special_coul[4].
+// coul (0 none, 1 long, 2 cut) / vdw / special select the variant as in
+// csrc/cellpair.cu; with coul == 0 q may be null; special_fac = special_lj[4], special_coul[4].
 extern "C" int nlist_pair(int prec, int ev, int coul, int vdw, int special,
                           const void* x, const void* y, const void* z,
                           const void* q, const void* typ, const void* boxL,

@@ -7,15 +7,19 @@
 //   lj/charmm (VDW = 1): forcelj = lj1 r^-12 - lj2 r^-6, philj = lj3 r^-12
 //   - lj4 r^-6, and for rsq > inner_sq the energy switch F = forcelj
 //   switch1 + philj switch2, E = philj switch1 (zero at the cutoff);
-//   coul/long (COUL): grij = g_ewald r, expm2 = exp(-grij^2), erfc by the
-//   Abramowitz & Stegun 5-term polynomial with the JAX constants (not
-//   erfcf), prefactor = qqrd2e qi qj / r, F = prefactor (erfc + 2/sqrt(pi)
-//   grij expm2), E = prefactor erfc, strict cut test rsq < cut_coulsq;
+//   coul/long (COUL == kCoulLong): grij = g_ewald r, expm2 = exp(-grij^2),
+//   erfc by the Abramowitz & Stegun 5-term polynomial with the JAX
+//   constants (not erfcf), prefactor = qqrd2e qi qj / r, F = prefactor
+//   (erfc + 2/sqrt(pi) grij expm2), E = prefactor erfc, strict cut test
+//   rsq < cut_coulsq;
+//   coul/cut (COUL == kCoulCut, styles.py :402-404 of the JAX package):
+//   F = E = qqrd2e qi qj / r f_coul, strict cut test rsq < cut_coulsq, no
+//   erfc and no k-space;
 //   special bonds (SPECIAL): the LJ term scaled by f_lj where it is
 //   evaluated (skipped when f_lj is 0: a 1-2 pair's LJ term is ~5e5
-//   kcal/mol and must not be formed and cancelled in f32), the Coulomb
+//   kcal/mol and must not be formed and cancelled in f32); the coul/long
 //   term kept as prefactor (erfc + ... - (1 - f_coul)), because k-space
-//   holds every pair.
+//   holds every pair, the coul/cut term scaled by f_coul.
 // The coefficient row cf is one (T, T, 8) entry of styles.py COEF_NAMES:
 //   buck     [buck1, buck2, a, c, rhoinv, cut_ljsq, offset, cut_coulsq]
 //   ljcharmm [lj1, lj2, lj3, lj4, 0, cut_ljsq, 0, cut_coulsq].
@@ -28,6 +32,8 @@
 namespace pairterms {
 
 constexpr int kNcoef = 8;  // COEF_NAMES column layout of styles.py
+// The COUL template mode of the pair kernels (styles.py PairConfig.coul)
+constexpr int kCoulNone = 0, kCoulLong = 1, kCoulCut = 2;
 // Abramowitz & Stegun 7.1.26 (styles.py EWALD_F, EWALD_P, ERFC_A)
 constexpr double kEwaldF = 1.12837917;
 constexpr double kEwaldP = 0.3275911;
@@ -46,18 +52,18 @@ __device__ __forceinline__ T clamp_rsq(T rsq) {
 }
 
 // The strict cut tests of a (clamped) rsq against the row's cutoffs.
-template <typename T, bool COUL>
+template <typename T, int COUL>
 __device__ __forceinline__ bool cut_tests(T rsq, const T* cf, bool& in_lj,
                                           bool& in_coul) {
   in_lj = rsq < cf[5];
-  in_coul = COUL && rsq < cf[7];
+  in_coul = COUL != kCoulNone && rsq < cf[7];
   return in_lj || in_coul;
 }
 
 // fpair / rsq of a pair inside range (so that F_i += it * (x_i - x_j)),
 // with its energies when EV.  qqi = qqrd2e * q_i; qj points at q_j and is
 // read only inside the Coulomb cutoff.
-template <typename T, bool EV, bool COUL, int VDW, bool SPECIAL>
+template <typename T, bool EV, int COUL, int VDW, bool SPECIAL>
 __device__ __forceinline__ T pair_force(T rsq, bool in_lj, bool in_coul,
                                         const T* cf, T qqi, const T* qj,
                                         T f_lj, T f_coul, T g_ewald,
@@ -93,7 +99,13 @@ __device__ __forceinline__ T pair_force(T rsq, bool in_lj, bool in_coul,
       evdwl *= f_lj;
     }
   }
-  if (COUL && in_coul) {
+  if (COUL == kCoulCut && in_coul) {
+    T fcoul = qqi * *qj * (r * r2inv);
+    if (SPECIAL) fcoul *= f_coul;
+    if (EV) ecoul = fcoul;
+    fpair += fcoul;
+  }
+  if (COUL == kCoulLong && in_coul) {
     const T prefactor = qqi * *qj * (r * r2inv);
     const T grij = g_ewald * r;
     const T expm2 = dev_exp(-grij * grij);

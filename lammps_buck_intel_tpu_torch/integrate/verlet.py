@@ -15,8 +15,9 @@ axis) and runs the steps on it, in the order of the JAX ``one_step``:
   2. SHAKE's reference bond vectors (``shake_ref``), the first half kick
      and the drift (``nve.kick_drift``), SHAKE (``shake_positions``);
   3. forces on the block's list: the list pair pass (csrc/nlist.cu),
-     ``PPPM.compute`` on the generic mesh of the box, the bonded terms with
-     the CHARMM 1-4 energies tallied into evdwl and ecoul;
+     ``PPPM.compute`` on the generic mesh of the box or ``Ewald.compute``
+     (csrc/ewald.cu), the bonded terms with the CHARMM 1-4 energies
+     tallied into evdwl and ecoul;
   4. the force sum and the second half kick (``nve.kick``), RATTLE
      (``rattle_velocities``), the thermostat half step.
 
@@ -106,7 +107,7 @@ class Simulation:
     forces and velocity Verlet; the device is that of ``system``.
 
     kspace: None or a static-box solver with ``compute(x, q, eflag,
-    vflag)`` (``models.kspace.PPPM``); topology: the special-bond partner
+    vflag)`` (``models.kspace.PPPM`` or ``models.kspace.Ewald``); topology: the special-bond partner
     table; bonded: the bonded terms; thermostat: Nose-Hoover chain NVT
     (dof 3N - 3 - Nc, filled here with the units and the timestep); shake:
     SHAKE/RATTLE constraints.  The list's capacity and build come from

@@ -14,6 +14,7 @@ from .integrate.npt import NPTConfig
 from .integrate.verlet import MDState
 from .integrate.shake import ShakeConstraints
 from .models.bonded.harmonic import BondedStyle, make_bonded
+from .models.kspace.ewald import Ewald
 from .models.kspace.pppm import PPPM
 from .models.pair.styles import PairConfig, PairStyle
 from .neighbor.cell_slots import MOVE_FIELDS, SlotState
@@ -128,6 +129,20 @@ def pppm_from_numpy(grid, g_ewald: float, order: int, greensfn, kx, ky, kz,
         qqrd2e=float(qqrd2e), volume=float(volume),
         box_lo=tuple(float(v) for v in box_lo),
         h=tuple(float(v) for v in h), acc_dtype=acc_dtype)
+
+
+def ewald_from_numpy(g_ewald: float, kvecs, ug, mvecs, qsum: float,
+                     qsqsum: float, qqrd2e: float, volume: float, kmax,
+                     acc_dtype=torch.float64) -> Ewald:
+    """The port's Ewald from the JAX Ewald's fields: both packages then sum
+    over the same k set."""
+    return Ewald(
+        g_ewald=float(g_ewald), kvecs=np.array(kvecs, np.float64),
+        ug=np.array(ug, np.float64),
+        mvecs=None if mvecs is None else np.array(mvecs, np.int32),
+        qsum=float(qsum), qsqsum=float(qsqsum), qqrd2e=float(qqrd2e),
+        volume=float(volume), kmax=tuple(int(v) for v in kmax),
+        acc_dtype=acc_dtype)
 
 
 def slot_state_from_numpy(planes: dict, device="cuda") -> SlotState:

@@ -1,2 +1,3 @@
+from .ewald import Ewald, setup_ewald
 from .pppm import PPPM, pppm_g_ewald, setup_pppm
 from .pppm_cells import CellPPPM

@@ -1,8 +1,9 @@
 """K-space set-up math shared by the solvers (host numpy).
 
 Counterpart of ``lammps_buck_intel_tpu.models.kspace.base``: accuracy ->
-g_ewald and the Deserno-Holm P3M ik error estimate that sizes the PPPM
-mesh.  The formulas and the acons table are the JAX package's, copied so
+g_ewald, the real-space and Ewald k-space RMS error estimates that size
+the Ewald k set, and the Deserno-Holm P3M ik error estimate that sizes
+the PPPM mesh.  The formulas and the acons table are the JAX package's, copied so
 the port imports nothing of it.
 """
 from __future__ import annotations
@@ -28,6 +29,23 @@ def solve_g_ewald(accuracy_abs: float, cutoff: float, natoms: int,
     if arg >= 1.0:
         return (1.35 - 0.15 * math.log(accuracy_abs)) / cutoff
     return math.sqrt(-math.log(arg)) / cutoff
+
+
+def rms_real(g: float, cutoff: float, natoms: int, volume: float,
+             q2: float) -> float:
+    """Kolafa-Perram real-space RMS force error."""
+    return (2.0 * q2 * math.sqrt(1.0 / (natoms * cutoff * volume))
+            * math.exp(-g * g * cutoff * cutoff))
+
+
+def rms_kspace_ewald(km: int, prd: float, natoms: int, g: float,
+                     q2: float) -> float:
+    """Petersen's RMS force error for a truncated Ewald sum along one axis."""
+    if km <= 0:
+        return math.inf
+    return (2.0 * q2 * g / prd
+            * math.sqrt(1.0 / (math.pi * km * natoms))
+            * math.exp(-(math.pi * km / (g * prd)) ** 2))
 
 
 def acons_table() -> np.ndarray:

@@ -13,8 +13,8 @@ halved.
 ``compute_cellpair`` dispatches on the device of the planes: CUDA
 tensors launch the hand-written kernel (csrc/cellpair.cu through
 ``ops.cellpair``), CPU tensors run ``compute_cellpair_plain``.  Styles:
-buck, buck/coul/long and lj/charmm/coul/long (the Ewald real-space term
-reads the slot ``q`` plane).  Special bonds: the JAX package gathers each
+buck, buck/coul/long, buck/coul/cut and lj/charmm/coul/{long,cut} (the
+Coulomb terms read the slot ``q`` plane).  Special bonds: the JAX package gathers each
 slot's partner ids per rebin and matches them against every candidate;
 the port keeps the partner table in atom order on the device
 (``SpecialTable``), and a slot reads its row through its atom id.  The
@@ -179,7 +179,7 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
            state.z.view(ncell, cap)]
     aid = state.aid.view(ncell, cap)
     typ = state.typ.view(ncell, cap)
-    coul = style.cfg.coul == "long"
+    coul = style.cfg.has_coul
     q = state.q.view(ncell, cap)
     f_out = [torch.zeros((ncell, cap), dtype=acc_dtype, device=dev)
              for _ in range(3)]

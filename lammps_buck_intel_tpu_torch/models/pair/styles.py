@@ -8,14 +8,16 @@ same numbers.  ``pair_terms`` is the plain torch form of the per-pair
 physics; the kernel's device function computes the same expressions in
 the same order.
 
-The port carries ``buck``, ``buck/coul/long`` and
-``lj/charmm/coul/long`` (Ewald real-space Coulomb through the A&S erfc;
-the k-space half is models/kspace), with special-bond factors: the LJ
-term of a 1-2/1-3/1-4 pair is scaled where it is evaluated, the Coulomb
-term corrected subtractively, because k-space holds every pair.
-``*/coul/cut`` (ROADMAP queue 1 item 10), Ewald-split dispersion
-(``disp == "long"``, item 13) and the lj/cut family (``build_lj``, SPC/E
-and hexane decks) raise NotImplementedError.
+The port carries ``buck``, ``buck/coul/long``, ``buck/coul/cut``,
+``lj/charmm/coul/long`` and ``lj/charmm/coul/cut``: Ewald real-space
+Coulomb through the A&S erfc (the k-space half is models/kspace), or the
+plain Coulomb term inside its cutoff with no k-space.  Special-bond
+factors: the LJ term of a 1-2/1-3/1-4 pair is scaled where it is
+evaluated; the coul/long term is corrected subtractively, because
+k-space holds every pair, and the coul/cut term scaled.  Ewald-split
+dispersion (``disp == "long"``, ROADMAP queue 1 item 13) and the lj/cut
+family (``build_lj``, SPC/E and hexane decks, item 12) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -117,15 +119,15 @@ def build_buck(
     shift: bool = False,
     name: Optional[str] = None,
 ) -> PairStyle:
-    """Buckingham builder (``coul`` "none" or "long").
+    """Buckingham builder (``coul`` "none", "long" or "cut").
 
     coeffs: {(i, j) 0-based: (A, rho, C[, cut_lj[, cut_coul]])} — every
-    type pair must be given (buck has no mixing rule).  g_ewald is set
-    later by the k-space solver (``replace(g_ewald=...)``).
+    type pair must be given (buck has no mixing rule); cut_coul defaults
+    to cut_global.  g_ewald is set later by the k-space solver
+    (``replace(g_ewald=...)``).
     """
-    if coul not in ("none", "long"):
-        raise NotImplementedError(
-            f"buck/coul/{coul} is not ported: ROADMAP queue 1 item 10")
+    if coul not in ("none", "long", "cut"):
+        raise ValueError(f"unknown Coulomb form {coul!r}")
     if disp != "cut":
         raise NotImplementedError(
             "buck/long (Ewald-split dispersion) is not ported: ROADMAP "
@@ -183,17 +185,20 @@ def build_lj_charmm(
     qqrd2e: float = 1.0,
     name: Optional[str] = None,
 ) -> PairStyle:
-    """Build lj/charmm/coul/long (LAMMPS pair_lj_charmm_coul_long).
+    """Build lj/charmm/coul/long or lj/charmm/coul/cut (LAMMPS
+    pair_lj_charmm_coul_long, pair_lj_charmm_coul_charmm's cut form as the
+    JAX package has it: the plain Coulomb term inside cut_coul).
 
     coeffs: {type: (eps, sigma[, eps14, sigma14])}.  CHARMM mixes
     arithmetically; the energy switches smoothly to zero between ``inner``
-    and ``cut_lj``.  eps14/sig14 default to eps/sigma and are consumed by
-    dihedral charmm's baked 1-4 terms, not here: special_bonds charmm
-    zeroes 1-2/1-3/1-4 in the pair pass.
+    and ``cut_lj``; cut_coul defaults to cut_lj.  eps14/sig14 default to
+    eps/sigma and are consumed by dihedral charmm's baked 1-4 terms, not
+    here: special_bonds charmm zeroes 1-2/1-3/1-4 in the pair pass.
     """
-    if coul != "long":
+    if coul not in ("long", "cut"):
         raise NotImplementedError(
-            f"lj/charmm/coul/{coul} is not ported: ROADMAP queue 1 item 10")
+            f"lj/charmm/coul/{coul} is not ported: lj/charmm needs a "
+            "Coulomb term (long or cut)")
     cut_coul = cut_lj if cut_coul is None else cut_coul
     eps, sig = np.zeros(ntypes), np.zeros(ntypes)
     e14, s14 = np.zeros(ntypes), np.zeros(ntypes)
@@ -231,12 +236,12 @@ def check_ported(style: PairStyle):
     """Raise for what neither the kernel nor the plain version covers."""
     cfg = style.cfg
     if cfg.vdw not in ("buck", "ljcharmm") or cfg.disp != "cut" \
-            or cfg.coul not in ("none", "long") \
-            or (cfg.vdw == "ljcharmm" and cfg.coul != "long"):
+            or cfg.coul not in ("none", "long", "cut") \
+            or (cfg.vdw == "ljcharmm" and cfg.coul == "none"):
         raise NotImplementedError(
             f"pair style {cfg.name!r} ({cfg.vdw}, coul {cfg.coul}, disp "
-            f"{cfg.disp}) is not ported: buck, buck/coul/long and "
-            "lj/charmm/coul/long only (ROADMAP queue 1 items 10, 13)")
+            f"{cfg.disp}) is not ported: buck, buck/coul/{{long,cut}} and "
+            "lj/charmm/coul/{long,cut} only (ROADMAP queue 1 items 12, 13)")
 
 
 def erfc_approx(grij, expm2):
@@ -287,7 +292,15 @@ def pair_terms(style: PairStyle, rsq, coef, qi, qj, f_lj, f_coul, *,
         evdwl = torch.where(sw, philj * switch1, philj) * f_lj
     fvdw = torch.where(in_lj, fvdw, zero)
     ecoul = zero
-    if cfg.coul == "long":
+    if cfg.coul == "cut":
+        # the plain Coulomb term, the JAX package's expressions
+        qq = float(style.qqrd2e) * qi * qj
+        fcoul = qq * (r * r2inv) * f_coul
+        in_coul = rsq < coef["cut_coulsq"]
+        fcoul = torch.where(in_coul, fcoul, zero)
+        ecoul = fcoul
+        fvdw = fvdw + fcoul
+    elif cfg.coul == "long":
         # Ewald real space, the JAX package's expressions in its order
         qq = float(style.qqrd2e) * qi * qj
         prefactor = qq * (r * r2inv)

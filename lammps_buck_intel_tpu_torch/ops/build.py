@@ -37,6 +37,7 @@ LIBRARIES = {
     "shake": ["--fmad=false"],
     "nlist": ["--fmad=false"],
     "npt": ["--fmad=false"],
+    "ewald": [],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -18,6 +18,8 @@ _PREC = {(torch.float32, torch.float32): 0, (torch.float32, torch.float64): 1,
          (torch.float64, torch.float64): 2}
 # the kernel runs one thread per slot of a cell
 MAX_CAP = 1024
+# styles.PairConfig.coul -> the COUL template mode of csrc/pair_terms.cuh
+COUL_MODE = {"none": 0, "long": 1, "cut": 2}
 
 
 def _lib():
@@ -45,8 +47,9 @@ def check_plane(t: torch.Tensor, name: str, dtype, numel: int, device):
 def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
                     special=None) -> CellPairResult:
     """Full-stencil pair forces on the card.  eflag also computes evdwl,
-    ecoul and the virial (the kernel's EV variant); coul/long styles run
-    the kernel's COUL variant, which reads the slot q plane; lj/charmm its
+    ecoul and the virial (the kernel's EV variant); coul/long and coul/cut
+    styles run the kernel's COUL variants, which read the slot q plane;
+    lj/charmm its
     VDW = 1 variant; a ``special`` partner table
     (``models.pair.cellpair.SpecialTable``) its SPECIAL variant."""
     check_style(style)
@@ -62,7 +65,7 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
     ns = grid.nslots
     for name in ("x", "y", "z"):
         check_plane(getattr(state, name), name, flt, ns, dev)
-    coul = style.cfg.coul == "long"
+    coul = COUL_MODE[style.cfg.coul]
     if coul:
         check_plane(state.q, "q", flt, ns, dev)
     for name in ("typ", "aid"):

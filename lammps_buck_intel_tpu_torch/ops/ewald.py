@@ -1,0 +1,127 @@
+"""Launch wrappers of the Ewald kernels (csrc/ewald.cu): K11a ``ewald_sk``
+and K11b ``ewald_force``.
+
+The plain version of the pair is ``models.kspace.ewald.
+ewald_compute_plain``.  Each kernel splits its outer loop (the atoms for
+K11a, the k vectors for K11b) into ranges so that about four blocks run
+on every SM, and adds the ranges in a fixed order: the results do not
+depend on the order blocks run in.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import LAUNCHES
+from . import build
+from .cellpair import check_plane
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_PREC = {(torch.float32, torch.float32): 0, (torch.float32, torch.float64): 1,
+         (torch.float64, torch.float64): 2}
+_THREADS = 128      # threads per block of both kernels (csrc/ewald.cu)
+_ATOM_TILE = 256    # atoms per shared tile of K11a
+_BLOCKS_PER_SM = 4
+
+
+class SkResult(NamedTuple):
+    s_re: torch.Tensor   # (K,) acc, sum_i q_i cos(k . x_i)
+    s_im: torch.Tensor   # (K,) acc, sum_i q_i sin(k . x_i)
+    wre: torch.Tensor    # (K,) flt, 2 ug Re
+    wim: torch.Tensor    # (K,) flt, 2 ug Im
+    sums: torch.Tensor   # (7,) acc: sum ug |S|^2, the six virial sums
+
+
+def _lib():
+    lib = build.load("ewald")
+    if lib.ewald_sk.argtypes is None:
+        lib.ewald_sum_rows.argtypes = [_I]
+        lib.ewald_sk.argtypes = ([_I] + [_P] * 4 + [_I] + [_P] * 6
+                                 + [_I, _I, _D] + [_P] * 5)
+        lib.ewald_force.argtypes = ([_I] + [_P] * 4 + [_I] + [_P] * 5
+                                    + [_I, _I, _D] + [_P] * 5)
+        for fn in (lib.ewald_sum_rows, lib.ewald_sk, lib.ewald_force):
+            fn.restype = _I
+    return lib
+
+
+def _splits(blocks: int, most: int, dev) -> int:
+    """Ranges of the split loop: enough for _BLOCKS_PER_SM blocks an SM,
+    at most ``most``."""
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = -(-_BLOCKS_PER_SM * nsm // blocks)
+    return max(1, min(most, want))
+
+
+def _inputs(xs, q, c, acc_dtype):
+    dev, flt, n = xs[0].device, xs[0].dtype, xs[0].shape[0]
+    if dev.type != "cuda":
+        raise ValueError(f"ewald kernels need CUDA tensors, got {dev}")
+    prec = _PREC.get((flt, acc_dtype))
+    if prec is None:
+        raise TypeError(f"unsupported (flt, acc) = ({flt}, {acc_dtype})")
+    for p, name in zip(xs, "xyz"):
+        check_plane(p, name, flt, n, dev)
+    check_plane(q, "q", flt, n, dev)
+    rows = c["kv_rows"]
+    K = rows.shape[1]
+    if rows.shape != (3, K) or not rows.is_contiguous():
+        raise ValueError(f"kv_rows has shape {tuple(rows.shape)}")
+    for i in range(3):
+        check_plane(rows[i], f"kv_rows[{i}]", flt, K, dev)
+    return dev, flt, n, K, prec, rows
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def ewald_sk(xs, q, c: dict, qqrd2e: float, acc_dtype) -> SkResult:
+    """K11a: the structure factors, the force weights and the energy and
+    virial sums of the charges q at the positions xs = (x, y, z) planes;
+    c: ``Ewald.consts`` of the planes' device and dtype."""
+    dev, flt, n, K, prec, rows = _inputs(xs, q, c, acc_dtype)
+    check_plane(c["ug"], "ug", flt, K, dev)
+    check_plane(c["ug_acc"], "ug_acc", acc_dtype, K, dev)
+    check_plane(c["vfac"].view(-1), "vfac", acc_dtype, 6 * K, dev)
+    lib = _lib()
+    nsplit = _splits(-(-K // _THREADS), -(-n // _ATOM_TILE), dev)
+    part = torch.empty((2, nsplit, K), dtype=acc_dtype, device=dev)
+    s = torch.empty((2, K), dtype=acc_dtype, device=dev)
+    w = torch.empty((2, K), dtype=flt, device=dev)
+    sums = torch.empty((lib.ewald_sum_rows(K), 7), dtype=acc_dtype,
+                       device=dev)
+    rc = lib.ewald_sk(
+        prec, *(p.data_ptr() for p in xs), q.data_ptr(), n,
+        *(r.data_ptr() for r in rows.unbind(0)), c["ug"].data_ptr(),
+        c["ug_acc"].data_ptr(), c["vfac"].data_ptr(), K, nsplit,
+        float(qqrd2e), part.data_ptr(), s.data_ptr(), w.data_ptr(),
+        sums.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"ewald_sk kernel launch failed: CUDA error {rc}")
+    LAUNCHES["ewald_sk"] += 1
+    return SkResult(s[0], s[1], w[0], w[1], sums.sum(0))
+
+
+def ewald_force(xs, q, c: dict, wre: torch.Tensor, wim: torch.Tensor,
+                qqrd2e: float, acc_dtype) -> tuple:
+    """K11b: (fx, fy, fz) acc planes, f_i = qqrd2e q_i sum_k (sin_ik wre_k
+    - cos_ik wim_k) k, from K11a's weights."""
+    dev, flt, n, K, prec, rows = _inputs(xs, q, c, acc_dtype)
+    check_plane(wre, "wre", flt, K, dev)
+    check_plane(wim, "wim", flt, K, dev)
+    nsplit = _splits(-(-n // _THREADS), -(-K // _THREADS), dev)
+    part = torch.empty((nsplit, 3, n), dtype=acc_dtype, device=dev)
+    f = [torch.empty(n, dtype=acc_dtype, device=dev) for _ in range(3)]
+    rc = _lib().ewald_force(
+        prec, *(p.data_ptr() for p in xs), q.data_ptr(), n,
+        *(r.data_ptr() for r in rows.unbind(0)), wre.data_ptr(),
+        wim.data_ptr(), K, nsplit, float(qqrd2e), part.data_ptr(),
+        *(t.data_ptr() for t in f), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"ewald_force kernel launch failed: CUDA error {rc}")
+    LAUNCHES["ewald_force"] += 1
+    return tuple(f)

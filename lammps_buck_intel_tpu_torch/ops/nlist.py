@@ -15,7 +15,7 @@ import torch
 
 from . import LAUNCHES
 from . import build
-from .cellpair import check_plane
+from .cellpair import COUL_MODE, check_plane
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _PREC = {(torch.float32, torch.float32): 0, (torch.float32, torch.float64): 1,
@@ -128,7 +128,7 @@ def compute_pair(style, xs, typ, q, boxL, nl, *, eflag: bool, acc_dtype,
         raise TypeError(f"unsupported (flt, acc) = ({flt}, {acc_dtype})")
     check_plane(typ, "typ", torch.int32, n, dev)
     check_plane(boxL, "boxL", flt, 3, dev)
-    coul = cfg.coul == "long"
+    coul = COUL_MODE[cfg.coul]
     if coul:
         check_plane(q, "q", flt, n, dev)
     idx_t, sb_t = nl.idx.t(), nl.sb.t()
@@ -146,7 +146,7 @@ def compute_pair(style, xs, typ, q, boxL, nl, *, eflag: bool, acc_dtype,
     part = torch.empty((lib.nlist_partial_rows(n), 8), dtype=acc_dtype,
                        device=dev)
     _check(lib.nlist_pair(
-        prec, int(eflag), int(coul), int(cfg.vdw == "ljcharmm"),
+        prec, int(eflag), coul, int(cfg.vdw == "ljcharmm"),
         int(use_special), *(p.data_ptr() for p in xs),
         q.data_ptr() if coul else None, typ.data_ptr(), boxL.data_ptr(),
         coef.data_ptr(), style.tables.shape[0], n, idx_t.data_ptr(),

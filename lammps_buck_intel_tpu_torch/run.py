@@ -15,15 +15,19 @@ with or without ``fix shake``) runs on the neighbor-list NPT engine
 (``integrate.npt.NPTSimulation``) with the variable-cell PPPM
 (``pppm_npt.TracedPPPM``) on the generic mesh of the deck's box.  Atoms: a
 lattice built with ``create_atoms`` or atoms read with ``read_data`` (atom
-style charge or full, optionally ``replicate``d); ``pair_style buck``, or
+style charge or full, optionally ``replicate``d); ``pair_style buck``,
+``buck/coul/cut`` or ``lj/charmm/coul/cut`` without k-space, or
 ``buck/coul/long`` / ``lj/charmm/coul/long`` with ``kspace_style pppm``
-(ik); ``special_bonds``, harmonic bonds, harmonic or CHARMM angles, CHARMM
-dihedrals and harmonic impropers (examples/decks/buck.yaml,
-buck_small.yaml, buck_big.yaml, cristobalite_pppm.yaml,
-cristobalite_pppm_nlist.yaml, rhodo_nve.yaml, rhodo_nve_nlist.yaml,
-rhodo_32k.yaml, rhodo_class.yaml, rhodo_flex_nve.yaml,
-rhodo_flex_nvt.yaml, rhodo_npt.yaml).  Every other deck key or value raises
-NotImplementedError naming its ROADMAP item; nothing is ignored.  A
+(ik) or ``kspace_style ewald`` (``models.kspace.ewald``, on the
+neighbor-list ``Simulation`` only); ``special_bonds``, harmonic bonds,
+harmonic or CHARMM angles, CHARMM dihedrals and harmonic impropers
+(examples/decks/buck.yaml, buck_small.yaml, buck_big.yaml,
+cristobalite_pppm.yaml, cristobalite_pppm_nlist.yaml,
+cristobalite_ewald.yaml, cristobalite_coul_cut.yaml, rhodo_nve.yaml,
+rhodo_nve_nlist.yaml, rhodo_32k.yaml, rhodo_class.yaml,
+rhodo_flex_nve.yaml, rhodo_flex_nvt.yaml, rhodo_npt.yaml).  Every other
+deck key or value raises NotImplementedError naming its ROADMAP item;
+nothing is ignored.  A
 relative ``read_data`` path resolves against the working directory, as
 in the JAX package.
 
@@ -73,7 +77,6 @@ _UNPORTED_ENGINES = {"slab": "item 16 (the multi-device slab engine)"}
 _NPT_TILT_KEYS = {"tri", "xy", "xz", "yz"}
 # kspace_style pieces the port refuses, by ROADMAP queue 1 item
 _KSPACE_UNPORTED = {
-    "ewald": "item 10 (Ewald, K11)",
     "pppm/disp": "item 13 (dispersion PPPM, K12 / K16d)",
     "diff": "item 10 (pppm diff ad, K10)",
     "slab": "item 10 (kspace_modify slab, K10)",
@@ -84,9 +87,12 @@ _BONDED_STYLES = {"bond": {"harmonic"}, "angle": {"harmonic", "charmm"},
                   "dihedral": {"charmm"}, "improper": {"harmonic"}}
 _SPECIAL_SETS = {"charmm": ([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
                  "amber": ([0.0, 0.0, 0.5], [0.0, 0.0, 1.0 / 1.2])}
-# kspace_style keys the port reads; "grid" (kspace_modify mesh) is left
-# out because the cell-pair engine aligns the mesh to its cells
-_KSPACE_KEYS = {"name", "accuracy", "order", "diff", "gewald"}
+# kspace_style keys the port reads, by style; "grid" (kspace_modify mesh)
+# is left out because the cell-pair engine aligns the mesh to its cells
+_KSPACE_KEYS = {"pppm": {"name", "accuracy", "order", "diff", "gewald"},
+                "ewald": {"name", "accuracy", "gewald"}}
+_PAIR_STYLES = ("buck", "buck/coul/long", "buck/coul/cut",
+                "lj/charmm/coul/long", "lj/charmm/coul/cut")
 
 
 def _parse_pair_key(k: str):
@@ -153,28 +159,39 @@ def _check_deck(cfg: dict):
     if "lattice" not in cfg and "read_data" not in cfg:
         raise ValueError("deck needs read_data or lattice")
     name = cfg["pair_style"]["name"]
-    if name not in ("buck", "buck/coul/long", "lj/charmm/coul/long"):
+    if name not in _PAIR_STYLES:
         raise NotImplementedError(
-            f"pair_style {name!r} is not ported: buck, buck/coul/long and "
-            "lj/charmm/coul/long only (ROADMAP queue 1 item 10 coul/cut, "
-            "item 13 lj/cut and */long dispersion)")
+            f"pair_style {name!r} is not ported: {', '.join(_PAIR_STYLES)} "
+            "only (ROADMAP queue 1 item 12 lj/cut, item 13 */long "
+            "dispersion)")
     ks = cfg.get("kspace_style")
-    if (ks is None) != (name == "buck"):
+    if (ks is None) != (not name.endswith("coul/long")):
         raise NotImplementedError(
             f"pair_style {name!r} with kspace_style {ks!r} is not ported: "
-            "buck runs without k-space, the coul/long styles with pppm")
+            "buck and the coul/cut styles run without k-space, the "
+            "coul/long styles with pppm or ewald")
     for kind, ok in _BONDED_STYLES.items():
         style = cfg.get(f"{kind}_style", {}).get("name")
         if style is not None and style not in ok:
             raise NotImplementedError(
                 f"{kind}_style {style!r}: only {sorted(ok)} implemented")
     if ks is not None:
-        extra = set(ks) - _KSPACE_KEYS
-        if ks["name"] != "pppm":
+        if ks["name"] not in _KSPACE_KEYS:
             where = _KSPACE_UNPORTED.get(ks["name"], "queue 1")
             raise NotImplementedError(
                 f"kspace_style {ks['name']!r} is not ported: ROADMAP queue 1 "
                 f"{where}")
+        extra = set(ks) - _KSPACE_KEYS[ks["name"]]
+        if ks["name"] == "ewald" and npt:
+            raise NotImplementedError(
+                "kspace_style ewald under fix npt (the traced-box Ewald, "
+                "K11 traced) is not ported: ROADMAP queue 1 item 10, with "
+                "item 14's tilted barostat")
+        if ks["name"] == "ewald" and engine == "cellpair":
+            raise NotImplementedError(
+                "kspace_style ewald on engine cellpair (Ewald on the cell "
+                "engine's slot positions) is not ported: ROADMAP queue 1 "
+                "item 10; run the deck on engine nlist")
         if ks.get("diff", "ik") != "ik":
             raise NotImplementedError(
                 f"pppm diff {ks['diff']!r} is not ported: ROADMAP queue 1 "
@@ -273,6 +290,8 @@ def _pair_style(cfg: dict, ntypes: int, data_pair: dict, qqrd2e: float):
 
     ps = cfg["pair_style"]
     name = ps["name"]
+    coul = ("long" if "coul/long" in name
+            else "cut" if "coul/cut" in name else "none")
     special_lj, special_coul = _special_factors(cfg)
     coeffs = {_parse_pair_key(k): tuple(v)
               for k, v in ps.get("coeffs", {}).items()}
@@ -283,12 +302,11 @@ def _pair_style(cfg: dict, ntypes: int, data_pair: dict, qqrd2e: float):
         if not lj and data_pair:
             lj = {t: tuple(c) for t, c in data_pair.items()}
         return build_lj_charmm(
-            ntypes, lj, inner=ps["inner"], cut_lj=ps["cut"], coul="long",
+            ntypes, lj, inner=ps["inner"], cut_lj=ps["cut"], coul=coul,
             cut_coul=ps.get("cut_coul"), name=name, special_lj=special_lj,
             special_coul=special_coul, qqrd2e=qqrd2e)
     return build_buck(
-        ntypes, coeffs, cut_global=ps["cut"],
-        coul="long" if name == "buck/coul/long" else "none",
+        ntypes, coeffs, cut_global=ps["cut"], coul=coul,
         cut_coul=ps.get("cut_coul"), name=name, special_lj=special_lj,
         special_coul=special_coul, qqrd2e=qqrd2e,
         shift=ps.get("shift", False))
@@ -478,13 +496,14 @@ def _npt_traced_kspace(cfg: dict, box, q, style, prec):
 def build_simulation(cfg: dict, device="cuda"):
     """Construct the deck's engine on ``device``: an NPTSimulation for fix
     npt; else a CellPairSimulation for ``engine: cellpair`` unless its box
-    is too small for the cells; else a Simulation."""
+    is too small for the cells; else a Simulation, whose k-space is the
+    deck's PPPM on the generic mesh or its Ewald sum."""
     from .core import (build_topology, get_precision, get_units, make_box,
                        make_system)
     from .integrate import (CellPairSimulation, NeighborPolicy, NVTConfig,
                             Simulation)
     from .io import velocity
-    from .models.kspace import pppm_g_ewald
+    from .models.kspace import pppm_g_ewald, setup_ewald
 
     dev = _device(device)
     _check_deck(cfg)
@@ -512,9 +531,18 @@ def build_simulation(cfg: dict, device="cuda"):
     style = _pair_style(cfg, len(mass), g["data_coeffs"].get("pair"),
                         u.qqrd2e)
     ks = cfg.get("kspace_style")
+    ewald = None
     if ks is not None:
         gew = ks.get("gewald")
-        if gew is None:
+        if ks["name"] == "ewald":
+            # the JAX run.py's order: the k set first, its g_ewald to the
+            # pair style
+            ewald = setup_ewald(box, q, cutoff=ps.get("cut_coul", ps["cut"]),
+                                accuracy_rel=ks.get("accuracy", 1e-4),
+                                qqrd2e=u.qqrd2e, g_ewald=gew,
+                                acc_dtype=prec.acc)
+            gew = ewald.g_ewald
+        elif gew is None:
             gew = pppm_g_ewald(box, q, ps.get("cut_coul", ps["cut"]),
                                ks.get("accuracy", 1e-4), u.qqrd2e)
         style = style.replace(g_ewald=float(gew))
@@ -572,7 +600,9 @@ def build_simulation(cfg: dict, device="cuda"):
                 "deck key 'cap' sizes the cell engine's slots; this deck's "
                 "box is too small for the cell engine, and the neighbor-list "
                 "engine sizes its own capacities: drop cap")
-    kspace = None if ks is None else _generic_pppm(cfg, box, q, style, prec)
+    kspace = ewald
+    if ks is not None and ewald is None:
+        kspace = _generic_pppm(cfg, box, q, style, prec)
     return Simulation(
         system, style, topology=topo, kspace=kspace, bonded=bonded, units=u,
         precision=prec, dt=dt, neighbor=policy, thermostat=thermostat,

@@ -163,7 +163,8 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
      "pair_style": {"name": "buck/coul/long", "cut": 2.5,
                     "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
     {"pair_style": {"name": "buck/coul/cut", "cut": 2.5,
-                    "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
+                    "coeffs": {"1 1": [1.0, 0.2, -0.8]}},
+     "kspace_style": {"name": "ewald", "accuracy": 1e-4}},
     {"replicate": [2, 2, 2]},
     {"fixes": [{"name": "npt", "t_start": 1.0, "t_damp": 0.1,
                 "iso": [0.0, 0.0, 1.0], "xy": [0.0, 0.0, 1.0]}]},

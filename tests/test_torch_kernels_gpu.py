@@ -910,3 +910,119 @@ def test_simulation_on_card_matches_cpu(cuda):
             assert abs(rk[key] - rp[key]) <= 1e-11 * abs(rp[key]), key
     xk, xp = (s.get_atoms()["x"] for s in sims)
     assert np.abs(xk - xp).max() <= 1e-11 * float(sims[1].box.lengths.max())
+
+
+# ---- Ewald (K11a, K11b) and the coul/cut branch of K1 and K9b ----
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_ewald_kernels_match_plain(cuda, flt, acc):
+    """Ewald.compute on the card (K11a then K11b) against
+    ewald_compute_plain on the same card, on 600 jittered random charges
+    in a 14 x 15 x 13 box (a few thousand k vectors): forces, elong and
+    the virial; f32 at the PPPM kernels' tolerances, f64 at 1e-12."""
+    from lammps_buck_intel_tpu_torch.models.kspace import ewald as tewald
+
+    rng = np.random.RandomState(6)
+    Lb = np.array([14.0, 15.0, 13.0])
+    x = rng.uniform(0, 1, (600, 3)) * Lb
+    q = rng.uniform(-1, 1, 600)
+    q -= q.mean()
+    ew = tewald.setup_ewald(make_box([0.0, 0.0, 0.0], Lb), q, cutoff=5.0,
+                            accuracy_rel=1e-6, qqrd2e=14.399645,
+                            acc_dtype=acc)
+    xt = torch.as_tensor(x.T.copy()).to(cuda, flt)
+    qt = torch.as_tensor(q).to(cuda, flt)
+    before = {k: ops.LAUNCHES[k] for k in ("ewald_sk", "ewald_force")}
+    rk = ew.compute(xt, qt, eflag=True, vflag=True)
+    rp = tewald.ewald_compute_plain(ew, xt, qt, True, True)
+    for k, v in before.items():
+        assert ops.LAUNCHES[k] == v + 1, k
+    ftol, etol = (1e-4, 1e-5) if flt == torch.float32 else (1e-12, 1e-12)
+    fk, fp = torch.stack(rk.f), torch.stack(rp.f)
+    assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+    assert abs(float(rk.elong - rp.elong)) <= etol * abs(float(rp.elong))
+    assert float((rk.virial - rp.virial).abs().max()) <= \
+        etol * float(rp.virial.abs().max())
+
+
+def test_ewald_wrappers_reject_bad_input(cuda):
+    from lammps_buck_intel_tpu_torch.models.kspace import ewald as tewald
+    from lammps_buck_intel_tpu_torch.ops import ewald as ewald_ops
+
+    q = np.array([1.0, -1.0])
+    ew = tewald.setup_ewald(make_box([0.0] * 3, [8.0] * 3), q, cutoff=3.0,
+                            accuracy_rel=1e-4, qqrd2e=1.0)
+    c = ew.consts(cuda, torch.float32)
+    xs = tuple(torch.zeros(2, device=cuda) for _ in range(3))
+    with pytest.raises(TypeError):
+        ewald_ops.ewald_sk(xs, torch.zeros(2, device=cuda), c, 1.0,
+                           torch.float16)
+    with pytest.raises(ValueError):
+        ewald_ops.ewald_sk(xs, torch.zeros(3, device=cuda), c, 1.0,
+                           torch.float32)
+    with pytest.raises(ValueError):
+        ewald_ops.ewald_force(tuple(p.cpu() for p in xs), torch.zeros(2), c,
+                              c["ug"], c["ug"], 1.0, torch.float32)
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_cellpair_coul_cut_kernel_matches_plain(cuda, flt, acc):
+    """K1's coul/cut branch (buck/coul/cut, and lj/charmm/coul/cut with the
+    rhodo special table) against compute_cellpair_plain."""
+    grid, box, st, style = _state(cuda, flt, ntypes=2, coul=True)
+    cut = build_buck(2, {(0, 0): (1.0, 0.2, -0.8), (0, 1): (0.9, 0.22, -0.7),
+                         (1, 1): (1.1, 0.18, -0.9)}, cut_global=2.5,
+                     coul="cut", cut_coul=2.2, shift=True, qqrd2e=14.399645)
+    ftol, etol = (1e-11, 1e-11) if flt == torch.float64 else (1e-4, 1e-5)
+    k = compute_cellpair(cut, grid, box, st, eflag=True, vflag=True,
+                         acc_dtype=acc)
+    p = compute_cellpair_plain(cut, grid, box, st, eflag=True, vflag=True,
+                               acc_dtype=acc)
+    fk, fp = (torch.stack([r.fx, r.fy, r.fz]) for r in (k, p))
+    assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+    assert abs(float(p.ecoul)) > 1.0
+    for e in ("evdwl", "ecoul"):
+        assert abs(float(getattr(k, e) - getattr(p, e))) <= \
+            etol * abs(float(getattr(p, e)))
+
+
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_nlist_pair_coul_cut_kernel_matches_plain(cuda, prec):
+    """K9b's coul/cut branch on the rhodo copy's list: lj/charmm/coul/cut
+    with the special codes, and buck/coul/cut (no specials) on the same
+    atoms, against compute_pair_plain."""
+    from lammps_buck_intel_tpu_torch.models.pair import build_lj_charmm
+    from lammps_buck_intel_tpu_torch.models.pair import driver
+
+    sim = _npt_sim(cuda, prec)
+    x, boxL = sim.state.x, sim.state.boxL
+    from lammps_buck_intel_tpu_torch.core.box import traced_lo
+    from lammps_buck_intel_tpu_torch.neighbor import neighbor_list as nlm
+
+    nl = nlm.build_cell(x, traced_lo(sim._center, boxL), boxL, sim.spec,
+                        sim._special)
+    ntypes = sim.pair.tables.shape[0]
+    charmm = build_lj_charmm(
+        ntypes, {t: (0.05 + 0.01 * t, 2.5 + 0.1 * t) for t in range(ntypes)},
+        8.0, 10.0, coul="cut", special_lj=(1.0, 0.0, 0.0, 0.5),
+        special_coul=(1.0, 0.0, 0.0, 0.8), qqrd2e=332.06371)
+    coeffs = {(i, j): (1000.0, 0.3, 10.0) for i in range(ntypes)
+              for j in range(i, ntypes)}
+    buck = build_buck(ntypes, coeffs, cut_global=10.0, coul="cut",
+                      qqrd2e=332.06371)
+    ftol, etol = (1e-4, 1e-5) if prec == "single" else (1e-11, 1e-11)
+    before = ops.LAUNCHES["nlist_pair"]
+    for style, use_special in ((charmm, True), (buck, False)):
+        args = (style, x, sim.typ, sim.q, boxL, nl)
+        kw = dict(eflag=True, acc_dtype=sim.precision.acc,
+                  use_special=use_special)
+        rk = driver.compute_pair(*args, **kw)
+        rp = driver.compute_pair_plain(*args, **kw)
+        fk, fp = torch.stack(rk[:3]), torch.stack(rp[:3])
+        assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+        assert float((rk.virial - rp.virial).abs().max()) <= \
+            etol * float(rp.virial.abs().max())
+        for e in ("evdwl", "ecoul"):
+            assert abs(float(getattr(rk, e) - getattr(rp, e))) <= \
+                etol * abs(float(getattr(rp, e)))
+    assert ops.LAUNCHES["nlist_pair"] == before + 2

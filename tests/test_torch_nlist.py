@@ -19,7 +19,8 @@ package (CPU, f64).
     the virial within 1e-12 relative of the JAX ``driver.compute_pair`` for
     lj/charmm/coul/long with specials (rhodo) and buck/coul/long (the ionic
     box), under the data file's box and under a box dilated by (1, 1,
-    1.02), where the minimum image takes the lengths from a tensor.
+    1.02), where the minimum image takes the lengths from a tensor; and
+    the coul/cut forms of both styles under the data file's box.
 """
 import os
 
@@ -207,18 +208,18 @@ def test_needs_rebuild_matches_jax():
         == [False, True, False]
 
 
-def _styles(system):
+def _styles(system, coul="long"):
     if system == "rhodo":
         j = jstyles.build_lj_charmm(
             2, {0: (0.08, 3.6, 0.04, 3.4), 1: (0.025, 2.4, 0.02, 2.3)},
-            8.0, 10.0, coul="long", cut_coul=10.0,
+            8.0, 10.0, coul=coul, cut_coul=10.0,
             special_lj=(1.0, 0.0, 0.5, 0.25),
             special_coul=(1.0, 0.0, 0.3, 0.8), qqrd2e=QQRD2E)
     else:
         coeffs = {(0, 0): (1388.77, 0.3623, 175.0),
                   (0, 1): (18003.8, 0.2052, 133.5),
                   (1, 1): (2000.0, 0.3, 50.0)}
-        j = jstyles.build_buck(2, coeffs, cut_global=6.0, coul="long",
+        j = jstyles.build_buck(2, coeffs, cut_global=6.0, coul=coul,
                                qqrd2e=QQRD2E)
     j = j.replace(g_ewald=0.3)
     cfg = j.cfg
@@ -231,13 +232,10 @@ def _styles(system):
     return j, t
 
 
-@pytest.mark.parametrize("system", ["rhodo", "ionic"])
-@pytest.mark.parametrize("dilate", [False, True])
-@pytest.mark.parametrize("eflag", [False, True])
-def test_compute_pair_matches_jax(system, dilate, eflag):
+def _compute_pair_case(system, dilate, eflag, coul):
     x, lo, L, typ, q, sp_idx, sp_code = _systems(system)
     n = len(x)
-    jstyle, tstyle = _styles(system)
+    jstyle, tstyle = _styles(system, coul)
     cut = float(np.sqrt(jstyle.cutsq_max)) + 2.0
     jl, spec = jnl.build_with_retry(
         jnp.asarray(x), jmake_box(lo, lo + L), jnl.make_spec(n, L, cut),
@@ -279,3 +277,16 @@ def test_compute_pair_matches_jax(system, dilate, eflag):
             assert abs(float(getattr(tr, name)) - ej) <= 1e-12 * abs(ej), name
     else:
         assert float(tr.evdwl) == 0.0 and float(tr.ecoul) == 0.0
+
+
+@pytest.mark.parametrize("system", ["rhodo", "ionic"])
+@pytest.mark.parametrize("dilate", [False, True])
+@pytest.mark.parametrize("eflag", [False, True])
+def test_compute_pair_matches_jax(system, dilate, eflag):
+    _compute_pair_case(system, dilate, eflag, "long")
+
+
+@pytest.mark.parametrize("system", ["rhodo", "ionic"])
+@pytest.mark.parametrize("eflag", [False, True])
+def test_compute_pair_coul_cut_matches_jax(system, eflag):
+    _compute_pair_case(system, False, eflag, "cut")

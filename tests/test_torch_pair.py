@@ -8,8 +8,9 @@ The two differ only in summation order.  Both for buck and for
 buck/coul/long on a charged system (Ewald real space, A&S erfc), and for
 lj/charmm/coul/long with special bonds (the energy switch on both sides of
 the inner cutoff, the subtractive Coulomb special) on the 1,728-atom
-rhodo-class box; buck/coul/cut, Ewald dispersion and the lj/cut family
-raise.
+rhodo-class box; buck/coul/cut and lj/charmm/coul/cut (the plain Coulomb
+term inside its cutoff, the special factor scaling it) the same way;
+Ewald dispersion and the lj/cut family raise.
 """
 import numpy as np
 import pytest
@@ -230,8 +231,12 @@ def test_compute_cellpair_coul_long_matches_jax(ntypes, reach_z):
 
 
 def test_unported_coulomb_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tstyles.build_buck(1, COEFFS_1, cut_global=2.5, coul="cut")
+    """The Coulomb and dispersion forms the port does not carry raise:
+    Ewald-split dispersion, the lj/cut family, lj/charmm without a
+    Coulomb term; an unknown Coulomb form is refused.  (buck/coul/cut and
+    lj/charmm/coul/cut are ported: test_*_coul_cut_* below.)"""
+    with pytest.raises(ValueError, match="Coulomb form"):
+        tstyles.build_buck(1, COEFFS_1, cut_global=2.5, coul="wolf")
     with pytest.raises(NotImplementedError, match="item 13"):
         tstyles.build_buck(1, COEFFS_1, cut_global=2.5, disp="long")
     # styles the JAX package has and the port does not
@@ -239,15 +244,15 @@ def test_unported_coulomb_raises():
     rsq = torch.full((4,), 2.0, dtype=torch.float64)
     coef = {n: float(t.tables[0, 0, c])
             for c, n in enumerate(tstyles.COEF_NAMES)}
-    for vdw, coul, disp in (("lj", "long", "cut"), ("buck", "cut", "cut"),
+    for vdw, coul, disp in (("lj", "long", "cut"), ("lj", "cut", "cut"),
                             ("buck", "long", "long"),
                             ("ljcharmm", "none", "cut")):
         bad = t.replace(cfg=tstyles.PairConfig("x", vdw, coul, disp))
         with pytest.raises(NotImplementedError):
             tstyles.pair_terms(bad, rsq, coef, 1.0, -1.0, 1.0, 1.0,
                                eflag=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tstyles.build_lj_charmm(1, {0: (0.1, 3.0)}, 8.0, 10.0, coul="cut")
+    with pytest.raises(NotImplementedError, match="Coulomb term"):
+        tstyles.build_lj_charmm(1, {0: (0.1, 3.0)}, 8.0, 10.0, coul="none")
     assert not hasattr(tstyles, "build_lj")
 
 
@@ -429,3 +434,96 @@ def test_compute_cellpair_special_matches_jax():
     assert tcellpair.make_special_table(np.zeros((n, 0), np.int32),
                                         np.zeros((n, 0), np.int8),
                                         "cpu") is None
+
+
+# coul/cut: buck with a Coulomb cutoff of its own (the tables' last
+# column), and lj/charmm/coul/cut with the special factors scaling it
+def _coul_cut_styles(ntypes):
+    coeffs = COEFFS_1 if ntypes == 1 else COEFFS_2
+    kw = dict(cut_global=2.5, coul="cut", cut_coul=2.2, qqrd2e=QQRD2E,
+              shift=True)
+    return (jstyles.build_buck(ntypes, coeffs, dtype=jnp.float64, **kw),
+            tstyles.build_buck(ntypes, coeffs, **kw))
+
+
+@pytest.mark.parametrize("ntypes", [1, 2])
+def test_build_buck_coul_cut_identical(ntypes):
+    j, t = _coul_cut_styles(ntypes)
+    assert np.array_equal(j.tables, t.tables)
+    assert t.cfg.coul == "cut" and t.cfg.name == "buck/coul/cut"
+    p = _to_port(j)
+    assert np.array_equal(p.tables, t.tables) and p.cfg == t.cfg
+    for f in ("cutsq_max", "qqrd2e"):
+        assert getattr(j, f) == getattr(t, f) == getattr(p, f), f
+    jc, tc = (m.build_lj_charmm(1, {0: (0.1, 3.0)}, 8.0, 10.0, coul="cut",
+                                cut_coul=11.0)
+              for m in (jstyles, tstyles))
+    assert np.array_equal(jc.tables, tc.tables)
+    assert jc.cutsq_max == tc.cutsq_max == 121.0
+    assert tc.cfg.name == "lj/charmm/coul/cut"
+
+
+@pytest.mark.parametrize("vdw,special", [("buck", False), ("ljcharmm", False),
+                                         ("ljcharmm", True)])
+def test_pair_terms_coul_cut_matches_jax(vdw, special):
+    """The plain Coulomb term on both sides of the Coulomb cutoff (strict),
+    with and without special factors: forces and both energies to rel
+    1e-12 of the JAX pair_terms."""
+    if vdw == "buck":
+        j, t = _coul_cut_styles(2)
+        rsq = np.concatenate([np.random.default_rng(5).uniform(
+            0.5, 8.0, 4000), [4.84, 6.25]])
+    else:
+        j, t = _charmm_styles(coul="cut")
+        rsq = np.concatenate([np.random.default_rng(6).uniform(
+            1.0, 120.0, 4000), [100.0]])
+    rng = np.random.default_rng(9)
+    qi, qj = rng.uniform(-1.5, 1.5, (2, rsq.size))
+    tt = rng.integers(0, 4, size=rsq.shape)
+    flat = j.tables.reshape(4, -1)
+    jcoef = {n: jnp.asarray(flat[tt, c])
+             for c, n in enumerate(jstyles.COEF_NAMES)}
+    tcoef = {n: torch.as_tensor(flat[tt, c])
+             for c, n in enumerate(tstyles.COEF_NAMES)}
+    if special:
+        code = rng.integers(0, 4, size=rsq.shape)
+        jfac = (jnp.asarray(j.special_lj[code]),
+                jnp.asarray(j.special_coul[code]))
+        tfac = (torch.as_tensor(t.special_lj[code]),
+                torch.as_tensor(t.special_coul[code]))
+    else:
+        jfac = tfac = (1.0, 1.0)
+    jout = jstyles.pair_terms(j, jnp.asarray(rsq), jcoef, jnp.asarray(qi),
+                              jnp.asarray(qj), *jfac, eflag=True)
+    tout = tstyles.pair_terms(t, torch.as_tensor(rsq), tcoef,
+                              torch.as_tensor(qi), torch.as_tensor(qj),
+                              *tfac, eflag=True)
+    ecoul = np.asarray(jout[2])
+    assert np.abs(ecoul).max() > 1.0 and ecoul[-1] == 0.0   # cut, strict
+    for a, b in zip(jout, tout):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-12,
+                                   atol=1e-12 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("ntypes,reach_z", [(2, 1), (1, 2)])
+def test_compute_cellpair_coul_cut_matches_jax(ntypes, reach_z):
+    box, grid, jst, tgrid, tst = _jittered(ntypes, reach_z, charged=True)
+    jstyle, _ = _coul_cut_styles(ntypes)
+    tstyle = _to_port(jstyle)
+    jr = jcellpair.compute_cellpair(jstyle, grid, box, jst, eflag=True,
+                                    vflag=True, acc_dtype=jnp.float64)
+    tr = tcellpair.compute_cellpair(tstyle, tgrid, box, tst, eflag=True,
+                                    vflag=True, acc_dtype=torch.float64)
+    n = grid.n_atoms
+    aid = np.asarray(jst.aid)
+    fj = _atom_order(aid, n, jr.fx, jr.fy, jr.fz)
+    ft = _atom_order(aid, n, tr.fx, tr.fy, tr.fz)
+    assert np.abs(ft - fj).max() <= 1e-10 * np.abs(fj).max()
+    for name in ("evdwl", "ecoul"):
+        ej = float(getattr(jr, name))
+        assert abs(ej) > 1.0, name
+        assert abs(float(getattr(tr, name)) - ej) <= 1e-10 * abs(ej), name
+    vj = np.asarray(jr.virial)
+    np.testing.assert_allclose(tr.virial.numpy(), vj, rtol=1e-10,
+                               atol=1e-10 * np.abs(vj).max())

@@ -21,7 +21,12 @@ length and cadence of every ``_advance``).
     (buck/coul/long 10 A + PPPM order 7 on the generic mesh), NVE, 10
     steps: the dense build (one cell along z) and K10;
 (d) rhodo_class.yaml with ``engine: nlist`` (1,728 atoms, the binned
-    build), NVT + SHAKE + bonded terms + PPPM order 5, 10 steps.
+    build), NVT + SHAKE + bonded terms + PPPM order 5, 10 steps;
+(e) cristobalite_ewald.yaml's stack (buck/coul/long + ewald 1e-6, every 1
+    check yes) on the same jittered copy, its cutoff cut from 12 to 10 A
+    to fit one copy (the dense build, the same k set in both packages);
+(f) cristobalite_coul_cut.yaml (buck/coul/cut 10 A, no k-space: elong 0,
+    the Coulomb energy in ecoul) on the same copy.
 """
 import copy
 import os
@@ -52,14 +57,13 @@ def _deck(name, **kw):
     return cfg
 
 
-def _cristobalite(tmp_path):
+def _cristobalite(tmp_path, deck="cristobalite_pppm_nlist.yaml"):
     sys.path.insert(0, os.path.join(ROOT, "examples"))
     import gen_cristobalite
 
     path = os.path.join(tmp_path, "data.cristobalite_jitter")
     gen_cristobalite.write(path, jitter_amp=0.1)
-    return _deck("cristobalite_pppm_nlist.yaml", read_data=path,
-                 replicate=[1, 1, 1])
+    return _deck(deck, read_data=path, replicate=[1, 1, 1])
 
 
 def _case(name, tmp_path):
@@ -72,6 +76,12 @@ def _case(name, tmp_path):
         return cfg, 20, 7
     if name == "cristobalite_pppm":
         return _cristobalite(tmp_path), 10, 5
+    if name == "cristobalite_ewald":
+        cfg = _cristobalite(tmp_path, "cristobalite_ewald.yaml")
+        cfg["pair_style"]["cut"] = 10.0
+        return cfg, 10, 5
+    if name == "cristobalite_coul_cut":
+        return _cristobalite(tmp_path, "cristobalite_coul_cut.yaml"), 10, 5
     cfg = _deck("rhodo_class.yaml", engine="nlist",
                 read_data=os.path.join(ROOT, "examples", "data.rhodo_class"))
     return cfg, 10, 5
@@ -94,7 +104,9 @@ def _advances(monkeypatch, cls):
 
 
 @pytest.mark.parametrize("name", ["dense_every5", "dense_check",
-                                  "cristobalite_pppm", "rhodo_nlist"])
+                                  "cristobalite_pppm", "rhodo_nlist",
+                                  "cristobalite_ewald",
+                                  "cristobalite_coul_cut"])
 def test_simulation_matches_jax(name, tmp_path, monkeypatch):
     cfg, steps, every = _case(name, str(tmp_path))
     jsim = jrun.build_simulation(copy.deepcopy(cfg))
@@ -102,9 +114,16 @@ def test_simulation_matches_jax(name, tmp_path, monkeypatch):
     assert isinstance(jsim, JSimulation) and isinstance(tsim, Simulation)
     assert tsim.spec.dense == jsim.spec.dense == (name != "rhodo_nlist")
     assert (tsim.spec.kmax, tsim.spec.nc) == (jsim.spec.kmax, jsim.spec.nc)
-    if tsim.kspace is not None:
+    assert (tsim.kspace is None) == (jsim.kspace is None)
+    if name == "cristobalite_ewald":
+        assert np.array_equal(tsim.kspace.kvecs, jsim.kspace.kvecs)
+        assert np.array_equal(tsim.kspace.ug, jsim.kspace.ug)
+        assert tsim.kspace.g_ewald == jsim.kspace.g_ewald
+    elif tsim.kspace is not None:
         assert tsim.kspace.grid == tuple(jsim.kspace.grid)
         assert tsim.kspace.g_ewald == jsim.kspace.g_ewald
+    if name == "cristobalite_coul_cut":
+        assert tsim.kspace is None and tsim.pair.cfg.coul == "cut"
     if name == "rhodo_nlist":
         assert tsim.shake is not None and tsim.thermostat is not None
         assert tsim.bonded is not None and tsim._special is not None
@@ -129,6 +148,8 @@ def test_simulation_matches_jax(name, tmp_path, monkeypatch):
         for key in ROW_KEYS:
             _close(tr[key], jr[key], (jr["step"], key))
         assert not tr["overflow"]
+        if name == "cristobalite_coul_cut":
+            assert tr["elong"] == 0.0 and tr["ecoul"] < -1e3
     L = np.asarray(tsim.box.lengths)
     js = jsim.state
     st = tsim.state

@@ -9,7 +9,8 @@ untraced for the step time, then the same number of steps under
 ``torch.profiler`` (``utils/device_trace.py``).  Device kernel time is summed by kernel and grouped
 into the port's layers: pair (csrc/cellpair.cu, or csrc/nlist.cu's pair
 pass on the neighbor-list engines), nlist build (csrc/nlist.cu: the
-binned and the dense builds), npt (csrc/npt.cu:
+binned and the dense builds), ewald (csrc/ewald.cu: the structure
+factors, the forces), npt (csrc/npt.cu:
 the traced influence function, the barostat's per-atom passes), pppm
 kernels
 (csrc/pppm.cu), pppm FFTs (cuFFT under torch.fft), bonded
@@ -49,6 +50,8 @@ LAYERS = (
              "npt_vscale_kick_kernel", "npt_drift_dilate_kernel")),
     ("pppm kernels", ("pppm_deposit_kernel", "pppm_spectral_kernel",
                       "pppm_gather_kernel")),
+    ("ewald", ("sk_partial_kernel", "sk_finish_kernel",
+               "force_partial_kernel", "force_finish_kernel")),
     ("pppm fft", ("fft",)),
     ("bonded", ("bond_angle_kernel", "dihedral_charmm_kernel",
                 "improper_harmonic_kernel")),
