@@ -7,7 +7,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: nvcc builds csrc/cellpair.cu, csrc/rebin.cu, csrc/pppm.cu,
      csrc/bonded.cu, csrc/verlet.cu, csrc/shake.cu, csrc/nlist.cu,
-     csrc/npt.cu and csrc/ewald.cu from the checkout into
+     csrc/npt.cu, csrc/ewald.cu, csrc/pppm_disp.cu and csrc/rigid.cu from
+     the checkout into
      lammps_buck_intel_tpu_torch/_build/, one nvcc per source, all started
      together;
   3. K1, the cell-pair kernel, against its plain torch version on the card
@@ -113,7 +114,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      atoms, 100 steps, f32: step 0 against the record scaled from 11,520
      atoms, elong 0; the deck conserves no energy (the truncated Coulomb
      sum), so its drift is held to the deck's f64 run on the card, whose
-     rows and drift at the record's 11,520 atoms equal the JAX record's).
+     rows and drift at the record's 11,520 atoms equal the JAX record's);
+ 13. the hexane path (lj/long/coul/long coul off + pppm/disp + fix
+     rigid/small on the cell engine, examples/decks/hexane_gen.yaml: the
+     reference's in.hexane on the generated liquid of
+     examples/gen_hexane.py): K1's lj/long branch with the same-molecule
+     mol plane, K5 / K12a (csrc/pppm_disp.cu: one and seven channels) /
+     K8 on the dispersion mesh and K15a-c (csrc/rigid.cu, at both lane
+     widths) against their plain versions at 6,000 atoms in f64 and f32;
+     the deck in f64 (50 steps, thermo 10) against the JAX package's
+     record (tests/goldens/torch_disp.json, re-recorded on the CPU with
+     `python tools/record_hexane.py`: mesh, g_ewald_6, cells, the host
+     terms of elong, every row within 1e-9, positions and images at step
+     50); the deck unedited in f32 (6,000 atoms, 200 steps: step-0 epair,
+     elong, etotal within 2e-5 of the record, the relative drift under
+     5e-4) and hexane_gen_big.yaml (192,000 atoms: step 0 against the
+     record scaled to 32 copies, the same drift gate), every kernel of
+     the path launched; the kernels timed at the big deck's state beside
+     their plain versions, bounds and library calls.
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -324,10 +342,12 @@ def jittered_state(cfg: dict, precision: str, amp: float = 0.1):
     return sim, st
 
 
-def pairs_in_cutoff(style, grid, box, st, rsq_min: float = -1.0) -> int:
+def pairs_in_cutoff(style, grid, box, st, rsq_min: float = -1.0,
+                    slot_mol=None) -> int:
     """Unordered pairs of this state within the style's largest cutoff
-    (and beyond rsq_min): the pair work the function needs (the kernel
-    tests every candidate of the full stencil, from both sides)."""
+    (and beyond rsq_min; of two molecules with ``slot_mol``): the pair
+    work the function needs (the kernel tests every candidate of the full
+    stencil, from both sides)."""
     ncell, cap, n = grid.ncell, grid.cap, grid.n_atoms
     offs = full_offsets(grid.reach_z)
     S = offs.shape[0]
@@ -351,6 +371,9 @@ def pairs_in_cutoff(style, grid, box, st, rsq_min: float = -1.0) -> int:
         aj = aid[js].reshape(c1 - c0, 1, S * cap)
         ok = ((ai < n) & (aj < n) & (ai != aj) & (rsq < style.cutsq_max)
               & (rsq > rsq_min))
+        if slot_mol is not None:
+            mol = slot_mol.view(ncell, cap)
+            ok &= mol[c0:c1, :, None] != mol[js].reshape(c1 - c0, 1, S * cap)
         total += int(ok.sum())
     return total // 2
 
@@ -406,16 +429,19 @@ def phase_build():
                     print(f"[build]   {line.strip()}")
 
 
-def _k1_compare(label, style, grid, box, st, acc, special=None):
+def _k1_compare(label, style, grid, box, st, acc, special=None,
+                slot_mol=None):
     """Kernel vs plain, force-only and with e/v; returns the f32/f64
     force-only max |df|."""
     ftol, etol = TOL[st.x.dtype]
     abs_err = 0.0
     for ev in (False, True):
         k = compute_cellpair(style, grid, box, st, eflag=ev, vflag=ev,
-                             acc_dtype=acc, special=special)
+                             acc_dtype=acc, special=special,
+                             slot_mol=slot_mol)
         p = compute_cellpair_plain(style, grid, box, st, eflag=ev, vflag=ev,
-                                   acc_dtype=acc, special=special)
+                                   acc_dtype=acc, special=special,
+                                   slot_mol=slot_mol)
         torch.cuda.synchronize()
         fk = torch.stack([k.fx, k.fy, k.fz])
         fp = torch.stack([p.fx, p.fy, p.fz])
@@ -2843,6 +2869,467 @@ def phase_coul_cut(rec: dict):
     return out
 
 
+# ---- the hexane path: lj/long + pppm/disp (K12a) + fix rigid/small (K15) ----
+
+HEX_DECK, HEX_BIG = "hexane_gen.yaml", "hexane_gen_big.yaml"
+HEX_COPIES = 32          # hexane_gen_big.yaml: replicate [2, 4, 4]
+HEX_PATH = ("cellpair", "rebin_incremental", "pppm_deposit", "disp_spectral",
+            "pppm_gather", "rigid_force_torque", "rigid_update",
+            "rigid_virial", "verlet_ke")
+# f64 on the card against the JAX record (tests/goldens/torch_disp.json):
+# the CPU parity tolerance of tests/test_torch_rigid.py
+HEX_F64_TOL = 1e-9
+# f32 step-0 thermo against the record: the bound the JAX suite grants its
+# two dispersion pipelines (tests/test_hexane.py:80-81)
+HEX_F32_TOL = 2e-5
+# relative etotal drift of the f32 run: tests/test_hexane.py:53's gate, or
+# the record's own drift plus it where the JAX f64 run drifts more
+HEX_DRIFT = 5e-4
+# per pair inside the cutoff (lj/long, disp long): distance 8, clamp 1,
+# 1/r^2 and r 2, r^-6 2, lj1 r^-12 2, g6^2 r^2 1, 1/x 1, exp 1, x2 2, the
+# polynomial 7, the force 3, scalar 1, both atoms' forces 9
+OPS_PAIR_DISP = 40
+# K12a per half-spectrum point and channel: chi 2 (one channel), phi 2,
+# three ik spectra 6
+OPS_DISP_SPECTRAL_PT = 10
+# K15a per atom: the force (3), d x f (9), the sums (6); K15b per body
+# (initial form): the kicks and drift 15, Richardson's four qdot (~50
+# each) and normalisations (~12 each), per atom the rotation 27 and the
+# position 6; K15c per body ~80 (two rotations, Euler), per atom ~40
+OPS_RIGID_FT_ATOM = 18
+OPS_RIGID_UPDATE_BODY, OPS_RIGID_UPDATE_ATOM = 263, 33
+OPS_RIGID_VIRIAL_BODY, OPS_RIGID_VIRIAL_ATOM = 80, 40
+
+
+def _hex_sim(name: str, precision: str, **kw):
+    cfg = load_deck(name)
+    cfg.update(precision=precision, **kw)
+    return cfg, build_simulation(cfg, device="cuda")
+
+
+def _hex_disp_stages(label, sim, st, out=None):
+    """K5, K12a and K8 on the dispersion mesh against their plain versions
+    (the dispersion charge B[type] of each slot as q); K12a with e/v and
+    without, and with the seven arithmetic channels of the deck's eps,
+    sigma on the same mesh (its channel loop).  Returns the largest force
+    difference."""
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_disp as pd
+
+    solver = sim.kspace
+    pm, pmd = solver.pm, solver.pmd
+    flt, acc, n = st.x.dtype, pmd.acc_dtype, sim.n_atoms
+    ftol, etol = TOL[flt]
+    c = pmd.consts(st.x.device, flt)
+    bst = st._replace(q=solver._slot_b(st))
+    res = {}
+    mesh_k = pppm_ops.deposit(pm, bst, n, c["coef"])
+    mesh_p = pppm_cells.deposit_plain(pm, bst)
+    _pppm_compare(label, "deposit_disp", mesh_k, mesh_p, ftol, res)
+    S = torch.fft.rfftn(mesh_p.to(acc)).contiguous()[None]
+    for ev in (False, True):
+        ek, esk, vsk = pd.disp_spectral(c, S, pmd.P, ev)
+        ep, esp, vsp = pd.disp_spectral_plain(c, S, pmd.P, ev)
+        _pppm_compare(label, "disp_spectral", torch.view_as_real(ek),
+                      torch.view_as_real(ep), ftol, res)
+        if ev:
+            e_err, v_err = scalar_rel(esk, esp), rel_err(vsk, vsp)
+            print(f"[K12a] {label} e/v: energy sum rel {e_err:.3e}, virial "
+                  f"rel {v_err:.3e}")
+            if not (e_err <= etol and v_err <= etol):
+                raise AssertionError(f"K12a {label}: energy or virial off")
+    e_mesh = (torch.fft.irfftn(ep[0], s=pm.grid, dim=(1, 2, 3))
+              * (float(np.prod(pm.grid)) / pm.volume)).to(flt).contiguous()
+    fk = torch.stack(pppm_ops.gather(pm, bst, e_mesh, n, acc, c["coef"]))
+    fp = torch.stack(pppm_cells.gather_plain(pm, bst, e_mesh, acc))
+    _pppm_compare(label, "gather_disp", fk, fp, ftol, res)
+    # the arithmetic channels (A, P of the deck's eps and sigma)
+    eps = np.array([0.1744742, 0.1147228])
+    A, P = pd.mixing_channels("arithmetic", epsilon=eps,
+                              sigma=np.array([3.97, 3.97]))
+    a = torch.as_tensor(A).to(st.x.device, flt)[:, st.typ.long()]
+    a = torch.where(st.aid < n, a, torch.zeros_like(a))
+    S7 = torch.fft.rfftn(torch.stack([
+        pppm_cells.deposit_plain(pm, st._replace(q=a[ch].contiguous()))
+        for ch in range(A.shape[0])]).to(acc), dim=(1, 2, 3)).contiguous()
+    ek, esk, vsk = pd.disp_spectral(c, S7, P, True)
+    ep, esp, vsp = pd.disp_spectral_plain(c, S7, P, True)
+    _pppm_compare(label + " 7 channels", "disp_spectral",
+                  torch.view_as_real(ek), torch.view_as_real(ep), ftol, {})
+    e_err, v_err = scalar_rel(esk, esp), rel_err(vsk, vsp)
+    print(f"[K12a] {label} 7 channels e/v: energy sum rel {e_err:.3e}, "
+          f"virial rel {v_err:.3e}")
+    if not (e_err <= etol and v_err <= etol):
+        raise AssertionError(f"K12a {label} 7 channels: energy or virial off")
+    if out is not None:
+        out.update(res)
+    return float((fk - fp).abs().max())
+
+
+def _hex_rigid_stages(label, sim, st, width=None):
+    """K15a, K15b (its three forms) and K15c against their plain versions
+    on the state's bodies and slot layout, with the forces of this state.
+    Returns the largest absolute differences: body force and torque, the
+    initial form's positions, the virial."""
+    from lammps_buck_intel_tpu_torch.integrate import rigid as rgd
+
+    t, acc = sim._rt, sim.precision.acc
+    ftol, etol = TOL[st.x.dtype]
+    inv = sim._inv_map(st)
+    fa, fb, *_ = sim._forces(st, False, False, sim._slot_mol(st))
+
+    def check(name, k, p, tol, scale=None):
+        scale = float(p.abs().max()) if scale is None else scale
+        err = float((k - p).abs().max()) / max(scale, 1e-300)
+        if not err <= tol:
+            raise AssertionError(f"K15 {name} {label} width {width}: "
+                                 f"{err:.3e} > {tol}")
+        return err
+
+    def cl(planes):
+        return tuple(p.clone() for p in planes)
+
+    fo_k, fo_p = cl((st.fx, st.fy, st.fz)), cl((st.fx, st.fy, st.fz))
+    Fk, Tk = rgd.slot_force_torque(t, sim._d, inv, fa, fb, fo_k, width)
+    Fp, Tp = rgd.slot_force_torque_plain(t, sim._d, inv, fa, fb, fo_p)
+    errs = {"F": check("F", Fk, Fp, ftol), "T": check("T", Tk, Tp, ftol),
+            "f_out": check("f_out", torch.stack(fo_k), torch.stack(fo_p),
+                           ftol)}
+    vk = rgd.slot_constraint_virial(t, sim.body, sim._d, inv, fa, fb, Tp,
+                                    sim.units.ftm2v, acc, width)
+    vp = rgd.slot_constraint_virial_plain(t, sim.body, sim._d, inv, fa, fb,
+                                          Tp, sim.units.ftm2v, acc)
+    errs["virial"] = check("virial", vk, vp, etol)
+    off_k = tuple(torch.zeros_like(st.x) for _ in range(3))
+    off_p = tuple(torch.zeros_like(st.x) for _ in range(3))
+    for mode, name in ((rgd.MODE_OFFSETS, "offsets"),
+                       (rgd.MODE_INITIAL, "initial"),
+                       (rgd.MODE_FINAL, "final")):
+        bk, bp = sim.body.clone(), sim.body.clone()
+        dk, dp = sim._d.clone(), sim._d.clone()
+        pk = cl((st.vx, st.vy, st.vz) if mode == rgd.MODE_FINAL
+                else (st.x, st.y, st.z))
+        pp = cl(pk)
+        rgd.rigid_update(t, bk, dk, inv, pk, off_k, Fp, Tp, sim.dtv,
+                         sim.dtf, mode, width)
+        rgd.rigid_update_plain(t, bp, dp, inv, pp, off_p, Fp, Tp, sim.dtv,
+                               sim.dtf, mode)
+        for field, a, b in zip(("X", "V", "q", "L"), bk, bp):
+            errs[f"{name} {field}"] = check(f"{name} {field}", a, b, ftol)
+        errs[f"{name} d"] = check(f"{name} d", dk, dp, ftol)
+        scale = float(torch.stack(pp).abs().max())
+        errs[f"{name} planes"] = check(f"{name} planes", torch.stack(pk),
+                                       torch.stack(pp), ftol, scale)
+        if mode == rgd.MODE_OFFSETS:
+            # x - (X + d) is zero to rounding: held to the positions' scale
+            errs["offsets off"] = check("off", torch.stack(off_k),
+                                        torch.stack(off_p), ftol, scale)
+        if mode == rgd.MODE_INITIAL:
+            pos_err = float((torch.stack(pk) - torch.stack(pp)).abs().max())
+    print(f"[K15] {label} width {width}: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    return dict(ft=float(max((Fk - Fp).abs().max(), (Tk - Tp).abs().max())),
+                update=pos_err, virial=float((vk - vp).abs().max()))
+
+
+def phase_hexane_kernels():
+    """K1's lj/long + exclusion branch, K5 / K12a / K8 on the dispersion
+    mesh and K15a-c against their plain versions on hexane_gen.yaml's
+    6,000 atoms, f64 and f32 (K15 at both lane widths)."""
+    for prec in ("double", "single"):
+        _, sim = _hex_sim(HEX_DECK, prec)
+        st, acc = sim.state, sim.precision.acc
+        label = f"hexane/{prec}"
+        _k1_compare(label, sim.pair, sim.grid, sim.box, st, acc,
+                    slot_mol=sim._slot_mol(st))
+        _hex_disp_stages(label, sim, st)
+        for width in (None, 32):
+            _hex_rigid_stages(label, sim, st, width)
+        del sim, st
+        torch.cuda.empty_cache()
+
+
+def _row_close(a, b, tol):
+    return abs(a - b) <= tol * max(abs(b), 1.0)
+
+
+def phase_hexane_record(rec: dict):
+    """hexane_gen.yaml in f64 on the card, 50 steps, thermo every 10,
+    against the JAX package's record: the mesh, g_ewald_6, the cell grid,
+    the removed degrees of freedom and the host terms of elong to 1e-12,
+    every row within HEX_F64_TOL (of max(|value|, 1)), the positions of
+    every 60th atom at step 50 within HEX_F64_TOL of the box length and
+    their image flags."""
+    s0, tr = rec["step0"], rec["traj"]
+    ops.reset_launches()
+    _, sim = _hex_sim(HEX_DECK, "double")
+    pmd = sim.kspace.pmd
+    if (list(pmd.grid) != s0["mesh"] or pmd.g_ewald_6 != s0["g_ewald_6"]
+            or list(sim.grid.nc) != s0["nc"] or sim.grid.cap != s0["cap"]
+            or sim.rigid.n_constraints != s0["n_constraints"]
+            or abs(sim.kspace.elong_const - s0["elong_const"])
+            > 1e-12 * abs(s0["elong_const"])):
+        raise AssertionError(
+            f"hexane record: mesh {pmd.grid} g6 {pmd.g_ewald_6} cells "
+            f"{sim.grid.nc} cap {sim.grid.cap} Nc {sim.rigid.n_constraints} "
+            f"elong_const {sim.kspace.elong_const!r} differ from the "
+            "record's")
+    rows = sim.run(tr["steps"], thermo_every=tr["every"], log=False)
+    ran = dict(ops.LAUNCHES)
+    worst = 0.0
+    for r, want in zip(rows, tr["rows"]):
+        for k in ("temp", "evdwl", "elong", "epair", "ke", "etotal",
+                  "press"):
+            err = abs(r[k] - want[k]) / max(abs(want[k]), 1.0)
+            worst = max(worst, err)
+            if not err <= HEX_F64_TOL:
+                raise AssertionError(
+                    f"hexane f64 row {r['step']} {k}: {r[k]!r} vs record "
+                    f"{want[k]!r}")
+    atoms = sim.get_atoms()
+    sel = np.asarray(tr["atoms"])
+    L = float(np.max(np.asarray(sim.box.lengths)))
+    x_err = float(np.abs(atoms["x"][sel] - np.asarray(tr["x_end"])).max())
+    if (len(rows) != len(tr["rows"]) or not x_err <= HEX_F64_TOL * L
+            or not np.array_equal(atoms["image"][sel],
+                                  np.asarray(tr["image_end"]))
+            or any(ran[k] <= 0 for k in HEX_PATH)):
+        raise AssertionError(f"hexane f64: {len(rows)} rows, positions "
+                             f"{x_err:.3e}, launches {ran}")
+    print(f"[hexane record] f64 {sim.n_atoms} atoms x {tr['steps']} steps: "
+          f"rows within {worst:.3e} of the record (tol {HEX_F64_TOL}), "
+          f"positions {x_err:.3e} A, images equal; mesh {pmd.grid} cells "
+          f"{sim.grid.nc} cap {sim.grid.cap}; step-0 elong "
+          f"{rows[0]['elong']:.10g} = mesh sum "
+          f"{rows[0]['elong'] - sim.kspace.elong_const:.10g} + host terms "
+          f"{sim.kspace.elong_const:.10g} (record {s0['elong_mesh']:.10g} + "
+          f"{s0['elong_const']:.10g})")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def _hex_deck_run(name, rec, copies=1):
+    """A hexane deck unedited through build_simulation and run on the card
+    in f32, launch counts set to 0 just before and read just after:
+    every kernel of HEX_PATH launched, finite rows, step 0 against the
+    record (scaled to ``copies``; epair, elong, etotal within HEX_F32_TOL
+    of max(|value|, 1) at one copy, the _STEP0_FIELDS rule at 32), the
+    relative etotal drift under the gate.  Returns the launches, ms/step,
+    the sim and the drift."""
+    s0 = rec["step0"]["row"]
+    gate = max(HEX_DRIFT, rec["deck"]["drift"] + HEX_DRIFT) \
+        if rec["deck"]["drift"] > HEX_DRIFT else HEX_DRIFT
+    cfg = load_deck(name)
+    ops.reset_launches()
+    sim = build_simulation(cfg, device="cuda")
+    steps = int(cfg["run"])
+    rows = sim.run(steps, thermo_every=int(cfg["thermo"]), log=False)
+    ran = dict(ops.LAUNCHES)
+    missing = [k for k in HEX_PATH if ran[k] <= 0]
+    if missing or rows[-1]["step"] != steps:
+        raise AssertionError(f"{name}: kernels not launched {missing}")
+    for r in rows:
+        for k in ("temp", "epair", "etotal", "press"):
+            if not np.isfinite(r[k]):
+                raise AssertionError(f"{name}: non-finite {k}")
+    row = rows[0]
+    if copies == 1:
+        for k in ("epair", "elong", "etotal"):
+            if not _row_close(row[k], s0[k], HEX_F32_TOL):
+                raise AssertionError(f"{name} step-0 {k}: {row[k]:.8g} vs "
+                                     f"record {s0[k]:.8g}")
+    else:
+        ext = ("evdwl", "ecoul", "elong", "emol", "epair", "ke", "etotal")
+        step0_check(name, row, {k: s0[k] * (copies if k in ext else 1)
+                                for k in s0}, sim.n_atoms)
+    e0 = row["etotal"]
+    drift = max(abs(r["etotal"] - e0) for r in rows) / abs(e0)
+    wall = sim.timings["run"]
+    print(f"[hexane] {name}: {sim.n_atoms} atoms x {steps} steps in "
+          f"{wall:.3f} s -> {sim.n_atoms * steps / wall:,.0f} atom-steps/s, "
+          f"{1e3 * wall / steps:.4f} ms/step (thermo every {cfg['thermo']}); "
+          f"mesh {sim.kspace.pmd.grid} cells {sim.grid.nc} cap "
+          f"{sim.grid.cap}; step 0 epair {row['epair']:.8g} elong "
+          f"{row['elong']:.8g} etotal {e0:.8g} (record x{copies}: "
+          f"{s0['epair'] * copies:.8g}, {s0['elong'] * copies:.8g}, "
+          f"{s0['etotal'] * copies:.8g}); rows " + ", ".join(
+              f"{r['etotal']:.8g} @ {r['step']}" for r in rows)
+          + f"; drift {drift:.3e} (gate {gate}; the JAX f64 record's own "
+          f"{rec['deck']['drift']:.3e}); launches {ran}")
+    if not drift <= gate:
+        raise AssertionError(f"{name}: drift {drift:.3e} > gate {gate}")
+    return dict(launches=ran, ms_step=1e3 * wall / steps, sim=sim,
+                drift=drift)
+
+
+def _hex_time(sim) -> dict:
+    """Times at the big deck's last state (f32): K1's lj/long branch, K5 /
+    K12a / K8 on the dispersion mesh and K15a-c, each beside its plain
+    version, its bound and, where one PyTorch call does the same work, that
+    call; K15a and K15b at both lane widths."""
+    from lammps_buck_intel_tpu_torch.integrate import rigid as rgd
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_disp as pd
+    from lammps_buck_intel_tpu_torch.ops import rigid as rigid_ops
+
+    st = cs.rebin_incremental(sim.grid, sim.box, sim.state.clone())
+    out = {}
+    mol = sim._slot_mol(st)
+    style, grid, box = sim.pair, sim.grid, sim.box
+    n, flt, acc = sim.n_atoms, st.x.dtype, sim.precision.acc
+    fsz, asz = st.x.element_size(), torch.empty((), dtype=acc).element_size()
+
+    def record(name, kern, plain, lib, nbytes, nops, err, reps_plain=3):
+        ms, dev_ms = cuda_ms(kern), device_ms(kern)
+        plain_ms = cuda_ms(plain, reps=reps_plain)
+        lib_ms = cuda_ms(lib) if lib is not None else None
+        b_ms, b_by = bound(nbytes, nops)
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=err)
+        print(f"[hexane time] {name} f32 at {n} atoms: kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f}), plain {plain_ms:.4f} ms, library "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}; {nops:.4g} operations, "
+              f"{int(nbytes):,} bytes)")
+
+    # K1, lj/long with the exclusion
+    err = _k1_compare(f"hexane_big/{n}", style, grid, box, st, acc,
+                      slot_mol=mol)
+    pairs = pairs_in_cutoff(style, grid, box, st, slot_mol=mol)
+    record("cellpair_lj_long",
+           lambda: compute_cellpair(style, grid, box, st, acc_dtype=acc,
+                                    slot_mol=mol),
+           lambda: compute_cellpair_plain(style, grid, box, st,
+                                          acc_dtype=acc, slot_mol=mol),
+           None,
+           grid.nslots * 2 * 4 + n * (plane_bytes(st.x, st.y, st.z, st.typ)
+                                      + 3 * asz),
+           pairs * OPS_PAIR_DISP, err, reps_plain=1)
+    print(f"[hexane time] K1: {pairs:,} pairs of two molecules in the "
+          f"cutoff; cells {grid.nc} cap {grid.cap}")
+    # K5 / K12a / K8 on the dispersion mesh
+    res = {}
+    kerr = _hex_disp_stages(f"hexane_big/{n}", sim, st, res)
+    solver = sim.kspace
+    pm, pmd = solver.pm, solver.pmd
+    c = pmd.consts(st.x.device, flt)
+    bst = st._replace(q=solver._slot_b(st))
+    ns, ngrid = st.x.shape[0], int(np.prod(pm.grid))
+    npts = int(np.prod(c["G"].shape))
+    p = pm.order
+    slot_in = ns * plane_bytes(st.x, st.y, st.z, st.q, st.aid)
+    flat, w3 = pppm_cells._stencil(pm, bst, 0, ns,
+                                   pppm_cells.mesh_geometry(pm))
+    vals = (w3 * bst.q[:, None, None, None]).reshape(-1)
+    flat = flat.reshape(-1)
+    mesh0 = torch.zeros(ngrid, dtype=flt, device=st.x.device)
+    record("pppm_deposit_disp",
+           lambda: pppm_ops.deposit(pm, bst, n, c["coef"]),
+           lambda: pppm_cells.deposit_plain(pm, bst),
+           lambda: mesh0.clone().index_add_(0, flat, vals),
+           slot_in + ngrid * fsz,
+           n * (OPS_WEIGHTS(p) + p**3 * OPS_DEPOSIT_PT),
+           res["deposit_disp"]["max_abs_err"])
+    del flat, w3, vals
+    mesh = pppm_cells.deposit_plain(pm, bst)
+    S = torch.fft.rfftn(mesh.to(acc)).contiguous()[None]
+    record("disp_spectral",
+           lambda: pd.disp_spectral(c, S, pmd.P, False),
+           lambda: pd.disp_spectral_plain(c, S, pmd.P, False), None,
+           npts * asz * (2 + 1 + 6), npts * OPS_DISP_SPECTRAL_PT,
+           res["disp_spectral"]["max_abs_err"])
+    ehat, _, _ = pd.disp_spectral(c, S, pmd.P, False)
+    e_mesh = (torch.fft.irfftn(ehat[0], s=pm.grid, dim=(1, 2, 3))
+              * (ngrid / pm.volume)).to(flt).contiguous()
+    record("pppm_gather_disp",
+           lambda: pppm_ops.gather(pm, bst, e_mesh, n, acc, c["coef"]),
+           lambda: pppm_cells.gather_plain(pm, bst, e_mesh, acc), None,
+           slot_in + 3 * ngrid * fsz + 3 * ns * asz,
+           n * (OPS_WEIGHTS(p) + p**3 * OPS_GATHER_PT), kerr)
+    print(f"[hexane time] dispersion mesh {pm.grid} ({ngrid:,} points, "
+          f"{npts:,} on the half spectrum), order {p}, g6 "
+          f"{pmd.g_ewald_6:.6f}")
+    del mesh, S, ehat, e_mesh
+    # K15a-c
+    t = sim._rt
+    B = t.nbody
+    inv = sim._inv_map(st)
+    fa, fb, *_ = sim._forces(st, False, False, mol)
+    errs = {w: _hex_rigid_stages(f"hexane_big/{n}", sim, st, w)
+            for w in (None, 32)}
+    d = sim._d
+    f_atoms, _ = rgd._atom_force(t, inv, fa, fb, flt)
+    dxf = torch.cross(d, f_atoms, dim=-1)
+    F0 = torch.zeros((B, 3), dtype=flt, device=st.x.device)
+    fo = tuple(torch.empty_like(st.x) for _ in range(3))
+    ft_bytes = (n * (2 * 4 + 3 * fsz + 6 * asz + 3 * fsz)
+                + (B + 1) * 4 + 6 * B * fsz)
+    record("rigid_force_torque",
+           lambda: rgd.slot_force_torque(t, d, inv, fa, fb, fo),
+           lambda: rgd.slot_force_torque_plain(t, d, inv, fa, fb, fo),
+           lambda: (F0.clone().index_add_(0, t.body_of, f_atoms),
+                    F0.clone().index_add_(0, t.body_of, dxf)),
+           ft_bytes, n * (OPS_RIGID_FT_ATOM + 3),
+           max(e["ft"] for e in errs.values()))
+    F, T = rgd.slot_force_torque(t, d, inv, fa, fb)
+    bs = sim.body.clone()
+    dd = d.clone()
+    xs = tuple(p_.clone() for p_ in (st.x, st.y, st.z))
+    off = tuple(torch.zeros_like(st.x) for _ in range(3))
+    upd_bytes = (B * (26 + 6 + 4) * fsz + (B + 1) * 4
+                 + n * (2 * 4 + 12 * fsz))
+    record("rigid_update",
+           lambda: rgd.rigid_update(t, bs, dd, inv, xs, off, F, T, sim.dtv,
+                                    sim.dtf, rgd.MODE_INITIAL),
+           lambda: rgd.rigid_update_plain(t, bs, dd, inv, xs, off, F, T,
+                                          sim.dtv, sim.dtf,
+                                          rgd.MODE_INITIAL),
+           None, upd_bytes,
+           B * OPS_RIGID_UPDATE_BODY + n * OPS_RIGID_UPDATE_ATOM,
+           max(e["update"] for e in errs.values()))
+    final_ms = cuda_ms(lambda: rgd.rigid_update(
+        t, bs, dd, inv, None, None, F, T, sim.dtv, sim.dtf, rgd.MODE_FINAL))
+    record("rigid_virial",
+           lambda: rgd.slot_constraint_virial(t, sim.body, d, inv, fa, fb, T,
+                                              sim.units.ftm2v, acc),
+           lambda: rgd.slot_constraint_virial_plain(
+               t, sim.body, d, inv, fa, fb, T, sim.units.ftm2v, acc),
+           None,
+           n * (2 * 4 + 4 * fsz + 6 * asz) + (B + 1) * 4 + 14 * B * fsz,
+           B * OPS_RIGID_VIRIAL_BODY + n * OPS_RIGID_VIRIAL_ATOM,
+           max(e["virial"] for e in errs.values()))
+    w_def = rigid_ops.default_width(t.max_size)
+    alt = {w: (cuda_ms(lambda: rgd.slot_force_torque(t, d, inv, fa, fb, fo,
+                                                     w)),
+               cuda_ms(lambda: rgd.rigid_update(
+                   t, bs, dd, inv, xs, off, F, T, sim.dtv, sim.dtf,
+                   rgd.MODE_INITIAL, w)))
+           for w in (w_def, 32)}
+    print(f"[hexane time] K15b final form (kick only): {final_ms:.4f} ms; "
+          f"{B:,} bodies of {t.max_size} atoms; lanes a body "
+          + ", ".join(f"{w}: K15a {a:.4f} ms, K15b initial {b:.4f} ms"
+                      for w, (a, b) in alt.items()))
+    out["widths"] = {str(w): dict(force_torque_ms=a, update_ms=b)
+                     for w, (a, b) in alt.items()}
+    out["final_ms"] = final_ms
+    return out
+
+
+def phase_hexane(rec: dict):
+    """hexane_gen.yaml unedited (6,000 atoms, 200 steps, f32) and
+    hexane_gen_big.yaml (192,000 atoms), each through build_simulation
+    and run with the launch counts of HEX_PATH, step 0 against the record
+    and the drift gate; then the kernels timed at the big deck's state."""
+    small = _hex_deck_run(HEX_DECK, rec)
+    del small["sim"]
+    torch.cuda.empty_cache()
+    big = _hex_deck_run(HEX_BIG, rec, HEX_COPIES)
+    sim = big.pop("sim")
+    times = _hex_time(sim)
+    del sim
+    torch.cuda.empty_cache()
+    return small, big, times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2924,6 +3411,14 @@ def main():
     phase_ewald_record(ewald_rec)
     ewd = phase_ewald_deck(ewald_rec)
     cut = phase_coul_cut(ewald_rec)
+    torch.cuda.empty_cache()
+
+    # the hexane path: lj/long + exclusion (K1), pppm/disp (K5, K12a, K8),
+    # fix rigid/small (K15a-c)
+    phase_hexane_kernels()
+    hex_rec = load_golden("torch_disp.json")
+    phase_hexane_record(hex_rec)
+    hsmall, hbig, htimes = phase_hexane(hex_rec)
 
     def row(name, source, replaces, launch_key, r, launches=launches):
         return dict(name=name, route="cuda", source=f"{SRC}/{source}",
@@ -3014,6 +3509,25 @@ def main():
             "ewald_force", k11["ewald_force"], ewd["launches"]),
         row("nlist_pair_coul_cut", "nlist.cu", "models/pair/driver.py:78",
             "nlist_pair", cut, cut["launches"]),
+        # the hexane path: times at hexane_gen_big.yaml's 192,000 atoms,
+        # launches of its run
+        row("cellpair_forces_lj_long_exclusion", "cellpair.cu",
+            "models/pair/cellpair.py:291", "cellpair",
+            htimes["cellpair_lj_long"], hbig["launches"]),
+        row("pppm_deposit_disp", "pppm.cu", "models/kspace/pppm_cells.py:580",
+            "pppm_deposit", htimes["pppm_deposit_disp"], hbig["launches"]),
+        row("disp_spectral", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:283", "disp_spectral",
+            htimes["disp_spectral"], hbig["launches"]),
+        row("pppm_gather_disp", "pppm.cu", "models/kspace/pppm_cells.py:633",
+            "pppm_gather", htimes["pppm_gather_disp"], hbig["launches"]),
+        row("rigid_force_torque", "rigid.cu", "integrate/rigid.py:235",
+            "rigid_force_torque", htimes["rigid_force_torque"],
+            hbig["launches"]),
+        row("rigid_update", "rigid.cu", "integrate/rigid.py:277",
+            "rigid_update", htimes["rigid_update"], hbig["launches"]),
+        row("rigid_virial", "rigid.cu", "integrate/rigid.py:333",
+            "rigid_virial", htimes["rigid_virial"], hbig["launches"]),
     ]
     print(f"[K9c] torch.cdist + topk at 500 atoms: "
           f"{k9c['cdist_topk_ms']:.4f} ms; [K9b] rhodo_nve_nlist x6x6x4 "
@@ -3023,6 +3537,10 @@ def main():
           f"{cut['long_device_ms']:.4f} ms; cristobalite_ewald.yaml "
           f"{ewd['ms_step']:.4f} ms/step, cristobalite_coul_cut.yaml "
           f"{cut['ms_step']:.4f} ms/step")
+    print(f"[hexane] hexane_gen.yaml {hsmall['ms_step']:.4f} ms/step, "
+          f"hexane_gen_big.yaml {hbig['ms_step']:.4f} ms/step "
+          f"({192000 / hbig['ms_step'] * 1e3:,.0f} atom-steps/s); K15 lane "
+          f"widths {json.dumps(htimes['widths'])}")
     print(f"[K1] buck_big buck branch: {json.dumps(k1['buck_big'])}")
     print(f"[K2] buck_big: {json.dumps(k2_big)}")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-// Cell-pair Buckingham or lj/charmm (+ Ewald real-space Coulomb, + special
-// bonds) forces over the sorted cell-slot layout (sm_90a).
+// Cell-pair Buckingham, lj/cut, lj/long or lj/charmm (+ Ewald real-space
+// or cut Coulomb, + special bonds, + same-molecule exclusion) forces over
+// the sorted cell-slot layout (sm_90a).
 //
 // Replaces: lammps_buck_intel_tpu/models/pair/cellpair.py
 //   compute_cell_tiles_newton (:291) with styles.py pair_terms (:300),
@@ -15,6 +16,12 @@
 //   r^-6, philj = lj3 r^-12 - lj4 r^-6, and for rsq > inner_sq the energy
 //   switch F = forcelj switch1 + philj switch2, E = philj switch1, which
 //   reaches zero at the cutoff (no offset);
+//   lj/cut (VDW = kVdwLj): F = lj1 r^-12 - lj2 r^-6, E = lj3 r^-12 - lj4
+//   r^-6 - offset; lj/long (kVdwLj with DISP_LONG, styles.py :361-372):
+//   the r^-6 term damped by the Ewald split of the dispersion PPPM;
+//   same-molecule exclusion (cellpair.py :399-402 and :528
+//   slot_mol_gather, the pair semantics of fix rigid/small): with a slot
+//   mol plane a pair whose two slots carry one molecule id is skipped;
 //   special bonds (SPECIAL, cellpair.py :448-461 and styles.py :412-419):
 //   a pair whose j atom is a 1-2/1-3/1-4 partner of atom i takes
 //   special_lj[code] on its LJ term and keeps prefactor (erfc + ... -
@@ -32,7 +39,10 @@
 // wraps), then every thread sums the forces of its slot over the staged
 // slots.  No Newton: each pair is evaluated from both sides, so forces
 // need no atomics and are deterministic; energy and virial are halved by
-// the caller.  Empty slots (aid >= n) and aid_i == aid_j are skipped.
+// the caller.  Empty slots (aid >= n) and aid_i == aid_j are skipped, and
+// with a mol plane (one int a slot, staged beside aid; -1 on empty slots)
+// every pair of one molecule: a runtime test on a uniform pointer, so the
+// exclusion doubles no template variant.
 // Energy and virial per block are reduced in a fixed shuffle tree into
 // partial[cell][8] = (evdwl, ecoul, vxx, vyy, vzz, vxy, vxz, vyz) in acc;
 // the caller sums the partials over cells in a second, deterministic pass.
@@ -74,8 +84,12 @@
 
 namespace {
 
+using pairterms::DispConst;
 using pairterms::kCoulNone;
 using pairterms::kNcoef;
+using pairterms::kVdwBuck;
+using pairterms::kVdwCharmm;
+using pairterms::kVdwLj;
 constexpr int kMaxThreads = 1024;
 
 template <typename A>
@@ -85,17 +99,19 @@ __device__ __forceinline__ A warp_sum(A v) {
   return v;
 }
 
-// COUL: pairterms::kCoulNone / kCoulLong / kCoulCut; VDW: 0 = buck, 1 =
-// lj/charmm.
-template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL>
+// COUL: pairterms::kCoulNone / kCoulLong / kCoulCut; VDW: kVdwBuck,
+// kVdwCharmm or kVdwLj; DISP_LONG: lj/long's damped r^-6 term.
+template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL,
+          bool DISP_LONG>
 __global__ void cellpair_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const T* __restrict__ z, const T* __restrict__ q,
     const int* __restrict__ typ, const int* __restrict__ aid,
-    const T* __restrict__ coef, int ntypes, int n, int ncx, int ncy, int ncz,
-    int cap, int reach_z, double Lx, double Ly, double Lz, T g_ewald,
-    T qqrd2e, T inner_sq, T denom_lj, const int* __restrict__ special,
-    int nspecial, const T* __restrict__ special_fac, A* __restrict__ fx,
+    const int* __restrict__ mol, const T* __restrict__ coef, int ntypes,
+    int n, int ncx, int ncy, int ncz, int cap, int reach_z, double Lx,
+    double Ly, double Lz, T g_ewald, T qqrd2e, T inner_sq, T denom_lj,
+    DispConst<T> dc, const int* __restrict__ special, int nspecial,
+    const T* __restrict__ special_fac, A* __restrict__ fx,
     A* __restrict__ fy, A* __restrict__ fz, A* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ncoef = ntypes * ntypes * kNcoef;
@@ -107,7 +123,8 @@ __global__ void cellpair_kernel(
   T* s_q = s_z + cap;
   int* s_aid = reinterpret_cast<int*>(s_q + (COUL ? cap : 0));
   int* s_typ = s_aid + cap;
-  int* s_sp = s_typ + cap;  // [nspecial][blockDim]: a thread's partners
+  int* s_mol = s_typ + cap;  // [cap] when mol is given
+  int* s_sp = s_mol + (mol ? cap : 0);  // [nspecial][blockDim]: partners
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -119,11 +136,12 @@ __global__ void cellpair_kernel(
   const int cx = c / (ncz * ncy);
   const bool has_i = tid < cap;
   const int si = c * cap + tid;
-  int ai = n, ti = 0;
+  int ai = n, ti = 0, mi = -1;
   T xi = 0, yi = 0, zi = 0, qi = 0;
   if (has_i) {
     ai = aid[si];
     ti = typ[si];
+    if (mol) mi = mol[si];
     xi = x[si];
     yi = y[si];
     zi = z[si];
@@ -165,6 +183,7 @@ __global__ void cellpair_kernel(
       if (COUL) s_q[j] = q[sj];
       s_aid[j] = aid[sj];
       s_typ[j] = typ[sj];
+      if (mol) s_mol[j] = mol[sj];
     }
     __syncthreads();
     if (!active) continue;
@@ -172,6 +191,7 @@ __global__ void cellpair_kernel(
     for (int j = 0; j < cap; ++j) {
       const int aj = s_aid[j];
       if (aj >= n || aj == ai) continue;
+      if (mol && s_mol[j] == mi) continue;  // one molecule: excluded
       const T dx = xi - s_x[j];
       const T dy = yi - s_y[j];
       const T dz = zi - s_z[j];
@@ -191,9 +211,10 @@ __global__ void cellpair_kernel(
         f_coul = s_fac[4 + code];
       }
       T evdwl, ecoul;
-      const T fs = pairterms::pair_force<T, EV, COUL, VDW, SPECIAL>(
-          rsq, in_lj, in_coul, cf, qqi, s_q + j, f_lj, f_coul, g_ewald,
-          inner_sq, denom_lj, evdwl, ecoul);
+      const T fs =
+          pairterms::pair_force<T, EV, COUL, VDW, SPECIAL, DISP_LONG>(
+              rsq, in_lj, in_coul, cf, qqi, s_q + j, f_lj, f_coul, g_ewald,
+              inner_sq, denom_lj, dc, evdwl, ecoul);
       fxi += static_cast<A>(fs * dx);
       fyi += static_cast<A>(fs * dy);
       fzi += static_cast<A>(fs * dz);
@@ -235,21 +256,28 @@ __global__ void cellpair_kernel(
   }
 }
 
-template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL>
+template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL,
+          bool DISP_LONG>
 int launch(const void* x, const void* y, const void* z, const void* q,
-           const void* typ, const void* aid, const void* coef, int ntypes,
-           int n, int ncx, int ncy, int ncz, int cap, int reach_z, double Lx,
-           double Ly, double Lz, double g_ewald, double qqrd2e,
-           double inner_sq, double denom_lj, const void* special,
-           int nspecial, const void* special_fac, void* fx, void* fy,
-           void* fz, void* partial, cudaStream_t stream) {
+           const void* typ, const void* aid, const void* mol,
+           const void* coef, int ntypes, int n, int ncx, int ncy, int ncz,
+           int cap, int reach_z, double Lx, double Ly, double Lz,
+           double g_ewald, double qqrd2e, double inner_sq, double denom_lj,
+           const double* disp, const void* special, int nspecial,
+           const void* special_fac, void* fx, void* fy, void* fz,
+           void* partial, cudaStream_t stream) {
   const int threads = ((cap + 31) / 32) * 32;
   if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(T) * (ntypes * ntypes * kNcoef + (SPECIAL ? 8 : 0) +
                    (COUL ? 4 : 3) * cap) +
-      sizeof(int) * (2 * cap + (SPECIAL ? nspecial * threads : 0));
-  auto kernel = cellpair_kernel<T, A, EV, COUL, VDW, SPECIAL>;
+      sizeof(int) * ((mol ? 3 : 2) * cap +
+                     (SPECIAL ? nspecial * threads : 0));
+  // the host's f64 powers g6^2, g6^6, g6^8 rounded once to T, as the
+  // plain version's python floats
+  const DispConst<T> dc{static_cast<T>(disp[0]), static_cast<T>(disp[1]),
+                        static_cast<T>(disp[2])};
+  auto kernel = cellpair_kernel<T, A, EV, COUL, VDW, SPECIAL, DISP_LONG>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -260,10 +288,11 @@ int launch(const void* x, const void* y, const void* z, const void* q,
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(z), static_cast<const T*>(q),
       static_cast<const int*>(typ), static_cast<const int*>(aid),
-      static_cast<const T*>(coef), ntypes, n, ncx, ncy, ncz, cap, reach_z, Lx,
-      Ly, Lz, static_cast<T>(g_ewald), static_cast<T>(qqrd2e),
-      static_cast<T>(inner_sq), static_cast<T>(denom_lj),
-      static_cast<const int*>(special), nspecial,
+      static_cast<const int*>(mol), static_cast<const T*>(coef), ntypes, n,
+      ncx, ncy, ncz, cap, reach_z, Lx, Ly, Lz, static_cast<T>(g_ewald),
+      static_cast<T>(qqrd2e), static_cast<T>(inner_sq),
+      static_cast<T>(denom_lj), dc, static_cast<const int*>(special),
+      nspecial,
       static_cast<const T*>(special_fac), static_cast<A*>(fx),
       static_cast<A*>(fy), static_cast<A*>(fz), static_cast<A*>(partial));
   return static_cast<int>(cudaGetLastError());
@@ -271,47 +300,73 @@ int launch(const void* x, const void* y, const void* z, const void* q,
 
 #define CELLPAIR_PARAMS                                                      \
   const void *x, const void *y, const void *z, const void *q,                \
-      const void *typ, const void *aid, const void *coef, int ntypes, int n, \
-      int ncx, int ncy, int ncz, int cap, int reach_z, double Lx, double Ly, \
-      double Lz, double g_ewald, double qqrd2e, double inner_sq,             \
-      double denom_lj, const void *special, int nspecial,                    \
-      const void *special_fac, void *fx, void *fy, void *fz, void *partial,  \
-      cudaStream_t s
+      const void *typ, const void *aid, const void *mol, const void *coef,   \
+      int ntypes, int n, int ncx, int ncy, int ncz, int cap, int reach_z,    \
+      double Lx, double Ly, double Lz, double g_ewald, double qqrd2e,        \
+      double inner_sq, double denom_lj, const double *disp,                  \
+      const void *special, int nspecial, const void *special_fac, void *fx,  \
+      void *fy, void *fz, void *partial, cudaStream_t s
 #define CELLPAIR_ARGS                                                       \
-  x, y, z, q, typ, aid, coef, ntypes, n, ncx, ncy, ncz, cap, reach_z, Lx,  \
-      Ly, Lz, g_ewald, qqrd2e, inner_sq, denom_lj, special, nspecial,      \
-      special_fac, fx, fy, fz, partial, s
+  x, y, z, q, typ, aid, mol, coef, ntypes, n, ncx, ncy, ncz, cap, reach_z, \
+      Lx, Ly, Lz, g_ewald, qqrd2e, inner_sq, denom_lj, disp, special,      \
+      nspecial, special_fac, fx, fy, fz, partial, s
+
+template <typename T, typename A, bool EV, int COUL, int VDW, bool DISP_LONG>
+int with_special(int has_special, CELLPAIR_PARAMS) {
+  return has_special
+             ? launch<T, A, EV, COUL, VDW, true, DISP_LONG>(CELLPAIR_ARGS)
+             : launch<T, A, EV, COUL, VDW, false, DISP_LONG>(CELLPAIR_ARGS);
+}
 
 template <typename T, typename A, bool EV, int COUL>
-int dispatch_vdw(int vdw, int has_special, CELLPAIR_PARAMS) {
-  if (vdw == 0)
-    return has_special ? launch<T, A, EV, COUL, 0, true>(CELLPAIR_ARGS)
-                       : launch<T, A, EV, COUL, 0, false>(CELLPAIR_ARGS);
+int dispatch_vdw(int vdw, int disp_long, int has_special, CELLPAIR_PARAMS) {
+  if (disp_long) {
+    // lj/long with coul none only (see the header)
+    if constexpr (COUL == kCoulNone) {
+      if (vdw == kVdwLj)
+        return with_special<T, A, EV, COUL, kVdwLj, true>(has_special,
+                                                          CELLPAIR_ARGS);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vdw == kVdwBuck)
+    return with_special<T, A, EV, COUL, kVdwBuck, false>(has_special,
+                                                         CELLPAIR_ARGS);
+  if (vdw == kVdwLj)
+    return with_special<T, A, EV, COUL, kVdwLj, false>(has_special,
+                                                       CELLPAIR_ARGS);
   // lj/charmm exists only with a Coulomb term (styles.py check_ported)
   if constexpr (COUL == kCoulNone) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    return has_special ? launch<T, A, EV, COUL, 1, true>(CELLPAIR_ARGS)
-                       : launch<T, A, EV, COUL, 1, false>(CELLPAIR_ARGS);
+    if (vdw == kVdwCharmm)
+      return with_special<T, A, EV, COUL, kVdwCharmm, false>(has_special,
+                                                             CELLPAIR_ARGS);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T, typename A, bool EV>
-int dispatch_variant(int coul, int vdw, int has_special, CELLPAIR_PARAMS) {
+int dispatch_variant(int coul, int vdw, int disp_long, int has_special,
+                     CELLPAIR_PARAMS) {
   switch (coul) {
-    case 0: return dispatch_vdw<T, A, EV, 0>(vdw, has_special, CELLPAIR_ARGS);
-    case 1: return dispatch_vdw<T, A, EV, 1>(vdw, has_special, CELLPAIR_ARGS);
-    case 2: return dispatch_vdw<T, A, EV, 2>(vdw, has_special, CELLPAIR_ARGS);
+    case 0: return dispatch_vdw<T, A, EV, 0>(vdw, disp_long, has_special,
+                                             CELLPAIR_ARGS);
+    case 1: return dispatch_vdw<T, A, EV, 1>(vdw, disp_long, has_special,
+                                             CELLPAIR_ARGS);
+    case 2: return dispatch_vdw<T, A, EV, 2>(vdw, disp_long, has_special,
+                                             CELLPAIR_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T, typename A>
-int dispatch(int ev, int coul, int vdw, int has_special, CELLPAIR_PARAMS) {
-  return ev ? dispatch_variant<T, A, true>(coul, vdw, has_special,
-                                           CELLPAIR_ARGS)
-            : dispatch_variant<T, A, false>(coul, vdw, has_special,
-                                            CELLPAIR_ARGS);
+int dispatch(int ev, int coul, int vdw, int disp_long, int has_special,
+             CELLPAIR_PARAMS) {
+  return ev ? dispatch_variant<T, A, true>(coul, vdw, disp_long,
+                                           has_special, CELLPAIR_ARGS)
+            : dispatch_variant<T, A, false>(coul, vdw, disp_long,
+                                            has_special, CELLPAIR_ARGS);
 }
 
 }  // namespace
@@ -320,30 +375,38 @@ int dispatch(int ev, int coul, int vdw, int has_special, CELLPAIR_PARAMS) {
 // ev != 0 also writes partial[ncell][8]; fx/fy/fz are acc-typed (ncell*cap).
 // coul: 0 none (q may be null), 1 the Ewald real-space Coulomb term (reads
 // q, g_ewald, qqrd2e), 2 the cut Coulomb term (reads q, qqrd2e).  vdw: 0
-// buck, 1 lj/charmm (reads inner_sq, denom_lj; needs coul).  special: null, or the (n * nspecial)
-// packed partner table with special_fac = special_lj[4], special_coul[4].
+// buck, 1 lj/charmm (reads inner_sq, denom_lj; needs coul), 2 lj/cut or,
+// with disp_long, lj/long (coul 0 only), which reads g2_g6_g8: the host
+// array (g6^2, g6^6, g6^8) of the splitting parameter g6.  mol: null, or
+// the (ncell * cap) int32 slot plane of molecule ids (-1 on empty slots)
+// whose same-molecule pairs are skipped.  special: null, or the (n *
+// nspecial) packed partner table with special_fac = special_lj[4],
+// special_coul[4].
 extern "C" int cellpair_forces(int prec, int ev, int coul, int vdw,
-                               const void* x, const void* y, const void* z,
-                               const void* q, const void* typ,
-                               const void* aid, const void* coef, int ntypes,
-                               int n, int ncx, int ncy, int ncz, int cap,
-                               int reach_z, double Lx, double Ly, double Lz,
+                               int disp_long, const void* x, const void* y,
+                               const void* z, const void* q, const void* typ,
+                               const void* aid, const void* mol,
+                               const void* coef, int ntypes, int n, int ncx,
+                               int ncy, int ncz, int cap, int reach_z,
+                               double Lx, double Ly, double Lz,
                                double g_ewald, double qqrd2e, double inner_sq,
-                               double denom_lj, const void* special,
-                               int nspecial, const void* special_fac,
-                               void* fx, void* fy, void* fz, void* partial,
-                               void* stream) {
+                               double denom_lj, const double* g2_g6_g8,
+                               const void* special, int nspecial,
+                               const void* special_fac, void* fx, void* fy,
+                               void* fz, void* partial, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int has_special = special != nullptr && nspecial > 0;
+  const double zero3[3] = {0.0, 0.0, 0.0};
+  const double* disp = g2_g6_g8 ? g2_g6_g8 : zero3;
   switch (prec) {
     case 0:
-      return dispatch<float, float>(ev, coul, vdw, has_special,
+      return dispatch<float, float>(ev, coul, vdw, disp_long, has_special,
                                     CELLPAIR_ARGS);
     case 1:
-      return dispatch<float, double>(ev, coul, vdw, has_special,
+      return dispatch<float, double>(ev, coul, vdw, disp_long, has_special,
                                      CELLPAIR_ARGS);
     case 2:
-      return dispatch<double, double>(ev, coul, vdw, has_special,
+      return dispatch<double, double>(ev, coul, vdw, disp_long, has_special,
                                       CELLPAIR_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

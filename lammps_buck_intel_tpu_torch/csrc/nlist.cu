@@ -61,7 +61,7 @@
 // both sides (a full list) and no atomics: F_i += fs (x_i - x_j) with the
 // difference minimum-imaged as d - rint(d * (1/L)) L under the CURRENT box
 // (the JAX package's minimum_image_planes), the physics of pair_terms.cuh
-// shared with csrc/cellpair.cu (buck or lj/charmm, with no Coulomb term,
+// shared with csrc/cellpair.cu (buck, lj/cut or lj/charmm, with no Coulomb term,
 // coul/long or coul/cut: the COUL template mode), the special factors
 // special_lj[sb], special_coul[sb].  The 6-virial sum fs d_a d_b is always reduced (the
 // barostat reads it every step); EV adds evdwl and ecoul.  Per block a
@@ -339,7 +339,7 @@ __global__ void nlist_pair_kernel(
       T evdwl, ecoul;
       const T fs = pairterms::pair_force<T, EV, COUL, VDW, SPECIAL>(
           rsq, in_lj, in_coul, cf, qqi, q + j, f_lj, f_coul, g_ewald,
-          inner_sq, denom_lj, evdwl, ecoul);
+          inner_sq, denom_lj, pairterms::DispConst<T>{}, evdwl, ecoul);
       fxi += static_cast<A>(fs * dx);
       fyi += static_cast<A>(fs * dy);
       fzi += static_cast<A>(fs * dz);
@@ -457,9 +457,14 @@ int launch_pair(PAIR_PARAMS) {
 
 template <typename T, typename A, bool EV, int COUL>
 int pair_vdw(int vdw, int special, PAIR_PARAMS) {
-  if (vdw == 0)
+  if (vdw == pairterms::kVdwBuck)
     return special ? launch_pair<T, A, EV, COUL, 0, true>(PAIR_ARGS)
                    : launch_pair<T, A, EV, COUL, 0, false>(PAIR_ARGS);
+  if (vdw == pairterms::kVdwLj)
+    return special
+               ? launch_pair<T, A, EV, COUL, pairterms::kVdwLj, true>(PAIR_ARGS)
+               : launch_pair<T, A, EV, COUL, pairterms::kVdwLj, false>(
+                     PAIR_ARGS);
   // lj/charmm exists only with a Coulomb term (styles.py check_ported)
   if constexpr (COUL == kCoulNone) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -531,8 +536,9 @@ extern "C" int nlist_dense(int dbl, const void* x, const void* y,
 
 // prec: 0 = (float, float), 1 = (float, double), 2 = (double, double).
 // fx/fy/fz acc (n); partial[nlist_partial_rows(n)][8] acc, always written.
-// coul (0 none, 1 long, 2 cut) / vdw / special select the variant as in
-// csrc/cellpair.cu; with coul == 0 q may be null; special_fac = special_lj[4], special_coul[4].
+// coul (0 none, 1 long, 2 cut) / vdw (0 buck, 1 lj/charmm, 2 lj/cut) /
+// special select the variant as in csrc/cellpair.cu (lj/long, the
+// dispersion-split form, runs on the cell engine only); with coul == 0 q may be null; special_fac = special_lj[4], special_coul[4].
 extern "C" int nlist_pair(int prec, int ev, int coul, int vdw, int special,
                           const void* x, const void* y, const void* z,
                           const void* q, const void* typ, const void* boxL,

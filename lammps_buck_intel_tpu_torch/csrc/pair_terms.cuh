@@ -4,9 +4,17 @@
 //
 //   buck: F = A exp(-r/rho) / rho - 6 C / r^7, E = A exp(-r/rho) - C / r^6
 //   - offset, strict cut test rsq < cut_ljsq;
-//   lj/charmm (VDW = 1): forcelj = lj1 r^-12 - lj2 r^-6, philj = lj3 r^-12
-//   - lj4 r^-6, and for rsq > inner_sq the energy switch F = forcelj
-//   switch1 + philj switch2, E = philj switch1 (zero at the cutoff);
+//   lj/charmm (VDW = kVdwCharmm): forcelj = lj1 r^-12 - lj2 r^-6, philj =
+//   lj3 r^-12 - lj4 r^-6, and for rsq > inner_sq the energy switch F =
+//   forcelj switch1 + philj switch2, E = philj switch1 (zero at the cutoff);
+//   lj/cut (VDW = kVdwLj): F = lj1 r^-12 - lj2 r^-6, E = lj3 r^-12 - lj4
+//   r^-6 - offset;
+//   lj/long (VDW = kVdwLj with DISP_LONG, styles.py :361-372 of the JAX
+//   package): the r^-6 term damped by the Ewald split, grij2 = g6^2 rsq,
+//   a2 = 1 / grij2, x2 = a2 exp(-grij2) lj4, F = lj1 r^-12 - g6^8 x2 rsq
+//   (((6 a2 + 6) a2 + 3) a2 + 1), E = lj3 r^-12 - g6^6 x2 ((a2 + 1) a2 +
+//   0.5), no offset; the accurate expf, because g6^2 rsq reaches ~14 at the
+//   cutoff of the hexane deck;
 //   coul/long (COUL == kCoulLong): grij = g_ewald r, expm2 = exp(-grij^2),
 //   erfc by the Abramowitz & Stegun 5-term polynomial with the JAX
 //   constants (not erfcf), prefactor = qqrd2e qi qj / r, F = prefactor
@@ -17,11 +25,14 @@
 //   erfc and no k-space;
 //   special bonds (SPECIAL): the LJ term scaled by f_lj where it is
 //   evaluated (skipped when f_lj is 0: a 1-2 pair's LJ term is ~5e5
-//   kcal/mol and must not be formed and cancelled in f32); the coul/long
-//   term kept as prefactor (erfc + ... - (1 - f_coul)), because k-space
-//   holds every pair, the coul/cut term scaled by f_coul.
+//   kcal/mol and must not be formed and cancelled in f32); under
+//   DISP_LONG corrected additively on the undamped term, t = r^-6 (1 -
+//   f_lj), F += t (lj2 - r^-6 lj1), E += t (lj4 - r^-6 lj3), because
+//   k-space holds every pair; the coul/long term kept as prefactor (erfc +
+//   ... - (1 - f_coul)), the coul/cut term scaled by f_coul.
 // The coefficient row cf is one (T, T, 8) entry of styles.py COEF_NAMES:
 //   buck     [buck1, buck2, a, c, rhoinv, cut_ljsq, offset, cut_coulsq]
+//   lj       [lj1, lj2, lj3, lj4, 0, cut_ljsq, offset, cut_coulsq]
 //   ljcharmm [lj1, lj2, lj3, lj4, 0, cut_ljsq, 0, cut_coulsq].
 // The order of operations is that of the plain torch version.
 
@@ -34,6 +45,14 @@ namespace pairterms {
 constexpr int kNcoef = 8;  // COEF_NAMES column layout of styles.py
 // The COUL template mode of the pair kernels (styles.py PairConfig.coul)
 constexpr int kCoulNone = 0, kCoulLong = 1, kCoulCut = 2;
+// The VDW template mode (styles.py VDW_MODE)
+constexpr int kVdwBuck = 0, kVdwCharmm = 1, kVdwLj = 2;
+
+// The dispersion splitting constants of DISP_LONG: g6^2, g6^6, g6^8.
+template <typename T>
+struct DispConst {
+  T g2, g6, g8;
+};
 // Abramowitz & Stegun 7.1.26 (styles.py EWALD_F, EWALD_P, ERFC_A)
 constexpr double kEwaldF = 1.12837917;
 constexpr double kEwaldP = 0.3275911;
@@ -62,24 +81,44 @@ __device__ __forceinline__ bool cut_tests(T rsq, const T* cf, bool& in_lj,
 
 // fpair / rsq of a pair inside range (so that F_i += it * (x_i - x_j)),
 // with its energies when EV.  qqi = qqrd2e * q_i; qj points at q_j and is
-// read only inside the Coulomb cutoff.
-template <typename T, bool EV, int COUL, int VDW, bool SPECIAL>
+// read only inside the Coulomb cutoff; dc is read only under DISP_LONG.
+template <typename T, bool EV, int COUL, int VDW, bool SPECIAL,
+          bool DISP_LONG = false>
 __device__ __forceinline__ T pair_force(T rsq, bool in_lj, bool in_coul,
                                         const T* cf, T qqi, const T* qj,
                                         T f_lj, T f_coul, T g_ewald,
-                                        T inner_sq, T denom_lj, T& evdwl,
+                                        T inner_sq, T denom_lj,
+                                        DispConst<T> dc, T& evdwl,
                                         T& ecoul) {
+  static_assert(!DISP_LONG || VDW == kVdwLj, "lj/long only");
   const T r2inv = T(1) / rsq;
   const T r = dev_sqrt(rsq);
   T fpair = 0;
   evdwl = 0;
   ecoul = 0;
-  if (in_lj && (!SPECIAL || f_lj != T(0))) {
+  if (in_lj && (!SPECIAL || DISP_LONG || f_lj != T(0))) {
     const T r6inv = r2inv * r2inv * r2inv;
-    if (VDW == 0) {
+    if (VDW == kVdwBuck) {
       const T rexp = dev_exp(-r * cf[4]);
       fpair = r * rexp * cf[0] - r6inv * cf[1];  // buck1, buck2; rhoinv
       if (EV) evdwl = cf[2] * rexp - cf[3] * r6inv - cf[6];
+    } else if (DISP_LONG) {
+      const T grij2 = dc.g2 * rsq;
+      const T a2 = T(1) / (grij2 > T(1e-30) ? grij2 : T(1e-30));
+      const T x2 = a2 * dev_exp(-grij2) * cf[3];
+      fpair = r6inv * r6inv * cf[0] -
+              dc.g8 * x2 * rsq *
+                  (((T(6) * a2 + T(6)) * a2 + T(3)) * a2 + T(1));
+      if (EV) evdwl = r6inv * r6inv * cf[2] -
+                      dc.g6 * x2 * ((a2 + T(1)) * a2 + T(0.5));
+      if (SPECIAL) {
+        const T tl = r6inv * (T(1) - f_lj);
+        fpair += tl * (cf[1] - r6inv * cf[0]);
+        if (EV) evdwl += tl * (cf[3] - r6inv * cf[2]);
+      }
+    } else if (VDW == kVdwLj) {
+      fpair = r6inv * r6inv * cf[0] - r6inv * cf[1];
+      if (EV) evdwl = r6inv * r6inv * cf[2] - cf[3] * r6inv - cf[6];
     } else {
       const T forcelj = r6inv * r6inv * cf[0] - r6inv * cf[1];
       const T philj = r6inv * r6inv * cf[2] - cf[3] * r6inv;
@@ -94,7 +133,7 @@ __device__ __forceinline__ T pair_force(T rsq, bool in_lj, bool in_coul,
         evdwl = philj * switch1;
       }
     }
-    if (SPECIAL) {
+    if (SPECIAL && !DISP_LONG) {
       fpair *= f_lj;
       evdwl *= f_lj;
     }

@@ -1,7 +1,8 @@
-"""Cell-pair engine runner: NVE and NVT over the sorted slot layout.
+"""Cell-pair engine runner: NVE, NVT and rigid bodies over the sorted
+slot layout.
 
 Counterpart of ``lammps_buck_intel_tpu.integrate.cellpair_verlet``
-(``CellPairSimulation`` without rigid bodies and molecule exclusion).
+(``CellPairSimulation``).
 Each block rebins once, then runs velocity-Verlet steps whose force is
 the cell-pair kernel plus, with a ``kspace`` (``models.kspace.CellPPPM``),
 the PPPM force plus, with ``bonded``, the bonded kernels' forces; a
@@ -33,10 +34,27 @@ the constraint clusters hold atom indices too; after each rebin one
 scatter rebuilds the slot-of-atom map (``_inv_map``) that the bonded and
 constraint kernels look their atoms up in.
 
+Rigid bodies (``rigid``, fix rigid/small: ``integrate.rigid``).  Every
+pair of one molecule is excluded (the slot mol plane, gathered once a
+rebin; ``exclude_intra`` alone does the same without bodies).  At set-up
+the bodies are built from the atoms, the velocities projected onto rigid
+motion and the atoms placed from the bodies.  A block rebins once, then
+sets the per-slot wrap offsets off = x - (X + d) (the kernel K15b's
+offsets form), so that the positions the bodies give stay continuous with
+the binned planes; each step is the initial update (the half kick of V
+and L, the drift of X, the Richardson rotation, the slot positions; K15b),
+the forces, the body force and torque (K15a, which also stores the
+atoms' flt forces in the slot planes) and the final half kick (K15b; on
+the block's last step it writes the slot velocities).  The force and
+torque of the step's end start the next step.  Thermo counts 3N - 3 - Nc
+degrees of freedom and adds the rigid constraint virial (K15a, K15c) on
+the total force.  Rigid with SHAKE raises (as in the JAX package), rigid
+under fix nvt is ROADMAP queue 1 item 13(c).
+
 The state is updated in place (the CUDA rebin and the NVE updates write
 into the slot planes), so the overflow rollback keeps a CLONE of the
-segment-start state, and thermo rebins a clone: neither may alias planes
-the run goes on to modify.
+segment-start state (and of the body state), and thermo rebins a clone:
+neither may alias planes the run goes on to modify.
 """
 from __future__ import annotations
 
@@ -51,19 +69,15 @@ from ..core.precision import Precision, single
 from ..core.state import System, Topology
 from ..core.units import LJ, Units
 from ..models.bonded import BondedStyle, compute_bonded
-from ..models.pair.cellpair import compute_cellpair, make_special_table
+from ..models.pair.cellpair import (compute_cellpair, make_special_table,
+                                    slot_mol_gather)
 from ..models.pair.styles import PairStyle
 from ..neighbor import cell_slots as cs
 from . import nve
+from . import rigid as rgd
 from . import shake as shk
 from .nvt import NVTConfig, nhc_scale
 from .verlet import NeighborPolicy
-
-# engine features of the JAX package not ported yet -> ROADMAP queue 1
-_UNPORTED = {
-    "rigid": "item 13 (rigid bodies)",
-    "exclude_intra": "item 13 (rigid bodies)",
-}
 
 
 class CellOverflowError(RuntimeError):
@@ -77,12 +91,17 @@ class CellPairSimulation:
     """MD runner on the slot layout; the device is that of ``system``.
 
     kspace: None, or a function of this engine's cell grid that returns
-    the k-space solver (a ``CellPPPM``): the deck runner aligns the PPPM
-    mesh to the grid, which is chosen here.  The initial force includes
+    the k-space solver (a ``CellPPPM`` or ``CellPPPMDisp``, whose
+    ``compute_slots`` reads the slot planes, or a ``BoundKSpace``, whose
+    ``compute_slot`` gathers its atom-order inputs through the slots' atom
+    ids): the deck runner aligns the mesh to the grid, which is chosen
+    here.  The initial force includes
     the solver's.  topology: the special-bond partner table for the pair
     kernel; bonded: the bonded terms; shake: the SHAKE/RATTLE constraints
     (``integrate.shake.ShakeConstraints``); thermostat: Nose-Hoover chain
-    NVT (dof 3N - 3 - Nc, filled here with the units and the timestep)."""
+    NVT (dof 3N - 3 - Nc, filled here with the units and the timestep);
+    rigid: the bodies of fix rigid/small (``integrate.rigid.RigidBodies``);
+    exclude_intra: skip every pair of one molecule (implied by rigid)."""
 
     def __init__(
         self,
@@ -98,15 +117,15 @@ class CellPairSimulation:
         bonded: Optional[BondedStyle] = None,
         thermostat: Optional[NVTConfig] = None,
         shake: Optional[shk.ShakeConstraints] = None,
-        **unported,
+        rigid: Optional[rgd.RigidBodies] = None,
+        exclude_intra: bool = False,
     ):
-        for key, value in unported.items():
-            if key not in _UNPORTED:
-                raise TypeError(f"unexpected argument {key!r}")
-            if value:
-                raise NotImplementedError(
-                    f"CellPairSimulation {key}: ROADMAP queue 1 "
-                    f"{_UNPORTED[key]}")
+        if rigid is not None and shake is not None:
+            raise ValueError("fix rigid/small and fix shake are exclusive")
+        if rigid is not None and thermostat is not None:
+            raise NotImplementedError(
+                "fix rigid/small under fix nvt (the chain on the bodies' "
+                "velocities) is not ported: ROADMAP queue 1 item 13(c)")
         self.units = units
         self.precision = precision or single()
         self.dt = units.dt if dt is None else dt
@@ -170,7 +189,16 @@ class CellPairSimulation:
                     f"ROADMAP queue 1 item 12 constraint kernels (K13) take "
                     f"clusters of at most {shk.MAX_C}")
             self._shake_t = cl.tables_on(self.device, flt)
-        self.dof = max(3 * n - 3 - (shake.n_constraints if shake else 0), 1)
+        # same-molecule exclusion: the padded atom-order molecule table,
+        # gathered into a slot plane after each rebin
+        self.rigid = rigid
+        self._excl_mol = None
+        if exclude_intra or rigid is not None:
+            self._excl_mol = torch.cat([
+                system.molecule.to(self.device, torch.int32),
+                torch.full((1,), -1, dtype=torch.int32, device=self.device)])
+        self.dof = max(3 * n - 3 - (shake.n_constraints if shake else 0)
+                       - (rigid.n_constraints if rigid else 0), 1)
         self.thermostat = None
         if thermostat is not None:
             self.thermostat = dataclasses.replace(
@@ -187,6 +215,9 @@ class CellPairSimulation:
             st = self._bin(system)
             if bool(st.overflow):
                 raise RuntimeError("cell capacity sizing failed")
+        self.body = self._d = self._rt = self._off = None
+        if rigid is not None:
+            st = self._rigid_init(system, rigid)
         if kspace is not None:
             self.kspace = kspace(self.grid)
         if shake is not None:
@@ -201,6 +232,22 @@ class CellPairSimulation:
                              system.image, system.type, system.q,
                              dtype=self.precision.flt, tchain=self._tchain)
 
+    def _rigid_init(self, system: System, rigid: rgd.RigidBodies):
+        """The bodies' initial state from the atoms (on the host, in flt,
+        the JAX package's set-up), the atoms placed from the bodies and
+        their velocities projected onto rigid motion, binned anew."""
+        flt = self.precision.flt
+        bs = rgd.init_body_state(rigid, system.v.cpu().numpy(), dtype=flt)
+        xa, d = rgd.atom_positions(rigid, bs)
+        va = rgd.atom_velocities(rigid, bs, d)
+        dev = self.device
+        self.body = rgd.BodyState(*(t.to(dev).contiguous() for t in bs))
+        self._d = d.to(dev).contiguous()
+        self._rt = rigid.tables_on(dev, flt)
+        return cs.from_atoms(self.grid, self.box, xa.to(dev), va.to(dev),
+                             system.image, system.type, system.q,
+                             dtype=flt, tchain=self._tchain)
+
     def _occupancy(self, x: np.ndarray, grid: cs.CellGrid) -> int:
         lo = np.asarray(self.box.lo)
         nc = np.asarray(grid.nc)
@@ -212,18 +259,36 @@ class CellPairSimulation:
 
     # ---------- force + integrate ----------
 
-    def _forces(self, state: cs.SlotState, eflag: bool, vflag: bool):
+    def _slot_mol(self, state: cs.SlotState):
+        """The slot plane of molecule ids after a rebin (None without
+        exclusion)."""
+        if self._excl_mol is None:
+            return None
+        return slot_mol_gather(self._excl_mol, state.aid, self.n_atoms)
+
+    def _forces(self, state: cs.SlotState, eflag: bool, vflag: bool,
+                mol=None):
         """(pair force planes, k-space force planes or None, evdwl, ecoul,
         elong, virial); the planes are acc-typed and stay apart: the second
-        kick sums them."""
+        kick sums them.  mol: the slot plane of ``_slot_mol``."""
         r = compute_cellpair(self.pair, self.grid, self.box, state,
                              eflag=eflag, vflag=vflag,
                              acc_dtype=self.precision.acc,
-                             special=self.special)
+                             special=self.special, slot_mol=mol)
         fk, virial = None, r.virial
         elong = torch.zeros((), dtype=self.precision.acc, device=self.device)
         if self.kspace is not None:
-            *fk, elong, kvir = self.kspace.compute_slots(state, eflag, vflag)
+            if hasattr(self.kspace, "compute_slots"):
+                *fk, elong, kvir = self.kspace.compute_slots(state, eflag,
+                                                             vflag)
+            else:
+                # a solver baked on atom-order inputs (``BoundKSpace``):
+                # the slot positions, the atom ids clamped to N
+                kr = self.kspace.compute_slot(
+                    torch.stack([state.x, state.y, state.z]),
+                    torch.clamp(state.aid, max=self.n_atoms), state.q,
+                    eflag=eflag, vflag=vflag)
+                fk, elong, kvir = list(kr.f), kr.elong, kr.virial
             if vflag:
                 virial = virial + kvir
         return (r.fx, r.fy, r.fz), fk, r.evdwl, r.ecoul, elong, virial
@@ -268,7 +333,7 @@ class CellPairSimulation:
                               xs=xs)
 
     def _init_force(self, state: cs.SlotState) -> cs.SlotState:
-        fa, fb, *_ = self._forces(state, False, False)
+        fa, fb, *_ = self._forces(state, False, False, self._slot_mol(state))
         if self.bonded is not None:
             self._bonded_forces(state, self._inv_map(state), fa, False)
         flt = state.x.dtype
@@ -279,7 +344,10 @@ class CellPairSimulation:
         return state
 
     def _block(self, state: cs.SlotState, nsteps: int) -> cs.SlotState:
+        if self.rigid is not None:
+            return self._block_rigid(state, nsteps)
         state = cs.rebin_incremental(self.grid, self.box, state)
+        mol = self._slot_mol(state)
         xs = (state.x, state.y, state.z)
         vs = (state.vx, state.vy, state.vz)
         fs = (state.fx, state.fy, state.fz)
@@ -298,7 +366,7 @@ class CellPairSimulation:
             if sc is not None:
                 rn = shk.shake_positions(t, ro, xs, vs, inv, L, self.dtv,
                                          sc.iters)
-            fa, fb, *_ = self._forces(state, False, False)
+            fa, fb, *_ = self._forces(state, False, False, mol)
             if self.bonded is not None:
                 self._bonded_forces(state, inv, fa, False)
             partial = self._kick(state, fa, fb, self.dtf,
@@ -313,14 +381,47 @@ class CellPairSimulation:
                     cfg, state.therm, vs, partial, self._t_now))
         return state
 
+    def _block_rigid(self, state: cs.SlotState,
+                     nsteps: int) -> cs.SlotState:
+        """fix rigid/small: rebin once, the wrap offsets, then nsteps of
+        the quaternion velocity Verlet (see the module docstring)."""
+        state = cs.rebin_incremental(self.grid, self.box, state)
+        mol = self._slot_mol(state)
+        inv = self._inv_map(state)
+        t, bs, d = self._rt, self.body, self._d
+        xs = (state.x, state.y, state.z)
+        fs = (state.fx, state.fy, state.fz)
+        if self._off is None or self._off[0].shape != state.x.shape:
+            self._off = tuple(torch.empty_like(state.x) for _ in range(3))
+        off = self._off
+        rgd.rigid_update(t, bs, d, inv, xs, off, None, None, 0.0, 0.0,
+                         rgd.MODE_OFFSETS)
+        # the force and torque of the stored forces (those of the last
+        # step) start the block
+        F, T = rgd.slot_force_torque(t, d, inv, fs)
+        for step in range(nsteps):
+            rgd.rigid_update(t, bs, d, inv, xs, off, F, T, self.dtv,
+                             self.dtf, rgd.MODE_INITIAL)
+            fa, fb, *_ = self._forces(state, False, False, mol)
+            if self.bonded is not None:
+                self._bonded_forces(state, inv, fa, False)
+            F, T = rgd.slot_force_torque(t, d, inv, fa, fb, f_out=fs)
+            vs = ((state.vx, state.vy, state.vz) if step == nsteps - 1
+                  else None)
+            rgd.rigid_update(t, bs, d, inv, vs, None, F, T, self.dtv,
+                             self.dtf, rgd.MODE_FINAL)
+        return state
+
     # ---------- thermo ----------
 
     def _thermo_device(self, state: cs.SlotState) -> dict:
         st = cs.rebin_incremental(self.grid, self.box, state.clone())
-        fs, fk, evdwl, ecoul, elong, virial = self._forces(st, True, True)
+        fs, fk, evdwl, ecoul, elong, virial = self._forces(
+            st, True, True, self._slot_mol(st))
         emol = torch.zeros((), dtype=self.precision.acc, device=self.device)
         inv = (self._inv_map(st)
-               if self.bonded is not None or self.shake is not None else None)
+               if self.bonded is not None or self.shake is not None
+               or self.rigid is not None else None)
         if self.bonded is not None:
             br = self._bonded_forces(st, inv, fs, True)
             emol = br.emol
@@ -330,6 +431,13 @@ class CellPairSimulation:
             ecoul = ecoul + br.e14_coul
             virial = virial + br.virial
         u = self.units
+        if self.rigid is not None:
+            # the rigid constraint virial on the TOTAL force (pair + bonded
+            # in fs, k-space in fk), the JAX package's tally
+            _, T = rgd.slot_force_torque(self._rt, self._d, inv, fs, fk)
+            virial = virial + rgd.slot_constraint_virial(
+                self._rt, self.body, self._d, inv, fs, fk, T, u.ftm2v,
+                self.precision.acc)
         if self.shake is not None:
             # the constraint virial on the TOTAL force: pair + bonded in
             # fs, k-space in fk (the fix_shake.cpp pressure tally)
@@ -448,8 +556,10 @@ class CellPairSimulation:
                     end,
                     ((self.step_count // thermo_every) + 1) * thermo_every)
             # segment snapshot for overflow rollback: a clone, because
-            # the blocks update the planes in place
-            snap = (self.state.clone(), self.step_count, self._run_done)
+            # the blocks update the planes (and the bodies) in place
+            snap = (self.state.clone(), self.step_count, self._run_done,
+                    None if self.body is None else
+                    (self.body.clone(), self._d.clone()))
             self._advance(target - self.step_count, self._cadence(vmax))
             self._run_done += target - self.step_count
             self.step_count = target
@@ -466,7 +576,9 @@ class CellPairSimulation:
                 grows += 1
                 if grows > 4:
                     raise
-                self.state, self.step_count, self._run_done = snap
+                self.state, self.step_count, self._run_done, bsnap = snap
+                if bsnap is not None:
+                    self.body, self._d = bsnap
                 self._grow_capacity()
         if thermo_every and (not rows or rows[-1]["step"] != self.step_count):
             emit()

@@ -41,7 +41,7 @@ the step reads it there, and the barostat's scalar arithmetic is 0-d and
 block.  The positions, velocities and forces are (3, N) atom-order planes,
 updated in place.  Degrees of freedom 3N - 3 - Nc.
 
-``rigid=`` (fix rigid/npt/small) raises naming ROADMAP queue 1 item 13, a
+``rigid=`` (fix rigid/npt/small) raises naming ROADMAP queue 1 item 13(c), a
 tilted cell item 14.
 """
 from __future__ import annotations
@@ -271,7 +271,7 @@ class NPTSimulation:
         if rigid is not None:
             raise NotImplementedError(
                 "fix rigid/npt/small (rigid bodies under the barostat) is not "
-                "ported: ROADMAP queue 1 item 13")
+                "ported: ROADMAP queue 1 item 13(c), with K16d")
         if system.box.is_triclinic:
             raise NotImplementedError(
                 "fix npt on a triclinic cell is not ported: ROADMAP queue 1 "

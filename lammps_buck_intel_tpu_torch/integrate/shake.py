@@ -122,7 +122,8 @@ def make_rigid_from_molecules(*args, **kwargs):
     """``fix rigid/small`` by redundant distance constraints: not ported."""
     raise NotImplementedError(
         "make_rigid_from_molecules (fix rigid/small style constraints) is "
-        "not ported: ROADMAP queue 1 item 13 (rigid bodies)")
+        "not ported (fix rigid/small runs as quaternion rigid bodies, "
+        "integrate/rigid.py): ROADMAP queue 1 item 13(c)")
 
 
 @dataclasses.dataclass

@@ -36,7 +36,7 @@ Positions, velocities and forces are (3, N) atom-order planes, updated in
 place; the box is held on the device as constant (3,) tensors that the
 kernels read, as the NPT engine reads its variable one.  Degrees of
 freedom 3N - 3 - Nc.  ``rigid=`` and ``exclude_intra=`` raise naming
-ROADMAP queue 1 item 13.
+ROADMAP queue 1 item 13(c) (rigid bodies run on the cell engine).
 """
 from __future__ import annotations
 
@@ -97,8 +97,10 @@ class Forces(NamedTuple):
 
 # engine features of the JAX package not ported yet -> ROADMAP queue 1
 _UNPORTED = {
-    "rigid": "item 13 (rigid bodies, K15)",
-    "exclude_intra": "item 13 (molecule exclusion with rigid bodies)",
+    "rigid": "item 13(c) (rigid bodies on the list engine; the cell "
+             "engine runs them)",
+    "exclude_intra": "item 13(c) (molecule exclusion on the list engine; "
+                     "the cell engine runs it)",
 }
 
 

@@ -11,11 +11,13 @@ import torch
 
 from .core.state import Topology
 from .integrate.npt import NPTConfig
+from .integrate.rigid import BodyState, RigidBodies
 from .integrate.verlet import MDState
 from .integrate.shake import ShakeConstraints
 from .models.bonded.harmonic import BondedStyle, make_bonded
 from .models.kspace.ewald import Ewald
 from .models.kspace.pppm import PPPM
+from .models.kspace.pppm_disp import PPPMDisp
 from .models.pair.styles import PairConfig, PairStyle
 from .neighbor.cell_slots import MOVE_FIELDS, SlotState
 
@@ -143,6 +145,43 @@ def ewald_from_numpy(g_ewald: float, kvecs, ug, mvecs, qsum: float,
         qsum=float(qsum), qsqsum=float(qsqsum), qqrd2e=float(qqrd2e),
         volume=float(volume), kmax=tuple(int(v) for v in kmax),
         acc_dtype=acc_dtype)
+
+
+def pppm_disp_from_numpy(g_ewald_6: float, grid, order: int, greensfn, kx,
+                         ky, kz, B, volume: float, box_lo, h, mix: str, A,
+                         P, vfac, acc_dtype=torch.float64) -> PPPMDisp:
+    """The port's PPPMDisp from the JAX PPPMDisp's fields (ik): both
+    packages then solve on the same mesh with the same tables."""
+    return PPPMDisp(
+        g_ewald_6=float(g_ewald_6), grid=tuple(int(v) for v in grid),
+        order=int(order), greensfn=np.array(greensfn, np.float64),
+        kx=np.array(kx, np.float64), ky=np.array(ky, np.float64),
+        kz=np.array(kz, np.float64), B=np.array(B, np.float64),
+        volume=float(volume), box_lo=tuple(float(v) for v in box_lo),
+        h=tuple(float(v) for v in h), acc_dtype=acc_dtype, mix=str(mix),
+        A=np.array(A, np.float64), P=np.array(P, np.float64),
+        vfac=np.array(vfac, np.float64))
+
+
+def rigid_from_numpy(body_of, nbody: int, mtotal, minv, iinv, r_body,
+                     mass_per_atom, X0, q0, n_constraints: int, state=None,
+                     dtype=torch.float64, device="cpu"):
+    """The port's RigidBodies from the JAX RigidBodies' fields, and with
+    ``state`` = (X, V, q, L) of a JAX BodyState (numpy) its BodyState in
+    ``dtype`` on ``device``: both packages then integrate the same body
+    frames.  Returns (RigidBodies, BodyState or None)."""
+    rb = RigidBodies(
+        body_of=np.array(body_of, np.int32), nbody=int(nbody),
+        mtotal=np.array(mtotal, np.float64), minv=np.array(minv, np.float64),
+        iinv=np.array(iinv, np.float64), r_body=np.array(r_body, np.float64),
+        mass_per_atom=np.array(mass_per_atom, np.float64),
+        X0=np.array(X0, np.float64), q0=np.array(q0, np.float64),
+        n_constraints=int(n_constraints))
+    bs = None
+    if state is not None:
+        bs = BodyState(*(torch.as_tensor(np.array(a, np.float64)).to(
+            device, dtype).contiguous() for a in state))
+    return rb, bs
 
 
 def slot_state_from_numpy(planes: dict, device="cuda") -> SlotState:

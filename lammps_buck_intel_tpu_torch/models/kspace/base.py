@@ -4,13 +4,15 @@ Counterpart of ``lammps_buck_intel_tpu.models.kspace.base``: accuracy ->
 g_ewald, the real-space and Ewald k-space RMS error estimates that size
 the Ewald k set, and the Deserno-Holm P3M ik error estimate that sizes
 the PPPM mesh.  The formulas and the acons table are the JAX package's, copied so
-the port imports nothing of it.
+the port imports nothing of it.  ``BoundKSpace`` binds a solver to
+per-atom inputs other than the charges (the dispersion solver's B_i).
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 
 def two_charge_force(qqrd2e: float) -> float:
@@ -91,3 +93,48 @@ def estimate_ik_error(h: float, prd: float, natoms: int, order: int,
     return (q2 * (h * g_ewald) ** order
             * math.sqrt(g_ewald * prd * math.sqrt(2.0 * math.pi) * s / natoms)
             / (prd * prd))
+
+
+class BoundKSpace:
+    """A solver whose per-atom inputs are not the charges (the dispersion
+    charges B_i of ``PPPMDisp``), bound to those inputs, so that an engine
+    calls it like a Coulomb solver: ``compute(x, q)`` ignores q.
+
+    Counterpart of the JAX ``BoundKSpace``: per_atom is (N,) B_i, or with
+    ``typed`` the (N,) type ids whose channel charges A[:, type] the
+    solver's pairing P combines.  ``compute_slot`` is the cell engine's
+    slot-order form: x (3, NS) slot positions and aid (NS,) atom ids
+    clamped to N, the baked atom-order inputs gathered through aid with a
+    zero row for empty slots."""
+
+    def __init__(self, solver, per_atom, typed: bool = False):
+        self.solver = solver
+        self.per_atom = np.asarray(per_atom)
+        self.typed = typed
+        self._pad = {}
+
+    def _channels(self, device, dtype):
+        """(nch, N + 1) channel charges on ``device``, the last column 0."""
+        key = (torch.device(device), dtype)
+        a = self._pad.get(key)
+        if a is None:
+            if self.typed:
+                af = np.asarray(self.solver.A)[:, self.per_atom]
+            else:
+                af = np.asarray(self.per_atom, np.float64)[None, :]
+            af = np.concatenate([af, np.zeros((af.shape[0], 1))], 1)
+            a = self._pad[key] = torch.as_tensor(af).to(device, dtype)
+        return a
+
+    def _pairing(self):
+        return self.solver.P if self.typed else np.ones((1, 1))
+
+    def compute(self, x, q, eflag=True, vflag=True):
+        a = self._channels(x.device, x.dtype)[:, :-1]
+        return self.solver.compute_channels(x, a, self._pairing(), eflag,
+                                            vflag)
+
+    def compute_slot(self, x, aid, q, eflag=True, vflag=True):
+        a = self._channels(x.device, x.dtype)[:, aid.long()]
+        return self.solver.compute_channels(x, a, self._pairing(), eflag,
+                                            vflag)

@@ -365,24 +365,35 @@ def setup_pppm(
     )
 
 
-def _greens_function(grid, L, g_ewald, order, nalias: int = 2) -> np.ndarray:
-    """Hockney-Eastwood optimal influence function for ik differentiation:
-
-    G(k) = [ sum_m U^2(k_m) hat-g(k_m) (k . k_m) ] / ( |k|^2 [ sum_m U^2(k_m) ]^2 )
-
-    U the per-axis sinc^order deposit transform, the alias sum over
-    |m| <= nalias, hat-g(k) = 4 pi / k^2 exp(-k^2 / 4 g^2); G(0) = 0."""
-    nx, ny, nz = grid
-    recip = np.diag(2.0 * np.pi / np.asarray(L, np.float64))
-
-    def cart_k(ix, iy, iz):
-        return [recip[r, r] * np.asarray(idx, np.float64)
-                for r, idx in enumerate((ix, iy, iz))]
+def coulomb_kernel(g_ewald: float):
+    """hat-g(k) of the Coulomb split: 4 pi / k^2 exp(-k^2 / 4 g^2), 0 at
+    k = 0."""
 
     def kernel(kmsq):
         safe = np.where(kmsq == 0.0, 1.0, kmsq)
         g = 4.0 * np.pi / safe * np.exp(-kmsq / (4.0 * g_ewald**2))
         return np.where(kmsq == 0.0, 0.0, g)
+
+    return kernel
+
+
+def _greens_function(grid, L, g_ewald, order, nalias: int = 2,
+                     kernel=None) -> np.ndarray:
+    """Hockney-Eastwood optimal influence function for ik differentiation:
+
+    G(k) = [ sum_m U^2(k_m) hat-g(k_m) (k . k_m) ] / ( |k|^2 [ sum_m U^2(k_m) ]^2 )
+
+    U the per-axis sinc^order deposit transform, the alias sum over
+    |m| <= nalias, hat-g the pair kernel of k^2 (``coulomb_kernel`` by
+    default; the dispersion solver passes its own); G(0) = 0."""
+    nx, ny, nz = grid
+    recip = np.diag(2.0 * np.pi / np.asarray(L, np.float64))
+    if kernel is None:
+        kernel = coulomb_kernel(g_ewald)
+
+    def cart_k(ix, iy, iz):
+        return [recip[r, r] * np.asarray(idx, np.float64)
+                for r, idx in enumerate((ix, iy, iz))]
 
     def sinc(t):
         out = np.ones_like(t)

@@ -26,7 +26,7 @@ The solver wrapped is the generic ``setup_pppm`` mesh at the deck's box,
 as the JAX package's deck runner builds it for fix npt.  ``diff ad`` and
 ``kspace_modify slab`` raise naming ROADMAP queue 1 item 10, a tilted cell
 item 14, and the dispersion solvers (``TracedPPPMDisp``,
-``TracedBoundKSpace``) item 13.
+``TracedBoundKSpace``) item 13(c).
 """
 from __future__ import annotations
 
@@ -217,4 +217,4 @@ def make_traced_kspace(kspace, center):
     raise NotImplementedError(
         f"fix npt: no variable-cell form of {type(kspace).__name__} in the "
         "port (pppm/disp under a variable cell, TracedPPPMDisp and "
-        "TracedBoundKSpace: ROADMAP queue 1 item 13; ewald: item 10)")
+        "TracedBoundKSpace: ROADMAP queue 1 item 13(c); ewald: item 10)")

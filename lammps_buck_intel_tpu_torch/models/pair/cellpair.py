@@ -13,13 +13,17 @@ halved.
 ``compute_cellpair`` dispatches on the device of the planes: CUDA
 tensors launch the hand-written kernel (csrc/cellpair.cu through
 ``ops.cellpair``), CPU tensors run ``compute_cellpair_plain``.  Styles:
-buck, buck/coul/long, buck/coul/cut and lj/charmm/coul/{long,cut} (the
-Coulomb terms read the slot ``q`` plane).  Special bonds: the JAX package gathers each
+buck, buck/coul/long, buck/coul/cut, lj/charmm/coul/{long,cut}, lj/cut,
+lj/cut/coul/{long,cut} and lj/long (the Coulomb terms read the slot ``q``
+plane).  Special bonds: the JAX package gathers each
 slot's partner ids per rebin and matches them against every candidate;
 the port keeps the partner table in atom order on the device
-(``SpecialTable``), and a slot reads its row through its atom id.  The
-uniform-special shortcut, molecule exclusion and tilted boxes are ROADMAP
-queue 1 items 13 and 14.
+(``SpecialTable``), and a slot reads its row through its atom id.
+Same-molecule exclusion (fix rigid/small, ``neigh_modify exclude
+molecule/intra``): a slot plane of molecule ids, gathered once per rebin
+(``slot_mol_gather``, as in the JAX package), with which a pair of one
+molecule is skipped.  The uniform-special shortcut and tilted boxes are
+ROADMAP queue 1 items 12 and 14.
 """
 from __future__ import annotations
 
@@ -131,6 +135,13 @@ def half_stencil_tables(nc: tuple, offs: np.ndarray):
     return half, inv, shifts
 
 
+def slot_mol_gather(excl_mol_pad: torch.Tensor, aid: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Padded atom-order molecule table (N + 1,) int32 -> the (NS,) slot
+    plane (row N is the -1 sentinel of empty slots)."""
+    return excl_mol_pad[torch.clamp(aid, max=n).long()]
+
+
 def check_style(style: PairStyle):
     """Raise for what neither the kernel nor the plain version covers."""
     check_ported(style)
@@ -151,11 +162,13 @@ def _chunk_cells(cap: int, S: int, ncell: int,
 def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
                            state: SlotState, *, eflag: bool = False,
                            vflag: bool = False, acc_dtype=torch.float32,
-                           special: Optional[SpecialTable] = None
+                           special: Optional[SpecialTable] = None,
+                           slot_mol: Optional[torch.Tensor] = None
                            ) -> CellPairResult:
     """Plain torch full-stencil evaluation as dense cell tiles, chunked
     over cells (any device).  With ``special``, a pair whose j atom is
-    among slot i's partners takes the style's factors of its code."""
+    among slot i's partners takes the style's factors of its code; with
+    ``slot_mol``, a pair of one molecule is skipped."""
     check_style(style)
     ncell, cap, n = grid.ncell, grid.cap, grid.n_atoms
     flt = state.x.dtype
@@ -181,6 +194,7 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
     typ = state.typ.view(ncell, cap)
     coul = style.cfg.has_coul
     q = state.q.view(ncell, cap)
+    mol = slot_mol.view(ncell, cap) if slot_mol is not None else None
     f_out = [torch.zeros((ncell, cap), dtype=acc_dtype, device=dev)
              for _ in range(3)]
     ev = torch.zeros((), dtype=acc_dtype, device=dev)
@@ -195,45 +209,55 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
     chunk = _chunk_cells(cap, S, ncell)
     for c0 in range(0, ncell, chunk):
         c1 = min(ncell, c0 + chunk)
+        C = c1 - c0
         js = nbr_t[c0:c1]                                   # (C, S)
         d = []
         for ax in range(3):
             pj = (pos[ax][js] + shift_t[c0:c1, :, ax, None]).reshape(
-                c1 - c0, 1, S * cap)
+                C, 1, S * cap)
             d.append(pos[ax][c0:c1, :, None] - pj)          # (C, cap, S*cap)
         rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         ai = aid[c0:c1, :, None]
-        aj = aid[js].reshape(c1 - c0, 1, S * cap)
+        aj = aid[js].reshape(C, 1, S * cap)
         mask = (ai < n) & (aj < n) & (ai != aj)
-        rsq = torch.where(mask, rsq, torch.full_like(rsq, 1e30))
+        if mol is not None:
+            mask &= mol[c0:c1, :, None] != mol[js].reshape(C, 1, S * cap)
+        # only candidates inside the largest cutoff contribute (every term
+        # is zero beyond its own cutoff): the physics runs on those pairs
+        keep = torch.nonzero((mask & (rsq < style.cutsq_max)).reshape(-1),
+                             as_tuple=True)[0]
+        row = keep // (S * cap)                    # slot of i in the chunk
+        col = (row // cap) * (S * cap) + keep % (S * cap)   # j in (C, S*cap)
+        rsq_k = rsq.reshape(-1)[keep]
+        d_k = [da.reshape(-1)[keep] for da in d]
+        aj_k = aid[js].reshape(-1)[col]
         if ntypes == 1:
             coef = coef1
         else:
-            tt = (typ[c0:c1, :, None] * ntypes
-                  + typ[js].reshape(c1 - c0, 1, S * cap)).long()
+            tt = (typ[c0:c1].reshape(-1)[row] * ntypes
+                  + typ[js].reshape(-1)[col]).long()
             coef = {name: coef_t[:, c][tt] for c, name in enumerate(COEF_NAMES)}
-        qi = q[c0:c1, :, None] if coul else 0.0
-        qj = q[js].reshape(c1 - c0, 1, S * cap) if coul else 0.0
+        qi = q[c0:c1].reshape(-1)[row] if coul else 0.0
+        qj = q[js].reshape(-1)[col] if coul else 0.0
         f_lj = f_coul = 1.0
         if special is not None:
-            sb = torch.zeros(rsq.shape, dtype=torch.long, device=dev)
+            sb = torch.zeros(rsq_k.shape, dtype=torch.long, device=dev)
+            sp_i = sp_idx[c0:c1].reshape(C * cap, -1)[row]
+            sp_c = sp_code[c0:c1].reshape(C * cap, -1)[row]
             for k in range(special.width):
-                sb += torch.where(sp_idx[c0:c1, :, k, None] == aj,
-                                  sp_code[c0:c1, :, k, None], 0)
+                sb += torch.where(sp_i[:, k] == aj_k, sp_c[:, k], 0)
             f_lj, f_coul = sp_lj[sb], sp_coul[sb]
-        fs, e, e_c = pair_terms(style, rsq, coef, qi, qj, f_lj, f_coul,
+        fs, e, e_c = pair_terms(style, rsq_k, coef, qi, qj, f_lj, f_coul,
                                 eflag=eflag)
-        fs = torch.where(mask, fs, torch.zeros_like(fs))
         for ax in range(3):
-            f_out[ax][c0:c1] = (fs * d[ax]).to(acc_dtype).sum(-1)
+            f_out[ax][c0:c1].view(-1).index_add_(
+                0, row, (fs * d_k[ax]).to(acc_dtype))
         if eflag:
-            ev = ev + torch.where(mask, e, torch.zeros_like(e)).to(
-                acc_dtype).sum()
-            ec = ec + torch.where(mask, e_c, torch.zeros_like(e_c)).to(
-                acc_dtype).sum()
+            ev = ev + e.to(acc_dtype).sum()
+            ec = ec + e_c.to(acc_dtype).sum()
         if vflag:
             vir = vir + torch.stack([
-                (fs * d[a] * d[b]).to(acc_dtype).sum()
+                (fs * d_k[a] * d_k[b]).to(acc_dtype).sum()
                 for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))])
     # every pair was seen from both sides
     return CellPairResult(
@@ -245,22 +269,25 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
 def compute_cellpair(style: PairStyle, grid: CellGrid, box: Box,
                      state: SlotState, *, eflag: bool = False,
                      vflag: bool = False, acc_dtype=torch.float32,
-                     special: Optional[SpecialTable] = None
+                     special: Optional[SpecialTable] = None,
+                     slot_mol: Optional[torch.Tensor] = None
                      ) -> CellPairResult:
     """Pair forces (acc dtype, slot order) + evdwl/ecoul/virial.
 
     CUDA planes launch the kernel; CPU planes run the plain version.
     Without eflag/vflag the energy/virial fields are zeros.  special:
-    the partner table of a molecular deck (``make_special_table``)."""
+    the partner table of a molecular deck (``make_special_table``);
+    slot_mol: the molecule-id plane of same-molecule exclusion
+    (``slot_mol_gather``)."""
     if state.x.is_cuda:
         from ...ops import cellpair as cellpair_ops
 
         return cellpair_ops.cellpair_forces(
             style, grid, box, state, eflag=eflag or vflag,
-            acc_dtype=acc_dtype, special=special)
+            acc_dtype=acc_dtype, special=special, slot_mol=slot_mol)
     if state.x.device.type != "cpu":
         raise RuntimeError(
             f"no kernel and no plain version for device {state.x.device}")
     return compute_cellpair_plain(style, grid, box, state, eflag=eflag,
                                   vflag=vflag, acc_dtype=acc_dtype,
-                                  special=special)
+                                  special=special, slot_mol=slot_mol)

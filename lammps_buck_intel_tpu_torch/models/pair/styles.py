@@ -1,5 +1,5 @@
-"""Buckingham and lj/charmm pair styles: coefficient tables and the
-per-pair physics.
+"""Buckingham, lj/cut, lj/long and lj/charmm pair styles: coefficient
+tables and the per-pair physics.
 
 Counterpart of ``lammps_buck_intel_tpu.models.pair.styles``.  The tables
 use the same (T, T, 8) column layout (``COEF_NAMES``), so the CUDA
@@ -9,15 +9,20 @@ physics; the kernel's device function computes the same expressions in
 the same order.
 
 The port carries ``buck``, ``buck/coul/long``, ``buck/coul/cut``,
-``lj/charmm/coul/long`` and ``lj/charmm/coul/cut``: Ewald real-space
-Coulomb through the A&S erfc (the k-space half is models/kspace), or the
-plain Coulomb term inside its cutoff with no k-space.  Special-bond
-factors: the LJ term of a 1-2/1-3/1-4 pair is scaled where it is
-evaluated; the coul/long term is corrected subtractively, because
-k-space holds every pair, and the coul/cut term scaled.  Ewald-split
-dispersion (``disp == "long"``, ROADMAP queue 1 item 13) and the lj/cut
-family (``build_lj``, SPC/E and hexane decks, item 12) raise
-NotImplementedError.
+``lj/charmm/coul/long``, ``lj/charmm/coul/cut`` and the 12-6 family of
+``build_lj``: ``lj/cut``, ``lj/cut/coul/long``, ``lj/cut/coul/cut`` and
+``lj/long/coul/long`` (Ewald-split dispersion, ``disp == "long"``, with
+``coul`` none, long or cut).  Coulomb: Ewald real space through the A&S
+erfc (the k-space half is models/kspace), or the plain Coulomb term
+inside its cutoff with no k-space.  Dispersion: the r^-6 term damped by
+(1 + u^2 + u^4/2) exp(-u^2), u = g_ewald_6 r, whose smooth remainder
+``models.kspace.pppm_disp`` sums on a mesh.  Special-bond factors: the
+LJ term of a 1-2/1-3/1-4 pair is scaled where it is evaluated (under
+``disp long`` corrected additively on the undamped term, because
+k-space holds every pair); the coul/long term is corrected
+subtractively, the coul/cut term scaled.  ``buck/long`` (Buckingham with
+Ewald-split dispersion) raises NotImplementedError naming ROADMAP queue
+1 item 13(b).
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ class PairConfig:
     """Static pair-style configuration."""
 
     name: str
-    vdw: str   # "buck" | "ljcharmm" (the JAX package also has "lj", "none")
+    vdw: str   # "buck" | "ljcharmm" | "lj" (the JAX package also has "none")
     coul: str  # "none" | "cut" | "long"
     disp: str  # "cut" | "long"
 
@@ -54,7 +59,10 @@ class PairStyle:
 
     tables: (T, T, 8) per-type-pair coefficients, columns per cfg.vdw
       buck:     [buck1, buck2, a, c, rhoinv, cut_ljsq, offset, cut_coulsq]
+      lj:       [lj1, lj2, lj3, lj4, 0, cut_ljsq, offset, cut_coulsq]
       ljcharmm: [lj1, lj2, lj3, lj4, 0, cut_ljsq, 0, cut_coulsq].
+    g_ewald_6: the dispersion splitting parameter of ``disp == "long"``
+      (set by the deck runner from ``pppm_disp.solve_g6``).
     special_lj / special_coul: (4,) factors, slot 0 == 1.0.
     inner_sq, denom_lj: the lj/charmm switching region, cut_lj_inner^2 and
       (cut_ljsq - inner_sq)^3.  eps14 / sig14: (T,) 1-4 LJ parameters that
@@ -104,6 +112,16 @@ NCOEF = 8
 COEF_NAMES = ("c0", "c1", "e0", "e1", "rhoinv", "cut_ljsq", "offset",
               "cut_coulsq")
 _COL = {name: i for i, name in enumerate(COEF_NAMES)}
+# PairConfig.vdw -> the VDW template mode of csrc/pair_terms.cuh
+VDW_MODE = {"buck": 0, "ljcharmm": 1, "lj": 2}
+
+
+def _mix_geometric(e, s):
+    return np.sqrt(e[:, None] * e[None, :]), np.sqrt(s[:, None] * s[None, :])
+
+
+def _mix_arithmetic(e, s):
+    return np.sqrt(e[:, None] * e[None, :]), 0.5 * (s[:, None] + s[None, :])
 
 
 def build_buck(
@@ -130,8 +148,8 @@ def build_buck(
         raise ValueError(f"unknown Coulomb form {coul!r}")
     if disp != "cut":
         raise NotImplementedError(
-            "buck/long (Ewald-split dispersion) is not ported: ROADMAP "
-            "queue 1 item 13")
+            "buck/long (Ewald-split dispersion on the Buckingham term) is "
+            "not ported: ROADMAP queue 1 item 13(b)")
     cut_coul = cut_global if cut_coul is None else cut_coul
     t = np.zeros((ntypes, ntypes, NCOEF), np.float64)
     seen = np.zeros((ntypes, ntypes), bool)
@@ -164,6 +182,77 @@ def build_buck(
     default = f"buck/coul/{coul}" if coul != "none" else "buck"
     return PairStyle(
         cfg=PairConfig(name=name or default, vdw="buck", coul=coul,
+                       disp=disp),
+        tables=t,
+        special_lj=np.asarray(special_lj, np.float64),
+        special_coul=np.asarray(special_coul, np.float64),
+        qqrd2e=float(qqrd2e),
+        cutsq_max=cutsq_max,
+    )
+
+
+def build_lj(
+    ntypes: int,
+    coeffs: dict,
+    cut_global: float,
+    coul: str = "none",
+    disp: str = "cut",
+    cut_coul: Optional[float] = None,
+    mix: str = "geometric",
+    special_lj=(1.0, 0.0, 0.0, 0.0),
+    special_coul=(1.0, 0.0, 0.0, 0.0),
+    qqrd2e: float = 1.0,
+    shift: bool = False,
+    name: Optional[str] = None,
+) -> PairStyle:
+    """LJ 12-6 builder: lj/cut, lj/cut/coul/{long,cut} (disp "cut") and
+    lj/long/coul/long (disp "long", coul "none" for ``coul off``).
+
+    coeffs: {i: (eps, sigma)} per type, or {(i, j): (eps, sigma[,
+    cut_lj])} overrides (0-based).  Unspecified cross terms are mixed,
+    geometric by default (the rule in.hexane relies on) or arithmetic.
+    g_ewald / g_ewald_6 are set later by the k-space solvers
+    (``replace``)."""
+    if coul not in ("none", "long", "cut"):
+        raise ValueError(f"unknown Coulomb form {coul!r}")
+    if disp not in ("cut", "long"):
+        raise ValueError(f"unknown dispersion form {disp!r}")
+    cut_coul = cut_global if cut_coul is None else cut_coul
+    eps = np.zeros(ntypes)
+    sig = np.zeros(ntypes)
+    pair_override: dict = {}
+    for key, c in coeffs.items():
+        if isinstance(key, tuple):
+            i, j = key
+            if i == j:
+                eps[i], sig[i] = c[0], c[1]
+            pair_override[(min(i, j), max(i, j))] = c
+        else:
+            eps[key], sig[key] = c[0], c[1]
+    mixer = _mix_geometric if mix == "geometric" else _mix_arithmetic
+    e_ij, s_ij = mixer(eps, sig)
+    cut_lj_ij = np.full((ntypes, ntypes), cut_global, np.float64)
+    for (i, j), c in pair_override.items():
+        e_ij[i, j] = e_ij[j, i] = c[0]
+        s_ij[i, j] = s_ij[j, i] = c[1]
+        if len(c) > 2:
+            cut_lj_ij[i, j] = cut_lj_ij[j, i] = c[2]
+    t = np.zeros((ntypes, ntypes, NCOEF), np.float64)
+    s6 = s_ij**6
+    t[..., _COL["c0"]] = 48.0 * e_ij * s6 * s6   # lj1
+    t[..., _COL["c1"]] = 24.0 * e_ij * s6        # lj2
+    t[..., _COL["e0"]] = 4.0 * e_ij * s6 * s6    # lj3
+    t[..., _COL["e1"]] = 4.0 * e_ij * s6         # lj4
+    t[..., _COL["cut_ljsq"]] = cut_lj_ij**2
+    t[..., _COL["cut_coulsq"]] = cut_coul**2
+    if shift:
+        r6 = s6 / cut_lj_ij**6
+        t[..., _COL["offset"]] = 4.0 * e_ij * (r6 * r6 - r6)
+    cutsq_max = float(t[..., _COL["cut_ljsq"]].max())
+    if coul != "none":
+        cutsq_max = max(cutsq_max, float(t[..., _COL["cut_coulsq"]].max()))
+    return PairStyle(
+        cfg=PairConfig(name=name or "lj/cut", vdw="lj", coul=coul,
                        disp=disp),
         tables=t,
         special_lj=np.asarray(special_lj, np.float64),
@@ -206,8 +295,7 @@ def build_lj_charmm(
         eps[t], sig[t] = c[0], c[1]
         e14[t] = c[2] if len(c) > 2 else c[0]
         s14[t] = c[3] if len(c) > 3 else c[1]
-    e_ij = np.sqrt(eps[:, None] * eps[None, :])
-    s_ij = 0.5 * (sig[:, None] + sig[None, :])
+    e_ij, s_ij = _mix_arithmetic(eps, sig)
     t = np.zeros((ntypes, ntypes, NCOEF), np.float64)
     s6 = s_ij**6
     t[..., _COL["c0"]] = 48.0 * e_ij * s6 * s6
@@ -235,13 +323,15 @@ def build_lj_charmm(
 def check_ported(style: PairStyle):
     """Raise for what neither the kernel nor the plain version covers."""
     cfg = style.cfg
-    if cfg.vdw not in ("buck", "ljcharmm") or cfg.disp != "cut" \
-            or cfg.coul not in ("none", "long", "cut") \
+    if cfg.vdw not in VDW_MODE or cfg.coul not in ("none", "long", "cut") \
+            or cfg.disp not in ("cut", "long") \
+            or (cfg.disp == "long" and cfg.vdw != "lj") \
             or (cfg.vdw == "ljcharmm" and cfg.coul == "none"):
         raise NotImplementedError(
             f"pair style {cfg.name!r} ({cfg.vdw}, coul {cfg.coul}, disp "
-            f"{cfg.disp}) is not ported: buck, buck/coul/{{long,cut}} and "
-            "lj/charmm/coul/{long,cut} only (ROADMAP queue 1 items 12, 13)")
+            f"{cfg.disp}) is not ported: buck, buck/coul/{{long,cut}}, "
+            "lj/charmm/coul/{long,cut} and the lj/cut, lj/long family only "
+            "(buck/long: ROADMAP queue 1 item 13(b))")
 
 
 def erfc_approx(grij, expm2):
@@ -276,6 +366,30 @@ def pair_terms(style: PairStyle, rsq, coef, qi, qj, f_lj, f_coul, *,
         rexp = torch.exp(-r * coef["rhoinv"])
         fvdw = (r * rexp * coef["c0"] - r6inv * coef["c1"]) * f_lj
         evdwl = (coef["e0"] * rexp - coef["e1"] * r6inv
+                 - coef["offset"]) * f_lj
+    elif cfg.disp == "long":
+        # lj/long: the r^-6 term damped by the Ewald split, the JAX
+        # package's expressions in its order (LAMMPS pair_lj_long_coul_long)
+        rep_f = r6inv * r6inv * coef["c0"]
+        rep_e = r6inv * r6inv * coef["e0"]
+        g2 = float(style.g_ewald_6 ** 2)
+        g6 = float(style.g_ewald_6 ** 6)
+        g8 = float(style.g_ewald_6 ** 8)
+        grij2 = g2 * rsq
+        a2 = 1.0 / torch.clamp(grij2, min=1e-30)
+        x2 = a2 * torch.exp(-grij2) * coef["e1"]
+        fvdw = rep_f - g8 * x2 * rsq * (((6.0 * a2 + 6.0) * a2 + 3.0) * a2
+                                        + 1.0)
+        evdwl = rep_e - g6 * x2 * ((a2 + 1.0) * a2 + 0.5)
+        # a special pair is corrected additively on the undamped term
+        # (k-space holds every pair); elided without special bonds
+        if not (isinstance(f_lj, float) and f_lj == 1.0):
+            tl = r6inv * (1.0 - f_lj)
+            fvdw = fvdw + tl * (coef["c1"] - r6inv * coef["c0"])
+            evdwl = evdwl + tl * (coef["e1"] - r6inv * coef["e0"])
+    elif cfg.vdw == "lj":
+        fvdw = (r6inv * r6inv * coef["c0"] - r6inv * coef["c1"]) * f_lj
+        evdwl = (r6inv * r6inv * coef["e0"] - coef["e1"] * r6inv
                  - coef["offset"]) * f_lj
     else:
         # lj/charmm: the energy switch between the inner and outer cutoff

@@ -24,7 +24,8 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-lineinfo", "-Xptxas", "-v"]
 # library -> extra nvcc flags.  The rebin, the integrator, the constraint
-# solves, the neighbor list and the barostat passes are compiled without
+# solves, the neighbor list, the barostat passes and the rigid-body
+# updates are compiled without
 # FMA contraction so their wrap, cell, distance, update and solve
 # arithmetic rounds like the plain torch version; no library uses
 # --use_fast_math.
@@ -38,6 +39,8 @@ LIBRARIES = {
     "nlist": ["--fmad=false"],
     "npt": ["--fmad=false"],
     "ewald": [],
+    "pppm_disp": [],
+    "rigid": ["--fmad=false"],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -12,6 +12,7 @@ import torch
 from . import LAUNCHES
 from . import build
 from ..models.pair.cellpair import CellPairResult, check_style
+from ..models.pair.styles import VDW_MODE
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _PREC = {(torch.float32, torch.float32): 0, (torch.float32, torch.float64): 1,
@@ -26,8 +27,8 @@ def _lib():
     lib = build.load("cellpair")
     if lib.cellpair_forces.argtypes is None:
         lib.cellpair_forces.argtypes = (
-            [_I] * 4 + [_P] * 7 + [_I] * 7 + [_D] * 7 + [_P, _I, _P]
-            + [_P] * 5)
+            [_I] * 5 + [_P] * 8 + [_I] * 7 + [_D] * 7 + [_P] * 2
+            + [_I, _P] + [_P] * 5)
         lib.cellpair_forces.restype = _I
     return lib
 
@@ -45,13 +46,15 @@ def check_plane(t: torch.Tensor, name: str, dtype, numel: int, device):
 
 
 def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
-                    special=None) -> CellPairResult:
+                    special=None, slot_mol=None) -> CellPairResult:
     """Full-stencil pair forces on the card.  eflag also computes evdwl,
     ecoul and the virial (the kernel's EV variant); coul/long and coul/cut
     styles run the kernel's COUL variants, which read the slot q plane;
-    lj/charmm its
-    VDW = 1 variant; a ``special`` partner table
-    (``models.pair.cellpair.SpecialTable``) its SPECIAL variant."""
+    lj/charmm and the lj/cut family their VDW variants, lj/long the
+    DISP_LONG one; a ``special`` partner table
+    (``models.pair.cellpair.SpecialTable``) its SPECIAL variant; a
+    ``slot_mol`` plane (int32 molecule ids, -1 on empty slots) excludes
+    every pair of one molecule."""
     check_style(style)
     dev = state.x.device
     if dev.type != "cuda":
@@ -70,6 +73,15 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
         check_plane(state.q, "q", flt, ns, dev)
     for name in ("typ", "aid"):
         check_plane(getattr(state, name), name, torch.int32, ns, dev)
+    if slot_mol is not None:
+        check_plane(slot_mol, "slot_mol", torch.int32, ns, dev)
+    disp_long = style.cfg.disp == "long"
+    if disp_long and (style.cfg.vdw != "lj" or coul):
+        raise NotImplementedError(
+            "the cell-pair kernel's DISP_LONG variant is lj/long with coul "
+            "none (coul long with disp long: ROADMAP queue 1 item 13(b))")
+    g6 = float(style.g_ewald_6)
+    disp = (ctypes.c_double * 3)(g6 ** 2, g6 ** 6, g6 ** 8)
     coef = style.tables_on(flt, dev)
     ntypes = style.tables.shape[0]
     sp_ptr, sp_width, fac_ptr = None, 0, None
@@ -87,13 +99,15 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
                if eflag else None)
     L = [float(v) for v in box.lengths]
     rc = _lib().cellpair_forces(
-        prec, int(eflag), int(coul), int(style.cfg.vdw == "ljcharmm"),
+        prec, int(eflag), int(coul), VDW_MODE[style.cfg.vdw], int(disp_long),
         state.x.data_ptr(), state.y.data_ptr(),
         state.z.data_ptr(), state.q.data_ptr() if coul else None,
-        state.typ.data_ptr(), state.aid.data_ptr(), coef.data_ptr(), ntypes,
-        grid.n_atoms, *grid.nc, grid.cap, grid.reach_z, *L,
+        state.typ.data_ptr(), state.aid.data_ptr(),
+        None if slot_mol is None else slot_mol.data_ptr(), coef.data_ptr(),
+        ntypes, grid.n_atoms, *grid.nc, grid.cap, grid.reach_z, *L,
         float(style.g_ewald), float(style.qqrd2e), float(style.inner_sq),
-        float(style.denom_lj), sp_ptr, sp_width, fac_ptr, fx.data_ptr(),
+        float(style.denom_lj), ctypes.cast(disp, _P), sp_ptr, sp_width,
+        fac_ptr, fx.data_ptr(),
         fy.data_ptr(), fz.data_ptr(),
         partial.data_ptr() if eflag else None,
         torch.cuda.current_stream(dev).cuda_stream)

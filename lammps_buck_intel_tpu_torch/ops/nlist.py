@@ -16,6 +16,7 @@ import torch
 from . import LAUNCHES
 from . import build
 from .cellpair import COUL_MODE, check_plane
+from ..models.pair.styles import VDW_MODE
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _PREC = {(torch.float32, torch.float32): 0, (torch.float32, torch.float64): 1,
@@ -122,6 +123,10 @@ def compute_pair(style, xs, typ, q, boxL, nl, *, eflag: bool, acc_dtype,
     """The pair pass on the card: ((fx, fy, fz) acc, evdwl, ecoul, virial
     (6,)), energies and virial halved (each pair is visited twice)."""
     cfg = style.cfg
+    if cfg.disp != "cut":
+        raise NotImplementedError(
+            "the list pair pass has no lj/long variant: dispersion PPPM runs "
+            "on the cell engine only (ROADMAP queue 1 item 13(c))")
     dev, flt, n = _positions(xs)
     prec = _PREC.get((flt, acc_dtype))
     if prec is None:
@@ -146,7 +151,7 @@ def compute_pair(style, xs, typ, q, boxL, nl, *, eflag: bool, acc_dtype,
     part = torch.empty((lib.nlist_partial_rows(n), 8), dtype=acc_dtype,
                        device=dev)
     _check(lib.nlist_pair(
-        prec, int(eflag), coul, int(cfg.vdw == "ljcharmm"),
+        prec, int(eflag), coul, VDW_MODE[cfg.vdw],
         int(use_special), *(p.data_ptr() for p in xs),
         q.data_ptr() if coul else None, typ.data_ptr(), boxL.data_ptr(),
         coef.data_ptr(), style.tables.shape[0], n, idx_t.data_ptr(),

@@ -16,16 +16,23 @@ with or without ``fix shake``) runs on the neighbor-list NPT engine
 (``pppm_npt.TracedPPPM``) on the generic mesh of the deck's box.  Atoms: a
 lattice built with ``create_atoms`` or atoms read with ``read_data`` (atom
 style charge or full, optionally ``replicate``d); ``pair_style buck``,
-``buck/coul/cut`` or ``lj/charmm/coul/cut`` without k-space, or
-``buck/coul/long`` / ``lj/charmm/coul/long`` with ``kspace_style pppm``
-(ik) or ``kspace_style ewald`` (``models.kspace.ewald``, on the
-neighbor-list ``Simulation`` only); ``special_bonds``, harmonic bonds,
-harmonic or CHARMM angles, CHARMM dihedrals and harmonic impropers
-(examples/decks/buck.yaml, buck_small.yaml, buck_big.yaml,
-cristobalite_pppm.yaml, cristobalite_pppm_nlist.yaml,
-cristobalite_ewald.yaml, cristobalite_coul_cut.yaml, rhodo_nve.yaml,
-rhodo_nve_nlist.yaml, rhodo_32k.yaml, rhodo_class.yaml,
-rhodo_flex_nve.yaml, rhodo_flex_nvt.yaml, rhodo_npt.yaml).  Every other
+``buck/coul/cut``, ``lj/cut``, ``lj/cut/coul/cut`` or
+``lj/charmm/coul/cut`` without k-space, or ``buck/coul/long`` /
+``lj/cut/coul/long`` / ``lj/charmm/coul/long`` with ``kspace_style
+pppm`` (ik) or ``kspace_style ewald`` (``models.kspace.ewald``, on the
+neighbor-list ``Simulation`` only); ``lj/long/coul/long`` with ``coul:
+off`` and ``kspace_style pppm/disp`` (geometric mixing, ik; the cell
+engine, with the dispersion mesh aligned to its cells:
+``models.kspace.CellPPPMDisp``); ``fix rigid/small`` (quaternion rigid
+bodies, one per molecule, on the cell engine) and ``exclude_intra``;
+``special_bonds``, harmonic bonds, harmonic or CHARMM angles, CHARMM
+dihedrals and harmonic impropers (examples/decks/buck.yaml,
+buck_small.yaml, buck_big.yaml, cristobalite_pppm.yaml,
+cristobalite_pppm_nlist.yaml, cristobalite_ewald.yaml,
+cristobalite_coul_cut.yaml, rhodo_nve.yaml, rhodo_nve_nlist.yaml,
+rhodo_32k.yaml, rhodo_class.yaml, rhodo_flex_nve.yaml,
+rhodo_flex_nvt.yaml, rhodo_npt.yaml, hexane_gen.yaml,
+hexane_gen_big.yaml).  Every other
 deck key or value raises NotImplementedError naming its ROADMAP item;
 nothing is ignored.  A
 relative ``read_data`` path resolves against the working directory, as
@@ -46,7 +53,6 @@ import torch
 _UNPORTED_KEYS = {
     "delete_atoms": "item 15",
     "regions": "item 15",
-    "exclude_intra": "item 13",
     "dump": "item 15",
     "write_data": "item 15",
     "write_restart": "item 15",
@@ -58,6 +64,7 @@ _UNPORTED_KEYS = {
 _KEYS = {"units", "precision", "timestep", "engine", "lattice", "mass",
          "read_data", "replicate", "velocity", "pair_style", "kspace_style",
          "neighbor", "fixes", "thermo", "run", "cap", "special_bonds",
+         "exclude_intra",
          "special_bonds_coul", "bond_style", "angle_style", "dihedral_style",
          "improper_style"}
 # fix name -> (keys the port reads, ROADMAP item of an unported fix)
@@ -65,10 +72,11 @@ _FIX_KEYS = {"nve": {"name"},
              "nvt": {"name", "t_start", "t_stop", "t_damp", "tchain"},
              "shake": {"name", "m", "b", "a", "iters", "tol"},
              "npt": {"name", "t_start", "t_stop", "t_damp", "tchain", "iso",
-                     "aniso", "x", "y", "z", "mtk", "pchain"}}
+                     "aniso", "x", "y", "z", "mtk", "pchain"},
+             "rigid/small": {"name"}}
 _UNPORTED_FIXES = {
-    "rigid/small": "item 13 (rigid bodies, K15)",
-    "rigid/npt/small": "item 13 (rigid bodies under the barostat, K15)",
+    "rigid/npt/small": "item 13(c) (rigid bodies under the barostat, K15 "
+                       "with K16d)",
 }
 # engine -> where its port stands in ROADMAP queue 1 (nlist and cellpair
 # run)
@@ -77,7 +85,6 @@ _UNPORTED_ENGINES = {"slab": "item 16 (the multi-device slab engine)"}
 _NPT_TILT_KEYS = {"tri", "xy", "xz", "yz"}
 # kspace_style pieces the port refuses, by ROADMAP queue 1 item
 _KSPACE_UNPORTED = {
-    "pppm/disp": "item 13 (dispersion PPPM, K12 / K16d)",
     "diff": "item 10 (pppm diff ad, K10)",
     "slab": "item 10 (kspace_modify slab, K10)",
     "grid": "item 10 (kspace_modify mesh)",
@@ -90,14 +97,35 @@ _SPECIAL_SETS = {"charmm": ([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
 # kspace_style keys the port reads, by style; "grid" (kspace_modify mesh)
 # is left out because the cell-pair engine aligns the mesh to its cells
 _KSPACE_KEYS = {"pppm": {"name", "accuracy", "order", "diff", "gewald"},
-                "ewald": {"name", "accuracy", "gewald"}}
+                "ewald": {"name", "accuracy", "gewald"},
+                "pppm/disp": {"name", "accuracy", "force_disp_real",
+                              "order_disp", "order", "mix", "diff"}}
 _PAIR_STYLES = ("buck", "buck/coul/long", "buck/coul/cut",
-                "lj/charmm/coul/long", "lj/charmm/coul/cut")
+                "lj/charmm/coul/long", "lj/charmm/coul/cut", "lj/cut",
+                "lj/cut/coul/long", "lj/cut/coul/cut", "lj/long/coul/long")
 
 
 def _parse_pair_key(k: str):
     i, j = k.split()
     return (int(i) - 1, int(j) - 1)
+
+
+def _pair_forms(ps: dict):
+    """(coul, disp) of a pair_style entry, the JAX package's reading: coul
+    "long" / "cut" / "none" from the name, "none" under ``coul: off``;
+    disp "long" for the lj/long styles."""
+    name = ps["name"]
+    coul = ("long" if "coul/long" in name
+            else "cut" if "coul/cut" in name else "none")
+    if "coul_off" in ps or ps.get("coul") == "off":
+        coul = "none"
+    disp = "long" if name.startswith(("lj/long", "buck/long")) else "cut"
+    return coul, disp
+
+
+def _disp_mix(cfg: dict) -> str:
+    ks, ps = cfg.get("kspace_style") or {}, cfg["pair_style"]
+    return ks.get("mix", ps.get("mix", "geometric"))
 
 
 def _check_npt(cfg: dict, fx: dict):
@@ -128,6 +156,8 @@ def _check_deck(cfg: dict):
     if engine not in ("nlist", "cellpair"):
         raise ValueError(f"unknown engine {engine!r} (nlist, cellpair)")
     npt = any(fx.get("name") == "npt" for fx in cfg.get("fixes", []))
+    rigid = any(fx.get("name") == "rigid/small"
+                for fx in cfg.get("fixes", []))
     if cfg.get("cap") and (engine != "cellpair" or npt):
         raise NotImplementedError(
             "deck key 'cap' sizes the cell engine's slots, which this deck "
@@ -156,20 +186,55 @@ def _check_deck(cfg: dict):
                 "mtk, pchain) only (ROADMAP queue 1)")
         if fn == "npt":
             _check_npt(cfg, fx)
+    if rigid and npt:
+        raise NotImplementedError(
+            "fix npt with fix rigid/small (the coupled barostat is fix "
+            "rigid/npt/small: ROADMAP queue 1 item 13(c))")
+    if (rigid or cfg.get("exclude_intra")) and engine != "cellpair":
+        raise NotImplementedError(
+            "fix rigid/small and exclude_intra on the neighbor-list engine "
+            "are not ported (the port runs them on engine cellpair): ROADMAP "
+            "queue 1 item 13(c)")
     if "lattice" not in cfg and "read_data" not in cfg:
         raise ValueError("deck needs read_data or lattice")
     name = cfg["pair_style"]["name"]
     if name not in _PAIR_STYLES:
+        where = ("item 13(b)" if name.startswith("buck/long")
+                 else "queue 1")
         raise NotImplementedError(
             f"pair_style {name!r} is not ported: {', '.join(_PAIR_STYLES)} "
-            "only (ROADMAP queue 1 item 12 lj/cut, item 13 */long "
-            "dispersion)")
+            f"only (ROADMAP {where})")
+    coul, disp = _pair_forms(cfg["pair_style"])
     ks = cfg.get("kspace_style")
-    if (ks is None) != (not name.endswith("coul/long")):
+    kname = None if ks is None else ks["name"]
+    if coul == "long" and disp == "long":
         raise NotImplementedError(
-            f"pair_style {name!r} with kspace_style {ks!r} is not ported: "
-            "buck and the coul/cut styles run without k-space, the "
-            "coul/long styles with pppm or ewald")
+            f"pair_style {name!r} with both long-range Coulomb and long-range "
+            "dispersion (pppm + pppm/disp, the JAX CombinedKSpace) is not "
+            "ported: ROADMAP queue 1 item 13(b)")
+    want = (("pppm/disp",) if disp == "long"
+            else ("pppm", "ewald") if coul == "long" else None)
+    if (kname is None) != (want is None) or (
+            want is not None and kname not in want):
+        where = ("ROADMAP queue 1 item 13(b) (pppm/disp beside a style "
+                 "without long-range dispersion)" if kname == "pppm/disp"
+                 else "ROADMAP queue 1")
+        raise NotImplementedError(
+            f"pair_style {name!r} with kspace_style {kname!r} is not "
+            "ported: buck and the lj/cut, coul/cut styles run without "
+            "k-space, the coul/long styles with pppm or ewald, lj/long "
+            f"(coul off) with pppm/disp ({where})")
+    if kname == "pppm/disp":
+        if _disp_mix(cfg) != "geometric":
+            raise NotImplementedError(
+                f"pppm/disp mix {_disp_mix(cfg)!r} (the arithmetic and no-mix "
+                "channel pipelines) is not ported: ROADMAP queue 1 item "
+                "13(b)")
+        if engine != "cellpair" or npt:
+            raise NotImplementedError(
+                "pppm/disp on the neighbor-list engines (and under fix npt, "
+                "K16d) is not ported; the port runs it on engine cellpair: "
+                "ROADMAP queue 1 item 13(c)")
     for kind, ok in _BONDED_STYLES.items():
         style = cfg.get(f"{kind}_style", {}).get("name")
         if style is not None and style not in ok:
@@ -286,12 +351,11 @@ def _special_factors(cfg: dict):
 
 
 def _pair_style(cfg: dict, ntypes: int, data_pair: dict, qqrd2e: float):
-    from .models.pair import build_buck, build_lj_charmm
+    from .models.pair import build_buck, build_lj, build_lj_charmm
 
     ps = cfg["pair_style"]
     name = ps["name"]
-    coul = ("long" if "coul/long" in name
-            else "cut" if "coul/cut" in name else "none")
+    coul, disp = _pair_forms(ps)
     special_lj, special_coul = _special_factors(cfg)
     coeffs = {_parse_pair_key(k): tuple(v)
               for k, v in ps.get("coeffs", {}).items()}
@@ -305,6 +369,15 @@ def _pair_style(cfg: dict, ntypes: int, data_pair: dict, qqrd2e: float):
             ntypes, lj, inner=ps["inner"], cut_lj=ps["cut"], coul=coul,
             cut_coul=ps.get("cut_coul"), name=name, special_lj=special_lj,
             special_coul=special_coul, qqrd2e=qqrd2e)
+    if name.startswith("lj"):
+        # per-type (eps, sigma) on the diagonal, cross terms mixed unless
+        # the deck gives them (the JAX package's reading)
+        lj = {((i, j) if i != j else i): c for (i, j), c in coeffs.items()}
+        return build_lj(
+            ntypes, lj, cut_global=ps["cut"], coul=coul, disp=disp,
+            cut_coul=ps.get("cut_coul"), mix=ps.get("mix", "geometric"),
+            name=name, special_lj=special_lj, special_coul=special_coul,
+            qqrd2e=qqrd2e, shift=ps.get("shift", False))
     return build_buck(
         ntypes, coeffs, cut_global=ps["cut"], coul=coul,
         cut_coul=ps.get("cut_coul"), name=name, special_lj=special_lj,
@@ -444,6 +517,42 @@ def _pppm_for_grid(cfg: dict, box, q, style, prec, skin: float):
     return make
 
 
+def _disp_for_grid(cfg: dict, box, typ, B, style, prec, skin: float):
+    """The engine's dispersion solver as a function of its cell grid:
+    pppm/disp on a mesh aligned to the grid's coarse cells (the JAX
+    package's ``use_celldisp`` branch, its run.py :926-944), with the
+    g_ewald_6 the pair style already carries and the per-type dispersion
+    charges B."""
+    from .models.kspace import CellPPPMDisp, setup_pppm_disp
+
+    ks, ps = cfg["kspace_style"], cfg["pair_style"]
+    order6 = ks.get("order_disp", ks.get("order", 5))
+
+    def make(grid):
+        kgrid = grid.coarse()
+        nc = np.asarray(kgrid.nc)
+        smin = _patch_aligned_smin(nc, np.asarray(box.perp_widths), skin,
+                                   order6)
+        pmd = setup_pppm_disp(
+            box, B, typ, cutoff=ps["cut"], g_ewald_6=style.g_ewald_6,
+            acc_dtype=prec.acc, mix="geometric",
+            diff=ks.get("diff", "ik"), order=order6, multiple_of=kgrid.nc,
+            grid_min=tuple(int(s * c) for s, c in zip(smin, nc)))
+        return CellPPPMDisp(pmd, grid.n_atoms, typ)
+
+    return make
+
+
+def _disp_b(cfg: dict, ntypes: int) -> np.ndarray:
+    """B = sqrt(4 eps) sigma^3 per type from the deck's ``i i``
+    coefficients, the JAX package's expression (its run.py :359-362)."""
+    coeffs = {_parse_pair_key(k): tuple(v)
+              for k, v in cfg["pair_style"].get("coeffs", {}).items()}
+    eps = np.array([coeffs[(t, t)][0] for t in range(ntypes)])
+    sig = np.array([coeffs[(t, t)][1] for t in range(ntypes)])
+    return np.sqrt(4.0 * eps) * sig**3
+
+
 def _npt_config(fx: dict):
     """fix npt -> (NPTConfig, NVTConfig), the JAX package's parse: iso
     and aniso couple all three axes (iso to their mean pressure), the
@@ -531,8 +640,14 @@ def build_simulation(cfg: dict, device="cuda"):
     style = _pair_style(cfg, len(mass), g["data_coeffs"].get("pair"),
                         u.qqrd2e)
     ks = cfg.get("kspace_style")
-    ewald = None
-    if ks is not None:
+    ewald = B = None
+    if ks is not None and ks["name"] == "pppm/disp":
+        from .models.kspace import solve_g6
+
+        style = style.replace(g_ewald_6=solve_g6(
+            ps["cut"], ks.get("force_disp_real", 1e-4)))
+        B = _disp_b(cfg, len(mass))
+    elif ks is not None:
         gew = ks.get("gewald")
         if ks["name"] == "ewald":
             # the JAX run.py's order: the k set first, its g_ewald to the
@@ -546,7 +661,8 @@ def build_simulation(cfg: dict, device="cuda"):
             gew = pppm_g_ewald(box, q, ps.get("cut_coul", ps["cut"]),
                                ks.get("accuracy", 1e-4), u.qqrd2e)
         style = style.replace(g_ewald=float(gew))
-    thermostat = shake = npt_fix = None
+    thermostat = shake = npt_fix = rigid = None
+    exclude_intra = bool(cfg.get("exclude_intra", False))
     shaken = ((), ())
     for fx in cfg.get("fixes", [{"name": "nve"}]):
         if fx["name"] == "nvt":
@@ -557,6 +673,13 @@ def build_simulation(cfg: dict, device="cuda"):
             npt_fix, thermostat = _npt_config(fx)
         elif fx["name"] == "shake":
             shake, *shaken = _shake(cfg, fx, g)
+        elif fx["name"] == "rigid/small":
+            from .integrate.rigid import make_rigid_bodies
+
+            rigid = make_rigid_bodies(x, g["mol"], mass[typ], box)
+    if (rigid is not None or exclude_intra) and g["mol"] is None:
+        raise ValueError("fix rigid/small and exclude_intra need molecule "
+                         "ids (a data file of atom style full)")
     # the special-bond table above keeps the full topology; the bonded
     # terms lose the constrained types
     bonded = _bonded(cfg, g, style, u.qqrd2e, shaken)
@@ -580,15 +703,21 @@ def build_simulation(cfg: dict, device="cuda"):
             units=u, precision=prec, dt=dt, neighbor=policy, shake=shake,
             topology=topo)
     if cfg.get("engine", "nlist") == "cellpair":
-        kspace = (None if ks is None
-                  else _pppm_for_grid(cfg, box, q, style, prec, policy.skin))
+        if ks is None:
+            kspace = None
+        elif ks["name"] == "pppm/disp":
+            kspace = _disp_for_grid(cfg, box, typ, B, style, prec,
+                                    policy.skin)
+        else:
+            kspace = _pppm_for_grid(cfg, box, q, style, prec, policy.skin)
         try:
             return CellPairSimulation(
                 system, style, units=u, precision=prec, dt=dt,
                 neighbor=policy,
                 cap=int(cfg["cap"]) if cfg.get("cap") else None,
                 kspace=kspace, topology=topo, bonded=bonded,
-                thermostat=thermostat, shake=shake)
+                thermostat=thermostat, shake=shake, rigid=rigid,
+                exclude_intra=exclude_intra)
         except ValueError as e:
             # ONLY the box-too-small geometry falls through to the
             # neighbor-list engine, as in the JAX package; every other
@@ -600,6 +729,12 @@ def build_simulation(cfg: dict, device="cuda"):
                 "deck key 'cap' sizes the cell engine's slots; this deck's "
                 "box is too small for the cell engine, and the neighbor-list "
                 "engine sizes its own capacities: drop cap")
+        if B is not None or rigid is not None or exclude_intra:
+            raise NotImplementedError(
+                "this deck's box is too small for the cell engine, and "
+                "pppm/disp, fix rigid/small and exclude_intra on the "
+                "neighbor-list engine are not ported: ROADMAP queue 1 item "
+                "13(c)")
     kspace = ewald
     if ks is not None and ewald is None:
         kspace = _generic_pppm(cfg, box, q, style, prec)

@@ -191,12 +191,12 @@ def _rhodo(name="rhodo_flex_nve.yaml"):
 
 @pytest.mark.parametrize("change,match", [
     ({"fixes": [{"name": "shake", "m": 1.0, "t": [2]}]}, "item 12.*K13"),
-    ({"fixes": [{"name": "rigid/small"}]}, "item 13"),
+    ({"fixes": [{"name": "rigid/npt/small"}]}, "item 13"),
     ({"fixes": [{"name": "npt", "t_start": 300.0, "t_damp": 50.0,
                  "tri": [0.0, 0.0, 1000.0]}]}, "item 14"),
     ({"kspace_style": {"name": "ewald", "accuracy": 1e-4}}, "item"),
     ({"kspace_style": {"name": "pppm/disp", "accuracy": 1e-4}}, "item"),
-    ({"exclude_intra": True}, "item 13"),
+    ({"exclude_intra": True, "engine": "nlist"}, "item 13"),
     ({"angle_style": {"name": "cosine/squared", "coeffs": [[1.0, 100.0]]}},
      "angle_style"),
     ({"dihedral_style": {"name": "opls", "coeffs": [[1.0, 1.0, 1.0, 1.0]]}},
@@ -328,7 +328,7 @@ def test_small_box_falls_back_to_simulation():
     ({"engine": "slab"}, "item 16"),
     ({"devices": 2}, "item 16"),
     ({"devices_2d": [2, 2]}, "item 16"),
-    ({"exclude_intra": True}, "item 13"),
+    ({"exclude_intra": True, "engine": "nlist"}, "item 13"),
     ({"engine": "nlist", "cap": 40}, "cap"),
 ])
 def test_nlist_unported_forms_raise(change, match):

@@ -1026,3 +1026,201 @@ def test_nlist_pair_coul_cut_kernel_matches_plain(cuda, prec):
             assert abs(float(getattr(rk, e) - getattr(rp, e))) <= \
                 etol * abs(float(getattr(rp, e)))
     assert ops.LAUNCHES["nlist_pair"] == before + 2
+
+
+# ---- the hexane path: K1 lj/long + exclusion, K12a, K15a-c ----
+
+def _hexane_sim(dev, prec, tmp_path):
+    """hexane_gen.yaml on a 4 x 4 x 4 lattice of chains (384 atoms, cut
+    5.0, skin 1.0) built on ``dev``."""
+    import os
+    import sys
+
+    import yaml
+
+    from lammps_buck_intel_tpu_torch.run import build_simulation
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "examples"))
+    import gen_hexane
+
+    data = str(tmp_path / "data.hexane_cut")
+    gen_hexane.write(data, 4, 4, 4)
+    with open(os.path.join(root, "examples", "decks", "hexane_gen.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(read_data=data, precision=prec)
+    cfg["pair_style"]["cut"] = 5.0
+    cfg["neighbor"]["skin"] = 1.0
+    return build_simulation(cfg, device=dev)
+
+
+TOLS = {"single": (1e-4, 1e-5), "mixed": (1e-4, 1e-5),
+        "double": (1e-11, 1e-11)}
+
+
+@pytest.mark.parametrize("prec", ["single", "mixed", "double"])
+def test_cellpair_lj_long_exclusion_kernel_matches_plain(cuda, prec,
+                                                         tmp_path):
+    """K1's lj/long (DISP_LONG) branch with the same-molecule mol plane,
+    and the lj/cut branch, against compute_cellpair_plain."""
+    from lammps_buck_intel_tpu_torch.models.pair import build_lj
+
+    sim = _hexane_sim(cuda, prec, tmp_path)
+    st, acc = sim.state, sim.precision.acc
+    mol = sim._slot_mol(st)
+    ftol, etol = TOLS[prec]
+    lj_cut = build_lj(2, {0: (0.1744742, 3.97), 1: (0.1147228, 3.97)},
+                      cut_global=5.0, shift=True)
+    before = ops.LAUNCHES["cellpair"]
+    for style, m in ((sim.pair, mol), (sim.pair, None), (lj_cut, mol)):
+        k = compute_cellpair(style, sim.grid, sim.box, st, eflag=True,
+                             vflag=True, acc_dtype=acc, slot_mol=m)
+        p = compute_cellpair_plain(style, sim.grid, sim.box, st, eflag=True,
+                                   vflag=True, acc_dtype=acc, slot_mol=m)
+        fk, fp = (torch.stack([r.fx, r.fy, r.fz]) for r in (k, p))
+        assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+        assert abs(float(k.evdwl - p.evdwl)) <= etol * abs(float(p.evdwl))
+        assert float((k.virial - p.virial).abs().max()) <= \
+            etol * float(p.virial.abs().max())
+    assert ops.LAUNCHES["cellpair"] == before + 3
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mix", ["geometric", "arithmetic"])
+def test_disp_spectral_kernel_matches_plain(cuda, acc, mix):
+    """K12a against disp_spectral_plain: one geometric channel and the
+    seven arithmetic ones on random channel spectra."""
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_disp as pd
+
+    eps, sig = np.array([0.30, 0.18]), np.array([1.10, 1.25])
+    pmd = pd.setup_pppm_disp(
+        make_box([0, 0, 0], [9.0, 8.0, 7.0]), np.sqrt(4 * eps) * sig**3,
+        np.array([0, 1]), cutoff=3.2, mix=mix, epsilon=eps, sigma=sig,
+        acc_dtype=acc)
+    c = pmd.consts(cuda, torch.float32)
+    nch = pmd.A.shape[0]
+    nx, ny, nzh = c["G"].shape
+    g = torch.Generator().manual_seed(4)
+    S = torch.complex(torch.randn((nch, nx, ny, nzh), generator=g),
+                      torch.randn((nch, nx, ny, nzh), generator=g)).to(
+        cuda, {torch.float32: torch.complex64,
+               torch.float64: torch.complex128}[acc])
+    before = ops.LAUNCHES["disp_spectral"]
+    ek, esk, vsk = pd.disp_spectral(c, S, pmd.P, True)
+    ep, esp, vsp = pd.disp_spectral_plain(c, S, pmd.P, True)
+    assert ops.LAUNCHES["disp_spectral"] == before + 1
+    tol = 1e-11 if acc == torch.float64 else 1e-5
+    assert float((ek - ep).abs().max()) <= tol * float(ep.abs().max())
+    assert abs(float(esk - esp)) <= tol * abs(float(esp))
+    assert float((vsk - vsp).abs().max()) <= tol * float(vsp.abs().max())
+    e0, es0, vs0 = pd.disp_spectral(c, S, pmd.P, False)
+    assert torch.equal(e0, ek) and float(es0) == 0.0 and not vs0.any()
+
+
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_cell_pppm_disp_kernels_match_plain(cuda, prec, tmp_path):
+    """CellPPPMDisp.compute_slots on the card (K5, K12a, K8) against the
+    same solve with every stage's plain version (the state copied to the
+    CPU)."""
+    sim = _hexane_sim(cuda, prec, tmp_path)
+    st = sim.state
+    cpu = st._replace(**{k: v.cpu() for k, v in st._asdict().items()
+                         if v is not None})
+    ftol, etol = TOLS[prec]
+    before = dict(ops.LAUNCHES)
+    fk = sim.kspace.compute_slots(st, True, True)
+    fp = sim.kspace.compute_slots(cpu, True, True)
+    for k in ("pppm_deposit", "disp_spectral", "pppm_gather"):
+        assert ops.LAUNCHES[k] == before[k] + 1, k
+    a, b = torch.stack(fk[:3]).cpu(), torch.stack(fp[:3])
+    assert float((a - b).abs().max()) <= ftol * float(b.abs().max())
+    assert abs(float(fk[3].cpu() - fp[3])) <= etol * abs(float(fp[3]))
+    assert float((fk[4].cpu() - fp[4]).abs().max()) <= \
+        etol * float(fp[4].abs().max())
+
+
+@pytest.mark.parametrize("prec", ["single", "mixed", "double"])
+@pytest.mark.parametrize("width", [None, 32])
+def test_rigid_kernels_match_plain(cuda, prec, width, tmp_path):
+    """K15a-c against their plain versions on the cut-out's bodies and
+    slot layout: force and torque (with the slot force store), the
+    offsets, initial and final updates, the constraint virial."""
+    from lammps_buck_intel_tpu_torch.integrate import rigid as rgd
+
+    sim = _hexane_sim(cuda, prec, tmp_path)
+    st, t, acc = sim.state, sim._rt, sim.precision.acc
+    inv = sim._inv_map(st)
+    fa, fb, *_ = sim._forces(st, False, False, sim._slot_mol(st))
+    ftol, etol = TOLS[prec]
+
+    def cl(x):
+        return tuple(p.clone() for p in x)
+
+    def close(k, p, tol, scale=None):
+        scale = float(p.abs().max()) if scale is None else scale
+        assert float((k - p).abs().max()) <= tol * max(scale, 1e-30)
+
+    before = dict(ops.LAUNCHES)
+    fo_k, fo_p = cl((st.fx, st.fy, st.fz)), cl((st.fx, st.fy, st.fz))
+    Fk, Tk = rgd.slot_force_torque(t, sim._d, inv, fa, fb, fo_k, width)
+    Fp, Tp = rgd.slot_force_torque_plain(t, sim._d, inv, fa, fb, fo_p)
+    close(Fk, Fp, ftol)
+    close(Tk, Tp, ftol)
+    close(torch.stack(fo_k), torch.stack(fo_p), ftol)
+    vk = rgd.slot_constraint_virial(t, sim.body, sim._d, inv, fa, fb, Tp,
+                                    sim.units.ftm2v, acc, width)
+    vp = rgd.slot_constraint_virial_plain(t, sim.body, sim._d, inv, fa, fb,
+                                          Tp, sim.units.ftm2v, acc)
+    close(vk, vp, etol)
+    # the three update modes, each from the same inputs
+    off_k = tuple(torch.zeros_like(st.x) for _ in range(3))
+    off_p = tuple(torch.zeros_like(st.x) for _ in range(3))
+    for mode in (rgd.MODE_OFFSETS, rgd.MODE_INITIAL, rgd.MODE_FINAL):
+        bk, bp = sim.body.clone(), sim.body.clone()
+        dk, dp = sim._d.clone(), sim._d.clone()
+        pk = cl((st.vx, st.vy, st.vz) if mode == rgd.MODE_FINAL
+                else (st.x, st.y, st.z))
+        pp = cl(pk)
+        rgd.rigid_update(t, bk, dk, inv, pk, off_k, Fp, Tp, sim.dtv,
+                         sim.dtf, mode, width)
+        rgd.rigid_update_plain(t, bp, dp, inv, pp, off_p, Fp, Tp, sim.dtv,
+                               sim.dtf, mode)
+        for a, b in zip(bk, bp):
+            close(a, b, ftol)
+        close(dk, dp, ftol)
+        close(torch.stack(pk), torch.stack(pp), ftol)
+        if mode == rgd.MODE_OFFSETS:
+            # x - (X + d) is zero to rounding here: held to the positions'
+            # scale
+            close(torch.stack(off_k), torch.stack(off_p), ftol,
+                  float(torch.stack(pp).abs().max()))
+    for k, n in (("rigid_force_torque", 1), ("rigid_virial", 1),
+                 ("rigid_update", 3)):
+        assert ops.LAUNCHES[k] == before[k] + n, k
+
+
+def test_rigid_and_disp_wrappers_reject_bad_input(cuda, tmp_path):
+    from lammps_buck_intel_tpu_torch.integrate import rigid as rgd
+    from lammps_buck_intel_tpu_torch.ops import pppm_disp as disp_ops
+    from lammps_buck_intel_tpu_torch.ops import rigid as rigid_ops
+
+    sim = _hexane_sim(cuda, "single", tmp_path)
+    st, t = sim.state, sim._rt
+    inv = sim._inv_map(st)
+    fs = (st.fx, st.fy, st.fz)
+    with pytest.raises(ValueError):
+        rigid_ops.force_torque(t, sim._d.cpu(), inv, fs)
+    with pytest.raises(ValueError):
+        rigid_ops.force_torque(t, sim._d[:-1], inv, fs)
+    with pytest.raises(ValueError):
+        rigid_ops.update(t, sim.body, sim._d, inv, None, None, None, None,
+                         0.0, 0.0, rgd.MODE_INITIAL)
+    c = sim.kspace.pmd.consts(cuda, torch.float32)
+    nx, ny, nzh = c["G"].shape
+    with pytest.raises(TypeError):
+        disp_ops.disp_spectral(c, torch.zeros((1, nx, ny, nzh), device=cuda),
+                               np.ones((1, 1)), True)
+    with pytest.raises(ValueError):
+        disp_ops.disp_spectral(
+            c, torch.zeros((9, nx, ny, nzh), dtype=torch.complex64,
+                           device=cuda), np.eye(9), True)

@@ -232,9 +232,10 @@ def test_compute_cellpair_coul_long_matches_jax(ntypes, reach_z):
 
 def test_unported_coulomb_raises():
     """The Coulomb and dispersion forms the port does not carry raise:
-    Ewald-split dispersion, the lj/cut family, lj/charmm without a
+    Ewald-split dispersion on the Buckingham term, lj/charmm without a
     Coulomb term; an unknown Coulomb form is refused.  (buck/coul/cut and
-    lj/charmm/coul/cut are ported: test_*_coul_cut_* below.)"""
+    lj/charmm/coul/cut are ported: test_*_coul_cut_* below; the lj/cut
+    family and lj/long: tests/test_torch_disp.py.)"""
     with pytest.raises(ValueError, match="Coulomb form"):
         tstyles.build_buck(1, COEFFS_1, cut_global=2.5, coul="wolf")
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -244,16 +245,17 @@ def test_unported_coulomb_raises():
     rsq = torch.full((4,), 2.0, dtype=torch.float64)
     coef = {n: float(t.tables[0, 0, c])
             for c, n in enumerate(tstyles.COEF_NAMES)}
-    for vdw, coul, disp in (("lj", "long", "cut"), ("lj", "cut", "cut"),
-                            ("buck", "long", "long"),
-                            ("ljcharmm", "none", "cut")):
+    for vdw, coul, disp in (("buck", "long", "long"),
+                            ("buck", "none", "long"),
+                            ("ljcharmm", "none", "cut"),
+                            ("ljcharmm", "long", "long")):
         bad = t.replace(cfg=tstyles.PairConfig("x", vdw, coul, disp))
         with pytest.raises(NotImplementedError):
             tstyles.pair_terms(bad, rsq, coef, 1.0, -1.0, 1.0, 1.0,
                                eflag=True)
     with pytest.raises(NotImplementedError, match="Coulomb term"):
         tstyles.build_lj_charmm(1, {0: (0.1, 3.0)}, 8.0, 10.0, coul="none")
-    assert not hasattr(tstyles, "build_lj")
+    assert tstyles.build_lj(1, {0: (0.1, 3.0)}, 8.0).cfg.vdw == "lj"
 
 
 # lj/charmm/coul/long as the rhodo-class decks set it

@@ -12,11 +12,12 @@ pass on the neighbor-list engines), nlist build (csrc/nlist.cu: the
 binned and the dense builds), ewald (csrc/ewald.cu: the structure
 factors, the forces), npt (csrc/npt.cu:
 the traced influence function, the barostat's per-atom passes), pppm
-kernels
-(csrc/pppm.cu), pppm FFTs (cuFFT under torch.fft), bonded
-(csrc/bonded.cu), rebin (csrc/rebin.cu), verlet (csrc/verlet.cu: kicks,
-drift, force sum and cast, kinetic sums, the thermostat chain), shake
-(csrc/shake.cu: reference bond vectors, SHAKE, RATTLE) and torch
+kernels (csrc/pppm.cu, and csrc/pppm_disp.cu's dispersion solve), pppm
+FFTs (cuFFT under torch.fft), bonded (csrc/bonded.cu), rebin
+(csrc/rebin.cu), verlet (csrc/verlet.cu: kicks, drift, force sum and
+cast, kinetic sums, the thermostat chain), shake (csrc/shake.cu:
+reference bond vectors, SHAKE, RATTLE), rigid (csrc/rigid.cu: the
+bodies' force and torque, their update, the constraint virial) and torch
 ops (everything else: fills, the slot-of-atom map, partial sums).  The
 device idle share is 1 - (kernel time / traced wall time); launches per
 step are the device events of each layer over the steps.  With them the
@@ -49,7 +50,7 @@ LAYERS = (
     ("npt", ("traced_greens_kernel", "npt_ke3_kernel",
              "npt_vscale_kick_kernel", "npt_drift_dilate_kernel")),
     ("pppm kernels", ("pppm_deposit_kernel", "pppm_spectral_kernel",
-                      "pppm_gather_kernel")),
+                      "pppm_gather_kernel", "disp_spectral_kernel")),
     ("ewald", ("sk_partial_kernel", "sk_finish_kernel",
                "force_partial_kernel", "force_finish_kernel")),
     ("pppm fft", ("fft",)),
@@ -58,6 +59,7 @@ LAYERS = (
     ("shake", ("shake_ref_kernel", "shake_positions_kernel", "rattle_kernel",
                "shake_virial_kernel")),
     ("verlet", ("kick_drift_kernel", "kick_ke_kernel", "nhc_scale_kernel")),
+    ("rigid", ("force_torque_kernel", "update_kernel", "virial_kernel")),
     ("rebin", ("mark_kernel", "gather_kernel", "free_kernel", "place_kernel",
                "stash_kernel", "fill_kernel", "scatter_kernel")),
 )
