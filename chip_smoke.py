@@ -7,8 +7,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: nvcc builds csrc/cellpair.cu, csrc/rebin.cu, csrc/pppm.cu,
      csrc/bonded.cu, csrc/verlet.cu, csrc/shake.cu, csrc/nlist.cu,
-     csrc/npt.cu, csrc/ewald.cu, csrc/pppm_disp.cu and csrc/rigid.cu from
-     the checkout into
+     csrc/npt.cu, csrc/ewald.cu, csrc/pppm_disp.cu and csrc/rigid.cu (with
+     the shared headers csrc/pair_terms.cuh and csrc/pppm_stencil.cuh)
+     from the checkout into
      lammps_buck_intel_tpu_torch/_build/, one nvcc per source, all started
      together;
   3. K1, the cell-pair kernel, against its plain torch version on the card
@@ -131,7 +132,29 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      5e-4) and hexane_gen_big.yaml (192,000 atoms: step 0 against the
      record scaled to 32 copies, the same drift gate), every kernel of
      the path launched; the kernels timed at the big deck's state beside
-     their plain versions, bounds and library calls.
+     their plain versions, bounds and library calls;
+ 14. long-range dispersion beside long-range Coulomb and the arithmetic
+     and no-mix channel pipelines (buck/long/coul/long and
+     lj/long/coul/long with pppm/disp: the Coulomb PPPM beside the
+     dispersion PPPM bound to the atoms): the DISP_LONG variants of K1
+     and K9b (buck and lj, coul none and coul long) and the
+     multi-channel deposit and gather (csrc/pppm_disp.cu: K12b
+     disp_deposit, K12c disp_gather) against their plain versions, f64
+     (1e-12) and f32 (forces 5e-4), at 2 channels on the jittered 2x2x2
+     cristobalite and 7 on hexane_gen_arith.yaml; the f64 record
+     (tests/goldens/torch_disp_mix.json, re-recorded on the CPU with
+     `python tools/record_disp_mix.py`: the jittered 2x2x2 cristobalite on
+     both engines and hexane_gen_arith.yaml, 20 steps, every row within
+     1e-9); cristobalite_buck_long.yaml and
+     cristobalite_buck_long_nlist.yaml unedited (259,200 atoms, 100 steps,
+     f32: step-0 elong within 2e-5 of the record scaled to 22.5 copies,
+     the other fields under the _STEP0_FIELDS rule, drift under the silica
+     gate) and hexane_gen_arith.yaml (6,000 atoms, 200 steps: step 0
+     within 2e-5, relative drift under 5e-4), every kernel of each path
+     launched; K1 and K9b buck/long timed beside their buck/coul/long
+     branches on the same state, K12b and K12c beside the per-channel
+     K5 / K8 loops they replace, at 2 channels (259,200 atoms) and at 7
+     (hexane_gen_big.yaml with mix arithmetic, 192,000 atoms).
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -430,10 +453,10 @@ def phase_build():
 
 
 def _k1_compare(label, style, grid, box, st, acc, special=None,
-                slot_mol=None):
+                slot_mol=None, tol=None):
     """Kernel vs plain, force-only and with e/v; returns the f32/f64
-    force-only max |df|."""
-    ftol, etol = TOL[st.x.dtype]
+    force-only max |df|.  tol: (forces, energies) in place of TOL's."""
+    ftol, etol = TOL[st.x.dtype] if tol is None else tol
     abs_err = 0.0
     for ev in (False, True):
         k = compute_cellpair(style, grid, box, st, eflag=ev, vflag=ev,
@@ -3330,6 +3353,550 @@ def phase_hexane(rec: dict):
     return small, big, times
 
 
+# ---- long-range dispersion with long-range Coulomb and the channel mixes:
+# buck/long (K1 / K9b DISP_LONG), K12b disp_deposit, K12c disp_gather ----
+
+MIX_CRIS, MIX_CRIS_NLIST = ("cristobalite_buck_long.yaml",
+                            "cristobalite_buck_long_nlist.yaml")
+MIX_HEX, MIX_HEX_BIG = "hexane_gen_arith.yaml", "hexane_gen_big.yaml"
+MIX_COUL = ("pppm_deposit", "pppm_spectral", "pppm_gather")
+MIX_DISP = ("disp_deposit", "disp_spectral", "disp_gather")
+MIX_CELL_PATH = (("cellpair", "rebin_incremental", "verlet_kick_drift",
+                  "verlet_kick", "verlet_ke") + MIX_COUL + MIX_DISP)
+MIX_NLIST_PATH = (("nlist_build", "nlist_pair", "verlet_kick_drift",
+                   "verlet_kick", "verlet_ke") + MIX_COUL + MIX_DISP)
+MIX_HEX_PATH = (("cellpair", "rebin_incremental", "rigid_force_torque",
+                 "rigid_update", "rigid_virial", "verlet_ke") + MIX_DISP)
+# the new kernels and variants against their plain versions: f64 1e-12
+# relative; f32 forces 5e-4 of the largest (tests/test_computes.py:69),
+# energies and virial the PPPM kernels' 1e-5
+MIX_TOL = {torch.float32: (5e-4, 1e-5), torch.float64: (1e-12, 1e-12)}
+# step-0 elong of the f32 decks against the JAX f64 record: the 2e-5 of
+# tests/test_hexane.py:80-81; the other step-0 fields the _STEP0_FIELDS
+# rule (cristobalite) or the same 2e-5 (hexane, as phase 13)
+MIX_ELONG_TOL = 2e-5
+# per pair inside the cutoff, buck/long: distance 8, clamp 1, 1/r^2 and r
+# 2, r^-6 2, the repulsion r / rho, exp and rep_f 4, g6^2 r^2 1, 1/x 1,
+# exp 1, x2 2, the polynomial 7, the force 3, scalar 1, both atoms' forces
+# 9; with coul/long its 24 more
+OPS_PAIR_BUCK_LONG = {"none": 42, "long": 66}
+
+
+def _mix_variant(style, coul: str):
+    """The DISP_LONG style with another Coulomb mode (coul none or long;
+    a g_ewald for coul long where the style has none)."""
+    from lammps_buck_intel_tpu_torch.models.pair.styles import PairConfig
+
+    return style.replace(
+        cfg=PairConfig(name=style.cfg.name, vdw=style.cfg.vdw, coul=coul,
+                       disp="long"),
+        g_ewald=style.g_ewald or 0.29)
+
+
+def _mix_k9b_compare(label, style, x, typ, q, boxL, nl, acc):
+    """K9b's DISP_LONG variant against compute_pair_plain on the card,
+    force-only and with e/v.  Returns the force-only max |df|."""
+    from lammps_buck_intel_tpu_torch.models.pair import driver
+
+    ftol, etol = MIX_TOL[x.dtype]
+    err = 0.0
+    for ev in (False, True):
+        k = driver.compute_pair(style, x, typ, q, boxL, nl, eflag=ev,
+                                acc_dtype=acc, use_special=False)
+        p = driver.compute_pair_plain(style, x, typ, q, boxL, nl, eflag=ev,
+                                      acc_dtype=acc, use_special=False)
+        fk = torch.stack([k.fx, k.fy, k.fz])
+        fp = torch.stack([p.fx, p.fy, p.fz])
+        errs = {"f": rel_err(fk, fp), "virial": rel_err(k.virial, p.virial)}
+        if ev:
+            errs["evdwl"] = scalar_rel(k.evdwl, p.evdwl)
+            if style.cfg.has_coul:
+                errs["ecoul"] = scalar_rel(k.ecoul, p.ecoul)
+        else:
+            err = float((fk - fp).abs().max())
+        print(f"[K9b] {label} ev={ev}: " + ", ".join(
+            f"{n} rel {e:.3e}" for n, e in errs.items()))
+        if not (errs.pop("f") <= ftol
+                and all(e <= etol for e in errs.values())):
+            raise AssertionError(f"K9b {label} disagrees with its plain "
+                                 "version")
+    return err
+
+
+def _mix_rows(bound_ks, x, aid, n):
+    """(table, rows) of a BoundKSpace at slot positions: the cell engine's
+    compute_slot inputs (aid clamped to n)."""
+    table, _, slot_rows, _ = bound_ks._tables(x.device, x.dtype)
+    rows = torch.index_select(slot_rows, 0,
+                              torch.clamp(aid, max=n).to(torch.int32))
+    return table.contiguous(), rows
+
+
+def _mix_disp_compare(label, bound_ks, x, rows, table, acc):
+    """K12b and K12c against their plain versions (the per-channel loops of
+    the deposit and of the gather scaled by a_c), and the whole channel
+    solve through the kernels against disp_compute_plain, on the same
+    inputs.  Returns the max |d| of the meshes and of the forces."""
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_disp as pd
+
+    pmd = bound_ks.solver
+    ftol, etol = MIX_TOL[x.dtype]
+    c = pmd.consts(x.device, x.dtype)
+    shim = c["shim"]
+    mk = pd.deposit_multi(shim, x, rows, table, c["coef"])
+    mp = pd.deposit_multi_plain(shim, x, rows, table)
+    S = torch.fft.rfftn(mp.to(acc), dim=(1, 2, 3)).contiguous()
+    ehat, _, _ = pd.disp_spectral(c, S, pmd.P, False)
+    e_fields = (torch.fft.irfftn(ehat, s=pmd.grid, dim=(2, 3, 4))
+                * (float(np.prod(pmd.grid)) / pmd.volume)).to(
+                    x.dtype).contiguous()
+    fk = torch.stack(pd.gather_multi(shim, x, rows, table, e_fields, acc,
+                                     c["coef"]))
+    fp = torch.stack(pd.gather_multi_plain(shim, x, rows, table, e_fields,
+                                           acc))
+    rk = pd.disp_compute_rows(pmd, x, rows, table, pmd.P, True, True)
+    rp = pd.disp_compute_plain(pmd, x, table[:, rows.long()], pmd.P, True,
+                               True)
+    errs = dict(deposit=rel_err(mk, mp), gather=rel_err(fk, fp),
+                solve_f=rel_err(torch.stack(rk.f), torch.stack(rp.f)))
+    eerr = dict(elong=scalar_rel(rk.elong, rp.elong),
+                virial=rel_err(rk.virial, rp.virial))
+    print(f"[K12b/K12c] {label}: {table.shape[0]} channels, mesh "
+          f"{pmd.grid} order {pmd.order}: " + ", ".join(
+              f"{k} rel {v:.3e}" for k, v in {**errs, **eerr}.items()))
+    if not (all(v <= ftol for v in errs.values())
+            and all(v <= etol for v in eerr.values())):
+        raise AssertionError(f"K12b/K12c {label} disagree with their plain "
+                             "versions")
+    return dict(deposit=float((mk - mp).abs().max()),
+                gather=float((fk - fp).abs().max()))
+
+
+def phase_mix_kernels():
+    """K1 and K9b DISP_LONG x (buck, lj) x (coul none, coul long), K12b and
+    K12c against their plain versions, f64 and f32: buck on the jittered
+    2x2x2 cristobalite (the cell engine's slots, the list engine's atoms),
+    lj on hexane_gen_arith.yaml's 6,000 atoms (coul long on charges
+    +-0.4 put on the slots), the channels at 2 (no-mix silica) and 7
+    (arithmetic hexane).  Returns the f32 max |d| per kernel."""
+    out = {}
+    for prec in ("double", "single"):
+        cfg = load_deck(MIX_CRIS)
+        cfg["replicate"] = [2, 2, 2]
+        sim, st = jittered_state(cfg, prec)
+        acc, n = sim.precision.acc, sim.n_atoms
+        for coul in ("long", "none"):
+            sty = sim.pair if coul == "long" else _mix_variant(sim.pair,
+                                                               coul)
+            e = _k1_compare(f"buck/long coul {coul} cristobalite x2x2x2 "
+                            f"{prec}", sty, sim.grid, sim.box, st, acc,
+                            tol=MIX_TOL[st.x.dtype])
+            out[f"k1_buck_{coul}"] = e
+        x = torch.stack([st.x, st.y, st.z])
+        bks = sim.kspace.solvers[1]
+        table, rows = _mix_rows(bks, x, st.aid, n)
+        out["k12_2"] = _mix_disp_compare(f"cristobalite slots {prec}", bks,
+                                         x, rows, table, acc)
+        del sim, st
+        nsim = _nlist_sim(MIX_CRIS_NLIST, prec, (2, 2, 2), jitter=0.1)
+        xn = nsim.state.x
+        nl = nsim._build(xn)
+        for coul in ("long", "none"):
+            sty = nsim.pair if coul == "long" else _mix_variant(nsim.pair,
+                                                                coul)
+            out[f"k9b_buck_{coul}"] = _mix_k9b_compare(
+                f"buck/long coul {coul} cristobalite x2x2x2 {prec}", sty,
+                xn, nsim.typ, nsim.q, nsim._boxL, nl, acc)
+        del nsim, nl
+        hcfg = load_deck(MIX_HEX)
+        hcfg["precision"] = prec
+        hs = build_simulation(hcfg, device="cuda")
+        hst = hs.state
+        mol = hs._slot_mol(hst)
+        rng = np.random.default_rng(SEED)
+        qs = torch.as_tensor(rng.choice([-0.4, 0.4], hst.x.shape[0])).to(
+            hst.x)
+        qs = torch.where(hst.aid < hs.n_atoms, qs, torch.zeros_like(qs))
+        for coul, s in (("none", hst), ("long", hst._replace(q=qs))):
+            sty = hs.pair if coul == "none" else _mix_variant(hs.pair, coul)
+            _k1_compare(f"lj/long coul {coul} hexane {prec}", sty, hs.grid,
+                        hs.box, s, hs.precision.acc, slot_mol=mol,
+                        tol=MIX_TOL[hst.x.dtype])
+        x = torch.stack([hst.x, hst.y, hst.z])
+        table, rows = _mix_rows(hs.kspace, x, hst.aid, hs.n_atoms)
+        out["k12_7"] = _mix_disp_compare(f"hexane slots {prec}", hs.kspace,
+                                         x, rows, table, hs.precision.acc)
+        del hs, hst
+        # the lj/long list pass: the same atoms on engine nlist (fix nve)
+        lcfg = dict(load_deck(MIX_HEX), precision=prec, engine="nlist",
+                    fixes=[{"name": "nve"}])
+        ls = build_simulation(lcfg, device="cuda")
+        nl = ls._build(ls.state.x)
+        qa = torch.as_tensor(rng.choice([-0.4, 0.4], ls.n_atoms)).to(
+            ls.state.x)
+        for coul, q in (("none", ls.q), ("long", qa)):
+            sty = ls.pair if coul == "none" else _mix_variant(ls.pair, coul)
+            _mix_k9b_compare(f"lj/long coul {coul} hexane {prec}", sty,
+                             ls.state.x, ls.typ, q, ls._boxL, nl,
+                             ls.precision.acc)
+        del ls, nl
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mix_traj(label, cfg, want, tol=HEX_F64_TOL):
+    """A deck in f64 on the card against the JAX record's rows (every row
+    within tol of max(|value|, 1)) and its meshes, splits and channels."""
+    ops.reset_launches()
+    sim = build_simulation(cfg, device="cuda")
+    ks = sim.kspace
+    parts = list(getattr(ks, "solvers", [ks]))
+    pmd = parts[-1].solver
+    info = dict(mesh_disp=list(pmd.grid), g_ewald_6=pmd.g_ewald_6,
+                nch=int(np.asarray(pmd.A).shape[0]), mix=pmd.mix,
+                g_ewald=sim.pair.g_ewald,
+                mesh=list(parts[0].grid) if len(parts) > 1 else None)
+    for k, v in info.items():
+        if v != want[k] and not (isinstance(v, float)
+                                 and abs(v - want[k]) <= 1e-12 * abs(v)):
+            raise AssertionError(f"{label}: {k} {v} vs record {want[k]}")
+    rows = sim.run(want["steps"], thermo_every=want["every"], log=False)
+    worst = 0.0
+    for r, w in zip(rows, want["rows"]):
+        for k in ("temp", "evdwl", "ecoul", "elong", "epair", "ke",
+                  "etotal", "press"):
+            err = abs(r[k] - w[k]) / max(abs(w[k]), 1.0)
+            worst = max(worst, err)
+            if not err <= tol:
+                raise AssertionError(f"{label} row {r['step']} {k}: "
+                                     f"{r[k]!r} vs record {w[k]!r}")
+    if len(rows) != len(want["rows"]):
+        raise AssertionError(f"{label}: {len(rows)} rows")
+    print(f"[disp mix record] {label}: {sim.n_atoms} atoms x "
+          f"{want['steps']} steps f64 ({type(sim).__name__}): every row "
+          f"within {worst:.3e} of the JAX record (tol {tol}); {info}; "
+          f"launches {dict((k, v) for k, v in ops.LAUNCHES.items() if v)}")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def phase_mix_record(rec: dict):
+    """The three f64 records of tests/goldens/torch_disp_mix.json on the
+    card: the jittered 2x2x2 cristobalite on the cell engine and on the
+    list engine (20 steps) and hexane_gen_arith.yaml (20 steps)."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import gen_cristobalite
+
+    cr = rec["cristobalite"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "data.cristobalite_jitter")
+        gen_cristobalite.write(path, jitter_amp=cr["traj"]["amp"])
+        for key, name in (("traj", MIX_CRIS), ("traj_nlist",
+                                                MIX_CRIS_NLIST)):
+            cfg = load_deck(name)
+            cfg.update(precision="double", read_data=path,
+                       replicate=cr[key]["replicate"])
+            _mix_traj(f"{name} x2x2x2 jittered", cfg, cr[key])
+    hx = rec["hexane"]
+    cfg = load_deck(MIX_HEX)
+    cfg["precision"] = "double"
+    _mix_traj(MIX_HEX, cfg, hx["traj"])
+
+
+def _mix_deck_run(name, s0, copies, path, drift_gate, relative_drift):
+    """A new deck unedited through build_simulation and run on the card in
+    f32, launch counts set to 0 just before and read just after: every
+    kernel of the path launched, finite rows, step-0 elong within
+    MIX_ELONG_TOL of the JAX f64 record scaled to ``copies`` (epair and
+    etotal too for one copy; the _STEP0_FIELDS rule for the rest), the
+    drift under its gate (per atom, or relative to |e0|)."""
+    cfg = load_deck(name)
+    ops.reset_launches()
+    sim = build_simulation(cfg, device="cuda")
+    steps = int(cfg["run"])
+    rows = sim.run(steps, thermo_every=int(cfg["thermo"]), log=False)
+    ran = dict(ops.LAUNCHES)
+    missing = [k for k in path if ran[k] <= 0]
+    if missing or rows[-1]["step"] != steps:
+        raise AssertionError(f"{name}: kernels not launched {missing}")
+    for r in rows:
+        for k in ("temp", "epair", "etotal", "press"):
+            if not np.isfinite(r[k]):
+                raise AssertionError(f"{name}: non-finite {k}")
+    ext = ("evdwl", "ecoul", "elong", "emol", "epair", "ke", "etotal")
+    ref = {k: s0[k] * (copies if k in ext else 1) for k in s0}
+    row = rows[0]
+    if copies > 1:
+        step0_check(name, row, ref, sim.n_atoms)
+    checked = ("elong",) if copies > 1 else ("epair", "elong", "etotal")
+    for k in checked:
+        if not _row_close(row[k], ref[k], MIX_ELONG_TOL):
+            raise AssertionError(f"{name} step-0 {k}: {row[k]:.8g} vs "
+                                 f"record x{copies} {ref[k]:.8g}")
+    e0 = row["etotal"]
+    drift = max(abs(r["etotal"] - e0) for r in rows) / (
+        abs(e0) if relative_drift else sim.n_atoms)
+    wall = sim.timings["run"]
+    ks = sim.kspace
+    meshes = "; ".join(
+        f"{type(getattr(p, 'solver', p)).__name__} mesh "
+        f"{getattr(p, 'solver', p).grid} order {getattr(p, 'solver', p).order}"
+        for p in getattr(ks, "solvers", [ks]))
+    cells = (f"cells {sim.grid.nc} cap {sim.grid.cap}" if hasattr(sim, "grid")
+             else f"list K {sim.spec.kmax} cells {sim.spec.nc}")
+    print(f"[disp mix] {name}: {meshes}; {cells}")
+    print(f"[disp mix] {name}: {type(sim).__name__}, {sim.n_atoms} atoms x "
+          f"{steps} steps in {wall:.3f} s -> "
+          f"{sim.n_atoms * steps / wall:,.0f} atom-steps/s, "
+          f"{1e3 * wall / steps:.4f} ms/step (thermo every {cfg['thermo']}); "
+          f"step 0 epair {row['epair']:.8g} elong {row['elong']:.8g} "
+          f"etotal {e0:.8g} (record x{copies}: {ref['epair']:.8g}, "
+          f"{ref['elong']:.8g}, {ref['etotal']:.8g}); rows " + ", ".join(
+              f"{r['etotal']:.8g} @ {r['step']}" for r in rows)
+          + f"; drift {drift:.3e}{'' if relative_drift else '/atom'} (gate "
+          f"{drift_gate}); launches {ran}")
+    if not drift <= drift_gate:
+        raise AssertionError(f"{name}: drift {drift:.3e} > gate {drift_gate}")
+    return dict(launches=ran, ms_step=1e3 * wall / steps, sim=sim,
+                drift=drift)
+
+
+def _mix_time_disp(label, bks, x, rows, table, acc, out, key):
+    """K12b and K12c (f32) at these inputs beside the per-channel K5 / K8
+    loops they replace, their plain versions, bounds and (the deposit) one
+    index_add_ over every channel's stencil points."""
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_disp as pd
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm_cells import \
+        AtomPlanes
+
+    pmd = bks.solver
+    c = pmd.consts(x.device, x.dtype)
+    shim = c["shim"]
+    nch, m = table.shape[0], x.shape[1]
+    p, ngrid = pmd.order, int(np.prod(pmd.grid))
+    fsz = x.element_size()
+    asz = torch.empty((), dtype=acc).element_size()
+    live = int((torch.index_select(table.abs().sum(0), 0, rows.long())
+                != 0).sum())
+    aid = torch.arange(m, dtype=torch.int32, device=x.device)
+    a = table[:, rows.long()].contiguous()
+    planes = [AtomPlanes(x[0], x[1], x[2], a[ch], aid) for ch in range(nch)]
+    errs = _mix_disp_compare(label, bks, x, rows, table, acc)
+    entry_bytes = m * (3 * fsz + 4) + table.numel() * fsz
+
+    def dep_loop():
+        return [pppm_ops.deposit(shim, pl, m, c["coef"]) for pl in planes]
+
+    flat, w3 = pppm_cells._stencil(shim, planes[0], 0, m,
+                                   pppm_cells.mesh_geometry(shim))
+    flat = flat.reshape(m, -1)
+    flat_all = torch.cat([(flat + ch * ngrid).reshape(-1)
+                          for ch in range(nch)])
+    vals_all = torch.cat([(w3.reshape(m, -1) * a[ch][:, None]).reshape(-1)
+                          for ch in range(nch)])
+    del flat, w3
+    mesh0 = torch.zeros(nch * ngrid, dtype=x.dtype, device=x.device)
+    rec = {"disp_deposit": (
+        lambda: pd.deposit_multi(shim, x, rows, table, c["coef"]),
+        lambda: pd.deposit_multi_plain(shim, x, rows, table), dep_loop,
+        lambda: mesh0.clone().index_add_(0, flat_all, vals_all),
+        entry_bytes + nch * ngrid * fsz,
+        live * (OPS_WEIGHTS(p) + nch * p**3 * OPS_DEPOSIT_PT),
+        errs["deposit"])}
+    mesh = pd.deposit_multi_plain(shim, x, rows, table)
+    S = torch.fft.rfftn(mesh.to(acc), dim=(1, 2, 3)).contiguous()
+    ehat, _, _ = pd.disp_spectral(c, S, pmd.P, False)
+    e_fields = (torch.fft.irfftn(ehat, s=pmd.grid, dim=(2, 3, 4))
+                * (ngrid / pmd.volume)).to(x.dtype).contiguous()
+    del mesh, ehat
+
+    def gat_loop():
+        f = None
+        for ch in range(nch):
+            fc = pppm_ops.gather(shim, planes[ch], e_fields[ch], m, acc,
+                                 c["coef"])
+            f = fc if f is None else tuple(u + v for u, v in zip(f, fc))
+        return f
+
+    rec["disp_gather"] = (
+        lambda: pd.gather_multi(shim, x, rows, table, e_fields, acc,
+                                c["coef"]),
+        lambda: pd.gather_multi_plain(shim, x, rows, table, e_fields, acc),
+        gat_loop, None,
+        entry_bytes + nch * 3 * ngrid * fsz + 3 * m * asz,
+        live * (OPS_WEIGHTS(p) + nch * (p**3 * OPS_GATHER_PT + 3)),
+        errs["gather"])
+    for name, (kern, plain, loop, lib, nbytes, nops, err) in rec.items():
+        ms, dev_ms = cuda_ms(kern), device_ms(kern)
+        plain_ms = cuda_ms(plain, reps=1)
+        loop_ms, loop_dev = cuda_ms(loop), device_ms(loop)
+        lib_ms = cuda_ms(lib) if lib is not None else None
+        b_ms, b_by = bound(nbytes, nops)
+        out[f"{name}_{key}"] = dict(
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err, loop_ms=loop_ms,
+            loop_device_ms=loop_dev)
+        print(f"[disp mix time] {name} {label} f32, {nch} channels, {m:,} "
+              f"entries ({live:,} charged), mesh {pmd.grid} order {p}: "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f}); the per-channel "
+              f"{'K5' if name == 'disp_deposit' else 'K8'} loop it replaces "
+              f"{loop_ms:.4f} ms (device {loop_dev:.4f}); plain "
+              f"{plain_ms:.4f} ms; library "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}; {nops:.4g} operations, "
+              f"{int(nbytes):,} bytes)")
+    del flat_all, vals_all, e_fields, S
+
+
+def _mix_time_cell(sim, out):
+    """At the cell deck's last state (259,200 atoms, f32): K1 buck/long +
+    coul/long and its coul-none variant beside K1 buck/coul/long on the
+    same slots (cristobalite_pppm.yaml's branch), each with its plain
+    version and bound; K12b / K12c at 2 channels."""
+    from lammps_buck_intel_tpu_torch.models.pair.styles import PairConfig
+
+    st = cs.rebin_incremental(sim.grid, sim.box, sim.state.clone())
+    style, grid, box = sim.pair, sim.grid, sim.box
+    n, acc = sim.n_atoms, sim.precision.acc
+    fsz, asz = st.x.element_size(), torch.empty((), dtype=acc).element_size()
+    pairs = pairs_in_cutoff(style, grid, box, st)
+    nbytes = grid.nslots * 2 * 4 + n * (plane_bytes(st.x, st.y, st.z, st.q,
+                                                    st.typ) + 3 * asz)
+    plain_style = style.replace(cfg=PairConfig(
+        name="buck/coul/long", vdw="buck", coul="long", disp="cut"))
+    for key, sty in (("long", style), ("none", _mix_variant(style, "none"))):
+        err = _k1_compare(f"buck/long coul {key} at {n}", sty, grid, box,
+                          st, acc, tol=MIX_TOL[st.x.dtype])
+
+        def kern(sty=sty):
+            return compute_cellpair(sty, grid, box, st, acc_dtype=acc)
+
+        ms, dev_ms = cuda_ms(kern), device_ms(kern)
+        plain_ms = cuda_ms(lambda: compute_cellpair_plain(
+            sty, grid, box, st, acc_dtype=acc), reps=1)
+        b_ms, b_by = bound(nbytes, pairs * OPS_PAIR_BUCK_LONG[key])
+        out[f"k1_buck_long_{key}"] = dict(
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        print(f"[disp mix time] K1 buck/long coul {key} f32 at {n} atoms: "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {pairs:,} "
+              f"pairs)")
+    base_ms = cuda_ms(lambda: compute_cellpair(plain_style, grid, box, st,
+                                               acc_dtype=acc))
+    base_dev = device_ms(lambda: compute_cellpair(plain_style, grid, box, st,
+                                                  acc_dtype=acc))
+    out["k1_buck_coul_long_same_state"] = dict(ms=base_ms, device_ms=base_dev)
+    print(f"[disp mix time] K1 buck/coul/long (no DISP_LONG, the "
+          f"cristobalite_pppm.yaml branch) on the same slots: {base_ms:.4f} "
+          f"ms (device {base_dev:.4f}); cells {grid.nc} cap {grid.cap}")
+    x = torch.stack([st.x, st.y, st.z])
+    bks = sim.kspace.solvers[1]
+    table, rows = _mix_rows(bks, x, st.aid, n)
+    _mix_time_disp(f"cristobalite slots {n}", bks, x, rows, table, acc, out,
+                   "2ch")
+
+
+def _mix_time_nlist(sim, out):
+    """At the list deck's last state: K9b buck/long + coul/long beside its
+    coul/long branch without DISP_LONG on the same list."""
+    from lammps_buck_intel_tpu_torch.models.pair import driver
+    from lammps_buck_intel_tpu_torch.models.pair.styles import PairConfig
+
+    x = sim.state.x
+    nl = sim._build(x)
+    acc, n = sim.precision.acc, sim.n_atoms
+    err = _mix_k9b_compare(f"buck/long coul long at {n}", sim.pair, x,
+                           sim.typ, sim.q, sim._boxL, nl, acc)
+    entries = int(torch.minimum(nl.nnei, torch.tensor(
+        nl.idx.shape[1], device=nl.nnei.device)).sum())
+    inside = list_pairs_in_cutoff(x, sim._boxL, nl, sim.pair.cutsq_max)
+    fsz, asz = x.element_size(), torch.empty((), dtype=acc).element_size()
+    nbytes = n * (3 * fsz + fsz + 4 + 4 + 3 * asz) + entries * 5
+    plain_style = sim.pair.replace(cfg=PairConfig(
+        name="buck/coul/long", vdw="buck", coul="long", disp="cut"))
+    res = {}
+    for key, sty in (("long", sim.pair), ("plain_branch", plain_style)):
+        def kern(sty=sty):
+            return driver.compute_pair(sty, x, sim.typ, sim.q, sim._boxL, nl,
+                                       eflag=False, acc_dtype=acc,
+                                       use_special=False)
+
+        res[key] = (cuda_ms(kern), device_ms(kern))
+    plain_ms = cuda_ms(lambda: driver.compute_pair_plain(
+        sim.pair, x, sim.typ, sim.q, sim._boxL, nl, eflag=False,
+        acc_dtype=acc, use_special=False), reps=1)
+    b_ms, b_by = bound(nbytes, entries * OPS_LIST_ENTRY + inside * (
+        OPS_PAIR_BUCK_LONG["long"] - 9 + 15))
+    ms, dev_ms = res["long"]
+    out["k9b_buck_long_long"] = dict(
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    print(f"[disp mix time] K9b buck/long coul long f32 at {n} atoms "
+          f"({entries / n:.0f} entries, {inside / n:.0f} in the cutoff an "
+          f"atom): kernel {ms:.4f} ms (device {dev_ms:.4f}), its "
+          f"buck/coul/long branch on the same list "
+          f"{res['plain_branch'][0]:.4f} ms (device "
+          f"{res['plain_branch'][1]:.4f}), plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})")
+    out["k9b_buck_coul_long_same_list"] = dict(
+        ms=res["plain_branch"][0], device_ms=res["plain_branch"][1])
+
+
+def _mix_time_hex_big(out):
+    """K12b / K12c at 7 channels on hexane_gen_big.yaml's 192,000 atoms with
+    mix arithmetic (the kernels only: the generic dispersion mesh on its
+    slots)."""
+    cfg = load_deck(MIX_HEX_BIG)
+    cfg["kspace_style"] = dict(cfg["kspace_style"], mix="arithmetic")
+    sim = build_simulation(cfg, device="cuda")
+    st = sim.state
+    x = torch.stack([st.x, st.y, st.z])
+    table, rows = _mix_rows(sim.kspace, x, st.aid, sim.n_atoms)
+    _mix_time_disp(f"hexane_big slots {sim.n_atoms}", sim.kspace, x, rows,
+                   table, sim.precision.acc, out, "7ch")
+    del sim, st
+    torch.cuda.empty_cache()
+
+
+def phase_mix(rec: dict):
+    """The three new decks unedited in f32 (cristobalite_buck_long.yaml and
+    cristobalite_buck_long_nlist.yaml at 259,200 atoms, 100 steps: step 0
+    against the record scaled to 22.5 copies, the silica drift gate 5e-3
+    per atom; hexane_gen_arith.yaml at 6,000 atoms, 200 steps: step 0
+    within 2e-5, relative drift under 5e-4), every kernel of each path
+    launched; then the new kernels timed at the decks' states."""
+    cr, hx = rec["cristobalite"], rec["hexane"]
+    copies = 259200 / cr["step0"]["n_atoms"]
+    gate = load_golden("long_silica_pppm.json")["drift_gate"]
+    print(f"[disp mix] the record's step 0 scaled from 11,520 to 17,280 "
+          f"atoms (other meshes) holds to "
+          + ", ".join(f"{k} {v:.2e}" for k, v in
+                      cr["step0"]["scale_dev"].items())
+          + f"; the f32 decks' step-0 elong gate is {MIX_ELONG_TOL}")
+    times = {}
+    cell = _mix_deck_run(MIX_CRIS, cr["step0"]["row"], copies,
+                         MIX_CELL_PATH, gate, False)
+    _mix_time_cell(cell.pop("sim"), times)
+    torch.cuda.empty_cache()
+    nlist = _mix_deck_run(MIX_CRIS_NLIST, cr["step0"]["row"], copies,
+                          MIX_NLIST_PATH, gate, False)
+    _mix_time_nlist(nlist.pop("sim"), times)
+    torch.cuda.empty_cache()
+    hgate = max(HEX_DRIFT, hx["deck"]["drift"] + HEX_DRIFT) \
+        if hx["deck"]["drift"] > HEX_DRIFT else HEX_DRIFT
+    hexa = _mix_deck_run(MIX_HEX, hx["step0"]["row"], 1, MIX_HEX_PATH, hgate,
+                         True)
+    del hexa["sim"]
+    torch.cuda.empty_cache()
+    _mix_time_hex_big(times)
+    print(f"[disp mix] cristobalite_buck_long.yaml {cell['ms_step']:.4f} "
+          f"ms/step, cristobalite_buck_long_nlist.yaml "
+          f"{nlist['ms_step']:.4f} ms/step, hexane_gen_arith.yaml "
+          f"{hexa['ms_step']:.4f} ms/step")
+    return cell, nlist, hexa, times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3419,6 +3986,14 @@ def main():
     hex_rec = load_golden("torch_disp.json")
     phase_hexane_record(hex_rec)
     hsmall, hbig, htimes = phase_hexane(hex_rec)
+    torch.cuda.empty_cache()
+
+    # long-range dispersion with long-range Coulomb and the channel mixes:
+    # K1 / K9b DISP_LONG, K12b disp_deposit, K12c disp_gather
+    phase_mix_kernels()
+    mix_rec = load_golden("torch_disp_mix.json")
+    phase_mix_record(mix_rec)
+    mcell, mnlist, mhex, mtimes = phase_mix(mix_rec)
 
     def row(name, source, replaces, launch_key, r, launches=launches):
         return dict(name=name, route="cuda", source=f"{SRC}/{source}",
@@ -3528,6 +4103,30 @@ def main():
             "rigid_update", htimes["rigid_update"], hbig["launches"]),
         row("rigid_virial", "rigid.cu", "integrate/rigid.py:333",
             "rigid_virial", htimes["rigid_virial"], hbig["launches"]),
+        # buck/long + coul/long and the channel kernels: times at the
+        # 259,200-atom silica decks' last states (2 channels) and at
+        # hexane_gen_big.yaml with mix arithmetic (7 channels); launches
+        # of cristobalite_buck_long.yaml (cell engine),
+        # cristobalite_buck_long_nlist.yaml (list engine) and
+        # hexane_gen_arith.yaml (7 channels)
+        row("cellpair_forces_buck_long_coul_long", "cellpair.cu",
+            "models/pair/cellpair.py:291", "cellpair",
+            mtimes["k1_buck_long_long"], mcell["launches"]),
+        row("nlist_pair_buck_long_coul_long", "nlist.cu",
+            "models/pair/driver.py:78", "nlist_pair",
+            mtimes["k9b_buck_long_long"], mnlist["launches"]),
+        row("disp_deposit", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:303", "disp_deposit",
+            mtimes["disp_deposit_2ch"], mcell["launches"]),
+        row("disp_gather", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:405", "disp_gather",
+            mtimes["disp_gather_2ch"], mcell["launches"]),
+        row("disp_deposit_7_channels", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:303", "disp_deposit",
+            mtimes["disp_deposit_7ch"], mhex["launches"]),
+        row("disp_gather_7_channels", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:405", "disp_gather",
+            mtimes["disp_gather_7ch"], mhex["launches"]),
     ]
     print(f"[K9c] torch.cdist + topk at 500 atoms: "
           f"{k9c['cdist_topk_ms']:.4f} ms; [K9b] rhodo_nve_nlist x6x6x4 "
@@ -3541,6 +4140,14 @@ def main():
           f"hexane_gen_big.yaml {hbig['ms_step']:.4f} ms/step "
           f"({192000 / hbig['ms_step'] * 1e3:,.0f} atom-steps/s); K15 lane "
           f"widths {json.dumps(htimes['widths'])}")
+    print(f"[disp mix] K1 buck/long coul none variant "
+          f"{json.dumps(mtimes['k1_buck_long_none'])}; K1 buck/coul/long on "
+          f"the same slots {json.dumps(mtimes['k1_buck_coul_long_same_state'])}"
+          f"; K9b buck/coul/long on the same list "
+          f"{json.dumps(mtimes['k9b_buck_coul_long_same_list'])}; per-channel "
+          f"loops: " + ", ".join(
+              f"{k} {v['loop_ms']:.4f} ms (device {v['loop_device_ms']:.4f})"
+              for k, v in mtimes.items() if "loop_ms" in v))
     print(f"[K1] buck_big buck branch: {json.dumps(k1['buck_big'])}")
     print(f"[K2] buck_big: {json.dumps(k2_big)}")
     print(json.dumps({"kernels": kernels}))

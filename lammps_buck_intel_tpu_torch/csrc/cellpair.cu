@@ -17,8 +17,9 @@
 //   switch F = forcelj switch1 + philj switch2, E = philj switch1, which
 //   reaches zero at the cutoff (no offset);
 //   lj/cut (VDW = kVdwLj): F = lj1 r^-12 - lj2 r^-6, E = lj3 r^-12 - lj4
-//   r^-6 - offset; lj/long (kVdwLj with DISP_LONG, styles.py :361-372):
-//   the r^-6 term damped by the Ewald split of the dispersion PPPM;
+//   r^-6 - offset; lj/long and buck/long (kVdwLj or kVdwBuck with
+//   DISP_LONG, styles.py :361-380; coul none or coul long): the r^-6 term
+//   damped by the Ewald split of the dispersion PPPM;
 //   same-molecule exclusion (cellpair.py :399-402 and :528
 //   slot_mol_gather, the pair semantics of fix rigid/small): with a slot
 //   mol plane a pair whose two slots carry one molecule id is skipped;
@@ -100,7 +101,8 @@ __device__ __forceinline__ A warp_sum(A v) {
 }
 
 // COUL: pairterms::kCoulNone / kCoulLong / kCoulCut; VDW: kVdwBuck,
-// kVdwCharmm or kVdwLj; DISP_LONG: lj/long's damped r^-6 term.
+// kVdwCharmm or kVdwLj; DISP_LONG: the damped r^-6 term of lj/long or
+// buck/long.
 template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL,
           bool DISP_LONG>
 __global__ void cellpair_kernel(
@@ -321,11 +323,15 @@ int with_special(int has_special, CELLPAIR_PARAMS) {
 template <typename T, typename A, bool EV, int COUL>
 int dispatch_vdw(int vdw, int disp_long, int has_special, CELLPAIR_PARAMS) {
   if (disp_long) {
-    // lj/long with coul none only (see the header)
-    if constexpr (COUL == kCoulNone) {
+    // lj/long and buck/long with coul none or coul long only (see the
+    // header): four instantiations, so the build time stays bounded
+    if constexpr (COUL == kCoulNone || COUL == pairterms::kCoulLong) {
       if (vdw == kVdwLj)
         return with_special<T, A, EV, COUL, kVdwLj, true>(has_special,
                                                           CELLPAIR_ARGS);
+      if (vdw == kVdwBuck)
+        return with_special<T, A, EV, COUL, kVdwBuck, true>(has_special,
+                                                            CELLPAIR_ARGS);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -375,9 +381,9 @@ int dispatch(int ev, int coul, int vdw, int disp_long, int has_special,
 // ev != 0 also writes partial[ncell][8]; fx/fy/fz are acc-typed (ncell*cap).
 // coul: 0 none (q may be null), 1 the Ewald real-space Coulomb term (reads
 // q, g_ewald, qqrd2e), 2 the cut Coulomb term (reads q, qqrd2e).  vdw: 0
-// buck, 1 lj/charmm (reads inner_sq, denom_lj; needs coul), 2 lj/cut or,
-// with disp_long, lj/long (coul 0 only), which reads g2_g6_g8: the host
-// array (g6^2, g6^6, g6^8) of the splitting parameter g6.  mol: null, or
+// buck, 1 lj/charmm (reads inner_sq, denom_lj; needs coul), 2 lj/cut; with
+// disp_long buck/long or lj/long (coul 0 or 1 only), which read g2_g6_g8:
+// the host array (g6^2, g6^6, g6^8) of the splitting parameter g6.  mol: null, or
 // the (ncell * cap) int32 slot plane of molecule ids (-1 on empty slots)
 // whose same-molecule pairs are skipped.  special: null, or the (n *
 // nspecial) packed partner table with special_fac = special_lj[4],

@@ -62,7 +62,9 @@
 // difference minimum-imaged as d - rint(d * (1/L)) L under the CURRENT box
 // (the JAX package's minimum_image_planes), the physics of pair_terms.cuh
 // shared with csrc/cellpair.cu (buck, lj/cut or lj/charmm, with no Coulomb term,
-// coul/long or coul/cut: the COUL template mode), the special factors
+// coul/long or coul/cut: the COUL template mode; buck/long and lj/long,
+// the Ewald-split r^-6 term of the dispersion PPPM, with coul none or
+// long: the DISP_LONG template flag), the special factors
 // special_lj[sb], special_coul[sb].  The 6-virial sum fs d_a d_b is always reduced (the
 // barostat reads it every step); EV adds evdwl and ecoul.  Per block a
 // fixed shuffle tree writes partial[block][8] = (evdwl, ecoul, vxx, vyy,
@@ -292,7 +294,8 @@ __device__ __forceinline__ A warp_sum(A v) {
   return v;
 }
 
-template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL>
+template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL,
+          bool DISP_LONG>
 __global__ void nlist_pair_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const T* __restrict__ z, const T* __restrict__ q,
@@ -300,7 +303,8 @@ __global__ void nlist_pair_kernel(
     const T* __restrict__ coef, int ntypes, int n,
     const int* __restrict__ idx, const signed char* __restrict__ sb,
     const int* __restrict__ nnei, int kmax, T g_ewald, T qqrd2e, T inner_sq,
-    T denom_lj, const T* __restrict__ special_fac, A* __restrict__ fx,
+    T denom_lj, pairterms::DispConst<T> dc,
+    const T* __restrict__ special_fac, A* __restrict__ fx,
     A* __restrict__ fy, A* __restrict__ fz, A* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ncoef = ntypes * ntypes * kNcoef;
@@ -337,9 +341,10 @@ __global__ void nlist_pair_kernel(
         f_coul = s_fac[4 + code];
       }
       T evdwl, ecoul;
-      const T fs = pairterms::pair_force<T, EV, COUL, VDW, SPECIAL>(
-          rsq, in_lj, in_coul, cf, qqi, q + j, f_lj, f_coul, g_ewald,
-          inner_sq, denom_lj, pairterms::DispConst<T>{}, evdwl, ecoul);
+      const T fs =
+          pairterms::pair_force<T, EV, COUL, VDW, SPECIAL, DISP_LONG>(
+              rsq, in_lj, in_coul, cf, qqi, q + j, f_lj, f_coul, g_ewald,
+              inner_sq, denom_lj, dc, evdwl, ecoul);
       fxi += static_cast<A>(fs * dx);
       fyi += static_cast<A>(fs * dy);
       fzi += static_cast<A>(fs * dz);
@@ -429,17 +434,21 @@ int launch_dense(const void* x, const void* y, const void* z,
       const void *typ, const void *boxL, const void *coef, int ntypes, int n, \
       const void *idx, const void *sb, const void *nnei, int kmax,           \
       double g_ewald, double qqrd2e, double inner_sq, double denom_lj,       \
-      const void *special_fac, void *fx, void *fy, void *fz, void *partial,  \
-      cudaStream_t s
+      const double *disp, const void *special_fac, void *fx, void *fy,       \
+      void *fz, void *partial, cudaStream_t s
 #define PAIR_ARGS                                                          \
   x, y, z, q, typ, boxL, coef, ntypes, n, idx, sb, nnei, kmax, g_ewald,    \
-      qqrd2e, inner_sq, denom_lj, special_fac, fx, fy, fz, partial, s
+      qqrd2e, inner_sq, denom_lj, disp, special_fac, fx, fy, fz, partial, s
 
-template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL>
+template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL,
+          bool DISP_LONG>
 int launch_pair(PAIR_PARAMS) {
   const size_t smem = sizeof(T) * (ntypes * ntypes * kNcoef + 8);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  nlist_pair_kernel<T, A, EV, COUL, VDW, SPECIAL>
+  const pairterms::DispConst<T> dc{static_cast<T>(disp[0]),
+                                   static_cast<T>(disp[1]),
+                                   static_cast<T>(disp[2])};
+  nlist_pair_kernel<T, A, EV, COUL, VDW, SPECIAL, DISP_LONG>
       <<<blocks_for(n), kThreads, smem, s>>>(
           static_cast<const T*>(x), static_cast<const T*>(y),
           static_cast<const T*>(z), static_cast<const T*>(q),
@@ -449,45 +458,69 @@ int launch_pair(PAIR_PARAMS) {
           static_cast<const signed char*>(sb),
           static_cast<const int*>(nnei), kmax, static_cast<T>(g_ewald),
           static_cast<T>(qqrd2e), static_cast<T>(inner_sq),
-          static_cast<T>(denom_lj), static_cast<const T*>(special_fac),
+          static_cast<T>(denom_lj), dc, static_cast<const T*>(special_fac),
           static_cast<A*>(fx), static_cast<A*>(fy), static_cast<A*>(fz),
           static_cast<A*>(partial));
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename A, bool EV, int COUL, int VDW, bool DISP_LONG>
+int pair_special(int special, PAIR_PARAMS) {
+  return special ? launch_pair<T, A, EV, COUL, VDW, true, DISP_LONG>(PAIR_ARGS)
+                 : launch_pair<T, A, EV, COUL, VDW, false, DISP_LONG>(
+                       PAIR_ARGS);
+}
+
 template <typename T, typename A, bool EV, int COUL>
-int pair_vdw(int vdw, int special, PAIR_PARAMS) {
+int pair_vdw(int vdw, int disp_long, int special, PAIR_PARAMS) {
+  if (disp_long) {
+    // lj/long and buck/long with coul none or coul long only, as in
+    // csrc/cellpair.cu: four instantiations
+    if constexpr (COUL == kCoulNone || COUL == pairterms::kCoulLong) {
+      if (vdw == pairterms::kVdwBuck)
+        return pair_special<T, A, EV, COUL, pairterms::kVdwBuck, true>(
+            special, PAIR_ARGS);
+      if (vdw == pairterms::kVdwLj)
+        return pair_special<T, A, EV, COUL, pairterms::kVdwLj, true>(
+            special, PAIR_ARGS);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (vdw == pairterms::kVdwBuck)
-    return special ? launch_pair<T, A, EV, COUL, 0, true>(PAIR_ARGS)
-                   : launch_pair<T, A, EV, COUL, 0, false>(PAIR_ARGS);
+    return pair_special<T, A, EV, COUL, pairterms::kVdwBuck, false>(
+        special, PAIR_ARGS);
   if (vdw == pairterms::kVdwLj)
-    return special
-               ? launch_pair<T, A, EV, COUL, pairterms::kVdwLj, true>(PAIR_ARGS)
-               : launch_pair<T, A, EV, COUL, pairterms::kVdwLj, false>(
-                     PAIR_ARGS);
+    return pair_special<T, A, EV, COUL, pairterms::kVdwLj, false>(
+        special, PAIR_ARGS);
   // lj/charmm exists only with a Coulomb term (styles.py check_ported)
   if constexpr (COUL == kCoulNone) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    return special ? launch_pair<T, A, EV, COUL, 1, true>(PAIR_ARGS)
-                   : launch_pair<T, A, EV, COUL, 1, false>(PAIR_ARGS);
+    if (vdw == pairterms::kVdwCharmm)
+      return pair_special<T, A, EV, COUL, pairterms::kVdwCharmm, false>(
+          special, PAIR_ARGS);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T, typename A, bool EV>
-int pair_variant(int coul, int vdw, int special, PAIR_PARAMS) {
+int pair_variant(int coul, int vdw, int disp_long, int special,
+                 PAIR_PARAMS) {
   switch (coul) {
-    case 0: return pair_vdw<T, A, EV, 0>(vdw, special, PAIR_ARGS);
-    case 1: return pair_vdw<T, A, EV, 1>(vdw, special, PAIR_ARGS);
-    case 2: return pair_vdw<T, A, EV, 2>(vdw, special, PAIR_ARGS);
+    case 0: return pair_vdw<T, A, EV, 0>(vdw, disp_long, special, PAIR_ARGS);
+    case 1: return pair_vdw<T, A, EV, 1>(vdw, disp_long, special, PAIR_ARGS);
+    case 2: return pair_vdw<T, A, EV, 2>(vdw, disp_long, special, PAIR_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T, typename A>
-int pair_dispatch(int ev, int coul, int vdw, int special, PAIR_PARAMS) {
-  return ev ? pair_variant<T, A, true>(coul, vdw, special, PAIR_ARGS)
-            : pair_variant<T, A, false>(coul, vdw, special, PAIR_ARGS);
+int pair_dispatch(int ev, int coul, int vdw, int disp_long, int special,
+                  PAIR_PARAMS) {
+  return ev ? pair_variant<T, A, true>(coul, vdw, disp_long, special,
+                                       PAIR_ARGS)
+            : pair_variant<T, A, false>(coul, vdw, disp_long, special,
+                                        PAIR_ARGS);
 }
 
 }  // namespace
@@ -537,26 +570,34 @@ extern "C" int nlist_dense(int dbl, const void* x, const void* y,
 // prec: 0 = (float, float), 1 = (float, double), 2 = (double, double).
 // fx/fy/fz acc (n); partial[nlist_partial_rows(n)][8] acc, always written.
 // coul (0 none, 1 long, 2 cut) / vdw (0 buck, 1 lj/charmm, 2 lj/cut) /
-// special select the variant as in csrc/cellpair.cu (lj/long, the
-// dispersion-split form, runs on the cell engine only); with coul == 0 q may be null; special_fac = special_lj[4], special_coul[4].
-extern "C" int nlist_pair(int prec, int ev, int coul, int vdw, int special,
-                          const void* x, const void* y, const void* z,
-                          const void* q, const void* typ, const void* boxL,
-                          const void* coef, int ntypes, int n,
-                          const void* idx, const void* sb, const void* nnei,
-                          int kmax, double g_ewald, double qqrd2e,
-                          double inner_sq, double denom_lj,
-                          const void* special_fac, void* fx, void* fy,
-                          void* fz, void* partial, void* stream) {
+// disp_long / special select the variant as in csrc/cellpair.cu: with
+// disp_long buck/long or lj/long (coul 0 or 1), which read g2_g6_g8 = the
+// host array (g6^2, g6^6, g6^8); with coul == 0 q may be null; special_fac
+// = special_lj[4], special_coul[4].
+extern "C" int nlist_pair(int prec, int ev, int coul, int vdw, int disp_long,
+                          int special, const void* x, const void* y,
+                          const void* z, const void* q, const void* typ,
+                          const void* boxL, const void* coef, int ntypes,
+                          int n, const void* idx, const void* sb,
+                          const void* nnei, int kmax, double g_ewald,
+                          double qqrd2e, double inner_sq, double denom_lj,
+                          const double* g2_g6_g8, const void* special_fac,
+                          void* fx, void* fy, void* fz, void* partial,
+                          void* stream) {
   if (n <= 0 || kmax <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const double zero3[3] = {0.0, 0.0, 0.0};
+  const double* disp = g2_g6_g8 ? g2_g6_g8 : zero3;
   switch (prec) {
     case 0:
-      return pair_dispatch<float, float>(ev, coul, vdw, special, PAIR_ARGS);
+      return pair_dispatch<float, float>(ev, coul, vdw, disp_long, special,
+                                         PAIR_ARGS);
     case 1:
-      return pair_dispatch<float, double>(ev, coul, vdw, special, PAIR_ARGS);
+      return pair_dispatch<float, double>(ev, coul, vdw, disp_long, special,
+                                          PAIR_ARGS);
     case 2:
-      return pair_dispatch<double, double>(ev, coul, vdw, special, PAIR_ARGS);
+      return pair_dispatch<double, double>(ev, coul, vdw, disp_long, special,
+                                           PAIR_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -9,12 +9,15 @@
 //   forcelj switch1 + philj switch2, E = philj switch1 (zero at the cutoff);
 //   lj/cut (VDW = kVdwLj): F = lj1 r^-12 - lj2 r^-6, E = lj3 r^-12 - lj4
 //   r^-6 - offset;
-//   lj/long (VDW = kVdwLj with DISP_LONG, styles.py :361-372 of the JAX
-//   package): the r^-6 term damped by the Ewald split, grij2 = g6^2 rsq,
-//   a2 = 1 / grij2, x2 = a2 exp(-grij2) lj4, F = lj1 r^-12 - g6^8 x2 rsq
-//   (((6 a2 + 6) a2 + 3) a2 + 1), E = lj3 r^-12 - g6^6 x2 ((a2 + 1) a2 +
-//   0.5), no offset; the accurate expf, because g6^2 rsq reaches ~14 at the
-//   cutoff of the hexane deck;
+//   DISP_LONG (styles.py :361-380 of the JAX package): lj/long (VDW =
+//   kVdwLj) or buck/long (VDW = kVdwBuck), the undamped repulsion rep_f,
+//   rep_e (lj1 r^-12, lj3 r^-12; or A exp(-r/rho) / rho r, A exp(-r/rho))
+//   beside the r^-6 term damped by the Ewald split, grij2 = g6^2 rsq, a2 =
+//   1 / grij2, x2 = a2 exp(-grij2) c6 (lj4 or C), F = rep_f - g6^8 x2 rsq
+//   (((6 a2 + 6) a2 + 3) a2 + 1), E = rep_e - g6^6 x2 ((a2 + 1) a2 + 0.5),
+//   no offset; the accurate expf, because g6^2 rsq reaches ~14 at the
+//   cutoff of the hexane deck.  With COUL == kCoulLong both terms of one
+//   pair are formed in one evaluation (buck/long: three exponentials);
 //   coul/long (COUL == kCoulLong): grij = g_ewald r, expm2 = exp(-grij^2),
 //   erfc by the Abramowitz & Stegun 5-term polynomial with the JAX
 //   constants (not erfcf), prefactor = qqrd2e qi qj / r, F = prefactor
@@ -26,9 +29,11 @@
 //   special bonds (SPECIAL): the LJ term scaled by f_lj where it is
 //   evaluated (skipped when f_lj is 0: a 1-2 pair's LJ term is ~5e5
 //   kcal/mol and must not be formed and cancelled in f32); under
-//   DISP_LONG corrected additively on the undamped term, t = r^-6 (1 -
-//   f_lj), F += t (lj2 - r^-6 lj1), E += t (lj4 - r^-6 lj3), because
-//   k-space holds every pair; the coul/long term kept as prefactor (erfc +
+//   DISP_LONG corrected additively on the undamped term, because k-space
+//   holds every pair: lj t = r^-6 (1 - f_lj), F += t (lj2 - r^-6 lj1), E
+//   += t (lj4 - r^-6 lj3); buck (f_lj - 1) times the undamped Buckingham
+//   term, F += (f_lj - 1) (rep_f - r^-6 buck2), E += (f_lj - 1) (rep_e - C
+//   r^-6); the coul/long term kept as prefactor (erfc +
 //   ... - (1 - f_coul)), the coul/cut term scaled by f_coul.
 // The coefficient row cf is one (T, T, 8) entry of styles.py COEF_NAMES:
 //   buck     [buck1, buck2, a, c, rhoinv, cut_ljsq, offset, cut_coulsq]
@@ -90,7 +95,8 @@ __device__ __forceinline__ T pair_force(T rsq, bool in_lj, bool in_coul,
                                         T inner_sq, T denom_lj,
                                         DispConst<T> dc, T& evdwl,
                                         T& ecoul) {
-  static_assert(!DISP_LONG || VDW == kVdwLj, "lj/long only");
+  static_assert(!DISP_LONG || VDW == kVdwLj || VDW == kVdwBuck,
+                "lj/long and buck/long only");
   const T r2inv = T(1) / rsq;
   const T r = dev_sqrt(rsq);
   T fpair = 0;
@@ -98,24 +104,37 @@ __device__ __forceinline__ T pair_force(T rsq, bool in_lj, bool in_coul,
   ecoul = 0;
   if (in_lj && (!SPECIAL || DISP_LONG || f_lj != T(0))) {
     const T r6inv = r2inv * r2inv * r2inv;
-    if (VDW == kVdwBuck) {
-      const T rexp = dev_exp(-r * cf[4]);
-      fpair = r * rexp * cf[0] - r6inv * cf[1];  // buck1, buck2; rhoinv
-      if (EV) evdwl = cf[2] * rexp - cf[3] * r6inv - cf[6];
-    } else if (DISP_LONG) {
+    if (DISP_LONG) {
+      T rep_f, rep_e;
+      if (VDW == kVdwBuck) {
+        const T rexp = dev_exp(-r * cf[4]);
+        rep_f = r * rexp * cf[0];
+        rep_e = cf[2] * rexp;
+      } else {
+        rep_f = r6inv * r6inv * cf[0];
+        rep_e = r6inv * r6inv * cf[2];
+      }
       const T grij2 = dc.g2 * rsq;
       const T a2 = T(1) / (grij2 > T(1e-30) ? grij2 : T(1e-30));
       const T x2 = a2 * dev_exp(-grij2) * cf[3];
-      fpair = r6inv * r6inv * cf[0] -
-              dc.g8 * x2 * rsq *
-                  (((T(6) * a2 + T(6)) * a2 + T(3)) * a2 + T(1));
-      if (EV) evdwl = r6inv * r6inv * cf[2] -
-                      dc.g6 * x2 * ((a2 + T(1)) * a2 + T(0.5));
+      fpair = rep_f - dc.g8 * x2 * rsq *
+                          (((T(6) * a2 + T(6)) * a2 + T(3)) * a2 + T(1));
+      if (EV) evdwl = rep_e - dc.g6 * x2 * ((a2 + T(1)) * a2 + T(0.5));
       if (SPECIAL) {
-        const T tl = r6inv * (T(1) - f_lj);
-        fpair += tl * (cf[1] - r6inv * cf[0]);
-        if (EV) evdwl += tl * (cf[3] - r6inv * cf[2]);
+        if (VDW == kVdwBuck) {
+          const T tadd = f_lj - T(1);
+          fpair += tadd * (rep_f - r6inv * cf[1]);
+          if (EV) evdwl += tadd * (rep_e - cf[3] * r6inv);
+        } else {
+          const T tl = r6inv * (T(1) - f_lj);
+          fpair += tl * (cf[1] - r6inv * cf[0]);
+          if (EV) evdwl += tl * (cf[3] - r6inv * cf[2]);
+        }
       }
+    } else if (VDW == kVdwBuck) {
+      const T rexp = dev_exp(-r * cf[4]);
+      fpair = r * rexp * cf[0] - r6inv * cf[1];  // buck1, buck2; rhoinv
+      if (EV) evdwl = cf[2] * rexp - cf[3] * r6inv - cf[6];
     } else if (VDW == kVdwLj) {
       fpair = r6inv * r6inv * cf[0] - r6inv * cf[1];
       if (EV) evdwl = r6inv * r6inv * cf[2] - cf[3] * r6inv - cf[6];

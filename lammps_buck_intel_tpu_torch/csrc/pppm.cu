@@ -18,10 +18,12 @@
 // atomics in L2, so the port takes the generic global-mesh form: each slot
 // puts its order^3 B-spline weights straight onto the periodic mesh.
 //
-// Weights.  u = (x - lo) * (1/h) per axis; base = rint(u) for odd order
-// (floor for even); mesh point base + o (o in stencil_offsets(order)) gets
-// M_p(u - (base + o) + p/2), evaluated by piecewise Horner from the (p, p)
-// piece table the host passes (staged in shared memory).  Every index is
+// Weights (csrc/pppm_stencil.cuh, shared with csrc/pppm_disp.cu's
+// multi-channel deposit and gather).  u = (x - lo) * (1/h) per axis; base
+// = rint(u) for odd order (floor for even); mesh point base + o (o in
+// stencil_offsets(order)) gets M_p(u - (base + o) + p/2), evaluated by
+// piecewise Horner from the (p, p) piece table the host passes (staged in
+// shared memory).  Every index is
 // wrapped periodically, so positions up to skin/2 outside the box between
 // rebins need no margin.  The gather recomputes the weights instead of
 // reading the deposit's: 3 * p Horner evaluations are ~250 flops a slot,
@@ -48,53 +50,13 @@
 
 #include <cuda_runtime.h>
 
+#include "pppm_stencil.cuh"
+
 namespace {
 
-constexpr int kMaxOrder = 7;
+using namespace pppm_stencil;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float dev_floor(float v) { return floorf(v); }
-__device__ __forceinline__ double dev_floor(double v) { return floor(v); }
-__device__ __forceinline__ float dev_rint(float v) { return rintf(v); }
-__device__ __forceinline__ double dev_rint(double v) { return rint(v); }
-
-// mesh indices and weights of one position on one axis (first p entries)
-template <typename T>
-__device__ __forceinline__ void axis_weights(T pos, T lo, T invh, int n,
-                                             int p, const T* coef, int* idx,
-                                             T* w) {
-  const T u = (pos - lo) * invh;
-  const T base = (p & 1) ? dev_rint(u) : dev_floor(u);
-  const int b = static_cast<int>(base);
-  const int o0 = (p & 1) ? -(p - 1) / 2 : -(p / 2 - 1);
-  const T half = static_cast<T>(0.5 * p);
-#pragma unroll
-  for (int s = 0; s < kMaxOrder; ++s) {
-    if (s < p) {
-      const int o = o0 + s;
-      const T arg = (u - (base + static_cast<T>(o))) + half;
-      T jf = dev_floor(arg);
-      jf = jf < T(0) ? T(0) : (jf > static_cast<T>(p - 1)
-                                   ? static_cast<T>(p - 1) : jf);
-      const T t = arg - jf;
-      const T* c = coef + static_cast<int>(jf) * p;
-      T acc = c[p - 1];
-      for (int d = p - 2; d >= 0; --d) acc = acc * t + c[d];
-      w[s] = (arg >= T(0) && arg < static_cast<T>(p)) ? acc : T(0);
-      idx[s] = (((b + o) % n) + n) % n;
-    }
-  }
-}
-
-struct MeshGeom {
-  int nx, ny, nz, p;
-};
-
-template <typename T>
-__device__ __forceinline__ void stage_coef(const T* coef, int p, T* s_coef) {
-  for (int k = threadIdx.x; k < p * p; k += blockDim.x) s_coef[k] = coef[k];
-  __syncthreads();
-}
 
 // The mesh geometry of a box read from the card (the variable-cell path):
 // on entry lo* hold the box centre; lo = centre - L / 2, 1/h = n / L per
@@ -123,12 +85,16 @@ __global__ void pppm_deposit_kernel(const T* __restrict__ x,
   if (boxL) traced_geometry(boxL, g, lox, loy, loz, ihx, ihy, ihz);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= ns || aid[s] >= n) return;
+  // a zero charge adds nothing: skipping it spares the atomics of the
+  // cell engine's empty slots (q = 0, all at the origin) when the generic
+  // mesh runs on its slot positions (CombinedKSpace.compute_slot)
+  const T qs = q[s];
+  if (qs == T(0)) return;
   int ix[kMaxOrder], iy[kMaxOrder], iz[kMaxOrder];
   T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder];
   axis_weights(x[s], lox, ihx, g.nx, g.p, s_coef, ix, wx);
   axis_weights(y[s], loy, ihy, g.ny, g.p, s_coef, iy, wy);
   axis_weights(z[s], loz, ihz, g.nz, g.p, s_coef, iz, wz);
-  const T qs = q[s];
 #pragma unroll
   for (int a = 0; a < kMaxOrder; ++a) {
     if (a >= g.p) continue;
@@ -328,10 +294,6 @@ int launch_spectral(const void* rhat, const void* G, const void* kx,
       static_cast<A>(quarter_g2inv), nyq, static_cast<A*>(ehat),
       static_cast<A*>(partial));
   return static_cast<int>(cudaGetLastError());
-}
-
-bool geom_ok(MeshGeom g) {
-  return g.p >= 2 && g.p <= kMaxOrder && g.nx > 0 && g.ny > 0 && g.nz > 0;
 }
 
 }  // namespace

@@ -1,12 +1,39 @@
-// Dispersion PPPM: the half-spectrum solve of the r^-6 channels (sm_90a).
+// Dispersion PPPM: the multi-channel deposit, the half-spectrum solve and
+// the multi-channel ik gather of the r^-6 channels (sm_90a).
 //
 // Replaces: lammps_buck_intel_tpu/models/kspace/pppm_disp.py
-//   _disp_compute_multi (:283; the spectral part :303-352 and the ik
-//   spectra :422-424) and the dispersion branch of pppm_cells.py
-//   CellPPPM._spectral (:819-870) that CellPPPMDisp (:1160) runs.
-// The deposit and the gather of the same pipeline are csrc/pppm.cu's
-// kernels with the dispersion charge a = B[type] in place of q (and
-// qqrd2e = 1): they compute what the JAX deposit and gather compute.
+//   _disp_compute_multi (:283): its deposit of each channel (:303-306, one
+//   deposit_rho per channel), its spectral part (:303-352 and the ik
+//   spectra :422-424), its gather (:405-426: the stencil weights once, then
+//   each channel's field, scaled by the channel charge), and the
+//   dispersion branch of pppm_cells.py CellPPPM._spectral (:819-870) that
+//   CellPPPMDisp (:1160) runs.  The reference does the deposit of all
+//   channels in one particle pass (pppm_disp_intel.cpp:315-467, make_rho_a
+//   and make_rho_none).
+//
+// Channel charges.  Entry s (an atom, or a slot of the cell engine) carries
+// a_c = table[c][row[s]] on channel c: the typed pipelines read the (nch,
+// T + 1) table of A[c, type] (a last column of zeros for empty slots,
+// whose row is T), the geometric one a (1, N + 1) table of per-atom B.  A
+// table of at most kStageMax entries is staged in shared memory.
+//
+// disp_deposit (K12b): one thread per entry.  The order-p weights and the
+// folded mesh indices of its stencil (csrc/pppm_stencil.cuh, the weights
+// of csrc/pppm.cu) are computed once; then for each channel whose charge is
+// not zero, (w_x w_y) w_z a_c is added with atomicAdd to that channel's
+// mesh, mesh (nch, nx, ny, nz) in flt (zeroed by the caller), the layout
+// the batched rfftn reads.  It replaces nch launches of the charge deposit
+// (csrc/pppm.cu pppm_deposit), each of which recomputed the stencil and
+// reread the positions.
+//
+// disp_gather (K12c): one thread per entry; the weights once, then for
+// each channel the sum over the stencil of w E_c (three fields, read from
+// e (nch, 3, nx, ny, nz) flt, the batched irfftn's output) in acc in the
+// order of csrc/pppm.cu's gather, times a_c, summed over the channels in
+// order: f (3 planes of the entries, acc).
+// It replaces nch launches of the ik gather (pppm_gather) and nch - 1
+// elementwise sums of their outputs.  An entry whose charges are all zero
+// (an empty slot) writes zero and reads nothing.
 //
 // disp_spectral (K12a): one thread per point of the rfft half spectrum
 // (nx, ny, nz/2 + 1), in a grid-stride loop.  For nch channels S_c (the
@@ -23,24 +50,178 @@
 // Coulomb kernel (csrc/pppm.cu pppm_spectral) hard-codes its own virial
 // factor 2 (1/k^2 + 1/4g^2), so the dispersion solve is a kernel of its
 // own, not a flag on that one.  The k = 0 term e0 and the self term are
-// host scalars (the caller's).
+// the caller's.
 //
-// What bounds it on the H100: bytes.  Per point it reads S (nch complex)
-// and G (vfac too with EV) and writes 3 nch complex spectra: with nch = 1
-// in f32, 36 bytes a point, 97 MB on the 154 x 187 x 187 mesh of the
-// 192,000-atom hexane deck (2.7 M points on the half spectrum), 0.03 ms
-// at 3.35 TB/s; the arithmetic is ~10 flops a point and channel.
+// What bounds them on the H100.
+//   disp_deposit: p^3 atomics per entry and channel onto meshes that stay
+//     in the 50 MB L2 (2 x 2.3 M points at the 259,200-atom silica deck,
+//     18.7 MB in f32); bytes (positions and rows once, the meshes written
+//     once) give a floor of a few microseconds, atomic throughput on
+//     overlapping stencils bounds it, as it bounds pppm_deposit.
+//   disp_gather: 3 p^3 reads of the fields per entry and channel (L2
+//     resident), ~2 flops each; L2 read bandwidth bounds it.
+//   disp_spectral: bytes.  Per point it reads S (nch complex) and G (vfac
+//     too with EV) and writes 3 nch complex spectra: with nch = 1 in f32,
+//     36 bytes a point, 97 MB on the 154 x 187 x 187 mesh of the
+//     192,000-atom hexane deck (2.7 M points on the half spectrum), 0.03 ms
+//     at 3.35 TB/s; the arithmetic is ~10 flops a point and channel.
 //
-// Precision: acc throughout (the JAX spectral dtype).  -O3 without
-// --use_fast_math.  Launches on the caller's stream, allocates nothing,
-// returns cudaGetLastError().
+// Precision: the deposit in flt (the JAX mesh dtype); the spectral solve
+// in acc; the gather flt weights and fields, acc sums.  -O3 without
+// --use_fast_math.  Kernels launch on the caller's stream, allocate
+// nothing, return cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "pppm_stencil.cuh"
+
 namespace {
+
+using namespace pppm_stencil;
 
 constexpr int kThreads = 256;
 constexpr int kMaxCh = 8;
+// channel-charge tables of at most this many entries are staged in shared
+// memory (16 KB in f64); larger ones (per-atom charges) are read in place
+constexpr int kStageMax = 2048;
+
+// The table the entries read: staged in dynamic shared memory when small.
+template <typename T>
+__device__ __forceinline__ const T* stage_table(const T* table, int count,
+                                                T* s_tab) {
+  if (count > kStageMax) return table;
+  for (int k = threadIdx.x; k < count; k += blockDim.x) s_tab[k] = table[k];
+  __syncthreads();
+  return s_tab;
+}
+
+// The stencil loops run the x planes in a loop (their weights read from a
+// small local array), y and z unrolled: a channel loop around a fully
+// unrolled stencil would let the compiler hoist the p^3 addresses out of
+// it (255 registers and spills).  The deposit touches every channel at
+// each stencil point (the channel loop unrolled to kMaxCh with a guard);
+// the gather sums one channel's fields over the stencil, then the next,
+// so that the threads in flight read one channel's fields at a time (the
+// 7 channels' fields of the 192,000-atom hexane deck are 392 MB, beyond
+// the 50 MB L2; one channel's are 56 MB).
+template <typename T>
+__global__ void disp_deposit_kernel(
+    const T* __restrict__ x, const T* __restrict__ y,
+    const T* __restrict__ z, const int* __restrict__ row, int ns,
+    const T* __restrict__ table, int ntab, int nch, T lox, T loy, T loz,
+    T ihx, T ihy, T ihz, MeshGeom g, const T* __restrict__ coef,
+    T* __restrict__ mesh) {
+  __shared__ T s_coef[kMaxOrder * kMaxOrder];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const T* tab = stage_table(table, nch * ntab,
+                             reinterpret_cast<T*>(smem_raw));
+  stage_coef(coef, g.p, s_coef);
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= ns) return;
+  const int r = row[s];
+  T ac[kMaxCh];
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < kMaxCh; ++c) {
+    ac[c] = c < nch ? tab[c * ntab + r] : T(0);
+    any |= ac[c] != T(0);
+  }
+  if (!any) return;
+  int ix[kMaxOrder], iy[kMaxOrder], iz[kMaxOrder];
+  T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder];
+  axis_weights(x[s], lox, ihx, g.nx, g.p, s_coef, ix, wx);
+  axis_weights(y[s], loy, ihy, g.ny, g.p, s_coef, iy, wy);
+  axis_weights(z[s], loz, ihz, g.nz, g.p, s_coef, iz, wz);
+  const size_t ng = static_cast<size_t>(g.nx) * g.ny * g.nz;
+#pragma unroll 1
+  for (int a = 0; a < g.p; ++a) {
+    const T wxa = wx[a];
+    const int rowx = ix[a] * g.ny;
+#pragma unroll
+    for (int b = 0; b < kMaxOrder; ++b) {
+      if (b >= g.p) continue;
+      const T wxy = wxa * wy[b];
+      const int off = (rowx + iy[b]) * g.nz;
+#pragma unroll
+      for (int k = 0; k < kMaxOrder; ++k) {
+        if (k >= g.p) continue;
+        const T w = wxy * wz[k];
+        const size_t m = off + iz[k];
+#pragma unroll
+        for (int c = 0; c < kMaxCh; ++c) {
+          if (c < nch && ac[c] != T(0))
+            atomicAdd(mesh + c * ng + m, w * ac[c]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, typename A>
+__global__ void disp_gather_kernel(
+    const T* __restrict__ x, const T* __restrict__ y,
+    const T* __restrict__ z, const int* __restrict__ row, int ns,
+    const T* __restrict__ table, int ntab, int nch, T lox, T loy, T loz,
+    T ihx, T ihy, T ihz, MeshGeom g, const T* __restrict__ coef,
+    const T* __restrict__ e, A* __restrict__ fx, A* __restrict__ fy,
+    A* __restrict__ fz) {
+  __shared__ T s_coef[kMaxOrder * kMaxOrder];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const T* tab = stage_table(table, nch * ntab,
+                             reinterpret_cast<T*>(smem_raw));
+  stage_coef(coef, g.p, s_coef);
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= ns) return;
+  const int r = row[s];
+  T ac[kMaxCh];
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < kMaxCh; ++c) {
+    ac[c] = c < nch ? tab[c * ntab + r] : T(0);
+    any |= ac[c] != T(0);
+  }
+  A fxs = 0, fys = 0, fzs = 0;
+  if (any) {
+    int ix[kMaxOrder], iy[kMaxOrder], iz[kMaxOrder];
+    T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder];
+    axis_weights(x[s], lox, ihx, g.nx, g.p, s_coef, ix, wx);
+    axis_weights(y[s], loy, ihy, g.ny, g.p, s_coef, iy, wy);
+    axis_weights(z[s], loz, ihz, g.nz, g.p, s_coef, iz, wz);
+    const size_t ng = static_cast<size_t>(g.nx) * g.ny * g.nz;
+#pragma unroll 1
+    for (int c = 0; c < nch; ++c) {
+      const T* e_c = e + 3 * c * ng;
+      A ex = 0, ey = 0, ez = 0;
+#pragma unroll 1
+      for (int a = 0; a < g.p; ++a) {
+        const T wxa = wx[a];
+        const int rowx = ix[a] * g.ny;
+#pragma unroll
+        for (int b = 0; b < kMaxOrder; ++b) {
+          if (b >= g.p) continue;
+          const T wxy = wxa * wy[b];
+          const int off = (rowx + iy[b]) * g.nz;
+#pragma unroll
+          for (int k = 0; k < kMaxOrder; ++k) {
+            if (k >= g.p) continue;
+            const T w = wxy * wz[k];
+            const size_t m = off + iz[k];
+            ex += static_cast<A>(w * e_c[m]);
+            ey += static_cast<A>(w * e_c[ng + m]);
+            ez += static_cast<A>(w * e_c[2 * ng + m]);
+          }
+        }
+      }
+      const A a_c = static_cast<A>(tab[c * ntab + r]);
+      fxs += ex * a_c;
+      fys += ey * a_c;
+      fzs += ez * a_c;
+    }
+  }
+  fx[s] = fxs;
+  fy[s] = fys;
+  fz[s] = fzs;
+}
 
 template <typename A>
 __device__ __forceinline__ A warp_sum(A v) {
@@ -147,12 +328,110 @@ int launch(const void* S, const void* P, int nch, const void* G,
   return static_cast<int>(cudaGetLastError());
 }
 
+inline int entry_blocks(int ns) { return (ns + kThreads - 1) / kThreads; }
+
+template <typename T>
+size_t table_smem(int nch, int ntab) {
+  return nch * ntab <= kStageMax ? sizeof(T) * nch * ntab : 0;
+}
+
+template <typename T>
+int launch_deposit(const void* x, const void* y, const void* z,
+                   const void* row, int ns, const void* table, int ntab,
+                   int nch, const double* lo, const double* ih, MeshGeom g,
+                   const void* coef, void* mesh, cudaStream_t st) {
+  if (ns <= 0) return 0;
+  disp_deposit_kernel<T><<<entry_blocks(ns), kThreads,
+                           table_smem<T>(nch, ntab), st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(z), static_cast<const int*>(row), ns,
+      static_cast<const T*>(table), ntab, nch, static_cast<T>(lo[0]),
+      static_cast<T>(lo[1]), static_cast<T>(lo[2]), static_cast<T>(ih[0]),
+      static_cast<T>(ih[1]), static_cast<T>(ih[2]), g,
+      static_cast<const T*>(coef), static_cast<T*>(mesh));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename A>
+int launch_gather(const void* x, const void* y, const void* z,
+                  const void* row, int ns, const void* table, int ntab,
+                  int nch, const double* lo, const double* ih, MeshGeom g,
+                  const void* coef, const void* e, void* fx, void* fy,
+                  void* fz, cudaStream_t st) {
+  if (ns <= 0) return 0;
+  disp_gather_kernel<T, A><<<entry_blocks(ns), kThreads,
+                             table_smem<T>(nch, ntab), st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(z), static_cast<const int*>(row), ns,
+      static_cast<const T*>(table), ntab, nch, static_cast<T>(lo[0]),
+      static_cast<T>(lo[1]), static_cast<T>(lo[2]), static_cast<T>(ih[0]),
+      static_cast<T>(ih[1]), static_cast<T>(ih[2]), g,
+      static_cast<const T*>(coef), static_cast<const T*>(e),
+      static_cast<A*>(fx), static_cast<A*>(fy), static_cast<A*>(fz));
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool channels_ok(int nch, int ntab) {
+  return nch > 0 && nch <= kMaxCh && ntab > 0;
+}
+
 }  // namespace
 
 // Threads per block (the partials have one row per block) and the largest
 // channel count.
 extern "C" int disp_threads() { return kThreads; }
 extern "C" int disp_max_channels() { return kMaxCh; }
+
+// K12b.  prec: 0 = float, 1 = double (the position, table and mesh type).
+// row (ns) int32 columns of table (nch, ntab), every row < ntab; lo and
+// invh the mesh origin and 1/h per axis; coef the (order, order) spline
+// piece table; mesh (nch, nx, ny, nz) zeroed by the caller.
+extern "C" int disp_deposit(int prec, const void* x, const void* y,
+                            const void* z, const void* row, int ns,
+                            const void* table, int ntab, int nch, double lox,
+                            double loy, double loz, double ihx, double ihy,
+                            double ihz, int nx, int ny, int nz, int order,
+                            const void* coef, void* mesh, void* stream) {
+  const MeshGeom g{nx, ny, nz, order};
+  if (!geom_ok(g) || !channels_ok(nch, ntab))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const double lo[3] = {lox, loy, loz}, ih[3] = {ihx, ihy, ihz};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DEPOSIT_ARGS \
+  x, y, z, row, ns, table, ntab, nch, lo, ih, g, coef, mesh, s
+  switch (prec) {
+    case 0: return launch_deposit<float>(DEPOSIT_ARGS);
+    case 1: return launch_deposit<double>(DEPOSIT_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DEPOSIT_ARGS
+}
+
+// K12c.  prec: 0 = (float, float), 1 = (float, double), 2 = (double,
+// double) for (flt, acc).  e (nch, 3, nx, ny, nz) flt fields; fx/fy/fz
+// (ns) acc.  The other arguments as in disp_deposit.
+extern "C" int disp_gather(int prec, const void* x, const void* y,
+                           const void* z, const void* row, int ns,
+                           const void* table, int ntab, int nch, double lox,
+                           double loy, double loz, double ihx, double ihy,
+                           double ihz, int nx, int ny, int nz, int order,
+                           const void* coef, const void* e, void* fx,
+                           void* fy, void* fz, void* stream) {
+  const MeshGeom g{nx, ny, nz, order};
+  if (!geom_ok(g) || !channels_ok(nch, ntab))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const double lo[3] = {lox, loy, loz}, ih[3] = {ihx, ihy, ihz};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GATHER_ARGS \
+  x, y, z, row, ns, table, ntab, nch, lo, ih, g, coef, e, fx, fy, fz, s
+  switch (prec) {
+    case 0: return launch_gather<float, float>(GATHER_ARGS);
+    case 1: return launch_gather<float, double>(GATHER_ARGS);
+    case 2: return launch_gather<double, double>(GATHER_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GATHER_ARGS
+}
 
 // prec: 0 = float, 1 = double (the acc type).  ev != 0 writes
 // partial[nblocks][7].

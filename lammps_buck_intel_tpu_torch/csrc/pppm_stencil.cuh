@@ -1,0 +1,67 @@
+// The order-p B-spline stencil of one position on the periodic mesh, shared
+// by the PPPM kernels (csrc/pppm.cu: the charge deposit and the ik gather)
+// and the multi-channel dispersion kernels (csrc/pppm_disp.cu).
+//
+// u = (x - lo) * (1/h) per axis; base = rint(u) for odd order (floor for
+// even); mesh point base + o (o in stencil_offsets(order)) gets M_p(u -
+// (base + o) + p/2), evaluated by piecewise Horner from the (p, p) piece
+// table the host passes (staged in shared memory by stage_coef).  Every
+// index is wrapped periodically ((i % n) + n) % n, so any finite position,
+// in the box or not, lands on the mesh.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pppm_stencil {
+
+constexpr int kMaxOrder = 7;
+
+__device__ __forceinline__ float dev_floor(float v) { return floorf(v); }
+__device__ __forceinline__ double dev_floor(double v) { return floor(v); }
+__device__ __forceinline__ float dev_rint(float v) { return rintf(v); }
+__device__ __forceinline__ double dev_rint(double v) { return rint(v); }
+
+// mesh indices and weights of one position on one axis (first p entries)
+template <typename T>
+__device__ __forceinline__ void axis_weights(T pos, T lo, T invh, int n,
+                                             int p, const T* coef, int* idx,
+                                             T* w) {
+  const T u = (pos - lo) * invh;
+  const T base = (p & 1) ? dev_rint(u) : dev_floor(u);
+  const int b = static_cast<int>(base);
+  const int o0 = (p & 1) ? -(p - 1) / 2 : -(p / 2 - 1);
+  const T half = static_cast<T>(0.5 * p);
+#pragma unroll
+  for (int s = 0; s < kMaxOrder; ++s) {
+    if (s < p) {
+      const int o = o0 + s;
+      const T arg = (u - (base + static_cast<T>(o))) + half;
+      T jf = dev_floor(arg);
+      jf = jf < T(0) ? T(0) : (jf > static_cast<T>(p - 1)
+                                   ? static_cast<T>(p - 1) : jf);
+      const T t = arg - jf;
+      const T* c = coef + static_cast<int>(jf) * p;
+      T acc = c[p - 1];
+      for (int d = p - 2; d >= 0; --d) acc = acc * t + c[d];
+      w[s] = (arg >= T(0) && arg < static_cast<T>(p)) ? acc : T(0);
+      idx[s] = (((b + o) % n) + n) % n;
+    }
+  }
+}
+
+struct MeshGeom {
+  int nx, ny, nz, p;
+};
+
+inline bool geom_ok(MeshGeom g) {
+  return g.p >= 2 && g.p <= kMaxOrder && g.nx > 0 && g.ny > 0 && g.nz > 0;
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_coef(const T* coef, int p, T* s_coef) {
+  for (int k = threadIdx.x; k < p * p; k += blockDim.x) s_coef[k] = coef[k];
+  __syncthreads();
+}
+
+}  // namespace pppm_stencil

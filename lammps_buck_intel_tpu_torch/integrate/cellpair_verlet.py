@@ -92,10 +92,11 @@ class CellPairSimulation:
 
     kspace: None, or a function of this engine's cell grid that returns
     the k-space solver (a ``CellPPPM`` or ``CellPPPMDisp``, whose
-    ``compute_slots`` reads the slot planes, or a ``BoundKSpace``, whose
-    ``compute_slot`` gathers its atom-order inputs through the slots' atom
-    ids): the deck runner aligns the mesh to the grid, which is chosen
-    here.  The initial force includes
+    ``compute_slots`` reads the slot planes, or a ``BoundKSpace`` or
+    ``CombinedKSpace``, whose ``compute_slot`` gathers atom-order inputs
+    through the slots' atom ids and hands the slot charges to a Coulomb
+    PPPM): the deck runner aligns the mesh to the grid, which is chosen
+    here, or returns a solver on the generic mesh of the box.  The initial force includes
     the solver's.  topology: the special-bond partner table for the pair
     kernel; bonded: the bonded terms; shake: the SHAKE/RATTLE constraints
     (``integrate.shake.ShakeConstraints``); thermostat: Nose-Hoover chain

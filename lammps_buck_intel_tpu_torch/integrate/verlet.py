@@ -109,7 +109,9 @@ class Simulation:
     forces and velocity Verlet; the device is that of ``system``.
 
     kspace: None or a static-box solver with ``compute(x, q, eflag,
-    vflag)`` (``models.kspace.PPPM`` or ``models.kspace.Ewald``); topology: the special-bond partner
+    vflag)`` (``models.kspace.PPPM``, ``models.kspace.Ewald``, a
+    ``BoundKSpace`` of the dispersion PPPM or a ``CombinedKSpace`` of
+    both PPPMs); topology: the special-bond partner
     table; bonded: the bonded terms; thermostat: Nose-Hoover chain NVT
     (dof 3N - 3 - Nc, filled here with the units and the timestep); shake:
     SHAKE/RATTLE constraints.  The list's capacity and build come from

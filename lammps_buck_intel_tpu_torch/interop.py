@@ -15,6 +15,7 @@ from .integrate.rigid import BodyState, RigidBodies
 from .integrate.verlet import MDState
 from .integrate.shake import ShakeConstraints
 from .models.bonded.harmonic import BondedStyle, make_bonded
+from .models.kspace.base import BoundKSpace, CombinedKSpace
 from .models.kspace.ewald import Ewald
 from .models.kspace.pppm import PPPM
 from .models.kspace.pppm_disp import PPPMDisp
@@ -26,16 +27,18 @@ def pair_style_from_numpy(tables, special_lj, special_coul, qqrd2e: float,
                           g_ewald: float, cutsq_max: float,
                           cfg_fields: dict, inner_sq: float = 0.0,
                           denom_lj: float = 1.0, eps14=None,
-                          sig14=None) -> PairStyle:
+                          sig14=None, g_ewald_6: float = 0.0) -> PairStyle:
     """The port's PairStyle from the JAX PairStyle's fields
-    (``cfg_fields`` = name, vdw, coul, disp of its PairConfig; the last
-    four are lj/charmm's switching region and 1-4 parameters)."""
+    (``cfg_fields`` = name, vdw, coul, disp of its PairConfig; inner_sq to
+    sig14 are lj/charmm's switching region and 1-4 parameters; g_ewald_6
+    the dispersion split of the lj/long and buck/long styles)."""
     return PairStyle(
         cfg=PairConfig(**cfg_fields),
         tables=np.array(tables, np.float64),
         special_lj=np.array(special_lj, np.float64),
         special_coul=np.array(special_coul, np.float64),
         qqrd2e=float(qqrd2e), g_ewald=float(g_ewald),
+        g_ewald_6=float(g_ewald_6),
         cutsq_max=float(cutsq_max), inner_sq=float(inner_sq),
         denom_lj=float(denom_lj),
         eps14=None if eps14 is None else np.array(eps14, np.float64),
@@ -161,6 +164,26 @@ def pppm_disp_from_numpy(g_ewald_6: float, grid, order: int, greensfn, kx,
         h=tuple(float(v) for v in h), acc_dtype=acc_dtype, mix=str(mix),
         A=np.array(A, np.float64), P=np.array(P, np.float64),
         vfac=np.array(vfac, np.float64))
+
+
+def kspace_from_numpy(parts, acc_dtype=torch.float64):
+    """The port's k-space solver from a JAX pppm/disp solver's parts: each
+    part is ("pppm", fields of ``pppm_from_numpy``) or ("disp", fields of
+    ``pppm_disp_from_numpy``, per_atom, typed) for a JAX ``BoundKSpace``
+    of a PPPMDisp; one part gives that solver, several a
+    ``CombinedKSpace`` of them in the same order."""
+    solvers = []
+    for kind, fields, *bound in parts:
+        if kind == "pppm":
+            solvers.append(pppm_from_numpy(**fields, acc_dtype=acc_dtype))
+        elif kind == "disp":
+            per_atom, typed = bound
+            solvers.append(BoundKSpace(
+                pppm_disp_from_numpy(**fields, acc_dtype=acc_dtype),
+                np.array(per_atom), typed=bool(typed)))
+        else:
+            raise ValueError(f"unknown k-space part {kind!r}")
+    return solvers[0] if len(solvers) == 1 else CombinedKSpace(solvers)
 
 
 def rigid_from_numpy(body_of, nbody: int, mtotal, minv, iinv, r_body,

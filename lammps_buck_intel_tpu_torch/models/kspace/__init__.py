@@ -1,4 +1,4 @@
-from .base import BoundKSpace
+from .base import BoundKSpace, CombinedKSpace
 from .ewald import Ewald, setup_ewald
 from .pppm import PPPM, pppm_g_ewald, setup_pppm
 from .pppm_cells import CellPPPM, CellPPPMDisp

@@ -5,7 +5,9 @@ g_ewald, the real-space and Ewald k-space RMS error estimates that size
 the Ewald k set, and the Deserno-Holm P3M ik error estimate that sizes
 the PPPM mesh.  The formulas and the acons table are the JAX package's, copied so
 the port imports nothing of it.  ``BoundKSpace`` binds a solver to
-per-atom inputs other than the charges (the dispersion solver's B_i).
+per-atom inputs other than the charges (the dispersion solver's B_i or
+type channels); ``CombinedKSpace`` sums solvers (the Coulomb PPPM and the
+dispersion PPPM of ``kspace_style pppm/disp``).
 """
 from __future__ import annotations
 
@@ -105,36 +107,95 @@ class BoundKSpace:
     solver's pairing P combines.  ``compute_slot`` is the cell engine's
     slot-order form: x (3, NS) slot positions and aid (NS,) atom ids
     clamped to N, the baked atom-order inputs gathered through aid with a
-    zero row for empty slots."""
+    zero row for empty slots.
+
+    The solver reads the charges as table[:, row] (``PPPMDisp.compute_rows``):
+    typed, the (nch, T + 1) table of A with a zero column T and the rows
+    type (atoms) or type of aid with T for empty slots (slots); otherwise
+    the (1, N + 1) table of B with a zero column N and the rows the atom ids
+    (the aid plane itself for slots)."""
 
     def __init__(self, solver, per_atom, typed: bool = False):
         self.solver = solver
         self.per_atom = np.asarray(per_atom)
         self.typed = typed
-        self._pad = {}
+        self._dev = {}
 
-    def _channels(self, device, dtype):
-        """(nch, N + 1) channel charges on ``device``, the last column 0."""
+    def _tables(self, device, dtype):
+        """(table (nch, K + 1), atom rows (N,) int32, rows of a clamped aid
+        (N + 1,) int32, how many atoms read each column (K + 1,) f64) on
+        ``device``, made once: the composition is fixed, so the k = 0 and
+        self terms need no count over the entries of each call."""
         key = (torch.device(device), dtype)
-        a = self._pad.get(key)
-        if a is None:
+        t = self._dev.get(key)
+        if t is None:
+            n = len(self.per_atom)
             if self.typed:
-                af = np.asarray(self.solver.A)[:, self.per_atom]
+                af = np.asarray(self.solver.A, np.float64)
+                rows = self.per_atom.astype(np.int32)
             else:
                 af = np.asarray(self.per_atom, np.float64)[None, :]
+                rows = np.arange(n, dtype=np.int32)
             af = np.concatenate([af, np.zeros((af.shape[0], 1))], 1)
-            a = self._pad[key] = torch.as_tensor(af).to(device, dtype)
-        return a
+            slot_rows = np.concatenate([rows, [af.shape[1] - 1]])
+            counts = np.bincount(rows, minlength=af.shape[1])
+            t = self._dev[key] = (
+                torch.as_tensor(af).to(device, dtype),
+                torch.as_tensor(rows).to(device),
+                torch.as_tensor(slot_rows.astype(np.int32)).to(device),
+                torch.as_tensor(counts.astype(np.float64)).to(device))
+        return t
 
     def _pairing(self):
         return self.solver.P if self.typed else np.ones((1, 1))
 
     def compute(self, x, q, eflag=True, vflag=True):
-        a = self._channels(x.device, x.dtype)[:, :-1]
-        return self.solver.compute_channels(x, a, self._pairing(), eflag,
-                                            vflag)
+        table, rows, _, counts = self._tables(x.device, x.dtype)
+        return self.solver.compute_rows(x, rows, table, self._pairing(),
+                                        eflag, vflag, counts)
 
     def compute_slot(self, x, aid, q, eflag=True, vflag=True):
-        a = self._channels(x.device, x.dtype)[:, aid.long()]
-        return self.solver.compute_channels(x, a, self._pairing(), eflag,
-                                            vflag)
+        table, _, slot_rows, counts = self._tables(x.device, x.dtype)
+        rows = torch.index_select(slot_rows, 0, aid.to(torch.int32))
+        return self.solver.compute_rows(x, rows, table, self._pairing(),
+                                        eflag, vflag, counts)
+
+
+def _sum_results(a, b):
+    from .pppm import KSpaceResult
+
+    return KSpaceResult(f=tuple(u + v for u, v in zip(a.f, b.f)),
+                        elong=a.elong + b.elong, virial=a.virial + b.virial)
+
+
+class CombinedKSpace:
+    """The sum of several k-space solvers: ``kspace_style pppm/disp`` with
+    long-range Coulomb is a Coulomb ``PPPM`` beside a dispersion
+    ``BoundKSpace`` (the reference's two pipelines,
+    pppm_disp_intel.cpp:183-313).  Counterpart of the JAX
+    ``CombinedKSpace``: forces, elong and the virial add in the order of
+    ``solvers``."""
+
+    def __init__(self, solvers):
+        self.solvers = list(solvers)
+
+    def compute(self, x, q, eflag=True, vflag=True):
+        out = None
+        for s in self.solvers:
+            r = s.compute(x, q, eflag=eflag, vflag=vflag)
+            out = r if out is None else _sum_results(out, r)
+        return out
+
+    def compute_slot(self, x, aid, q, eflag=True, vflag=True):
+        """Slot order: a solver with ``compute_slot`` gathers its
+        atom-order inputs through aid; a charge solver takes the slot
+        charges directly (empty slots carry q = 0, and their finite
+        positions fold into the mesh)."""
+        out = None
+        for s in self.solvers:
+            if hasattr(s, "compute_slot"):
+                r = s.compute_slot(x, aid, q, eflag=eflag, vflag=vflag)
+            else:
+                r = s.compute(x, q, eflag=eflag, vflag=vflag)
+            out = r if out is None else _sum_results(out, r)
+        return out

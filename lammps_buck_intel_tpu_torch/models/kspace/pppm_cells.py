@@ -33,10 +33,10 @@ plain torch version below on CPU tensors:
   * ``gather``: one batched irfftn of the spectra -> E meshes, then the
     field at every slot times q * qqrd2e, in acc.
 
-``CellPPPMDisp`` runs the dispersion solve (``pppm_disp``) through the
-same deposit and gather, with the dispersion charge B[type] of each slot
-in place of q and the dispersion spectral kernel (K12a) in place of the
-Coulomb one.
+``CellPPPMDisp`` runs the geometric dispersion solve (``pppm_disp``)
+through the same deposit and gather, with the dispersion charge B[type]
+of each slot in place of q and the dispersion spectral kernel (K12a) in
+place of the Coulomb one.
 """
 from __future__ import annotations
 
@@ -371,15 +371,16 @@ class CellPPPMDisp:
     (K12a, ``csrc/pppm_disp.cu``: ik spectra, energy and the vfac
     virial), irfftn, the ik gather scaled by a (K8).  The k = 0 and self
     terms (``PPPMDisp.elong_const``) are host scalars of the atoms'
-    composition.  Only the geometric mix has one channel; arithmetic and
-    no-mix decks raise (ROADMAP queue 1 item 13(b)), as the JAX class
-    does."""
+    composition.  Only the geometric mix has one channel: other mixes
+    raise, as the JAX class does (its C8 guard); the deck runner gives
+    their decks the generic solvers (``base.BoundKSpace``) instead."""
 
     def __init__(self, pmd, n_atoms: int, typ):
         if pmd.mix != "geometric":
             raise NotImplementedError(
                 f"CellPPPMDisp: mix {pmd.mix!r} (geometric single-channel "
-                "only; arithmetic and no-mix: ROADMAP queue 1 item 13(b))")
+                "only; the other mixes run the generic channel solver, "
+                "base.BoundKSpace)")
         self.pmd = pmd
         self.pm = pmd.shim()
         self.n_atoms = int(n_atoms)

@@ -22,14 +22,18 @@ host scalars for a fixed composition (``elong_const``).
 
 ``disp_compute_plain`` is the JAX ``_disp_compute_multi`` (ik, any number
 of channels) in torch ops: the CPU tests hold it to the JAX package.
-``PPPMDisp.compute_channels`` runs the same solve in atom order through
-the kernels on CUDA planes: the deposit (K5, ``pppm_deposit`` with a_c
-as the charge), cuFFT, the dispersion spectral kernel (K12a,
-``csrc/pppm_disp.cu``), cuFFT and the gather (K8, scaled by a_c); on CPU
-planes each stage's plain version.  The cell engine's form is
-``pppm_cells.CellPPPMDisp``.  Arithmetic and no-mix decks are refused by
-the deck runner (ROADMAP queue 1 item 13(b)); ``diff ad`` is not ported
-(item 10).
+``PPPMDisp.compute_rows`` runs the same solve through the kernels on CUDA
+planes (``disp_compute_rows``): entry s (an atom, or a slot of the cell
+engine) carries the channel charges table[:, row[s]] of a small table
+(A[:, type] with a zero column for empty slots, or per-atom B), all
+channels deposited in one pass (K12b, ``csrc/pppm_disp.cu``
+``disp_deposit``), one batched rfftn, the dispersion spectral kernel
+(K12a), one batched irfftn and the gather of every channel's field in one
+pass (K12c, ``disp_gather``); on CPU planes ``disp_compute_plain``.  The
+cell engine's geometric form is ``pppm_cells.CellPPPMDisp``; its
+arithmetic and no-mix decks, and every pppm/disp deck of the
+neighbor-list engine, run ``compute_rows`` through ``base.BoundKSpace``.
+``diff ad`` is not ported (item 10).
 """
 from __future__ import annotations
 
@@ -208,16 +212,30 @@ class PPPMDisp:
                          eflag: bool = True,
                          vflag: bool = True) -> KSpaceResult:
         """Forces (acc planes), elong and the 6-virial of the channel
-        charges a (nch, N) with pairing P (default ``self.P``): the staged
-        kernels on CUDA planes, ``disp_compute_plain`` on CPU ones.  A
-        slot-order caller pads empty rows with zero charges."""
+        charges a (nch, N) with pairing P (default ``self.P``): entry s
+        reads column s of a (``compute_rows``).  A slot-order caller pads
+        empty rows with zero charges."""
+        row = torch.arange(a.shape[1], dtype=torch.int32, device=a.device)
+        return self.compute_rows(x, row, a, P, eflag, vflag)
+
+    def compute_rows(self, x: torch.Tensor, row: torch.Tensor,
+                     table: torch.Tensor, P=None, eflag: bool = True,
+                     vflag: bool = True, counts=None) -> KSpaceResult:
+        """``compute_channels`` of the charges table[:, row] (nch, M): x
+        (3, M) positions, row (M,) int32 columns of the (nch, K) table;
+        counts: how many entries read each column (K,), where the caller
+        knows them (a fixed composition), else counted here.  The kernels
+        on CUDA planes (``disp_compute_rows``), ``disp_compute_plain`` on
+        CPU ones."""
         P = self.P if P is None else P
         if x.is_cuda:
-            return disp_compute_staged(self, x, a, P, eflag, vflag)
+            return disp_compute_rows(self, x, row, table, P, eflag, vflag,
+                                     counts)
         if x.device.type != "cpu":
             raise RuntimeError(
                 f"no kernel and no plain version for device {x.device}")
-        return disp_compute_plain(self, x, a, P, eflag, vflag)
+        return disp_compute_plain(self, x, table[:, row.long()], P, eflag,
+                                  vflag)
 
 
 def setup_pppm_disp(
@@ -305,6 +323,26 @@ def channel_constants(pm: PPPMDisp, a: torch.Tensor, P):
     return e0, pm.g_ewald_6 ** 6 / 12.0 * c6_self.sum()
 
 
+def row_constants(pm: PPPMDisp, row: torch.Tensor, table: torch.Tensor, P,
+                  counts=None):
+    """``channel_constants`` of the charges table[:, row] from how many
+    entries read each column, ``counts`` (K,) or a scatter of ones over
+    row (no host sync): asum = table counts and sum_i C6_ii = sum_t
+    counts_t (table_t P table_t), in acc."""
+    acc = pm.acc_dtype
+    Pm = torch.as_tensor(np.asarray(P, np.float64)).to(table.device, acc)
+    tab = table.to(acc)
+    if counts is None:
+        counts = torch.zeros(tab.shape[1], dtype=acc, device=tab.device)
+        counts.index_add_(0, row, torch.ones(row.shape, dtype=acc,
+                                             device=row.device))
+    counts = counts.to(acc)
+    asum = tab @ counts
+    e0 = (0.5 / float(pm.volume)) * pm.w0 * (asum @ Pm @ asum)
+    c6_col = torch.einsum("ct,cd,dt->t", tab, Pm, tab)
+    return e0, pm.g_ewald_6 ** 6 / 12.0 * (c6_col @ counts)
+
+
 def disp_spectral_plain(consts: dict, S: torch.Tensor, P, ev: bool):
     """The half-spectrum solve of K12a: S (nch, nx, ny, nzh) complex ->
     (ehat (nch, 3, nx, ny, nzh) complex, esum, vsum (6,)): chi = P S, ehat
@@ -365,36 +403,93 @@ def disp_finish(pm: PPPMDisp, esum, vsum, e0, e_self, eflag: bool,
     return elong, virial
 
 
-def disp_compute_staged(pm: PPPMDisp, x: torch.Tensor, a: torch.Tensor, P,
-                        eflag: bool, vflag: bool) -> KSpaceResult:
-    """The channel solve in atom order through the stages of
-    ``pppm_cells`` (deposit, gather: kernels on CUDA planes, plain
-    versions on CPU ones) and ``disp_spectral``: each channel deposited
-    with a_c as the charge, one batched rfftn, the spectral solve, one
-    batched irfftn, each channel's field gathered and scaled by a_c."""
-    from .pppm_cells import AtomPlanes, deposit, gather
+def _planes(x: torch.Tensor, q):
+    from .pppm_cells import AtomPlanes
 
-    acc, flt, dev = pm.acc_dtype, x.dtype, x.device
-    nch, n = a.shape
-    c = pm.consts(dev, flt)
-    aid = c.get("aid")
-    if aid is None or aid.shape[0] != n:
-        aid = c["aid"] = torch.arange(n, dtype=torch.int32, device=dev)
+    return AtomPlanes(x[0], x[1], x[2], q, None)
+
+
+def deposit_multi_plain(pm: PPPM, x: torch.Tensor, row: torch.Tensor,
+                        table: torch.Tensor) -> torch.Tensor:
+    """(nch, nx, ny, nz) meshes in x's dtype: each channel deposited with
+    its charges table[c, row] (the JAX deposit per channel, ``pm`` the
+    mesh)."""
+    from .pppm_cells import deposit_plain
+
+    a = table.to(x.dtype)[:, row.long()]
+    return torch.stack([deposit_plain(pm, _planes(x, a[ch]))
+                        for ch in range(a.shape[0])])
+
+
+def gather_multi_plain(pm: PPPM, x: torch.Tensor, row: torch.Tensor,
+                       table: torch.Tensor, e_fields: torch.Tensor,
+                       acc_dtype):
+    """(fx, fy, fz) in acc: each channel's ik field (e_fields (nch, 3, nx,
+    ny, nz)) gathered at x, scaled by table[c, row], summed over the
+    channels in order."""
+    from .pppm_cells import gather_plain
+
+    a = table.to(x.dtype)[:, row.long()]
+    f = None
+    for ch in range(a.shape[0]):
+        fc = gather_plain(pm, _planes(x, a[ch]), e_fields[ch], acc_dtype)
+        f = fc if f is None else tuple(u + v for u, v in zip(f, fc))
+    return f
+
+
+def deposit_multi(pm: PPPM, x: torch.Tensor, row: torch.Tensor,
+                  table: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """K12b on CUDA planes (``ops.pppm_disp.disp_deposit``), the plain
+    version on CPU ones."""
+    if x.is_cuda:
+        from ...ops import pppm_disp as disp_ops
+
+        return disp_ops.disp_deposit(pm, x, row, table, coef)
+    if x.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {x.device}")
+    return deposit_multi_plain(pm, x, row, table)
+
+
+def gather_multi(pm: PPPM, x: torch.Tensor, row: torch.Tensor,
+                 table: torch.Tensor, e_fields: torch.Tensor, acc_dtype,
+                 coef: torch.Tensor):
+    """K12c on CUDA planes (``ops.pppm_disp.disp_gather``), the plain
+    version on CPU ones."""
+    if x.is_cuda:
+        from ...ops import pppm_disp as disp_ops
+
+        return disp_ops.disp_gather(pm, x, row, table, e_fields, acc_dtype,
+                                    coef)
+    if x.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {x.device}")
+    return gather_multi_plain(pm, x, row, table, e_fields, acc_dtype)
+
+
+def disp_compute_rows(pm: PPPMDisp, x: torch.Tensor, row: torch.Tensor,
+                      table: torch.Tensor, P, eflag: bool, vflag: bool,
+                      counts=None) -> KSpaceResult:
+    """The channel solve of the charges table[:, row]: every channel
+    deposited in one pass (``deposit_multi``), one batched rfftn, the
+    spectral solve (``disp_spectral``), one batched irfftn, every
+    channel's field gathered in one pass (``gather_multi``); kernels on
+    CUDA planes, plain versions on CPU ones.  e0 and the self term come
+    from the table and how many entries read each column
+    (``row_constants``, with ``counts`` where the caller has them)."""
+    acc, flt = pm.acc_dtype, x.dtype
+    c = pm.consts(x.device, flt)
     shim = c["shim"]
-    planes = [AtomPlanes(x[0], x[1], x[2], a[ch].to(flt).contiguous(), aid)
-              for ch in range(nch)]
-    meshes = torch.stack([deposit(shim, p, n, c) for p in planes])
+    tab = table.to(flt).contiguous()
+    meshes = deposit_multi(shim, x, row, tab, c["coef"])
     S = torch.fft.rfftn(meshes.to(acc), dim=(1, 2, 3)).contiguous()
     ehat, esum, vsum = disp_spectral(c, S, P, eflag or vflag)
-    e0, e_self = channel_constants(pm, a, P)
+    e0, e_self = row_constants(pm, row, table, P, counts)
     elong, virial = disp_finish(pm, esum, vsum, e0, e_self, eflag, vflag)
     ngrid = pm.grid[0] * pm.grid[1] * pm.grid[2]
-    e_mesh = (torch.fft.irfftn(ehat, s=pm.grid, dim=(2, 3, 4))
-              * ((1.0 / float(pm.volume)) * ngrid)).to(flt).contiguous()
-    f = None
-    for ch in range(nch):
-        fc = gather(shim, planes[ch], e_mesh[ch], n, acc, c)
-        f = fc if f is None else tuple(u + v for u, v in zip(f, fc))
+    e_fields = (torch.fft.irfftn(ehat, s=pm.grid, dim=(2, 3, 4))
+                * ((1.0 / float(pm.volume)) * ngrid)).to(flt).contiguous()
+    f = gather_multi(shim, x, row, tab, e_fields, acc, c["coef"])
     return KSpaceResult(f=f, elong=elong, virial=virial)
 
 

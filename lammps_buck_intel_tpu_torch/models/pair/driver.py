@@ -3,7 +3,8 @@ row sums.
 
 Counterpart of ``lammps_buck_intel_tpu.models.pair.driver`` (``PairResult``,
 ``gather_coefs``, ``_select_small``, ``compute_pair``) for the port's pair
-styles (buck, buck/coul/{long,cut}, lj/charmm/coul/{long,cut}), with special-bond codes
+styles (buck, buck/coul/{long,cut}, lj/charmm/coul/{long,cut}, the lj/cut
+family, and buck/long and lj/long with coul none or long), with special-bond codes
 from the list and the box as a (3,) tensor of lengths (the variable cell of
 the NPT engine, never read back to the host).  Each pair is visited from
 both sides, so forces need no scatter and energies and the virial are

@@ -12,17 +12,17 @@ The port carries ``buck``, ``buck/coul/long``, ``buck/coul/cut``,
 ``lj/charmm/coul/long``, ``lj/charmm/coul/cut`` and the 12-6 family of
 ``build_lj``: ``lj/cut``, ``lj/cut/coul/long``, ``lj/cut/coul/cut`` and
 ``lj/long/coul/long`` (Ewald-split dispersion, ``disp == "long"``, with
-``coul`` none, long or cut).  Coulomb: Ewald real space through the A&S
-erfc (the k-space half is models/kspace), or the plain Coulomb term
-inside its cutoff with no k-space.  Dispersion: the r^-6 term damped by
-(1 + u^2 + u^4/2) exp(-u^2), u = g_ewald_6 r, whose smooth remainder
+``coul`` none, long or cut), and ``buck/long/coul/long`` (``build_buck``
+with ``disp == "long"``: the Buckingham repulsion beside the Ewald-split
+r^-6 term).  Coulomb: Ewald real space through the A&S erfc (the k-space
+half is models/kspace), or the plain Coulomb term inside its cutoff with
+no k-space.  Dispersion: the r^-6 term damped by (1 + u^2 + u^4/2)
+exp(-u^2), u = g_ewald_6 r, whose smooth remainder
 ``models.kspace.pppm_disp`` sums on a mesh.  Special-bond factors: the
 LJ term of a 1-2/1-3/1-4 pair is scaled where it is evaluated (under
 ``disp long`` corrected additively on the undamped term, because
 k-space holds every pair); the coul/long term is corrected
-subtractively, the coul/cut term scaled.  ``buck/long`` (Buckingham with
-Ewald-split dispersion) raises NotImplementedError naming ROADMAP queue
-1 item 13(b).
+subtractively, the coul/cut term scaled.
 """
 from __future__ import annotations
 
@@ -137,19 +137,18 @@ def build_buck(
     shift: bool = False,
     name: Optional[str] = None,
 ) -> PairStyle:
-    """Buckingham builder (``coul`` "none", "long" or "cut").
+    """Buckingham builder (``coul`` "none", "long" or "cut"; ``disp``
+    "cut", or "long" for buck/long/coul/long).
 
     coeffs: {(i, j) 0-based: (A, rho, C[, cut_lj[, cut_coul]])} — every
     type pair must be given (buck has no mixing rule); cut_coul defaults
-    to cut_global.  g_ewald is set later by the k-space solver
-    (``replace(g_ewald=...)``).
+    to cut_global.  g_ewald and g_ewald_6 are set later by the k-space
+    solvers (``replace(g_ewald=...)``).
     """
     if coul not in ("none", "long", "cut"):
         raise ValueError(f"unknown Coulomb form {coul!r}")
-    if disp != "cut":
-        raise NotImplementedError(
-            "buck/long (Ewald-split dispersion on the Buckingham term) is "
-            "not ported: ROADMAP queue 1 item 13(b)")
+    if disp not in ("cut", "long"):
+        raise ValueError(f"unknown dispersion form {disp!r}")
     cut_coul = cut_global if cut_coul is None else cut_coul
     t = np.zeros((ntypes, ntypes, NCOEF), np.float64)
     seen = np.zeros((ntypes, ntypes), bool)
@@ -325,13 +324,13 @@ def check_ported(style: PairStyle):
     cfg = style.cfg
     if cfg.vdw not in VDW_MODE or cfg.coul not in ("none", "long", "cut") \
             or cfg.disp not in ("cut", "long") \
-            or (cfg.disp == "long" and cfg.vdw != "lj") \
+            or (cfg.disp == "long" and cfg.vdw == "ljcharmm") \
             or (cfg.vdw == "ljcharmm" and cfg.coul == "none"):
         raise NotImplementedError(
             f"pair style {cfg.name!r} ({cfg.vdw}, coul {cfg.coul}, disp "
             f"{cfg.disp}) is not ported: buck, buck/coul/{{long,cut}}, "
-            "lj/charmm/coul/{long,cut} and the lj/cut, lj/long family only "
-            "(buck/long: ROADMAP queue 1 item 13(b))")
+            "lj/charmm/coul/{long,cut}, the lj/cut family and buck or lj "
+            "with long-range dispersion only")
 
 
 def erfc_approx(grij, expm2):
@@ -362,16 +361,23 @@ def pair_terms(style: PairStyle, rsq, coef, qi, qj, f_lj, f_coul, *,
     r6inv = r2inv * r2inv * r2inv
     zero = torch.zeros_like(rsq)
     in_lj = rsq < coef["cut_ljsq"]
-    if cfg.vdw == "buck":
+    if cfg.vdw == "buck" and cfg.disp != "long":
         rexp = torch.exp(-r * coef["rhoinv"])
         fvdw = (r * rexp * coef["c0"] - r6inv * coef["c1"]) * f_lj
         evdwl = (coef["e0"] * rexp - coef["e1"] * r6inv
                  - coef["offset"]) * f_lj
     elif cfg.disp == "long":
-        # lj/long: the r^-6 term damped by the Ewald split, the JAX
-        # package's expressions in its order (LAMMPS pair_lj_long_coul_long)
-        rep_f = r6inv * r6inv * coef["c0"]
-        rep_e = r6inv * r6inv * coef["e0"]
+        # lj/long and buck/long: the r^-6 term damped by the Ewald split
+        # beside the undamped repulsion, the JAX package's expressions in
+        # its order (LAMMPS pair_lj_long_coul_long,
+        # pair_buck_long_coul_long)
+        if cfg.vdw == "buck":
+            rexp = torch.exp(-r * coef["rhoinv"])
+            rep_f = r * rexp * coef["c0"]
+            rep_e = coef["e0"] * rexp
+        else:
+            rep_f = r6inv * r6inv * coef["c0"]
+            rep_e = r6inv * r6inv * coef["e0"]
         g2 = float(style.g_ewald_6 ** 2)
         g6 = float(style.g_ewald_6 ** 6)
         g8 = float(style.g_ewald_6 ** 8)
@@ -384,9 +390,14 @@ def pair_terms(style: PairStyle, rsq, coef, qi, qj, f_lj, f_coul, *,
         # a special pair is corrected additively on the undamped term
         # (k-space holds every pair); elided without special bonds
         if not (isinstance(f_lj, float) and f_lj == 1.0):
-            tl = r6inv * (1.0 - f_lj)
-            fvdw = fvdw + tl * (coef["c1"] - r6inv * coef["c0"])
-            evdwl = evdwl + tl * (coef["e1"] - r6inv * coef["e0"])
+            if cfg.vdw == "buck":
+                tadd = f_lj - 1.0
+                fvdw = fvdw + tadd * (rep_f - r6inv * coef["c1"])
+                evdwl = evdwl + tadd * (rep_e - coef["e1"] * r6inv)
+            else:
+                tl = r6inv * (1.0 - f_lj)
+                fvdw = fvdw + tl * (coef["c1"] - r6inv * coef["c0"])
+                evdwl = evdwl + tl * (coef["e1"] - r6inv * coef["e0"])
     elif cfg.vdw == "lj":
         fvdw = (r6inv * r6inv * coef["c0"] - r6inv * coef["c1"]) * f_lj
         evdwl = (r6inv * r6inv * coef["e0"] - coef["e1"] * r6inv

@@ -12,7 +12,8 @@ pass over the list)
 kinetic sums, the barostat's velocity scale and kick, the drift with the
 box dilation), ``ewald`` (csrc/ewald.cu: the structure factors with
 the energy and virial, the forces), ``pppm_disp`` (csrc/pppm_disp.cu:
-the dispersion half-spectrum solve) and ``rigid`` (csrc/rigid.cu: the
+the multi-channel dispersion deposit, the dispersion half-spectrum solve,
+the multi-channel ik gather) and ``rigid`` (csrc/rigid.cu: the
 rigid bodies' force and torque sums, their update with the atoms'
 positions or velocities, the constraint virial) wrap one kernel library
 each.
@@ -33,7 +34,8 @@ LAUNCHES = {"cellpair": 0, "rebin_incremental": 0, "rebin": 0,
             "shake_positions": 0, "rattle_velocities": 0, "shake_virial": 0,
             "nlist_build": 0, "nlist_dense": 0, "nlist_pair": 0,
             "traced_greens": 0, "npt_ke3": 0, "npt_vscale_kick": 0,
-            "npt_drift_dilate": 0, "ewald_sk": 0, "ewald_force": 0, "disp_spectral": 0,
+            "npt_drift_dilate": 0, "ewald_sk": 0, "ewald_force": 0,
+            "disp_deposit": 0, "disp_spectral": 0, "disp_gather": 0,
             "rigid_force_torque": 0, "rigid_update": 0, "rigid_virial": 0}
 
 

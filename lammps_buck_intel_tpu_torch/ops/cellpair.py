@@ -50,8 +50,8 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
     """Full-stencil pair forces on the card.  eflag also computes evdwl,
     ecoul and the virial (the kernel's EV variant); coul/long and coul/cut
     styles run the kernel's COUL variants, which read the slot q plane;
-    lj/charmm and the lj/cut family their VDW variants, lj/long the
-    DISP_LONG one; a ``special`` partner table
+    lj/charmm and the lj/cut family their VDW variants, lj/long and
+    buck/long (coul none or long) the DISP_LONG ones; a ``special`` partner table
     (``models.pair.cellpair.SpecialTable``) its SPECIAL variant; a
     ``slot_mol`` plane (int32 molecule ids, -1 on empty slots) excludes
     every pair of one molecule."""
@@ -76,10 +76,12 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
     if slot_mol is not None:
         check_plane(slot_mol, "slot_mol", torch.int32, ns, dev)
     disp_long = style.cfg.disp == "long"
-    if disp_long and (style.cfg.vdw != "lj" or coul):
+    if disp_long and (style.cfg.vdw not in ("lj", "buck")
+                      or style.cfg.coul not in ("none", "long")):
         raise NotImplementedError(
-            "the cell-pair kernel's DISP_LONG variant is lj/long with coul "
-            "none (coul long with disp long: ROADMAP queue 1 item 13(b))")
+            "the cell-pair kernel's DISP_LONG variants are lj/long and "
+            f"buck/long with coul none or long, not {style.cfg.vdw} with "
+            f"coul {style.cfg.coul}")
     g6 = float(style.g_ewald_6)
     disp = (ctypes.c_double * 3)(g6 ** 2, g6 ** 6, g6 ** 8)
     coef = style.tables_on(flt, dev)

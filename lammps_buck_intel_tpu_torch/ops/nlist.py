@@ -31,8 +31,8 @@ def _lib():
                                     + [_P, _P, _I] + [_P] * 5)
         lib.nlist_dense.argtypes = ([_I] + [_P] * 4 + [_I, _D, _I, _P, _P, _I]
                                     + [_P] * 5)
-        lib.nlist_pair.argtypes = ([_I] * 5 + [_P] * 7 + [_I, _I] + [_P] * 3
-                                   + [_I] + [_D] * 4 + [_P] * 6)
+        lib.nlist_pair.argtypes = ([_I] * 6 + [_P] * 7 + [_I, _I] + [_P] * 3
+                                   + [_I] + [_D] * 4 + [_P] * 7)
         for fn in (lib.nlist_partial_rows, lib.nlist_build, lib.nlist_dense,
                    lib.nlist_pair):
             fn.restype = _I
@@ -123,10 +123,13 @@ def compute_pair(style, xs, typ, q, boxL, nl, *, eflag: bool, acc_dtype,
     """The pair pass on the card: ((fx, fy, fz) acc, evdwl, ecoul, virial
     (6,)), energies and virial halved (each pair is visited twice)."""
     cfg = style.cfg
-    if cfg.disp != "cut":
+    disp_long = cfg.disp == "long"
+    if disp_long and (cfg.vdw not in ("lj", "buck")
+                      or cfg.coul not in ("none", "long")):
         raise NotImplementedError(
-            "the list pair pass has no lj/long variant: dispersion PPPM runs "
-            "on the cell engine only (ROADMAP queue 1 item 13(c))")
+            "the list pair pass's DISP_LONG variants are lj/long and "
+            f"buck/long with coul none or long, not {cfg.vdw} with coul "
+            f"{cfg.coul}")
     dev, flt, n = _positions(xs)
     prec = _PREC.get((flt, acc_dtype))
     if prec is None:
@@ -150,14 +153,17 @@ def compute_pair(style, xs, typ, q, boxL, nl, *, eflag: bool, acc_dtype,
     out = [torch.empty(n, dtype=acc_dtype, device=dev) for _ in range(3)]
     part = torch.empty((lib.nlist_partial_rows(n), 8), dtype=acc_dtype,
                        device=dev)
+    g6 = float(style.g_ewald_6)
+    disp = (ctypes.c_double * 3)(g6 ** 2, g6 ** 6, g6 ** 8)
     _check(lib.nlist_pair(
-        prec, int(eflag), coul, VDW_MODE[cfg.vdw],
+        prec, int(eflag), coul, VDW_MODE[cfg.vdw], int(disp_long),
         int(use_special), *(p.data_ptr() for p in xs),
         q.data_ptr() if coul else None, typ.data_ptr(), boxL.data_ptr(),
         coef.data_ptr(), style.tables.shape[0], n, idx_t.data_ptr(),
         sb_t.data_ptr(), nl.nnei.data_ptr(), kmax, float(style.g_ewald),
         float(style.qqrd2e), float(style.inner_sq), float(style.denom_lj),
-        fac.data_ptr(), *(f.data_ptr() for f in out), part.data_ptr(),
+        ctypes.cast(disp, _P), fac.data_ptr(),
+        *(f.data_ptr() for f in out), part.data_ptr(),
         _stream(dev)), "nlist_pair")
     tot = part.sum(0) * 0.5
     return tuple(out), tot[0], tot[1], tot[2:8]

@@ -1,8 +1,10 @@
-"""Launch wrapper of the dispersion spectral kernel (csrc/pppm_disp.cu).
+"""Launch wrappers of the dispersion kernels (csrc/pppm_disp.cu): the
+multi-channel deposit (K12b), the half-spectrum solve (K12a) and the
+multi-channel ik gather (K12c).
 
-The plain version of the same function is
-``models.kspace.pppm_disp.disp_spectral_plain``.  The deposit and the
-gather around it are ``ops.pppm``'s, and the FFTs stay ``torch.fft``
+The plain versions of the same functions are
+``models.kspace.pppm_disp.deposit_multi_plain``, ``disp_spectral_plain``
+and ``gather_multi_plain``.  The FFTs between them stay ``torch.fft``
 (cuFFT) calls.
 """
 from __future__ import annotations
@@ -16,8 +18,10 @@ from . import LAUNCHES
 from . import build
 from .cellpair import check_plane
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _FLT = {torch.float32: 0, torch.float64: 1}
+_PAIR = {(torch.float32, torch.float32): 0, (torch.float32, torch.float64): 1,
+         (torch.float64, torch.float64): 2}
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 # enough blocks to fill the card (this many per SM), a grid-stride loop
 # beyond
@@ -30,6 +34,12 @@ def _lib():
         lib.disp_spectral.argtypes = ([_I, _I, _P, _P, _I] + [_P] * 6
                                       + [_I] * 3 + [_P, _P, _I, _P])
         lib.disp_spectral.restype = _I
+        entry_args = [_I] + [_P] * 4 + [_I, _P, _I, _I] + [_D] * 6 \
+            + [_I] * 4 + [_P]
+        lib.disp_deposit.argtypes = entry_args + [_P, _P]
+        lib.disp_deposit.restype = _I
+        lib.disp_gather.argtypes = entry_args + [_P] * 5
+        lib.disp_gather.restype = _I
         for fn in (lib.disp_threads, lib.disp_max_channels):
             fn.argtypes = []
             fn.restype = _I
@@ -92,3 +102,77 @@ def disp_spectral(consts: dict, S: torch.Tensor, P, ev: bool):
         return ehat, zero[0], zero[1:]
     tot = partial.sum(0)
     return ehat, tot[0], tot[1:]
+
+
+def _entry_args(pm, x, row, table, coef):
+    """The entry and mesh-geometry arguments shared by the deposit and the
+    gather, after checking them: x (3, M) positions, row (M,) int32
+    columns of table (nch, K) in x's dtype, coef the spline piece table."""
+    dev, flt = x.device, x.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"pppm_disp kernels need CUDA tensors, got {dev}")
+    if flt not in _FLT:
+        raise TypeError(f"unsupported position dtype {flt}")
+    if x.dim() != 2 or x.shape[0] != 3:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected (3, M)")
+    m = x.shape[1]
+    planes = [x[a].contiguous() for a in range(3)]
+    for name, t in zip("xyz", planes):
+        check_plane(t, name, flt, m, dev)
+    check_plane(row, "row", torch.int32, m, dev)
+    if table.dim() != 2 or not table.is_contiguous():
+        raise ValueError(f"table has shape {tuple(table.shape)}, expected "
+                         "a contiguous (nch, K)")
+    nch, ntab = table.shape
+    check_plane(table.view(-1), "table", flt, nch * ntab, dev)
+    lib = _lib()
+    if not 0 < nch <= lib.disp_max_channels():
+        raise ValueError(f"{nch} channels (1..{lib.disp_max_channels()})")
+    p = pm.order
+    check_plane(coef, "coef", flt, p * p, dev)
+    geo = [*(float(v) for v in pm.box_lo), *(1.0 / float(h) for h in pm.h)]
+    args = [*(t.data_ptr() for t in planes), row.data_ptr(), m,
+            table.data_ptr(), ntab, nch, *geo, *pm.grid, p, coef.data_ptr()]
+    # the planes must outlive the launch: keep them beside the arguments
+    return lib, args, planes, nch, m
+
+
+def disp_deposit(pm, x: torch.Tensor, row: torch.Tensor,
+                 table: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """(nch, nx, ny, nz) channel meshes in x's dtype on the card: entry s
+    deposits table[c, row[s]] on channel c (K12b; ``pm`` the mesh: grid,
+    order, box_lo, h)."""
+    lib, args, planes, nch, _ = _entry_args(pm, x, row, table, coef)
+    nx, ny, nz = pm.grid
+    mesh = torch.zeros((nch, nx, ny, nz), dtype=x.dtype, device=x.device)
+    rc = lib.disp_deposit(_FLT[x.dtype], *args, mesh.data_ptr(),
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"disp_deposit launch failed: CUDA error {rc}")
+    LAUNCHES["disp_deposit"] += 1
+    return mesh
+
+
+def disp_gather(pm, x: torch.Tensor, row: torch.Tensor, table: torch.Tensor,
+                e_fields: torch.Tensor, acc_dtype, coef: torch.Tensor):
+    """(fx, fy, fz) acc on the card: f_s = sum_c table[c, row[s]] (the ik
+    field of channel c at x_s), e_fields (nch, 3, nx, ny, nz) in x's dtype
+    (K12c)."""
+    lib, args, planes, nch, m = _entry_args(pm, x, row, table, coef)
+    prec = _PAIR.get((x.dtype, acc_dtype))
+    if prec is None:
+        raise TypeError(f"unsupported (flt, acc) = ({x.dtype}, {acc_dtype})")
+    nx, ny, nz = pm.grid
+    if not e_fields.is_contiguous():
+        raise ValueError("e_fields is not contiguous")
+    check_plane(e_fields.view(-1), "e_fields", x.dtype,
+                nch * 3 * nx * ny * nz, x.device)
+    fx, fy, fz = (torch.empty(m, dtype=acc_dtype, device=x.device)
+                  for _ in range(3))
+    rc = lib.disp_gather(prec, *args, e_fields.data_ptr(), fx.data_ptr(),
+                         fy.data_ptr(), fz.data_ptr(),
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"disp_gather launch failed: CUDA error {rc}")
+    LAUNCHES["disp_gather"] += 1
+    return fx, fy, fz

@@ -20,19 +20,26 @@ style charge or full, optionally ``replicate``d); ``pair_style buck``,
 ``lj/charmm/coul/cut`` without k-space, or ``buck/coul/long`` /
 ``lj/cut/coul/long`` / ``lj/charmm/coul/long`` with ``kspace_style
 pppm`` (ik) or ``kspace_style ewald`` (``models.kspace.ewald``, on the
-neighbor-list ``Simulation`` only); ``lj/long/coul/long`` with ``coul:
-off`` and ``kspace_style pppm/disp`` (geometric mixing, ik; the cell
-engine, with the dispersion mesh aligned to its cells:
-``models.kspace.CellPPPMDisp``); ``fix rigid/small`` (quaternion rigid
-bodies, one per molecule, on the cell engine) and ``exclude_intra``;
+neighbor-list ``Simulation`` only); ``lj/long/coul/long`` (``coul: off``
+or coul long) and ``buck/long/coul/long`` with ``kspace_style pppm/disp``
+(ik; ``mix`` geometric, arithmetic or none), built as the JAX package
+builds it: a Coulomb ``PPPM`` on the generic mesh when the style has
+long-range Coulomb, beside a dispersion ``PPPMDisp`` bound to the atoms
+(``BoundKSpace``), summed by ``CombinedKSpace``; the cell engine with
+geometric mixing and no long-range Coulomb runs
+``models.kspace.CellPPPMDisp`` on a dispersion mesh aligned to its cells
+instead, every other pppm/disp deck the generic solvers (the cell engine
+on its slot positions); ``fix rigid/small`` (quaternion rigid bodies, one
+per molecule, on the cell engine) and ``exclude_intra``;
 ``special_bonds``, harmonic bonds, harmonic or CHARMM angles, CHARMM
 dihedrals and harmonic impropers (examples/decks/buck.yaml,
 buck_small.yaml, buck_big.yaml, cristobalite_pppm.yaml,
 cristobalite_pppm_nlist.yaml, cristobalite_ewald.yaml,
-cristobalite_coul_cut.yaml, rhodo_nve.yaml, rhodo_nve_nlist.yaml,
+cristobalite_coul_cut.yaml, cristobalite_buck_long.yaml,
+cristobalite_buck_long_nlist.yaml, rhodo_nve.yaml, rhodo_nve_nlist.yaml,
 rhodo_32k.yaml, rhodo_class.yaml, rhodo_flex_nve.yaml,
 rhodo_flex_nvt.yaml, rhodo_npt.yaml, hexane_gen.yaml,
-hexane_gen_big.yaml).  Every other
+hexane_gen_arith.yaml, hexane_gen_big.yaml).  Every other
 deck key or value raises NotImplementedError naming its ROADMAP item;
 nothing is ignored.  A
 relative ``read_data`` path resolves against the working directory, as
@@ -101,8 +108,9 @@ _KSPACE_KEYS = {"pppm": {"name", "accuracy", "order", "diff", "gewald"},
                 "pppm/disp": {"name", "accuracy", "force_disp_real",
                               "order_disp", "order", "mix", "diff"}}
 _PAIR_STYLES = ("buck", "buck/coul/long", "buck/coul/cut",
-                "lj/charmm/coul/long", "lj/charmm/coul/cut", "lj/cut",
-                "lj/cut/coul/long", "lj/cut/coul/cut", "lj/long/coul/long")
+                "buck/long/coul/long", "lj/charmm/coul/long",
+                "lj/charmm/coul/cut", "lj/cut", "lj/cut/coul/long",
+                "lj/cut/coul/cut", "lj/long/coul/long")
 
 
 def _parse_pair_key(k: str):
@@ -113,7 +121,7 @@ def _parse_pair_key(k: str):
 def _pair_forms(ps: dict):
     """(coul, disp) of a pair_style entry, the JAX package's reading: coul
     "long" / "cut" / "none" from the name, "none" under ``coul: off``;
-    disp "long" for the lj/long styles."""
+    disp "long" for the lj/long and buck/long styles."""
     name = ps["name"]
     coul = ("long" if "coul/long" in name
             else "cut" if "coul/cut" in name else "none")
@@ -199,42 +207,35 @@ def _check_deck(cfg: dict):
         raise ValueError("deck needs read_data or lattice")
     name = cfg["pair_style"]["name"]
     if name not in _PAIR_STYLES:
-        where = ("item 13(b)" if name.startswith("buck/long")
-                 else "queue 1")
         raise NotImplementedError(
             f"pair_style {name!r} is not ported: {', '.join(_PAIR_STYLES)} "
-            f"only (ROADMAP {where})")
+            "only (ROADMAP queue 1)")
     coul, disp = _pair_forms(cfg["pair_style"])
     ks = cfg.get("kspace_style")
     kname = None if ks is None else ks["name"]
-    if coul == "long" and disp == "long":
-        raise NotImplementedError(
-            f"pair_style {name!r} with both long-range Coulomb and long-range "
-            "dispersion (pppm + pppm/disp, the JAX CombinedKSpace) is not "
-            "ported: ROADMAP queue 1 item 13(b)")
     want = (("pppm/disp",) if disp == "long"
             else ("pppm", "ewald") if coul == "long" else None)
     if (kname is None) != (want is None) or (
             want is not None and kname not in want):
-        where = ("ROADMAP queue 1 item 13(b) (pppm/disp beside a style "
+        where = ("ROADMAP queue 1 item 13 (pppm/disp beside a style "
                  "without long-range dispersion)" if kname == "pppm/disp"
                  else "ROADMAP queue 1")
         raise NotImplementedError(
             f"pair_style {name!r} with kspace_style {kname!r} is not "
             "ported: buck and the lj/cut, coul/cut styles run without "
-            "k-space, the coul/long styles with pppm or ewald, lj/long "
-            f"(coul off) with pppm/disp ({where})")
+            "k-space, the coul/long styles with pppm or ewald, lj/long and "
+            f"buck/long with pppm/disp ({where})")
     if kname == "pppm/disp":
-        if _disp_mix(cfg) != "geometric":
+        if _disp_mix(cfg) not in ("geometric", "arithmetic", "none"):
+            raise ValueError(f"unknown pppm/disp mix {_disp_mix(cfg)!r}")
+        if _disp_mix(cfg) == "arithmetic" and name.startswith("buck"):
+            raise ValueError(
+                "pppm/disp mix arithmetic needs the lj styles' epsilon and "
+                "sigma; buck/long takes mix none (or geometric)")
+        if npt:
             raise NotImplementedError(
-                f"pppm/disp mix {_disp_mix(cfg)!r} (the arithmetic and no-mix "
-                "channel pipelines) is not ported: ROADMAP queue 1 item "
-                "13(b)")
-        if engine != "cellpair" or npt:
-            raise NotImplementedError(
-                "pppm/disp on the neighbor-list engines (and under fix npt, "
-                "K16d) is not ported; the port runs it on engine cellpair: "
-                "ROADMAP queue 1 item 13(c)")
+                "pppm/disp under fix npt (the dispersion PPPM on a traced "
+                "box, K16d) is not ported: ROADMAP queue 1 item 13(c)")
     for kind, ok in _BONDED_STYLES.items():
         style = cfg.get(f"{kind}_style", {}).get("name")
         if style is not None and style not in ok:
@@ -379,7 +380,7 @@ def _pair_style(cfg: dict, ntypes: int, data_pair: dict, qqrd2e: float):
             name=name, special_lj=special_lj, special_coul=special_coul,
             qqrd2e=qqrd2e, shift=ps.get("shift", False))
     return build_buck(
-        ntypes, coeffs, cut_global=ps["cut"], coul=coul,
+        ntypes, coeffs, cut_global=ps["cut"], coul=coul, disp=disp,
         cut_coul=ps.get("cut_coul"), name=name, special_lj=special_lj,
         special_coul=special_coul, qqrd2e=qqrd2e,
         shift=ps.get("shift", False))
@@ -520,9 +521,9 @@ def _pppm_for_grid(cfg: dict, box, q, style, prec, skin: float):
 def _disp_for_grid(cfg: dict, box, typ, B, style, prec, skin: float):
     """The engine's dispersion solver as a function of its cell grid:
     pppm/disp on a mesh aligned to the grid's coarse cells (the JAX
-    package's ``use_celldisp`` branch, its run.py :926-944), with the
-    g_ewald_6 the pair style already carries and the per-type dispersion
-    charges B."""
+    package's ``use_celldisp`` branch, its run.py :926-944: geometric
+    mixing without long-range Coulomb), with the g_ewald_6 the pair style
+    already carries and the per-type dispersion charges B."""
     from .models.kspace import CellPPPMDisp, setup_pppm_disp
 
     ks, ps = cfg["kspace_style"], cfg["pair_style"]
@@ -544,13 +545,47 @@ def _disp_for_grid(cfg: dict, box, typ, B, style, prec, skin: float):
 
 
 def _disp_b(cfg: dict, ntypes: int) -> np.ndarray:
-    """B = sqrt(4 eps) sigma^3 per type from the deck's ``i i``
-    coefficients, the JAX package's expression (its run.py :359-362)."""
+    """B per type from the deck's ``i i`` coefficients, the JAX package's
+    expressions (its run.py :359-368): sqrt(4 eps) sigma^3 for the lj
+    styles, sqrt(C) for buck."""
+    ps = cfg["pair_style"]
     coeffs = {_parse_pair_key(k): tuple(v)
-              for k, v in cfg["pair_style"].get("coeffs", {}).items()}
+              for k, v in ps.get("coeffs", {}).items()}
+    if ps["name"].startswith("buck"):
+        return np.sqrt(np.array([coeffs[(t, t)][2] for t in range(ntypes)]))
     eps = np.array([coeffs[(t, t)][0] for t in range(ntypes)])
     sig = np.array([coeffs[(t, t)][1] for t in range(ntypes)])
     return np.sqrt(4.0 * eps) * sig**3
+
+
+def _generic_disp(cfg: dict, box, typ, B, style, prec):
+    """The deck's dispersion PPPM on the generic mesh of its box, bound to
+    the atoms, as the JAX package's deck runner builds it (its run.py
+    :354-391): geometric mixing binds B per atom, arithmetic (the ``i i``
+    epsilon and sigma) and none (C6 from the pair tables' e1 column, the
+    r^-6 energy coefficient of both families) bind the type ids to the
+    channel tables."""
+    from .models.kspace import BoundKSpace, setup_pppm_disp
+
+    ks, ps = cfg["kspace_style"], cfg["pair_style"]
+    mix = _disp_mix(cfg)
+    kw = {}
+    if mix == "arithmetic":
+        coeffs = {_parse_pair_key(k): tuple(v)
+                  for k, v in ps.get("coeffs", {}).items()}
+        kw = dict(epsilon=np.array([coeffs[(t, t)][0]
+                                    for t in range(len(B))]),
+                  sigma=np.array([coeffs[(t, t)][1] for t in range(len(B))]))
+    elif mix == "none":
+        kw = dict(C6=np.asarray(style.tables)[:, :, 3])
+    pmd = setup_pppm_disp(box, B, typ, cutoff=ps["cut"],
+                          g_ewald_6=style.g_ewald_6, acc_dtype=prec.acc,
+                          mix=mix, diff=ks.get("diff", "ik"),
+                          order=ks.get("order_disp", ks.get("order", 5)),
+                          **kw)
+    if mix == "geometric":
+        return BoundKSpace(pmd, np.asarray(B)[typ])
+    return BoundKSpace(pmd, typ, typed=True)
 
 
 def _npt_config(fx: dict):
@@ -641,9 +676,16 @@ def build_simulation(cfg: dict, device="cuda"):
                         u.qqrd2e)
     ks = cfg.get("kspace_style")
     ewald = B = None
+    coul, _ = _pair_forms(ps)
     if ks is not None and ks["name"] == "pppm/disp":
         from .models.kspace import solve_g6
 
+        if coul == "long":
+            # the JAX run.py's order: g_ewald of the Coulomb PPPM first,
+            # then g_ewald_6 of the dispersion split
+            style = style.replace(g_ewald=float(pppm_g_ewald(
+                box, q, ps.get("cut_coul", ps["cut"]),
+                ks.get("accuracy", 1e-4), u.qqrd2e)))
         style = style.replace(g_ewald_6=solve_g6(
             ps["cut"], ks.get("force_disp_real", 1e-4)))
         B = _disp_b(cfg, len(mass))
@@ -702,12 +744,29 @@ def build_simulation(cfg: dict, device="cuda"):
             system, style, npt_fix, thermostat, kspace=kspace, bonded=bonded,
             units=u, precision=prec, dt=dt, neighbor=policy, shake=shake,
             topology=topo)
+    generic = None
+    if B is not None:
+        # pppm/disp: the Coulomb PPPM on the generic mesh (with long-range
+        # Coulomb) beside the bound dispersion solver, the JAX package's
+        # solvers for the list engine and for the cell engine's slot
+        # positions
+        generic = _generic_disp(cfg, box, typ, B, style, prec)
+        if coul == "long":
+            from .models.kspace import CombinedKSpace
+
+            generic = CombinedKSpace(
+                [_generic_pppm(cfg, box, q, style, prec), generic])
     if cfg.get("engine", "nlist") == "cellpair":
         if ks is None:
             kspace = None
-        elif ks["name"] == "pppm/disp":
+        elif B is not None and coul != "long" and _disp_mix(cfg) == \
+                "geometric":
+            # the JAX package's use_celldisp: one channel on a mesh aligned
+            # to the cells
             kspace = _disp_for_grid(cfg, box, typ, B, style, prec,
                                     policy.skin)
+        elif B is not None:
+            kspace = lambda grid: generic  # noqa: E731
         else:
             kspace = _pppm_for_grid(cfg, box, q, style, prec, policy.skin)
         try:
@@ -729,14 +788,13 @@ def build_simulation(cfg: dict, device="cuda"):
                 "deck key 'cap' sizes the cell engine's slots; this deck's "
                 "box is too small for the cell engine, and the neighbor-list "
                 "engine sizes its own capacities: drop cap")
-        if B is not None or rigid is not None or exclude_intra:
+        if rigid is not None or exclude_intra:
             raise NotImplementedError(
                 "this deck's box is too small for the cell engine, and "
-                "pppm/disp, fix rigid/small and exclude_intra on the "
-                "neighbor-list engine are not ported: ROADMAP queue 1 item "
-                "13(c)")
-    kspace = ewald
-    if ks is not None and ewald is None:
+                "fix rigid/small and exclude_intra on the neighbor-list "
+                "engine are not ported: ROADMAP queue 1 item 13(c)")
+    kspace = ewald if generic is None else generic
+    if ks is not None and kspace is None:
         kspace = _generic_pppm(cfg, box, q, style, prec)
     return Simulation(
         system, style, topology=topo, kspace=kspace, bonded=bonded, units=u,

@@ -9,16 +9,19 @@ port against the JAX package (CPU, f64).
 (b) ``disp_compute_plain`` (the version the kernels are held to) against
     the JAX ``_disp_compute_multi``: forces, elong and the virial within
     1e-10 relative, with one geometric channel and the seven arithmetic
-    ones; the staged atom-order route (each stage's plain version on the
-    CPU) gives the plain result to 1e-12.
+    ones; the row route (``disp_compute_rows``, each stage's plain version
+    on the CPU) gives the plain result to 1e-12.
 (c) The lj/long and lj/cut pair terms (``pair_terms``, with and without
     special-bond factors) and the cell-pair forces of a hexane cut-out
     with same-molecule exclusion (``slot_mol``) within 1e-10.
 (d) ``CellPPPMDisp.compute_slots`` and ``BoundKSpace`` against the JAX
     classes on the same slot state / atoms within 1e-10.
-(e) The deck runner: the pppm/disp forms the port does not run raise, and
-    the generated decks are the reference deck line for line but for the
-    data file (and the replication).
+(e) The deck runner: the pppm/disp forms the port does not run raise; the
+    forms it has run since the arithmetic and no-mix channels and coul long
+    with disp long were ported (mix arithmetic; ``coul`` dropped, on
+    charged chains) run on the cut-out as in the JAX package; the
+    generated decks are the reference deck line for line but for the data
+    file (and the replication).
 """
 import copy
 import os
@@ -136,8 +139,10 @@ def test_disp_compute_plain_matches_jax(mix):
     _close(torch.stack(tr.f, -1).numpy(), jr.f)
     _close(float(tr.elong), float(jr.elong))
     _close(tr.virial.numpy(), jr.virial)
-    # the staged route with each stage's plain version
-    st = tdisp.disp_compute_staged(t, xt, at, t.P, True, True)
+    # the row route (the multi-channel deposit and gather) with each
+    # stage's plain version
+    st = tdisp.disp_compute_rows(
+        t, xt, torch.arange(len(x), dtype=torch.int32), at, t.P, True, True)
     _close(torch.stack(st.f, -1).numpy(), torch.stack(tr.f, -1).numpy(),
            1e-12)
     _close(float(st.elong), float(tr.elong), 1e-12)
@@ -296,13 +301,14 @@ def _deck(name):
 
 
 @pytest.mark.parametrize("change,match", [
-    (lambda c: c["kspace_style"].update(mix="arithmetic"), "13\\(b\\)"),
     (lambda c: c.update(engine="nlist"), "13\\(c\\)"),
-    (lambda c: c["pair_style"].pop("coul"), "13\\(b\\)"),
     (lambda c: c["kspace_style"].update(name="pppm"), "pppm/disp"),
     (lambda c: c["kspace_style"].update(diff="ad"), "item 10"),
     (lambda c: c["fixes"].append({"name": "nvt", "t_start": 300,
                                   "t_damp": 100}), "13\\(c\\)"),
+    (lambda c: c.update(fixes=[{"name": "npt", "t_start": 300,
+                                "t_damp": 100, "iso": [1.0, 1.0, 1000.0]}]),
+     "K16d.*13\\(c\\)"),
 ])
 def test_unported_dispersion_forms_raise(change, match):
     cfg = _deck("hexane_gen.yaml")
@@ -310,6 +316,48 @@ def test_unported_dispersion_forms_raise(change, match):
     change(cfg)
     with pytest.raises(NotImplementedError, match=match):
         tbuild(cfg, device="cpu")
+
+
+def _charge_chains(path):
+    """Neutral charges on the chains of a gen_hexane data file: +0.2 on
+    the CH3 ends (type 1), -0.1 on the CH2 atoms (type 2)."""
+    with open(path) as f:
+        lines = f.read().split("\n")
+    start = lines.index("Atoms # full") + 2
+    for i in range(start, len(lines)):
+        cols = lines[i].split()
+        if len(cols) < 7:
+            break
+        cols[3] = "0.2" if cols[2] == "1" else "-0.1"
+        lines[i] = " ".join(cols)
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+@pytest.mark.parametrize("form", ["mix arithmetic", "coul long"])
+def test_formerly_unported_dispersion_forms_run(form, tmp_path):
+    """mix arithmetic (seven channels) and lj/long/coul/long with its
+    Coulomb term (``coul`` dropped from the deck; the chains charged):
+    the port builds them as the JAX package does and gives its rows
+    within 1e-9 on the cut-out over 3 steps."""
+    cfg = _cutout_cfg(tmp_path)
+    if form == "mix arithmetic":
+        cfg["kspace_style"]["mix"] = "arithmetic"
+    else:
+        cfg["pair_style"].pop("coul")
+        _charge_chains(cfg["read_data"])
+    jsim = jbuild(copy.deepcopy(cfg))
+    tsim = tbuild(copy.deepcopy(cfg), device="cpu")
+    assert type(tsim.kspace).__name__ == type(jsim.kspace).__name__ == (
+        "BoundKSpace" if form == "mix arithmetic" else "CombinedKSpace")
+    jrows = jsim.run(3, thermo_every=1, log=False)
+    trows = tsim.run(3, thermo_every=1, log=False)
+    for jr, tr in zip(jrows, trows):
+        for k in ("temp", "evdwl", "ecoul", "elong", "etotal", "press"):
+            assert abs(tr[k] - jr[k]) <= 1e-9 * max(abs(jr[k]), 1.0), (
+                tr["step"], k, tr[k], jr[k])
+    if form == "coul long":
+        assert abs(trows[0]["ecoul"]) > 1.0
 
 
 def test_generated_decks_are_the_reference_lines():

@@ -1224,3 +1224,75 @@ def test_rigid_and_disp_wrappers_reject_bad_input(cuda, tmp_path):
         disp_ops.disp_spectral(
             c, torch.zeros((9, nx, ny, nzh), dtype=torch.complex64,
                            device=cuda), np.eye(9), True)
+
+
+def _channel_case(dev, flt, n=600, L=14.0, seed=21):
+    """Random positions of two types in a cube (some outside it: the
+    stencil folds every index), the no-mix channels of a C6 matrix with a
+    negative eigenvalue (2 channels) and the arithmetic ones (7), each as
+    the (nch, T + 1) table with a zero column for empty entries."""
+    from lammps_buck_intel_tpu_torch.models.kspace import setup_pppm_disp
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.uniform(-1.0, L + 1.0, (3, n))).to(dev, flt)
+    typ = rng.integers(0, 2, n)
+    rows = np.where(rng.uniform(size=n) < 0.1, 2, typ)   # ~10% empty
+    box = make_box([0.0, 0.0, 0.0], [L] * 3)
+    out = []
+    for mix in ("none", "arithmetic"):
+        pmd = setup_pppm_disp(
+            box, np.array([1.0, 1.2]), typ, cutoff=4.0, order=5, mix=mix,
+            C6=np.array([[0.0, 1.3], [1.3, 1.75]]),
+            epsilon=np.array([0.3, 0.18]), sigma=np.array([1.1, 1.25]))
+        A = np.concatenate([pmd.A, np.zeros((pmd.A.shape[0], 1))], 1)
+        out.append((pmd, torch.as_tensor(A).to(dev, flt)))
+    return x, torch.as_tensor(rows, dtype=torch.int32, device=dev), out
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_disp_channel_kernels_match_plain(cuda, flt, acc):
+    """K12b (disp_deposit) and K12c (disp_gather) against the per-channel
+    loops of the plain deposit and gather, at 2 and 7 channels."""
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_disp as pd
+
+    x, rows, cases = _channel_case(cuda, flt)
+    tol = 1e-11 if flt == torch.float64 else 1e-4
+    for pmd, table in cases:
+        pmd.acc_dtype = acc
+        c = pmd.consts(cuda, flt)
+        shim = c["shim"]
+        before = dict(ops.LAUNCHES)
+        mk = pd.deposit_multi(shim, x, rows, table, c["coef"])
+        mp = pd.deposit_multi_plain(shim, x, rows, table)
+        _close(mk, mp, tol)
+        S = torch.fft.rfftn(mp.to(acc), dim=(1, 2, 3)).contiguous()
+        ehat, _, _ = pd.disp_spectral(c, S, pmd.P, False)
+        ef = (torch.fft.irfftn(ehat, s=pmd.grid, dim=(2, 3, 4))
+              * (float(np.prod(pmd.grid)) / pmd.volume)).to(flt).contiguous()
+        fk = torch.stack(pd.gather_multi(shim, x, rows, table, ef, acc,
+                                         c["coef"]))
+        fp = torch.stack(pd.gather_multi_plain(shim, x, rows, table, ef,
+                                               acc))
+        _close(fk, fp, tol)
+        assert not fk[:, rows == 2].any()
+        assert ops.LAUNCHES["disp_deposit"] == before["disp_deposit"] + 1
+        assert ops.LAUNCHES["disp_gather"] == before["disp_gather"] + 1
+
+
+def test_disp_channel_wrappers_reject_bad_input(cuda):
+    from lammps_buck_intel_tpu_torch.ops import pppm_disp as disp_ops
+
+    x, rows, cases = _channel_case(cuda, torch.float32)
+    pmd, table = cases[0]
+    c = pmd.consts(cuda, torch.float32)
+    shim, coef = c["shim"], c["coef"]
+    with pytest.raises(ValueError):      # rows of another length
+        disp_ops.disp_deposit(shim, x, rows[1:], table, coef)
+    with pytest.raises(TypeError):       # table of another dtype
+        disp_ops.disp_deposit(shim, x, rows, table.double(), coef)
+    with pytest.raises(ValueError):      # more than 8 channels
+        disp_ops.disp_deposit(shim, x, rows, table.repeat(5, 1), coef)
+    with pytest.raises(ValueError):      # fields of another size
+        disp_ops.disp_gather(shim, x, rows, table,
+                             torch.zeros(5, device=cuda), torch.float32,
+                             coef)

@@ -232,22 +232,30 @@ def test_compute_cellpair_coul_long_matches_jax(ntypes, reach_z):
 
 def test_unported_coulomb_raises():
     """The Coulomb and dispersion forms the port does not carry raise:
-    Ewald-split dispersion on the Buckingham term, lj/charmm without a
-    Coulomb term; an unknown Coulomb form is refused.  (buck/coul/cut and
+    lj/charmm without a Coulomb term or with Ewald-split dispersion; an
+    unknown Coulomb or dispersion form is refused.  (buck/coul/cut and
     lj/charmm/coul/cut are ported: test_*_coul_cut_* below; the lj/cut
-    family and lj/long: tests/test_torch_disp.py.)"""
+    family and lj/long: tests/test_torch_disp.py; buck/long with coul
+    none or long: tests/test_torch_disp_mix.py, and here it builds.)"""
     with pytest.raises(ValueError, match="Coulomb form"):
         tstyles.build_buck(1, COEFFS_1, cut_global=2.5, coul="wolf")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tstyles.build_buck(1, COEFFS_1, cut_global=2.5, disp="long")
+    with pytest.raises(ValueError, match="dispersion form"):
+        tstyles.build_buck(1, COEFFS_1, cut_global=2.5, disp="wolf")
+    assert tstyles.build_buck(1, COEFFS_1, cut_global=2.5,
+                              disp="long").cfg.disp == "long"
     # styles the JAX package has and the port does not
     _, t = _coul_styles(1)
     rsq = torch.full((4,), 2.0, dtype=torch.float64)
     coef = {n: float(t.tables[0, 0, c])
             for c, n in enumerate(tstyles.COEF_NAMES)}
     for vdw, coul, disp in (("buck", "long", "long"),
-                            ("buck", "none", "long"),
-                            ("ljcharmm", "none", "cut"),
+                            ("buck", "none", "long")):
+        ok = t.replace(cfg=tstyles.PairConfig("x", vdw, coul, disp),
+                       g_ewald_6=0.37)
+        fs, _, _ = tstyles.pair_terms(ok, rsq, coef, 1.0, -1.0, 1.0, 1.0,
+                                      eflag=True)
+        assert torch.isfinite(fs).all()
+    for vdw, coul, disp in (("ljcharmm", "none", "cut"),
                             ("ljcharmm", "long", "long")):
         bad = t.replace(cfg=tstyles.PairConfig("x", vdw, coul, disp))
         with pytest.raises(NotImplementedError):

@@ -12,8 +12,10 @@ pass on the neighbor-list engines), nlist build (csrc/nlist.cu: the
 binned and the dense builds), ewald (csrc/ewald.cu: the structure
 factors, the forces), npt (csrc/npt.cu:
 the traced influence function, the barostat's per-atom passes), pppm
-kernels (csrc/pppm.cu, and csrc/pppm_disp.cu's dispersion solve), pppm
-FFTs (cuFFT under torch.fft), bonded (csrc/bonded.cu), rebin
+kernels (csrc/pppm.cu: the Coulomb mesh, and the geometric dispersion
+mesh's deposit and gather), disp kernels (csrc/pppm_disp.cu: the
+multi-channel deposit and gather and the dispersion solve), pppm FFTs
+(cuFFT under torch.fft), bonded (csrc/bonded.cu), rebin
 (csrc/rebin.cu), verlet (csrc/verlet.cu: kicks, drift, force sum and
 cast, kinetic sums, the thermostat chain), shake (csrc/shake.cu:
 reference bond vectors, SHAKE, RATTLE), rigid (csrc/rigid.cu: the
@@ -50,7 +52,9 @@ LAYERS = (
     ("npt", ("traced_greens_kernel", "npt_ke3_kernel",
              "npt_vscale_kick_kernel", "npt_drift_dilate_kernel")),
     ("pppm kernels", ("pppm_deposit_kernel", "pppm_spectral_kernel",
-                      "pppm_gather_kernel", "disp_spectral_kernel")),
+                      "pppm_gather_kernel")),
+    ("disp kernels", ("disp_deposit_kernel", "disp_spectral_kernel",
+                      "disp_gather_kernel")),
     ("ewald", ("sk_partial_kernel", "sk_finish_kernel",
                "force_partial_kernel", "force_finish_kernel")),
     ("pppm fft", ("fft",)),
