@@ -154,7 +154,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      launched; K1 and K9b buck/long timed beside their buck/coul/long
      branches on the same state, K12b and K12c beside the per-channel
      K5 / K8 loops they replace, at 2 channels (259,200 atoms) and at 7
-     (hexane_gen_big.yaml with mix arithmetic, 192,000 atoms).
+     (hexane_gen_big.yaml with mix arithmetic, 192,000 atoms); K1's
+     lj/long + coul/long variant, which no deck runs, timed on
+     hexane_gen_big.yaml's slots with a neutral +-0.25 e charge pattern;
+ 15. the per-atom computes (compute pe/atom, compute stress/atom, dump
+     custom): the four cases of tests/goldens/torch_peratom.json (written
+     on the CPU by `python tools/record_peratom.py`; examples/
+     peratom_cases.py builds them: jittered silica with
+     PPPM and with Ewald on the list engine, rhodo_class.yaml on the cell
+     engine, one copy of rhodo_npt.yaml) in f64: K9d (csrc/nlist.cu
+     nlist_pair_peratom), K10pa (csrc/pppm.cu pppm_peratom_spectral,
+     pppm_peratom_gather), K11pa (csrc/ewald.cu ewald_peratom) and K18b
+     (csrc/bonded.cu bonded_peratom) against their plain versions
+     (1e-12), the f64 functions against the JAX package's record (1e-9),
+     pe_atom and stress_atom against the JAX computes (2e-5 of the sums,
+     1e-4 of the sampled atoms), and the pins to thermo (sum pe against
+     epair + emol; the pressure identity without SHAKE; rhodo_npt again
+     20 steps on, at the dilated box); then cristobalite_pppm_dump.yaml
+     (259,200 atoms), cristobalite_ewald_dump.yaml (11,520) and
+     rhodo_nve_dump.yaml (31,104) unedited through run_deck with their
+     dump file in a temporary directory: every kernel of the path
+     launched, each frame read back with read_lammpstrj, sum c_pe
+     against the frame's thermo row within 5e-4 and, on the silica decks,
+     -trace(sum c_stress) / (3 V) against press within 2e-4; ms/step
+     without the frames beside the deck without dump earlier in this
+     call, and the seconds a frame costs; the per-atom kernels in f32
+     against their plain versions at each deck's last state, timed there.
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -252,6 +277,15 @@ OPS_WEIGHTS = lambda p: 3 * p * 2 * (p - 1) + p * p  # noqa: E731
 OPS_DEPOSIT_PT = 3     # w_xy w_z, times q, add
 OPS_GATHER_PT = 7      # w_xy w_z, three multiply-adds
 OPS_SPECTRAL_PT = 8    # G rho_hat (2), three ik spectra (6)
+
+
+def list_pass_bytes(entries: int, n: int, fs: int, use_special: bool,
+                    out_bytes: int) -> int:
+    """Bytes a neighbor-list pass (K9b, K9d) must move: a 4-byte index per
+    entry and its 1-byte special code only under SPECIAL; x, y, z, q in
+    flt, typ and nnei per atom; ``out_bytes`` written."""
+    return (entries * (4 + int(use_special)) + n * (4 * fs + 8)
+            + out_bytes)
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -1775,8 +1809,8 @@ def _npt_kernels_at(sim, x, boxL, label, time_it):
     rsq_in = list_pairs_in_cutoff(x, boxL, nk, sim.pair.cutsq_max)
     fs = x.element_size()
     accs = torch.empty((), dtype=acc).element_size()
-    work["nlist_pair"] = (entries * 5 + n * (3 * fs + fs + 4 + 4)
-                          + 3 * n * accs,
+    work["nlist_pair"] = (list_pass_bytes(entries, n, fs,
+                                          kw["use_special"], 3 * n * accs),
                           entries * OPS_LIST_ENTRY + rsq_in * OPS_LIST_PAIR)
     fns["nlist_pair"] = (lambda: driver.compute_pair(*args, eflag=False,
                                                      **kw),
@@ -2857,8 +2891,8 @@ def phase_coul_cut(rec: dict):
                 nl.idx.shape[1], device=nl.nnei.device)).sum())
             pairs = list_pairs_in_cutoff(x, boxL, nl, sim.pair.cutsq_max)
             fs = x.element_size()
-            b_ms, b_by = bound(entries * 5 + n * (3 * fs + fs + 4 + 4)
-                               + 3 * n * 4,
+            b_ms, b_by = bound(list_pass_bytes(entries, n, fs, False,
+                                               3 * n * 4),
                                entries * OPS_LIST_ENTRY + pairs * (
                                    OPS_PAIR[("buck", "cut")] - 9 + 15))
             print(f"[K9b] nlist_pair coul/cut f32 at {n} atoms, K "
@@ -3380,6 +3414,8 @@ MIX_ELONG_TOL = 2e-5
 # exp 1, x2 2, the polynomial 7, the force 3, scalar 1, both atoms' forces
 # 9; with coul/long its 24 more
 OPS_PAIR_BUCK_LONG = {"none": 42, "long": 66}
+# lj/long + coul/long: lj/long's OPS_PAIR_DISP and coul/long's 24
+OPS_PAIR_LJ_LONG_COUL = OPS_PAIR_DISP + 24
 
 
 def _mix_variant(style, coul: str):
@@ -3812,7 +3848,7 @@ def _mix_time_nlist(sim, out):
         nl.idx.shape[1], device=nl.nnei.device)).sum())
     inside = list_pairs_in_cutoff(x, sim._boxL, nl, sim.pair.cutsq_max)
     fsz, asz = x.element_size(), torch.empty((), dtype=acc).element_size()
-    nbytes = n * (3 * fsz + fsz + 4 + 4 + 3 * asz) + entries * 5
+    nbytes = list_pass_bytes(entries, n, fsz, False, 3 * n * asz)
     plain_style = sim.pair.replace(cfg=PairConfig(
         name="buck/coul/long", vdw="buck", coul="long", disp="cut"))
     res = {}
@@ -3855,7 +3891,36 @@ def _mix_time_hex_big(out):
     table, rows = _mix_rows(sim.kspace, x, st.aid, sim.n_atoms)
     _mix_time_disp(f"hexane_big slots {sim.n_atoms}", sim.kspace, x, rows,
                    table, sim.precision.acc, out, "7ch")
-    del sim, st
+    # K1 lj/long + coul/long, which no deck runs: the deck's slots with a
+    # neutral +-0.25 e pattern on alternate atom ids, the mol plane kept
+    n, acc = sim.n_atoms, sim.precision.acc
+    grid, box = sim.grid, sim.box
+    pm_q = torch.where(st.aid % 2 == 0, 0.25, -0.25).to(st.x)
+    stq = st._replace(q=torch.where(st.aid < n, pm_q, torch.zeros_like(pm_q)))
+    sty, mol = _mix_variant(sim.pair, "long"), sim._slot_mol(st)
+    err = _k1_compare(f"lj/long coul long at {n}", sty, grid, box, stq, acc,
+                      slot_mol=mol, tol=MIX_TOL[st.x.dtype])
+    pairs = pairs_in_cutoff(sty, grid, box, stq, slot_mol=mol)
+
+    def kern():
+        return compute_cellpair(sty, grid, box, stq, acc_dtype=acc,
+                                slot_mol=mol)
+
+    ms, dev_ms = cuda_ms(kern), device_ms(kern)
+    plain_ms = cuda_ms(lambda: compute_cellpair_plain(
+        sty, grid, box, stq, acc_dtype=acc, slot_mol=mol), reps=1)
+    asz = torch.empty((), dtype=acc).element_size()
+    b_ms, b_by = bound(grid.nslots * 2 * 4 + n * (
+        plane_bytes(stq.x, stq.y, stq.z, stq.q, stq.typ) + 3 * asz),
+        pairs * OPS_PAIR_LJ_LONG_COUL)
+    out["k1_lj_long_coul_long"] = dict(
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    print(f"[disp mix time] K1 lj/long + coul/long f32 at {n} atoms "
+          f"(charges +-0.25 e): kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {pairs:,} "
+          f"pairs of two molecules)")
+    del sim, st, stq
     torch.cuda.empty_cache()
 
 
@@ -3897,7 +3962,439 @@ def phase_mix(rec: dict):
     return cell, nlist, hexa, times
 
 
+# ---- per-atom energy and virial (K9d, K10pa, K11pa, K18b) and dumps ----
+
+PA_KERNELS = ("nlist_pair_peratom", "pppm_peratom_spectral",
+              "pppm_peratom_gather", "ewald_peratom", "bonded_peratom")
+# kernel against plain version on the card: f64 1e-12 of each output's
+# largest value; f32 TOL's 1e-4 (the pair and bonded sums run in another
+# order, the deposit's and the bonded tallies' atomics land in any order)
+PA_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+# K11pa in f32: its distance to the f64 sum on the same positions at most
+# this many times the plain version's (both sum ~10^4 terms in f32, in
+# different orders)
+PA_EWALD_F64_RATIO = 2.0
+# the f64 functions on the card against the JAX package's f64 record
+# (tests/goldens/torch_peratom.json): sums and sampled atoms
+PA_RECORD_TOL = 1e-9
+# the computes (f32 pair and k-space passes, as the JAX package's) against
+# the record's JAX computes: the CPU test's 2e-5 of the sums, 1e-4 of the
+# largest sampled atom
+PA_COMPUTE_TOL = (2e-5, 1e-4)
+# a frame's sum of c_pe against its thermo row (the f32 gate of the JAX
+# package's tests/test_computes.py), and -trace(sum c_stress) / (3 V)
+# against press on the silica decks
+PA_PE_TOL, PA_PRESS_TOL = 5e-4, 2e-4
+# per pair inside the cutoff of the per-atom pass: the pair physics less
+# the other atom's force and the force sums (OPS_PAIR - 9), then the
+# energy and six virial tallies (14)
+OPS_PA_PAIR = 14 - 9
+# K10pa spectral per half-spectrum point: G rho_hat 2, k^2 5, pref 3, the
+# six factors 18, twelve products
+OPS_PA_SPECTRAL_PT = 40
+# K10pa gather per stencil point: the weight 2, seven multiply-adds 14;
+# per atom the weights (OPS_WEIGHTS) and the ~20 of the terms
+OPS_PA_GATHER_PT, OPS_PA_GATHER_ATOM = 16, 20
+# K11pa per (atom, k): the phase 5, sine and cosine 2, the share 3, seven
+# multiply-adds 14; per atom the finish ~20
+OPS_PA_EWALD, OPS_PA_EWALD_ATOM = 24, 20
+# K18b per term: the force kernels' arithmetic (OPS_BONDED) and the
+# shares, 7 divides and 7 adds per atom of the term
+OPS_PA_SHARE = 14
+# a LAMMPS dump custom frame of the per-atom computes
+DUMP_COLS = (["id", "type", "x", "y", "z", "c_pe"]
+             + [f"c_stress[{i}]" for i in range(1, 7)])
+
+
+def _peratom_cases():
+    """examples/peratom_cases.py: the record's decks and the jittered
+    copy."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import peratom_cases
+
+    return peratom_cases
+
+
+def _pa_err(k, p) -> float:
+    """Largest relative difference over a tuple of outputs, each to its
+    own largest value (complex tensors as pairs of reals)."""
+    def real(t):
+        return torch.view_as_real(t) if t.is_complex() else t
+
+    return max(rel_err(real(a).to(torch.float64), real(b).to(torch.float64))
+               for a, b in zip(k, p))
+
+
+def _pa_twins(label, sim, dtype, time_it: bool) -> dict:
+    """Each per-atom kernel of the engine's path against its plain version
+    on the card, on the engine's snapshot with positions and charges in
+    ``dtype`` (the bonded pass on f64 positions with f64 sums, the variant
+    the computes launch):
+    K9d on the computes' fresh list, K10pa's two kernels (the deposit
+    and the FFTs of compute_peratom between them) or K11pa after K11a,
+    K18b.  time_it: each kernel's CUDA-event and device times beside its
+    plain version's and its bound (no one PyTorch call does the same work
+    as any of them: library_ms is null)."""
+    from lammps_buck_intel_tpu_torch import computes
+    from lammps_buck_intel_tpu_torch.models.bonded import (
+        compute_bonded_peratom, compute_bonded_peratom_plain)
+    from lammps_buck_intel_tpu_torch.models.kspace import ewald, pppm
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm_cells import (
+        AtomPlanes, deposit)
+    from lammps_buck_intel_tpu_torch.models.pair import driver
+    from lammps_buck_intel_tpu_torch.ops import ewald as ewald_ops
+
+    at = sim.atoms_on_device()
+    n, dev = sim.n_atoms, at["x"].device
+    x, q, typ = at["x"].to(dtype), at["q"].to(dtype), at["typ"]
+    tol, fs = PA_TOL[dtype], x.element_size()
+    out = {}
+
+    def check(name, k, p, t=tol, dt=dtype):
+        err = _pa_err(k, p)
+        print(f"[peratom] {label} {name} {str(dt)[6:]}: kernel vs plain "
+              f"max rel {err:.3e} (tol {t})")
+        if not err <= t:
+            raise AssertionError(f"{label}: {name} disagrees with its plain "
+                                 f"version ({err:.3e} > {t})")
+        return err
+
+    def timed(name, kern, plain, nbytes, nops, err, extra="", prec="f32"):
+        if not time_it:
+            out[name] = dict(max_abs_err=err)
+            return
+        ms, dev_ms = cuda_ms(kern), device_ms(kern)
+        plain_ms = cuda_ms(plain, reps=2)
+        b_ms, b_by = bound(nbytes, nops)
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=err)
+        print(f"[peratom time] {label} {name} {prec} at {n} atoms: kernel "
+              f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}; {nops:.4g} operations, "
+              f"{int(nbytes):,} bytes); no one PyTorch call does this "
+              f"work{extra}")
+
+    # K9d on the list the computes build
+    box, style = sim.box, sim.pair
+    _, L, nl, use_special = computes._pair_list(sim, at, dtype)
+    args, kw = ((style, x, typ, q, L, nl),
+                dict(acc_dtype=dtype, use_special=use_special))
+    err = check("K9d nlist_pair_peratom",
+                driver.compute_pair_peratom(*args, **kw),
+                driver.compute_pair_peratom_plain(*args, **kw))
+    if time_it:
+        entries = int(torch.clamp(nl.nnei, max=nl.idx.shape[1]).sum())
+        pairs = list_pairs_in_cutoff(x, L, nl, style.cutsq_max)
+        key = (style.cfg.vdw, style.cfg.coul)
+        timed("nlist_pair_peratom",
+              lambda: driver.compute_pair_peratom(*args, **kw),
+              lambda: driver.compute_pair_peratom_plain(*args, **kw),
+              list_pass_bytes(entries, n, fs, kw["use_special"],
+                              7 * n * fs),
+              entries * OPS_LIST_ENTRY + pairs * (OPS_PAIR[key]
+                                                  + OPS_PA_PAIR), err,
+              f"; K {nl.idx.shape[1]}, {entries / n:.1f} entries and "
+              f"{pairs / n:.1f} pairs in the cutoff an atom")
+    # the k-space term
+    solver = computes._solvers(sim.kspace)[0]
+    if isinstance(solver, ewald.Ewald):
+        ew = solver
+        c = ew.consts(dev, dtype)
+        xs = tuple(x.unbind(0))
+        sk = ewald_ops.ewald_sk(xs, q, c, ew.qqrd2e, ew.acc_dtype)
+        g, V = ew.g_ewald, float(ew.volume)
+        pa = (ew.qqrd2e, ew.acc_dtype, g / np.sqrt(np.pi),
+              np.pi / (2.0 * g * g * V), ew.qsum)
+        kern_r = ewald.ewald_compute_peratom(ew, x, q)
+        plain_r = ewald.ewald_compute_peratom_plain(ew, x, q)
+        if dtype == torch.float32:
+            # each per-atom sum runs over K terms ~10^2 times the result,
+            # in f32, in another order in each (the kernel per thread in k
+            # ranges, the plain version through cuBLAS): the Ewald forces'
+            # f32 tolerance (EWALD_TOL), with both versions' distance to
+            # the f64 sum on the same positions printed
+            import dataclasses
+
+            ew64 = dataclasses.replace(ew, acc_dtype=torch.float64,
+                                       _consts={})
+            ref = ewald.ewald_compute_peratom_plain(ew64, x.double(),
+                                                    q.double())
+            d_kern, d_plain = _pa_err(kern_r, ref), _pa_err(plain_r, ref)
+            print(f"[peratom] {label} K11pa f32 against the f64 sum: "
+                  f"kernel {d_kern:.3e}, plain {d_plain:.3e} (the kernel "
+                  f"within {PA_EWALD_F64_RATIO}x the plain version's)")
+            if not d_kern <= PA_EWALD_F64_RATIO * d_plain:
+                raise AssertionError(
+                    f"{label}: K11pa is {d_kern:.3e} from the f64 sum, more "
+                    f"than {PA_EWALD_F64_RATIO}x the plain version's "
+                    f"{d_plain:.3e}")
+        err = check("K11pa ewald_peratom", kern_r, plain_r,
+                    EWALD_TOL[dtype][0])
+        K = ew.kvecs.shape[0]
+        timed("ewald_peratom",
+              lambda: ewald_ops.ewald_peratom(xs, q, c, sk.s_re, sk.s_im,
+                                              *pa),
+              lambda: ewald.ewald_compute_peratom_plain(ew, x, q),
+              4 * n * fs + 12 * K * fs + 7 * n * fs,
+              n * K * OPS_PA_EWALD + n * OPS_PA_EWALD_ATOM, err,
+              f" (K {K}; the plain time includes its own S(k))")
+    else:
+        pm = getattr(solver, "pm", solver)
+        err = check("K10pa compute_peratom",
+                    pppm.compute_peratom(pm, x, q),
+                    pppm.compute_peratom_plain(pm, x, q))
+        c = pm.consts(dev, dtype)
+        planes = AtomPlanes(x[0], x[1], x[2], q,
+                            torch.arange(n, dtype=torch.int32, device=dev))
+        mesh = deposit(pm, planes, n, c)
+        rhat = torch.fft.rfftn(mesh.to(pm.acc_dtype)).contiguous()
+        from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
+
+        sk = pppm_ops.peratom_spectral(pm, c, rhat, True)
+        e1 = check("K10pa pppm_peratom_spectral", (sk,),
+                   (pppm.peratom_spectral_plain(pm, c, rhat, True),))
+        meshes = torch.fft.irfftn(sk, s=pm.grid, dim=(1, 2, 3)).contiguous()
+        nx, ny, nz = pm.grid
+        scale = nx * ny * nz / float(pm.volume)
+        e2 = check("K10pa pppm_peratom_gather",
+                   pppm_ops.peratom_gather(pm, planes, meshes, c["coef"],
+                                           scale),
+                   pppm.peratom_gather_plain(pm, planes, meshes, scale))
+        asz = torch.empty((), dtype=pm.acc_dtype).element_size()
+        npts = int(np.prod(c["G_half"].shape))
+        timed("pppm_peratom_spectral",
+              lambda: pppm_ops.peratom_spectral(pm, c, rhat, True),
+              lambda: pppm.peratom_spectral_plain(pm, c, rhat, True),
+              npts * (3 + 14) * asz, npts * OPS_PA_SPECTRAL_PT, max(err, e1),
+              f" (half spectrum {tuple(c['G_half'].shape)})")
+        p = pm.order
+        timed("pppm_peratom_gather",
+              lambda: pppm_ops.peratom_gather(pm, planes, meshes, c["coef"],
+                                              scale),
+              lambda: pppm.peratom_gather_plain(pm, planes, meshes, scale),
+              4 * n * fs + 7 * nx * ny * nz * asz + 7 * n * asz,
+              n * (OPS_WEIGHTS(p) + p ** 3 * OPS_PA_GATHER_PT
+                   + OPS_PA_GATHER_ATOM), max(err, e2),
+              f" (mesh {pm.grid}, order {p})")
+    if sim.bonded is not None:
+        # the computes' precision: f64 positions, f64 sums
+        b = sim.bonded
+        xs = tuple(at["x"].to(torch.float64).unbind(0))
+        kw = dict(acc_dtype=torch.float64)
+        err = check("K18b bonded_peratom",
+                    compute_bonded_peratom(b, xs, box, **kw),
+                    compute_bonded_peratom_plain(b, xs, box, **kw),
+                    PA_TOL[torch.float64], torch.float64)
+        counts = {"bond": (len(b.bonds), 2), "angle": (len(b.angles), 3),
+                  "dihedral": (len(b.dihedrals), 4),
+                  "improper": (len(b.impropers), 4)}
+        nops = sum(m * (OPS_BONDED[k] + OPS_PA_SHARE * w)
+                   for k, (m, w) in counts.items())
+        nbytes = (sum(m * 4 * (w + 1) for m, w in counts.values())
+                  + 3 * n * 8 + 14 * n * 8)
+        timed("bonded_peratom",
+              lambda: compute_bonded_peratom(b, xs, box, **kw),
+              lambda: compute_bonded_peratom_plain(b, xs, box, **kw),
+              nbytes, nops, err,
+              " (terms " + ", ".join(f"{k} {m}" for k, (m, _) in
+                                     counts.items()) + ")", prec="f64")
+    return out
+
+
+def _pa_close(label, key, a, ref, idx, tols):
+    """Column sums and sampled atoms of ``a`` against a record entry:
+    tols = (sums, samples), each of the record's largest value."""
+    a = a.to(torch.float64).cpu().numpy()
+    s, rs = a.sum(0), np.asarray(ref["sum"])
+    smp, rsmp = a[idx], np.asarray(ref["sample"])
+    es = float(np.abs(s - rs).max()) / max(float(np.abs(rs).max()), 1e-300)
+    ep = float(np.abs(smp - rsmp).max()) / max(float(np.abs(rsmp).max()),
+                                               1e-300)
+    if not (es <= tols[0] and ep <= tols[1]):
+        raise AssertionError(f"{label} {key}: sums {es:.3e}, samples "
+                             f"{ep:.3e} off the record (tols {tols})")
+    return max(es, ep)
+
+
+def phase_peratom_record(rec: dict):
+    """The four cases of tests/goldens/torch_peratom.json (jittered
+    silica with PPPM and with Ewald on the list engine, rhodo_class.yaml
+    on the cell engine, one copy of rhodo_npt.yaml) built in f64 on the
+    card: every per-atom kernel against its plain version (1e-12); the f64
+    functions (the PPPM spectra in the JAX package's half-spectrum
+    convention) against the JAX package's record within 1e-9; pe_atom and
+    stress_atom against the JAX computes at PA_COMPUTE_TOL; sum pe against
+    the thermo row (2e-5 of |epair + emol|) and, on silica, the pressure
+    identity; then rhodo_npt 20 steps on and the same pins at the dilated
+    box (the TracedPPPM rebuilt there)."""
+    from lammps_buck_intel_tpu_torch import computes
+    from lammps_buck_intel_tpu_torch.models.bonded import (
+        compute_bonded_peratom)
+
+    rp = _peratom_cases()
+    f64 = torch.float64
+    worst = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "data.cristobalite_jitter")
+        rp.write_jitter(path)
+        for name in rp.CASES:
+            g = rec[name]
+            sim = build_simulation(rp.case_config(name, path), device="cuda")
+            row = sim.thermo()
+            _pa_twins(name, sim, f64, time_it=False)
+            at = sim.atoms_on_device()
+            idx = np.asarray(g["sample"])
+            got = dict(zip(("pair_e", "pair_v"),
+                           computes._pair_peratom(sim, at, f64)))
+            got.update(zip(("kspace_e", "kspace_v"),
+                           computes._kspace_peratom(sim, at, f64, False)))
+            if sim.bonded is not None:
+                got.update(zip(("bonded_e", "bonded_v", "bonded_e14",
+                                "bonded_v14"),
+                               compute_bonded_peratom(
+                                   sim.bonded, tuple(at["x"].unbind(0)),
+                                   sim.box)))
+            for key, a in got.items():
+                worst = max(worst, _pa_close(name, key, a, g["f64"][key], idx,
+                                             (PA_RECORD_TOL,) * 2))
+            cache = {}
+            pe = computes.pe_atom(sim, cache=cache)
+            st = computes.stress_atom(sim, cache=cache)
+            st_half = rp.half_spectrum_stress(sim, st, cache)
+            for key, a in (("pe", pe), ("stress", st_half)):
+                _pa_close(name, key, a, g[key], idx, PA_COMPUTE_TOL)
+            _pa_pins(name, sim, row, st, pe, 2e-5)
+            if name == "rhodo_npt":
+                rows = sim.run(20, thermo_every=20, log=False)
+                cache = {}
+                _pa_pins(f"{name} after 20 steps", sim, rows[-1],
+                         computes.stress_atom(sim, cache=cache),
+                         computes.pe_atom(sim, cache=cache), 2e-5)
+            del sim
+    print(f"[peratom] the f64 per-atom functions on the card within "
+          f"{worst:.3e} of the JAX package's record (tol {PA_RECORD_TOL})")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _pa_pins(label, sim, row, stress, pe, pe_tol):
+    """sum pe against the row's epair + emol; on decks without SHAKE the
+    pressure identity press = -trace(sum stress) / (3 V)."""
+    total = row["epair"] + row["emol"]
+    pe_sum = float(pe.sum())
+    vol = float(np.prod(np.asarray(sim.box.lengths, np.float64)))
+    press = -float(stress[:, :3].sum()) / (3.0 * vol)
+    print(f"[peratom] {label}: sum pe {pe_sum:.10g} (thermo {total:.10g}, "
+          f"rel {abs(pe_sum - total) / abs(total):.3e}); -tr(sum "
+          f"stress)/3V {press:.8g} (thermo press {row['press']:.8g})")
+    if not abs(pe_sum - total) <= pe_tol * abs(total):
+        raise AssertionError(f"{label}: sum pe off thermo")
+    if sim.shake is None and not (abs(press - row["press"])
+                                  <= PA_PRESS_TOL * max(abs(row["press"]),
+                                                        1.0)):
+        raise AssertionError(f"{label}: pressure identity off")
+
+
+def _dump_deck(name, base_ms, need, tmp):
+    """One dump deck unedited through run_deck in f32, its dump file moved
+    into ``tmp``, launch counts set to 0 just before and read just after:
+    every kernel of ``need`` launched; each frame read back with
+    read_lammpstrj, its sum of c_pe against the thermo row's epair + emol
+    (PA_PE_TOL) and, without SHAKE, -trace(sum c_stress) / (3 V) against
+    press (PA_PRESS_TOL); ms/step of the run without the frames beside
+    base_ms (the same deck without dump, earlier in this call) and the
+    seconds a frame costs.  Returns the launches, ms/step, the frames'
+    seconds and the engine."""
+    from lammps_buck_intel_tpu_torch.io import dump as dumpmod
+    from lammps_buck_intel_tpu_torch.run import run_deck
+
+    cfg = load_deck(name)
+    cfg["dump"] = dict(cfg["dump"], file=os.path.join(tmp, name + ".dump"))
+    if cfg["dump"]["columns"] != DUMP_COLS:
+        raise AssertionError(f"{name}: dump columns {cfg['dump']['columns']}")
+    ops.reset_launches()
+    sim, rows = run_deck(cfg, device="cuda", log=False)
+    ran = dict(ops.LAUNCHES)
+    missing = [k for k in need if ran[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched {missing}")
+    frames = dumpmod.read_lammpstrj(cfg["dump"]["file"])
+    steps, every = int(cfg["run"]), int(cfg["dump"]["every"])
+    if [f["step"] for f in frames] != list(range(0, steps + 1, every)):
+        raise AssertionError(
+            f"{name}: frames at {[f['step'] for f in frames]}")
+    by_step = {r["step"]: r for r in rows}
+    vol = float(np.prod(np.asarray(sim.box.lengths, np.float64)))
+    pins = []
+    for f in frames:
+        d, row = f["data"], by_step[f["step"]]
+        if d.shape != (sim.n_atoms, len(DUMP_COLS)) or not np.isfinite(
+                d).all():
+            raise AssertionError(f"{name}: frame {f['step']} shape {d.shape}")
+        pe = d[:, DUMP_COLS.index("c_pe")].sum()
+        s = DUMP_COLS.index("c_stress[1]")
+        press = -d[:, s:s + 3].sum() / (3.0 * vol)
+        total = row["epair"] + row["emol"]
+        pins.append((f["step"], (pe - total) / abs(total),
+                     (press - row["press"]) / max(abs(row["press"]), 1.0)))
+        if not abs(pe - total) <= PA_PE_TOL * abs(total):
+            raise AssertionError(f"{name} frame {f['step']}: sum c_pe {pe} "
+                                 f"vs thermo {total}")
+        if sim.shake is None and not (abs(press - row["press"])
+                                      <= PA_PRESS_TOL
+                                      * max(abs(row["press"]), 1.0)):
+            raise AssertionError(f"{name} frame {f['step']}: pressure "
+                                 f"{press} vs thermo {row['press']}")
+    ms_step = 1e3 * sim.timings["run"] / steps
+    frame_s = sim.timings["dump"] / len(frames)
+    print(f"[dump] {name}: {sim.n_atoms} atoms x {steps} steps, "
+          f"{len(frames)} frames; run {ms_step:.4f} ms/step without the "
+          f"frames (the deck without dump, earlier in this call: "
+          f"{base_ms:.4f}); {frame_s:.3f} s a frame; per frame (step, rel "
+          f"sum c_pe - thermo, rel press identity): " + ", ".join(
+              f"({a}, {b:.2e}, {c:.2e})" for a, b, c in pins)
+          + f"; launches {ran}")
+    return dict(launches=ran, ms_step=ms_step, frame_s=frame_s,
+                frames=len(frames), sim=sim, base_ms=base_ms)
+
+
+DUMP_PATH = {
+    "cristobalite_pppm_dump.yaml": ("cellpair", "rebin_incremental",
+                                    "pppm_deposit", "pppm_spectral",
+                                    "pppm_gather", "nlist_build",
+                                    "nlist_pair_peratom",
+                                    "pppm_peratom_spectral",
+                                    "pppm_peratom_gather"),
+    "cristobalite_ewald_dump.yaml": ("nlist_build", "nlist_pair", "ewald_sk",
+                                     "ewald_force", "nlist_pair_peratom",
+                                     "ewald_peratom"),
+    "rhodo_nve_dump.yaml": ("cellpair", "pppm_deposit", "pppm_gather",
+                            "bonded_bond_angle", "dihedral_charmm",
+                            "improper_harmonic", "shake_positions",
+                            "nlist_build", "nlist_pair_peratom",
+                            "pppm_peratom_spectral", "pppm_peratom_gather",
+                            "bonded_peratom"),
+}
+
+
+def phase_dump(base: dict):
+    """The three dump decks unedited (``_dump_deck``), each followed by its
+    per-atom kernels against their plain versions in f32 at the deck's
+    last state, timed there (the result's "times")."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, need in DUMP_PATH.items():
+            r = _dump_deck(name, base[name], need, tmp)
+            sim = r.pop("sim")
+            r["times"] = _pa_twins(name, sim, torch.float32, time_it=True)
+            out[name] = r
+            del sim
+            torch.cuda.empty_cache()
+    return out
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -3994,6 +4491,17 @@ def main():
     mix_rec = load_golden("torch_disp_mix.json")
     phase_mix_record(mix_rec)
     mcell, mnlist, mhex, mtimes = phase_mix(mix_rec)
+    torch.cuda.empty_cache()
+
+    # per-atom energy and virial (K9d, K10pa, K11pa, K18b) and dump custom
+    t_pa = time.perf_counter()
+    phase_peratom_record(load_golden("torch_peratom.json"))
+    dumps = phase_dump({"cristobalite_pppm_dump.yaml": cris["ms_step"],
+                        "cristobalite_ewald_dump.yaml": ewd["ms_step"],
+                        "rhodo_nve_dump.yaml": sbig["small_ms_step"]})
+    dcris, dewd, drho = (dumps[k] for k in DUMP_PATH)
+    print(f"[time] the per-atom phases took {time.perf_counter() - t_pa:.1f} "
+          f"s; {time.perf_counter() - t_start:.1f} s since the start")
 
     def row(name, source, replaces, launch_key, r, launches=launches):
         return dict(name=name, route="cuda", source=f"{SRC}/{source}",
@@ -4127,6 +4635,23 @@ def main():
         row("disp_gather_7_channels", "pppm_disp.cu",
             "models/kspace/pppm_disp.py:405", "disp_gather",
             mtimes["disp_gather_7ch"], mhex["launches"]),
+        # the per-atom computes: times at each dump deck's last state,
+        # launches of its run through run_deck (three frames)
+        row("nlist_pair_peratom", "nlist.cu", "models/pair/driver.py:196",
+            "nlist_pair_peratom", dcris["times"]["nlist_pair_peratom"],
+            dcris["launches"]),
+        row("pppm_peratom_spectral", "pppm.cu", "models/kspace/pppm.py:650",
+            "pppm_peratom_spectral", dcris["times"]["pppm_peratom_spectral"],
+            dcris["launches"]),
+        row("pppm_peratom_gather", "pppm.cu", "models/kspace/pppm.py:650",
+            "pppm_peratom_gather", dcris["times"]["pppm_peratom_gather"],
+            dcris["launches"]),
+        row("ewald_peratom", "ewald.cu", "models/kspace/ewald.py:261",
+            "ewald_peratom", dewd["times"]["ewald_peratom"],
+            dewd["launches"]),
+        row("bonded_peratom", "bonded.cu", "models/bonded/harmonic.py:294",
+            "bonded_peratom", drho["times"]["bonded_peratom"],
+            drho["launches"]),
     ]
     print(f"[K9c] torch.cdist + topk at 500 atoms: "
           f"{k9c['cdist_topk_ms']:.4f} ms; [K9b] rhodo_nve_nlist x6x6x4 "
@@ -4148,6 +4673,12 @@ def main():
           f"loops: " + ", ".join(
               f"{k} {v['loop_ms']:.4f} ms (device {v['loop_device_ms']:.4f})"
               for k, v in mtimes.items() if "loop_ms" in v))
+    print(f"[K1] lj/long + coul/long on hexane_gen_big's slots: "
+          f"{json.dumps(mtimes['k1_lj_long_coul_long'])}")
+    for name, r in dumps.items():
+        print(f"[dump] {name}: {r['ms_step']:.4f} ms/step without the "
+              f"frames, {r['base_ms']:.4f} without dump; {r['frame_s']:.3f} "
+              f"s a frame; K9d {json.dumps(r['times']['nlist_pair_peratom'])}")
     print(f"[K1] buck_big buck branch: {json.dumps(k1['buck_big'])}")
     print(f"[K2] buck_big: {json.dumps(k2_big)}")
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,14 @@
 // Bonded forces of a molecular deck over the slot planes (sm_90a): harmonic
 // bonds and harmonic / CHARMM angles with Urey-Bradley (bonded_bond_angle),
 // CHARMM dihedrals with baked 1-4 pair terms (dihedral_charmm), harmonic
-// impropers (improper_harmonic).
+// impropers (improper_harmonic), and the per-atom energy and virial of all
+// four (bonded_peratom).
 //
 // Replaces: lammps_buck_intel_tpu/models/bonded/harmonic.py compute_bonded
 //   (:116; bonds :154-184, angles :186-229, Urey-Bradley :231-264),
 //   lammps_buck_intel_tpu/models/bonded/charmm.py dihedral_charmm_forces
-//   (:114, energy :54) and improper_harmonic_forces (:185, energy :85).
+//   (:114, energy :54) and improper_harmonic_forces (:185, energy :85);
+//   bonded_peratom (K18b) <- harmonic.py compute_bonded_peratom (:294).
 //
 // Design.  One thread per term.  The term tables hold ATOM indices
 // ([type, atoms...] rows, int32); a thread finds its atoms' slots through
@@ -36,6 +38,19 @@
 // gradient of a clip), so a planar improper gets no force, as in the JAX
 // package.  Forces map as f1 = -g1, f2 = g1 + g2, f3 = g3 - g2, f4 = -g3,
 // and the virial is -sum_k b_k (x) g_k.
+//
+// Per atom (K18b, bonded_peratom).  One thread per term of any kind
+// (bonds, then angles, dihedrals, impropers), in atom order.  Each
+// computes its term's energy and 6-virial with the arithmetic of K14a-c
+// and atomicAdds the 1/m shares into eatom and vatom (the ev_tally
+// equal-division convention): a bond's two atoms, an angle's three (its
+// Urey-Bradley term on the outer two), a dihedral's or improper's four.
+// A dihedral's 1-4 pair term goes in halves to its atoms 1 and 4 of e14
+// and v14 (the pair channel).  The virials: a bond's fbond d (x) d, an
+// angle's d1 (x) f1 + d2 (x) f3, a dihedral's or improper's -sum_k b_k (x)
+// g_k with g the gradient of the torsion (or improper) energy alone, the
+// 1-4 term's fpair r14 (x) r14.  The atomics (f64 on sm_90 in a double
+// acc) make the sums depend on the order of arrival in the last bits.
 //
 // What bounds it on the H100.  Bytes, and only a few megabytes of them
 // (indices, two to four gathered positions and as many force
@@ -408,6 +423,201 @@ __global__ void improper_harmonic_kernel(Frame<T> fr,
   if (EV) block_reduce<A, 7>(vals, partial);
 }
 
+// the atomic 1/m shares of one term's energy and virial
+template <typename T, typename A>
+__device__ __forceinline__ void share(A* __restrict__ ea, A* __restrict__ va,
+                                      const int* atoms, int m, T e,
+                                      const T (&v)[6]) {
+  const A am = static_cast<A>(m);
+  const A es = static_cast<A>(e) / am;
+  A vs[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) vs[c] = static_cast<A>(v[c]) / am;
+  for (int a = 0; a < m; ++a) {
+    atomicAdd(ea + atoms[a], es);
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      atomicAdd(va + static_cast<size_t>(atoms[a]) * 6 + c, vs[c]);
+  }
+}
+
+// w a (x) b as a T 6-vector (xx, yy, zz, xy, xz, yz)
+template <typename T>
+__device__ __forceinline__ void outer6(T w, const Vec<T>& a, const Vec<T>& b,
+                                       T (&v)[6]) {
+  v[0] = w * a.x * b.x;
+  v[1] = w * a.y * b.y;
+  v[2] = w * a.z * b.z;
+  v[3] = w * a.x * b.y;
+  v[4] = w * a.x * b.z;
+  v[5] = w * a.y * b.z;
+}
+
+// -sum_k b_k (x) g_k, the order of terms of the JAX package's expression
+template <typename T>
+__device__ __forceinline__ void grad_virial(const Vec<T>& b1,
+                                            const Vec<T>& b2,
+                                            const Vec<T>& b3,
+                                            const Vec<T>& g1,
+                                            const Vec<T>& g2,
+                                            const Vec<T>& g3, T (&v)[6]) {
+  v[0] = -b1.x * g1.x - b2.x * g2.x - b3.x * g3.x;
+  v[1] = -b1.y * g1.y - b2.y * g2.y - b3.y * g3.y;
+  v[2] = -b1.z * g1.z - b2.z * g2.z - b3.z * g3.z;
+  v[3] = -b1.x * g1.y - b2.x * g2.y - b3.x * g3.y;
+  v[4] = -b1.x * g1.z - b2.x * g2.z - b3.x * g3.z;
+  v[5] = -b1.y * g1.z - b2.y * g2.z - b3.y * g3.z;
+}
+
+// ---- K18b: per-atom tallies of all four kinds ----
+// threads [0, nb) bonds, then na angles, nd dihedrals, ni impropers (a
+// kind left out has count 0).  Coefficient tables as in K14a-c; atoms are
+// in atom order (fr.inv null).
+template <typename T, typename A>
+__global__ void bonded_peratom_kernel(
+    Frame<T> fr, const int* __restrict__ bonds, int nb,
+    const T* __restrict__ bcoef, const int* __restrict__ angles, int na,
+    const T* __restrict__ acoef, const int* __restrict__ dihedrals, int nd,
+    const T* __restrict__ dcoef, const int* __restrict__ dmult,
+    const T* __restrict__ d14, const int* __restrict__ impropers, int ni,
+    const T* __restrict__ icoef, A* __restrict__ eatom,
+    A* __restrict__ vatom, A* __restrict__ e14, A* __restrict__ v14) {
+  fr.resolve();
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  T v[6];
+  if (t < nb) {
+    const int bt = bonds[3 * t];
+    const int at[2] = {bonds[3 * t + 1], bonds[3 * t + 2]};
+    const T K = bcoef[2 * bt], r0 = bcoef[2 * bt + 1];
+    const Vec<T> d = fr.diff(at[0], at[1]);
+    const T r = dev_sqrt(dot(d, d));
+    const T dr = r - r0;
+    const T rk = K * dr;
+    const T fbond = r > T(0) ? T(-2) * rk / r : T(0);
+    outer6(fbond, d, d, v);
+    share<T, A>(eatom, vatom, at, 2, rk * dr, v);
+    return;
+  }
+  t -= nb;
+  if (t < na) {
+    const int ty = angles[4 * t];
+    const int at[3] = {angles[4 * t + 1], angles[4 * t + 2],
+                       angles[4 * t + 3]};
+    const T K = acoef[4 * ty], th0 = acoef[4 * ty + 1];
+    const T kub = acoef[4 * ty + 2], rub = acoef[4 * ty + 3];
+    const Vec<T> d1 = fr.diff(at[0], at[1]), d2 = fr.diff(at[2], at[1]);
+    const T r1sq = dot(d1, d1), r2sq = dot(d2, d2);
+    const T r1 = dev_sqrt(r1sq), r2 = dev_sqrt(r2sq);
+    T c = dot(d1, d2) / (r1 * r2);
+    c = c > T(1) ? T(1) : (c < T(-1) ? T(-1) : c);
+    T ssq = T(1) - c * c;
+    ssq = ssq > T(1e-8) ? ssq : T(1e-8);
+    const T s = dev_sqrt(ssq);
+    const T dtheta = dev_acos(c) - th0;
+    const T tk = K * dtheta;
+    const T aa = T(-2) * tk / s;
+    const T a11 = aa * c / r1sq, a12 = -aa / (r1 * r2), a22 = aa * c / r2sq;
+    const Vec<T> f1 = axpby(a11, d1, a12, d2);
+    const Vec<T> f3 = axpby(a22, d2, a12, d1);
+    v[0] = d1.x * f1.x + d2.x * f3.x;
+    v[1] = d1.y * f1.y + d2.y * f3.y;
+    v[2] = d1.z * f1.z + d2.z * f3.z;
+    v[3] = d1.x * f1.y + d2.x * f3.y;
+    v[4] = d1.x * f1.z + d2.x * f3.z;
+    v[5] = d1.y * f1.z + d2.y * f3.z;
+    share<T, A>(eatom, vatom, at, 3, tk * dtheta, v);
+    if (kub != T(0)) {  // Urey-Bradley: shared by the outer atoms
+      const int outer[2] = {at[0], at[2]};
+      const Vec<T> d = fr.diff(at[0], at[2]);
+      T rsq = dot(d, d);
+      rsq = rsq > T(1e-12) ? rsq : T(1e-12);
+      const T r = dev_sqrt(rsq);
+      const T dr = r - rub;
+      const T rk = kub * dr;
+      outer6(T(-2) * rk / r, d, d, v);
+      share<T, A>(eatom, vatom, outer, 2, rk * dr, v);
+    }
+    return;
+  }
+  t -= na;
+  if (t < nd) {
+    const int dt = dihedrals[5 * t];
+    const int at[4] = {dihedrals[5 * t + 1], dihedrals[5 * t + 2],
+                       dihedrals[5 * t + 3], dihedrals[5 * t + 4]};
+    const T K = dcoef[2 * dt], dcos = dcoef[2 * dt + 1];
+    const int mult = dmult[dt];
+    const Vec<T> b1 = fr.diff(at[0], at[1]), b2 = fr.diff(at[2], at[1]),
+                 b3 = fr.diff(at[3], at[2]);
+    const Vec<T> n1 = cross(b1, b2), n2 = cross(b2, b3);
+    T b2sq = dot(b2, b2);
+    b2sq = b2sq > T(1e-12) ? b2sq : T(1e-12);
+    const T cosval = dot(n1, n2);
+    const T sinval = dot(cross(n1, n2), b2) / dev_sqrt(b2sq);
+    T nsq = cosval * cosval + sinval * sinval;
+    nsq = nsq > T(1e-20) ? nsq : T(1e-20);
+    const T norm = dev_sqrt(nsq);
+    const T c = cosval / norm, s = sinval / norm;
+    T cn = 1, sn = 0, cos_n = 0, sin_n = 0;
+    for (int k = 1; k <= mult; ++k) {
+      const T cnew = cn * c - sn * s;
+      sn = cn * s + sn * c;
+      cn = cnew;
+      if (k == mult) {
+        cos_n = cn;
+        sin_n = sn;
+      }
+    }
+    Vec<T> g1, g2, g3;
+    phi_gradient(-K * static_cast<T>(mult) * sin_n * dcos, b1, b2, b3, n1,
+                 n2, b2sq, g1, g2, g3);
+    grad_virial(b1, b2, b3, g1, g2, g3, v);
+    share<T, A>(eatom, vatom, at, 4, K * (T(1) + cos_n * dcos), v);
+    if (d14 != nullptr) {
+      const T a12 = d14[3 * t], a6 = d14[3 * t + 1], qq = d14[3 * t + 2];
+      const Vec<T> r14 = {b1.x - b2.x - b3.x, b1.y - b2.y - b3.y,
+                          b1.z - b2.z - b3.z};
+      T rsq = dot(r14, r14);
+      rsq = rsq > T(1e-12) ? rsq : T(1e-12);
+      const T r6inv = T(1) / (rsq * rsq * rsq);
+      const T elj = r6inv * (a12 * r6inv - a6);
+      const T ec = qq / dev_sqrt(rsq);
+      const T fpair =
+          (r6inv * (T(12) * a12 * r6inv - T(6) * a6) + ec) / rsq;
+      const int ends[2] = {at[0], at[3]};
+      outer6(fpair, r14, r14, v);
+      share<T, A>(e14, v14, ends, 2, elj + ec, v);
+    }
+    return;
+  }
+  t -= nd;
+  if (t < ni) {
+    const int it = impropers[5 * t];
+    const int at[4] = {impropers[5 * t + 1], impropers[5 * t + 2],
+                       impropers[5 * t + 3], impropers[5 * t + 4]};
+    const T K = icoef[2 * it], chi0 = icoef[2 * it + 1];
+    const Vec<T> b1 = fr.diff(at[0], at[1]), b2 = fr.diff(at[2], at[1]),
+                 b3 = fr.diff(at[3], at[2]);
+    const Vec<T> n1 = cross(b1, b2), n2 = cross(b2, b3);
+    T nn = dot(n1, n1) * dot(n2, n2);
+    nn = nn > T(1e-20) ? nn : T(1e-20);
+    const T craw = dot(n1, n2) / dev_sqrt(nn);
+    const T hi = static_cast<T>(1.0 - 1e-7), lo = static_cast<T>(-1.0 + 1e-7);
+    const bool inside = craw > lo && craw < hi;
+    const T cc = craw < lo ? lo : (craw > hi ? hi : craw);
+    const T dchi = dev_acos(cc) - chi0;
+    const T side = dot(b1, n2);
+    const T w = !inside || side == T(0)
+                    ? T(0)
+                    : (side > T(0) ? T(2) : T(-2)) * K * dchi;
+    T b2sq = dot(b2, b2);
+    b2sq = b2sq > T(1e-12) ? b2sq : T(1e-12);
+    Vec<T> g1, g2, g3;
+    phi_gradient(w, b1, b2, b3, n1, n2, b2sq, g1, g2, g3);
+    grad_virial(b1, b2, b3, g1, g2, g3, v);
+    share<T, A>(eatom, vatom, at, 4, K * dchi * dchi, v);
+  }
+}
+
 template <typename T>
 Frame<T> make_frame(const void* x, const void* y, const void* z,
                     const void* inv, double Lx, double Ly, double Lz,
@@ -500,6 +710,29 @@ int launch_improper(int ev, const void* x, const void* y, const void* z,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename A>
+int launch_peratom(const void* x, const void* y, const void* z,
+                   const void* bonds, int nb, const void* bcoef,
+                   const void* angles, int na, const void* acoef,
+                   const void* dihedrals, int nd, const void* dcoef,
+                   const void* dmult, const void* d14, const void* impropers,
+                   int ni, const void* icoef, double Lx, double Ly,
+                   double Lz, const void* Ldev, void* eatom, void* vatom,
+                   void* e14, void* v14, cudaStream_t s) {
+  const int total = nb + na + nd + ni;
+  if (total <= 0) return 0;
+  const Frame<T> fr = make_frame<T>(x, y, z, nullptr, Lx, Ly, Lz, Ldev);
+  bonded_peratom_kernel<T, A><<<blocks_for(total), kThreads, 0, s>>>(
+      fr, static_cast<const int*>(bonds), nb, static_cast<const T*>(bcoef),
+      static_cast<const int*>(angles), na, static_cast<const T*>(acoef),
+      static_cast<const int*>(dihedrals), nd, static_cast<const T*>(dcoef),
+      static_cast<const int*>(dmult), static_cast<const T*>(d14),
+      static_cast<const int*>(impropers), ni, static_cast<const T*>(icoef),
+      static_cast<A*>(eatom), static_cast<A*>(vatom), static_cast<A*>(e14),
+      static_cast<A*>(v14));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // In all three: prec 0 = (float, float), 1 = (float, double), 2 = (double,
@@ -556,4 +789,27 @@ extern "C" int improper_harmonic(int prec, int ev, const void* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BY_PRECISION(launch_improper, ev, x, y, z, inv, impropers, ni, icoef, Lx,
                Ly, Lz, Ldev, fx, fy, fz, partial, s)
+}
+
+// K18b.  prec as above; x/y/z flt planes in atom order; the four term
+// tables with their counts (0 leaves a kind out) and coefficient tables as
+// in the three force kernels, d14 (nd, 3) or null; Lx/Ly/Lz and Ldev as
+// above.  eatom, e14 (n) and vatom, v14 (n, 6) acc, zeroed by the caller,
+// take the atomic shares.
+extern "C" int bonded_peratom(int prec, const void* x, const void* y,
+                              const void* z, const void* bonds, int nb,
+                              const void* bcoef, const void* angles, int na,
+                              const void* acoef, const void* dihedrals,
+                              int nd, const void* dcoef, const void* dmult,
+                              const void* d14, const void* impropers, int ni,
+                              const void* icoef, double Lx, double Ly,
+                              double Lz, const void* Ldev, void* eatom,
+                              void* vatom, void* e14, void* v14,
+                              void* stream) {
+  if (nb < 0 || na < 0 || nd < 0 || ni < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BY_PRECISION(launch_peratom, x, y, z, bonds, nb, bcoef, angles, na, acoef,
+               dihedrals, nd, dcoef, dmult, d14, impropers, ni, icoef, Lx,
+               Ly, Lz, Ldev, eatom, vatom, e14, v14, s)
 }

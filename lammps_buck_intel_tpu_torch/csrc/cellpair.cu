@@ -197,7 +197,7 @@ __global__ void cellpair_kernel(
       const T dx = xi - s_x[j];
       const T dy = yi - s_y[j];
       const T dz = zi - s_z[j];
-      const T rsq = pairterms::clamp_rsq(dx * dx + dy * dy + dz * dz);
+      const T rsq = pairterms::clamp_rsq(pairterms::dist_sq(dx, dy, dz));
       const T* cf = crow + s_typ[j] * kNcoef;
       // strict cut tests (COUL is a template constant)
       bool in_lj, in_coul;

@@ -1,5 +1,6 @@
-// Ewald reciprocal-space sum on a static box (sm_90a): K11a ewald_sk and
-// K11b ewald_force.
+// Ewald reciprocal-space sum on a static box (sm_90a): K11a ewald_sk,
+// K11b ewald_force and the per-atom energy and virial K11pa
+// ewald_peratom.
 //
 // Replaces: lammps_buck_intel_tpu/models/kspace/ewald.py
 //   _ewald_compute (:185): phase = x @ kv^T, c = cos(phase), s =
@@ -8,7 +9,11 @@
 //   host's self and background terms), the 6-virial sum_k uk vfac_ab(k)
 //   with uk = ug_k |S(k)|^2 qqrd2e and vfac = 1 - pref k_a k_b (diagonal)
 //   or -pref k_a k_b, pref = 2 (1/k^2 + 1/(4 g^2)); forces f_i = qqrd2e
-//   q_i sum_k 2 ug_k (s_ik Re_k - c_ik Im_k) k.
+//   q_i sum_k 2 ug_k (s_ik Re_k - c_ik Im_k) k;
+//   ewald_compute_peratom (:261): share_ik = c_ik Re_k + s_ik Im_k (Re, Im
+//   rounded to flt), eatom_i = qqrd2e (q_i sum_k ug_k share_ik - g/sqrt(pi)
+//   q_i^2 - pi/(2 g^2 V) q_i qsum), vatom_i,c = qqrd2e q_i sum_k ug_k
+//   vfac_c(k) share_ik.
 //
 // Design.  The JAX package keeps (N, K) phase, cos and sin arrays and
 // contracts them on the matrix unit; at 11,520 atoms and 31,248 k vectors
@@ -29,6 +34,12 @@
 //     into nsplit ranges (gridDim.y, chosen by the wrapper for about four
 //     blocks an SM); a second kernel adds the ranges in a fixed order and
 //     scales by qqrd2e q_i.
+//   K11pa (ewald_peratom): K11b's shape.  One thread per atom, the k
+//     vectors staged in tiles of (kx, ky, kz, Re, Im and the seven weights
+//     ug, ug vfac_c), seven acc sums a thread, the k vectors split into
+//     nsplit ranges; a finish kernel adds the ranges in a fixed order and
+//     applies q_i, the self and background terms and qqrd2e.  S(k) comes
+//     from K11a.
 // Phase precision: |k . x| reaches 2 pi kmax ~ 160 rad, so the phase is
 // reduced by the accurate sincosf / sincos (no --use_fast_math, no
 // __sincosf, whose error grows with the argument).
@@ -237,6 +248,88 @@ __global__ void force_finish_kernel(const A* __restrict__ part, int nsplit,
   fz[i] = s * sz;
 }
 
+// part[split][7][n]: each atom's seven sums over k vectors [split * chunk,
+// ...): sum_k w_m(k) (c_ik Re_k + s_ik Im_k), w = (ug, ug vfac_c).
+template <typename T, typename A>
+__global__ void peratom_partial_kernel(const T* __restrict__ x,
+                                       const T* __restrict__ y,
+                                       const T* __restrict__ z, int n,
+                                       const T* __restrict__ kx,
+                                       const T* __restrict__ ky,
+                                       const T* __restrict__ kz,
+                                       const T* __restrict__ re,
+                                       const T* __restrict__ im,
+                                       const T* __restrict__ w, int K,
+                                       int chunk, A* __restrict__ part) {
+  __shared__ T skx[kKTile], sky[kKTile], skz[kKTile], sre[kKTile],
+      sim[kKTile], sw[7][kKTile];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int k0 = blockIdx.y * chunk;
+  const int k1 = min(K, k0 + chunk);
+  T xi = 0, yi = 0, zi = 0;
+  if (i < n) {
+    xi = x[i];
+    yi = y[i];
+    zi = z[i];
+  }
+  A acc[7] = {0, 0, 0, 0, 0, 0, 0};
+  for (int t0 = k0; t0 < k1; t0 += kKTile) {
+    const int m = min(kKTile, k1 - t0);
+    __syncthreads();
+    for (int j = threadIdx.x; j < m; j += blockDim.x) {
+      skx[j] = kx[t0 + j];
+      sky[j] = ky[t0 + j];
+      skz[j] = kz[t0 + j];
+      sre[j] = re[t0 + j];
+      sim[j] = im[t0 + j];
+#pragma unroll
+      for (int v = 0; v < 7; ++v)
+        sw[v][j] = w[static_cast<size_t>(v) * K + t0 + j];
+    }
+    __syncthreads();
+    if (i < n) {
+      for (int j = 0; j < m; ++j) {
+        const T ph = xi * skx[j] + yi * sky[j] + zi * skz[j];
+        T s, c;
+        dev_sincos(ph, &s, &c);
+        const T share = c * sre[j] + s * sim[j];
+#pragma unroll
+        for (int v = 0; v < 7; ++v)
+          acc[v] += static_cast<A>(share * sw[v][j]);
+      }
+    }
+  }
+  if (i < n) {
+    const size_t base = static_cast<size_t>(blockIdx.y) * 7 * n + i;
+#pragma unroll
+    for (int v = 0; v < 7; ++v)
+      part[base + static_cast<size_t>(v) * n] = acc[v];
+  }
+}
+
+template <typename T, typename A>
+__global__ void peratom_finish_kernel(const A* __restrict__ part,
+                                      int nsplit, int n,
+                                      const T* __restrict__ q, A qqrd2e,
+                                      A self_c, A bg_c, A qsum,
+                                      A* __restrict__ eatom,
+                                      A* __restrict__ vatom) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  A s[7] = {0, 0, 0, 0, 0, 0, 0};
+  for (int p = 0; p < nsplit; ++p) {
+    const size_t base = static_cast<size_t>(p) * 7 * n + i;
+#pragma unroll
+    for (int v = 0; v < 7; ++v)
+      s[v] += part[base + static_cast<size_t>(v) * n];
+  }
+  const A qi = static_cast<A>(q[i]);
+  eatom[i] = (qi * s[0] - (self_c * qi * qi + bg_c * qi * qsum)) * qqrd2e;
+  A* vi = vatom + static_cast<size_t>(i) * 6;
+#pragma unroll
+  for (int v = 0; v < 6; ++v) vi[v] = (qi * s[v + 1]) * qqrd2e;
+}
+
 inline int blocks_for(int m) { return (m + kThreads - 1) / kThreads; }
 
 template <typename T, typename A>
@@ -285,6 +378,30 @@ int launch_force(const void* x, const void* y, const void* z, const void* q,
       static_cast<const A*>(part), nsplit, n, static_cast<const T*>(q),
       static_cast<T>(qqrd2e), static_cast<A*>(fx), static_cast<A*>(fy),
       static_cast<A*>(fz));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename A>
+int launch_peratom(const void* x, const void* y, const void* z,
+                   const void* q, int n, const void* kx, const void* ky,
+                   const void* kz, const void* re, const void* im,
+                   const void* w, int K, int nsplit, double qqrd2e,
+                   double self_c, double bg_c, double qsum, void* part,
+                   void* eatom, void* vatom, cudaStream_t st) {
+  const int chunk = (K + nsplit - 1) / nsplit;
+  peratom_partial_kernel<T, A>
+      <<<dim3(blocks_for(n), nsplit), kThreads, 0, st>>>(
+          static_cast<const T*>(x), static_cast<const T*>(y),
+          static_cast<const T*>(z), n, static_cast<const T*>(kx),
+          static_cast<const T*>(ky), static_cast<const T*>(kz),
+          static_cast<const T*>(re), static_cast<const T*>(im),
+          static_cast<const T*>(w), K, chunk, static_cast<A*>(part));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  peratom_finish_kernel<T, A><<<blocks_for(n), kThreads, 0, st>>>(
+      static_cast<const A*>(part), nsplit, n, static_cast<const T*>(q),
+      static_cast<A>(qqrd2e), static_cast<A>(self_c), static_cast<A>(bg_c),
+      static_cast<A>(qsum), static_cast<A*>(eatom), static_cast<A*>(vatom));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -350,4 +467,30 @@ extern "C" int ewald_force(int prec, const void* x, const void* y,
                                           fy, fz, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K11pa.  re, im: (K,) flt, S(k) from ewald_sk rounded to flt; w: (7, K)
+// flt, ug and the six ug vfac_c.  Scratch part: (nsplit, 7, n) acc.
+// Outputs eatom (n) and vatom (n, 6) acc; self_c = g / sqrt(pi), bg_c =
+// pi / (2 g^2 V).
+extern "C" int ewald_peratom(int prec, const void* x, const void* y,
+                             const void* z, const void* q, int n,
+                             const void* kx, const void* ky, const void* kz,
+                             const void* re, const void* im, const void* w,
+                             int K, int nsplit, double qqrd2e, double self_c,
+                             double bg_c, double qsum, void* part,
+                             void* eatom, void* vatom, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || K <= 0 || nsplit <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PERATOM_ARGS                                                       \
+  x, y, z, q, n, kx, ky, kz, re, im, w, K, nsplit, qqrd2e, self_c, bg_c,   \
+      qsum, part, eatom, vatom, st
+  switch (prec) {
+    case 0: return launch_peratom<float, float>(PERATOM_ARGS);
+    case 1: return launch_peratom<float, double>(PERATOM_ARGS);
+    case 2: return launch_peratom<double, double>(PERATOM_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PERATOM_ARGS
 }

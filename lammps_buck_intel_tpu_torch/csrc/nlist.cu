@@ -1,13 +1,14 @@
 // Neighbor lists in atom order (sm_90a): the binned list build
 // (nlist_bin, nlist_sort, nlist_build), the dense O(N^2) build
-// (nlist_dense) and the pair pass over the list (nlist_pair), for the
-// neighbor-list engines (the static-box Simulation and the variable-cell
-// NPT engine).
+// (nlist_dense), the pair pass over the list (nlist_pair) and its
+// per-atom variant (nlist_pair_peratom), for the neighbor-list engines (the
+// static-box Simulation and the variable-cell NPT engine) and for the
+// per-atom computes of every engine.
 //
 // Replaces: lammps_buck_intel_tpu/neighbor/neighbor_list.py build_cell
 //   (:210) and build_dense (:184) with _special_codes (:171), and
-//   models/pair/driver.py compute_pair (:78) with styles.py pair_terms
-//   (:300), which XLA lowered for the TPU as (tile, 27 * cap) candidate
+//   models/pair/driver.py compute_pair (:78) and compute_pair_peratom
+//   (:196) with styles.py pair_terms (:300), which XLA lowered for the TPU as (tile, 27 * cap) candidate
 //   gathers or an (N, N) masked distance matrix with a top_k prune, and
 //   (N, K) gather + row-sum passes.
 //
@@ -70,6 +71,15 @@
 // fixed shuffle tree writes partial[block][8] = (evdwl, ecoul, vxx, vyy,
 // vzz, vxy, vxz, vyz); the caller sums the partials and halves them (each
 // pair counted twice).
+//
+// Per-atom pass (K9d).  nlist_pair_peratom is the same kernel with PERATOM
+// set: the thread that owns row i of the full list writes eatom[i] = half
+// its row's evdwl + ecoul and vatom[i][6] = half its row's fs d_a d_b, the
+// eflag_atom / vflag_atom tallies of pair_buck_intel.cpp:303-322 (each
+// atom takes half of every pair it is in).  No forces, no atomics, no
+// block partials.  It is instantiated for (float, float) and (double,
+// double) only: the per-atom computes run the pair pass in f32, the
+// record and the card tests in f64.
 //
 // What bounds it on the H100.  The build: distance tests, 27 cells of
 // ~cap/2 atoms per atom (~700 at the rhodo density), each a gathered
@@ -295,7 +305,7 @@ __device__ __forceinline__ A warp_sum(A v) {
 }
 
 template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL,
-          bool DISP_LONG>
+          bool DISP_LONG, bool PERATOM>
 __global__ void nlist_pair_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const T* __restrict__ z, const T* __restrict__ q,
@@ -305,7 +315,8 @@ __global__ void nlist_pair_kernel(
     const int* __restrict__ nnei, int kmax, T g_ewald, T qqrd2e, T inner_sq,
     T denom_lj, pairterms::DispConst<T> dc,
     const T* __restrict__ special_fac, A* __restrict__ fx,
-    A* __restrict__ fy, A* __restrict__ fz, A* __restrict__ partial) {
+    A* __restrict__ fy, A* __restrict__ fz, A* __restrict__ partial,
+    A* __restrict__ eatom, A* __restrict__ vatom) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ncoef = ntypes * ntypes * kNcoef;
   T* s_coef = reinterpret_cast<T*>(smem_raw);
@@ -359,10 +370,23 @@ __global__ void nlist_pair_kernel(
       v4 += static_cast<A>(fs * dx * dz);
       v5 += static_cast<A>(fs * dy * dz);
     }
-    fx[i] = fxi;
-    fy[i] = fyi;
-    fz[i] = fzi;
+    if constexpr (PERATOM) {
+      const A half = A(0.5);
+      eatom[i] = half * (ev + ec);
+      A* vi = vatom + static_cast<size_t>(i) * 6;
+      vi[0] = half * v0;
+      vi[1] = half * v1;
+      vi[2] = half * v2;
+      vi[3] = half * v3;
+      vi[4] = half * v4;
+      vi[5] = half * v5;
+    } else {
+      fx[i] = fxi;
+      fy[i] = fyi;
+      fz[i] = fzi;
+    }
   }
+  if constexpr (PERATOM) return;
   __shared__ A red[kThreads / 32][8];
   A vals[8] = {ev, ec, v0, v1, v2, v3, v4, v5};
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -435,20 +459,21 @@ int launch_dense(const void* x, const void* y, const void* z,
       const void *idx, const void *sb, const void *nnei, int kmax,           \
       double g_ewald, double qqrd2e, double inner_sq, double denom_lj,       \
       const double *disp, const void *special_fac, void *fx, void *fy,       \
-      void *fz, void *partial, cudaStream_t s
+      void *fz, void *partial, void *eatom, void *vatom, cudaStream_t s
 #define PAIR_ARGS                                                          \
   x, y, z, q, typ, boxL, coef, ntypes, n, idx, sb, nnei, kmax, g_ewald,    \
-      qqrd2e, inner_sq, denom_lj, disp, special_fac, fx, fy, fz, partial, s
+      qqrd2e, inner_sq, denom_lj, disp, special_fac, fx, fy, fz, partial,  \
+      eatom, vatom, s
 
 template <typename T, typename A, bool EV, int COUL, int VDW, bool SPECIAL,
-          bool DISP_LONG>
+          bool DISP_LONG, bool PERATOM>
 int launch_pair(PAIR_PARAMS) {
   const size_t smem = sizeof(T) * (ntypes * ntypes * kNcoef + 8);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const pairterms::DispConst<T> dc{static_cast<T>(disp[0]),
                                    static_cast<T>(disp[1]),
                                    static_cast<T>(disp[2])};
-  nlist_pair_kernel<T, A, EV, COUL, VDW, SPECIAL, DISP_LONG>
+  nlist_pair_kernel<T, A, EV, COUL, VDW, SPECIAL, DISP_LONG, PERATOM>
       <<<blocks_for(n), kThreads, smem, s>>>(
           static_cast<const T*>(x), static_cast<const T*>(y),
           static_cast<const T*>(z), static_cast<const T*>(q),
@@ -460,56 +485,62 @@ int launch_pair(PAIR_PARAMS) {
           static_cast<T>(qqrd2e), static_cast<T>(inner_sq),
           static_cast<T>(denom_lj), dc, static_cast<const T*>(special_fac),
           static_cast<A*>(fx), static_cast<A*>(fy), static_cast<A*>(fz),
-          static_cast<A*>(partial));
+          static_cast<A*>(partial), static_cast<A*>(eatom),
+          static_cast<A*>(vatom));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename A, bool EV, int COUL, int VDW, bool DISP_LONG>
+template <typename T, typename A, bool EV, bool PA, int COUL, int VDW,
+          bool DISP_LONG>
 int pair_special(int special, PAIR_PARAMS) {
-  return special ? launch_pair<T, A, EV, COUL, VDW, true, DISP_LONG>(PAIR_ARGS)
-                 : launch_pair<T, A, EV, COUL, VDW, false, DISP_LONG>(
-                       PAIR_ARGS);
+  return special
+             ? launch_pair<T, A, EV, COUL, VDW, true, DISP_LONG, PA>(PAIR_ARGS)
+             : launch_pair<T, A, EV, COUL, VDW, false, DISP_LONG, PA>(
+                   PAIR_ARGS);
 }
 
-template <typename T, typename A, bool EV, int COUL>
+template <typename T, typename A, bool EV, bool PA, int COUL>
 int pair_vdw(int vdw, int disp_long, int special, PAIR_PARAMS) {
   if (disp_long) {
     // lj/long and buck/long with coul none or coul long only, as in
     // csrc/cellpair.cu: four instantiations
     if constexpr (COUL == kCoulNone || COUL == pairterms::kCoulLong) {
       if (vdw == pairterms::kVdwBuck)
-        return pair_special<T, A, EV, COUL, pairterms::kVdwBuck, true>(
+        return pair_special<T, A, EV, PA, COUL, pairterms::kVdwBuck, true>(
             special, PAIR_ARGS);
       if (vdw == pairterms::kVdwLj)
-        return pair_special<T, A, EV, COUL, pairterms::kVdwLj, true>(
+        return pair_special<T, A, EV, PA, COUL, pairterms::kVdwLj, true>(
             special, PAIR_ARGS);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (vdw == pairterms::kVdwBuck)
-    return pair_special<T, A, EV, COUL, pairterms::kVdwBuck, false>(
+    return pair_special<T, A, EV, PA, COUL, pairterms::kVdwBuck, false>(
         special, PAIR_ARGS);
   if (vdw == pairterms::kVdwLj)
-    return pair_special<T, A, EV, COUL, pairterms::kVdwLj, false>(
+    return pair_special<T, A, EV, PA, COUL, pairterms::kVdwLj, false>(
         special, PAIR_ARGS);
   // lj/charmm exists only with a Coulomb term (styles.py check_ported)
   if constexpr (COUL == kCoulNone) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (vdw == pairterms::kVdwCharmm)
-      return pair_special<T, A, EV, COUL, pairterms::kVdwCharmm, false>(
+      return pair_special<T, A, EV, PA, COUL, pairterms::kVdwCharmm, false>(
           special, PAIR_ARGS);
     return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T, typename A, bool EV>
+template <typename T, typename A, bool EV, bool PA>
 int pair_variant(int coul, int vdw, int disp_long, int special,
                  PAIR_PARAMS) {
   switch (coul) {
-    case 0: return pair_vdw<T, A, EV, 0>(vdw, disp_long, special, PAIR_ARGS);
-    case 1: return pair_vdw<T, A, EV, 1>(vdw, disp_long, special, PAIR_ARGS);
-    case 2: return pair_vdw<T, A, EV, 2>(vdw, disp_long, special, PAIR_ARGS);
+    case 0:
+      return pair_vdw<T, A, EV, PA, 0>(vdw, disp_long, special, PAIR_ARGS);
+    case 1:
+      return pair_vdw<T, A, EV, PA, 1>(vdw, disp_long, special, PAIR_ARGS);
+    case 2:
+      return pair_vdw<T, A, EV, PA, 2>(vdw, disp_long, special, PAIR_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -517,10 +548,10 @@ int pair_variant(int coul, int vdw, int disp_long, int special,
 template <typename T, typename A>
 int pair_dispatch(int ev, int coul, int vdw, int disp_long, int special,
                   PAIR_PARAMS) {
-  return ev ? pair_variant<T, A, true>(coul, vdw, disp_long, special,
-                                       PAIR_ARGS)
-            : pair_variant<T, A, false>(coul, vdw, disp_long, special,
-                                        PAIR_ARGS);
+  return ev ? pair_variant<T, A, true, false>(coul, vdw, disp_long, special,
+                                              PAIR_ARGS)
+            : pair_variant<T, A, false, false>(coul, vdw, disp_long, special,
+                                               PAIR_ARGS);
 }
 
 }  // namespace
@@ -588,6 +619,8 @@ extern "C" int nlist_pair(int prec, int ev, int coul, int vdw, int disp_long,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const double zero3[3] = {0.0, 0.0, 0.0};
   const double* disp = g2_g6_g8 ? g2_g6_g8 : zero3;
+  void* eatom = nullptr;
+  void* vatom = nullptr;
   switch (prec) {
     case 0:
       return pair_dispatch<float, float>(ev, coul, vdw, disp_long, special,
@@ -598,6 +631,36 @@ extern "C" int nlist_pair(int prec, int ev, int coul, int vdw, int disp_long,
     case 2:
       return pair_dispatch<double, double>(ev, coul, vdw, disp_long, special,
                                            PAIR_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K9d, the per-atom pass: arguments as nlist_pair with prec 0 = (float,
+// float) or 2 = (double, double) and no ev (the energies are always
+// tallied); eatom (n) and vatom (n, 6) acc, row-major, written for every
+// atom (no forces, no partials).
+extern "C" int nlist_pair_peratom(
+    int prec, int coul, int vdw, int disp_long, int special, const void* x,
+    const void* y, const void* z, const void* q, const void* typ,
+    const void* boxL, const void* coef, int ntypes, int n, const void* idx,
+    const void* sb, const void* nnei, int kmax, double g_ewald,
+    double qqrd2e, double inner_sq, double denom_lj, const double* g2_g6_g8,
+    const void* special_fac, void* eatom, void* vatom, void* stream) {
+  if (n <= 0 || kmax <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const double zero3[3] = {0.0, 0.0, 0.0};
+  const double* disp = g2_g6_g8 ? g2_g6_g8 : zero3;
+  void* fx = nullptr;
+  void* fy = nullptr;
+  void* fz = nullptr;
+  void* partial = nullptr;
+  switch (prec) {
+    case 0:
+      return pair_variant<float, float, true, true>(coul, vdw, disp_long,
+                                                    special, PAIR_ARGS);
+    case 2:
+      return pair_variant<double, double, true, true>(coul, vdw, disp_long,
+                                                      special, PAIR_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -69,6 +69,20 @@ __device__ __forceinline__ double dev_exp(double v) { return exp(v); }
 __device__ __forceinline__ float dev_sqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double dev_sqrt(double v) { return sqrt(v); }
 
+// dx^2 + dy^2 + dz^2 with every product and sum rounded on its own, as
+// the plain torch version rounds it: the _rn intrinsics are never
+// contracted into an FMA, so a pair within an ulp of a strict cutoff falls
+// on the same side of it in the kernel and in the plain version (coul/cut
+// steps by qqrd2e qi qj / rc^2 there).
+__device__ __forceinline__ float dist_sq(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+__device__ __forceinline__ double dist_sq(double dx, double dy, double dz) {
+  return __dadd_rn(__dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)),
+                   __dmul_rn(dz, dz));
+}
+
 // rsq clamped from below as the plain version clamps it
 template <typename T>
 __device__ __forceinline__ T clamp_rsq(T rsq) {

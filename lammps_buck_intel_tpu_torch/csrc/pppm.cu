@@ -1,5 +1,6 @@
 // PPPM on the global periodic mesh: charge deposit, half-spectrum solve
-// and ik field gather over the cell-slot planes (sm_90a).
+// and ik field gather over the cell-slot planes, and the per-atom energy
+// and virial (sm_90a).
 //
 // Replaces (lammps_buck_intel_tpu/models/kspace/pppm_cells.py, ik mode):
 //   pppm_deposit  <- deposit_rho_zblock (:580) with _axis_weights (:121)
@@ -13,6 +14,13 @@
 // :294-306, spectra :317-343, gather :372-387): there the planes are in
 // atom order (aid = identity), the box is read from the card (boxL) and
 // the caller rebuilds G and k from it.
+// Per atom (K10pa), models/kspace/pppm.py compute_peratom (:650), after
+// the deposit (pppm_deposit in atom order) and one rfftn:
+//   pppm_peratom_spectral <- phi_hat = G rho_hat and the six virial meshes'
+//                    spectra c_k phi_hat (:683-702);
+//   pppm_peratom_gather   <- the interpolation of u and the six v_c at
+//                    every atom with the self and background terms
+//                    (:672-683, :700-702), after one batched irfftn.
 // The JAX package moves charge through per-cell spline patches and one-hot
 // matrix products, TPU matrix-unit forms without scatters.  A GPU has
 // atomics in L2, so the port takes the generic global-mesh form: each slot
@@ -43,8 +51,16 @@
 //     block into partial[block][7] (summed by the caller, deterministic).
 //   gather: one thread per slot, 3 * p^3 reads of the flt E meshes (11 MB,
 //     L2 resident), sums in acc; bound by L2 read bandwidth.
+//   peratom_spectral: one grid-stride pass over the half spectrum: reads
+//     rho_hat and G, writes seven complex spectra; bytes bound.
+//   peratom_gather: one thread per atom, p^3 weights computed once and
+//     p^3 point reads of the seven meshes interleaved point-major (the
+//     wrapper's copy): one 32-byte sector a point in f32 where seven
+//     separate meshes would touch seven (29 MB in f32 at 105x112x77, in
+//     L2); bound by L2 read bandwidth.
 // Precision: deposit in flt (the JAX mesh dtype); spectral in acc; gather
-// flt weights and field, acc sums.  -O3 without --use_fast_math.  Kernels
+// flt weights and field, acc sums; the per-atom gather flt weights, acc
+// meshes and sums.  -O3 without --use_fast_math.  Kernels
 // launch on the caller's stream, allocate nothing, return
 // cudaGetLastError().
 
@@ -243,6 +259,118 @@ __global__ void pppm_spectral_kernel(const A* __restrict__ rhat,
   }
 }
 
+// K10pa spectral.  out holds seven interleaved complex spectra back to
+// back: phi_hat = G rhat, then c_k phi_hat for c = 1 - pref k_a k_a (xx,
+// yy, zz) and -pref k_a k_b (xy, xz, yz), pref = 2 (1/k^2 + 1/(4 g^2)).
+// nyq: an off-diagonal c is 0 on an interior kz plane where exactly one of
+// its two axes sits on its Nyquist index (the virial convention of
+// pppm_spectral_kernel: the full spectrum cancels that point against its
+// mirror), so the per-atom sums equal the full-spectrum virial.
+template <typename A>
+__global__ void pppm_peratom_spectral_kernel(const A* __restrict__ rhat,
+    const A* __restrict__ G, const A* __restrict__ kx,
+    const A* __restrict__ ky, const A* __restrict__ kz,
+    const A* __restrict__ wz, int nx, int ny, int nzh, A quarter_g2inv,
+    int nyq, A* __restrict__ out) {
+  const int npts = nx * ny * nzh;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < npts;
+       i += gridDim.x * blockDim.x) {
+    const int k = i % nzh;
+    const int j = (i / nzh) % ny;
+    const int l = i / (nzh * ny);
+    const A gv = G[i];
+    const A pr = gv * rhat[2 * i], pi = gv * rhat[2 * i + 1];
+    const A kxv = kx[l], kyv = ky[j], kzv = kz[k];
+    const A ksq = kxv * kxv + kyv * kyv + kzv * kzv;
+    const A ksafe = ksq == A(0) ? A(1) : ksq;
+    const A pref = A(2) * (A(1) / ksafe + quarter_g2inv);
+    A c[6] = {A(1) - pref * kxv * kxv, A(1) - pref * kyv * kyv,
+              A(1) - pref * kzv * kzv, -pref * kxv * kyv,
+              -pref * kxv * kzv, -pref * kyv * kzv};
+    if (nyq && wz[k] != A(1)) {
+      const bool qx = 2 * l == nx, qy = 2 * j == ny;
+      if (qx != qy) c[3] = A(0);
+      if (qx) c[4] = A(0);
+      if (qy) c[5] = A(0);
+    }
+    out[2 * i] = pr;
+    out[2 * i + 1] = pi;
+#pragma unroll
+    for (int m = 0; m < 6; ++m) {
+      const size_t o = 2 * (static_cast<size_t>(m + 1) * npts + i);
+      out[o] = c[m] * pr;
+      out[o + 1] = c[m] * pi;
+    }
+  }
+}
+
+// the eight acc values of one point of the point-major meshes, in aligned
+// vector loads (one 32-byte sector in float, two in double)
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const double* p, double (&v)[8]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const double2 a = *reinterpret_cast<const double2*>(p + 2 * k);
+    v[2 * k] = a.x;
+    v[2 * k + 1] = a.y;
+  }
+}
+
+// K10pa gather, one thread per atom (atom order): the seven acc meshes
+// interpolated through one stencil, point-major (meshes[point][8] = u,
+// v_xx .. v_yz and a pad, so a point is one aligned vector load), scaled
+// by scale = ngrid / V; eatom = qqrd2e (q u / 2 - self_c q^2 - bg_c q
+// qsum), vatom[i][c] = (qqrd2e / 2) q v_c.
+template <typename T, typename A>
+__global__ void pppm_peratom_gather_kernel(const T* __restrict__ x,
+    const T* __restrict__ y, const T* __restrict__ z, const T* __restrict__ q,
+    int n, T lox, T loy, T loz, T ihx, T ihy, T ihz, MeshGeom g,
+    const T* __restrict__ coef, const A* __restrict__ meshes, A scale,
+    A qqrd2e, A self_c, A bg_c, A qsum, A* __restrict__ eatom,
+    A* __restrict__ vatom) {
+  __shared__ T s_coef[kMaxOrder * kMaxOrder];
+  stage_coef(coef, g.p, s_coef);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int ix[kMaxOrder], iy[kMaxOrder], iz[kMaxOrder];
+  T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder];
+  axis_weights(x[i], lox, ihx, g.nx, g.p, s_coef, ix, wx);
+  axis_weights(y[i], loy, ihy, g.ny, g.p, s_coef, iy, wy);
+  axis_weights(z[i], loz, ihz, g.nz, g.p, s_coef, iz, wz);
+  A s[7] = {0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int a = 0; a < kMaxOrder; ++a) {
+    if (a >= g.p) continue;
+#pragma unroll
+    for (int b = 0; b < kMaxOrder; ++b) {
+      if (b >= g.p) continue;
+      const T wxy = wx[a] * wy[b];
+      const int row = (ix[a] * g.ny + iy[b]) * g.nz;
+#pragma unroll
+      for (int c = 0; c < kMaxOrder; ++c) {
+        if (c >= g.p) continue;
+        const A w = static_cast<A>(wxy * wz[c]);
+        A m[8];
+        load8(meshes + 8 * static_cast<size_t>(row + iz[c]), m);
+#pragma unroll
+        for (int v = 0; v < 7; ++v) s[v] += w * m[v];
+      }
+    }
+  }
+  const A qi = static_cast<A>(q[i]);
+  eatom[i] = (A(0.5) * qi * (s[0] * scale) - self_c * qi * qi -
+              bg_c * qi * qsum) * qqrd2e;
+  const A h = A(0.5) * qqrd2e * qi;
+  A* vi = vatom + static_cast<size_t>(i) * 6;
+#pragma unroll
+  for (int v = 0; v < 6; ++v) vi[v] = h * (s[v + 1] * scale);
+}
+
 inline int slot_blocks(int ns) { return (ns + kThreads - 1) / kThreads; }
 
 template <typename T>
@@ -376,4 +504,67 @@ extern "C" int pppm_gather(int prec, const void* x, const void* y,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GATHER_ARGS
+}
+
+// K10pa spectral.  prec: 0 = float, 1 = double (the acc type); rhat and G
+// as in pppm_spectral; out: 7 interleaved complex (nx, ny, nzh) spectra.
+extern "C" int pppm_peratom_spectral(int prec, const void* rhat,
+                                     const void* G, const void* kx,
+                                     const void* ky, const void* kz,
+                                     const void* wz, int nx, int ny, int nzh,
+                                     double quarter_g2inv, int nyq, void* out,
+                                     int nblocks, void* stream) {
+  if (nblocks <= 0 || nx <= 0 || ny <= 0 || nzh <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PERATOM_SPECTRAL(A)                                                  \
+  pppm_peratom_spectral_kernel<A><<<nblocks, kThreads, 0, s>>>(              \
+      static_cast<const A*>(rhat), static_cast<const A*>(G),                 \
+      static_cast<const A*>(kx), static_cast<const A*>(ky),                  \
+      static_cast<const A*>(kz), static_cast<const A*>(wz), nx, ny, nzh,     \
+      static_cast<A>(quarter_g2inv), nyq, static_cast<A*>(out))
+  switch (prec) {
+    case 0: PERATOM_SPECTRAL(float); break;
+    case 1: PERATOM_SPECTRAL(double); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PERATOM_SPECTRAL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10pa gather.  prec: 0 = (float, float), 1 = (float, double), 2 =
+// (double, double) for (flt, acc).  x, y, z, q: (n,) flt in atom order;
+// lo, invh: the mesh origin and 1/h; meshes: (nx * ny * nz, 8) acc, each
+// point's u, v_xx .. v_yz and a pad, 16-byte aligned; eatom (n) and
+// vatom (n, 6) acc.
+extern "C" int pppm_peratom_gather(int prec, const void* x, const void* y,
+                                   const void* z, const void* q, int n,
+                                   double lox, double loy, double loz,
+                                   double ihx, double ihy, double ihz,
+                                   int nx, int ny, int nz, int order,
+                                   const void* coef, const void* meshes,
+                                   double scale, double qqrd2e,
+                                   double self_c, double bg_c, double qsum,
+                                   void* eatom, void* vatom, void* stream) {
+  const MeshGeom g{nx, ny, nz, order};
+  if (!geom_ok(g) || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PERATOM_GATHER(T, A)                                                 \
+  pppm_peratom_gather_kernel<T, A><<<slot_blocks(n), kThreads, 0, s>>>(      \
+      static_cast<const T*>(x), static_cast<const T*>(y),                    \
+      static_cast<const T*>(z), static_cast<const T*>(q), n,                 \
+      static_cast<T>(lox), static_cast<T>(loy), static_cast<T>(loz),         \
+      static_cast<T>(ihx), static_cast<T>(ihy), static_cast<T>(ihz), g,      \
+      static_cast<const T*>(coef), static_cast<const A*>(meshes),            \
+      static_cast<A>(scale), static_cast<A>(qqrd2e),                         \
+      static_cast<A>(self_c), static_cast<A>(bg_c), static_cast<A>(qsum),    \
+      static_cast<A*>(eatom), static_cast<A*>(vatom))
+  switch (prec) {
+    case 0: PERATOM_GATHER(float, float); break;
+    case 1: PERATOM_GATHER(float, double); break;
+    case 2: PERATOM_GATHER(double, double); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PERATOM_GATHER
+  return static_cast<int>(cudaGetLastError());
 }

@@ -489,6 +489,25 @@ class CellPairSimulation:
         return {k: v.cpu().numpy()
                 for k, v in cs.to_atoms(self.grid, self.state).items()}
 
+    def atoms_on_device(self) -> dict:
+        """Atom-order snapshot on the device, read by the per-atom computes
+        and the dump writers: x, v, f (3, N) flt planes and image (3, N)
+        int32 (copies: the run updates the state in place), typ (N,)
+        int32, q (N,) flt, mass (N,) f64 (1 / the per-type 1/m of the
+        kick, as the JAX package reads it), special: the (N, S) int32
+        (partner ids, codes) of the special bonds or None, mol: the (N,)
+        int32 molecule ids of the same-molecule exclusion or None."""
+        n = self.n_atoms
+        a = cs.to_atoms(self.grid, self.state)
+        typ = a["typ"].to(torch.int32)
+        out = {k: a[k].t().contiguous() for k in ("x", "v", "f", "image")}
+        sp = self.special
+        return dict(
+            out, typ=typ, q=a["q"],
+            mass=(1.0 / self._minv_t.to(torch.float64))[typ.long()],
+            special=None if sp is None else (sp.idx[:n], sp.code[:n]),
+            mol=None if self._excl_mol is None else self._excl_mol[:n])
+
     # ---------- main loop ----------
 
     def _cadence(self, vmax: Optional[float]) -> int:

@@ -316,6 +316,7 @@ class NPTSimulation:
                                 ).to(dev).contiguous())
         # per-type mass and 1/mass in flt, as the JAX NPT runner bakes them
         self._mass_t = system.mass.to(device=dev, dtype=flt).contiguous()
+        self._mass64 = system.mass.to(dev, torch.float64)
         self._minv_t = (1.0 / self._mass_t).contiguous()
         self.dtf = float(0.5 * self.dt * units.ftm2v)
         self.dtv = float(self.dt)
@@ -580,6 +581,19 @@ class NPTSimulation:
         out["typ"] = np.array(self.typ.cpu().numpy())
         out["q"] = np.array(self.q.cpu().numpy())
         return out
+
+    def atoms_on_device(self) -> dict:
+        """Atom-order snapshot on the device, read by the per-atom computes
+        and the dump writers: x, v, f (3, N) flt planes and image (3, N)
+        int32 (copies: the run updates the state in place), typ (N,)
+        int32, q (N,) flt, mass (N,) f64, special: the (N, S) int32
+        (partner ids, codes) of the special bonds or None, mol: the (N,)
+        int32 molecule ids of the same-molecule exclusion or None."""
+        st = self.state
+        out = {k: getattr(st, k).clone() for k in ("x", "v", "f", "image")}
+        return dict(out, typ=self.typ, q=self.q,
+                    mass=self._mass64[self.typ.long()],
+                    special=self._special, mol=None)
 
     @property
     def current_box(self):

@@ -14,9 +14,13 @@ energies AND the virial are zeros (the kernels reduce both or neither).  On CUDA
 launches the kernels of csrc/bonded.cu through ``ops.bonded``; on CPU
 planes it runs ``compute_bonded_plain``, the same arithmetic in torch ops.
 Forces are ADDED to ``out`` (acc-typed planes) when given.  The per-term
-energy/virial weights of the multi-device engine (``eweights``) and the
-per-atom tallies (``compute_bonded_peratom``) are not ported (ROADMAP
-queue 1 items 15 and 16).
+energy/virial weights of the multi-device engine (``eweights``) are not
+ported (ROADMAP queue 1 item 16).
+
+``compute_bonded_peratom`` (compute pe/atom and stress/atom) splits each
+term's energy and 6-virial evenly among its atoms and keeps the CHARMM
+1-4 pair terms apart; CUDA planes launch csrc/bonded.cu's
+``bonded_peratom`` (K18b), CPU planes run ``compute_bonded_peratom_plain``.
 """
 from __future__ import annotations
 
@@ -289,3 +293,155 @@ def compute_bonded(style: BondedStyle, xs, box: Box, *, eflag=True,
             f"no kernel and no plain version for device {xs[0].device}")
     return compute_bonded_plain(style, xs, box, eflag=eflag,
                                 acc_dtype=acc_dtype, inv=inv, out=out)
+
+
+BONDED_KINDS = ("bond", "angle", "dihedral", "improper")
+
+
+def _virial6_terms(acc, *pairs) -> torch.Tensor:
+    """Per-term (M, 6) virial sum over pairs of a_k (x) b_k, each component
+    rounded to acc once."""
+    return torch.stack([
+        sum(a[:, i] * b[:, j] for a, b in pairs)
+        for i, j in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))],
+        -1).to(acc)
+
+
+def compute_bonded_peratom_plain(style: BondedStyle, xs, box: Box, *,
+                                 acc_dtype=torch.float64,
+                                 include=BONDED_KINDS):
+    """Plain torch version of ``compute_bonded_peratom`` (any device), the
+    JAX ``compute_bonded_peratom`` with the dihedral and improper virials
+    from the written-out gradients of ``charmm.py`` (the JAX package takes
+    them from jax.grad of the same energies)."""
+    from .charmm import (_bond_vectors, dihedral_energy_terms,
+                         improper_energy, phi_gradient)
+
+    acc, flt, dev = acc_dtype, xs[0].dtype, xs[0].device
+    x = torch.stack(tuple(xs), -1)
+    n = x.shape[0]
+    L = (box if isinstance(box, torch.Tensor)
+         else [float(v) for v in np.asarray(box.lengths)])
+    t = style.tables_on(dev, flt)
+    eatom = torch.zeros(n, dtype=acc, device=dev)
+    vatom = torch.zeros((n, 6), dtype=acc, device=dev)
+    e14 = torch.zeros(n, dtype=acc, device=dev)
+    v14 = torch.zeros((n, 6), dtype=acc, device=dev)
+
+    def share(ea, va, e_t, v_t, idx):
+        m = float(idx.shape[1])
+        for col in range(idx.shape[1]):
+            ea.index_add_(0, idx[:, col], e_t.to(acc) / m)
+            va.index_add_(0, idx[:, col], v_t / m)
+
+    if "bond" in include and len(style.bonds):
+        idx = t["bonds"][:, 1:].long()
+        bt = t["bonds"][:, 0].long()
+        K, r0 = t["bond_coef"][bt, 0], t["bond_coef"][bt, 1]
+        d = minimg(x[idx[:, 0]] - x[idx[:, 1]], L)
+        r = torch.sqrt((d * d).sum(1))
+        dr = r - r0
+        rk = K * dr
+        fbond = torch.where(r > 0, -2.0 * rk / r, torch.zeros_like(r))
+        share(eatom, vatom, rk * dr,
+              _virial6_terms(acc, (fbond[:, None] * d, d)), idx)
+
+    if "angle" in include and len(style.angles):
+        idx = t["angles"][:, 1:].long()
+        at = t["angles"][:, 0].long()
+        K, th0 = t["angle_coef"][at, 0], t["angle_coef"][at, 1]
+        d1 = minimg(x[idx[:, 0]] - x[idx[:, 1]], L)
+        d2 = minimg(x[idx[:, 2]] - x[idx[:, 1]], L)
+        r1sq, r2sq = (d1 * d1).sum(1), (d2 * d2).sum(1)
+        r1, r2 = torch.sqrt(r1sq), torch.sqrt(r2sq)
+        c = torch.clamp((d1 * d2).sum(1) / (r1 * r2), -1.0, 1.0)
+        s = torch.sqrt(torch.clamp(1.0 - c * c, min=1e-8))
+        dtheta = torch.acos(c) - th0
+        tk = K * dtheta
+        a = -2.0 * tk / s
+        a11, a12, a22 = a * c / r1sq, -a / (r1 * r2), a * c / r2sq
+        f1 = a11[:, None] * d1 + a12[:, None] * d2
+        f3 = a22[:, None] * d2 + a12[:, None] * d1
+        share(eatom, vatom, tk * dtheta,
+              _virial6_terms(acc, (d1, f1), (d2, f3)), idx)
+        kub, rub = t["angle_coef"][at, 2], t["angle_coef"][at, 3]
+        if bool((kub != 0).any()):
+            # the Urey-Bradley 1-3 term, shared by the outer atoms
+            d = minimg(x[idx[:, 0]] - x[idx[:, 2]], L)
+            r = torch.sqrt(torch.clamp((d * d).sum(1), min=1e-12))
+            dr = r - rub
+            rk = kub * dr
+            fub = -2.0 * rk / r
+            share(eatom, vatom, rk * dr,
+                  _virial6_terms(acc, (fub[:, None] * d, d)),
+                  idx[:, [0, 2]])
+
+    def grad_virial(b, g):
+        # -sum_k b_k (x) g_k, in the JAX package's order of terms
+        return torch.stack([
+            -b[0][:, i] * g[0][:, j] - b[1][:, i] * g[1][:, j]
+            - b[2][:, i] * g[2][:, j]
+            for i, j in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))],
+            -1).to(acc)
+
+    if "dihedral" in include and len(style.dihedrals):
+        idx = t["dihedrals"][:, 1:].long()
+        dt = t["dihedrals"][:, 0].long()
+        coef, mult = t["dihedral_coef"], t["dihedral_mult"]
+        K, d_cos, n_i = coef[dt, 0], coef[dt, 1], mult[dt]
+        zero = torch.zeros_like(K)
+        b = _bond_vectors(x, L, idx)
+        ed, _, _, sin_n = dihedral_energy_terms(*b, K, n_i, d_cos, zero,
+                                                zero, zero)
+        g = phi_gradient(-K * n_i.to(K.dtype) * sin_n * d_cos, *b)
+        share(eatom, vatom, ed, grad_virial(b, g), idx)
+        if t["d14"] is not None:
+            # the 1-4 pair terms: the pair-style tally (halves on atoms 1
+            # and 4), kept apart for the pair channel
+            a12, a6, qq = t["d14"][:, 0], t["d14"][:, 1], t["d14"][:, 2]
+            r14 = b[0] - b[1] - b[2]
+            rsq = torch.clamp((r14 * r14).sum(-1), min=1e-12)
+            r6inv = 1.0 / (rsq * rsq * rsq)
+            elj = r6inv * (a12 * r6inv - a6)
+            ec = qq / torch.sqrt(rsq)
+            fpair = (r6inv * (12.0 * a12 * r6inv - 6.0 * a6) + ec) / rsq
+            share(e14, v14, elj + ec,
+                  _virial6_terms(acc, (fpair[:, None] * r14, r14)),
+                  idx[:, [0, 3]])
+
+    if "improper" in include and len(style.impropers):
+        idx = t["impropers"][:, 1:].long()
+        it = t["impropers"][:, 0].long()
+        K, chi0 = t["improper_coef"][it, 0], t["improper_coef"][it, 1]
+        b = _bond_vectors(x, L, idx)
+        e, dchi, inside = improper_energy(*b, K, chi0)
+        side = torch.sign((b[0] * torch.linalg.cross(b[1], b[2])).sum(-1))
+        w = torch.where(inside, 2.0 * K * dchi * side, torch.zeros_like(K))
+        share(eatom, vatom, e, grad_virial(b, phi_gradient(w, *b)), idx)
+    return eatom, vatom, e14, v14
+
+
+def compute_bonded_peratom(style: BondedStyle, xs, box: Box, *,
+                           acc_dtype=torch.float64, include=BONDED_KINDS):
+    """Per-atom bonded energy and virial (the ev_tally2/3/4 equal-division
+    convention: each term's energy and virial split evenly among its
+    atoms, so the sums equal ``compute_bonded``'s).  xs: the (x, y, z)
+    planes in atom order; box: a host ``Box`` or a (3,) tensor of lengths;
+    include: the kinds tallied.  Returns (eatom (N,), vatom (N, 6), e14
+    (N,), v14 (N, 6)) in acc: the CHARMM 1-4 pair terms (halves on atoms 1
+    and 4, with the dihedrals) apart, for the pair channel.  CUDA planes
+    launch K18b, CPU planes run ``compute_bonded_peratom_plain``."""
+    bad = set(include) - set(BONDED_KINDS)
+    if bad:
+        raise ValueError(f"unknown bonded kinds {sorted(bad)}")
+    if xs[0].is_cuda:
+        from ...ops import bonded as bonded_ops
+
+        return bonded_ops.compute_bonded_peratom(style, xs, box,
+                                                 acc_dtype=acc_dtype,
+                                                 include=include)
+    if xs[0].device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {xs[0].device}")
+    return compute_bonded_peratom_plain(style, xs, box, acc_dtype=acc_dtype,
+                                        include=include)

@@ -16,9 +16,15 @@ virial; K11b ``ewald_force`` the forces from them, recomputing the
 phases instead of keeping (N, K) arrays.  On CPU planes it runs
 ``ewald_compute_plain``, the JAX ``_ewald_compute`` as written ((N, K)
 phase, cos and sin, torch.matmul contractions, sums in acc) over chunks
-of k vectors.  The traced-box form (``_ewald_compute_traced``, fix npt)
-and the per-atom form (``ewald_compute_peratom``) are ROADMAP queue 1
-items 10 / 14 and 15.
+of k vectors.
+
+``ewald_compute_peratom(ew, x, q)`` (compute pe/atom and stress/atom, at
+dump cadence) gives each atom its share of the energy and the 6-virial:
+S(k) from K11a, then per atom share_k = cos_ik Re_k + sin_ik Im_k
+contracted against ug_k and the six ug_k vfac_c(k) (K11pa
+``ewald_peratom``); on CPU planes ``ewald_compute_peratom_plain``.  The
+traced-box form (``_ewald_compute_traced``, fix npt) is ROADMAP queue 1
+items 10 / 14.
 """
 from __future__ import annotations
 
@@ -90,8 +96,13 @@ class Ewald:
         vfac = torch.stack([1.0 - pref * kx * kx, 1.0 - pref * ky * ky,
                             1.0 - pref * kz * kz, -pref * kx * ky,
                             -pref * kx * kz, -pref * ky * kz]).contiguous()
-        c = dict(kv=kv, kv_rows=kv.t().contiguous(), ug=up(self.ug, flt),
-                 ug_acc=up(self.ug, acc), vfac=vfac)
+        ug = up(self.ug, flt)
+        c = dict(kv=kv, kv_rows=kv.t().contiguous(), ug=ug,
+                 ug_acc=up(self.ug, acc), vfac=vfac,
+                 # the per-atom contraction weights (7, K) in flt: ug and
+                 # the six ug vfac_c
+                 peratom_w=torch.cat([ug[None, :],
+                                      ug[None, :] * vfac.to(flt)]))
         self._consts[key] = c
         return c
 
@@ -239,3 +250,74 @@ def ewald_compute_kernels(ew: Ewald, x: torch.Tensor, q: torch.Tensor,
     virial = (sk.sums[1:7] if vflag
               else torch.zeros(6, dtype=ew.acc_dtype, device=x.device))
     return KSpaceResult(f=f, elong=elong, virial=virial)
+
+
+def _self_terms(ew: Ewald, qa: torch.Tensor) -> torch.Tensor:
+    """Per-atom self and background terms, g / sqrt(pi) q^2 + pi / (2 g^2
+    V) q qsum (before qqrd2e)."""
+    g, V = ew.g_ewald, float(ew.volume)
+    return (g / math.sqrt(math.pi) * qa * qa
+            + math.pi / (2.0 * g * g * V) * qa * ew.qsum)
+
+
+def ewald_compute_peratom_plain(ew: Ewald, x: torch.Tensor,
+                                q: torch.Tensor):
+    """The JAX ``ewald_compute_peratom`` in torch ops, any device, over
+    chunks of k vectors: S(k) in acc (one pass), then per atom share =
+    cos Re + sin Im (Re, Im rounded to x's dtype, as the JAX package rounds
+    them) contracted against ug and the six ug vfac_c in x's dtype, the
+    sums in acc."""
+    flt, acc, dev = x.dtype, ew.acc_dtype, x.device
+    n = x.shape[1]
+    c = ew.consts(dev, flt)
+    kv, w = c["kv"], c["peratom_w"]
+    K = kv.shape[0]
+    xa = x.t()
+    qa = q.to(acc)
+    chunk = max(1, _CHUNK_ELEMS // max(n, 1))
+    s_re = torch.empty(K, dtype=acc, device=dev)
+    s_im = torch.empty(K, dtype=acc, device=dev)
+    for k0 in range(0, K, chunk):
+        k1 = min(K, k0 + chunk)
+        phase = xa @ kv[k0:k1].t()
+        s_re[k0:k1] = qa @ torch.cos(phase).to(acc)
+        s_im[k0:k1] = qa @ torch.sin(phase).to(acc)
+    re, im = s_re.to(flt), s_im.to(flt)
+    sums = torch.zeros((n, 7), dtype=acc, device=dev)
+    for k0 in range(0, K, chunk):
+        k1 = min(K, k0 + chunk)
+        phase = xa @ kv[k0:k1].t()
+        share = torch.cos(phase) * re[k0:k1] + torch.sin(phase) * im[k0:k1]
+        sums += (share @ w[:, k0:k1].t()).to(acc)
+    qq = float(ew.qqrd2e)
+    eatom = (qa * sums[:, 0] - _self_terms(ew, qa)) * qq
+    vatom = (qa[:, None] * sums[:, 1:]) * qq
+    return eatom, vatom
+
+
+def ewald_compute_peratom(ew: Ewald, x: torch.Tensor, q: torch.Tensor):
+    """Per-atom k-space energy and virial of the Ewald sum (the stock
+    ewald.cpp eatom / vatom contract, the JAX ``ewald_compute_peratom``):
+
+    eatom_i = qqrd2e [q_i sum_k ug_k share_ik - g / sqrt(pi) q_i^2
+                      - pi / (2 g^2 V) q_i qsum],
+    vatom_i,c = qqrd2e q_i sum_k ug_k vfac_c(k) share_ik,
+
+    share_ik = cos(k.x_i) Re S(k) + sin(k.x_i) Im S(k), so the sums equal
+    elong and the global virial.  Returns (eatom (N,), vatom (N, 6)) in
+    acc; x: (3, N) planes, q (N,).  CUDA planes launch K11a (S(k)) and
+    K11pa, CPU planes run ``ewald_compute_peratom_plain``."""
+    if x.is_cuda:
+        from ...ops import ewald as ewald_ops
+
+        c = ew.consts(x.device, x.dtype)
+        xs = tuple(x.unbind(0))
+        sk = ewald_ops.ewald_sk(xs, q, c, ew.qqrd2e, ew.acc_dtype)
+        g, V = ew.g_ewald, float(ew.volume)
+        return ewald_ops.ewald_peratom(
+            xs, q, c, sk.s_re, sk.s_im, ew.qqrd2e, ew.acc_dtype,
+            g / math.sqrt(math.pi), math.pi / (2.0 * g * g * V), ew.qsum)
+    if x.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {x.device}")
+    return ewald_compute_peratom_plain(ew, x, q)

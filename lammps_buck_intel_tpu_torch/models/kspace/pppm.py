@@ -20,6 +20,16 @@ variable-cell ``TracedPPPM`` runs too), with the static influence function
 ``greensfn``.  On CPU planes it is ``pppm_compute_plain``, the JAX
 ``_pppm_compute`` line for line (a full-spectrum ``fftn``, one ``ifftn``
 per field axis).  The cell engine's solver is ``pppm_cells.CellPPPM``.
+
+``compute_peratom(pm, x, q)`` (compute pe/atom and stress/atom, at dump
+cadence) gives each atom its k-space energy and 6-virial: the K5 deposit
+in atom order, one rfftn, ``peratom_spectral`` (phi_hat = G rho_hat and
+the six virial spectra c_k phi_hat in one pass, K10pa), one batched
+irfftn of the seven spectra, ``peratom_gather`` (the seven meshes
+interpolated at every atom through one stencil, then the self and
+background terms, K10pa); CUDA planes launch the kernels of
+csrc/pppm.cu, CPU planes run each stage's plain version
+(``compute_peratom_plain`` runs them all on any device).
 """
 from __future__ import annotations
 
@@ -278,6 +288,125 @@ def pppm_compute_plain(pm: PPPM, x: torch.Tensor, q: torch.Tensor,
     return KSpaceResult(f=f, elong=elong, virial=virial)
 
 
+_VIRIAL_AXES = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
+
+
+def peratom_spectral_plain(pm: PPPM, consts: dict, rhat: torch.Tensor,
+                           nyquist: bool = True) -> torch.Tensor:
+    """(7, nx, ny, nzh) complex: phi_hat = G rho_hat, then c_k phi_hat for
+    the six virial factors c = delta_ab - pref k_a k_b, pref = 2 (1/k^2 +
+    1/(4 g^2)) (the JAX ``compute_peratom``'s spectra, in acc).  With
+    ``nyquist`` an off-diagonal factor is 0 on an interior kz plane where
+    exactly one of its two axes sits on its Nyquist index (the virial
+    convention of ``pppm_cells.spectral_plain``): there k_a k_b changes sign
+    between a point and its mirror, the full spectrum cancels the pair,
+    and the per-atom sums then equal the global virial of the
+    full-spectrum solve exactly.  The JAX package's irfftn of the half
+    spectrum keeps the pair (``nyquist=False``)."""
+    G = consts["G_half"]
+    kx, ky, kz = consts["k3"]
+    phi = G * rhat
+    ksq = kx * kx + ky * ky + kz * kz
+    ksq_safe = torch.where(ksq == 0.0, torch.ones_like(ksq), ksq)
+    pref = 2.0 * (1.0 / ksq_safe + 0.25 / (pm.g_ewald * pm.g_ewald))
+    k = (kx, ky, kz)
+    comps = [(1.0 if a == b else 0.0) - pref * k[a] * k[b]
+             for a, b in _VIRIAL_AXES]
+    if nyquist:
+        inner = consts["wz"] != 1.0
+        nyq = []
+        for a in (0, 1):
+            n = pm.grid[a]
+            idx = torch.arange(n, device=G.device).view(
+                (n, 1, 1) if a == 0 else (1, n, 1))
+            nyq.append((idx == n // 2) if n % 2 == 0
+                       else torch.zeros_like(idx, dtype=torch.bool))
+        for c, drop in ((3, nyq[0] != nyq[1]), (4, nyq[0]), (5, nyq[1])):
+            comps[c] = torch.where(inner & drop, torch.zeros_like(comps[c]),
+                                   comps[c])
+    return torch.stack([phi] + [c * phi for c in comps])
+
+
+def peratom_gather_plain(pm: PPPM, planes, meshes: torch.Tensor,
+                         scale: float):
+    """Per-atom (eatom (N,), vatom (N, 6)) in the meshes' dtype: the seven
+    meshes (7, nx, ny, nz) interpolated at every atom of ``planes`` (x, y,
+    z, q), times ``scale`` (ngrid / V); eatom = qqrd2e (q u / 2 - g /
+    sqrt(pi) q^2 - pi / (2 g^2 V) q qsum), vatom_c = qqrd2e q v_c / 2."""
+    from .pppm_cells import _CHUNK, _stencil, mesh_geometry
+
+    acc = meshes.dtype
+    n = planes.x.shape[0]
+    flat7 = meshes.reshape(7, -1)
+    s = torch.empty((n, 7), dtype=acc, device=meshes.device)
+    geo = mesh_geometry(pm, None)
+    for s0 in range(0, n, _CHUNK):
+        s1 = min(n, s0 + _CHUNK)
+        flat, w3 = _stencil(pm, planes, s0, s1, geo)
+        for c in range(7):
+            s[s0:s1, c] = (w3 * flat7[c][flat]).sum((1, 2, 3))
+    s = s * scale
+    q = planes.q.to(acc)
+    g, V = pm.g_ewald, float(pm.volume)
+    eatom = (0.5 * q * s[:, 0] - g / math.sqrt(math.pi) * q * q
+             - math.pi / (2.0 * g * g * V) * q * pm.qsum) * pm.qqrd2e
+    vatom = (0.5 * pm.qqrd2e) * q[:, None] * s[:, 1:]
+    return eatom, vatom
+
+
+def _peratom_stages(pm: PPPM, x: torch.Tensor, q: torch.Tensor,
+                    nyquist: bool, plain: bool):
+    from .pppm_cells import AtomPlanes, deposit, deposit_plain
+
+    acc, flt, dev = pm.acc_dtype, x.dtype, x.device
+    n = x.shape[1]
+    c = pm.consts(dev, flt)
+    aid = c.get("aid")
+    if aid is None or aid.shape[0] != n:
+        aid = c["aid"] = torch.arange(n, dtype=torch.int32, device=dev)
+    planes = AtomPlanes(x[0], x[1], x[2], q, aid)
+    mesh = (deposit_plain(pm, planes) if plain
+            else deposit(pm, planes, n, c))
+    rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
+    if plain or not x.is_cuda:
+        spectra = peratom_spectral_plain(pm, c, rhat, nyquist)
+    else:
+        from ...ops import pppm as pppm_ops
+
+        spectra = pppm_ops.peratom_spectral(pm, c, rhat, nyquist)
+    # cuFFT may hand back permuted strides; the gather reads dense meshes
+    meshes = torch.fft.irfftn(spectra, s=pm.grid, dim=(1, 2, 3)).contiguous()
+    nx, ny, nz = pm.grid
+    scale = (nx * ny * nz) / float(pm.volume)
+    if plain or not x.is_cuda:
+        return peratom_gather_plain(pm, planes, meshes, scale)
+    from ...ops import pppm as pppm_ops
+
+    return pppm_ops.peratom_gather(pm, planes, meshes, c["coef"], scale)
+
+
+def compute_peratom_plain(pm: PPPM, x: torch.Tensor, q: torch.Tensor,
+                          nyquist: bool = True):
+    """``compute_peratom`` with every stage's plain version, on any device
+    (the version the K10pa kernels are held to on the card)."""
+    return _peratom_stages(pm, x, q, nyquist, plain=True)
+
+
+def compute_peratom(pm: PPPM, x: torch.Tensor, q: torch.Tensor,
+                    nyquist: bool = True):
+    """Per-atom k-space energy and virial (the eflag_atom / vflag_atom
+    contract of pppm_intel.cpp:224-252, the JAX ``compute_peratom``):
+    (eatom (N,), vatom (N, 6)) in acc, energy units, with sum eatom =
+    elong and sum vatom = the virial of ``PPPM.compute`` (exactly, with
+    ``nyquist``; see ``peratom_spectral_plain``).  x: (3, N) planes, q
+    (N,).  CUDA planes launch K5 and K10pa around cuFFT, CPU planes run
+    the plain stages."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(
+            f"no kernel and no plain version for device {x.device}")
+    return _peratom_stages(pm, x, q, nyquist, plain=False)
+
+
 def pppm_g_ewald(box: Box, q, cutoff: float, accuracy_rel: float,
                  qqrd2e: float) -> float:
     """The g_ewald ``setup_pppm`` chooses when none is given; it does not
@@ -302,11 +431,14 @@ def setup_pppm(
     acc_dtype: torch.dtype = torch.float32,
     diff: str = "ik",
     slab: Optional[float] = None,
+    grid: Optional[tuple[int, int, int]] = None,
 ) -> PPPM:
     """Mesh sizing and influence function, the JAX package's algorithm.
 
     multiple_of: cell-aligned meshes (each axis a multiple of the cell
-    count, at least the accuracy-driven size and grid_min)."""
+    count, at least the accuracy-driven size and grid_min).  grid: the mesh
+    as given, no sizing (a solver rebuilt on a new box with its mesh
+    pinned)."""
     if diff != "ik":
         raise NotImplementedError(
             f"pppm diff {diff!r} is not ported (ik only): ROADMAP queue 1 "
@@ -332,6 +464,9 @@ def setup_pppm(
     if g_ewald is None:
         g_ewald = pppm_g_ewald(box, q, cutoff, accuracy_rel, qqrd2e)
 
+    if grid is not None:
+        return _make_pppm(tuple(int(v) for v in grid), L, box, g_ewald,
+                          order, qsum, qsqsum, qqrd2e, volume, acc_dtype)
     grid = []
     for ax in range(3):
         n = 2
@@ -348,7 +483,12 @@ def setup_pppm(
             grid.append(m * -(-n // m))
         else:
             grid.append(_next_good(n))
-    grid = tuple(grid)
+    return _make_pppm(tuple(grid), L, box, g_ewald, order, qsum, qsqsum,
+                      qqrd2e, volume, acc_dtype)
+
+
+def _make_pppm(grid, L, box, g_ewald, order, qsum, qsqsum, qqrd2e, volume,
+               acc_dtype) -> PPPM:
     nx, ny, nz = grid
 
     def kvals(n, prd):
@@ -360,7 +500,7 @@ def setup_pppm(
         kx=kvals(nx, L[0]), ky=kvals(ny, L[1]), kz=kvals(nz, L[2]),
         qsum=qsum, qsqsum=qsqsum, qqrd2e=qqrd2e, volume=volume,
         box_lo=tuple(float(v) for v in np.asarray(box.lo)),
-        h=tuple(float(W[i] / grid[i]) for i in range(3)),
+        h=tuple(float(L[i] / grid[i]) for i in range(3)),
         acc_dtype=acc_dtype,
     )
 

@@ -13,8 +13,9 @@ halved.  The per-pair physics is ``styles.pair_terms``.
 On CUDA planes ``compute_pair`` launches csrc/nlist.cu's pair kernel
 (``ops.nlist.compute_pair``), on CPU planes it runs
 ``compute_pair_plain``.  ``compute_pair_peratom`` (per-atom energies and
-virials, compute pe/atom and stress/atom) waits for ROADMAP queue 1 item
-15.
+virials, the tallies of compute pe/atom and stress/atom) launches the same
+kernel's per-atom variant (K9d, ``ops.nlist.compute_pair_peratom``) on
+CUDA planes and runs ``compute_pair_peratom_plain`` on CPU planes.
 """
 from __future__ import annotations
 
@@ -132,3 +133,69 @@ def compute_pair(style: PairStyle, x: torch.Tensor, typ, q, boxL, nl, *,
             f"no kernel and no plain version for device {x.device}")
     return compute_pair_plain(style, x, typ, q, boxL, nl, eflag=eflag,
                               acc_dtype=acc_dtype, use_special=use_special)
+
+
+def compute_pair_peratom_plain(style: PairStyle, x: torch.Tensor, typ, q,
+                               boxL, nl, *, acc_dtype=torch.float32,
+                               use_special: bool = True):
+    """Plain torch version of ``compute_pair_peratom`` (any device), the JAX
+    ``compute_pair_peratom`` over chunks of atoms."""
+    check_ported(style)
+    flt, dev = x.dtype, x.device
+    n = x.shape[1]
+    eatom = torch.empty(n, dtype=acc_dtype, device=dev)
+    vatom = torch.empty((n, 6), dtype=acc_dtype, device=dev)
+    for a0 in range(0, n, _CHUNK):
+        a1 = min(n, a0 + _CHUNK)
+        j = nl.idx[a0:a1].long()
+        mask = j < n
+        j_safe = torch.clamp(j, max=n - 1)
+        d = list(minimum_image_planes(
+            *(x[ax, a0:a1, None] - x[ax][j_safe] for ax in range(3)), boxL))
+        rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        rsq = torch.where(mask, rsq, torch.full_like(rsq, 1e30))
+        coef = gather_coefs(style.tables, typ[a0:a1, None], typ[j_safe], flt)
+        if style.cfg.has_coul:
+            qi, qj = q[a0:a1, None], q[j_safe]
+        else:
+            qi = qj = 0.0
+        if use_special:
+            sb = nl.sb[a0:a1].long()
+            f_lj = _select_small(style.special_lj, sb, flt)
+            f_coul = _select_small(style.special_coul, sb, flt)
+        else:
+            f_lj = f_coul = 1.0
+        fs, evdwl, ecoul = pair_terms(style, rsq, coef, qi, qj, f_lj, f_coul,
+                                      eflag=True)
+        zero = torch.zeros_like(fs)
+        epair = torch.where(mask, evdwl + ecoul, zero).to(acc_dtype)
+        eatom[a0:a1] = 0.5 * epair.sum(1)
+        w = torch.where(mask, fs, zero) * 0.5
+        vatom[a0:a1] = torch.stack([
+            (w * d[a] * d[b]).to(acc_dtype).sum(1)
+            for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))],
+            -1)
+    return eatom, vatom
+
+
+def compute_pair_peratom(style: PairStyle, x: torch.Tensor, typ, q, boxL,
+                         nl, *, acc_dtype=torch.float32,
+                         use_special: bool = True):
+    """Per-atom pair energy and virial (the eflag_atom / vflag_atom contract
+    of pair_buck_intel.cpp:303-322): each atom receives half of every pair
+    term on its row of the full list.  Returns (eatom (N,), vatom (N, 6))
+    in ``acc_dtype``; arguments as ``compute_pair``.  CUDA planes launch
+    K9d, CPU planes run ``compute_pair_peratom_plain``."""
+    if x.is_cuda:
+        from ...ops import nlist as nlist_ops
+
+        check_ported(style)
+        return nlist_ops.compute_pair_peratom(
+            style, tuple(x.unbind(0)), typ, q, boxL, nl, acc_dtype=acc_dtype,
+            use_special=use_special)
+    if x.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {x.device}")
+    return compute_pair_peratom_plain(style, x, typ, q, boxL, nl,
+                                      acc_dtype=acc_dtype,
+                                      use_special=use_special)

@@ -282,6 +282,28 @@ def build(x: torch.Tensor, lo: torch.Tensor, L: torch.Tensor,
     return build_cell(x, lo, L, spec, special)
 
 
+def exclude_molecule(nl: NeighborList, mol: torch.Tensor) -> NeighborList:
+    """The list without the pairs of one molecule (the same-molecule
+    exclusion of fix rigid/small and exclude_intra, which the JAX build
+    applies as it builds): each row's kept columns moved to its front in
+    their order, the sentinel N after them, nnei their count.  Torch ops on
+    any device; mol: (N,) molecule ids."""
+    n, k = nl.idx.shape
+    idx = nl.idx.long()
+    live = (torch.arange(k, device=idx.device)[None, :]
+            < torch.clamp(nl.nnei, max=k)[:, None].long()) & (idx < n)
+    m = mol.long()
+    keep = live & (m[torch.clamp(idx, max=n - 1)] != m[:, None])
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    kept = torch.gather(keep, 1, order)
+    idx = torch.where(kept, torch.gather(idx, 1, order), n).to(torch.int32)
+    sb = torch.where(kept, torch.gather(nl.sb, 1, order),
+                     torch.zeros_like(nl.sb))
+    idx, sb = _kmajor(idx, sb)
+    return NeighborList(idx=idx, sb=sb, nnei=keep.sum(1).to(torch.int32),
+                        overflow=nl.overflow)
+
+
 def needs_rebuild(x: torch.Tensor, L: torch.Tensor, x0: torch.Tensor,
                   half_skin_sq: float) -> torch.Tensor:
     """``neigh_modify check yes``'s displacement test (the JAX package's

@@ -1,7 +1,8 @@
 """Launch wrappers of the bonded kernels (csrc/bonded.cu).
 
-The plain version of the same function is
-``models.bonded.harmonic.compute_bonded_plain``.
+The plain versions of the same functions are
+``models.bonded.harmonic.compute_bonded_plain`` and
+``compute_bonded_peratom_plain``.
 """
 from __future__ import annotations
 
@@ -29,8 +30,12 @@ def _lib():
             head + [_P, _I, _P, _P, _I, _P] + tail)
         lib.dihedral_charmm.argtypes = head + [_P, _I, _P, _P, _P] + tail
         lib.improper_harmonic.argtypes = head + [_P, _I, _P] + tail
+        lib.bonded_peratom.argtypes = ([_I] + [_P] * 4 + [_I] + [_P] * 2
+                                       + [_I] + [_P] * 2 + [_I]
+                                       + [_P] * 4 + [_I, _P] + [_D] * 3
+                                       + [_P] * 6)
         for fn in (lib.bonded_bond_angle, lib.dihedral_charmm,
-                   lib.improper_harmonic):
+                   lib.improper_harmonic, lib.bonded_peratom):
             fn.restype = _I
     return lib
 
@@ -49,12 +54,9 @@ def _check(rc: int, name: str):
     LAUNCHES[name] += 1
 
 
-def compute_bonded(style, xs, box, *, eflag: bool, acc_dtype, inv=None,
-                   out=None) -> BondedResult:
-    """Bonded forces on the card: one launch each of bonded_bond_angle,
-    dihedral_charmm and improper_harmonic (those with terms), which add
-    their forces to ``out`` with atomics; eflag also reduces the energies
-    and the virial (per-block partials, summed here)."""
+def _frame(xs, box, acc_dtype):
+    """(dev, flt, prec, box arguments) of a launch, the planes checked;
+    box: a host Box or the (3,) lengths on the card."""
     dev, flt = xs[0].device, xs[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"bonded kernels need CUDA tensors, got {dev}")
@@ -64,6 +66,52 @@ def compute_bonded(style, xs, box, *, eflag: bool, acc_dtype, inv=None,
     m = xs[0].shape[0]
     for p, name in zip(xs, "xyz"):
         check_plane(p, name, flt, m, dev)
+    if isinstance(box, torch.Tensor):
+        # the variable-cell path: the kernels read the lengths on the card
+        check_plane(box, "box lengths", flt, 3, dev)
+        L = [1.0, 1.0, 1.0, box.data_ptr()]
+    else:
+        L = [float(v) for v in box.lengths] + [None]
+    return dev, flt, prec, L
+
+
+def compute_bonded_peratom(style, xs, box, *, acc_dtype, include):
+    """K18b on the card: (eatom (N,), vatom (N, 6), e14 (N,), v14 (N, 6))
+    acc, one launch over the terms of the kinds in ``include``; xs in atom
+    order."""
+    dev, flt, prec, L = _frame(xs, box, acc_dtype)
+    n = xs[0].shape[0]
+    t = style.tables_on(dev, flt)
+    counts = {k: (len(getattr(style, f"{k}s")) if k in include else 0)
+              for k in ("bond", "angle", "dihedral", "improper")}
+    out = (torch.zeros(n, dtype=acc_dtype, device=dev),
+           torch.zeros((n, 6), dtype=acc_dtype, device=dev),
+           torch.zeros(n, dtype=acc_dtype, device=dev),
+           torch.zeros((n, 6), dtype=acc_dtype, device=dev))
+    if not sum(counts.values()):
+        return out
+    d14 = t["d14"]
+    _check(_lib().bonded_peratom(
+        prec, *(p.data_ptr() for p in xs), t["bonds"].data_ptr(),
+        counts["bond"], t["bond_coef"].data_ptr(), t["angles"].data_ptr(),
+        counts["angle"], t["angle_coef"].data_ptr(),
+        t["dihedrals"].data_ptr(), counts["dihedral"],
+        t["dihedral_coef"].data_ptr(), t["dihedral_mult"].data_ptr(),
+        None if d14 is None else d14.data_ptr(), t["impropers"].data_ptr(),
+        counts["improper"], t["improper_coef"].data_ptr(), *L,
+        *(o.data_ptr() for o in out),
+        torch.cuda.current_stream(dev).cuda_stream), "bonded_peratom")
+    return out
+
+
+def compute_bonded(style, xs, box, *, eflag: bool, acc_dtype, inv=None,
+                   out=None) -> BondedResult:
+    """Bonded forces on the card: one launch each of bonded_bond_angle,
+    dihedral_charmm and improper_harmonic (those with terms), which add
+    their forces to ``out`` with atomics; eflag also reduces the energies
+    and the virial (per-block partials, summed here)."""
+    dev, flt, prec, L = _frame(xs, box, acc_dtype)
+    m = xs[0].shape[0]
     if out is None:
         out = tuple(torch.zeros(m, dtype=acc_dtype, device=dev)
                     for _ in range(3))
@@ -79,12 +127,6 @@ def compute_bonded(style, xs, box, *, eflag: bool, acc_dtype, inv=None,
     nd, ni = len(style.dihedrals), len(style.impropers)
     head = [xs[0].data_ptr(), xs[1].data_ptr(), xs[2].data_ptr(),
             None if inv is None else inv.data_ptr()]
-    if isinstance(box, torch.Tensor):
-        # the variable-cell path: the kernels read the lengths on the card
-        check_plane(box, "box lengths", flt, 3, dev)
-        L = [1.0, 1.0, 1.0, box.data_ptr()]
-    else:
-        L = [float(v) for v in box.lengths] + [None]
     forces = [p.data_ptr() for p in out]
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()

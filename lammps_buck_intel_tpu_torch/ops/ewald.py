@@ -1,11 +1,12 @@
-"""Launch wrappers of the Ewald kernels (csrc/ewald.cu): K11a ``ewald_sk``
-and K11b ``ewald_force``.
+"""Launch wrappers of the Ewald kernels (csrc/ewald.cu): K11a ``ewald_sk``,
+K11b ``ewald_force`` and K11pa ``ewald_peratom``.
 
 The plain version of the pair is ``models.kspace.ewald.
-ewald_compute_plain``.  Each kernel splits its outer loop (the atoms for
-K11a, the k vectors for K11b) into ranges so that about four blocks run
-on every SM, and adds the ranges in a fixed order: the results do not
-depend on the order blocks run in.
+ewald_compute_plain``, of K11pa (after K11a)
+``ewald_compute_peratom_plain``.  Each kernel splits its outer loop (the
+atoms for K11a, the k vectors for K11b and K11pa) into ranges so that
+about four blocks run on every SM, and adds the ranges in a fixed order:
+the results do not depend on the order blocks run in.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from .cellpair import check_plane
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _PREC = {(torch.float32, torch.float32): 0, (torch.float32, torch.float64): 1,
          (torch.float64, torch.float64): 2}
-_THREADS = 128      # threads per block of both kernels (csrc/ewald.cu)
+_THREADS = 128      # threads per block of the kernels (csrc/ewald.cu)
 _ATOM_TILE = 256    # atoms per shared tile of K11a
 _BLOCKS_PER_SM = 4
 
@@ -42,7 +43,10 @@ def _lib():
                                  + [_I, _I, _D] + [_P] * 5)
         lib.ewald_force.argtypes = ([_I] + [_P] * 4 + [_I] + [_P] * 5
                                     + [_I, _I, _D] + [_P] * 5)
-        for fn in (lib.ewald_sum_rows, lib.ewald_sk, lib.ewald_force):
+        lib.ewald_peratom.argtypes = ([_I] + [_P] * 4 + [_I] + [_P] * 6
+                                      + [_I, _I] + [_D] * 4 + [_P] * 4)
+        for fn in (lib.ewald_sum_rows, lib.ewald_sk, lib.ewald_force,
+                   lib.ewald_peratom):
             fn.restype = _I
     return lib
 
@@ -125,3 +129,33 @@ def ewald_force(xs, q, c: dict, wre: torch.Tensor, wim: torch.Tensor,
             f"ewald_force kernel launch failed: CUDA error {rc}")
     LAUNCHES["ewald_force"] += 1
     return tuple(f)
+
+
+def ewald_peratom(xs, q, c: dict, s_re: torch.Tensor, s_im: torch.Tensor,
+                  qqrd2e: float, acc_dtype, self_c: float, bg_c: float,
+                  qsum: float):
+    """K11pa: (eatom (N,), vatom (N, 6)) acc, the per-atom energy and virial
+    from K11a's S(k) (s_re, s_im acc, rounded to flt here as the JAX
+    package rounds them); c: ``Ewald.consts`` (its ``peratom_w``); self_c =
+    g / sqrt(pi), bg_c = pi / (2 g^2 V)."""
+    dev, flt, n, K, prec, rows = _inputs(xs, q, c, acc_dtype)
+    re, im = s_re.to(flt).contiguous(), s_im.to(flt).contiguous()
+    for t, name in ((re, "re"), (im, "im")):
+        check_plane(t, name, flt, K, dev)
+    w = c["peratom_w"]
+    check_plane(w.view(-1), "peratom_w", flt, 7 * K, dev)
+    nsplit = _splits(-(-n // _THREADS), -(-K // _THREADS), dev)
+    part = torch.empty((nsplit, 7, n), dtype=acc_dtype, device=dev)
+    eatom = torch.empty(n, dtype=acc_dtype, device=dev)
+    vatom = torch.empty((n, 6), dtype=acc_dtype, device=dev)
+    rc = _lib().ewald_peratom(
+        prec, *(p.data_ptr() for p in xs), q.data_ptr(), n,
+        *(r.data_ptr() for r in rows.unbind(0)), re.data_ptr(),
+        im.data_ptr(), w.data_ptr(), K, nsplit, float(qqrd2e),
+        float(self_c), float(bg_c), float(qsum), part.data_ptr(),
+        eatom.data_ptr(), vatom.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"ewald_peratom kernel launch failed: CUDA error {rc}")
+    LAUNCHES["ewald_peratom"] += 1
+    return eatom, vatom

@@ -2,8 +2,9 @@
 
 The plain versions of the same functions are
 ``neighbor.neighbor_list.build_cell_plain``,
-``neighbor.neighbor_list.build_dense_plain`` and
-``models.pair.driver.compute_pair_plain``.  Lists are K-major on the card:
+``neighbor.neighbor_list.build_dense_plain``,
+``models.pair.driver.compute_pair_plain`` and
+``models.pair.driver.compute_pair_peratom_plain``.  Lists are K-major on the card:
 ``NeighborList.idx`` and ``.sb`` are (N, K) views of contiguous (K, N)
 tensors.
 """
@@ -33,8 +34,11 @@ def _lib():
                                     + [_P] * 5)
         lib.nlist_pair.argtypes = ([_I] * 6 + [_P] * 7 + [_I, _I] + [_P] * 3
                                    + [_I] + [_D] * 4 + [_P] * 7)
+        lib.nlist_pair_peratom.argtypes = ([_I] * 5 + [_P] * 7 + [_I, _I]
+                                           + [_P] * 3 + [_I] + [_D] * 4
+                                           + [_P] * 5)
         for fn in (lib.nlist_partial_rows, lib.nlist_build, lib.nlist_dense,
-                   lib.nlist_pair):
+                   lib.nlist_pair, lib.nlist_pair_peratom):
             fn.restype = _I
     return lib
 
@@ -122,6 +126,47 @@ def compute_pair(style, xs, typ, q, boxL, nl, *, eflag: bool, acc_dtype,
                  use_special: bool):
     """The pair pass on the card: ((fx, fy, fz) acc, evdwl, ecoul, virial
     (6,)), energies and virial halved (each pair is visited twice)."""
+    dev, flt, n = _positions(xs)
+    prec = _PREC.get((flt, acc_dtype))
+    if prec is None:
+        raise TypeError(f"unsupported (flt, acc) = ({flt}, {acc_dtype})")
+    lib = _lib()
+    out = [torch.empty(n, dtype=acc_dtype, device=dev) for _ in range(3)]
+    part = torch.empty((lib.nlist_partial_rows(n), 8), dtype=acc_dtype,
+                       device=dev)
+    args = _pair_args(style, xs, typ, q, boxL, nl, dev, flt, n)
+    _check(lib.nlist_pair(
+        prec, int(eflag), *args[:3], int(use_special), *args[3:],
+        *(f.data_ptr() for f in out), part.data_ptr(),
+        _stream(dev)), "nlist_pair")
+    tot = part.sum(0) * 0.5
+    return tuple(out), tot[0], tot[1], tot[2:8]
+
+
+def compute_pair_peratom(style, xs, typ, q, boxL, nl, *, acc_dtype,
+                         use_special: bool):
+    """K9d, the per-atom pass on the card: (eatom (N,), vatom (N, 6)) in
+    acc, half of every pair term on each atom's row; (flt, acc) = (f32,
+    f32) or (f64, f64)."""
+    dev, flt, n = _positions(xs)
+    prec = {(torch.float32, torch.float32): 0,
+            (torch.float64, torch.float64): 2}.get((flt, acc_dtype))
+    if prec is None:
+        raise TypeError(f"the per-atom pass takes (f32, f32) or (f64, f64), "
+                        f"not ({flt}, {acc_dtype})")
+    eatom = torch.empty(n, dtype=acc_dtype, device=dev)
+    vatom = torch.empty((n, 6), dtype=acc_dtype, device=dev)
+    args = _pair_args(style, xs, typ, q, boxL, nl, dev, flt, n)
+    _check(_lib().nlist_pair_peratom(
+        prec, *args[:3], int(use_special), *args[3:], eatom.data_ptr(),
+        vatom.data_ptr(), _stream(dev)), "nlist_pair_peratom")
+    return eatom, vatom
+
+
+def _pair_args(style, xs, typ, q, boxL, nl, dev, flt, n):
+    """The arguments the two pair passes share after the variant flags:
+    (coul, vdw, disp_long, then from x to special_fac), the inputs
+    checked."""
     cfg = style.cfg
     disp_long = cfg.disp == "long"
     if disp_long and (cfg.vdw not in ("lj", "buck")
@@ -130,10 +175,6 @@ def compute_pair(style, xs, typ, q, boxL, nl, *, eflag: bool, acc_dtype,
             "the list pair pass's DISP_LONG variants are lj/long and "
             f"buck/long with coul none or long, not {cfg.vdw} with coul "
             f"{cfg.coul}")
-    dev, flt, n = _positions(xs)
-    prec = _PREC.get((flt, acc_dtype))
-    if prec is None:
-        raise TypeError(f"unsupported (flt, acc) = ({flt}, {acc_dtype})")
     check_plane(typ, "typ", torch.int32, n, dev)
     check_plane(boxL, "boxL", flt, 3, dev)
     coul = COUL_MODE[cfg.coul]
@@ -149,21 +190,13 @@ def compute_pair(style, xs, typ, q, boxL, nl, *, eflag: bool, acc_dtype,
     check_plane(nl.nnei, "nnei", torch.int32, n, dev)
     coef = style.tables_on(flt, dev)
     fac = style.special_on(flt, dev)
-    lib = _lib()
-    out = [torch.empty(n, dtype=acc_dtype, device=dev) for _ in range(3)]
-    part = torch.empty((lib.nlist_partial_rows(n), 8), dtype=acc_dtype,
-                       device=dev)
     g6 = float(style.g_ewald_6)
     disp = (ctypes.c_double * 3)(g6 ** 2, g6 ** 6, g6 ** 8)
-    _check(lib.nlist_pair(
-        prec, int(eflag), coul, VDW_MODE[cfg.vdw], int(disp_long),
-        int(use_special), *(p.data_ptr() for p in xs),
-        q.data_ptr() if coul else None, typ.data_ptr(), boxL.data_ptr(),
-        coef.data_ptr(), style.tables.shape[0], n, idx_t.data_ptr(),
-        sb_t.data_ptr(), nl.nnei.data_ptr(), kmax, float(style.g_ewald),
-        float(style.qqrd2e), float(style.inner_sq), float(style.denom_lj),
-        ctypes.cast(disp, _P), fac.data_ptr(),
-        *(f.data_ptr() for f in out), part.data_ptr(),
-        _stream(dev)), "nlist_pair")
-    tot = part.sum(0) * 0.5
-    return tuple(out), tot[0], tot[1], tot[2:8]
+    return (coul, VDW_MODE[cfg.vdw], int(disp_long),
+            *(p.data_ptr() for p in xs), q.data_ptr() if coul else None,
+            typ.data_ptr(), boxL.data_ptr(), coef.data_ptr(),
+            style.tables.shape[0], n, idx_t.data_ptr(), sb_t.data_ptr(),
+            nl.nnei.data_ptr(), kmax, float(style.g_ewald),
+            float(style.qqrd2e), float(style.inner_sq),
+            float(style.denom_lj), ctypes.cast(disp, _P),
+            fac.data_ptr())

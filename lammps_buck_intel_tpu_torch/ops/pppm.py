@@ -2,12 +2,16 @@
 
 The plain versions of the same functions are ``deposit_plain``,
 ``spectral_plain`` and ``gather_plain`` in
-``models.kspace.pppm_cells``.  The FFTs around the spectral kernel stay
-``torch.fft`` (cuFFT) calls in ``CellPPPM.compute_slots``.
+``models.kspace.pppm_cells``, and ``peratom_spectral_plain`` and
+``peratom_gather_plain`` in ``models.kspace.pppm`` (K10pa, the per-atom
+energy and virial).  The FFTs around the spectral kernels stay
+``torch.fft`` (cuFFT) calls in ``CellPPPM.compute_slots`` and
+``pppm.compute_peratom``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -39,6 +43,14 @@ def _lib():
         lib.pppm_spectral.restype = _I
         lib.pppm_threads.argtypes = []
         lib.pppm_threads.restype = _I
+        lib.pppm_peratom_spectral.argtypes = ([_I] + [_P] * 6 + [_I] * 3
+                                              + [_D, _I, _P, _I, _P])
+        lib.pppm_peratom_spectral.restype = _I
+        lib.pppm_peratom_gather.argtypes = ([_I] + [_P] * 4 + [_I]
+                                            + [_D] * 6 + [_I] * 4
+                                            + [_P, _P] + [_D] * 5
+                                            + [_P] * 3)
+        lib.pppm_peratom_gather.restype = _I
     return lib
 
 
@@ -162,3 +174,90 @@ def gather(pm, state, e_mesh: torch.Tensor, n_atoms: int, acc_dtype,
         raise RuntimeError(f"pppm gather launch failed: CUDA error {rc}")
     LAUNCHES["pppm_gather"] += 1
     return fx, fy, fz
+
+
+def _spectral_inputs(consts: dict, rhat: torch.Tensor, G_key: str):
+    """The half-spectrum inputs of a spectral kernel, checked: (G, kx, ky,
+    kz, wz) flattened, the grid (nx, ny, nzh) and the block count."""
+    G = consts[G_key]
+    acc = G.dtype
+    dev = rhat.device
+    if dev.type != "cuda":
+        raise ValueError(f"pppm kernel needs CUDA tensors, got {dev}")
+    if acc not in _FLT or rhat.dtype != _COMPLEX[acc]:
+        raise TypeError(f"spectral: rhat {rhat.dtype} with G {acc}")
+    nx, ny, nzh = G.shape
+    if tuple(rhat.shape) != (nx, ny, nzh) or not rhat.is_contiguous():
+        raise ValueError(f"rhat has shape {tuple(rhat.shape)}, expected "
+                         f"contiguous {(nx, ny, nzh)}")
+    kx, ky, kz = (k.view(-1) for k in consts["k3"])
+    wz = consts["wz"].view(-1)
+    for name, t, size in (("G", G.view(-1), nx * ny * nzh), ("kx", kx, nx),
+                          ("ky", ky, ny), ("kz", kz, nzh), ("wz", wz, nzh)):
+        check_plane(t, name, acc, size, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblocks = min(_SPECTRAL_BLOCKS_PER_SM * sms,
+                  -(-(nx * ny * nzh) // _lib().pppm_threads()))
+    return (G, kx, ky, kz, wz), (nx, ny, nzh), nblocks
+
+
+def peratom_spectral(pm, consts: dict, rhat: torch.Tensor,
+                     nyquist: bool) -> torch.Tensor:
+    """K10pa spectral: (7, nx, ny, nzh) complex on the card, phi_hat = G
+    rho_hat and the six virial spectra (``pppm.peratom_spectral_plain``);
+    consts: ``PPPM.consts`` (G_half, k3, wz)."""
+    ins, (nx, ny, nzh), nblocks = _spectral_inputs(consts, rhat, "G_half")
+    acc = ins[0].dtype
+    out = torch.empty((7, nx, ny, nzh), dtype=rhat.dtype, device=rhat.device)
+    g = float(pm.g_ewald)
+    rc = _lib().pppm_peratom_spectral(
+        _FLT[acc], rhat.data_ptr(), *(t.data_ptr() for t in ins), nx, ny,
+        nzh, 0.25 / (g * g), int(nyquist), out.data_ptr(), nblocks,
+        _stream(rhat.device))
+    if rc != 0:
+        raise RuntimeError(
+            f"pppm peratom spectral launch failed: CUDA error {rc}")
+    LAUNCHES["pppm_peratom_spectral"] += 1
+    return out
+
+
+def peratom_gather(pm, planes, meshes: torch.Tensor, coef: torch.Tensor,
+                   scale: float):
+    """K10pa gather: (eatom (N,), vatom (N, 6)) in the meshes' dtype (acc)
+    on the card, the seven meshes (7, nx, ny, nz) interpolated at the atoms
+    of ``planes`` (x, y, z, q in flt, atom order) on ``pm``'s mesh
+    (``pppm.peratom_gather_plain``).  The meshes are copied point-major
+    into (nx ny nz, 8), a pad after the seven values, the layout the
+    kernel reads a point from in one aligned load."""
+    dev, flt, acc = planes.x.device, planes.x.dtype, meshes.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"pppm kernel needs CUDA tensors, got {dev}")
+    prec = _PAIR.get((flt, acc))
+    if prec is None:
+        raise TypeError(f"unsupported (flt, acc) = ({flt}, {acc})")
+    n = planes.x.shape[0]
+    for name in ("x", "y", "z", "q"):
+        check_plane(getattr(planes, name), name, flt, n, dev)
+    p = pm.order
+    check_plane(coef, "coef", flt, p * p, dev)
+    nx, ny, nz = pm.grid
+    if not meshes.is_contiguous():
+        raise ValueError("meshes are not contiguous")
+    check_plane(meshes.view(-1), "meshes", acc, 7 * nx * ny * nz, dev)
+    points = torch.zeros((nx * ny * nz, 8), dtype=acc, device=dev)
+    points[:, :7] = meshes.view(7, -1).t()
+    g, V = float(pm.g_ewald), float(pm.volume)
+    eatom = torch.empty(n, dtype=acc, device=dev)
+    vatom = torch.empty((n, 6), dtype=acc, device=dev)
+    rc = _lib().pppm_peratom_gather(
+        prec, planes.x.data_ptr(), planes.y.data_ptr(), planes.z.data_ptr(),
+        planes.q.data_ptr(), n, *(float(v) for v in pm.box_lo),
+        *(1.0 / float(h) for h in pm.h), nx, ny, nz, p, coef.data_ptr(),
+        points.data_ptr(), float(scale), float(pm.qqrd2e),
+        g / math.sqrt(math.pi), math.pi / (2.0 * g * g * V), float(pm.qsum),
+        eatom.data_ptr(), vatom.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"pppm peratom gather launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["pppm_peratom_gather"] += 1
+    return eatom, vatom

@@ -39,9 +39,16 @@ cristobalite_coul_cut.yaml, cristobalite_buck_long.yaml,
 cristobalite_buck_long_nlist.yaml, rhodo_nve.yaml, rhodo_nve_nlist.yaml,
 rhodo_32k.yaml, rhodo_class.yaml, rhodo_flex_nve.yaml,
 rhodo_flex_nvt.yaml, rhodo_npt.yaml, hexane_gen.yaml,
-hexane_gen_arith.yaml, hexane_gen_big.yaml).  Every other
-deck key or value raises NotImplementedError naming its ROADMAP item;
-nothing is ignored.  A
+hexane_gen_arith.yaml, hexane_gen_big.yaml, and the dump decks
+cristobalite_pppm_dump.yaml, cristobalite_ewald_dump.yaml,
+rhodo_nve_dump.yaml).  A ``dump`` block writes frames every ``every``
+steps from step 0 (``run_deck``): ``style`` lammpstrj, xyz, image or
+custom, whose ``columns`` may name the per-atom computes c_pe (compute
+pe/atom) and c_stress[1..6] (compute stress/atom), with their keyword
+``scope`` or per-compute ``scopes`` (``computes``, ``io.dump``); the
+dispersion k-space of pppm/disp has no per-atom form yet (item 15).
+Every other deck key or value raises NotImplementedError naming its
+ROADMAP item; nothing is ignored.  A
 relative ``read_data`` path resolves against the working directory, as
 in the JAX package.
 
@@ -60,7 +67,6 @@ import torch
 _UNPORTED_KEYS = {
     "delete_atoms": "item 15",
     "regions": "item 15",
-    "dump": "item 15",
     "write_data": "item 15",
     "write_restart": "item 15",
     "minimize": "item 15",
@@ -71,7 +77,7 @@ _UNPORTED_KEYS = {
 _KEYS = {"units", "precision", "timestep", "engine", "lattice", "mass",
          "read_data", "replicate", "velocity", "pair_style", "kspace_style",
          "neighbor", "fixes", "thermo", "run", "cap", "special_bonds",
-         "exclude_intra",
+         "exclude_intra", "dump",
          "special_bonds_coul", "bond_style", "angle_style", "dihedral_style",
          "improper_style"}
 # fix name -> (keys the port reads, ROADMAP item of an unported fix)
@@ -107,6 +113,10 @@ _KSPACE_KEYS = {"pppm": {"name", "accuracy", "order", "diff", "gewald"},
                 "ewald": {"name", "accuracy", "gewald"},
                 "pppm/disp": {"name", "accuracy", "force_disp_real",
                               "order_disp", "order", "mix", "diff"}}
+# the dump block: the keys the runner reads, and its styles
+_DUMP_KEYS = {"style", "every", "file", "columns", "scope", "scopes", "size",
+              "view"}
+_DUMP_STYLES = ("lammpstrj", "custom", "xyz", "image")
 _PAIR_STYLES = ("buck", "buck/coul/long", "buck/coul/cut",
                 "buck/long/coul/long", "lj/charmm/coul/long",
                 "lj/charmm/coul/cut", "lj/cut", "lj/cut/coul/long",
@@ -150,12 +160,49 @@ def _check_npt(cfg: dict, fx: dict):
             f"x/y/z (got {forms + axes})")
 
 
+def _check_dump(dmp: dict):
+    """The dump block: known keys, a known style, custom's columns and the
+    computes' keyword scopes (the JAX runner's reading)."""
+    from .computes import _check_scope
+    from .io.dump import CUSTOM_COLUMNS
+
+    if not isinstance(dmp, dict) or "file" not in dmp:
+        raise ValueError("dump needs a mapping with a file")
+    extra = set(dmp) - _DUMP_KEYS
+    if extra:
+        raise NotImplementedError(
+            f"dump keys {sorted(extra)} are not ported: "
+            f"{sorted(_DUMP_KEYS)} only")
+    style = dmp.get("style", "lammpstrj")
+    if style not in _DUMP_STYLES:
+        raise NotImplementedError(
+            f"dump style {style!r} is not ported: {', '.join(_DUMP_STYLES)}")
+    if "every" in dmp and int(dmp["every"]) < 1:
+        raise ValueError(f"dump every {dmp['every']!r}: at least 1")
+    if style != "custom" and (set(dmp) & {"columns", "scope", "scopes"}):
+        raise ValueError(f"dump style {style!r} takes no columns or scopes "
+                         "(dump custom does)")
+    bad = [c for c in dmp.get("columns", []) if c not in CUSTOM_COLUMNS]
+    if bad:
+        raise NotImplementedError(
+            f"dump custom columns {bad} are not ported: "
+            f"{', '.join(CUSTOM_COLUMNS)}")
+    scopes = dict(dmp.get("scopes") or {})
+    if set(scopes) - {"pe", "stress"}:
+        raise ValueError(f"dump scopes {sorted(scopes)}: pe and stress only")
+    for sc in [dmp.get("scope")] + list(scopes.values()):
+        if sc:
+            _check_scope(tuple(sc))
+
+
 def _check_deck(cfg: dict):
     for key in cfg:
         if key not in _KEYS:
             where = _UNPORTED_KEYS.get(key, "queue 1")
             raise NotImplementedError(
                 f"deck key {key!r} is not ported: ROADMAP {where}")
+    if "dump" in cfg:
+        _check_dump(cfg["dump"])
     engine = cfg.get("engine", "nlist")
     if engine in _UNPORTED_ENGINES:
         raise NotImplementedError(
@@ -802,17 +849,67 @@ def build_simulation(cfg: dict, device="cuda"):
         shake=shake)
 
 
+def _frame_writer(dmp: dict, sim):
+    """write(append) of the dump block's style (the JAX run_deck's
+    dispatch; ``style: xyz`` writes xyz frames)."""
+    from .io import dump as dumpmod
+
+    style = dmp.get("style", "lammpstrj")
+    path = dmp["file"]
+
+    def write(append: bool = True):
+        if style == "image":
+            # one PPM per frame, * -> the step
+            dumpmod.write_image(path.replace("*", str(sim.step_count)), sim,
+                                size=int(dmp.get("size", 512)),
+                                view=dmp.get("view", "xy"))
+        elif style == "custom":
+            dumpmod.write_custom(
+                path, sim, dmp.get("columns", ["id", "type", "x", "y", "z"]),
+                append=append, scope=dmp.get("scope"),
+                scopes=dmp.get("scopes"))
+        elif style == "xyz":
+            dumpmod.write_xyz(path, sim, append=append)
+        else:
+            dumpmod.write_lammpstrj(path, sim, append=append)
+
+    return write
+
+
 def run_deck(cfg: dict, device="cuda", log: bool = True):
-    """Build and run a deck; returns (sim, thermo_rows)."""
+    """Build and run a deck; returns (sim, thermo_rows).  With a ``dump``
+    block a frame is written at the first step and after every ``every``
+    steps (the run goes in chunks of ``every``); the frames' seconds are
+    ``sim.timings["dump"]``, outside ``sim.timings["run"]``."""
     sim = build_simulation(cfg, device=device)
     nsteps = int(cfg.get("run", 0))
     thermo = int(cfg.get("thermo", max(nsteps // 10, 1)))
+    dmp = cfg.get("dump")
     t0 = time.perf_counter()
-    rows = sim.run(nsteps, thermo_every=thermo, log=log)
+    if dmp:
+        every = int(dmp.get("every", thermo))
+        write = _frame_writer(dmp, sim)
+        sim.timings["dump"] = 0.0
+        rows, left, append = [], nsteps, False
+        while True:
+            tf = time.perf_counter()
+            write(append)
+            sim.timings["dump"] += time.perf_counter() - tf
+            append = True
+            if left <= 0:
+                break
+            chunk = min(every, left)
+            rows += sim.run(chunk, thermo_every=thermo, log=log)
+            left -= chunk
+    else:
+        rows = sim.run(nsteps, thermo_every=thermo, log=log)
     wall = time.perf_counter() - t0
     if log:
         print(f"# {nsteps} steps, {sim.n_atoms} atoms: {wall:.2f}s "
               f"-> {sim.n_atoms * nsteps / wall:,.0f} atom-steps/s")
+        if dmp:
+            print(f"# dump: {sim.timings['dump']:.2f}s of frames "
+                  f"({dmp['file']})")
     return sim, rows
 
 

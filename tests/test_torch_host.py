@@ -172,7 +172,8 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
     {"fixes": [{"name": "nvt", "t_start": 1.0, "t_damp": 0.1, "drag": 0.2}]},
     {"pair_style": {"name": "buck/coul/long", "cut": 2.5,
                     "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
-    {"dump": {"file": "x.lammpstrj"}},
+    {"dump": {"file": "x.lammpstrj", "style": "local"}},
+    {"write_restart": "x.restart"},
 ])
 def test_unported_deck_raises(change):
     cfg = copy.deepcopy(_deck())

@@ -986,6 +986,76 @@ def test_cellpair_coul_cut_kernel_matches_plain(cuda, flt, acc):
             etol * abs(float(getattr(p, e)))
 
 
+def _knife_edge_pair(rng, dt, origin, cutsq, inside):
+    """Two positions (in ``dt``) whose rsq, rounded product by product and
+    sum by sum as the plain version rounds it, lies inside the strict
+    cutoff when ``inside`` (outside otherwise), while the exact rsq and
+    both FMA contractions of dx^2 + dy^2 + dz^2 lie on the other side."""
+    from fractions import Fraction as Fr
+
+    rc2 = Fr(float(cutsq))
+
+    def side(v):
+        return Fr(float(v)) < rc2
+
+    def fma(a, b, c):
+        return dt(float(Fr(float(a)) * Fr(float(b)) + Fr(float(c))))
+
+    xi = np.asarray(origin, dt)
+    while True:
+        u = rng.normal(size=3)
+        r = np.sqrt(cutsq) * (1.0 + rng.uniform(-4, 4) * np.finfo(dt).eps)
+        xj = (xi + r * u / np.linalg.norm(u)).astype(dt)
+        dx, dy, dz = (xi - xj).astype(dt)
+        plain = (dx * dx + dy * dy) + dz * dz
+        others = (sum(Fr(float(d)) ** 2 for d in (dx, dy, dz)),
+                  fma(dz, dz, fma(dy, dy, dx * dx)),
+                  fma(dz, dz, fma(dx, dx, dy * dy)))
+        if side(plain) == inside and all(side(v) != inside for v in others):
+            return xi, xj
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_cellpair_cut_decision_rounds_like_plain(cuda, flt, acc):
+    """K1 takes a pair within an ulp of the strict coul/cut cutoff to the
+    side the plain version takes it (the Coulomb force steps by qqrd2e qi
+    qj / rc^2 there): one pair the plain rounding puts inside and one it
+    puts outside, each the other way round in exact or FMA arithmetic."""
+    dt = np.float32 if flt == torch.float32 else np.float64
+    rng = np.random.default_rng(3)
+    cut_coul = 2.25                        # rc^2 = 5.0625, exact
+    pos = []
+    # two pairs well inside the box: no periodic shift enters their dx
+    for origin, inside in (((3.0, 3.0, 3.0), True),
+                           ((8.0, 8.0, 8.0), False)):
+        pos += _knife_edge_pair(rng, dt, origin, dt(cut_coul**2), inside)
+    x = torch.as_tensor(np.stack(pos)).to(cuda, flt)
+    n = x.shape[0]
+    box = make_box(np.zeros(3), np.full(3, 11.2))
+    grid = cs.make_grid(n, box.lengths, 2.8)
+    zeros = torch.zeros((n, 3), device=cuda)
+    st = cs.from_atoms(grid, box, x, zeros, zeros.to(torch.int32),
+                       torch.zeros(n, dtype=torch.int32, device=cuda),
+                       torch.tensor([1.0, -1.0, 1.0, -1.0], device=cuda),
+                       dtype=flt)
+    assert torch.equal(torch.sort(st.x[st.aid < n]).values,
+                       torch.sort(x[:, 0]).values)   # binned unchanged
+    style = build_buck(1, {(0, 0): (1.0, 0.2, -0.8)}, cut_global=2.5,
+                       coul="cut", cut_coul=cut_coul, qqrd2e=14.399645)
+    k = compute_cellpair(style, grid, box, st, eflag=True, vflag=True,
+                         acc_dtype=acc)
+    p = compute_cellpair_plain(style, grid, box, st, eflag=True, vflag=True,
+                               acc_dtype=acc)
+    # the plain version holds exactly the first pair's Coulomb term
+    assert float(p.ecoul) == pytest.approx(-14.399645 / cut_coul, rel=1e-5)
+    fk, fp = (torch.stack([r.fx, r.fy, r.fz]) for r in (k, p))
+    ftol, etol = (1e-11, 1e-11) if flt == torch.float64 else (1e-4, 1e-5)
+    assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+    for e in ("evdwl", "ecoul"):
+        assert abs(float(getattr(k, e) - getattr(p, e))) <= \
+            etol * abs(float(getattr(p, e)))
+
+
 @pytest.mark.parametrize("prec", ["single", "double"])
 def test_nlist_pair_coul_cut_kernel_matches_plain(cuda, prec):
     """K9b's coul/cut branch on the rhodo copy's list: lj/charmm/coul/cut
@@ -1296,3 +1366,116 @@ def test_disp_channel_wrappers_reject_bad_input(cuda):
         disp_ops.disp_gather(shim, x, rows, table,
                              torch.zeros(5, device=cuda), torch.float32,
                              coef)
+
+
+# ---- per-atom energy and virial: K9d, K10pa, K11pa, K18b ----
+
+def _peratom_case(cuda, name, precision, tmp_path):
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "examples"))
+    import peratom_cases as rec
+
+    from lammps_buck_intel_tpu_torch.run import build_simulation
+
+    path = str(tmp_path / "data.cris_jitter")
+    rec.write_jitter(path)
+    cfg = rec.case_config(name, path)
+    cfg["precision"] = precision
+    return build_simulation(cfg, device="cuda")
+
+
+def _peratom_err(k, p):
+    return float((k - p).abs().max()) / max(float(p.abs().max()), 1e-300)
+
+
+@pytest.mark.parametrize("name", ["silica_pppm", "silica_ewald",
+                                  "rhodo_class"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_peratom_kernels_match_plain(cuda, name, dtype, tmp_path):
+    from lammps_buck_intel_tpu_torch import computes
+    from lammps_buck_intel_tpu_torch.models.bonded import (
+        compute_bonded_peratom, compute_bonded_peratom_plain)
+    from lammps_buck_intel_tpu_torch.models.kspace import ewald, pppm
+    from lammps_buck_intel_tpu_torch.models.pair import driver
+    from lammps_buck_intel_tpu_torch.neighbor import neighbor_list as tnl
+
+    sim = _peratom_case(cuda, name, "double" if dtype == torch.float64
+                        else "single", tmp_path)
+    at = sim.atoms_on_device()
+    x, q = at["x"].to(dtype), at["q"].to(dtype)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    ops.reset_launches()
+    # K9d on the computes' list, against the plain pass on the same list
+    box = sim.box
+    L = torch.as_tensor(np.asarray(box.lengths, np.float64)).to(cuda, dtype)
+    spec = tnl.make_spec(sim.n_atoms, box.lengths,
+                         float(np.sqrt(sim.pair.cutsq_max)) * 1.0001)
+    sp = at["special"]
+    nl, _ = tnl.build_with_retry(
+        x, torch.as_tensor(np.asarray(box.lo)).to(cuda, dtype), L, spec, sp)
+    kw = dict(acc_dtype=dtype, use_special=sp is not None)
+    pk = driver.compute_pair_peratom(sim.pair, x, at["typ"], q, L, nl, **kw)
+    pp = driver.compute_pair_peratom_plain(sim.pair, x, at["typ"], q, L, nl,
+                                           **kw)
+    assert ops.LAUNCHES["nlist_pair_peratom"] == 1
+    for a, b in zip(pk, pp):
+        assert _peratom_err(a, b) <= tol
+    # the k-space term
+    s = computes._solvers(sim.kspace)[0]
+    if isinstance(s, ewald.Ewald):
+        kk = ewald.ewald_compute_peratom(s, x, q)
+        kp = ewald.ewald_compute_peratom_plain(s, x, q)
+        assert ops.LAUNCHES["ewald_peratom"] == 1
+    else:
+        pm = getattr(s, "pm", s)
+        kk = pppm.compute_peratom(pm, x, q)
+        kp = pppm.compute_peratom_plain(pm, x, q)
+        assert ops.LAUNCHES["pppm_peratom_spectral"] == 1
+        assert ops.LAUNCHES["pppm_peratom_gather"] == 1
+    for a, b in zip(kk, kp):
+        assert _peratom_err(a, b) <= tol
+    if sim.bonded is not None:
+        xs = tuple(at["x"].unbind(0))
+        bk = compute_bonded_peratom(sim.bonded, xs, box,
+                                    acc_dtype=torch.float64)
+        bp = compute_bonded_peratom_plain(sim.bonded, xs, box,
+                                          acc_dtype=torch.float64)
+        assert ops.LAUNCHES["bonded_peratom"] == 1
+        for a, b in zip(bk, bp):
+            assert _peratom_err(a, b) <= (1e-12 if xs[0].dtype ==
+                                          torch.float64 else 1e-5)
+
+
+def test_peratom_wrappers_reject_bad_input(cuda, tmp_path):
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm_cells import (
+        AtomPlanes)
+    from lammps_buck_intel_tpu_torch.ops import nlist as nlist_ops
+    from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
+
+    sim = _peratom_case(cuda, "silica_pppm", "single", tmp_path)
+    at = sim.atoms_on_device()
+    xs = tuple(at["x"].unbind(0))
+    nl = sim._build(at["x"])
+    L = sim._boxL
+    with pytest.raises(TypeError):      # the per-atom pass has no mixed
+        nlist_ops.compute_pair_peratom(sim.pair, xs, at["typ"], at["q"], L,
+                                       nl, acc_dtype=torch.float64,
+                                       use_special=False)
+    pm = sim.kspace
+    c = pm.consts(cuda, torch.float32)
+    n = sim.n_atoms
+    planes = AtomPlanes(*xs, at["q"], torch.arange(n, dtype=torch.int32,
+                                                   device=cuda))
+    meshes = torch.zeros((7,) + pm.grid, device=cuda)
+    with pytest.raises(ValueError):     # a non-contiguous view
+        pppm_ops.peratom_gather(pm, planes, meshes.transpose(2, 3),
+                                c["coef"], 1.0)
+    with pytest.raises(ValueError):     # six meshes
+        pppm_ops.peratom_gather(pm, planes, meshes[:6].contiguous(),
+                                c["coef"], 1.0)
+    with pytest.raises(TypeError):      # rhat of another dtype
+        pppm_ops.peratom_spectral(pm, c, torch.zeros(
+            c["G_half"].shape, dtype=torch.complex128, device=cuda), True)
