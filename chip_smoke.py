@@ -179,7 +179,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      -trace(sum c_stress) / (3 V) against press within 2e-4; ms/step
      without the frames beside the deck without dump earlier in this
      call, and the seconds a frame costs; the per-atom kernels in f32
-     against their plain versions at each deck's last state, timed there.
+     against their plain versions at each deck's last state, timed there;
+ 16. the per-atom dispersion PPPM (K12pa: csrc/pppm_disp.cu
+     disp_peratom_spectral, disp_peratom_gather) and the slot-order
+     per-atom PPPM (K18 slots: pppm_peratom_gather and disp_peratom_gather
+     over the cell engine's slots): the three cases of
+     tests/goldens/torch_peratom_disp.json (`python tools/record_peratom.py
+     disp`; cristobalite_buck_long.yaml on the jittered copy, hexane_gen.yaml
+     and hexane_gen_arith.yaml on a 4x4x4 cut-out) in f64: every per-atom
+     kernel against its plain version (1e-12), K18 slots on the hexane
+     cell engine with their pins, the f64 functions against the record
+     (1e-9), the computes against the JAX computes and the thermo pins;
+     then cristobalite_buck_long_dump.yaml (259,200 atoms),
+     hexane_gen_dump.yaml and hexane_gen_arith_dump.yaml (6,000) unedited
+     through run_deck: every kernel of the path launched, every frame's
+     sum c_pe within 5e-4 of thermo, on the buck/long deck the pressure
+     identity within 2e-4 (the rigid bodies' virial is global only), ms/step
+     without the frames beside the decks without dump earlier in this call,
+     a frame's seconds; the per-atom kernels in f32 against their plain
+     versions at each deck's last state, timed there, with the dispersion
+     per-atom virial's miss at the deck's mesh in f64; K12pa (one channel)
+     and K18 slots (dispersion) timed at hexane_gen_big.yaml's state in
+     phase 13 and K18 slots (Coulomb) at cristobalite_pppm_dump.yaml's in
+     phase 15, each launched by one compute_peratom_slots with the counts
+     set to 0 just before, against its plain version, 0 on empty slots,
+     its sums pinned to compute_slots in f64 (the Coulomb form with and
+     without the full-spectrum Nyquist rule, printed); K9c's device time at
+     500 atoms traced once more.
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -3375,13 +3401,20 @@ def phase_hexane(rec: dict):
     """hexane_gen.yaml unedited (6,000 atoms, 200 steps, f32) and
     hexane_gen_big.yaml (192,000 atoms), each through build_simulation
     and run with the launch counts of HEX_PATH, step 0 against the record
-    and the drift gate; then the kernels timed at the big deck's state."""
+    and the drift gate; then the kernels timed at the big deck's state,
+    the per-atom ones (K12pa, K18 slots) too."""
     small = _hex_deck_run(HEX_DECK, rec)
     del small["sim"]
     torch.cuda.empty_cache()
     big = _hex_deck_run(HEX_BIG, rec, HEX_COPIES)
     sim = big.pop("sim")
     times = _hex_time(sim)
+    # the per-atom kernels (K9d, K12pa with one channel) and K18 slots
+    # (dispersion) at the big deck's last state
+    times["peratom"] = _pa_twins("hexane_gen_big", sim, torch.float32,
+                                 time_it=True)
+    times["slots"] = _pa_slots("hexane_gen_big", sim.kspace, sim.state,
+                               time_it=True)
     del sim
     torch.cuda.empty_cache()
     return small, big, times
@@ -3994,7 +4027,8 @@ OPS_PA_PAIR = 14 - 9
 OPS_PA_SPECTRAL_PT = 40
 # K10pa gather per stencil point: the weight 2, seven multiply-adds 14;
 # per atom the weights (OPS_WEIGHTS) and the ~20 of the terms
-OPS_PA_GATHER_PT, OPS_PA_GATHER_ATOM = 16, 20
+OPS_PA_WEIGHT_PT, OPS_PA_MAC_PT = 2, 14
+OPS_PA_GATHER_PT, OPS_PA_GATHER_ATOM = OPS_PA_WEIGHT_PT + OPS_PA_MAC_PT, 20
 # K11pa per (atom, k): the phase 5, sine and cosine 2, the share 3, seven
 # multiply-adds 14; per atom the finish ~20
 OPS_PA_EWALD, OPS_PA_EWALD_ATOM = 24, 20
@@ -4030,15 +4064,18 @@ def _pa_twins(label, sim, dtype, time_it: bool) -> dict:
     on the card, on the engine's snapshot with positions and charges in
     ``dtype`` (the bonded pass on f64 positions with f64 sums, the variant
     the computes launch):
-    K9d on the computes' fresh list, K10pa's two kernels (the deposit
-    and the FFTs of compute_peratom between them) or K11pa after K11a,
-    K18b.  time_it: each kernel's CUDA-event and device times beside its
-    plain version's and its bound (no one PyTorch call does the same work
+    K9d on the computes' fresh list, per solver K10pa's two kernels (the
+    deposit and the FFTs of compute_peratom between them), K11pa after
+    K11a or K12pa's two kernels (``_pa_disp_twins``), K18b.  time_it:
+    each kernel's CUDA-event and device times beside its plain version's
+    and its bound (no one PyTorch call does the same work
     as any of them: library_ms is null)."""
     from lammps_buck_intel_tpu_torch import computes
     from lammps_buck_intel_tpu_torch.models.bonded import (
         compute_bonded_peratom, compute_bonded_peratom_plain)
-    from lammps_buck_intel_tpu_torch.models.kspace import ewald, pppm
+    from lammps_buck_intel_tpu_torch.models.kspace import (BoundKSpace,
+                                                           CellPPPMDisp,
+                                                           ewald, pppm)
     from lammps_buck_intel_tpu_torch.models.kspace.pppm_cells import (
         AtomPlanes, deposit)
     from lammps_buck_intel_tpu_torch.models.pair import driver
@@ -4086,97 +4123,102 @@ def _pa_twins(label, sim, dtype, time_it: bool) -> dict:
     if time_it:
         entries = int(torch.clamp(nl.nnei, max=nl.idx.shape[1]).sum())
         pairs = list_pairs_in_cutoff(x, L, nl, style.cutsq_max)
-        key = (style.cfg.vdw, style.cfg.coul)
         timed("nlist_pair_peratom",
               lambda: driver.compute_pair_peratom(*args, **kw),
               lambda: driver.compute_pair_peratom_plain(*args, **kw),
               list_pass_bytes(entries, n, fs, kw["use_special"],
                               7 * n * fs),
-              entries * OPS_LIST_ENTRY + pairs * (OPS_PAIR[key]
+              entries * OPS_LIST_ENTRY + pairs * (_pair_ops(style.cfg)
                                                   + OPS_PA_PAIR), err,
               f"; K {nl.idx.shape[1]}, {entries / n:.1f} entries and "
               f"{pairs / n:.1f} pairs in the cutoff an atom")
-    # the k-space term
-    solver = computes._solvers(sim.kspace)[0]
-    if isinstance(solver, ewald.Ewald):
-        ew = solver
-        c = ew.consts(dev, dtype)
-        xs = tuple(x.unbind(0))
-        sk = ewald_ops.ewald_sk(xs, q, c, ew.qqrd2e, ew.acc_dtype)
-        g, V = ew.g_ewald, float(ew.volume)
-        pa = (ew.qqrd2e, ew.acc_dtype, g / np.sqrt(np.pi),
-              np.pi / (2.0 * g * g * V), ew.qsum)
-        kern_r = ewald.ewald_compute_peratom(ew, x, q)
-        plain_r = ewald.ewald_compute_peratom_plain(ew, x, q)
-        if dtype == torch.float32:
-            # each per-atom sum runs over K terms ~10^2 times the result,
-            # in f32, in another order in each (the kernel per thread in k
-            # ranges, the plain version through cuBLAS): the Ewald forces'
-            # f32 tolerance (EWALD_TOL), with both versions' distance to
-            # the f64 sum on the same positions printed
-            import dataclasses
+    # the k-space terms, each solver of a CombinedKSpace
+    for solver in computes._solvers(sim.kspace):
+        if isinstance(solver, ewald.Ewald):
+            ew = solver
+            c = ew.consts(dev, dtype)
+            xs = tuple(x.unbind(0))
+            sk = ewald_ops.ewald_sk(xs, q, c, ew.qqrd2e, ew.acc_dtype)
+            g, V = ew.g_ewald, float(ew.volume)
+            pa = (ew.qqrd2e, ew.acc_dtype, g / np.sqrt(np.pi),
+                  np.pi / (2.0 * g * g * V), ew.qsum)
+            kern_r = ewald.ewald_compute_peratom(ew, x, q)
+            plain_r = ewald.ewald_compute_peratom_plain(ew, x, q)
+            if dtype == torch.float32:
+                # each per-atom sum runs over K terms ~10^2 times the result,
+                # in f32, in another order in each (the kernel per thread in k
+                # ranges, the plain version through cuBLAS): the Ewald forces'
+                # f32 tolerance (EWALD_TOL), with both versions' distance to
+                # the f64 sum on the same positions printed
+                import dataclasses
 
-            ew64 = dataclasses.replace(ew, acc_dtype=torch.float64,
-                                       _consts={})
-            ref = ewald.ewald_compute_peratom_plain(ew64, x.double(),
-                                                    q.double())
-            d_kern, d_plain = _pa_err(kern_r, ref), _pa_err(plain_r, ref)
-            print(f"[peratom] {label} K11pa f32 against the f64 sum: "
-                  f"kernel {d_kern:.3e}, plain {d_plain:.3e} (the kernel "
-                  f"within {PA_EWALD_F64_RATIO}x the plain version's)")
-            if not d_kern <= PA_EWALD_F64_RATIO * d_plain:
-                raise AssertionError(
-                    f"{label}: K11pa is {d_kern:.3e} from the f64 sum, more "
-                    f"than {PA_EWALD_F64_RATIO}x the plain version's "
-                    f"{d_plain:.3e}")
-        err = check("K11pa ewald_peratom", kern_r, plain_r,
-                    EWALD_TOL[dtype][0])
-        K = ew.kvecs.shape[0]
-        timed("ewald_peratom",
-              lambda: ewald_ops.ewald_peratom(xs, q, c, sk.s_re, sk.s_im,
-                                              *pa),
-              lambda: ewald.ewald_compute_peratom_plain(ew, x, q),
-              4 * n * fs + 12 * K * fs + 7 * n * fs,
-              n * K * OPS_PA_EWALD + n * OPS_PA_EWALD_ATOM, err,
-              f" (K {K}; the plain time includes its own S(k))")
-    else:
-        pm = getattr(solver, "pm", solver)
-        err = check("K10pa compute_peratom",
-                    pppm.compute_peratom(pm, x, q),
-                    pppm.compute_peratom_plain(pm, x, q))
-        c = pm.consts(dev, dtype)
-        planes = AtomPlanes(x[0], x[1], x[2], q,
-                            torch.arange(n, dtype=torch.int32, device=dev))
-        mesh = deposit(pm, planes, n, c)
-        rhat = torch.fft.rfftn(mesh.to(pm.acc_dtype)).contiguous()
-        from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
+                ew64 = dataclasses.replace(ew, acc_dtype=torch.float64,
+                                           _consts={})
+                ref = ewald.ewald_compute_peratom_plain(ew64, x.double(),
+                                                        q.double())
+                d_kern, d_plain = _pa_err(kern_r, ref), _pa_err(plain_r, ref)
+                print(f"[peratom] {label} K11pa f32 against the f64 sum: "
+                      f"kernel {d_kern:.3e}, plain {d_plain:.3e} (the kernel "
+                      f"within {PA_EWALD_F64_RATIO}x the plain version's)")
+                if not d_kern <= PA_EWALD_F64_RATIO * d_plain:
+                    raise AssertionError(
+                        f"{label}: K11pa is {d_kern:.3e} from the f64 sum, "
+                        f"more "
+                        f"than {PA_EWALD_F64_RATIO}x the plain version's "
+                        f"{d_plain:.3e}")
+            err = check("K11pa ewald_peratom", kern_r, plain_r,
+                        EWALD_TOL[dtype][0])
+            K = ew.kvecs.shape[0]
+            timed("ewald_peratom",
+                  lambda: ewald_ops.ewald_peratom(xs, q, c, sk.s_re, sk.s_im,
+                                                  *pa),
+                  lambda: ewald.ewald_compute_peratom_plain(ew, x, q),
+                  4 * n * fs + 12 * K * fs + 7 * n * fs,
+                  n * K * OPS_PA_EWALD + n * OPS_PA_EWALD_ATOM, err,
+                  f" (K {K}; the plain time includes its own S(k))")
+        elif isinstance(solver, (BoundKSpace, CellPPPMDisp)):
+            _pa_disp_twins(label, solver, at, dtype, check, timed)
+        else:
+            pm = getattr(solver, "pm", solver)
+            err = check("K10pa compute_peratom",
+                        pppm.compute_peratom(pm, x, q),
+                        pppm.compute_peratom_plain(pm, x, q))
+            c = pm.consts(dev, dtype)
+            planes = AtomPlanes(x[0], x[1], x[2], q,
+                                torch.arange(n, dtype=torch.int32, device=dev))
+            mesh = deposit(pm, planes, n, c)
+            rhat = torch.fft.rfftn(mesh.to(pm.acc_dtype)).contiguous()
+            from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
 
-        sk = pppm_ops.peratom_spectral(pm, c, rhat, True)
-        e1 = check("K10pa pppm_peratom_spectral", (sk,),
-                   (pppm.peratom_spectral_plain(pm, c, rhat, True),))
-        meshes = torch.fft.irfftn(sk, s=pm.grid, dim=(1, 2, 3)).contiguous()
-        nx, ny, nz = pm.grid
-        scale = nx * ny * nz / float(pm.volume)
-        e2 = check("K10pa pppm_peratom_gather",
-                   pppm_ops.peratom_gather(pm, planes, meshes, c["coef"],
-                                           scale),
-                   pppm.peratom_gather_plain(pm, planes, meshes, scale))
-        asz = torch.empty((), dtype=pm.acc_dtype).element_size()
-        npts = int(np.prod(c["G_half"].shape))
-        timed("pppm_peratom_spectral",
-              lambda: pppm_ops.peratom_spectral(pm, c, rhat, True),
-              lambda: pppm.peratom_spectral_plain(pm, c, rhat, True),
-              npts * (3 + 14) * asz, npts * OPS_PA_SPECTRAL_PT, max(err, e1),
-              f" (half spectrum {tuple(c['G_half'].shape)})")
-        p = pm.order
-        timed("pppm_peratom_gather",
-              lambda: pppm_ops.peratom_gather(pm, planes, meshes, c["coef"],
-                                              scale),
-              lambda: pppm.peratom_gather_plain(pm, planes, meshes, scale),
-              4 * n * fs + 7 * nx * ny * nz * asz + 7 * n * asz,
-              n * (OPS_WEIGHTS(p) + p ** 3 * OPS_PA_GATHER_PT
-                   + OPS_PA_GATHER_ATOM), max(err, e2),
-              f" (mesh {pm.grid}, order {p})")
+            sk = pppm_ops.peratom_spectral(pm, c, rhat, True)
+            e1 = check("K10pa pppm_peratom_spectral", (sk,),
+                       (pppm.peratom_spectral_plain(pm, c, rhat, True),))
+            meshes = torch.fft.irfftn(sk, s=pm.grid,
+                                      dim=(1, 2, 3)).contiguous()
+            nx, ny, nz = pm.grid
+            scale = nx * ny * nz / float(pm.volume)
+            e2 = check("K10pa pppm_peratom_gather",
+                       pppm_ops.peratom_gather(pm, planes, meshes, c["coef"],
+                                               scale),
+                       pppm.peratom_gather_plain(pm, planes, meshes, scale))
+            asz = torch.empty((), dtype=pm.acc_dtype).element_size()
+            npts = int(np.prod(c["G_half"].shape))
+            timed("pppm_peratom_spectral",
+                  lambda: pppm_ops.peratom_spectral(pm, c, rhat, True),
+                  lambda: pppm.peratom_spectral_plain(pm, c, rhat, True),
+                  npts * (3 + 14) * asz, npts * OPS_PA_SPECTRAL_PT,
+                  max(err, e1),
+                  f" (half spectrum {tuple(c['G_half'].shape)})")
+            p = pm.order
+            timed("pppm_peratom_gather",
+                  lambda: pppm_ops.peratom_gather(pm, planes, meshes,
+                                                  c["coef"],
+                                                  scale),
+                  lambda: pppm.peratom_gather_plain(pm, planes, meshes, scale),
+                  4 * n * fs + 7 * nx * ny * nz * asz + 7 * n * asz,
+                  n * (OPS_WEIGHTS(p) + p ** 3 * OPS_PA_GATHER_PT
+                       + OPS_PA_GATHER_ATOM), max(err, e2),
+                  f" (mesh {pm.grid}, order {p})")
     if sim.bonded is not None:
         # the computes' precision: f64 positions, f64 sums
         b = sim.bonded
@@ -4278,9 +4320,16 @@ def phase_peratom_record(rec: dict):
     return worst
 
 
+def _press_identity(sim) -> bool:
+    """Whether the deck's whole virial has per-atom shares: not with SHAKE
+    or rigid bodies, whose constraint virials are global only."""
+    return sim.shake is None and getattr(sim, "rigid", None) is None
+
+
 def _pa_pins(label, sim, row, stress, pe, pe_tol):
-    """sum pe against the row's epair + emol; on decks without SHAKE the
-    pressure identity press = -trace(sum stress) / (3 V)."""
+    """sum pe against the row's epair + emol; on decks without SHAKE or
+    rigid bodies the pressure identity press = -trace(sum stress) /
+    (3 V)."""
     total = row["epair"] + row["emol"]
     pe_sum = float(pe.sum())
     vol = float(np.prod(np.asarray(sim.box.lengths, np.float64)))
@@ -4290,9 +4339,9 @@ def _pa_pins(label, sim, row, stress, pe, pe_tol):
           f"stress)/3V {press:.8g} (thermo press {row['press']:.8g})")
     if not abs(pe_sum - total) <= pe_tol * abs(total):
         raise AssertionError(f"{label}: sum pe off thermo")
-    if sim.shake is None and not (abs(press - row["press"])
-                                  <= PA_PRESS_TOL * max(abs(row["press"]),
-                                                        1.0)):
+    if _press_identity(sim) and not (abs(press - row["press"])
+                                     <= PA_PRESS_TOL * max(abs(row["press"]),
+                                                           1.0)):
         raise AssertionError(f"{label}: pressure identity off")
 
 
@@ -4301,11 +4350,11 @@ def _dump_deck(name, base_ms, need, tmp):
     into ``tmp``, launch counts set to 0 just before and read just after:
     every kernel of ``need`` launched; each frame read back with
     read_lammpstrj, its sum of c_pe against the thermo row's epair + emol
-    (PA_PE_TOL) and, without SHAKE, -trace(sum c_stress) / (3 V) against
-    press (PA_PRESS_TOL); ms/step of the run without the frames beside
-    base_ms (the same deck without dump, earlier in this call) and the
-    seconds a frame costs.  Returns the launches, ms/step, the frames'
-    seconds and the engine."""
+    (PA_PE_TOL) and, without SHAKE or rigid bodies, -trace(sum c_stress) /
+    (3 V) against press (PA_PRESS_TOL); ms/step of the run without the
+    frames beside base_ms (the same deck without dump, earlier in this
+    call) and the seconds a frame costs.  Returns the launches, ms/step,
+    the frames' seconds and the engine."""
     from lammps_buck_intel_tpu_torch.io import dump as dumpmod
     from lammps_buck_intel_tpu_torch.run import run_deck
 
@@ -4341,9 +4390,9 @@ def _dump_deck(name, base_ms, need, tmp):
         if not abs(pe - total) <= PA_PE_TOL * abs(total):
             raise AssertionError(f"{name} frame {f['step']}: sum c_pe {pe} "
                                  f"vs thermo {total}")
-        if sim.shake is None and not (abs(press - row["press"])
-                                      <= PA_PRESS_TOL
-                                      * max(abs(row["press"]), 1.0)):
+        if _press_identity(sim) and not (abs(press - row["press"])
+                                         <= PA_PRESS_TOL
+                                         * max(abs(row["press"]), 1.0)):
             raise AssertionError(f"{name} frame {f['step']}: pressure "
                                  f"{press} vs thermo {row['press']}")
     ms_step = 1e3 * sim.timings["run"] / steps
@@ -4381,17 +4430,497 @@ DUMP_PATH = {
 def phase_dump(base: dict):
     """The three dump decks unedited (``_dump_deck``), each followed by its
     per-atom kernels against their plain versions in f32 at the deck's
-    last state, timed there (the result's "times")."""
+    last state, timed there (the result's "times"); K18 slots (Coulomb) at
+    cristobalite_pppm_dump.yaml's last slot state (the result's "slots"),
+    and before its run on its ideal crystal against the f64 solve
+    (``_k18_against_f64``)."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, need in DUMP_PATH.items():
+            if name == "cristobalite_pppm_dump.yaml":
+                # K18 slots (Coulomb) on the deck's ideal crystal, built
+                # and not run
+                sim = build_simulation(load_deck(name), device="cuda")
+                _k18_against_f64(name + " step 0", sim.kspace, sim.state)
+                del sim
             r = _dump_deck(name, base[name], need, tmp)
             sim = r.pop("sim")
             r["times"] = _pa_twins(name, sim, torch.float32, time_it=True)
+            if name == "cristobalite_pppm_dump.yaml":
+                # K18 slots (Coulomb) on the north-star mesh
+                r["slots"] = _pa_slots(name, sim.kspace, sim.state,
+                                       time_it=True)
             out[name] = r
             del sim
             torch.cuda.empty_cache()
     return out
+
+
+# ---- per-atom dispersion PPPM (K12pa) and the slot-order per-atom PPPM
+# (K18 slots) ----
+
+# K12pa spectral per half-spectrum point: the six factors 15 (vfac k_a k_b
+# 9 multiplies, three adds), per channel chi 4 nch (P times a complex
+# sum), phi 2, twelve products
+OPS_PA_DISP_PT, OPS_PA_DISP_CH = 15, 14
+# K12pa gather per entry and channel of non-zero charge: a_c / 2 1, the
+# energy 2, the six virials 12, and at each stencil point the seven
+# multiply-adds (OPS_PA_MAC_PT); per entry with a non-zero charge the
+# weights once (OPS_WEIGHTS, OPS_PA_WEIGHT_PT a point), whatever its
+# channels, and the k = 0 and self terms 2 nch^2 + 4 nch + 8
+OPS_PA_DISP_GATHER_CH = 15
+# K18 slots: the pins of the slot forms in f64 (the sums of the shares
+# against compute_slots' elong and virial: the JAX test's tolerances,
+# tests/test_pppm_cells.py:150-153)
+PA_SLOT_PIN = (1e-10, 1e-9)
+# K18 slots (Coulomb) in f32 on the ideal crystal, where the per-atom
+# diagonal k-space virials nearly cancel and f32 loses digits in any
+# summation order: the kernel's distance to the f64 plain solve on the
+# same positions at most this many times the f32 plain version's
+PA_SLOT_F64_RATIO = 2.0
+DISP_DUMP_PATH = {
+    "cristobalite_buck_long_dump.yaml": (
+        "cellpair", "rebin_incremental", "pppm_deposit", "pppm_spectral",
+        "pppm_gather", "disp_deposit", "disp_spectral", "disp_gather",
+        "nlist_build", "nlist_pair_peratom", "pppm_peratom_spectral",
+        "pppm_peratom_gather", "disp_peratom_spectral",
+        "disp_peratom_gather"),
+    "hexane_gen_dump.yaml": (
+        "cellpair", "rebin_incremental", "pppm_deposit", "disp_spectral",
+        "pppm_gather", "rigid_force_torque", "rigid_update", "rigid_virial",
+        "nlist_build", "nlist_pair_peratom", "disp_deposit",
+        "disp_peratom_spectral", "disp_peratom_gather"),
+    "hexane_gen_arith_dump.yaml": (
+        "cellpair", "rebin_incremental", "disp_deposit", "disp_spectral",
+        "disp_gather", "rigid_force_torque", "rigid_update", "rigid_virial",
+        "nlist_build", "nlist_pair_peratom", "disp_peratom_spectral",
+        "disp_peratom_gather"),
+}
+
+
+def _pair_ops(cfg) -> int:
+    """Operations per pair in the cutoff of a pair style (OPS_PAIR; the
+    DISP_LONG styles' counts of phases 13 and 14)."""
+    if cfg.disp == "long":
+        if cfg.vdw == "buck":
+            return OPS_PAIR_BUCK_LONG[cfg.coul]
+        return OPS_PAIR_DISP + (OPS_PAIR_LJ_LONG_COUL - OPS_PAIR_DISP
+                                if cfg.coul == "long" else 0)
+    return OPS_PAIR[cfg.vdw, cfg.coul]
+
+
+def _solver_peratom(solver, x, typ):
+    """A bound dispersion solver's compute_peratom, called as the computes
+    call it."""
+    from lammps_buck_intel_tpu_torch.models.kspace import CellPPPMDisp
+
+    if isinstance(solver, CellPPPMDisp):
+        return solver.compute_peratom(x, typ)
+    return solver.compute_peratom(x)
+
+
+def _disp_binding(solver, at, dtype):
+    """The inputs of the K12pa stages, as the solver's compute_peratom
+    binds its channels: (pmd, row, table, P) with the channel charges
+    table[:, row] in ``dtype`` (CellPPPMDisp: b = B[type] from its own
+    table; BoundKSpace typed: A[:, type]; per-atom: its charges cast to
+    f32)."""
+    from lammps_buck_intel_tpu_torch.models.kspace import CellPPPMDisp
+
+    typ, dev = at["typ"], at["x"].device
+    ident = torch.arange(typ.shape[0], dtype=torch.int32, device=dev)
+    one = np.ones((1, 1))
+    if isinstance(solver, CellPPPMDisp):
+        b = torch.index_select(solver._b_table(dev, dtype), 0, typ)
+        return solver.pmd, ident, b[None].contiguous(), one
+    pmd = solver.solver
+    if solver.typed:
+        A = torch.as_tensor(np.asarray(pmd.A, np.float64)).to(dev, dtype)
+        return pmd, typ.to(torch.int32), A.contiguous(), pmd.P
+    b = torch.as_tensor(solver.per_atom.astype(np.float32)).to(dev, dtype)
+    return pmd, ident, b[None].contiguous(), one
+
+
+def _pa_disp_twins(label, solver, at, dtype, check, timed):
+    """K12pa against its plain version (``_pa_twins``' check and timed):
+    compute_peratom as the computes bind the solver against
+    disp_peratom_plain, then each kernel on its own inputs (the K12b
+    deposit and the FFTs between them) and timed."""
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_disp as pd
+
+    x = at["x"].to(dtype)
+    n, fs = x.shape[1], x.element_size()
+    pmd, row, table, P = _disp_binding(solver, at, dtype)
+    a = table[:, row.long()]
+    err = check("K12pa compute_peratom", _solver_peratom(solver, x, at["typ"]),
+                pd.disp_peratom_plain(pmd, x, a, P))
+    c = pmd.consts(x.device, dtype)
+    shim, acc = c["shim"], pmd.acc_dtype
+    S = torch.fft.rfftn(pd.deposit_multi(shim, x, row, table, c["coef"])
+                        .to(acc), dim=(1, 2, 3)).contiguous()
+    sk = pd.disp_peratom_spectral(c, S, P)
+    e1 = check("K12pa disp_peratom_spectral", (sk,),
+               (pd.disp_peratom_spectral_plain(c, S, P),))
+    meshes = torch.fft.irfftn(sk, s=pmd.grid, dim=(2, 3, 4)).contiguous()
+    del sk
+    ngrid = int(np.prod(pmd.grid))
+    scale = ngrid / float(pmd.volume)
+    terms = pd.peratom_terms(pmd, P, a.to(acc).sum(1))
+
+    def gk():
+        return pd.disp_peratom_gather(shim, x, row, table, meshes,
+                                      c["coef"], scale, terms)
+
+    def gp():
+        return pd.disp_peratom_gather_plain(shim, x, a, meshes, scale,
+                                            *terms)
+
+    e2 = check("K12pa disp_peratom_gather", gk(), gp())
+    nch, p = table.shape[0], pmd.order
+    asz = torch.empty((), dtype=acc).element_size()
+    npts = int(np.prod(c["G"].shape))
+    timed("disp_peratom_spectral",
+          lambda: pd.disp_peratom_spectral(c, S, P),
+          lambda: pd.disp_peratom_spectral_plain(c, S, P),
+          npts * asz * (2 + 2 * nch + 14 * nch),
+          npts * (OPS_PA_DISP_PT + nch * (4 * nch + OPS_PA_DISP_CH)),
+          max(err, e1), f" ({nch} channels, half spectrum "
+          f"{tuple(c['G'].shape)})")
+    live = int((a != 0).sum())
+    charged = int((a != 0).any(0).sum())
+    timed("disp_peratom_gather", gk, gp,
+          n * (3 * fs + 4) + nch * ngrid * 7 * asz + 7 * n * asz,
+          charged * (OPS_WEIGHTS(p) + p ** 3 * OPS_PA_WEIGHT_PT
+                     + 2 * nch * nch + 4 * nch + 8)
+          + live * (p ** 3 * OPS_PA_MAC_PT + OPS_PA_DISP_GATHER_CH),
+          max(err, e2), f" ({nch} channels, mesh {pmd.grid}, order {p}, "
+          f"{live} (atom, channel) pairs of non-zero charge, {charged} "
+          f"atoms with one)")
+
+
+def _f64_slot_solver(solver, st64):
+    """The cell engine's solver with f64 sums, on the same mesh and
+    tables, and the Coulomb self and background terms from the charges of
+    the f64 slot state ``st64`` (the deck's f32 charges widened), so that
+    its elong and the per-slot shares sum the same charges."""
+    import copy
+    import dataclasses
+
+    from lammps_buck_intel_tpu_torch.models.kspace import CellPPPMDisp
+
+    s64 = copy.copy(solver)
+    s64._consts, s64._B = {}, {}
+    if isinstance(solver, CellPPPMDisp):
+        s64.pmd = dataclasses.replace(solver.pmd, acc_dtype=torch.float64,
+                                      _consts={})
+        s64.pm = s64.pmd.shim()
+    else:
+        q = st64.q[st64.aid < solver.n_atoms]
+        s64.pm = dataclasses.replace(solver.pm, acc_dtype=torch.float64,
+                                     _consts={}, qsum=float(q.sum()),
+                                     qsqsum=float((q * q).sum()))
+    return s64
+
+
+def _f64_slots(st):
+    """The slot state with positions and charges widened to f64."""
+    return st._replace(**{f: getattr(st, f).double()
+                          for f in ("x", "y", "z", "q")})
+
+
+def _k18_against_f64(label, solver, st):
+    """K18 slots (Coulomb) in f32 on a state where f32 loses digits in any
+    summation order (the ideal crystal: the per-atom diagonal k-space
+    virials nearly cancel): the kernel's and the f32 plain version's
+    distances to the f64 plain solve on the same positions, printed with
+    the kernel's distance to the plain version; the kernel's at most
+    PA_SLOT_F64_RATIO times the plain version's."""
+    st64 = _f64_slots(st)
+    ref = _f64_slot_solver(solver, st64).compute_peratom_slots(st64,
+                                                               plain=True)
+    kern = solver.compute_peratom_slots(st)
+    plain = solver.compute_peratom_slots(st, plain=True)
+    d_kern, d_plain = _pa_err(kern, ref), _pa_err(plain, ref)
+    print(f"[K18 slots] {label} f32 against the f64 plain solve: kernel "
+          f"{d_kern:.3e}, plain {d_plain:.3e} (the kernel within "
+          f"{PA_SLOT_F64_RATIO}x the plain version's); kernel vs plain "
+          f"{_pa_err(kern, plain):.3e}")
+    if not d_kern <= PA_SLOT_F64_RATIO * d_plain:
+        raise AssertionError(
+            f"{label}: K18 slots are {d_kern:.3e} from the f64 solve, more "
+            f"than {PA_SLOT_F64_RATIO}x the plain version's {d_plain:.3e}")
+    del st64, ref, kern, plain
+    torch.cuda.empty_cache()
+
+
+def _pa_slots(label, solver, st, time_it: bool) -> dict:
+    """K18 slots on an engine's slot state: counts set to 0 just before
+    ``compute_peratom_slots`` and read just after (every kernel of the
+    slot form launched), against its plain version on the card (PA_TOL),
+    exactly 0 on empty slots; the pins on an f64 copy of the solver and
+    the state (the shares' sums against compute_slots' elong and virial,
+    PA_SLOT_PIN; for the Coulomb form also the miss of the full-spectrum
+    Nyquist rule of ``pppm.compute_peratom`` on the same slots, printed);
+    with ``time_it`` the slot gather kernel timed beside its plain version
+    and its bound."""
+    from lammps_buck_intel_tpu_torch.models.kspace import CellPPPMDisp
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm as tp
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_disp as pd
+
+    disp = isinstance(solver, CellPPPMDisp)
+    n, flt = solver.n_atoms, st.x.dtype
+    key = "disp_peratom_slots" if disp else "pppm_peratom_slots"
+    need = ("pppm_deposit", "disp_peratom_spectral" if disp
+            else "pppm_peratom_spectral", key)
+    ops.reset_launches()
+    ek, vk = solver.compute_peratom_slots(st)
+    torch.cuda.synchronize()
+    ran = {k: ops.LAUNCHES[k] for k in need}
+    if min(ran.values()) <= 0:
+        raise AssertionError(f"{label}: K18 slots launched {ran}")
+    ep, vp = solver.compute_peratom_slots(st, plain=True)
+    err = _pa_err((ek, vk), (ep, vp))
+    empty = st.aid >= n
+    print(f"[K18 slots] {label} {'dispersion' if disp else 'Coulomb'} "
+          f"{str(flt)[6:]}, {st.x.shape[0]} slots ({int(empty.sum())} "
+          f"empty): kernel vs plain max rel {err:.3e} (tol {PA_TOL[flt]}); "
+          f"launches {ran}")
+    if not err <= PA_TOL[flt]:
+        raise AssertionError(f"{label}: K18 slots disagree with plain")
+    if ek[empty].any() or vk[empty].any():
+        raise AssertionError(f"{label}: K18 slots not 0 on empty slots")
+    # the pins in f64
+    st64 = _f64_slots(st)
+    s64 = _f64_slot_solver(solver, st64)
+    _, _, _, el, vir = s64.compute_slots(st64, True, True)
+
+    def miss(e, v):
+        me = abs(float(e.sum() - el)) / abs(float(el))
+        mv = (v.sum(0) - vir) / vir.abs().max()
+        return me, mv, (f"sum eatom - elong rel {me:.3e}; sum vatom - "
+                        f"virial, of its largest: "
+                        + " ".join(f"{u:.3e}" for u in mv.tolist()))
+
+    me, mv, text = miss(*s64.compute_peratom_slots(st64))
+    print(f"[K18 slots] {label} f64 pins: {text}")
+    if not (me <= PA_SLOT_PIN[0] and float(mv.abs().max()) <= PA_SLOT_PIN[1]):
+        raise AssertionError(f"{label}: K18 slots do not pin")
+    if not disp:
+        # the full-spectrum rule on the same slots and meshes: printed
+        pm = s64.pm
+        c = pm.consts(st64.x.device, torch.float64)
+        rhat = torch.fft.rfftn(pppm_cells.deposit(pm, st64, n, c)).contiguous()
+        meshes = torch.fft.irfftn(tp.peratom_spectral(pm, c, rhat, True),
+                                  s=pm.grid, dim=(1, 2, 3)).contiguous()
+        print(f"[K18 slots] {label} f64, the full-spectrum Nyquist rule: "
+              + miss(*tp.peratom_gather(pm, st64, meshes, c, n))[2])
+        del rhat, meshes
+    del s64, st64
+    out = dict(launches=ran[key], max_abs_err=err)
+    if not time_it:
+        return out
+    # the slot gather alone, on the meshes of this state
+    ns = st.x.shape[0]
+    fs, p = st.x.element_size(), solver.pm.order
+    live = int((~empty).sum())
+    if disp:
+        pmd = solver.pmd
+        c = pmd.consts(st.x.device, flt)
+        acc = pmd.acc_dtype
+        b = solver._slot_b(st)
+        S = torch.fft.rfftn(pppm_cells.deposit(solver.pm, st._replace(q=b),
+                                               n, c).to(acc)).contiguous()
+        meshes = torch.fft.irfftn(pd.disp_peratom_spectral(c, S[None],
+                                                           pmd.P),
+                                  s=pmd.grid, dim=(2, 3, 4)).contiguous()
+        ngrid = int(np.prod(pmd.grid))
+        scale = ngrid / float(pmd.volume)
+        terms = pd.peratom_terms(pmd, pmd.P, torch.full(
+            (1,), solver._bsum, dtype=acc, device=st.x.device))
+        x = torch.stack([st.x, st.y, st.z])
+        table = solver._b_table(st.x.device, flt)[None, :]
+
+        def kern():
+            return pd.disp_peratom_gather(solver.pm, x, st.typ, table,
+                                          meshes, c["coef"], scale, terms,
+                                          st.aid, n)
+
+        def plain():
+            return pd.disp_peratom_gather_plain(solver.pm, x, b[None],
+                                                meshes, scale, *terms)
+
+        nops = live * (OPS_WEIGHTS(p) + p ** 3 * OPS_PA_GATHER_PT
+                       + OPS_PA_DISP_GATHER_CH + 14)
+    else:
+        pm = solver.pm
+        c = pm.consts(st.x.device, flt)
+        acc = pm.acc_dtype
+        rhat = torch.fft.rfftn(pppm_cells.deposit(pm, st, n, c).to(acc)
+                               ).contiguous()
+        meshes = torch.fft.irfftn(tp.peratom_spectral(pm, c, rhat, False),
+                                  s=pm.grid, dim=(1, 2, 3)).contiguous()
+        ngrid = int(np.prod(pm.grid))
+        scale = ngrid / float(pm.volume)
+
+        def kern():
+            return pppm_ops.peratom_gather(pm, st, meshes, c["coef"], scale,
+                                           n)
+
+        def plain():
+            return tp.peratom_gather_plain(pm, st, meshes, scale)
+
+        nops = live * (OPS_WEIGHTS(p) + p ** 3 * OPS_PA_GATHER_PT
+                       + OPS_PA_GATHER_ATOM)
+    # a live slot reads x, y, z and aid, with q (Coulomb) or its type row
+    # (dispersion); an empty one only aid
+    asz = torch.empty((), dtype=acc).element_size()
+    nbytes = (live * (3 * fs + 8 if disp else 4 * fs + 4)
+              + (ns - live) * 4 + 7 * ngrid * asz + 7 * ns * asz)
+    ms, dev_ms = cuda_ms(kern), device_ms(kern)
+    plain_ms = cuda_ms(plain, reps=2)
+    whole_ms = cuda_ms(lambda: solver.compute_peratom_slots(st), reps=3)
+    b_ms, b_by = bound(nbytes, nops)
+    print(f"[K18 slots time] {label} f32: slot gather {ms:.4f} ms (device "
+          f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}; {nops:.4g} operations, {int(nbytes):,} bytes; {ns} "
+          f"slots, {live} atoms, mesh {solver.pm.grid}, order {p}); the "
+          f"whole slot form {whole_ms:.4f} ms; no one PyTorch call does "
+          f"this work")
+    out.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, whole_ms=whole_ms)
+    return out
+
+
+def _disp_miss(label, sim):
+    """The dispersion solver's per-atom virial sums against its own global
+    virial at the deck's mesh, on an f64 copy of the solver and the
+    positions (the JAX convention the port keeps: printed)."""
+    import dataclasses
+
+    from lammps_buck_intel_tpu_torch import computes
+    from lammps_buck_intel_tpu_torch.models.kspace import (BoundKSpace,
+                                                           CellPPPMDisp)
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm_disp as pd
+
+    at = sim.atoms_on_device()
+    f64 = torch.float64
+    for s in computes._solvers(sim.kspace):
+        if not isinstance(s, (BoundKSpace, CellPPPMDisp)):
+            continue
+        pmd, row, table, P = _disp_binding(s, at, f64)
+        p64 = dataclasses.replace(pmd, acc_dtype=f64, _consts={})
+        x = at["x"].double()
+        e, v = pd.disp_peratom(p64, x, row, table, P)
+        g = p64.compute_rows(x, row, table, P)
+        me = abs(float(e.sum() - g.elong)) / abs(float(g.elong))
+        mv = (v.sum(0) - g.virial) / g.virial.abs().max()
+        print(f"[peratom disp] {label}: mesh {pmd.grid}, order "
+              f"{pmd.order}, {table.shape[0]} channels: f64 sum eatom - "
+              f"elong rel {me:.3e}; sum vatom - virial, of its largest: "
+              + " ".join(f"{u:.3e}" for u in mv.tolist()))
+        del p64, e, v, g
+    torch.cuda.empty_cache()
+
+
+def phase_peratom_disp_record(rec: dict):
+    """The three dispersion cases of tests/goldens/torch_peratom_disp.json
+    (examples/peratom_cases.py DISP_CASES: cristobalite_buck_long.yaml on
+    the jittered copy, hexane_gen.yaml and hexane_gen_arith.yaml on the
+    4x4x4 cut-out) built in f64 on the card: every per-atom kernel against
+    its plain version (1e-12: K9d, K10pa, K12pa; K18 slots on the hexane
+    cell engine with its pins); the f64 functions (pair, the k-space sum,
+    the dispersion solver alone) against the JAX package's record within
+    1e-9; pe_atom and stress_atom against the JAX computes at
+    PA_COMPUTE_TOL; sum pe against the thermo row and, on silica, the
+    pressure identity."""
+    from lammps_buck_intel_tpu_torch import computes
+    from lammps_buck_intel_tpu_torch.models.kspace import (BoundKSpace,
+                                                           CellPPPMDisp)
+
+    rp = _peratom_cases()
+    f64 = torch.float64
+    worst = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        jpath = os.path.join(tmp, "data.cristobalite_jitter")
+        hpath = os.path.join(tmp, "data.hexane_cut")
+        rp.write_jitter(jpath)
+        rp.write_hexane_cut(hpath)
+        for name in rp.DISP_CASES:
+            g = rec[name]
+            sim = build_simulation(rp.case_config(name, jpath, hpath),
+                                   device="cuda")
+            if type(sim).__name__ != g["engine"]:
+                raise AssertionError(f"{name}: engine {type(sim).__name__}")
+            row = sim.thermo()
+            _pa_twins(name, sim, f64, time_it=False)
+            at = sim.atoms_on_device()
+            idx = np.asarray(g["sample"])
+            got = dict(zip(("pair_e", "pair_v"),
+                           computes._pair_peratom(sim, at, f64)))
+            got.update(zip(("kspace_e", "kspace_v"),
+                           computes._kspace_peratom(sim, at, f64, False)))
+            for s in computes._solvers(sim.kspace):
+                if isinstance(s, (BoundKSpace, CellPPPMDisp)):
+                    got.update(zip(("disp_e", "disp_v"), _solver_peratom(
+                        s, at["x"], at["typ"])))
+            for key, a in got.items():
+                worst = max(worst, _pa_close(name, key, a, g["f64"][key],
+                                             idx, (PA_RECORD_TOL,) * 2))
+            cache = {}
+            pe = computes.pe_atom(sim, cache=cache)
+            st = computes.stress_atom(sim, cache=cache)
+            st_half = rp.half_spectrum_stress(sim, st, cache)
+            for key, a in (("pe", pe), ("stress", st_half)):
+                _pa_close(name, key, a, g[key], idx, PA_COMPUTE_TOL)
+            _pa_pins(name, sim, row, st, pe, 2e-5)
+            if isinstance(sim.kspace, CellPPPMDisp):
+                _pa_slots(name, sim.kspace, sim.state, time_it=False)
+            del sim
+    print(f"[peratom disp] the f64 per-atom functions on the card within "
+          f"{worst:.3e} of the JAX package's record (tol {PA_RECORD_TOL})")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_dump_disp(base: dict):
+    """The three pppm/disp dump decks unedited (``_dump_deck``: every
+    kernel of DISP_DUMP_PATH launched, each frame's sum c_pe within 5e-4
+    of thermo, the pressure identity on the buck/long deck; the rigid
+    hexane decks' constraint virial is global only), each followed by its
+    per-atom kernels against their plain versions in f32 at the deck's
+    last state, timed there, and the dispersion per-atom virial's miss at
+    the deck's mesh in f64; K18 slots (dispersion) on hexane_gen_dump's
+    last slot state."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, need in DISP_DUMP_PATH.items():
+            r = _dump_deck(name, base[name], need, tmp)
+            sim = r.pop("sim")
+            r["times"] = _pa_twins(name, sim, torch.float32, time_it=True)
+            _disp_miss(name, sim)
+            if name == "hexane_gen_dump.yaml":
+                r["slots"] = _pa_slots(name, sim.kspace, sim.state,
+                                       time_it=True)
+            out[name] = r
+            del sim
+            torch.cuda.empty_cache()
+    return out
+
+
+def _k9c_device_again() -> float:
+    """K9c's device time at buck_small.yaml's 500 atoms, traced once more
+    late in the call (phase 11's trace may lose its lead)."""
+    from lammps_buck_intel_tpu_torch.neighbor import neighbor_list as nlm
+
+    sim = _nlist_sim("buck_small.yaml", "single")
+    x, lo, L, spec = sim.state.x, sim._lo, sim._boxL, sim.spec
+    dev_ms = device_ms(lambda: nlm.build_dense(x, lo, L, spec,
+                                               sim._special))
+    print(f"[K9c] nlist_dense f32 at {sim.n_atoms} atoms, traced again: "
+          f"device {dev_ms:.4f} ms")
+    del sim
+    return dev_ms
+
 
 def main():
     t_start = time.perf_counter()
@@ -4502,6 +5031,23 @@ def main():
     dcris, dewd, drho = (dumps[k] for k in DUMP_PATH)
     print(f"[time] the per-atom phases took {time.perf_counter() - t_pa:.1f} "
           f"s; {time.perf_counter() - t_start:.1f} s since the start")
+    torch.cuda.empty_cache()
+
+    # per-atom dispersion PPPM (K12pa) on the pppm/disp dump decks and the
+    # slot-order per-atom PPPM (K18 slots)
+    t_pd = time.perf_counter()
+    phase_peratom_disp_record(load_golden("torch_peratom_disp.json"))
+    ddumps = phase_dump_disp({
+        "cristobalite_buck_long_dump.yaml": mcell["ms_step"],
+        "hexane_gen_dump.yaml": hsmall["ms_step"],
+        "hexane_gen_arith_dump.yaml": mhex["ms_step"]})
+    dbl, dhex, dhexa = (ddumps[k] for k in DISP_DUMP_PATH)
+    k9c_dev = _k9c_device_again()
+    if np.isnan(k9c["device_ms"]):
+        k9c["device_ms"] = k9c_dev
+    print(f"[time] the per-atom dispersion phases took "
+          f"{time.perf_counter() - t_pd:.1f} s; "
+          f"{time.perf_counter() - t_start:.1f} s since the start")
 
     def row(name, source, replaces, launch_key, r, launches=launches):
         return dict(name=name, route="cuda", source=f"{SRC}/{source}",
@@ -4652,6 +5198,41 @@ def main():
         row("bonded_peratom", "bonded.cu", "models/bonded/harmonic.py:294",
             "bonded_peratom", drho["times"]["bonded_peratom"],
             drho["launches"]),
+        # the per-atom dispersion PPPM: times at each pppm/disp dump deck's
+        # last state (2 channels on the buck/long deck's 144x150x108 mesh,
+        # 7 on hexane_gen_arith's), launches of its run (three frames); one
+        # channel timed at hexane_gen_big.yaml's 192,000 atoms and launched
+        # on hexane_gen_dump.yaml's run
+        row("disp_peratom_spectral", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:427", "disp_peratom_spectral",
+            dbl["times"]["disp_peratom_spectral"], dbl["launches"]),
+        row("disp_peratom_gather", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:427", "disp_peratom_gather",
+            dbl["times"]["disp_peratom_gather"], dbl["launches"]),
+        row("disp_peratom_spectral_1_channel", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:427", "disp_peratom_spectral",
+            htimes["peratom"]["disp_peratom_spectral"], dhex["launches"]),
+        row("disp_peratom_gather_1_channel", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:427", "disp_peratom_gather",
+            htimes["peratom"]["disp_peratom_gather"], dhex["launches"]),
+        row("disp_peratom_spectral_7_channels", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:427", "disp_peratom_spectral",
+            dhexa["times"]["disp_peratom_spectral"], dhexa["launches"]),
+        row("disp_peratom_gather_7_channels", "pppm_disp.cu",
+            "models/kspace/pppm_disp.py:427", "disp_peratom_gather",
+            dhexa["times"]["disp_peratom_gather"], dhexa["launches"]),
+        # K18 slots: the slot gathers timed at cristobalite_pppm_dump.yaml's
+        # last slot state (Coulomb, 105x112x77) and hexane_gen_big.yaml's
+        # (dispersion, 154x187x187), launches of one compute_peratom_slots
+        # there (no deck calls the slot forms)
+        row("pppm_peratom_slots", "pppm.cu",
+            "models/kspace/pppm_cells.py:1011", "pppm_peratom_slots",
+            dcris["slots"],
+            {"pppm_peratom_slots": dcris["slots"]["launches"]}),
+        row("disp_peratom_slots", "pppm_disp.cu",
+            "models/kspace/pppm_cells.py:1062", "disp_peratom_slots",
+            htimes["slots"],
+            {"disp_peratom_slots": htimes["slots"]["launches"]}),
     ]
     print(f"[K9c] torch.cdist + topk at 500 atoms: "
           f"{k9c['cdist_topk_ms']:.4f} ms; [K9b] rhodo_nve_nlist x6x6x4 "
@@ -4675,7 +5256,7 @@ def main():
               for k, v in mtimes.items() if "loop_ms" in v))
     print(f"[K1] lj/long + coul/long on hexane_gen_big's slots: "
           f"{json.dumps(mtimes['k1_lj_long_coul_long'])}")
-    for name, r in dumps.items():
+    for name, r in list(dumps.items()) + list(ddumps.items()):
         print(f"[dump] {name}: {r['ms_step']:.4f} ms/step without the "
               f"frames, {r['base_ms']:.4f} without dump; {r['frame_s']:.3f} "
               f"s a frame; K9d {json.dumps(r['times']['nlist_pair_peratom'])}")

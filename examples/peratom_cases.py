@@ -1,7 +1,10 @@
-"""The cases of the per-atom record (tests/goldens/torch_peratom.json):
-four decks of examples/decks/ in f64 with ``run: 0``, built alike by the
-JAX package's deck runner (tools/record_peratom.py), the port's CPU tests
-(tests/test_torch_peratom.py, test_torch_dump.py) and chip_smoke.py.
+"""The cases of the per-atom records (tests/goldens/torch_peratom.json and
+torch_peratom_disp.json): decks of examples/decks/ in f64 with ``run: 0``,
+built alike by the JAX package's deck runner (tools/record_peratom.py),
+the port's CPU tests (tests/test_torch_peratom.py, test_torch_dump.py,
+test_torch_peratom_disp.py) and chip_smoke.py.
+
+``CASES`` (torch_peratom.json):
 
 - ``silica_pppm``: cristobalite_pppm.yaml at one copy of
   examples/data.cristobalite, which gen_cristobalite.jitter displaced by
@@ -14,6 +17,19 @@ JAX package's deck runner (tools/record_peratom.py), the port's CPU tests
   tests/test_computes.py runs it;
 - ``rhodo_npt``: rhodo_npt.yaml at one copy (the NPT engine's
   TracedPPPM).
+
+``DISP_CASES`` (torch_peratom_disp.json), the dispersion k-space:
+
+- ``silica_buck_long``: cristobalite_buck_long.yaml on the jittered copy
+  (1,440 atoms): the box is too small for the cell engine, so the
+  neighbor-list engine with the Coulomb PPPM beside the no-mix dispersion
+  channels (CombinedKSpace[PPPM, BoundKSpace typed]), the Coulomb PPPM at
+  1e-2 as in ``silica_pppm``;
+- ``hexane_cut``, ``hexane_cut_arith``: hexane_gen.yaml and
+  hexane_gen_arith.yaml on the 4x4x4 cut-out of gen_hexane (384 atoms,
+  ``write_hexane_cut``) at cut 5 / skin 1: the cell engine with fix
+  rigid/small and CellPPPMDisp (geometric), or the seven arithmetic
+  channels (BoundKSpace typed on the slots).
 """
 from __future__ import annotations
 
@@ -41,17 +57,33 @@ CASES = {
         kspace_style={"name": "pppm", "accuracy": 1e-2})),
     "rhodo_npt": ("rhodo_npt.yaml", dict(replicate=[1, 1, 1])),
 }
+# "hexane_cut": read_data is the cut-out, at cut 5 and skin 1
+DISP_CASES = {
+    "silica_buck_long": ("cristobalite_buck_long.yaml", dict(
+        replicate=[1, 1, 1], jitter=True,
+        kspace_style={"name": "pppm/disp", "accuracy": 1e-2,
+                      "force_disp_real": 1e-4, "order": 7, "mix": "none"})),
+    "hexane_cut": ("hexane_gen.yaml", dict(hexane_cut=True)),
+    "hexane_cut_arith": ("hexane_gen_arith.yaml", dict(hexane_cut=True)),
+}
+ALL_CASES = {**CASES, **DISP_CASES}
+HEXANE_CUT = (4, 4, 4)
 
 
-def case_config(name: str, jitter_path: str) -> dict:
+def case_config(name: str, jitter_path: str, hexane_path=None) -> dict:
     """The case's deck: precision double, run 0, its overrides applied;
-    jitter_path: the jittered copy ``write_jitter`` wrote."""
-    deck, over = CASES[name]
+    jitter_path: the jittered copy ``write_jitter`` wrote; hexane_path: the
+    cut-out ``write_hexane_cut`` wrote (the hexane cases)."""
+    deck, over = ALL_CASES[name]
     with open(os.path.join(DECKS, deck)) as f:
         cfg = yaml.safe_load(f)
     over = dict(over)
     cfg["read_data"] = (jitter_path if over.pop("jitter", False)
                         else os.path.join(ROOT, cfg["read_data"]))
+    if over.pop("hexane_cut", False):
+        cfg["read_data"] = hexane_path
+        over.update(pair_cut=5.0)
+        cfg["neighbor"] = dict(cfg["neighbor"], skin=1.0)
     if "pair_cut" in over:
         cfg["pair_style"] = dict(cfg["pair_style"], cut=over.pop("pair_cut"))
     cfg.update(precision="double", run=0, **over)
@@ -64,6 +96,14 @@ def write_jitter(path: str):
     import gen_cristobalite
 
     gen_cristobalite.write(path, jitter_amp=JITTER)
+
+
+def write_hexane_cut(path: str):
+    """The 4x4x4 cut-out of the generated hexane liquid at ``path``."""
+    sys.path.insert(0, HERE)
+    import gen_hexane
+
+    gen_hexane.write(path, *HEXANE_CUT)
 
 
 def sample_idx(n: int) -> np.ndarray:

@@ -23,9 +23,13 @@ scope, by default all of them):
 - ``kspace``: ``pppm.compute_peratom`` (K5, K10pa) for the generic
   ``PPPM``, the cell engine's ``CellPPPM`` (its mesh) and the NPT engine's
   ``TracedPPPM`` (rebuilt by ``setup_pppm`` on the current box with mesh,
-  order and g_ewald pinned, as the JAX package does), or
-  ``ewald.ewald_compute_peratom`` (K11a, K11pa); the dispersion solvers
-  raise naming ROADMAP queue 1 item 15;
+  order and g_ewald pinned, as the JAX package does),
+  ``ewald.ewald_compute_peratom`` (K11a, K11pa), or
+  ``PPPMDisp.compute_peratom`` (K12b, K12pa) for pppm/disp: the cell
+  engine's ``CellPPPMDisp`` (its cell-aligned dispersion mesh, b =
+  B[type] in the positions' dtype) and ``BoundKSpace`` (typed or per-atom
+  charges, ``BoundKSpace.compute_peratom``), summed over the solvers of a
+  ``CombinedKSpace``;
 - ``bond`` / ``angle`` / ``dihedral`` / ``improper``:
   ``harmonic.compute_bonded_peratom`` (K18b) over the engine's active
   bonded table (the SHAKE-stripped one the thermo emol sums);
@@ -47,9 +51,6 @@ import torch
 _PAIR_KSPACE = ("pair", "kspace")
 _BONDED_KEYS = ("bond", "angle", "dihedral", "improper")
 _DEFAULT = _PAIR_KSPACE + _BONDED_KEYS
-_DISPERSION = ("per-atom dispersion PPPM (K12 per-atom, the JAX "
-               "pppm_disp.py _disp_peratom_multi) is not ported: ROADMAP "
-               "queue 1 item 15")
 
 
 def _pair_list(sim, at: dict, flt=torch.float32):
@@ -85,27 +86,24 @@ def _pair_peratom(sim, at: dict, flt=torch.float32):
 
 
 def _solvers(ks):
-    """The solvers of an engine's k-space term, the dispersion ones
-    refused before any work."""
-    from .models.kspace.base import BoundKSpace, CombinedKSpace
-    from .models.kspace.pppm_cells import CellPPPMDisp
-    from .models.kspace.pppm_disp import PPPMDisp
+    """The solvers of an engine's k-space term."""
+    from .models.kspace.base import CombinedKSpace
 
-    solvers = ks.solvers if isinstance(ks, CombinedKSpace) else [ks]
-    for s in solvers:
-        if isinstance(s, (CellPPPMDisp, BoundKSpace, PPPMDisp)):
-            raise NotImplementedError(_DISPERSION)
-    return solvers
+    return ks.solvers if isinstance(ks, CombinedKSpace) else [ks]
 
 
 def _kspace_peratom(sim, at: dict, flt=torch.float32, nyquist=True):
     """(eatom, vatom) of the engine's k-space term (zeros without one),
     summed over the solvers of a CombinedKSpace; the positions and charges
     in ``flt``, the PPPM spectra with ``nyquist`` (see
-    ``pppm.peratom_spectral_plain``)."""
+    ``pppm.peratom_spectral_plain``).  The dispatch order of the JAX
+    ``_kspace_peratom``: ``CellPPPMDisp`` before the Coulomb solvers, an
+    unbound ``PPPMDisp`` refused (the runner always binds it)."""
+    from .models.kspace.base import BoundKSpace
     from .models.kspace.ewald import Ewald, ewald_compute_peratom
     from .models.kspace.pppm import PPPM, compute_peratom, setup_pppm
-    from .models.kspace.pppm_cells import CellPPPM
+    from .models.kspace.pppm_cells import CellPPPM, CellPPPMDisp
+    from .models.kspace.pppm_disp import PPPMDisp
     from .models.kspace.pppm_npt import TracedPPPM
 
     n, dev = at["x"].shape[1], at["x"].device
@@ -117,10 +115,17 @@ def _kspace_peratom(sim, at: dict, flt=torch.float32, nyquist=True):
     def one(s):
         if isinstance(s, PPPM):
             return compute_peratom(s, x, q, nyquist)
+        if isinstance(s, CellPPPMDisp):
+            return s.compute_peratom(x, at["typ"])
         if isinstance(s, CellPPPM):
             # the solver tables of the cell-aligned mesh; only the transfer
             # between slots and mesh differs
             return compute_peratom(s.pm, x, q, nyquist)
+        if isinstance(s, BoundKSpace):
+            return s.compute_peratom(x)
+        if isinstance(s, PPPMDisp):
+            raise TypeError("unbound PPPMDisp (the deck runner always binds "
+                            "it in a BoundKSpace)")
         if isinstance(s, Ewald):
             return ewald_compute_peratom(s, x, q)
         if isinstance(s, TracedPPPM):

@@ -21,6 +21,10 @@
 //   pppm_peratom_gather   <- the interpolation of u and the six v_c at
 //                    every atom with the self and background terms
 //                    (:672-683, :700-702), after one batched irfftn.
+// In slot order (K18 slots), pppm_cells.py CellPPPM.compute_peratom_slots
+// (:1011): pppm_deposit on the slots, one rfftn, pppm_peratom_spectral,
+// one batched irfftn, and pppm_peratom_gather over the slots with their
+// aid plane (empty slots write 0).
 // The JAX package moves charge through per-cell spline patches and one-hot
 // matrix products, TPU matrix-unit forms without scatters.  A GPU has
 // atomics in L2, so the port takes the generic global-mesh form: each slot
@@ -53,11 +57,11 @@
 //     L2 resident), sums in acc; bound by L2 read bandwidth.
 //   peratom_spectral: one grid-stride pass over the half spectrum: reads
 //     rho_hat and G, writes seven complex spectra; bytes bound.
-//   peratom_gather: one thread per atom, p^3 weights computed once and
-//     p^3 point reads of the seven meshes interleaved point-major (the
-//     wrapper's copy): one 32-byte sector a point in f32 where seven
-//     separate meshes would touch seven (29 MB in f32 at 105x112x77, in
-//     L2); bound by L2 read bandwidth.
+//   peratom_gather: one thread per atom or slot, p^3 weights computed
+//     once and p^3 point reads of the seven meshes interleaved
+//     point-major (the wrapper's copy): one 32-byte sector a point in f32
+//     where seven separate meshes would touch seven (29 MB in f32 at
+//     105x112x77, in L2); bound by L2 read bandwidth.
 // Precision: deposit in flt (the JAX mesh dtype); spectral in acc; gather
 // flt weights and field, acc sums; the per-atom gather flt weights, acc
 // meshes and sums.  -O3 without --use_fast_math.  Kernels
@@ -304,39 +308,30 @@ __global__ void pppm_peratom_spectral_kernel(const A* __restrict__ rhat,
   }
 }
 
-// the eight acc values of one point of the point-major meshes, in aligned
-// vector loads (one 32-byte sector in float, two in double)
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const double* p, double (&v)[8]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const double2 a = *reinterpret_cast<const double2*>(p + 2 * k);
-    v[2 * k] = a.x;
-    v[2 * k + 1] = a.y;
-  }
-}
-
-// K10pa gather, one thread per atom (atom order): the seven acc meshes
-// interpolated through one stencil, point-major (meshes[point][8] = u,
-// v_xx .. v_yz and a pad, so a point is one aligned vector load), scaled
-// by scale = ngrid / V; eatom = qqrd2e (q u / 2 - self_c q^2 - bg_c q
-// qsum), vatom[i][c] = (qqrd2e / 2) q v_c.
+// K10pa gather, one thread per entry: the seven acc meshes interpolated
+// through one stencil, point-major (meshes[point][8] = u, v_xx .. v_yz and
+// a pad, so a point is one aligned vector load), scaled by scale = ngrid /
+// V; eatom = qqrd2e (q u / 2 - self_c q^2 - bg_c q qsum), vatom[i][c] =
+// (qqrd2e / 2) q v_c.  Entries are atoms (aid null) or the cell engine's
+// slots (K18 slots, CellPPPM.compute_peratom_slots): a slot whose aid is
+// n_atoms or more is empty and gets exactly 0, its position unread.
 template <typename T, typename A>
 __global__ void pppm_peratom_gather_kernel(const T* __restrict__ x,
     const T* __restrict__ y, const T* __restrict__ z, const T* __restrict__ q,
-    int n, T lox, T loy, T loz, T ihx, T ihy, T ihz, MeshGeom g,
-    const T* __restrict__ coef, const A* __restrict__ meshes, A scale,
-    A qqrd2e, A self_c, A bg_c, A qsum, A* __restrict__ eatom,
-    A* __restrict__ vatom) {
+    const int* __restrict__ aid, int n, int n_atoms, T lox, T loy, T loz,
+    T ihx, T ihy, T ihz, MeshGeom g, const T* __restrict__ coef,
+    const A* __restrict__ meshes, A scale, A qqrd2e, A self_c, A bg_c,
+    A qsum, A* __restrict__ eatom, A* __restrict__ vatom) {
   __shared__ T s_coef[kMaxOrder * kMaxOrder];
   stage_coef(coef, g.p, s_coef);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  if (aid != nullptr && aid[i] >= n_atoms) {
+    eatom[i] = A(0);
+#pragma unroll
+    for (int v = 0; v < 6; ++v) vatom[static_cast<size_t>(i) * 6 + v] = A(0);
+    return;
+  }
   int ix[kMaxOrder], iy[kMaxOrder], iz[kMaxOrder];
   T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder];
   axis_weights(x[i], lox, ihx, g.nx, g.p, s_coef, ix, wx);
@@ -532,13 +527,15 @@ extern "C" int pppm_peratom_spectral(int prec, const void* rhat,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10pa gather.  prec: 0 = (float, float), 1 = (float, double), 2 =
-// (double, double) for (flt, acc).  x, y, z, q: (n,) flt in atom order;
-// lo, invh: the mesh origin and 1/h; meshes: (nx * ny * nz, 8) acc, each
-// point's u, v_xx .. v_yz and a pad, 16-byte aligned; eatom (n) and
-// vatom (n, 6) acc.
+// K10pa gather (and K18 slots with aid).  prec: 0 = (float, float), 1 =
+// (float, double), 2 = (double, double) for (flt, acc).  x, y, z, q: (n,)
+// flt entries, atoms (aid null) or slots (aid (n) int32, empty where aid
+// >= n_atoms); lo, invh: the mesh origin and 1/h; meshes: (nx * ny * nz,
+// 8) acc, each point's u, v_xx .. v_yz and a pad, 16-byte aligned; eatom
+// (n) and vatom (n, 6) acc.
 extern "C" int pppm_peratom_gather(int prec, const void* x, const void* y,
-                                   const void* z, const void* q, int n,
+                                   const void* z, const void* q,
+                                   const void* aid, int n, int n_atoms,
                                    double lox, double loy, double loz,
                                    double ihx, double ihy, double ihz,
                                    int nx, int ny, int nz, int order,
@@ -552,8 +549,9 @@ extern "C" int pppm_peratom_gather(int prec, const void* x, const void* y,
 #define PERATOM_GATHER(T, A)                                                 \
   pppm_peratom_gather_kernel<T, A><<<slot_blocks(n), kThreads, 0, s>>>(      \
       static_cast<const T*>(x), static_cast<const T*>(y),                    \
-      static_cast<const T*>(z), static_cast<const T*>(q), n,                 \
-      static_cast<T>(lox), static_cast<T>(loy), static_cast<T>(loz),         \
+      static_cast<const T*>(z), static_cast<const T*>(q),                    \
+      static_cast<const int*>(aid), n, n_atoms, static_cast<T>(lox),         \
+      static_cast<T>(loy), static_cast<T>(loz),                              \
       static_cast<T>(ihx), static_cast<T>(ihy), static_cast<T>(ihz), g,      \
       static_cast<const T*>(coef), static_cast<const A*>(meshes),            \
       static_cast<A>(scale), static_cast<A>(qqrd2e),                         \

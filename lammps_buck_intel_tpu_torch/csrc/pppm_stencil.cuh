@@ -1,6 +1,8 @@
 // The order-p B-spline stencil of one position on the periodic mesh, shared
-// by the PPPM kernels (csrc/pppm.cu: the charge deposit and the ik gather)
-// and the multi-channel dispersion kernels (csrc/pppm_disp.cu).
+// by the PPPM kernels (csrc/pppm.cu: the charge deposit, the ik gather and
+// the per-atom gather) and the multi-channel dispersion kernels
+// (csrc/pppm_disp.cu), and the point-major mesh load of the two per-atom
+// gathers.
 //
 // u = (x - lo) * (1/h) per axis; base = rint(u) for odd order (floor for
 // even); mesh point base + o (o in stencil_offsets(order)) gets M_p(u -
@@ -56,6 +58,24 @@ struct MeshGeom {
 
 inline bool geom_ok(MeshGeom g) {
   return g.p >= 2 && g.p <= kMaxOrder && g.nx > 0 && g.ny > 0 && g.nz > 0;
+}
+
+// the eight acc values of one point of the point-major per-atom meshes
+// (csrc/pppm.cu's and csrc/pppm_disp.cu's per-atom gathers), in aligned
+// vector loads (one 32-byte sector in float, two in double)
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const double* p, double (&v)[8]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const double2 a = *reinterpret_cast<const double2*>(p + 2 * k);
+    v[2 * k] = a.x;
+    v[2 * k + 1] = a.y;
+  }
 }
 
 template <typename T>

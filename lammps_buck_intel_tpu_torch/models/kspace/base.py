@@ -160,6 +160,17 @@ class BoundKSpace:
         return self.solver.compute_rows(x, rows, table, self._pairing(),
                                         eflag, vflag, counts)
 
+    def compute_peratom(self, x):
+        """Per-atom (eatom (N,), vatom (N, 6)) of the bound solver at the
+        (3, N) atom positions x, as the JAX per-atom computes bind it:
+        typed, the solver's channels of the type ids; otherwise the bound
+        charges cast to f32 whatever x's dtype (JAX computes.py:149-152)."""
+        if self.typed:
+            typ = torch.as_tensor(self.per_atom.astype(np.int32))
+            return self.solver.compute_peratom(x, typ=typ.to(x.device))
+        b = torch.as_tensor(self.per_atom.astype(np.float32))
+        return self.solver.compute_peratom(x, b_per_atom=b.to(x.device))
+
 
 def _sum_results(a, b):
     from .pppm import KSpaceResult

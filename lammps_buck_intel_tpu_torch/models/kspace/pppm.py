@@ -354,6 +354,38 @@ def peratom_gather_plain(pm: PPPM, planes, meshes: torch.Tensor,
     return eatom, vatom
 
 
+def peratom_spectral(pm: PPPM, consts: dict, rhat: torch.Tensor,
+                     nyquist: bool = True) -> torch.Tensor:
+    """K10pa spectral (``ops.pppm.peratom_spectral``) on CUDA spectra, the
+    plain version on CPU ones."""
+    if rhat.is_cuda:
+        from ...ops import pppm as pppm_ops
+
+        return pppm_ops.peratom_spectral(pm, consts, rhat, nyquist)
+    if rhat.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {rhat.device}")
+    return peratom_spectral_plain(pm, consts, rhat, nyquist)
+
+
+def peratom_gather(pm: PPPM, planes, meshes: torch.Tensor, consts: dict,
+                   n_atoms=None):
+    """K10pa gather (``ops.pppm.peratom_gather``; with ``n_atoms`` the slot
+    form K18 slots, whose empty slots give 0) on CUDA planes, the plain
+    version on CPU ones (empty slots carry q = 0 there, which gives 0)."""
+    nx, ny, nz = pm.grid
+    scale = (nx * ny * nz) / float(pm.volume)
+    if planes.x.is_cuda:
+        from ...ops import pppm as pppm_ops
+
+        return pppm_ops.peratom_gather(pm, planes, meshes, consts["coef"],
+                                       scale, n_atoms)
+    if planes.x.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {planes.x.device}")
+    return peratom_gather_plain(pm, planes, meshes, scale)
+
+
 def _peratom_stages(pm: PPPM, x: torch.Tensor, q: torch.Tensor,
                     nyquist: bool, plain: bool):
     from .pppm_cells import AtomPlanes, deposit, deposit_plain
@@ -368,21 +400,15 @@ def _peratom_stages(pm: PPPM, x: torch.Tensor, q: torch.Tensor,
     mesh = (deposit_plain(pm, planes) if plain
             else deposit(pm, planes, n, c))
     rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
-    if plain or not x.is_cuda:
-        spectra = peratom_spectral_plain(pm, c, rhat, nyquist)
-    else:
-        from ...ops import pppm as pppm_ops
-
-        spectra = pppm_ops.peratom_spectral(pm, c, rhat, nyquist)
+    spectra = (peratom_spectral_plain(pm, c, rhat, nyquist) if plain
+               else peratom_spectral(pm, c, rhat, nyquist))
     # cuFFT may hand back permuted strides; the gather reads dense meshes
     meshes = torch.fft.irfftn(spectra, s=pm.grid, dim=(1, 2, 3)).contiguous()
-    nx, ny, nz = pm.grid
-    scale = (nx * ny * nz) / float(pm.volume)
-    if plain or not x.is_cuda:
-        return peratom_gather_plain(pm, planes, meshes, scale)
-    from ...ops import pppm as pppm_ops
-
-    return pppm_ops.peratom_gather(pm, planes, meshes, c["coef"], scale)
+    if plain:
+        nx, ny, nz = pm.grid
+        return peratom_gather_plain(pm, planes, meshes,
+                                    (nx * ny * nz) / float(pm.volume))
+    return peratom_gather(pm, planes, meshes, c)
 
 
 def compute_peratom_plain(pm: PPPM, x: torch.Tensor, q: torch.Tensor,

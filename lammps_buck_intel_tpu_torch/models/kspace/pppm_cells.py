@@ -37,6 +37,14 @@ plain torch version below on CPU tensors:
 through the same deposit and gather, with the dispersion charge B[type]
 of each slot in place of q and the dispersion spectral kernel (K12a) in
 place of the Coulomb one.
+
+Per slot (``compute_peratom_slots``, K18 slots: the JAX
+``CellPPPM.compute_peratom_slots`` and ``_peratom_disp_slots``), each
+solver's energy and 6-virial shares in slot order, exactly 0 on empty
+slots: the slot deposit, one rfftn, the per-atom spectra (K10pa's, or
+K12pa's with one channel), one batched irfftn, and the per-atom gather
+over the slots with their aid plane (K10pa's or K12pa's kernel in its slot
+form).
 """
 from __future__ import annotations
 
@@ -358,6 +366,35 @@ class CellPPPM:
         fx, fy, fz = gather(pm, state, e_mesh, n, acc, consts)
         return fx, fy, fz, elong, virial
 
+    def compute_peratom_slots(self, state: SlotState, plain: bool = False):
+        """Per-slot k-space (eatom (NS,), vatom (NS, 6)) in acc, 0 on empty
+        slots (the JAX ``compute_peratom_slots``, pppm_intel.cpp:224-252):
+        the slot deposit (K5), rfftn, the K10pa spectra, one batched
+        irfftn, the K10pa gather over the slots (K18 slots); ``plain``:
+        every stage's plain version on any device.  The shares sum to
+        ``compute_slots``' elong and virial: both are half-spectrum sums,
+        so the spectra keep the off-diagonal products at the Nyquist
+        planes (the JAX numbers; ``pppm.compute_peratom``'s full-spectrum
+        rule would miss this solver's virial)."""
+        from .pppm import (peratom_gather, peratom_gather_plain,
+                           peratom_spectral, peratom_spectral_plain)
+
+        pm = self.pm
+        c = pm.consts(state.x.device, state.x.dtype)
+        mesh = (deposit_plain(pm, state) if plain
+                else deposit(pm, state, self.n_atoms, c))
+        rhat = torch.fft.rfftn(mesh.to(pm.acc_dtype)).contiguous()
+        spectra = (peratom_spectral_plain if plain else peratom_spectral)(
+            pm, c, rhat, False)
+        meshes = torch.fft.irfftn(spectra, s=pm.grid,
+                                  dim=(1, 2, 3)).contiguous()
+        if plain:
+            # empty slots carry q = 0, which gives 0
+            nx, ny, nz = pm.grid
+            return peratom_gather_plain(pm, state, meshes,
+                                        (nx * ny * nz) / float(pm.volume))
+        return peratom_gather(pm, state, meshes, c, self.n_atoms)
+
 
 class CellPPPMDisp:
     """Geometric-mix dispersion PPPM on the slot planes; plugs into
@@ -390,16 +427,29 @@ class CellPPPMDisp:
         # the k = 0 term (also the virial's diagonal) and the self term
         self._e0 = (0.5 / float(pmd.volume)) * pmd.w0 * bsum * bsum
         self._e_self = pmd.g_ewald_6 ** 6 / 12.0 * b2sum
+        self._bsum = bsum
         self._B = {}
 
-    def _slot_b(self, state: SlotState) -> torch.Tensor:
-        """a = B[typ] per slot in flt, 0 on empty slots."""
-        key = (state.x.device, state.x.dtype)
+    def _b_table(self, device, flt) -> torch.Tensor:
+        """B per type in flt on ``device``, uploaded once."""
+        key = (device, flt)
         B = self._B.get(key)
         if B is None:
             B = self._B[key] = torch.as_tensor(
-                np.asarray(self.pmd.B, np.float64)).to(state.x.device,
-                                                       state.x.dtype)
+                np.asarray(self.pmd.B, np.float64)).to(device, flt)
+        return B
+
+    def compute_peratom(self, x: torch.Tensor, typ: torch.Tensor):
+        """Per-atom (eatom (N,), vatom (N, 6)) at the (3, N) atom positions
+        x on the cell-aligned mesh: one channel b = B[type] in x's dtype
+        (the JAX computes.py:138-145 binding)."""
+        b = torch.index_select(self._b_table(x.device, x.dtype), 0,
+                               typ.to(x.device))
+        return self.pmd.compute_peratom(x, b_per_atom=b)
+
+    def _slot_b(self, state: SlotState) -> torch.Tensor:
+        """a = B[typ] per slot in flt, 0 on empty slots."""
+        B = self._b_table(state.x.device, state.x.dtype)
         b = torch.index_select(B, 0, state.typ)
         return torch.where(state.aid < self.n_atoms, b, torch.zeros_like(b))
 
@@ -422,3 +472,42 @@ class CellPPPMDisp:
                   * ((1.0 / float(pmd.volume)) * ngrid)).to(flt).contiguous()
         fx, fy, fz = gather(self.pm, st, e_mesh, n, acc, c)
         return fx, fy, fz, elong, virial
+
+    def compute_peratom_slots(self, state: SlotState, plain: bool = False):
+        """Per-slot dispersion k-space (eatom (NS,), vatom (NS, 6)) in acc,
+        0 on empty slots (the JAX ``_peratom_disp_slots``, the per-atom
+        corrections of pppm_disp_intel.cpp:512-537): b = B[type] deposited
+        by the slot deposit (K5), rfftn, the K12pa spectra of the one
+        channel, one batched irfftn, the K12pa gather over the slots with
+        the k = 0 share (w0 / 2V) b bsum and the self term g6^6 / 12 b^2
+        (K18 slots); ``plain``: every stage's plain version on any device.
+        The shares sum to ``compute_slots``' elong and virial."""
+        from .pppm_disp import (disp_peratom_gather,
+                                disp_peratom_gather_plain,
+                                disp_peratom_spectral,
+                                disp_peratom_spectral_plain, peratom_terms)
+
+        pmd = self.pmd
+        acc, flt, dev = pmd.acc_dtype, state.x.dtype, state.x.device
+        c = pmd.consts(dev, flt)
+        b = self._slot_b(state)
+        st = state._replace(q=b)
+        mesh = (deposit_plain(self.pm, st) if plain
+                else deposit(self.pm, st, self.n_atoms, c))
+        S = torch.fft.rfftn(mesh.to(acc)).contiguous()[None]
+        spectra = (disp_peratom_spectral_plain if plain
+                   else disp_peratom_spectral)(c, S, pmd.P)
+        meshes = torch.fft.irfftn(spectra, s=pmd.grid,
+                                  dim=(2, 3, 4)).contiguous()
+        ngrid = pmd.grid[0] * pmd.grid[1] * pmd.grid[2]
+        scale = ngrid / float(pmd.volume)
+        terms = peratom_terms(pmd, pmd.P, torch.full(
+            (1,), self._bsum, dtype=acc, device=dev))
+        x = torch.stack([state.x, state.y, state.z])
+        if plain:
+            return disp_peratom_gather_plain(self.pm, x, b[None], meshes,
+                                             scale, *terms)
+        table = self._b_table(dev, flt)[None, :]
+        return disp_peratom_gather(self.pm, x, state.typ, table, meshes,
+                                   c["coef"], scale, terms, state.aid,
+                                   self.n_atoms)

@@ -22,7 +22,20 @@ host scalars for a fixed composition (``elong_const``).
 
 ``disp_compute_plain`` is the JAX ``_disp_compute_multi`` (ik, any number
 of channels) in torch ops: the CPU tests hold it to the JAX package.
-``PPPMDisp.compute_rows`` runs the same solve through the kernels on CUDA
+``PPPMDisp.compute_peratom`` (compute pe/atom and stress/atom) gives each
+atom its dispersion k-space energy and 6-virial, the JAX
+``_disp_peratom_multi`` (the per-atom corrections of
+pppm_disp_intel.cpp:512-537): per channel a_c / 2 times the interpolated
+potential mesh and its six virial meshes, with the k = 0 share (w0 / 2V)
+a . P asum and the self term g6^6 / 12 a . P . a, so that the shares sum
+to elong and the virial of ``compute`` (on even meshes as on odd ones:
+the solve's half-spectrum sums and the irfftn agree at the Nyquist
+planes).  On CUDA planes ``disp_peratom``: K12b, one batched rfftn, the
+per-atom spectra of every channel (K12pa spectral, ``csrc/pppm_disp.cu``
+``disp_peratom_spectral``), one batched irfftn of the 7 nch meshes, the
+per-atom gather of every channel (K12pa gather, ``disp_peratom_gather``);
+on CPU planes ``disp_peratom_plain``, each stage's plain version.
+``PPPMDisp.compute_rows`` runs the solve through the kernels on CUDA
 planes (``disp_compute_rows``): entry s (an atom, or a slot of the cell
 engine) carries the channel charges table[:, row[s]] of a small table
 (A[:, type] with a zero column for empty slots, or per-atom B), all
@@ -236,6 +249,30 @@ class PPPMDisp:
                 f"no kernel and no plain version for device {x.device}")
         return disp_compute_plain(self, x, table[:, row.long()], P, eflag,
                                   vflag)
+
+    def compute_peratom(self, x: torch.Tensor, typ=None, b_per_atom=None):
+        """Per-atom dispersion energy and virial (eatom (N,), vatom (N, 6))
+        in acc at the (3, N) positions x (the JAX ``compute_peratom``): with
+        ``b_per_atom`` (N,) one channel of those charges, P = [[1]];
+        otherwise the channels A[:, typ] in x's dtype with ``self.P``.  The
+        kernels on CUDA planes (``disp_peratom``), ``disp_peratom_plain``
+        on CPU ones."""
+        n = x.shape[1]
+        if b_per_atom is not None:
+            table = b_per_atom.to(x.device, x.dtype)[None, :]
+            row = torch.arange(n, dtype=torch.int32, device=x.device)
+            P = np.ones((1, 1))
+        else:
+            table = torch.as_tensor(np.asarray(self.A, np.float64)).to(
+                x.device, x.dtype)
+            row = typ.to(x.device, torch.int32)
+            P = self.P
+        if x.is_cuda:
+            return disp_peratom(self, x, row, table, P)
+        if x.device.type != "cpu":
+            raise RuntimeError(
+                f"no kernel and no plain version for device {x.device}")
+        return disp_peratom_plain(self, x, table[:, row.long()], P)
 
 
 def setup_pppm_disp(
@@ -520,3 +557,148 @@ def disp_compute_plain(pm: PPPMDisp, x: torch.Tensor, a: torch.Tensor, P,
                           e_fields[ch], acc)
         f = fc if f is None else tuple(u + v for u, v in zip(f, fc))
     return KSpaceResult(f=f, elong=elong, virial=virial)
+
+
+def disp_peratom_spectral_plain(consts: dict, S: torch.Tensor,
+                                P) -> torch.Tensor:
+    """(nch, 7, nx, ny, nzh) complex: per channel phi_c = G chi_c (chi = P
+    S) and the six virial spectra c_m phi_c, c = (1 + vfac kx kx, 1 + vfac
+    ky ky, 1 + vfac kz kz, vfac kx ky, vfac kx kz, vfac ky kz) (the JAX
+    ``_disp_peratom_multi``'s spectra, in acc)."""
+    G, vf = consts["G"], consts["vfac"]
+    kx, ky, kz = consts["k3"]
+    Pm = torch.as_tensor(np.asarray(P, np.float64)).to(S.device, G.dtype)
+    chi = torch.einsum("cd,dxyz->cxyz", Pm.to(S.dtype), S)
+    phi = G[None] * chi
+    comps = (1.0 + vf * kx * kx, 1.0 + vf * ky * ky, 1.0 + vf * kz * kz,
+             vf * kx * ky, vf * kx * kz, vf * ky * kz)
+    return torch.stack([torch.stack([p] + [c * p for c in comps])
+                        for p in phi])
+
+
+def peratom_terms(pm: PPPMDisp, P, asum: torch.Tensor):
+    """(Pm (nch, nch), Pasum = P asum (nch,), k0c, selfc) of the per-atom
+    k = 0 and self terms: eatom gets k0c (a . Pasum) + selfc (a . P . a),
+    k0c = w0 / (2 V), selfc = g6^6 / 12; asum (nch,) the channel sums over
+    the atoms, in acc."""
+    Pm = torch.as_tensor(np.asarray(P, np.float64)).to(asum.device,
+                                                        asum.dtype)
+    return (Pm, Pm @ asum, (0.5 / float(pm.volume)) * pm.w0,
+            pm.g_ewald_6 ** 6 / 12.0)
+
+
+def disp_peratom_gather_plain(pm: PPPM, x: torch.Tensor, a: torch.Tensor,
+                              meshes: torch.Tensor, scale: float,
+                              Pm: torch.Tensor, Pasum: torch.Tensor,
+                              k0c: float, selfc: float):
+    """Per-entry (eatom (M,), vatom (M, 6)) in the meshes' dtype (acc):
+    each channel's seven meshes (nch, 7, nx, ny, nz) interpolated at x (3,
+    M) on the mesh ``pm``, times scale (ngrid / V) and a_c / 2, summed over
+    the channels in order; then the k = 0 share k0c a . Pasum (eatom and
+    the diagonal) and the self term selfc a . P . a (eatom).  a (nch, M):
+    the channel charges (zero on an empty slot, which then gets 0)."""
+    from .pppm_cells import _CHUNK, _stencil, mesh_geometry
+
+    acc = meshes.dtype
+    nch, m = a.shape
+    flat = meshes.reshape(nch, 7, -1)
+    aa = a.to(acc)
+    out = torch.zeros((m, 7), dtype=acc, device=x.device)
+    geo = mesh_geometry(pm, None)
+    planes = _planes(x, None)
+    for s0 in range(0, m, _CHUNK):
+        s1 = min(m, s0 + _CHUNK)
+        idx, w3 = _stencil(pm, planes, s0, s1, geo)
+        for ch in range(nch):
+            vals = torch.stack([(w3 * flat[ch, k][idx]).sum((1, 2, 3))
+                                for k in range(7)], -1) * scale
+            out[s0:s1] += 0.5 * aa[ch, s0:s1, None] * vals
+    k0 = k0c * (aa.t() @ Pasum)
+    c6 = torch.einsum("cn,cd,dn->n", aa, Pm, aa)
+    eatom = out[:, 0] + k0 + selfc * c6
+    vatom = out[:, 1:].clone()
+    vatom[:, :3] += k0[:, None]
+    return eatom, vatom
+
+
+def disp_peratom_spectral(consts: dict, S: torch.Tensor, P) -> torch.Tensor:
+    """K12pa spectral on CUDA spectra (``ops.pppm_disp
+    .disp_peratom_spectral``), the plain version on CPU ones."""
+    if S.is_cuda:
+        from ...ops import pppm_disp as disp_ops
+
+        return disp_ops.disp_peratom_spectral(consts, S, P)
+    if S.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {S.device}")
+    return disp_peratom_spectral_plain(consts, S, P)
+
+
+def disp_peratom_gather(pm: PPPM, x: torch.Tensor, row: torch.Tensor,
+                        table: torch.Tensor, meshes: torch.Tensor,
+                        coef: torch.Tensor, scale: float, terms, aid=None,
+                        n_atoms: int = 0):
+    """K12pa gather (``ops.pppm_disp.disp_peratom_gather``) on CUDA planes:
+    entry s carries the charges table[:, row[s]]; with ``aid`` the slot
+    form (K18 slots), an entry whose aid is n_atoms or more empty; terms:
+    ``peratom_terms``.  On CPU planes the plain version, the charges of an
+    empty entry zeroed."""
+    Pm, Pasum, k0c, selfc = terms
+    if x.is_cuda:
+        from ...ops import pppm_disp as disp_ops
+
+        return disp_ops.disp_peratom_gather(pm, x, row, table, meshes, coef,
+                                            Pm, Pasum, scale, k0c, selfc,
+                                            aid, n_atoms)
+    if x.device.type != "cpu":
+        raise RuntimeError(
+            f"no kernel and no plain version for device {x.device}")
+    a = table.to(x.dtype)[:, row.long()]
+    if aid is not None:
+        a = torch.where(aid < n_atoms, a, torch.zeros_like(a))
+    return disp_peratom_gather_plain(pm, x, a, meshes, scale, Pm, Pasum, k0c,
+                                     selfc)
+
+
+def _disp_peratom_stages(pm: PPPMDisp, x: torch.Tensor, row: torch.Tensor,
+                         table: torch.Tensor, P, plain: bool):
+    acc, flt = pm.acc_dtype, x.dtype
+    c = pm.consts(x.device, flt)
+    shim = c["shim"]
+    tab = table.to(flt).contiguous()
+    meshes = (deposit_multi_plain(shim, x, row, tab) if plain
+              else deposit_multi(shim, x, row, tab, c["coef"]))
+    S = torch.fft.rfftn(meshes.to(acc), dim=(1, 2, 3)).contiguous()
+    spectra = (disp_peratom_spectral_plain(c, S, P) if plain
+               else disp_peratom_spectral(c, S, P))
+    del meshes, S
+    # cuFFT may hand back permuted strides; the gather reads dense meshes
+    pa = torch.fft.irfftn(spectra, s=pm.grid, dim=(2, 3, 4)).contiguous()
+    del spectra
+    ngrid = pm.grid[0] * pm.grid[1] * pm.grid[2]
+    scale = ngrid / float(pm.volume)
+    asum = tab.to(acc)[:, row.long()].sum(1)
+    terms = peratom_terms(pm, P, asum)
+    if plain:
+        return disp_peratom_gather_plain(shim, x, tab[:, row.long()], pa,
+                                         scale, *terms)
+    return disp_peratom_gather(shim, x, row, tab, pa, c["coef"], scale,
+                               terms)
+
+
+def disp_peratom(pm: PPPMDisp, x: torch.Tensor, row: torch.Tensor,
+                 table: torch.Tensor, P):
+    """Per-atom dispersion energy and virial of the charges table[:, row]
+    (nch, N) at x (3, N): K12b, one batched rfftn, K12pa spectral, one
+    batched irfftn, K12pa gather on CUDA planes (each stage's plain version
+    on CPU ones)."""
+    return _disp_peratom_stages(pm, x, row, table, P, plain=False)
+
+
+def disp_peratom_plain(pm: PPPMDisp, x: torch.Tensor, a: torch.Tensor, P):
+    """The JAX ``_disp_peratom_multi`` in torch ops, any device: x (3, N)
+    positions, a (nch, N) channel charges, P (nch, nch) the pairing ->
+    (eatom (N,), vatom (N, 6)) in acc.  The version the K12pa kernels are
+    held to on the card."""
+    row = torch.arange(a.shape[1], dtype=torch.int32, device=a.device)
+    return _disp_peratom_stages(pm, x, row, a, P, plain=True)

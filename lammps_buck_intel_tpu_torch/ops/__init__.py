@@ -2,8 +2,9 @@
 
 ``cellpair`` (csrc/cellpair.cu), ``rebin`` (csrc/rebin.cu), ``pppm``
 (csrc/pppm.cu: deposit, spectral, gather, and the per-atom spectral and
-gather), ``bonded`` (csrc/bonded.cu: bonds and angles, dihedrals,
-impropers, and the per-atom tallies of all four), ``verlet``
+gather, the latter also in slot order), ``bonded`` (csrc/bonded.cu: bonds
+and angles, dihedrals, impropers, and the per-atom tallies of all four),
+``verlet``
 (csrc/verlet.cu: kick and drift, kick with the force sum, kinetic sums,
 the thermostat chain), ``shake`` (csrc/shake.cu: reference bond vectors,
 SHAKE positions, RATTLE velocities, the constraint virial), ``nlist``
@@ -14,7 +15,8 @@ velocity scale and kick, the drift with the box dilation), ``ewald``
 (csrc/ewald.cu: the structure factors with the energy and virial, the
 forces, the per-atom energy and virial), ``pppm_disp``
 (csrc/pppm_disp.cu: the multi-channel dispersion deposit, the dispersion
-half-spectrum solve, the multi-channel ik gather) and ``rigid``
+half-spectrum solve, the multi-channel ik gather, the per-atom spectra and
+the per-atom gather, the latter also in slot order) and ``rigid``
 (csrc/rigid.cu: the rigid bodies' force and torque sums, their update
 with the atoms' positions or velocities, the constraint virial) wrap one
 kernel library each.
@@ -30,6 +32,7 @@ from __future__ import annotations
 LAUNCHES = {"cellpair": 0, "rebin_incremental": 0, "rebin": 0,
             "pppm_deposit": 0, "pppm_spectral": 0, "pppm_gather": 0,
             "pppm_peratom_spectral": 0, "pppm_peratom_gather": 0,
+            "pppm_peratom_slots": 0,
             "bonded_bond_angle": 0, "dihedral_charmm": 0,
             "improper_harmonic": 0, "bonded_peratom": 0,
             "verlet_kick_drift": 0, "verlet_kick": 0, "verlet_ke": 0,
@@ -39,7 +42,9 @@ LAUNCHES = {"cellpair": 0, "rebin_incremental": 0, "rebin": 0,
             "traced_greens": 0, "npt_ke3": 0, "npt_vscale_kick": 0,
             "npt_drift_dilate": 0, "ewald_sk": 0, "ewald_force": 0,
             "ewald_peratom": 0, "disp_deposit": 0, "disp_spectral": 0,
-            "disp_gather": 0, "rigid_force_torque": 0, "rigid_update": 0,
+            "disp_gather": 0, "disp_peratom_spectral": 0,
+            "disp_peratom_gather": 0, "disp_peratom_slots": 0,
+            "rigid_force_torque": 0, "rigid_update": 0,
             "rigid_virial": 0}
 
 

@@ -4,8 +4,8 @@ The plain versions of the same functions are ``deposit_plain``,
 ``spectral_plain`` and ``gather_plain`` in
 ``models.kspace.pppm_cells``, and ``peratom_spectral_plain`` and
 ``peratom_gather_plain`` in ``models.kspace.pppm`` (K10pa, the per-atom
-energy and virial).  The FFTs around the spectral kernels stay
-``torch.fft`` (cuFFT) calls in ``CellPPPM.compute_slots`` and
+energy and virial; in slot order K18 slots).  The FFTs around the spectral
+kernels stay ``torch.fft`` (cuFFT) calls in ``CellPPPM.compute_slots`` and
 ``pppm.compute_peratom``.
 """
 from __future__ import annotations
@@ -46,7 +46,7 @@ def _lib():
         lib.pppm_peratom_spectral.argtypes = ([_I] + [_P] * 6 + [_I] * 3
                                               + [_D, _I, _P, _I, _P])
         lib.pppm_peratom_spectral.restype = _I
-        lib.pppm_peratom_gather.argtypes = ([_I] + [_P] * 4 + [_I]
+        lib.pppm_peratom_gather.argtypes = ([_I] + [_P] * 5 + [_I] * 2
                                             + [_D] * 6 + [_I] * 4
                                             + [_P, _P] + [_D] * 5
                                             + [_P] * 3)
@@ -222,13 +222,15 @@ def peratom_spectral(pm, consts: dict, rhat: torch.Tensor,
 
 
 def peratom_gather(pm, planes, meshes: torch.Tensor, coef: torch.Tensor,
-                   scale: float):
+                   scale: float, n_atoms=None):
     """K10pa gather: (eatom (N,), vatom (N, 6)) in the meshes' dtype (acc)
-    on the card, the seven meshes (7, nx, ny, nz) interpolated at the atoms
-    of ``planes`` (x, y, z, q in flt, atom order) on ``pm``'s mesh
-    (``pppm.peratom_gather_plain``).  The meshes are copied point-major
-    into (nx ny nz, 8), a pad after the seven values, the layout the
-    kernel reads a point from in one aligned load."""
+    on the card, the seven meshes (7, nx, ny, nz) interpolated at the
+    entries of ``planes`` (x, y, z, q in flt) on ``pm``'s mesh
+    (``pppm.peratom_gather_plain``): atoms, or with ``n_atoms`` the cell
+    engine's slots (K18 slots: a slot whose ``planes.aid`` is n_atoms or
+    more is empty and gets 0).  The meshes are copied point-major into (nx
+    ny nz, 8), a pad after the seven values, the layout the kernel reads a
+    point from in one aligned load."""
     dev, flt, acc = planes.x.device, planes.x.dtype, meshes.dtype
     if dev.type != "cuda":
         raise ValueError(f"pppm kernel needs CUDA tensors, got {dev}")
@@ -240,6 +242,10 @@ def peratom_gather(pm, planes, meshes: torch.Tensor, coef: torch.Tensor,
         check_plane(getattr(planes, name), name, flt, n, dev)
     p = pm.order
     check_plane(coef, "coef", flt, p * p, dev)
+    aid = None
+    if n_atoms is not None:
+        aid = planes.aid
+        check_plane(aid, "aid", torch.int32, n, dev)
     nx, ny, nz = pm.grid
     if not meshes.is_contiguous():
         raise ValueError("meshes are not contiguous")
@@ -251,7 +257,9 @@ def peratom_gather(pm, planes, meshes: torch.Tensor, coef: torch.Tensor,
     vatom = torch.empty((n, 6), dtype=acc, device=dev)
     rc = _lib().pppm_peratom_gather(
         prec, planes.x.data_ptr(), planes.y.data_ptr(), planes.z.data_ptr(),
-        planes.q.data_ptr(), n, *(float(v) for v in pm.box_lo),
+        planes.q.data_ptr(), None if aid is None else aid.data_ptr(), n,
+        0 if n_atoms is None else int(n_atoms),
+        *(float(v) for v in pm.box_lo),
         *(1.0 / float(h) for h in pm.h), nx, ny, nz, p, coef.data_ptr(),
         points.data_ptr(), float(scale), float(pm.qqrd2e),
         g / math.sqrt(math.pi), math.pi / (2.0 * g * g * V), float(pm.qsum),
@@ -259,5 +267,6 @@ def peratom_gather(pm, planes, meshes: torch.Tensor, coef: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"pppm peratom gather launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["pppm_peratom_gather"] += 1
+    LAUNCHES["pppm_peratom_gather" if aid is None
+             else "pppm_peratom_slots"] += 1
     return eatom, vatom

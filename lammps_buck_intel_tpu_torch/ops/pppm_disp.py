@@ -1,10 +1,13 @@
 """Launch wrappers of the dispersion kernels (csrc/pppm_disp.cu): the
-multi-channel deposit (K12b), the half-spectrum solve (K12a) and the
-multi-channel ik gather (K12c).
+multi-channel deposit (K12b), the half-spectrum solve (K12a), the
+multi-channel ik gather (K12c), and the per-atom energy and virial: the
+per-atom spectra (K12pa spectral) and the per-atom gather (K12pa gather,
+and in slot order K18 slots).
 
 The plain versions of the same functions are
-``models.kspace.pppm_disp.deposit_multi_plain``, ``disp_spectral_plain``
-and ``gather_multi_plain``.  The FFTs between them stay ``torch.fft``
+``models.kspace.pppm_disp.deposit_multi_plain``, ``disp_spectral_plain``,
+``gather_multi_plain``, ``disp_peratom_spectral_plain`` and
+``disp_peratom_gather_plain``.  The FFTs between them stay ``torch.fft``
 (cuFFT) calls.
 """
 from __future__ import annotations
@@ -40,23 +43,43 @@ def _lib():
         lib.disp_deposit.restype = _I
         lib.disp_gather.argtypes = entry_args + [_P] * 5
         lib.disp_gather.restype = _I
+        lib.disp_peratom_spectral.argtypes = ([_I, _P, _P, _I] + [_P] * 5
+                                              + [_I] * 3 + [_P, _I, _P])
+        lib.disp_peratom_spectral.restype = _I
+        lib.disp_peratom_gather.argtypes = (entry_args + [_P, _I] + [_P] * 3
+                                            + [_D] * 3 + [_P] * 3)
+        lib.disp_peratom_gather.restype = _I
         for fn in (lib.disp_threads, lib.disp_max_channels):
             fn.argtypes = []
             fn.restype = _I
     return lib
 
 
-def disp_spectral(consts: dict, S: torch.Tensor, P, ev: bool):
-    """(ehat (nch, 3, nx, ny, nzh) complex, esum, vsum (6,)) on the card
-    from the channel spectra S (nch, nx, ny, nzh) and the pairing P (nch,
-    nch); the sums are zeros without ``ev`` (see ``disp_spectral_plain``)."""
+def _pairing(consts: dict, P, nch: int, acc, dev) -> torch.Tensor:
+    """The pairing P (nch, nch) in acc on the card, uploaded once per
+    pairing into ``consts``."""
+    Pn = np.ascontiguousarray(P, np.float64)
+    if Pn.shape != (nch, nch):
+        raise ValueError(f"P has shape {Pn.shape}, expected ({nch}, {nch})")
+    key = ("P", Pn.tobytes())
+    Pm = consts.get(key)
+    if Pm is None:
+        Pm = consts[key] = torch.as_tensor(Pn).to(dev, acc)
+    check_plane(Pm.view(-1), "P", acc, nch * nch, dev)
+    return Pm
+
+
+def _spectral_inputs(consts: dict, S: torch.Tensor, P):
+    """The checked inputs of a dispersion spectral kernel: (G, vfac, kx,
+    ky, kz, wz) flattened, P on the card, (nx, ny, nzh), nch and the block
+    count."""
     G = consts["G"]
     acc = G.dtype
     dev = S.device
     if dev.type != "cuda":
         raise ValueError(f"pppm_disp kernel needs CUDA tensors, got {dev}")
     if acc not in _FLT or S.dtype != _COMPLEX[acc]:
-        raise TypeError(f"disp_spectral: S {S.dtype} with G {acc}")
+        raise TypeError(f"dispersion spectral: S {S.dtype} with G {acc}")
     nx, ny, nzh = G.shape
     nch = S.shape[0]
     if (S.dim() != 4 or tuple(S.shape[1:]) != (nx, ny, nzh)
@@ -66,14 +89,7 @@ def disp_spectral(consts: dict, S: torch.Tensor, P, ev: bool):
     lib = _lib()
     if nch > lib.disp_max_channels():
         raise ValueError(f"{nch} channels > {lib.disp_max_channels()}")
-    Pn = np.ascontiguousarray(P, np.float64)
-    if Pn.shape != (nch, nch):
-        raise ValueError(f"P has shape {Pn.shape}, expected ({nch}, {nch})")
-    key = ("P", Pn.tobytes())   # uploaded once per pairing
-    Pm = consts.get(key)
-    if Pm is None:
-        Pm = consts[key] = torch.as_tensor(Pn).to(dev, acc)
-    check_plane(Pm.view(-1), "P", acc, nch * nch, dev)
+    Pm = _pairing(consts, P, nch, acc, dev)
     kx, ky, kz = (k.view(-1) for k in consts["k3"])
     wz = consts["wz"].view(-1)
     vfac = consts["vfac"]
@@ -85,6 +101,16 @@ def disp_spectral(consts: dict, S: torch.Tensor, P, ev: bool):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nblocks = min(_BLOCKS_PER_SM * sms,
                   -(-(nx * ny * nzh) // lib.disp_threads()))
+    return (G, vfac, kx, ky, kz, wz), Pm, (nx, ny, nzh), nch, nblocks
+
+
+def disp_spectral(consts: dict, S: torch.Tensor, P, ev: bool):
+    """(ehat (nch, 3, nx, ny, nzh) complex, esum, vsum (6,)) on the card
+    from the channel spectra S (nch, nx, ny, nzh) and the pairing P (nch,
+    nch); the sums are zeros without ``ev`` (see ``disp_spectral_plain``)."""
+    (G, vfac, kx, ky, kz, wz), Pm, (nx, ny, nzh), nch, nblocks = \
+        _spectral_inputs(consts, S, P)
+    acc, dev, lib = G.dtype, S.device, _lib()
     ehat = torch.empty((nch, 3, nx, ny, nzh), dtype=S.dtype, device=dev)
     partial = (torch.empty((nblocks, 7), dtype=acc, device=dev) if ev
                else None)
@@ -176,3 +202,67 @@ def disp_gather(pm, x: torch.Tensor, row: torch.Tensor, table: torch.Tensor,
         raise RuntimeError(f"disp_gather launch failed: CUDA error {rc}")
     LAUNCHES["disp_gather"] += 1
     return fx, fy, fz
+
+
+def disp_peratom_spectral(consts: dict, S: torch.Tensor, P) -> torch.Tensor:
+    """K12pa spectral: (nch, 7, nx, ny, nzh) complex on the card, phi_c = G
+    (P S)_c and its six virial spectra, from the channel spectra S (nch, nx,
+    ny, nzh) (``pppm_disp.disp_peratom_spectral_plain``)."""
+    (G, vfac, kx, ky, kz, _), Pm, (nx, ny, nzh), nch, nblocks = \
+        _spectral_inputs(consts, S, P)
+    out = torch.empty((nch, 7, nx, ny, nzh), dtype=S.dtype, device=S.device)
+    rc = _lib().disp_peratom_spectral(
+        _FLT[G.dtype], S.data_ptr(), Pm.data_ptr(), nch, G.data_ptr(),
+        vfac.data_ptr(), kx.data_ptr(), ky.data_ptr(), kz.data_ptr(), nx, ny,
+        nzh, out.data_ptr(), nblocks,
+        torch.cuda.current_stream(S.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"disp_peratom_spectral launch failed: CUDA error {rc}")
+    LAUNCHES["disp_peratom_spectral"] += 1
+    return out
+
+
+def disp_peratom_gather(pm, x: torch.Tensor, row: torch.Tensor,
+                        table: torch.Tensor, meshes: torch.Tensor,
+                        coef: torch.Tensor, Pm: torch.Tensor,
+                        Pasum: torch.Tensor, scale: float, k0c: float,
+                        selfc: float, aid=None, n_atoms: int = 0):
+    """K12pa gather: (eatom (M,), vatom (M, 6)) in the meshes' dtype (acc)
+    on the card (``pppm_disp.disp_peratom_gather_plain``): entry s carries
+    the charges table[:, row[s]]; meshes (nch, 7, nx, ny, nz) acc, copied
+    here point-major into (nch, nx ny nz, 8), a pad after the seven values;
+    Pm (nch, nch) and Pasum = P asum (nch,) in acc.  With ``aid`` (the
+    slots' atom ids, K18 slots) an entry whose aid is n_atoms or more is
+    empty and gets 0."""
+    lib, args, planes, nch, m = _entry_args(pm, x, row, table, coef)
+    dev, acc = x.device, meshes.dtype
+    prec = _PAIR.get((x.dtype, acc))
+    if prec is None:
+        raise TypeError(f"unsupported (flt, acc) = ({x.dtype}, {acc})")
+    nx, ny, nz = pm.grid
+    ng = nx * ny * nz
+    if tuple(meshes.shape) != (nch, 7, nx, ny, nz) or \
+            not meshes.is_contiguous():
+        raise ValueError(f"meshes have shape {tuple(meshes.shape)}, expected "
+                         f"contiguous {(nch, 7, nx, ny, nz)}")
+    check_plane(meshes.view(-1), "meshes", acc, nch * 7 * ng, dev)
+    check_plane(Pm.view(-1), "P", acc, nch * nch, dev)
+    check_plane(Pasum, "Pasum", acc, nch, dev)
+    if aid is not None:
+        check_plane(aid, "aid", torch.int32, m, dev)
+    points = torch.zeros((nch, ng, 8), dtype=acc, device=dev)
+    points[:, :, :7] = meshes.view(nch, 7, ng).transpose(1, 2)
+    eatom = torch.empty(m, dtype=acc, device=dev)
+    vatom = torch.empty((m, 6), dtype=acc, device=dev)
+    rc = lib.disp_peratom_gather(
+        prec, *args, None if aid is None else aid.data_ptr(), int(n_atoms),
+        points.data_ptr(), Pm.data_ptr(), Pasum.data_ptr(), float(scale),
+        float(k0c), float(selfc), eatom.data_ptr(), vatom.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"disp_peratom_gather launch failed: CUDA error {rc}")
+    LAUNCHES["disp_peratom_slots" if aid is not None
+             else "disp_peratom_gather"] += 1
+    return eatom, vatom

@@ -41,12 +41,13 @@ rhodo_32k.yaml, rhodo_class.yaml, rhodo_flex_nve.yaml,
 rhodo_flex_nvt.yaml, rhodo_npt.yaml, hexane_gen.yaml,
 hexane_gen_arith.yaml, hexane_gen_big.yaml, and the dump decks
 cristobalite_pppm_dump.yaml, cristobalite_ewald_dump.yaml,
-rhodo_nve_dump.yaml).  A ``dump`` block writes frames every ``every``
-steps from step 0 (``run_deck``): ``style`` lammpstrj, xyz, image or
-custom, whose ``columns`` may name the per-atom computes c_pe (compute
-pe/atom) and c_stress[1..6] (compute stress/atom), with their keyword
-``scope`` or per-compute ``scopes`` (``computes``, ``io.dump``); the
-dispersion k-space of pppm/disp has no per-atom form yet (item 15).
+rhodo_nve_dump.yaml, cristobalite_buck_long_dump.yaml,
+hexane_gen_dump.yaml, hexane_gen_arith_dump.yaml).  A ``dump`` block
+writes frames every ``every`` steps from step 0 (``run_deck``): ``style``
+lammpstrj, xyz, image or custom, whose ``columns`` may name the per-atom
+computes c_pe (compute pe/atom) and c_stress[1..6] (compute stress/atom),
+with their keyword ``scope`` or per-compute ``scopes`` (``computes``,
+``io.dump``), on every k-space solver, pppm/disp's included.
 Every other deck key or value raises NotImplementedError naming its
 ROADMAP item; nothing is ignored.  A
 relative ``read_data`` path resolves against the working directory, as

@@ -16,8 +16,9 @@ against the JAX package's writers (CPU).
     of it, the f32 gate of the JAX package's tests/test_computes.py) and
     -trace(sum c_stress) / (3 V) to press (2e-4); ``style: xyz`` writes
     xyz frames; the frames' seconds are kept apart from the run's.
-(d) The dump block is checked (keys, style, columns, scopes), and a
-    dispersion deck's c_pe raises naming ROADMAP item 15.
+(d) The dump block is checked (keys, style, columns, scopes); a
+    dispersion deck's c_pe runs, and raises only for a scope without a
+    per-atom form.
 """
 import copy
 import os
@@ -169,6 +170,10 @@ def test_dump_block_is_checked(jitter, dump, err):
 
 
 def test_dispersion_deck_c_pe_raises(tmp_path):
+    """A pppm/disp deck's dump custom c_pe runs (the Coulomb PPPM and the
+    no-mix dispersion channels per atom: the frame's sum equals the thermo
+    row's epair within 5e-4) and raises only for a scope without a
+    per-atom form; the pair scope alone runs too."""
     with open(os.path.join(ROOT, "examples", "decks",
                            "cristobalite_buck_long.yaml")) as f:
         cfg = yaml.safe_load(f)
@@ -180,9 +185,15 @@ def test_dispersion_deck_c_pe_raises(tmp_path):
     cfg["neighbor"] = dict(cfg["neighbor"], skin=0.5)
     cfg["kspace_style"] = dict(cfg["kspace_style"], accuracy=1e-2,
                                force_disp_real=1e-2)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    sim, _ = run_deck(copy.deepcopy(cfg), device="cpu", log=False)
+    d = tdump.read_lammpstrj(cfg["dump"]["file"])[0]["data"]
+    epair = sim.thermo()["epair"]
+    assert np.isfinite(d).all() and d.shape == (sim.n_atoms, 2)
+    assert abs(d[:, 1].sum() - epair) <= 5e-4 * abs(epair)
+    cfg["dump"]["scope"] = ["pair", "fix"]
+    with pytest.raises(NotImplementedError, match="scope"):
         run_deck(copy.deepcopy(cfg), device="cpu", log=False)
-    # the pair scope alone has a per-atom form
+    # the pair scope alone
     cfg["dump"]["scope"] = ["pair"]
     sim, _ = run_deck(cfg, device="cpu", log=False)
     d = tdump.read_lammpstrj(cfg["dump"]["file"])[0]["data"]

@@ -1382,7 +1382,11 @@ def _peratom_case(cuda, name, precision, tmp_path):
 
     path = str(tmp_path / "data.cris_jitter")
     rec.write_jitter(path)
-    cfg = rec.case_config(name, path)
+    hpath = None
+    if name.startswith("hexane"):
+        hpath = str(tmp_path / "data.hexane_cut")
+        rec.write_hexane_cut(hpath)
+    cfg = rec.case_config(name, path, hpath)
     cfg["precision"] = precision
     return build_simulation(cfg, device="cuda")
 
@@ -1479,3 +1483,106 @@ def test_peratom_wrappers_reject_bad_input(cuda, tmp_path):
     with pytest.raises(TypeError):      # rhat of another dtype
         pppm_ops.peratom_spectral(pm, c, torch.zeros(
             c["G_half"].shape, dtype=torch.complex128, device=cuda), True)
+
+
+# ---- per-atom dispersion PPPM (K12pa) and the slot forms (K18 slots) ----
+
+def _disp_solver(ks):
+    from lammps_buck_intel_tpu_torch import computes
+    from lammps_buck_intel_tpu_torch.models.kspace import (BoundKSpace,
+                                                           CellPPPMDisp)
+
+    return [s for s in computes._solvers(ks)
+            if isinstance(s, (BoundKSpace, CellPPPMDisp))][0]
+
+
+@pytest.mark.parametrize("name", ["silica_buck_long", "hexane_cut",
+                                  "hexane_cut_arith"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_disp_peratom_kernels_match_plain(cuda, name, dtype, tmp_path):
+    """K12pa (PPPMDisp.compute_peratom: K12b, K12pa spectral, K12pa
+    gather) against disp_peratom_plain on the dispersion cases of the
+    per-atom record, 1, 2 and 7 channels."""
+    from lammps_buck_intel_tpu_torch.models.kspace import (CellPPPMDisp,
+                                                           pppm_disp)
+
+    sim = _peratom_case(cuda, name, "double" if dtype == torch.float64
+                        else "single", tmp_path)
+    at = sim.atoms_on_device()
+    x = at["x"].to(dtype)
+    s = _disp_solver(sim.kspace)
+    pmd = s.pmd if isinstance(s, CellPPPMDisp) else s.solver
+    if isinstance(s, CellPPPMDisp) or not s.typed:
+        B = torch.as_tensor(np.asarray(pmd.B, np.float64)).to(cuda, dtype)
+        a, kw = B[at["typ"].long()][None], dict(b_per_atom=B[at["typ"]
+                                                               .long()])
+        P = np.ones((1, 1))
+    else:
+        A = torch.as_tensor(np.asarray(pmd.A, np.float64)).to(cuda, dtype)
+        a, kw, P = A[:, at["typ"].long()], dict(typ=at["typ"]), pmd.P
+    ops.reset_launches()
+    kk = pmd.compute_peratom(x, **kw)
+    assert ops.LAUNCHES["disp_deposit"] == 1
+    assert ops.LAUNCHES["disp_peratom_spectral"] == 1
+    assert ops.LAUNCHES["disp_peratom_gather"] == 1
+    kp = pppm_disp.disp_peratom_plain(pmd, x, a, P)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for u, v in zip(kk, kp):
+        assert _peratom_err(u, v) <= tol
+
+
+@pytest.mark.parametrize("name", ["rhodo_class", "hexane_cut"])
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_peratom_slots_kernels_match_plain(cuda, name, prec, tmp_path):
+    """K18 slots: CellPPPM.compute_peratom_slots (K5, K10pa spectral, the
+    K10pa gather over the slots) and CellPPPMDisp.compute_peratom_slots
+    (K5, K12pa spectral, the K12pa gather over the slots) against the same
+    solve with every stage's plain version on the card; empty slots
+    exactly 0."""
+    sim = _peratom_case(cuda, name, prec, tmp_path)
+    st = sim.state
+    ops.reset_launches()
+    ek, vk = sim.kspace.compute_peratom_slots(st)
+    key = "pppm_peratom_slots" if name == "rhodo_class" \
+        else "disp_peratom_slots"
+    assert ops.LAUNCHES[key] == 1
+    ep, vp = sim.kspace.compute_peratom_slots(st, plain=True)
+    tol = 1e-12 if prec == "double" else 1e-4
+    assert _peratom_err(ek, ep) <= tol
+    assert _peratom_err(vk, vp) <= tol
+    empty = st.aid >= sim.n_atoms
+    assert bool(empty.any())
+    assert not ek[empty].any() and not vk[empty].any()
+
+
+def test_disp_peratom_wrappers_reject_bad_input(cuda, tmp_path):
+    from lammps_buck_intel_tpu_torch.ops import pppm_disp as disp_ops
+
+    sim = _peratom_case(cuda, "hexane_cut", "single", tmp_path)
+    solver = sim.kspace
+    pmd = solver.pmd
+    c = pmd.consts(cuda, torch.float32)
+    nx, ny, nzh = c["G"].shape
+    S = torch.zeros((1, nx, ny, nzh), dtype=torch.complex64, device=cuda)
+    with pytest.raises(TypeError):      # S of another dtype
+        disp_ops.disp_peratom_spectral(c, S.to(torch.complex128), pmd.P)
+    with pytest.raises(ValueError):     # a pairing of another size
+        disp_ops.disp_peratom_spectral(c, S, np.ones((2, 2)))
+    at = sim.atoms_on_device()
+    n = sim.n_atoms
+    row = torch.arange(n, dtype=torch.int32, device=cuda)
+    table = torch.ones((1, n), device=cuda)
+    meshes = torch.zeros((1, 7) + pmd.grid, device=cuda)
+    Pm = torch.ones((1, 1), device=cuda)
+    args = (Pm, torch.ones(1, device=cuda), 1.0, 1.0, 1.0)
+    with pytest.raises(ValueError):     # six meshes
+        disp_ops.disp_peratom_gather(solver.pm, at["x"], row, table,
+                                     meshes[:, :6].contiguous(), c["coef"],
+                                     *args)
+    with pytest.raises(TypeError):      # aid of another dtype
+        disp_ops.disp_peratom_gather(solver.pm, at["x"], row, table, meshes,
+                                     c["coef"], *args, aid=row.long(),
+                                     n_atoms=n)
+    with pytest.raises(TypeError):      # meshes of another dtype
+        disp_ops.disp_peratom_gather(solver.pm, at["x"], row, table,
+                                     meshes.double(), c["coef"], *args)

@@ -31,22 +31,33 @@ rhodo_npt.yaml for the NPT engine's TracedPPPM).
     the silica cases press = -trace(sum stress) / (3 V) (2e-4 max(|press|,
     1); SHAKE's virial is global only, so the rhodo cases have no pressure
     identity).
-(d) The dispersion k-space raises naming item 15; the same-molecule list
-    filter keeps the JAX build's pairs.
+(d) The dispersion k-space (BoundKSpace typed and per-atom,
+    CombinedKSpace) dispatches and gives the JAX numbers, an unbound
+    PPPMDisp raises; the same-molecule list filter keeps the JAX build's
+    pairs.
 """
 import json
 import os
 import sys
 import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from lammps_buck_intel_tpu.core import make_box as jmake_box
+from lammps_buck_intel_tpu.models.kspace import setup_pppm as jsetup_pppm
+from lammps_buck_intel_tpu.models.kspace.base import BoundKSpace as JBound
+from lammps_buck_intel_tpu.models.kspace.base import (
+    CombinedKSpace as JCombined)
+
 from lammps_buck_intel_tpu_torch import computes
+from lammps_buck_intel_tpu_torch.core import make_box
 from lammps_buck_intel_tpu_torch.models.bonded import (compute_bonded,
                                                        compute_bonded_peratom)
 from lammps_buck_intel_tpu_torch.models.kspace import pppm as tpppm
+from lammps_buck_intel_tpu_torch.models.kspace import setup_pppm
 from lammps_buck_intel_tpu_torch.models.kspace.base import (BoundKSpace,
                                                             CombinedKSpace)
 from lammps_buck_intel_tpu_torch.models.pair import driver
@@ -56,6 +67,10 @@ from lammps_buck_intel_tpu_torch.run import build_simulation
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "examples"))
 import peratom_cases as rec  # noqa: E402
+from test_torch_peratom_disp import B  # noqa: E402
+from test_torch_peratom_disp import _disp_system as disp_system  # noqa: E402
+from test_torch_peratom_disp import _rel as rel  # noqa: E402
+from test_torch_peratom_disp import _solvers as disp_solvers  # noqa: E402
 
 with open(os.path.join(ROOT, "tests", "goldens", "torch_peratom.json")) as f:
     GOLDEN = json.load(f)
@@ -189,14 +204,71 @@ def test_computes_match_jax_and_thermo(name, sims):
                                                         1.0)
 
 
+def _bound_pairs(x, typ, L):
+    """(JAX, port) k-space terms as the deck runner builds them: the
+    per-atom geometric channel, the typed no-mix channels, and the
+    Coulomb PPPM beside the typed channels."""
+    q = np.where(typ == 0, 0.8, -0.8)
+    q = q - q.mean()
+    gj, gt = disp_solvers("geometric", x, typ, L)
+    nj, nt = disp_solvers("none", x, typ, L)
+    kw = dict(cutoff=3.0, accuracy_rel=1e-4, qqrd2e=1.0, grid=(16, 16, 16))
+    cj = jsetup_pppm(jmake_box([0, 0, 0], [L] * 3), q,
+                     acc_dtype=jnp.float64, **kw)
+    ct = setup_pppm(make_box([0, 0, 0], [L] * 3), q,
+                    acc_dtype=torch.float64, **kw)
+    return q, {
+        "per_atom": (JBound(gj, B[typ]), BoundKSpace(gt, B[typ])),
+        "typed": (JBound(nj, typ, typed=True),
+                  BoundKSpace(nt, typ, typed=True)),
+        "combined": (JCombined([cj, JBound(nj, typ, typed=True)]),
+                     CombinedKSpace([ct, BoundKSpace(nt, typ, typed=True)])),
+    }
+
+
 def test_dispersion_kspace_raises():
-    at = dict(x=torch.zeros((3, 4)), q=torch.zeros(4))
-    for ks in (BoundKSpace(object(), np.zeros(4)),
-               CombinedKSpace([object(), BoundKSpace(object(),
-                                                     np.zeros(4))])):
-        sim = types.SimpleNamespace(kspace=ks)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            computes._kspace_peratom(sim, at)
+    """The dispersion solvers of pppm/disp dispatch through the per-atom
+    k-space (BoundKSpace typed and per-atom, CombinedKSpace beside a
+    Coulomb PPPM) and give the JAX numbers: in f64 against the JAX
+    solvers' per-atom functions bound as the JAX computes bind them (the
+    per-atom charges cast to f32; 1e-10), in f32 against the JAX
+    ``_kspace_peratom`` (2e-5 of the sums, 1e-4 of the largest atom).  Only
+    an unbound PPPMDisp raises, TypeError as in JAX."""
+    from lammps_buck_intel_tpu import computes as jcomputes
+    from lammps_buck_intel_tpu.models.kspace.pppm import (
+        compute_peratom as jcompute_peratom)
+
+    x, typ, L = disp_system()
+    n = len(x)
+    q, pairs = _bound_pairs(x, typ, L)
+    at = dict(x=torch.as_tensor(x.T.copy()), q=torch.as_tensor(q),
+              typ=torch.as_tensor(typ))
+    for name, (jks, tks) in pairs.items():
+        sim = types.SimpleNamespace(kspace=tks)
+        te, tv = computes._kspace_peratom(sim, at, torch.float64, False)
+        je = jv = 0.0
+        for s in (jks.solvers if name == "combined" else [jks]):
+            if not isinstance(s, JBound):
+                e, v = jcompute_peratom(s, jnp.asarray(x), jnp.asarray(q))
+            elif s.typed:
+                e, v = s.solver.compute_peratom(jnp.asarray(x),
+                                                typ=jnp.asarray(typ))
+            else:
+                e, v = s.solver.compute_peratom(
+                    jnp.asarray(x),
+                    b_per_atom=jnp.asarray(s.per_atom, np.float32))
+            je, jv = je + np.asarray(e), jv + np.asarray(v)
+        assert rel(te, je) <= F64 and rel(tv, jv) <= F64, name
+        fe, fv = computes._kspace_peratom(sim, at, torch.float32, False)
+        ge, gv = jcomputes._kspace_peratom(
+            types.SimpleNamespace(kspace=jks), x, typ, q, n)
+        for a, b in ((fe, ge), (fv, gv)):
+            a, b = a.numpy().astype(np.float64), np.asarray(b, np.float64)
+            assert rel(a.sum(0), b.sum(0)) <= 2e-5, name
+            assert rel(a, b) <= 1e-4, name
+    ub = types.SimpleNamespace(kspace=pairs["typed"][1].solver)
+    with pytest.raises(TypeError, match="unbound PPPMDisp"):
+        computes._kspace_peratom(ub, at)
 
 
 def test_scope_is_checked(sims):
