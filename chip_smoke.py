@@ -205,7 +205,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      set to 0 just before, against its plain version, 0 on empty slots,
      its sums pinned to compute_slots in f64 (the Coulomb form with and
      without the full-spectrum Nyquist rule, printed); K9c's device time at
-     500 atoms traced once more.
+     500 atoms traced once more;
+ 17. the rest of the Coulomb k-space: K10 ad spectral and K10 ad gather
+     (csrc/pppm.cu pppm_spectral with ad, pppm_gather_ad) on
+     cristobalite_pppm_ad.yaml's slots, the ad gather and K10 slab
+     (pppm_slab; also on a charged copy, Q != 0) with the box on the card
+     at rhodo_npt_ad.yaml's 31,104 atoms, K11 traced (csrc/ewald.cu
+     ewald_traced) and the traced Ewald at cristobalite_ewald_npt.yaml's
+     11,520 atoms and K 31,248, each against its plain version in f64 and
+     f32, timed in f32; the six shrunk decks of
+     tests/goldens/torch_kspace_rest.json (`python
+     tools/record_kspace_rest.py`; examples/kspace_rest_cases.py) in f64
+     against the JAX record (1e-9), the two NPT cases in f32 against the
+     record's rows (REST_NPT_F32_TOL); then cristobalite_pppm_ad.yaml and
+     cristobalite_pppm_ad_nlist.yaml (259,200 atoms, step 0 against the
+     cell deck's record, the silica drift gate), kspace_modify mesh
+     (cristobalite_pppm_nlist.yaml on a 120x128x96 mesh, 10 steps),
+     cristobalite_slab.yaml (259,200 atoms on the generic z-extended mesh
+     over the cell engine's slots: step 0 against the record of one copy
+     scaled to 30, the drift under twice the record's; K10 slab against
+     its plain version at its last state, f32 and f64, neutral and
+     charged), cristobalite_ewald_cell.yaml and
+     cristobalite_ewald_npt.yaml (11,520 atoms, 500 steps),
+     rhodo_npt_ad.yaml (31,104) and its x6x6x4, each unedited with every
+     kernel of its path launched, ms/step beside the decks they vary; the
+     two NPT decks at full width in f32 against f64 on the card over the
+     record's steps (REST_NPT_F32_TOL).
 The last lines are the kernels' JSON summary (ms: CUDA events around a
 run of calls, what a caller pays; device_ms: the card's own time from
 torch.profiler; the plain version's and a library call's time; the
@@ -214,7 +239,9 @@ name and power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4907,6 +4934,706 @@ def phase_dump_disp(base: dict):
     return out
 
 
+# ---- the rest of the Coulomb k-space: pppm diff ad (K10 ad spectral, K10
+# ad gather), kspace_modify slab (K10 slab), Ewald on the cell engine and
+# under fix npt (K11 traced) ----
+
+REST_AD = ("pppm_deposit", "pppm_ad_spectral", "pppm_gather_ad")
+# kspace_modify mesh on cristobalite_pppm_nlist.yaml
+REST_GRID = (120, 128, 96)
+REST_REC = "torch_kspace_rest.json"
+# f64 on the card against the JAX package's f64 record of the shrunk
+# decks (examples/kspace_rest_cases.py): the CPU parity tolerance of
+# tests/test_torch_pppm_ad.py and tests/test_torch_ewald_npt.py
+REST_RECORD_TOL = 1e-9
+# the NPT decks conserve no energy that thermo prints, so their f32 runs
+# are held to f64 rows of the same run, |etotal_f32 - etotal_f64| / N at
+# every row within REST_NPT_F32_TOL eV: at the record's size the JAX
+# package's f64 record, at full width the port's f64 run on the card
+# (itself held to that record at REST_RECORD_TOL at the record's size)
+# over the record's steps.  The limit is 10x the largest deviation of the
+# sound f32 runs at the record's size, 6.83e-6 eV an atom (H100 80GB
+# HBM3, 700 W)
+REST_NPT_F32_TOL = 7e-5
+# per atom and ad gather point: two multiply-adds along z, T0 += wz u and
+# T1 += dz u (the three forces then need only the p^2 (a, b) rows:
+# _rest_ops_ad)
+OPS_GATHER_AD_PT = 4
+# per atom of K10 slab: the sums q z, q z z (4), the force (5)
+OPS_SLAB_ATOM = 9
+# e_slab of a neutral system is (2 pi / V) qqrd2e M^2 with M = sum q z a
+# sum of terms that cancel (a slab with no dipole: M about 1e-7 of sum
+# |q z| at cristobalite_slab.yaml's last state on the card), so M carries the
+# rounding of sum |q z|, and the kernel's and plain version's orders of
+# summation part there, in f64 as in f32.  At such a state the kernel is
+# held to the plain version and to the f64 plain version on the scale of
+# those terms (fz and e_slab as if M were sum |q z|), the scale on which
+# a sum's rounding is bounded; the charged copy (REST_SLAB_DQ) holds them
+# at TOL of the values.  Elsewhere (_slab_energy_check) the f32 energy is
+# held to the f64 value, within twice the plain version's distance or the
+# energy rule
+
+
+def _slab_energy_check(label, ek, ep, e64, etol):
+    dk, dp = abs(float(ek) - float(e64)), abs(float(ep) - float(e64))
+    print(f"[rest] {label} e_slab: kernel {float(ek):.8g}, plain "
+          f"{float(ep):.8g}, f64 {float(e64):.10g}; kernel {dk:.3e} and plain "
+          f"{dp:.3e} from f64")
+    if not dk <= max(2.0 * dp, etol * abs(float(e64))):
+        raise AssertionError(f"K10 slab {label}: energy off")
+# a charged copy for K10 slab's Q terms (-Q z_i in fz, -Q M2 - Q^2 zprd^2
+# / 12 in e_slab): every live charge shifted by REST_SLAB_DQ, so Q = N
+# REST_SLAB_DQ and M - Q z_i no longer cancels
+REST_SLAB_DQ = 0.05
+
+
+def _slab_charged(label, pm, z, q, live, box=None):
+    """K10 slab against slab_correction_plain at TOL on ``z`` with the
+    charges ``q`` shifted by REST_SLAB_DQ where ``live`` (Q != 0); ``box``:
+    (boxL, V, zprd) for the form with the box on the card."""
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm import \
+        slab_correction_plain
+
+    qc = (q + REST_SLAB_DQ * live.to(q.dtype)).contiguous()
+    pmc = dataclasses.replace(pm, qsum=float(qc.double().sum()), _consts={})
+    fzk = torch.zeros(z.shape[0], dtype=pm.acc_dtype, device=z.device)
+    boxL, V, zprd = box if box is not None else (None, None, None)
+    ek = pppm_ops.slab(pmc, z, qc, fzk, True, boxL)
+    ep, fzp = slab_correction_plain(pmc, z, qc, True, V, zprd)
+    ftol, etol = TOL[z.dtype]
+    label = f"{label} Q = {pmc.qsum:.6g}"
+    _rest_compare(label, "pppm_slab", fzk, fzp, ftol)
+    e_err = scalar_rel(ek, ep)
+    print(f"[rest] {label} e_slab: kernel {float(ek):.10g}, plain "
+          f"{float(ep):.10g}, rel {e_err:.3e} (tol {etol})")
+    if not e_err <= etol:
+        raise AssertionError(f"K10 slab {label}: energy off")
+
+
+# per k vector of K11 traced: k (6), |k|^2 (5), the volume (2), ug (5,
+# exp counted as one), pref (3), the six virial factors (18)
+OPS_EWALD_TRACED_K = 39
+
+
+def _rest_ops_ad(p: int, nterms: int) -> int:
+    """Operations of the K10 ad gather per atom beyond its points: the
+    weights (OPS_WEIGHTS, wx wy included) and derivative weights, per (a,
+    b) row the two other weight products (dx wy, wx dy) and the three
+    multiply-adds with T0, T0 and T1, the sine series of the self force
+    (about 5 an axis and term), the scaling."""
+    return (OPS_WEIGHTS(p) + 3 * p * 2 * (p - 2) + 2 * p * p + 6 * p * p
+            + 3 * 5 * nterms + 12)
+
+
+def _rest_compare(label, name, k, p, tol, out=None):
+    err = rel_err(k, p)
+    print(f"[rest] {label} {name}: max|d|/max|ref| {err:.3e} (tol {tol})")
+    if not err <= tol:
+        raise AssertionError(f"{name} {label} disagrees with its plain "
+                             "version")
+    if out is not None:
+        out.setdefault(name, {})["max_abs_err"] = float((k - p).abs().max())
+
+
+def _rest_cell_ad(out):
+    """K10 ad spectral and K10 ad gather on the cell engine at
+    cristobalite_pppm_ad.yaml's mesh (105x112x77 half spectrum 39, 337,920
+    slots), atoms drifted up to skin/2 out of their cells, f32 and f64;
+    timed in f32 (ad spectral force-only, as on all but thermo steps, its
+    library call G * rho_hat)."""
+    cfg = load_deck("cristobalite_pppm_ad.yaml")
+    for prec in ("double", "single"):
+        sim, st = jittered_state(cfg, prec)
+        skin = sim.neighbor.skin
+        rng = np.random.default_rng(SEED + 5)
+        for p in (st.x, st.y, st.z):
+            p += torch.as_tensor(rng.uniform(-0.5 * skin, 0.5 * skin,
+                                             p.shape[0])).to(p)
+        solver, flt, acc = sim.kspace, st.x.dtype, sim.precision.acc
+        pm, n = solver.pm, sim.n_atoms
+        c = solver.consts(st.x.device, flt, acc)
+        ftol, etol = TOL[flt]
+        label = f"cristobalite_pppm_ad/{prec}"
+        res = out if prec == "single" else {}
+        mesh = pppm_cells.deposit_plain(pm, st)
+        rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
+        for ev in (False, True):
+            pk, esk, vsk = pppm_ops.spectral(c, rhat, ev, ad=True)
+            pp, esp, vsp = pppm_cells.spectral_plain(c, rhat, ev, ev, True)
+            _rest_compare(label, "pppm_ad_spectral", torch.view_as_real(pk),
+                          torch.view_as_real(pp), ftol, res)
+            if ev:
+                e_err, v_err = scalar_rel(esk, esp), rel_err(vsk, vsp)
+                print(f"[rest] {label} ad spectral e/v: energy sum rel "
+                      f"{e_err:.3e}, virial rel {v_err:.3e} (tol {etol})")
+                if not (e_err <= etol and v_err <= etol):
+                    raise AssertionError(f"K10 ad spectral {label}: energy "
+                                         "or virial off")
+        ngrid = int(np.prod(pm.grid))
+        u = (torch.fft.irfftn(pp, s=pm.grid) * (ngrid / float(pm.volume))
+             ).to(flt).contiguous()
+        fk = torch.stack(pppm_ops.gather_ad(pm, st, u, n, acc, c["coef"],
+                                            c["dcoef"], c["sf"]))
+        fp = torch.stack(pppm_cells.gather_ad_plain(pm, st, u, acc, c["sf"]))
+        _rest_compare(label, "pppm_gather_ad", fk, fp, ftol, res)
+        if float(fk[:, st.aid >= n].abs().max()) != 0.0:
+            raise AssertionError(f"{label}: an empty slot got an ad force")
+        if prec == "single":
+            ns, fs = st.x.shape[0], st.x.element_size()
+            accs = torch.empty((), dtype=acc).element_size()
+            npts = int(np.prod(c["G"].shape))
+            G = c["G"]
+            b_sp = bound(npts * accs * (2 + 1 + 2), npts * 2)
+            b_ga = bound(ns * plane_bytes(st.x, st.y, st.z, st.q, st.aid)
+                         + ngrid * fs + 3 * ns * accs,
+                         n * (_rest_ops_ad(pm.order, c["sf"].shape[1])
+                              + pm.order ** 3 * OPS_GATHER_AD_PT))
+            rows = {
+                "pppm_ad_spectral": (
+                    lambda: pppm_ops.spectral(c, rhat, False, ad=True),
+                    lambda: pppm_cells.spectral_plain(c, rhat, False, False,
+                                                      True),
+                    lambda: torch.mul(G, rhat), b_sp),
+                "pppm_gather_ad": (
+                    lambda: pppm_ops.gather_ad(pm, st, u, n, acc, c["coef"],
+                                               c["dcoef"], c["sf"]),
+                    lambda: pppm_cells.gather_ad_plain(pm, st, u, acc,
+                                                       c["sf"]),
+                    None, b_ga),
+            }
+            for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
+                ms, dev_ms = cuda_ms(kern), device_ms(kern)
+                plain_ms = cuda_ms(plain, reps=3)
+                lib_ms = cuda_ms(lib) if lib is not None else None
+                out[name].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=b_ms,
+                                 bound_by=b_by)
+                print(f"[rest] {name} f32 at {n} atoms / {ns} slots, mesh "
+                      f"{pm.grid}: kernel {ms:.4f} ms (device {dev_ms:.4f}),"
+                      f" plain {plain_ms:.4f} ms, library "
+                      f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, "
+                      f"bound {b_ms:.5f} ms ({b_by})")
+            # the ik stages of the same state, for the step's comparison
+            ik_ms = cuda_ms(lambda: pppm_ops.spectral(c, rhat, False))
+            e3 = torch.fft.irfftn(pppm_ops.spectral(c, rhat, False)[0],
+                                  s=pm.grid, dim=(1, 2, 3)).to(
+                                      flt).contiguous()
+            g_ms = cuda_ms(lambda: pppm_ops.gather(pm, st, e3, n, acc,
+                                                   c["coef"]))
+            ifft1 = cuda_ms(lambda: torch.fft.irfftn(pp, s=pm.grid))
+            ehat = pppm_ops.spectral(c, rhat, False)[0]
+            ifft3 = cuda_ms(lambda: torch.fft.irfftn(ehat, s=pm.grid,
+                                                     dim=(1, 2, 3)))
+            print(f"[rest] the same state through ik: spectral {ik_ms:.4f} "
+                  f"ms, gather {g_ms:.4f} ms, irfftn of three spectra "
+                  f"{ifft3:.4f} ms against one {ifft1:.4f} ms")
+        del sim, st, solver
+        torch.cuda.empty_cache()
+
+
+def _rest_traced(out):
+    """K10 ad gather and K10 slab with the box on the card (TracedPPPM's
+    forms) at rhodo_npt_ad.yaml's 31,104 atoms, the box stretched by (1.01,
+    0.99, 1.02), f32 and f64: the ad gather of the block's potential mesh
+    against its plain version, the slab kernel (a slab factor 3 solver of
+    the same atoms, and a charged copy of them) against
+    slab_correction_plain with the extended volume of boxL; the whole
+    compute_traced against the CPU's plain run in f64."""
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm import \
+        slab_correction_plain
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm_npt import TracedPPPM
+
+    cfg = load_deck("rhodo_npt_ad.yaml")
+    for prec in ("double", "single"):
+        cfg["precision"] = prec
+        sim = build_simulation(cfg, device="cuda")
+        tp, flt, acc = sim.kspace, sim.precision.flt, sim.precision.acc
+        ftol, etol = TOL[flt]
+        label = f"rhodo_npt_ad/{prec}"
+        boxL = sim.state.boxL * torch.tensor([1.01, 0.99, 1.02]).to(
+            sim.state.boxL)
+        x, q = sim.state.x, sim.q
+        kc = tp.tables(boxL)
+        c = tp.consts(x.device, flt)
+        box = (tp._center, boxL)
+        planes = pppm_cells.AtomPlanes(x[0], x[1], x[2], q, torch.arange(
+            x.shape[1], dtype=torch.int32, device=x.device))
+        mesh = pppm_cells.deposit_plain(tp.pm, planes, box)
+        rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
+        u = torch.fft.irfftn(kc["G_half"] * rhat, s=tp.grid).to(
+            flt).contiguous()
+        n = x.shape[1]
+        fk = torch.stack(pppm_ops.gather_ad(tp.pm, planes, u, n, acc,
+                                            c["coef"], c["dcoef"], kc["sf"],
+                                            box))
+        fp = torch.stack(pppm_cells.gather_ad_plain(tp.pm, planes, u, acc,
+                                                    kc["sf"], box))
+        _rest_compare(label, "pppm_gather_ad (box on the card)", fk, fp,
+                      ftol)
+        pm3 = dataclasses.replace(tp.pm, slab=3.0, _consts={})
+        fzk = torch.zeros(n, dtype=acc, device=x.device)
+        ek = pppm_ops.slab(pm3, x[2], q, fzk, True, boxL)
+        L = boxL.to(acc) * torch.tensor([1.0, 1.0, 3.0]).to(boxL.device, acc)
+        ep, fzp = slab_correction_plain(pm3, x[2], q, True, L[0] * L[1] * L[2],
+                                        L[2])
+        _rest_compare(label, "pppm_slab (box on the card)", fzk, fzp, ftol)
+        p64 = dataclasses.replace(pm3, acc_dtype=torch.float64, _consts={})
+        L64 = L.double()
+        e64, _ = slab_correction_plain(p64, x[2].double(), q.double(), True,
+                                       L64[0] * L64[1] * L64[2], L64[2])
+        _slab_energy_check(label, ek, ep, e64, etol)
+        _slab_charged(label + " (box on the card)", pm3, x[2], q,
+                      torch.ones_like(q, dtype=torch.bool),
+                      (boxL, L[0] * L[1] * L[2], L[2]))
+        if prec == "single":
+            from lammps_buck_intel_tpu_torch.models.kspace.pppm_npt import \
+                sf_refit
+
+            Lk = tp.kspace_lengths(boxL)
+            sf_ms = cuda_ms(lambda: sf_refit(kc["G"], Lk, tp.grid, c))
+            tg_ms = cuda_ms(lambda: tp.tables(boxL))
+            out["sf_refit"] = dict(ms=sf_ms, tables_ms=tg_ms)
+            print(f"[rest] {label}: the self-force re-fit (torch.tensordot "
+                  f"and two products on the {tp.grid} G) {sf_ms:.4f} ms of "
+                  f"the block's tables {tg_ms:.4f} ms")
+        if prec == "double":
+            tcpu = TracedPPPM(tp.pm, tp._center)
+            rk = tp.compute_traced(x, q, boxL, kc=kc)
+            rp = tcpu.compute_traced(x.cpu(), q.cpu(), boxL.cpu())
+            _rest_compare(label, "compute_traced (kernels vs CPU plain)",
+                          torch.stack(rk.f).cpu(), torch.stack(rp.f), 1e-11)
+        del sim, tp, x, q, planes
+        torch.cuda.empty_cache()
+
+
+def _rest_ewald(out):
+    """K11 traced at cristobalite_ewald_npt.yaml's K = 31,248 and 11,520
+    atoms (jittered by up to 0.1 A, the box stretched by (1.01, 0.99,
+    1.02)): its tables against traced_tables_plain, and compute_traced (K11
+    traced, K11a, K11b) against ewald_compute_traced_plain on the card, f64
+    and f32; K11 traced timed in f32."""
+    from lammps_buck_intel_tpu_torch.models.kspace import ewald as tewald
+    from lammps_buck_intel_tpu_torch.ops import ewald as ewald_ops
+
+    cfg = load_deck("cristobalite_ewald_npt.yaml")
+    for prec in ("double", "single"):
+        cfg["precision"] = prec
+        sim = build_simulation(cfg, device="cuda")
+        ew, flt, acc = sim.kspace, sim.precision.flt, sim.precision.acc
+        rng = np.random.default_rng(SEED + 7)
+        x = sim.state.x + torch.as_tensor(rng.uniform(
+            -0.1, 0.1, tuple(sim.state.x.shape))).to(sim.state.x)
+        q = sim.q
+        boxL = sim.state.boxL * torch.tensor([1.01, 0.99, 1.02]).to(
+            sim.state.boxL)
+        ftol, etol = EWALD_TOL[flt]
+        label = f"cristobalite_ewald_npt/{prec}"
+        m = ew.m_rows(x.device, flt)
+        tk = ewald_ops.ewald_traced(m, boxL, ew.g_ewald, acc)
+        tp = tewald.traced_tables_plain(m, boxL, ew.g_ewald, acc)
+        worst = 0.0
+        for k in ("kv_rows", "ug", "ug_acc", "vfac"):
+            _rest_compare(label, f"ewald_traced {k}", tk[k], tp[k],
+                          1e-5 if flt == torch.float32 else 1e-12)
+            worst = max(worst, float((tk[k] - tp[k]).abs().max()))
+        if prec == "single":
+            out["ewald_traced"] = {"max_abs_err": worst}
+        rk = ew.compute_traced(x, q, boxL)
+        rp = tewald.ewald_compute_traced_plain(ew, x, q, boxL)
+        _rest_compare(label, "compute_traced forces", torch.stack(rk.f),
+                      torch.stack(rp.f), ftol)
+        e_err, v_err = scalar_rel(rk.elong, rp.elong), rel_err(rk.virial,
+                                                               rp.virial)
+        print(f"[rest] {label} compute_traced: elong rel {e_err:.3e}, "
+              f"virial rel {v_err:.3e} (tol {etol})")
+        if not (e_err <= etol and v_err <= etol):
+            raise AssertionError(f"K11 traced {label}: energy or virial off")
+        if prec == "single":
+            K = m.shape[1]
+            fs = m.element_size()
+            accs = torch.empty((), dtype=acc).element_size()
+            b_ms, b_by = bound(K * (3 * fs + 4 * fs + 7 * accs) + 3 * fs,
+                               K * OPS_EWALD_TRACED_K)
+            def fn():
+                return ewald_ops.ewald_traced(m, boxL, ew.g_ewald, acc)
+            ms, dev_ms = cuda_ms(fn), device_ms(fn)
+            plain_ms = cuda_ms(lambda: tewald.traced_tables_plain(
+                m, boxL, ew.g_ewald, acc), reps=3)
+            out["ewald_traced"].update(ms=ms, device_ms=dev_ms,
+                                       plain_ms=plain_ms, library_ms=None,
+                                       bound_ms=b_ms, bound_by=b_by)
+            print(f"[rest] ewald_traced f32 at K {K}: kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by})")
+        del sim, ew, x, q
+        torch.cuda.empty_cache()
+
+
+def phase_rest_kernels():
+    """The four kernels of this path against their plain versions on the
+    card, f32 and f64, at the decks' shapes (K10 slab at the slab deck's
+    in ``phase_rest_decks``)."""
+    out = {}
+    _rest_cell_ad(out)
+    _rest_traced(out)
+    _rest_ewald(out)
+    return out
+
+
+def phase_rest_record(rec: dict):
+    """The six shrunk decks (examples/kspace_rest_cases.py) in f64 on the
+    card against the JAX package's record (tests/goldens/
+    torch_kspace_rest.json) at REST_RECORD_TOL: the engine and solver,
+    step-0 forces, every row, final positions and images; and each NPT
+    case in f32 at the same size against the record's rows (REST comment
+    above)."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import kspace_rest_cases as kc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, r in rec["cases"].items():
+            _, _, _, steps, every = kc.CASES[name]
+            ops.reset_launches()
+            sim = build_simulation(kc.deck_cfg(name, tmp), device="cuda")
+            ks = sim.kspace
+            pm = getattr(ks, "pm", ks)
+            if (type(sim).__name__ != r["engine"]
+                    or type(ks).__name__ != r["kspace"]
+                    or abs(pm.g_ewald - r["g_ewald"]) > 1e-12 * r["g_ewald"]
+                    or ("grid" in r and list(pm.grid) != r["grid"])
+                    or ("n_k" in r and pm.kvecs.shape[0] != r["n_k"])):
+                raise AssertionError(f"[rest record] {name}: engine or "
+                                     "solver differs from the record")
+            pick = np.asarray(r["atoms"])
+            f0 = sim.get_atoms()["f"][pick]
+            rows = sim.run(steps, thermo_every=every, log=False)
+            at = sim.get_atoms()
+            ref_f = np.asarray(r["f0"])
+            L = float(np.max(sim.box.lengths))
+            errs = {"f0": float(np.abs(f0 - ref_f).max()
+                                / np.abs(ref_f).max()),
+                    "x_end": float(np.abs(at["x"][pick] - np.asarray(
+                        r["x_end"])).max()) / L}
+            for row, ref in zip(rows, r["rows"], strict=True):
+                for k, v in ref.items():
+                    if k != "step" and (v != 0.0 or row[k] != 0.0):
+                        errs[f"{k}@{ref['step']}"] = scalar_rel(row[k], v)
+            images = bool(np.array_equal(at["image"][pick],
+                                         np.asarray(r["image_end"])))
+            print(f"[rest record] {name} f64, {sim.n_atoms} atoms "
+                  f"({r['engine']}, {r['kspace']}): worst row "
+                  f"{max(v for k, v in errs.items() if '@' in k):.3e}, "
+                  f"f0 {errs['f0']:.3e}, x_end {errs['x_end']:.3e}, images "
+                  f"equal {images}; launches "
+                  f"{ {k: v for k, v in ops.LAUNCHES.items() if v} }")
+            bad = {k: v for k, v in errs.items() if not v <= REST_RECORD_TOL}
+            if bad or not images:
+                raise AssertionError(f"[rest record] {name} disagrees with "
+                                     f"the JAX record: {bad}")
+            del sim
+            if r["engine"] == "NPTSimulation":
+                sim = build_simulation(kc.deck_cfg(name, tmp, "single"),
+                                       device="cuda")
+                rows = sim.run(steps, thermo_every=every, log=False)
+                n = sim.n_atoms
+                dev = [abs(row["etotal"] - ref["etotal"]) / n
+                       for row, ref in zip(rows, r["rows"], strict=True)]
+                print(f"[rest record] {name} f32 against the f64 record: "
+                      f"|d etotal| / N per row {np.round(dev, 8).tolist()} "
+                      f"(gate {REST_NPT_F32_TOL}; the record's drift "
+                      f"{r['drift']:.4e})")
+                if not max(dev) <= REST_NPT_F32_TOL:
+                    raise AssertionError(f"[rest record] {name}: the f32 run "
+                                         "strays from the f64 record")
+                del sim
+            torch.cuda.empty_cache()
+
+
+def _rest_run(name, need, step0=None, gate=None, engine=None, thermo=None,
+              cfg=None):
+    """A deck unedited (or ``cfg``, the deck edited) through
+    build_simulation and run on the card in f32 as run_deck calls them,
+    launch counts set to 0 just before and read just after: the engine,
+    every kernel of ``need`` launched, finite rows, step 0 under the
+    _STEP0_FIELDS rule against ``step0``, the drift max |etotal - e0| / N
+    under ``gate`` (where given).  Returns the launches, ms/step, the
+    step-0 row, the drift and the engine."""
+    if cfg is None:
+        cfg = load_deck(name)
+    if thermo is not None:
+        cfg["thermo"] = thermo
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sim = build_simulation(cfg, device="cuda")
+    setup_s = time.perf_counter() - t0
+    steps = int(cfg["run"])
+    rows = sim.run(steps, thermo_every=int(cfg["thermo"]), log=False)
+    ran = dict(ops.LAUNCHES)
+    n = sim.n_atoms
+    missing = [k for k in need if ran[k] <= 0]
+    if (missing or rows[-1]["step"] != steps
+            or (engine is not None and type(sim).__name__ != engine)):
+        raise AssertionError(f"{name}: {type(sim).__name__}, {n} atoms, "
+                             f"{rows[-1]['step']} steps, kernels not "
+                             f"launched {missing}")
+    row = rows[0]
+    if step0 is not None:
+        step0_check(name, row, step0, n)
+    for r in rows:
+        for k in ("temp", "epair", "etotal", "press"):
+            if not np.isfinite(r[k]):
+                raise AssertionError(f"{name}: non-finite {k}")
+    drift = max(abs(r["etotal"] - row["etotal"]) for r in rows) / n
+    wall = sim.timings["run"]
+    ks = sim.kspace
+    pm = getattr(ks, "pm", ks)
+    solver = (f"mesh {pm.grid} diff {pm.diff} slab {pm.slab}"
+              if hasattr(pm, "grid") else f"K {pm.kvecs.shape[0]}")
+    print(f"[rest deck] {name}: {type(sim).__name__} + {type(ks).__name__} "
+          f"({solver}), {n} atoms x {steps} steps in {wall:.3f} s -> "
+          f"{n * steps / wall:,.0f} atom-steps/s, {1e3 * wall / steps:.4f} "
+          f"ms/step (thermo every {cfg['thermo']}; set-up {setup_s:.1f} s); "
+          f"rows " + ", ".join(
+              f"{r['step']}: T {r['temp']:.2f} E {r['etotal']:.8g} P "
+              f"{r['press']:.5g}" for r in rows)
+          + f"; drift {drift:.4e}/atom (gate {gate}); launches {ran}")
+    if step0 is not None:
+        print(f"[rest deck] {name}: step 0 temp {row['temp']:.6g} elong "
+              f"{row['elong']:.8g} etotal {row['etotal']:.8g} press "
+              f"{row['press']:.6g} (record {step0['temp']:.6g}, "
+              f"{step0['elong']:.8g}, {step0['etotal']:.8g}, "
+              f"{step0['press']:.6g})")
+    if gate is not None and not drift <= gate:
+        raise AssertionError(f"{name}: drift {drift:.3e}/atom > gate {gate}")
+    return dict(launches=ran, ms_step=1e3 * wall / steps, row=row,
+                drift=drift, sim=sim)
+
+
+def _rest_slab_kernel(sim, out):
+    """K10 slab against slab_correction_plain at the slab deck's last slot
+    state (259,200 atoms in 337,920+ slots; empty slots carry q = 0), f32
+    as the run left it and f64 on the same positions, neutral and with
+    every live charge shifted by REST_SLAB_DQ; timed in f32."""
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm import \
+        slab_correction_plain
+
+    pm, st = sim.kspace, sim.state
+    p64 = dataclasses.replace(pm, acc_dtype=torch.float64, _consts={})
+    e64, f64 = slab_correction_plain(p64, st.z.double(), st.q.double(), True)
+    # the sizes fz and e_slab would have if M = sum q z did not cancel
+    qz = st.q.double() * st.z.double()
+    s_qz, m64 = float(qz.abs().sum()), float(qz.sum())
+    efact = 2.0 * math.pi * float(pm.qqrd2e) / float(pm.volume)
+    f_scale = 2.0 * efact * float(st.q.abs().max()) * s_qz
+    e_scale = efact * s_qz * s_qz
+    for dt in (torch.float64, torch.float32):
+        z, q = st.z.to(dt), st.q.to(dt)
+        pmd = dataclasses.replace(pm, acc_dtype=dt, _consts={})
+        fzk = torch.zeros(z.shape[0], dtype=dt, device=z.device)
+        ek = pppm_ops.slab(pmd, z, q, fzk, True)
+        ep, fzp = slab_correction_plain(pmd, z, q, True)
+        ftol, etol = TOL[dt]
+        label = f"cristobalite_slab {sim.n_atoms} atoms/{dt}"
+        fd = float((fzk - fzp).abs().max()) / f_scale
+        ed = abs(float(ek) - float(ep)) / e_scale
+        fd64 = float((fzk.double() - f64).abs().max()) / f_scale
+        ed64 = abs(float(ek) - float(e64)) / e_scale
+        print(f"[rest] {label} pppm_slab on the scale of the terms of M "
+              f"(M {m64:.6g}, sum |q z| {s_qz:.6g}): kernel against plain, "
+              f"forces "
+              f"{fd:.3e}, e_slab {ed:.3e}; against f64 plain {fd64:.3e}, "
+              f"{ed64:.3e} (tol {ftol}, {etol}); of max|fz| against plain "
+              f"{rel_err(fzk, fzp):.3e}, against f64 "
+              f"{rel_err(fzk.double(), f64):.3e}")
+        if not (max(fd, fd64) <= ftol and max(ed, ed64) <= etol):
+            raise AssertionError(f"K10 slab {label}: forces or energy off")
+        if dt == torch.float32:
+            out.setdefault("pppm_slab", {})["max_abs_err"] = float(
+                (fzk - fzp).abs().max())
+        print(f"[rest] {label}: max |fz| {float(fzp.abs().max()):.4g}")
+        _slab_charged(label, pmd, z, q, st.aid < sim.n_atoms)
+    z, q = st.z, st.q
+    ns, fs = z.shape[0], z.element_size()
+    fz = torch.zeros(ns, dtype=pm.acc_dtype, device=z.device)
+    accs = fz.element_size()
+    b_ms, b_by = bound(ns * (2 * fs + 2 * accs), ns * OPS_SLAB_ATOM)
+    fn = lambda: pppm_ops.slab(pm, z, q, fz, True)  # noqa: E731
+    ms, dev_ms = cuda_ms(fn), device_ms(fn)
+    plain_ms = cuda_ms(lambda: slab_correction_plain(pm, z, q, True), reps=3)
+    out["pppm_slab"].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"[rest] pppm_slab f32 at {ns} slots: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by})")
+
+
+def _rest_npt_full(name, steps, every):
+    """An NPT deck at full width on the card in f64 and in f32 over the
+    record's ``steps`` (rows every ``every``): |etotal_f32 - etotal_f64| /
+    N at every row within REST_NPT_F32_TOL.  Returns the largest."""
+    rows = {}
+    for prec in ("double", "single"):
+        cfg = load_deck(name)
+        cfg.update(precision=prec, run=steps, thermo=every)
+        sim = build_simulation(cfg, device="cuda")
+        rows[prec] = sim.run(steps, thermo_every=every, log=False)
+        n = sim.n_atoms
+        del sim
+        torch.cuda.empty_cache()
+    dev = [abs(a["etotal"] - b["etotal"]) / n
+           for a, b in zip(rows["single"], rows["double"], strict=True)]
+    print(f"[rest deck] {name} at {n} atoms, f32 against f64 on the card "
+          f"over {steps} steps: |d etotal| / N per row "
+          f"{np.round(dev, 8).tolist()} (gate {REST_NPT_F32_TOL})")
+    if not max(dev) <= REST_NPT_F32_TOL:
+        raise AssertionError(f"{name}: the f32 run strays from the f64 run")
+    return max(dev)
+
+
+def phase_rest_decks(rec, golden, nlist_rec, ewald_rec, npt_rec, times,
+                     out):
+    """The six decks unedited on the card in f32 through build_simulation
+    and run, beside the decks they vary earlier in this call (``times``:
+    ms/step of cristobalite_pppm.yaml, cristobalite_pppm_nlist.yaml,
+    cristobalite_ewald.yaml and rhodo_npt.yaml x6x6x4)."""
+    from lammps_buck_intel_tpu_torch.models.kspace import CellPPPM
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import kspace_rest_cases as kc
+
+    silica_gate = load_golden("long_silica_pppm.json")["drift_gate"]
+    pair = ("cellpair", "rebin_incremental", "verlet_kick_drift",
+            "verlet_kick", "verlet_ke")
+    res = {}
+    # cristobalite_pppm_ad.yaml: the cell engine, the record's mesh
+    r = _rest_run("cristobalite_pppm_ad.yaml", pair + REST_AD, golden["row"],
+                  silica_gate, "CellPairSimulation", thermo=50)
+    sim = r.pop("sim")
+    if not isinstance(sim.kspace, CellPPPM) or sim.kspace.pm.grid != tuple(
+            golden["pppm_grid"]):
+        raise AssertionError("cristobalite_pppm_ad.yaml: not CellPPPM on the "
+                             "record's mesh")
+    recip_check("cristobalite_pppm_ad.yaml", r["row"],
+                sim.kspace.pm.elong_self, golden)
+    res["ad_cell"] = r
+    del sim
+    torch.cuda.empty_cache()
+    # the list engine's twin: the generic mesh of cristobalite_pppm_nlist
+    r = _rest_run("cristobalite_pppm_ad_nlist.yaml",
+                  NLIST_PATH + REST_AD + ("nlist_build",), golden["row"],
+                  silica_gate, "Simulation", thermo=50)
+    sim = r.pop("sim")
+    full = nlist_rec["full"]["cristobalite_pppm_nlist"]
+    if list(sim.kspace.grid) != full["pppm_grid"]:
+        raise AssertionError("cristobalite_pppm_ad_nlist.yaml: mesh differs")
+    recip_check("cristobalite_pppm_ad_nlist.yaml", r["row"],
+                sim.kspace.elong_self, golden)
+    res["ad_nlist"] = r
+    del sim
+    torch.cuda.empty_cache()
+    # kspace_modify mesh: cristobalite_pppm_nlist.yaml on the mesh
+    # 120x128x96 for 10 steps
+    cfg = load_deck("cristobalite_pppm_nlist.yaml")
+    cfg["kspace_style"]["grid"] = list(REST_GRID)
+    cfg.update(run=10, thermo=5)
+    r = _rest_run("cristobalite_pppm_nlist.yaml grid 120x128x96",
+                  NLIST_PATH + NLIST_PPPM + ("nlist_build",), golden["row"],
+                  silica_gate, "Simulation", cfg=cfg)
+    sim = r.pop("sim")
+    if tuple(sim.kspace.grid) != REST_GRID:
+        raise AssertionError(f"kspace_modify mesh: the solver's mesh is "
+                             f"{sim.kspace.grid}, not {REST_GRID}")
+    recip_check("cristobalite_pppm_nlist.yaml grid 120x128x96", r["row"],
+                sim.kspace.elong_self, golden)
+    res["grid"] = r
+    del sim
+    torch.cuda.empty_cache()
+    # cristobalite_slab.yaml: the generic z-extended PPPM on the cell
+    # engine's slot positions, step 0 against the record scaled to 30
+    # copies, the drift gated at twice the record's f64 drift at one copy
+    sf = rec["slab_full"]
+    slab_gate = 2.0 * sf["drift"]
+    r = _rest_run("cristobalite_slab.yaml",
+                  pair + ("pppm_deposit", "pppm_spectral", "pppm_gather",
+                          "pppm_slab"), sf["row"], slab_gate,
+                  "CellPairSimulation")
+    sim = r.pop("sim")
+    print(f"[rest deck] cristobalite_slab.yaml: mesh {sim.kspace.grid} "
+          f"(record at one copy {sf['grid']}), drift gate {slab_gate:.4e} = "
+          f"2 x the JAX f64 run of one copy ({sf['recorded_atoms']} atoms)")
+    _rest_slab_kernel(sim, out)
+    res["slab"] = r
+    del sim
+    torch.cuda.empty_cache()
+    # cristobalite_ewald_cell.yaml: Ewald on the slot positions
+    r0 = ewald_rec["ewald_step0"]
+    r = _rest_run("cristobalite_ewald_cell.yaml",
+                  pair + ("ewald_sk", "ewald_force"), r0["row"], silica_gate,
+                  "CellPairSimulation")
+    sim = r.pop("sim")
+    recip_check("cristobalite_ewald_cell.yaml", r["row"],
+                sim.kspace.elong_self, r0)
+    res["ewald_cell"] = r
+    del sim
+    torch.cuda.empty_cache()
+    # cristobalite_ewald_npt.yaml: the NPT engine with K11 traced; step 0
+    # is the NVE deck's row (the same state and energies)
+    r = _rest_run("cristobalite_ewald_npt.yaml",
+                  ("nlist_build", "nlist_pair", "ewald_traced", "ewald_sk",
+                   "ewald_force", "npt_ke3", "npt_vscale_kick",
+                   "npt_drift_dilate"), r0["row"], None, "NPTSimulation")
+    sim = r.pop("sim")
+    res["ewald_npt"] = r
+    del sim
+    torch.cuda.empty_cache()
+    res["ewald_npt"]["f32_dev"] = _rest_npt_full(
+        "cristobalite_ewald_npt.yaml", *kc.CASES["ewald_npt"][3:])
+    # rhodo_npt_ad.yaml: step 0 against long_rhodo_npt.json (ad and ik
+    # share the energy), then x6x6x4 timed beside rhodo_npt.yaml's
+    npt_ad = NPT_KERNELS + REST_AD + BONDED_KERNELS + NPT_SHAKE + (
+        "verlet_kick", "verlet_ke", "nhc_scale")
+    r = _rest_run("rhodo_npt_ad.yaml", npt_ad,
+                  load_golden("long_rhodo_npt.json")["rows"][0], None,
+                  "NPTSimulation")
+    res["rhodo_npt_ad"] = r
+    r.pop("sim")
+    torch.cuda.empty_cache()
+    r["f32_dev"] = _rest_npt_full("rhodo_npt_ad.yaml",
+                                  *kc.CASES["rhodo_npt_ad"][3:])
+    cfg = load_deck("rhodo_npt_ad.yaml")
+    cfg["replicate"] = list(BIG_REPLICATE)
+    ops.reset_launches()
+    sim = build_simulation(cfg, device="cuda")
+    rows = sim.run(int(cfg["run"]), thermo_every=int(cfg["thermo"]),
+                   log=False)
+    ran = dict(ops.LAUNCHES)
+    full = npt_rec["full"]["x".join(map(str, BIG_REPLICATE))]
+    step0_check("rhodo_npt_ad.yaml x6x6x4", rows[0], full["rows"][0],
+                sim.n_atoms)
+    if any(ran[k] <= 0 for k in npt_ad) or not all(
+            np.isfinite(rw["etotal"]) for rw in rows):
+        raise AssertionError("rhodo_npt_ad.yaml x6x6x4: a kernel not "
+                             "launched or a non-finite row")
+    big_ms = 1e3 * sim.timings["run"] / int(cfg["run"])
+    res["rhodo_npt_ad_big"] = dict(launches=ran, ms_step=big_ms)
+    del sim
+    torch.cuda.empty_cache()
+    print(f"[rest deck] ms/step in this call: cristobalite_pppm_ad.yaml "
+          f"{res['ad_cell']['ms_step']:.4f} against cristobalite_pppm.yaml "
+          f"{times['cris']:.4f}; cristobalite_pppm_ad_nlist.yaml "
+          f"{res['ad_nlist']['ms_step']:.4f} against "
+          f"cristobalite_pppm_nlist.yaml {times['nlist']:.4f}; "
+          f"cristobalite_ewald_cell.yaml {res['ewald_cell']['ms_step']:.4f}"
+          f" against cristobalite_ewald.yaml (engine nlist) "
+          f"{times['ewald']:.4f}; cristobalite_ewald_npt.yaml "
+          f"{res['ewald_npt']['ms_step']:.4f}; cristobalite_slab.yaml "
+          f"{res['slab']['ms_step']:.4f}; rhodo_npt_ad.yaml "
+          f"{res['rhodo_npt_ad']['ms_step']:.4f} (31,104 atoms), x6x6x4 "
+          f"{big_ms:.4f} against rhodo_npt.yaml x6x6x4 "
+          f"{times['npt_big']:.4f}")
+    return res
+
+
 def _k9c_device_again() -> float:
     """K9c's device time at buck_small.yaml's 500 atoms, traced once more
     late in the call (phase 11's trace may lose its lead)."""
@@ -5047,6 +5774,26 @@ def main():
         k9c["device_ms"] = k9c_dev
     print(f"[time] the per-atom dispersion phases took "
           f"{time.perf_counter() - t_pd:.1f} s; "
+          f"{time.perf_counter() - t_start:.1f} s since the start")
+    torch.cuda.empty_cache()
+
+    # the rest of the Coulomb k-space: pppm diff ad (K10 ad spectral, K10
+    # ad gather), kspace_modify slab (K10 slab), Ewald on the cell engine
+    # and under fix npt (K11 traced)
+    t_rest = time.perf_counter()
+    rest_rec = load_golden(REST_REC)
+    krest = phase_rest_kernels()
+    t_k = time.perf_counter()
+    phase_rest_record(rest_rec)
+    t_r = time.perf_counter()
+    rest = phase_rest_decks(
+        rest_rec, golden, nlist_rec, ewald_rec, npt_rec,
+        dict(cris=cris["ms_step"], nlist=ncris["ms_step"],
+             ewald=ewd["ms_step"], npt_big=nbig["ms_step"]), krest)
+    print(f"[time] the rest of the Coulomb k-space took "
+          f"{time.perf_counter() - t_rest:.1f} s (kernels {t_k - t_rest:.1f}"
+          f", f64 record {t_r - t_k:.1f}, decks "
+          f"{time.perf_counter() - t_r:.1f}); "
           f"{time.perf_counter() - t_start:.1f} s since the start")
 
     def row(name, source, replaces, launch_key, r, launches=launches):
@@ -5233,6 +5980,22 @@ def main():
             "models/kspace/pppm_cells.py:1062", "disp_peratom_slots",
             htimes["slots"],
             {"disp_peratom_slots": htimes["slots"]["launches"]}),
+        # the rest of the Coulomb k-space: the ad kernels timed at
+        # cristobalite_pppm_ad.yaml's jittered slots and launched on its
+        # run, K10 slab timed and launched on cristobalite_slab.yaml's,
+        # K11 traced timed at cristobalite_ewald_npt.yaml's K and launched
+        # on its run
+        row("pppm_ad_spectral", "pppm.cu", "models/kspace/pppm.py:717",
+            "pppm_ad_spectral", krest["pppm_ad_spectral"],
+            rest["ad_cell"]["launches"]),
+        row("pppm_gather_ad", "pppm.cu", "models/kspace/pppm.py:717",
+            "pppm_gather_ad", krest["pppm_gather_ad"],
+            rest["ad_cell"]["launches"]),
+        row("pppm_slab", "pppm.cu", "models/kspace/pppm.py:342",
+            "pppm_slab", krest["pppm_slab"], rest["slab"]["launches"]),
+        row("ewald_traced", "ewald.cu", "models/kspace/ewald.py:200",
+            "ewald_traced", krest["ewald_traced"],
+            rest["ewald_npt"]["launches"]),
     ]
     print(f"[K9c] torch.cdist + topk at 500 atoms: "
           f"{k9c['cdist_topk_ms']:.4f} ms; [K9b] rhodo_nve_nlist x6x6x4 "

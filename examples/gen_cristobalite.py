@@ -18,6 +18,21 @@ Velocities section (the decks seed velocities with ``velocity``).
 
 Run: python examples/gen_cristobalite.py [nx ny nz]
      (default 4 5 3 -> 1,440 atoms; writes examples/data.cristobalite)
+     python examples/gen_cristobalite.py --slab
+     (4 x 5 x 18 cells -> 8,640 atoms in a box twice as tall; writes
+     examples/data.cristobalite_slab, the input of cristobalite_slab.yaml)
+
+``write(..., vacuum=v)`` makes a slab: the box's z length is (1 + v)
+times the block's, and the block sits in its middle, a gap of v / 2 of
+its height above and below it, so that no atom comes near the periodic z
+boundary in a short run (``kspace_modify slab`` treats z as open).  A
+block cut at cell faces is polar: its top layer is oxygen (each O missing
+the Si above it), its bottom layer silicon (each Si missing the two O
+below it), a dipole of -2,062 e A per 4 x 5 cells of face that the BKS
+crystal answers by heating to ~9,000 K within 10 fs.  So every other O of
+the top layer moves one block height down, under the bottom Si layer,
+where it binds one of those Si: both faces then alike, the slab neutral
+and without a net dipole (``slab_block``).
 
 ``write(..., jitter=amp)`` displaces every coordinate by a deterministic
 amount in [-amp, amp) (``jitter``), so that a check can start from a
@@ -60,6 +75,16 @@ def build(nx=4, ny=5, nz=3, a=A_CELL):
     return x, t, q, np.array([nx, ny, nz], np.float64) * a
 
 
+def slab_block(x, t, hi):
+    """The non-polar slab of a block (``build``): every other O of the top
+    layer (z within 1 A of the block's top) moved down by the block's
+    height."""
+    top = np.where((t == 1) & (x[:, 2] > hi[2] - 1.0))[0]
+    x = x.copy()
+    x[top[::2], 2] -= hi[2]
+    return x
+
+
 def jitter(n, amp):
     """(n, 3) displacements in [-amp, amp): the Weyl sequence k * golden
     ratio mod 1, k = 1 .. 3n, in IEEE double arithmetic alone, so every
@@ -68,13 +93,23 @@ def jitter(n, amp):
     return (amp * (2.0 * np.mod(k * _GOLDEN, 1.0) - 1.0)).reshape(n, 3)
 
 
-def write(path, nx=4, ny=5, nz=3, jitter_amp=0.0):
+def write(path, nx=4, ny=5, nz=3, jitter_amp=0.0, vacuum=0.0):
     x, t, q, hi = build(nx, ny, nz)
     n = len(x)
     what = "ideal"
+    if vacuum:
+        # the slab's faces stay where they are: the jitter wraps x and y
+        # only
+        x = slab_block(x, t, hi)
     if jitter_amp:
-        x = np.mod(x + jitter(n, jitter_amp), hi)
+        x = x + jitter(n, jitter_amp)
+        x = np.mod(x, hi) if not vacuum else np.concatenate(
+            [np.mod(x[:, :2], hi[:2]), x[:, 2:]], axis=1)
         what = f"jittered (+-{jitter_amp} A)"
+    if vacuum:
+        x = x + np.array([0.0, 0.0, 0.5 * vacuum * hi[2]])
+        hi = hi * np.array([1.0, 1.0, 1.0 + vacuum])
+        what = f"{what} slab (vacuum {vacuum} of its height)"
     with open(path, "w") as f:
         f.write(f"{what} beta-cristobalite SiO2, {nx}x{ny}x{nz} cells of "
                 f"{A_CELL} A (examples/gen_cristobalite.py)\n\n")
@@ -92,7 +127,11 @@ def write(path, nx=4, ny=5, nz=3, jitter_amp=0.0):
 
 
 if __name__ == "__main__":
-    dims = [int(v) for v in sys.argv[1:4]] or [4, 5, 3]
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "data.cristobalite")
-    print(f"wrote {write(out, *dims)} atoms to {out}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    if sys.argv[1:] == ["--slab"]:
+        out = os.path.join(here, "data.cristobalite_slab")
+        print(f"wrote {write(out, 4, 5, 18, vacuum=1.0)} atoms to {out}")
+    else:
+        dims = [int(v) for v in sys.argv[1:4]] or [4, 5, 3]
+        out = os.path.join(here, "data.cristobalite")
+        print(f"wrote {write(out, *dims)} atoms to {out}")

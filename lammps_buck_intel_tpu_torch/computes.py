@@ -105,6 +105,7 @@ def _kspace_peratom(sim, at: dict, flt=torch.float32, nyquist=True):
     from .models.kspace.pppm_cells import CellPPPM, CellPPPMDisp
     from .models.kspace.pppm_disp import PPPMDisp
     from .models.kspace.pppm_npt import TracedPPPM
+    from .integrate.npt import NPTSimulation
 
     n, dev = at["x"].shape[1], at["x"].device
     if sim.kspace is None:
@@ -127,15 +128,23 @@ def _kspace_peratom(sim, at: dict, flt=torch.float32, nyquist=True):
             raise TypeError("unbound PPPMDisp (the deck runner always binds "
                             "it in a BoundKSpace)")
         if isinstance(s, Ewald):
+            if isinstance(sim, NPTSimulation):
+                # the variable cell: the set-up's m triples on the CURRENT
+                # box, as TracedPPPM below and Ewald.compute_traced do (the
+                # JAX computes.py:162-163 keeps the set-up box's k vectors:
+                # ROADMAP queue 3)
+                return ewald_compute_peratom(s.at_box(sim.box.lengths), x, q)
             return ewald_compute_peratom(s, x, q)
         if isinstance(s, TracedPPPM):
             # the variable cell: the box-baked solver at the CURRENT box,
-            # mesh, order and g_ewald pinned
+            # mesh, order, g_ewald, diff and slab factor pinned (the JAX
+            # computes.py:178-182)
             pm0 = s.pm
             pm = setup_pppm(sim.box, at["q"].double().cpu().numpy(),
                             cutoff=1.0, accuracy_rel=1e-4,
                             qqrd2e=pm0.qqrd2e, order=pm0.order,
                             g_ewald=pm0.g_ewald, grid=pm0.grid,
+                            diff=pm0.diff, slab=pm0.slab,
                             acc_dtype=pm0.acc_dtype)
             return compute_peratom(pm, x, q, nyquist)
         raise NotImplementedError(

@@ -40,6 +40,14 @@
 //     nsplit ranges; a finish kernel adds the ranges in a fixed order and
 //     applies q_i, the self and background terms and qqrd2e.  S(k) comes
 //     from K11a.
+//   K11 traced (ewald_traced): under fix npt (models/kspace/ewald.py
+//     _ewald_compute_traced, :200-260) the m triples stay fixed at set-up
+//     and the tables follow the box on the card: one thread per k vector
+//     builds k = 2 pi m / L, |k|^2, ug = (2 pi / V) exp(-k^2 / 4 g^2) / k^2
+//     and the six virial factors from boxL, in the JAX package's order of
+//     operations, into the rows K11a and K11b read (kx, ky, kz, ug in flt;
+//     ug and vfac in acc); K11a and K11b then run unchanged.  Bytes bound:
+//     3 K flt in, 4 K flt and 7 K acc out, a few microseconds.
 // Phase precision: |k . x| reaches 2 pi kmax ~ 160 rad, so the phase is
 // reduced by the accurate sincosf / sincos (no --use_fast_math, no
 // __sincosf, whose error grows with the argument).
@@ -405,7 +413,68 @@ int launch_peratom(const void* x, const void* y, const void* z,
   return static_cast<int>(cudaGetLastError());
 }
 
+__device__ __forceinline__ float dev_exp(float a) { return expf(a); }
+__device__ __forceinline__ double dev_exp(double a) { return exp(a); }
+
+// K11 traced: the tables of the box boxL (3 lengths on the card).  m: (3,
+// K) flt rows of the integer triples; kv: (3, K) flt rows out; ug: (K,)
+// flt; ug_acc: (K,) acc; vfac: (6, K) acc.
+template <typename T, typename A>
+__global__ void traced_tables_kernel(const T* __restrict__ m, int K,
+                                     const T* __restrict__ boxL, T four_g2,
+                                     T quarter_g2inv, T* __restrict__ kv,
+                                     T* __restrict__ ug,
+                                     A* __restrict__ ug_acc,
+                                     A* __restrict__ vfac) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const T two_pi = static_cast<T>(6.283185307179586476925286766559);
+  const T lx = boxL[0], ly = boxL[1], lz = boxL[2];
+  const T kx = (two_pi * m[k]) / lx;
+  const T ky = (two_pi * m[K + k]) / ly;
+  const T kz = (two_pi * m[2 * K + k]) / lz;
+  const T ksq = kx * kx + ky * ky + kz * kz;
+  const T vol = lx * ly * lz;
+  const T u = two_pi / vol * dev_exp(-ksq / four_g2) / ksq;
+  const T pref = T(2) * (T(1) / ksq + quarter_g2inv);
+  kv[k] = kx;
+  kv[K + k] = ky;
+  kv[2 * K + k] = kz;
+  ug[k] = u;
+  ug_acc[k] = static_cast<A>(u);
+  vfac[k] = static_cast<A>(T(1) - pref * kx * kx);
+  vfac[K + k] = static_cast<A>(T(1) - pref * ky * ky);
+  vfac[2 * K + k] = static_cast<A>(T(1) - pref * kz * kz);
+  vfac[3 * K + k] = static_cast<A>(-pref * kx * ky);
+  vfac[4 * K + k] = static_cast<A>(-pref * kx * kz);
+  vfac[5 * K + k] = static_cast<A>(-pref * ky * kz);
+}
+
 }  // namespace
+
+// K11 traced.  prec as in ewald_sk; m: (3, K) flt rows of the m triples;
+// boxL: 3 flt lengths on the card; g2: g_ewald^2.  Outputs kv (3, K) flt,
+// ug (K) flt, ug_acc (K) acc, vfac (6, K) acc.
+extern "C" int ewald_traced(int prec, const void* m, int K, const void* boxL,
+                            double g2, void* kv, void* ug, void* ug_acc,
+                            void* vfac, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K <= 0 || g2 <= 0.0) return static_cast<int>(cudaErrorInvalidValue);
+#define TRACED(T, A)                                                         \
+  traced_tables_kernel<T, A><<<blocks_for(K), kThreads, 0, st>>>(            \
+      static_cast<const T*>(m), K, static_cast<const T*>(boxL),              \
+      static_cast<T>(4.0 * g2), static_cast<T>(0.25 / g2),                   \
+      static_cast<T*>(kv), static_cast<T*>(ug), static_cast<A*>(ug_acc),     \
+      static_cast<A*>(vfac))
+  switch (prec) {
+    case 0: TRACED(float, float); break;
+    case 1: TRACED(float, double); break;
+    case 2: TRACED(double, double); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TRACED
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Rows of ewald_sk's sums (one per block of k vectors).
 extern "C" int ewald_sum_rows(int K) { return blocks_for(K); }

@@ -25,6 +25,33 @@
 // (:1011): pppm_deposit on the slots, one rfftn, pppm_peratom_spectral,
 // one batched irfftn, and pppm_peratom_gather over the slots with their
 // aid plane (empty slots write 0).
+// ad differentiation (K10 ad; pppm_intel.cpp:985-1054 poisson_ad, :678-804
+// fieldforce_ad), after the same deposit and one rfftn:
+//   pppm_spectral with ad != 0 <- the ad half of models/kspace/pppm.py
+//                    _pppm_compute_ad (:717-757: phi_hat = G rho_hat, the
+//                    energy and virial sums), pppm_cells.py CellPPPM._spectral (:949-957, the
+//                    half spectrum) and pppm_npt.py TracedPPPM.compute_traced
+//                    (:290-345): pppm_spectral_kernel with AD, one potential
+//                    spectrum out in place of three field spectra;
+//   pppm_gather_ad   <- pppm.py :760-791 with sf_correction (:503) and
+//                    sf_axis_series (:491), pppm_cells.py gather_zblock
+//                    (:633, mode "ad") with :959-995, pppm_npt.py :346-372:
+//                    after one irfftn, f_a = -q qqrd2e sum (dw_a w w) u / h_a
+//                    less the self force q^2 qqrd2e sum_j sf[a][j] sin(2 pi
+//                    (j + 1) u_a), in atom order or over the slots (empty
+//                    slots 0), with the box from the host or the card.
+// kspace_modify slab (K10 slab; host LAMMPS slabcorr(), pppm_intel.cpp:305):
+//   pppm_slab        <- pppm.py slab_correction (:342-365) and its traced
+//                    form pppm_npt.py :388-404: M = sum q z and M2 = sum q
+//                    z^2 in acc (slab_sums_kernel, block partials), then
+//                    slab_apply_kernel adds fz_i = -(4 pi / V) qqrd2e q_i (M -
+//                    Q z_i) and writes e_slab = (2 pi / V) (M^2 - Q M2 - Q^2
+//                    zprd^2 / 12) qqrd2e, or with eatom each atom's share of
+//                    it (the eatom tally of slabcorr(); the JAX package has
+//                    no per-atom slab term).  A fused two-pass reduction of
+//                    this kind would suit Triton; it is CUDA so that it
+//                    shares the port's one build path (ops/build.py, ctypes,
+//                    LAUNCHES).
 // The JAX package moves charge through per-cell spline patches and one-hot
 // matrix products, TPU matrix-unit forms without scatters.  A GPU has
 // atomics in L2, so the port takes the generic global-mesh form: each slot
@@ -57,6 +84,14 @@
 //     L2 resident), sums in acc; bound by L2 read bandwidth.
 //   peratom_spectral: one grid-stride pass over the half spectrum: reads
 //     rho_hat and G, writes seven complex spectra; bytes bound.
+//   ad spectral: the spectral pass writing one complex spectrum in place
+//     of three; bytes bound.
+//   ad gather: one thread per atom or slot, p^3 reads of ONE flt potential
+//     mesh (3.6 MB at 105x112x77, L2 resident) where ik reads three, 3p
+//     weights and 3p derivative weights, three acc sums of p^3 terms; bound
+//     by L2 reads and the weight arithmetic.
+//   slab: two passes over the z plane and charges; bytes bound (a few
+//     microseconds at 259,200 atoms; launch latency dominates).
 //   peratom_gather: one thread per atom or slot, p^3 weights computed
 //     once and p^3 point reads of the seven meshes interleaved
 //     point-major (the wrapper's copy): one 32-byte sector a point in f32
@@ -79,8 +114,10 @@ using namespace pppm_stencil;
 constexpr int kThreads = 256;
 
 // The mesh geometry of a box read from the card (the variable-cell path):
-// on entry lo* hold the box centre; lo = centre - L / 2, 1/h = n / L per
-// axis, in the JAX package's TracedPPPM._weights order.
+// on entry lo* hold the box centre and ih* the k-space box's factors f over
+// the atoms' box (1, 1 and the slab factor); lo = centre - L / 2, 1/h = n /
+// (L f) per axis, in the JAX package's TracedPPPM._weights order (a factor
+// of 1 leaves L as it is).
 template <typename T>
 __device__ __forceinline__ void traced_geometry(const T* boxL, MeshGeom g,
                                                 T& lox, T& loy, T& loz,
@@ -88,9 +125,9 @@ __device__ __forceinline__ void traced_geometry(const T* boxL, MeshGeom g,
   lox = lox - T(0.5) * boxL[0];
   loy = loy - T(0.5) * boxL[1];
   loz = loz - T(0.5) * boxL[2];
-  ihx = static_cast<T>(g.nx) / boxL[0];
-  ihy = static_cast<T>(g.ny) / boxL[1];
-  ihz = static_cast<T>(g.nz) / boxL[2];
+  ihx = static_cast<T>(g.nx) / (boxL[0] * ihx);
+  ihy = static_cast<T>(g.ny) / (boxL[1] * ihy);
+  ihz = static_cast<T>(g.nz) / (boxL[2] * ihz);
 }
 
 template <typename T>
@@ -182,6 +219,89 @@ __global__ void pppm_gather_kernel(const T* __restrict__ x,
   fz[s] = ez * qf;
 }
 
+__device__ __forceinline__ float dev_sin(float v) { return sinf(v); }
+__device__ __forceinline__ double dev_sin(double v) { return sin(v); }
+
+// K10 ad gather.  dcoef: the (p, p) derivative piece table; u: the flt
+// potential mesh (ngrid / V already applied); sf: (3, nterms) acc
+// self-force series.  The series is periodic in u, so its sine takes the
+// fractional part of u (exact in floating point) and keeps the argument
+// under 2 pi nterms; the plain version keeps the JAX package's literal
+// sin(2 pi j u), the two agreeing to the rounding of the argument.
+template <typename T, typename A>
+__global__ void pppm_gather_ad_kernel(const T* __restrict__ x,
+    const T* __restrict__ y, const T* __restrict__ z, const T* __restrict__ q,
+    const int* __restrict__ aid, int ns, int n, T lox, T loy, T loz, T ihx,
+    T ihy, T ihz, MeshGeom g, const T* __restrict__ coef,
+    const T* __restrict__ dcoef, const T* __restrict__ boxL,
+    const T* __restrict__ u, T qqrd2e, const A* __restrict__ sf, int nterms,
+    A* __restrict__ fx, A* __restrict__ fy, A* __restrict__ fz) {
+  __shared__ T s_coef[kMaxOrder * kMaxOrder];
+  __shared__ T s_dcoef[kMaxOrder * kMaxOrder];
+  for (int k = threadIdx.x; k < g.p * g.p; k += blockDim.x) {
+    s_coef[k] = coef[k];
+    s_dcoef[k] = dcoef[k];
+  }
+  __syncthreads();
+  if (boxL) traced_geometry(boxL, g, lox, loy, loz, ihx, ihy, ihz);
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= ns) return;
+  if (aid[s] >= n) {
+    fx[s] = A(0);
+    fy[s] = A(0);
+    fz[s] = A(0);
+    return;
+  }
+  int ix[kMaxOrder], iy[kMaxOrder], iz[kMaxOrder];
+  T wx[kMaxOrder], wy[kMaxOrder], wz[kMaxOrder];
+  T dx[kMaxOrder], dy[kMaxOrder], dz[kMaxOrder];
+  T ua[3];
+  axis_weights_impl<true>(x[s], lox, ihx, g.nx, g.p, s_coef, s_dcoef, ix,
+                          wx, dx, ua);
+  axis_weights_impl<true>(y[s], loy, ihy, g.ny, g.p, s_coef, s_dcoef, iy,
+                          wy, dy, ua + 1);
+  axis_weights_impl<true>(z[s], loz, ihz, g.nz, g.p, s_coef, s_dcoef, iz,
+                          wz, dz, ua + 2);
+  A ex = 0, ey = 0, ez = 0;
+#pragma unroll
+  for (int a = 0; a < kMaxOrder; ++a) {
+    if (a >= g.p) continue;
+#pragma unroll
+    for (int b = 0; b < kMaxOrder; ++b) {
+      if (b >= g.p) continue;
+      const T dxy = dx[a] * wy[b], xdy = wx[a] * dy[b], xy = wx[a] * wy[b];
+      const int row = (ix[a] * g.ny + iy[b]) * g.nz;
+#pragma unroll
+      for (int c = 0; c < kMaxOrder; ++c) {
+        if (c >= g.p) continue;
+        const T um = u[row + iz[c]];
+        ex += static_cast<A>((dxy * wz[c]) * um);
+        ey += static_cast<A>((xdy * wz[c]) * um);
+        ez += static_cast<A>((xy * dz[c]) * um);
+      }
+    }
+  }
+  const T qs = q[s];
+  const A qf = static_cast<A>(qqrd2e * qs);
+  const A q2 = static_cast<A>(qqrd2e * qs * qs);
+  const T ih[3] = {ihx, ihy, ihz};
+  A e[3] = {ex, ey, ez};
+  A f[3];
+  const T two_pi = static_cast<T>(6.283185307179586476925286766559);
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const T frac = ua[ax] - dev_floor(ua[ax]);
+    A self = 0;
+    for (int j = 0; j < nterms; ++j)
+      self += sf[ax * nterms + j] *
+              static_cast<A>(dev_sin((two_pi * static_cast<T>(j + 1)) * frac));
+    f[ax] = -(e[ax] * static_cast<A>(ih[ax])) * qf - q2 * self;
+  }
+  fx[s] = f[0];
+  fy[s] = f[1];
+  fz[s] = f[2];
+}
+
 template <typename A>
 __device__ __forceinline__ A warp_sum(A v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -201,7 +321,7 @@ __device__ __forceinline__ A warp_sum(A v) {
 // of its two axes sits on its Nyquist index: that index is its own
 // mirror, so k_a k_b changes sign between the point and its mirror and
 // the full sum cancels the pair.
-template <typename A, bool EV>
+template <typename A, bool EV, bool AD = false>
 __global__ void pppm_spectral_kernel(const A* __restrict__ rhat,
     const A* __restrict__ G, const A* __restrict__ kx,
     const A* __restrict__ ky, const A* __restrict__ kz,
@@ -219,14 +339,21 @@ __global__ void pppm_spectral_kernel(const A* __restrict__ rhat,
     const A pr = gv * re, pi = gv * im;
     const A kxv = kx[l], kyv = ky[j], kzv = kz[k];
     const bool qx = nyq && 2 * l == nx, qy = nyq && 2 * j == ny;
-    const A kxe = qx ? A(0) : kxv;
-    const A kye = qy ? A(0) : kyv;
-    ehat[2 * i] = kxe * pi;
-    ehat[2 * i + 1] = -(kxe * pr);
-    ehat[2 * (npts + i)] = kye * pi;
-    ehat[2 * (npts + i) + 1] = -(kye * pr);
-    ehat[2 * (2 * npts + i)] = kzv * pi;
-    ehat[2 * (2 * npts + i) + 1] = -(kzv * pr);
+    if (AD) {
+      // K10 ad: the potential spectrum alone (no Nyquist rule needed:
+      // G rho_hat is Hermitian, so c2r and the full inverse FFT agree)
+      ehat[2 * i] = pr;
+      ehat[2 * i + 1] = pi;
+    } else {
+      const A kxe = qx ? A(0) : kxv;
+      const A kye = qy ? A(0) : kyv;
+      ehat[2 * i] = kxe * pi;
+      ehat[2 * i + 1] = -(kxe * pr);
+      ehat[2 * (npts + i)] = kye * pi;
+      ehat[2 * (npts + i) + 1] = -(kye * pr);
+      ehat[2 * (2 * npts + i)] = kzv * pi;
+      ehat[2 * (2 * npts + i) + 1] = -(kzv * pr);
+    }
     if (EV) {
       const A ek = gv * (re * re + im * im) * wz[k];
       const A ksq = kxv * kxv + kyv * kyv + kzv * kzv;
@@ -405,18 +532,101 @@ int launch_gather(const void* x, const void* y, const void* z, const void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename A, bool EV>
+template <typename A, bool EV, bool AD = false>
 int launch_spectral(const void* rhat, const void* G, const void* kx,
                     const void* ky, const void* kz, const void* wz, int nx,
                     int ny, int nzh, double quarter_g2inv, int nyq,
                     void* ehat, void* partial, int nblocks, cudaStream_t st) {
-  pppm_spectral_kernel<A, EV><<<nblocks, kThreads, 0, st>>>(
+  pppm_spectral_kernel<A, EV, AD><<<nblocks, kThreads, 0, st>>>(
       static_cast<const A*>(rhat), static_cast<const A*>(G),
       static_cast<const A*>(kx), static_cast<const A*>(ky),
       static_cast<const A*>(kz), static_cast<const A*>(wz), nx, ny, nzh,
       static_cast<A>(quarter_g2inv), nyq, static_cast<A*>(ehat),
       static_cast<A*>(partial));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K10 slab, pass 1: partial[block] = (sum q z, sum q z^2) in acc over a
+// grid-stride range, reduced per block in a fixed shuffle tree.
+template <typename T, typename A>
+__global__ void slab_sums_kernel(const T* __restrict__ z,
+                                 const T* __restrict__ q, int n,
+                                 A* __restrict__ partial) {
+  A m = 0, m2 = 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const A qa = static_cast<A>(q[i]), za = static_cast<A>(z[i]);
+    m += qa * za;
+    m2 += (qa * za) * za;
+  }
+  __shared__ A red[kThreads / 32][2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  m = warp_sum(m);
+  m2 = warp_sum(m2);
+  if (lane == 0) {
+    red[warp][0] = m;
+    red[warp][1] = m2;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+    A a = warp_sum(lane < nwarps ? red[lane][0] : A(0));
+    A b = warp_sum(lane < nwarps ? red[lane][1] : A(0));
+    if (lane == 0) {
+      partial[2 * blockIdx.x] = a;
+      partial[2 * blockIdx.x + 1] = b;
+    }
+  }
+}
+
+// K10 slab, pass 2: every block adds the partials in order (the same M and
+// M2 in every block), then fz[i] += ffact q_i (M - Q z_i) and / or
+// eatom[i] += efact q_i (z_i M - (M2 + Q z_i^2) / 2 - Q zprd^2 / 12); block
+// 0 writes e_slab.  boxL (the atoms' box on the card) gives the extended V
+// and zprd with the slab factor, else the host's V and zprd.
+template <typename T, typename A>
+__global__ void slab_apply_kernel(const T* __restrict__ z,
+                                  const T* __restrict__ q, int n,
+                                  const A* __restrict__ partial, int nparts,
+                                  A qsum, A qqrd2e, A vol, A zprd,
+                                  const T* __restrict__ boxL, A slab,
+                                  A* __restrict__ fz, A* __restrict__ eatom,
+                                  A* __restrict__ e_out) {
+  __shared__ A s_m, s_m2, s_v, s_zp;
+  if (threadIdx.x == 0) {
+    A m = 0, m2 = 0;
+    for (int b = 0; b < nparts; ++b) {
+      m += partial[2 * b];
+      m2 += partial[2 * b + 1];
+    }
+    s_m = m;
+    s_m2 = m2;
+    if (boxL) {
+      const A lz = static_cast<A>(boxL[2]) * slab;
+      s_v = static_cast<A>(boxL[0]) * static_cast<A>(boxL[1]) * lz;
+      s_zp = lz;
+    } else {
+      s_v = vol;
+      s_zp = zprd;
+    }
+  }
+  __syncthreads();
+  const A m = s_m, m2 = s_m2, v = s_v, zp = s_zp;
+  const A two_pi = static_cast<A>(6.283185307179586476925286766559);
+  const A c12 = qsum * qsum * zp * zp / A(12);
+  if (e_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    e_out[0] = (two_pi / v) * (m * m - qsum * m2 - c12) * qqrd2e;
+  const A ffact = -(A(2) * two_pi / v) * qqrd2e;
+  const A efact = qqrd2e * two_pi / v;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const A qa = static_cast<A>(q[i]), za = static_cast<A>(z[i]);
+    if (fz != nullptr) fz[i] += ffact * qa * (m - qsum * za);
+    if (eatom != nullptr)
+      eatom[i] += efact * qa *
+                  (za * m - A(0.5) * (m2 + qsum * za * za) - qsum * zp * zp /
+                   A(12));
+  }
 }
 
 }  // namespace
@@ -452,8 +662,10 @@ extern "C" int pppm_deposit(int prec, const void* x, const void* y,
 }
 
 // prec: 0 = float, 1 = double (the acc type).  ev != 0 writes
-// partial[nblocks][7]; nyq as in pppm_spectral_kernel.
-extern "C" int pppm_spectral(int prec, int ev, const void* rhat,
+// partial[nblocks][7]; nyq as in pppm_spectral_kernel.  ad != 0 is K10 ad
+// spectral: ehat holds one interleaved complex (nx, ny, nzh) potential
+// spectrum in place of three field spectra; the same sums and nyq.
+extern "C" int pppm_spectral(int prec, int ev, int ad, const void* rhat,
                              const void* G, const void* kx, const void* ky,
                              const void* kz, const void* wz, int nx, int ny,
                              int nzh, double quarter_g2inv, int nyq,
@@ -465,11 +677,15 @@ extern "C" int pppm_spectral(int prec, int ev, const void* rhat,
 #define SPECTRAL_ARGS \
   rhat, G, kx, ky, kz, wz, nx, ny, nzh, quarter_g2inv, nyq, ehat, \
       partial, nblocks, s
-  switch (prec * 2 + (ev ? 1 : 0)) {
+  switch (prec * 4 + (ad ? 2 : 0) + (ev ? 1 : 0)) {
     case 0: return launch_spectral<float, false>(SPECTRAL_ARGS);
     case 1: return launch_spectral<float, true>(SPECTRAL_ARGS);
-    case 2: return launch_spectral<double, false>(SPECTRAL_ARGS);
-    case 3: return launch_spectral<double, true>(SPECTRAL_ARGS);
+    case 2: return launch_spectral<float, false, true>(SPECTRAL_ARGS);
+    case 3: return launch_spectral<float, true, true>(SPECTRAL_ARGS);
+    case 4: return launch_spectral<double, false>(SPECTRAL_ARGS);
+    case 5: return launch_spectral<double, true>(SPECTRAL_ARGS);
+    case 6: return launch_spectral<double, false, true>(SPECTRAL_ARGS);
+    case 7: return launch_spectral<double, true, true>(SPECTRAL_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SPECTRAL_ARGS
@@ -564,5 +780,83 @@ extern "C" int pppm_peratom_gather(int prec, const void* x, const void* y,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PERATOM_GATHER
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10 ad gather.  prec as in pppm_gather; lo, invh and boxL as in
+// pppm_deposit, except that with boxL invh holds the k-space box's factors
+// (1, 1, slab); dcoef: the (p, p) flt derivative piece table; u: the flt
+// potential mesh; sf: (3, nterms) acc.
+extern "C" int pppm_gather_ad(int prec, const void* x, const void* y,
+                              const void* z, const void* q, const void* aid,
+                              int ns, int n, double lox, double loy,
+                              double loz, double ihx, double ihy, double ihz,
+                              int nx, int ny, int nz, int order,
+                              const void* coef, const void* dcoef,
+                              const void* boxL, const void* u, double qqrd2e,
+                              const void* sf, int nterms, void* fx, void* fy,
+                              void* fz, void* stream) {
+  const MeshGeom g{nx, ny, nz, order};
+  if (!geom_ok(g) || nterms < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ns <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GATHER_AD(T, A)                                                      \
+  pppm_gather_ad_kernel<T, A><<<slot_blocks(ns), kThreads, 0, s>>>(          \
+      static_cast<const T*>(x), static_cast<const T*>(y),                    \
+      static_cast<const T*>(z), static_cast<const T*>(q),                    \
+      static_cast<const int*>(aid), ns, n, static_cast<T>(lox),              \
+      static_cast<T>(loy), static_cast<T>(loz), static_cast<T>(ihx),         \
+      static_cast<T>(ihy), static_cast<T>(ihz), g,                           \
+      static_cast<const T*>(coef), static_cast<const T*>(dcoef),             \
+      static_cast<const T*>(boxL), static_cast<const T*>(u),                 \
+      static_cast<T>(qqrd2e), static_cast<const A*>(sf), nterms,             \
+      static_cast<A*>(fx), static_cast<A*>(fy), static_cast<A*>(fz))
+  switch (prec) {
+    case 0: GATHER_AD(float, float); break;
+    case 1: GATHER_AD(float, double); break;
+    case 2: GATHER_AD(double, double); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GATHER_AD
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the K10 slab sums pass (the rows of its partial array).
+extern "C" int pppm_slab_parts(int n, int nsm) {
+  const int want = 2 * nsm;
+  const int need = slot_blocks(n);
+  return need < want ? need : want;
+}
+
+// K10 slab.  prec as in pppm_gather (z, q and boxL of the flt type; fz,
+// eatom, e_out and partial of the acc type).  fz (n) and eatom (n) are
+// added to when not null; e_out (one value) is written when not null;
+// partial: (nparts, 2) scratch, nparts = pppm_slab_parts(n, SMs).  With
+// boxL not null V and zprd come from it and the slab factor.
+extern "C" int pppm_slab(int prec, const void* z, const void* q, int n,
+                         double qsum, double qqrd2e, double vol, double zprd,
+                         const void* boxL, double slab, void* fz,
+                         void* eatom, void* e_out, void* partial, int nparts,
+                         void* stream) {
+  if (n <= 0 || nparts <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SLAB(T, A)                                                           \
+  slab_sums_kernel<T, A><<<nparts, kThreads, 0, s>>>(                        \
+      static_cast<const T*>(z), static_cast<const T*>(q), n,                 \
+      static_cast<A*>(partial));                                             \
+  slab_apply_kernel<T, A><<<slot_blocks(n), kThreads, 0, s>>>(               \
+      static_cast<const T*>(z), static_cast<const T*>(q), n,                 \
+      static_cast<const A*>(partial), nparts, static_cast<A>(qsum),          \
+      static_cast<A>(qqrd2e), static_cast<A>(vol), static_cast<A>(zprd),     \
+      static_cast<const T*>(boxL), static_cast<A>(slab),                     \
+      static_cast<A*>(fz), static_cast<A*>(eatom), static_cast<A*>(e_out))
+  switch (prec) {
+    case 0: SLAB(float, float); break;
+    case 1: SLAB(float, double); break;
+    case 2: SLAB(double, double); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SLAB
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // The order-p B-spline stencil of one position on the periodic mesh, shared
-// by the PPPM kernels (csrc/pppm.cu: the charge deposit, the ik gather and
-// the per-atom gather) and the multi-channel dispersion kernels
+// by the PPPM kernels (csrc/pppm.cu: the charge deposit, the ik and ad
+// gathers and the per-atom gather) and the multi-channel dispersion kernels
 // (csrc/pppm_disp.cu), and the point-major mesh load of the two per-atom
 // gathers.
 //
@@ -24,16 +24,20 @@ __device__ __forceinline__ double dev_floor(double v) { return floor(v); }
 __device__ __forceinline__ float dev_rint(float v) { return rintf(v); }
 __device__ __forceinline__ double dev_rint(double v) { return rint(v); }
 
-// mesh indices and weights of one position on one axis (first p entries)
-template <typename T>
-__device__ __forceinline__ void axis_weights(T pos, T lo, T invh, int n,
-                                             int p, const T* coef, int* idx,
-                                             T* w) {
+// mesh indices and weights of one position on one axis (first p entries);
+// with D also the derivative weights dw = dM_p/du from the (p, p)
+// derivative piece table dcoef (p - 1 coefficients a row), and u itself
+template <bool D, typename T>
+__device__ __forceinline__ void axis_weights_impl(T pos, T lo, T invh, int n,
+                                                  int p, const T* coef,
+                                                  const T* dcoef, int* idx,
+                                                  T* w, T* dw, T* u_out) {
   const T u = (pos - lo) * invh;
   const T base = (p & 1) ? dev_rint(u) : dev_floor(u);
   const int b = static_cast<int>(base);
   const int o0 = (p & 1) ? -(p - 1) / 2 : -(p / 2 - 1);
   const T half = static_cast<T>(0.5 * p);
+  if (D) *u_out = u;
 #pragma unroll
   for (int s = 0; s < kMaxOrder; ++s) {
     if (s < p) {
@@ -43,13 +47,29 @@ __device__ __forceinline__ void axis_weights(T pos, T lo, T invh, int n,
       jf = jf < T(0) ? T(0) : (jf > static_cast<T>(p - 1)
                                    ? static_cast<T>(p - 1) : jf);
       const T t = arg - jf;
+      const bool in = arg >= T(0) && arg < static_cast<T>(p);
       const T* c = coef + static_cast<int>(jf) * p;
       T acc = c[p - 1];
       for (int d = p - 2; d >= 0; --d) acc = acc * t + c[d];
-      w[s] = (arg >= T(0) && arg < static_cast<T>(p)) ? acc : T(0);
+      w[s] = in ? acc : T(0);
+      if (D) {
+        const T* dc = dcoef + static_cast<int>(jf) * p;
+        T dacc = dc[p - 2];
+        for (int d = p - 3; d >= 0; --d) dacc = dacc * t + dc[d];
+        dw[s] = in ? dacc : T(0);
+      }
       idx[s] = (((b + o) % n) + n) % n;
     }
   }
+}
+
+template <typename T>
+__device__ __forceinline__ void axis_weights(T pos, T lo, T invh, int n,
+                                             int p, const T* coef, int* idx,
+                                             T* w) {
+  axis_weights_impl<false>(pos, lo, invh, n, p, coef,
+                           static_cast<const T*>(nullptr), idx, w,
+                           static_cast<T*>(nullptr), static_cast<T*>(nullptr));
 }
 
 struct MeshGeom {

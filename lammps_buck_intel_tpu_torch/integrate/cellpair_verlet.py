@@ -92,11 +92,13 @@ class CellPairSimulation:
 
     kspace: None, or a function of this engine's cell grid that returns
     the k-space solver (a ``CellPPPM`` or ``CellPPPMDisp``, whose
-    ``compute_slots`` reads the slot planes, or a ``BoundKSpace`` or
+    ``compute_slots`` reads the slot planes, a ``BoundKSpace`` or
     ``CombinedKSpace``, whose ``compute_slot`` gathers atom-order inputs
     through the slots' atom ids and hands the slot charges to a Coulomb
-    PPPM): the deck runner aligns the mesh to the grid, which is chosen
-    here, or returns a solver on the generic mesh of the box.  The initial force includes
+    PPPM, or a ``PPPM`` or ``Ewald``, whose ``compute`` takes the slot
+    positions and charges): the deck runner aligns the mesh to the grid,
+    which is chosen here, or returns a solver on the generic mesh of the
+    box.  The initial force includes
     the solver's.  topology: the special-bond partner table for the pair
     kernel; bonded: the bonded terms; shake: the SHAKE/RATTLE constraints
     (``integrate.shake.ShakeConstraints``); thermostat: Nose-Hoover chain
@@ -283,12 +285,20 @@ class CellPairSimulation:
                 *fk, elong, kvir = self.kspace.compute_slots(state, eflag,
                                                              vflag)
             else:
-                # a solver baked on atom-order inputs (``BoundKSpace``):
-                # the slot positions, the atom ids clamped to N
-                kr = self.kspace.compute_slot(
-                    torch.stack([state.x, state.y, state.z]),
-                    torch.clamp(state.aid, max=self.n_atoms), state.q,
-                    eflag=eflag, vflag=vflag)
+                xs = torch.stack([state.x, state.y, state.z])
+                if hasattr(self.kspace, "compute_slot"):
+                    # a solver baked on atom-order inputs (``BoundKSpace``):
+                    # the slot positions, the atom ids clamped to N
+                    kr = self.kspace.compute_slot(
+                        xs, torch.clamp(state.aid, max=self.n_atoms),
+                        state.q, eflag=eflag, vflag=vflag)
+                else:
+                    # a charge solver (the generic PPPM of a slab deck, an
+                    # Ewald sum) on the slot positions and charges: empty
+                    # slots carry q = 0 and add nothing (the JAX
+                    # cellpair_verlet.py:383-391)
+                    kr = self.kspace.compute(xs, state.q, eflag=eflag,
+                                             vflag=vflag)
                 fk, elong, kvir = list(kr.f), kr.elong, kr.virial
             if vflag:
                 virial = virial + kvir

@@ -20,7 +20,9 @@ fix_nh.cpp's operator splitting.  One step:
      (``npt_drift_dilate``); SHAKE, whose constraint virial joins the
      force virial that drives the barostat;
   5. forces on the block's list with the block's G: the list pair pass
-     (csrc/nlist.cu), the traced PPPM (``TracedPPPM``), the bonded terms
+     (csrc/nlist.cu), the traced PPPM (``TracedPPPM``, ik or ad, slab or
+     not) or the traced Ewald sum (``Ewald.compute_traced``: K11 traced
+     then K11a / K11b, its tables from the box every step), the bonded terms
      (their virial every step, so the bonded kernels run their energy
      variant);
   6. the half kick with the force sum (``nve.kick``), RATTLE, the velocity
@@ -28,7 +30,8 @@ fix_nh.cpp's operator splitting.  One step:
 
 A block (``neighbor every`` steps) first wraps the positions into the
 current cell (image flags counted), builds the list on that box
-(``neighbor_list.build``) and rebuilds G (``TracedPPPM.tables``); within
+(``neighbor_list.build``) and rebuilds G (``TracedPPPM.tables``, with ad
+also the self-force series); within
 the block the pair pass takes the minimum image under the current box.
 The list is sized at set-up for a box grown by ``BOX_HEADROOM`` (cells
 only get wider as the box shrinks); the sticky overflow flag and the
@@ -248,7 +251,8 @@ def drift_dilate(xs, vs, s, center, dtv: float):
 class NPTSimulation:
     """Variable-cell MD on a neighbor-list engine; the device is that of
     ``system``.  The box stays centred on its initial centre and dilates
-    per axis.  kspace: a ``pppm_npt.TracedPPPM`` or None; shake: SHAKE/
+    per axis.  kspace: a ``pppm_npt.TracedPPPM``, an ``Ewald`` (its
+    ``compute_traced``, K11 traced) or None; shake: SHAKE/
     RATTLE constraints whose virial joins the barostat's pressure every
     step (in.rhodo's shake + npt)."""
 
@@ -373,7 +377,11 @@ class NPTSimulation:
                          self._special)
 
     def _kspace_kc(self, boxL):
-        return None if self.kspace is None else self.kspace.tables(boxL)
+        """The k-space tables of the block (``TracedPPPM.tables``); None
+        for a solver without them (Ewald rebuilds its own every step)."""
+        if self.kspace is None or not hasattr(self.kspace, "tables"):
+            return None
+        return self.kspace.tables(boxL)
 
     def _forces(self, x, boxL, nl, kc, eflag: bool = False):
         """(fa, fb, virial, energies): fa the acc planes of pair + bonded

@@ -22,9 +22,16 @@ of k vectors.
 dump cadence) gives each atom its share of the energy and the 6-virial:
 S(k) from K11a, then per atom share_k = cos_ik Re_k + sin_ik Im_k
 contracted against ug_k and the six ug_k vfac_c(k) (K11pa
-``ewald_peratom``); on CPU planes ``ewald_compute_peratom_plain``.  The
-traced-box form (``_ewald_compute_traced``, fix npt) is ROADMAP queue 1
-items 10 / 14.
+``ewald_peratom``); on CPU planes ``ewald_compute_peratom_plain``.
+
+``Ewald.compute_traced(x, q, boxL, ...)`` (fix npt, every step) is the
+variable-cell form (the JAX ``_ewald_compute_traced``): the m triples stay
+those of the set-up, and k = 2 pi m / L, ug and the virial factors follow
+the box lengths boxL on the card.  On CUDA planes K11 traced
+(``ops.ewald.ewald_traced``) builds those tables and K11a / K11b run on
+them unchanged; on CPU planes ``ewald_compute_traced_plain`` follows the
+JAX expressions and casts (S(k) rounded to x's dtype before the energy
+and virial, which sum in x's dtype).  A tilted box is item 14.
 """
 from __future__ import annotations
 
@@ -105,6 +112,52 @@ class Ewald:
                                       ug[None, :] * vfac.to(flt)]))
         self._consts[key] = c
         return c
+
+    def m_rows(self, device, flt) -> torch.Tensor:
+        """The (3, K) rows of the m triples in flt on ``device``, uploaded
+        once (the JAX ``jnp.asarray(ew.mvecs, flt)``)."""
+        c = self.consts(device, flt)
+        if "m_rows" not in c:
+            c["m_rows"] = torch.as_tensor(
+                np.ascontiguousarray(np.asarray(self.mvecs, np.float64).T)
+            ).to(device, flt)
+        return c["m_rows"]
+
+    def e_self_traced(self, vol: torch.Tensor) -> torch.Tensor:
+        """qqrd2e times the self and background terms at the volume vol (a
+        0-d tensor; the JAX ``_ewald_compute_traced`` expression)."""
+        g = self.g_ewald
+        e = (-g * self.qsqsum / math.sqrt(math.pi)
+             - math.pi / 2.0 * self.qsum ** 2 / (g * g * vol))
+        return self.qqrd2e * e
+
+    def compute_traced(self, x: torch.Tensor, q: torch.Tensor,
+                       boxL: torch.Tensor, eflag: bool = True,
+                       vflag: bool = True, kc=None) -> KSpaceResult:
+        """``compute`` in the box of lengths boxL (3,) on the card (fix
+        npt): K11 traced, then K11a and K11b on CUDA planes,
+        ``ewald_compute_traced_plain`` on CPU planes.  kc is not read (the
+        tables follow the box every step, as in the JAX package)."""
+        if x.is_cuda:
+            return ewald_compute_traced_kernels(self, x, q, boxL, eflag,
+                                                vflag)
+        if x.device.type != "cpu":
+            raise RuntimeError(
+                f"no kernel and no plain version for device {x.device}")
+        return ewald_compute_traced_plain(self, x, q, boxL, eflag, vflag)
+
+    def at_box(self, lengths) -> "Ewald":
+        """This solver (its g_ewald and m triples) on an orthogonal box of
+        the given lengths, host numpy: k = 2 pi m / L, ug and the volume of
+        that box (the per-atom computes under fix npt use it)."""
+        L = np.asarray(lengths, np.float64)
+        kvecs = 2.0 * math.pi * np.asarray(self.mvecs, np.float64) / L
+        ksq = np.sum(kvecs ** 2, axis=1)
+        volume = float(np.prod(L))
+        ug = ((2.0 * math.pi / volume) * np.exp(-ksq / (4.0 * self.g_ewald
+                                                        ** 2)) / ksq)
+        return dataclasses.replace(self, kvecs=kvecs, ug=ug, volume=volume,
+                                   _consts={})
 
     def compute(self, x: torch.Tensor, q: torch.Tensor, eflag: bool = True,
                 vflag: bool = True) -> KSpaceResult:
@@ -198,19 +251,15 @@ def _energy_virial(ew: Ewald, c: dict, s_re, s_im, eflag: bool,
     return elong, virial
 
 
-def ewald_compute_plain(ew: Ewald, x: torch.Tensor, q: torch.Tensor,
-                        eflag: bool = True,
-                        vflag: bool = True) -> KSpaceResult:
-    """The JAX ``_ewald_compute`` in torch ops, any device: per chunk of k
-    vectors phase = x kv^T, cos and sin (N, Kc), S(k) = q . cos / q . sin
-    in acc, and the force contraction sum_k (s Re - c Im) 2 ug k as the
-    two matrix products s @ (2 ug Re k) - c @ (2 ug Im k) in x's dtype (the
-    JAX package's (s Re - c Im) 2 ug @ kv, reassociated); then f = qqrd2e
-    q f cast to acc, and elong and the virial from S(k)."""
-    flt, acc, dev = x.dtype, ew.acc_dtype, x.device
+def _plain_sk_force(kv: torch.Tensor, ug: torch.Tensor, qqrd2e: float,
+                    x: torch.Tensor, q: torch.Tensor, acc):
+    """S(k) (s_re, s_im in acc) and the forces (N, 3) in acc, per chunk of
+    k vectors: phase = x kv^T, cos and sin (N, Kc), S(k) = q . cos / q .
+    sin in acc, and sum_k (s Re - c Im) 2 ug k as s @ (2 ug Re k) - c @ (2
+    ug Im k) in x's dtype (the JAX (s Re - c Im) 2 ug @ kv, reassociated),
+    then qqrd2e q f cast to acc.  kv (K, 3) and ug (K,) in x's dtype."""
+    flt, dev = x.dtype, x.device
     n = x.shape[1]
-    c = ew.consts(dev, flt)
-    kv, ug = c["kv"], c["ug"]
     K = kv.shape[0]
     xa = x.t()
     qa = q.to(acc)
@@ -227,10 +276,102 @@ def ewald_compute_plain(ew: Ewald, x: torch.Tensor, q: torch.Tensor,
         s_re[k0:k1], s_im[k0:k1] = re, im
         w = 2.0 * ug[k0:k1, None] * kc
         f += sn @ (re.to(flt)[:, None] * w) - cs @ (im.to(flt)[:, None] * w)
-    f = (float(ew.qqrd2e) * q[:, None] * f).to(acc)
-    elong, virial = _energy_virial(ew, c, s_re, s_im, eflag, vflag, dev)
+    return s_re, s_im, (float(qqrd2e) * q[:, None] * f).to(acc)
+
+
+def ewald_compute_plain(ew: Ewald, x: torch.Tensor, q: torch.Tensor,
+                        eflag: bool = True,
+                        vflag: bool = True) -> KSpaceResult:
+    """The JAX ``_ewald_compute`` in torch ops, any device
+    (``_plain_sk_force``), then elong and the virial from S(k)."""
+    c = ew.consts(x.device, x.dtype)
+    s_re, s_im, f = _plain_sk_force(c["kv"], c["ug"], ew.qqrd2e, x, q,
+                                    ew.acc_dtype)
+    elong, virial = _energy_virial(ew, c, s_re, s_im, eflag, vflag,
+                                   x.device)
     return KSpaceResult(f=tuple(f.t().contiguous().unbind(0)), elong=elong,
                         virial=virial)
+
+
+def traced_tables_plain(m_rows: torch.Tensor, boxL: torch.Tensor,
+                        g_ewald: float, acc) -> dict:
+    """Plain version of K11 traced (``ops.ewald.ewald_traced``), any
+    device: the JAX ``_ewald_compute_traced`` tables from the m rows (3,
+    K) and the box lengths boxL (3,), in their dtype (flt): kv = 2 pi m /
+    L, ksq, vol = Lx Ly Lz, ug = (2 pi / vol) exp(-ksq / 4 g^2) / ksq, pref
+    = 2 (1 / ksq + 1 / (4 g^2)), vfac as in ``Ewald.consts``."""
+    g2 = float(g_ewald) ** 2
+    kv = (2.0 * math.pi) * m_rows / boxL[:, None]
+    kx, ky, kz = kv[0], kv[1], kv[2]
+    ksq = kx * kx + ky * ky + kz * kz
+    vol = boxL[0] * boxL[1] * boxL[2]
+    ug = (2.0 * math.pi) / vol * torch.exp(-ksq / (4.0 * g2)) / ksq
+    pref = 2.0 * (1.0 / ksq + 0.25 / g2)
+    vfac = torch.stack([1.0 - pref * kx * kx, 1.0 - pref * ky * ky,
+                        1.0 - pref * kz * kz, -pref * kx * ky,
+                        -pref * kx * kz, -pref * ky * kz])
+    return dict(kv_rows=kv, ug=ug, ug_acc=ug.to(acc), vfac=vfac.to(acc))
+
+
+def ewald_compute_traced_plain(ew: Ewald, x: torch.Tensor, q: torch.Tensor,
+                               boxL: torch.Tensor, eflag: bool = True,
+                               vflag: bool = True) -> KSpaceResult:
+    """The JAX ``_ewald_compute_traced`` in torch ops, any device: the
+    tables of boxL (``traced_tables_plain``), S(k) in acc rounded to x's
+    dtype, the forces (``_plain_sk_force``), uk = ug |S|^2 qqrd2e in x's
+    dtype, elong = sum(uk) in acc + qqrd2e (self + background at the
+    traced volume), the virial sum(uk vfac_c) in acc."""
+    flt, acc, dev = x.dtype, ew.acc_dtype, x.device
+    L = boxL.to(flt)
+    t = traced_tables_plain(ew.m_rows(dev, flt), L, ew.g_ewald, acc)
+    kv = t["kv_rows"].t()
+    s_re, s_im, f = _plain_sk_force(kv, t["ug"], ew.qqrd2e, x, q, acc)
+    re, im = s_re.to(flt), s_im.to(flt)
+    uk = t["ug"] * (re * re + im * im) * float(ew.qqrd2e)
+    vol = L[0] * L[1] * L[2]
+    if eflag:
+        elong = (uk.to(acc).sum() + ew.e_self_traced(vol)).to(acc)
+    else:
+        elong = torch.zeros((), dtype=acc, device=dev)
+    if vflag:
+        g2 = ew.g_ewald ** 2
+        kx, ky, kz = kv[:, 0], kv[:, 1], kv[:, 2]
+        ksq = kx * kx + ky * ky + kz * kz
+        pref = 2.0 * (1.0 / ksq + 0.25 / g2)
+        virial = torch.stack([
+            (uk * (1.0 - pref * kx * kx)).to(acc).sum(),
+            (uk * (1.0 - pref * ky * ky)).to(acc).sum(),
+            (uk * (1.0 - pref * kz * kz)).to(acc).sum(),
+            (uk * (-pref * kx * ky)).to(acc).sum(),
+            (uk * (-pref * kx * kz)).to(acc).sum(),
+            (uk * (-pref * ky * kz)).to(acc).sum()])
+    else:
+        virial = torch.zeros(6, dtype=acc, device=dev)
+    return KSpaceResult(f=tuple(f.t().contiguous().unbind(0)), elong=elong,
+                        virial=virial)
+
+
+def ewald_compute_traced_kernels(ew: Ewald, x: torch.Tensor,
+                                 q: torch.Tensor, boxL: torch.Tensor,
+                                 eflag: bool = True,
+                                 vflag: bool = True) -> KSpaceResult:
+    """``compute_traced`` on the card: K11 traced (the tables of boxL),
+    then K11a and K11b of csrc/ewald.cu on them."""
+    from ...ops import ewald as ewald_ops
+
+    flt, acc = x.dtype, ew.acc_dtype
+    L = boxL.to(flt)
+    c = ewald_ops.ewald_traced(ew.m_rows(x.device, flt), L, ew.g_ewald, acc)
+    xs = tuple(x.unbind(0))
+    sk = ewald_ops.ewald_sk(xs, q, c, ew.qqrd2e, acc)
+    f = ewald_ops.ewald_force(xs, q, c, sk.wre, sk.wim, ew.qqrd2e, acc)
+    zero = torch.zeros((), dtype=acc, device=x.device)
+    elong = ((sk.sums[0] * ew.qqrd2e
+              + ew.e_self_traced(L[0] * L[1] * L[2])).to(acc)
+             if eflag else zero)
+    virial = (sk.sums[1:7] if vflag
+              else torch.zeros(6, dtype=acc, device=x.device))
+    return KSpaceResult(f=f, elong=elong, virial=virial)
 
 
 def ewald_compute_kernels(ew: Ewald, x: torch.Tensor, q: torch.Tensor,

@@ -20,9 +20,17 @@ p/2).  The patch form of ``_axis_weights`` evaluates the same M_p at the
 same argument on the same mesh point (its patch index plus patch_lo).
 
 The same stages serve the neighbor-list engines in atom order
-(``ik_atoms``: aid the identity, the generic mesh, the full-spectrum
+(``solve_atoms``: aid the identity, the generic mesh, the full-spectrum
 conventions at the Nyquist planes), for the static ``PPPM.compute`` and
 the variable-cell ``TracedPPPM.compute_traced``.
+
+With ad differentiation (``diff="ad"``) the spectral stage writes one
+potential spectrum (K10 ad spectral, ``spectral(..., ad=True)``), one
+irfftn gives the potential mesh, and the gather interpolates it with the
+derivative weights of each axis in turn, less the self force
+(``gather_ad``, K10 ad gather); in atom order, over the cell engine's
+slots (``CellPPPM``, the JAX half-spectrum sums) and with the box on the
+card alike.  ``slab_correct`` / ``slab_peratom`` dispatch K10 slab.
 
 Three stages, each a CUDA kernel on CUDA tensors (``ops.pppm``) and the
 plain torch version below on CPU tensors:
@@ -54,7 +62,8 @@ import numpy as np
 import torch
 
 from ...neighbor.cell_slots import SlotState
-from .pppm import PPPM, bspline_weights, spline_table, stencil_offsets
+from .pppm import (PPPM, bspline_weights, dspline_table, spline_table,
+                   stencil_offsets)
 
 # slots per chunk of the plain deposit and gather: bounds the
 # (chunk, order^3) index and value temporaries
@@ -71,44 +80,63 @@ def half_weights(nz: int) -> np.ndarray:
     return wz
 
 
+def slab_factors(pm: PPPM):
+    """(1, 1, slab) per axis: the factors of the k-space box over the
+    atoms' box (all 1 without ``kspace_modify slab``)."""
+    return (1.0, 1.0, 1.0 if pm.slab is None else float(pm.slab))
+
+
 def mesh_geometry(pm: PPPM, box=None):
     """(lo, 1/h) per axis of the mesh: ``pm``'s (host floats, 1/h by an
     f64 reciprocal), or for box = (centre, boxL) a box on the card (the
-    variable cell) lo = centre - L / 2 and 1/h = n / L in boxL's dtype,
-    the JAX package's TracedPPPM._weights order, as the kernels take it."""
+    variable cell) lo = centre - L / 2 and 1/h = n / (L f), f the slab
+    factors (``slab_factors``), in boxL's dtype, the JAX package's
+    TracedPPPM._weights order, as the kernels take it."""
     if box is None:
         return pm.box_lo, [1.0 / h for h in pm.h]
     center, boxL = box
     lo = torch.as_tensor(np.asarray(center, np.float64)).to(boxL) \
         - 0.5 * boxL
-    ih = torch.as_tensor(np.asarray(pm.grid, np.float64)).to(boxL) / boxL
+    f = torch.as_tensor(np.asarray(slab_factors(pm))).to(boxL)
+    ih = torch.as_tensor(np.asarray(pm.grid, np.float64)).to(boxL) \
+        / (boxL * f)
     return lo, ih
 
 
-def axis_weights(pm: PPPM, plane: torch.Tensor, ax: int, geo):
+def axis_weights(pm: PPPM, plane: torch.Tensor, ax: int, geo,
+                 deriv: bool = False):
     """(base (M,) int64, w (M, order)) of positions ``plane`` on mesh
     axis ``ax`` of the geometry ``geo`` (``mesh_geometry``), in the plane's
-    dtype (the JAX ``bspline_weights`` with ``mspline_horner``)."""
+    dtype (the JAX ``bspline_weights`` with ``mspline_horner``); with
+    ``deriv`` also dw/du."""
     lo, ih = geo
-    return bspline_weights((plane - lo[ax]) * ih[ax], pm.order)
+    return bspline_weights((plane - lo[ax]) * ih[ax], pm.order, deriv)
 
 
-def _stencil(pm: PPPM, state: SlotState, s0: int, s1: int, geo):
+def _outer3(a, b, c):
+    return a[:, :, None, None] * b[:, None, :, None] * c[:, None, None, :]
+
+
+def _stencil(pm: PPPM, state: SlotState, s0: int, s1: int, geo,
+             deriv: bool = False):
     """Flat wrapped mesh indices (M, p, p, p) and weights w3 (M, p, p, p)
-    of slots [s0, s1)."""
+    of slots [s0, s1); with ``deriv`` the per-axis weights and derivative
+    weights ((wx, wy, wz), (dwx, dwy, dwz)) in place of w3."""
     nx, ny, nz = pm.grid
     offs = torch.as_tensor(stencil_offsets(pm.order), device=state.x.device)
-    idx, ws = [], []
+    idx, ws, dws = [], [], []
     planes = (state.x, state.y, state.z)
     for ax, (plane, n) in enumerate(zip(planes, pm.grid)):
-        base, w = axis_weights(pm, plane[s0:s1], ax, geo)
+        base, *w = axis_weights(pm, plane[s0:s1], ax, geo, deriv)
         idx.append(torch.remainder(base[:, None] + offs, n))
-        ws.append(w)
+        ws.append(w[0])
+        if deriv:
+            dws.append(w[1])
     flat = ((idx[0][:, :, None, None] * ny + idx[1][:, None, :, None]) * nz
             + idx[2][:, None, None, :])
-    w3 = (ws[0][:, :, None, None] * ws[1][:, None, :, None]
-          * ws[2][:, None, None, :])
-    return flat, w3
+    if deriv:
+        return flat, (ws, dws)
+    return flat, _outer3(*ws)
 
 
 def deposit_plain(pm: PPPM, state: SlotState, box=None) -> torch.Tensor:
@@ -128,10 +156,12 @@ def deposit_plain(pm: PPPM, state: SlotState, box=None) -> torch.Tensor:
 
 
 def spectral_plain(consts: dict, rhat: torch.Tensor, eflag: bool,
-                   vflag: bool):
+                   vflag: bool, ad: bool = False):
     """Half-spectrum solve: (ehat (3, nx, ny, nzh) complex, esum, vsum)
     with esum = sum(ek) and vsum the six sums of ek (delta_ab - pref k_a
-    k_b), ek = G |rho_hat|^2 wz (zeros without eflag / vflag).
+    k_b), ek = G |rho_hat|^2 wz (zeros without eflag / vflag).  With
+    ``ad`` (K10 ad spectral) the one potential spectrum phi_hat = G rho_hat
+    (nx, ny, nzh) in place of ehat, the sums the same.
 
     consts["nyquist"] (the variable-cell solver): the full-spectrum
     conventions of the JAX package's TracedPPPM at the Nyquist planes of
@@ -156,8 +186,8 @@ def spectral_plain(consts: dict, rhat: torch.Tensor, eflag: bool,
             if n % 2 == 0:
                 nyq[a].select(a, n // 2).fill_(True)
                 ke[a] = torch.where(nyq[a], torch.zeros_like(ke[a]), ke[a])
-    ehat = torch.stack([torch.complex(k * phi.imag, -(k * phi.real))
-                        for k in ke])
+    ehat = phi if ad else torch.stack(
+        [torch.complex(k * phi.imag, -(k * phi.real)) for k in ke])
     acc = G.dtype
     esum = torch.zeros((), dtype=acc, device=G.device)
     vsum = torch.zeros(6, dtype=acc, device=G.device)
@@ -203,6 +233,40 @@ def gather_plain(pm: PPPM, state: SlotState, e_mesh: torch.Tensor,
     return tuple(f * qf for f in out)
 
 
+def gather_ad_plain(pm: PPPM, state: SlotState, u_mesh: torch.Tensor,
+                    acc_dtype, sf: torch.Tensor, box=None):
+    """Per-slot ad forces (fx, fy, fz) in acc (K10 ad gather, the JAX
+    ``_pppm_compute_ad`` gather and ``CellPPPM`` ad): the potential mesh
+    (nx, ny, nz) interpolated with the derivative weight of each axis in
+    turn, f_a = -q qqrd2e sum (dw_a w w) u / h_a, less the self force q^2
+    qqrd2e sum_j sf[a, j] sin(2 pi (j + 1) u_a) (``sf`` (3, J) in acc;
+    ``box`` as in ``mesh_geometry``).  Empty slots carry q = 0, which
+    gives 0."""
+    ns = state.x.shape[0]
+    flat_u = u_mesh.reshape(-1)
+    out = [torch.empty(ns, dtype=acc_dtype, device=state.x.device)
+           for _ in range(3)]
+    geo = mesh_geometry(pm, box)
+    ih = geo[1]
+    for s0 in range(0, ns, _CHUNK):
+        s1 = min(ns, s0 + _CHUNK)
+        flat, (w, dw) = _stencil(pm, state, s0, s1, geo, deriv=True)
+        uv = flat_u[flat]
+        for a in range(3):
+            f3 = [dw[b] if b == a else w[b] for b in range(3)]
+            e = (_outer3(*f3) * uv).to(acc_dtype).sum((1, 2, 3))
+            out[a][s0:s1] = -(e * ih[a])
+    from .pppm import sf_axis_series
+
+    q = state.q
+    qf = (pm.qqrd2e * q).to(acc_dtype)
+    q2 = (pm.qqrd2e * q * q).to(acc_dtype)
+    planes = (state.x, state.y, state.z)
+    return tuple(out[a] * qf - q2 * sf_axis_series(pm, planes[a], a, sf,
+                                                    geo).to(acc_dtype)
+                 for a in range(3))
+
+
 def _device_kind(t: torch.Tensor) -> str:
     if t.is_cuda:
         return "cuda"
@@ -224,13 +288,15 @@ def deposit(pm: PPPM, state: SlotState, n_atoms: int, consts: dict,
     return deposit_plain(pm, state, box)
 
 
-def spectral(consts: dict, rhat: torch.Tensor, eflag: bool, vflag: bool):
-    """Half-spectrum solve (see ``spectral_plain``)."""
+def spectral(consts: dict, rhat: torch.Tensor, eflag: bool, vflag: bool,
+             ad: bool = False):
+    """Half-spectrum solve (see ``spectral_plain``): K7, or with ``ad``
+    K10 ad spectral, on CUDA spectra."""
     if _device_kind(rhat) == "cuda":
         from ...ops import pppm as pppm_ops
 
-        return pppm_ops.spectral(consts, rhat, eflag or vflag)
-    return spectral_plain(consts, rhat, eflag, vflag)
+        return pppm_ops.spectral(consts, rhat, eflag or vflag, ad)
+    return spectral_plain(consts, rhat, eflag, vflag, ad)
 
 
 def gather(pm: PPPM, state: SlotState, e_mesh: torch.Tensor, n_atoms: int,
@@ -245,6 +311,57 @@ def gather(pm: PPPM, state: SlotState, e_mesh: torch.Tensor, n_atoms: int,
     return gather_plain(pm, state, e_mesh, acc_dtype, box)
 
 
+def gather_ad(pm: PPPM, state: SlotState, u_mesh: torch.Tensor,
+              n_atoms: int, acc_dtype, consts: dict, sf: torch.Tensor,
+              box=None):
+    """Per-slot ad forces (see ``gather_ad_plain``): the K10 ad gather on
+    CUDA planes (consts: ``coef`` and ``dcoef``, the flt piece tables)."""
+    if _device_kind(state.x) == "cuda":
+        from ...ops import pppm as pppm_ops
+
+        return pppm_ops.gather_ad(pm, state, u_mesh, n_atoms, acc_dtype,
+                                  consts["coef"], consts["dcoef"], sf, box)
+    return gather_ad_plain(pm, state, u_mesh, acc_dtype, sf, box)
+
+
+def slab_correct(pm: PPPM, z: torch.Tensor, q: torch.Tensor,
+                 fz: torch.Tensor, eflag: bool, boxL=None) -> torch.Tensor:
+    """The slab term (``pppm.slab_correction_plain``): adds fz_i to the acc
+    plane ``fz`` in place and returns e_slab (0-d acc; 0 without eflag).
+    boxL: the atoms' box lengths on the card (a variable cell; the
+    extended volume and z length follow from it and ``pm.slab``), else
+    ``pm``'s.  K10 slab on CUDA planes, the plain version on CPU ones."""
+    if _device_kind(z) == "cuda":
+        from ...ops import pppm as pppm_ops
+
+        return pppm_ops.slab(pm, z, q, fz, eflag, boxL)
+    from .pppm import slab_correction_plain
+
+    V = zprd = None
+    if boxL is not None:
+        L = boxL.to(pm.acc_dtype) * torch.as_tensor(
+            np.asarray(slab_factors(pm))).to(boxL.device, pm.acc_dtype)
+        V, zprd = L[0] * L[1] * L[2], L[2]
+    e, f = slab_correction_plain(pm, z, q, eflag, V, zprd)
+    fz.add_(f)
+    return e
+
+
+def slab_peratom(pm: PPPM, z: torch.Tensor, q: torch.Tensor,
+                 eatom: torch.Tensor) -> torch.Tensor:
+    """eatom plus each atom's share of the slab energy
+    (``pppm.slab_peratom_plain``): K10 slab's per-atom form on CUDA planes
+    (in place), the plain version on CPU ones."""
+    if _device_kind(z) == "cuda":
+        from ...ops import pppm as pppm_ops
+
+        pppm_ops.slab_peratom(pm, z, q, eatom)
+        return eatom
+    from .pppm import slab_peratom_plain
+
+    return eatom + slab_peratom_plain(pm, z, q)
+
+
 class AtomPlanes(NamedTuple):
     """Atom-order planes in the shape the PPPM stages read (aid is the
     identity, so every atom counts; the plain versions do not read it)."""
@@ -255,22 +372,26 @@ class AtomPlanes(NamedTuple):
     aid: torch.Tensor
 
 
-def ik_atoms(pm: PPPM, x: torch.Tensor, q: torch.Tensor, consts: dict,
-             G_half: torch.Tensor, k3, V, box, eflag: bool, vflag: bool):
-    """The atom-order ik pipeline of the neighbor-list engines: deposit,
+def solve_atoms(pm: PPPM, x: torch.Tensor, q: torch.Tensor, consts: dict,
+                G_half: torch.Tensor, k3, V, box, eflag: bool, vflag: bool,
+                sf=None):
+    """The atom-order pipeline of the neighbor-list engines: deposit,
     rfftn, the half-spectrum solve with the full-spectrum conventions at
-    the Nyquist planes (``nyquist``), irfftn, gather.  Returns ((fx, fy,
-    fz) acc, ek, virial): ek = (0.5 / V) sum G |rho_hat|^2 qqrd2e (None
-    without eflag; elong less the self and background terms), the
-    6-virial (zeros without eflag or vflag), equal to the JAX package's
-    full-spectrum sums.
+    the Nyquist planes (``nyquist``), then by ``pm.diff`` either ik (three
+    spectra, one batched irfftn, the gather) or ad (one potential spectrum,
+    one irfftn, the derivative-weight gather less the self force).
+    Returns ((fx, fy, fz) acc, ek, virial): ek = (0.5 / V) sum G
+    |rho_hat|^2 qqrd2e (None without eflag; elong less the self and
+    background terms), the 6-virial (zeros without eflag or vflag), equal
+    to the JAX package's full-spectrum sums.
 
     x: (3, N) positions, q (N,) charges; consts: ``coef`` (the flt spline
-    table) and ``wz`` (acc half weights), and an ``aid`` identity plane
-    kept there; G_half: the (nx, ny, nz // 2 + 1) acc influence function;
-    k3: the wave vectors on the half spectrum; V: the volume (a float or a
-    0-d acc tensor); box: None (the mesh of ``pm``: box_lo, h) or
-    (centre, boxL) for a box on the card."""
+    table), ``wz`` (acc half weights), with ad ``dcoef`` (the flt
+    derivative table), and an ``aid`` identity plane kept there; G_half:
+    the (nx, ny, nz // 2 + 1) acc influence function; k3: the wave vectors
+    on the half spectrum; V: the volume (a float or a 0-d acc tensor);
+    box: None (the mesh of ``pm``: box_lo, h) or (centre, boxL) for a box
+    on the card; sf: the ad self-force series (3, J) in acc."""
     acc, flt, dev = pm.acc_dtype, x.dtype, x.device
     n = x.shape[1]
     aid = consts.get("aid")
@@ -279,6 +400,7 @@ def ik_atoms(pm: PPPM, x: torch.Tensor, q: torch.Tensor, consts: dict,
     planes = AtomPlanes(x[0], x[1], x[2], q, aid)
     nx, ny, nz = pm.grid
     g = float(pm.g_ewald)
+    ad = pm.diff == "ad"
 
     mesh = deposit(pm, planes, n, consts, box)
     rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
@@ -287,13 +409,18 @@ def ik_atoms(pm: PPPM, x: torch.Tensor, q: torch.Tensor, consts: dict,
         ksq = k3[0] * k3[0] + k3[1] * k3[1] + k3[2] * k3[2]
         ksq_safe = torch.where(ksq == 0.0, torch.ones_like(ksq), ksq)
         sc["pref"] = 2.0 * (1.0 / ksq_safe + 0.25 / g ** 2)
-    ehat, esum, vsum = spectral(sc, rhat, eflag, vflag)
+    spec, esum, vsum = spectral(sc, rhat, eflag, vflag, ad)
     qqrd2e = float(pm.qqrd2e)
     ek = (0.5 / V) * esum * qqrd2e if eflag else None
     virial = vsum * ((0.5 / V) * qqrd2e)
-    e_mesh = (torch.fft.irfftn(ehat, s=pm.grid, dim=(1, 2, 3))
-              * ((1.0 / V) * (nx * ny * nz))).to(flt).contiguous()
-    f = gather(pm, planes, e_mesh, n, acc, consts, box)
+    if ad:
+        u = (torch.fft.irfftn(spec, s=pm.grid) * ((nx * ny * nz) / V)
+             ).to(flt).contiguous()
+        f = gather_ad(pm, planes, u, n, acc, consts, sf, box)
+    else:
+        e_mesh = (torch.fft.irfftn(spec, s=pm.grid, dim=(1, 2, 3))
+                  * ((1.0 / V) * (nx * ny * nz))).to(flt).contiguous()
+        f = gather(pm, planes, e_mesh, n, acc, consts, box)
     return f, ek, virial
 
 
@@ -318,7 +445,8 @@ class CellPPPM:
     def consts(self, device, flt, acc) -> dict:
         """Device constants of the mesh: G and the wave vectors on the
         half spectrum, wz, the virial prefactor (acc), the spline piece
-        table (flt)."""
+        table (flt); with ad the derivative piece table (flt) and the
+        self-force series sf (acc)."""
         key = (torch.device(device), flt, acc)
         c = self._consts.get(key)
         if c is not None:
@@ -338,10 +466,19 @@ class CellPPPM:
             pref=2.0 * (1.0 / ksq_safe + 0.25 / pm.g_ewald**2),
             g_ewald=float(pm.g_ewald),
             coef=up(spline_table(pm.order), flt).view(-1))
+        if pm.diff == "ad":
+            c["dcoef"] = up(dspline_table(pm.order), flt).view(-1)
+            c["sf"] = up(pm.sf_sine, acc)
         self._consts[key] = c
         return c
 
     def compute_slots(self, state: SlotState, eflag: bool, vflag: bool):
+        """(fx, fy, fz, elong, virial) in acc and slot order.  ik: the
+        spectral kernel's three spectra, one batched irfftn, the ik gather.
+        ad (the JAX ``CellPPPM`` ad, pppm_cells.py:936-995): K10 ad
+        spectral on the half spectrum (the JAX half-spectrum sums, no
+        Nyquist conventions), one irfftn, the K10 ad gather over the slots
+        with their aid (empty slots 0), the self force subtracted there."""
         pm = self.pm
         acc = pm.acc_dtype
         flt = state.x.dtype
@@ -354,16 +491,23 @@ class CellPPPM:
         # cuFFT may hand back permuted strides; the kernels take dense
         # row-major meshes (a copy only where the layout differs)
         rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
-        ehat, esum, vsum = spectral(consts, rhat, eflag, vflag)
+        ad = pm.diff == "ad"
+        spec, esum, vsum = spectral(consts, rhat, eflag, vflag, ad)
         qqrd2e = float(pm.qqrd2e)
         zero = torch.zeros((), dtype=acc, device=state.x.device)
         elong = ((0.5 / V) * esum * qqrd2e + pm.elong_self) if eflag \
             else zero
         virial = (vsum * ((0.5 / V) * qqrd2e) if vflag
                   else torch.zeros(6, dtype=acc, device=state.x.device))
-        e_mesh = (torch.fft.irfftn(ehat, s=pm.grid, dim=(1, 2, 3))
-                  * ((1.0 / V) * ngrid)).to(flt).contiguous()
-        fx, fy, fz = gather(pm, state, e_mesh, n, acc, consts)
+        if ad:
+            u = (torch.fft.irfftn(spec, s=pm.grid) * ((1.0 / V) * ngrid)
+                 ).to(flt).contiguous()
+            fx, fy, fz = gather_ad(pm, state, u, n, acc, consts,
+                                   consts["sf"])
+        else:
+            e_mesh = (torch.fft.irfftn(spec, s=pm.grid, dim=(1, 2, 3))
+                      * ((1.0 / V) * ngrid)).to(flt).contiguous()
+            fx, fy, fz = gather(pm, state, e_mesh, n, acc, consts)
         return fx, fy, fz, elong, virial
 
     def compute_peratom_slots(self, state: SlotState, plain: bool = False):

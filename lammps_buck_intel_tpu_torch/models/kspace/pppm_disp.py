@@ -46,7 +46,7 @@ pass (K12c, ``disp_gather``); on CPU planes ``disp_compute_plain``.  The
 cell engine's geometric form is ``pppm_cells.CellPPPMDisp``; its
 arithmetic and no-mix decks, and every pppm/disp deck of the
 neighbor-list engine, run ``compute_rows`` through ``base.BoundKSpace``.
-``diff ad`` is not ported (item 10).
+``diff ad`` is not ported (item 10, the dispersion ad: the next slice).
 """
 from __future__ import annotations
 
@@ -301,8 +301,9 @@ def setup_pppm_disp(
     ``grid_min``)."""
     if diff != "ik":
         raise NotImplementedError(
-            f"pppm/disp diff {diff!r} is not ported (ik only): ROADMAP "
-            "queue 1 item 10")
+            f"pppm/disp diff {diff!r} is not ported (ik only; the "
+            "multi-channel ad gather, K10 disp ad): ROADMAP queue 1 item "
+            "10, the dispersion ad, the next slice")
     if box.is_triclinic:
         raise NotImplementedError(
             "triclinic pppm/disp is not ported: ROADMAP queue 1 item 14")

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels: build, ctypes binding and launch wrappers.
 
 ``cellpair`` (csrc/cellpair.cu), ``rebin`` (csrc/rebin.cu), ``pppm``
-(csrc/pppm.cu: deposit, spectral, gather, and the per-atom spectral and
-gather, the latter also in slot order), ``bonded`` (csrc/bonded.cu: bonds
+(csrc/pppm.cu: deposit, spectral, gather, the ad spectral and gather, the
+slab term, and the per-atom spectral and gather, the latter also in slot
+order), ``bonded`` (csrc/bonded.cu: bonds
 and angles, dihedrals, impropers, and the per-atom tallies of all four),
 ``verlet``
 (csrc/verlet.cu: kick and drift, kick with the force sum, kinetic sums,
@@ -13,10 +14,11 @@ pass over the list and its per-atom variant), ``npt`` (csrc/npt.cu: the
 traced influence function, the per-axis kinetic sums, the barostat's
 velocity scale and kick, the drift with the box dilation), ``ewald``
 (csrc/ewald.cu: the structure factors with the energy and virial, the
-forces, the per-atom energy and virial), ``pppm_disp``
-(csrc/pppm_disp.cu: the multi-channel dispersion deposit, the dispersion
-half-spectrum solve, the multi-channel ik gather, the per-atom spectra and
-the per-atom gather, the latter also in slot order) and ``rigid``
+forces, the per-atom energy and virial, the tables of a box on the card),
+``pppm_disp`` (csrc/pppm_disp.cu: the multi-channel dispersion deposit,
+the dispersion half-spectrum solve, the multi-channel ik gather, the
+per-atom spectra and the per-atom gather, the latter also in slot order)
+and ``rigid``
 (csrc/rigid.cu: the rigid bodies' force and torque sums, their update
 with the atoms' positions or velocities, the constraint virial) wrap one
 kernel library each.
@@ -32,7 +34,8 @@ from __future__ import annotations
 LAUNCHES = {"cellpair": 0, "rebin_incremental": 0, "rebin": 0,
             "pppm_deposit": 0, "pppm_spectral": 0, "pppm_gather": 0,
             "pppm_peratom_spectral": 0, "pppm_peratom_gather": 0,
-            "pppm_peratom_slots": 0,
+            "pppm_peratom_slots": 0, "pppm_ad_spectral": 0,
+            "pppm_gather_ad": 0, "pppm_slab": 0, "ewald_traced": 0,
             "bonded_bond_angle": 0, "dihedral_charmm": 0,
             "improper_harmonic": 0, "bonded_peratom": 0,
             "verlet_kick_drift": 0, "verlet_kick": 0, "verlet_ke": 0,

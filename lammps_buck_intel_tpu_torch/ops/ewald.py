@@ -1,5 +1,7 @@
 """Launch wrappers of the Ewald kernels (csrc/ewald.cu): K11a ``ewald_sk``,
-K11b ``ewald_force`` and K11pa ``ewald_peratom``.
+K11b ``ewald_force``, K11pa ``ewald_peratom`` and K11 traced
+``ewald_traced`` (the tables of a box on the card; its plain version is
+``models.kspace.ewald.traced_tables_plain``).
 
 The plain version of the pair is ``models.kspace.ewald.
 ewald_compute_plain``, of K11pa (after K11a)
@@ -45,8 +47,9 @@ def _lib():
                                     + [_I, _I, _D] + [_P] * 5)
         lib.ewald_peratom.argtypes = ([_I] + [_P] * 4 + [_I] + [_P] * 6
                                       + [_I, _I] + [_D] * 4 + [_P] * 4)
+        lib.ewald_traced.argtypes = [_I, _P, _I, _P, _D] + [_P] * 5
         for fn in (lib.ewald_sum_rows, lib.ewald_sk, lib.ewald_force,
-                   lib.ewald_peratom):
+                   lib.ewald_peratom, lib.ewald_traced):
             fn.restype = _I
     return lib
 
@@ -159,3 +162,34 @@ def ewald_peratom(xs, q, c: dict, s_re: torch.Tensor, s_im: torch.Tensor,
             f"ewald_peratom kernel launch failed: CUDA error {rc}")
     LAUNCHES["ewald_peratom"] += 1
     return eatom, vatom
+
+
+def ewald_traced(m_rows: torch.Tensor, boxL: torch.Tensor, g_ewald: float,
+                 acc_dtype) -> dict:
+    """K11 traced: the tables K11a and K11b read, for the box lengths boxL
+    (3,) on the card and the fixed m triples m_rows (3, K) (both flt):
+    {"kv_rows" (3, K) flt, "ug" (K,) flt, "ug_acc" (K,) acc, "vfac" (6,
+    K) acc}."""
+    dev, flt = m_rows.device, m_rows.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"ewald kernels need CUDA tensors, got {dev}")
+    prec = _PREC.get((flt, acc_dtype))
+    if prec is None:
+        raise TypeError(f"unsupported (flt, acc) = ({flt}, {acc_dtype})")
+    K = m_rows.shape[1]
+    if m_rows.shape != (3, K) or not m_rows.is_contiguous():
+        raise ValueError(f"m_rows has shape {tuple(m_rows.shape)}")
+    check_plane(boxL, "boxL", flt, 3, dev)
+    kv = torch.empty((3, K), dtype=flt, device=dev)
+    ug = torch.empty(K, dtype=flt, device=dev)
+    ug_acc = torch.empty(K, dtype=acc_dtype, device=dev)
+    vfac = torch.empty((6, K), dtype=acc_dtype, device=dev)
+    rc = _lib().ewald_traced(prec, m_rows.data_ptr(), K, boxL.data_ptr(),
+                             float(g_ewald) ** 2, kv.data_ptr(),
+                             ug.data_ptr(), ug_acc.data_ptr(),
+                             vfac.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"ewald_traced kernel launch failed: CUDA error {rc}")
+    LAUNCHES["ewald_traced"] += 1
+    return dict(kv_rows=kv, ug=ug, ug_acc=ug_acc, vfac=vfac)

@@ -1,12 +1,13 @@
 """Launch wrappers of the PPPM kernels (csrc/pppm.cu).
 
 The plain versions of the same functions are ``deposit_plain``,
-``spectral_plain`` and ``gather_plain`` in
-``models.kspace.pppm_cells``, and ``peratom_spectral_plain`` and
-``peratom_gather_plain`` in ``models.kspace.pppm`` (K10pa, the per-atom
-energy and virial; in slot order K18 slots).  The FFTs around the spectral
-kernels stay ``torch.fft`` (cuFFT) calls in ``CellPPPM.compute_slots`` and
-``pppm.compute_peratom``.
+``spectral_plain`` (with ``ad`` for K10 ad spectral), ``gather_plain`` and
+``gather_ad_plain`` (K10 ad gather) in ``models.kspace.pppm_cells``, and
+``peratom_spectral_plain``, ``peratom_gather_plain`` (K10pa, the per-atom
+energy and virial; in slot order K18 slots), ``slab_correction_plain``
+and ``slab_peratom_plain`` (K10 slab) in ``models.kspace.pppm``.  The FFTs
+around the spectral kernels stay ``torch.fft`` (cuFFT) calls in
+``CellPPPM.compute_slots`` and ``pppm.compute_peratom``.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ def _lib():
         lib.pppm_gather.argtypes = ([_I] + slot_args
                                     + [_P, _D, _P, _P, _P, _P])
         lib.pppm_gather.restype = _I
-        lib.pppm_spectral.argtypes = ([_I, _I] + [_P] * 6 + [_I] * 3
+        lib.pppm_spectral.argtypes = ([_I] * 3 + [_P] * 6 + [_I] * 3
                                       + [_D, _I, _P, _P, _I, _P])
         lib.pppm_spectral.restype = _I
         lib.pppm_threads.argtypes = []
@@ -51,6 +52,15 @@ def _lib():
                                             + [_P, _P] + [_D] * 5
                                             + [_P] * 3)
         lib.pppm_peratom_gather.restype = _I
+        lib.pppm_gather_ad.argtypes = ([_I] + [_P] * 5 + [_I] * 2
+                                       + [_D] * 6 + [_I] * 4 + [_P] * 4
+                                       + [_D, _P, _I] + [_P] * 4)
+        lib.pppm_gather_ad.restype = _I
+        lib.pppm_slab_parts.argtypes = [_I, _I]
+        lib.pppm_slab_parts.restype = _I
+        lib.pppm_slab.argtypes = ([_I, _P, _P, _I] + [_D] * 4
+                                  + [_P, _D] + [_P] * 4 + [_I, _P])
+        lib.pppm_slab.restype = _I
     return lib
 
 
@@ -81,9 +91,13 @@ def _slot_args(pm, state, n_atoms: int, coef: torch.Tensor, box=None):
                *(1.0 / float(h) for h in pm.h)]
         box_ptr = None
     else:
+        # the kernels take lo from the centre and 1/h = n / (L f) with f
+        # the k-space box's factors (1, 1, slab) in the 1/h slots
+        from ..models.kspace.pppm_cells import slab_factors
+
         center, boxL = box
         check_plane(boxL, "boxL", flt, 3, dev)
-        geo = [*(float(v) for v in center), 1.0, 1.0, 1.0]
+        geo = [*(float(v) for v in center), *slab_factors(pm)]
         box_ptr = boxL.data_ptr()
     return [state.x.data_ptr(), state.y.data_ptr(), state.z.data_ptr(),
             state.q.data_ptr(), state.aid.data_ptr(), ns, n_atoms, *geo,
@@ -106,43 +120,29 @@ def deposit(pm, state, n_atoms: int, coef: torch.Tensor,
     return mesh.view(nx, ny, nz)
 
 
-def spectral(consts: dict, rhat: torch.Tensor, ev: bool):
+def spectral(consts: dict, rhat: torch.Tensor, ev: bool, ad: bool = False):
     """(ehat (3, nx, ny, nzh) complex, esum, vsum (6,)) on the card; the
     sums are zeros without ``ev``.  consts["nyquist"] (default False):
     the full-spectrum conventions at the Nyquist planes (see
-    ``pppm_cells.spectral_plain``)."""
-    G = consts["G"]
-    acc = G.dtype
-    dev = rhat.device
-    if dev.type != "cuda":
-        raise ValueError(f"pppm kernel needs CUDA tensors, got {dev}")
-    if acc not in _FLT or rhat.dtype != _COMPLEX[acc]:
-        raise TypeError(f"spectral: rhat {rhat.dtype} with G {acc}")
-    nx, ny, nzh = G.shape
-    if tuple(rhat.shape) != (nx, ny, nzh) or not rhat.is_contiguous():
-        raise ValueError(f"rhat has shape {tuple(rhat.shape)}, expected "
-                         f"contiguous {(nx, ny, nzh)}")
-    kx, ky, kz = (k.view(-1) for k in consts["k3"])
-    wz = consts["wz"].view(-1)
-    for name, t, size in (("G", G.view(-1), nx * ny * nzh), ("kx", kx, nx),
-                          ("ky", ky, ny), ("kz", kz, nzh), ("wz", wz, nzh)):
-        check_plane(t, name, acc, size, dev)
-    lib = _lib()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblocks = min(_SPECTRAL_BLOCKS_PER_SM * sms,
-                  -(-(nx * ny * nzh) // lib.pppm_threads()))
-    ehat = torch.empty((3, nx, ny, nzh), dtype=rhat.dtype, device=dev)
+    ``pppm_cells.spectral_plain``).  ``ad``: K10 ad spectral, one potential
+    spectrum phi_hat (nx, ny, nzh) in place of ehat, its own launch count
+    (the plain version is ``spectral_plain(..., ad=True)``)."""
+    ins, (nx, ny, nzh), nblocks = _spectral_inputs(consts, rhat, "G")
+    acc, dev = ins[0].dtype, rhat.device
+    ehat = torch.empty((nx, ny, nzh) if ad else (3, nx, ny, nzh),
+                       dtype=rhat.dtype, device=dev)
     partial = (torch.empty((nblocks, 7), dtype=acc, device=dev) if ev
                else None)
     g = consts["g_ewald"]
-    rc = lib.pppm_spectral(
-        _FLT[acc], int(ev), rhat.data_ptr(), G.data_ptr(), kx.data_ptr(),
-        ky.data_ptr(), kz.data_ptr(), wz.data_ptr(), nx, ny, nzh,
+    key = "pppm_ad_spectral" if ad else "pppm_spectral"
+    rc = _lib().pppm_spectral(
+        _FLT[acc], int(ev), int(ad), rhat.data_ptr(),
+        *(t.data_ptr() for t in ins), nx, ny, nzh,
         0.25 / g**2, int(consts.get("nyquist", False)), ehat.data_ptr(),
         partial.data_ptr() if ev else None, nblocks, _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"pppm spectral launch failed: CUDA error {rc}")
-    LAUNCHES["pppm_spectral"] += 1
+        raise RuntimeError(f"{key} launch failed: CUDA error {rc}")
+    LAUNCHES[key] += 1
     if not ev:
         zero = torch.zeros(7, dtype=acc, device=dev)
         return ehat, zero[0], zero[1:]
@@ -174,6 +174,91 @@ def gather(pm, state, e_mesh: torch.Tensor, n_atoms: int, acc_dtype,
         raise RuntimeError(f"pppm gather launch failed: CUDA error {rc}")
     LAUNCHES["pppm_gather"] += 1
     return fx, fy, fz
+
+
+def gather_ad(pm, state, u_mesh: torch.Tensor, n_atoms: int, acc_dtype,
+              coef: torch.Tensor, dcoef: torch.Tensor, sf: torch.Tensor,
+              box=None):
+    """K10 ad gather: per-slot ad forces (fx, fy, fz) in acc on the card
+    (``pppm_cells.gather_ad_plain``), from the flt potential mesh; sf the
+    (3, J) acc self-force series; ``box`` as in ``_slot_args``."""
+    args = _slot_args(pm, state, n_atoms, coef, box)
+    dev = state.x.device
+    flt = state.x.dtype
+    prec = _PAIR.get((flt, acc_dtype))
+    if prec is None:
+        raise TypeError(f"unsupported (flt, acc) = ({flt}, {acc_dtype})")
+    p = pm.order
+    check_plane(dcoef, "dcoef", flt, p * p, dev)
+    nx, ny, nz = pm.grid
+    if not u_mesh.is_contiguous():
+        raise ValueError("u_mesh is not contiguous")
+    check_plane(u_mesh.view(-1), "u_mesh", flt, nx * ny * nz, dev)
+    if sf.dim() != 2 or sf.shape[0] != 3 or not sf.is_contiguous():
+        raise ValueError(f"sf has shape {tuple(sf.shape)}, expected (3, J)")
+    check_plane(sf.view(-1), "sf", acc_dtype, sf.numel(), dev)
+    ns = state.x.shape[0]
+    fx, fy, fz = (torch.empty(ns, dtype=acc_dtype, device=dev)
+                  for _ in range(3))
+    # _slot_args ends with (coef, box); the kernel takes dcoef between them
+    rc = _lib().pppm_gather_ad(
+        prec, *args[:-1], dcoef.data_ptr(), args[-1], u_mesh.data_ptr(),
+        float(pm.qqrd2e), sf.data_ptr(), int(sf.shape[1]), fx.data_ptr(),
+        fy.data_ptr(), fz.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"pppm gather_ad launch failed: CUDA error {rc}")
+    LAUNCHES["pppm_gather_ad"] += 1
+    return fx, fy, fz
+
+
+def _slab_launch(pm, z: torch.Tensor, q: torch.Tensor, fz, eatom, e_out,
+                 boxL):
+    dev, flt, acc = z.device, z.dtype, pm.acc_dtype
+    if dev.type != "cuda":
+        raise ValueError(f"pppm kernel needs CUDA tensors, got {dev}")
+    prec = _PAIR.get((flt, acc))
+    if prec is None:
+        raise TypeError(f"unsupported (flt, acc) = ({flt}, {acc})")
+    n = z.shape[0]
+    check_plane(z, "z", flt, n, dev)
+    check_plane(q, "q", flt, n, dev)
+    for t, name in ((fz, "fz"), (eatom, "eatom")):
+        if t is not None:
+            check_plane(t, name, acc, n, dev)
+    if boxL is not None:
+        check_plane(boxL, "boxL", flt, 3, dev)
+    lib = _lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nparts = lib.pppm_slab_parts(n, sms)
+    partial = torch.empty((nparts, 2), dtype=acc, device=dev)
+    rc = lib.pppm_slab(
+        prec, z.data_ptr(), q.data_ptr(), n, float(pm.qsum),
+        float(pm.qqrd2e), float(pm.volume), float(pm.h[2] * pm.grid[2]),
+        None if boxL is None else boxL.data_ptr(), float(pm.slab),
+        None if fz is None else fz.data_ptr(),
+        None if eatom is None else eatom.data_ptr(),
+        None if e_out is None else e_out.data_ptr(), partial.data_ptr(),
+        nparts, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"pppm slab launch failed: CUDA error {rc}")
+    LAUNCHES["pppm_slab"] += 1
+
+
+def slab(pm, z: torch.Tensor, q: torch.Tensor, fz: torch.Tensor,
+         eflag: bool, boxL=None) -> torch.Tensor:
+    """K10 slab: adds the slab z force to the acc plane ``fz`` in place and
+    returns e_slab (0-d acc, 0 without eflag) on the card
+    (``pppm.slab_correction_plain``); boxL: the atoms' box on the card (the
+    extended V and zprd follow with ``pm.slab``), else ``pm``'s."""
+    e = torch.zeros(1, dtype=pm.acc_dtype, device=z.device)
+    _slab_launch(pm, z, q, fz, None, e if eflag else None, boxL)
+    return e[0]
+
+
+def slab_peratom(pm, z: torch.Tensor, q: torch.Tensor, eatom: torch.Tensor):
+    """K10 slab's per-atom form: adds each atom's share of the slab energy
+    to the acc plane ``eatom`` in place (``pppm.slab_peratom_plain``)."""
+    _slab_launch(pm, z, q, None, eatom, None, None)
 
 
 def _spectral_inputs(consts: dict, rhat: torch.Tensor, G_key: str):

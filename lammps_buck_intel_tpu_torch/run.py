@@ -13,14 +13,18 @@ cell-engine deck whose box holds fewer than 3 cells on an axis.  Whatever
 choice), ``fix npt`` (iso, aniso or per-axis x/y/z, mtk, pchain, tchain;
 with or without ``fix shake``) runs on the neighbor-list NPT engine
 (``integrate.npt.NPTSimulation``) with the variable-cell PPPM
-(``pppm_npt.TracedPPPM``) on the generic mesh of the deck's box.  Atoms: a
+(``pppm_npt.TracedPPPM``) on the generic mesh of the deck's box, or the
+variable-cell Ewald sum (``Ewald.compute_traced``).  Atoms: a
 lattice built with ``create_atoms`` or atoms read with ``read_data`` (atom
 style charge or full, optionally ``replicate``d); ``pair_style buck``,
 ``buck/coul/cut``, ``lj/cut``, ``lj/cut/coul/cut`` or
 ``lj/charmm/coul/cut`` without k-space, or ``buck/coul/long`` /
 ``lj/cut/coul/long`` / ``lj/charmm/coul/long`` with ``kspace_style
-pppm`` (ik) or ``kspace_style ewald`` (``models.kspace.ewald``, on the
-neighbor-list ``Simulation`` only); ``lj/long/coul/long`` (``coul: off``
+pppm`` (``diff`` ik or ad; ``slab``, kspace_modify slab, which the cell
+engine runs as the generic z-extended PPPM on its slot positions; ``grid``,
+kspace_modify mesh, on the neighbor-list engine: the cell engine sizes its
+own mesh) or ``kspace_style ewald`` (``models.kspace.ewald``; the cell
+engine runs it on its slot positions); ``lj/long/coul/long`` (``coul: off``
 or coul long) and ``buck/long/coul/long`` with ``kspace_style pppm/disp``
 (ik; ``mix`` geometric, arithmetic or none), built as the JAX package
 builds it: a Coulomb ``PPPM`` on the generic mesh when the style has
@@ -34,7 +38,10 @@ per molecule, on the cell engine) and ``exclude_intra``;
 ``special_bonds``, harmonic bonds, harmonic or CHARMM angles, CHARMM
 dihedrals and harmonic impropers (examples/decks/buck.yaml,
 buck_small.yaml, buck_big.yaml, cristobalite_pppm.yaml,
-cristobalite_pppm_nlist.yaml, cristobalite_ewald.yaml,
+cristobalite_pppm_nlist.yaml, cristobalite_pppm_ad.yaml,
+cristobalite_pppm_ad_nlist.yaml, cristobalite_slab.yaml,
+cristobalite_ewald.yaml, cristobalite_ewald_cell.yaml,
+cristobalite_ewald_npt.yaml, rhodo_npt_ad.yaml,
 cristobalite_coul_cut.yaml, cristobalite_buck_long.yaml,
 cristobalite_buck_long_nlist.yaml, rhodo_nve.yaml, rhodo_nve_nlist.yaml,
 rhodo_32k.yaml, rhodo_class.yaml, rhodo_flex_nve.yaml,
@@ -97,20 +104,15 @@ _UNPORTED_FIXES = {
 _UNPORTED_ENGINES = {"slab": "item 16 (the multi-device slab engine)"}
 # fix npt keywords of a tilted (triclinic) barostat
 _NPT_TILT_KEYS = {"tri", "xy", "xz", "yz"}
-# kspace_style pieces the port refuses, by ROADMAP queue 1 item
-_KSPACE_UNPORTED = {
-    "diff": "item 10 (pppm diff ad, K10)",
-    "slab": "item 10 (kspace_modify slab, K10)",
-    "grid": "item 10 (kspace_modify mesh)",
-}
 # bonded styles whose formula the kernels hard-code
 _BONDED_STYLES = {"bond": {"harmonic"}, "angle": {"harmonic", "charmm"},
                   "dihedral": {"charmm"}, "improper": {"harmonic"}}
 _SPECIAL_SETS = {"charmm": ([0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
                  "amber": ([0.0, 0.0, 0.5], [0.0, 0.0, 1.0 / 1.2])}
-# kspace_style keys the port reads, by style; "grid" (kspace_modify mesh)
-# is left out because the cell-pair engine aligns the mesh to its cells
-_KSPACE_KEYS = {"pppm": {"name", "accuracy", "order", "diff", "gewald"},
+# kspace_style keys the port reads, by style ("grid" is kspace_modify mesh,
+# "slab" kspace_modify slab)
+_KSPACE_KEYS = {"pppm": {"name", "accuracy", "order", "diff", "gewald",
+                         "slab", "grid"},
                 "ewald": {"name", "accuracy", "gewald"},
                 "pppm/disp": {"name", "accuracy", "force_disp_real",
                               "order_disp", "order", "mix", "diff"}}
@@ -291,31 +293,30 @@ def _check_deck(cfg: dict):
                 f"{kind}_style {style!r}: only {sorted(ok)} implemented")
     if ks is not None:
         if ks["name"] not in _KSPACE_KEYS:
-            where = _KSPACE_UNPORTED.get(ks["name"], "queue 1")
             raise NotImplementedError(
-                f"kspace_style {ks['name']!r} is not ported: ROADMAP queue 1 "
-                f"{where}")
+                f"kspace_style {ks['name']!r} is not ported: ROADMAP queue 1")
         extra = set(ks) - _KSPACE_KEYS[ks["name"]]
-        if ks["name"] == "ewald" and npt:
-            raise NotImplementedError(
-                "kspace_style ewald under fix npt (the traced-box Ewald, "
-                "K11 traced) is not ported: ROADMAP queue 1 item 10, with "
-                "item 14's tilted barostat")
-        if ks["name"] == "ewald" and engine == "cellpair":
-            raise NotImplementedError(
-                "kspace_style ewald on engine cellpair (Ewald on the cell "
-                "engine's slot positions) is not ported: ROADMAP queue 1 "
-                "item 10; run the deck on engine nlist")
-        if ks.get("diff", "ik") != "ik":
-            raise NotImplementedError(
-                f"pppm diff {ks['diff']!r} is not ported: ROADMAP queue 1 "
-                f"{_KSPACE_UNPORTED['diff']}")
         if extra:
-            where = "; ".join(f"{k}: ROADMAP queue 1 "
-                              f"{_KSPACE_UNPORTED.get(k, 'item 10')}"
-                              for k in sorted(extra))
             raise NotImplementedError(
-                f"kspace_style keys {sorted(extra)} are not ported ({where})")
+                f"kspace_style {ks['name']} keys {sorted(extra)} are not "
+                f"ported: {sorted(_KSPACE_KEYS[ks['name']])} only (ROADMAP "
+                "queue 1 item 10)")
+        if ks.get("diff", "ik") not in ("ik", "ad"):
+            raise ValueError(f"unknown pppm diff {ks['diff']!r} (ik, ad)")
+        if kname == "pppm/disp" and ks.get("diff", "ik") == "ad":
+            raise NotImplementedError(
+                "pppm/disp diff ad (the multi-channel ad gather, K10 disp "
+                "ad) is not ported: ROADMAP queue 1 item 10, the dispersion "
+                "ad, the next slice")
+        if (kname == "pppm" and ks.get("grid") and engine == "cellpair"
+                and not ks.get("slab") and not npt):
+            # the JAX runner rebuilds the cell engine's cell-aligned mesh
+            # without the deck's grid (its run.py:921-929), dropping it
+            raise NotImplementedError(
+                "kspace_modify mesh (grid) on engine cellpair is not ported: "
+                "ROADMAP queue 1 item 10 (the cell engine sizes its own "
+                "cell-aligned mesh; the JAX runner drops the deck's grid "
+                "there, queue 3); run engine nlist")
 
 
 def _device(device) -> torch.device:
@@ -663,8 +664,10 @@ def _npt_config(fx: dict):
 
 def _generic_pppm(cfg: dict, box, q, style, prec):
     """The deck's PPPM on the generic mesh of its box (``setup_pppm`` with
-    no cell alignment), as the JAX package's deck runner builds it for the
-    neighbor-list engines (its ``run.py:326-352``)."""
+    no cell alignment; ``diff``, ``slab`` and the ``grid`` of kspace_modify
+    mesh as the deck gives them), as the JAX package's deck runner builds
+    it for the neighbor-list engines and for a slab deck on the cell
+    engine (its ``run.py:326-352``)."""
     from .models.kspace import setup_pppm
 
     ks, ps = cfg["kspace_style"], cfg["pair_style"]
@@ -672,17 +675,21 @@ def _generic_pppm(cfg: dict, box, q, style, prec):
                       accuracy_rel=ks.get("accuracy", 1e-4),
                       qqrd2e=style.qqrd2e, order=ks.get("order", 5),
                       g_ewald=style.g_ewald, diff=ks.get("diff", "ik"),
+                      slab=ks.get("slab"), grid=ks.get("grid"),
                       acc_dtype=prec.acc)
 
 
-def _npt_traced_kspace(cfg: dict, box, q, style, prec):
-    """The deck's PPPM in its variable-cell form: the generic mesh
-    (``_generic_pppm``) wrapped in ``TracedPPPM``."""
+def _npt_traced_kspace(cfg: dict, box, q, style, prec, ewald=None):
+    """The deck's k-space solver in its variable-cell form: its PPPM on the
+    generic mesh (``_generic_pppm``) wrapped in ``TracedPPPM``, or its
+    Ewald sum as it is (``Ewald.compute_traced``), as the JAX runner's
+    ``_npt_traced_kspace`` hands them to its NPTSimulation."""
     from .models.kspace.pppm_npt import make_traced_kspace
 
-    pm = _generic_pppm(cfg, box, q, style, prec)
+    ks = ewald if ewald is not None else _generic_pppm(cfg, box, q, style,
+                                                       prec)
     center = np.asarray(box.lo, np.float64) + 0.5 * np.asarray(box.lengths)
-    return make_traced_kspace(pm, center)
+    return make_traced_kspace(ks, center)
 
 
 def build_simulation(cfg: dict, device="cuda"):
@@ -749,7 +756,8 @@ def build_simulation(cfg: dict, device="cuda"):
             gew = ewald.g_ewald
         elif gew is None:
             gew = pppm_g_ewald(box, q, ps.get("cut_coul", ps["cut"]),
-                               ks.get("accuracy", 1e-4), u.qqrd2e)
+                               ks.get("accuracy", 1e-4), u.qqrd2e,
+                               slab=ks.get("slab"))
         style = style.replace(g_ewald=float(gew))
     thermostat = shake = npt_fix = rigid = None
     exclude_intra = bool(cfg.get("exclude_intra", False))
@@ -787,7 +795,7 @@ def build_simulation(cfg: dict, device="cuda"):
         from .integrate import NPTSimulation
 
         kspace = (None if ks is None
-                  else _npt_traced_kspace(cfg, box, q, style, prec))
+                  else _npt_traced_kspace(cfg, box, q, style, prec, ewald))
         return NPTSimulation(
             system, style, npt_fix, thermostat, kspace=kspace, bonded=bonded,
             units=u, precision=prec, dt=dt, neighbor=policy, shake=shake,
@@ -815,6 +823,13 @@ def build_simulation(cfg: dict, device="cuda"):
                                     policy.skin)
         elif B is not None:
             kspace = lambda grid: generic  # noqa: E731
+        elif ewald is not None or ks.get("slab"):
+            # the JAX runner's generic solvers on the slot positions: an
+            # Ewald sum, or a slab deck's PPPM (its z-extended mesh is not
+            # aligned to the cells, JAX run.py:858)
+            solver = ewald if ewald is not None else _generic_pppm(
+                cfg, box, q, style, prec)
+            kspace = lambda grid: solver  # noqa: E731
         else:
             kspace = _pppm_for_grid(cfg, box, q, style, prec, policy.skin)
         try:

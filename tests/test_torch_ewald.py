@@ -218,9 +218,12 @@ def _small_ewald(**kw):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(engine="cellpair"), "item 10.*engine nlist"),
+    (dict(engine="cellpair", kspace_style={"name": "pppm", "accuracy": 1e-4,
+                                           "grid": [24, 30, 18]}),
+     "item 10.*engine nlist"),
     (dict(fixes=[{"name": "npt", "t_start": 300.0, "t_damp": 0.1,
-                  "iso": [0.0, 0.0, 1.0]}]), "item 10.*item 14"),
+                  "iso": [0.0, 0.0, 1.0], "xy": [0.0, 0.0, 1.0]}]),
+     "item 14"),
     (dict(kspace_style={"name": "ewald", "accuracy": 1e-6, "order": 5}),
      "not ported"),
 ])

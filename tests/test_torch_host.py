@@ -156,10 +156,11 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("change", [
     {"kspace_style": {"name": "pppm", "accuracy": 1e-4}},
-    {"kspace_style": {"name": "ewald", "accuracy": 1e-4},
+    {"kspace_style": {"name": "ewald", "accuracy": 1e-4, "slab": 3.0},
      "pair_style": {"name": "buck/coul/long", "cut": 2.5,
                     "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
-    {"kspace_style": {"name": "pppm", "accuracy": 1e-4, "slab": 3.0},
+    {"kspace_style": {"name": "pppm", "accuracy": 1e-4,
+                      "grid": [12, 12, 12]},
      "pair_style": {"name": "buck/coul/long", "cut": 2.5,
                     "coeffs": {"1 1": [1.0, 0.2, -0.8]}}},
     {"pair_style": {"name": "buck/coul/cut", "cut": 2.5,
@@ -195,7 +196,8 @@ def _rhodo(name="rhodo_flex_nve.yaml"):
     ({"fixes": [{"name": "rigid/npt/small"}]}, "item 13"),
     ({"fixes": [{"name": "npt", "t_start": 300.0, "t_damp": 50.0,
                  "tri": [0.0, 0.0, 1000.0]}]}, "item 14"),
-    ({"kspace_style": {"name": "ewald", "accuracy": 1e-4}}, "item"),
+    ({"kspace_style": {"name": "ewald", "accuracy": 1e-4, "slab": 3.0}},
+     "item"),
     ({"kspace_style": {"name": "pppm/disp", "accuracy": 1e-4}}, "item"),
     ({"exclude_intra": True, "engine": "nlist"}, "item 13"),
     ({"angle_style": {"name": "cosine/squared", "coeffs": [[1.0, 100.0]]}},

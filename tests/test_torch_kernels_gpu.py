@@ -1586,3 +1586,194 @@ def test_disp_peratom_wrappers_reject_bad_input(cuda, tmp_path):
     with pytest.raises(TypeError):      # meshes of another dtype
         disp_ops.disp_peratom_gather(solver.pm, at["x"], row, table,
                                      meshes.double(), c["coef"], *args)
+
+
+# ---- the rest of the Coulomb k-space: K10 ad spectral, K10 ad gather,
+# K10 slab, K11 traced ----
+
+def _kspace_rest_box(dev, flt, n=400, seed=5, neutral=True):
+    """n random charges in a 12 x 12.5 x 10.5 box, their mean subtracted
+    unless ``neutral`` is False (then Q = sum q is about 0.1 n)."""
+    rng = np.random.RandomState(seed)
+    Lb = np.array([12.0, 12.5, 10.5])
+    x = rng.uniform(0, 1, (n, 3)) * Lb - 0.3
+    q = rng.uniform(-1, 1, n)
+    q -= q.mean() if neutral else q.mean() - 0.1
+    t = lambda a: torch.as_tensor(a).to(dev, flt)  # noqa: E731
+    return Lb, q, t(x.T.copy()), t(q)
+
+
+def _elong_close(ek, ep, elong_self: float, etol: float) -> bool:
+    """elong on the card against the plain version's, relative to the part
+    the kernels compute (elong less the constant self and background
+    terms): on these random boxes the two nearly cancel (elong 131 of a
+    reciprocal part of 17,924 with ad and slab in f64), and the f32 sum's
+    own rounding exceeds 1e-5 of what is left."""
+    scale = max(abs(float(ep)), abs(float(ep) - elong_self))
+    return abs(float(ek) - float(ep)) <= etol * scale
+
+
+@pytest.mark.parametrize("diff,slab,neutral", [
+    ("ad", None, True), ("ik", 3.0, True), ("ad", 3.0, True),
+    ("ik", 3.0, False)])
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_pppm_ad_slab_kernels_match_plain(cuda, diff, slab, neutral, flt,
+                                          acc):
+    """PPPM.compute on the card with ad and / or slab (K5, K10 ad spectral
+    or K7, K10 ad gather or K8, K10 slab) against pppm_compute_plain on
+    the same card; the ad stages alone against their plain versions.  The
+    charged case (``neutral`` False) holds K10 slab's Q terms."""
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm as tpppm
+    from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
+
+    Lb, q, xt, qt = _kspace_rest_box(cuda, flt, neutral=neutral)
+    assert neutral or abs(q.sum()) > 10.0
+    pm = setup_pppm(make_box([0.0, 0.0, 0.0], Lb), q, cutoff=4.0,
+                    accuracy_rel=1e-5, qqrd2e=332.06371, order=7,
+                    acc_dtype=acc, diff=diff, slab=slab)
+    keys = ("pppm_ad_spectral", "pppm_gather_ad", "pppm_slab")
+    before = {k: ops.LAUNCHES[k] for k in keys}
+    rk = pm.compute(xt, qt, eflag=True, vflag=True)
+    rp = tpppm.pppm_compute_plain(pm, xt, qt, True, True)
+    want = {"pppm_ad_spectral": diff == "ad", "pppm_gather_ad": diff == "ad",
+            "pppm_slab": slab is not None}
+    for k in keys:
+        assert ops.LAUNCHES[k] == before[k] + int(want[k]), k
+    ftol, etol = (1e-4, 1e-5) if flt == torch.float32 else (1e-11, 1e-11)
+    assert _close(torch.stack(rk.f), torch.stack(rp.f), ftol)
+    assert _elong_close(rk.elong, rp.elong, pm.elong_self, etol)
+    assert _close(rk.virial, rp.virial, etol)
+    if diff == "ad":
+        c = pm.consts(cuda, flt)
+        planes = pppm_cells.AtomPlanes(xt[0], xt[1], xt[2], qt,
+                                       torch.arange(400, dtype=torch.int32,
+                                                    device=cuda))
+        mesh = pppm_cells.deposit_plain(pm, planes)
+        rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
+        sc = dict(G=c["G_half"], k3=c["k3"], wz=c["wz"],
+                  g_ewald=pm.g_ewald, nyquist=True)
+        kk = c["k3"]
+        ksq = kk[0] * kk[0] + kk[1] * kk[1] + kk[2] * kk[2]
+        sc["pref"] = 2.0 * (1.0 / torch.where(ksq == 0, torch.ones_like(
+            ksq), ksq) + 0.25 / pm.g_ewald ** 2)
+        pk, esk, vsk = pppm_ops.spectral(sc, rhat, True, ad=True)
+        pp, esp, vsp = pppm_cells.spectral_plain(sc, rhat, True, True, True)
+        assert _close(torch.view_as_real(pk), torch.view_as_real(pp), ftol)
+        assert abs(float(esk - esp)) <= etol * abs(float(esp))
+        assert _close(vsk, vsp, etol)
+        u = torch.fft.irfftn(pp, s=pm.grid).to(flt).contiguous()
+        fk = pppm_ops.gather_ad(pm, planes, u, 400, acc, c["coef"],
+                                c["dcoef"], c["sf"])
+        fp = pppm_cells.gather_ad_plain(pm, planes, u, acc, c["sf"])
+        assert _close(torch.stack(fk), torch.stack(fp), ftol)
+
+
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_cell_pppm_ad_kernels_match_plain(cuda, prec):
+    """CellPPPM ad on the slot planes (K10 ad gather with the slots' aid,
+    empty slots 0) against the same solver on CPU copies (plain)."""
+    flt = acc = torch.float32 if prec == "single" else torch.float64
+    pm, solver, st = _pppm(cuda, flt, acc)
+    import dataclasses
+
+    from lammps_buck_intel_tpu_torch.models.kspace import pppm as tpppm
+
+    pm = dataclasses.replace(
+        pm, diff="ad", _consts={},
+        sf_sine=tpppm._sf_sine_fit(pm.grid, np.asarray([12.0] * 3),
+                                   pm.greensfn, pm.order))
+    solver = CellPPPM(pm, solver.n_atoms)
+    before = ops.LAUNCHES["pppm_gather_ad"]
+    rk = solver.compute_slots(st, True, True)
+    assert ops.LAUNCHES["pppm_gather_ad"] == before + 1
+    cpu = st._replace(**{k: getattr(st, k).cpu() for k in st._fields
+                         if getattr(st, k) is not None})
+    rp = CellPPPM(pm, solver.n_atoms).compute_slots(cpu, True, True)
+    ftol, etol = (1e-4, 1e-5) if flt == torch.float32 else (1e-11, 1e-11)
+    assert _close(torch.stack(rk[:3]).cpu(), torch.stack(rp[:3]), ftol)
+    assert abs(float(rk[3]) - float(rp[3])) <= etol * abs(float(rp[3]))
+    assert bool((rk[0][st.aid >= solver.n_atoms] == 0).all())
+
+
+@pytest.mark.parametrize("diff,slab", [("ad", None), ("ik", 3.0),
+                                       ("ad", 3.0)])
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_traced_pppm_ad_slab_kernels_match_plain(cuda, diff, slab, prec):
+    """TracedPPPM ad / slab with the box on the card (K10 ad gather and
+    K10 slab reading boxL) against the same solver on the CPU."""
+    from lammps_buck_intel_tpu_torch.models.kspace.pppm_npt import TracedPPPM
+
+    flt = acc = torch.float32 if prec == "single" else torch.float64
+    Lb, q, xt, qt = _kspace_rest_box(cuda, flt)
+    pm = setup_pppm(make_box([0.0, 0.0, 0.0], Lb), q, cutoff=4.0,
+                    accuracy_rel=1e-4, qqrd2e=332.06371, order=5,
+                    acc_dtype=acc, diff=diff, slab=slab)
+    tp = TracedPPPM(pm, 0.5 * Lb)
+    L1 = torch.as_tensor(Lb * np.array([1.03, 0.99, 1.02])).to(cuda, flt)
+    before = {k: ops.LAUNCHES[k] for k in ("pppm_gather_ad", "pppm_slab")}
+    rk = tp.compute_traced(xt, qt, L1)
+    assert ops.LAUNCHES["pppm_gather_ad"] == before["pppm_gather_ad"] + \
+        int(diff == "ad")
+    assert ops.LAUNCHES["pppm_slab"] == before["pppm_slab"] + \
+        int(slab is not None)
+    rp = tp.compute_traced(xt.cpu(), qt.cpu(), L1.cpu())
+    ftol, etol = (1e-4, 1e-5) if flt == torch.float32 else (1e-11, 1e-11)
+    assert _close(torch.stack(rk.f).cpu(), torch.stack(rp.f), ftol)
+    assert _elong_close(rk.elong, rp.elong, pm.elong_self, etol)
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_ewald_traced_kernel_matches_plain(cuda, flt, acc):
+    """K11 traced (the tables of a box on the card) against
+    traced_tables_plain, and compute_traced on the card (K11 traced, K11a,
+    K11b) against ewald_compute_traced_plain on the same card."""
+    from lammps_buck_intel_tpu_torch.models.kspace import setup_ewald
+    from lammps_buck_intel_tpu_torch.models.kspace import ewald as tewald
+    from lammps_buck_intel_tpu_torch.ops import ewald as ewald_ops
+
+    Lb, q, xt, qt = _kspace_rest_box(cuda, flt, n=300)
+    ew = setup_ewald(make_box([0.0, 0.0, 0.0], Lb), q, cutoff=4.0,
+                     accuracy_rel=1e-4, qqrd2e=332.06371, acc_dtype=acc)
+    L1 = torch.as_tensor(Lb * np.array([1.03, 0.99, 1.02])).to(cuda, flt)
+    m = ew.m_rows(cuda, flt)
+    before = ops.LAUNCHES["ewald_traced"]
+    tk = ewald_ops.ewald_traced(m, L1, ew.g_ewald, acc)
+    tp = tewald.traced_tables_plain(m, L1, ew.g_ewald, acc)
+    assert ops.LAUNCHES["ewald_traced"] == before + 1
+    tol = 1e-5 if flt == torch.float32 else 1e-12
+    for k in ("kv_rows", "ug", "ug_acc", "vfac"):
+        assert _close(tk[k], tp[k], tol), k
+    rk = ew.compute_traced(xt, qt, L1)
+    rp = tewald.ewald_compute_traced_plain(ew, xt, qt, L1)
+    ftol, etol = (3e-4, 1e-5) if flt == torch.float32 else (1e-11, 1e-11)
+    assert _close(torch.stack(rk.f), torch.stack(rp.f), ftol)
+    assert _elong_close(rk.elong, rp.elong, ew.elong_self, etol)
+    assert _close(rk.virial, rp.virial, etol)
+
+
+def test_kspace_rest_wrappers_reject_bad_input(cuda):
+    from lammps_buck_intel_tpu_torch.ops import ewald as ewald_ops
+    from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
+
+    Lb, q, xt, qt = _kspace_rest_box(cuda, torch.float32)
+    pm = setup_pppm(make_box([0.0, 0.0, 0.0], Lb), q, cutoff=4.0,
+                    accuracy_rel=1e-4, qqrd2e=332.06371, diff="ad",
+                    slab=3.0)
+    c = pm.consts(cuda, torch.float32)
+    planes = pppm_cells.AtomPlanes(xt[0], xt[1], xt[2], qt,
+                                   torch.arange(400, dtype=torch.int32,
+                                                device=cuda))
+    u = torch.zeros(pm.grid, device=cuda)
+    with pytest.raises(ValueError):
+        pppm_ops.gather_ad(pm, planes, u, 400, torch.float32, c["coef"],
+                           c["dcoef"], c["sf"].t())
+    with pytest.raises(TypeError):
+        pppm_ops.gather_ad(pm, planes, u.double(), 400, torch.float32,
+                           c["coef"], c["dcoef"], c["sf"])
+    fz = torch.zeros(400, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        pppm_ops.slab(pm, xt[2], qt, fz, True)
+    with pytest.raises(ValueError):
+        ewald_ops.ewald_traced(torch.zeros((4, 3), device=cuda),
+                               torch.ones(3, device=cuda), 0.3,
+                               torch.float32)

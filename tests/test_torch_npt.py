@@ -170,10 +170,10 @@ def test_npt_parse_forms(form, flags, couple):
 
 @pytest.mark.parametrize("change,match", [
     (lambda c: c["fixes"].append({"name": "rigid/npt/small"}), "item 13"),
-    (lambda c: c["kspace_style"].update(diff="ad"), "item 10"),
-    (lambda c: c["kspace_style"].update(slab=3.0), "item 10"),
+    (lambda c: c["kspace_style"].update(mesh=[8, 8, 8]), "item 10"),
+    (lambda c: c["kspace_style"].update(name="ewald", slab=3.0), "item 10"),
     (lambda c: c["kspace_style"].update(name="pppm/disp"), "item 13"),
-    (lambda c: c["kspace_style"].update(name="ewald"), "item 10"),
+    (lambda c: c["kspace_style"].update(name="ewald", order=5), "item 10"),
     (lambda c: c["fixes"][1].update(drag=1.0), "not ported"),
     (lambda c: c["fixes"][1].update(xy=[0.0, 0.0, 1000.0]), "item 14"),
     (lambda c: c.update(engine="slab"), "item 16"),

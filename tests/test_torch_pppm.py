@@ -86,13 +86,18 @@ def test_setup_pppm_identical(order, aligned):
 
 
 def test_unported_pppm_options_raise():
+    """diff ad and slab set up (held to the JAX package in
+    test_torch_pppm_ad.py); a thin slab, an unknown diff and an order
+    above the kernels' 7 are refused."""
     x, q = _charges(0)
     box = tmake_box([0, 0, 0], [L] * 3)
     kw = dict(cutoff=CUT, accuracy_rel=1e-4, qqrd2e=QQRD2E)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsetup(box, q, diff="ad", **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsetup(box, q, slab=3.0, **kw)
+    assert tsetup(box, q, diff="ad", **kw).sf_sine.shape == (3, 4)
+    assert tsetup(box, q, slab=3.0, **kw).volume == pytest.approx(3 * L**3)
+    with pytest.raises(ValueError, match="slab factor"):
+        tsetup(box, q, slab=1.5, **kw)
+    with pytest.raises(ValueError, match="diff"):
+        tsetup(box, q, diff="fd", **kw)
     with pytest.raises(NotImplementedError, match="order"):
         tsetup(box, q, order=8, **kw)
 

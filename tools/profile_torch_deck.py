@@ -10,13 +10,13 @@ untraced for the step time, then the same number of steps under
 into the port's layers: pair (csrc/cellpair.cu, or csrc/nlist.cu's pair
 pass on the neighbor-list engines), nlist build (csrc/nlist.cu: the
 binned and the dense builds), ewald (csrc/ewald.cu: the structure
-factors, the forces), npt (csrc/npt.cu:
+factors, the forces, a box's tables), npt (csrc/npt.cu:
 the traced influence function, the barostat's per-atom passes), pppm
 kernels (csrc/pppm.cu: the Coulomb mesh, and the geometric dispersion
-mesh's deposit and gather), disp kernels (csrc/pppm_disp.cu: the
-multi-channel deposit and gather and the dispersion solve), pppm FFTs
-(cuFFT under torch.fft), bonded (csrc/bonded.cu), rebin
-(csrc/rebin.cu), verlet (csrc/verlet.cu: kicks, drift, force sum and
+mesh's deposit and gather, the ad gather, the slab term), disp kernels
+(csrc/pppm_disp.cu: the multi-channel deposit and gather and the
+dispersion solve), pppm FFTs (cuFFT under torch.fft), bonded
+(csrc/bonded.cu), rebin (csrc/rebin.cu), verlet (csrc/verlet.cu: kicks, drift, force sum and
 cast, kinetic sums, the thermostat chain), shake (csrc/shake.cu:
 reference bond vectors, SHAKE, RATTLE), rigid (csrc/rigid.cu: the
 bodies' force and torque, their update, the constraint virial) and torch
@@ -52,11 +52,13 @@ LAYERS = (
     ("npt", ("traced_greens_kernel", "npt_ke3_kernel",
              "npt_vscale_kick_kernel", "npt_drift_dilate_kernel")),
     ("pppm kernels", ("pppm_deposit_kernel", "pppm_spectral_kernel",
-                      "pppm_gather_kernel")),
+                      "pppm_gather_kernel", "pppm_gather_ad_kernel",
+                      "slab_sums_kernel", "slab_apply_kernel")),
     ("disp kernels", ("disp_deposit_kernel", "disp_spectral_kernel",
                       "disp_gather_kernel")),
     ("ewald", ("sk_partial_kernel", "sk_finish_kernel",
-               "force_partial_kernel", "force_finish_kernel")),
+               "force_partial_kernel", "force_finish_kernel",
+               "traced_tables_kernel")),
     ("pppm fft", ("fft",)),
     ("bonded", ("bond_angle_kernel", "dihedral_charmm_kernel",
                 "improper_harmonic_kernel")),
