@@ -48,6 +48,8 @@ import math
 import numpy as np
 import torch
 
+from .utils import trace
+
 _PAIR_KSPACE = ("pair", "kspace")
 _BONDED_KEYS = ("bond", "angle", "dihedral", "improper")
 _DEFAULT = _PAIR_KSPACE + _BONDED_KEYS
@@ -196,35 +198,36 @@ def _cached(cache, key, fn):
 
 def _tallies(sim, scope, cache, which: int):
     """The sum of the (eatom, vatom)[which] contributions in scope, f64 on
-    the device, and the snapshot."""
+    the device, and the snapshot (span ``peratom``)."""
     _check_scope(scope)
-    at = _cached(cache, "atoms", sim.atoms_on_device)
-    out = None
+    with trace.span("peratom"):
+        at = _cached(cache, "atoms", sim.atoms_on_device)
+        out = None
 
-    def add(t):
-        nonlocal out
-        t = t.to(torch.float64)
-        out = t if out is None else out + t
+        def add(t):
+            nonlocal out
+            t = t.to(torch.float64)
+            out = t if out is None else out + t
 
-    if "pair" in scope:
-        add(_cached(cache, "pair", lambda: _pair_peratom(sim, at))[which])
-    if "kspace" in scope and sim.kspace is not None:
-        add(_cached(cache, "kspace",
-                    lambda: _kspace_peratom(sim, at))[which])
-    inc = tuple(k for k in _BONDED_KEYS if k in scope)
-    if inc:
-        b = _cached(cache, ("bonded", inc),
-                    lambda: _bonded_peratom(sim, at, inc))
-        add(b[which])
         if "pair" in scope:
-            # the 1-4 pair terms belong to the pair ledger (thermo adds
-            # them to evdwl and ecoul)
-            add(b[2 + which])
-    if out is None:
-        n, dev = at["x"].shape[1], at["x"].device
-        out = torch.zeros((n,) if which == 0 else (n, 6),
-                          dtype=torch.float64, device=dev)
-    return out, at
+            add(_cached(cache, "pair", lambda: _pair_peratom(sim, at))[which])
+        if "kspace" in scope and sim.kspace is not None:
+            add(_cached(cache, "kspace",
+                        lambda: _kspace_peratom(sim, at))[which])
+        inc = tuple(k for k in _BONDED_KEYS if k in scope)
+        if inc:
+            b = _cached(cache, ("bonded", inc),
+                        lambda: _bonded_peratom(sim, at, inc))
+            add(b[which])
+            if "pair" in scope:
+                # the 1-4 pair terms belong to the pair ledger (thermo adds
+                # them to evdwl and ecoul)
+                add(b[2 + which])
+        if out is None:
+            n, dev = at["x"].shape[1], at["x"].device
+            out = torch.zeros((n,) if which == 0 else (n, 6),
+                              dtype=torch.float64, device=dev)
+        return out, at
 
 
 def pe_atom(sim, scope=_DEFAULT, cache=None) -> torch.Tensor:

@@ -73,6 +73,7 @@ from ..models.pair.cellpair import (compute_cellpair, make_special_table,
                                     slot_mol_gather)
 from ..models.pair.styles import PairStyle
 from ..neighbor import cell_slots as cs
+from ..utils import trace
 from . import nve
 from . import rigid as rgd
 from . import shake as shk
@@ -210,6 +211,9 @@ class CellPairSimulation:
         self._tchain = thermostat.tchain if thermostat is not None else 0
         self._t_now = 0.0       # thermostat target of the current segment
         self._run_total = self._run_done = 0
+        self.timings = {"run": 0.0, "setup": 0.0}
+
+        t0 = time.perf_counter()
 
         st = self._bin(system)
         if bool(st.overflow):   # one host round trip at set-up
@@ -227,8 +231,8 @@ class CellPairSimulation:
             self._settle(st)
         self.state = self._init_force(st)
         self.step_count = 0
-        self.timings = {"run": 0.0}
         self.grows = 0
+        self.timings["setup"] += time.perf_counter() - t0
 
     def _bin(self, system: System) -> cs.SlotState:
         return cs.from_atoms(self.grid, self.box, system.x, system.v,
@@ -274,32 +278,35 @@ class CellPairSimulation:
         """(pair force planes, k-space force planes or None, evdwl, ecoul,
         elong, virial); the planes are acc-typed and stay apart: the second
         kick sums them.  mol: the slot plane of ``_slot_mol``."""
-        r = compute_cellpair(self.pair, self.grid, self.box, state,
-                             eflag=eflag, vflag=vflag,
-                             acc_dtype=self.precision.acc,
-                             special=self.special, slot_mol=mol)
+        with trace.span("pair"):
+            r = compute_cellpair(self.pair, self.grid, self.box, state,
+                                 eflag=eflag, vflag=vflag,
+                                 acc_dtype=self.precision.acc,
+                                 special=self.special, slot_mol=mol)
         fk, virial = None, r.virial
         elong = torch.zeros((), dtype=self.precision.acc, device=self.device)
         if self.kspace is not None:
-            if hasattr(self.kspace, "compute_slots"):
-                *fk, elong, kvir = self.kspace.compute_slots(state, eflag,
-                                                             vflag)
-            else:
-                xs = torch.stack([state.x, state.y, state.z])
-                if hasattr(self.kspace, "compute_slot"):
-                    # a solver baked on atom-order inputs (``BoundKSpace``):
-                    # the slot positions, the atom ids clamped to N
-                    kr = self.kspace.compute_slot(
-                        xs, torch.clamp(state.aid, max=self.n_atoms),
-                        state.q, eflag=eflag, vflag=vflag)
+            with trace.span("kspace"):
+                if hasattr(self.kspace, "compute_slots"):
+                    *fk, elong, kvir = self.kspace.compute_slots(state, eflag,
+                                                                 vflag)
                 else:
-                    # a charge solver (the generic PPPM of a slab deck, an
-                    # Ewald sum) on the slot positions and charges: empty
-                    # slots carry q = 0 and add nothing (the JAX
-                    # cellpair_verlet.py:383-391)
-                    kr = self.kspace.compute(xs, state.q, eflag=eflag,
-                                             vflag=vflag)
-                fk, elong, kvir = list(kr.f), kr.elong, kr.virial
+                    xs = torch.stack([state.x, state.y, state.z])
+                    if hasattr(self.kspace, "compute_slot"):
+                        # a solver baked on atom-order inputs
+                        # (``BoundKSpace``): the slot positions, the atom
+                        # ids clamped to N
+                        kr = self.kspace.compute_slot(
+                            xs, torch.clamp(state.aid, max=self.n_atoms),
+                            state.q, eflag=eflag, vflag=vflag)
+                    else:
+                        # a charge solver (the generic PPPM of a slab deck,
+                        # an Ewald sum) on the slot positions and charges:
+                        # empty slots carry q = 0 and add nothing (the JAX
+                        # cellpair_verlet.py:383-391)
+                        kr = self.kspace.compute(xs, state.q, eflag=eflag,
+                                                 vflag=vflag)
+                    fk, elong, kvir = list(kr.f), kr.elong, kr.virial
             if vflag:
                 virial = virial + kvir
         return (r.fx, r.fy, r.fz), fk, r.evdwl, r.ecoul, elong, virial
@@ -316,9 +323,11 @@ class CellPairSimulation:
 
     def _bonded_forces(self, state: cs.SlotState, inv, fs, eflag: bool):
         """Bonded forces added to the acc planes ``fs`` in place."""
-        return compute_bonded(self.bonded, (state.x, state.y, state.z),
-                              self.box, eflag=eflag,
-                              acc_dtype=self.precision.acc, inv=inv, out=fs)
+        with trace.span("bonded"):
+            return compute_bonded(self.bonded, (state.x, state.y, state.z),
+                                  self.box, eflag=eflag,
+                                  acc_dtype=self.precision.acc, inv=inv,
+                                  out=fs)
 
     def _kick(self, state: cs.SlotState, fa, fb, dtf: float, ke: bool):
         return nve.kick((state.vx, state.vy, state.vz),
@@ -354,10 +363,22 @@ class CellPairSimulation:
         self._kick(state, fa, fb, 0.0, False)
         return state
 
+    def _rebin(self, state: cs.SlotState) -> cs.SlotState:
+        """The incremental rebin of a block or a thermo row."""
+        trace.count("neighbor_build")
+        with trace.span("neighbor"):
+            return cs.rebin_incremental(self.grid, self.box, state)
+
     def _block(self, state: cs.SlotState, nsteps: int) -> cs.SlotState:
-        if self.rigid is not None:
-            return self._block_rigid(state, nsteps)
-        state = cs.rebin_incremental(self.grid, self.box, state)
+        trace.count("step", nsteps)
+        with trace.span("block"):
+            if self.rigid is not None:
+                return self._block_rigid(state, nsteps)
+            return self._block_verlet(state, nsteps)
+
+    def _block_verlet(self, state: cs.SlotState,
+                     nsteps: int) -> cs.SlotState:
+        state = self._rebin(state)
         mol = self._slot_mol(state)
         xs = (state.x, state.y, state.z)
         vs = (state.vx, state.vy, state.vz)
@@ -367,36 +388,39 @@ class CellPairSimulation:
                if self.bonded is not None or sc is not None else None)
         cfg = self.thermostat
         for _ in range(nsteps):
-            if cfg is not None:
-                state = state._replace(therm=nhc_scale(
-                    cfg, state.therm, vs, self._kinetic(state), self._t_now))
-            if sc is not None:
-                ro = shk.shake_ref(t, xs, inv, L)
-            nve.kick_drift(xs, vs, fs, state.typ, state.aid, self._minv_t,
-                           self.n_atoms, self.dtf, self.dtv)
-            if sc is not None:
-                rn = shk.shake_positions(t, ro, xs, vs, inv, L, self.dtv,
-                                         sc.iters)
+            with trace.span("integrate"):
+                if cfg is not None:
+                    state = state._replace(therm=nhc_scale(
+                        cfg, state.therm, vs, self._kinetic(state),
+                        self._t_now))
+                if sc is not None:
+                    ro = shk.shake_ref(t, xs, inv, L)
+                nve.kick_drift(xs, vs, fs, state.typ, state.aid,
+                               self._minv_t, self.n_atoms, self.dtf, self.dtv)
+                if sc is not None:
+                    rn = shk.shake_positions(t, ro, xs, vs, inv, L, self.dtv,
+                                             sc.iters)
             fa, fb, *_ = self._forces(state, False, False, mol)
             if self.bonded is not None:
                 self._bonded_forces(state, inv, fa, False)
-            partial = self._kick(state, fa, fb, self.dtf,
-                                 cfg is not None and sc is None)
-            if sc is not None:
-                shk.rattle_velocities(t, vs, inv, L, r=rn)
+            with trace.span("integrate"):
+                partial = self._kick(state, fa, fb, self.dtf,
+                                     cfg is not None and sc is None)
+                if sc is not None:
+                    shk.rattle_velocities(t, vs, inv, L, r=rn)
+                    if cfg is not None:
+                        # the chain sees the projected velocities
+                        partial = self._kinetic(state)
                 if cfg is not None:
-                    # the chain sees the projected velocities
-                    partial = self._kinetic(state)
-            if cfg is not None:
-                state = state._replace(therm=nhc_scale(
-                    cfg, state.therm, vs, partial, self._t_now))
+                    state = state._replace(therm=nhc_scale(
+                        cfg, state.therm, vs, partial, self._t_now))
         return state
 
     def _block_rigid(self, state: cs.SlotState,
                      nsteps: int) -> cs.SlotState:
         """fix rigid/small: rebin once, the wrap offsets, then nsteps of
         the quaternion velocity Verlet (see the module docstring)."""
-        state = cs.rebin_incremental(self.grid, self.box, state)
+        state = self._rebin(state)
         mol = self._slot_mol(state)
         inv = self._inv_map(state)
         t, bs, d = self._rt, self.body, self._d
@@ -411,22 +435,24 @@ class CellPairSimulation:
         # step) start the block
         F, T = rgd.slot_force_torque(t, d, inv, fs)
         for step in range(nsteps):
-            rgd.rigid_update(t, bs, d, inv, xs, off, F, T, self.dtv,
-                             self.dtf, rgd.MODE_INITIAL)
+            with trace.span("integrate"):
+                rgd.rigid_update(t, bs, d, inv, xs, off, F, T, self.dtv,
+                                 self.dtf, rgd.MODE_INITIAL)
             fa, fb, *_ = self._forces(state, False, False, mol)
             if self.bonded is not None:
                 self._bonded_forces(state, inv, fa, False)
-            F, T = rgd.slot_force_torque(t, d, inv, fa, fb, f_out=fs)
-            vs = ((state.vx, state.vy, state.vz) if step == nsteps - 1
-                  else None)
-            rgd.rigid_update(t, bs, d, inv, vs, None, F, T, self.dtv,
-                             self.dtf, rgd.MODE_FINAL)
+            with trace.span("integrate"):
+                F, T = rgd.slot_force_torque(t, d, inv, fa, fb, f_out=fs)
+                vs = ((state.vx, state.vy, state.vz) if step == nsteps - 1
+                      else None)
+                rgd.rigid_update(t, bs, d, inv, vs, None, F, T, self.dtv,
+                                 self.dtf, rgd.MODE_FINAL)
         return state
 
     # ---------- thermo ----------
 
     def _thermo_device(self, state: cs.SlotState) -> dict:
-        st = cs.rebin_incremental(self.grid, self.box, state.clone())
+        st = self._rebin(state.clone())
         fs, fk, evdwl, ecoul, elong, virial = self._forces(
             st, True, True, self._slot_mol(st))
         emol = torch.zeros((), dtype=self.precision.acc, device=self.device)
@@ -470,13 +496,19 @@ class CellPairSimulation:
         )
 
     def thermo(self) -> dict:
-        row = self._thermo_device(self.state)
+        trace.count("thermo_row")
+        with trace.span("thermo"):
+            row = self._thermo_device(self.state)
+            with trace.span("readback"):
+                return self._readback(row)
+
+    def _readback(self, row: dict) -> dict:
         virial = row.pop("virial")
         keys = list(row)
         # one device -> host transfer for the whole row
-        host = torch.cat([torch.stack([row[k].to(torch.float64)
-                                       for k in keys]),
-                          virial.to(torch.float64)]).cpu().numpy()
+        host = trace.to_host(torch.cat([
+            torch.stack([row[k].to(torch.float64) for k in keys]),
+            virial.to(torch.float64)])).numpy()
         out = {k: float(v) for k, v in zip(keys, host[:len(keys)])}
         out["virial"] = host[len(keys):]
         out["step"] = self.step_count
@@ -532,7 +564,8 @@ class CellPairSimulation:
     def _vmax_now(self) -> float:
         """Device max |v| (empty slots carry v = 0), sampled at run()
         entry when check=true and no thermo row will supply vmax."""
-        return float(torch.sqrt(self._kinetic(self.state)[:, 1].max()))
+        return float(trace.to_host(
+            torch.sqrt(self._kinetic(self.state)[:, 1].max())))
 
     def _t_target(self, ahead: int = 0) -> float:
         """Thermostat target: the ramp t_start -> t_stop over the run,
@@ -572,48 +605,52 @@ class CellPairSimulation:
                       f"{row['etotal']:>14.8g} {row['press']:>14.6g}")
 
         t0 = time.perf_counter()
-        self._run_total, self._run_done = nsteps, 0
-        if thermo_every:
-            emit()
-        elif self.neighbor.check:
-            vmax = self._vmax_now()
-        end = self.step_count + nsteps
-        grows = 0
-        while self.step_count < end:
-            target = end
+        with trace.span("run"):
+            self._run_total, self._run_done = nsteps, 0
             if thermo_every:
-                target = min(
-                    end,
-                    ((self.step_count // thermo_every) + 1) * thermo_every)
-            # segment snapshot for overflow rollback: a clone, because
-            # the blocks update the planes (and the bodies) in place
-            snap = (self.state.clone(), self.step_count, self._run_done,
-                    None if self.body is None else
-                    (self.body.clone(), self._d.clone()))
-            self._advance(target - self.step_count, self._cadence(vmax))
-            self._run_done += target - self.step_count
-            self.step_count = target
-            try:
-                if thermo_every and self.step_count % thermo_every == 0:
-                    emit()
-                elif self.step_count >= end:
-                    # surface the sticky overflow flag even with thermo
-                    # disabled: a run never returns with dropped pairs
-                    if bool(self.state.overflow):
-                        raise CellOverflowError("cell capacity overflow")
-            except CellOverflowError:
-                # roll back to the segment start, grow, rebin, replay
-                grows += 1
-                if grows > 4:
-                    raise
-                self.state, self.step_count, self._run_done, bsnap = snap
-                if bsnap is not None:
-                    self.body, self._d = bsnap
-                self._grow_capacity()
-        if thermo_every and (not rows or rows[-1]["step"] != self.step_count):
-            emit()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                emit()
+            elif self.neighbor.check:
+                vmax = self._vmax_now()
+            end = self.step_count + nsteps
+            grows = 0
+            while self.step_count < end:
+                target = end
+                if thermo_every:
+                    target = min(end, ((self.step_count // thermo_every)
+                                       + 1) * thermo_every)
+                with trace.span("segment"):
+                    # segment snapshot for overflow rollback: a clone,
+                    # because the blocks update the planes (and the bodies)
+                    # in place
+                    snap = (self.state.clone(), self.step_count,
+                            self._run_done, None if self.body is None else
+                            (self.body.clone(), self._d.clone()))
+                    self._advance(target - self.step_count,
+                                  self._cadence(vmax))
+                    self._run_done += target - self.step_count
+                    self.step_count = target
+                try:
+                    if thermo_every and self.step_count % thermo_every == 0:
+                        emit()
+                    elif self.step_count >= end:
+                        # surface the sticky overflow flag even with thermo
+                        # disabled: a run never returns with dropped pairs
+                        if bool(trace.to_host(self.state.overflow)):
+                            raise CellOverflowError(
+                                "cell capacity overflow")
+                except CellOverflowError:
+                    # roll back to the segment start, grow, rebin, replay
+                    grows += 1
+                    if grows > 4:
+                        raise
+                    self.state, self.step_count, self._run_done, bsnap = snap
+                    if bsnap is not None:
+                        self.body, self._d = bsnap
+                    self._grow_capacity()
+            if thermo_every and (not rows
+                                 or rows[-1]["step"] != self.step_count):
+                emit()
+            trace.synchronize(self.device)
         self.timings["run"] += time.perf_counter() - t0
         return rows
 
@@ -623,9 +660,11 @@ class CellPairSimulation:
         old = self.grid
         new = cs.grow(old)
         self.grid = new
-        self.state = cs.rebin(new, self.box, self.state)
+        trace.count("neighbor_build")
+        with trace.span("neighbor"):
+            self.state = cs.rebin(new, self.box, self.state)
         self.grows += 1
-        if bool(self.state.overflow):
+        if bool(trace.to_host(self.state.overflow)):
             raise CellOverflowError(
                 f"cell capacity overflow persists after growing "
                 f"{old.cap} -> {new.cap}")

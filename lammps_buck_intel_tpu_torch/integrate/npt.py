@@ -64,6 +64,7 @@ from ..models.bonded import compute_bonded
 from ..models.pair import driver
 from ..models.pair.styles import PairStyle
 from ..neighbor import neighbor_list as nlm
+from ..utils import trace
 from . import nve
 from . import shake as shk
 from .nvt import NVTConfig, nhc_scale
@@ -355,6 +356,9 @@ class NPTSimulation:
             virial=torch.zeros(6, dtype=acc, device=dev),
             overflow=torch.zeros((), dtype=torch.bool, device=dev),
             ptherm=torch.zeros((2, npt.pchain), dtype=flt, device=dev))
+        self.timings = {"run": 0.0, "setup": 0.0}
+
+        t0 = time.perf_counter()
         if shake is not None:
             # settle onto the constraints (x_old = x_new, dt = 1; the
             # velocities stay), then project the velocities
@@ -368,7 +372,7 @@ class NPTSimulation:
             torch.as_tensor(L0).to(dev, flt), self.spec, self._special)
         self.state = self._init_forces(st)
         self.step_count = 0
-        self.timings = {"run": 0.0}
+        self.timings["setup"] += time.perf_counter() - t0
 
     # ---------- forces ----------
 
@@ -381,7 +385,8 @@ class NPTSimulation:
         for a solver without them (Ewald rebuilds its own every step)."""
         if self.kspace is None or not hasattr(self.kspace, "tables"):
             return None
-        return self.kspace.tables(boxL)
+        with trace.span("kspace"):
+            return self.kspace.tables(boxL)
 
     def _forces(self, x, boxL, nl, kc, eflag: bool = False):
         """(fa, fb, virial, energies): fa the acc planes of pair + bonded
@@ -389,25 +394,28 @@ class NPTSimulation:
         energies = (evdwl, ecoul, elong, emol), the CHARMM 1-4 pair terms
         in evdwl and ecoul."""
         acc = self.precision.acc
-        pr = driver.compute_pair(
-            self.pair, x, self.typ, self.q, boxL, nl, eflag=eflag,
-            acc_dtype=acc, use_special=self._special is not None)
+        with trace.span("pair"):
+            pr = driver.compute_pair(
+                self.pair, x, self.typ, self.q, boxL, nl, eflag=eflag,
+                acc_dtype=acc, use_special=self._special is not None)
         fa = (pr.fx, pr.fy, pr.fz)
         virial = pr.virial
         zero = torch.zeros((), dtype=acc, device=self.device)
         evdwl, ecoul, elong, emol = pr.evdwl, pr.ecoul, zero, zero
         fb = None
         if self.kspace is not None:
-            kr = self.kspace.compute_traced(x, self.q, boxL, eflag=eflag,
-                                            kc=kc)
+            with trace.span("kspace"):
+                kr = self.kspace.compute_traced(x, self.q, boxL, eflag=eflag,
+                                                kc=kc)
             fb = kr.f
             virial = virial + kr.virial
             elong = kr.elong
         if self.bonded is not None:
             # the energy variant every step: the barostat needs the bonded
             # virial, which the force-only variant does not reduce
-            br = compute_bonded(self.bonded, tuple(x.unbind(0)), boxL,
-                                eflag=True, acc_dtype=acc, out=fa)
+            with trace.span("bonded"):
+                br = compute_bonded(self.bonded, tuple(x.unbind(0)), boxL,
+                                    eflag=True, acc_dtype=acc, out=fa)
             virial = virial + br.virial
             if eflag:
                 emol = br.emol
@@ -471,52 +479,60 @@ class NPTSimulation:
         dtf, dtv = self.dtf, self.dtv
         xs, vs = tuple(st.x.unbind(0)), tuple(st.v.unbind(0))
         fs = tuple(st.f.unbind(0))
-        st = self._baro_chain(st, t_target)
-        st = self._chain(st, t_target)
-        st = st._replace(omega_dot=self._omega_dot_half(st, t_target,
-                                                        p_target))
-        vfac = nh_press_vfac(self.npt, self.n_atoms, self.dt, st.omega_dot)
-        vscale_kick(vs, fs, self.typ, self._minv_t, vfac, dtf)
-        flags = _flags(self.npt, st.omega_dot)
-        s = torch.exp(dtv * torch.where(flags, st.omega_dot,
-                                        torch.zeros_like(st.omega_dot)))
-        boxL = st.boxL * s
-        vir_c = None
-        if self.shake is not None:
-            # reference bond vectors of the pre-drift positions under the
-            # NEW box (the JAX package folds x_ref with the dilated lengths)
-            ro = shk.shake_ref(self._shake_t, xs, self._inv, boxL)
-        drift_dilate(xs, vs, s, self._center, dtv)
-        if self.shake is not None:
-            _, vir_c = shk.shake_positions(
-                self._shake_t, ro, xs, vs, self._inv, boxL, dtv,
-                self.shake.iters, virial_factor=1.0 / (dtv * dtf))
+        with trace.span("integrate"):
+            st = self._baro_chain(st, t_target)
+            st = self._chain(st, t_target)
+            st = st._replace(omega_dot=self._omega_dot_half(st, t_target,
+                                                            p_target))
+            vfac = nh_press_vfac(self.npt, self.n_atoms, self.dt, st.omega_dot)
+            vscale_kick(vs, fs, self.typ, self._minv_t, vfac, dtf)
+            flags = _flags(self.npt, st.omega_dot)
+            s = torch.exp(dtv * torch.where(flags, st.omega_dot,
+                                            torch.zeros_like(st.omega_dot)))
+            boxL = st.boxL * s
+            vir_c = None
+            if self.shake is not None:
+                # reference bond vectors of the pre-drift positions under
+                # the NEW box (the JAX package folds x_ref with the dilated
+                # lengths)
+                ro = shk.shake_ref(self._shake_t, xs, self._inv, boxL)
+            drift_dilate(xs, vs, s, self._center, dtv)
+            if self.shake is not None:
+                _, vir_c = shk.shake_positions(
+                    self._shake_t, ro, xs, vs, self._inv, boxL, dtv,
+                    self.shake.iters, virial_factor=1.0 / (dtv * dtf))
         fa, fb, virial, _ = self._forces(st.x, boxL, nl, kc)
-        if vir_c is not None:
-            virial = virial + vir_c
-        st = st._replace(boxL=boxL, virial=virial)
-        self._kick(st, fa, fb, dtf)
-        if self.shake is not None:
-            shk.rattle_velocities(self._shake_t, vs, self._inv, boxL, xs=xs)
-        vscale_kick(vs, None, self.typ, self._minv_t, vfac, 0.0)
-        st = st._replace(omega_dot=self._omega_dot_half(st, t_target,
-                                                        p_target))
-        st = self._chain(st, t_target)
-        return self._baro_chain(st, t_target)
+        with trace.span("integrate"):
+            if vir_c is not None:
+                virial = virial + vir_c
+            st = st._replace(boxL=boxL, virial=virial)
+            self._kick(st, fa, fb, dtf)
+            if self.shake is not None:
+                shk.rattle_velocities(self._shake_t, vs, self._inv, boxL,
+                                      xs=xs)
+            vscale_kick(vs, None, self.typ, self._minv_t, vfac, 0.0)
+            st = st._replace(omega_dot=self._omega_dot_half(st, t_target,
+                                                            p_target))
+            st = self._chain(st, t_target)
+            return self._baro_chain(st, t_target)
 
     def _block(self, st: NPTState, nsteps: int, t_target,
                p_target) -> NPTState:
         """Wrap, rebuild the list and G on the block-start box, then
         nsteps with the stale list (the skin bound)."""
-        x, image = wrap(st.x, st.image, traced_lo(self._center_t, st.boxL),
-                        st.boxL)
-        st = st._replace(x=x, image=image)
-        nl = self._build_nl(st.x, st.boxL)
-        st = st._replace(overflow=st.overflow | nl.overflow)
-        kc = self._kspace_kc(st.boxL)
-        for _ in range(nsteps):
-            st = self._one_step(st, nl, kc, t_target, p_target)
-        return st
+        trace.count("step", nsteps)
+        with trace.span("block"):
+            trace.count("neighbor_build")
+            with trace.span("neighbor"):
+                x, image = wrap(st.x, st.image,
+                                traced_lo(self._center_t, st.boxL), st.boxL)
+                st = st._replace(x=x, image=image)
+                nl = self._build_nl(st.x, st.boxL)
+            st = st._replace(overflow=st.overflow | nl.overflow)
+            kc = self._kspace_kc(st.boxL)
+            for _ in range(nsteps):
+                st = self._one_step(st, nl, kc, t_target, p_target)
+            return st
 
     # ---------- thermo ----------
 
@@ -528,7 +544,9 @@ class NPTSimulation:
         ke = 0.5 * sum_mv2
         press = (sum_mv2 + st.virial[0] + st.virial[1] + st.virial[2]) \
             / (3.0 * V) * u.nktv2p
-        nl = self._build_nl(st.x, st.boxL)
+        trace.count("neighbor_build")
+        with trace.span("neighbor"):
+            nl = self._build_nl(st.x, st.boxL)
         _, _, _, (evdwl, ecoul, elong, emol) = self._forces(
             st.x, st.boxL, nl, self._kspace_kc(st.boxL), eflag=True)
         epair = evdwl + ecoul + elong
@@ -557,14 +575,19 @@ class NPTSimulation:
                 "compressed state")
 
     def thermo(self) -> dict:
-        row = self._thermo_device(self.state)
+        trace.count("thermo_row")
+        with trace.span("thermo"):
+            row = self._thermo_device(self.state)
+            with trace.span("readback"):
+                return self._readback(row)
+
+    def _readback(self, row: dict) -> dict:
         keys = [k for k, v in row.items() if v.dim() == 0]
         vecs = [k for k, v in row.items() if v.dim() == 1]
         # one device -> host transfer for the whole row
-        host = torch.cat([torch.stack([row[k].to(torch.float64)
-                                       for k in keys])]
-                         + [row[k].to(torch.float64) for k in vecs]
-                         ).cpu().numpy()
+        host = trace.to_host(torch.cat(
+            [torch.stack([row[k].to(torch.float64) for k in keys])]
+            + [row[k].to(torch.float64) for k in vecs])).numpy()
         out = {k: float(v) for k, v in zip(keys, host[:len(keys)])}
         off = len(keys)
         for k in vecs:
@@ -643,32 +666,35 @@ class NPTSimulation:
                       f"L=({L[0]:.4f},{L[1]:.4f},{L[2]:.4f})")
 
         t0 = time.perf_counter()
-        if self.state.ptherm.shape[1] != self.npt.pchain:
-            # the config was swapped: re-seed the barostat chain
-            self.state = self.state._replace(ptherm=torch.zeros(
-                (2, self.npt.pchain), dtype=self.precision.flt,
-                device=self.device))
-        if thermo_every:
-            emit()
-        done = 0
-        cadence = max(1, self.neighbor.every)
-        while done < nsteps:
-            target = min(nsteps, done + (thermo_every or nsteps))
-            while done < target:
-                size = min(cadence, target - done)
-                # segment-END ramps: t_stop / p_stop reached on the last step
-                tt, pt = self._targets((done + size) / max(nsteps, 1))
-                self.state = self._block(self.state, size, tt, pt)
-                done += size
-                self.step_count += size
+        with trace.span("run"):
+            if self.state.ptherm.shape[1] != self.npt.pchain:
+                # the config was swapped: re-seed the barostat chain
+                self.state = self.state._replace(ptherm=torch.zeros(
+                    (2, self.npt.pchain), dtype=self.precision.flt,
+                    device=self.device))
             if thermo_every:
                 emit()
-        # the guards fire even with thermo off
-        host = torch.cat([self.state.overflow.to(torch.float64)[None],
-                          self.state.boxL.to(torch.float64)]).cpu().numpy()
-        self._guards(bool(host[0]), host[1:], self.step_count)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            done = 0
+            cadence = max(1, self.neighbor.every)
+            while done < nsteps:
+                target = min(nsteps, done + (thermo_every or nsteps))
+                with trace.span("segment"):
+                    while done < target:
+                        size = min(cadence, target - done)
+                        # segment-END ramps: t_stop / p_stop reached on the
+                        # last step
+                        tt, pt = self._targets((done + size) / max(nsteps, 1))
+                        self.state = self._block(self.state, size, tt, pt)
+                        done += size
+                        self.step_count += size
+                if thermo_every:
+                    emit()
+            # the guards fire even with thermo off
+            host = trace.to_host(torch.cat([
+                self.state.overflow.to(torch.float64)[None],
+                self.state.boxL.to(torch.float64)])).numpy()
+            self._guards(bool(host[0]), host[1:], self.step_count)
+            trace.synchronize(self.device)
         self.timings["run"] += time.perf_counter() - t0
         return rows
 

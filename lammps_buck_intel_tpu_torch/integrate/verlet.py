@@ -55,6 +55,7 @@ from ..models.bonded import compute_bonded
 from ..models.pair import driver
 from ..models.pair.styles import PairStyle
 from ..neighbor import neighbor_list as nlm
+from ..utils import trace
 from . import nve
 from . import shake as shk
 from .nvt import NVTConfig, nhc_scale
@@ -240,21 +241,26 @@ class Simulation:
 
     def _forces(self, x, nlist, eflag: bool, vflag: bool) -> Forces:
         acc = self.precision.acc
-        pr = driver.compute_pair(
-            self.pair, x, self.typ, self.q, self._boxL, nlist, eflag=eflag,
-            acc_dtype=acc, use_special=self._special is not None)
+        with trace.span("pair"):
+            pr = driver.compute_pair(
+                self.pair, x, self.typ, self.q, self._boxL, nlist,
+                eflag=eflag, acc_dtype=acc,
+                use_special=self._special is not None)
         fa, virial = (pr.fx, pr.fy, pr.fz), pr.virial
         zero = torch.zeros((), dtype=acc, device=self.device)
         evdwl, ecoul = pr.evdwl, pr.ecoul
         elong = ebond = eangle = emol_extra = zero
         fb = None
         if self.kspace is not None:
-            kr = self.kspace.compute(x, self.q, eflag=eflag, vflag=vflag)
+            with trace.span("kspace"):
+                kr = self.kspace.compute(x, self.q, eflag=eflag, vflag=vflag)
             fb, elong = kr.f, kr.elong
             virial = virial + kr.virial
         if self.bonded is not None:
-            br = compute_bonded(self.bonded, tuple(x.unbind(0)), self._boxL,
-                                eflag=eflag, acc_dtype=acc, out=fa)
+            with trace.span("bonded"):
+                br = compute_bonded(self.bonded, tuple(x.unbind(0)),
+                                    self._boxL, eflag=eflag, acc_dtype=acc,
+                                    out=fa)
             ebond, eangle = br.ebond, br.eangle
             emol_extra = br.edihed + br.eimp
             # CHARMM 1-4 terms tally into the pair energies
@@ -294,40 +300,49 @@ class Simulation:
 
     def _block(self, st: MDState, nsteps: int, t_target: float) -> MDState:
         """Wrap, rebuild, then nsteps velocity-Verlet steps on the list."""
-        st, nl = self._wrap_build(st)
-        xs, vs = tuple(st.x.unbind(0)), tuple(st.v.unbind(0))
-        fs = tuple(st.f.unbind(0))
-        cfg, sc, t = self.thermostat, self.shake, self._shake_t
-        inv, L = self._inv, self._boxL
-        therm = st.therm
-        for _ in range(nsteps):
-            if cfg is not None:
-                therm = nhc_scale(cfg, therm, vs, self._kinetic(st.v),
-                                  t_target)
-            if sc is not None:
-                ro = shk.shake_ref(t, xs, inv, L)
-            nve.kick_drift(xs, vs, fs, self.typ, self._aid, self._minv_t,
-                           self.n_atoms, self.dtf, self.dtv)
-            if sc is not None:
-                rn = shk.shake_positions(t, ro, xs, vs, inv, L, self.dtv,
-                                         sc.iters)
-            fr = self._forces(st.x, nl, eflag=False, vflag=False)
-            partial = self._kick(st, fr, self.dtf,
-                                 cfg is not None and sc is None)
-            if sc is not None:
-                shk.rattle_velocities(t, vs, inv, L, r=rn)
-                if cfg is not None:
-                    # the chain sees the projected velocities
-                    partial = self._kinetic(st.v)
-            if cfg is not None:
-                therm = nhc_scale(cfg, therm, vs, partial, t_target)
-        return st._replace(therm=therm)
+        trace.count("step", nsteps)
+        with trace.span("block"):
+            trace.count("neighbor_build")
+            with trace.span("neighbor"):
+                st, nl = self._wrap_build(st)
+            xs, vs = tuple(st.x.unbind(0)), tuple(st.v.unbind(0))
+            fs = tuple(st.f.unbind(0))
+            cfg, sc, t = self.thermostat, self.shake, self._shake_t
+            inv, L = self._inv, self._boxL
+            therm = st.therm
+            for _ in range(nsteps):
+                with trace.span("integrate"):
+                    if cfg is not None:
+                        therm = nhc_scale(cfg, therm, vs,
+                                          self._kinetic(st.v), t_target)
+                    if sc is not None:
+                        ro = shk.shake_ref(t, xs, inv, L)
+                    nve.kick_drift(xs, vs, fs, self.typ, self._aid,
+                                   self._minv_t, self.n_atoms, self.dtf,
+                                   self.dtv)
+                    if sc is not None:
+                        rn = shk.shake_positions(t, ro, xs, vs, inv, L,
+                                                 self.dtv, sc.iters)
+                fr = self._forces(st.x, nl, eflag=False, vflag=False)
+                with trace.span("integrate"):
+                    partial = self._kick(st, fr, self.dtf,
+                                         cfg is not None and sc is None)
+                    if sc is not None:
+                        shk.rattle_velocities(t, vs, inv, L, r=rn)
+                        if cfg is not None:
+                            # the chain sees the projected velocities
+                            partial = self._kinetic(st.v)
+                    if cfg is not None:
+                        therm = nhc_scale(cfg, therm, vs, partial, t_target)
+            return st._replace(therm=therm)
 
     # ---------- thermo ----------
 
     def _thermo_device(self, st: MDState) -> dict:
-        x, _ = wrap(st.x, st.image, self._lo, self._boxL)
-        nl = self._build(x)
+        trace.count("neighbor_build")
+        with trace.span("neighbor"):
+            x, _ = wrap(st.x, st.image, self._lo, self._boxL)
+            nl = self._build(x)
         fr = self._forces(x, nl, eflag=True, vflag=True)
         u = self.units
         kin = self._kinetic(st.v)
@@ -361,12 +376,18 @@ class Simulation:
 
     def thermo(self) -> dict:
         """One device -> host transfer for the whole row."""
-        row = self._thermo_device(self.state)
+        trace.count("thermo_row")
+        with trace.span("thermo"):
+            row = self._thermo_device(self.state)
+            with trace.span("readback"):
+                return self._readback(row)
+
+    def _readback(self, row: dict) -> dict:
         virial = row.pop("virial")
         keys = list(row)
-        host = torch.cat([torch.stack([row[k].to(torch.float64)
-                                       for k in keys]),
-                          virial.to(torch.float64)]).cpu().numpy()
+        host = trace.to_host(torch.cat([
+            torch.stack([row[k].to(torch.float64) for k in keys]),
+            virial.to(torch.float64)])).numpy()
         out = {k: float(v) for k, v in zip(keys, host[:len(keys)])}
         out["virial"] = host[len(keys):]
         out["step"] = self.step_count
@@ -443,7 +464,8 @@ class Simulation:
             self.state = self._block(self.state, rem, tt)
 
     def _vmax_now(self) -> float:
-        return float(torch.sqrt(self._kinetic(self.state.v)[:, 1].max()))
+        return float(trace.to_host(
+            torch.sqrt(self._kinetic(self.state.v)[:, 1].max())))
 
     # ---------- main loop ----------
 
@@ -467,32 +489,34 @@ class Simulation:
                       f"{row['etotal']:>14.8g} {row['press']:>14.6g}")
 
         t0 = time.perf_counter()
-        self._run_total, self._run_done = nsteps, 0
-        if thermo_every:
-            emit()
-        elif self.neighbor.check:
-            # no thermo row will supply vmax: sample it once, so the
-            # displacement bound applies (else an 'every 1 check yes' deck
-            # would rebuild every step)
-            vmax = self._vmax_now()
-        end = self.step_count + nsteps
-        while self.step_count < end:
-            target = end
+        with trace.span("run"):
+            self._run_total, self._run_done = nsteps, 0
             if thermo_every:
-                target = min(
-                    end,
-                    ((self.step_count // thermo_every) + 1) * thermo_every)
-            self._advance(target - self.step_count, self._cadence(vmax))
-            self._run_done += target - self.step_count
-            self.step_count = target
-            if thermo_every and self.step_count % thermo_every == 0:
                 emit()
-        if thermo_every and (not rows or rows[-1]["step"] != self.step_count):
-            emit()
-        elif bool(self.state.overflow):
-            # a run never returns with dropped pairs, thermo or not
-            raise self._overflow_error()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            elif self.neighbor.check:
+                # no thermo row will supply vmax: sample it once, so the
+                # displacement bound applies (else an 'every 1 check yes'
+                # deck would rebuild every step)
+                vmax = self._vmax_now()
+            end = self.step_count + nsteps
+            while self.step_count < end:
+                target = end
+                if thermo_every:
+                    target = min(end, ((self.step_count // thermo_every)
+                                       + 1) * thermo_every)
+                with trace.span("segment"):
+                    self._advance(target - self.step_count,
+                                  self._cadence(vmax))
+                    self._run_done += target - self.step_count
+                    self.step_count = target
+                if thermo_every and self.step_count % thermo_every == 0:
+                    emit()
+            if thermo_every and (not rows
+                                 or rows[-1]["step"] != self.step_count):
+                emit()
+            elif bool(trace.to_host(self.state.overflow)):
+                # a run never returns with dropped pairs, thermo or not
+                raise self._overflow_error()
+            trace.synchronize(self.device)
         self.timings["run"] += time.perf_counter() - t0
         return rows

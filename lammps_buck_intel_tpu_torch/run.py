@@ -71,6 +71,8 @@ import time
 import numpy as np
 import torch
 
+from .utils import trace
+
 # deck key -> where its port stands in ROADMAP queue 1
 _UNPORTED_KEYS = {
     "delete_atoms": "item 15",
@@ -696,7 +698,10 @@ def build_simulation(cfg: dict, device="cuda"):
     """Construct the deck's engine on ``device``: an NPTSimulation for fix
     npt; else a CellPairSimulation for ``engine: cellpair`` unless its box
     is too small for the cells; else a Simulation, whose k-space is the
-    deck's PPPM on the generic mesh or its Ewald sum."""
+    deck's PPPM on the generic mesh or its Ewald sum.  The stages are the
+    spans ``setup.geometry``, ``setup.velocity``, ``setup.params`` and
+    ``setup.engine`` (``utils.trace``); the last ends when the device has
+    done the engine's set-up work."""
     from .core import (build_topology, get_precision, get_units, make_box,
                        make_system)
     from .integrate import (CellPairSimulation, NeighborPolicy, NVTConfig,
@@ -710,159 +715,171 @@ def build_simulation(cfg: dict, device="cuda"):
     prec = get_precision(cfg.get("precision", "single"))
     dt = cfg.get("timestep", u.dt)
 
-    g = _geometry(cfg)
+    with trace.span("setup.geometry"):
+        g = _geometry(cfg)
     x, typ, q, mass, v0 = g["x"], g["typ"], g["q"], g["mass"], g["v0"]
     n = len(x)
     vel = cfg.get("velocity")
     if vel:
-        v0 = velocity.create(
-            n, vel["temp"], vel.get("seed", 12345), mass[typ], u,
-            dist=vel.get("dist", "gaussian"), rng=vel.get("rng", "numpy"),
-            loop=vel.get("loop", "all"), coords=x)
+        with trace.span("setup.velocity"):
+            v0 = velocity.create(
+                n, vel["temp"], vel.get("seed", 12345), mass[typ], u,
+                dist=vel.get("dist", "gaussian"), rng=vel.get("rng", "numpy"),
+                loop=vel.get("loop", "all"), coords=x)
 
-    box = make_box(g["lo"], g["hi"])
-    bonds = g["bonds"]
-    topo = (build_topology(n, bonds=bonds, angles=g["angles"],
-                           dihedrals=g["dihedrals"],
-                           impropers=g["impropers"])
-            if bonds is not None and len(bonds) else None)
-    ps = cfg["pair_style"]
-    style = _pair_style(cfg, len(mass), g["data_coeffs"].get("pair"),
-                        u.qqrd2e)
-    ks = cfg.get("kspace_style")
-    ewald = B = None
-    coul, _ = _pair_forms(ps)
-    if ks is not None and ks["name"] == "pppm/disp":
-        from .models.kspace import solve_g6
+    with trace.span("setup.params"):
+        box = make_box(g["lo"], g["hi"])
+        bonds = g["bonds"]
+        topo = (build_topology(n, bonds=bonds, angles=g["angles"],
+                               dihedrals=g["dihedrals"],
+                               impropers=g["impropers"])
+                if bonds is not None and len(bonds) else None)
+        ps = cfg["pair_style"]
+        style = _pair_style(cfg, len(mass), g["data_coeffs"].get("pair"),
+                            u.qqrd2e)
+        ks = cfg.get("kspace_style")
+        ewald = B = None
+        coul, _ = _pair_forms(ps)
+        if ks is not None and ks["name"] == "pppm/disp":
+            from .models.kspace import solve_g6
 
-        if coul == "long":
-            # the JAX run.py's order: g_ewald of the Coulomb PPPM first,
-            # then g_ewald_6 of the dispersion split
-            style = style.replace(g_ewald=float(pppm_g_ewald(
-                box, q, ps.get("cut_coul", ps["cut"]),
-                ks.get("accuracy", 1e-4), u.qqrd2e)))
-        style = style.replace(g_ewald_6=solve_g6(
-            ps["cut"], ks.get("force_disp_real", 1e-4)))
-        B = _disp_b(cfg, len(mass))
-    elif ks is not None:
-        gew = ks.get("gewald")
-        if ks["name"] == "ewald":
-            # the JAX run.py's order: the k set first, its g_ewald to the
-            # pair style
-            ewald = setup_ewald(box, q, cutoff=ps.get("cut_coul", ps["cut"]),
-                                accuracy_rel=ks.get("accuracy", 1e-4),
-                                qqrd2e=u.qqrd2e, g_ewald=gew,
-                                acc_dtype=prec.acc)
-            gew = ewald.g_ewald
-        elif gew is None:
-            gew = pppm_g_ewald(box, q, ps.get("cut_coul", ps["cut"]),
-                               ks.get("accuracy", 1e-4), u.qqrd2e,
-                               slab=ks.get("slab"))
-        style = style.replace(g_ewald=float(gew))
-    thermostat = shake = npt_fix = rigid = None
-    exclude_intra = bool(cfg.get("exclude_intra", False))
-    shaken = ((), ())
-    for fx in cfg.get("fixes", [{"name": "nve"}]):
-        if fx["name"] == "nvt":
-            thermostat = NVTConfig(
-                t_start=fx["t_start"], t_stop=fx.get("t_stop", fx["t_start"]),
-                t_damp=fx["t_damp"], tchain=fx.get("tchain", 3))
-        elif fx["name"] == "npt":
-            npt_fix, thermostat = _npt_config(fx)
-        elif fx["name"] == "shake":
-            shake, *shaken = _shake(cfg, fx, g)
-        elif fx["name"] == "rigid/small":
-            from .integrate.rigid import make_rigid_bodies
+            if coul == "long":
+                # the JAX run.py's order: g_ewald of the Coulomb PPPM first,
+                # then g_ewald_6 of the dispersion split
+                style = style.replace(g_ewald=float(pppm_g_ewald(
+                    box, q, ps.get("cut_coul", ps["cut"]),
+                    ks.get("accuracy", 1e-4), u.qqrd2e)))
+            style = style.replace(g_ewald_6=solve_g6(
+                ps["cut"], ks.get("force_disp_real", 1e-4)))
+            B = _disp_b(cfg, len(mass))
+        elif ks is not None:
+            gew = ks.get("gewald")
+            if ks["name"] == "ewald":
+                # the JAX run.py's order: the k set first, its g_ewald to the
+                # pair style
+                ewald = setup_ewald(
+                    box, q, cutoff=ps.get("cut_coul", ps["cut"]),
+                    accuracy_rel=ks.get("accuracy", 1e-4), qqrd2e=u.qqrd2e,
+                    g_ewald=gew, acc_dtype=prec.acc)
+                gew = ewald.g_ewald
+            elif gew is None:
+                gew = pppm_g_ewald(box, q, ps.get("cut_coul", ps["cut"]),
+                                   ks.get("accuracy", 1e-4), u.qqrd2e,
+                                   slab=ks.get("slab"))
+            style = style.replace(g_ewald=float(gew))
+        thermostat = shake = npt_fix = rigid = None
+        exclude_intra = bool(cfg.get("exclude_intra", False))
+        shaken = ((), ())
+        for fx in cfg.get("fixes", [{"name": "nve"}]):
+            if fx["name"] == "nvt":
+                thermostat = NVTConfig(
+                    t_start=fx["t_start"],
+                    t_stop=fx.get("t_stop", fx["t_start"]),
+                    t_damp=fx["t_damp"], tchain=fx.get("tchain", 3))
+            elif fx["name"] == "npt":
+                npt_fix, thermostat = _npt_config(fx)
+            elif fx["name"] == "shake":
+                shake, *shaken = _shake(cfg, fx, g)
+            elif fx["name"] == "rigid/small":
+                from .integrate.rigid import make_rigid_bodies
 
-            rigid = make_rigid_bodies(x, g["mol"], mass[typ], box)
-    if (rigid is not None or exclude_intra) and g["mol"] is None:
-        raise ValueError("fix rigid/small and exclude_intra need molecule "
-                         "ids (a data file of atom style full)")
-    # the special-bond table above keeps the full topology; the bonded
-    # terms lose the constrained types
-    bonded = _bonded(cfg, g, style, u.qqrd2e, shaken)
+                rigid = make_rigid_bodies(x, g["mol"], mass[typ], box)
+        if (rigid is not None or exclude_intra) and g["mol"] is None:
+            raise ValueError("fix rigid/small and exclude_intra need molecule "
+                             "ids (a data file of atom style full)")
+        # the special-bond table above keeps the full topology; the bonded
+        # terms lose the constrained types
+        bonded = _bonded(cfg, g, style, u.qqrd2e, shaken)
 
-    nb = cfg.get("neighbor", {})
-    policy = NeighborPolicy(
-        skin=nb.get("skin", u.skin), every=nb.get("every", 1),
-        delay=nb.get("delay", 0), check=nb.get("check", True))
-    system = make_system(x, box, type=typ, v=v0, q=q, image=g["image"],
-                         mass=mass, molecule=g["mol"], dtype=prec.flt,
-                         device=dev)
-    if npt_fix is not None:
-        # the NPT branch comes before the engine choice, as in the JAX
-        # package: the neighbor-list engine with the variable-cell PPPM
-        from .integrate import NPTSimulation
+        nb = cfg.get("neighbor", {})
+        policy = NeighborPolicy(
+            skin=nb.get("skin", u.skin), every=nb.get("every", 1),
+            delay=nb.get("delay", 0), check=nb.get("check", True))
 
-        kspace = (None if ks is None
-                  else _npt_traced_kspace(cfg, box, q, style, prec, ewald))
-        return NPTSimulation(
-            system, style, npt_fix, thermostat, kspace=kspace, bonded=bonded,
-            units=u, precision=prec, dt=dt, neighbor=policy, shake=shake,
-            topology=topo)
-    generic = None
-    if B is not None:
-        # pppm/disp: the Coulomb PPPM on the generic mesh (with long-range
-        # Coulomb) beside the bound dispersion solver, the JAX package's
-        # solvers for the list engine and for the cell engine's slot
-        # positions
-        generic = _generic_disp(cfg, box, typ, B, style, prec)
-        if coul == "long":
-            from .models.kspace import CombinedKSpace
+    def engine():
+        system = make_system(x, box, type=typ, v=v0, q=q, image=g["image"],
+                             mass=mass, molecule=g["mol"], dtype=prec.flt,
+                             device=dev)
+        if npt_fix is not None:
+            # the NPT branch comes before the engine choice, as in the JAX
+            # package: the neighbor-list engine with the variable-cell PPPM
+            from .integrate import NPTSimulation
 
-            generic = CombinedKSpace(
-                [_generic_pppm(cfg, box, q, style, prec), generic])
-    if cfg.get("engine", "nlist") == "cellpair":
-        if ks is None:
-            kspace = None
-        elif B is not None and coul != "long" and _disp_mix(cfg) == \
-                "geometric":
-            # the JAX package's use_celldisp: one channel on a mesh aligned
-            # to the cells
-            kspace = _disp_for_grid(cfg, box, typ, B, style, prec,
-                                    policy.skin)
-        elif B is not None:
-            kspace = lambda grid: generic  # noqa: E731
-        elif ewald is not None or ks.get("slab"):
-            # the JAX runner's generic solvers on the slot positions: an
-            # Ewald sum, or a slab deck's PPPM (its z-extended mesh is not
-            # aligned to the cells, JAX run.py:858)
-            solver = ewald if ewald is not None else _generic_pppm(
-                cfg, box, q, style, prec)
-            kspace = lambda grid: solver  # noqa: E731
-        else:
-            kspace = _pppm_for_grid(cfg, box, q, style, prec, policy.skin)
-        try:
-            return CellPairSimulation(
-                system, style, units=u, precision=prec, dt=dt,
-                neighbor=policy,
-                cap=int(cfg["cap"]) if cfg.get("cap") else None,
-                kspace=kspace, topology=topo, bonded=bonded,
-                thermostat=thermostat, shake=shake, rigid=rigid,
-                exclude_intra=exclude_intra)
-        except ValueError as e:
-            # ONLY the box-too-small geometry falls through to the
-            # neighbor-list engine, as in the JAX package; every other
-            # error stays loud
-            if "box too small" not in str(e):
-                raise
-        if cfg.get("cap"):
-            raise NotImplementedError(
-                "deck key 'cap' sizes the cell engine's slots; this deck's "
-                "box is too small for the cell engine, and the neighbor-list "
-                "engine sizes its own capacities: drop cap")
-        if rigid is not None or exclude_intra:
-            raise NotImplementedError(
-                "this deck's box is too small for the cell engine, and "
-                "fix rigid/small and exclude_intra on the neighbor-list "
-                "engine are not ported: ROADMAP queue 1 item 13(c)")
-    kspace = ewald if generic is None else generic
-    if ks is not None and kspace is None:
-        kspace = _generic_pppm(cfg, box, q, style, prec)
-    return Simulation(
-        system, style, topology=topo, kspace=kspace, bonded=bonded, units=u,
-        precision=prec, dt=dt, neighbor=policy, thermostat=thermostat,
-        shake=shake)
+            kspace = (None if ks is None
+                      else _npt_traced_kspace(cfg, box, q, style, prec, ewald))
+            return NPTSimulation(
+                system, style, npt_fix, thermostat, kspace=kspace,
+                bonded=bonded, units=u, precision=prec, dt=dt,
+                neighbor=policy, shake=shake, topology=topo)
+        generic = None
+        if B is not None:
+            # pppm/disp: the Coulomb PPPM on the generic mesh (with long-range
+            # Coulomb) beside the bound dispersion solver, the JAX package's
+            # solvers for the list engine and for the cell engine's slot
+            # positions
+            generic = _generic_disp(cfg, box, typ, B, style, prec)
+            if coul == "long":
+                from .models.kspace import CombinedKSpace
+
+                generic = CombinedKSpace(
+                    [_generic_pppm(cfg, box, q, style, prec), generic])
+        if cfg.get("engine", "nlist") == "cellpair":
+            if ks is None:
+                kspace = None
+            elif B is not None and coul != "long" and _disp_mix(cfg) == \
+                    "geometric":
+                # the JAX package's use_celldisp: one channel on a mesh aligned
+                # to the cells
+                kspace = _disp_for_grid(cfg, box, typ, B, style, prec,
+                                        policy.skin)
+            elif B is not None:
+                kspace = lambda grid: generic  # noqa: E731
+            elif ewald is not None or ks.get("slab"):
+                # the JAX runner's generic solvers on the slot positions: an
+                # Ewald sum, or a slab deck's PPPM (its z-extended mesh is not
+                # aligned to the cells, JAX run.py:858)
+                solver = ewald if ewald is not None else _generic_pppm(
+                    cfg, box, q, style, prec)
+                kspace = lambda grid: solver  # noqa: E731
+            else:
+                kspace = _pppm_for_grid(cfg, box, q, style, prec, policy.skin)
+            try:
+                return CellPairSimulation(
+                    system, style, units=u, precision=prec, dt=dt,
+                    neighbor=policy,
+                    cap=int(cfg["cap"]) if cfg.get("cap") else None,
+                    kspace=kspace, topology=topo, bonded=bonded,
+                    thermostat=thermostat, shake=shake, rigid=rigid,
+                    exclude_intra=exclude_intra)
+            except ValueError as e:
+                # ONLY the box-too-small geometry falls through to the
+                # neighbor-list engine, as in the JAX package; every other
+                # error stays loud
+                if "box too small" not in str(e):
+                    raise
+            if cfg.get("cap"):
+                raise NotImplementedError(
+                    "deck key 'cap' sizes the cell engine's slots; this "
+                    "deck's box is too small for the cell engine, and the "
+                    "neighbor-list engine sizes its own capacities: drop cap")
+            if rigid is not None or exclude_intra:
+                raise NotImplementedError(
+                    "this deck's box is too small for the cell engine, and "
+                    "fix rigid/small and exclude_intra on the neighbor-list "
+                    "engine are not ported: ROADMAP queue 1 item 13(c)")
+        kspace = ewald if generic is None else generic
+        if ks is not None and kspace is None:
+            kspace = _generic_pppm(cfg, box, q, style, prec)
+        return Simulation(
+            system, style, topology=topo, kspace=kspace, bonded=bonded,
+            units=u, precision=prec, dt=dt, neighbor=policy,
+            thermostat=thermostat, shake=shake)
+
+    with trace.span("setup.engine"):
+        sim = engine()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return sim
 
 
 def _frame_writer(dmp: dict, sim):

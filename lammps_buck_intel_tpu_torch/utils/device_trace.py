@@ -1,8 +1,8 @@
 """Device-side time of a piece of work, from a ``torch.profiler`` trace.
 
-Used by chip_smoke.py and tools/profile_torch_deck.py to read the card's
-own time of kernels (what CUDA events around a call cannot separate from
-the host time of the Python wrapper that launches them).  The tracer can
+Used by chip_smoke.py to read the card's own time of kernels (what CUDA
+events around a call cannot separate from the host time of the Python
+wrapper that launches them).  The tracer can
 miss the first kernels after it starts, so it starts on an idle card and
 every trace opens with eight spin kernels, and only events that start
 after the last of them count;
