@@ -266,7 +266,7 @@ from lammps_buck_intel_tpu_torch.neighbor import cell_slots as cs
 from lammps_buck_intel_tpu_torch.ops import build
 from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
 from lammps_buck_intel_tpu_torch.run import build_simulation
-from lammps_buck_intel_tpu_torch.utils import device_trace
+from lammps_buck_intel_tpu_torch.utils import device_trace, trace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DECKS = os.path.join(ROOT, "examples", "decks")
@@ -574,8 +574,31 @@ def _k1_compare(label, style, grid, box, st, acc, special=None,
     return abs_err
 
 
+def _k1_counts(style, grid, box, st, special=None, slot_mol=None) -> dict:
+    """K1's device counters (utils/trace.py) over one f32 force-only
+    launch: candidates tested, pairs in range, evaluate lane slots, and
+    from them the filter's hit share and the evaluate phase's lane use."""
+    names = ("tested", "in_range", "eval_lanes")
+    was_on = trace.enabled()
+    before = trace.counters()
+    trace.enable()
+    try:
+        compute_cellpair(style, grid, box, st, acc_dtype=torch.float32,
+                         special=special, slot_mol=slot_mol)
+        after = trace.counters()
+    finally:
+        if not was_on:
+            trace.disable()
+    out = {k: after[f"cellpair.{k}"] - before[f"cellpair.{k}"]
+           for k in names}
+    out.update(hit_share=out["in_range"] / max(out["tested"], 1),
+               lane_use=out["in_range"] / max(out["eval_lanes"], 1))
+    return out
+
+
 def _k1_time(label, sim, st, reps_plain=3):
-    """Force-only f32 kernel and plain times, and the kernel's bound."""
+    """Force-only f32 kernel and plain times, the kernel's bound and its
+    counters."""
     style, grid, box, special = sim.pair, sim.grid, sim.box, sim.special
     def kern():
         return compute_cellpair(style, grid, box, st,
@@ -600,12 +623,17 @@ def _k1_time(label, sim, st, reps_plain=3):
     if special is not None:
         nbytes += special.packed.numel() * 4
     b_ms, b_by = bound(nbytes, nops)
+    cnt = _k1_counts(style, grid, box, st, special)
     print(f"[K1] {label} f32 force-only: kernel {ms:.4f} ms (device "
           f"{dev_ms:.4f}), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}; {pairs:,} pairs in cutoff, {nbytes:,} bytes) (grid "
-          f"{grid.nc} cap {grid.cap} reach_z {grid.reach_z})")
+          f"{grid.nc} cap {grid.cap} reach_z {grid.reach_z}); counters: "
+          f"{cnt['tested']:,} tested, {cnt['in_range']:,} in range, "
+          f"{cnt['eval_lanes']:,} evaluate lanes: hit share "
+          f"{cnt['hit_share']:.4f}, lane use {cnt['lane_use']:.4f}")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, hit_share=cnt["hit_share"],
+                lane_use=cnt["lane_use"])
 
 
 def phase_k1():
@@ -3314,8 +3342,12 @@ def _hex_time(sim) -> dict:
            grid.nslots * 2 * 4 + n * (plane_bytes(st.x, st.y, st.z, st.typ)
                                       + 3 * asz),
            pairs * OPS_PAIR_DISP, err, reps_plain=1)
+    cnt = _k1_counts(style, grid, box, st, slot_mol=mol)
+    out["cellpair_lj_long"].update(hit_share=cnt["hit_share"],
+                                   lane_use=cnt["lane_use"])
     print(f"[hexane time] K1: {pairs:,} pairs of two molecules in the "
-          f"cutoff; cells {grid.nc} cap {grid.cap}")
+          f"cutoff; cells {grid.nc} cap {grid.cap}; hit share "
+          f"{cnt['hit_share']:.4f}, lane use {cnt['lane_use']:.4f}")
     # K5 / K12a / K8 on the dispersion mesh
     res = {}
     kerr = _hex_disp_stages(f"hexane_big/{n}", sim, st, res)
@@ -3871,13 +3903,16 @@ def _mix_time_cell(sim, out):
         plain_ms = cuda_ms(lambda: compute_cellpair_plain(
             sty, grid, box, st, acc_dtype=acc), reps=1)
         b_ms, b_by = bound(nbytes, pairs * OPS_PAIR_BUCK_LONG[key])
+        cnt = _k1_counts(sty, grid, box, st)
         out[f"k1_buck_long_{key}"] = dict(
             ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            hit_share=cnt["hit_share"], lane_use=cnt["lane_use"])
         print(f"[disp mix time] K1 buck/long coul {key} f32 at {n} atoms: "
               f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {pairs:,} "
-              f"pairs)")
+              f"pairs); hit share {cnt['hit_share']:.4f}, lane use "
+              f"{cnt['lane_use']:.4f}")
     base_ms = cuda_ms(lambda: compute_cellpair(plain_style, grid, box, st,
                                                acc_dtype=acc))
     base_dev = device_ms(lambda: compute_cellpair(plain_style, grid, box, st,

@@ -24,6 +24,11 @@ molecule/intra``): a slot plane of molecule ids, gathered once per rebin
 (``slot_mol_gather``, as in the JAX package), with which a pair of one
 molecule is skipped.  The uniform-special shortcut and tilted boxes are
 ROADMAP queue 1 items 12 and 14.
+
+While the tracer is on (``utils/trace.py``), both forms count into
+``trace.device_counts("cellpair", device)``: the candidates tested and
+the pairs in range, which the plain version counts from its own mask.
+The lane slots of the evaluate rounds are the kernel's alone.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 
 from ...core.box import Box
 from ...neighbor.cell_slots import CellGrid, SlotState
+from ...utils import trace
 from .styles import COEF_NAMES, PairStyle, check_ported, pair_terms
 
 # Largest type count the kernel's shared coefficient table holds.
@@ -159,6 +165,17 @@ def _chunk_cells(cap: int, S: int, ncell: int,
     return max(1, min(ncell, budget_elems // max(cap * S * cap, 1)))
 
 
+def range_cutsq(style: PairStyle, dtype, device) -> torch.Tensor:
+    """(ntypes, ntypes) each type pair's range in ``dtype``: cut_ljsq, or
+    the larger of it and cut_coulsq with a Coulomb term (rsq below it is
+    exactly the pair's in_lj or in_coul)."""
+    t = torch.as_tensor(style.tables, device=device).to(dtype)
+    lj = t[..., COEF_NAMES.index("cut_ljsq")]
+    if not style.cfg.has_coul:
+        return lj
+    return torch.maximum(lj, t[..., COEF_NAMES.index("cut_coulsq")])
+
+
 def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
                            state: SlotState, *, eflag: bool = False,
                            vflag: bool = False, acc_dtype=torch.float32,
@@ -206,6 +223,9 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
         sp_code = special.code[rows].view(ncell, cap, special.width)
         sp_lj = torch.as_tensor(style.special_lj, device=dev).to(flt)
         sp_coul = torch.as_tensor(style.special_coul, device=dev).to(flt)
+    counts = trace.device_counts("cellpair", dev)
+    if counts is not None:
+        cut_pair = range_cutsq(style, flt, dev)
     chunk = _chunk_cells(cap, S, ncell)
     for c0 in range(0, ncell, chunk):
         c1 = min(ncell, c0 + chunk)
@@ -222,6 +242,16 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
         mask = (ai < n) & (aj < n) & (ai != aj)
         if mol is not None:
             mask &= mol[c0:c1, :, None] != mol[js].reshape(C, 1, S * cap)
+        if counts is not None:
+            # an empty slot's type never indexes the tables in the kernel
+            ti = torch.where(aid[c0:c1] < n, typ[c0:c1], 0).long()
+            tj = torch.where(aid[js] < n, typ[js], 0).long().reshape(
+                C, 1, S * cap)
+            in_range = mask & (rsq.clamp_min(1e-12)
+                               < cut_pair[ti[:, :, None], tj])
+            counts[:2] += torch.tensor(
+                [int((aid[c0:c1] < n).sum()) * S * cap, int(in_range.sum())],
+                device=dev)
         # only candidates inside the largest cutoff contribute (every term
         # is zero beyond its own cutoff): the physics runs on those pairs
         keep = torch.nonzero((mask & (rsq < style.cutsq_max)).reshape(-1),

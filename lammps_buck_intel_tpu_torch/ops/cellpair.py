@@ -11,6 +11,7 @@ import torch
 
 from . import LAUNCHES
 from . import build
+from ..utils import trace
 from ..models.pair.cellpair import CellPairResult, check_style
 from ..models.pair.styles import VDW_MODE
 
@@ -28,7 +29,7 @@ def _lib():
     if lib.cellpair_forces.argtypes is None:
         lib.cellpair_forces.argtypes = (
             [_I] * 5 + [_P] * 8 + [_I] * 7 + [_D] * 7 + [_P] * 2
-            + [_I, _P] + [_P] * 5)
+            + [_I, _P] + [_P] * 6)
         lib.cellpair_forces.restype = _I
     return lib
 
@@ -54,7 +55,9 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
     buck/long (coul none or long) the DISP_LONG ones; a ``special`` partner table
     (``models.pair.cellpair.SpecialTable``) its SPECIAL variant; a
     ``slot_mol`` plane (int32 molecule ids, -1 on empty slots) excludes
-    every pair of one molecule."""
+    every pair of one molecule.  While the tracer is on the kernel adds
+    its counters (candidates tested, pairs in range, evaluate lane slots)
+    into ``trace.device_counts("cellpair", device)``."""
     check_style(style)
     dev = state.x.device
     if dev.type != "cuda":
@@ -100,6 +103,7 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
     partial = (torch.empty((grid.ncell, 8), dtype=acc_dtype, device=dev)
                if eflag else None)
     L = [float(v) for v in box.lengths]
+    counts = trace.device_counts("cellpair", dev)
     rc = _lib().cellpair_forces(
         prec, int(eflag), int(coul), VDW_MODE[style.cfg.vdw], int(disp_long),
         state.x.data_ptr(), state.y.data_ptr(),
@@ -112,6 +116,7 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
         fac_ptr, fx.data_ptr(),
         fy.data_ptr(), fz.data_ptr(),
         partial.data_ptr() if eflag else None,
+        None if counts is None else counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cellpair kernel launch failed: CUDA error {rc}")

@@ -29,6 +29,19 @@ the store's launch part.  The engines count:
 - ``thermo_row``: each thermo row;
 - ``step``: the MD steps run.
 
+Device counters are on only while the tracer is: ``device_counts(group,
+device)`` hands a kernel wrapper the group's int64 buffer on that device
+(None while the tracer is off, so the kernel counts nothing), and the
+kernel adds into it on the device.  ``counters()`` reads the buffers,
+a wait for the device, only when it is called.  The groups:
+
+- ``cellpair`` (K1, ``ops/cellpair.py`` and the plain version in
+  ``models/pair/cellpair.py``): ``tested``, the candidates its lanes
+  tested; ``in_range``, the pairs among them within their type pair's
+  cutoffs; ``eval_lanes``, the lane slots of the kernel's evaluate
+  rounds (the plain version leaves it at 0).  ``in_range / tested`` is
+  the hit share, ``in_range / eval_lanes`` the evaluate phase's lane use.
+
 Operator's use::
 
     from lammps_buck_intel_tpu_torch.utils import trace
@@ -49,6 +62,9 @@ PREFIX = "lbi."
 
 COUNTS = {"host_sync": 0, "neighbor_build": 0, "thermo_row": 0, "step": 0}
 LAUNCHES: dict = {}
+# group -> the names of its device counters, in buffer order
+DEVICE_COUNTS = {"cellpair": ("tested", "in_range", "eval_lanes")}
+_device_bufs: dict = {}      # (group, device) -> int64 buffer
 
 _on = False
 _records: list = []          # [name, parent, t0_ns, t1_ns or None]
@@ -132,6 +148,8 @@ def reset():
     for store in (COUNTS, LAUNCHES):
         for k in store:
             store[k] = 0
+    for buf in _device_bufs.values():
+        buf.zero_()
 
 
 def span(name: str):
@@ -145,6 +163,20 @@ def span(name: str):
 def count(name: str, n: int = 1):
     """Add ``n`` to counter ``name``."""
     COUNTS[name] = COUNTS.get(name, 0) + n
+
+
+def device_counts(group: str, device) -> torch.Tensor | None:
+    """The int64 buffer of ``group``'s device counters on ``device``
+    while the tracer is on (made zero at first use), None while it is
+    off."""
+    if not _on:
+        return None
+    key = (group, torch.device(device))
+    buf = _device_bufs.get(key)
+    if buf is None:
+        buf = _device_bufs[key] = torch.zeros(
+            len(DEVICE_COUNTS[group]), dtype=torch.int64, device=device)
+    return buf
 
 
 def to_host(t: torch.Tensor) -> torch.Tensor:
@@ -163,10 +195,17 @@ def synchronize(device: torch.device):
 
 
 def counters() -> dict:
-    """A flat snapshot of the store: each counter, and each wrapper's
-    launches as ``launch.<wrapper>``."""
+    """A flat snapshot of the store: each counter, each wrapper's
+    launches as ``launch.<wrapper>``, and each device counter as
+    ``<group>.<name>`` summed over devices (0 where none was made)."""
     out = dict(COUNTS)
     out.update((f"launch.{k}", v) for k, v in LAUNCHES.items())
+    for group, names in DEVICE_COUNTS.items():
+        tot = [0] * len(names)
+        for (g, _), buf in _device_bufs.items():
+            if g == group:
+                tot = [a + b for a, b in zip(tot, buf.tolist())]
+        out.update((f"{group}.{name}", v) for name, v in zip(names, tot))
     return out
 
 

@@ -1777,3 +1777,196 @@ def test_kspace_rest_wrappers_reject_bad_input(cuda):
         ewald_ops.ewald_traced(torch.zeros((4, 3), device=cuda),
                                torch.ones(3, device=cuda), 0.3,
                                torch.float32)
+
+
+# ---- K1's two phases: determinism, the queue's flush, edge cells, counters
+
+def _full_lattice(dev, flt, drop_cell=None, cut=2.5, seed=4, style="fcc",
+                  rho=0.8442, nlat=6, cap=32, qlo=-1.0):
+    """A lattice shifted a quarter site off the cell walls and jittered
+    by 0.15 on 3 x 3 x 3 cells: by default fcc 6^3, cells of exactly 32
+    atoms, so cap 32 fills every slot; ``drop_cell`` (cx, cy, cz)
+    removes that cell's atoms.  Charges are uniform on [qlo, 1)."""
+    x, lo, hi = lattice.create_atoms(style, rho, nlat, nlat, nlat)
+    L = np.asarray(hi) - np.asarray(lo)
+    x = x + 0.25 * L / nlat
+    rng = np.random.default_rng(seed)
+    x = x + rng.uniform(-0.15, 0.15, x.shape)
+    cell = np.floor((x - lo) / (L / 3)).astype(int)
+    if drop_cell is not None:
+        x = x[~(cell == np.asarray(drop_cell)).all(1)]
+    n = len(x)
+    box = make_box(lo, hi)
+    grid = cs.CellGrid(nc=(3, 3, 3), cap=cap, n_atoms=n)
+    t = lambda a, dt=flt: torch.as_tensor(a).to(dev, dt)  # noqa: E731
+    st = cs.from_atoms(grid, box, t(x), t(np.zeros((n, 3))),
+                       t(np.zeros((n, 3)), torch.int32),
+                       t(rng.integers(0, 2, n), torch.int32),
+                       t(rng.uniform(qlo, 1, n)), dtype=flt)
+    assert not bool(st.overflow)
+    style = build_buck(2, {(0, 0): (1.0, 0.2, -0.8), (0, 1): (0.9, 0.22, -0.7),
+                           (1, 1): (1.1, 0.18, -0.9)}, cut_global=cut,
+                       shift=True, coul="long", qqrd2e=14.399645)
+    return grid, box, st, style.replace(g_ewald=0.3)
+
+
+def _assert_matches_plain(k, p, flt):
+    ftol, etol = (1e-11, 1e-11) if flt == torch.float64 else (1e-4, 1e-5)
+    fk, fp = (torch.stack([r.fx, r.fy, r.fz]) for r in (k, p))
+    assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+    for e in ("evdwl", "ecoul"):
+        a, b = float(getattr(k, e)), float(getattr(p, e))
+        assert abs(a - b) <= etol * abs(b), e
+    assert float((k.virial - p.virial).abs().max()) <= \
+        etol * float(p.virial.abs().max())
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_cellpair_kernel_is_deterministic(cuda, flt, acc):
+    """Two launches on one state give bitwise-equal forces, energies and
+    virial: the owners sum in queue order, and nothing is atomic."""
+    cases = [_state(cuda, flt, ntypes=2, reach_z=2, coul=True)]
+    grid, box, st, style, table, _, _ = _rhodo(cuda, flt)
+    cases.append((grid, box, st, style, table))
+    for case in cases:
+        grid, box, st, style = case[:4]
+        special = case[4] if len(case) > 4 else None
+        a, b = (compute_cellpair(style, grid, box, st, eflag=True,
+                                 vflag=True, acc_dtype=acc, special=special)
+                for _ in range(2))
+        for name, u, v in zip(a._fields, a, b):
+            assert torch.equal(u, v), name
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_cellpair_dense_tile_flushes_the_queue(cuda, flt, acc):
+    """Every candidate in range: cap 32 holds 32 atoms in every cell, and
+    the cutoff (2 box lengths) exceeds every stencil distance, so each
+    chunk queues 32 x 32 entries (less the self pair) and the warp
+    flushes after each chunk."""
+    from lammps_buck_intel_tpu_torch.utils import trace
+
+    grid, box, st, style = _full_lattice(cuda, flt, cut=20.0)
+    trace.reset()
+    trace.enable()
+    try:
+        k = compute_cellpair(style, grid, box, st, eflag=True, vflag=True,
+                             acc_dtype=acc)
+        c = trace.counters()
+    finally:
+        trace.disable()
+        trace.reset()
+    p = compute_cellpair_plain(style, grid, box, st, eflag=True, vflag=True,
+                               acc_dtype=acc)
+    _assert_matches_plain(k, p, flt)
+    n, S = grid.n_atoms, 27
+    assert c["cellpair.tested"] == n * S * 32
+    assert c["cellpair.in_range"] == n * (S * 32 - 1)
+    # a warp's chunk queues 1,024 entries, 32 full rounds, in each stencil
+    # cell but its own, where the 32 self pairs leave 992, 31 rounds
+    assert c["cellpair.eval_lanes"] == grid.ncell * ((S - 1) * 1024 + 992)
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_cellpair_empty_cell_and_full_cap(cuda, flt, acc):
+    """One cell empty, the other 26 at exactly cap (no empty slot, no
+    tail chunk): the kernel against its plain version."""
+    grid, box, st, style = _full_lattice(cuda, flt, drop_cell=(1, 1, 1))
+    per_cell = (st.aid < grid.n_atoms).view(grid.ncell, grid.cap).sum(1)
+    assert int(per_cell.min()) == 0 and int(per_cell.max()) == grid.cap
+    assert int((per_cell == grid.cap).sum()) == grid.ncell - 1
+    k = compute_cellpair(style, grid, box, st, eflag=True, vflag=True,
+                         acc_dtype=acc)
+    p = compute_cellpair_plain(style, grid, box, st, eflag=True, vflag=True,
+                               acc_dtype=acc)
+    _assert_matches_plain(k, p, flt)
+    f_only = compute_cellpair(style, grid, box, st, acc_dtype=acc)
+    _assert_matches_plain(f_only._replace(evdwl=k.evdwl, ecoul=k.ecoul,
+                                          virial=k.virial), p, flt)
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_cellpair_cap_over_one_slot_group(cuda, flt, acc):
+    """cap 352, over the kernel's 256 threads a block: each block walks
+    the stencil once for slots 0-255 and again for 256-351, which hold
+    up to 87 atoms in most cells and none in two (sc 20^3 at density 1,
+    cells of 248 to 343 atoms).  Force-only and EV against the plain
+    version, and the counters against the plain version's.  Charges of
+    one sign, so that ecoul is not a small sum of large terms of both
+    signs."""
+    from lammps_buck_intel_tpu_torch.utils import trace
+
+    grid, box, st, style = _full_lattice(cuda, flt, style="sc", rho=1.0,
+                                         nlat=20, cap=352, qlo=0.5)
+    per_cell = (st.aid < grid.n_atoms).view(grid.ncell, grid.cap).sum(1)
+    assert int(per_cell.max()) > 256 > int(per_cell.min())
+    got = {}
+    trace.reset()
+    for fn in (compute_cellpair, compute_cellpair_plain):
+        trace.enable()
+        try:
+            got[fn] = fn(style, grid, box, st, eflag=True, vflag=True,
+                         acc_dtype=acc), trace.counters()
+        finally:
+            trace.disable()
+            trace.reset()
+    (k, ck), (p, cp) = got[compute_cellpair], got[compute_cellpair_plain]
+    _assert_matches_plain(k, p, flt)
+    f_only = compute_cellpair(style, grid, box, st, acc_dtype=acc)
+    _assert_matches_plain(f_only._replace(evdwl=k.evdwl, ecoul=k.ecoul,
+                                          virial=k.virial), p, flt)
+    assert ck["cellpair.tested"] == cp["cellpair.tested"] == \
+        grid.n_atoms * 27 * grid.cap
+    assert ck["cellpair.in_range"] == cp["cellpair.in_range"] > 0
+    lanes = ck["cellpair.eval_lanes"]
+    assert ck["cellpair.in_range"] <= lanes and lanes % 32 == 0
+
+
+def test_cellpair_counters_match_plain_on_cristobalite(cuda):
+    """The kernel's candidates tested and pairs in range equal the plain
+    version's on a jittered copy of cristobalite_pppm.yaml (6 x 7.5 x 5.6
+    nm, 51,840 atoms); its evaluate lane slots, the kernel's alone, are
+    whole rounds of 32 and at least 85% busy; with the tracer off the
+    wrapper passes no buffer and nothing counts."""
+    import os
+
+    import yaml
+
+    from lammps_buck_intel_tpu_torch.run import build_simulation
+    from lammps_buck_intel_tpu_torch.utils import trace
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "examples", "decks",
+                           "cristobalite_pppm.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(read_data=os.path.join(root, cfg["read_data"]),
+               replicate=[3, 3, 4])
+    sim = build_simulation(cfg, device=cuda)
+    st = sim.state
+    rng = np.random.default_rng(9)
+    for plane in (st.x, st.y, st.z):
+        plane += torch.as_tensor(rng.uniform(-0.1, 0.1, plane.shape[0])).to(
+            plane)
+    st = cs.rebin(sim.grid, sim.box, st)
+    names = ("tested", "in_range", "eval_lanes")
+    got = {}
+    trace.reset()
+    for fn in (compute_cellpair, compute_cellpair_plain):
+        trace.enable()
+        try:
+            fn(sim.pair, sim.grid, sim.box, st, acc_dtype=torch.float32)
+            c = trace.counters()
+        finally:
+            trace.disable()
+            trace.reset()
+        got[fn.__name__] = [c[f"cellpair.{k}"] for k in names]
+    tested, in_range, lanes = got["compute_cellpair"]
+    assert got["compute_cellpair_plain"] == [tested, in_range, 0]
+    assert lanes % 32 == 0
+    assert tested == sim.n_atoms * 9 * (2 * sim.grid.reach_z + 1) * \
+        sim.grid.cap
+    assert 0.05 < in_range / tested < 0.12
+    assert in_range / lanes >= 0.85
+    compute_cellpair(sim.pair, sim.grid, sim.box, st,
+                     acc_dtype=torch.float32)
+    assert all(trace.counters()[f"cellpair.{k}"] == 0 for k in names)

@@ -537,3 +537,113 @@ def test_compute_cellpair_coul_cut_matches_jax(ntypes, reach_z):
     vj = np.asarray(jr.virial)
     np.testing.assert_allclose(tr.virial.numpy(), vj, rtol=1e-10,
                                atol=1e-10 * np.abs(vj).max())
+
+
+# ---- K1's counters: the plain version counts what the kernel counts ----
+
+def _counter_case(reach_z):
+    """A jittered 864-atom fcc box of two types binned by the port (f64)
+    with buck/coul/cut whose type pairs have cutoffs of their own, the
+    Coulomb one the larger on some pairs and the smaller on others."""
+    from lammps_buck_intel_tpu_torch.core import make_box
+
+    x, lo, hi = lattice.create_atoms("fcc", 0.8442, 6, 6, 6)
+    n = len(x)
+    rng = np.random.default_rng(40 + reach_z)
+    x = x + rng.uniform(-0.15, 0.15, x.shape)
+    style = tstyles.build_buck(
+        2, {(0, 0): (1.0, 0.2, -0.8, 2.5, 2.0),
+            (0, 1): (0.9, 0.22, -0.7, 2.0, 2.4),
+            (1, 1): (1.1, 0.18, -0.9, 1.8, 1.5)},
+        cut_global=2.5, coul="cut", qqrd2e=14.399645)
+    box = make_box(lo, hi)
+    grid = tcs.make_grid(n, box.lengths, float(np.sqrt(style.cutsq_max))
+                         + 0.3, reach_z=reach_z)
+    t = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt)  # noqa
+    st = tcs.from_atoms(grid, box, t(x), t(np.zeros((n, 3))),
+                        t(np.zeros((n, 3)), torch.int32),
+                        t(rng.integers(0, 2, n), torch.int32),
+                        t(rng.uniform(-1, 1, n)), dtype=torch.float64)
+    return style, grid, box, st
+
+
+def _brute_counts(style, grid, box, st):
+    """Candidates tested and pairs in range, cell by cell over
+    full_offsets(reach_z) in numpy: every slot of the stencil's cells is
+    a candidate of each slot that holds an atom; in range are those of
+    another atom within the type pair's larger cutoff."""
+    nc, cap, n = np.asarray(grid.nc), grid.cap, grid.n_atoms
+    L = np.asarray(box.lengths, np.float64)
+    pos = np.stack([st.x.numpy(), st.y.numpy(), st.z.numpy()], -1)
+    aid, typ = st.aid.numpy(), st.typ.numpy()
+    col = tstyles.COEF_NAMES.index
+    cut = np.maximum(style.tables[..., col("cut_ljsq")],
+                     style.tables[..., col("cut_coulsq")])
+    tested = in_range = 0
+    for c in range(grid.ncell):
+        cell = np.array([c // (nc[1] * nc[2]), (c // nc[2]) % nc[1],
+                         c % nc[2]])
+        si = slice(c * cap, (c + 1) * cap)
+        ok_i = aid[si] < n
+        for off in tcellpair.full_offsets(grid.reach_z):
+            tgt = cell + off
+            shift = ((tgt >= nc).astype(np.float64) - (tgt < 0)) * L
+            w = np.mod(tgt, nc)
+            cj = (w[0] * nc[1] + w[1]) * nc[2] + w[2]
+            sj = slice(cj * cap, (cj + 1) * cap)
+            d = pos[si][:, None, :] - (pos[sj] + shift)[None, :, :]
+            rsq = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                   + d[..., 2] * d[..., 2])
+            ti = np.where(ok_i, typ[si], 0)[:, None]
+            tj = np.where(aid[sj] < n, typ[sj], 0)[None, :]
+            hit = (ok_i[:, None] & (aid[sj] < n)[None, :]
+                   & (aid[si][:, None] != aid[sj][None, :])
+                   & (np.maximum(rsq, 1e-12) < cut[ti, tj]))
+            tested += int(ok_i.sum()) * cap
+            in_range += int(hit.sum())
+    return tested, in_range
+
+
+@pytest.mark.parametrize("reach_z", [1, 2])
+def test_cellpair_plain_counters_match_brute_force(reach_z):
+    from lammps_buck_intel_tpu_torch.utils import trace
+
+    style, grid, box, st = _counter_case(reach_z)
+    trace.reset()
+    trace.enable()
+    try:
+        r = tcellpair.compute_cellpair(style, grid, box, st,
+                                       acc_dtype=torch.float64)
+        c = trace.counters()
+    finally:
+        trace.disable()
+        trace.reset()
+    assert float(r.fx.abs().max()) > 1.0
+    tested, in_range = _brute_counts(style, grid, box, st)
+    assert c["cellpair.tested"] == tested
+    assert c["cellpair.in_range"] == in_range > 0
+    # the evaluate rounds' lane slots are the kernel's alone
+    assert c["cellpair.eval_lanes"] == 0
+
+
+def test_cellpair_counters_stay_zero_while_tracer_off():
+    from lammps_buck_intel_tpu_torch.utils import trace
+
+    style, grid, box, st = _counter_case(1)
+    trace.disable()
+    trace.reset()
+    assert trace.device_counts("cellpair", "cpu") is None
+    tcellpair.compute_cellpair(style, grid, box, st, acc_dtype=torch.float64)
+    c = trace.counters()
+    assert (c["cellpair.tested"], c["cellpair.in_range"],
+            c["cellpair.eval_lanes"]) == (0, 0, 0)
+    # a buffer made while the tracer was on stays as it was once it is off
+    trace.enable()
+    try:
+        buf = trace.device_counts("cellpair", "cpu")
+    finally:
+        trace.disable()
+    tcellpair.compute_cellpair(style, grid, box, st, acc_dtype=torch.float64)
+    assert buf.tolist() == [0, 0, 0]
+    assert trace.counters()["cellpair.tested"] == 0
+    trace.reset()
