@@ -254,6 +254,7 @@ import torch
 from lammps_buck_intel_tpu_torch import ops
 from lammps_buck_intel_tpu_torch.integrate import shake
 from lammps_buck_intel_tpu_torch.integrate.shake import max_violation
+from lammps_buck_intel_tpu_torch.interop import jax_torsion_deck as jax_deck
 from lammps_buck_intel_tpu_torch.models.bonded import (compute_bonded,
                                                        compute_bonded_plain,
                                                        make_bonded)
@@ -348,13 +349,17 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
 
 
 def load_deck(name: str) -> dict:
+    """A deck of examples/decks under the JAX package's torsion angle: the
+    gates here are the JAX package's records, whose angle is LAMMPS' plus
+    180 degrees, so the dihedral and improper coefficients are mapped
+    (``interop.jax_torsion_deck``)."""
     import yaml
 
     with open(os.path.join(DECKS, name)) as f:
         cfg = yaml.safe_load(f)
     if "read_data" in cfg:
         cfg["read_data"] = os.path.join(ROOT, cfg["read_data"])
-    return cfg
+    return jax_deck(cfg)
 
 
 def load_golden(name: str) -> dict:
@@ -4344,7 +4349,8 @@ def phase_peratom_record(rec: dict):
         rp.write_jitter(path)
         for name in rp.CASES:
             g = rec[name]
-            sim = build_simulation(rp.case_config(name, path), device="cuda")
+            sim = build_simulation(jax_deck(rp.case_config(name, path)),
+                                   device="cuda")
             row = sim.thermo()
             _pa_twins(name, sim, f64, time_it=False)
             at = sim.atoms_on_device()
@@ -4909,8 +4915,8 @@ def phase_peratom_disp_record(rec: dict):
         rp.write_hexane_cut(hpath)
         for name in rp.DISP_CASES:
             g = rec[name]
-            sim = build_simulation(rp.case_config(name, jpath, hpath),
-                                   device="cuda")
+            sim = build_simulation(
+                jax_deck(rp.case_config(name, jpath, hpath)), device="cuda")
             if type(sim).__name__ != g["engine"]:
                 raise AssertionError(f"{name}: engine {type(sim).__name__}")
             row = sim.thermo()
@@ -5329,7 +5335,8 @@ def phase_rest_record(rec: dict):
         for name, r in rec["cases"].items():
             _, _, _, steps, every = kc.CASES[name]
             ops.reset_launches()
-            sim = build_simulation(kc.deck_cfg(name, tmp), device="cuda")
+            sim = build_simulation(jax_deck(kc.deck_cfg(name, tmp)),
+                                   device="cuda")
             ks = sim.kspace
             pm = getattr(ks, "pm", ks)
             if (type(sim).__name__ != r["engine"]
@@ -5367,8 +5374,8 @@ def phase_rest_record(rec: dict):
                                      f"the JAX record: {bad}")
             del sim
             if r["engine"] == "NPTSimulation":
-                sim = build_simulation(kc.deck_cfg(name, tmp, "single"),
-                                       device="cuda")
+                sim = build_simulation(
+                    jax_deck(kc.deck_cfg(name, tmp, "single")), device="cuda")
                 rows = sim.run(steps, thermo_every=every, log=False)
                 n = sim.n_atoms
                 dev = [abs(row["etotal"] - ref["etotal"]) / n

@@ -26,17 +26,23 @@
 // The JAX package gets the dihedral and improper forces from jax.grad of
 // the energy in the three bond vectors b1 = x1 - x2, b2 = x3 - x2,
 // b3 = x4 - x3.  Here the gradient is written out.  With n1 = b1 x b2,
-// n2 = b2 x b3, C = n1.n2 and S = |b2| (b1.n2) the angle is phi =
-// atan2(S, C), and
+// n2 = b2 x b3, C = n1.n2 and S = |b2| (b1.n2), the angle is LAMMPS'
+// (dihedral_charmm.cpp, improper_harmonic.cpp: normals -n1 and n2, a trans
+// chain at 180 degrees), phi = atan2(-S, -C); the JAX package's atan2(S, C)
+// is that plus 180 degrees (models/bonded/charmm.py).  Either way
 //   dphi/db1 = |b2| n1 / |n1|^2,   dphi/db3 = |b2| n2 / |n2|^2,
 //   dphi/db2 = -[(b1.b2) dphi/db1 + (b2.b3) dphi/db3] / |b2|^2
 // (the last from phi's invariance under rotation and under scaling of b2).
 // The torsion energy K [1 + cos(n phi) cos(d)] has dE/dphi = -K n sin(n phi)
 // cos(d), with cos(n phi), sin(n phi) by the complex power of the
-// normalised (C, S); the improper's chi = arccos(clip(cos phi)) = |phi| has
-// dchi/db = sign(S) dphi/db inside the clip and zero force outside it (the
-// gradient of a clip), so a planar improper gets no force, as in the JAX
-// package.  Forces map as f1 = -g1, f2 = g1 + g2, f3 = g3 - g2, f4 = -g3,
+// normalised (-C, -S); the improper's chi = |atan2(-S, -C)| has
+// dchi/db = -sign(S) dphi/db, zero at a planar improper (S = 0, the kink of
+// |phi|).  The JAX package's chi = arccos(cos phi clipped to +-(1 - 1e-7))
+// gives no force within ~4.5e-4 rad of planar; here the force follows the
+// energy there too, unless the improper type's clip (the third column of
+// its coefficients, which the mapped JAX coefficients set) asks for the
+// JAX package's chi and clip.
+// Forces map as f1 = -g1, f2 = g1 + g2, f3 = g3 - g2, f4 = -g3,
 // and the virial is -sum_k b_k (x) g_k.
 //
 // Per atom (K18b, bonded_peratom).  One thread per term of any kind
@@ -73,6 +79,12 @@ __device__ __forceinline__ float dev_rint(float v) { return rintf(v); }
 __device__ __forceinline__ double dev_rint(double v) { return rint(v); }
 __device__ __forceinline__ float dev_acos(float v) { return acosf(v); }
 __device__ __forceinline__ double dev_acos(double v) { return acos(v); }
+__device__ __forceinline__ float dev_atan2(float y, float x) {
+  return atan2f(y, x);
+}
+__device__ __forceinline__ double dev_atan2(double y, double x) {
+  return atan2(y, x);
+}
 
 template <typename T>
 struct Vec {
@@ -302,6 +314,35 @@ __device__ __forceinline__ void scatter_four(
   }
 }
 
+// An improper's chi - chi0 and w = dE/dphi = 2 K (chi - chi0) sign(sin
+// phi), chi = |phi| of LAMMPS' angle phi = atan2(-S, -C); w is 0 at a
+// planar improper (S = 0), the kink of |phi|.  With clip > 0, the JAX
+// package's chi = arccos(cos phi clipped to +-(1 - clip)) and w = 0 where
+// the clip holds.
+template <typename T>
+__device__ __forceinline__ T improper_dchi(const Vec<T>& b1, const Vec<T>& n1,
+                                           const Vec<T>& n2, T b2sq, T K,
+                                           T chi0, T clip, T& w) {
+  const T sinval = -dev_sqrt(b2sq) * dot(b1, n2);
+  const T cosval = -dot(n1, n2);
+  bool on = sinval != T(0);
+  T chi;
+  if (clip > T(0)) {
+    T nn = dot(n1, n1) * dot(n2, n2);
+    nn = nn > T(1e-20) ? nn : T(1e-20);
+    const T craw = cosval / dev_sqrt(nn);
+    const T hi = T(1) - clip, lo = clip - T(1);
+    on = on && craw > lo && craw < hi;
+    chi = dev_acos(craw < lo ? lo : (craw > hi ? hi : craw));
+  } else {
+    chi = dev_atan2(sinval, cosval);
+    chi = chi < T(0) ? -chi : chi;
+  }
+  const T dchi = chi - chi0;
+  w = on ? (sinval > T(0) ? T(2) : T(-2)) * K * dchi : T(0);
+  return dchi;
+}
+
 // ---- K14b: CHARMM dihedrals with baked 1-4 pair terms ----
 // dcoef: (Td, 2) [K, cos(d)]; dmult: (Td,) multiplicity n; d14: (Nd, 3)
 // [a12, a6, qq] per dihedral, or null.  partial columns: edihed, e14_lj,
@@ -330,8 +371,9 @@ __global__ void dihedral_charmm_kernel(Frame<T> fr,
     const Vec<T> n1 = cross(b1, b2), n2 = cross(b2, b3);
     T b2sq = dot(b2, b2);
     b2sq = b2sq > T(1e-12) ? b2sq : T(1e-12);
-    const T cosval = dot(n1, n2);
-    const T sinval = dot(cross(n1, n2), b2) / dev_sqrt(b2sq);
+    // LAMMPS' angle (a trans chain at 180 degrees): normals -n1 and n2
+    const T cosval = -dot(n1, n2);
+    const T sinval = -dot(cross(n1, n2), b2) / dev_sqrt(b2sq);
     T nsq = cosval * cosval + sinval * sinval;
     nsq = nsq > T(1e-20) ? nsq : T(1e-20);
     const T norm = dev_sqrt(nsq);
@@ -379,7 +421,8 @@ __global__ void dihedral_charmm_kernel(Frame<T> fr,
 }
 
 // ---- K14c: harmonic impropers ----
-// icoef: (Ti, 2) [K, chi0 (rad)].  partial columns: eimp, virial[6].
+// icoef: (Ti, 3) [K, chi0 (rad), clip].  partial columns: eimp,
+// virial[6].
 template <typename T, typename A, bool EV>
 __global__ void improper_harmonic_kernel(Frame<T> fr,
                                          const int* __restrict__ impropers,
@@ -395,25 +438,15 @@ __global__ void improper_harmonic_kernel(Frame<T> fr,
               i2 = fr.slot(impropers[5 * t + 2]),
               i3 = fr.slot(impropers[5 * t + 3]),
               i4 = fr.slot(impropers[5 * t + 4]);
-    const T K = icoef[2 * it], chi0 = icoef[2 * it + 1];
+    const T K = icoef[3 * it], chi0 = icoef[3 * it + 1],
+            clip = icoef[3 * it + 2];
     const Vec<T> b1 = fr.diff(i1, i2), b2 = fr.diff(i3, i2),
                  b3 = fr.diff(i4, i3);
     const Vec<T> n1 = cross(b1, b2), n2 = cross(b2, b3);
-    T nn = dot(n1, n1) * dot(n2, n2);
-    nn = nn > T(1e-20) ? nn : T(1e-20);
-    const T craw = dot(n1, n2) / dev_sqrt(nn);
-    const T hi = static_cast<T>(1.0 - 1e-7), lo = static_cast<T>(-1.0 + 1e-7);
-    const bool inside = craw > lo && craw < hi;
-    const T c = craw < lo ? lo : (craw > hi ? hi : craw);
-    const T dchi = dev_acos(c) - chi0;
-    // chi = |phi|: dchi/db = sign(S) dphi/db, S = |b2| (b1.n2); the clip
-    // has gradient zero, so a planar improper gets no force
-    const T side = dot(b1, n2);
-    const T w = !inside || side == T(0)
-                    ? T(0)
-                    : (side > T(0) ? T(2) : T(-2)) * K * dchi;
     T b2sq = dot(b2, b2);
     b2sq = b2sq > T(1e-12) ? b2sq : T(1e-12);
+    T w;
+    const T dchi = improper_dchi(b1, n1, n2, b2sq, K, chi0, clip, w);
     Vec<T> g1, g2, g3;
     phi_gradient(w, b1, b2, b3, n1, n2, b2sq, g1, g2, g3);
     scatter_four<T, A, EV>(out, i1, i2, i3, i4, b1, b2, b3, g1, g2, g3,
@@ -551,8 +584,9 @@ __global__ void bonded_peratom_kernel(
     const Vec<T> n1 = cross(b1, b2), n2 = cross(b2, b3);
     T b2sq = dot(b2, b2);
     b2sq = b2sq > T(1e-12) ? b2sq : T(1e-12);
-    const T cosval = dot(n1, n2);
-    const T sinval = dot(cross(n1, n2), b2) / dev_sqrt(b2sq);
+    // LAMMPS' angle (a trans chain at 180 degrees): normals -n1 and n2
+    const T cosval = -dot(n1, n2);
+    const T sinval = -dot(cross(n1, n2), b2) / dev_sqrt(b2sq);
     T nsq = cosval * cosval + sinval * sinval;
     nsq = nsq > T(1e-20) ? nsq : T(1e-20);
     const T norm = dev_sqrt(nsq);
@@ -594,23 +628,15 @@ __global__ void bonded_peratom_kernel(
     const int it = impropers[5 * t];
     const int at[4] = {impropers[5 * t + 1], impropers[5 * t + 2],
                        impropers[5 * t + 3], impropers[5 * t + 4]};
-    const T K = icoef[2 * it], chi0 = icoef[2 * it + 1];
+    const T K = icoef[3 * it], chi0 = icoef[3 * it + 1],
+            clip = icoef[3 * it + 2];
     const Vec<T> b1 = fr.diff(at[0], at[1]), b2 = fr.diff(at[2], at[1]),
                  b3 = fr.diff(at[3], at[2]);
     const Vec<T> n1 = cross(b1, b2), n2 = cross(b2, b3);
-    T nn = dot(n1, n1) * dot(n2, n2);
-    nn = nn > T(1e-20) ? nn : T(1e-20);
-    const T craw = dot(n1, n2) / dev_sqrt(nn);
-    const T hi = static_cast<T>(1.0 - 1e-7), lo = static_cast<T>(-1.0 + 1e-7);
-    const bool inside = craw > lo && craw < hi;
-    const T cc = craw < lo ? lo : (craw > hi ? hi : craw);
-    const T dchi = dev_acos(cc) - chi0;
-    const T side = dot(b1, n2);
-    const T w = !inside || side == T(0)
-                    ? T(0)
-                    : (side > T(0) ? T(2) : T(-2)) * K * dchi;
     T b2sq = dot(b2, b2);
     b2sq = b2sq > T(1e-12) ? b2sq : T(1e-12);
+    T w;
+    const T dchi = improper_dchi(b1, n1, n2, b2sq, K, chi0, clip, w);
     Vec<T> g1, g2, g3;
     phi_gradient(w, b1, b2, b3, n1, n2, b2sq, g1, g2, g3);
     grad_virial(b1, b2, b3, g1, g2, g3, v);

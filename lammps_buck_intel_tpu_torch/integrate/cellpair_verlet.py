@@ -184,7 +184,9 @@ class CellPairSimulation:
             self.special = make_special_table(
                 topology.special_idx, topology.special_code, self.device)
         self.shake = shake
-        self._shake_t = None
+        # the tables, and the corrected bond vectors of the last SHAKE
+        # solve (the thermo row's shake.unconverged reads them)
+        self._shake_t = self._shake_rn = None
         if shake is not None:
             cl = shk.make_clusters(shake)
             if cl.width > shk.MAX_C:
@@ -348,7 +350,8 @@ class CellPairSimulation:
         t, L, inv = self._shake_t, self.box.lengths, self._inv_map(state)
         xs = (state.x, state.y, state.z)
         ro = shk.shake_ref(t, xs, inv, L)
-        shk.shake_positions(t, ro, xs, None, inv, L, 1.0, self.shake.iters)
+        self._shake_rn = shk.shake_positions(t, ro, xs, None, inv, L, 1.0,
+                                             self.shake.iters)
         shk.rattle_velocities(t, (state.vx, state.vy, state.vz), inv, L,
                               xs=xs)
 
@@ -414,6 +417,8 @@ class CellPairSimulation:
                 if cfg is not None:
                     state = state._replace(therm=nhc_scale(
                         cfg, state.therm, vs, partial, self._t_now))
+        if sc is not None and nsteps:
+            self._shake_rn = rn
         return state
 
     def _block_rigid(self, state: cs.SlotState,
@@ -489,11 +494,15 @@ class CellPairSimulation:
         press = (sum_mv2 + vir_trace) / (3.0 * self.box.volume) * u.nktv2p
         epair = evdwl + ecoul + elong
         vmax = torch.sqrt(kin[:, 1].max())
-        return dict(
+        row = dict(
             temp=temp, evdwl=evdwl, ecoul=ecoul, elong=elong, emol=emol,
             epair=epair, ke=ke, etotal=epair + emol + ke, press=press,
             overflow=st.overflow, vmax=vmax, virial=virial,
         )
+        if self.shake is not None:
+            row["shake_unconverged"] = shk.unconverged(
+                self._shake_t, self._shake_rn, self.shake.tol)
+        return row
 
     def thermo(self) -> dict:
         trace.count("thermo_row")
@@ -513,15 +522,20 @@ class CellPairSimulation:
         out["virial"] = host[len(keys):]
         out["step"] = self.step_count
         out["overflow"] = bool(out["overflow"])
+        # overflow first: the atoms a rebin dropped are read through a
+        # stale slot map, and the dynamics they spoil are rolled back
+        if out["overflow"]:
+            raise CellOverflowError(
+                "cell capacity overflow during run; increase cap")
         if not np.isfinite(out["etotal"]) or not np.isfinite(out["temp"]):
             raise RuntimeError(
                 f"non-finite thermodynamics at step {out['step']} "
                 f"(etotal={out['etotal']}, temp={out['temp']}): "
                 "simulation diverged — reduce the timestep or check "
                 "overlapping atoms / force-field coefficients")
-        if out["overflow"]:
-            raise CellOverflowError(
-                "cell capacity overflow during run; increase cap")
+        # a row the run keeps: the clusters of a rolled-back segment
+        # (atoms dropped by the overflow) are not counted
+        shk.count_unconverged(out)
         return out
 
     # ---------- IO ----------

@@ -327,7 +327,9 @@ class NPTSimulation:
         self.dtv = float(self.dt)
 
         self.shake = shake
-        self._shake_t = None
+        # the tables, and the corrected bond vectors of the last SHAKE
+        # solve (the thermo row's shake.unconverged reads them)
+        self._shake_t = self._shake_rn = None
         self._inv = None
         if shake is not None:
             cl = shk.make_clusters(shake)
@@ -365,7 +367,8 @@ class NPTSimulation:
             t, inv = self._shake_t, self._inv
             xs, vs = tuple(st.x.unbind(0)), tuple(st.v.unbind(0))
             ro = shk.shake_ref(t, xs, inv, L0)
-            shk.shake_positions(t, ro, xs, None, inv, L0, 1.0, shake.iters)
+            self._shake_rn = shk.shake_positions(t, ro, xs, None, inv, L0,
+                                                 1.0, shake.iters)
             shk.rattle_velocities(t, vs, inv, L0, xs=xs)
         _, self.spec = nlm.build_with_retry(
             st.x, torch.as_tensor(np.asarray(box0.lo)).to(dev, flt),
@@ -498,7 +501,7 @@ class NPTSimulation:
                 ro = shk.shake_ref(self._shake_t, xs, self._inv, boxL)
             drift_dilate(xs, vs, s, self._center, dtv)
             if self.shake is not None:
-                _, vir_c = shk.shake_positions(
+                self._shake_rn, vir_c = shk.shake_positions(
                     self._shake_t, ro, xs, vs, self._inv, boxL, dtv,
                     self.shake.iters, virial_factor=1.0 / (dtv * dtf))
         fa, fb, virial, _ = self._forces(st.x, boxL, nl, kc)
@@ -550,11 +553,15 @@ class NPTSimulation:
         _, _, _, (evdwl, ecoul, elong, emol) = self._forces(
             st.x, st.boxL, nl, self._kspace_kc(st.boxL), eflag=True)
         epair = evdwl + ecoul + elong
-        return dict(temp=temp, ke=ke, press=press, p_axis=p_cur,
-                    boxL=st.boxL, vol=V, omega_dot=st.omega_dot,
-                    evdwl=evdwl, ecoul=ecoul, elong=elong, emol=emol,
-                    epair=epair, etotal=epair + emol + ke,
-                    overflow=st.overflow | nl.overflow)
+        row = dict(temp=temp, ke=ke, press=press, p_axis=p_cur,
+                   boxL=st.boxL, vol=V, omega_dot=st.omega_dot,
+                   evdwl=evdwl, ecoul=ecoul, elong=elong, emol=emol,
+                   epair=epair, etotal=epair + emol + ke,
+                   overflow=st.overflow | nl.overflow)
+        if self.shake is not None:
+            row["shake_unconverged"] = shk.unconverged(
+                self._shake_t, self._shake_rn, self.shake.tol)
+        return row
 
     def _guards(self, overflow: bool, boxL: np.ndarray, step: int):
         # overflow first: dropped pairs cause the non-finite dynamics
@@ -598,6 +605,8 @@ class NPTSimulation:
         self._guards(out["overflow"], out["boxL"], self.step_count)
         if not np.isfinite(out["temp"]) or not np.isfinite(out["press"]):
             raise RuntimeError(f"non-finite thermo at step {out['step']}")
+        # a row the run keeps: none that a guard above throws away
+        shk.count_unconverged(out)
         return out
 
     # ---------- IO ----------

@@ -48,6 +48,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils import trace
+
 # widest cluster the kernels of csrc/shake.cu take (constraints per
 # cluster): C-H bonds need 1, rigid water and CH3 groups 3, the octahedron
 # of 12 edge constraints of the JAX package's tests 12
@@ -60,13 +62,15 @@ class ShakeConstraints:
     lengths; invm: (N,) 1/mass per atom (host numpy).  iters: the deck's
     iteration count (the Newton solve takes min(iters, 4)).
     n_independent: independent constraint count for the degrees of
-    freedom (-1: all of ``pairs``)."""
+    freedom (-1: all of ``pairs``).  tol: the deck's tolerance on
+    |r^2 - d^2| / d^2, which ``unconverged`` counts clusters against."""
 
     pairs: np.ndarray
     d2: np.ndarray
     invm: np.ndarray
     iters: int = 20
     n_independent: int = -1
+    tol: float = 1e-4
 
     @property
     def n_constraints(self) -> int:
@@ -77,7 +81,7 @@ class ShakeConstraints:
 def make_shake(bonds: np.ndarray, bond_coeffs: np.ndarray,
                angles: np.ndarray, angle_coeffs: np.ndarray,
                mass_per_atom: np.ndarray, bond_types=(0,), angle_types=(0,),
-               iters: int = 20) -> ShakeConstraints:
+               iters: int = 20, tol: float = 1e-4) -> ShakeConstraints:
     """The constraint list from the topology (``b ... a ...``).
 
     An angle constraint i-j-k (j central) becomes the fixed i..k distance
@@ -115,7 +119,8 @@ def make_shake(bonds: np.ndarray, bond_coeffs: np.ndarray,
             "or the m mass list against the topology")
     return ShakeConstraints(
         pairs=np.asarray(pairs, np.int32), d2=np.asarray(d2, np.float64),
-        invm=1.0 / np.asarray(mass_per_atom, np.float64), iters=iters)
+        invm=1.0 / np.asarray(mass_per_atom, np.float64), iters=iters,
+        tol=float(tol))
 
 
 def make_rigid_from_molecules(*args, **kwargs):
@@ -423,6 +428,26 @@ def shake_virial_plain(t, xs, vs, fa, fb, inv, L, ftm2v, acc_dtype):
                                      (1, 2))])
 
 
+def unconverged(t: dict, rn: torch.Tensor, tol: float) -> torch.Tensor:
+    """0-d int64 tensor on rn's device: the clusters that the SHAKE solve
+    which returned the corrected bond vectors ``rn`` (3, C, M) left with a
+    constraint's relative residual |rn^2 - d^2| / d^2 above ``tol`` (torch
+    ops, no wait for the device).  It tests the solve's convergence, as
+    LAMMPS' SHAKE tests its iterations, and not the stored positions
+    against ``tol``: the bond vectors taken again from f32 positions carry
+    the positions' own rounding, up to ~1e-4 at 300 A from the origin."""
+    rel = ((rn * rn).sum(0) - t["d2"]).abs() / t["d2"] * t["cmask"]
+    return (rel > tol).any(0).sum()
+
+
+def count_unconverged(row: dict):
+    """Move a read-back row's ``shake_unconverged`` into the tracer's
+    ``shake.unconverged`` counter (a row without SHAKE has none)."""
+    n = row.pop("shake_unconverged", None)
+    if n is not None:
+        trace.count("shake.unconverged", int(n))
+
+
 # ---------- entry points: the kernel on CUDA planes, plain on CPU ----------
 
 def _route(plane, name: str):
@@ -438,7 +463,8 @@ def _route(plane, name: str):
 
 def shake_ref(t: dict, xs, inv, L) -> torch.Tensor:
     """(3, C, M) reference bond vectors of the positions ``xs``."""
-    return _route(xs[0], "shake_ref")(t, xs, inv, L)
+    with trace.span("shake"):
+        return _route(xs[0], "shake_ref")(t, xs, inv, L)
 
 
 def shake_positions(t: dict, ro, xs, vs, inv, L, dt: float, iters: int,
@@ -449,14 +475,16 @@ def shake_positions(t: dict, ro, xs, vs, inv, L, dt: float, iters: int,
     (1 / (dt dtf) under fix npt) the pair (rn, virial): the (6,) flt
     constraint virial sum_c ro_c (x) (-lam_c virial_factor ro_c) of the
     step (the JAX package's shake_positions_clustered :525-529)."""
-    return _route(xs[0], "shake_positions")(t, ro, xs, vs, inv, L, dt,
-                                            iters, virial_factor)
+    with trace.span("shake"):
+        return _route(xs[0], "shake_positions")(t, ro, xs, vs, inv, L, dt,
+                                                iters, virial_factor)
 
 
 def rattle_velocities(t: dict, vs, inv, L, r=None, xs=None):
     """Project the velocities along the constraints out, in place; the
     bond vectors are ``r`` (SHAKE's rn), or computed from ``xs``."""
-    _route(vs[0], "rattle_velocities")(t, vs, inv, L, r, xs)
+    with trace.span("shake"):
+        _route(vs[0], "rattle_velocities")(t, vs, inv, L, r, xs)
 
 
 def shake_virial(t: dict, xs, vs, fa, fb, inv, L, ftm2v: float,
@@ -464,5 +492,6 @@ def shake_virial(t: dict, xs, vs, fa, fb, inv, L, ftm2v: float,
     """(6,) constraint virial (xx, yy, zz, xy, xz, yz) in ``acc_dtype`` on
     the total force (flt)(fa + fb): ``fa`` the acc-typed pair + bonded
     planes, ``fb`` the k-space planes or None."""
-    return _route(xs[0], "shake_virial")(t, xs, vs, fa, fb, inv, L, ftm2v,
-                                         acc_dtype)
+    with trace.span("shake"):
+        return _route(xs[0], "shake_virial")(t, xs, vs, fa, fb, inv, L,
+                                             ftm2v, acc_dtype)

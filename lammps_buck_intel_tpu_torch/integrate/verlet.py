@@ -185,7 +185,9 @@ class Simulation:
         self.dtv = float(self.dt)
 
         self.shake = shake
-        self._shake_t = None
+        # the tables, and the corrected bond vectors of the last SHAKE
+        # solve (the thermo row's shake.unconverged reads them)
+        self._shake_t = self._shake_rn = None
         self._inv = None
         if shake is not None:
             cl = shk.make_clusters(shake)
@@ -228,8 +230,8 @@ class Simulation:
             t, inv = self._shake_t, self._inv
             xs, vs = tuple(st.x.unbind(0)), tuple(st.v.unbind(0))
             ro = shk.shake_ref(t, xs, inv, self._boxL)
-            shk.shake_positions(t, ro, xs, None, inv, self._boxL, 1.0,
-                                shake.iters)
+            self._shake_rn = shk.shake_positions(t, ro, xs, None, inv,
+                                                 self._boxL, 1.0, shake.iters)
             shk.rattle_velocities(t, vs, inv, self._boxL, xs=xs)
         self.state = self._init_force(st)
         self.timings["setup"] += time.perf_counter() - t0
@@ -334,6 +336,8 @@ class Simulation:
                             partial = self._kinetic(st.v)
                     if cfg is not None:
                         therm = nhc_scale(cfg, therm, vs, partial, t_target)
+            if sc is not None and nsteps:
+                self._shake_rn = rn
             return st._replace(therm=therm)
 
     # ---------- thermo ----------
@@ -361,12 +365,16 @@ class Simulation:
         press = (sum_mv2 + vir_trace) / (3.0 * self.box.volume) * u.nktv2p
         epair = fr.evdwl + fr.ecoul + fr.elong
         emol = fr.ebond + fr.eangle + fr.emol_extra
-        return dict(
+        row = dict(
             temp=temp, evdwl=fr.evdwl, ecoul=fr.ecoul, elong=fr.elong,
             ebond=fr.ebond, eangle=fr.eangle, emol=emol, epair=epair, ke=ke,
             etotal=epair + emol + ke, press=press,
             overflow=st.overflow | nl.overflow,
             vmax=torch.sqrt(kin[:, 1].max()), virial=virial)
+        if self.shake is not None:
+            row["shake_unconverged"] = shk.unconverged(
+                self._shake_t, self._shake_rn, self.shake.tol)
+        return row
 
     @staticmethod
     def _overflow_error() -> RuntimeError:
@@ -400,6 +408,8 @@ class Simulation:
                 "overlapping atoms / force-field coefficients")
         if out["overflow"]:
             raise self._overflow_error()
+        # a row the run keeps: none that a guard above throws away
+        shk.count_unconverged(out)
         return out
 
     # ---------- IO ----------

@@ -56,9 +56,59 @@ def topology_from_numpy(bonds, angles, dihedrals, impropers, special_idx,
         special_code=np.array(special_code, np.int8))
 
 
+# the JAX package's improper takes arccos of cos phi clipped to
+# +-(1 - 1e-7) and has no force where the clip holds
+JAX_IMPROPER_CLIP = 1e-7
+
+
+def jax_torsion_coeffs(dihedral_coeffs=None, improper_coeffs=None):
+    """(dihedral, improper) coefficient tables with which the port gives
+    the numbers the JAX package gives with the tables passed.
+
+    The port takes LAMMPS' torsion angle; the JAX package's is that plus
+    180 degrees (``models/bonded/charmm.py``).  So d -> d + 180 for odd n
+    (charmm rows [K, n, d, w]) and chi0 -> 180 - chi0 (harmonic rows
+    [K, chi0]), angles in degrees; a harmonic row gains the JAX package's
+    arccos clip, ``JAX_IMPROPER_CLIP``, as its third coefficient.  A None
+    or empty table stays as it is."""
+    dc, ic = dihedral_coeffs, improper_coeffs
+    if dc is not None and len(dc):
+        dc = np.array(dc, np.float64)
+        dc[:, 2] += 180.0 * (dc[:, 1].astype(np.int64) % 2)
+    if ic is not None and len(ic):
+        ic = np.array(ic, np.float64)[:, :2]
+        ic = np.stack([ic[:, 0], 180.0 - ic[:, 1],
+                       np.full(len(ic), JAX_IMPROPER_CLIP)], -1)
+    return dc, ic
+
+
+def jax_torsion_deck(cfg: dict) -> dict:
+    """A copy of the deck whose dihedral and improper coefficients are
+    mapped by ``jax_torsion_coeffs``: the port then runs the JAX
+    package's physics.  The coefficients must be in the deck."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    for kind, slot in (("dihedral", 0), ("improper", 1)):
+        style = cfg.get(f"{kind}_style")
+        if not style:
+            continue
+        if not style.get("coeffs"):
+            raise ValueError(f"{kind}_style has no coeffs in the deck")
+        args = [None, None]
+        args[slot] = style["coeffs"]
+        style["coeffs"] = jax_torsion_coeffs(*args)[slot].tolist()
+    return cfg
+
+
 def bonded_from_numpy(fields: dict) -> BondedStyle:
-    """The port's BondedStyle from the JAX BondedStyle's fields
-    (``dataclasses.asdict`` of it)."""
+    """The port's BondedStyle that computes what the JAX BondedStyle of
+    these fields (``dataclasses.asdict`` of it) computes: its dihedral and
+    improper coefficients mapped by ``jax_torsion_coeffs``."""
+    fields = dict(fields)
+    fields["dihedral_coeffs"], fields["improper_coeffs"] = \
+        jax_torsion_coeffs(fields.get("dihedral_coeffs"),
+                           fields.get("improper_coeffs"))
     return make_bonded(**fields)
 
 

@@ -5,19 +5,34 @@ Counterpart of ``lammps_buck_intel_tpu.models.bonded.charmm``:
   dihedral_style charmm   E = K [1 + cos(n phi - d)]  (+ weighted 1-4 pair)
   improper_style harmonic E = K (chi - chi0)^2
 
-The JAX package differentiates the energy in the three minimum-imaged
-bond vectors b1 = x1 - x2, b2 = x3 - x2, b3 = x4 - x3 with ``jax.grad``.
-The port writes the gradient out, here and in csrc/bonded.cu alike.  With
-n1 = b1 x b2, n2 = b2 x b3, C = n1.n2 and S = |b2| (b1.n2), the angle is
-phi = atan2(S, C) and
+The angle is LAMMPS' (dihedral_charmm.cpp, improper_harmonic.cpp): a
+planar trans chain 1-2-3-4 has phi = 180 degrees, a cis chain 0.  With the
+three minimum-imaged bond vectors b1 = x1 - x2, b2 = x3 - x2,
+b3 = x4 - x3, n1 = b1 x b2, n2 = b2 x b3, C = n1.n2 and S = |b2| (b1.n2),
+LAMMPS' normals are -n1 and n2, so its angle is phi = atan2(-S, -C).
+Here the JAX package departs: it takes atan2(S, C), LAMMPS' angle plus
+180 degrees.  The fixed port reproduces the JAX package's numbers when it
+is given mapped coefficients, d -> d + 180 for odd n and chi0 ->
+180 - chi0 (``interop.jax_torsion_coeffs``).
+
+The JAX package differentiates the energy in the bond vectors with
+``jax.grad``.  The port writes the gradient out, here and in
+csrc/bonded.cu alike; the two angles differ by a constant, so
     dphi/db1 = |b2| n1 / |n1|^2,    dphi/db3 = |b2| n2 / |n2|^2,
     dphi/db2 = -[(b1.b2) dphi/db1 + (b2.b3) dphi/db3] / |b2|^2,
 the last from phi's invariance under rotation and under scaling of b2.
-The improper's chi = arccos(clip(cos phi)) equals |phi|, so inside the clip
-dchi/db = sign(S) dphi/db, and outside it the force is zero (the gradient
-of a clip): a planar improper gets no force, as in the JAX package.  The
-tests hold both gradients to central finite differences of the energies
-and to the JAX package.
+The improper's chi is |phi|, from the same atan2, so
+dchi/db = sign(sin phi) dphi/db = -sign(S) dphi/db everywhere but at a
+planar improper (S = 0), the kink of |phi|, where the force is zero.  The
+JAX package takes chi = arccos(cos phi clipped to +-(1 - 1e-7)) and gives
+no force where the clip holds (within ~4.5e-4 rad of planar), where the
+energy's slope is 2 K (180 - chi0) or 2 K chi0.  The port follows the
+energy there, as the benchmark's reference does, unless an improper type
+carries a third coefficient, the clip, as the mapped JAX coefficients do
+(``interop.jax_torsion_coeffs``): then it takes the JAX package's chi and
+clip.  The tests hold both gradients to central finite differences of the
+energies, to the JAX package under the mapped coefficients, and to the
+benchmark's autograd reference.
 
 The CHARMM 1-4 terms are baked per dihedral at build time (types and
 charges are static): a12 = w 4 eps14 sig14^12, a6 = w 4 eps14 sig14^6,
@@ -71,8 +86,9 @@ def dihedral_energy_terms(b1, b2, b3, K, mult, d_cos, a12, a6, qq):
     n1 = torch.linalg.cross(b1, b2)
     n2 = torch.linalg.cross(b2, b3)
     b2n = torch.sqrt(torch.clamp(_dot(b2, b2), min=1e-12))
-    cosval = _dot(n1, n2)
-    sinval = _dot(torch.linalg.cross(n1, n2), b2) / b2n
+    # LAMMPS' angle: (-C, -S) of the module text
+    cosval = -_dot(n1, n2)
+    sinval = -_dot(torch.linalg.cross(n1, n2), b2) / b2n
     # cos(n phi), sin(n phi) by complex power of the normalised pair
     norm = torch.sqrt(torch.clamp(cosval**2 + sinval**2, min=1e-20))
     c, s = cosval / norm, sinval / norm
@@ -91,19 +107,30 @@ def dihedral_energy_terms(b1, b2, b3, K, mult, d_cos, a12, a6, qq):
     return edihed, e14lj, e14c, sin_n
 
 
-def improper_energy(b1, b2, b3, K, chi0):
-    """Per-improper (energy, chi - chi0, inside-the-clip mask): chi
-    between the planes (1,2,3) and (2,3,4), E = K (chi - chi0)^2, cos chi
-    clipped to +-(1 - 1e-7) before arccos."""
+def improper_energy(b1, b2, b3, K, chi0, clip):
+    """Per-improper (energy, chi - chi0, dchi/dphi): chi = |phi|, the angle
+    between the planes (1,2,3) and (2,3,4), 180 degrees for a trans chain,
+    E = K (chi - chi0)^2, dchi/dphi = sign(sin phi), 0 at a planar
+    improper.  Where ``clip`` > 0, the JAX package's chi = arccos(cos phi
+    clipped to +-(1 - clip)), and dchi/dphi = 0 where the clip holds."""
     n1 = torch.linalg.cross(b1, b2)
     n2 = torch.linalg.cross(b2, b3)
-    nn = torch.sqrt(torch.clamp(_dot(n1, n1) * _dot(n2, n2), min=1e-20))
-    craw = _dot(n1, n2) / nn
-    lo, hi = -1.0 + 1e-7, 1.0 - 1e-7
-    c = torch.clamp(craw, lo, hi)
-    dchi = torch.acos(c) - chi0
-    return K * dchi * dchi, dchi, (craw > c.new_tensor(lo)) \
-        & (craw < c.new_tensor(hi))
+    # LAMMPS' angle: (-C, -S) of the module text
+    sinval = -torch.sqrt(_dot(b2, b2)) * _dot(b1, n2)
+    cosval = -_dot(n1, n2)
+    chi = torch.atan2(sinval, cosval).abs()
+    side = torch.sign(sinval)
+    jax = clip > 0
+    if bool(jax.any()):
+        nn = torch.sqrt(torch.clamp(_dot(n1, n1) * _dot(n2, n2), min=1e-20))
+        craw = cosval / nn
+        lo, hi = clip - 1.0, 1.0 - clip
+        chi = torch.where(jax, torch.acos(torch.minimum(
+            torch.maximum(craw, lo), hi)), chi)
+        side = torch.where(jax & ((craw <= lo) | (craw >= hi)),
+                           torch.zeros_like(side), side)
+    dchi = chi - chi0
+    return K * dchi * dchi, dchi, side
 
 
 def phi_gradient(w, b1, b2, b3):
@@ -165,14 +192,12 @@ def dihedral_charmm_forces(x, L, dihedrals, coef, mult, d14, idx, out,
 
 def improper_harmonic_forces(x, L, impropers, coef, idx, out,
                              acc_dtype=torch.float32):
-    """Forces of all harmonic impropers added to ``out``; coef: (Ti, 2)
-    [K, chi0 rad].  Returns (eimp, virial (6,))."""
+    """Forces of all harmonic impropers added to ``out``; coef: (Ti, 3)
+    [K, chi0 rad, clip].  Returns (eimp, virial (6,))."""
     it = impropers[:, 0].long()
-    K, chi0 = coef[it, 0], coef[it, 1]
+    K, chi0, clip = coef[it, 0], coef[it, 1], coef[it, 2]
     b1, b2, b3 = _bond_vectors(x, L, idx)
-    e, dchi, inside = improper_energy(b1, b2, b3, K, chi0)
-    side = torch.sign(_dot(b1, torch.linalg.cross(b2, b3)))
-    w = torch.where(inside, 2.0 * K * dchi * side, torch.zeros_like(K))
-    g = phi_gradient(w, b1, b2, b3)
+    e, dchi, side = improper_energy(b1, b2, b3, K, chi0, clip)
+    g = phi_gradient(2.0 * K * dchi * side, b1, b2, b3)
     virial = _scatter_four(out, idx, (b1, b2, b3), g, acc_dtype)
     return e.to(acc_dtype).sum(), virial

@@ -44,7 +44,8 @@ class BondedStyle:
                   [K, theta0, K_ub, r_ub] when angle_style == "charmm"
     dihedrals/impropers: (Nd, 5) int32 [type, i, j, k, l]
     dihedral_coeffs: (Td, 4) [K, n, d_degrees, weight] (charmm)
-    improper_coeffs: (Ti, 2) [K, chi0_degrees] (harmonic)
+    improper_coeffs: (Ti, 2) [K, chi0_degrees] (harmonic), or (Ti, 3) with
+                     the JAX package's arccos clip (charmm.improper_energy)
     d14: (Nd, 3) [a12, a6, qq] baked per-dihedral 1-4 pair coefficients
          (see charmm.bake_charmm_14); zero-length => no 1-4 terms
     """
@@ -72,7 +73,8 @@ class BondedStyle:
         """Term tables (int32) and per-type coefficients (``flt``) on
         ``device``, in the layout the kernels read: angle_coef (Ta, 4)
         [K, theta0 rad, K_ub, r_ub], dihedral_coef (Td, 2) [K, cos d],
-        dihedral_mult (Td,) int32, improper_coef (Ti, 2) [K, chi0 rad],
+        dihedral_mult (Td,) int32, improper_coef (Ti, 3) [K, chi0 rad,
+        clip (0: none)],
         d14 (Nd, 3) or None.  Angles are converted in f64 and rounded
         once, as the JAX package does."""
         key = (torch.device(device), flt)
@@ -102,7 +104,8 @@ class BondedStyle:
                 [dc[:, 0], np.cos(np.deg2rad(dc[:, 2]))], -1)),
             dihedral_mult=ints(dc[:, 1]),
             improper_coef=real(np.stack(
-                [ic[:, 0], np.deg2rad(ic[:, 1])], -1)),
+                [ic[:, 0], np.deg2rad(ic[:, 1]),
+                 ic[:, 2] if ic.shape[1] > 2 else np.zeros(len(ic))], -1)),
             d14=real(self.d14) if len(self.d14) else None,
         )
         self._on_device[key] = t
@@ -412,12 +415,11 @@ def compute_bonded_peratom_plain(style: BondedStyle, xs, box: Box, *,
     if "improper" in include and len(style.impropers):
         idx = t["impropers"][:, 1:].long()
         it = t["impropers"][:, 0].long()
-        K, chi0 = t["improper_coef"][it, 0], t["improper_coef"][it, 1]
+        K, chi0, clip = (t["improper_coef"][it, k] for k in range(3))
         b = _bond_vectors(x, L, idx)
-        e, dchi, inside = improper_energy(*b, K, chi0)
-        side = torch.sign((b[0] * torch.linalg.cross(b[1], b[2])).sum(-1))
-        w = torch.where(inside, 2.0 * K * dchi * side, torch.zeros_like(K))
-        share(eatom, vatom, e, grad_virial(b, phi_gradient(w, *b)), idx)
+        e, dchi, side = improper_energy(*b, K, chi0, clip)
+        share(eatom, vatom, e,
+              grad_virial(b, phi_gradient(2.0 * K * dchi * side, *b)), idx)
     return eatom, vatom, e14, v14
 
 

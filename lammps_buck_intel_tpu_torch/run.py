@@ -459,9 +459,10 @@ def _shake(cfg: dict, fx: dict, g: dict):
     take out of the bonded terms.  ``m`` constrains every bond type that
     touches an atom whose mass is within 0.1 of a listed value (the
     fix_shake.cpp mass list); ``b`` and ``a`` name types (1-based);
-    ``iters`` defaults to 30.  ``tol`` is accepted and, as in the JAX
-    package, not read: the solve runs a fixed min(iters, 4) Newton
-    iterations."""
+    ``iters`` defaults to 30.  As in the JAX package the solve runs a
+    fixed min(iters, 4) Newton iterations; ``tol`` (default 1e-4) is what
+    the ``shake.unconverged`` counter holds the clusters to at each
+    thermo row."""
     from .integrate.shake import make_shake
 
     bonds, angles = g["bonds"], g["angles"]
@@ -485,7 +486,7 @@ def _shake(cfg: dict, fx: dict, g: dict):
         _coeff_table(cfg, g, "bond", 2),
         angles if angles is not None else np.zeros((0, 4), np.int32), ac,
         mass_per_atom, bond_types=b_types, angle_types=a_types,
-        iters=fx.get("iters", 30))
+        iters=fx.get("iters", 30), tol=fx.get("tol", 1e-4))
     return sc, b_types, a_types
 
 

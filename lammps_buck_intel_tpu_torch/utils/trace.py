@@ -15,7 +15,9 @@ The engines' spans: ``setup.geometry``, ``setup.velocity``,
 ``segment`` (one thermo interval); ``block``; ``neighbor`` (a rebin, or a
 wrap and a list build); ``pair``, ``kspace`` and ``bonded`` (the force
 evaluation); ``integrate`` (kicks, drift, thermostat chain, SHAKE and
-RATTLE); ``thermo`` with its ``readback`` (the row's device -> host copy
+RATTLE), within which ``shake`` holds the constraint kernels (K13, also at
+set-up and in the thermo row's constraint virial); ``thermo`` with its
+``readback`` (the row's device -> host copy
 and its checks); ``peratom`` (the per-atom computes).
 
 Counters are always on: ``count`` is one add into the module's store.
@@ -27,7 +29,13 @@ the store's launch part.  The engines count:
 - ``neighbor_build``: each rebin or list build of a block, a thermo row
   or a capacity grow;
 - ``thermo_row``: each thermo row;
-- ``step``: the MD steps run.
+- ``step``: the MD steps run;
+- ``shake.unconverged``: at each thermo row of a deck with fix shake
+  that the run keeps (not a row whose segment a capacity overflow rolls
+  back), the constraint clusters that the last SHAKE solve before the
+  row left with a relative residual |r^2 - d^2| / d^2 above the deck's
+  ``tol`` (computed on the device and read with the row, no wait of its
+  own).
 
 Device counters are on only while the tracer is: ``device_counts(group,
 device)`` hands a kernel wrapper the group's int64 buffer on that device
@@ -60,7 +68,8 @@ import torch
 
 PREFIX = "lbi."
 
-COUNTS = {"host_sync": 0, "neighbor_build": 0, "thermo_row": 0, "step": 0}
+COUNTS = {"host_sync": 0, "neighbor_build": 0, "thermo_row": 0, "step": 0,
+          "shake.unconverged": 0}
 LAUNCHES: dict = {}
 # group -> the names of its device counters, in buffer order
 DEVICE_COUNTS = {"cellpair": ("tested", "in_range", "eval_lanes")}

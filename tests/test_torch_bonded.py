@@ -9,7 +9,9 @@ dihedral and improper forces are written out by hand where the JAX
 package uses autodiff, so the plain versions are also held to central
 finite differences of their own energies at 1e-5 (the bound of
 tests/test_charmm.py).  A planar improper sits inside the arccos clip and
-gets zero force in both packages.
+gets zero force in both packages.  The port takes LAMMPS' torsion angle
+and the JAX package that plus 180 degrees, so the port gets the JAX
+tables' coefficients mapped (``interop.jax_torsion_coeffs``).
 """
 import dataclasses
 
@@ -22,7 +24,8 @@ from lammps_buck_intel_tpu.core import make_box as jmake_box
 from lammps_buck_intel_tpu.models.bonded import compute_bonded as jcompute
 from lammps_buck_intel_tpu.models.bonded import make_bonded as jmake_bonded
 from lammps_buck_intel_tpu_torch.core import make_box
-from lammps_buck_intel_tpu_torch.interop import bonded_from_numpy
+from lammps_buck_intel_tpu_torch.interop import (bonded_from_numpy,
+                                                 jax_torsion_coeffs)
 from lammps_buck_intel_tpu_torch.models.bonded import (
     bake_charmm_14, compute_bonded, compute_bonded_plain, make_bonded)
 from lammps_buck_intel_tpu_torch.models.bonded import charmm as tcharmm
@@ -87,6 +90,14 @@ def _terms(kind, seed):
     return x, kw
 
 
+def _port(kw):
+    """The port's make_bonded arguments for the JAX package's ``kw``."""
+    kw = dict(kw)
+    kw["dihedral_coeffs"], kw["improper_coeffs"] = jax_torsion_coeffs(
+        kw.get("dihedral_coeffs"), kw.get("improper_coeffs"))
+    return kw
+
+
 def _slots(x, seed):
     """Atoms scattered over a longer slot array: (planes (M, 3), inv)."""
     rng = np.random.default_rng(seed + 100)
@@ -120,7 +131,7 @@ def test_compute_bonded_matches_jax(kind):
     jr = jcompute(jstyle, jax.numpy.asarray(planes),
                   jmake_box(np.zeros(3), L), eflag=True,
                   acc_dtype=jax.numpy.float64, **jidx)
-    tr = compute_bonded(make_bonded(**kw), _torch_planes(planes),
+    tr = compute_bonded(make_bonded(**_port(kw)), _torch_planes(planes),
                         make_box(np.zeros(3), L), eflag=True,
                         acc_dtype=torch.float64,
                         inv=torch.from_numpy(inv.astype(np.int32)))
@@ -215,7 +226,7 @@ def test_planar_improper_inside_the_clip_gets_zero_force():
     jr = jcompute(jmake_bonded(**kw), jax.numpy.asarray(x),
                   jmake_box(np.zeros(3), L), eflag=True,
                   acc_dtype=jax.numpy.float64)
-    tr = compute_bonded(make_bonded(**kw), _torch_planes(x),
+    tr = compute_bonded(make_bonded(**_port(kw)), _torch_planes(x),
                         make_box(np.zeros(3), L), eflag=True,
                         acc_dtype=torch.float64)
     assert float(jr.eimp) > 1.0

@@ -302,7 +302,7 @@ def test_bonded_kernels_match_plain(cuda, flt, acc, kernel):
     """f64 to 1e-11; f32 forces 1e-4 of max|f| (the atomics' order of
     arrival decides the last bit), energies and virial 1e-5.  The f32
     improper is compared where the data sits: chi0 = 158 degrees keeps
-    every term away from the arccos clip."""
+    every term away from the kink of |phi| at planarity."""
     from lammps_buck_intel_tpu_torch.models.bonded import (
         compute_bonded, compute_bonded_plain, make_bonded)
 
@@ -343,6 +343,86 @@ def test_bonded_kernels_match_plain(cuda, flt, acc, kernel):
     assert float((torch.stack(out) - 1.0 - fp).abs().max()) <= \
         max(ftol, 1e-6) * float(fp.abs().max())
 
+
+@pytest.mark.parametrize("flt,acc", [(torch.float32, torch.float32),
+                                     (torch.float32, torch.float64),
+                                     (torch.float64, torch.float64)])
+@pytest.mark.parametrize("kind,phi_deg", [("trans", 180.0), ("cis", 0.0)])
+def test_bonded_kernels_take_lammps_angle(cuda, flt, acc, kind, phi_deg):
+    """K14b, K14c and K18b on a planar chain 1-2-3-4 give LAMMPS' angle
+    (trans 180 degrees, cis 0): with K = 1, n = 1, d = 0 the dihedral
+    energy is 1 + cos(phi), and an improper with chi0 = the chain's angle
+    has no energy and no force, as their plain versions give."""
+    from lammps_buck_intel_tpu_torch.models.bonded import (
+        compute_bonded, compute_bonded_peratom, compute_bonded_peratom_plain,
+        compute_bonded_plain, make_bonded)
+
+    y4 = 1.0 if kind == "cis" else -1.0
+    # a chain per copy, 64 copies 6 A apart, so that each kernel runs
+    # more than one warp
+    chain = np.array([[0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [2.0, 0.0, 0.0],
+                      [3.0, y4, 0.0]])
+    x = np.concatenate([chain + [6.0 * k, 0.0, 0.0] for k in range(64)])
+    box = make_box(np.zeros(3), np.array([384.0, 20.0, 20.0]))
+    quads = np.arange(4 * 64).reshape(64, 4)
+    style = make_bonded(
+        dihedrals=np.concatenate([np.zeros((64, 1), int), quads], 1),
+        dihedral_coeffs=[[1.0, 1, 0.0, 0.0]],
+        impropers=np.concatenate([np.zeros((64, 1), int), quads], 1),
+        improper_coeffs=[[1.0, phi_deg]])
+    xs = tuple(torch.as_tensor(x[:, a] + 5.0).to(cuda, flt)
+               for a in range(3))
+    k = compute_bonded(style, xs, box, eflag=True, acc_dtype=acc)
+    p = compute_bonded_plain(style, xs, box, eflag=True, acc_dtype=acc)
+    want = 64 * (1.0 + np.cos(np.radians(phi_deg)))
+    tol = 1e-9 if flt == torch.float64 else 1e-4
+    for r in (k, p):
+        assert abs(float(r.edihed) - want) <= tol * 64
+        assert abs(float(r.eimp)) <= 64 * 1e-6
+        f = torch.stack([r.fx, r.fy, r.fz])
+        assert float(f.abs().max()) <= tol
+    for include in (("dihedral",), ("dihedral", "improper")):
+        ek, _, _, _ = compute_bonded_peratom(style, xs, box, acc_dtype=acc,
+                                             include=include)
+        ep, _, _, _ = compute_bonded_peratom_plain(
+            style, xs, box, acc_dtype=acc, include=include)
+        assert float((ek - ep).abs().max()) <= tol
+    assert abs(float(ek.sum()) - float(p.edihed + p.eimp)) <= tol * 64
+
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_improper_kernels_follow_the_energy_near_planar(cuda, flt, acc):
+    """K14c and K18b 2e-4 rad from a planar trans improper, inside the
+    JAX package's arccos clip (which gives no force there), against their
+    plain versions: the force of K (|phi| - chi0)^2 at the deck's chi0 of
+    158 degrees, whose kink at 180 degrees the runs cross."""
+    from lammps_buck_intel_tpu_torch.models.bonded import (
+        compute_bonded, compute_bonded_peratom, compute_bonded_peratom_plain,
+        compute_bonded_plain, make_bonded)
+
+    chain = np.array([[0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [2.0, 0.0, 0.0],
+                      [3.0, -1.0, 2e-4]])
+    x = np.concatenate([chain + [6.0 * k, 0.0, 0.0] for k in range(64)])
+    box = make_box(np.zeros(3), np.array([384.0, 20.0, 20.0]))
+    quads = np.arange(4 * 64).reshape(64, 4)
+    style = make_bonded(
+        impropers=np.concatenate([np.zeros((64, 1), int), quads], 1),
+        improper_coeffs=[[5.0, 158.0]])
+    xs = tuple(torch.as_tensor(x[:, a] + 5.0).to(cuda, flt)
+               for a in range(3))
+    k = compute_bonded(style, xs, box, eflag=True, acc_dtype=acc)
+    p = compute_bonded_plain(style, xs, box, eflag=True, acc_dtype=acc)
+    tol = 1e-9 if flt == torch.float64 else 1e-4
+    fk, fp = (torch.stack([r.fx, r.fy, r.fz]) for r in (k, p))
+    assert float(fp.abs().max()) > 1.0
+    assert float((fk - fp).abs().max()) <= tol * float(fp.abs().max())
+    assert abs(float(k.eimp) - float(p.eimp)) <= tol * float(p.eimp)
+    ek, vk, _, _ = compute_bonded_peratom(style, xs, box, acc_dtype=acc)
+    ep, vp, _, _ = compute_bonded_peratom_plain(style, xs, box,
+                                                acc_dtype=acc)
+    assert float((ek - ep).abs().max()) <= tol * float(ep.abs().max())
+    assert float((vk - vp).abs().max()) <= tol * float(vp.abs().max())
 
 def test_bonded_wrapper_rejects_bad_input(cuda):
     from lammps_buck_intel_tpu_torch.models.bonded import compute_bonded

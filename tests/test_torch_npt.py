@@ -108,7 +108,8 @@ def test_npt_simulation_matches_jax(shake):
     if not shake:
         cfg["fixes"] = [f for f in cfg["fixes"] if f["name"] != "shake"]
     js = jbuild(copy.deepcopy(cfg))
-    ts = trun.build_simulation(copy.deepcopy(cfg), device="cpu")
+    # the JAX package's torsion angle (interop.jax_torsion_deck)
+    ts = trun.build_simulation(interop.jax_torsion_deck(cfg), device="cpu")
     assert isinstance(ts, tnpt.NPTSimulation)
     # the front-end: the same barostat, thermostat, mesh and list sizing
     for f in ("p_start", "p_stop", "p_damp", "flags", "couple", "mtk",

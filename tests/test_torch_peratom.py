@@ -54,6 +54,7 @@ from lammps_buck_intel_tpu.models.kspace.base import (
 
 from lammps_buck_intel_tpu_torch import computes
 from lammps_buck_intel_tpu_torch.core import make_box
+from lammps_buck_intel_tpu_torch.interop import jax_torsion_deck
 from lammps_buck_intel_tpu_torch.models.bonded import (compute_bonded,
                                                        compute_bonded_peratom)
 from lammps_buck_intel_tpu_torch.models.kspace import pppm as tpppm
@@ -87,7 +88,9 @@ def sims(tmp_path_factory):
 
     def get(name):
         if name not in built:
-            sim = build_simulation(rec.case_config(name, path), device="cpu")
+            # the JAX package's torsion angle for its records
+            sim = build_simulation(
+                jax_torsion_deck(rec.case_config(name, path)), device="cpu")
             built[name] = (sim, sim.thermo())
         return built[name]
 

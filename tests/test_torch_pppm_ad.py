@@ -37,6 +37,7 @@ from lammps_buck_intel_tpu.core import make_box as jmake_box
 from lammps_buck_intel_tpu.models.kspace import pppm as jpppm
 from lammps_buck_intel_tpu.models.kspace import setup_pppm as jsetup
 from lammps_buck_intel_tpu_torch.core import make_box as tmake_box
+from lammps_buck_intel_tpu_torch.interop import jax_torsion_deck
 from lammps_buck_intel_tpu_torch.models.kspace import pppm as tpppm
 from lammps_buck_intel_tpu_torch.models.kspace import setup_pppm as tsetup
 from lammps_buck_intel_tpu_torch.run import build_simulation
@@ -314,7 +315,9 @@ def run_case(name, tmp, device="cpu"):
     import kspace_rest_cases as kc
 
     _, _, _, steps, every = kc.CASES[name]
-    sim = build_simulation(kc.deck_cfg(name, tmp), device=device)
+    # the records are the JAX package's: its torsion angle
+    sim = build_simulation(jax_torsion_deck(kc.deck_cfg(name, tmp)),
+                           device=device)
     f0 = sim.get_atoms()["f"]
     rows = sim.run(steps, thermo_every=every, log=False)
     return sim, f0, rows, sim.get_atoms()

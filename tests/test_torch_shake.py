@@ -286,7 +286,9 @@ def test_literal_rhodo_deck_matches_jax(name):
 
     cfg = _deck(name)
     jsim, jrows = jax_run_deck(dict(cfg), log=False)
-    tsim, trows = run_deck(dict(cfg), device="cpu", log=False)
+    # the JAX package's torsion angle (interop.jax_torsion_deck)
+    tsim, trows = run_deck(interop.jax_torsion_deck(cfg), device="cpu",
+                           log=False)
     assert tsim.n_atoms == 1728 and tsim.shake.n_constraints == 864
     assert tsim.dof == 3 * 1728 - 3 - 864
     # the C-H bond type is constrained, so it leaves the bonded terms
@@ -362,7 +364,8 @@ def test_shake_deck_counts_3n_minus_3_minus_nc():
 def test_settle_puts_the_bonds_on_their_length():
     """The data file is on the constraints in f64 already; the set-up
     settle is seen on a perturbed state: bonds back at 1.09 A, velocities
-    projected."""
+    projected, and no cluster left above the deck's tol by the solve
+    (what ``shake.unconverged`` counts at a thermo row)."""
     sim = build_simulation(_deck("rhodo_nve.yaml"), device="cpu")
     sc, L = sim.shake, sim.box.lengths
     at = sim.get_atoms()
@@ -375,6 +378,7 @@ def test_settle_puts_the_bonds_on_their_length():
                      (st.vx, 0.01), (st.vy, 0.01), (st.vz, 0.01)):
         p += torch.from_numpy(rng.normal(size=p.shape) * scale) * occ
     sim._settle(st)
+    assert int(tshake.unconverged(sim._shake_t, sim._shake_rn, sc.tol)) == 0
     x = cellpair_verlet.cs.to_atoms(sim.grid, st)
     assert float(tshake.max_violation(sc, x["x"], L)) < 1e-12
     r = (x["x"][sc.pairs[:, 0]] - x["x"][sc.pairs[:, 1]]).numpy()

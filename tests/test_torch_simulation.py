@@ -41,7 +41,8 @@ from lammps_buck_intel_tpu import run as jrun
 from lammps_buck_intel_tpu.integrate import Simulation as JSimulation
 from lammps_buck_intel_tpu_torch import run as trun
 from lammps_buck_intel_tpu_torch.integrate import Simulation
-from lammps_buck_intel_tpu_torch.interop import md_state_from_numpy
+from lammps_buck_intel_tpu_torch.interop import (jax_torsion_deck,
+                                                 md_state_from_numpy)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DECKS = os.path.join(ROOT, "examples", "decks")
@@ -110,7 +111,8 @@ def _advances(monkeypatch, cls):
 def test_simulation_matches_jax(name, tmp_path, monkeypatch):
     cfg, steps, every = _case(name, str(tmp_path))
     jsim = jrun.build_simulation(copy.deepcopy(cfg))
-    tsim = trun.build_simulation(copy.deepcopy(cfg), device="cpu")
+    # the JAX package's torsion angle (interop.jax_torsion_deck)
+    tsim = trun.build_simulation(jax_torsion_deck(cfg), device="cpu")
     assert isinstance(jsim, JSimulation) and isinstance(tsim, Simulation)
     assert tsim.spec.dense == jsim.spec.dense == (name != "rhodo_nlist")
     assert (tsim.spec.kmax, tsim.spec.nc) == (jsim.spec.kmax, jsim.spec.nc)

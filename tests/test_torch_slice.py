@@ -30,6 +30,7 @@ import yaml
 
 from lammps_buck_intel_tpu.run import run_deck as jax_run_deck
 from lammps_buck_intel_tpu_torch.integrate import CellPairSimulation
+from lammps_buck_intel_tpu_torch.interop import jax_torsion_deck
 from lammps_buck_intel_tpu_torch.run import build_simulation, run_deck
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -195,7 +196,7 @@ def test_rhodo_flex_nve_deck_matches_jax(monkeypatch):
     monkeypatch.setattr(CellPairSimulation, "_block", counted)
     cfg = _rhodo_cfg("rhodo_flex_nve.yaml")
     jsim, jrows = jax_run_deck(dict(cfg), log=False)
-    tsim, trows = run_deck(dict(cfg), device="cpu", log=False)
+    tsim, trows = run_deck(jax_torsion_deck(cfg), device="cpu", log=False)
     assert tsim.n_atoms == 1728 and tsim.grid.nc == tuple(jsim.grid.nc) \
         == (4, 4, 4)
     assert blocks == [5, 5]          # a rebin at step 5
@@ -215,7 +216,7 @@ def test_rhodo_flex_nvt_deck_matches_jax_across_a_capacity_grow():
 
     cfg = _rhodo_cfg("rhodo_flex_nvt.yaml")
     jsim = jax_build(dict(cfg))
-    tsim = build_simulation(dict(cfg), device="cpu")
+    tsim = build_simulation(jax_torsion_deck(cfg), device="cpu")
     assert tsim.thermostat.dof == jsim.thermostat.dof == 3 * 1728 - 3
     assert tsim.thermostat.tchain == 1
     jrows, trows = [], []

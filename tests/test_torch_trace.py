@@ -157,3 +157,58 @@ def test_engine_spans_and_counters(engine, n, npt, engine_cls, syncs):
             "run/segment/block/integrate", "run/thermo/neighbor",
             "run/thermo/pair", "run/thermo/readback",
             "setup.engine/pair"} <= paths
+
+
+def test_shake_span_and_unconverged_counter_on_a_rhodo_deck():
+    """One copy of rhodo_class.yaml (NVT + SHAKE): the ``shake`` span
+    holds the constraint kernels of the steps and of the thermo row, and
+    ``shake.unconverged`` counts, at each row, the clusters that the last
+    SHAKE solve left above the deck's tol: none, and one when a cluster's
+    corrected bond vector is 0.1% too long."""
+    from lammps_buck_intel_tpu_torch.integrate import shake as shk
+
+    with open(os.path.join(ROOT, "examples", "decks",
+                           "rhodo_class.yaml")) as f:
+        d = yaml.safe_load(f)
+    d["read_data"] = os.path.join(ROOT, d["read_data"])
+    trace.enable()
+    sim = build_simulation(d, device="cpu")
+    assert sim.shake.tol == 1e-4
+    before = trace.counters()
+    sim.run(1, thermo_every=1, log=False)
+    after = trace.counters()
+    assert after["thermo_row"] - before["thermo_row"] == 2
+    assert after["shake.unconverged"] == before["shake.unconverged"] == 0
+    s = trace.summary()
+    # set-up's settle (ref, positions, RATTLE); the step's ref, positions
+    # and RATTLE; a row's constraint virial
+    assert s["shake"]["count"] == 3 + 3 + 2
+    recs = trace.spans()
+    parents = {recs[p][0] for name, p, _, _ in recs if name == "shake"}
+    assert parents == {"setup.engine", "integrate", "thermo"}
+    t, rn = sim._shake_t, sim._shake_rn.clone()
+    assert int(shk.unconverged(t, rn, 1e-4)) == 0
+    rn[:, 0, 7] *= 1.001
+    assert int(shk.unconverged(t, rn, 1e-4)) == 1
+    sim._shake_rn = rn
+    row = sim.thermo()
+    assert "shake_unconverged" not in row
+    assert trace.counters()["shake.unconverged"] == 1
+
+
+def test_cell_overflow_is_read_before_non_finite_thermo():
+    """A row whose rebin dropped atoms raises the overflow (which the run
+    rolls back, grows and replays), not the non-finite thermodynamics
+    that the dropped atoms cause, and counts none of the unconverged
+    SHAKE clusters of the segment it throws away."""
+    from types import SimpleNamespace
+
+    from lammps_buck_intel_tpu_torch.integrate import cellpair_verlet as cv
+
+    nan = torch.tensor(float("nan"))
+    row = dict(temp=nan, etotal=nan, overflow=torch.tensor(True),
+               shake_unconverged=torch.tensor(7), virial=torch.zeros(6))
+    before = trace.counters()["shake.unconverged"]
+    with pytest.raises(cv.CellOverflowError):
+        cv.CellPairSimulation._readback(SimpleNamespace(step_count=5), row)
+    assert trace.counters()["shake.unconverged"] == before
