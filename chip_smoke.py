@@ -261,8 +261,8 @@ from lammps_buck_intel_tpu_torch.models.bonded import (compute_bonded,
 from lammps_buck_intel_tpu_torch.models.kspace import pppm_cells
 from lammps_buck_intel_tpu_torch.models.pair import build_buck
 from lammps_buck_intel_tpu_torch.models.pair.cellpair import (
-    _chunk_cells, compute_cellpair, compute_cellpair_plain, full_offsets,
-    half_stencil_tables)
+    _chunk_cells, candidate_mask, compute_cellpair, compute_cellpair_plain,
+    half_offsets, half_stencil_tables)
 from lammps_buck_intel_tpu_torch.neighbor import cell_slots as cs
 from lammps_buck_intel_tpu_torch.ops import build
 from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
@@ -461,36 +461,37 @@ def pairs_in_cutoff(style, grid, box, st, rsq_min: float = -1.0,
                     slot_mol=None) -> int:
     """Unordered pairs of this state within the style's largest cutoff
     (and beyond rsq_min; of two molecules with ``slot_mol``): the pair
-    work the function needs (the kernel tests every candidate of the full
-    stencil, from both sides)."""
+    work the function needs, each pair once over the Newton half stencil,
+    as the kernel decides it."""
     ncell, cap, n = grid.ncell, grid.cap, grid.n_atoms
-    offs = full_offsets(grid.reach_z)
-    S = offs.shape[0]
+    offs = half_offsets(grid.reach_z)
+    K = offs.shape[0]
     nbr, _, shifts = half_stencil_tables(grid.nc, offs)
     nbr_t = torch.as_tensor(nbr, dtype=torch.long, device=st.x.device)
     shift_t = torch.as_tensor(shifts * np.asarray(box.lengths),
                               device=st.x.device).to(st.x.dtype)
     pos = [p.view(ncell, cap) for p in (st.x, st.y, st.z)]
     aid = st.aid.view(ncell, cap)
+    own = candidate_mask(cap, K, st.x.device)
     total = 0
-    chunk = _chunk_cells(cap, S, ncell)
+    chunk = _chunk_cells(cap, K, ncell)
     for c0 in range(0, ncell, chunk):
         c1 = min(ncell, c0 + chunk)
         js = nbr_t[c0:c1]
         rsq = 0.0
         for ax in range(3):
             pj = (pos[ax][js] + shift_t[c0:c1, :, ax, None]).reshape(
-                c1 - c0, 1, S * cap)
+                c1 - c0, 1, K * cap)
             rsq = rsq + (pos[ax][c0:c1, :, None] - pj) ** 2
         ai = aid[c0:c1, :, None]
-        aj = aid[js].reshape(c1 - c0, 1, S * cap)
-        ok = ((ai < n) & (aj < n) & (ai != aj) & (rsq < style.cutsq_max)
+        aj = aid[js].reshape(c1 - c0, 1, K * cap)
+        ok = ((ai < n) & (aj < n) & own & (rsq < style.cutsq_max)
               & (rsq > rsq_min))
         if slot_mol is not None:
             mol = slot_mol.view(ncell, cap)
-            ok &= mol[c0:c1, :, None] != mol[js].reshape(c1 - c0, 1, S * cap)
+            ok &= mol[c0:c1, :, None] != mol[js].reshape(c1 - c0, 1, K * cap)
         total += int(ok.sum())
-    return total // 2
+    return total
 
 
 def step0_check(name: str, row: dict, ref: dict, n: int):
@@ -582,7 +583,9 @@ def _k1_compare(label, style, grid, box, st, acc, special=None,
 def _k1_counts(style, grid, box, st, special=None, slot_mol=None) -> dict:
     """K1's device counters (utils/trace.py) over one f32 force-only
     launch: candidates tested, pairs in range, evaluate lane slots, and
-    from them the filter's hit share and the evaluate phase's lane use."""
+    from them the filter's hit share, the evaluate phase's lane use and
+    the candidates tested an atom over cap (the tiles an atom walks: 14
+    on the half stencil at reach_z 1, 23 at reach_z 2)."""
     names = ("tested", "in_range", "eval_lanes")
     was_on = trace.enabled()
     before = trace.counters()
@@ -597,7 +600,8 @@ def _k1_counts(style, grid, box, st, special=None, slot_mol=None) -> dict:
     out = {k: after[f"cellpair.{k}"] - before[f"cellpair.{k}"]
            for k in names}
     out.update(hit_share=out["in_range"] / max(out["tested"], 1),
-               lane_use=out["in_range"] / max(out["eval_lanes"], 1))
+               lane_use=out["in_range"] / max(out["eval_lanes"], 1),
+               tiles=out["tested"] / max(grid.n_atoms * grid.cap, 1))
     return out
 
 
@@ -635,10 +639,11 @@ def _k1_time(label, sim, st, reps_plain=3):
           f"{grid.nc} cap {grid.cap} reach_z {grid.reach_z}); counters: "
           f"{cnt['tested']:,} tested, {cnt['in_range']:,} in range, "
           f"{cnt['eval_lanes']:,} evaluate lanes: hit share "
-          f"{cnt['hit_share']:.4f}, lane use {cnt['lane_use']:.4f}")
+          f"{cnt['hit_share']:.4f}, lane use {cnt['lane_use']:.4f}, tested "
+          f"an atom / cap {cnt['tiles']:.2f}")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, hit_share=cnt["hit_share"],
-                lane_use=cnt["lane_use"])
+                lane_use=cnt["lane_use"], tiles=cnt["tiles"])
 
 
 def phase_k1():
@@ -3349,10 +3354,12 @@ def _hex_time(sim) -> dict:
            pairs * OPS_PAIR_DISP, err, reps_plain=1)
     cnt = _k1_counts(style, grid, box, st, slot_mol=mol)
     out["cellpair_lj_long"].update(hit_share=cnt["hit_share"],
-                                   lane_use=cnt["lane_use"])
+                                   lane_use=cnt["lane_use"],
+                                   tiles=cnt["tiles"])
     print(f"[hexane time] K1: {pairs:,} pairs of two molecules in the "
           f"cutoff; cells {grid.nc} cap {grid.cap}; hit share "
-          f"{cnt['hit_share']:.4f}, lane use {cnt['lane_use']:.4f}")
+          f"{cnt['hit_share']:.4f}, lane use {cnt['lane_use']:.4f}, tested "
+          f"an atom / cap {cnt['tiles']:.2f}")
     # K5 / K12a / K8 on the dispersion mesh
     res = {}
     kerr = _hex_disp_stages(f"hexane_big/{n}", sim, st, res)
@@ -3912,12 +3919,14 @@ def _mix_time_cell(sim, out):
         out[f"k1_buck_long_{key}"] = dict(
             ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            hit_share=cnt["hit_share"], lane_use=cnt["lane_use"])
+            hit_share=cnt["hit_share"], lane_use=cnt["lane_use"],
+            tiles=cnt["tiles"])
         print(f"[disp mix time] K1 buck/long coul {key} f32 at {n} atoms: "
               f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {pairs:,} "
               f"pairs); hit share {cnt['hit_share']:.4f}, lane use "
-              f"{cnt['lane_use']:.4f}")
+              f"{cnt['lane_use']:.4f}, tested an atom / cap "
+              f"{cnt['tiles']:.2f}")
     base_ms = cuda_ms(lambda: compute_cellpair(plain_style, grid, box, st,
                                                acc_dtype=acc))
     base_dev = device_ms(lambda: compute_cellpair(plain_style, grid, box, st,

@@ -153,9 +153,9 @@ class CellPairSimulation:
                 "engine (Simulation)")
         if cap is None:
             # capacity from the OBSERVED max occupancy (+8%), and reach_z
-            # by the padded-work model ncell * cap * (S * cap) of the
-            # full-stencil kernel, S = 9 * (2 * reach + 1).  The JAX
-            # package rounds S * cap up to 128 TPU lanes; the port does not.
+            # by the padded-work model ncell * cap * (K * cap) of the
+            # half-stencil kernel, K = 9 * reach + 5.  The JAX package
+            # rounds K * cap up to 128 TPU lanes; the port does not.
             best = None
             for reach in (1, 2, 3):
                 g = cs.make_grid(n, L, cutneigh, reach_z=reach)
@@ -163,7 +163,7 @@ class CellPairSimulation:
                     continue
                 occ = self._occupancy(x_np, g)
                 capr = max(8, ((max(int(occ * 1.08), occ + 4) + 7) // 8) * 8)
-                work = g.ncell * capr * 9 * (2 * reach + 1) * capr
+                work = g.ncell * capr * (9 * reach + 5) * capr
                 if best is None or work < best[0]:
                     best = (work, reach, capr)
             _, reach, capr = best

@@ -1,14 +1,16 @@
 """Cell-pair force evaluation over the sorted slot layout.
 
-Counterpart of ``lammps_buck_intel_tpu.models.pair.cellpair``.  The JAX
-package evaluates a Newton half stencil (self + K positive cell offsets)
-as dense (tile, cap, K*cap) tiles and routes the reaction forces back;
-that form existed for XLA on a TPU.  The port evaluates the FULL stencil
-without Newton: each slot i sums over every slot j of the (3, 3,
-2*reach_z+1) neighbour cells, excluding only aid_i == aid_j.  No
-reaction forces means no atomics and deterministic forces, at about
-1.9x the pair physics; energy and virial count each pair twice and are
-halved.
+Counterpart of ``lammps_buck_intel_tpu.models.pair.cellpair``.  Both
+evaluate the Newton half stencil, as the JAX package's
+``compute_cell_tiles_newton`` does: each cell pairs its slots with the
+cells of ``half_offsets(reach_z)`` (the own cell, then the K - 1
+lexicographically positive offsets; K = 9 reach_z + 5), in the own cell
+only slot j > slot i, so each pair is decided and evaluated once, with d
+= x_i - (x_j + shift) from the walking cell's slot i.  Slot i takes +fs d
+and slot j the reaction -fs d; energy and virial count each pair once.
+The kernel routes the reactions back through reaction planes and a second
+launch, with no float atomics, so its forces are deterministic
+(csrc/cellpair.cu); the plain version scatters them with ``index_add_``.
 
 ``compute_cellpair`` dispatches on the device of the planes: CUDA
 tensors launch the hand-written kernel (csrc/cellpair.cu through
@@ -26,8 +28,10 @@ molecule is skipped.  The uniform-special shortcut and tilted boxes are
 ROADMAP queue 1 items 12 and 14.
 
 While the tracer is on (``utils/trace.py``), both forms count into
-``trace.device_counts("cellpair", device)``: the candidates tested and
-the pairs in range, which the plain version counts from its own mask.
+``trace.device_counts("cellpair", device)``: the candidates tested (cap
+for each active slot and tile of the half stencil) and the pairs in
+range (each pair once), which the plain version counts from its own
+mask.
 The lane slots of the evaluate rounds are the kernel's alone.
 """
 from __future__ import annotations
@@ -105,13 +109,6 @@ def half_offsets(reach_z: int = 1) -> np.ndarray:
     return np.asarray(offs, np.int64)
 
 
-def full_offsets(reach_z: int = 1) -> np.ndarray:
-    """(S, 3) every offset of the full stencil, S = 9 * (2r + 1), in the
-    order the CUDA kernel walks them (x slowest, z fastest)."""
-    return np.asarray([(ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
-                       for oz in range(-reach_z, reach_z + 1)], np.int64)
-
-
 def half_stencil_tables(nc: tuple, offs: np.ndarray):
     """Static per-(cell, offset) tables for any offset list.
 
@@ -141,6 +138,16 @@ def half_stencil_tables(nc: tuple, offs: np.ndarray):
     return half, inv, shifts
 
 
+def candidate_mask(cap: int, K: int, device) -> torch.Tensor:
+    """(cap, K * cap) bool: which of a cell's half-stencil candidates a
+    slot takes, all but those of the own cell (tile 0, the first cap
+    columns) at or below its own slot."""
+    m = torch.ones((cap, K * cap), dtype=torch.bool, device=device)
+    m[:, :cap] = torch.ones((cap, cap), dtype=torch.bool,
+                            device=device).triu(1)
+    return m
+
+
 def slot_mol_gather(excl_mol_pad: torch.Tensor, aid: torch.Tensor,
                     n: int) -> torch.Tensor:
     """Padded atom-order molecule table (N + 1,) int32 -> the (NS,) slot
@@ -158,11 +165,11 @@ def check_style(style: PairStyle):
             f"{MAX_TYPES}")
 
 
-def _chunk_cells(cap: int, S: int, ncell: int,
+def _chunk_cells(cap: int, K: int, ncell: int,
                  budget_elems: int = 1 << 24) -> int:
-    """Cells per plain-version chunk: bounds the (chunk, cap, S*cap) pair
+    """Cells per plain-version chunk: bounds the (chunk, cap, K*cap) pair
     temporaries (about a dozen live at once)."""
-    return max(1, min(ncell, budget_elems // max(cap * S * cap, 1)))
+    return max(1, min(ncell, budget_elems // max(cap * K * cap, 1)))
 
 
 def range_cutsq(style: PairStyle, dtype, device) -> torch.Tensor:
@@ -182,21 +189,23 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
                            special: Optional[SpecialTable] = None,
                            slot_mol: Optional[torch.Tensor] = None
                            ) -> CellPairResult:
-    """Plain torch full-stencil evaluation as dense cell tiles, chunked
-    over cells (any device).  With ``special``, a pair whose j atom is
-    among slot i's partners takes the style's factors of its code; with
+    """Plain torch half-stencil evaluation as dense cell tiles, chunked
+    over cells (any device): each pair once, its force on slot i and the
+    reaction on slot j.  With ``special``, a pair whose j atom is among
+    slot i's partners takes the style's factors of its code; with
     ``slot_mol``, a pair of one molecule is skipped."""
     check_style(style)
     ncell, cap, n = grid.ncell, grid.cap, grid.n_atoms
     flt = state.x.dtype
     dev = state.x.device
-    offs = full_offsets(grid.reach_z)
-    S = offs.shape[0]
+    offs = half_offsets(grid.reach_z)
+    K = offs.shape[0]
     nbr, _, shifts = half_stencil_tables(grid.nc, offs)
     L = np.asarray(box.lengths, np.float64)
     nbr_t = torch.as_tensor(nbr, dtype=torch.long, device=dev)
     # f64 product rounded once to flt, as the JAX package does
     shift_t = torch.as_tensor(shifts * L, device=dev).to(flt)
+    own = candidate_mask(cap, K, dev)
 
     ntypes = style.tables.shape[0]
     flat = style.tables.reshape(ntypes * ntypes, -1)
@@ -212,7 +221,7 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
     coul = style.cfg.has_coul
     q = state.q.view(ncell, cap)
     mol = slot_mol.view(ncell, cap) if slot_mol is not None else None
-    f_out = [torch.zeros((ncell, cap), dtype=acc_dtype, device=dev)
+    f_out = [torch.zeros(ncell * cap, dtype=acc_dtype, device=dev)
              for _ in range(3)]
     ev = torch.zeros((), dtype=acc_dtype, device=dev)
     ec = torch.zeros((), dtype=acc_dtype, device=dev)
@@ -226,41 +235,44 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
     counts = trace.device_counts("cellpair", dev)
     if counts is not None:
         cut_pair = range_cutsq(style, flt, dev)
-    chunk = _chunk_cells(cap, S, ncell)
+    slots = torch.arange(cap, device=dev)
+    chunk = _chunk_cells(cap, K, ncell)
     for c0 in range(0, ncell, chunk):
         c1 = min(ncell, c0 + chunk)
         C = c1 - c0
-        js = nbr_t[c0:c1]                                   # (C, S)
+        js = nbr_t[c0:c1]                                   # (C, K)
         d = []
         for ax in range(3):
             pj = (pos[ax][js] + shift_t[c0:c1, :, ax, None]).reshape(
-                C, 1, S * cap)
-            d.append(pos[ax][c0:c1, :, None] - pj)          # (C, cap, S*cap)
+                C, 1, K * cap)
+            d.append(pos[ax][c0:c1, :, None] - pj)          # (C, cap, K*cap)
         rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         ai = aid[c0:c1, :, None]
-        aj = aid[js].reshape(C, 1, S * cap)
-        mask = (ai < n) & (aj < n) & (ai != aj)
+        aj = aid[js].reshape(C, 1, K * cap)
+        mask = (ai < n) & (aj < n) & own
         if mol is not None:
-            mask &= mol[c0:c1, :, None] != mol[js].reshape(C, 1, S * cap)
+            mask &= mol[c0:c1, :, None] != mol[js].reshape(C, 1, K * cap)
         if counts is not None:
             # an empty slot's type never indexes the tables in the kernel
             ti = torch.where(aid[c0:c1] < n, typ[c0:c1], 0).long()
             tj = torch.where(aid[js] < n, typ[js], 0).long().reshape(
-                C, 1, S * cap)
+                C, 1, K * cap)
             in_range = mask & (rsq.clamp_min(1e-12)
                                < cut_pair[ti[:, :, None], tj])
             counts[:2] += torch.tensor(
-                [int((aid[c0:c1] < n).sum()) * S * cap, int(in_range.sum())],
+                [int((aid[c0:c1] < n).sum()) * K * cap, int(in_range.sum())],
                 device=dev)
         # only candidates inside the largest cutoff contribute (every term
         # is zero beyond its own cutoff): the physics runs on those pairs
         keep = torch.nonzero((mask & (rsq < style.cutsq_max)).reshape(-1),
                              as_tuple=True)[0]
-        row = keep // (S * cap)                    # slot of i in the chunk
-        col = (row // cap) * (S * cap) + keep % (S * cap)   # j in (C, S*cap)
+        row = keep // (K * cap)                    # slot of i in the chunk
+        col = (row // cap) * (K * cap) + keep % (K * cap)   # j in (C, K*cap)
         rsq_k = rsq.reshape(-1)[keep]
         d_k = [da.reshape(-1)[keep] for da in d]
         aj_k = aid[js].reshape(-1)[col]
+        # the slot of j in the whole plane
+        sj_k = (js[:, :, None] * cap + slots).reshape(-1)[col]
         if ntypes == 1:
             coef = coef1
         else:
@@ -280,8 +292,9 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
         fs, e, e_c = pair_terms(style, rsq_k, coef, qi, qj, f_lj, f_coul,
                                 eflag=eflag)
         for ax in range(3):
-            f_out[ax][c0:c1].view(-1).index_add_(
-                0, row, (fs * d_k[ax]).to(acc_dtype))
+            f = (fs * d_k[ax]).to(acc_dtype)
+            f_out[ax].index_add_(0, c0 * cap + row, f)
+            f_out[ax].index_add_(0, sj_k, -f)
         if eflag:
             ev = ev + e.to(acc_dtype).sum()
             ec = ec + e_c.to(acc_dtype).sum()
@@ -289,11 +302,8 @@ def compute_cellpair_plain(style: PairStyle, grid: CellGrid, box: Box,
             vir = vir + torch.stack([
                 (fs * d_k[a] * d_k[b]).to(acc_dtype).sum()
                 for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))])
-    # every pair was seen from both sides
-    return CellPairResult(
-        fx=f_out[0].reshape(-1), fy=f_out[1].reshape(-1),
-        fz=f_out[2].reshape(-1), evdwl=0.5 * ev, ecoul=0.5 * ec,
-        virial=0.5 * vir)
+    return CellPairResult(fx=f_out[0], fy=f_out[1], fz=f_out[2], evdwl=ev,
+                          ecoul=ec, virial=vir)
 
 
 def compute_cellpair(style: PairStyle, grid: CellGrid, box: Box,

@@ -29,9 +29,25 @@ def _lib():
     if lib.cellpair_forces.argtypes is None:
         lib.cellpair_forces.argtypes = (
             [_I] * 5 + [_P] * 8 + [_I] * 7 + [_D] * 7 + [_P] * 2
-            + [_I, _P] + [_P] * 6)
+            + [_I, _P] + [_P] * 7)
         lib.cellpair_forces.restype = _I
     return lib
+
+
+# (device, acc dtype) -> the reaction planes of the last grid: scratch
+# that every launch overwrites, so one allocation serves every call on a
+# grid, and a new one is made only when the grid changes
+_react: dict = {}
+
+
+def _react_planes(grid, acc_dtype, dev) -> torch.Tensor:
+    # K - 1 = 9 reach_z + 4 positive tiles, three planes each
+    numel = (9 * grid.reach_z + 4) * 3 * grid.nslots
+    buf = _react.get((dev, acc_dtype))
+    if buf is None or buf.numel() != numel:
+        buf = torch.empty(numel, dtype=acc_dtype, device=dev)
+        _react[dev, acc_dtype] = buf
+    return buf
 
 
 def check_plane(t: torch.Tensor, name: str, dtype, numel: int, device):
@@ -48,9 +64,11 @@ def check_plane(t: torch.Tensor, name: str, dtype, numel: int, device):
 
 def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
                     special=None, slot_mol=None) -> CellPairResult:
-    """Full-stencil pair forces on the card.  eflag also computes evdwl,
-    ecoul and the virial (the kernel's EV variant); coul/long and coul/cut
-    styles run the kernel's COUL variants, which read the slot q plane;
+    """Half-stencil (Newton) pair forces on the card: K1, then the launch
+    that adds the reaction planes to each slot's force.  eflag also
+    computes evdwl, ecoul and the virial (the kernel's EV variant), each
+    pair once; coul/long and coul/cut styles run the kernel's COUL
+    variants, which read the slot q plane;
     lj/charmm and the lj/cut family their VDW variants, lj/long and
     buck/long (coul none or long) the DISP_LONG ones; a ``special`` partner table
     (``models.pair.cellpair.SpecialTable``) its SPECIAL variant; a
@@ -100,6 +118,7 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
         sp_ptr, fac_ptr = special.packed.data_ptr(), fac.data_ptr()
     fx, fy, fz = (torch.empty(ns, dtype=acc_dtype, device=dev)
                   for _ in range(3))
+    react = _react_planes(grid, acc_dtype, dev)
     partial = (torch.empty((grid.ncell, 8), dtype=acc_dtype, device=dev)
                if eflag else None)
     L = [float(v) for v in box.lengths]
@@ -113,18 +132,17 @@ def cellpair_forces(style, grid, box, state, *, eflag: bool, acc_dtype,
         ntypes, grid.n_atoms, *grid.nc, grid.cap, grid.reach_z, *L,
         float(style.g_ewald), float(style.qqrd2e), float(style.inner_sq),
         float(style.denom_lj), ctypes.cast(disp, _P), sp_ptr, sp_width,
-        fac_ptr, fx.data_ptr(),
-        fy.data_ptr(), fz.data_ptr(),
-        partial.data_ptr() if eflag else None,
+        fac_ptr, fx.data_ptr(), fy.data_ptr(), fz.data_ptr(),
+        react.data_ptr(), partial.data_ptr() if eflag else None,
         None if counts is None else counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"cellpair kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"cellpair kernel launch failed: CUDA error {rc} "
+                           f"(cap {grid.cap}, {flt} / {acc_dtype})")
     LAUNCHES["cellpair"] += 1
     zero = torch.zeros((), dtype=acc_dtype, device=dev)
     if not eflag:
         return CellPairResult(fx, fy, fz, zero, zero,
                               torch.zeros(6, dtype=acc_dtype, device=dev))
-    # each pair was evaluated from both sides
-    tot = 0.5 * partial.sum(0)
+    tot = partial.sum(0)
     return CellPairResult(fx, fy, fz, tot[0], tot[1], tot[2:8])

@@ -1066,11 +1066,15 @@ def test_cellpair_coul_cut_kernel_matches_plain(cuda, flt, acc):
             etol * abs(float(getattr(p, e)))
 
 
-def _knife_edge_pair(rng, dt, origin, cutsq, inside):
+def _knife_edge_pair(rng, dt, origin, cutsq, inside, wrap=None):
     """Two positions (in ``dt``) whose rsq, rounded product by product and
     sum by sum as the plain version rounds it, lies inside the strict
     cutoff when ``inside`` (outside otherwise), while the exact rsq and
-    both FMA contractions of dx^2 + dy^2 + dz^2 lie on the other side."""
+    both FMA contractions of dx^2 + dy^2 + dz^2 lie on the other side.
+    With ``wrap`` (the box length along x) the second atom lies past the
+    box's upper x face and is returned wrapped to x - wrap; its distance
+    is then taken as both versions take it from the first atom's cell,
+    to the wrapped position plus the shift dt(wrap)."""
     from fractions import Fraction as Fr
 
     rc2 = Fr(float(cutsq))
@@ -1084,9 +1088,18 @@ def _knife_edge_pair(rng, dt, origin, cutsq, inside):
     xi = np.asarray(origin, dt)
     while True:
         u = rng.normal(size=3)
+        if wrap is not None:
+            u[0] = abs(u[0]) + 1.0       # toward the upper x face
         r = np.sqrt(cutsq) * (1.0 + rng.uniform(-4, 4) * np.finfo(dt).eps)
         xj = (xi + r * u / np.linalg.norm(u)).astype(dt)
-        dx, dy, dz = (xi - xj).astype(dt)
+        pj = xj
+        if wrap is not None:
+            if xj[0] < dt(wrap):
+                continue
+            xj[0] = xj[0] - dt(wrap)
+            pj = xj.copy()
+            pj[0] = pj[0] + dt(wrap)
+        dx, dy, dz = (xi - pj).astype(dt)
         plain = (dx * dx + dy * dy) + dz * dz
         others = (sum(Fr(float(d)) ** 2 for d in (dx, dy, dz)),
                   fma(dz, dz, fma(dy, dy, dx * dx)),
@@ -1113,6 +1126,49 @@ def test_cellpair_cut_decision_rounds_like_plain(cuda, flt, acc):
     n = x.shape[0]
     box = make_box(np.zeros(3), np.full(3, 11.2))
     grid = cs.make_grid(n, box.lengths, 2.8)
+    zeros = torch.zeros((n, 3), device=cuda)
+    st = cs.from_atoms(grid, box, x, zeros, zeros.to(torch.int32),
+                       torch.zeros(n, dtype=torch.int32, device=cuda),
+                       torch.tensor([1.0, -1.0, 1.0, -1.0], device=cuda),
+                       dtype=flt)
+    assert torch.equal(torch.sort(st.x[st.aid < n]).values,
+                       torch.sort(x[:, 0]).values)   # binned unchanged
+    style = build_buck(1, {(0, 0): (1.0, 0.2, -0.8)}, cut_global=2.5,
+                       coul="cut", cut_coul=cut_coul, qqrd2e=14.399645)
+    k = compute_cellpair(style, grid, box, st, eflag=True, vflag=True,
+                         acc_dtype=acc)
+    p = compute_cellpair_plain(style, grid, box, st, eflag=True, vflag=True,
+                               acc_dtype=acc)
+    # the plain version holds exactly the first pair's Coulomb term
+    assert float(p.ecoul) == pytest.approx(-14.399645 / cut_coul, rel=1e-5)
+    fk, fp = (torch.stack([r.fx, r.fy, r.fz]) for r in (k, p))
+    ftol, etol = (1e-11, 1e-11) if flt == torch.float64 else (1e-4, 1e-5)
+    assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
+    for e in ("evdwl", "ecoul"):
+        assert abs(float(getattr(k, e) - getattr(p, e))) <= \
+            etol * abs(float(getattr(p, e)))
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_cellpair_cut_decision_across_the_wrap(cuda, flt, acc):
+    """A pair on the strict coul/cut cutoff's knife edge across the
+    periodic x wrap, decided once from the cell below the upper face, with
+    j's position shifted by +L: K1 takes it to the side the plain version
+    takes it, one pair inside and one outside."""
+    dt = np.float32 if flt == torch.float32 else np.float64
+    rng = np.random.default_rng(5)
+    cut_coul, L = 2.25, 11.2
+    pos = []
+    for origin, inside in (((11.0, 3.0, 3.0), True),
+                           ((11.0, 8.0, 8.0), False)):
+        pos += _knife_edge_pair(rng, dt, origin, dt(cut_coul**2), inside,
+                                wrap=L)
+    x = torch.as_tensor(np.stack(pos)).to(cuda, flt)
+    n = x.shape[0]
+    assert bool((x[:, 0] >= 0).all()) and bool((x[:, 0] < L).all())
+    box = make_box(np.zeros(3), np.full(3, L))
+    grid = cs.make_grid(n, box.lengths, 2.8)
+    assert grid.nc == (4, 4, 4)
     zeros = torch.zeros((n, 3), device=cuda)
     st = cs.from_atoms(grid, box, x, zeros, zeros.to(torch.int32),
                        torch.zeros(n, dtype=torch.int32, device=cuda),
@@ -1919,11 +1975,25 @@ def test_cellpair_kernel_is_deterministic(cuda, flt, acc):
 
 
 @pytest.mark.parametrize("flt,acc", PRECISIONS)
+def test_cellpair_kernel_keeps_newtons_third_law(cuda, flt, acc):
+    """Each pair's force and reaction are one rounded product with two
+    signs, so on the rhodo state with specials the kernel's forces sum to
+    zero to the rounding of their acc sums (a lost or doubled reaction of
+    a typical pair, ~50 kcal/mol/A, shows in f64)."""
+    grid, box, st, style, table, _, _ = _rhodo(cuda, flt)
+    k = compute_cellpair(style, grid, box, st, acc_dtype=acc, special=table)
+    f = torch.stack([k.fx, k.fy, k.fz]).double()
+    assert bool((f[:, st.aid >= grid.n_atoms] == 0).all())
+    tol = 16 * torch.finfo(acc).eps * float(f.abs().sum())
+    assert float(f.sum(1).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("flt,acc", PRECISIONS)
 def test_cellpair_dense_tile_flushes_the_queue(cuda, flt, acc):
     """Every candidate in range: cap 32 holds 32 atoms in every cell, and
     the cutoff (2 box lengths) exceeds every stencil distance, so each
-    chunk queues 32 x 32 entries (less the self pair) and the warp
-    flushes after each chunk."""
+    chunk of the 13 positive tiles queues 32 x 32 entries, the own cell's
+    the 496 of slot j > slot i, and the warp flushes after each chunk."""
     from lammps_buck_intel_tpu_torch.utils import trace
 
     grid, box, st, style = _full_lattice(cuda, flt, cut=20.0)
@@ -1939,12 +2009,12 @@ def test_cellpair_dense_tile_flushes_the_queue(cuda, flt, acc):
     p = compute_cellpair_plain(style, grid, box, st, eflag=True, vflag=True,
                                acc_dtype=acc)
     _assert_matches_plain(k, p, flt)
-    n, S = grid.n_atoms, 27
-    assert c["cellpair.tested"] == n * S * 32
-    assert c["cellpair.in_range"] == n * (S * 32 - 1)
-    # a warp's chunk queues 1,024 entries, 32 full rounds, in each stencil
-    # cell but its own, where the 32 self pairs leave 992, 31 rounds
-    assert c["cellpair.eval_lanes"] == grid.ncell * ((S - 1) * 1024 + 992)
+    n, K = grid.n_atoms, 14
+    assert c["cellpair.tested"] == n * K * 32
+    assert c["cellpair.in_range"] == grid.ncell * ((K - 1) * 1024 + 496)
+    # 32 full rounds in each positive tile; the own cell's 496 entries
+    # take 16 rounds
+    assert c["cellpair.eval_lanes"] == grid.ncell * ((K - 1) * 1024 + 512)
 
 
 @pytest.mark.parametrize("flt,acc", PRECISIONS)
@@ -1968,7 +2038,7 @@ def test_cellpair_empty_cell_and_full_cap(cuda, flt, acc):
 @pytest.mark.parametrize("flt,acc", PRECISIONS)
 def test_cellpair_cap_over_one_slot_group(cuda, flt, acc):
     """cap 352, over the kernel's 256 threads a block: each block walks
-    the stencil once for slots 0-255 and again for 256-351, which hold
+    the half stencil once for slots 0-255 and again for 256-351, which hold
     up to 87 atoms in most cells and none in two (sc 20^3 at density 1,
     cells of 248 to 343 atoms).  Force-only and EV against the plain
     version, and the counters against the plain version's.  Charges of
@@ -1996,7 +2066,7 @@ def test_cellpair_cap_over_one_slot_group(cuda, flt, acc):
     _assert_matches_plain(f_only._replace(evdwl=k.evdwl, ecoul=k.ecoul,
                                           virial=k.virial), p, flt)
     assert ck["cellpair.tested"] == cp["cellpair.tested"] == \
-        grid.n_atoms * 27 * grid.cap
+        grid.n_atoms * 14 * grid.cap
     assert ck["cellpair.in_range"] == cp["cellpair.in_range"] > 0
     lanes = ck["cellpair.eval_lanes"]
     assert ck["cellpair.in_range"] <= lanes and lanes % 32 == 0
@@ -2043,7 +2113,7 @@ def test_cellpair_counters_match_plain_on_cristobalite(cuda):
     tested, in_range, lanes = got["compute_cellpair"]
     assert got["compute_cellpair_plain"] == [tested, in_range, 0]
     assert lanes % 32 == 0
-    assert tested == sim.n_atoms * 9 * (2 * sim.grid.reach_z + 1) * \
+    assert tested == sim.n_atoms * (9 * sim.grid.reach_z + 5) * \
         sim.grid.cap
     assert 0.05 < in_range / tested < 0.12
     assert in_range / lanes >= 0.85

@@ -154,8 +154,11 @@ def test_stencil_tables_match_jax():
                         tcellpair.half_stencil_tables(
                             nc, tcellpair.half_offsets(r))):
             assert np.array_equal(a, b)
-        full = tcellpair.full_offsets(r)
-        assert len(full) == 9 * (2 * r + 1) == len(np.unique(full, axis=0))
+        # the half stencil and its mirror cover the full stencil once
+        half = tcellpair.half_offsets(r)
+        both = np.concatenate([half, -half[1:]])
+        assert len(both) == 9 * (2 * r + 1) == len(np.unique(both, axis=0))
+        assert np.abs(both).max(0).tolist() == [1, 1, r]
 
 
 # buck/coul/long: a metal-units qqrd2e and a g_ewald that makes erfc
@@ -568,10 +571,13 @@ def _counter_case(reach_z):
 
 
 def _brute_counts(style, grid, box, st):
-    """Candidates tested and pairs in range, cell by cell over
-    full_offsets(reach_z) in numpy: every slot of the stencil's cells is
-    a candidate of each slot that holds an atom; in range are those of
-    another atom within the type pair's larger cutoff."""
+    """Candidates tested and pairs in range, cell by cell over the Newton
+    half stencil in numpy: the own cell and the lexicographically positive
+    offsets of the (3, 3, 2 reach_z + 1) stencil; every slot of those
+    cells is a candidate of each slot that holds an atom, in the own cell
+    only slot j > slot i; in range are those of another atom within the
+    type pair's larger cutoff.  Also the ordered pairs in range over the
+    full stencil, which count each pair twice."""
     nc, cap, n = np.asarray(grid.nc), grid.cap, grid.n_atoms
     L = np.asarray(box.lengths, np.float64)
     pos = np.stack([st.x.numpy(), st.y.numpy(), st.z.numpy()], -1)
@@ -579,13 +585,16 @@ def _brute_counts(style, grid, box, st):
     col = tstyles.COEF_NAMES.index
     cut = np.maximum(style.tables[..., col("cut_ljsq")],
                      style.tables[..., col("cut_coulsq")])
-    tested = in_range = 0
+    r = grid.reach_z
+    offsets = [(ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
+               for oz in range(-r, r + 1)]
+    tested = in_range = ordered = 0
     for c in range(grid.ncell):
         cell = np.array([c // (nc[1] * nc[2]), (c // nc[2]) % nc[1],
                          c % nc[2]])
         si = slice(c * cap, (c + 1) * cap)
         ok_i = aid[si] < n
-        for off in tcellpair.full_offsets(grid.reach_z):
+        for off in offsets:
             tgt = cell + off
             shift = ((tgt >= nc).astype(np.float64) - (tgt < 0)) * L
             w = np.mod(tgt, nc)
@@ -599,9 +608,14 @@ def _brute_counts(style, grid, box, st):
             hit = (ok_i[:, None] & (aid[sj] < n)[None, :]
                    & (aid[si][:, None] != aid[sj][None, :])
                    & (np.maximum(rsq, 1e-12) < cut[ti, tj]))
+            ordered += int(hit.sum())
+            if off < (0, 0, 0):
+                continue
+            if off == (0, 0, 0):
+                hit &= np.triu(np.ones((cap, cap), bool), 1)
             tested += int(ok_i.sum()) * cap
             in_range += int(hit.sum())
-    return tested, in_range
+    return tested, in_range, ordered
 
 
 @pytest.mark.parametrize("reach_z", [1, 2])
@@ -619,7 +633,9 @@ def test_cellpair_plain_counters_match_brute_force(reach_z):
         trace.disable()
         trace.reset()
     assert float(r.fx.abs().max()) > 1.0
-    tested, in_range = _brute_counts(style, grid, box, st)
+    tested, in_range, ordered = _brute_counts(style, grid, box, st)
+    assert tested == grid.n_atoms * (9 * grid.reach_z + 5) * grid.cap
+    assert ordered == 2 * in_range
     assert c["cellpair.tested"] == tested
     assert c["cellpair.in_range"] == in_range > 0
     # the evaluate rounds' lane slots are the kernel's alone

@@ -11,7 +11,7 @@ differently.
 
 --root: the checkout whose ``lammps_buck_intel_tpu_torch`` is imported
 (default: the one holding this script).  Prints a line a seed (max |df| /
-max |f| and the ordered pairs within 2 ulp of rc^2) and, last, one JSON
+max |f| and the pairs within 2 ulp of rc^2, each once) and, last, one JSON
 line: the card (nvidia-smi), the tree, the seeds over 1e-4 and the
 largest error.
 """
@@ -38,8 +38,8 @@ def main():
     import yaml
 
     from lammps_buck_intel_tpu_torch.models.pair.cellpair import (
-        _chunk_cells, compute_cellpair, compute_cellpair_plain, full_offsets,
-        half_stencil_tables)
+        _chunk_cells, candidate_mask, compute_cellpair, compute_cellpair_plain,
+        half_offsets, half_stencil_tables)
     from lammps_buck_intel_tpu_torch.neighbor import cell_slots as cs
     from lammps_buck_intel_tpu_torch.run import build_simulation
 
@@ -56,26 +56,27 @@ def main():
 
     def near_cut(st):
         ncell, cap, n = grid.ncell, grid.cap, grid.n_atoms
-        offs = full_offsets(grid.reach_z)
-        S = offs.shape[0]
+        offs = half_offsets(grid.reach_z)
+        K = offs.shape[0]
         nbr, _, shifts = half_stencil_tables(grid.nc, offs)
         nbr_t = torch.as_tensor(nbr, dtype=torch.long, device=st.x.device)
         shift_t = torch.as_tensor(shifts * np.asarray(box.lengths),
                                   device=st.x.device).to(st.x.dtype)
         pos = [p.view(ncell, cap) for p in (st.x, st.y, st.z)]
         aid = st.aid.view(ncell, cap)
+        own = candidate_mask(cap, K, st.x.device)
         total = 0
-        chunk = _chunk_cells(cap, S, ncell)
+        chunk = _chunk_cells(cap, K, ncell)
         for c0 in range(0, ncell, chunk):
             c1 = min(ncell, c0 + chunk)
             js = nbr_t[c0:c1]
             d = [pos[a][c0:c1, :, None] - (
                 pos[a][js] + shift_t[c0:c1, :, a, None]).reshape(
-                    c1 - c0, 1, S * cap) for a in range(3)]
+                    c1 - c0, 1, K * cap) for a in range(3)]
             rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
             ai = aid[c0:c1, :, None]
-            aj = aid[js].reshape(c1 - c0, 1, S * cap)
-            total += int(((ai < n) & (aj < n) & (ai != aj)
+            aj = aid[js].reshape(c1 - c0, 1, K * cap)
+            total += int(((ai < n) & (aj < n) & own
                           & ((rsq - float(c)).abs() <= 2 * ulp)).sum())
         return total
 
@@ -93,7 +94,7 @@ def main():
         fk = torch.stack([k.fx, k.fy, k.fz])
         fp = torch.stack([p.fx, p.fy, p.fz])
         errs.append(float((fk - fp).abs().max()) / float(fp.abs().max()))
-        print(f"seed {seed}: max|df|/max|f| {errs[-1]:.3e}, ordered pairs "
+        print(f"seed {seed}: max|df|/max|f| {errs[-1]:.3e}, pairs "
               f"within 2 ulp of rc^2 {near_cut(st)}", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
