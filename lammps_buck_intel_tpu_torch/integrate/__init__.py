@@ -1,4 +1,5 @@
-from .verlet import Forces, MDState, NeighborPolicy, Simulation
+from .engine import NeighborPolicy
+from .verlet import Forces, MDState, Simulation
 from .cellpair_verlet import CellPairSimulation, CellOverflowError
 from .nvt import NVTConfig, NHChain, nhc_half, chain_energy
 from .npt import (NPTConfig, NPTSimulation, NPTState, baro_chain_half,

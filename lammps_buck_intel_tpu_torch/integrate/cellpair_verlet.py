@@ -58,14 +58,13 @@ neither may alias planes the run goes on to modify.
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..core.precision import Precision, single
+from ..core.precision import Precision
 from ..core.state import System, Topology
 from ..core.units import LJ, Units
 from ..models.bonded import BondedStyle, compute_bonded
@@ -77,8 +76,8 @@ from ..utils import trace
 from . import nve
 from . import rigid as rgd
 from . import shake as shk
+from .engine import Engine, NeighborPolicy
 from .nvt import NVTConfig, nhc_scale
-from .verlet import NeighborPolicy
 
 
 class CellOverflowError(RuntimeError):
@@ -88,7 +87,7 @@ class CellOverflowError(RuntimeError):
     the segment start, grows the capacity, rebins and replays."""
 
 
-class CellPairSimulation:
+class CellPairSimulation(Engine):
     """MD runner on the slot layout; the device is that of ``system``.
 
     kspace: None, or a function of this engine's cell grid that returns
@@ -130,16 +129,12 @@ class CellPairSimulation:
             raise NotImplementedError(
                 "fix rigid/small under fix nvt (the chain on the bodies' "
                 "velocities) is not ported: ROADMAP queue 1 item 13(c)")
-        self.units = units
-        self.precision = precision or single()
-        self.dt = units.dt if dt is None else dt
-        self.pair = pair
+        super().__init__(system, pair, units, precision, dt, neighbor,
+                         bonded, shake, thermostat,
+                         constraints=rigid.n_constraints if rigid else 0)
         self.kspace = None
-        self.neighbor = neighbor or NeighborPolicy(skin=units.skin)
         self.box = system.box
-        self.device = system.x.device
-        n = system.n_atoms
-        self.n_atoms = n
+        n = self.n_atoms
         flt = self.precision.flt
         x_np = system.x.cpu().numpy()
 
@@ -174,27 +169,11 @@ class CellPairSimulation:
         # JAX package bakes it, and the mass the kinetic sums use
         self._minv_t = (1.0 / system.mass.to(torch.float64)).to(flt)
         self._mass_t = 1.0 / self._minv_t
-        self.dtf = float(0.5 * self.dt * units.ftm2v)
-        self.dtv = float(self.dt)
 
-        self.bonded = bonded if (bonded is not None
-                                 and bonded.has_terms) else None
         self.special = None
         if topology is not None and topology.has_special:
             self.special = make_special_table(
                 topology.special_idx, topology.special_code, self.device)
-        self.shake = shake
-        # the tables, and the corrected bond vectors of the last SHAKE
-        # solve (the thermo row's shake.unconverged reads them)
-        self._shake_t = self._shake_rn = None
-        if shake is not None:
-            cl = shk.make_clusters(shake)
-            if cl.width > shk.MAX_C:
-                raise NotImplementedError(
-                    f"fix shake: a cluster of {cl.width} constraints; the "
-                    f"ROADMAP queue 1 item 12 constraint kernels (K13) take "
-                    f"clusters of at most {shk.MAX_C}")
-            self._shake_t = cl.tables_on(self.device, flt)
         # same-molecule exclusion: the padded atom-order molecule table,
         # gathered into a slot plane after each rebin
         self.rigid = rigid
@@ -203,17 +182,6 @@ class CellPairSimulation:
             self._excl_mol = torch.cat([
                 system.molecule.to(self.device, torch.int32),
                 torch.full((1,), -1, dtype=torch.int32, device=self.device)])
-        self.dof = max(3 * n - 3 - (shake.n_constraints if shake else 0)
-                       - (rigid.n_constraints if rigid else 0), 1)
-        self.thermostat = None
-        if thermostat is not None:
-            self.thermostat = dataclasses.replace(
-                thermostat, dof=self.dof, boltz=units.boltz,
-                mvv2e=units.mvv2e, dt=self.dt)
-        self._tchain = thermostat.tchain if thermostat is not None else 0
-        self._t_now = 0.0       # thermostat target of the current segment
-        self._run_total = self._run_done = 0
-        self.timings = {"run": 0.0, "setup": 0.0}
 
         t0 = time.perf_counter()
 
@@ -230,9 +198,10 @@ class CellPairSimulation:
         if kspace is not None:
             self.kspace = kspace(self.grid)
         if shake is not None:
-            self._settle(st)
+            self._shake_rn = shk.settle(
+                self._shake_t, shake, (st.x, st.y, st.z),
+                (st.vx, st.vy, st.vz), self._inv_map(st), self.box.lengths)
         self.state = self._init_force(st)
-        self.step_count = 0
         self.grows = 0
         self.timings["setup"] += time.perf_counter() - t0
 
@@ -341,19 +310,6 @@ class CellPairSimulation:
         return nve.kinetic((state.vx, state.vy, state.vz), state.typ,
                            state.aid, self._mass_t, self.n_atoms,
                            self.precision.acc)
-
-    def _settle(self, state: cs.SlotState):
-        """Put the positions on the constraints (x_old = x_new, dt = 1,
-        velocities untouched), then project the velocities along the
-        settled bond vectors, in place, as the JAX package does before the
-        first force."""
-        t, L, inv = self._shake_t, self.box.lengths, self._inv_map(state)
-        xs = (state.x, state.y, state.z)
-        ro = shk.shake_ref(t, xs, inv, L)
-        self._shake_rn = shk.shake_positions(t, ro, xs, None, inv, L, 1.0,
-                                             self.shake.iters)
-        shk.rattle_velocities(t, (state.vx, state.vy, state.vz), inv, L,
-                              xs=xs)
 
     def _init_force(self, state: cs.SlotState) -> cs.SlotState:
         fa, fb, *_ = self._forces(state, False, False, self._slot_mol(state))
@@ -487,72 +443,20 @@ class CellPairSimulation:
                 self._shake_t, (st.x, st.y, st.z), (st.vx, st.vy, st.vz), fs,
                 fk, inv, self.box.lengths, u.ftm2v, self.precision.acc)
         kin = self._kinetic(st)
-        sum_mv2 = kin[:, 0].sum() * u.mvv2e
-        temp = sum_mv2 / (self.dof * u.boltz)
-        ke = 0.5 * sum_mv2
-        vir_trace = virial[0] + virial[1] + virial[2]
-        press = (sum_mv2 + vir_trace) / (3.0 * self.box.volume) * u.nktv2p
-        epair = evdwl + ecoul + elong
-        vmax = torch.sqrt(kin[:, 1].max())
-        row = dict(
-            temp=temp, evdwl=evdwl, ecoul=ecoul, elong=elong, emol=emol,
-            epair=epair, ke=ke, etotal=epair + emol + ke, press=press,
-            overflow=st.overflow, vmax=vmax, virial=virial,
-        )
-        if self.shake is not None:
-            row["shake_unconverged"] = shk.unconverged(
-                self._shake_t, self._shake_rn, self.shake.tol)
-        return row
+        return self._thermo_row(
+            kin[:, 0].sum() * u.mvv2e, virial, self.box.volume, evdwl, ecoul,
+            elong, emol, overflow=st.overflow,
+            vmax=torch.sqrt(kin[:, 1].max()), virial=virial)
 
-    def thermo(self) -> dict:
-        trace.count("thermo_row")
-        with trace.span("thermo"):
-            row = self._thermo_device(self.state)
-            with trace.span("readback"):
-                return self._readback(row)
-
-    def _readback(self, row: dict) -> dict:
-        virial = row.pop("virial")
-        keys = list(row)
-        # one device -> host transfer for the whole row
-        host = trace.to_host(torch.cat([
-            torch.stack([row[k].to(torch.float64) for k in keys]),
-            virial.to(torch.float64)])).numpy()
-        out = {k: float(v) for k, v in zip(keys, host[:len(keys)])}
-        out["virial"] = host[len(keys):]
-        out["step"] = self.step_count
-        out["overflow"] = bool(out["overflow"])
-        # overflow first: the atoms a rebin dropped are read through a
-        # stale slot map, and the dynamics they spoil are rolled back
-        if out["overflow"]:
-            raise CellOverflowError(
-                "cell capacity overflow during run; increase cap")
-        if not np.isfinite(out["etotal"]) or not np.isfinite(out["temp"]):
-            raise RuntimeError(
-                f"non-finite thermodynamics at step {out['step']} "
-                f"(etotal={out['etotal']}, temp={out['temp']}): "
-                "simulation diverged — reduce the timestep or check "
-                "overlapping atoms / force-field coefficients")
-        # a row the run keeps: the clusters of a rolled-back segment
-        # (atoms dropped by the overflow) are not counted
-        shk.count_unconverged(out)
-        return out
+    def _overflow_error(self) -> CellOverflowError:
+        return CellOverflowError(
+            "cell capacity overflow during run; increase cap")
 
     # ---------- IO ----------
 
-    def get_atoms(self) -> dict:
-        """Atom-ordered state snapshot (host numpy)."""
-        return {k: v.cpu().numpy()
-                for k, v in cs.to_atoms(self.grid, self.state).items()}
-
     def atoms_on_device(self) -> dict:
-        """Atom-order snapshot on the device, read by the per-atom computes
-        and the dump writers: x, v, f (3, N) flt planes and image (3, N)
-        int32 (copies: the run updates the state in place), typ (N,)
-        int32, q (N,) flt, mass (N,) f64 (1 / the per-type 1/m of the
-        kick, as the JAX package reads it), special: the (N, S) int32
-        (partner ids, codes) of the special bonds or None, mol: the (N,)
-        int32 molecule ids of the same-molecule exclusion or None."""
+        """``Engine.atoms_on_device`` gathered from the slots; mass is 1 /
+        the per-type 1/m of the kick, as the JAX package reads it."""
         n = self.n_atoms
         a = cs.to_atoms(self.grid, self.state)
         typ = a["typ"].to(torch.int32)
@@ -564,109 +468,24 @@ class CellPairSimulation:
             special=None if sp is None else (sp.idx[:n], sp.code[:n]),
             mol=None if self._excl_mol is None else self._excl_mol[:n])
 
-    # ---------- main loop ----------
+    # ---------- overflow rollback ----------
 
-    def _cadence(self, vmax: Optional[float]) -> int:
-        # 1.5x vmax headroom: vmax is sampled at the previous thermo row
-        # and may grow mid-segment
-        nb = self.neighbor
-        if not nb.check or vmax is None or vmax <= 0:
-            return max(1, nb.every)
-        safe = int(nb.skin / (2.0 * 1.5 * vmax * self.dt))
-        return max(1, min(max(safe, 1), 100))
+    _replayable = (CellOverflowError,)
 
-    def _vmax_now(self) -> float:
-        """Device max |v| (empty slots carry v = 0), sampled at run()
-        entry when check=true and no thermo row will supply vmax."""
-        return float(trace.to_host(
-            torch.sqrt(self._kinetic(self.state)[:, 1].max())))
+    def _snapshot(self):
+        """The segment start: a clone, because the blocks update the
+        planes (and the bodies) in place."""
+        return (self.state.clone(), self.step_count, self._run_done,
+                None if self.body is None else
+                (self.body.clone(), self._d.clone()))
 
-    def _t_target(self, ahead: int = 0) -> float:
-        """Thermostat target: the ramp t_start -> t_stop over the run,
-        evaluated at the end of the segment about to be advanced."""
-        cfg = self.thermostat
-        if cfg is None:
-            return 0.0
-        if self._run_total <= 0 or cfg.t_start == cfg.t_stop:
-            return cfg.t_start
-        frac = min(max((self._run_done + ahead) / self._run_total, 0.0), 1.0)
-        return cfg.t_start + (cfg.t_stop - cfg.t_start) * frac
-
-    def _advance(self, total: int, cadence: int):
-        self._t_now = self._t_target(ahead=total)
-        n_full, rem = divmod(total, cadence)
-        for _ in range(n_full):
-            self.state = self._block(self.state, cadence)
-        if rem:
-            self.state = self._block(self.state, rem)
-
-    def run(self, nsteps: int, thermo_every: int = 0, log: bool = True):
-        rows = []
-        vmax = None
-
-        def emit():
-            nonlocal vmax
-            row = self.thermo()
-            vmax = row.pop("vmax")
-            rows.append(row)
-            if log:
-                if not getattr(self, "_printed_header", False):
-                    self._printed_header = True
-                    print(f"{'Step':>8} {'Temp':>12} {'E_pair':>14} "
-                          f"{'E_long':>14} {'TotEng':>14} {'Press':>14}")
-                print(f"{row['step']:>8d} {row['temp']:>12.6g} "
-                      f"{row['epair']:>14.8g} {row['elong']:>14.8g} "
-                      f"{row['etotal']:>14.8g} {row['press']:>14.6g}")
-
-        t0 = time.perf_counter()
-        with trace.span("run"):
-            self._run_total, self._run_done = nsteps, 0
-            if thermo_every:
-                emit()
-            elif self.neighbor.check:
-                vmax = self._vmax_now()
-            end = self.step_count + nsteps
-            grows = 0
-            while self.step_count < end:
-                target = end
-                if thermo_every:
-                    target = min(end, ((self.step_count // thermo_every)
-                                       + 1) * thermo_every)
-                with trace.span("segment"):
-                    # segment snapshot for overflow rollback: a clone,
-                    # because the blocks update the planes (and the bodies)
-                    # in place
-                    snap = (self.state.clone(), self.step_count,
-                            self._run_done, None if self.body is None else
-                            (self.body.clone(), self._d.clone()))
-                    self._advance(target - self.step_count,
-                                  self._cadence(vmax))
-                    self._run_done += target - self.step_count
-                    self.step_count = target
-                try:
-                    if thermo_every and self.step_count % thermo_every == 0:
-                        emit()
-                    elif self.step_count >= end:
-                        # surface the sticky overflow flag even with thermo
-                        # disabled: a run never returns with dropped pairs
-                        if bool(trace.to_host(self.state.overflow)):
-                            raise CellOverflowError(
-                                "cell capacity overflow")
-                except CellOverflowError:
-                    # roll back to the segment start, grow, rebin, replay
-                    grows += 1
-                    if grows > 4:
-                        raise
-                    self.state, self.step_count, self._run_done, bsnap = snap
-                    if bsnap is not None:
-                        self.body, self._d = bsnap
-                    self._grow_capacity()
-            if thermo_every and (not rows
-                                 or rows[-1]["step"] != self.step_count):
-                emit()
-            trace.synchronize(self.device)
-        self.timings["run"] += time.perf_counter() - t0
-        return rows
+    def _rollback(self, snap):
+        """Back to the segment start, grown; the run replays the
+        segment."""
+        self.state, self.step_count, self._run_done, bsnap = snap
+        if bsnap is not None:
+            self.body, self._d = bsnap
+        self._grow_capacity()
 
     def _grow_capacity(self):
         """Grow the per-cell capacity and rebin the current state into

@@ -42,10 +42,9 @@ The box is a (3,) flt tensor on the card (``state.boxL``); every kernel of
 the step reads it there, and the barostat's scalar arithmetic is 0-d and
 (3,) tensor operations on the card, so no value comes to the host inside a
 block.  The positions, velocities and forces are (3, N) atom-order planes,
-updated in place.  Degrees of freedom 3N - 3 - Nc.
-
-``rigid=`` (fix rigid/npt/small) raises naming ROADMAP queue 1 item 13(c), a
-tilted cell item 14.
+updated in place.  Degrees of freedom 3N - 3 - Nc.  The run loop and the
+thermo row's readback are ``engine.Engine``'s; a tilted cell raises naming
+ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -57,7 +56,7 @@ import numpy as np
 import torch
 
 from ..core.box import make_box, traced_lo, wrap
-from ..core.precision import Precision, single
+from ..core.precision import Precision
 from ..core.state import System, Topology
 from ..core.units import LJ, Units
 from ..models.bonded import compute_bonded
@@ -67,8 +66,8 @@ from ..neighbor import neighbor_list as nlm
 from ..utils import trace
 from . import nve
 from . import shake as shk
+from .engine import Engine, NeighborPolicy
 from .nvt import NVTConfig, nhc_scale
-from .verlet import NeighborPolicy
 
 
 # the static bin geometry is sized for a box this much larger than the
@@ -249,13 +248,15 @@ def drift_dilate(xs, vs, s, center, dtv: float):
     _route(vs[0], "drift_dilate")(xs, vs, s, center, dtv)
 
 
-class NPTSimulation:
+class NPTSimulation(Engine):
     """Variable-cell MD on a neighbor-list engine; the device is that of
     ``system``.  The box stays centred on its initial centre and dilates
     per axis.  kspace: a ``pppm_npt.TracedPPPM``, an ``Ewald`` (its
     ``compute_traced``, K11 traced) or None; shake: SHAKE/
     RATTLE constraints whose virial joins the barostat's pressure every
     step (in.rhodo's shake + npt)."""
+
+    _rows_from_run_start = True     # as the JAX NPT runner emits them
 
     def __init__(
         self,
@@ -271,29 +272,19 @@ class NPTSimulation:
         neighbor: Optional[NeighborPolicy] = None,
         shake: Optional[shk.ShakeConstraints] = None,
         topology: Optional[Topology] = None,
-        rigid=None,
     ):
-        if rigid is not None:
-            raise NotImplementedError(
-                "fix rigid/npt/small (rigid bodies under the barostat) is not "
-                "ported: ROADMAP queue 1 item 13(c), with K16d")
         if system.box.is_triclinic:
             raise NotImplementedError(
                 "fix npt on a triclinic cell is not ported: ROADMAP queue 1 "
                 "item 14")
-        self.units = units
-        self.precision = precision or single()
-        self.dt = units.dt if dt is None else dt
-        self.pair = pair
+        super().__init__(system, pair, units, precision, dt, neighbor,
+                         bonded, shake, thermostat)
+        # blocks of ``every`` steps and no displacement check, the JAX NPT
+        # runner's cadence
+        self.neighbor = dataclasses.replace(self.neighbor, check=False)
         self.kspace = kspace
-        self.bonded = bonded if (bonded is not None
-                                 and bonded.has_terms) else None
-        self.neighbor = neighbor or NeighborPolicy(skin=units.skin)
         self.npt = npt
-        self.topology = topology
-        self.device = dev = system.x.device
-        n = system.n_atoms
-        self.n_atoms = n
+        dev, n = self.device, self.n_atoms
         flt, acc = self.precision.flt, self.precision.acc
 
         box0 = system.box
@@ -309,72 +300,25 @@ class NPTSimulation:
         cutneigh = float(np.sqrt(pair.cutsq_max)) + self.neighbor.skin
         self.spec = nlm.make_spec(n, L0, cutneigh * BOX_HEADROOM)
 
-        self.typ = system.type.to(device=dev, dtype=torch.int32).contiguous()
-        self.q = system.q.to(device=dev, dtype=flt).contiguous()
-        self._aid = torch.arange(n, dtype=torch.int32, device=dev)
-        self._special = None
-        if topology is not None and topology.has_special:
-            self._special = (
-                torch.as_tensor(np.asarray(topology.special_idx, np.int32)
-                                ).to(dev).contiguous(),
-                torch.as_tensor(np.asarray(topology.special_code, np.int32)
-                                ).to(dev).contiguous())
-        # per-type mass and 1/mass in flt, as the JAX NPT runner bakes them
-        self._mass_t = system.mass.to(device=dev, dtype=flt).contiguous()
-        self._mass64 = system.mass.to(dev, torch.float64)
-        self._minv_t = (1.0 / self._mass_t).contiguous()
-        self.dtf = float(0.5 * self.dt * units.ftm2v)
-        self.dtv = float(self.dt)
-
-        self.shake = shake
-        # the tables, and the corrected bond vectors of the last SHAKE
-        # solve (the thermo row's shake.unconverged reads them)
-        self._shake_t = self._shake_rn = None
-        self._inv = None
-        if shake is not None:
-            cl = shk.make_clusters(shake)
-            if cl.width > shk.MAX_C:
-                raise NotImplementedError(
-                    f"fix shake: a cluster of {cl.width} constraints; the "
-                    f"constraint kernels (K13) take at most {shk.MAX_C}")
-            self._shake_t = cl.tables_on(dev, flt)
-            self._inv = torch.arange(n + 1, dtype=torch.int32, device=dev)
-        self.dof = max(3 * n - 3 - (shake.n_constraints if shake else 0), 1)
-        self.thermostat = dataclasses.replace(
-            thermostat, dof=self.dof, boltz=units.boltz, mvv2e=units.mvv2e,
-            dt=self.dt)
-        tchain = self.thermostat.tchain
-
-        def planes(a, dtype):
-            return a.to(device=dev, dtype=dtype).t().contiguous()
-
         st = NPTState(
-            x=planes(system.x, flt), v=planes(system.v, flt),
-            f=torch.zeros((3, n), dtype=flt, device=dev),
-            image=planes(system.image, torch.int32),
+            **self._atom_order(system, topology),
             boxL=torch.as_tensor(L0).to(dev, flt),
             omega_dot=torch.zeros(3, dtype=flt, device=dev),
-            therm=torch.zeros((2, tchain), dtype=flt, device=dev),
             virial=torch.zeros(6, dtype=acc, device=dev),
-            overflow=torch.zeros((), dtype=torch.bool, device=dev),
             ptherm=torch.zeros((2, npt.pchain), dtype=flt, device=dev))
-        self.timings = {"run": 0.0, "setup": 0.0}
+        # per-type mass and 1/mass in flt, as the JAX NPT runner bakes them
+        self._mass_t = system.mass.to(device=dev, dtype=flt).contiguous()
+        self._minv_t = (1.0 / self._mass_t).contiguous()
 
         t0 = time.perf_counter()
         if shake is not None:
-            # settle onto the constraints (x_old = x_new, dt = 1; the
-            # velocities stay), then project the velocities
-            t, inv = self._shake_t, self._inv
-            xs, vs = tuple(st.x.unbind(0)), tuple(st.v.unbind(0))
-            ro = shk.shake_ref(t, xs, inv, L0)
-            self._shake_rn = shk.shake_positions(t, ro, xs, None, inv, L0,
-                                                 1.0, shake.iters)
-            shk.rattle_velocities(t, vs, inv, L0, xs=xs)
+            self._shake_rn = shk.settle(
+                self._shake_t, shake, tuple(st.x.unbind(0)),
+                tuple(st.v.unbind(0)), self._inv, L0)
         _, self.spec = nlm.build_with_retry(
             st.x, torch.as_tensor(np.asarray(box0.lo)).to(dev, flt),
             torch.as_tensor(L0).to(dev, flt), self.spec, self._special)
         self.state = self._init_forces(st)
-        self.step_count = 0
         self.timings["setup"] += time.perf_counter() - t0
 
     # ---------- forces ----------
@@ -540,110 +484,52 @@ class NPTSimulation:
     # ---------- thermo ----------
 
     def _thermo_device(self, st: NPTState) -> dict:
-        u = self.units
         p_cur, mv2, V = self._press_current(st)
-        sum_mv2 = mv2.sum()
-        temp = sum_mv2 / (self.dof * u.boltz)
-        ke = 0.5 * sum_mv2
-        press = (sum_mv2 + st.virial[0] + st.virial[1] + st.virial[2]) \
-            / (3.0 * V) * u.nktv2p
         trace.count("neighbor_build")
         with trace.span("neighbor"):
             nl = self._build_nl(st.x, st.boxL)
         _, _, _, (evdwl, ecoul, elong, emol) = self._forces(
             st.x, st.boxL, nl, self._kspace_kc(st.boxL), eflag=True)
-        epair = evdwl + ecoul + elong
-        row = dict(temp=temp, ke=ke, press=press, p_axis=p_cur,
-                   boxL=st.boxL, vol=V, omega_dot=st.omega_dot,
-                   evdwl=evdwl, ecoul=ecoul, elong=elong, emol=emol,
-                   epair=epair, etotal=epair + emol + ke,
-                   overflow=st.overflow | nl.overflow)
-        if self.shake is not None:
-            row["shake_unconverged"] = shk.unconverged(
-                self._shake_t, self._shake_rn, self.shake.tol)
-        return row
+        return self._thermo_row(
+            mv2.sum(), st.virial, V, evdwl, ecoul, elong, emol, p_axis=p_cur,
+            boxL=st.boxL, vol=V, omega_dot=st.omega_dot,
+            overflow=st.overflow | nl.overflow)
 
-    def _guards(self, overflow: bool, boxL: np.ndarray, step: int):
-        # overflow first: dropped pairs cause the non-finite dynamics
-        if overflow:
-            raise RuntimeError(
-                "NPT neighbor overflow: per-atom neighbor count exceeded the "
-                "capacity sized from the initial density; compression "
-                "outgrew the spec: restart from the compressed state or "
-                "raise BOX_HEADROOM")
+    @staticmethod
+    def _overflow_error() -> RuntimeError:
+        return RuntimeError(
+            "NPT neighbor overflow: per-atom neighbor count exceeded the "
+            "capacity sized from the initial density; compression "
+            "outgrew the spec: restart from the compressed state or "
+            "raise BOX_HEADROOM")
+
+    def _check_row(self, out: dict):
+        super()._check_row(out)
         # the static bin geometry holds down to 1/BOX_HEADROOM shrinkage per
         # axis; past that the 27-cell stencil no longer covers cutneigh
-        shrink = np.asarray(boxL, np.float64) / self._L0
+        shrink = np.asarray(out["boxL"], np.float64) / self._L0
         if float(shrink.min()) < 1.0 / BOX_HEADROOM - 1e-9:
             raise RuntimeError(
                 f"box shrank to {shrink.min():.3f} of its initial length at "
-                f"step {step}, beyond the bin-geometry bound "
+                f"step {out['step']}, beyond the bin-geometry bound "
                 f"1/{BOX_HEADROOM}; rebuild the simulation from the "
                 "compressed state")
 
-    def thermo(self) -> dict:
-        trace.count("thermo_row")
-        with trace.span("thermo"):
-            row = self._thermo_device(self.state)
-            with trace.span("readback"):
-                return self._readback(row)
-
-    def _readback(self, row: dict) -> dict:
-        keys = [k for k, v in row.items() if v.dim() == 0]
-        vecs = [k for k, v in row.items() if v.dim() == 1]
-        # one device -> host transfer for the whole row
-        host = trace.to_host(torch.cat(
-            [torch.stack([row[k].to(torch.float64) for k in keys])]
-            + [row[k].to(torch.float64) for k in vecs])).numpy()
-        out = {k: float(v) for k, v in zip(keys, host[:len(keys)])}
-        off = len(keys)
-        for k in vecs:
-            out[k] = host[off:off + 3]
-            off += 3
-        out["step"] = self.step_count
-        out["overflow"] = bool(out["overflow"])
-        self._guards(out["overflow"], out["boxL"], self.step_count)
-        if not np.isfinite(out["temp"]) or not np.isfinite(out["press"]):
-            raise RuntimeError(f"non-finite thermo at step {out['step']}")
-        # a row the run keeps: none that a guard above throws away
-        shk.count_unconverged(out)
-        return out
+    def _flags(self) -> dict:
+        return dict(overflow=self.state.overflow, boxL=self.state.boxL)
 
     # ---------- IO ----------
 
     def get_atoms(self) -> dict:
-        """Atom-ordered snapshot (host numpy copies: the run updates the
-        state in place), with the current box."""
-        st = self.state
-        out = {k: np.array(getattr(st, k).t().cpu().numpy())
-               for k in ("x", "v", "f", "image")}
-        out["boxL"] = np.array(st.boxL.cpu().numpy())
-        out["typ"] = np.array(self.typ.cpu().numpy())
-        out["q"] = np.array(self.q.cpu().numpy())
-        return out
-
-    def atoms_on_device(self) -> dict:
-        """Atom-order snapshot on the device, read by the per-atom computes
-        and the dump writers: x, v, f (3, N) flt planes and image (3, N)
-        int32 (copies: the run updates the state in place), typ (N,)
-        int32, q (N,) flt, mass (N,) f64, special: the (N, S) int32
-        (partner ids, codes) of the special bonds or None, mol: the (N,)
-        int32 molecule ids of the same-molecule exclusion or None."""
-        st = self.state
-        out = {k: getattr(st, k).clone() for k in ("x", "v", "f", "image")}
-        return dict(out, typ=self.typ, q=self.q,
-                    mass=self._mass64[self.typ.long()],
-                    special=self._special, mol=None)
-
-    @property
-    def current_box(self):
-        L = self.state.boxL.cpu().numpy().astype(np.float64)
-        return make_box(self._center - 0.5 * L, self._center + 0.5 * L)
+        """``Engine.get_atoms`` with the current box."""
+        return dict(super().get_atoms(),
+                    boxL=np.array(self.state.boxL.cpu().numpy()))
 
     @property
     def box(self):
         """Host Box at the current (dilated) lengths."""
-        return self.current_box
+        L = self.state.boxL.cpu().numpy().astype(np.float64)
+        return make_box(self._center - 0.5 * L, self._center + 0.5 * L)
 
     # ---------- main loop ----------
 
@@ -661,49 +547,26 @@ class NPTSimulation:
         p0, p1 = self._p_ends[1]
         return tt, (p0 + (p1 - p0) * frac).to(flt)
 
+    def _advance(self, total: int, cadence: int):
+        """n full blocks of ``cadence`` + one tail, each at the ramps of
+        its own end: t_stop / p_stop reached on the run's last step."""
+        done, end = self._run_done, self._run_done + total
+        while done < end:
+            size = min(cadence, end - done)
+            tt, pt = self._targets((done + size) / max(self._run_total, 1))
+            self.state = self._block(self.state, size, tt, pt)
+            done += size
+
+    def _log_row(self, row: dict):
+        L = row["boxL"]
+        print(f"{row['step']:>8d} T={row['temp']:.4g} "
+              f"E={row['etotal']:.8g} P={row['press']:.6g} "
+              f"V={row['vol']:.6g} L=({L[0]:.4f},{L[1]:.4f},{L[2]:.4f})")
+
     def run(self, nsteps: int, thermo_every: int = 0, log: bool = True):
-        rows = []
-
-        def emit():
-            row = self.thermo()
-            rows.append(row)
-            if log:
-                L = row["boxL"]
-                print(f"{row['step']:>8d} T={row['temp']:.4g} "
-                      f"E={row['etotal']:.8g} P={row['press']:.6g} "
-                      f"V={row['vol']:.6g} "
-                      f"L=({L[0]:.4f},{L[1]:.4f},{L[2]:.4f})")
-
-        t0 = time.perf_counter()
-        with trace.span("run"):
-            if self.state.ptherm.shape[1] != self.npt.pchain:
-                # the config was swapped: re-seed the barostat chain
-                self.state = self.state._replace(ptherm=torch.zeros(
-                    (2, self.npt.pchain), dtype=self.precision.flt,
-                    device=self.device))
-            if thermo_every:
-                emit()
-            done = 0
-            cadence = max(1, self.neighbor.every)
-            while done < nsteps:
-                target = min(nsteps, done + (thermo_every or nsteps))
-                with trace.span("segment"):
-                    while done < target:
-                        size = min(cadence, target - done)
-                        # segment-END ramps: t_stop / p_stop reached on the
-                        # last step
-                        tt, pt = self._targets((done + size) / max(nsteps, 1))
-                        self.state = self._block(self.state, size, tt, pt)
-                        done += size
-                        self.step_count += size
-                if thermo_every:
-                    emit()
-            # the guards fire even with thermo off
-            host = trace.to_host(torch.cat([
-                self.state.overflow.to(torch.float64)[None],
-                self.state.boxL.to(torch.float64)])).numpy()
-            self._guards(bool(host[0]), host[1:], self.step_count)
-            trace.synchronize(self.device)
-        self.timings["run"] += time.perf_counter() - t0
-        return rows
-
+        if self.state.ptherm.shape[1] != self.npt.pchain:
+            # the config was swapped: re-seed the barostat chain
+            self.state = self.state._replace(ptherm=torch.zeros(
+                (2, self.npt.pchain), dtype=self.precision.flt,
+                device=self.device))
+        return super().run(nsteps, thermo_every, log)

@@ -18,6 +18,10 @@ Gaussian elimination (``_solve_small``):
   instantaneous multipliers on the TOTAL force (the fix_shake.cpp
   pressure tally), in the exact per-cluster form.
 
+Every engine sets up with ``shake_tables`` (the clusters' tables, checked
+against the kernels' width) and ``settle`` (the state put on the
+constraints before the first force).
+
 The box ``L``: host lengths (the cell engine), or a (3,) tensor of
 lengths on the card (the NPT engine, whose box changes every step and is
 read by the kernels where it lives); in atom order ``inv`` is the
@@ -495,3 +499,29 @@ def shake_virial(t: dict, xs, vs, fa, fb, inv, L, ftm2v: float,
     with trace.span("shake"):
         return _route(xs[0], "shake_virial")(t, xs, vs, fa, fb, inv, L,
                                              ftm2v, acc_dtype)
+
+
+# ---------- an engine's set-up ----------
+
+def shake_tables(sc: ShakeConstraints, device, flt) -> dict:
+    """The constraint kernels' tables of ``sc`` on ``device``; a cluster
+    wider than the kernels take raises."""
+    cl = make_clusters(sc)
+    if cl.width > MAX_C:
+        raise NotImplementedError(
+            f"fix shake: a cluster of {cl.width} constraints; the ROADMAP "
+            f"queue 1 item 12 constraint kernels (K13) take clusters of at "
+            f"most {MAX_C}")
+    return cl.tables_on(device, flt)
+
+
+def settle(t: dict, sc: ShakeConstraints, xs, vs, inv, L) -> torch.Tensor:
+    """Put the positions on the constraints (x_old = x_new, dt = 1,
+    velocities untouched), then project the velocities along the settled
+    bond vectors, in place, as the JAX package does before the first
+    force.  Returns the corrected bond vectors rn, which the first thermo
+    row's ``unconverged`` reads."""
+    ro = shake_ref(t, xs, inv, L)
+    rn = shake_positions(t, ro, xs, None, inv, L, 1.0, sc.iters)
+    rattle_velocities(t, vs, inv, L, xs=xs)
+    return rn

@@ -377,8 +377,9 @@ def test_settle_puts_the_bonds_on_their_length():
     for p, scale in ((st.x, 0.02), (st.y, 0.02), (st.z, 0.02),
                      (st.vx, 0.01), (st.vy, 0.01), (st.vz, 0.01)):
         p += torch.from_numpy(rng.normal(size=p.shape) * scale) * occ
-    sim._settle(st)
-    assert int(tshake.unconverged(sim._shake_t, sim._shake_rn, sc.tol)) == 0
+    rn = tshake.settle(sim._shake_t, sc, (st.x, st.y, st.z),
+                       (st.vx, st.vy, st.vz), sim._inv_map(st), L)
+    assert int(tshake.unconverged(sim._shake_t, rn, sc.tol)) == 0
     x = cellpair_verlet.cs.to_atoms(sim.grid, st)
     assert float(tshake.max_violation(sc, x["x"], L)) < 1e-12
     r = (x["x"][sc.pairs[:, 0]] - x["x"][sc.pairs[:, 1]]).numpy()

@@ -111,16 +111,18 @@ def _deck(engine: str, n: int, npt: bool = False) -> dict:
     return d
 
 
+ENGINES = [("cellpair", 6, False, "CellPairSimulation"),
+           ("nlist", 5, False, "Simulation"),
+           ("nlist", 5, True, "NPTSimulation")]
+
+
 # 10 steps with thermo every 5 and blocks of 4: rows at steps 0, 5 and 10,
 # each segment a block of 4 and a tail of 1, each row and block one build;
-# the waits are the rows' copies, the run's closing synchronize and, on
-# the list engines, the overflow check of the run's end
-@pytest.mark.parametrize("engine,n,npt,engine_cls,syncs", [
-    ("cellpair", 6, False, "CellPairSimulation", 4),
-    ("nlist", 5, False, "Simulation", 5),
-    ("nlist", 5, True, "NPTSimulation", 5),
-], ids=["cell", "nlist", "npt"])
-def test_engine_spans_and_counters(engine, n, npt, engine_cls, syncs):
+# the waits are the rows' copies and the run's closing synchronize (the
+# row at step 10 reads the flags of the run's end)
+@pytest.mark.parametrize("engine,n,npt,engine_cls", ENGINES,
+                         ids=["cell", "nlist", "npt"])
+def test_engine_spans_and_counters(engine, n, npt, engine_cls):
     trace.enable()
     sim = build_simulation(_deck(engine, n, npt), device="cpu")
     assert type(sim).__name__ == engine_cls
@@ -133,7 +135,7 @@ def test_engine_spans_and_counters(engine, n, npt, engine_cls, syncs):
     assert delta["thermo_row"] == 3
     assert delta["neighbor_build"] == 4 + 3
     assert delta["step"] == 10
-    assert delta["host_sync"] == syncs
+    assert delta["host_sync"] == 3 + 1
     assert not any(v for k, v in delta.items() if k.startswith("launch."))
     s = trace.summary()
     for name in ("setup.geometry", "setup.velocity", "setup.params",
@@ -196,19 +198,23 @@ def test_shake_span_and_unconverged_counter_on_a_rhodo_deck():
     assert trace.counters()["shake.unconverged"] == 1
 
 
-def test_cell_overflow_is_read_before_non_finite_thermo():
-    """A row whose rebin dropped atoms raises the overflow (which the run
-    rolls back, grows and replays), not the non-finite thermodynamics
-    that the dropped atoms cause, and counts none of the unconverged
-    SHAKE clusters of the segment it throws away."""
-    from types import SimpleNamespace
-
-    from lammps_buck_intel_tpu_torch.integrate import cellpair_verlet as cv
-
+@pytest.mark.parametrize("engine,n,npt,engine_cls", ENGINES,
+                         ids=["cell", "nlist", "npt"])
+def test_cell_overflow_is_read_before_non_finite_thermo(engine, n, npt,
+                                                        engine_cls):
+    """On every engine, a row whose rebin or list build dropped atoms or
+    pairs raises the engine's overflow error (the cell engine's rolls the
+    segment back, grows and replays), not the non-finite thermodynamics
+    that the dropped atoms cause, and counts none of the unconverged SHAKE
+    clusters of the segment it throws away."""
+    sim = build_simulation(_deck(engine, n, npt), device="cpu")
+    assert type(sim).__name__ == engine_cls
     nan = torch.tensor(float("nan"))
-    row = dict(temp=nan, etotal=nan, overflow=torch.tensor(True),
-               shake_unconverged=torch.tensor(7), virial=torch.zeros(6))
+    row = dict(temp=nan, etotal=nan, press=nan, overflow=torch.tensor(True),
+               shake_unconverged=torch.tensor(7), virial=torch.zeros(6),
+               boxL=torch.ones(3))
     before = trace.counters()["shake.unconverged"]
-    with pytest.raises(cv.CellOverflowError):
-        cv.CellPairSimulation._readback(SimpleNamespace(step_count=5), row)
+    with pytest.raises(RuntimeError, match="overflow") as err:
+        sim._readback(row)
+    assert type(err.value) is type(sim._overflow_error())
     assert trace.counters()["shake.unconverged"] == before
