@@ -20,9 +20,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      buck_big.yaml's and cristobalite_pppm.yaml's grids: per-atom cell,
      wrapped positions and images identical, every atom once, vacated q
      zero, the forced full-sort fallback and the overflow flag; timed;
-  5. the PPPM kernels (deposit, spectral, gather) against their plain
-     versions at cristobalite_pppm.yaml's mesh, atoms drifted up to skin/2
-     out of their cells, f32 and f64; timed;
+  5. the PPPM kernels (deposit in slot order and by cell, spectral,
+     gather) against their plain versions at cristobalite_pppm.yaml's
+     mesh, atoms drifted up to skin/2 out of their cells, f32 and f64,
+     with K5 by cell's counters (deposited, spilled); timed;
   6. cristobalite_pppm.yaml in f64 at 11,520 atoms on a jittered copy of
      its crystal against the JAX package's f64 record: step-0 forces,
      thermo at steps 0 and 10, positions at step 10;
@@ -39,8 +40,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      examples/data.rhodo_class: K1's lj/charmm + special-bond variant,
      the three bonded kernels and the four integrator kernels (kick and
      drift, kick with the force sum, kinetic sums, the Nose-Hoover chain
-     half step) against their plain versions at the decks' 31,104 atoms
-     and at 248,832 atoms, f32 and f64, timed at the larger size;
+     half step) and K5 by cell against their plain versions at the
+     decks' 31,104 atoms and at 248,832 atoms, f32 and f64, timed at the
+     larger size (K5 by cell beside K5 in slot order);
      rhodo_flex_nve.yaml and
      rhodo_flex_nvt.yaml in f64 at 1,728 atoms against the JAX package's
      f64 record (step-0 forces, thermo rows, positions, the thermostat
@@ -823,6 +825,61 @@ def _pppm_compare(label, name, k, p, tol, out):
     out.setdefault(name, {})["max_abs_err"] = float((k - p).abs().max())
 
 
+def _k5_cells(label, sim, st, out=None):
+    """K5 by cell (``pppm_deposit_cells``) on a cell engine's slots against
+    the plain deposit, the device counters ``pppm.deposited`` (every
+    charged slot) and ``pppm.spilled`` read around it; with ``out`` both
+    K5 paths timed on the same slots, K5 in slot order
+    (``pppm_deposit``) beside it, with the deposit's bound."""
+    solver, n = sim.kspace, sim.n_atoms
+    pm, bricks = solver.pm, solver.bricks
+    c = solver.consts(st.x.device, st.x.dtype, sim.precision.acc)
+    ns = st.x.shape[0]
+    if not pppm_cells.takes_bricks(bricks, ns, st.x.element_size()):
+        raise AssertionError(f"K5 {label}: the slots do not take K5 by "
+                             f"cell (bricks {bricks})")
+    plain = pppm_cells.deposit_plain(pm, st)
+    res = {}
+    trace.enable()
+    try:
+        c0 = trace.counters()
+        mesh_c = pppm_ops.deposit_cells(pm, st, n, c["coef"], bricks)
+        c1 = trace.counters()
+    finally:
+        trace.disable()
+    _pppm_compare(label, "deposit_cells", mesh_c, plain,
+                  TOL[st.x.dtype][0], res)
+    dep, spill = (c1[f"pppm.{k}"] - c0[f"pppm.{k}"]
+                  for k in ("deposited", "spilled"))
+    charged = int(((st.aid < n) & (st.q != 0)).sum())
+    ncell = int(np.prod(bricks.nc))
+    print(f"[K5] {label}: mesh {pm.grid} order {pm.order} on {bricks.nc} "
+          f"cells of {ns // ncell} slots, bricks {bricks.w} from "
+          f"{bricks.off}: deposited {dep} (charged slots {charged}), "
+          f"spilled {spill}")
+    if dep != charged:
+        raise AssertionError(f"K5 {label}: deposited {dep} of {charged}")
+    res["deposit_cells"].update(deposited=dep, spilled=spill)
+    if out is None:
+        return res
+    flt_size = st.x.element_size()
+    nbytes = ns * plane_bytes(st.x, st.y, st.z, st.q, st.aid) \
+        + int(np.prod(pm.grid)) * flt_size
+    nops = n * (OPS_WEIGHTS(pm.order) + pm.order**3 * OPS_DEPOSIT_PT)
+    b_ms, b_by = bound(nbytes, nops)
+    for name, kern in (
+            ("deposit_cells", lambda: pppm_ops.deposit_cells(
+                pm, st, n, c["coef"], bricks)),
+            ("deposit", lambda: pppm_ops.deposit(pm, st, n, c["coef"]))):
+        ms, dev_ms = cuda_ms(kern), device_ms(kern)
+        res.setdefault(name, {}).update(ms=ms, device_ms=dev_ms,
+                                        bound_ms=b_ms, bound_by=b_by)
+        print(f"[K5] {label} {name}: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f}), bound {b_ms:.4f} ms ({b_by})")
+    out.update(res)
+    return res
+
+
 def phase_pppm():
     """The three PPPM kernels against their plain versions on the card,
     at cristobalite_pppm.yaml's mesh, atoms drifted up to skin/2 out of
@@ -850,6 +907,7 @@ def phase_pppm():
         mesh_k = pppm_ops.deposit(pm, st, n, c["coef"])
         mesh_p = pppm_cells.deposit_plain(pm, st)
         _pppm_compare(label, "deposit", mesh_k, mesh_p, ftol, res)
+        res.update(_k5_cells(label, sim, st))
         rhat = torch.fft.rfftn(mesh_p.to(acc)).contiguous()
         for ev in (False, True):
             ek, esk, vsk = pppm_ops.spectral(c, rhat, ev)
@@ -870,13 +928,14 @@ def phase_pppm():
         _pppm_compare(label, "gather", fk, fp, ftol, res)
         if prec == "single":
             out = res
-            _pppm_time(pm, st, n, c, rhat, e_mesh, acc, out)
+            _pppm_time(pm, st, n, c, rhat, e_mesh, acc, out,
+                       solver.bricks)
         del sim, st, solver
         torch.cuda.empty_cache()
     return out
 
 
-def _pppm_time(pm, st, n, c, rhat, e_mesh, acc, out):
+def _pppm_time(pm, st, n, c, rhat, e_mesh, acc, out, bricks):
     ns, ngrid = st.x.shape[0], int(np.prod(pm.grid))
     npts = int(np.prod(c["G"].shape))
     p = pm.order
@@ -893,6 +952,13 @@ def _pppm_time(pm, st, n, c, rhat, e_mesh, acc, out):
     rows = {
         "deposit": (
             lambda: pppm_ops.deposit(pm, st, n, c["coef"]),
+            lambda: pppm_cells.deposit_plain(pm, st),
+            lambda: mesh0.clone().index_add_(0, flat, vals),
+            slot_in + ngrid * flt_size,
+            n * (OPS_WEIGHTS(p) + p**3 * OPS_DEPOSIT_PT)),
+        # K5 by cell on the same slots: the same work and bound
+        "deposit_cells": (
+            lambda: pppm_ops.deposit_cells(pm, st, n, c["coef"], bricks),
             lambda: pppm_cells.deposit_plain(pm, st),
             lambda: mesh0.clone().index_add_(0, flat, vals),
             slot_in + ngrid * flt_size,
@@ -1385,6 +1451,9 @@ def _rhodo_kernels_at(sim, prec, replicate, out):
     errs, work = _verlet_compare(label, sim, st)
     if out is not None:
         out.update(_verlet_time(sim, st, errs, work))
+    k5 = _k5_cells(label, sim, st, {} if out is not None else None)
+    if out is not None:
+        out["pppm_deposit_cells"] = k5
 
 
 def phase_rhodo_record(golden: dict, which: str, tols=None):
@@ -1452,7 +1521,7 @@ def phase_rhodo_record(golden: dict, which: str, tols=None):
 def phase_rhodo_decks(golden: dict):
     """The two flexible rhodo decks in full, then the NVE deck at
     replicate [6, 6, 4]; returns that run's launch counts and ms/step."""
-    path = ("cellpair", "rebin_incremental", "rebin", "pppm_deposit",
+    path = ("cellpair", "rebin_incremental", "rebin", "pppm_deposit_cells",
             "pppm_spectral", "pppm_gather") + BONDED_KERNELS + VERLET_KERNELS
     deck = dict(golden["full"]["3x3x2"], drift_gate=golden["drift_gate"])
     print(f"[deck] rhodo: drift gate {golden['drift_gate']:.4e} kcal/mol "
@@ -1722,7 +1791,7 @@ def phase_shake_decks(rec: dict):
     atoms) against the one-copy row scaled to 144 copies.  Every thermo
     row holds the constraints to the decks' tol.  Returns the big run's
     launch counts and ms/step, and the 31,104-atom run's ms/step."""
-    path = ("cellpair", "rebin_incremental", "rebin", "pppm_deposit",
+    path = ("cellpair", "rebin_incremental", "rebin", "pppm_deposit_cells",
             "pppm_spectral", "pppm_gather") + BONDED_KERNELS \
         + VERLET_KERNELS + SHAKE_KERNELS
     full = rec["full"]["3x3x2"]
@@ -3021,9 +3090,9 @@ def phase_coul_cut(rec: dict):
 
 HEX_DECK, HEX_BIG = "hexane_gen.yaml", "hexane_gen_big.yaml"
 HEX_COPIES = 32          # hexane_gen_big.yaml: replicate [2, 4, 4]
-HEX_PATH = ("cellpair", "rebin_incremental", "pppm_deposit", "disp_spectral",
-            "pppm_gather", "rigid_force_torque", "rigid_update",
-            "rigid_virial", "verlet_ke")
+HEX_PATH = ("cellpair", "rebin_incremental", "pppm_deposit_cells",
+            "disp_spectral", "pppm_gather", "rigid_force_torque",
+            "rigid_update", "rigid_virial", "verlet_ke")
 # f64 on the card against the JAX record (tests/goldens/torch_disp.json):
 # the CPU parity tolerance of tests/test_torch_rigid.py
 HEX_F64_TOL = 1e-9
@@ -3070,7 +3139,8 @@ def _hex_disp_stages(label, sim, st, out=None):
     c = pmd.consts(st.x.device, flt)
     bst = st._replace(q=solver._slot_b(st))
     res = {}
-    mesh_k = pppm_ops.deposit(pm, bst, n, c["coef"])
+    # the deposit the deck runs: K5 by cell where the brick fits
+    mesh_k = pppm_cells.deposit(pm, bst, n, c, bricks=solver.bricks)
     mesh_p = pppm_cells.deposit_plain(pm, bst)
     _pppm_compare(label, "deposit_disp", mesh_k, mesh_p, ftol, res)
     S = torch.fft.rfftn(mesh_p.to(acc)).contiguous()[None]
@@ -3377,7 +3447,7 @@ def _hex_time(sim) -> dict:
     flat = flat.reshape(-1)
     mesh0 = torch.zeros(ngrid, dtype=flt, device=st.x.device)
     record("pppm_deposit_disp",
-           lambda: pppm_ops.deposit(pm, bst, n, c["coef"]),
+           lambda: pppm_cells.deposit(pm, bst, n, c, bricks=solver.bricks),
            lambda: pppm_cells.deposit_plain(pm, bst),
            lambda: mesh0.clone().index_add_(0, flat, vals),
            slot_in + ngrid * fsz,
@@ -4487,7 +4557,8 @@ def _dump_deck(name, base_ms, need, tmp):
 
 DUMP_PATH = {
     "cristobalite_pppm_dump.yaml": ("cellpair", "rebin_incremental",
-                                    "pppm_deposit", "pppm_spectral",
+                                    "pppm_deposit_cells", "pppm_deposit",
+                                    "pppm_spectral",
                                     "pppm_gather", "nlist_build",
                                     "nlist_pair_peratom",
                                     "pppm_peratom_spectral",
@@ -4495,7 +4566,8 @@ DUMP_PATH = {
     "cristobalite_ewald_dump.yaml": ("nlist_build", "nlist_pair", "ewald_sk",
                                      "ewald_force", "nlist_pair_peratom",
                                      "ewald_peratom"),
-    "rhodo_nve_dump.yaml": ("cellpair", "pppm_deposit", "pppm_gather",
+    "rhodo_nve_dump.yaml": ("cellpair", "pppm_deposit_cells", "pppm_deposit",
+                            "pppm_gather",
                             "bonded_bond_angle", "dihedral_charmm",
                             "improper_harmonic", "shake_positions",
                             "nlist_build", "nlist_pair_peratom",
@@ -4563,7 +4635,7 @@ DISP_DUMP_PATH = {
         "pppm_peratom_gather", "disp_peratom_spectral",
         "disp_peratom_gather"),
     "hexane_gen_dump.yaml": (
-        "cellpair", "rebin_incremental", "pppm_deposit", "disp_spectral",
+        "cellpair", "rebin_incremental", "pppm_deposit_cells", "disp_spectral",
         "pppm_gather", "rigid_force_torque", "rigid_update", "rigid_virial",
         "nlist_build", "nlist_pair_peratom", "disp_deposit",
         "disp_peratom_spectral", "disp_peratom_gather"),
@@ -4747,7 +4819,10 @@ def _pa_slots(label, solver, st, time_it: bool) -> dict:
     disp = isinstance(solver, CellPPPMDisp)
     n, flt = solver.n_atoms, st.x.dtype
     key = "disp_peratom_slots" if disp else "pppm_peratom_slots"
-    need = ("pppm_deposit", "disp_peratom_spectral" if disp
+    dep = ("pppm_deposit_cells" if pppm_cells.takes_bricks(
+        solver.bricks, st.x.shape[0], st.x.element_size())
+        else "pppm_deposit")
+    need = (dep, "disp_peratom_spectral" if disp
             else "pppm_peratom_spectral", key)
     ops.reset_launches()
     ek, vk = solver.compute_peratom_slots(st)
@@ -5557,7 +5632,8 @@ def phase_rest_decks(rec, golden, nlist_rec, ewald_rec, npt_rec, times,
             "verlet_kick", "verlet_ke")
     res = {}
     # cristobalite_pppm_ad.yaml: the cell engine, the record's mesh
-    r = _rest_run("cristobalite_pppm_ad.yaml", pair + REST_AD, golden["row"],
+    r = _rest_run("cristobalite_pppm_ad.yaml",
+                  pair + ("pppm_deposit_cells",) + REST_AD[1:], golden["row"],
                   silica_gate, "CellPairSimulation", thermo=50)
     sim = r.pop("sim")
     if not isinstance(sim.kspace, CellPPPM) or sim.kspace.pm.grid != tuple(
@@ -5727,7 +5803,7 @@ def main():
     cris = phase_deck(
         "cristobalite_pppm.yaml",
         golden, 50,
-        pair + ("pppm_deposit", "pppm_spectral", "pppm_gather"),
+        pair + ("pppm_deposit_cells", "pppm_spectral", "pppm_gather"),
         load_golden("long_silica_pppm.json")["drift_gate"])
     launches = cris["launches"]
     torch.cuda.empty_cache()
@@ -5866,8 +5942,9 @@ def main():
             dict(k2["incremental"], max_abs_err=k2["max_abs_err"])),
         row("rebin_full", "rebin.cu", "neighbor/cell_slots.py:289", "rebin",
             dict(k2["full"], max_abs_err=k2["max_abs_err"])),
-        row("pppm_deposit", "pppm.cu", "models/kspace/pppm_cells.py:580",
-            "pppm_deposit", pp["deposit"]),
+        row("pppm_deposit_cells", "pppm.cu",
+            "models/kspace/pppm_cells.py:580", "pppm_deposit_cells",
+            pp["deposit_cells"]),
         row("pppm_spectral", "pppm.cu", "models/kspace/pppm_cells.py:801",
             "pppm_spectral", pp["spectral"]),
         row("pppm_gather", "pppm.cu", "models/kspace/pppm_cells.py:633",
@@ -5942,7 +6019,8 @@ def main():
             "models/pair/cellpair.py:291", "cellpair",
             htimes["cellpair_lj_long"], hbig["launches"]),
         row("pppm_deposit_disp", "pppm.cu", "models/kspace/pppm_cells.py:580",
-            "pppm_deposit", htimes["pppm_deposit_disp"], hbig["launches"]),
+            "pppm_deposit_cells", htimes["pppm_deposit_disp"],
+            hbig["launches"]),
         row("disp_spectral", "pppm_disp.cu",
             "models/kspace/pppm_disp.py:283", "disp_spectral",
             htimes["disp_spectral"], hbig["launches"]),

@@ -4,7 +4,9 @@
 //
 // Replaces (lammps_buck_intel_tpu/models/kspace/pppm_cells.py, ik mode):
 //   pppm_deposit  <- deposit_rho_zblock (:580) with _axis_weights (:121)
-//                    and pppm.py mspline_horner (:133);
+//                    and pppm.py mspline_horner (:133); on the cell
+//                    engine's slots pppm_deposit_cells (K5 by cell, the
+//                    same weights and the same charge);
 //   pppm_spectral <- CellPPPM._spectral (:801) with _half_weights (:731)
 //                    and the ik spectra of CellPPPM._ik_forces (:1139);
 //   pppm_gather   <- gather_zblock (:633) in mode "ik" and the q * qqrd2e
@@ -54,8 +56,13 @@
 //                    LAUNCHES).
 // The JAX package moves charge through per-cell spline patches and one-hot
 // matrix products, TPU matrix-unit forms without scatters.  A GPU has
-// atomics in L2, so the port takes the generic global-mesh form: each slot
-// puts its order^3 B-spline weights straight onto the periodic mesh.
+// atomics in L2 and in shared memory.  pppm_deposit takes the generic
+// global-mesh form: each slot or atom puts its order^3 B-spline weights
+// straight onto the periodic mesh (atom order, and any slot layout).
+// pppm_deposit_kernel_cells (K5 by cell, the cell engine's slots on a mesh
+// aligned to its coarse cells) is closer to the JAX patches: a block sums
+// one cell's charges into a brick of the mesh in shared memory and adds
+// the brick to the mesh once.
 //
 // Weights (csrc/pppm_stencil.cuh, shared with csrc/pppm_disp.cu's
 // multi-channel deposit and gather).  u = (x - lo) * (1/h) per axis; base
@@ -73,9 +80,22 @@
 //   deposit: one thread per slot, p^3 atomicAdds (343 at order 7) into the
 //     flt mesh; at the 259,200-atom silica deck 8.9e7 atomics onto a
 //     905,520-point mesh (3.6 MB in f32) that stays in the 50 MB L2.  The
-//     floor by bytes and flops is a few microseconds; atomic throughput
+//     floor by bytes and flops is a few microseconds; L2 atomic throughput
 //     (neighbouring slots of a cell hit overlapping points) bounds it.
-//     Privatised per-block sub-meshes in shared memory are later work.
+//   deposit by cell (replaces the deposit on the cell engine's slots): one
+//     block of eight warps a coarse cell; the p^3 adds of a slot go to a
+//     shared-memory brick of the cell's mesh points plus the stencil's
+//     reach and the skin/2 drift (14^3 points, 11 KB in f32, at the silica
+//     deck: order 7, 7 points a cell, drift 0.31 point), one warp a slot,
+//     its (y, z) stencil pairs on the lanes, so no two lanes of an add hit
+//     one point; then the brick's non-zero points go to the mesh as
+//     atomicAdds of consecutive z points (at the silica deck at most 2,640
+//     x 2,744 = 7.2e6 in place of 8.9e7).  Bound by the shared-memory
+//     adds (p^3 a charged slot) and the flush's L2 atomics; the unique
+//     bytes are the deposit's.  A slot that drifted out of its brick goes
+//     to the mesh directly (the generic deposit's atomics), so it costs
+//     time, never charge.  Bricks above 47 KB (f64 on fine meshes) keep
+//     the generic deposit.
 //   spectral: one grid-stride pass over the (nx, ny, nz/2+1) half
 //     spectrum: reads rho_hat and G, writes three complex spectra; bytes
 //     bound.  With e/v it also reduces elong and the 6 virial sums per
@@ -112,6 +132,11 @@ namespace {
 using namespace pppm_stencil;
 
 constexpr int kThreads = 256;
+// threads of a pppm_deposit_kernel_cells block: eight warps a coarse cell
+constexpr int kCellThreads = 256;
+// the largest brick: what a block may take without opting in to more
+// shared memory (48 KB), less 1 KB for the kernel's static arrays
+constexpr int kMaxBrickBytes = 47 * 1024;
 
 // The mesh geometry of a box read from the card (the variable-cell path):
 // on entry lo* hold the box centre and ih* the k-space box's factors f over
@@ -165,6 +190,147 @@ __global__ void pppm_deposit_kernel(const T* __restrict__ x,
         if (c < g.p) atomicAdd(mesh + row + iz[c], (wxy * wz[c]) * qs);
       }
     }
+  }
+}
+
+// The brick of the cell-privatised deposit on each axis: coarse cells nc,
+// mesh points a cell m, the brick's first point o less the cell's first
+// point (c * m), and its points w.
+struct CellBrick {
+  int ncx, ncy, ncz;
+  int mx, my, mz;
+  int ox, oy, oz;
+  int wx, wy, wz;
+};
+
+__device__ __forceinline__ int wrap_index(int i, int n) {
+  return ((i % n) + n) % n;
+}
+
+// K5 by cell: block c spreads the charged slots of coarse cell c (slots
+// c * cap .. c * cap + cap - 1) into its brick in shared memory, then adds
+// the brick's non-zero points to the periodic mesh.  One warp a slot: lanes
+// 0 .. 3p - 1 compute one weight each (axis lane / p, offset lane % p),
+// shuffled to the lanes that own the stencil's (y, z) pairs lane and lane +
+// 32 (p^2 <= 49), which step through x.  A slot whose stencil leaves the
+// brick goes to the mesh directly, with wrapped indices.  counts: null,
+// or int64[2] (charged slots spread, slots among them that spilled).
+template <typename T>
+__global__ void __launch_bounds__(kCellThreads) pppm_deposit_kernel_cells(
+    const T* __restrict__ x, const T* __restrict__ y,
+    const T* __restrict__ z, const T* __restrict__ q,
+    const int* __restrict__ aid, int cap, int n, T lox, T loy, T loz, T ihx,
+    T ihy, T ihz, MeshGeom g, CellBrick cb, const T* __restrict__ coef,
+    T* __restrict__ mesh, unsigned long long* __restrict__ counts) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  T* brick = reinterpret_cast<T*>(s_raw);
+  __shared__ T s_coef[kMaxOrder * kMaxOrder];
+  __shared__ unsigned int s_count[2];
+  const int nb = cb.wx * cb.wy * cb.wz;
+  for (int k = threadIdx.x; k < nb; k += blockDim.x) brick[k] = T(0);
+  if (threadIdx.x < 2) s_count[threadIdx.x] = 0;
+  stage_coef(coef, g.p, s_coef);
+
+  const int cell = blockIdx.x;
+  const int cz = cell % cb.ncz, cy = (cell / cb.ncz) % cb.ncy,
+            cx = cell / (cb.ncz * cb.ncy);
+  // the brick's first point on each axis, unwrapped
+  const int bx0 = cx * cb.mx + cb.ox, by0 = cy * cb.my + cb.oy,
+            bz0 = cz * cb.mz + cb.oz;
+  const int p = g.p, o0 = stencil_first(p);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  // this lane's (y, z) stencil pairs: k0 = lane, k1 = lane + 32
+  const bool has0 = lane < p * p, has1 = lane + 32 < p * p;
+  const int b0 = has0 ? lane / p : 0, c0 = has0 ? lane % p : 0;
+  const int b1 = has1 ? (lane + 32) / p : 0, c1 = has1 ? (lane + 32) % p : 0;
+  // this lane's weight: axis lane / p, stencil offset lane % p
+  const int wax = lane < 3 * p ? lane / p : 3;
+  const int wo = lane < 3 * p ? lane % p : 0;
+  const T* plane = wax == 0 ? x : (wax == 1 ? y : z);
+  const T lo = wax == 0 ? lox : (wax == 1 ? loy : loz);
+  const T ih = wax == 0 ? ihx : (wax == 1 ? ihy : ihz);
+  unsigned int n_dep = 0, n_spill = 0;
+
+  for (int j = warp; j < cap; j += nwarps) {
+    const int s = cell * cap + j;
+    // the three loads issued together; the same slot for the whole warp,
+    // so the tests are warp-uniform
+    const int id = aid[s];
+    const T qs = q[s];
+    const T pos = wax < 3 ? plane[s] : T(0);
+    if (id >= n || qs == T(0)) continue;
+    T wl = T(0);
+    int bl = 0;
+    if (wax < 3) {
+      const T u = (pos - lo) * ih;
+      const T base = stencil_base(u, p);
+      wl = stencil_weight(u, base, o0 + wo, p, s_coef);
+      bl = static_cast<int>(base);
+    }
+    const int bxs = __shfl_sync(0xffffffffu, bl, 0);
+    const int bys = __shfl_sync(0xffffffffu, bl, p);
+    const int bzs = __shfl_sync(0xffffffffu, bl, 2 * p);
+    const T wy0 = __shfl_sync(0xffffffffu, wl, p + b0);
+    const T wz0 = __shfl_sync(0xffffffffu, wl, 2 * p + c0);
+    const T wy1 = __shfl_sync(0xffffffffu, wl, p + b1);
+    const T wz1 = __shfl_sync(0xffffffffu, wl, 2 * p + c1);
+    // the stencil's first point in brick coordinates
+    const int rx = bxs + o0 - bx0, ry = bys + o0 - by0, rz = bzs + o0 - bz0;
+    const bool inside = rx >= 0 && rx + p <= cb.wx && ry >= 0 &&
+                        ry + p <= cb.wy && rz >= 0 && rz + p <= cb.wz;
+    ++n_dep;
+    if (inside) {
+      const int e0 = (ry + b0) * cb.wz + rz + c0;
+      const int e1 = (ry + b1) * cb.wz + rz + c1;
+      for (int a = 0; a < p; ++a) {
+        const T wa = __shfl_sync(0xffffffffu, wl, a);
+        T* slab = brick + (rx + a) * (cb.wy * cb.wz);
+        if (has0) atomicAdd(slab + e0, ((wa * wy0) * wz0) * qs);
+        if (has1) atomicAdd(slab + e1, ((wa * wy1) * wz1) * qs);
+      }
+    } else {
+      ++n_spill;
+      const int g0 = wrap_index(bys + o0 + b0, g.ny) * g.nz +
+                     wrap_index(bzs + o0 + c0, g.nz);
+      const int g1 = wrap_index(bys + o0 + b1, g.ny) * g.nz +
+                     wrap_index(bzs + o0 + c1, g.nz);
+      for (int a = 0; a < p; ++a) {
+        const T wa = __shfl_sync(0xffffffffu, wl, a);
+        T* slab = mesh + static_cast<size_t>(wrap_index(bxs + o0 + a, g.nx)) *
+                             (g.ny * g.nz);
+        if (has0) atomicAdd(slab + g0, ((wa * wy0) * wz0) * qs);
+        if (has1) atomicAdd(slab + g1, ((wa * wy1) * wz1) * qs);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the brick onto the mesh: thread t takes point t of the brick's (y, z)
+  // plane (consecutive threads on consecutive z points) through every x
+  // plane
+  const int yz_points = cb.wy * cb.wz;
+  const int x_stride = g.ny * g.nz;
+  for (int t = threadIdx.x; t < yz_points; t += blockDim.x) {
+    const int b = t / cb.wz, c = t - b * cb.wz;
+    const int yz =
+        wrap_index(by0 + b, g.ny) * g.nz + wrap_index(bz0 + c, g.nz);
+    int gx = wrap_index(bx0, g.nx);
+    for (int a = 0; a < cb.wx; ++a) {
+      const T v = brick[a * yz_points + t];
+      if (v != T(0)) atomicAdd(mesh + gx * x_stride + yz, v);
+      gx = gx + 1 == g.nx ? 0 : gx + 1;
+    }
+  }
+  if (counts) {  // uniform: every thread takes the same branch
+    if (lane == 0) {
+      atomicAdd(s_count, n_dep);
+      atomicAdd(s_count + 1, n_spill);
+    }
+    __syncthreads();
+    if (threadIdx.x < 2 && s_count[threadIdx.x] != 0)
+      atomicAdd(counts + threadIdx.x,
+                static_cast<unsigned long long>(s_count[threadIdx.x]));
   }
 }
 
@@ -513,6 +679,25 @@ int launch_deposit(const void* x, const void* y, const void* z,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_deposit_cells(const void* x, const void* y, const void* z,
+                         const void* q, const void* aid, int cap, int n,
+                         const double* lo, const double* ih, MeshGeom g,
+                         CellBrick cb, const void* coef, void* mesh,
+                         void* counts, cudaStream_t st) {
+  const int ncell = cb.ncx * cb.ncy * cb.ncz;
+  const size_t bytes = sizeof(T) * cb.wx * cb.wy * cb.wz;
+  pppm_deposit_kernel_cells<T><<<ncell, kCellThreads, bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(z), static_cast<const T*>(q),
+      static_cast<const int*>(aid), cap, n, static_cast<T>(lo[0]),
+      static_cast<T>(lo[1]), static_cast<T>(lo[2]), static_cast<T>(ih[0]),
+      static_cast<T>(ih[1]), static_cast<T>(ih[2]), g, cb,
+      static_cast<const T*>(coef), static_cast<T*>(mesh),
+      static_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename A>
 int launch_gather(const void* x, const void* y, const void* z, const void* q,
                   const void* aid, int ns, int n, const double* lo,
@@ -657,6 +842,51 @@ extern "C" int pppm_deposit(int prec, const void* x, const void* y,
     case 1:
       return launch_deposit<double>(x, y, z, q, aid, ns, n, lo, ih, g, coef,
                                     boxL, mesh, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K5 by cell.  prec: 0 = float, 1 = double (the slot-plane / mesh type).
+// The ns slots are grouped by coarse cell, cap = ns / (ncx ncy ncz) each
+// (cells numbered (cx ncy + cy) ncz + cz); each mesh axis is a whole
+// multiple of its cell count.  The brick of cell c starts at mesh point
+// c * (n / nc) + o on each axis and spans w points; w_x w_y w_z points of
+// the flt type may take at most pppm_brick_bytes() bytes.  mesh must be
+// zeroed by the caller; lo and invh as in pppm_deposit (no box on the
+// card); counts: null or int64[2] on the card (deposited, spilled).
+extern "C" int pppm_brick_bytes() { return kMaxBrickBytes; }
+
+extern "C" int pppm_deposit_cells(int prec, const void* x, const void* y,
+                                  const void* z, const void* q,
+                                  const void* aid, int ns, int n,
+                                  double lox, double loy, double loz,
+                                  double ihx, double ihy, double ihz, int nx,
+                                  int ny, int nz, int order,
+                                  const void* coef, int ncx, int ncy, int ncz,
+                                  int ox, int oy, int oz, int wx, int wy,
+                                  int wz, void* mesh, void* counts,
+                                  void* stream) {
+  const MeshGeom g{nx, ny, nz, order};
+  if (!geom_ok(g) || ncx <= 0 || ncy <= 0 || ncz <= 0 || nx % ncx ||
+      ny % ncy || nz % ncz || wx < order || wy < order || wz < order)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long ncell = static_cast<long long>(ncx) * ncy * ncz;
+  if (ns <= 0 || ns % ncell) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t size = prec == 0 ? sizeof(float) : sizeof(double);
+  if (size * wx * wy * wz > static_cast<size_t>(kMaxBrickBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CellBrick cb{ncx, ncy, ncz, nx / ncx, ny / ncy, nz / ncz,
+                     ox, oy, oz, wx, wy, wz};
+  const int cap = static_cast<int>(ns / ncell);
+  const double lo[3] = {lox, loy, loz}, ih[3] = {ihx, ihy, ihz};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (prec) {
+    case 0:
+      return launch_deposit_cells<float>(x, y, z, q, aid, cap, n, lo, ih, g,
+                                         cb, coef, mesh, counts, s);
+    case 1:
+      return launch_deposit_cells<double>(x, y, z, q, aid, cap, n, lo, ih, g,
+                                          cb, coef, mesh, counts, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

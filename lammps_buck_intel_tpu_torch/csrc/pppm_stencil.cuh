@@ -9,7 +9,10 @@
 // (base + o) + p/2), evaluated by piecewise Horner from the (p, p) piece
 // table the host passes (staged in shared memory by stage_coef).  Every
 // index is wrapped periodically ((i % n) + n) % n, so any finite position,
-// in the box or not, lands on the mesh.
+// in the box or not, lands on the mesh.  axis_weights gives a position's
+// p weights and wrapped indices on one axis; stencil_base and
+// stencil_weight give one of them, for kernels that spread a position's
+// weights over a warp's lanes.
 
 #pragma once
 
@@ -24,6 +27,53 @@ __device__ __forceinline__ double dev_floor(double v) { return floor(v); }
 __device__ __forceinline__ float dev_rint(float v) { return rintf(v); }
 __device__ __forceinline__ double dev_rint(double v) { return rint(v); }
 
+// the stencil's base point of mesh coordinate u: rint for odd order, floor
+// for even; its first offset o0 (base + o0 is the stencil's first point)
+template <typename T>
+__device__ __forceinline__ T stencil_base(T u, int p) {
+  return (p & 1) ? dev_rint(u) : dev_floor(u);
+}
+__device__ __forceinline__ int stencil_first(int p) {
+  return (p & 1) ? -(p - 1) / 2 : -(p / 2 - 1);
+}
+
+// the piece of M_p at mesh point base + o: its row j of the (p, p) piece
+// tables, the coordinate t within the piece, and whether the argument
+// u - (base + o) + p/2 lies on the support [0, p)
+template <typename T>
+struct Piece {
+  int j;
+  T t;
+  bool in;
+};
+
+template <typename T>
+__device__ __forceinline__ Piece<T> spline_piece(T u, T base, int o, int p) {
+  const T arg = (u - (base + static_cast<T>(o))) + static_cast<T>(0.5 * p);
+  T jf = dev_floor(arg);
+  jf = jf < T(0) ? T(0) : (jf > static_cast<T>(p - 1)
+                               ? static_cast<T>(p - 1) : jf);
+  return {static_cast<int>(jf), arg - jf,
+          arg >= T(0) && arg < static_cast<T>(p)};
+}
+
+// sum_d c[d] t^d, d = 0..deg
+template <typename T>
+__device__ __forceinline__ T horner(const T* c, int deg, T t) {
+  T acc = c[deg];
+  for (int d = deg - 1; d >= 0; --d) acc = acc * t + c[d];
+  return acc;
+}
+
+// the weight M_p(u - (base + o) + p/2) of mesh point base + o
+template <typename T>
+__device__ __forceinline__ T stencil_weight(T u, T base, int o, int p,
+                                            const T* coef) {
+  const Piece<T> pc = spline_piece(u, base, o, p);
+  const T w = horner(coef + pc.j * p, p - 1, pc.t);
+  return pc.in ? w : T(0);
+}
+
 // mesh indices and weights of one position on one axis (first p entries);
 // with D also the derivative weights dw = dM_p/du from the (p, p)
 // derivative piece table dcoef (p - 1 coefficients a row), and u itself
@@ -33,30 +83,20 @@ __device__ __forceinline__ void axis_weights_impl(T pos, T lo, T invh, int n,
                                                   const T* dcoef, int* idx,
                                                   T* w, T* dw, T* u_out) {
   const T u = (pos - lo) * invh;
-  const T base = (p & 1) ? dev_rint(u) : dev_floor(u);
+  const T base = stencil_base(u, p);
   const int b = static_cast<int>(base);
-  const int o0 = (p & 1) ? -(p - 1) / 2 : -(p / 2 - 1);
-  const T half = static_cast<T>(0.5 * p);
+  const int o0 = stencil_first(p);
   if (D) *u_out = u;
 #pragma unroll
   for (int s = 0; s < kMaxOrder; ++s) {
     if (s < p) {
       const int o = o0 + s;
-      const T arg = (u - (base + static_cast<T>(o))) + half;
-      T jf = dev_floor(arg);
-      jf = jf < T(0) ? T(0) : (jf > static_cast<T>(p - 1)
-                                   ? static_cast<T>(p - 1) : jf);
-      const T t = arg - jf;
-      const bool in = arg >= T(0) && arg < static_cast<T>(p);
-      const T* c = coef + static_cast<int>(jf) * p;
-      T acc = c[p - 1];
-      for (int d = p - 2; d >= 0; --d) acc = acc * t + c[d];
-      w[s] = in ? acc : T(0);
+      const Piece<T> pc = spline_piece(u, base, o, p);
+      const T acc = horner(coef + pc.j * p, p - 1, pc.t);
+      w[s] = pc.in ? acc : T(0);
       if (D) {
-        const T* dc = dcoef + static_cast<int>(jf) * p;
-        T dacc = dc[p - 2];
-        for (int d = p - 3; d >= 0; --d) dacc = dacc * t + dc[d];
-        dw[s] = in ? dacc : T(0);
+        const T dacc = horner(dcoef + pc.j * p, p - 2, pc.t);
+        dw[s] = pc.in ? dacc : T(0);
       }
       idx[s] = (((b + o) % n) + n) % n;
     }

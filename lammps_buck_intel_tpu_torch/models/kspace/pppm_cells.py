@@ -4,14 +4,16 @@ Counterpart of ``lammps_buck_intel_tpu.models.kspace.pppm_cells.CellPPPM``
 (ik differentiation, Coulomb).  The JAX package moves charge between
 slots and mesh through per-cell spline patches and one-hot matrix
 products ("zblock", "columns", "patches"): forms that keep a TPU's
-matrix unit busy and avoid scatters.  The port has one deposit and one
-gather on the global periodic mesh, the generic form of the JAX
-package's ``pppm.deposit_rho`` and ik gather with the piecewise-Horner
-weights: every slot puts q * wx * wy * wz on the order^3 mesh points
-around it, each index wrapped periodically, so positions that drifted up
-to skin/2 out of the box or out of their cell need no margin.  The mesh
-stays aligned to the coarse cell grid (``run.py`` picks it) so both
-packages solve on the same mesh.
+matrix unit busy and avoid scatters.  The port's gather, and its deposit
+in atom order, work on the global periodic mesh, the generic form of the
+JAX package's ``pppm.deposit_rho`` and ik gather with the
+piecewise-Horner weights: every slot puts q * wx * wy * wz on the
+order^3 mesh points around it, each index wrapped periodically, so
+positions that drifted up to skin/2 out of the box or out of their cell
+need no margin.  The mesh stays aligned to the coarse cell grid
+(``run.py`` picks it) so both packages solve on the same mesh; the slot
+deposit uses that alignment as the JAX patches do (K5 by cell: one
+shared-memory brick a cell, margins from the skin, ``cell_bricks``).
 
 Index convention (the JAX ``bspline_weights``): u = (x - lo) / h per
 axis, base = round(u) for odd order (floor for even), and mesh point
@@ -34,7 +36,11 @@ card alike.  ``slab_correct`` / ``slab_peratom`` dispatch K10 slab.
 
 Three stages, each a CUDA kernel on CUDA tensors (``ops.pppm``) and the
 plain torch version below on CPU tensors:
-  * ``deposit``: slot planes -> (nx, ny, nz) charge mesh in flt;
+  * ``deposit``: slot planes -> (nx, ny, nz) charge mesh in flt; on the
+    cell engine's slots (``bricks`` from ``cell_bricks``: the mesh a whole
+    multiple of the coarse cells) K5 by cell, each cell's charges summed
+    in a shared-memory brick of the mesh and the brick added once, else
+    K5 in slot or atom order, every weight a global atomic;
   * ``spectral``: rfftn(mesh) (cuFFT through torch.fft, outside the
     kernel) -> the three ik spectra -i k_a G rho_hat, and with eflag /
     vflag elong and the 6-virial over the half spectrum;
@@ -84,6 +90,58 @@ def slab_factors(pm: PPPM):
     """(1, 1, slab) per axis: the factors of the k-space box over the
     atoms' box (all 1 without ``kspace_modify slab``)."""
     return (1.0, 1.0, 1.0 if pm.slab is None else float(pm.slab))
+
+
+class Bricks(NamedTuple):
+    """The bricks of K5 by cell, per axis: ``nc`` coarse cells, the
+    brick's first mesh point ``off`` less its cell's first (c * n / nc),
+    and its ``w`` points."""
+    nc: tuple
+    off: tuple
+    w: tuple
+
+
+# the largest brick, in bytes (csrc/pppm.cu kMaxBrickBytes: a block's 48 KB
+# of shared memory without opting in to more, less its static arrays)
+BRICK_BYTES = 47 * 1024
+
+
+def cell_bricks(mesh, nc, skin: float):
+    """The ``Bricks`` of the mesh of ``mesh`` (its ``grid``, ``h`` and
+    ``order``) on the coarse cells ``nc`` of a slot grid whose atoms drift
+    up to skin/2 from their cell between rebins; None where an axis of the
+    mesh is not a whole multiple of its cells.  A cell's stencil bases
+    span its m = n / nc points widened by the drift d = skin / 2h on each
+    side: rint (odd order) reaches at most floor(d + 1/2) below and one
+    more above, floor (even order) ceil(d) below and floor(d) + 1 above;
+    the brick adds the order - 1 points of the stencil."""
+    p = int(mesh.order)
+    first = -(p - 1) // 2 if p % 2 else -(p // 2 - 1)
+    off, w = [], []
+    for n, c, h in zip(mesh.grid, nc, mesh.h):
+        if n % c:
+            return None
+        d = 0.5 * skin / float(h)
+        if p % 2:
+            below = int(np.floor(d + 0.5))
+            above = below + 1
+        else:
+            below, above = int(np.ceil(d)), int(np.floor(d)) + 1
+        off.append(first - below)
+        w.append(n // c + below + above + p - 1)
+    return Bricks(tuple(int(c) for c in nc), tuple(off), tuple(w))
+
+
+def takes_bricks(bricks, ns: int, itemsize: int) -> bool:
+    """Whether ``ns`` slot entries of ``itemsize`` bytes go through K5 by
+    cell: a slot grid's bricks were given, the entries are whole cells of
+    it (cap = ns / cells, read at each call: a capacity grow changes
+    it), and one brick fits in a block's shared memory."""
+    if bricks is None:
+        return False
+    ncell = int(np.prod(bricks.nc))
+    return (ns > 0 and ns % ncell == 0
+            and int(np.prod(bricks.w)) * itemsize <= BRICK_BYTES)
 
 
 def mesh_geometry(pm: PPPM, box=None):
@@ -277,13 +335,19 @@ def _device_kind(t: torch.Tensor) -> str:
 
 
 def deposit(pm: PPPM, state: SlotState, n_atoms: int, consts: dict,
-            box=None) -> torch.Tensor:
-    """Charge mesh: the CUDA deposit kernel on CUDA planes, the plain
-    version on CPU planes.  box: None (``pm``'s mesh) or (centre, boxL), a
-    box on the card."""
+            box=None, bricks=None) -> torch.Tensor:
+    """Charge mesh: on CUDA planes K5 by cell where ``takes_bricks``
+    (``bricks``: the slot grid's, from ``cell_bricks``; never with a box
+    on the card), else K5 in slot or atom order; the plain version on CPU
+    planes.  box: None (``pm``'s mesh) or (centre, boxL), a box on the
+    card."""
     if _device_kind(state.x) == "cuda":
         from ...ops import pppm as pppm_ops
 
+        if box is None and takes_bricks(bricks, state.x.shape[0],
+                                        state.x.element_size()):
+            return pppm_ops.deposit_cells(pm, state, n_atoms,
+                                          consts["coef"], bricks)
         return pppm_ops.deposit(pm, state, n_atoms, consts["coef"], box)
     return deposit_plain(pm, state, box)
 
@@ -433,13 +497,16 @@ class CellPPPM:
     cell grid (its transfer engines work per cell patch) and is rebound
     when the capacity grows; the global-mesh kernels need only the atom
     count, which a grow leaves alone, and wrap every mesh index, so drift
-    needs no skin margin.  The Green's function, wave vectors and spline
-    table go to the device once per (device, dtype).
+    needs no skin margin.  ``bricks`` (``cell_bricks`` of the engine's
+    coarse cells, or None) sends the slot deposit through K5 by cell.  The
+    Green's function, wave vectors and spline table go to the device once
+    per (device, dtype).
     """
 
-    def __init__(self, pm: PPPM, n_atoms: int):
+    def __init__(self, pm: PPPM, n_atoms: int, bricks=None):
         self.pm = pm
         self.n_atoms = int(n_atoms)
+        self.bricks = bricks
         self._consts = {}
 
     def consts(self, device, flt, acc) -> dict:
@@ -487,7 +554,7 @@ class CellPPPM:
         V = float(pm.volume)
         ngrid = pm.grid[0] * pm.grid[1] * pm.grid[2]
 
-        mesh = deposit(pm, state, n, consts)
+        mesh = deposit(pm, state, n, consts, bricks=self.bricks)
         # cuFFT may hand back permuted strides; the kernels take dense
         # row-major meshes (a copy only where the layout differs)
         rhat = torch.fft.rfftn(mesh.to(acc)).contiguous()
@@ -526,7 +593,8 @@ class CellPPPM:
         pm = self.pm
         c = pm.consts(state.x.device, state.x.dtype)
         mesh = (deposit_plain(pm, state) if plain
-                else deposit(pm, state, self.n_atoms, c))
+                else deposit(pm, state, self.n_atoms, c,
+                             bricks=self.bricks))
         rhat = torch.fft.rfftn(mesh.to(pm.acc_dtype)).contiguous()
         spectra = (peratom_spectral_plain if plain else peratom_spectral)(
             pm, c, rhat, False)
@@ -554,9 +622,10 @@ class CellPPPMDisp:
     terms (``PPPMDisp.elong_const``) are host scalars of the atoms'
     composition.  Only the geometric mix has one channel: other mixes
     raise, as the JAX class does (its C8 guard); the deck runner gives
-    their decks the generic solvers (``base.BoundKSpace``) instead."""
+    their decks the generic solvers (``base.BoundKSpace``) instead.
+    ``bricks`` as in ``CellPPPM``, on the dispersion mesh."""
 
-    def __init__(self, pmd, n_atoms: int, typ):
+    def __init__(self, pmd, n_atoms: int, typ, bricks=None):
         if pmd.mix != "geometric":
             raise NotImplementedError(
                 f"CellPPPMDisp: mix {pmd.mix!r} (geometric single-channel "
@@ -565,6 +634,7 @@ class CellPPPMDisp:
         self.pmd = pmd
         self.pm = pmd.shim()
         self.n_atoms = int(n_atoms)
+        self.bricks = bricks
         b = np.asarray(pmd.B, np.float64)[np.asarray(typ)]
         bsum, b2sum = float(b.sum()), float((b * b).sum())
         self.elong_const = pmd.elong_const(bsum, b2sum)
@@ -606,7 +676,7 @@ class CellPPPMDisp:
         n = self.n_atoms
         c = pmd.consts(state.x.device, flt)
         st = state._replace(q=self._slot_b(state))
-        mesh = deposit(self.pm, st, n, c)
+        mesh = deposit(self.pm, st, n, c, bricks=self.bricks)
         S = torch.fft.rfftn(mesh.to(acc)).contiguous()
         ehat, esum, vsum = disp_spectral(c, S[None], pmd.P, eflag or vflag)
         elong, virial = disp_finish(pmd, esum, vsum, self._e0, self._e_self,
@@ -637,7 +707,8 @@ class CellPPPMDisp:
         b = self._slot_b(state)
         st = state._replace(q=b)
         mesh = (deposit_plain(self.pm, st) if plain
-                else deposit(self.pm, st, self.n_atoms, c))
+                else deposit(self.pm, st, self.n_atoms, c,
+                             bricks=self.bricks))
         S = torch.fft.rfftn(mesh.to(acc)).contiguous()[None]
         spectra = (disp_peratom_spectral_plain if plain
                    else disp_peratom_spectral)(c, S, pmd.P)

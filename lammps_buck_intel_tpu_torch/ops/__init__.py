@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels: build, ctypes binding and launch wrappers.
 
 ``cellpair`` (csrc/cellpair.cu), ``rebin`` (csrc/rebin.cu), ``pppm``
-(csrc/pppm.cu: deposit, spectral, gather, the ad spectral and gather, the
-slab term, and the per-atom spectral and gather, the latter also in slot
-order), ``bonded`` (csrc/bonded.cu: bonds
-and angles, dihedrals, impropers, and the per-atom tallies of all four),
+(csrc/pppm.cu: deposit in slot or atom order and by cell, spectral,
+gather, the ad spectral and gather, the slab term, and the per-atom
+spectral and gather, the latter also in slot order), ``bonded``
+(csrc/bonded.cu: bonds and angles, dihedrals, impropers, and the per-atom
+tallies of all four),
 ``verlet``
 (csrc/verlet.cu: kick and drift, kick with the force sum, kinetic sums,
 the thermostat chain), ``shake`` (csrc/shake.cu: reference bond vectors,
@@ -35,7 +36,8 @@ from __future__ import annotations
 from ..utils.trace import LAUNCHES
 
 LAUNCHES.update({"cellpair": 0, "rebin_incremental": 0, "rebin": 0,
-                 "pppm_deposit": 0, "pppm_spectral": 0, "pppm_gather": 0,
+                 "pppm_deposit": 0, "pppm_deposit_cells": 0,
+                 "pppm_spectral": 0, "pppm_gather": 0,
                  "pppm_peratom_spectral": 0, "pppm_peratom_gather": 0,
                  "pppm_peratom_slots": 0, "pppm_ad_spectral": 0,
                  "pppm_gather_ad": 0, "pppm_slab": 0, "ewald_traced": 0,

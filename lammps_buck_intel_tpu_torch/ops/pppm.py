@@ -1,6 +1,9 @@
 """Launch wrappers of the PPPM kernels (csrc/pppm.cu).
 
-The plain versions of the same functions are ``deposit_plain``,
+``deposit_cells`` is K5 by cell, the deposit of the cell engine's slots
+through a shared-memory brick of the mesh a cell; ``deposit`` is K5 in
+slot or atom order.  The plain versions of the same functions are
+``deposit_plain`` (of both deposits),
 ``spectral_plain`` (with ``ad`` for K10 ad spectral), ``gather_plain`` and
 ``gather_ad_plain`` (K10 ad gather) in ``models.kspace.pppm_cells``, and
 ``peratom_spectral_plain``, ``peratom_gather_plain`` (K10pa, the per-atom
@@ -19,6 +22,7 @@ import torch
 from . import LAUNCHES
 from . import build
 from .cellpair import check_plane
+from ..utils import trace
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _FLT = {torch.float32: 0, torch.float64: 1}
@@ -36,6 +40,11 @@ def _lib():
         slot_args = [_P] * 5 + [_I] * 2 + [_D] * 6 + [_I] * 4 + [_P, _P]
         lib.pppm_deposit.argtypes = [_I] + slot_args + [_P, _P]
         lib.pppm_deposit.restype = _I
+        lib.pppm_deposit_cells.argtypes = ([_I] + slot_args[:-1]
+                                           + [_I] * 9 + [_P] * 3)
+        lib.pppm_deposit_cells.restype = _I
+        lib.pppm_brick_bytes.argtypes = []
+        lib.pppm_brick_bytes.restype = _I
         lib.pppm_gather.argtypes = ([_I] + slot_args
                                     + [_P, _D, _P, _P, _P, _P])
         lib.pppm_gather.restype = _I
@@ -117,6 +126,32 @@ def deposit(pm, state, n_atoms: int, coef: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"pppm deposit launch failed: CUDA error {rc}")
     LAUNCHES["pppm_deposit"] += 1
+    return mesh.view(nx, ny, nz)
+
+
+def deposit_cells(pm, state, n_atoms: int, coef: torch.Tensor,
+                  bricks) -> torch.Tensor:
+    """K5 by cell: the (nx, ny, nz) charge mesh of slot planes grouped by
+    the coarse cells of ``bricks`` (``pppm_cells.Bricks``; the caller has
+    checked ``pppm_cells.takes_bricks``), each cell's charges summed in its
+    brick in shared memory and the brick added to the mesh once.  While
+    the tracer is on the kernel adds the charged slots it spread and those
+    of them that spilled out of their brick to the device counters
+    ``pppm.deposited`` and ``pppm.spilled``."""
+    args = _slot_args(pm, state, n_atoms, coef)
+    dev = state.x.device
+    nx, ny, nz = pm.grid
+    mesh = torch.zeros(nx * ny * nz, dtype=state.x.dtype, device=dev)
+    counts = trace.device_counts("pppm", dev)
+    # _slot_args ends with (coef, box): no box on the card here
+    rc = _lib().pppm_deposit_cells(
+        _FLT[state.x.dtype], *args[:-1], *bricks.nc, *bricks.off, *bricks.w,
+        mesh.data_ptr(), None if counts is None else counts.data_ptr(),
+        _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"pppm deposit_cells launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["pppm_deposit_cells"] += 1
     return mesh.view(nx, ny, nz)
 
 

@@ -547,8 +547,10 @@ def _patch_aligned_smin(nc, L, skin, order):
 def _pppm_for_grid(cfg: dict, box, q, style, prec, skin: float):
     """The engine's k-space solver as a function of its cell grid: PPPM
     on a mesh aligned to the grid's coarse (reach-1) cells, with the
-    g_ewald the pair style already carries."""
+    g_ewald the pair style already carries, and those cells' bricks for
+    the slot deposit (K5 by cell)."""
     from .models.kspace import CellPPPM, setup_pppm
+    from .models.kspace.pppm_cells import cell_bricks
 
     ks, ps = cfg["kspace_style"], cfg["pair_style"]
     order = ks.get("order", 5)
@@ -565,7 +567,8 @@ def _pppm_for_grid(cfg: dict, box, q, style, prec, skin: float):
                         multiple_of=kgrid.nc,
                         grid_min=tuple(int(s * c) for s, c in zip(smin, nc)),
                         acc_dtype=prec.acc)
-        return CellPPPM(pm, grid.n_atoms)
+        return CellPPPM(pm, grid.n_atoms,
+                        bricks=cell_bricks(pm, kgrid.nc, skin))
 
     return make
 
@@ -575,8 +578,10 @@ def _disp_for_grid(cfg: dict, box, typ, B, style, prec, skin: float):
     pppm/disp on a mesh aligned to the grid's coarse cells (the JAX
     package's ``use_celldisp`` branch, its run.py :926-944: geometric
     mixing without long-range Coulomb), with the g_ewald_6 the pair style
-    already carries and the per-type dispersion charges B."""
+    already carries and the per-type dispersion charges B, and the cells'
+    bricks for the slot deposit (K5 by cell)."""
     from .models.kspace import CellPPPMDisp, setup_pppm_disp
+    from .models.kspace.pppm_cells import cell_bricks
 
     ks, ps = cfg["kspace_style"], cfg["pair_style"]
     order6 = ks.get("order_disp", ks.get("order", 5))
@@ -591,7 +596,8 @@ def _disp_for_grid(cfg: dict, box, typ, B, style, prec, skin: float):
             acc_dtype=prec.acc, mix="geometric",
             diff=ks.get("diff", "ik"), order=order6, multiple_of=kgrid.nc,
             grid_min=tuple(int(s * c) for s, c in zip(smin, nc)))
-        return CellPPPMDisp(pmd, grid.n_atoms, typ)
+        return CellPPPMDisp(pmd, grid.n_atoms, typ,
+                            bricks=cell_bricks(pmd, kgrid.nc, skin))
 
     return make
 

@@ -49,6 +49,12 @@ a wait for the device, only when it is called.  The groups:
   cutoffs; ``eval_lanes``, the lane slots of the kernel's evaluate
   rounds (the plain version leaves it at 0).  ``in_range / tested`` is
   the hit share, ``in_range / eval_lanes`` the evaluate phase's lane use.
+- ``pppm`` (K5 by cell, ``ops.pppm.deposit_cells``: the cell engine's
+  slot deposit into a shared-memory brick of the mesh a coarse cell):
+  ``deposited``, the charged slots it spread; ``spilled``, those among
+  them with a stencil point outside their cell's brick (a drift past
+  skin/2), which went to the mesh directly.  ``spilled / deposited`` is
+  the share that took the slow path; the plain version counts neither.
 
 Operator's use::
 
@@ -72,7 +78,8 @@ COUNTS = {"host_sync": 0, "neighbor_build": 0, "thermo_row": 0, "step": 0,
           "shake.unconverged": 0}
 LAUNCHES: dict = {}
 # group -> the names of its device counters, in buffer order
-DEVICE_COUNTS = {"cellpair": ("tested", "in_range", "eval_lanes")}
+DEVICE_COUNTS = {"cellpair": ("tested", "in_range", "eval_lanes"),
+                 "pppm": ("deposited", "spilled")}
 _device_bufs: dict = {}      # (group, device) -> int64 buffer
 
 _on = False

@@ -128,38 +128,55 @@ def test_kernel_wrappers_reject_bad_input(cuda):
         cs.rebin_incremental(grid, box, st._replace(q=st.q[:-1]))
 
 
-def _pppm(dev, flt, acc, reach_z=1, n=400, L=12.0, seed=2):
+def _pppm(dev, flt, acc, reach_z=1, n=400, L=12.0, seed=2, cap=None,
+          drift=0.5):
     """A charged box on the card, binned, with an order-7 solver on a
-    mesh aligned to its cells; atoms drifted up to 0.5 out of place."""
+    mesh aligned to its cells and their bricks for a skin of 1.0 (K5 by
+    cell); atoms drifted up to ``drift`` out of place (0.5: skin/2)."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(0, L, (n, 3))
     q = rng.uniform(-1, 1, n)
     q -= q.mean()
     box = make_box([0, 0, 0], [L] * 3)
-    grid = cs.make_grid(n, box.lengths, 4.0, reach_z=reach_z)
+    grid = cs.make_grid(n, box.lengths, 4.0, cap=cap, reach_z=reach_z)
     t = lambda a, dt=flt: torch.as_tensor(a).to(dev, dt)  # noqa: E731
     st = cs.from_atoms(grid, box, t(x), t(np.zeros((n, 3))),
                        t(np.zeros((n, 3)), torch.int32),
                        t(np.zeros(n), torch.int32), t(q), dtype=flt)
+    assert not bool(st.overflow)
     for p in (st.x, st.y, st.z):
-        p += t(rng.uniform(-0.5, 0.5, p.shape[0]))
+        p += t(rng.uniform(-drift, drift, p.shape[0]))
     pm = setup_pppm(box, q, cutoff=4.0, accuracy_rel=1e-5, qqrd2e=332.06371,
                     order=7, multiple_of=grid.coarse().nc, acc_dtype=acc)
-    return pm, CellPPPM(pm, n), st
+    bricks = pppm_cells.cell_bricks(pm, grid.coarse().nc, 1.0)
+    return pm, CellPPPM(pm, n, bricks=bricks), st
 
 
 def _close(a, b, tol):
     return float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
+# K5 by cell's cases: atoms within skin/2 of their cell; cells of 264
+# slots, more than a block's 256 threads; atoms drifted past the bricks'
+# margin, so that some slots spill to the mesh directly
+PPPM_CASES = {"drift": {}, "cap264": dict(n=5000, cap=264),
+              "spill": dict(drift=1.5)}
+
+
 @pytest.mark.parametrize("flt,acc", [(torch.float32, torch.float32),
                                      (torch.float32, torch.float64),
                                      (torch.float64, torch.float64)])
 @pytest.mark.parametrize("reach_z", [1, 2])
-def test_pppm_kernels_match_plain(cuda, flt, acc, reach_z):
+@pytest.mark.parametrize("case", list(PPPM_CASES))
+def test_pppm_kernels_match_plain(cuda, flt, acc, reach_z, case):
+    """K5 in slot order and K5 by cell, K7 and K8 against their plain
+    versions; K5 by cell's counters: every charged slot deposited, slots
+    spilled only where they drifted past the margin."""
     from lammps_buck_intel_tpu_torch.ops import pppm as pppm_ops
+    from lammps_buck_intel_tpu_torch.utils import trace
 
-    pm, solver, st = _pppm(cuda, flt, acc, reach_z=reach_z)
+    pm, solver, st = _pppm(cuda, flt, acc, reach_z=reach_z,
+                           **PPPM_CASES[case])
     ftol, etol = (1e-11, 1e-11) if flt == torch.float64 else (1e-4, 1e-5)
     c = solver.consts(cuda, flt, acc)
     n = solver.n_atoms
@@ -167,6 +184,22 @@ def test_pppm_kernels_match_plain(cuda, flt, acc, reach_z):
     mesh_k = pppm_ops.deposit(pm, st, n, c["coef"])
     mesh_p = pppm_cells.deposit_plain(pm, st)
     assert _close(mesh_k, mesh_p, ftol)
+    ns = st.x.shape[0]
+    assert pppm_cells.takes_bricks(solver.bricks, ns, st.x.element_size())
+    trace.enable()
+    try:
+        c0 = trace.counters()
+        mesh_c = pppm_cells.deposit(pm, st, n, c, bricks=solver.bricks)
+        c1 = trace.counters()
+    finally:
+        trace.disable()
+    assert _close(mesh_c, mesh_p, ftol)
+    dep, spill = (c1[f"pppm.{k}"] - c0[f"pppm.{k}"]
+                  for k in ("deposited", "spilled"))
+    assert dep == int(((st.aid < n) & (st.q != 0)).sum())
+    assert (spill > 0) if case == "spill" else (spill == 0)
+    if case == "cap264":
+        assert ns // int(np.prod(solver.bricks.nc)) >= 264
     rhat = torch.fft.rfftn(mesh_p.to(acc)).contiguous()
     for ev in (False, True):
         ek, esk, vsk = pppm_ops.spectral(c, rhat, ev)
@@ -180,7 +213,7 @@ def test_pppm_kernels_match_plain(cuda, flt, acc, reach_z):
     fp = pppm_cells.gather_plain(pm, st, e_mesh, acc)
     assert _close(torch.stack(fk), torch.stack(fp), ftol)
     assert bool((fk[0][st.aid >= n] == 0).all())
-    for k in ("pppm_deposit", "pppm_gather"):
+    for k in ("pppm_deposit", "pppm_deposit_cells", "pppm_gather"):
         assert ops.LAUNCHES[k] == before[k] + 1
     assert ops.LAUNCHES["pppm_spectral"] == before["pppm_spectral"] + 2
 
@@ -197,6 +230,16 @@ def test_pppm_wrappers_reject_bad_input(cuda):
     rhat = torch.zeros((2, 2, 2), dtype=torch.complex64, device=cuda)
     with pytest.raises(ValueError):
         pppm_ops.spectral(c, rhat, False)
+    # K5 by cell: the routing's brick limit is the kernel's; a brick
+    # above it, or planes that are not whole cells, are refused
+    assert pppm_ops._lib().pppm_brick_bytes() == pppm_cells.BRICK_BYTES
+    big = solver.bricks._replace(w=(40, 40, 40))
+    with pytest.raises(RuntimeError):
+        pppm_ops.deposit_cells(pm, st, 400, c["coef"], big)
+    part = st._replace(**{k: getattr(st, k)[:-1] for k in
+                          ("x", "y", "z", "q", "aid")})
+    with pytest.raises(RuntimeError):
+        pppm_ops.deposit_cells(pm, part, 400, c["coef"], solver.bricks)
 
 
 # ---- the molecular path: examples/data.rhodo_class (1,728 atoms) ----
@@ -952,10 +995,12 @@ def test_pppm_compute_matches_plain(cuda, grid, flt, acc):
     qt = torch.as_tensor(q).to(cuda, flt)
     before = {k: ops.LAUNCHES[k] for k in ("pppm_deposit", "pppm_spectral",
                                            "pppm_gather")}
+    cells = ops.LAUNCHES["pppm_deposit_cells"]
     rk = pm.compute(xt, qt, eflag=True, vflag=True)
     rp = tpppm.pppm_compute_plain(pm, xt, qt, True, True)
     for k, v in before.items():
         assert ops.LAUNCHES[k] == v + 1, k
+    assert ops.LAUNCHES["pppm_deposit_cells"] == cells
     ftol, etol = (1e-4, 1e-5) if flt == torch.float32 else (1e-11, 1e-11)
     fk, fp = torch.stack(rk.f), torch.stack(rp.f)
     assert float((fk - fp).abs().max()) <= ftol * float(fp.abs().max())
@@ -1336,7 +1381,12 @@ def test_cell_pppm_disp_kernels_match_plain(cuda, prec, tmp_path):
     before = dict(ops.LAUNCHES)
     fk = sim.kspace.compute_slots(st, True, True)
     fp = sim.kspace.compute_slots(cpu, True, True)
-    for k in ("pppm_deposit", "disp_spectral", "pppm_gather"):
+    # K5 by cell: the dispersion mesh's bricks (19^3 points) fit in f32,
+    # not in f64, which keeps K5 in slot order
+    assert pppm_cells.takes_bricks(sim.kspace.bricks, st.x.shape[0],
+                                   st.x.element_size()) == (prec == "single")
+    dep = "pppm_deposit_cells" if prec == "single" else "pppm_deposit"
+    for k in (dep, "disp_spectral", "pppm_gather"):
         assert ops.LAUNCHES[k] == before[k] + 1, k
     a, b = torch.stack(fk[:3]).cpu(), torch.stack(fp[:3])
     assert float((a - b).abs().max()) <= ftol * float(b.abs().max())
@@ -1682,6 +1732,10 @@ def test_peratom_slots_kernels_match_plain(cuda, name, prec, tmp_path):
     key = "pppm_peratom_slots" if name == "rhodo_class" \
         else "disp_peratom_slots"
     assert ops.LAUNCHES[key] == 1
+    # K5 by cell where the brick fits: not the hexane cut-out's in f64
+    cells = name == "rhodo_class" or prec == "single"
+    assert ops.LAUNCHES["pppm_deposit_cells"] == int(cells)
+    assert ops.LAUNCHES["pppm_deposit"] == int(not cells)
     ep, vp = sim.kspace.compute_peratom_slots(st, plain=True)
     tol = 1e-12 if prec == "double" else 1e-4
     assert _peratom_err(ek, ep) <= tol
@@ -1818,10 +1872,11 @@ def test_cell_pppm_ad_kernels_match_plain(cuda, prec):
         pm, diff="ad", _consts={},
         sf_sine=tpppm._sf_sine_fit(pm.grid, np.asarray([12.0] * 3),
                                    pm.greensfn, pm.order))
-    solver = CellPPPM(pm, solver.n_atoms)
-    before = ops.LAUNCHES["pppm_gather_ad"]
+    solver = CellPPPM(pm, solver.n_atoms, bricks=solver.bricks)
+    before = dict(ops.LAUNCHES)
     rk = solver.compute_slots(st, True, True)
-    assert ops.LAUNCHES["pppm_gather_ad"] == before + 1
+    for k in ("pppm_gather_ad", "pppm_deposit_cells"):
+        assert ops.LAUNCHES[k] == before[k] + 1, k
     cpu = st._replace(**{k: getattr(st, k).cpu() for k in st._fields
                          if getattr(st, k) is not None})
     rp = CellPPPM(pm, solver.n_atoms).compute_slots(cpu, True, True)

@@ -22,6 +22,8 @@ virial rel 1e-10; both routes: the plain version the CPU runs
 (``compute_staged``: half spectrum with the Nyquist conventions, here with
 each stage's plain version).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -43,6 +45,7 @@ from lammps_buck_intel_tpu_torch.models.kspace import CellPPPM
 from lammps_buck_intel_tpu_torch.models.kspace import pppm as tpppm
 from lammps_buck_intel_tpu_torch.models.kspace import pppm_cells
 from lammps_buck_intel_tpu_torch.models.kspace import setup_pppm as tsetup
+from lammps_buck_intel_tpu_torch.neighbor import cell_slots as tcs
 
 QQRD2E = 332.06371
 L, N, CUT, SKIN = 12.0, 400, 4.0, 1.0
@@ -336,3 +339,40 @@ def test_plain_deposit_rho_matches_jax():
     mt = tpppm.deposit_rho_plain(t, torch.as_tensor(x.T.copy()),
                                  torch.as_tensor(q)).numpy()
     assert np.abs(mt - mj).max() <= 1e-12 * np.abs(mj).max()
+
+
+
+def test_slot_deposit_takes_the_cell_path_on_an_aligned_mesh():
+    """The routing of the slot deposit alone (``cell_bricks`` and
+    ``takes_bricks``; the kernel runs on the card): the slots of a mesh
+    that is a whole multiple of the coarse cells take K5 by cell, with a
+    brick that covers a cell's points, the stencil and the skin/2 drift;
+    a mesh that is not a multiple, atom-order planes and a brick past the
+    shared-memory limit do not."""
+    _, q = _charges(3)
+    box = tmake_box([0.0] * 3, [L] * 3)
+    grid = tcs.make_grid(N, box.lengths, CUT)
+    pm = tsetup(box, q, cutoff=CUT, accuracy_rel=1e-5, qqrd2e=QQRD2E,
+                order=7, multiple_of=grid.nc)
+    m = pm.grid[0] // grid.nc[0]
+    d = 0.5 * SKIN / float(pm.h[0])
+    b = pppm_cells.cell_bricks(pm, grid.nc, SKIN)
+    # order 7 (rint bases): round(d) points below the cell's bases,
+    # round(d) + 1 above, and the stencil's 3 a side
+    r = int(np.floor(d + 0.5))
+    assert b == pppm_cells.Bricks(grid.nc, (-3 - r,) * 3,
+                                  (m + 2 * r + 7,) * 3)
+    for size in (4, 8):
+        assert pppm_cells.takes_bricks(b, grid.nslots, size)
+    assert not pppm_cells.takes_bricks(None, grid.nslots, 4)
+    assert not pppm_cells.takes_bricks(b, N, 4)       # atom order
+    assert not pppm_cells.takes_bricks(b._replace(w=(40,) * 3),
+                                       grid.nslots, 4)
+    odd = dataclasses.replace(pm, grid=(pm.grid[0] + 1,) + pm.grid[1:])
+    assert pppm_cells.cell_bricks(odd, grid.nc, SKIN) is None
+    # even order (floor bases): ceil(d) below, floor(d) + 1 above
+    be = pppm_cells.cell_bricks(dataclasses.replace(pm, order=6), grid.nc,
+                                SKIN)
+    below, above = int(np.ceil(d)), int(np.floor(d)) + 1
+    assert be.off == (-2 - below,) * 3
+    assert be.w == (m + below + above + 5,) * 3
