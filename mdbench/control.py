@@ -27,15 +27,14 @@ def readings(cfg: dict, tr: dict, seed: int, steps: int, device: str,
     import torch
 
     from lammps_buck_intel_tpu_torch.run import build_simulation
-    from mdbench.harness import checks, spec
+    from mdbench.harness import cell, checks, spec
 
     deck = spec.deck(cfg, tr, seed)
     deck.pop("dump", None)
     sim = build_simulation(dict(deck), device=device)
     sim.run(steps, thermo_every=0, log=False)
-    a = sim.get_atoms()
-    end = {k: a[k] for k in ("x", "v", "f", "image")}
-    del sim, a
+    end = cell._atoms(sim)
+    del sim
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()

@@ -33,8 +33,13 @@ class _Closed(Exception):
 
 
 def _atoms(sim) -> dict:
+    """The program's atoms, with its box (``box``) where fix npt moves
+    it."""
     a = sim.get_atoms()
-    return {k: np.asarray(a[k]) for k in ("x", "v", "f", "image")}
+    out = {k: np.asarray(a[k]) for k in ("x", "v", "f", "image")}
+    if "boxL" in a:
+        out["box"] = np.asarray(a["boxL"], np.float64)
+    return out
 
 
 def run(cfg: dict, tr: dict, seed: int, seconds: float, trace: bool,
@@ -86,6 +91,7 @@ def run(cfg: dict, tr: dict, seed: int, seconds: float, trace: bool,
         intervals=out["intervals"], step_ms=out["step_ms"],
         frames_s=out.get("frames_s", []), grows=grows,
         trace=out.get("trace"), deck=deck, positions=out.get("positions"),
+        box=out.get("box"),
         memory_peak=memory_peak, checks=checked, check_s=check_s,
         correct=all(c["value"] <= c["limit"] for c in checked.values()))
 
@@ -98,7 +104,7 @@ def _run_thermo(sim, deck, tr, seconds, trace, layer_of) -> dict:
     orig = sim.thermo
 
     def open_slice(sl):
-        st["positions"] = sim.get_atoms()["x"]
+        st["slice_atoms"] = _atoms(sim)
         st["slice"], st["k0"] = sl, len(stamps)
         st["stop_at"] = len(stamps) + int(tr["trace_intervals"])
         sl.start()
@@ -151,7 +157,8 @@ def _run_thermo(sim, deck, tr, seconds, trace, layer_of) -> dict:
                     spin *= 4
                     open_slice(Slice(spin))
                     drive()
-            out["positions"] = st["positions"]
+            out["positions"] = st["slice_atoms"]["x"]
+            out["box"] = st["slice_atoms"].get("box")
         out["row"] = rows[-1]
     finally:
         del sim.thermo
@@ -201,7 +208,8 @@ def _run_dump(sim, deck, tr, seconds, trace, layer_of) -> dict:
     out = dict(t0=t0, t1=t1, steps=cycles * every, intervals=cycles,
                step_ms=[], frames_s=frames, row=rows[-1])
     if trace:
-        out["positions"] = sim.get_atoms()["x"]
+        a = _atoms(sim)
+        out["positions"], out["box"] = a["x"], a.get("box")
         spin = 1_000_000
         for k in range(3):
             sl = Slice(spin)

@@ -23,6 +23,11 @@ cannot follow the window; it checks the start and the end of it:
 - ``pe_atom``, ``stress_atom``: a dump frame's c_pe and c_stress against
   the reference's per-atom energy and stress at the frame's state, the
   worst atom over the rms.
+
+Under fix npt the program's box at the window's end comes with its atoms
+(``box``): the window-end numbers are worked out in that box, with the
+splittings of the set-up box (``Reference.in_box``); the start numbers
+stay in the deck's box.
 """
 from __future__ import annotations
 
@@ -76,6 +81,8 @@ def _numbers(ref: Reference, d, start, end, row, follow, frame, dt):
     vrms = float(v0.pow(2).sum(1).mean().sqrt())
     out["start_x"] = float(minimg(xs.double() - x0, L).abs().max())
     out["start_v"] = _over(float((vs.double() - v0).abs().max()), vrms)
+    ref = ref.in_box(end.get("box"))
+    L = ref.Lt
     x, v = ref.tensor(end["x"]), ref.tensor(end["v"])
     r = ref.forces(x, peratom=frame is not None)
     if control:

@@ -81,6 +81,95 @@ def _bfactor(K: int, order: int) -> np.ndarray:
     return 1.0 / np.abs(den) ** 2
 
 
+def stencil_of(x: torch.Tensor, L, K, order: int, offset=None):
+    """``stencil(s)``: for the atoms in slice s, the spline weights and
+    their derivatives per axis ((n, order) each, in x's dtype) and the flat
+    indices (n, order^3) of the points they reach on a K mesh of the box
+    L, each atom's shifted by ``offset`` (N,) where given."""
+    dev = x.device
+    Lt = torch.as_tensor(np.asarray(L, np.float64), dtype=torch.float64,
+                         device=dev)
+    Kt = torch.as_tensor(K, device=dev)
+    # fractional mesh coordinates; the spline weights in the working dtype
+    u = (x.to(torch.float64) / Lt) % 1.0 * Kt
+    base = torch.floor(u).long()
+    w = (u - base).to(x.dtype)
+    j = torch.arange(order, device=dev)
+
+    def stencil(s):
+        wx, dx = bspline(w[s, 0], order)
+        wy, dy = bspline(w[s, 1], order)
+        wz, dz = bspline(w[s, 2], order)
+        gx = (base[s, 0:1] - j) % K[0]
+        gy = (base[s, 1:2] - j) % K[1]
+        gz = (base[s, 2:3] - j) % K[2]
+        idx = ((gx[:, :, None, None] * K[1] + gy[:, None, :, None]) * K[2]
+               + gz[:, None, None, :]).reshape(len(gx), -1)
+        if offset is not None:
+            idx = idx + offset[s, None]
+        return (wx, wy, wz), (dx, dy, dz), idx
+
+    return stencil
+
+
+def spread(stencil, a: torch.Tensor, size: int, chunk: int, fdt):
+    """The atoms' weights a (N,) spread by their splines onto a flat mesh
+    of ``size`` points, summed in fdt."""
+    Q = torch.zeros(size, dtype=fdt, device=a.device)
+    for s0 in range(0, len(a), chunk):
+        s = slice(s0, min(len(a), s0 + chunk))
+        (wx, wy, wz), _, idx = stencil(s)
+        val = (a[s, None, None, None] * wx[:, :, None, None]
+               * wy[:, None, :, None] * wz[:, None, None, :])
+        Q.index_add_(0, idx.reshape(-1), val.reshape(-1).to(fdt))
+    return Q
+
+
+def half_spectrum(K, L, order: int, dev):
+    """On the half spectrum of a K mesh of the box L: m per axis (in
+    inverse length), m^2, the Euler spline factors B(m) and each m_z
+    plane's weight (2 where the half spectrum holds m for m and -m)."""
+    mx = torch.fft.fftfreq(K[0], d=1.0 / K[0], device=dev,
+                           dtype=torch.float64) / float(L[0])
+    my = torch.fft.fftfreq(K[1], d=1.0 / K[1], device=dev,
+                           dtype=torch.float64) / float(L[1])
+    mz = torch.arange(K[2] // 2 + 1, device=dev,
+                      dtype=torch.float64) / float(L[2])
+    m2 = mx[:, None, None] ** 2 + my[None, :, None] ** 2 \
+        + mz[None, None, :] ** 2
+    B = [torch.as_tensor(_bfactor(k, order), device=dev) for k in K]
+    Bm = B[0][:, None, None] * B[1][None, :, None] \
+        * B[2][None, None, :K[2] // 2 + 1]
+    sym = torch.full((K[2] // 2 + 1,), 2.0, dtype=torch.float64, device=dev)
+    sym[0] = 1.0
+    if K[2] % 2 == 0:
+        sym[-1] = 1.0
+    return (mx, my, mz), m2, Bm, sym
+
+
+def gather(stencil, phi: torch.Tensor, a: torch.Tensor, K, L, order: int,
+           chunk: int) -> torch.Tensor:
+    """-a_i times the gradient of the flat mesh potential phi, on a K mesh
+    of the box L, at each atom: (N, 3) in phi's dtype."""
+    n, dev = len(a), phi.device
+    scale = (torch.as_tensor(K, device=dev) / torch.as_tensor(
+        np.asarray(L, np.float64), dtype=torch.float64,
+        device=dev)).to(phi.dtype)
+    f = torch.empty((n, 3), dtype=phi.dtype, device=dev)
+    for s0 in range(0, n, chunk):
+        s = slice(s0, min(n, s0 + chunk))
+        (wx, wy, wz), (dx, dy, dz), idx = stencil(s)
+        ph = phi[idx].reshape(-1, order, order, order)
+        fx = (dx[:, :, None, None] * wy[:, None, :, None]
+              * wz[:, None, None, :] * ph).sum((1, 2, 3))
+        fy = (wx[:, :, None, None] * dy[:, None, :, None]
+              * wz[:, None, None, :] * ph).sum((1, 2, 3))
+        fz = (wx[:, :, None, None] * wy[:, None, :, None]
+              * dz[:, None, None, :] * ph).sum((1, 2, 3))
+        f[s] = -a[s, None] * torch.stack([fx, fy, fz], -1) * scale
+    return f
+
+
 def compute(x: torch.Tensor, q: torch.Tensor, L, g: float, qqrd2e: float,
             order: int = 10, mesh=None, chunk: int = 16384,
             peratom: bool = False):
@@ -94,83 +183,31 @@ def compute(x: torch.Tensor, q: torch.Tensor, L, g: float, qqrd2e: float,
     dt, dev, n = x.dtype, x.device, len(x)
     low = dt not in (torch.float32, torch.float64)
     fdt = torch.float32 if low else dt
-    Lt = torch.as_tensor(np.asarray(L, np.float64), dtype=torch.float64,
-                         device=dev)
     K = mesh or mesh_for(np.asarray(L), g)
-    Kt = torch.as_tensor(K, device=dev)
     V = float(np.prod(np.asarray(L, np.float64)))
-    # fractional mesh coordinates; the spline weights in the working dtype
-    u = (x.to(torch.float64) / Lt) % 1.0 * Kt
-    base = torch.floor(u).long()
-    w = (u - base).to(dt)
-    j = torch.arange(order, device=dev)
-    Q = torch.zeros(K, dtype=fdt, device=dev).reshape(-1)
-
-    def stencil(s):
-        wx, dx = bspline(w[s, 0], order)
-        wy, dy = bspline(w[s, 1], order)
-        wz, dz = bspline(w[s, 2], order)
-        gx = (base[s, 0:1] - j) % K[0]
-        gy = (base[s, 1:2] - j) % K[1]
-        gz = (base[s, 2:3] - j) % K[2]
-        idx = ((gx[:, :, None, None] * K[1] + gy[:, None, :, None]) * K[2]
-               + gz[:, None, None, :]).reshape(len(gx), -1)
-        return (wx, wy, wz), (dx, dy, dz), idx
-
-    for s0 in range(0, n, chunk):
-        s = slice(s0, min(n, s0 + chunk))
-        (wx, wy, wz), _, idx = stencil(s)
-        val = (q[s, None, None, None] * wx[:, :, None, None]
-               * wy[:, None, :, None] * wz[:, None, None, :])
-        Q.index_add_(0, idx.reshape(-1), val.reshape(-1).to(fdt))
+    stencil = stencil_of(x, L, K, order)
+    Q = spread(stencil, q, int(np.prod(K)), chunk, fdt)
     Q = Q.reshape(K).to(dt).to(fdt)
     # C(m) B(m) on the half spectrum
-    mx = torch.fft.fftfreq(K[0], d=1.0 / K[0], device=dev,
-                           dtype=torch.float64) / float(L[0])
-    my = torch.fft.fftfreq(K[1], d=1.0 / K[1], device=dev,
-                           dtype=torch.float64) / float(L[1])
-    mz = torch.arange(K[2] // 2 + 1, device=dev,
-                      dtype=torch.float64) / float(L[2])
-    m2 = mx[:, None, None] ** 2 + my[None, :, None] ** 2 \
-        + mz[None, None, :] ** 2
-    B = [torch.as_tensor(_bfactor(k, order), device=dev) for k in K]
-    Bm = B[0][:, None, None] * B[1][None, :, None] \
-        * B[2][None, None, :K[2] // 2 + 1]
+    ms, m2, Bm, sym = half_spectrum(K, L, order, dev)
     safe = torch.where(m2 == 0, torch.ones_like(m2), m2)
     C = torch.exp(-math.pi ** 2 * safe / g ** 2) / (math.pi * V * safe)
     C = torch.where(m2 == 0, torch.zeros_like(C), C) * Bm
     FQ = torch.fft.rfftn(Q)
-    # the half spectrum holds each m with m_z in (0, K3/2) for two
-    sym = torch.full((K[2] // 2 + 1,), 2.0, dtype=torch.float64, device=dev)
-    sym[0] = 1.0
-    if K[2] % 2 == 0:
-        sym[-1] = 1.0
     p2 = FQ.real.to(torch.float64) ** 2 + FQ.imag.to(torch.float64) ** 2
     Em = 0.5 * C * p2 * sym
     e_rec = float(Em.sum())
     vir = float((Em * (1.0 - 2.0 * math.pi ** 2 * m2 / g ** 2)).sum())
     phi = torch.fft.irfftn(FQ * C.to(fdt), s=K) * float(np.prod(K))
     phi = phi.to(dt).reshape(-1)
-    f = torch.empty((n, 3), dtype=dt, device=dev)
-    scale = (Kt / Lt).to(dt)
-    for s0 in range(0, n, chunk):
-        s = slice(s0, min(n, s0 + chunk))
-        (wx, wy, wz), (dx, dy, dz), idx = stencil(s)
-        ph = phi[idx].reshape(-1, order, order, order)
-        fx = (dx[:, :, None, None] * wy[:, None, :, None]
-              * wz[:, None, None, :] * ph).sum((1, 2, 3))
-        fy = (wx[:, :, None, None] * dy[:, None, :, None]
-              * wz[:, None, None, :] * ph).sum((1, 2, 3))
-        fz = (wx[:, :, None, None] * wy[:, None, :, None]
-              * dz[:, None, None, :] * ph).sum((1, 2, 3))
-        f[s] = -q[s, None] * torch.stack([fx, fy, fz], -1) * scale
+    f = gather(stencil, phi, q, K, L, order, chunk)
     qd = q.to(torch.float64)
     e_self = -g / math.sqrt(math.pi) * float((qd * qd).sum())
     e_charged = -math.pi * float(qd.sum()) ** 2 / (2.0 * g * g * V)
     e = (e_rec + e_self + e_charged) * qqrd2e
     if not peratom:
         return f * qqrd2e, e, vir * qqrd2e
-    ms = (mx[:, None, None], my[None, :, None], mz[None, None, :])
+    ms = (ms[0][:, None, None], ms[1][None, :, None], ms[2][None, None, :])
     kern = 2.0 * (1.0 + math.pi ** 2 * m2 / g ** 2) / safe
     meshes = [phi]
     for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)):

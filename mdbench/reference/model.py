@@ -3,7 +3,13 @@ of a deck, in any dtype, from the deck and positions alone.
 
 The pair style, the k-space splitting, the topology and the constraints
 are worked out here from the deck's files (``reference.system``);
-nothing is taken from the program under test.
+nothing is taken from the program under test.  The k-space styles:
+``pppm`` (ik) with ``buck/coul/long`` or ``lj/charmm/coul/long``, and
+``pppm/disp`` (ik, ``mix none``) with ``buck/long/coul/long``; ``ewald``,
+``diff ad``, ``kspace_modify slab``, the other pppm/disp mixes and rigid
+bodies are refused by name.  The splittings g_ewald and g6 are set once,
+in the deck's box, as LAMMPS sets them in ``init``; ``in_box`` gives the
+same physics in the box a barostat has moved to.
 """
 from __future__ import annotations
 
@@ -12,7 +18,7 @@ import copy
 import numpy as np
 import torch
 
-from . import bonded, ewald, pair, system
+from . import bonded, ewald, ewald_disp, pair, system
 
 _VOIGT = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 
@@ -27,15 +33,19 @@ class Reference:
         self.n = n = len(d["x"])
         self.timestep = float(deck["timestep"])
         ks, ps = deck.get("kspace_style"), deck["pair_style"]
-        if ks is None or ks["name"] != "pppm" or ks.get("diff", "ik") != "ik":
-            raise NotImplementedError(f"kspace_style {ks}")
+        self.disp = _kspace(ks, ps)
+        fixes = {fx["name"]: fx for fx in deck.get("fixes", [])}
+        rigid = sorted(k for k in fixes if k.startswith("rigid"))
+        if rigid:
+            raise NotImplementedError(f"fix {rigid[0]} (rigid bodies)")
         self.accuracy = float(ks.get("accuracy", 1e-4))
         self.g = ewald.g_ewald(self.accuracy,
                                float(ps.get("cut_coul", ps["cut"])), d["q"],
                                float(np.prod(self.L)), self.units["qqrd2e"])
+        self.g6 = (ewald_disp.g6(float(ks.get("force_disp_real", 1e-4)),
+                                 float(ps["cut"])) if self.disp else 0.0)
         self.style = pair.PairStyle(deck, len(d["mass"]),
-                                    self.units["qqrd2e"], self.g)
-        fixes = {fx["name"]: fx for fx in deck.get("fixes", [])}
+                                    self.units["qqrd2e"], self.g, self.g6)
         self.nve = set(fixes) == {"nve"}
         self.constraints, self.shaken, nc = None, (), 0
         self.Lt = torch.as_tensor(self.L, dtype=dtype, device=device)
@@ -65,6 +75,17 @@ class Reference:
     def tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=self.dt, device=self.dev)
 
+    def in_box(self, L):
+        """The same reference in the box of lengths ``L`` (a box that fix
+        npt moved), the splittings kept at their set-up values."""
+        if L is None:
+            return self
+        r = copy.copy(self)
+        r.L = np.asarray(L, np.float64)
+        r.Lt = torch.as_tensor(r.L, dtype=self.dt, device=self.dev)
+        r._low = {}
+        return r
+
     def as_dtype(self, dt):
         """The same reference computing in ``dt``."""
         if dt == self.dt:
@@ -86,6 +107,13 @@ class Reference:
                           self.special, peratom=peratom)
         kr = ewald.compute(x, self.q, self.L, self.g, self.units["qqrd2e"],
                            peratom=peratom)
+        if self.disp:
+            if peratom:
+                raise NotImplementedError(
+                    "per-atom dispersion k-space (no dump cell needs it)")
+            kd = ewald_disp.compute(x, self.typ, self.style.C, self.L,
+                                    self.g6)
+            kr = (kr[0] + kd[0], kr[1] + kd[1], kr[2] + kd[2])
         f = pr[0] + kr[0]
         out = dict(evdwl=float(pr[1]), ecoul=float(pr[2]), elong=kr[1],
                    emol=0.0, e14=0.0,
@@ -131,3 +159,28 @@ class Reference:
         x1 = x + dt * vh
         r = self.forces(x1)
         return x1, vh + dtf * r["f"] * self.minv[:, None], r
+
+
+def _kspace(ks, ps) -> bool:
+    """Whether the deck's k-space has a dispersion part; refuses, by name,
+    every k-space style and pair style pairing the reference lacks."""
+    if ks is None:
+        raise NotImplementedError("kspace_style none")
+    name, diff = ks["name"], ks.get("diff", "ik")
+    if name not in ("pppm", "pppm/disp"):
+        raise NotImplementedError(f"kspace_style {name}")
+    if diff != "ik":
+        raise NotImplementedError(f"kspace_style {name} diff {diff}")
+    if ks.get("slab"):
+        raise NotImplementedError(f"kspace_modify slab {ks['slab']}")
+    disp = name == "pppm/disp"
+    if disp != (ps["name"] == "buck/long/coul/long"):
+        raise NotImplementedError(
+            f"pair_style {ps['name']} with kspace_style {name}")
+    if disp:
+        mix = ks.get("mix", ps.get("mix", "geometric"))
+        if mix != "none":
+            raise NotImplementedError(f"kspace_style pppm/disp mix {mix}")
+        if "coul_off" in ps or ps.get("coul", "long") != "long":
+            raise NotImplementedError(f"pair_style {ps['name']} coul off")
+    return disp

@@ -5,6 +5,10 @@ erfc:
 
 - ``buck/coul/long``: E = A exp(-r/rho) - C / r^6 inside ``cut``, plus
   qqrd2e q_i q_j erfc(g r) / r inside the Coulomb cutoff;
+- ``buck/long/coul/long`` (with ``kspace_style pppm/disp``): the same but
+  for the Ewald split of the r^-6 term, -C exp(-a^2) (1 + a^2 + a^4 / 2)
+  / r^6 with a = g6 r inside ``cut`` (its reciprocal part is
+  ``reference.ewald_disp``);
 - ``lj/charmm/coul/long``: 4 eps [(s/r)^12 - (s/r)^6] (arithmetic mixing,
   eps_ij = sqrt(eps_i eps_j), s_ij = (s_i + s_j) / 2) times the CHARMM
   energy switch S(r) = (rc^2 - r^2)^2 (rc^2 + 2 r^2 - 3 ri^2) /
@@ -12,7 +16,9 @@ erfc:
 
 A special pair (1-2, 1-3, 1-4 through the bonds) weighs the Van der Waals
 term by its factor and keeps qqrd2e q_i q_j (erfc(g r) - (1 - f)) / r,
-since the k-space sum holds every pair.
+since the k-space sum holds every pair; for the same reason a special
+buck/long pair weighs its exp(-r/rho) term by f and adds (1 - f) C / r^6
+to the split r^-6 term.
 """
 from __future__ import annotations
 
@@ -31,18 +37,19 @@ class PairStyle:
     """The per-type-pair coefficients of a deck's pair style."""
 
     def __init__(self, deck: dict, ntypes: int, qqrd2e: float,
-                 g_ewald: float):
+                 g_ewald: float, g6: float = 0.0):
         ps = deck["pair_style"]
         self.name = ps["name"]
-        self.qqrd2e, self.g = qqrd2e, g_ewald
+        self.qqrd2e, self.g, self.g6 = qqrd2e, g_ewald, g6
         self.cut = float(ps["cut"])
         self.cut_coul = float(ps.get("cut_coul", ps["cut"]))
         self.rc = max(self.cut, self.cut_coul)
         T = ntypes
         co = {tuple(int(s) - 1 for s in k.split()): v
               for k, v in ps["coeffs"].items()}
-        if self.name == "buck/coul/long":
-            self.kind = "buck"
+        if self.name in ("buck/coul/long", "buck/long/coul/long"):
+            self.kind = "buck" if self.name == "buck/coul/long" else \
+                "buck_long"
             self.A, self.rho, self.C = (np.zeros((T, T)) for _ in range(3))
             self.rho[:] = 1.0
             for (i, j), (a, r, c) in co.items():
@@ -148,6 +155,16 @@ def compute(style: PairStyle, x: torch.Tensor, typ: torch.Tensor,
             rexp = torch.exp(-r / rho)
             fv = (A / rho * r * rexp - 6.0 * C * r6inv) * flj
             ev = (A * rexp - C * r6inv) * flj
+        elif style.kind == "buck_long":
+            A, rho, C = (tab[k][ti, tj] for k in ("A", "rho", "C"))
+            rexp = torch.exp(-r / rho)
+            a2 = style.g6 ** 2 * rsq
+            ea = torch.exp(-a2)
+            kept = (1.0 + a2 + 0.5 * a2 * a2) * ea
+            kept_f = kept + a2 * a2 * a2 / 6.0 * ea
+            fv = flj * A / rho * r * rexp \
+                - 6.0 * C * r6inv * (kept_f - (1.0 - flj))
+            ev = flj * A * rexp - C * r6inv * (kept - (1.0 - flj))
         else:
             eps, sig = tab["eps"][ti, tj], tab["sig"][ti, tj]
             s6 = sig ** 6

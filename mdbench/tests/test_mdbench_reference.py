@@ -40,19 +40,30 @@ def test_smooth_pme_against_the_direct_sum():
     assert float((f - f0).abs().max()) < 1e-8 * float(f0.abs().max())
 
 
-def _reference(dtype, replicate=(1, 1, 1)):
+STYLES = ("buck/coul/long", "buck/long/coul/long")
+
+
+def _reference(dtype, replicate=(1, 1, 1), style="buck/coul/long"):
+    """The silica deck at cut 5 on jittered atoms; with buck/long/coul/long
+    its pppm/disp form (cristobalite_buck_long.yaml's k-space line)."""
     cfg = spec.config("cristobalite_pppm")
     deck = spec.deck(cfg, dict(spec.traffic("x656.thermo50"),
                                replicate=list(replicate)), 7)
     deck["pair_style"]["cut"] = 5.0
+    if style == "buck/long/coul/long":
+        deck["pair_style"]["name"] = style
+        deck["kspace_style"] = {"name": "pppm/disp", "accuracy": 1e-4,
+                                "force_disp_real": 1e-4, "order": 7,
+                                "mix": "none"}
     d = system.build(deck, 7)
     rng = np.random.default_rng(1)
     d["x"] = d["x"] + rng.normal(0, 0.05, d["x"].shape)
     return model.Reference(deck, d, "cpu", dtype), d
 
 
-def test_f32_agrees_with_f64():
-    r64, d = _reference(torch.float64)
+@pytest.mark.parametrize("style", STYLES)
+def test_f32_agrees_with_f64(style):
+    r64, d = _reference(torch.float64, style=style)
     r32 = r64.as_dtype(torch.float32)
     x = torch.as_tensor(d["x"])
     a, b = r64.forces(x), r32.forces(x.float())
@@ -71,8 +82,9 @@ def test_peratom_sums_to_the_totals():
                                                              rel=1e-9)
 
 
-def test_forces_are_minus_the_energy_gradient():
-    r, d = _reference(torch.float64)
+@pytest.mark.parametrize("style", STYLES)
+def test_forces_are_minus_the_energy_gradient(style):
+    r, d = _reference(torch.float64, style=style)
     x = torch.as_tensor(d["x"])
     f = r.forces(x)["f"]
     h = 1e-5
